@@ -1,0 +1,183 @@
+"""Serve GPT-2 from stdin JSONL — the port's counterpart of
+``nezha-serve``'s stdio front end.
+
+    python -m nezha_tpu_torch.cli.serve --random-init --model-preset full
+
+Each stdin line is one request object::
+
+    {"id": "a", "prompt_tokens": [5, 17, 3], "max_new_tokens": 8,
+     "temperature": 0.8, "top_k": 40, "top_p": 0.9, "seed": 1,
+     "eos_id": 50256, "deadline_s": 30}
+
+and each request gets one stdout line when it finishes::
+
+    {"id": "a", "event": "done", "tokens": [...], "finish_reason":
+     "length", "ttft_s": ..., "latency_s": ...}
+
+A malformed line gets ``{"id": ..., "event": "error", "error": ...}``.
+The server exits once stdin closes and every request has finished.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import sys
+import threading
+import time
+
+import torch
+
+from nezha_tpu_torch.cli.common import add_model_args, gpt2_for_preset
+from nezha_tpu_torch.serve import (Engine, QueueFull, Request, Scheduler,
+                                   ServeConfig)
+
+
+def build_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(prog="nezha_tpu_torch.cli.serve",
+                                description=__doc__,
+                                formatter_class=argparse
+                                .RawDescriptionHelpFormatter)
+    add_model_args(p)
+    p.add_argument("--max-batch-size", type=int, default=4)
+    p.add_argument("--max-len", type=int, default=96,
+                   help="per-slot KV capacity (prompt + generated)")
+    p.add_argument("--max-prefill-len", type=int, default=32)
+    p.add_argument("--decode-horizon", type=int, default=1)
+    p.add_argument("--kv-block-size", type=int, default=16)
+    p.add_argument("--kv-num-blocks", type=int, default=None)
+    p.add_argument("--prefix-cache", choices=["on", "off"], default="on")
+    p.add_argument("--kv-eviction", choices=["lru", "none"], default="lru")
+    p.add_argument("--cache-dtype", choices=["bf16", "f32"], default="bf16")
+    p.add_argument("--k-max", type=int, default=64)
+    p.add_argument("--queue-capacity", type=int, default=16)
+    p.add_argument("--max-new-tokens", type=int, default=32,
+                   help="default and per-request cap")
+    p.add_argument("--eos-id", type=int, default=None)
+    return p
+
+
+def build_scheduler(args) -> Scheduler:
+    model = gpt2_for_preset(args.model_preset, seed=args.seed,
+                            device=args.device)
+    try:
+        cfg = ServeConfig(
+            max_batch_size=args.max_batch_size,
+            max_len=min(args.max_len, model.cfg.max_positions),
+            max_prefill_len=args.max_prefill_len,
+            decode_horizon=args.decode_horizon,
+            kv_block_size=args.kv_block_size,
+            kv_num_blocks=args.kv_num_blocks,
+            prefix_cache=args.prefix_cache == "on",
+            kv_eviction=args.kv_eviction,
+            cache_dtype=(torch.float32 if args.cache_dtype == "f32"
+                         else torch.bfloat16),
+            k_max=args.k_max, queue_capacity=args.queue_capacity)
+    except ValueError as e:
+        raise SystemExit(f"serve config: {e}")
+    return Scheduler(Engine(model, cfg))
+
+
+def parse_request(obj, args, vocab: int) -> Request:
+    """One wire object -> Request. Raises ValueError on bad input."""
+    if not isinstance(obj, dict):
+        raise ValueError("request must be a JSON object")
+    if "prompt_tokens" not in obj:
+        raise ValueError("prompt_tokens is required")
+    prompt = [int(t) for t in obj["prompt_tokens"]]
+    if not prompt or max(prompt) >= vocab or min(prompt) < 0:
+        raise ValueError(f"prompt_tokens must be non-empty ids in "
+                         f"[0, {vocab})")
+
+    def num(key, cast, default=None):
+        v = obj.get(key, default)
+        if v is None:
+            return None
+        try:
+            return cast(v)
+        except (TypeError, ValueError):
+            raise ValueError(f"{key} must be a number, got {v!r}")
+
+    return Request(
+        prompt=prompt,
+        max_new_tokens=min(num("max_new_tokens", int, args.max_new_tokens),
+                           args.max_new_tokens),
+        temperature=num("temperature", float, 0.0),
+        top_k=num("top_k", int), top_p=num("top_p", float),
+        eos_id=num("eos_id", int, args.eos_id),
+        seed=num("seed", int, args.seed),
+        deadline_s=num("deadline_s", float),
+        request_id=obj.get("id"))
+
+
+def run_stdio(scheduler: Scheduler, args, stdin=None, stdout=None) -> int:
+    """A reader thread feeds the queue as lines arrive (waiting for room:
+    stdin is the backpressure channel); this thread drives decoding."""
+    stdin = stdin if stdin is not None else sys.stdin
+    stdout = stdout if stdout is not None else sys.stdout
+    out_lock = threading.Lock()
+
+    def emit(obj):
+        with out_lock:
+            stdout.write(json.dumps(obj) + "\n")
+            stdout.flush()
+
+    def on_finish(res):
+        out = {"id": res.request_id, "event": "done", "tokens": res.tokens,
+               "finish_reason": res.finish_reason, "ttft_s": res.ttft_s,
+               "latency_s": res.latency_s}
+        if res.error is not None:
+            out["error"] = res.error
+        emit(out)
+        scheduler.results.pop(res.request_id, None)
+
+    scheduler.on_finish = on_finish
+    vocab = scheduler.engine.vocab
+    done_reading = threading.Event()
+
+    def reader():
+        try:
+            for line in stdin:
+                line = line.strip()
+                if not line:
+                    continue
+                obj = None
+                try:
+                    obj = json.loads(line)
+                    req = parse_request(obj, args, vocab)
+                except ValueError as e:
+                    rid = obj.get("id") if isinstance(obj, dict) else None
+                    emit({"id": rid, "event": "error", "error": str(e)})
+                    continue
+                while True:
+                    if scheduler.queue_depth >= scheduler.queue_capacity:
+                        time.sleep(0.005)
+                        continue
+                    try:
+                        scheduler.submit(req)
+                        break
+                    except QueueFull:
+                        time.sleep(0.005)
+                    except ValueError as e:
+                        emit({"id": req.request_id, "event": "error",
+                              "error": str(e)})
+                        break
+        finally:
+            done_reading.set()
+
+    t = threading.Thread(target=reader, daemon=True)
+    t.start()
+    while not done_reading.is_set() or scheduler.has_work():
+        if not scheduler.step():
+            time.sleep(0.002)
+    t.join(timeout=5.0)
+    return 0
+
+
+def main(argv=None) -> int:
+    args = build_parser().parse_args(argv)
+    return run_stdio(build_scheduler(args), args)
+
+
+if __name__ == "__main__":
+    sys.exit(main())

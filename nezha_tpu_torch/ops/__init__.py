@@ -1,0 +1,5 @@
+from nezha_tpu_torch.ops.activations import gelu
+from nezha_tpu_torch.ops.attention import (NEG_BIG, causal_mask,
+                                           dot_product_attention)
+
+__all__ = ["NEG_BIG", "causal_mask", "dot_product_attention", "gelu"]
