@@ -27,7 +27,11 @@
 //     a lane's loads for a tile in flight together (stage_tile).
 // Not done yet (later work): cp.async/TMA double-buffering, and a split-K
 // across thread blocks for long rows at small batch, where B*H blocks
-// leave SMs idle.
+// leave SMs idle. Shared memory is 4 * (521 D + 272) bytes per block (the
+// fp32 K and V tiles of eight warps): 134 KB at D=64 leaves room for one
+// block per SM, and D above 104 exceeds the 227 KB a block may hold (the
+// wrapper refuses it). Staging the tiles in the pool dtype would halve
+// that for bf16 pools.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 

@@ -58,3 +58,33 @@ def softmax_finalize(state: State, dtype: torch.dtype) -> torch.Tensor:
     """``acc / max(l, 1e-30)``: a row that folded nothing is exact zero."""
     _, l, acc = state
     return (acc / l.clamp_min(1e-30)).to(dtype)
+
+
+BF16_UNIT_ROUNDOFF = 2.0 ** -8   # half a bf16 ulp, relative (8-bit significand)
+
+
+def fold_error_bound(want: torch.Tensor, want_abs_v: torch.Tensor,
+                     p_bf16: bool) -> torch.Tensor:
+    """Elementwise bound on ``|kernel - plain|`` for one attention output.
+
+    ``want`` is the plain version's output and ``want_abs_v`` the plain
+    version run on ``|v|`` in place of ``v``: ``sum_j p_j |v_j| / l`` per
+    element. The two fold in different orders (32-key tiles and warp
+    splits against pool blocks), so:
+
+    - when ``p`` is rounded to bf16 before P·V (``p_bf16``), each weight
+      carries a relative error of at most the unit roundoff 2^-8, taken
+      against different running maxima on each side: together at most
+      ``2 * 2^-8 * sum_j p_j |v_j| / l``;
+    - a bf16 output rounds once on each side: at most ``2 * 2^-8 * |out|``;
+    - fp32 arithmetic in a different order: 1e-5.
+
+    The bound follows each row's weighted ``|v|`` and ``|out|``, not
+    ``max |v|``, so it stays tight on long rows whose outputs are small."""
+    bound = torch.full(want.shape, 1e-5, dtype=torch.float32,
+                       device=want.device)
+    if p_bf16:
+        bound += 2 * BF16_UNIT_ROUNDOFF * want_abs_v.float()
+    if want.dtype == torch.bfloat16:
+        bound += 2 * BF16_UNIT_ROUNDOFF * want.float().abs()
+    return bound

@@ -22,6 +22,25 @@ from nezha_tpu_torch.ops.cuda.common import (softmax_block_update,
 
 _ARGTYPES = (ctypes.c_void_p,) * 6 + (ctypes.c_int,) * 5 + (
     ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p)
+# Largest dynamic shared memory one thread block may opt into on sm_90.
+_SMEM_LIMIT = 227 * 1024
+
+
+def smem_bytes(d: int) -> int:
+    """Shared memory of one decode thread block (``launch`` in
+    ``csrc/paged_decode.cu``): q, each of the 8 warps' fp32 K tile
+    ``[32, D+1]`` and V tile ``[32, D]``, and the 8 warps' merge rows."""
+    return 4 * (d + 8 * (32 * (d + 1) + 32 * d) + 8 * (d + 2))
+
+
+def check_head_dim(d: int) -> None:
+    """The decode kernel's head dims: those of ``build.check_head_dim``
+    whose shared memory fits one block (D <= 104)."""
+    build.check_head_dim(d)
+    if smem_bytes(d) > _SMEM_LIMIT:
+        raise ValueError(f"head dim {d} not supported by the decode kernel "
+                         f"({smem_bytes(d)} bytes of shared memory per "
+                         f"block, at most {_SMEM_LIMIT})")
 
 
 def _check_shapes(q, k_pool, v_pool, lengths, block_tables) -> None:
@@ -87,7 +106,7 @@ def _launch(q, k_pool, v_pool, lengths, block_tables, scale):
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
     b, h, _, d = q.shape
-    build.check_head_dim(d)
+    check_head_dim(d)
     build.check_aligned(q=q, k_pool=k_pool, v_pool=v_pool)
     out = torch.empty_like(q)
     fn = build.bind("paged_decode", "nezha_paged_decode", _ARGTYPES)
@@ -110,7 +129,7 @@ def paged_decode_attention(q, k_pool, v_pool, lengths, block_tables,
     ``block_tables[b, ki]``; ``lengths[b]`` (clamped to ``[0, M*bs]``)
     is how many positions it attends, and 0 marks an inactive row whose
     output is exactly zero. CUDA tensors launch ``csrc/paged_decode.cu``
-    (f32 or bf16 q and pools, D a multiple of 8 up to 128); CPU tensors
+    (f32 or bf16 q and pools, D a multiple of 8 up to 104); CPU tensors
     run the plain version."""
     _check_shapes(q, k_pool, v_pool, lengths, block_tables)
     scale = scale if scale is not None else 1.0 / (q.shape[3] ** 0.5)

@@ -10,6 +10,8 @@ import torch
 
 from nezha_tpu.ops.pallas.decode_attention import flash_decode_attention
 from nezha_tpu_torch.ops.cuda import paged_decode_attention
+from nezha_tpu_torch.ops.cuda.common import fold_error_bound
+from nezha_tpu_torch.ops.cuda.decode_attention import check_head_dim
 
 BS, M, H, D = 8, 6, 2, 16
 # Every length class the kernel treats differently: inactive (0), one
@@ -65,6 +67,47 @@ def test_matches_pallas_kernel_bf16_pool():
     got = _torch(*case, pool_dtype=torch.bfloat16)
     want = _jax(*case, pool_dtype=jnp.bfloat16)
     np.testing.assert_allclose(got, want, atol=1e-5, rtol=0)
+
+
+@pytest.mark.parametrize("d,fits", [(64, True), (104, True), (112, False),
+                                    (128, False), (60, False)])
+def test_head_dim_limit(d, fits):
+    """The CUDA wrapper refuses, typed, the head dims whose 16-byte loads
+    or per-block shared memory the decode kernel cannot take."""
+    if fits:
+        check_head_dim(d)
+    else:
+        with pytest.raises(ValueError, match="head dim"):
+            check_head_dim(d)
+
+
+def test_fold_error_bound_separates_a_dropped_tile():
+    """fold_error_bound (the kernel-vs-plain tolerance on the card) holds
+    between the bf16 plain version and exact float64 attention, which
+    differ by one side's p and output rounding, and is broken by dropping
+    one 32-key tile of the full-length row."""
+    b, m, h, d, bs = 3, 16, 2, 64, 16
+    g = torch.Generator().manual_seed(3)
+    q = torch.randn(b, h, 1, d, generator=g).to(torch.bfloat16)
+    kp, vp = (torch.randn(1 + b * m, h, bs, d, generator=g)
+              .to(torch.bfloat16) for _ in range(2))
+    tab = (1 + torch.randperm(b * m, generator=g)).reshape(b, m).int()
+    lengths = torch.tensor([1, 100, m * bs], dtype=torch.int32)
+    want = paged_decode_attention(q, kp, vp, lengths, tab)
+    bound = fold_error_bound(
+        want, paged_decode_attention(q, kp, vp.abs(), lengths, tab), True)
+    kd, vd = (p[tab.long()].transpose(1, 2).reshape(b, h, m * bs, d)
+              .double() for p in (kp, vp))
+    keep = torch.arange(m * bs)[None, :] < lengths[:, None].long()
+
+    def exact(keep):
+        s = (q.double() @ kd.transpose(-1, -2)) / d ** 0.5
+        s = s.masked_fill(~keep[:, None, None, :], float("-inf"))
+        return torch.softmax(s, -1) @ vd
+
+    assert torch.all((exact(keep) - want.double()).abs() <= bound)
+    keep[2, 96:128] = False
+    assert torch.any((exact(keep)[2] - want[2].double()).abs() > bound[2])
 
 
 def test_rejects_bad_shapes():
