@@ -16,12 +16,31 @@ Phases, each fatal on failure (non-zero exit, no result line):
    this run's lengths and starts) and, as a yardstick only,
    ``scaled_dot_product_attention`` on the same K/V gathered dense; each
    output element must lie within ``fold_error_bound`` of the plain one;
-4. serve: GPT-2 124M at full width, seeded random weights, bf16, eight
+   The three flash-attention training kernels are held the same way in
+   bf16 at GPT-2's training shape (B=8, H=12, S=1024, D=64, causal) and
+   on a non-causal case, a ``kv_lengths`` case with a zero-length row
+   and an odd S=100: the forward's output within ``fold_error_bound``
+   and its lse within LSE_ATOL, dq/dk/dv within
+   ``flash_bwd_error_bound``, padded keys' dk/dv exactly zero, and two
+   backward runs bitwise equal. Yardstick: SDPA's forward, and its
+   autograd backward with the forward subtracted;
+4. train: GPT-2 124M at full width, bf16, B=8, S=1024,
+   ``fused_loss_chunk=-1``, AdamW (weight decay 0.1), batches from
+   ``synthetic_token_batches`` (seed 0): (a) one step's loss, gradients
+   and updated weights with flash attention against the same step with
+   composed attention, from the same weights and batch (TRAIN_*
+   tolerances); (b) the loss on one fixed batch at a constant lr falls
+   by at least LOSS_DROP over 10 steps; (c) 10 steps through
+   ``Trainer.fit`` after 2 warm-up steps: ms per step, tokens/s and MFU
+   (the analytic step flops of ``bench.py``, over 989 TFLOP/s); (d) each
+   flash kernel launched exactly 12 times per step in that run;
+5. serve: GPT-2 124M at full width, seeded random weights, bf16, eight
    greedy requests through ``Scheduler`` (prompts of 5-900 tokens, some
    prefilled in chunks, two sharing a 128-token prefix); requires every
-   request to finish, both kernels launched on the path, a clean
+   request to finish, both paged kernels launched on the path, a clean
    ``leak_check()``, and agreement with the port's no-cache causal
-   forward on the card (see SERVE_LOGIT_ATOL).
+   forward with composed attention (``attn_impl="xla"``, independent of
+   every kernel) on the card (see SERVE_LOGIT_ATOL).
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``. The script imports nothing of JAX.
@@ -29,6 +48,7 @@ The line before the last is ``{"kernels": [...]}``; the last line is
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import subprocess
@@ -50,6 +70,28 @@ BF16_FLOPS_PER_S = 989e12        # dense bf16 tensor-core peak
 # layer; logits of this random init have std ~0.5, and 0.125 (32 bf16
 # ulps at 1.0) bounds that drift.
 SERVE_LOGIT_ATOL = 0.125
+# The flash forward's lse against its plain version: both fp32, summing
+# up to 1024 exponentials in other orders (64-key tiles against 512-key
+# blocks) and scores whose fp32 dots differ in order; |lse| stays below
+# ~10 here, and 1e-4 is ~100 fp32 ulps of that.
+LSE_ATOL = 1e-4
+# Train step, flash against composed attention, both bf16 on the card.
+# The composed path rounds the attention scores to bf16 before the
+# softmax, the kernels keep them fp32, so every layer's activations
+# differ by bf16 rounding (2^-8 relative) and so do the gradients that
+# flow back through them:
+# - loss: a mean over 8192 positions of ~10.8 nats; 0.02 is ~2^-9 of it;
+# - gradients: per tensor, ||g_flash - g_xla|| <= 0.05 ||g_xla|| (a few
+#   bf16 roundings compounded over 12 layers);
+# - weights after one AdamW step: the first update is lr * g / (|g| +
+#   eps), ~lr * sign(g), so where |g| is near eps a rounding flips it;
+#   |w_flash - w_xla| <= 2 * lr + 1e-6 bounds that.
+TRAIN_LOSS_ATOL = 0.02
+TRAIN_GRAD_RTOL = 0.05
+# The fixed-batch loss after 10 AdamW steps at lr 6e-4 must sit at least
+# this far below the first step's.
+LOSS_DROP = 0.5
+TRAIN_B, TRAIN_S, TRAIN_LR = 8, 1024, 6e-4
 
 H, D, BS, M = 12, 64, 16, 64
 
@@ -96,18 +138,22 @@ def shuffled_tables(g, rows: int, n_blocks: int):
     return perm[:rows * M].reshape(rows, M).to(torch.int32)
 
 
-def within_bound(name: str, got, want, want_abs_v):
-    """-> (max |kernel - plain|, its largest ratio to fold_error_bound);
+def within(name: str, got, want, bound):
+    """-> (max |got - want|, its largest ratio to the elementwise bound);
     fails when any element exceeds the bound."""
-    from nezha_tpu_torch.ops.cuda.common import fold_error_bound
-
-    bound = fold_error_bound(want, want_abs_v, p_bf16=True)
     err = (got.float() - want.float()).abs()
     ratio = (err / bound).max().item()
     if not ratio <= 1.0:
-        fail(f"{name}: |kernel - plain| exceeds fold_error_bound "
-             f"(max ratio {ratio}, max error {err.max().item()})")
+        fail(f"{name}: |kernel - plain| exceeds its bound (max ratio "
+             f"{ratio}, max error {err.max().item()})")
     return err.max().item(), ratio
+
+
+def within_bound(name: str, got, want, want_abs_v):
+    """``within`` against ``fold_error_bound`` of an attention output."""
+    from nezha_tpu_torch.ops.cuda.common import fold_error_bound
+
+    return within(name, got, want, fold_error_bound(want, want_abs_v, True))
 
 
 def check_decode(g):
@@ -221,6 +267,234 @@ def check_prefill(g):
                      f"start={rep['start']}"}
 
 
+def attended_pairs(s: int, causal: bool, lengths) -> int:
+    """(query, key) pairs the masks leave, summed over rows."""
+    pairs = 0
+    for n in lengths:
+        n = max(1, min(int(n), s))
+        pairs += sum(min(i + 1, n) for i in range(s)) if causal else s * n
+    return pairs
+
+
+def flash_case(g, b, s, causal, lengths=None, timed=False):
+    """Check the three flash kernels against their plain versions on one
+    bf16 case; -> per-kernel errors, and times and bounds when timed."""
+    from nezha_tpu_torch.ops.cuda.flash_attention import (
+        _dkv_launch, _dq_launch, _lengths, flash_block_bwd,
+        flash_block_bwd_plain, flash_block_fwd, flash_block_fwd_plain,
+        flash_bwd_error_bound)
+    import torch.nn.functional as F
+
+    bf = torch.bfloat16
+    tag = (f"flash B={b} S={s} causal={causal}"
+           + ("" if lengths is None else f" lengths={lengths}"))
+    q, k, v, do = (torch.randn(b, H, s, D, generator=g).to("cuda", bf)
+                   for _ in range(4))
+    lens = (None if lengths is None
+            else torch.tensor(lengths, dtype=torch.int32, device="cuda"))
+    out, lse = flash_block_fwd(q, k, v, causal, kv_lengths=lens)
+    torch.cuda.synchronize()
+    want, want_lse = flash_block_fwd_plain(q, k, v, causal, kv_lengths=lens)
+    abs_v = flash_block_fwd_plain(q, k, v.abs(), causal,
+                                  kv_lengths=lens)[0]
+    res = {"flash_fwd": within_bound(f"{tag} out", out, want, abs_v)}
+    lse_err = (lse - want_lse).abs().max().item()
+    if not lse_err <= LSE_ATOL:
+        fail(f"{tag}: lse differs by {lse_err} > {LSE_ATOL}")
+    # The backward from the plain forward's out and lse, so both sides
+    # differentiate the same values.
+    bwd_args = (q, k, v, want, want_lse, do, causal)
+    grads = flash_block_bwd(*bwd_args, kv_lengths=lens)
+    torch.cuda.synchronize()
+    plain = flash_block_bwd_plain(*bwd_args, kv_lengths=lens)
+    bounds = flash_bwd_error_bound(*bwd_args, kv_lengths=lens)
+    for name, got, w, bd in zip(("dq", "dk", "dv"), grads, plain, bounds):
+        key = "flash_bwd_dq" if name == "dq" else "flash_bwd_dkv"
+        err, ratio = within(f"{tag} {name}", got, w, bd)
+        prev = res.get(key, (0.0, 0.0))
+        res[key] = (max(prev[0], err), max(prev[1], ratio))
+    if lengths is not None:
+        for i, n in enumerate(lengths):
+            n = max(1, n)
+            if torch.any(grads[1][i, :, n:] != 0) or torch.any(
+                    grads[2][i, :, n:] != 0):
+                fail(f"{tag}: keys past length {n} of row {i} got a "
+                     f"non-zero dk/dv")
+    again = flash_block_bwd(*bwd_args, kv_lengths=lens)
+    if not all(torch.equal(x, y) for x, y in zip(grads, again)):
+        fail(f"{tag}: two backward runs differ")
+    res["lse_err"] = lse_err
+    if not timed:
+        return res
+    lens_c = _lengths(lens, q, s)
+    scale = 1.0 / D ** 0.5
+    bwd = bwd_args[:6] + (lens_c, causal, scale)
+    ms = {"flash_fwd": gpu_time_ms(
+              lambda: flash_block_fwd(q, k, v, causal, kv_lengths=lens), 20),
+          "flash_bwd_dq": gpu_time_ms(lambda: _dq_launch(*bwd), 20),
+          "flash_bwd_dkv": gpu_time_ms(lambda: _dkv_launch(*bwd), 20)}
+    plain_fwd_ms = gpu_time_ms(
+        lambda: flash_block_fwd_plain(q, k, v, causal, kv_lengths=lens), 3)
+    plain_bwd_ms = gpu_time_ms(
+        lambda: flash_block_bwd_plain(*bwd_args, kv_lengths=lens), 3)
+    # Yardstick: SDPA (causal, no lengths) forward, and its autograd
+    # backward (forward + backward, forward subtracted).
+    qg, kg, vg = (t.detach().requires_grad_() for t in (q, k, v))
+    sdpa = lambda: F.scaled_dot_product_attention(qg, kg, vg,
+                                                  is_causal=causal)
+    sdpa_fwd = gpu_time_ms(sdpa, 20)
+    sdpa_both = gpu_time_ms(lambda: torch.autograd.grad(sdpa(), (qg, kg, vg),
+                                                        do), 20)
+    pairs = attended_pairs(s, causal, lengths or [s] * b) * H
+    x = b * H * s * D * 2                     # one [B, H, S, D] bf16 tensor
+    lse_bytes = b * H * s * 4
+    bounds = {"flash_fwd": bound(4 * x + lse_bytes, 4 * pairs * D),
+              "flash_bwd_dq": bound(6 * x + lse_bytes, 6 * pairs * D),
+              "flash_bwd_dkv": bound(7 * x + lse_bytes, 8 * pairs * D)}
+    plain_ms = {"flash_fwd": plain_fwd_ms, "flash_bwd_dq": plain_bwd_ms,
+                "flash_bwd_dkv": plain_bwd_ms}
+    library = {"flash_fwd": sdpa_fwd, "flash_bwd_dq": sdpa_both - sdpa_fwd,
+               "flash_bwd_dkv": sdpa_both - sdpa_fwd}
+    res["timing"] = {n: {"ms": ms[n], "plain_ms": plain_ms[n],
+                         "bound_ms": bounds[n][0], "bound_by": bounds[n][1],
+                         "library_ms": library[n]} for n in ms}
+    return res
+
+
+FLASH_SOURCES = {
+    "flash_fwd": ("nezha_tpu_torch/csrc/flash_fwd.cu",
+                  "nezha_tpu/ops/pallas/flash_attention.py:91"),
+    "flash_bwd_dq": ("nezha_tpu_torch/csrc/flash_bwd.cu",
+                     "nezha_tpu/ops/pallas/flash_attention.py:228"),
+    "flash_bwd_dkv": ("nezha_tpu_torch/csrc/flash_bwd.cu",
+                      "nezha_tpu/ops/pallas/flash_attention.py:265"),
+}
+
+
+def check_flash(g):
+    """The flash kernels on four cases; the kernels line reports the
+    training shape's times and the worst error over all cases."""
+    main = flash_case(g, TRAIN_B, TRAIN_S, True, timed=True)
+    cases = [main,
+             flash_case(g, 4, TRAIN_S, False),
+             flash_case(g, 4, TRAIN_S, True, lengths=[0, 1, 517, TRAIN_S]),
+             flash_case(g, TRAIN_B, 100, True)]
+    print(json.dumps({"flash_cases": [
+        {k: v for k, v in c.items() if k != "timing"} for c in cases]}),
+        flush=True)
+    out = []
+    for name, (source, replaces) in FLASH_SOURCES.items():
+        t = main["timing"][name]
+        out.append({"name": name, "route": "cuda", "source": source,
+                    "replaces": replaces,
+                    "max_abs_err": max(c[name][0] for c in cases),
+                    "err_over_tolerance": max(c[name][1] for c in cases),
+                    **t,
+                    "shape": f"B={TRAIN_B} H={H} S={TRAIN_S} D={D} causal"})
+        if name != "flash_fwd":
+            out[-1]["plain_covers"] = "dq, dk and dv together"
+            out[-1]["library_covers"] = "dq, dk and dv together"
+    return out
+
+
+def train(card: str):
+    from nezha_tpu_torch.cli.common import gpt2_for_preset
+    from nezha_tpu_torch.data import synthetic_token_batches
+    from nezha_tpu_torch.models.gpt2 import lm_loss
+    from nezha_tpu_torch.ops.cuda.flash_attention import LAUNCHES
+    from nezha_tpu_torch.optim import adamw
+    from nezha_tpu_torch.train import Trainer, make_train_step
+
+    b, s = TRAIN_B, TRAIN_S
+    model = gpt2_for_preset("full", seed=0, device="cuda",
+                            fused_loss_chunk=-1)
+    batches = synthetic_token_batches(b, seq_len=s, seed=0)
+    batch = next(batches)
+
+    # (a) one step, flash against composed attention, same weights.
+    ref = gpt2_for_preset("full", seed=1, device="cuda",
+                          fused_loss_chunk=-1, attn_impl="xla")
+    ref.load_state_dict(model.state_dict())
+    steps = {name: make_train_step(m, adamw(TRAIN_LR, weight_decay=0.1),
+                                   lm_loss)
+             for name, m in (("flash", model), ("xla", ref))}
+    loss_f, grads_f = steps["flash"].loss_and_grads(batch)
+    loss_x, grads_x = steps["xla"].loss_and_grads(batch)
+    loss_err = abs(loss_f.item() - loss_x.item())
+    if not math.isfinite(loss_f.item()) or loss_err > TRAIN_LOSS_ATOL:
+        fail(f"train: flash loss {loss_f.item()} vs composed "
+             f"{loss_x.item()} (tolerance {TRAIN_LOSS_ATOL})")
+    worst_grad = 0.0
+    for name, gf in grads_f.items():
+        gx = grads_x[name]
+        rel = ((gf - gx).norm() / gx.norm().clamp_min(1e-30)).item()
+        worst_grad = max(worst_grad, rel)
+        if not rel <= TRAIN_GRAD_RTOL:
+            fail(f"train: gradient of {name} differs by {rel} of its norm "
+                 f"(tolerance {TRAIN_GRAD_RTOL})")
+    del grads_f, grads_x
+    for st in steps.values():
+        st(batch)
+    worst_w = max((pf - px).abs().max().item() for pf, px in zip(
+        steps["flash"].params.values(), steps["xla"].params.values()))
+    if not worst_w <= 2 * TRAIN_LR + 1e-6:
+        fail(f"train: weights after one step differ by {worst_w} > "
+             f"2 * lr")
+    del steps, ref
+    torch.cuda.empty_cache()
+    print(json.dumps({"train_vs_composed": {
+        "loss_flash": loss_f.item(), "loss_composed": loss_x.item(),
+        "loss_err": loss_err, "max_grad_rel_err": worst_grad,
+        "max_weight_err_after_step": worst_w}}), flush=True)
+
+    # (b) the loss on one fixed batch falls at a constant lr.
+    step = make_train_step(model, adamw(TRAIN_LR, weight_decay=0.1),
+                           lm_loss)
+    losses = [step(batch)["loss"].item() for _ in range(10)]
+    if not (all(map(math.isfinite, losses))
+            and losses[-1] <= losses[0] - LOSS_DROP):
+        fail(f"train: fixed-batch loss did not fall by {LOSS_DROP}: "
+             f"{losses}")
+    print(json.dumps({"fixed_batch_losses": losses}), flush=True)
+
+    # (c) + (d): the main path, Trainer.fit over the synthetic stream.
+    trainer = Trainer(model, adamw(TRAIN_LR, weight_decay=0.1), lm_loss,
+                      log_every=0)
+    trainer.fit(batches, 2)
+    torch.cuda.synchronize()
+    n_steps = 10
+    torch.cuda.reset_peak_memory_stats()
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+    t0 = time.perf_counter()
+    last = trainer.fit(batches, n_steps)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(LAUNCHES)
+    layers = model.cfg.num_layers
+    for name, n in launches.items():
+        if n != layers * n_steps:
+            fail(f"train: {name} launched {n} times in {n_steps} steps, "
+                 f"not {layers} per step")
+    if not math.isfinite(last["loss"]):
+        fail(f"train: loss {last['loss']}")
+    n_params = sum(p.numel() for p in model.parameters())
+    cfg = model.cfg
+    step_flops = (6 * n_params + 6 * cfg.num_layers * cfg.hidden_size * s) \
+        * b * s
+    ms_step = wall / n_steps * 1e3
+    tok_s = b * s * n_steps / wall
+    print(json.dumps({"train": {
+        "B": b, "S": s, "steps": n_steps, "ms_per_step": ms_step,
+        "tokens_per_s": tok_s,
+        "mfu": step_flops * n_steps / wall / BF16_FLOPS_PER_S,
+        "step_tflop": step_flops / 1e12, "params": n_params,
+        "last_loss": last["loss"],
+        "peak_mem_gb": torch.cuda.max_memory_allocated() / 2 ** 30,
+        "launches": launches, "card": card}}), flush=True)
+    return launches
+
+
 def serve(card: str):
     from nezha_tpu_torch.cli.common import gpt2_for_preset
     from nezha_tpu_torch.ops.cuda import (paged_decode_attention,
@@ -290,18 +564,26 @@ def serve(card: str):
 
 @torch.no_grad()
 def cross_check(model, sched, reqs) -> None:
-    """Every request against the no-cache causal forward over prompt +
-    generated tokens (teacher-forced): the prompt's last-position logits
-    from a fresh paged prefill must lie within SERVE_LOGIT_ATOL, and each
-    generated token must be the reference argmax wherever the reference's
-    top-2 margin exceeds that tolerance."""
+    """Every request against the no-cache causal forward with composed
+    attention (a copy of the model with ``attn_impl="xla"``, so the
+    reference runs no kernel) over prompt + generated tokens
+    (teacher-forced): the prompt's last-position logits from a fresh
+    paged prefill must lie within SERVE_LOGIT_ATOL, and each generated
+    token must be the reference argmax wherever the reference's top-2
+    margin exceeds that tolerance."""
+    from nezha_tpu_torch.models.gpt2 import GPT2
+
     engine = sched.engine
+    reference = GPT2(dataclasses.replace(model.cfg, attn_impl="xla"),
+                     policy=model.policy, device="cuda")
+    reference.load_state_dict(model.state_dict())
+    reference.eval()
     worst = 0.0
     checked = 0
     for r in reqs:
         res = sched.results[r.request_id]
         seq = list(r.prompt) + res.tokens[:-1]
-        ref = model(torch.tensor([seq], device="cuda"))[0]     # [T, V]
+        ref = reference(torch.tensor([seq], device="cuda"))[0]  # [T, V]
         n = len(r.prompt)
         slot = engine.pool.alloc()
         try:
@@ -354,9 +636,11 @@ def main() -> int:
 
     phase("kernels")
     g = torch.Generator().manual_seed(0)
-    kernels = [check_decode(g), check_prefill(g)]
+    kernels = [check_decode(g), check_prefill(g)] + check_flash(g)
+    phase("train")
+    launches = train(card)
     phase("serve")
-    launches = serve(card)
+    launches.update(serve(card))
     for k in kernels:
         k["launches"] = launches[k["name"]]
     print(card_line, flush=True)

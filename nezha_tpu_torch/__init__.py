@@ -5,12 +5,20 @@ the same path (``nezha_tpu.serve.engine`` -> ``nezha_tpu_torch.serve.
 engine``). The port imports ``torch`` and never ``jax``; the JAX package
 stays the reference its tests hold it against.
 
-What runs today is the serving slice: GPT-2 through the paged-KV
-``serve.Engine`` and ``serve.Scheduler``, with the paged prefill and
-decode attention on hand-written CUDA kernels (``ops/cuda``, sources in
-``csrc/``). Entry points run on ``cuda`` unless the caller passes
-``device="cpu"``; on CPU tensors each kernel wrapper takes its plain
-PyTorch version.
+What runs today:
+
+- serving: GPT-2 through the paged-KV ``serve.Engine`` and
+  ``serve.Scheduler``, with the paged prefill and decode attention on
+  hand-written CUDA kernels;
+- training: GPT-2 through ``train.make_train_step`` / ``train.Trainer``
+  and ``python -m nezha_tpu_torch.cli.train --config gpt2_124m`` (AdamW,
+  the fused-head loss, synthetic token batches), with attention on the
+  hand-written CUDA flash forward and backward kernels.
+
+Kernels live in ``ops/cuda`` (sources in ``csrc/``). Entry points run on
+``cuda`` unless the caller passes ``device="cpu"``; on CPU tensors each
+kernel wrapper takes its plain PyTorch version. What the port refuses
+raises ``errors.NotPortedError``.
 
 Importing this package imports nothing heavy: subpackages load on use.
 """

@@ -29,16 +29,18 @@ def add_model_args(p: argparse.ArgumentParser) -> None:
                         "kernels' plain versions)")
 
 
-def gpt2_for_preset(preset: str, *, seed: int = 0,
-                    device="cuda") -> GPT2:
+def gpt2_for_preset(preset: str, *, seed: int = 0, device="cuda",
+                    **overrides) -> GPT2:
     """THE preset -> GPT2 mapping: ``full`` is GPT-2 124M with the bf16
-    policy, ``tiny`` the test preset in fp32. Weights are drawn from a
-    generator on ``device`` seeded with ``seed``."""
+    policy, ``tiny`` the test preset in fp32; ``overrides`` replace
+    config fields. Weights are drawn from a generator on ``device``
+    seeded with ``seed``."""
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)
     if preset == "full":
-        return GPT2(GPT2Config(), policy=bf16_policy(), generator=gen)
-    if preset == "tiny":
-        return GPT2(GPT2Config(**TINY_GPT2_KW), policy=f32_policy(),
+        return GPT2(GPT2Config(**overrides), policy=bf16_policy(),
                     generator=gen)
+    if preset == "tiny":
+        return GPT2(GPT2Config(**{**TINY_GPT2_KW, **overrides}),
+                    policy=f32_policy(), generator=gen)
     raise ValueError(f"unknown model preset {preset!r}")

@@ -163,6 +163,13 @@ __device__ __forceinline__ float finalize_denom(float l) {
   return fmaxf(l, 1e-30f);
 }
 
+// The per-row logsumexp the training forward emits beside its output
+// (common.py:81-83): m + log(max(l, 1e-30)). The backward recomputes
+// p = exp(s - lse) from it.
+__device__ __forceinline__ float finalize_lse(float m, float l) {
+  return m + logf(finalize_denom(l));
+}
+
 // Dynamic shared memory above the 48 KB default needs an opt-in per
 // kernel; below it the call is skipped.
 template <typename Kernel>

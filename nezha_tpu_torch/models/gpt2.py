@@ -3,12 +3,18 @@
 Pre-LN blocks, tanh-GELU MLP, weights tied between the token embedding
 and the LM head, logits returned in fp32. Parameter names follow the JAX
 package (``wte.embedding``, ``h.{i}.attn.qkv.w``, ...), so weights carry
-across by name (``models/convert.py``).
+across by name (``models/convert.py``). The model builds on ``cuda``
+unless given ``device="cpu"`` or a CPU generator.
 
 Two attention paths:
 
-- no cache: causal attention composed of tensor ops — the plain reference
-  forward;
+- no cache (training, and the plain reference forward): causal
+  attention through the flash kernels (``attn_impl`` "flash", which
+  "auto" resolves to on every device: the wrapper launches the CUDA
+  kernels on CUDA tensors and runs their plain versions on CPU tensors)
+  or composed of tensor ops (``attn_impl="xla"``). Dropout follows the
+  embeddings, each attention projection and each MLP projection, in
+  training mode only;
 - a paged cache (the serve engine's block pool): ``cache`` is one
   ``{"k", "v", "tables"}`` dict per layer, pools shaped ``[N, H, bs, D]``
   and ``tables [B, M]`` int32. The forward writes this call's K/V into
@@ -27,11 +33,15 @@ from typing import List, Optional, Union
 import torch
 from torch import nn
 
-from nezha_tpu_torch.nn import Embedding, LayerNorm, Linear
+from nezha_tpu_torch.errors import NotPortedError
+from nezha_tpu_torch.nn import (Dropout, Embedding, LayerNorm, Linear,
+                                resolve_device)
 from nezha_tpu_torch.nn import initializers as init_lib
 from nezha_tpu_torch.ops import causal_mask, dot_product_attention, gelu
-from nezha_tpu_torch.ops.cuda import (paged_decode_attention,
+from nezha_tpu_torch.ops.cuda import (flash_attention,
+                                      paged_decode_attention,
                                       paged_prefill_attention)
+from nezha_tpu_torch.ops.losses import lm_objective
 from nezha_tpu_torch.tensor.policy import DEFAULT_POLICY, Policy, bf16_policy
 
 
@@ -43,6 +53,48 @@ class GPT2Config:
     num_heads: int = 12
     hidden_size: int = 768
     mlp_ratio: int = 4
+    dropout: float = 0.0
+    # "auto" | "flash" | "xla": "auto" is "flash" on every device (the
+    # kernel wrapper picks the CUDA kernel or its plain version by the
+    # tensors' device); "xla" is attention composed of tensor ops.
+    attn_impl: str = "auto"
+    ln_impl: str = "xla"
+    # 0: forward returns fp32 logits. -1: forward returns {"hidden",
+    # "wte", "chunk"} and lm_loss computes the CE from compute-dtype
+    # logits with the fp32 upcast inside the logsumexp.
+    fused_loss_chunk: int = 0
+    # Knobs of the JAX model this port refuses (NotPortedError).
+    moe_experts: int = 0
+    remat: bool = False
+    scan_layers: bool = False
+
+
+_NOT_PORTED_ATTN = ("ring", "ulysses", "flash_shmap")
+
+
+def check_config(cfg: GPT2Config) -> None:
+    """Refuse, typed, what the JAX model has and this port does not."""
+    if cfg.attn_impl in _NOT_PORTED_ATTN:
+        raise NotPortedError(f"attn_impl={cfg.attn_impl!r} is not ported "
+                             f"(sequence/tensor-parallel attention)")
+    if cfg.attn_impl not in ("auto", "flash", "xla"):
+        raise ValueError(f"unknown attn_impl {cfg.attn_impl!r}")
+    if cfg.ln_impl == "pallas":
+        raise NotPortedError("ln_impl='pallas' (the fused LayerNorm "
+                             "kernels) is not ported")
+    if cfg.ln_impl != "xla":
+        raise ValueError(f"unknown ln_impl {cfg.ln_impl!r}")
+    if cfg.fused_loss_chunk > 0:
+        raise NotPortedError(f"fused_loss_chunk={cfg.fused_loss_chunk} "
+                             f"(the chunked loss scan) is not ported")
+    if cfg.fused_loss_chunk not in (0, -1):
+        raise ValueError(f"fused_loss_chunk must be 0, -1 or > 0, got "
+                         f"{cfg.fused_loss_chunk}")
+    for knob in ("moe_experts", "remat", "scan_layers"):
+        if getattr(cfg, knob):
+            raise NotPortedError(f"{knob} is not ported")
+    if not 0.0 <= cfg.dropout < 1.0:
+        raise ValueError(f"dropout must be in [0, 1), got {cfg.dropout}")
 
 
 def _residual_init(cfg: GPT2Config):
@@ -51,14 +103,17 @@ def _residual_init(cfg: GPT2Config):
 
 class Attention(nn.Module):
     def __init__(self, cfg: GPT2Config, policy: Policy,
-                 generator: torch.Generator, device=None):
+                 generator: torch.Generator, device=None,
+                 dropout_generator: Optional[torch.Generator] = None):
         super().__init__()
         h = cfg.hidden_size
         self.cfg = cfg
+        self.impl = "flash" if cfg.attn_impl == "auto" else cfg.attn_impl
         self.qkv = Linear(h, 3 * h, kernel_init=init_lib.normal(0.02),
                           policy=policy, generator=generator, device=device)
         self.proj = Linear(h, h, kernel_init=_residual_init(cfg),
                            policy=policy, generator=generator, device=device)
+        self.drop = Dropout(cfg.dropout, dropout_generator)
 
     def forward(self, x: torch.Tensor, cache: Optional[dict] = None,
                 pos: Union[int, torch.Tensor, None] = None,
@@ -70,14 +125,17 @@ class Attention(nn.Module):
         qkv = qkv.permute(2, 0, 3, 1, 4)
         q, k, v = qkv[0], qkv[1], qkv[2]                   # [B, H, S, D]
         if cache is None:
-            out = dot_product_attention(
-                q, k, v, mask=causal_mask(s, s, device=x.device))
+            if self.impl == "flash":
+                out = flash_attention(q, k, v, causal=True)
+            else:
+                out = dot_product_attention(
+                    q, k, v, mask=causal_mask(s, s, device=x.device))
         elif isinstance(pos, torch.Tensor) and pos.dim() == 1:
             out = self._decode_paged(q, k, v, cache, pos, active)
         else:
             out = self._prefill_paged(q, k, v, cache, int(pos))
-        out = out.transpose(1, 2).reshape(b, s, h)
-        return self.proj(out)
+        out = self.proj(out.transpose(1, 2).reshape(b, s, h))
+        return self.drop(out) if cache is None else out
 
     @staticmethod
     def _decode_paged(q, k, v, cache, pos, active):
@@ -130,27 +188,32 @@ class Attention(nn.Module):
 
 class MLPBlock(nn.Module):
     def __init__(self, cfg: GPT2Config, policy: Policy,
-                 generator: torch.Generator, device=None):
+                 generator: torch.Generator, device=None,
+                 dropout_generator: Optional[torch.Generator] = None):
         super().__init__()
         h, m = cfg.hidden_size, cfg.hidden_size * cfg.mlp_ratio
         self.fc = Linear(h, m, kernel_init=init_lib.normal(0.02),
                          policy=policy, generator=generator, device=device)
         self.proj = Linear(m, h, kernel_init=_residual_init(cfg),
                            policy=policy, generator=generator, device=device)
+        self.drop = Dropout(cfg.dropout, dropout_generator)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.proj(gelu(self.fc(x)))
+        return self.drop(self.proj(gelu(self.fc(x))))
 
 
 class Block(nn.Module):
     def __init__(self, cfg: GPT2Config, policy: Policy,
-                 generator: torch.Generator, device=None):
+                 generator: torch.Generator, device=None,
+                 dropout_generator: Optional[torch.Generator] = None):
         super().__init__()
         h = cfg.hidden_size
         self.ln_1 = LayerNorm(h, policy=policy, device=device)
-        self.attn = Attention(cfg, policy, generator, device)
+        self.attn = Attention(cfg, policy, generator, device,
+                              dropout_generator)
         self.ln_2 = LayerNorm(h, policy=policy, device=device)
-        self.mlp = MLPBlock(cfg, policy, generator, device)
+        self.mlp = MLPBlock(cfg, policy, generator, device,
+                            dropout_generator)
 
     def forward(self, x, cache=None, pos=None, active=None):
         x = x + self.attn(self.ln_1(x), cache=cache, pos=pos, active=active)
@@ -158,38 +221,50 @@ class Block(nn.Module):
 
 
 class GPT2(nn.Module):
-    """``forward(tokens [B, S])`` -> fp32 logits ``[B, S, vocab]``.
+    """``forward(tokens [B, S])`` -> fp32 logits ``[B, S, vocab]``, or
+    the fused-head dict (``GPT2Config.fused_loss_chunk``). ``forward``
+    also takes ``{"tokens": [B, S + 1]}`` (inputs are ``tokens[:, :-1]``,
+    the convention of :func:`lm_loss`).
 
     Weights are drawn at construction from ``generator`` (a fresh
-    generator on ``device`` seeded with 0 when None)."""
+    generator on ``device`` — ``cuda`` when None — seeded with 0 when
+    None). Dropout masks come from a generator of their own, seeded from
+    that stream after the weights."""
 
     def __init__(self, cfg: GPT2Config = GPT2Config(),
                  policy: Policy = DEFAULT_POLICY,
                  generator: Optional[torch.Generator] = None,
                  device=None):
         super().__init__()
+        check_config(cfg)
+        device = resolve_device(device, generator)
         if generator is None:
-            generator = torch.Generator(device=device or "cpu")
+            generator = torch.Generator(device=device)
             generator.manual_seed(0)
-        device = generator.device
         self.cfg = cfg
         self.policy = policy
+        drop_gen = torch.Generator(device=device)
         self.wte = Embedding(cfg.vocab_size, cfg.hidden_size, policy=policy,
                              generator=generator)
         self.wpe = Embedding(cfg.max_positions, cfg.hidden_size,
                              embedding_init=init_lib.normal(0.01),
                              policy=policy, generator=generator)
-        self.h = nn.ModuleList(Block(cfg, policy, generator, device)
+        self.drop = Dropout(cfg.dropout, drop_gen)
+        self.h = nn.ModuleList(Block(cfg, policy, generator, device,
+                                     drop_gen)
                                for _ in range(cfg.num_layers))
         self.ln_f = LayerNorm(cfg.hidden_size, policy=policy, device=device)
+        drop_gen.manual_seed(int(torch.randint(
+            2 ** 62, (1,), generator=generator, device=device)))
 
-    def forward(self, tokens: torch.Tensor,
-                cache: Optional[List[dict]] = None,
+    def forward(self, tokens, cache: Optional[List[dict]] = None,
                 pos: Union[int, torch.Tensor, None] = None,
-                active: Optional[torch.Tensor] = None) -> torch.Tensor:
+                active: Optional[torch.Tensor] = None):
         """``cache``/``pos``/``active``: see the module docstring.
         ``active`` ([B] bool, decode only) marks the rows whose token is
         emitted; the others write scratch and attend nothing."""
+        if isinstance(tokens, dict):
+            tokens = tokens["tokens"][:, :-1]
         s = tokens.shape[1]
         if s > self.cfg.max_positions:
             raise ValueError(f"sequence length {s} exceeds max_positions "
@@ -199,11 +274,16 @@ class GPT2(nn.Module):
             positions = pos.long()[:, None] + steps[None, :]
         else:
             positions = (0 if pos is None else int(pos)) + steps[None, :]
-        x = self.wte(tokens) + self.wpe(positions)
+        x = self.drop(self.wte(tokens) + self.wpe(positions))
         for i, block in enumerate(self.h):
             x = block(x, cache=None if cache is None else cache[i], pos=pos,
                       active=active)
         x = self.ln_f(x)
+        if self.cfg.fused_loss_chunk and cache is None:
+            # The LM head moves into the loss (lm_loss); gradients reach
+            # the tied table through this dict.
+            return {"hidden": x, "wte": self.wte.embedding,
+                    "chunk": self.cfg.fused_loss_chunk}
         return self.wte.attend(x).float()
 
 
@@ -212,3 +292,9 @@ def gpt2_124m(policy: Optional[Policy] = None,
               **overrides) -> GPT2:
     return GPT2(GPT2Config(**overrides), policy=policy or bf16_policy(),
                 generator=generator, device=device)
+
+
+def lm_loss(out, batch: dict) -> torch.Tensor:
+    """Next-token CE over ``{"tokens": [B, S + 1]}`` batches; ``out`` is
+    dense logits or the fused-head dict."""
+    return lm_objective(out, batch["tokens"][:, 1:])

@@ -1,4 +1,6 @@
 from nezha_tpu_torch.nn import initializers
-from nezha_tpu_torch.nn.layers import Embedding, LayerNorm, Linear
+from nezha_tpu_torch.nn.layers import (Dropout, Embedding, LayerNorm, Linear,
+                                       resolve_device)
 
-__all__ = ["Embedding", "LayerNorm", "Linear", "initializers"]
+__all__ = ["Dropout", "Embedding", "LayerNorm", "Linear", "initializers",
+           "resolve_device"]

@@ -5,7 +5,8 @@ across by name: ``Linear`` stores ``w`` as ``[in, out]`` plus ``b``,
 ``LayerNorm`` stores ``scale`` and ``bias``, ``Embedding`` stores
 ``embedding``. Every layer takes a dtype :class:`Policy`: parameters are
 kept in the param dtype and cast to the compute dtype at use, and layer
-norm statistics stay fp32 whatever the policy.
+norm statistics stay fp32 whatever the policy. Layers build on the card
+unless the caller passes ``device="cpu"`` or a CPU generator.
 """
 
 from __future__ import annotations
@@ -19,11 +20,22 @@ from nezha_tpu_torch.nn import initializers as init_lib
 from nezha_tpu_torch.tensor.policy import DEFAULT_POLICY, Policy
 
 
+def resolve_device(device=None,
+                   generator: Optional[torch.Generator] = None
+                   ) -> torch.device:
+    """Where a layer or model builds: the generator's device, else
+    ``device``, else ``cuda`` — the port's entry points run on the card
+    unless asked for the CPU."""
+    if generator is not None:
+        return generator.device
+    return torch.device(device if device is not None else "cuda")
+
+
 def _generator(generator: Optional[torch.Generator],
                device) -> torch.Generator:
     if generator is not None:
         return generator
-    return torch.Generator(device=device or "cpu")
+    return torch.Generator(device=resolve_device(device))
 
 
 class Linear(nn.Module):
@@ -61,6 +73,7 @@ class LayerNorm(nn.Module):
         super().__init__()
         self.eps = eps
         self.policy = policy
+        device = resolve_device(device)
         self.scale = nn.Parameter(torch.ones(dim, dtype=policy.param_dtype,
                                              device=device))
         self.bias = nn.Parameter(torch.zeros(dim, dtype=policy.param_dtype,
@@ -96,3 +109,29 @@ class Embedding(nn.Module):
     def attend(self, x: torch.Tensor) -> torch.Tensor:
         table = self.policy.cast_to_compute(self.embedding)
         return self.policy.cast_to_compute(x) @ table.t()
+
+
+class Dropout(nn.Module):
+    """Inverted dropout (``nezha_tpu/nn/layers.py`` ``Dropout``): in
+    training each element is kept with probability ``1 - rate`` and
+    scaled by ``1 / (1 - rate)``, else zeroed; the identity at rate 0 or
+    in eval mode. The masks come from ``generator`` (a ``torch.Generator``
+    on the input's device; the default generator when None), so a seed
+    fixes them. They cannot match JAX's threefry bits for the same
+    seed."""
+
+    def __init__(self, rate: float,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        if not 0.0 <= rate < 1.0:
+            raise ValueError(f"dropout rate must be in [0, 1), got {rate}")
+        self.rate = rate
+        self.generator = generator
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training or self.rate == 0.0:
+            return x
+        keep = 1.0 - self.rate
+        mask = torch.rand(x.shape, generator=self.generator,
+                          device=x.device) < keep
+        return torch.where(mask, x / keep, torch.zeros_like(x))

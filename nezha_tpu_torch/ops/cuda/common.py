@@ -1,6 +1,7 @@
-"""The online-softmax fold in plain PyTorch, shared by the kernels' plain
-versions — the tensor-op twin of ``csrc/online_softmax.cuh`` and the
-counterpart of ``nezha_tpu/ops/pallas/common.py``.
+"""The online-softmax fold in plain PyTorch, shared by the attention
+kernels' plain versions — the tensor-op twin of
+``csrc/online_softmax.cuh`` and the counterpart of
+``nezha_tpu/ops/pallas/common.py``.
 
 A state is ``(m, l, acc)``: running row max and denominator ``[..., 1]``
 and the fp32 accumulator ``[..., D]``. The plain versions fold block by
@@ -58,6 +59,16 @@ def softmax_finalize(state: State, dtype: torch.dtype) -> torch.Tensor:
     """``acc / max(l, 1e-30)``: a row that folded nothing is exact zero."""
     _, l, acc = state
     return (acc / l.clamp_min(1e-30)).to(dtype)
+
+
+def softmax_finalize_lse(state: State, dtype: torch.dtype
+                         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`softmax_finalize` plus the per-row fp32 logsumexp
+    ``m + log(max(l, 1e-30))`` ``[...]`` the training forward emits for
+    the backward (``common.py:81-83``)."""
+    m, l, acc = state
+    denom = l.clamp_min(1e-30)
+    return (acc / denom).to(dtype), (m + torch.log(denom))[..., 0]
 
 
 BF16_UNIT_ROUNDOFF = 2.0 ** -8   # half a bf16 ulp, relative (8-bit significand)

@@ -35,17 +35,11 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from nezha_tpu_torch.errors import NotPortedError
 from nezha_tpu_torch.ops.cuda import (paged_decode_attention,
                                       paged_prefill_attention)
 from nezha_tpu_torch.serve.sampling import finite_rows, split_and_sample
 from nezha_tpu_torch.serve.slots import KVBlocksExhausted, PagedSlotPool
-
-
-class NotPortedError(ValueError):
-    """A ``ServeConfig`` setting the JAX engine supports that this port
-    does not serve yet (int8 KV, the host tier, speculative decoding,
-    sequence-sharded prefill, long-prefill buckets, the dense layout,
-    priorities, tenants, preemption)."""
 
 
 def default_prefill_buckets(max_prefill_len: int) -> Tuple[int, ...]:

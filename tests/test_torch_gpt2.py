@@ -33,7 +33,7 @@ def pair():
     """(jax model, jax variables, torch model with the same weights)."""
     jm = JaxGPT2(JaxGPT2Config(**TINY_GPT2_KW))
     jv = jm.init(jax.random.PRNGKey(0))
-    tm = GPT2(GPT2Config(**TINY_GPT2_KW))
+    tm = GPT2(GPT2Config(**TINY_GPT2_KW), device="cpu")
     tm.load_state_dict(params_from_jax(_flatten(jv["params"])), strict=True)
     return jm, jv, tm
 

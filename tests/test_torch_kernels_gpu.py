@@ -1,6 +1,7 @@
-"""The port's CUDA kernels on the card, against their plain versions, and
-the engine on the card against the same engine on the CPU. Every test
-here needs a CUDA card: it is marked ``gpu`` and skips without one.
+"""The port's CUDA kernels on the card, against their plain versions; the
+engine and a training step on the card against the same on the CPU.
+Every test here needs a CUDA card: it is marked ``gpu`` and skips
+without one.
 
 This file imports no JAX, so it also runs where JAX is not installed:
 
@@ -12,12 +13,19 @@ import pytest
 import torch
 
 from nezha_tpu_torch.cli.common import gpt2_for_preset
-from nezha_tpu_torch.ops.cuda import (paged_decode_attention,
+from nezha_tpu_torch.models.gpt2 import lm_loss
+from nezha_tpu_torch.ops.cuda import (flash_block_bwd, flash_block_bwd_plain,
+                                      flash_block_fwd, flash_block_fwd_plain,
+                                      paged_decode_attention,
                                       paged_decode_attention_plain,
                                       paged_prefill_attention,
                                       paged_prefill_attention_plain)
 from nezha_tpu_torch.ops.cuda.common import fold_error_bound
+from nezha_tpu_torch.ops.cuda.flash_attention import (LAUNCHES,
+                                                      flash_bwd_error_bound)
+from nezha_tpu_torch.optim import adamw
 from nezha_tpu_torch.serve import Engine, Request, Scheduler, ServeConfig
+from nezha_tpu_torch.train import make_train_step
 
 BS, M, H, D = 8, 12, 2, 64
 DTYPES = [(torch.bfloat16, torch.bfloat16), (torch.float32, torch.bfloat16),
@@ -118,3 +126,90 @@ def test_engine_on_card_matches_cpu(cuda_device):
         sched.engine.pool.leak_check()
         results.append({k: r.tokens for k, r in sched.results.items()})
     assert results[0] == results[1]
+
+
+# (S_q, S_k, D, causal, kv_lengths): a causal row cut mid-tile, a
+# rectangular full case with a D that is 8 mod 16 (the padded last mma
+# step), and D=128 with a zero-length row and a length past S.
+FLASH_CASES = [(100, 100, 64, True, None), (100, 70, 40, False, None),
+               (130, 130, 128, True, [0, 77, 500])]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("s_q,s_k,d,causal,lengths", FLASH_CASES)
+def test_flash_kernels_match_plain(cuda_device, dtype, s_q, s_k, d, causal,
+                                   lengths):
+    """Forward out within fold_error_bound and lse within 1e-4 (fp32 sums
+    in another order), dq/dk/dv within flash_bwd_error_bound, padded keys'
+    dk/dv exactly zero, and the backward bitwise repeatable."""
+    rng = np.random.RandomState(s_q + d)
+    b = 3 if lengths else 2
+    q, do = (torch.from_numpy(rng.randn(b, 2, s_q, d).astype(np.float32))
+             .to(cuda_device, dtype) for _ in range(2))
+    k, v = (torch.from_numpy(rng.randn(b, 2, s_k, d).astype(np.float32))
+            .to(cuda_device, dtype) for _ in range(2))
+    lens = (None if lengths is None
+            else torch.tensor(lengths, dtype=torch.int32, device=cuda_device))
+    before = dict(LAUNCHES)
+    out, lse = flash_block_fwd(q, k, v, causal, kv_lengths=lens)
+    torch.cuda.synchronize()
+    want, want_lse = flash_block_fwd_plain(q, k, v, causal, kv_lengths=lens)
+    abs_v = flash_block_fwd_plain(q, k, v.abs(), causal, kv_lengths=lens)[0]
+    _assert_within_bound(out, want, abs_v, dtype == torch.bfloat16)
+    assert (lse - want_lse).abs().max().item() <= 1e-4
+    args = (q, k, v, want, want_lse, do, causal)
+    grads = flash_block_bwd(*args, kv_lengths=lens)
+    torch.cuda.synchronize()
+    plain = flash_block_bwd_plain(*args, kv_lengths=lens)
+    bounds = flash_bwd_error_bound(*args, kv_lengths=lens)
+    for name, got, w, bd in zip(("dq", "dk", "dv"), grads, plain, bounds):
+        err = (got.float() - w.float()).abs()
+        assert torch.all(err <= bd), (
+            f"{name}: max |kernel - plain| / bound "
+            f"{(err / bd).max().item():.3f}")
+    for i, n in enumerate(lengths or []):
+        n = max(1, min(n, s_k))
+        assert torch.all(grads[1][i, :, n:] == 0)
+        assert torch.all(grads[2][i, :, n:] == 0)
+    again = flash_block_bwd(*args, kv_lengths=lens)
+    assert all(torch.equal(x, y) for x, y in zip(grads, again))
+    assert {k: LAUNCHES[k] - before[k] for k in LAUNCHES} == {
+        "flash_fwd": 1, "flash_bwd_dq": 2, "flash_bwd_dkv": 2}
+
+
+@pytest.mark.gpu
+def test_train_step_on_card_matches_cpu(cuda_device):
+    """One tiny-preset (f32) AdamW step on the card (flash kernels) and on
+    the CPU (plain versions), same weights and batch: loss within 1e-5,
+    every gradient within 1e-6 + 1e-4 of its tensor's largest magnitude,
+    weights after the step within 2 * lr (an update flips where a
+    gradient element sits near Adam's eps) and within 1e-3 * lr where the
+    CPU gradient exceeds 100 * eps."""
+    lr = 6e-4
+    tokens = np.random.RandomState(3).randint(0, 512, (2, 33)).astype(
+        np.int32)
+    cpu_model = gpt2_for_preset("tiny", seed=0, device="cpu")
+    results = []
+    for device in ("cpu", cuda_device):
+        model = gpt2_for_preset("tiny", seed=0, device="cpu").to(device)
+        model.load_state_dict(cpu_model.state_dict())
+        step = make_train_step(model, adamw(lr, weight_decay=0.1), lm_loss)
+        before = LAUNCHES["flash_fwd"]
+        loss, grads = step.loss_and_grads({"tokens": tokens})
+        step({"tokens": tokens})
+        if device != "cpu":
+            assert LAUNCHES["flash_fwd"] - before == 2 * 4   # 2 x 4 layers
+        results.append((loss.item(), {k: g.cpu() for k, g in grads.items()},
+                        {k: p.detach().cpu() for k, p in
+                         step.params.items()}))
+    (l_cpu, g_cpu, p_cpu), (l_gpu, g_gpu, p_gpu) = results
+    assert abs(l_cpu - l_gpu) <= 1e-5
+    for name, g in g_cpu.items():
+        tol = 1e-6 + 1e-4 * g.abs().max().item()
+        assert (g_gpu[name] - g).abs().max().item() <= tol, name
+        diff = (p_gpu[name] - p_cpu[name]).abs()
+        assert diff.max().item() <= 2 * lr, name
+        clear = g.abs() > 100 * 1e-8
+        if clear.any():
+            assert diff[clear].max().item() <= 1e-3 * lr, name
