@@ -13,7 +13,11 @@ What runs today:
 - training: GPT-2 through ``train.make_train_step`` / ``train.Trainer``
   and ``python -m nezha_tpu_torch.cli.train --config gpt2_124m`` (AdamW,
   the fused-head loss, synthetic token batches), with attention on the
-  hand-written CUDA flash forward and backward kernels.
+  hand-written CUDA flash forward and backward kernels, and with
+  ``ln_impl="pallas"`` every LayerNorm on the fused LayerNorm kernels;
+- generation: GPT-2 through ``models.generate`` and ``python -m
+  nezha_tpu_torch.cli.generate`` (a KV-cache prefill, then one dense
+  flash-decode kernel launch per layer per token).
 
 Kernels live in ``ops/cuda`` (sources in ``csrc/``). Entry points run on
 ``cuda`` unless the caller passes ``device="cpu"``; on CPU tensors each

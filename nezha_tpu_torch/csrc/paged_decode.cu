@@ -22,7 +22,8 @@
 //   - one thread block per (head, row), eight warps splitting the row's
 //     positions into interleaved 32-key tiles (split-K inside the block),
 //     each warp folding its tiles with the shared online softmax and the
-//     partial states merged once at the end;
+//     partial states merged once at the end (decode_fold.cuh, the body
+//     this kernel shares with the dense flash_decode.cu);
 //   - tile loads are 16-byte vector loads on neighbouring addresses, all of
 //     a lane's loads for a tile in flight together (stage_tile).
 // Not done yet (later work): cp.async/TMA double-buffering, and a split-K
@@ -35,12 +36,10 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
-#include "online_softmax.cuh"
+#include "decode_fold.cuh"
 
 namespace nezha {
 namespace {
-
-constexpr int DEC_WARPS = 8;
 
 template <typename TQ, typename TKV>
 __global__ void __launch_bounds__(DEC_WARPS * WARP)
@@ -54,69 +53,14 @@ __global__ void __launch_bounds__(DEC_WARPS * WARP)
   extern __shared__ float smem[];
   const int h = blockIdx.x;
   const int b = blockIdx.y;
-  const int warp = threadIdx.x / WARP;
-  const int lane = threadIdx.x % WARP;
-  const int ldk = D + 1;
-  const int tile_floats = WARP * ldk + WARP * D;
-
-  float* qs = smem;                                   // [D]
-  float* kt = qs + D + warp * tile_floats;            // [32][D+1]
-  float* vt = kt + WARP * ldk;                        // [32][D]
-  float* mrg = qs + D + DEC_WARPS * tile_floats;      // [warps][D+2]
-
   int len = lengths[b];
   len = len < 0 ? 0 : (len > M * bs ? M * bs : len);
-  const size_t qrow = (static_cast<size_t>(b) * H + h) * D;
-
-  // block_step casts q to the pool dtype before Q.K (common.py:93).
-  for (int d = threadIdx.x; d < D; d += blockDim.x)
-    qs[d] = round_to<TKV>(to_float(q[qrow + d]));
-  __syncthreads();
-
-  RowState st;
-  st.init();
   const int* tab = tables + static_cast<size_t>(b) * M;
-  for (int t0 = warp * WARP; t0 < len; t0 += DEC_WARPS * WARP) {
-    const int n = min(WARP, len - t0);
-    stage_tile(
-        kt, vt, ldk, k_pool, v_pool,
-        [&](int j) {
-          const int p = t0 + j;
-          return ((static_cast<size_t>(tab[p / bs]) * H + h) * bs + p % bs) *
-                 D;
-        },
-        n, D, lane, WARP, Identity());
-    __syncwarp();
-    const float s =
-        lane < n ? tile_score(qs, kt, ldk, D, lane) * scale : NEG_BIG;
-    fold_tile<TKV>(st, s, vt, n, D, lane);   // p cast to v's dtype
-    __syncwarp();
-  }
-
-  // Merge the warps' partial states: the split-K combine.
-  float* mine = mrg + warp * (D + 2);
-  if (lane == 0) {
-    mine[D] = st.m;
-    mine[D + 1] = st.l;
-  }
-#pragma unroll
-  for (int k = 0; k < DPL; ++k) {
-    const int d = lane + k * WARP;
-    if (d < D) mine[d] = st.acc[k];
-  }
-  __syncthreads();
-  for (int d = threadIdx.x; d < D; d += blockDim.x) {
-    float m = NEG_BIG;
-    for (int w = 0; w < DEC_WARPS; ++w) m = fmaxf(m, mrg[w * (D + 2) + D]);
-    float l = 0.f, acc = 0.f;
-    for (int w = 0; w < DEC_WARPS; ++w) {
-      const float* part = mrg + w * (D + 2);
-      const float c = expf(part[D] - m);
-      l += part[D + 1] * c;
-      acc += part[d] * c;
-    }
-    out[qrow + d] = from_float<TQ>(acc / finalize_denom(l));
-  }
+  decode_row<TQ, TKV>(
+      smem, q, k_pool, v_pool, out, (static_cast<size_t>(b) * H + h) * D, len,
+      D, scale, [&](int p) {
+        return ((static_cast<size_t>(tab[p / bs]) * H + h) * bs + p % bs) * D;
+      });
 }
 
 template <typename TQ, typename TKV>
@@ -124,9 +68,7 @@ cudaError_t launch(const void* q, const void* k, const void* v,
                    const int* lengths, const int* tables, void* out, int B,
                    int H, int D, int bs, int M, float scale,
                    cudaStream_t stream) {
-  const size_t smem =
-      sizeof(float) *
-      (D + DEC_WARPS * (WARP * (D + 1) + WARP * D) + DEC_WARPS * (D + 2));
+  const size_t smem = decode_smem_bytes(D);
   auto kernel = paged_decode_kernel<TQ, TKV>;
   cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return err;

@@ -6,7 +6,7 @@ package (``wte.embedding``, ``h.{i}.attn.qkv.w``, ...), so weights carry
 across by name (``models/convert.py``). The model builds on ``cuda``
 unless given ``device="cpu"`` or a CPU generator.
 
-Two attention paths:
+Three attention paths:
 
 - no cache (training, and the plain reference forward): causal
   attention through the flash kernels (``attn_impl`` "flash", which
@@ -22,7 +22,19 @@ Two attention paths:
   are updated where they lie) and attends through the CUDA kernels
   (``ops/cuda``). A ``[B]`` ``pos`` tensor is a decode step (one token
   per row at its own depth); an ``int`` ``pos`` is a prefill chunk at
-  that offset. Call under ``torch.no_grad()``.
+  that offset. Call under ``torch.no_grad()``;
+- a dense cache (``models/generate.py``): ``cache`` is one ``{"k", "v"}``
+  dict per layer, buffers ``[B, H, L, D]``. The forward writes this
+  call's K/V into them IN PLACE, clamped as JAX's ``dynamic_update_slice``
+  clamps: an ``int`` ``pos`` writes the chunk at ``pos`` (start clamped to
+  ``[0, L - S]``), a ``[B]`` ``pos`` writes one token per row (clamped to
+  ``[0, L - 1]``). ``prefill=True`` at ``pos == 0`` attends the chunk
+  itself with the flash kernel; a single-token step attends ``[0, pos]``
+  with the dense flash-decode kernel (``decode_impl``); everything else
+  takes attention composed of tensor ops over the whole buffer.
+
+LayerNorms take ``ln_impl``: "xla" (tensor ops) or "pallas" (the fused
+LayerNorm kernels, ``ops/cuda/layer_norm.py``).
 """
 
 from __future__ import annotations
@@ -39,6 +51,7 @@ from nezha_tpu_torch.nn import (Dropout, Embedding, LayerNorm, Linear,
 from nezha_tpu_torch.nn import initializers as init_lib
 from nezha_tpu_torch.ops import causal_mask, dot_product_attention, gelu
 from nezha_tpu_torch.ops.cuda import (flash_attention,
+                                      flash_decode_attention,
                                       paged_decode_attention,
                                       paged_prefill_attention)
 from nezha_tpu_torch.ops.losses import lm_objective
@@ -58,6 +71,11 @@ class GPT2Config:
     # kernel wrapper picks the CUDA kernel or its plain version by the
     # tensors' device); "xla" is attention composed of tensor ops.
     attn_impl: str = "auto"
+    # Single-token dense-cache decode: "auto" takes the flash-decode
+    # kernel unless attn_impl is "xla"; "kernel" always; "xla" never
+    # (attention composed of tensor ops).
+    decode_impl: str = "auto"
+    # "xla": LayerNorm in tensor ops; "pallas": the fused kernels.
     ln_impl: str = "xla"
     # 0: forward returns fp32 logits. -1: forward returns {"hidden",
     # "wte", "chunk"} and lm_loss computes the CE from compute-dtype
@@ -79,10 +97,9 @@ def check_config(cfg: GPT2Config) -> None:
                              f"(sequence/tensor-parallel attention)")
     if cfg.attn_impl not in ("auto", "flash", "xla"):
         raise ValueError(f"unknown attn_impl {cfg.attn_impl!r}")
-    if cfg.ln_impl == "pallas":
-        raise NotPortedError("ln_impl='pallas' (the fused LayerNorm "
-                             "kernels) is not ported")
-    if cfg.ln_impl != "xla":
+    if cfg.decode_impl not in ("auto", "kernel", "xla"):
+        raise ValueError(f"unknown decode_impl {cfg.decode_impl!r}")
+    if cfg.ln_impl not in ("xla", "pallas"):
         raise ValueError(f"unknown ln_impl {cfg.ln_impl!r}")
     if cfg.fused_loss_chunk > 0:
         raise NotPortedError(f"fused_loss_chunk={cfg.fused_loss_chunk} "
@@ -95,6 +112,16 @@ def check_config(cfg: GPT2Config) -> None:
             raise NotPortedError(f"{knob} is not ported")
     if not 0.0 <= cfg.dropout < 1.0:
         raise ValueError(f"dropout must be in [0, 1), got {cfg.dropout}")
+
+
+def decode_kernel_ok(cfg: GPT2Config) -> bool:
+    """Whether a single-token dense-cache step takes the flash-decode
+    kernel (JAX ``_decode_flash_ok``): "kernel" forces it, "xla" refuses
+    it, "auto" follows ``attn_impl``, which here resolves to the kernels
+    on every device unless it is "xla"."""
+    if cfg.decode_impl == "auto":
+        return cfg.attn_impl != "xla"
+    return cfg.decode_impl == "kernel"
 
 
 def _residual_init(cfg: GPT2Config):
@@ -117,7 +144,8 @@ class Attention(nn.Module):
 
     def forward(self, x: torch.Tensor, cache: Optional[dict] = None,
                 pos: Union[int, torch.Tensor, None] = None,
-                active: Optional[torch.Tensor] = None) -> torch.Tensor:
+                active: Optional[torch.Tensor] = None,
+                prefill: bool = False) -> torch.Tensor:
         cfg = self.cfg
         b, s, h = x.shape
         d = h // cfg.num_heads
@@ -130,12 +158,61 @@ class Attention(nn.Module):
             else:
                 out = dot_product_attention(
                     q, k, v, mask=causal_mask(s, s, device=x.device))
+        elif "tables" not in cache:
+            out = self._dense(q, k, v, cache, pos, active, prefill)
         elif isinstance(pos, torch.Tensor) and pos.dim() == 1:
             out = self._decode_paged(q, k, v, cache, pos, active)
         else:
             out = self._prefill_paged(q, k, v, cache, int(pos))
         out = self.proj(out.transpose(1, 2).reshape(b, s, h))
         return self.drop(out) if cache is None else out
+
+    def _dense(self, q, k, v, cache, pos, active, prefill: bool):
+        """The dense-cache branch (JAX ``Attention.apply``, cache without
+        ``"tables"``): write K/V in place, then attend."""
+        kc, vc = cache["k"], cache["v"]
+        b, _, s, _ = q.shape
+        cap = kc.shape[2]
+        per_row = isinstance(pos, torch.Tensor) and pos.dim() == 1
+        if per_row and s > 1:
+            raise NotPortedError("per-row positions with more than one "
+                                 "token per row (speculative verify "
+                                 "windows) on the dense cache are not "
+                                 "ported")
+        if per_row:
+            at = pos.long().clamp(0, cap - 1)
+            rows = torch.arange(b, device=q.device)
+            kc[rows, :, at, :] = k[:, :, 0, :].to(kc.dtype)
+            vc[rows, :, at, :] = v[:, :, 0, :].to(vc.dtype)
+        else:
+            pos = int(pos)
+            at = min(max(pos, 0), cap - s)
+            kc[:, :, at:at + s, :] = k.to(kc.dtype)
+            vc[:, :, at:at + s, :] = v.to(vc.dtype)
+        if (prefill and s > 1 and not per_row and pos == 0
+                and self.impl == "flash"):
+            # Nothing precedes the prompt: causal flash attention within
+            # the chunk is the whole answer (the JAX path pads S to 128
+            # for the TPU's blocks; the CUDA kernel takes any S).
+            return flash_attention(q, k, v, causal=True)
+        if not prefill and s == 1 and decode_kernel_ok(self.cfg):
+            lengths = (pos if per_row else torch.full(
+                (b,), pos, device=q.device)) + 1
+            if active is not None:
+                lengths = torch.where(active, lengths, 0)
+            return flash_decode_attention(q.contiguous(), kc, vc,
+                                          lengths.to(torch.int32))
+        steps = torch.arange(s, device=q.device)
+        if per_row:
+            abs_q = pos.long()[:, None] + steps[None, :]          # [B, s]
+            attendable = (torch.arange(cap, device=q.device)[None, None, :]
+                          <= abs_q[:, :, None])[:, None]         # [B,1,s,L]
+        else:
+            attendable = (torch.arange(cap, device=q.device)[None, :]
+                          <= (pos + steps)[:, None])              # [s, L]
+        mask = torch.where(attendable, 0.0, float("-inf"))
+        return dot_product_attention(q, kc.to(q.dtype), vc.to(q.dtype),
+                                     mask=mask)
 
     @staticmethod
     def _decode_paged(q, k, v, cache, pos, active):
@@ -208,15 +285,18 @@ class Block(nn.Module):
                  dropout_generator: Optional[torch.Generator] = None):
         super().__init__()
         h = cfg.hidden_size
-        self.ln_1 = LayerNorm(h, policy=policy, device=device)
+        self.ln_1 = LayerNorm(h, policy=policy, device=device,
+                              impl=cfg.ln_impl)
         self.attn = Attention(cfg, policy, generator, device,
                               dropout_generator)
-        self.ln_2 = LayerNorm(h, policy=policy, device=device)
+        self.ln_2 = LayerNorm(h, policy=policy, device=device,
+                              impl=cfg.ln_impl)
         self.mlp = MLPBlock(cfg, policy, generator, device,
                             dropout_generator)
 
-    def forward(self, x, cache=None, pos=None, active=None):
-        x = x + self.attn(self.ln_1(x), cache=cache, pos=pos, active=active)
+    def forward(self, x, cache=None, pos=None, active=None, prefill=False):
+        x = x + self.attn(self.ln_1(x), cache=cache, pos=pos, active=active,
+                          prefill=prefill)
         return x + self.mlp(self.ln_2(x))
 
 
@@ -253,16 +333,20 @@ class GPT2(nn.Module):
         self.h = nn.ModuleList(Block(cfg, policy, generator, device,
                                      drop_gen)
                                for _ in range(cfg.num_layers))
-        self.ln_f = LayerNorm(cfg.hidden_size, policy=policy, device=device)
+        self.ln_f = LayerNorm(cfg.hidden_size, policy=policy, device=device,
+                              impl=cfg.ln_impl)
         drop_gen.manual_seed(int(torch.randint(
             2 ** 62, (1,), generator=generator, device=device)))
 
     def forward(self, tokens, cache: Optional[List[dict]] = None,
                 pos: Union[int, torch.Tensor, None] = None,
-                active: Optional[torch.Tensor] = None):
-        """``cache``/``pos``/``active``: see the module docstring.
-        ``active`` ([B] bool, decode only) marks the rows whose token is
-        emitted; the others write scratch and attend nothing."""
+                active: Optional[torch.Tensor] = None,
+                prefill: bool = False):
+        """``cache``/``pos``/``active``/``prefill``: see the module
+        docstring. ``active`` ([B] bool, decode only) marks the rows whose
+        token is emitted; the others attend nothing (and, in the paged
+        cache, write scratch). ``prefill=True`` promises the chunk is the
+        whole prefix of a dense cache written from position 0."""
         if isinstance(tokens, dict):
             tokens = tokens["tokens"][:, :-1]
         s = tokens.shape[1]
@@ -277,7 +361,7 @@ class GPT2(nn.Module):
         x = self.drop(self.wte(tokens) + self.wpe(positions))
         for i, block in enumerate(self.h):
             x = block(x, cache=None if cache is None else cache[i], pos=pos,
-                      active=active)
+                      active=active, prefill=prefill)
         x = self.ln_f(x)
         if self.cfg.fused_loss_chunk and cache is None:
             # The LM head moves into the loss (lm_loss); gradients reach

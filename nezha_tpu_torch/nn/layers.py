@@ -17,6 +17,7 @@ import torch
 from torch import nn
 
 from nezha_tpu_torch.nn import initializers as init_lib
+from nezha_tpu_torch.ops.cuda.layer_norm import fused_layer_norm
 from nezha_tpu_torch.tensor.policy import DEFAULT_POLICY, Policy
 
 
@@ -64,15 +65,25 @@ class Linear(nn.Module):
 
 
 class LayerNorm(nn.Module):
-    """Layer norm over the last axis with fp32 statistics (the ``xla``
-    path of the JAX layer: mean, biased variance, ``rsqrt(var + eps)``),
-    output cast to the policy's output dtype."""
+    """Layer norm over the last axis with fp32 statistics (mean, biased
+    variance, ``rsqrt(var + eps)``), output cast to the policy's output
+    dtype. Two paths, named as in the JAX layer:
+
+    - ``impl="xla"``: tensor ops on x upcast to fp32;
+    - ``impl="pallas"``: the fused kernels (``ops/cuda/layer_norm.py``,
+      forward and backward) on x cast to the compute dtype, as the JAX
+      layer feeds its Pallas kernel; CPU tensors run their plain
+      versions."""
 
     def __init__(self, dim: int, eps: float = 1e-5,
-                 policy: Policy = DEFAULT_POLICY, device=None):
+                 policy: Policy = DEFAULT_POLICY, device=None,
+                 impl: str = "xla"):
         super().__init__()
+        if impl not in ("xla", "pallas"):
+            raise ValueError(f"unknown LayerNorm impl {impl!r}")
         self.eps = eps
         self.policy = policy
+        self.impl = impl
         device = resolve_device(device)
         self.scale = nn.Parameter(torch.ones(dim, dtype=policy.param_dtype,
                                              device=device))
@@ -80,6 +91,11 @@ class LayerNorm(nn.Module):
                                              device=device))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.impl == "pallas":
+            y = fused_layer_norm(self.policy.cast_to_compute(x),
+                                 self.scale.float(), self.bias.float(),
+                                 self.eps)
+            return self.policy.cast_output(y)
         xf = x.float()
         mean = xf.mean(dim=-1, keepdim=True)
         var = (xf - mean).square().mean(dim=-1, keepdim=True)

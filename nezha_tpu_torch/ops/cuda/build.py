@@ -34,7 +34,8 @@ CSRC = PACKAGE_DIR / "csrc"
 BUILD_ROOT = PACKAGE_DIR.parent / "build" / "nezha_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
-KERNELS = ("paged_decode", "paged_prefill", "flash_fwd", "flash_bwd")
+KERNELS = ("paged_decode", "paged_prefill", "flash_fwd", "flash_bwd",
+           "flash_decode", "layer_norm")
 # dtype codes the C entry points take (csrc/online_softmax.cuh DType)
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 

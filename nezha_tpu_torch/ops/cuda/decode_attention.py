@@ -1,11 +1,15 @@
-"""Paged flash-decode: one query token per row against a block-paged KV
-pool (counterpart of the paged path of
-``nezha_tpu/ops/pallas/decode_attention.py``).
+"""Flash-decode: one query token per row against a KV cache (counterpart
+of ``nezha_tpu/ops/pallas/decode_attention.py``), in its two layouts:
 
-:func:`paged_decode_attention` launches the CUDA kernel
-``csrc/paged_decode.cu`` on CUDA tensors and runs
-:func:`paged_decode_attention_plain` on CPU tensors; any other device
-raises. ``paged_decode_attention.launches`` counts kernel launches.
+- paged: :func:`paged_decode_attention` reads a block-paged pool through
+  block tables (the serve engine's cache) with ``csrc/paged_decode.cu``;
+- dense: :func:`flash_decode_attention` reads ``[B, H, L, D]`` caches
+  (``models/generate.py``'s) with ``csrc/flash_decode.cu``.
+
+Both kernels share one body (``csrc/decode_fold.cuh``). Each wrapper
+launches its kernel on CUDA tensors and runs its plain version
+(``*_plain``) on CPU tensors; any other device raises. Each counts its
+kernel launches in ``<wrapper>.launches``.
 """
 
 from __future__ import annotations
@@ -17,18 +21,25 @@ import torch
 
 from nezha_tpu_torch.ops.attention import masked_scores
 from nezha_tpu_torch.ops.cuda import build
-from nezha_tpu_torch.ops.cuda.common import (softmax_block_update,
+from nezha_tpu_torch.ops.cuda.common import (pick_block,
+                                             softmax_block_update,
                                              softmax_finalize, softmax_init)
 
 _ARGTYPES = (ctypes.c_void_p,) * 6 + (ctypes.c_int,) * 5 + (
     ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p)
+_DENSE_ARGTYPES = (ctypes.c_void_p,) * 5 + (ctypes.c_int,) * 4 + (
+    ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p)
+# The TPU kernel's key block (``_pick_block(L, 256)``): the dense plain
+# version folds in the same blocks, so on the CPU it agrees with the
+# Pallas kernel to fp32 rounding. The CUDA kernel folds 32-key tiles.
+_PLAIN_BLOCK_K = 256
 # Largest dynamic shared memory one thread block may opt into on sm_90.
 _SMEM_LIMIT = 227 * 1024
 
 
 def smem_bytes(d: int) -> int:
-    """Shared memory of one decode thread block (``launch`` in
-    ``csrc/paged_decode.cu``): q, each of the 8 warps' fp32 K tile
+    """Shared memory of one decode thread block (``decode_smem_bytes`` in
+    ``csrc/decode_fold.cuh``): q, each of the 8 warps' fp32 K tile
     ``[32, D+1]`` and V tile ``[32, D]``, and the 8 warps' merge rows."""
     return 4 * (d + 8 * (32 * (d + 1) + 32 * d) + 8 * (d + 2))
 
@@ -88,33 +99,40 @@ def paged_decode_attention_plain(q, k_pool, v_pool, lengths, block_tables,
     return softmax_finalize(state, q.dtype)
 
 
-def _launch(q, k_pool, v_pool, lengths, block_tables, scale):
-    dev = q.device
-    for name, t in (("k_pool", k_pool), ("v_pool", v_pool),
-                    ("lengths", lengths), ("block_tables", block_tables)):
-        if t.device != dev:
-            raise ValueError(f"{name} is on {t.device}, q on {dev}")
+def _check_cuda(q, lengths, **kv) -> None:
+    """What both kernels take: f32 or bf16 q, K and V of one f32 or bf16
+    dtype, int32 lengths, all contiguous and 16-byte aligned on q's
+    device, a head dim the decode kernel fits."""
+    for name, t in (("lengths", lengths),) + tuple(kv.items()):
+        if t.device != q.device:
+            raise ValueError(f"{name} is on {t.device}, q on {q.device}")
     if q.dtype not in build.DTYPE_CODES:
         raise ValueError(f"q dtype {q.dtype} not supported (f32, bf16)")
-    if k_pool.dtype not in build.DTYPE_CODES or v_pool.dtype != k_pool.dtype:
-        raise ValueError(f"pool dtypes {k_pool.dtype}/{v_pool.dtype} not "
+    kv_dtypes = {t.dtype for t in kv.values() if t.is_floating_point()}
+    if len(kv_dtypes) != 1 or not kv_dtypes <= set(build.DTYPE_CODES):
+        raise ValueError(f"k/v dtypes {sorted(map(str, kv_dtypes))} not "
                          f"supported (one of f32, bf16)")
-    if lengths.dtype != torch.int32 or block_tables.dtype != torch.int32:
-        raise ValueError("lengths and block_tables must be int32")
-    for name, t in (("q", q), ("k_pool", k_pool), ("v_pool", v_pool),
-                    ("lengths", lengths), ("block_tables", block_tables)):
+    for name, t in (("q", q), ("lengths", lengths)) + tuple(kv.items()):
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
+        if not t.is_floating_point() and t.dtype != torch.int32:
+            raise ValueError(f"{name} must be int32")
+    check_head_dim(q.shape[3])
+    build.check_aligned(q=q, **{n: t for n, t in kv.items()
+                                if t.is_floating_point()})
+
+
+def _launch(q, k_pool, v_pool, lengths, block_tables, scale):
+    _check_cuda(q, lengths, k_pool=k_pool, v_pool=v_pool,
+                block_tables=block_tables)
     b, h, _, d = q.shape
-    check_head_dim(d)
-    build.check_aligned(q=q, k_pool=k_pool, v_pool=v_pool)
     out = torch.empty_like(q)
     fn = build.bind("paged_decode", "nezha_paged_decode", _ARGTYPES)
     rc = fn(q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
             lengths.data_ptr(), block_tables.data_ptr(), out.data_ptr(),
             b, h, d, k_pool.shape[2], block_tables.shape[1], float(scale),
             build.DTYPE_CODES[q.dtype], build.DTYPE_CODES[k_pool.dtype],
-            torch.cuda.current_stream(dev).cuda_stream)
+            torch.cuda.current_stream(q.device).cuda_stream)
     build.check_launch(rc, "nezha_paged_decode")
     paged_decode_attention.launches += 1
     return out
@@ -143,3 +161,80 @@ def paged_decode_attention(q, k_pool, v_pool, lengths, block_tables,
 
 
 paged_decode_attention.launches = 0
+
+
+# ------------------------------------------------------------ dense caches
+def _check_dense(q, k, v, lengths) -> None:
+    if q.dim() != 4 or q.shape[2] != 1:
+        raise ValueError(f"q must be [B, H, 1, D], got {tuple(q.shape)}")
+    b, h, _, d = q.shape
+    if (k.shape != v.shape or k.dim() != 4 or k.shape[:2] != (b, h)
+            or k.shape[3] != d or k.shape[2] < 1):
+        raise ValueError(f"k/v {tuple(k.shape)}/{tuple(v.shape)} do not "
+                         f"match q {tuple(q.shape)}")
+    if tuple(lengths.shape) != (b,):
+        raise ValueError(f"lengths {tuple(lengths.shape)} must be [{b}]")
+
+
+def flash_decode_attention_plain(q, k, v, lengths,
+                                 scale: Optional[float] = None):
+    """The dense kernel's function in tensor ops: fold the cache in the
+    TPU kernel's blocks (the largest divisor of L up to 256) in order,
+    each masked to ``[0, length)`` and skipped once it starts at or past
+    the row's length (``_decode_kernel``). q is cast to the cache dtype
+    before Q·Kᵀ, p to v's dtype before P·V."""
+    _check_dense(q, k, v, lengths)
+    b, h, _, d = q.shape
+    cap = k.shape[2]
+    scale = scale if scale is not None else 1.0 / (d ** 0.5)
+    lengths = lengths.long().clamp(0, cap)
+    qk = q.to(k.dtype)
+    state = softmax_init((b, h, 1), d, q.device)
+    bk = pick_block(cap, _PLAIN_BLOCK_K)
+    offs = torch.arange(bk, device=q.device)
+    for k0 in range(0, cap, bk):
+        run = k0 < lengths                                    # [B]
+        if not bool(run.any()):
+            break      # lengths only shrink the span: no later block runs
+        valid = (k0 + offs)[None, :] < lengths[:, None]      # [B, bk]
+        s = masked_scores(qk, k[:, :, k0:k0 + bk], valid[:, None, None, :],
+                          scale)
+        state = softmax_block_update(state, s, v[:, :, k0:k0 + bk],
+                                     run=run[:, None, None, None])
+    return softmax_finalize(state, q.dtype)
+
+
+def _dense_launch(q, k, v, lengths, scale):
+    _check_cuda(q, lengths, k=k, v=v)
+    b, h, _, d = q.shape
+    out = torch.empty_like(q)
+    fn = build.bind("flash_decode", "nezha_flash_decode", _DENSE_ARGTYPES)
+    rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), lengths.data_ptr(),
+            out.data_ptr(), b, h, k.shape[2], d, float(scale),
+            build.DTYPE_CODES[q.dtype], build.DTYPE_CODES[k.dtype],
+            torch.cuda.current_stream(q.device).cuda_stream)
+    build.check_launch(rc, "nezha_flash_decode")
+    flash_decode_attention.launches += 1
+    return out
+
+
+def flash_decode_attention(q, k, v, lengths, scale: Optional[float] = None):
+    """q ``[B, H, 1, D]``, dense caches k/v ``[B, H, L, D]``, ``lengths
+    [B]`` int32 -> ``[B, H, 1, D]`` in q's dtype.
+
+    ``lengths[b]`` (clamped to ``[0, L]``) is how many cache positions
+    row b attends — the decode convention ``pos + 1`` — and 0 marks an
+    inactive row whose output is exactly zero. CUDA tensors launch
+    ``csrc/flash_decode.cu`` (f32 or bf16 q over an f32 or bf16 cache,
+    D a multiple of 8 up to 104); CPU tensors run the plain version."""
+    _check_dense(q, k, v, lengths)
+    scale = scale if scale is not None else 1.0 / (q.shape[3] ** 0.5)
+    if q.device.type == "cuda":
+        return _dense_launch(q, k, v, lengths, scale)
+    if q.device.type == "cpu":
+        return flash_decode_attention_plain(q, k, v, lengths, scale)
+    raise ValueError(f"flash_decode_attention runs on cuda or cpu, not "
+                     f"{q.device}")
+
+
+flash_decode_attention.launches = 0

@@ -1,5 +1,6 @@
 """The port's CUDA kernels on the card, against their plain versions; the
-engine and a training step on the card against the same on the CPU.
+engine, generate and a training step on the card against the same on the
+CPU.
 Every test here needs a CUDA card: it is marked ``gpu`` and skips
 without one.
 
@@ -13,9 +14,14 @@ import pytest
 import torch
 
 from nezha_tpu_torch.cli.common import gpt2_for_preset
+from nezha_tpu_torch.models import generate
 from nezha_tpu_torch.models.gpt2 import lm_loss
 from nezha_tpu_torch.ops.cuda import (flash_block_bwd, flash_block_bwd_plain,
                                       flash_block_fwd, flash_block_fwd_plain,
+                                      flash_decode_attention,
+                                      flash_decode_attention_plain,
+                                      layer_norm_bwd, layer_norm_bwd_plain,
+                                      layer_norm_fwd, layer_norm_fwd_plain,
                                       paged_decode_attention,
                                       paged_decode_attention_plain,
                                       paged_prefill_attention,
@@ -23,6 +29,8 @@ from nezha_tpu_torch.ops.cuda import (flash_block_bwd, flash_block_bwd_plain,
 from nezha_tpu_torch.ops.cuda.common import fold_error_bound
 from nezha_tpu_torch.ops.cuda.flash_attention import (LAUNCHES,
                                                       flash_bwd_error_bound)
+from nezha_tpu_torch.ops.cuda.layer_norm import LAUNCHES as LN_LAUNCHES
+from nezha_tpu_torch.ops.cuda.layer_norm import layer_norm_error_bound
 from nezha_tpu_torch.optim import adamw
 from nezha_tpu_torch.serve import Engine, Request, Scheduler, ServeConfig
 from nezha_tpu_torch.train import make_train_step
@@ -213,3 +221,94 @@ def test_train_step_on_card_matches_cpu(cuda_device):
         clear = g.abs() > 100 * 1e-8
         if clear.any():
             assert diff[clear].max().item() <= 1e-3 * lr, name
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("q_dtype,cache_dtype", DTYPES)
+def test_dense_decode_kernel_matches_plain(cuda_device, q_dtype,
+                                           cache_dtype):
+    """The dense flash-decode kernel within fold_error_bound of its plain
+    version, over lengths that end inside a 32-key tile, on one, at the
+    cache's end and past it; the zero-length row exact zero; two launches
+    bitwise equal."""
+    rng = np.random.RandomState(4)
+    cap = 300
+    lengths = np.asarray([0, 1, 31, 32, 33, 257, cap, cap + 9], np.int32)
+    b = len(lengths)
+    q = rng.randn(b, H, 1, D).astype(np.float32)
+    k, v = (rng.randn(b, H, cap, D).astype(np.float32) for _ in range(2))
+    dev = cuda_device
+    args = (torch.from_numpy(q).to(dev, q_dtype),
+            torch.from_numpy(k).to(dev, cache_dtype),
+            torch.from_numpy(v).to(dev, cache_dtype),
+            torch.from_numpy(lengths).to(dev))
+    before = flash_decode_attention.launches
+    got = flash_decode_attention(*args)
+    torch.cuda.synchronize()
+    assert flash_decode_attention.launches == before + 1
+    assert got.dtype == q_dtype
+    want = flash_decode_attention_plain(*args)
+    abs_v = flash_decode_attention_plain(*args[:2], args[2].abs(), args[3])
+    _assert_within_bound(got, want, abs_v, cache_dtype == torch.bfloat16)
+    assert torch.all(got[0] == 0)
+    assert torch.equal(flash_decode_attention(*args), got)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("rows,d", [(37, 768), (300, 64), (8, 1024)])
+def test_layer_norm_kernels_match_plain(cuda_device, dtype, rows, d):
+    """Forward y and backward dx, dscale, dbias (the partials summed)
+    within layer_norm_error_bound of the plain versions; the backward
+    bitwise repeatable; one launch of each kernel."""
+    rng = np.random.RandomState(rows + d)
+    x = rng.randn(rows, d) * 2 + rng.randn(rows, 1)
+    x, dy = (torch.from_numpy(a.astype(np.float32)).to(cuda_device, dtype)
+             for a in (x, rng.randn(rows, d)))
+    scale, bias = (torch.from_numpy(a.astype(np.float32)).to(cuda_device)
+                   for a in (1 + 0.3 * rng.randn(d), 0.2 * rng.randn(d)))
+    before = dict(LN_LAUNCHES)
+    y = layer_norm_fwd(x, scale, bias, 1e-5)
+    grads = layer_norm_bwd(x, scale, dy, 1e-5)
+    torch.cuda.synchronize()
+    assert {k: LN_LAUNCHES[k] - before[k] for k in LN_LAUNCHES} == {
+        "layer_norm_fwd": 1, "layer_norm_bwd": 1}
+    err = (y.float() - layer_norm_fwd_plain(x, scale, bias, 1e-5).float())
+    bound = layer_norm_error_bound(x, scale, bias, 1e-5)
+    assert torch.all(err.abs() <= bound), (err.abs() / bound).max().item()
+    plain = layer_norm_bwd_plain(x, scale, dy, 1e-5)
+    got = (grads[0].float(), grads[1].sum(0), grads[2].sum(0))
+    want = (plain[0].float(), plain[1].sum(0), plain[2].sum(0))
+    bounds = layer_norm_error_bound(x, scale, bias, 1e-5, dy=dy)
+    for name, g, w, bd in zip(("dx", "dscale", "dbias"), got, want, bounds):
+        assert torch.all((g - w).abs() <= bd), (
+            f"{name}: max |kernel - plain| / bound "
+            f"{((g - w).abs() / bd).max().item():.3f}")
+    again = layer_norm_bwd(x, scale, dy, 1e-5)
+    assert all(torch.equal(a, b) for a, b in zip(grads, again))
+
+
+@pytest.mark.gpu
+def test_generate_on_card_matches_cpu(cuda_device):
+    """The tiny preset (f32) with ln_impl="pallas" and an f32 cache
+    generates the same greedy tokens on the card (flash, flash-decode and
+    LayerNorm kernels) as on the CPU (plain versions), and the card's run
+    launches the decode kernel once per layer per decode step and the
+    LayerNorm forward 9 times per forward (2 per block + ln_f)."""
+    prompt = torch.from_numpy(
+        np.random.RandomState(5).randint(0, 512, (2, 8)))
+    cpu_model = gpt2_for_preset("tiny", seed=0, device="cpu",
+                                ln_impl="pallas")
+    results = []
+    for device in ("cpu", cuda_device):
+        model = gpt2_for_preset("tiny", seed=0, device="cpu",
+                                ln_impl="pallas").to(device)
+        model.load_state_dict(cpu_model.state_dict())
+        dec, ln = flash_decode_attention.launches, dict(LN_LAUNCHES)
+        out = generate(model, prompt, 12, cache_dtype=torch.float32)
+        if device != "cpu":
+            assert flash_decode_attention.launches - dec == 11 * 4
+            assert LN_LAUNCHES["layer_norm_fwd"] - ln["layer_norm_fwd"] \
+                == 12 * 9
+        results.append(out.cpu())
+    assert torch.equal(results[0], results[1])

@@ -1,0 +1,216 @@
+"""The fused LayerNorm (``ln_impl="pallas"``) in the port against the JAX
+package on the CPU: the kernels' plain versions against the Pallas
+kernels in interpret mode (``fused_layer_norm``, forward and custom-VJP
+backward), the GPT-2 layer against JAX's under ``NEZHA_LN_INTERPRET=1``,
+and one tiny-preset train step's loss and gradients.
+
+Tolerance: ``layer_norm_error_bound`` (``ops/cuda/layer_norm.py``), the
+elementwise bound on two fp32 evaluations of the same formulas in other
+summation orders, plus one bf16 rounding of each side's output where x is
+bf16 — the bound the card holds the kernels to. It is pinned here against
+float64 arithmetic, and a one-pass variance breaks it."""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from nezha_tpu.cli.train import TINY_GPT2_KW
+from nezha_tpu.models.gpt2 import GPT2 as JaxGPT2
+from nezha_tpu.models.gpt2 import GPT2Config as JaxGPT2Config
+from nezha_tpu.models.gpt2 import lm_loss as jax_lm_loss
+from nezha_tpu.nn import LayerNorm as JaxLayerNorm
+from nezha_tpu.ops.pallas.layer_norm import \
+    fused_layer_norm as jax_fused_layer_norm
+from nezha_tpu.tensor import bf16_policy as jax_bf16_policy
+from nezha_tpu_torch.models import GPT2, GPT2Config, lm_loss, params_from_jax
+from nezha_tpu_torch.models.convert import params_to_jax
+from nezha_tpu_torch.nn import LayerNorm
+from nezha_tpu_torch.ops.cuda import (fused_layer_norm, layer_norm_bwd,
+                                      layer_norm_fwd)
+from nezha_tpu_torch.ops.cuda.layer_norm import (BWD_ROWS,
+                                                 layer_norm_error_bound)
+from nezha_tpu_torch.optim import adamw
+from nezha_tpu_torch.tensor.policy import bf16_policy
+from nezha_tpu_torch.train import make_train_step
+
+EPS = 1e-5
+DTYPES = {"f32": (torch.float32, jnp.float32),
+          "bf16": (torch.bfloat16, jnp.bfloat16)}
+
+
+def _inputs(rows, d, seed):
+    rng = np.random.RandomState(seed)
+    # Rows with their own offsets and spreads, as residual streams have.
+    x = (rng.randn(rows, d) * rng.uniform(0.5, 3.0, (rows, 1))
+         + rng.randn(rows, 1) * 2).astype(np.float32)
+    scale = (1 + 0.3 * rng.randn(d)).astype(np.float32)
+    bias = (0.2 * rng.randn(d)).astype(np.float32)
+    dy = rng.randn(rows, d).astype(np.float32)
+    return x, scale, bias, dy
+
+
+def _np(a):
+    return np.asarray(jnp.asarray(a, jnp.float32))
+
+
+def _within(got, want, bound, what):
+    err = np.abs(np.asarray(got, np.float64) - np.asarray(want, np.float64))
+    bound = np.asarray(bound, np.float64)
+    assert np.all(err <= bound), (
+        f"{what}: max |port - jax| / bound {np.max(err / bound):.3f}")
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("rows,d", [(37, 64), (300, 96)])
+def test_plain_matches_pallas_kernels(rows, d, dtype):
+    """y, dx, dscale and dbias of the plain versions against JAX's fused
+    LayerNorm (its forward kernel and the custom VJP's backward kernel,
+    interpret mode), each within layer_norm_error_bound."""
+    tdt, jdt = DTYPES[dtype]
+    x, scale, bias, dy = _inputs(rows, d, seed=rows + d)
+    jx = jnp.asarray(x, jdt)
+    y, vjp = jax.vjp(lambda a, s, b: jax_fused_layer_norm(
+        a, s, b, eps=EPS, interpret=True), jx, jnp.asarray(scale),
+        jnp.asarray(bias))
+    jdx, jds, jdb = vjp(jnp.asarray(dy, jdt))
+
+    tx, tdy = (torch.from_numpy(a).to(tdt) for a in (x, dy))
+    ts, tb = torch.from_numpy(scale), torch.from_numpy(bias)
+    got_y = layer_norm_fwd(tx, ts, tb, EPS)
+    dx, dsp, dbp = layer_norm_bwd(tx, ts, tdy, EPS)
+    assert got_y.dtype == dx.dtype == tdt
+    assert dsp.shape == dbp.shape == (-(-rows // BWD_ROWS), d)
+    _within(got_y.float(), _np(y), layer_norm_error_bound(tx, ts, tb, EPS),
+            "y")
+    bounds = layer_norm_error_bound(tx, ts, tb, EPS, dy=tdy)
+    for name, got, want, bd in zip(("dx", "dscale", "dbias"),
+                                   (dx.float(), dsp.sum(0), dbp.sum(0)),
+                                   (jdx, jds, jdb), bounds):
+        _within(got, _np(want), bd, name)
+
+
+def test_autograd_function_matches_raw_entry_points():
+    """fused_layer_norm's backward is layer_norm_bwd with the partials
+    summed, returned in scale's and bias's dtype; x keeps its shape."""
+    x, scale, bias, dy = _inputs(2 * 7, 64, seed=5)
+    tx = torch.from_numpy(x).reshape(2, 7, 64).requires_grad_()
+    ts = torch.from_numpy(scale).requires_grad_()
+    tb = torch.from_numpy(bias).requires_grad_()
+    y = fused_layer_norm(tx, ts, tb, EPS)
+    assert y.shape == (2, 7, 64)
+    y.backward(torch.from_numpy(dy).reshape(2, 7, 64))
+    dx, dsp, dbp = layer_norm_bwd(tx.detach().reshape(14, 64), ts.detach(),
+                                  torch.from_numpy(dy), EPS)
+    assert torch.equal(tx.grad.reshape(14, 64), dx)
+    assert torch.equal(ts.grad, dsp.sum(0))
+    assert torch.equal(tb.grad, dbp.sum(0))
+
+
+def test_error_bound_holds_against_float64_and_is_tight():
+    """The plain version (fp32) against the same formulas in float64 stays
+    within the bound, on rows whose mean is 300 times their spread; a
+    one-pass variance, E[x^2] - mean^2 in fp32, breaks it."""
+    rng = np.random.RandomState(7)
+    x = (300 + rng.randn(16, 64)).astype(np.float32)
+    scale = (1 + 0.3 * rng.randn(64)).astype(np.float32)
+    bias = (0.2 * rng.randn(64)).astype(np.float32)
+    tx, ts, tb = map(torch.from_numpy, (x, scale, bias))
+    bound = layer_norm_error_bound(tx, ts, tb, EPS).numpy()
+    xd = x.astype(np.float64)
+    var = ((xd - xd.mean(-1, keepdims=True)) ** 2).mean(-1, keepdims=True)
+    exact = ((xd - xd.mean(-1, keepdims=True)) / np.sqrt(var + EPS) * scale
+             + bias)
+    _within(layer_norm_fwd(tx, ts, tb, EPS).numpy(), exact, bound, "plain")
+    mean = tx.mean(-1, keepdim=True)
+    one_pass = (tx.square().mean(-1, keepdim=True) - mean.square()).clamp_min(0)
+    mutant = (tx - mean) * torch.rsqrt(one_pass + EPS) * ts + tb
+    assert np.any(np.abs(mutant.numpy() - exact) > bound)
+
+
+@pytest.mark.parametrize("policy", ["f32", "bf16"])
+def test_gpt2_layer_matches_jax_pallas_layer(policy, monkeypatch):
+    """LayerNorm(impl="pallas") against JAX's nn.LayerNorm(impl="pallas")
+    with its kernel forced on the CPU: under the bf16 policy both cast x
+    to bf16 before the kernel and return bf16."""
+    monkeypatch.setenv("NEZHA_LN_INTERPRET", "1")
+    x, scale, bias, _ = _inputs(24, 64, seed=11)
+    if policy == "bf16":
+        jln = JaxLayerNorm(64, policy=jax_bf16_policy(), impl="pallas")
+        tln = LayerNorm(64, policy=bf16_policy(), device="cpu",
+                        impl="pallas")
+    else:
+        jln = JaxLayerNorm(64, impl="pallas")
+        tln = LayerNorm(64, device="cpu", impl="pallas")
+    want, _ = jln.apply({"params": {"scale": jnp.asarray(scale),
+                                    "bias": jnp.asarray(bias)},
+                         "state": {}}, jnp.asarray(x).reshape(2, 12, 64))
+    with torch.no_grad():
+        tln.scale.copy_(torch.from_numpy(scale))
+        tln.bias.copy_(torch.from_numpy(bias))
+        got = tln(torch.from_numpy(x).reshape(2, 12, 64))
+    assert got.dtype == (torch.bfloat16 if policy == "bf16"
+                         else torch.float32)
+    bound = layer_norm_error_bound(
+        torch.from_numpy(x).to(got.dtype), tln.scale.detach(),
+        tln.bias.detach(), EPS)
+    _within(got.float().reshape(24, 64), _np(want).reshape(24, 64), bound,
+            "layer")
+
+
+def _flatten(tree, prefix=""):
+    out = {}
+    for key, val in tree.items():
+        if isinstance(val, dict):
+            out.update(_flatten(val, f"{prefix}{key}/"))
+        else:
+            out[f"{prefix}{key}"] = np.asarray(val)
+    return out
+
+
+def test_train_step_with_fused_layer_norm_matches_jax(monkeypatch):
+    """One tiny-preset step (f32, flash attention, ln_impl="pallas") from
+    the same weights and batch: the loss within 1e-5 and every gradient
+    within 1e-6 + 1e-4 of its tensor's largest magnitude, the tolerances
+    of tests/test_torch_train.py (the same f32 formulas in other
+    summation orders)."""
+    monkeypatch.setenv("NEZHA_LN_INTERPRET", "1")
+    kw = dict(TINY_GPT2_KW, attn_impl="flash", ln_impl="pallas",
+              fused_loss_chunk=-1)
+    jm = JaxGPT2(JaxGPT2Config(**kw))
+    jv = jm.init(jax.random.PRNGKey(0))
+    tokens = np.random.RandomState(1).randint(0, 512, (2, 33)).astype(
+        np.int32)
+    jbatch = {"tokens": jnp.asarray(tokens)}
+
+    def jloss(params):
+        out, _ = jm.apply({"params": params, "state": jv["state"]}, jbatch,
+                          training=True, rng=jax.random.PRNGKey(1))
+        return jax_lm_loss(out, jbatch)
+
+    jl, jg = jax.value_and_grad(jloss)(jv["params"])
+    tm = GPT2(GPT2Config(**kw), device="cpu")
+    tm.load_state_dict(params_from_jax(_flatten(jv["params"])), strict=True)
+    step = make_train_step(tm, adamw(6e-4), lm_loss)
+    loss, grads = step.loss_and_grads({"tokens": tokens})
+    assert abs(loss.item() - float(jl)) <= 1e-5
+    want = _flatten(jg)
+    got = params_to_jax(grads)
+    assert set(got) == set(want)
+    for path, g in got.items():
+        scale = float(np.abs(want[path]).max())
+        np.testing.assert_allclose(g, want[path], rtol=0,
+                                   atol=1e-6 + 1e-4 * scale, err_msg=path)
+
+
+def test_ln_impl_pallas_builds_and_unknown_impls_refused():
+    model = GPT2(GPT2Config(**TINY_GPT2_KW, ln_impl="pallas"), device="cpu")
+    assert {m.impl for m in model.modules()
+            if isinstance(m, LayerNorm)} == {"pallas"}
+    assert sum(isinstance(m, LayerNorm) for m in model.modules()) == 9
+    for bad in ({"ln_impl": "cudnn"}, {"decode_impl": "flash"}):
+        with pytest.raises(ValueError, match="unknown"):
+            GPT2(GPT2Config(**TINY_GPT2_KW, **bad), device="cpu")
+    with pytest.raises(ValueError, match="impl"):
+        LayerNorm(8, device="cpu", impl="triton")

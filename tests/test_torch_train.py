@@ -332,7 +332,7 @@ def test_cli_refuses_unported_flags_and_configs():
 @pytest.mark.parametrize("knob", [
     {"moe_experts": 4}, {"scan_layers": True}, {"remat": True},
     {"attn_impl": "ring"}, {"attn_impl": "ulysses"},
-    {"attn_impl": "flash_shmap"}, {"ln_impl": "pallas"},
+    {"attn_impl": "flash_shmap"}, {"fused_loss_chunk": 1},
     {"fused_loss_chunk": 128}])
 def test_unported_model_knobs_raise(knob):
     with pytest.raises(NotPortedError):

@@ -1,11 +1,13 @@
 """Where the time goes in the PyTorch port's GPT-2 training step, on one
 CUDA card.
 
-    python3 tools/profile_torch_train.py [--out train_profile.json]
+    python3 tools/profile_torch_train.py [--out train_profile.json] \
+        [--ln-impl pallas]
 
 The step of ``chip_smoke.py``'s train phase (GPT-2 124M, seeded random
 weights, bf16, B=8, S=1024, ``fused_loss_chunk=-1``, AdamW with weight
-decay 0.1, ``synthetic_token_batches`` seed 0) through ``Trainer.fit``:
+decay 0.1, ``synthetic_token_batches`` seed 0; ``--ln-impl pallas`` for
+the fused LayerNorm kernels) through ``Trainer.fit``:
 2 warm-up steps, ``--steps`` timed steps without the profiler, then
 ``--steps`` more under ``torch.profiler``. Reports ms per step, tokens/s,
 the device's busy time and idle share, the device time of the three
@@ -39,7 +41,10 @@ FLASH_SYMBOLS = {"flash_fwd": "flash_fwd_kernel",
 # Device kernels by kind, first match wins (names as the profiler shows
 # them: the port's kernels, cuBLAS's nvjet and CUTLASS GEMMs, PyTorch's
 # elementwise and reduction kernels).
-CATEGORIES = (("flash attention", ("nezha::flash",)),
+CATEGORIES = (("decode attention", ("flash_decode_kernel",
+                                     "paged_decode_kernel")),
+              ("layer norm kernels", ("ln_fwd_kernel", "ln_bwd_kernel")),
+              ("flash attention", ("nezha::flash",)),
               ("matmul", ("gemm", "cutlass", "cublas", "xmma", "sm90_",
                           "nvjet")),
               ("reduction", ("reduce", "softmax", "norm")),
@@ -65,12 +70,13 @@ def main() -> int:
                    help="also write the full report as JSON here")
     p.add_argument("--steps", type=int, default=5)
     p.add_argument("--top", type=int, default=15)
+    p.add_argument("--ln-impl", choices=["xla", "pallas"], default="xla")
     args = p.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("needs a CUDA card")
     card = torch.cuda.get_device_name(0)
     model = gpt2_for_preset("full", seed=0, device="cuda",
-                            fused_loss_chunk=-1)
+                            fused_loss_chunk=-1, ln_impl=args.ln_impl)
     trainer = Trainer(model, adamw(6e-4, weight_decay=0.1), lm_loss,
                       log_every=0)
     batches = synthetic_token_batches(B, seq_len=S, seed=0)
@@ -102,6 +108,7 @@ def main() -> int:
                     reverse=True)[:args.top]
     report = {
         "card": card,
+        "ln_impl": args.ln_impl,
         "steps": args.steps,
         "ms_per_step": 1e3 * wall / args.steps,
         "tokens_per_s": B * S * args.steps / wall,
