@@ -31,7 +31,18 @@ Phases, each fatal on failure (non-zero exit, no result line):
    forward and backward kernels at the train step's rows (8192 x 768,
    bf16; also 8 and 37 rows) within ``layer_norm_error_bound``, the
    backward bitwise repeatable; yardsticks ``F.layer_norm`` and its
-   autograd backward with the forward subtracted;
+   autograd backward with the forward subtracted.
+   The int8 paged decode kernel (B8) at the serving shapes over int8 pools
+   quantized with ``ops.quant.quantize_kv_block`` from random bf16 values
+   (bf16 and f32 queries; lengths 0-1024) within ``fold_error_bound``;
+   yardstick SDPA over the K/V dequantized and gathered dense (the dequant
+   outside the timed region). The int8 prefill kernel with its fused block
+   write (B10) at chunk width 256 from starts 0, 300 and 768 and width 37:
+   the output within ``fold_error_bound``, every data block and scale
+   after the call bitwise equal to the plain version's, untouched blocks
+   unchanged, the error sample within 1e-6 relative, two runs bitwise
+   equal; yardstick SDPA over the dequantized prefix and the chunk with
+   the offset causal mask (it leaves out the write);
 4. train: GPT-2 124M at full width, bf16, B=8, S=1024,
    ``fused_loss_chunk=-1``, AdamW (weight decay 0.1), batches from
    ``synthetic_token_batches`` (seed 0): (a) one step's loss, gradients
@@ -52,7 +63,12 @@ Phases, each fatal on failure (non-zero exit, no result line):
    request to finish, both paged kernels launched on the path, a clean
    ``leak_check()``, and agreement with the port's no-cache causal
    forward with composed attention (``attn_impl="xla"``, independent of
-   every kernel) on the card (see SERVE_LOGIT_ATOL);
+   every kernel) on the card (see SERVE_LOGIT_ATOL); then the same eight
+   requests on a second engine with ``kv_dtype="int8"``: every request
+   finishes, the int8 kernels (B8, B10) launch and the float ones (B7,
+   B9) do not, a clean ``leak_check()``, a prefix hit, and the same
+   cross-check under INT8_SERVE_LOGIT_ATOL; it prints the largest
+   per-chunk dequant error and both pools' bytes per block;
 6. generate: GPT-2 124M at full width, bf16, ``ln_impl="pallas"``, eight
    random 512-token prompts, 256 new tokens greedy through
    ``models.generate``: time to first token, decode ms per step and
@@ -93,6 +109,12 @@ FP32_FLOPS_PER_S = 67e12         # fp32 outside the tensor cores
 # layer; logits of this random init have std ~0.5, and 0.125 (32 bf16
 # ulps at 1.0) bounds that drift.
 SERVE_LOGIT_ATOL = 0.125
+# Served logits from an int8 pool vs the same no-cache forward: on top of
+# the bf16 drift above, every cached K/V element carries a dequant error
+# of at most amax/254 of its (block, head) — about one bf16 rounding
+# (2^-9 relative) of the block's largest element — so the drift is of the
+# same order as bf16's.
+INT8_SERVE_LOGIT_ATOL = 0.125
 # The flash forward's lse against its plain version: both fp32, summing
 # up to 1024 exponentials in other orders (64-key tiles against 512-key
 # blocks) and scores whose fp32 dots differ in order; |lse| stays below
@@ -183,11 +205,17 @@ def within(name: str, got, want, bound):
     return err.max().item(), ratio
 
 
-def within_bound(name: str, got, want, want_abs_v):
-    """``within`` against ``fold_error_bound`` of an attention output."""
+def fold_bound(want, want_abs_v, p_dtype=torch.bfloat16):
+    """``fold_error_bound`` of an attention output whose p is rounded to
+    ``p_dtype`` before P.V."""
     from nezha_tpu_torch.ops.cuda.common import fold_error_bound
 
-    return within(name, got, want, fold_error_bound(want, want_abs_v, True))
+    return fold_error_bound(want, want_abs_v, p_dtype == torch.bfloat16)
+
+
+def within_bound(name: str, got, want, want_abs_v):
+    """``within`` against ``fold_error_bound`` of an attention output."""
+    return within(name, got, want, fold_bound(want, want_abs_v))
 
 
 def check_decode(g):
@@ -299,6 +327,176 @@ def check_prefill(g):
             "bound_by": rep["bound_by"], "library_ms": rep["library_ms"],
             "shape": f"B=1 H={H} D={D} bs={BS} M={M} S={rep['S']} "
                      f"start={rep['start']}"}
+
+
+def int8_pools(g, n: int):
+    """int8 K/V pools [n, H, BS, D] and their [n, H] scales on the card,
+    quantized from random bf16 values with the port's quantize_kv_block."""
+    from nezha_tpu_torch.ops.quant import quantize_kv_block
+
+    out = []
+    for _ in range(2):
+        x = torch.randn(n, H, BS, D, generator=g).to("cuda", torch.bfloat16)
+        out += list(quantize_kv_block(x))
+    return out            # kq, ks, vq, vs
+
+
+def check_quant_decode(g):
+    """B8 at the serving shapes, bf16 and f32 queries over int8 pools."""
+    from nezha_tpu_torch.ops.cuda import (paged_quant_decode_attention,
+                                          paged_quant_decode_attention_plain)
+    from nezha_tpu_torch.ops.quant import dequantize_kv_block
+    import torch.nn.functional as F
+
+    lengths_list = [0, 1, 15, 16, 17, 300, 777, M * BS]
+    b = len(lengths_list)
+    n = 1 + b * M
+    kq, ks, vq, vs = int8_pools(g, n)
+    q32 = torch.randn(b, H, 1, D, generator=g).cuda()
+    tab = shuffled_tables(g, b, n).cuda()
+    lengths = torch.tensor(lengths_list, dtype=torch.int32, device="cuda")
+    worst = worst_ratio = 0.0
+    for q in (q32.to(torch.bfloat16), q32):
+        args = (q, kq, vq, ks, vs, lengths, tab)
+        got = paged_quant_decode_attention(*args)
+        torch.cuda.synchronize()
+        want = paged_quant_decode_attention_plain(*args)
+        abs_v = paged_quant_decode_attention_plain(q, kq, vq.abs(), ks, vs,
+                                                   lengths, tab)
+        err, ratio = within(f"paged_quant_decode q {q.dtype}", got, want,
+                            fold_bound(want, abs_v, q.dtype))
+        if not torch.all(got[0] == 0):
+            fail("paged_quant_decode: the length-0 row is not exact zero")
+        worst, worst_ratio = max(worst, err), max(worst_ratio, ratio)
+    q = q32.to(torch.bfloat16)
+    args = (q, kq, vq, ks, vs, lengths, tab)
+    ms = gpu_time_ms(lambda: paged_quant_decode_attention(*args), 100)
+    plain_ms = gpu_time_ms(
+        lambda: paged_quant_decode_attention_plain(*args), 5)
+    # Yardstick: SDPA over the rows' K/V dequantized (untimed) and
+    # gathered dense, masked by length.
+    kd, vd = (dequantize_kv_block(p[tab.long()], s[tab.long()], q.dtype)
+              .transpose(1, 2).reshape(b, H, M * BS, D)
+              for p, s in ((kq, ks), (vq, vs)))
+    mask = (torch.arange(M * BS, device="cuda")[None, :]
+            < lengths[:, None])[:, None, None, :]
+    library_ms = gpu_time_ms(
+        lambda: F.scaled_dot_product_attention(q, kd, vd, attn_mask=mask),
+        100)
+    total = sum(lengths_list)
+    blocks = sum(math.ceil(x / BS) for x in lengths_list)
+    nbytes = (2 * b * H * D * 2                     # q in, out (bf16)
+              + 2 * total * H * D                   # int8 K and V read once
+              + 2 * blocks * H * 4                  # their scales
+              + blocks * 4 + b * 4)                 # table entries, lengths
+    bound_ms, bound_by = bound(nbytes, 4 * total * H * D)
+    return {"name": "paged_quant_decode", "route": "cuda",
+            "source": "nezha_tpu_torch/csrc/paged_quant_decode.cu",
+            "replaces": "nezha_tpu/ops/pallas/decode_attention.py:101",
+            "max_abs_err": worst, "err_over_tolerance": worst_ratio,
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": library_ms,
+            "shape": f"B={b} H={H} D={D} bs={BS} M={M} int8 pools, bf16 q "
+                     f"(also checked f32 q); lengths={lengths_list}"}
+
+
+def check_quant_prefill(g):
+    """B10: chunk width 256 from starts 0, 300 and 768, and width 37;
+    the output within fold_error_bound, the write bitwise against the
+    plain version's, two runs bitwise equal."""
+    from nezha_tpu_torch.ops.cuda import (paged_quant_prefill_attention,
+                                          paged_quant_prefill_attention_plain)
+    from nezha_tpu_torch.ops.quant import dequantize_kv_block
+    import torch.nn.functional as F
+
+    bf = torch.bfloat16
+    n = 1 + M
+    pools = int8_pools(g, n)
+    tab = shuffled_tables(g, 1, n).cuda()
+    worst = worst_ratio = 0.0
+    cases = []
+    for s, start in ((256, 0), (256, 300), (37, 100), (256, 768)):
+        q, kc, vc = (torch.randn(1, H, s, D, generator=g).to("cuda", bf)
+                     for _ in range(3))
+        starts = torch.tensor([start], dtype=torch.int32, device="cuda")
+
+        def run(fn, v_chunk=vc, v_abs=False):
+            kq, ks, vq, vs = (t.clone() for t in pools)
+            out, qerr = fn(q, kc, v_chunk, kq, vq.abs() if v_abs else vq,
+                           ks, vs, tab, starts)
+            return out, qerr, (kq, ks, vq, vs)
+
+        tag = f"paged_quant_prefill S={s} start={start}"
+        got, qerr, got_pools = run(paged_quant_prefill_attention)
+        torch.cuda.synchronize()
+        want, want_err, want_pools = run(paged_quant_prefill_attention_plain)
+        abs_v = run(paged_quant_prefill_attention_plain, vc.abs(), True)[0]
+        err, ratio = within_bound(tag, got, want, abs_v)
+        worst, worst_ratio = max(worst, err), max(worst_ratio, ratio)
+        for name, a, w in zip(("k", "k_scale", "v", "v_scale"), got_pools,
+                              want_pools):
+            if not torch.equal(a[1:], w[1:]):
+                fail(f"{tag}: {name} after the write differs from the "
+                     f"plain version's")
+        touched = set(tab[0, start // BS:(start + s - 1) // BS + 1].tolist())
+        untouched = [i for i in range(1, n) if i not in touched]
+        for name, a, orig in zip(("k", "k_scale", "v", "v_scale"),
+                                 got_pools, pools):
+            if not torch.equal(a[untouched], orig[untouched]):
+                fail(f"{tag}: an untouched {name} block changed")
+        qerr_rel = abs(qerr.item() - want_err.item()) / want_err.item()
+        if not qerr_rel <= 1e-6:
+            fail(f"{tag}: qerr {qerr.item()} vs plain {want_err.item()}")
+        again = run(paged_quant_prefill_attention)
+        if not (torch.equal(again[0], got) and torch.equal(again[1], qerr)
+                and all(torch.equal(a, b)
+                        for a, b in zip(again[2], got_pools))):
+            fail(f"{tag}: two runs differ")
+        kq, ks, vq, vs = (t.clone() for t in pools)
+        args = (q, kc, vc, kq, vq, ks, vs, tab, starts)
+        ms = gpu_time_ms(lambda: paged_quant_prefill_attention(*args), 50)
+        plain_ms = gpu_time_ms(
+            lambda: paged_quant_prefill_attention_plain(*args), 3)
+        # Yardstick: SDPA over [prefix dequantized (untimed) ; chunk],
+        # offset-causal; it computes no block write.
+        pk, pv = (dequantize_kv_block(p[tab[0].long()], sc[tab[0].long()],
+                                      bf).transpose(0, 1)
+                  .reshape(1, H, M * BS, D)
+                  for p, sc in ((pools[0], pools[1]), (pools[2], pools[3])))
+        kd = torch.cat([pk[:, :, :start], kc], dim=2)
+        vd = torch.cat([pv[:, :, :start], vc], dim=2)
+        mask = (torch.arange(start + s, device="cuda")[None, :]
+                <= start + torch.arange(s, device="cuda")[:, None])
+        library_ms = gpu_time_ms(
+            lambda: F.scaled_dot_product_attention(q, kd, vd,
+                                                   attn_mask=mask), 50)
+        n_touched = len(touched)
+        nbytes = (4 * s * H * D * 2                 # q, k, v in; out (bf16)
+                  + 2 * start * H * D               # int8 prefix K and V
+                  + 2 * math.ceil(start / BS) * H * 4   # their scales
+                  + 2 * 2 * n_touched * H * BS * D  # touched blocks r + w
+                  + 2 * 2 * n_touched * H * 4       # their scales r + w
+                  + math.ceil((start + s) / BS) * 4 + 4 + 4)
+        flops = 4 * H * D * (s * start + s * (s + 1) // 2)
+        bound_ms, bound_by = bound(nbytes, flops)
+        cases.append({"S": s, "start": start, "max_abs_err": err,
+                      "err_over_tolerance": ratio, "qerr": qerr.item(),
+                      "qerr_rel_err": qerr_rel, "ms": ms,
+                      "plain_ms": plain_ms, "bound_ms": bound_ms,
+                      "bound_by": bound_by, "library_ms": library_ms})
+    print(json.dumps({"paged_quant_prefill_cases": cases}), flush=True)
+    rep = cases[-1]
+    return {"name": "paged_quant_prefill", "route": "cuda",
+            "source": "nezha_tpu_torch/csrc/quant_prefill.cu",
+            "replaces": "nezha_tpu/ops/pallas/prefill_attention.py:225",
+            "max_abs_err": worst, "err_over_tolerance": worst_ratio,
+            "ms": rep["ms"], "plain_ms": rep["plain_ms"],
+            "bound_ms": rep["bound_ms"], "bound_by": rep["bound_by"],
+            "library_ms": rep["library_ms"],
+            "library_covers": "the attention only, not the block write",
+            "shape": f"B=1 H={H} D={D} bs={BS} M={M} int8 pools, bf16 q, "
+                     f"S={rep['S']} start={rep['start']}; checked S=256 at "
+                     f"0, 300, 768 and S=37 at 100"}
 
 
 def attended_pairs(s: int, causal: bool, lengths) -> int:
@@ -715,17 +913,21 @@ def train(card: str):
     return {"train": launches, "train_ln": ln_launches}
 
 
-def serve(card: str):
+def serve(card: str, kv_dtype: str = "bf16"):
+    """Eight greedy requests through Scheduler/Engine on a paged pool of
+    ``kv_dtype``; -> the kernel launches of that run."""
     from nezha_tpu_torch.cli.common import gpt2_for_preset
     from nezha_tpu_torch.ops.cuda import (paged_decode_attention,
-                                          paged_prefill_attention)
+                                          paged_prefill_attention,
+                                          paged_quant_decode_attention,
+                                          paged_quant_prefill_attention)
     from nezha_tpu_torch.serve import (Engine, FinishReason, Request,
                                        Scheduler, ServeConfig)
 
     model = gpt2_for_preset("full", seed=0, device="cuda")
     model.eval()
     cfg = ServeConfig(max_batch_size=8, max_len=1024, max_prefill_len=256,
-                      kv_block_size=16)
+                      kv_block_size=16, kv_dtype=kv_dtype)
     engine = Engine(model, cfg)
     sched = Scheduler(engine)
     g = torch.Generator().manual_seed(1)
@@ -739,8 +941,10 @@ def serve(card: str):
                toks(900), prefix + toks(20), prefix + toks(45)]
     reqs = [Request(prompt=p, max_new_tokens=32, request_id=f"r{i}")
             for i, p in enumerate(prompts)]
-    paged_decode_attention.launches = 0
-    paged_prefill_attention.launches = 0
+    for wrapper in (paged_decode_attention, paged_prefill_attention,
+                    paged_quant_decode_attention,
+                    paged_quant_prefill_attention):
+        wrapper.launches = 0
     t0 = time.perf_counter()
     for r in reqs:
         sched.submit(r)
@@ -750,16 +954,23 @@ def serve(card: str):
     launches = engine.kernel_launches()
     if sched.has_work():
         fail("scheduler did not drain")
+    int8 = kv_dtype == "int8"
+    path = {"paged_quant_decode", "paged_quant_prefill"} if int8 else {
+        "paged_decode", "paged_prefill"}
     for name, n in launches.items():
-        if n <= 0:
-            fail(f"kernel {name} was not launched on the serving path")
+        if name in path and n <= 0:
+            fail(f"kernel {name} was not launched on the {kv_dtype} "
+                 f"serving path")
+        if name not in path and n != 0:
+            fail(f"kernel {name} launched {n} times on the {kv_dtype} "
+                 f"serving path")
     for r in reqs:
         res = sched.results[r.request_id]
         if res.finish_reason not in (FinishReason.LENGTH, FinishReason.EOS):
-            fail(f"{r.request_id} finished {res.finish_reason}: "
+            fail(f"{kv_dtype} {r.request_id} finished {res.finish_reason}: "
                  f"{res.error}")
         dec = res.latency_s - res.ttft_s
-        print(json.dumps({"request": r.request_id,
+        print(json.dumps({"request": r.request_id, "kv_dtype": kv_dtype,
                           "prompt_len": len(r.prompt),
                           "new_tokens": len(res.tokens),
                           "ttft_s": res.ttft_s,
@@ -771,26 +982,32 @@ def serve(card: str):
         fail("the shared 128-token prefix did not hit the prefix cache")
     # Each decode launch serves every active row at once, so per request
     # is the run's count over the requests served.
-    print(json.dumps({"serve_wall_s": wall, "launches": launches,
-                      "launches_per_request": {
-                          k: n / len(reqs) for k, n in launches.items()},
-                      "prefix_hits": engine.pool.prefix_hits,
-                      "cow_copies": engine.pool.cow_copies,
-                      "step_calls": engine.step_calls,
-                      "card": card}), flush=True)
-    cross_check(model, sched, reqs)
+    stats = {"kv_dtype": kv_dtype, "serve_wall_s": wall,
+             "launches": launches,
+             "launches_per_request": {
+                 k: n / len(reqs) for k, n in launches.items()},
+             "prefix_hits": engine.pool.prefix_hits,
+             "cow_copies": engine.pool.cow_copies,
+             "step_calls": engine.step_calls,
+             "bytes_per_block": engine.pool.bytes_per_block, "card": card}
+    if int8:
+        stats["max_quant_error"] = max(engine.quant_errors)
+        stats["quant_error_samples"] = len(engine.quant_errors)
+    print(json.dumps(stats), flush=True)
+    cross_check(model, sched, reqs,
+                INT8_SERVE_LOGIT_ATOL if int8 else SERVE_LOGIT_ATOL)
     return launches
 
 
 @torch.no_grad()
-def cross_check(model, sched, reqs) -> None:
+def cross_check(model, sched, reqs, atol: float) -> None:
     """Every request against the no-cache causal forward with composed
     attention (a copy of the model with ``attn_impl="xla"``, so the
     reference runs no kernel) over prompt + generated tokens
     (teacher-forced): the prompt's last-position logits from a fresh
-    paged prefill must lie within SERVE_LOGIT_ATOL, and each generated
-    token must be the reference argmax wherever the reference's top-2
-    margin exceeds that tolerance."""
+    paged prefill must lie within ``atol``, and each generated token must
+    be the reference argmax wherever the reference's top-2 margin exceeds
+    it."""
     from nezha_tpu_torch.models.gpt2 import GPT2
 
     engine = sched.engine
@@ -813,23 +1030,25 @@ def cross_check(model, sched, reqs) -> None:
             engine.pool.free(slot)
         err = (got - ref[n - 1]).abs().max().item()
         worst = max(worst, err)
-        if not math.isfinite(err) or err > SERVE_LOGIT_ATOL:
+        if not math.isfinite(err) or err > atol:
             fail(f"{r.request_id}: last-position logits differ by {err} > "
-                 f"{SERVE_LOGIT_ATOL}")
+                 f"{atol}")
         steps = ref[n - 1:n - 1 + len(res.tokens)]
         top2 = steps.topk(2, dim=-1).values
         margin = top2[:, 0] - top2[:, 1]
         want = steps.argmax(dim=-1).tolist()
         for i, tok in enumerate(res.tokens):
-            if margin[i].item() > SERVE_LOGIT_ATOL:
+            if margin[i].item() > atol:
                 checked += 1
                 if tok != want[i]:
                     fail(f"{r.request_id} token {i}: served {tok}, "
                          f"reference {want[i]} (margin "
                          f"{margin[i].item():.4f})")
     engine.pool.leak_check()
-    print(json.dumps({"cross_check_max_logit_err": worst,
-                      "tokens_checked": checked}), flush=True)
+    print(json.dumps({"kv_dtype": engine.cfg.kv_dtype,
+                      "cross_check_max_logit_err": worst,
+                      "tolerance": atol, "tokens_checked": checked}),
+          flush=True)
 
 
 @torch.no_grad()
@@ -923,6 +1142,8 @@ def generate_phase(card: str):
 
 # The run whose launch count each kernel reports: the path it serves.
 HOME_PATH = {"paged_decode": "serve", "paged_prefill": "serve",
+             "paged_quant_decode": "serve_int8",
+             "paged_quant_prefill": "serve_int8",
              "flash_fwd": "train", "flash_bwd_dq": "train",
              "flash_bwd_dkv": "train", "flash_decode": "generate",
              "layer_norm_fwd": "generate", "layer_norm_bwd": "train_ln"}
@@ -953,11 +1174,13 @@ def main() -> int:
     phase("kernels")
     g = torch.Generator().manual_seed(0)
     kernels = ([check_decode(g), check_prefill(g)] + check_flash(g)
-               + [check_flash_decode(g)] + check_layer_norm(g))
+               + [check_flash_decode(g)] + check_layer_norm(g)
+               + [check_quant_decode(g), check_quant_prefill(g)])
     phase("train")
     paths = train(card)
     phase("serve")
     paths["serve"] = serve(card)
+    paths["serve_int8"] = serve(card, "int8")
     phase("generate")
     paths["generate"] = generate_phase(card)
     for k in kernels:

@@ -49,6 +49,10 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--prefix-cache", choices=["on", "off"], default="on")
     p.add_argument("--kv-eviction", choices=["lru", "none"], default="lru")
     p.add_argument("--cache-dtype", choices=["bf16", "f32"], default="bf16")
+    p.add_argument("--kv-dtype", choices=["bf16", "int8"], default="bf16",
+                   help="KV block storage: bf16 keeps --cache-dtype; int8 "
+                        "stores int8 blocks with one fp32 scale per "
+                        "(block, head), about 2x the resident blocks")
     p.add_argument("--k-max", type=int, default=64)
     p.add_argument("--queue-capacity", type=int, default=16)
     p.add_argument("--max-new-tokens", type=int, default=32,
@@ -72,6 +76,7 @@ def build_scheduler(args) -> Scheduler:
             kv_eviction=args.kv_eviction,
             cache_dtype=(torch.float32 if args.cache_dtype == "f32"
                          else torch.bfloat16),
+            kv_dtype=args.kv_dtype,
             k_max=args.k_max, queue_capacity=args.queue_capacity)
     except ValueError as e:
         raise SystemExit(f"serve config: {e}")

@@ -1,6 +1,8 @@
-// The single-query decode fold both decode kernels share: the body of the
-// paged kernel (paged_decode.cu) and of the dense one (flash_decode.cu),
-// which differ only in where position p of a row's cache lives.
+// The single-query decode fold the decode kernels share: the body of the
+// paged kernel (paged_decode.cu), the dense one (flash_decode.cu) and the
+// int8 paged one (paged_quant_decode.cu), which differ only in where
+// position p of a row's cache lives and how its tile is staged (a tile
+// source: CacheTiles here, QuantTiles in kv_quant.cuh).
 //
 // One thread block owns one (row, head) query. Its eight warps split the
 // row's positions [0, len) into interleaved 32-key tiles (warp w takes
@@ -12,8 +14,10 @@
 // tile and writes exact zeros.
 //
 // Semantics kept from the Pallas block_step (ops/pallas/common.py:86-98):
-// q is rounded to the cache dtype before Q.K, p to v's dtype before P.V,
-// statistics and the accumulator are fp32, masked lanes score NEG_BIG.
+// q is rounded to the tiles' dot dtype (Tiles::Dot: the cache dtype of a
+// float cache, q's own dtype over int8) before Q.K, p to the same dtype
+// before P.V, statistics and the accumulator are fp32, masked lanes score
+// NEG_BIG.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -32,18 +36,43 @@ inline size_t decode_smem_bytes(int D) {
                           DEC_WARPS * (D + 2));
 }
 
+// Tiles of a float cache, read as stored: q and p round to the cache dtype
+// before the dots. addr(p) is the element offset in k and v of position
+// p's D-vector.
+template <typename TKV, typename Addr>
+struct CacheTiles {
+  using Dot = TKV;
+  const TKV* k;
+  const TKV* v;
+  Addr addr;
+
+  __device__ __forceinline__ void stage(float* kt, float* vt, int ldk,
+                                        int t0, int n, int D, int tid,
+                                        int nthr) const {
+    stage_tile(
+        kt, vt, ldk, k, v, [&](int j) { return addr(t0 + j); }, n, D, tid,
+        nthr, Identity());
+  }
+};
+
+template <typename TKV, typename Addr>
+__device__ __forceinline__ CacheTiles<TKV, Addr> cache_tiles(const TKV* k,
+                                                             const TKV* v,
+                                                             Addr addr) {
+  return {k, v, addr};
+}
+
 // Attend q[qrow .. qrow + D) over the first `len` positions of one row of
-// the cache; `addr(p)` is the element offset in k and v of position p's
-// D-vector. Called by every thread of a DEC_WARPS-warp block with `smem`
-// holding decode_smem_bytes(D) bytes.
-template <typename TQ, typename TKV, typename Addr>
+// the cache, staged tile by tile by `tiles` (CacheTiles or QuantTiles).
+// Called by every thread of a DEC_WARPS-warp block with `smem` holding
+// decode_smem_bytes(D) bytes.
+template <typename TQ, typename Tiles>
 __device__ __forceinline__ void decode_row(float* __restrict__ smem,
                                            const TQ* __restrict__ q,
-                                           const TKV* __restrict__ k,
-                                           const TKV* __restrict__ v,
                                            TQ* __restrict__ out, size_t qrow,
                                            int len, int D, float scale,
-                                           Addr addr) {
+                                           const Tiles& tiles) {
+  using Dot = typename Tiles::Dot;
   const int warp = threadIdx.x / WARP;
   const int lane = threadIdx.x % WARP;
   const int ldk = D + 1;
@@ -54,22 +83,20 @@ __device__ __forceinline__ void decode_row(float* __restrict__ smem,
   float* vt = kt + WARP * ldk;                        // [32][D]
   float* mrg = qs + D + DEC_WARPS * tile_floats;      // [warps][D+2]
 
-  // block_step casts q to the cache dtype before Q.K (common.py:93).
+  // block_step casts q to the tiles' dtype before Q.K (common.py:93).
   for (int d = threadIdx.x; d < D; d += blockDim.x)
-    qs[d] = round_to<TKV>(to_float(q[qrow + d]));
+    qs[d] = round_to<Dot>(to_float(q[qrow + d]));
   __syncthreads();
 
   RowState st;
   st.init();
   for (int t0 = warp * WARP; t0 < len; t0 += DEC_WARPS * WARP) {
     const int n = min(WARP, len - t0);
-    stage_tile(
-        kt, vt, ldk, k, v, [&](int j) { return addr(t0 + j); }, n, D, lane,
-        WARP, Identity());
+    tiles.stage(kt, vt, ldk, t0, n, D, lane, WARP);
     __syncwarp();
     const float s =
         lane < n ? tile_score(qs, kt, ldk, D, lane) * scale : NEG_BIG;
-    fold_tile<TKV>(st, s, vt, n, D, lane);   // p cast to v's dtype
+    fold_tile<Dot>(st, s, vt, n, D, lane);   // p cast to v's dtype
     __syncwarp();
   }
 

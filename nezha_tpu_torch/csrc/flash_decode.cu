@@ -50,8 +50,8 @@ __global__ void __launch_bounds__(DEC_WARPS * WARP)
   int len = lengths[b];
   len = len < 0 ? 0 : (len > L ? L : len);
   const size_t row = static_cast<size_t>(b) * H + h;
-  decode_row<TQ, TKV>(smem, q, k, v, out, row * D, len, D, scale,
-                      [&](int p) { return (row * L + p) * D; });
+  decode_row<TQ>(smem, q, out, row * D, len, D, scale,
+                 cache_tiles(k, v, [&](int p) { return (row * L + p) * D; }));
 }
 
 template <typename TQ, typename TKV>

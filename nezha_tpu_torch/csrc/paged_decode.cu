@@ -56,11 +56,11 @@ __global__ void __launch_bounds__(DEC_WARPS * WARP)
   int len = lengths[b];
   len = len < 0 ? 0 : (len > M * bs ? M * bs : len);
   const int* tab = tables + static_cast<size_t>(b) * M;
-  decode_row<TQ, TKV>(
-      smem, q, k_pool, v_pool, out, (static_cast<size_t>(b) * H + h) * D, len,
-      D, scale, [&](int p) {
+  decode_row<TQ>(
+      smem, q, out, (static_cast<size_t>(b) * H + h) * D, len, D, scale,
+      cache_tiles(k_pool, v_pool, [&](int p) {
         return ((static_cast<size_t>(tab[p / bs]) * H + h) * bs + p % bs) * D;
-      });
+      }));
 }
 
 template <typename TQ, typename TKV>

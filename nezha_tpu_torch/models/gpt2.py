@@ -22,7 +22,13 @@ Three attention paths:
   are updated where they lie) and attends through the CUDA kernels
   (``ops/cuda``). A ``[B]`` ``pos`` tensor is a decode step (one token
   per row at its own depth); an ``int`` ``pos`` is a prefill chunk at
-  that offset. Call under ``torch.no_grad()``;
+  that offset. Call under ``torch.no_grad()``. A dict that also holds
+  ``k_scale``/``v_scale`` ``[N, H]`` is an int8 pool (``ServeConfig.
+  kv_dtype="int8"``): a decode step requantizes each row's current block
+  with the token inserted (:func:`_quant_decode_write`) and attends
+  through the int8 decode kernel; a prefill chunk runs the int8 prefill
+  kernel, which writes the chunk's blocks itself and leaves the chunk's
+  largest dequant error, a device scalar, in ``cache["qerr"]``;
 - a dense cache (``models/generate.py``): ``cache`` is one ``{"k", "v"}``
   dict per layer, buffers ``[B, H, L, D]``. The forward writes this
   call's K/V into them IN PLACE, clamped as JAX's ``dynamic_update_slice``
@@ -55,6 +61,7 @@ from nezha_tpu_torch.ops.cuda import (flash_attention,
                                       paged_decode_attention,
                                       paged_prefill_attention)
 from nezha_tpu_torch.ops.losses import lm_objective
+from nezha_tpu_torch.ops.quant import quantize_kv_block, sanitize
 from nezha_tpu_torch.tensor.policy import DEFAULT_POLICY, Policy, bf16_policy
 
 
@@ -122,6 +129,63 @@ def decode_kernel_ok(cfg: GPT2Config) -> bool:
     if cfg.decode_impl == "auto":
         return cfg.attn_impl != "xla"
     return cfg.decode_impl == "kernel"
+
+
+def _quant_decode_write(pool, scales, blk, off, row) -> None:
+    """One decode token's K (or V) into an int8 block pool, IN PLACE, at
+    block granularity: each row's target block is dequantized, its
+    positions past the write offset zeroed (a freshly bound block holds
+    a previous occupant's int8, which must not inflate the new scale),
+    the new row inserted, and the block requantized with a fresh
+    per-(block, head) scale. Positions below ``off`` re-round only if the
+    absmax moved. ``pool [N, H, bs, D]`` int8, ``scales [N, H]`` fp32,
+    ``blk``/``off [B]``, ``row [B, H, D]``. Rows write distinct blocks,
+    except rows routed to scratch block 0, whose content is unspecified."""
+    bs = pool.shape[2]
+    deq = pool[blk].float() * scales[blk][:, :, None, None]    # [B,H,bs,D]
+    idx = torch.arange(bs, device=pool.device)
+    keep = (idx[None, :] < off[:, None])[:, None, :, None]
+    sel = (idx[None, :] == off[:, None])[:, None, :, None]
+    deq = torch.where(sel, row.float()[:, :, None, :],
+                      torch.where(keep, deq, 0.0))
+    pool[blk], scales[blk] = quantize_kv_block(deq)
+
+
+def _quant_prefill_write(pool, scales, tab, pos: int, new, s: int
+                         ) -> torch.Tensor:
+    """One prefill chunk's K (or V) ``new [b, H, s, D]`` into an int8 block
+    pool at offset ``pos`` through ``tab [b, M]``, IN PLACE. The window
+    is the ``ceil(s/bs) + 1`` blocks from ``pos // bs``: per touched
+    block, positions below the chunk keep their dequantized content,
+    chunk positions take the new values and positions past the chunk are
+    zeroed, then the block is requantized with a fresh scale. Window rows
+    past the chunk's last block (the slack when ``pos`` is block-aligned)
+    go to scratch block 0 with zero content. -> the largest dequant error
+    over the written positions (a device scalar). The write half of the
+    int8 prefill kernel's plain version, and the oracle its kernel is
+    held to."""
+    bs = pool.shape[2]
+    m = tab.shape[1]
+    dev = pool.device
+    t = min((s - 1) // bs + 2, m)
+    tbi_raw = pos // bs + torch.arange(t, device=dev)           # [T]
+    touched = tbi_raw <= (pos + s - 1) // bs
+    blks = torch.where(touched[None, :],
+                       tab.long()[:, tbi_raw.clamp(0, m - 1)], 0)   # [b, T]
+    deq = pool[blks].float() * scales[blks][..., None, None]  # [b,T,H,bs,D]
+    wpos = tbi_raw[:, None] * bs + torch.arange(bs, device=dev)[None, :]
+    keep = (wpos < pos) & touched[:, None]                      # [T, bs]
+    in_chunk = (wpos >= pos) & (wpos < pos + s) & touched[:, None]
+    neww = new.float()[:, :, (wpos - pos).clamp(0, s - 1), :]  # [b,H,T,bs,D]
+    neww = neww.permute(0, 2, 1, 3, 4)                          # [b,T,H,bs,D]
+    deq = torch.where(in_chunk[None, :, None, :, None], neww,
+                      torch.where(keep[None, :, None, :, None], deq, 0.0))
+    qn, sn = quantize_kv_block(deq)
+    err = torch.where((keep | in_chunk)[None, :, None, :, None],
+                      sanitize(deq) - qn.float() * sn[..., None, None],
+                      0.0).abs().max()
+    pool[blks], scales[blks] = qn, sn
+    return err
 
 
 def _residual_init(cfg: GPT2Config):
@@ -220,7 +284,9 @@ class Attention(nn.Module):
         branch): write K/V at ``pos`` through the table — clamped to the
         last position, inactive rows routed to scratch block 0 — then
         attend ``[0, pos]`` with the flash-decode kernel; inactive rows
-        get length 0 and attend nothing."""
+        get length 0 and attend nothing. An int8 pool requantizes the
+        written blocks (:func:`_quant_decode_write`) and attends through
+        the int8 kernel."""
         if q.shape[2] != 1:
             raise ValueError(
                 f"per-row positions take one token per row, got "
@@ -236,10 +302,17 @@ class Attention(nn.Module):
             blk = torch.where(active, blk, 0)
             off = torch.where(active, off, 0)
             lengths = torch.where(active, lengths, 0)
-        kp[blk, :, off, :] = k[:, :, 0, :].to(kp.dtype)
-        vp[blk, :, off, :] = v[:, :, 0, :].to(vp.dtype)
+        scales = None
+        if "k_scale" in cache:
+            scales = (cache["k_scale"], cache["v_scale"])
+            _quant_decode_write(kp, scales[0], blk, off, k[:, :, 0, :])
+            _quant_decode_write(vp, scales[1], blk, off, v[:, :, 0, :])
+        else:
+            kp[blk, :, off, :] = k[:, :, 0, :].to(kp.dtype)
+            vp[blk, :, off, :] = v[:, :, 0, :].to(vp.dtype)
         return paged_decode_attention(q.contiguous(), kp, vp,
-                                      lengths.int(), tab)
+                                      lengths.int(), tab,
+                                      block_scales=scales)
 
     @staticmethod
     def _prefill_paged(q, k, v, cache, pos: int):
@@ -248,9 +321,17 @@ class Attention(nn.Module):
         JAX write is; the engine never lets a chunk spill past capacity,
         so no two writes share an index), and the flash-prefill kernel,
         which reads the pool only below ``pos`` — write and attention
-        commute."""
+        commute. An int8 pool takes the int8 prefill kernel instead,
+        which writes the chunk's blocks itself, after its attention has
+        read them, and whose error sample lands in ``cache["qerr"]``."""
         kp, vp, tab = cache["k"], cache["v"], cache["tables"]
         b, _, s, _ = q.shape
+        starts = torch.full((b,), pos, dtype=torch.int32, device=q.device)
+        if "k_scale" in cache:
+            out, cache["qerr"] = paged_prefill_attention(
+                q.contiguous(), k.contiguous(), v.contiguous(), kp, vp, tab,
+                starts, block_scales=(cache["k_scale"], cache["v_scale"]))
+            return out
         bs, m = kp.shape[2], tab.shape[1]
         ppos = (pos + torch.arange(s, device=q.device)).clamp(max=m * bs - 1)
         bi = (ppos // bs).clamp(0, m - 1)
@@ -258,7 +339,6 @@ class Attention(nn.Module):
         off = (ppos % bs)[None, :]                             # [1, s]
         kp[blk, :, off, :] = k.transpose(1, 2).to(kp.dtype)
         vp[blk, :, off, :] = v.transpose(1, 2).to(vp.dtype)
-        starts = torch.full((b,), pos, dtype=torch.int32, device=q.device)
         return paged_prefill_attention(q.contiguous(), k.contiguous(),
                                        v.contiguous(), kp, vp, tab, starts)
 

@@ -35,7 +35,8 @@ BUILD_ROOT = PACKAGE_DIR.parent / "build" / "nezha_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 KERNELS = ("paged_decode", "paged_prefill", "flash_fwd", "flash_bwd",
-           "flash_decode", "layer_norm")
+           "flash_decode", "layer_norm", "paged_quant_decode",
+           "quant_prefill")
 # dtype codes the C entry points take (csrc/online_softmax.cuh DType)
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -134,12 +135,30 @@ def bind(name: str, symbol: str, argtypes: Sequence) -> ctypes._CFuncPtr:
     return fn
 
 
-def check_head_dim(d: int) -> None:
+def check_head_dim(d: int, multiple: int = 8) -> None:
     """The kernels stage K/V in 16-byte loads and keep D/32 accumulator
-    slots per lane: D must be a multiple of 8, at most 128."""
-    if d % 8 or not 0 < d <= 128:
-        raise ValueError(f"head dim {d} not supported (a multiple of 8, "
-                         f"at most 128)")
+    slots per lane: D must be a multiple of 8 (16 over int8 pools: one
+    load holds 16 values), at most 128."""
+    if d % multiple or not 0 < d <= 128:
+        raise ValueError(f"head dim {d} not supported (a multiple of "
+                         f"{multiple}, at most 128)")
+
+
+def check_operands(q: torch.Tensor, **named) -> None:
+    """What a kernel's C entry point assumes of its tensors: q of f32 or
+    bf16, and each ``name=(tensor, dtype)`` of that dtype on q's device;
+    all contiguous."""
+    if q.dtype not in DTYPE_CODES:
+        raise ValueError(f"q dtype {q.dtype} not supported (f32, bf16)")
+    if not q.is_contiguous():
+        raise ValueError("q must be contiguous")
+    for name, (t, dtype) in named.items():
+        if t.device != q.device:
+            raise ValueError(f"{name} is on {t.device}, q on {q.device}")
+        if t.dtype != dtype:
+            raise ValueError(f"{name} must be {dtype}, got {t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
 
 
 def check_aligned(**tensors: torch.Tensor) -> None:

@@ -19,6 +19,13 @@ decodes one block of up to ``decode_horizon`` tokens for every row:
   the moment it finishes — the host sees the ``[B, H]`` token block and
   per-row emitted counts once per dispatch.
 
+With ``kv_dtype="int8"`` the pool stores int8 K/V with one fp32 scale per
+(block, head): prefill chunks run the int8 prefill kernel (attention plus
+the chunk's block write) and decode steps requantize each row's current
+block and run the int8 decode kernel. Each prefill chunk's largest
+dequant error (the max over layers) is appended to
+:attr:`Engine.quant_errors`.
+
 Blocks are bound and copied-on-write on the host BEFORE each dispatch, so
 in-program writes land only in blocks the row owns, with non-emitting
 rows routed to the scratch block. JAX compiles one program per bucket;
@@ -29,6 +36,7 @@ here.
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
@@ -37,7 +45,9 @@ import torch
 
 from nezha_tpu_torch.errors import NotPortedError
 from nezha_tpu_torch.ops.cuda import (paged_decode_attention,
-                                      paged_prefill_attention)
+                                      paged_prefill_attention,
+                                      paged_quant_decode_attention,
+                                      paged_quant_prefill_attention)
 from nezha_tpu_torch.serve.sampling import finite_rows, split_and_sample
 from nezha_tpu_torch.serve.slots import KVBlocksExhausted, PagedSlotPool
 
@@ -66,7 +76,10 @@ class ServeConfig:
     non-emitting rows, ``cache_dtype`` the pool dtype, ``decode_horizon``
     the tokens per step dispatch. ``kv_block_size``, ``kv_num_blocks``
     (None: dense-equivalent), ``prefix_cache`` and ``kv_eviction``
-    ("lru" | "none") configure the paged pool.
+    ("lru" | "none") configure the paged pool; ``kv_dtype`` "bf16" keeps
+    K/V in ``cache_dtype``, "int8" stores int8 blocks with one fp32
+    scale per (block, head): about twice the resident blocks in the same
+    device memory, at a dequant error of at most amax/254 per block.
 
     The remaining fields exist to refuse, typed (:class:`NotPortedError`),
     the settings of the JAX engine this port does not serve yet."""
@@ -84,9 +97,9 @@ class ServeConfig:
     kv_num_blocks: Optional[int] = None
     prefix_cache: bool = True
     kv_eviction: str = "lru"
+    kv_dtype: str = "bf16"
     # Not ported: each must keep its default.
     kv_layout: str = "paged"
-    kv_dtype: str = "bf16"
     kv_host_blocks: int = 0
     speculative: Optional[Any] = None
     prefill_mode: str = "replicated"
@@ -96,11 +109,15 @@ class ServeConfig:
     preemption: bool = False
 
     def __post_init__(self):
+        if self.kv_dtype not in ("bf16", "int8"):
+            raise ValueError(f"kv_dtype must be 'bf16' or 'int8', got "
+                             f"{self.kv_dtype!r}")
+        if self.kv_dtype == "int8" and self.kv_layout != "paged":
+            raise ValueError("kv_dtype='int8' requires kv_layout='paged' "
+                             "(scales are per-block state)")
         refusals = (
             ("kv_layout", self.kv_layout != "paged",
              "only the paged layout is ported"),
-            ("kv_dtype", self.kv_dtype != "bf16",
-             "int8 KV pools (and their kernels) are not ported"),
             ("kv_host_blocks", self.kv_host_blocks != 0,
              "the host KV tier is not ported"),
             ("speculative", self.speculative is not None,
@@ -156,10 +173,17 @@ class ServeConfig:
         object.__setattr__(self, "prefill_buckets", buckets)
 
 
+# Prefill error samples an Engine keeps (the newest): the reference feeds
+# them to a histogram, which waits for the port of ``obs/``.
+QUANT_ERROR_SAMPLES = 4096
+
+
 class Engine:
     """Device-side serving state over a GPT-2 module. ``step_calls``
     counts step dispatches; :meth:`kernel_launches` reads the attention
-    kernels' launch counts."""
+    kernels' launch counts; ``quant_errors`` holds the newest
+    ``QUANT_ERROR_SAMPLES`` per-chunk prefill dequant errors of an int8
+    pool (the samples of the reference's ``serve.kv.quant_error``)."""
 
     def __init__(self, model, cfg: ServeConfig = ServeConfig()):
         if cfg.max_len > model.cfg.max_positions:
@@ -174,7 +198,8 @@ class Engine:
             model.cfg, cfg.max_batch_size, cfg.max_len, cfg.cache_dtype,
             block_size=cfg.kv_block_size, num_blocks=cfg.kv_num_blocks,
             prefix_cache=cfg.prefix_cache, eviction=cfg.kv_eviction,
-            device=self.device)
+            quantized=cfg.kv_dtype == "int8", device=self.device)
+        self.quant_errors = collections.deque(maxlen=QUANT_ERROR_SAMPLES)
         b, dev = cfg.max_batch_size, self.device
         # Host mirrors of each row's next write position and remaining
         # budget: the lazy binder sizes write windows without a sync.
@@ -198,7 +223,10 @@ class Engine:
         """Launch counts of the attention kernels (process-wide; zero them
         through the wrappers' ``launches`` attributes)."""
         return {"paged_decode": paged_decode_attention.launches,
-                "paged_prefill": paged_prefill_attention.launches}
+                "paged_prefill": paged_prefill_attention.launches,
+                "paged_quant_decode": paged_quant_decode_attention.launches,
+                "paged_quant_prefill":
+                    paged_quant_prefill_attention.launches}
 
     # -------------------------------------------------------- host API
     def _plan_chunks(self, n: int,
@@ -276,12 +304,19 @@ class Engine:
         dev = self.device
         rows = self._rows(torch.as_tensor(
             self.pool.tables_host[slot:slot + 1], device=dev))
+        qerrs = []
         for off, ln, width in chunks:
             padded = np.zeros((1, width), np.int64)
             padded[0, :ln] = tokens[off:off + ln]
             logits = self.model(torch.as_tensor(padded, device=dev),
                                 cache=rows, pos=off)
             last = logits[0, ln - 1]                 # last REAL row
+            if self.pool.quantized:
+                # Each layer left its chunk's error, a device scalar: read
+                # once every chunk is dispatched, not between chunks.
+                qerrs.append(torch.stack([r["qerr"] for r in rows]).max())
+        if qerrs:
+            self.quant_errors.extend(torch.stack(qerrs).tolist())
         off, ln, _ = chunks[-1]
         self.last_logits[slot] = last
         self.positions[slot] = off + ln

@@ -1,9 +1,12 @@
 """The block-paged KV pool for the serving engine (counterpart of
-``PrefixTrie`` and ``PagedSlotPool`` in ``nezha_tpu/serve/slots.py``, bf16
-and f32 pools).
+``PrefixTrie`` and ``PagedSlotPool`` in ``nezha_tpu/serve/slots.py``, bf16,
+f32 and int8 pools).
 
 Device state is one ``{"k", "v"}`` dict per layer of pools shaped
-``[num_blocks, H, block_size, D]``. Unlike JAX's immutable arrays these
+``[num_blocks, H, block_size, D]``; an int8 pool (``quantized=True``)
+adds ``{"k_scale", "v_scale"}``, one fp32 scale per (block, head),
+``[num_blocks, H]``, so that every move of a block (the copy-on-write
+copy) moves its scales with it. Unlike JAX's immutable arrays these
 tensors are updated IN PLACE: the model's cache path scatters each
 dispatch's K/V into them, and copy-on-write copies one block over another
 where it lies. Host state is the block free list, per-block reference
@@ -162,13 +165,16 @@ class PagedSlotPool:
 
     ``model_cfg`` supplies ``num_layers``, ``num_heads`` and
     ``hidden_size``; ``dtype`` is the pool storage dtype (bf16 by
-    default)."""
+    default), unless ``quantized``: then the pools are int8 with
+    zero-initialised fp32 scales (0 * 0 dequantizes to exact zeros, as a
+    zeroed float pool does). ``bytes_per_block`` is one block's device
+    footprint over all layers: K and V, plus their scales."""
 
     def __init__(self, model_cfg, capacity: int, max_len: int,
                  dtype: torch.dtype = torch.bfloat16, *,
                  block_size: int = 16, num_blocks: Optional[int] = None,
                  prefix_cache: bool = True, eviction: str = "lru",
-                 device="cuda"):
+                 quantized: bool = False, device="cuda"):
         if capacity < 1:
             raise ValueError(f"capacity must be >= 1, got {capacity}")
         if max_len < 1:
@@ -192,11 +198,25 @@ class PagedSlotPool:
         self.num_blocks = num_blocks
         self.prefix_cache_enabled = prefix_cache
         self.eviction = eviction
-        d = model_cfg.hidden_size // model_cfg.num_heads
-        shape = (num_blocks, model_cfg.num_heads, block_size, d)
-        self.caches = [{"k": torch.zeros(shape, dtype=dtype, device=device),
-                        "v": torch.zeros(shape, dtype=dtype, device=device)}
-                       for _ in range(model_cfg.num_layers)]
+        self.quantized = quantized
+        heads = model_cfg.num_heads
+        d = model_cfg.hidden_size // heads
+        shape = (num_blocks, heads, block_size, d)
+        kv_dtype = torch.int8 if quantized else dtype
+        self.caches = []
+        for _ in range(model_cfg.num_layers):
+            layer = {"k": torch.zeros(shape, dtype=kv_dtype, device=device),
+                     "v": torch.zeros(shape, dtype=kv_dtype, device=device)}
+            if quantized:
+                for name in ("k_scale", "v_scale"):
+                    layer[name] = torch.zeros((num_blocks, heads),
+                                              dtype=torch.float32,
+                                              device=device)
+            self.caches.append(layer)
+        kv_bytes = heads * block_size * d * kv_dtype.itemsize
+        scale_bytes = heads * 4 if quantized else 0
+        self.bytes_per_block = 2 * model_cfg.num_layers * (kv_bytes
+                                                           + scale_bytes)
         self.tables_host = np.zeros((capacity, self.blocks_per_slot),
                                     np.int32)
         self._free_slots: List[int] = list(range(capacity - 1, -1, -1))
@@ -319,7 +339,8 @@ class PagedSlotPool:
 
     # ------------------------------------------------------ write path
     def _copy_block(self, src: int, dst: int) -> None:
-        """The copy-on-write move, in place across every layer's K and V."""
+        """The copy-on-write move, in place across every layer's K and V
+        (and their scale rows)."""
         for layer in self.caches:
             for pool in layer.values():
                 pool[dst].copy_(pool[src])
@@ -357,7 +378,25 @@ class PagedSlotPool:
     def leak_check(self) -> None:
         """Assert the ref-count books balance: every non-free block is
         explained by slot bindings plus trie nodes, and free plus held
-        blocks cover the pool."""
+        blocks cover the pool. An int8 pool must also still hold int8
+        pools and both ``[num_blocks, H]`` scale buffers in every layer:
+        a block and its scales share one index, which is what makes
+        copy-on-write and freeing carry the scales."""
+        if self.quantized:
+            for li, layer in enumerate(self.caches):
+                for kv in ("k", "v"):
+                    if layer[kv].dtype != torch.int8:
+                        raise AssertionError(
+                            f"layer {li} {kv} pool dtype drifted to "
+                            f"{layer[kv].dtype} (expected int8)")
+                    sc = layer.get(f"{kv}_scale")
+                    want = (self.num_blocks, layer[kv].shape[1])
+                    if sc is None or tuple(sc.shape) != want:
+                        raise AssertionError(
+                            f"layer {li} {kv}_scale buffer missing or "
+                            f"mis-shaped: "
+                            f"{None if sc is None else tuple(sc.shape)} "
+                            f"(expected {want})")
         expect = np.zeros((self.num_blocks,), np.int64)
         for slot in range(self.capacity):
             if slot in self._free_slots:

@@ -25,12 +25,17 @@ from nezha_tpu_torch.ops.cuda import (flash_block_bwd, flash_block_bwd_plain,
                                       paged_decode_attention,
                                       paged_decode_attention_plain,
                                       paged_prefill_attention,
-                                      paged_prefill_attention_plain)
+                                      paged_prefill_attention_plain,
+                                      paged_quant_decode_attention,
+                                      paged_quant_decode_attention_plain,
+                                      paged_quant_prefill_attention,
+                                      paged_quant_prefill_attention_plain)
 from nezha_tpu_torch.ops.cuda.common import fold_error_bound
 from nezha_tpu_torch.ops.cuda.flash_attention import (LAUNCHES,
                                                       flash_bwd_error_bound)
 from nezha_tpu_torch.ops.cuda.layer_norm import LAUNCHES as LN_LAUNCHES
 from nezha_tpu_torch.ops.cuda.layer_norm import layer_norm_error_bound
+from nezha_tpu_torch.ops.quant import quantize_kv_block
 from nezha_tpu_torch.optim import adamw
 from nezha_tpu_torch.serve import Engine, Request, Scheduler, ServeConfig
 from nezha_tpu_torch.train import make_train_step
@@ -132,6 +137,136 @@ def test_engine_on_card_matches_cpu(cuda_device):
                                  request_id=str(i)))
         sched.run_until_idle(max_iters=200)
         sched.engine.pool.leak_check()
+        results.append({k: r.tokens for k, r in sched.results.items()})
+    assert results[0] == results[1]
+
+
+def _int8_pools(rng, n, dev):
+    """int8 K/V pools [n, H, BS, D] quantized from random values, with
+    their fp32 scales, on ``dev``."""
+    out = []
+    for amp in (2.0, 1.0):
+        qv, sv = quantize_kv_block(torch.from_numpy(
+            (rng.randn(n, H, BS, D) * amp).astype(np.float32)))
+        out += [qv.to(dev), sv.to(dev)]
+    return out          # kq, ks, vq, vs
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("q_dtype", [torch.bfloat16, torch.float32])
+def test_quant_decode_kernel_matches_plain(cuda_device, q_dtype):
+    """The int8 decode kernel within fold_error_bound of its plain version
+    on the card (the dots run in q's dtype, so p rounds to bf16 only with
+    a bf16 q); the zero-length row exact zero; NaN scales and saturated
+    int8 in blocks past every row's length change nothing."""
+    rng = np.random.RandomState(6)
+    lengths = np.asarray([0, 1, BS - 1, BS, BS + 1, 33, M * BS], np.int32)
+    b, n = len(lengths), 1 + len(lengths) * M
+    dev = cuda_device
+    kq, ks, vq, vs = _int8_pools(rng, n, dev)
+    q = torch.from_numpy(rng.randn(b, H, 1, D).astype(np.float32)).to(
+        dev, q_dtype)
+    tab = torch.from_numpy((1 + rng.permutation(b * M)).reshape(b, M)
+                           .astype(np.int32)).to(dev)
+    lens = torch.from_numpy(lengths).to(dev)
+    before = paged_quant_decode_attention.launches
+    got = paged_decode_attention(q, kq, vq, lens, tab, block_scales=(ks, vs))
+    torch.cuda.synchronize()
+    assert paged_quant_decode_attention.launches == before + 1
+    want = paged_quant_decode_attention_plain(q, kq, vq, ks, vs, lens, tab)
+    abs_v = paged_quant_decode_attention_plain(q, kq, vq.abs(), ks, vs,
+                                               lens, tab)
+    _assert_within_bound(got, want, abs_v, q_dtype == torch.bfloat16)
+    assert torch.all(got[0] == 0)
+    for r, length in enumerate(lengths.tolist()):
+        dead = tab[r, -(-length // BS):].long()
+        kq[dead], vq[dead] = 127, -127
+        ks[dead], vs[dead] = float("nan"), float("nan")
+    assert torch.equal(paged_quant_decode_attention(q, kq, vq, ks, vs, lens,
+                                                    tab), got)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("q_dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("s", [16, 40])
+def test_quant_prefill_kernel_matches_plain(cuda_device, q_dtype, s):
+    """The int8 prefill kernel against its plain version on the card:
+    the output within fold_error_bound; the pools and scales after the
+    call bitwise equal on every block but scratch block 0, untouched
+    blocks unchanged; qerr within 1e-6 relative; a second run from the
+    same pools bitwise equal to the first."""
+    rng = np.random.RandomState(7)
+    starts = np.asarray([0, 5, 16, M * BS - s], np.int32)
+    b, n = len(starts), 1 + len(starts) * M
+    dev = cuda_device
+    pools = _int8_pools(rng, n, dev)
+    q, kc, vc = (torch.from_numpy(rng.randn(b, H, s, D).astype(np.float32))
+                 .to(dev, q_dtype) for _ in range(3))
+    tab = torch.from_numpy((1 + rng.permutation(b * M)).reshape(b, M)
+                           .astype(np.int32)).to(dev)
+    st = torch.from_numpy(starts).to(dev)
+
+    def run(fn):
+        kq, ks, vq, vs = (t.clone() for t in pools)
+        out, qerr = fn(q, kc, vc, kq, vq, ks, vs, tab, st)
+        return out, qerr, (kq, ks, vq, vs)
+
+    before = paged_quant_prefill_attention.launches
+    got, qerr, got_pools = run(paged_quant_prefill_attention)
+    torch.cuda.synchronize()
+    assert paged_quant_prefill_attention.launches == before + 1
+    want, want_err, want_pools = run(paged_quant_prefill_attention_plain)
+    kq, ks, vq, vs = pools
+    abs_v = paged_quant_prefill_attention_plain(
+        q, kc, vc.abs(), kq.clone(), vq.abs(), ks.clone(), vs.clone(), tab,
+        st)[0]
+    _assert_within_bound(got, want, abs_v, q_dtype == torch.bfloat16)
+    for g, w in zip(got_pools, want_pools):
+        assert torch.equal(g[1:], w[1:])
+    touched = {int(tab[r, t]) for r, x in enumerate(starts.tolist())
+               for t in range(x // BS, (x + s - 1) // BS + 1)}
+    untouched = sorted(set(range(1, n)) - touched)
+    for g, orig in zip(got_pools, pools):
+        assert torch.equal(g[untouched], orig[untouched])
+    assert abs(qerr.item() - want_err.item()) <= 1e-6 * want_err.item()
+    again, qerr2, again_pools = run(paged_quant_prefill_attention)
+    assert torch.equal(again, got) and torch.equal(qerr2, qerr)
+    assert all(torch.equal(x, y) for x, y in zip(again_pools, got_pools))
+
+
+@pytest.mark.gpu
+def test_int8_engine_on_card_matches_cpu(cuda_device):
+    """The tiny preset in f32 serves the same greedy tokens from an int8
+    pool on the card (the int8 kernels) as on the CPU (plain versions),
+    through chunked prefill and a prefix-cache hit, and the card's run
+    launches both int8 kernels and neither float one."""
+    rng = np.random.RandomState(8)
+    prefix = rng.randint(0, 512, 24).tolist()
+    prompts = [rng.randint(0, 512, 5).tolist(),
+               rng.randint(0, 512, 40).tolist(),
+               prefix + [7, 8, 9], prefix + [1]]
+    cpu_model = gpt2_for_preset("tiny", seed=0, device="cpu")
+    results = []
+    for device in ("cpu", cuda_device):
+        model = gpt2_for_preset("tiny", seed=0, device="cpu").to(device)
+        model.load_state_dict(cpu_model.state_dict())
+        engine = Engine(model, ServeConfig(
+            max_batch_size=2, max_len=96, max_prefill_len=16,
+            kv_block_size=8, cache_dtype=torch.float32, kv_dtype="int8"))
+        before = engine.kernel_launches()
+        sched = Scheduler(engine)
+        for i, p in enumerate(prompts):
+            sched.submit(Request(prompt=p, max_new_tokens=8,
+                                 request_id=str(i)))
+        sched.run_until_idle(max_iters=200)
+        engine.pool.leak_check()
+        assert engine.pool.prefix_hits >= 1
+        if device != "cpu":
+            ran = {k: v - before[k]
+                   for k, v in engine.kernel_launches().items()}
+            assert ran["paged_quant_decode"] > 0
+            assert ran["paged_quant_prefill"] > 0
+            assert ran["paged_decode"] == ran["paged_prefill"] == 0
         results.append({k: r.tokens for k, r in sched.results.items()})
     assert results[0] == results[1]
 

@@ -174,7 +174,7 @@ def test_sampled_support_respects_top_k():
 
 
 @pytest.mark.parametrize("field,value", [
-    ("kv_dtype", "int8"), ("kv_host_blocks", 4), ("speculative", {}),
+    ("kv_host_blocks", 4), ("speculative", {}),
     ("prefill_mode", "sequence"), ("long_prefill_buckets", (64,)),
     ("kv_layout", "dense"), ("priority_weights", {"interactive": 1}),
     ("tenant_queue_cap", 2), ("preemption", True)])
@@ -182,6 +182,16 @@ def test_out_of_slice_settings_refused_typed(field, value):
     with pytest.raises(NotPortedError, match=field):
         ServeConfig(**{field: value})
     assert issubclass(NotPortedError, ValueError)
+
+
+def test_serveconfig_kv_dtype_validation():
+    """JAX ``test_kv_quant.py:524``: an unknown KV dtype is a ValueError,
+    and int8 needs the paged layout."""
+    with pytest.raises(ValueError, match="kv_dtype"):
+        ServeConfig(kv_dtype="fp8")
+    with pytest.raises(ValueError, match="paged"):
+        ServeConfig(kv_layout="dense", kv_dtype="int8")
+    assert ServeConfig(kv_dtype="int8").kv_dtype == "int8"
 
 
 def test_stdio_jsonl_server():

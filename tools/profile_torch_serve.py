@@ -1,10 +1,11 @@
 """Where the time goes in the PyTorch port's serving path, on one CUDA card.
 
-    python3 tools/profile_torch_serve.py [--out serve_profile.json]
+    python3 tools/profile_torch_serve.py [--kv-dtype int8] [--out f.json]
 
 Serves the same eight greedy requests as ``chip_smoke.py``'s serve phase
-(GPT-2 124M, seeded random weights, bf16, paged KV with 16-token blocks)
-three times — warm-up, timed, profiled — and reports:
+(GPT-2 124M, seeded random weights, bf16, paged KV with 16-token blocks,
+bf16 or int8 blocks) three times — warm-up, timed, profiled — and
+reports:
 
 - wall time of a run without the profiler, split into prefill
   (admission) and decode-step time from the host clock around
@@ -12,7 +13,9 @@ three times — warm-up, timed, profiled — and reports:
 - from a second run under the profiler: device busy time (sum of CUDA
   kernel time) and the device's idle share of that run's wall time (and,
   as an estimate, of the unprofiled run's);
-- the CUDA kernels and CPU ops that took the most time.
+- the CUDA kernels and CPU ops that took the most time;
+- the kernels one decode step launches with all eight rows live (from
+  ten profiled steps).
 
 It imports nothing of JAX.
 """
@@ -79,18 +82,41 @@ class Timed:
         del self._engine.prefill, self._engine.step
 
 
+def cuda_kernels(prof):
+    return [e for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+
+
+def decode_step_launches(sched, vocab: int, steps: int = 10) -> float:
+    """Kernel launches per decode step with all eight rows live: admit
+    the eight requests (one scheduler step prefills them all and decodes
+    once), then profile ``steps`` decode-only steps."""
+    for r in requests(vocab, "k"):
+        sched.submit(r)
+    sched.step()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(steps):
+            sched.step()
+        torch.cuda.synchronize()
+    sched.run_until_idle()
+    return sum(e.count for e in cuda_kernels(prof)) / steps
+
+
 def main() -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--out", default=None,
                    help="also write the full report as JSON here")
     p.add_argument("--top", type=int, default=15)
+    p.add_argument("--kv-dtype", choices=["bf16", "int8"], default="bf16")
     args = p.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("needs a CUDA card")
     card = torch.cuda.get_device_name(0)
     model = gpt2_for_preset("full", seed=0, device="cuda")
     cfg = ServeConfig(max_batch_size=8, max_len=1024, max_prefill_len=256,
-                      kv_block_size=16)
+                      kv_block_size=16, kv_dtype=args.kv_dtype)
     sched = Scheduler(Engine(model, cfg))
     for r in requests(model.cfg.vocab_size, "warm"):
         sched.submit(r)
@@ -124,16 +150,17 @@ def main() -> int:
 
     # Kernels are events of their own on the device; summing only those
     # counts each kernel once.
-    kernels = [e for e in events
-               if e.device_type == torch.autograd.DeviceType.CUDA]
+    kernels = cuda_kernels(prof)
     busy_us = sum(dev_us(e) for e in kernels)
     by_dev = sorted(kernels, key=dev_us, reverse=True)[:args.top]
     by_cpu = sorted(events, key=lambda e: e.self_cpu_time_total,
                     reverse=True)[:args.top]
     tokens = sum(len(res.tokens) for rid, res in sched.results.items()
                  if rid.startswith("r"))
+    step_launches = decode_step_launches(sched, model.cfg.vocab_size)
     report = {
         "card": card,
+        "kv_dtype": args.kv_dtype,
         "wall_s": wall,
         "prefill_s": timed.prefill_s,
         "decode_steps": timed.steps,
@@ -145,6 +172,7 @@ def main() -> int:
         "kernel_events": len(kernels),
         "device_idle_share_profiled": 1.0 - busy_us / 1e6 / prof_wall,
         "device_idle_share_unprofiled_est": 1.0 - busy_us / 1e6 / wall,
+        "decode_step_kernel_launches": step_launches,
         "top_device": [{"name": e.key, "device_ms": dev_us(e) / 1e3,
                         "calls": e.count} for e in by_dev],
         "top_cpu_self": [{"name": e.key,
