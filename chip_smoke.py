@@ -42,7 +42,14 @@ Phases, each fatal on failure (non-zero exit, no result line):
    after the call bitwise equal to the plain version's, untouched blocks
    unchanged, the error sample within 1e-6 relative, two runs bitwise
    equal; yardstick SDPA over the dequantized prefix and the chunk with
-   the offset causal mask (it leaves out the write);
+   the offset causal mask (it leaves out the write). The q-offset prefill
+   kernel (B11) at the ring hop's shape on a 4-shard mesh (one row, H=3,
+   and again H=12; a 256-row chunk from starts 0, 300 and 768; each of
+   its four 64-query slices at ``q_offsets = starts + 64k``): within
+   ``fold_error_bound`` of its plain version, each slice bitwise equal to
+   B9's rows of the full chunk, and ``q_offsets = starts`` over the whole
+   chunk bitwise equal to B9; yardstick SDPA over the prefix gathered
+   dense and the chunk with the offset causal mask;
 4. train: GPT-2 124M at full width, bf16, B=8, S=1024,
    ``fused_loss_chunk=-1``, AdamW (weight decay 0.1), batches from
    ``synthetic_token_batches`` (seed 0): (a) one step's loss, gradients
@@ -69,6 +76,21 @@ Phases, each fatal on failure (non-zero exit, no result line):
    B9) do not, a clean ``leak_check()``, a prefix hit, and the same
    cross-check under INT8_SERVE_LOGIT_ATOL; it prints the largest
    per-chunk dequant error and both pools' bytes per block;
+5b. serve_seq: the same weights on ``ShardedEngine(mesh_devices=4,
+   devices=[cuda:0] * 4)`` (one card, its four shards run one after
+   another) with ``prefill_mode="sequence"``, ``seq_prefill_variant=
+   "ring"`` and ``long_prefill_buckets=(512, 1024)``: the serve phase's
+   eight requests plus a 960-token one; every request finishes, B11
+   launches 4 x 4 x 12 times per prefill chunk and B9/B10 never, B7 4 x
+   12 times per decode step, a prefix hit, a clean ``leak_check()`` of
+   every shard, the cross-check under SERVE_LOGIT_ATOL; then a ulysses
+   engine on the same mesh (B9 per shard): identical tokens and, from a
+   cold prefill of each prompt at its own bucket widths (the prefix cache
+   emptied first; 512 and 1024 among them), bitwise-equal last-prompt
+   logits; then a ulysses engine
+   on int8 pools (B10, B8): the cross-check under INT8_SERVE_LOGIT_ATOL.
+   Prints ``memory_report()``, the 960-token prompt's TTFT and the wall
+   time;
 6. generate: GPT-2 124M at full width, bf16, ``ln_impl="pallas"``, eight
    random 512-token prompts, 256 new tokens greedy through
    ``models.generate``: time to first token, decode ms per step and
@@ -147,6 +169,7 @@ TRAIN_B, TRAIN_S, TRAIN_LR = 8, 1024, 6e-4
 GEN_B, GEN_PROMPT, GEN_NEW = 8, 512, 256
 DEC_L = 1024                      # the dense decode check's cache length
 LN_D = 768
+SEQ_MESH = 4                      # serve_seq's shards, all on one card
 
 H, D, BS, M = 12, 64, 16, 64
 
@@ -497,6 +520,99 @@ def check_quant_prefill(g):
             "shape": f"B=1 H={H} D={D} bs={BS} M={M} int8 pools, bf16 q, "
                      f"S={rep['S']} start={rep['start']}; checked S=256 at "
                      f"0, 300, 768 and S=37 at 100"}
+
+
+def check_prefill_qoff(g):
+    """B11 at the ring hop's shapes: every 64-query slice of a 256-row
+    chunk, H=3 (12 heads over 4 shards) and H=12, from starts 0, 300 and
+    768; within fold_error_bound of the plain version and bitwise equal to
+    B9's rows of the full chunk."""
+    from nezha_tpu_torch.ops.cuda import (paged_prefill_attention,
+                                          paged_prefill_qoff_attention,
+                                          paged_prefill_qoff_attention_plain)
+    import torch.nn.functional as F
+
+    bf = torch.bfloat16
+    n = 1 + M
+    s_kc = 256
+    s_q = s_kc // SEQ_MESH
+    worst = worst_ratio = 0.0
+    cases = []
+    for h in (H // SEQ_MESH, H):
+        kp = torch.randn(n, h, BS, D, generator=g).to("cuda", bf)
+        vp = torch.randn(n, h, BS, D, generator=g).to("cuda", bf)
+        tab = shuffled_tables(g, 1, n).cuda()
+        for start in (0, 300, 768):
+            q, kc, vc = (torch.randn(1, h, s_kc, D, generator=g)
+                         .to("cuda", bf) for _ in range(3))
+            starts = torch.tensor([start], dtype=torch.int32, device="cuda")
+            full = paged_prefill_attention(q, kc, vc, kp, vp, tab, starts)
+            tag = f"paged_prefill_qoff H={h} start={start}"
+            if not torch.equal(paged_prefill_attention(
+                    q, kc, vc, kp, vp, tab, starts, q_offsets=starts), full):
+                fail(f"{tag}: q_offsets = starts differs from B9")
+            for k in range(SEQ_MESH):
+                rows = slice(k * s_q, (k + 1) * s_q)
+                qs = q[:, :, rows].contiguous()
+                qoff = starts + k * s_q
+                args = (qs, kc, vc, kp, vp, tab, starts, qoff)
+                got = paged_prefill_qoff_attention(*args)
+                torch.cuda.synchronize()
+                if not torch.equal(got, full[:, :, rows]):
+                    fail(f"{tag} slice {k}: not bitwise equal to B9's rows")
+                want = paged_prefill_qoff_attention_plain(*args)
+                abs_v = paged_prefill_qoff_attention_plain(
+                    qs, kc, vc.abs(), kp, vp.abs(), tab, starts, qoff)
+                err, ratio = within_bound(f"{tag} slice {k}", got, want,
+                                          abs_v)
+                worst, worst_ratio = max(worst, err), max(worst_ratio, ratio)
+                if h != H // SEQ_MESH or start != 768:
+                    continue
+                # Timed: the ring hop's own shape, every slice.
+                ms = gpu_time_ms(
+                    lambda: paged_prefill_qoff_attention(*args), 50)
+                plain_ms = gpu_time_ms(
+                    lambda: paged_prefill_qoff_attention_plain(*args), 3)
+                # Yardstick: SDPA over [prefix gathered dense ; chunk],
+                # the causal diagonal at the slice's offset.
+                pk = kp[tab[0].long()].transpose(0, 1).reshape(1, h, M * BS,
+                                                              D)
+                pv = vp[tab[0].long()].transpose(0, 1).reshape(1, h, M * BS,
+                                                              D)
+                kd = torch.cat([pk[:, :, :start], kc], dim=2)
+                vd = torch.cat([pv[:, :, :start], vc], dim=2)
+                mask = (torch.arange(start + s_kc, device="cuda")[None, :]
+                        <= start + k * s_q
+                        + torch.arange(s_q, device="cuda")[:, None])
+                library_ms = gpu_time_ms(
+                    lambda: F.scaled_dot_product_attention(
+                        qs, kd, vd, attn_mask=mask), 50)
+                keys = (k + 1) * s_q          # chunk rows the slice reaches
+                nbytes = (2 * s_q * h * D * 2           # q in, out
+                          + 2 * keys * h * D * 2        # chunk K and V
+                          + 2 * start * h * D * 2       # prefix K and V
+                          + math.ceil(start / BS) * 4 + 4 + 4)
+                flops = 4 * h * D * (s_q * start + s_q * k * s_q
+                                     + s_q * (s_q + 1) // 2)
+                bound_ms, bound_by = bound(nbytes, flops)
+                cases.append({"H": h, "start": start, "slice": k,
+                              "S_q": s_q, "S_kc": s_kc, "ms": ms,
+                              "plain_ms": plain_ms, "bound_ms": bound_ms,
+                              "bound_by": bound_by,
+                              "library_ms": library_ms})
+    print(json.dumps({"paged_prefill_qoff_cases": cases}), flush=True)
+    rep = cases[-1]             # the last slice: the deepest diagonal
+    return {"name": "paged_prefill_qoff", "route": "cuda",
+            "source": "nezha_tpu_torch/csrc/paged_prefill.cu",
+            "replaces": "nezha_tpu/ops/pallas/prefill_attention.py:167",
+            "max_abs_err": worst, "err_over_tolerance": worst_ratio,
+            "ms": rep["ms"], "plain_ms": rep["plain_ms"],
+            "bound_ms": rep["bound_ms"], "bound_by": rep["bound_by"],
+            "library_ms": rep["library_ms"],
+            "shape": f"B=1 H={rep['H']} D={D} bs={BS} M={M} S_q={s_q} "
+                     f"S_kc={s_kc} start=768, slice {rep['slice']} "
+                     f"(q_offset {768 + rep['slice'] * s_q}); checked H=3 "
+                     f"and 12, starts 0, 300, 768, slices 0-3"}
 
 
 def attended_pairs(s: int, causal: bool, lengths) -> int:
@@ -913,14 +1029,23 @@ def train(card: str):
     return {"train": launches, "train_ln": ln_launches}
 
 
+def serve_prompts(vocab: int):
+    """The serve phase's eight prompts: 5-900 tokens, two sharing a
+    128-token prefix (seeded)."""
+    g = torch.Generator().manual_seed(1)
+
+    def toks(n):
+        return torch.randint(0, vocab, (n,), generator=g).tolist()
+
+    prefix = toks(128)
+    return [toks(5), toks(37), toks(200), toks(300), toks(600), toks(900),
+            prefix + toks(20), prefix + toks(45)]
+
+
 def serve(card: str, kv_dtype: str = "bf16"):
     """Eight greedy requests through Scheduler/Engine on a paged pool of
     ``kv_dtype``; -> the kernel launches of that run."""
     from nezha_tpu_torch.cli.common import gpt2_for_preset
-    from nezha_tpu_torch.ops.cuda import (paged_decode_attention,
-                                          paged_prefill_attention,
-                                          paged_quant_decode_attention,
-                                          paged_quant_prefill_attention)
     from nezha_tpu_torch.serve import (Engine, FinishReason, Request,
                                        Scheduler, ServeConfig)
 
@@ -930,21 +1055,9 @@ def serve(card: str, kv_dtype: str = "bf16"):
                       kv_block_size=16, kv_dtype=kv_dtype)
     engine = Engine(model, cfg)
     sched = Scheduler(engine)
-    g = torch.Generator().manual_seed(1)
-    vocab = model.cfg.vocab_size
-
-    def toks(n):
-        return torch.randint(0, vocab, (n,), generator=g).tolist()
-
-    prefix = toks(128)
-    prompts = [toks(5), toks(37), toks(200), toks(300), toks(600),
-               toks(900), prefix + toks(20), prefix + toks(45)]
     reqs = [Request(prompt=p, max_new_tokens=32, request_id=f"r{i}")
-            for i, p in enumerate(prompts)]
-    for wrapper in (paged_decode_attention, paged_prefill_attention,
-                    paged_quant_decode_attention,
-                    paged_quant_prefill_attention):
-        wrapper.launches = 0
+            for i, p in enumerate(serve_prompts(model.cfg.vocab_size))]
+    zero_serve_launches()
     t0 = time.perf_counter()
     for r in reqs:
         sched.submit(r)
@@ -997,6 +1110,140 @@ def serve(card: str, kv_dtype: str = "bf16"):
     cross_check(model, sched, reqs,
                 INT8_SERVE_LOGIT_ATOL if int8 else SERVE_LOGIT_ATOL)
     return launches
+
+
+def zero_serve_launches() -> None:
+    from nezha_tpu_torch.ops.cuda import (paged_decode_attention,
+                                          paged_prefill_attention,
+                                          paged_prefill_qoff_attention,
+                                          paged_quant_decode_attention,
+                                          paged_quant_prefill_attention)
+
+    for wrapper in (paged_decode_attention, paged_prefill_attention,
+                    paged_prefill_qoff_attention,
+                    paged_quant_decode_attention,
+                    paged_quant_prefill_attention):
+        wrapper.launches = 0
+
+
+def serve_seq(card: str):
+    """Sequence-sharded serving on a 4-shard mesh of one card: a ring
+    engine (B11), a ulysses engine (B9) and a ulysses engine on int8
+    pools (B10); -> the launches of each run."""
+    from nezha_tpu_torch.cli.common import gpt2_for_preset
+    from nezha_tpu_torch.serve import (FinishReason, Request, Scheduler,
+                                       ServeConfig, ShardedEngine)
+
+    model = gpt2_for_preset("full", seed=0, device="cuda")
+    model.eval()
+    layers, m = model.cfg.num_layers, SEQ_MESH
+    g = torch.Generator().manual_seed(3)
+    prompts = serve_prompts(model.cfg.vocab_size) + [
+        torch.randint(0, model.cfg.vocab_size, (960,), generator=g).tolist()]
+    label = f"one card, {m} shards run serially"
+    runs, served, engines = {}, {}, {}
+    for variant, kv_dtype in (("ring", "bf16"), ("ulysses", "bf16"),
+                              ("ulysses", "int8")):
+        tag = f"serve_seq {variant} {kv_dtype}"
+        cfg = ServeConfig(max_batch_size=8, max_len=1024,
+                          max_prefill_len=256,
+                          long_prefill_buckets=(512, 1024),
+                          kv_block_size=16, prefill_mode="sequence",
+                          seq_prefill_variant=variant, kv_dtype=kv_dtype)
+        engine = ShardedEngine(model, cfg, mesh_devices=m,
+                               devices=[torch.device("cuda", 0)] * m)
+        if engine._seq_variant != variant:
+            fail(f"{tag}: the engine runs {engine._seq_variant}")
+        sched = Scheduler(engine)
+        reqs = [Request(prompt=p, max_new_tokens=32, request_id=f"r{i}")
+                for i, p in enumerate(prompts)]
+        torch.cuda.synchronize()
+        zero_serve_launches()
+        t0 = time.perf_counter()
+        for r in reqs:
+            sched.submit(r)
+        sched.run_until_idle(max_iters=10_000)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = engine.kernel_launches()
+        if sched.has_work():
+            fail(f"{tag}: the scheduler did not drain")
+        for r in reqs:
+            res = sched.results[r.request_id]
+            if res.finish_reason not in (FinishReason.LENGTH,
+                                         FinishReason.EOS):
+                fail(f"{tag} {r.request_id} finished {res.finish_reason}: "
+                     f"{res.error}")
+        per_layer = m * layers
+        chunks, steps = engine.prefill_chunks, engine.step_calls
+        int8 = kv_dtype == "int8"
+        want = {"paged_decode": 0 if int8 else per_layer * steps,
+                "paged_quant_decode": per_layer * steps if int8 else 0,
+                "paged_prefill": (per_layer * chunks
+                                  if variant == "ulysses" and not int8
+                                  else 0),
+                "paged_quant_prefill": per_layer * chunks if int8 else 0,
+                "paged_prefill_qoff": (m * per_layer * chunks
+                                       if variant == "ring" else 0)}
+        if launches != want:
+            fail(f"{tag}: launches {launches}, expected {want} for "
+                 f"{chunks} chunks and {steps} decode steps")
+        engine.pool.leak_check()
+        if engine.pool.prefix_hits < 1:
+            fail(f"{tag}: the shared 128-token prefix did not hit")
+        doc = sched.results[reqs[-1].request_id]
+        print(json.dumps({"serve_seq": {
+            "variant": variant, "kv_dtype": kv_dtype, "mesh": label,
+            "wall_s": wall, "ttft_960_s": doc.ttft_s,
+            "prefill_chunks": chunks, "decode_steps": steps,
+            "launches": launches, "prefix_hits": engine.pool.prefix_hits,
+            "memory_report": engine.memory_report(),
+            "max_quant_error": max(engine.quant_errors) if int8 else None,
+            "card": card}}), flush=True)
+        cross_check(model, sched, reqs,
+                    INT8_SERVE_LOGIT_ATOL if int8 else SERVE_LOGIT_ATOL)
+        runs[f"{variant}_{kv_dtype}"] = launches
+        served[variant, kv_dtype] = {r.request_id: sched.results[
+            r.request_id].tokens for r in reqs}
+        engines[variant, kv_dtype] = engine
+    if served["ring", "bf16"] != served["ulysses", "bf16"]:
+        fail("serve_seq: ring and ulysses served different tokens")
+    # Each prompt's last logits from a cold prefill, ring against
+    # ulysses: the same bits. The prefix cache is emptied before every
+    # prompt, so each prefills whole at its own bucket widths (up to the
+    # 1024-wide long bucket), not as a short tail over cached blocks.
+    widths = {}
+    for i, p in enumerate(prompts):
+        logits = []
+        for key in (("ring", "bf16"), ("ulysses", "bf16")):
+            engine = engines[key]
+            engine.pool.clear_prefix_cache()
+            plan = engine._plan_chunks(len(p))
+            before = engine.prefill_chunks
+            slot = engine.pool.alloc()
+            try:
+                engine.prefill(slot, p, max_new_tokens=1)
+                logits.append(engine.last_logits[slot].clone())
+            finally:
+                engine.pool.free(slot)
+            if engine.prefill_chunks - before != len(plan):
+                fail(f"serve_seq r{i}: {engine.prefill_chunks - before} "
+                     f"chunks dispatched, the cold plan has {len(plan)}")
+            widths[f"r{i}"] = [w for _, _, w in plan]
+        if not torch.equal(logits[0], logits[1]):
+            fail(f"serve_seq r{i}: ring and ulysses last logits differ by "
+                 f"{(logits[0] - logits[1]).abs().max().item()}")
+    long_widths = {w for ws in widths.values() for w in ws} & {512, 1024}
+    if long_widths != {512, 1024}:
+        fail(f"serve_seq: the cold prefills used long buckets "
+             f"{sorted(long_widths)}, expected 512 and 1024")
+    for engine in engines.values():
+        engine.pool.leak_check()
+    print(json.dumps({"serve_seq_ring_vs_ulysses": {
+        "tokens_identical": True, "last_logits_bitwise_equal": len(prompts),
+        "requests": len(prompts), "cold_prefill_widths": widths}}),
+        flush=True)
+    return runs
 
 
 @torch.no_grad()
@@ -1142,6 +1389,7 @@ def generate_phase(card: str):
 
 # The run whose launch count each kernel reports: the path it serves.
 HOME_PATH = {"paged_decode": "serve", "paged_prefill": "serve",
+             "paged_prefill_qoff": "serve_seq",
              "paged_quant_decode": "serve_int8",
              "paged_quant_prefill": "serve_int8",
              "flash_fwd": "train", "flash_bwd_dq": "train",
@@ -1175,12 +1423,18 @@ def main() -> int:
     g = torch.Generator().manual_seed(0)
     kernels = ([check_decode(g), check_prefill(g)] + check_flash(g)
                + [check_flash_decode(g)] + check_layer_norm(g)
-               + [check_quant_decode(g), check_quant_prefill(g)])
+               + [check_quant_decode(g), check_quant_prefill(g),
+                  check_prefill_qoff(g)])
     phase("train")
     paths = train(card)
     phase("serve")
     paths["serve"] = serve(card)
     paths["serve_int8"] = serve(card, "int8")
+    phase("serve_seq")
+    seq = serve_seq(card)
+    paths["serve_seq"] = seq["ring_bf16"]
+    paths["serve_seq_ulysses"] = seq["ulysses_bf16"]
+    paths["serve_seq_int8"] = seq["ulysses_int8"]
     phase("generate")
     paths["generate"] = generate_phase(card)
     for k in kernels:

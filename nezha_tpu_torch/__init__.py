@@ -9,7 +9,10 @@ What runs today:
 
 - serving: GPT-2 through the paged-KV ``serve.Engine`` and
   ``serve.Scheduler``, with the paged prefill and decode attention on
-  hand-written CUDA kernels;
+  hand-written CUDA kernels; tensor-sharded over a one-process mesh
+  through ``serve.ShardedEngine`` (``parallel.make_mesh``), with
+  sequence-sharded prefill (ulysses, or ring on the q-offset prefill
+  kernel);
 - training: GPT-2 through ``train.make_train_step`` / ``train.Trainer``
   and ``python -m nezha_tpu_torch.cli.train --config gpt2_124m`` (AdamW,
   the fused-head loss, synthetic token batches), with attention on the

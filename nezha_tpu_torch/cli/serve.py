@@ -16,6 +16,13 @@ and each request gets one stdout line when it finishes::
 
 A malformed line gets ``{"id": ..., "event": "error", "error": ...}``.
 The server exits once stdin closes and every request has finished.
+
+``--mesh M`` serves from a :class:`~nezha_tpu_torch.serve.ShardedEngine`
+over M shards (the visible cards on ``cuda``; the CPU repeated on
+``cpu``); ``--prefill-mode sequence`` (with ``--mesh M``, M > 1) also
+shards each prefill chunk's attention over the sequence, in the
+``--seq-prefill-variant`` layout; ``--long-prefill-buckets`` adds chunk
+widths above ``--max-prefill-len``.
 """
 
 from __future__ import annotations
@@ -29,8 +36,9 @@ import time
 import torch
 
 from nezha_tpu_torch.cli.common import add_model_args, gpt2_for_preset
+from nezha_tpu_torch.parallel.mesh import make_mesh
 from nezha_tpu_torch.serve import (Engine, QueueFull, Request, Scheduler,
-                                   ServeConfig)
+                                   ServeConfig, ShardedEngine)
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -43,6 +51,18 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--max-len", type=int, default=96,
                    help="per-slot KV capacity (prompt + generated)")
     p.add_argument("--max-prefill-len", type=int, default=32)
+    p.add_argument("--long-prefill-buckets", default="",
+                   help="comma-separated chunk widths above "
+                        "--max-prefill-len (at most --max-len)")
+    p.add_argument("--mesh", type=int, default=1,
+                   help="tensor-parallel shards (>1: the sharded engine)")
+    p.add_argument("--prefill-mode", choices=["replicated", "sequence"],
+                   default="replicated",
+                   help="sequence: shard each prefill chunk's attention "
+                        "over the mesh too (needs --mesh M > 1)")
+    p.add_argument("--seq-prefill-variant",
+                   choices=["auto", "ulysses", "ring"], default="auto",
+                   help="the sequence-sharded layout (auto: ulysses)")
     p.add_argument("--decode-horizon", type=int, default=1)
     p.add_argument("--kv-block-size", type=int, default=16)
     p.add_argument("--kv-num-blocks", type=int, default=None)
@@ -62,6 +82,24 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def build_scheduler(args) -> Scheduler:
+    try:
+        long_buckets = tuple(int(b) for b in args.long_prefill_buckets
+                             .split(",") if b.strip())
+    except ValueError:
+        raise SystemExit(f"--long-prefill-buckets must be comma-separated "
+                         f"ints, got {args.long_prefill_buckets!r}")
+    if args.prefill_mode == "sequence" and args.mesh < 2:
+        # Refused before any model is built: a 1-shard mesh has no
+        # sequence axis to shard over.
+        raise SystemExit("--prefill-mode sequence requires --mesh M with "
+                         "M > 1 (the chunk is sharded over the mesh's "
+                         "sequence axis)")
+    if args.mesh > 1 and torch.device(args.device).type == "cuda":
+        # Refused before the model is built on a card that may not exist.
+        try:
+            make_mesh({"tp": args.mesh}, device_type="cuda")
+        except ValueError as e:
+            raise SystemExit(f"--mesh {args.mesh}: too few CUDA cards: {e}")
     model = gpt2_for_preset(args.model_preset, seed=args.seed,
                             device=args.device)
     try:
@@ -69,6 +107,9 @@ def build_scheduler(args) -> Scheduler:
             max_batch_size=args.max_batch_size,
             max_len=min(args.max_len, model.cfg.max_positions),
             max_prefill_len=args.max_prefill_len,
+            long_prefill_buckets=long_buckets,
+            prefill_mode=args.prefill_mode,
+            seq_prefill_variant=args.seq_prefill_variant,
             decode_horizon=args.decode_horizon,
             kv_block_size=args.kv_block_size,
             kv_num_blocks=args.kv_num_blocks,
@@ -80,7 +121,16 @@ def build_scheduler(args) -> Scheduler:
             k_max=args.k_max, queue_capacity=args.queue_capacity)
     except ValueError as e:
         raise SystemExit(f"serve config: {e}")
-    return Scheduler(Engine(model, cfg))
+    if args.mesh > 1:
+        try:
+            engine = ShardedEngine(model, cfg, mesh_devices=args.mesh)
+        except ValueError as e:
+            # Topology constraints (heads % mesh, bucket divisibility,
+            # too few cards) as the CLI's typed refusal.
+            raise SystemExit(f"--mesh {args.mesh}: {e}")
+    else:
+        engine = Engine(model, cfg)
+    return Scheduler(engine)
 
 
 def parse_request(obj, args, vocab: int) -> Request:

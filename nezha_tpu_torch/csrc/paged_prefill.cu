@@ -2,7 +2,10 @@
 //
 // Replaces: nezha_tpu/ops/pallas/prefill_attention.py:_prefill_kernel,
 // reached from models/gpt2.py Attention._apply_paged on each prefill chunk
-// the serve engine dispatches.
+// the serve engine dispatches; and, as the QOFF instantiation of the same
+// body, _prefill_qoff_kernel, reached from the ring variant of
+// sequence-sharded prefill (serve/sharded/seq_prefill.py) once per hop and
+// shard.
 //
 // Computes, per (row b, head h, query i of the chunk): query i sits at
 // absolute position starts[b] + i and attends the row's cached prefix
@@ -34,6 +37,20 @@
 //     causal diagonal, so work tracks the row's real depth.
 // Later work: wgmma on bf16 tiles with TMA-fed shared memory, which moves
 // the bound from the FMA pipes to the memory system.
+//
+// The q-offset form (QOFF = true, entry nezha_paged_prefill_qoff): the
+// S_q queries of row b sit at absolute positions q_offsets[b] + i while
+// the chunk's S_kc fresh K/V rows still occupy [starts[b], starts[b] +
+// S_kc), so query i's causal diagonal in the chunk moves to
+// qoff + i with qoff = q_offsets[b] - starts[b] >= 0. A mesh shard hands
+// its slice of a chunk's queries to this form against the full chunk. A
+// row folds exactly the tiles the QOFF = false form folds for the same
+// query of the full chunk (the same prefix tiles, the same 32-key chunk
+// tiles from c0 = 0), and a trailing tile wholly past its diagonal leaves
+// its state bitwise as it was (p = exp(NEG_BIG - m) = 0, corr = 1), so the
+// two forms give the same bits for that query. With QOFF = false every
+// q-offset term is the constant 0 and the chunk is the query rows
+// themselves: that instantiation is the float prefill kernel unchanged.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -46,7 +63,7 @@ constexpr int PF_WARPS = 8;
 constexpr int ROWS_PER_WARP = 2;
 constexpr int Q_TILE = PF_WARPS * ROWS_PER_WARP;
 
-template <typename TQ, typename TKV>
+template <typename TQ, typename TKV, bool QOFF>
 __global__ void __launch_bounds__(PF_WARPS * WARP)
     paged_prefill_kernel(const TQ* __restrict__ q,
                          const TQ* __restrict__ k_chunk,
@@ -56,7 +73,10 @@ __global__ void __launch_bounds__(PF_WARPS * WARP)
                          const int* __restrict__ tables,
                          const int* __restrict__ starts,
                          TQ* __restrict__ out, int H, int S, int D, int bs,
-                         int M, float scale) {
+                         int M, float scale,
+                         // The q-offset form's own (last, so that the
+                         // float form's parameters keep their offsets).
+                         const int* __restrict__ q_offsets, int S_kc) {
   extern __shared__ float smem[];
   const int q0 = blockIdx.x * Q_TILE;
   const int h = blockIdx.y;
@@ -71,6 +91,9 @@ __global__ void __launch_bounds__(PF_WARPS * WARP)
   float* vt = kt + WARP * ldk;         // [32][D]
 
   const size_t head = (static_cast<size_t>(b) * H + h) * S;   // row offset
+  // The chunk's rows: the queries themselves unless QOFF.
+  const int skc = QOFF ? S_kc : S;
+  const size_t chunk_head = (static_cast<size_t>(b) * H + h) * skc;
   for (int e = threadIdx.x; e < Q_TILE * D; e += blockDim.x) {
     const int r = e / D;
     const int d = e - r * D;
@@ -85,6 +108,8 @@ __global__ void __launch_bounds__(PF_WARPS * WARP)
   for (int i = 0; i < ROWS_PER_WARP; ++i) st[i].init();
 
   int start = starts[b];
+  // Chunk-local position of query 0 (0 unless QOFF).
+  const int qoff = QOFF ? q_offsets[b] - start : 0;
   start = start < 0 ? 0 : (start > M * bs ? M * bs : start);
   const int* tab = tables + static_cast<size_t>(b) * M;
 
@@ -112,20 +137,20 @@ __global__ void __launch_bounds__(PF_WARPS * WARP)
   }
 
   // The chunk itself, causally, up to this tile's last query.
-  const int last = min(S, q0 + Q_TILE) - 1;
+  const int last = min(skc, qoff + q0 + Q_TILE) - 1;
   for (int c0 = 0; c0 <= last; c0 += WARP) {
-    const int n = min(WARP, S - c0);
+    const int n = min(WARP, skc - c0);
     __syncthreads();
     // The chunk's fresh K/V, routed through the pool dtype, then to q's.
     stage_tile(
         kt, vt, ldk, k_chunk, v_chunk,
-        [&](int j) { return (head + c0 + j) * D; }, n, D, threadIdx.x,
+        [&](int j) { return (chunk_head + c0 + j) * D; }, n, D, threadIdx.x,
         blockDim.x, [](float x) { return round_to<TQ>(round_to<TKV>(x)); });
     __syncthreads();
 #pragma unroll
     for (int i = 0; i < ROWS_PER_WARP; ++i) {
       const int r = warp * ROWS_PER_WARP + i;
-      const bool attend = lane < n && c0 + lane <= q0 + r;
+      const bool attend = lane < n && c0 + lane <= qoff + q0 + r;
       const float s =
           attend ? tile_score(q_raw + r * D, kt, ldk, D, lane) * scale
                  : NEG_BIG;
@@ -147,14 +172,15 @@ __global__ void __launch_bounds__(PF_WARPS * WARP)
   }
 }
 
-template <typename TQ, typename TKV>
+template <typename TQ, typename TKV, bool QOFF>
 cudaError_t launch(const void* q, const void* kc, const void* vc,
                    const void* kp, const void* vp, const int* tables,
-                   const int* starts, void* out, int B, int H, int S, int D,
-                   int bs, int M, float scale, cudaStream_t stream) {
+                   const int* starts, const int* q_offsets, void* out, int B,
+                   int H, int S, int S_kc, int D, int bs, int M, float scale,
+                   cudaStream_t stream) {
   const size_t smem =
       sizeof(float) * (2 * Q_TILE * D + WARP * (D + 1) + WARP * D);
-  auto kernel = paged_prefill_kernel<TQ, TKV>;
+  auto kernel = paged_prefill_kernel<TQ, TKV, QOFF>;
   cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((S + Q_TILE - 1) / Q_TILE, H, B);
@@ -162,8 +188,42 @@ cudaError_t launch(const void* q, const void* kc, const void* vc,
       static_cast<const TQ*>(q), static_cast<const TQ*>(kc),
       static_cast<const TQ*>(vc), static_cast<const TKV*>(kp),
       static_cast<const TKV*>(vp), tables, starts, static_cast<TQ*>(out), H,
-      S, D, bs, M, scale);
+      S, D, bs, M, scale, q_offsets, S_kc);
   return cudaGetLastError();
+}
+
+// The dtype dispatch both entry points share.
+template <bool QOFF>
+int dispatch(const void* q, const void* k_chunk, const void* v_chunk,
+             const void* k_pool, const void* v_pool, const void* tables,
+             const void* starts, const void* q_offsets, void* out, int B,
+             int H, int S, int S_kc, int D, int bs, int M, float scale,
+             int q_dtype, int kv_dtype, void* stream) {
+  if (B <= 0 || H <= 0 || S <= 0 || S_kc <= 0 || D <= 0 || D > MAX_D ||
+      D % 8 || bs <= 0 || M <= 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int* tab = static_cast<const int*>(tables);
+  const int* st = static_cast<const int*>(starts);
+  const int* qo = static_cast<const int*>(q_offsets);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaGetLastError();   // start from a clean error state
+  if (q_dtype == BF16 && kv_dtype == BF16)
+    return launch<__nv_bfloat16, __nv_bfloat16, QOFF>(
+        q, k_chunk, v_chunk, k_pool, v_pool, tab, st, qo, out, B, H, S, S_kc,
+        D, bs, M, scale, s);
+  if (q_dtype == F32 && kv_dtype == BF16)
+    return launch<float, __nv_bfloat16, QOFF>(
+        q, k_chunk, v_chunk, k_pool, v_pool, tab, st, qo, out, B, H, S, S_kc,
+        D, bs, M, scale, s);
+  if (q_dtype == BF16 && kv_dtype == F32)
+    return launch<__nv_bfloat16, float, QOFF>(
+        q, k_chunk, v_chunk, k_pool, v_pool, tab, st, qo, out, B, H, S, S_kc,
+        D, bs, M, scale, s);
+  if (q_dtype == F32 && kv_dtype == F32)
+    return launch<float, float, QOFF>(q, k_chunk, v_chunk, k_pool, v_pool,
+                                      tab, st, qo, out, B, H, S, S_kc, D, bs,
+                                      M, scale, s);
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
@@ -179,30 +239,21 @@ extern "C" int nezha_paged_prefill(const void* q, const void* k_chunk,
                                    int H, int S, int D, int bs, int M,
                                    float scale, int q_dtype, int kv_dtype,
                                    void* stream) {
-  using nezha::BF16;
-  using nezha::F32;
-  if (B <= 0 || H <= 0 || S <= 0 || D <= 0 || D > nezha::MAX_D || D % 8 ||
-      bs <= 0 || M <= 0)
-    return static_cast<int>(cudaErrorInvalidValue);
-  const int* tab = static_cast<const int*>(tables);
-  const int* st = static_cast<const int*>(starts);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaGetLastError();   // start from a clean error state
-  if (q_dtype == BF16 && kv_dtype == BF16)
-    return nezha::launch<__nv_bfloat16, __nv_bfloat16>(
-        q, k_chunk, v_chunk, k_pool, v_pool, tab, st, out, B, H, S, D, bs, M,
-        scale, s);
-  if (q_dtype == F32 && kv_dtype == BF16)
-    return nezha::launch<float, __nv_bfloat16>(q, k_chunk, v_chunk, k_pool,
-                                               v_pool, tab, st, out, B, H, S,
-                                               D, bs, M, scale, s);
-  if (q_dtype == BF16 && kv_dtype == F32)
-    return nezha::launch<__nv_bfloat16, float>(q, k_chunk, v_chunk, k_pool,
-                                               v_pool, tab, st, out, B, H, S,
-                                               D, bs, M, scale, s);
-  if (q_dtype == F32 && kv_dtype == F32)
-    return nezha::launch<float, float>(q, k_chunk, v_chunk, k_pool, v_pool,
-                                       tab, st, out, B, H, S, D, bs, M, scale,
-                                       s);
-  return static_cast<int>(cudaErrorInvalidValue);
+  return nezha::dispatch<false>(q, k_chunk, v_chunk, k_pool, v_pool, tables,
+                                starts, nullptr, out, B, H, S, S, D, bs, M,
+                                scale, q_dtype, kv_dtype, stream);
+}
+
+// The q-offset form: q and out [B, H, S_q, D]; k_chunk/v_chunk
+// [B, H, S_kc, D] of q's dtype; q_offsets [B] int32 with
+// starts[b] <= q_offsets[b]; the rest as above.
+extern "C" int nezha_paged_prefill_qoff(
+    const void* q, const void* k_chunk, const void* v_chunk,
+    const void* k_pool, const void* v_pool, const void* tables,
+    const void* starts, const void* q_offsets, void* out, int B, int H,
+    int S_q, int S_kc, int D, int bs, int M, float scale, int q_dtype,
+    int kv_dtype, void* stream) {
+  return nezha::dispatch<true>(q, k_chunk, v_chunk, k_pool, v_pool, tables,
+                               starts, q_offsets, out, B, H, S_q, S_kc, D,
+                               bs, M, scale, q_dtype, kv_dtype, stream);
 }

@@ -188,6 +188,22 @@ def _quant_prefill_write(pool, scales, tab, pos: int, new, s: int
     return err
 
 
+def float_prefill_write(kp, vp, tab, pos, k, v) -> None:
+    """One prefill chunk's K/V ``[b, H, s, D]`` into float pools
+    ``[N, H, bs, D]`` at offset ``pos`` (an int or a 0-d tensor) through
+    ``tab [b, M]``, IN PLACE, as one scatter: positions clamped to the
+    last one, as the JAX write is (the engine never lets a chunk spill
+    past capacity, so no two writes share an index)."""
+    s = k.shape[2]
+    bs, m = kp.shape[2], tab.shape[1]
+    ppos = (pos + torch.arange(s, device=k.device)).clamp(max=m * bs - 1)
+    bi = (ppos // bs).clamp(0, m - 1)
+    blk = tab.long()[:, bi]                                    # [b, s]
+    off = (ppos % bs)[None, :]                                 # [1, s]
+    kp[blk, :, off, :] = k.transpose(1, 2).to(kp.dtype)
+    vp[blk, :, off, :] = v.transpose(1, 2).to(vp.dtype)
+
+
 def _residual_init(cfg: GPT2Config):
     return init_lib.normal(0.02 / (2 * cfg.num_layers) ** 0.5)
 
@@ -317,28 +333,21 @@ class Attention(nn.Module):
     @staticmethod
     def _prefill_paged(q, k, v, cache, pos: int):
         """A prompt chunk at offset ``pos``: one scatter of the chunk's
-        K/V through the table (positions clamped to the last one, as the
-        JAX write is; the engine never lets a chunk spill past capacity,
-        so no two writes share an index), and the flash-prefill kernel,
-        which reads the pool only below ``pos`` — write and attention
-        commute. An int8 pool takes the int8 prefill kernel instead,
-        which writes the chunk's blocks itself, after its attention has
-        read them, and whose error sample lands in ``cache["qerr"]``."""
+        K/V through the table (:func:`float_prefill_write`), and the
+        flash-prefill kernel, which reads the pool only below ``pos`` —
+        write and attention commute. An int8 pool takes the int8 prefill
+        kernel instead, which writes the chunk's blocks itself, after its
+        attention has read them, and whose error sample lands in
+        ``cache["qerr"]``."""
         kp, vp, tab = cache["k"], cache["v"], cache["tables"]
-        b, _, s, _ = q.shape
+        b = q.shape[0]
         starts = torch.full((b,), pos, dtype=torch.int32, device=q.device)
         if "k_scale" in cache:
             out, cache["qerr"] = paged_prefill_attention(
                 q.contiguous(), k.contiguous(), v.contiguous(), kp, vp, tab,
                 starts, block_scales=(cache["k_scale"], cache["v_scale"]))
             return out
-        bs, m = kp.shape[2], tab.shape[1]
-        ppos = (pos + torch.arange(s, device=q.device)).clamp(max=m * bs - 1)
-        bi = (ppos // bs).clamp(0, m - 1)
-        blk = tab.long()[:, bi]                                # [b, s]
-        off = (ppos % bs)[None, :]                             # [1, s]
-        kp[blk, :, off, :] = k.transpose(1, 2).to(kp.dtype)
-        vp[blk, :, off, :] = v.transpose(1, 2).to(vp.dtype)
+        float_prefill_write(kp, vp, tab, pos, k, v)
         return paged_prefill_attention(q.contiguous(), k.contiguous(),
                                        v.contiguous(), kp, vp, tab, starts)
 

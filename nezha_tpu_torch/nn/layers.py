@@ -32,6 +32,30 @@ def resolve_device(device=None,
     return torch.device(device if device is not None else "cuda")
 
 
+def linear(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor],
+           policy: Policy) -> torch.Tensor:
+    """``x @ w + b`` in the policy's compute dtype (:class:`Linear`)."""
+    y = policy.cast_to_compute(x) @ policy.cast_to_compute(w)
+    if b is not None:
+        y = y + policy.cast_to_compute(b)
+    return policy.cast_output(y)
+
+
+def layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+               eps: float, policy: Policy, impl: str = "xla") -> torch.Tensor:
+    """The row LayerNorm of :class:`LayerNorm` (fp32 statistics)."""
+    if impl == "pallas":
+        y = fused_layer_norm(policy.cast_to_compute(x), scale.float(),
+                             bias.float(), eps)
+        return policy.cast_output(y)
+    xf = x.float()
+    mean = xf.mean(dim=-1, keepdim=True)
+    var = (xf - mean).square().mean(dim=-1, keepdim=True)
+    y = (xf - mean) * torch.rsqrt(var + eps)
+    y = y * scale.float() + bias.float()
+    return policy.cast_output(y)
+
+
 def _generator(generator: Optional[torch.Generator],
                device) -> torch.Generator:
     if generator is not None:
@@ -57,11 +81,7 @@ class Linear(nn.Module):
                   if use_bias else None)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        pol = self.policy
-        y = pol.cast_to_compute(x) @ pol.cast_to_compute(self.w)
-        if self.b is not None:
-            y = y + pol.cast_to_compute(self.b)
-        return pol.cast_output(y)
+        return linear(x, self.w, self.b, self.policy)
 
 
 class LayerNorm(nn.Module):
@@ -91,17 +111,8 @@ class LayerNorm(nn.Module):
                                              device=device))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if self.impl == "pallas":
-            y = fused_layer_norm(self.policy.cast_to_compute(x),
-                                 self.scale.float(), self.bias.float(),
-                                 self.eps)
-            return self.policy.cast_output(y)
-        xf = x.float()
-        mean = xf.mean(dim=-1, keepdim=True)
-        var = (xf - mean).square().mean(dim=-1, keepdim=True)
-        y = (xf - mean) * torch.rsqrt(var + self.eps)
-        y = y * self.scale.float() + self.bias.float()
-        return self.policy.cast_output(y)
+        return layer_norm(x, self.scale, self.bias, self.eps, self.policy,
+                          self.impl)
 
 
 class Embedding(nn.Module):

@@ -16,6 +16,7 @@ from nezha_tpu_torch.ops.cuda.layer_norm import (
     layer_norm_fwd_plain)
 from nezha_tpu_torch.ops.cuda.prefill_attention import (
     paged_prefill_attention, paged_prefill_attention_plain,
+    paged_prefill_qoff_attention, paged_prefill_qoff_attention_plain,
     paged_quant_prefill_attention, paged_quant_prefill_attention_plain)
 
 __all__ = ["flash_attention", "flash_block_bwd", "flash_block_bwd_plain",
@@ -25,6 +26,8 @@ __all__ = ["flash_attention", "flash_block_bwd", "flash_block_bwd_plain",
            "layer_norm_fwd", "layer_norm_fwd_plain",
            "paged_decode_attention", "paged_decode_attention_plain",
            "paged_prefill_attention", "paged_prefill_attention_plain",
+           "paged_prefill_qoff_attention",
+           "paged_prefill_qoff_attention_plain",
            "paged_quant_decode_attention",
            "paged_quant_decode_attention_plain",
            "paged_quant_prefill_attention",

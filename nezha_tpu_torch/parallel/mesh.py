@@ -1,0 +1,154 @@
+"""The serve mesh and its collectives, in one process (counterpart of
+``nezha_tpu/parallel/mesh.py`` ``make_mesh`` and of the ``lax``
+collectives the sequence-sharded prefill uses).
+
+A :class:`Mesh` is a list of ``torch.device``s under one axis name: shard
+``r`` keeps its tensors on ``mesh.devices[r]``. A device may appear more
+than once: ``[cpu] * M`` is the counterpart of the forced host devices
+every JAX mesh test runs on, and ``[cuda:0] * M`` runs an M-shard mesh on
+one card (its shards then run one after another).
+
+The collectives take per-shard lists (``xs[r]`` on shard r's device) and
+return per-shard lists; each moves tensors between the shards' devices
+in rank order:
+
+- :func:`all_to_all` — ``lax.all_to_all(..., tiled=True)``;
+- :func:`ppermute` — ``lax.ppermute``;
+- :func:`psum` / :func:`pmax` — ``lax.psum`` / ``lax.pmax``, reduced in
+  rank order on shard 0's device, so every shard gets the same bits.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import dataclasses
+from typing import Dict, List, Optional, Sequence, Tuple
+
+import torch
+
+
+@dataclasses.dataclass(frozen=True)
+class Mesh:
+    """``devices[r]`` holds shard r; ``axis_name`` names the one axis."""
+
+    devices: Tuple[torch.device, ...]
+    axis_name: str = "tp"
+
+    @property
+    def size(self) -> int:
+        return len(self.devices)
+
+
+def _default_devices(device_type: str, count: int) -> List[torch.device]:
+    """The visible cards on ``cuda`` (all of them, however many; never
+    one repeated), the CPU repeated ``count`` times on ``cpu``."""
+    if device_type == "cpu":
+        return [torch.device("cpu")] * count
+    if device_type == "cuda":
+        n = torch.cuda.device_count() if torch.cuda.is_available() else 0
+        return [torch.device("cuda", i) for i in range(n)]
+    raise ValueError(f"a mesh runs on cuda or cpu, not {device_type!r}")
+
+
+def _indexed(device: torch.device) -> torch.device:
+    """``cuda`` -> ``cuda:<current card>``, the device its tensors
+    report."""
+    if device.type == "cuda" and device.index is None:
+        return torch.device("cuda", torch.cuda.current_device())
+    return device
+
+
+def make_mesh(axes: Dict[str, int],
+              devices: Optional[Sequence] = None,
+              device_type: str = "cuda") -> Mesh:
+    """A one-axis mesh, e.g. ``make_mesh({"tp": 4})``, on the first
+    devices of ``devices`` — None: the visible cards
+    (``device_type="cuda"``) or the CPU repeated (``"cpu"``). Asking for
+    more devices than the list holds raises ``ValueError``."""
+    if len(axes) != 1:
+        raise ValueError(f"the port's mesh has one axis, got {dict(axes)}")
+    (name, size), = axes.items()
+    if size < 1:
+        raise ValueError(f"mesh axis {name!r} needs size >= 1, got {size}")
+    if devices is None:
+        devices = _default_devices(device_type, size)
+    devs = [_indexed(torch.device(d)) for d in devices]
+    if size > len(devs):
+        raise ValueError(
+            f"a mesh of {size} shards needs {size} devices, only "
+            f"{len(devs)} visible (name a mesh's devices with devices=, "
+            f"which may repeat one)")
+    return Mesh(tuple(devs[:size]), name)
+
+
+def device_scope(device: torch.device):
+    """Make ``device`` the current card while a shard launches kernels on
+    it (a kernel launches on the current device); a no-op off cuda."""
+    if device.type == "cuda":
+        return torch.cuda.device(device)
+    return contextlib.nullcontext()
+
+
+def _check(xs: Sequence[torch.Tensor]) -> int:
+    if not xs:
+        raise ValueError("a collective needs one tensor per shard")
+    return len(xs)
+
+
+def all_to_all(xs: Sequence[torch.Tensor], split_axis: int,
+               concat_axis: int) -> List[torch.Tensor]:
+    """Tiled all-to-all: shard r splits ``xs[r]`` into M equal chunks
+    along ``split_axis`` and sends chunk j to shard j, which concatenates
+    the chunks it receives, in the senders' rank order, along
+    ``concat_axis``."""
+    m = _check(xs)
+    if xs[0].shape[split_axis] % m:
+        raise ValueError(f"all_to_all: axis {split_axis} of size "
+                         f"{xs[0].shape[split_axis]} does not split {m} ways")
+    parts = [x.chunk(m, dim=split_axis) for x in xs]
+    return [torch.cat([parts[src][dst].to(xs[dst].device)
+                       for src in range(m)], dim=concat_axis).contiguous()
+            for dst in range(m)]
+
+
+def ppermute(xs: Sequence[torch.Tensor],
+             perm: Sequence[Tuple[int, int]]) -> List[torch.Tensor]:
+    """``out[dst] = xs[src]`` for each ``(src, dst)`` pair, on ``dst``'s
+    device; a shard no pair sends to gets zeros."""
+    m = _check(xs)
+    out: List[Optional[torch.Tensor]] = [None] * m
+    for src, dst in perm:
+        if out[dst] is not None:
+            raise ValueError(f"ppermute: shard {dst} receives twice")
+        out[dst] = xs[src].to(xs[dst].device, copy=True)
+    return [torch.zeros_like(xs[r]) if o is None else o
+            for r, o in enumerate(out)]
+
+
+def ring_perm(m: int) -> List[Tuple[int, int]]:
+    """The ring hop ``r -> r + 1 (mod m)``."""
+    return [(r, (r + 1) % m) for r in range(m)]
+
+
+def _reduce(xs: Sequence[torch.Tensor], op) -> List[torch.Tensor]:
+    _check(xs)
+    dev0 = xs[0].device
+    acc = xs[0]
+    for x in xs[1:]:
+        acc = op(acc, x.to(dev0))
+    return [acc if x.device == dev0 else acc.to(x.device) for x in xs]
+
+
+def psum(xs: Sequence[torch.Tensor]) -> List[torch.Tensor]:
+    """The sum over shards, ``((x0 + x1) + x2) + ...`` on shard 0's
+    device, given to every shard."""
+    return _reduce(xs, torch.add)
+
+
+def pmax(xs: Sequence[torch.Tensor]) -> List[torch.Tensor]:
+    """The elementwise max over shards, given to every shard."""
+    return _reduce(xs, torch.maximum)
+
+
+__all__ = ["Mesh", "all_to_all", "device_scope", "make_mesh", "pmax",
+           "ppermute", "psum", "ring_perm"]

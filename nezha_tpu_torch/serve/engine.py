@@ -6,12 +6,13 @@ loads one request (however many chunks that takes) and ``step(active)``
 decodes one block of up to ``decode_horizon`` tokens for every row:
 
 - **prefill** pads each prompt chunk to a static bucket width (powers of
-  two up to ``max_prefill_len``); prompts longer than that run as
-  successive ``max_prefill_len`` chunks and a bucketed tail, at advancing
-  offsets, through the model's paged prefill path (the flash-prefill
-  kernel). A prompt's full-block prefix is first matched against the
-  prefix cache: matched blocks are referenced, not recomputed, and only
-  the suffix prefills. The last REAL row's logits seed decoding.
+  two up to ``max_prefill_len``, then any ``long_prefill_buckets``);
+  longer prompts run as a greedy largest-fit plan of chunks at advancing
+  offsets (:meth:`Engine._plan_chunks`), through the model's paged
+  prefill path (the flash-prefill kernel). A prompt's full-block prefix
+  is first matched against the prefix cache: matched blocks are
+  referenced, not recomputed, and only the suffix prefills. The last
+  REAL row's logits seed decoding.
 - **step** runs ``decode_horizon`` single-token steps as a Python loop,
   all on the device: per-row sampling from the carried logits, the
   forward at per-row positions (the flash-decode kernel), and the per-row
@@ -46,6 +47,7 @@ import torch
 from nezha_tpu_torch.errors import NotPortedError
 from nezha_tpu_torch.ops.cuda import (paged_decode_attention,
                                       paged_prefill_attention,
+                                      paged_prefill_qoff_attention,
                                       paged_quant_decode_attention,
                                       paged_quant_prefill_attention)
 from nezha_tpu_torch.serve.sampling import finite_rows, split_and_sample
@@ -81,6 +83,15 @@ class ServeConfig:
     scale per (block, head): about twice the resident blocks in the same
     device memory, at a dequant error of at most amax/254 per block.
 
+    ``long_prefill_buckets`` are extra chunk widths above
+    ``max_prefill_len`` (strictly increasing, at most ``max_len``): a long
+    prompt prefills in a few wide chunks instead of many
+    ``max_prefill_len`` strides; ``()`` keeps the classic plan.
+    ``prefill_mode`` "sequence" spreads each prefill chunk's attention
+    over the mesh of a :class:`~nezha_tpu_torch.serve.sharded.
+    ShardedEngine` (the single-device engine refuses it), in the layout
+    ``seq_prefill_variant`` names: "ulysses", "ring" or "auto" (ulysses).
+
     The remaining fields exist to refuse, typed (:class:`NotPortedError`),
     the settings of the JAX engine this port does not serve yet."""
 
@@ -98,12 +109,13 @@ class ServeConfig:
     prefix_cache: bool = True
     kv_eviction: str = "lru"
     kv_dtype: str = "bf16"
+    prefill_mode: str = "replicated"
+    long_prefill_buckets: Tuple[int, ...] = ()
+    seq_prefill_variant: str = "auto"
     # Not ported: each must keep its default.
     kv_layout: str = "paged"
     kv_host_blocks: int = 0
     speculative: Optional[Any] = None
-    prefill_mode: str = "replicated"
-    long_prefill_buckets: Tuple[int, ...] = ()
     priority_weights: Optional[Any] = None
     tenant_queue_cap: Optional[int] = None
     preemption: bool = False
@@ -122,10 +134,6 @@ class ServeConfig:
              "the host KV tier is not ported"),
             ("speculative", self.speculative is not None,
              "speculative decoding is not ported"),
-            ("prefill_mode", self.prefill_mode != "replicated",
-             "sequence-sharded prefill is not ported"),
-            ("long_prefill_buckets", tuple(self.long_prefill_buckets) != (),
-             "long-prefill buckets are not ported"),
             ("priority_weights", self.priority_weights is not None,
              "priority lanes are not ported"),
             ("tenant_queue_cap", self.tenant_queue_cap is not None,
@@ -171,6 +179,30 @@ class ServeConfig:
                 f"prefill_buckets must be >= 1 and end exactly at "
                 f"max_prefill_len={self.max_prefill_len}, got {buckets}")
         object.__setattr__(self, "prefill_buckets", buckets)
+        if self.prefill_mode not in ("replicated", "sequence"):
+            raise ValueError(f"prefill_mode must be 'replicated' or "
+                             f"'sequence', got {self.prefill_mode!r}")
+        if self.seq_prefill_variant not in ("auto", "ulysses", "ring"):
+            raise ValueError(f"seq_prefill_variant must be 'auto', "
+                             f"'ulysses', or 'ring', got "
+                             f"{self.seq_prefill_variant!r}")
+        lb = tuple(self.long_prefill_buckets)
+        if lb:
+            if list(lb) != sorted(set(lb)):
+                raise ValueError(f"long_prefill_buckets must be strictly "
+                                 f"increasing, got {lb}")
+            if lb[0] <= self.max_prefill_len or lb[-1] > self.max_len:
+                raise ValueError(
+                    f"long_prefill_buckets must lie in (max_prefill_len="
+                    f"{self.max_prefill_len}, max_len={self.max_len}], got "
+                    f"{lb}")
+        object.__setattr__(self, "long_prefill_buckets", lb)
+
+    @property
+    def all_prefill_buckets(self) -> Tuple[int, ...]:
+        """Every prefill chunk width, ascending: the classic buckets, then
+        the long ones."""
+        return tuple(self.prefill_buckets) + tuple(self.long_prefill_buckets)
 
 
 # Prefill error samples an Engine keeps (the newest): the reference feeds
@@ -180,25 +212,31 @@ QUANT_ERROR_SAMPLES = 4096
 
 class Engine:
     """Device-side serving state over a GPT-2 module. ``step_calls``
-    counts step dispatches; :meth:`kernel_launches` reads the attention
-    kernels' launch counts; ``quant_errors`` holds the newest
+    counts step dispatches and ``prefill_chunks`` prefill chunk
+    dispatches; :meth:`kernel_launches` reads the attention kernels'
+    launch counts; ``quant_errors`` holds the newest
     ``QUANT_ERROR_SAMPLES`` per-chunk prefill dequant errors of an int8
     pool (the samples of the reference's ``serve.kv.quant_error``)."""
+
+    # Whether this engine class can serve prefill_mode="sequence": only
+    # the mesh-sharded engine has a sequence axis to spread a chunk over.
+    _seq_prefill_capable = False
 
     def __init__(self, model, cfg: ServeConfig = ServeConfig()):
         if cfg.max_len > model.cfg.max_positions:
             raise ValueError(f"max_len {cfg.max_len} exceeds the model's "
                              f"max_positions {model.cfg.max_positions}")
+        if cfg.prefill_mode == "sequence" and not self._seq_prefill_capable:
+            raise ValueError(
+                "prefill_mode='sequence' requires the mesh-sharded engine "
+                "(--mesh M with M > 1): the single-device engine has no "
+                "sequence axis to shard over")
         self.model = model
         self.cfg = cfg
         self.device = next(model.parameters()).device
         self.vocab = model.cfg.vocab_size
         self.k_max = min(cfg.k_max, self.vocab)
-        self.pool = PagedSlotPool(
-            model.cfg, cfg.max_batch_size, cfg.max_len, cfg.cache_dtype,
-            block_size=cfg.kv_block_size, num_blocks=cfg.kv_num_blocks,
-            prefix_cache=cfg.prefix_cache, eviction=cfg.kv_eviction,
-            quantized=cfg.kv_dtype == "int8", device=self.device)
+        self.pool = self._make_paged_pool(model.cfg)
         self.quant_errors = collections.deque(maxlen=QUANT_ERROR_SAMPLES)
         b, dev = cfg.max_batch_size, self.device
         # Host mirrors of each row's next write position and remaining
@@ -217,6 +255,17 @@ class Engine:
         self.budgets = torch.zeros((b,), dtype=torch.int32, device=dev)
         self.generators: List[Optional[torch.Generator]] = [None] * b
         self.step_calls = 0
+        self.prefill_chunks = 0
+
+    def _make_paged_pool(self, model_cfg) -> PagedSlotPool:
+        """The KV pool (a subclass's hook: the sharded engine splits it
+        over its mesh)."""
+        cfg = self.cfg
+        return PagedSlotPool(
+            model_cfg, cfg.max_batch_size, cfg.max_len, cfg.cache_dtype,
+            block_size=cfg.kv_block_size, num_blocks=cfg.kv_num_blocks,
+            prefix_cache=cfg.prefix_cache, eviction=cfg.kv_eviction,
+            quantized=cfg.kv_dtype == "int8", device=self.device)
 
     @staticmethod
     def kernel_launches() -> Dict[str, int]:
@@ -224,6 +273,7 @@ class Engine:
         through the wrappers' ``launches`` attributes)."""
         return {"paged_decode": paged_decode_attention.launches,
                 "paged_prefill": paged_prefill_attention.launches,
+                "paged_prefill_qoff": paged_prefill_qoff_attention.launches,
                 "paged_quant_decode": paged_quant_decode_attention.launches,
                 "paged_quant_prefill":
                     paged_quant_prefill_attention.launches}
@@ -232,20 +282,34 @@ class Engine:
     def _plan_chunks(self, n: int,
                      start: int = 0) -> List[Tuple[int, int, int]]:
         """``(offset, real_len, pad_width)`` chunks covering positions
-        ``[start, n)``: full ``max_prefill_len`` strides, then the
-        smallest bucket holding the rest. A padded tail that would spill
-        past ``max_len`` slides back over real tokens instead (rewriting
-        them recomputes identical K/V; the pool copies any shared block
-        the slide re-enters), so no chunk write ever passes capacity."""
+        ``[start, n)``, greedy largest-fit over every bucket: while the
+        remainder exceeds ``max_prefill_len``, either pad up into the
+        smallest bucket holding all of it (only when that wastes less
+        than one more stride would advance) or stride by the largest
+        bucket that fits; then the smallest bucket holding the rest. With
+        ``long_prefill_buckets=()`` that is full ``max_prefill_len``
+        strides and a bucketed tail. A padded tail that would spill past
+        ``max_len`` slides back over real tokens instead (rewriting them
+        recomputes identical K/V; the pool copies any shared block the
+        slide re-enters), so no chunk write ever passes capacity."""
         cfg = self.cfg
         p_max = cfg.max_prefill_len
+        buckets = cfg.all_prefill_buckets
         chunks: List[Tuple[int, int, int]] = []
         off = start
+        width = None
         while n - off > p_max:
-            chunks.append((off, p_max, p_max))
-            off += p_max
+            rem = n - off
+            up = [w for w in buckets if w >= rem]
+            stride = max(w for w in buckets if w <= rem)
+            if up and up[0] - rem < stride:
+                width = up[0]            # one wide pad-up tail
+                break
+            chunks.append((off, stride, stride))
+            off += stride
         rem = n - off
-        width = next(w for w in cfg.prefill_buckets if w >= rem)
+        if width is None:
+            width = next(w for w in buckets if w >= rem)
         if off + width > cfg.max_len:
             off, rem = max(n - width, 0), min(width, n)
         chunks.append((off, rem, width))
@@ -310,6 +374,7 @@ class Engine:
             padded[0, :ln] = tokens[off:off + ln]
             logits = self.model(torch.as_tensor(padded, device=dev),
                                 cache=rows, pos=off)
+            self.prefill_chunks += 1
             last = logits[0, ln - 1]                 # last REAL row
             if self.pool.quantized:
                 # Each layer left its chunk's error, a device scalar: read

@@ -1,0 +1,209 @@
+"""GPT-2's paged-cache forward over M parameter shards — what XLA's
+partitioner makes of the JAX model under the sharded engine's
+``auto_partitioner_scope``.
+
+:class:`ShardedGPT2` runs the model's own forward (``GPT2.forward`` and
+``Block.forward``) over the model's own replicated modules (the position
+embedding, the LayerNorms), with the split layers swapped in; only the
+split and the reductions are new here:
+
+- :class:`ShardedEmbedding`: the token embedding when the vocabulary
+  divides by M. Each shard gathers the ids in its slice (zeros
+  elsewhere) and a psum assembles the rows; the tied LM head is
+  vocab-sliced with an all-gather of the logits. Otherwise the model's
+  own embedding serves, replicated;
+- :class:`ShardedAttention`: qkv column-parallel by whole heads, each
+  shard's attention on its heads and its pool shard through the port's
+  paged branches (:meth:`~nezha_tpu_torch.models.gpt2.Attention.
+  _decode_paged` and ``_prefill_paged``: B7/B9, or B8/B10 on int8 pools;
+  an int8 chunk's error sample is the max over shards), the projection
+  row-parallel. In sequence mode (``seq_variant`` set) a prefill chunk's
+  attention goes to :func:`~.seq_prefill.seq_prefill_attention`: q/k/v
+  move from the head domain to the sequence domain by all-to-all and the
+  output moves back, the move XLA makes around the JAX ``shard_map``;
+- :class:`ShardedMLP`: fc column-parallel, the projection row-parallel.
+
+A row-parallel layer sums the shards' partial products (one psum, fp32,
+rank order) and then adds its replicated bias. The residual stream lives
+on the model's device; on a mesh whose devices repeat it, the hand-overs
+to the shards are free.
+"""
+
+from __future__ import annotations
+
+from typing import List, Optional, Sequence, Tuple
+
+import torch
+from torch import nn
+
+from nezha_tpu_torch.models.gpt2 import GPT2, Attention, Block
+from nezha_tpu_torch.nn.layers import linear
+from nezha_tpu_torch.ops import gelu
+from nezha_tpu_torch.parallel.mesh import Mesh, device_scope, pmax, psum
+from nezha_tpu_torch.serve.sharded.reshard import (Split, place_variables,
+                                                   rule_for)
+from nezha_tpu_torch.serve.sharded.seq_prefill import (heads_to_seq,
+                                                       seq_prefill_attention,
+                                                       seq_to_heads)
+
+
+def _to_shards(mesh: Mesh, x: torch.Tensor) -> List[torch.Tensor]:
+    return [x.to(dev) for dev in mesh.devices]
+
+
+def _row_parallel(policy, partials, bias, device):
+    """psum of the shards' partial products, then the bias."""
+    y = psum([t.float() for t in partials])[0].to(device)
+    return policy.cast_output(policy.cast_to_compute(y)
+                              + policy.cast_to_compute(bias))
+
+
+class ShardedEmbedding(nn.Module):
+    """The vocab-sliced token embedding and tied head; ``tables[r]`` is
+    shard r's rows, on its device."""
+
+    def __init__(self, tables: Sequence[torch.Tensor], mesh: Mesh, policy):
+        super().__init__()
+        self.tables, self.mesh, self.policy = list(tables), mesh, policy
+
+    def forward(self, ids: torch.Tensor) -> torch.Tensor:
+        rows = []
+        for r, (dev, table) in enumerate(zip(self.mesh.devices,
+                                             self.tables)):
+            local = ids.to(dev) - r * table.shape[0]
+            hit = (local >= 0) & (local < table.shape[0])
+            e = table[local.clamp(0, table.shape[0] - 1)]
+            rows.append(self.policy.cast_to_compute(
+                torch.where(hit[..., None], e, 0.0)))
+        return psum(rows)[0].to(ids.device)
+
+    def attend(self, x: torch.Tensor) -> torch.Tensor:
+        pol = self.policy
+        logits = [pol.cast_to_compute(xr) @ pol.cast_to_compute(table).t()
+                  for xr, table in zip(_to_shards(self.mesh, x),
+                                       self.tables)]
+        return torch.cat([t.to(x.device) for t in logits], dim=-1)
+
+
+class ShardedAttention(nn.Module):
+    """One layer's attention over the mesh; called as :class:`Attention`
+    on a paged cache, where ``cache`` is ``{"shards": [shard r's cache
+    dict, ...]}``."""
+
+    def __init__(self, attn: Attention, shards, pre: str, mesh: Mesh,
+                 policy, seq_variant: Optional[str]):
+        super().__init__()
+        self.cfg, self.policy, self.mesh = attn.cfg, policy, mesh
+        self.seq_variant = seq_variant
+        self.qkv = [(p[pre + "qkv.w"], p[pre + "qkv.b"]) for p in shards]
+        self.proj_w = [p[pre + "proj.w"] for p in shards]
+        self.proj_b = attn.proj.b
+
+    def forward(self, x, cache: dict, pos, active=None, prefill=False):
+        cfg, pol, m = self.cfg, self.policy, self.mesh.size
+        b, s, h = x.shape
+        hh, d = cfg.num_heads // m, h // cfg.num_heads
+        qkv = [linear(xr, w, bias, pol).reshape(b, s, 3, hh, d)
+               .permute(2, 0, 3, 1, 4)
+               for xr, (w, bias) in zip(_to_shards(self.mesh, x), self.qkv)]
+        q, k, v = ([t[j] for t in qkv] for j in range(3))     # [B,hh,S,D]
+        shards = cache["shards"]
+        quant = "k_scale" in shards[0]
+        outs = []
+        if isinstance(pos, torch.Tensor) and pos.dim() == 1:
+            for r, dev in enumerate(self.mesh.devices):
+                with device_scope(dev):
+                    outs.append(Attention._decode_paged(
+                        q[r], k[r], v[r], shards[r], pos.to(dev),
+                        None if active is None else active.to(dev)))
+        elif self.seq_variant is not None:
+            outs, qerr = self._seq_attention(q, k, v, shards, int(pos))
+            if quant:
+                cache["qerr"] = qerr
+        else:
+            for r, dev in enumerate(self.mesh.devices):
+                with device_scope(dev):
+                    outs.append(Attention._prefill_paged(
+                        q[r], k[r], v[r], shards[r], int(pos)))
+            if quant:
+                cache["qerr"] = pmax([sd["qerr"] for sd in shards])[0]
+        partials = [pol.cast_to_compute(o.transpose(1, 2).reshape(
+                        b, s, hh * d)) @ pol.cast_to_compute(w)
+                    for o, w in zip(outs, self.proj_w)]
+        return _row_parallel(pol, partials, self.proj_b, x.device)
+
+    def _seq_attention(self, q, k, v, shards, pos: int):
+        """A prefill chunk through the sequence-sharded attention: head
+        domain -> sequence domain and back."""
+        b = q[0].shape[0]
+        starts = [torch.full((b,), pos, dtype=torch.int32, device=dev)
+                  for dev in self.mesh.devices]
+        quant = "k_scale" in shards[0]
+        scales = (([sd["k_scale"] for sd in shards],
+                   [sd["v_scale"] for sd in shards]) if quant else None)
+        outs, qerr = seq_prefill_attention(
+            heads_to_seq(q), heads_to_seq(k), heads_to_seq(v),
+            [sd["k"] for sd in shards], [sd["v"] for sd in shards],
+            [sd["tables"] for sd in shards], starts,
+            variant=self.seq_variant, block_scales=scales)
+        return seq_to_heads(outs), (qerr[0] if quant else None)
+
+
+class ShardedMLP(nn.Module):
+    """One layer's MLP over the mesh."""
+
+    def __init__(self, mlp, shards, pre: str, mesh: Mesh, policy):
+        super().__init__()
+        self.policy, self.mesh = policy, mesh
+        self.fc = [(p[pre + "fc.w"], p[pre + "fc.b"]) for p in shards]
+        self.proj_w = [p[pre + "proj.w"] for p in shards]
+        self.proj_b = mlp.proj.b
+
+    def forward(self, x):
+        pol = self.policy
+        partials = [pol.cast_to_compute(gelu(linear(xr, w, bias, pol)))
+                    @ pol.cast_to_compute(pw)
+                    for xr, (w, bias), pw in zip(_to_shards(self.mesh, x),
+                                                 self.fc, self.proj_w)]
+        return _row_parallel(pol, partials, self.proj_b, x.device)
+
+
+class _ShardedBlock(Block):
+    """``Block.forward`` over the model block's LayerNorms and the split
+    attention and MLP."""
+
+    def __init__(self, block: Block, attn: ShardedAttention,
+                 mlp: ShardedMLP):
+        nn.Module.__init__(self)    # Block.__init__ would draw new weights
+        self.ln_1, self.attn = block.ln_1, attn
+        self.ln_2, self.mlp = block.ln_2, mlp
+
+
+class ShardedGPT2(GPT2):
+    """Inference-only GPT-2 over ``mesh``: ``model``'s parameters placed
+    per ``rules`` (:func:`~.reshard.serve_tp_rules`) into :attr:`shards`
+    (one ``{name: tensor}`` per shard). Called like the model's
+    paged-cache forward — ``(tokens, cache=rows, pos=..., active=...)``
+    -> fp32 logits on the model's device — where ``rows[layer]`` is
+    ``{"shards": [shard r's cache dict, ...]}``."""
+
+    def __init__(self, model: GPT2, mesh: Mesh,
+                 rules: Sequence[Tuple[str, Split]],
+                 seq_variant: Optional[str] = None):
+        nn.Module.__init__(self)    # GPT2.__init__ would draw new weights
+        self.cfg, self.policy, self.mesh = model.cfg, model.policy, mesh
+        self.shards = place_variables(dict(model.named_parameters()), mesh,
+                                      rules)
+        pol = model.policy
+        self.wte = (ShardedEmbedding([p["wte.embedding"]
+                                      for p in self.shards], mesh, pol)
+                    if rule_for("wte.embedding", rules).axis is not None
+                    else model.wte)
+        self.wpe, self.drop, self.ln_f = model.wpe, model.drop, model.ln_f
+        self.h = nn.ModuleList(
+            _ShardedBlock(
+                blk,
+                ShardedAttention(blk.attn, self.shards, f"h.{i}.attn.", mesh,
+                                 pol, seq_variant),
+                ShardedMLP(blk.mlp, self.shards, f"h.{i}.mlp.", mesh, pol))
+            for i, blk in enumerate(model.h))

@@ -201,18 +201,9 @@ class PagedSlotPool:
         self.quantized = quantized
         heads = model_cfg.num_heads
         d = model_cfg.hidden_size // heads
-        shape = (num_blocks, heads, block_size, d)
         kv_dtype = torch.int8 if quantized else dtype
-        self.caches = []
-        for _ in range(model_cfg.num_layers):
-            layer = {"k": torch.zeros(shape, dtype=kv_dtype, device=device),
-                     "v": torch.zeros(shape, dtype=kv_dtype, device=device)}
-            if quantized:
-                for name in ("k_scale", "v_scale"):
-                    layer[name] = torch.zeros((num_blocks, heads),
-                                              dtype=torch.float32,
-                                              device=device)
-            self.caches.append(layer)
+        self.caches = [self._alloc_layer(heads, d, kv_dtype, device)
+                       for _ in range(model_cfg.num_layers)]
         kv_bytes = heads * block_size * d * kv_dtype.itemsize
         scale_bytes = heads * 4 if quantized else 0
         self.bytes_per_block = 2 * model_cfg.num_layers * (kv_bytes
@@ -226,6 +217,25 @@ class PagedSlotPool:
         self.trie = PrefixTrie(block_size)
         self.cow_copies = 0
         self.prefix_hits = 0
+
+    def _alloc_layer(self, heads: int, d: int, kv_dtype: torch.dtype,
+                     device):
+        """One layer's device state: ``{"k", "v"}`` pools ``[num_blocks,
+        heads, block_size, d]`` (plus the ``[num_blocks, heads]`` scales
+        of an int8 pool), zeroed."""
+        shape = (self.num_blocks, heads, self.block_size, d)
+        layer = {"k": torch.zeros(shape, dtype=kv_dtype, device=device),
+                 "v": torch.zeros(shape, dtype=kv_dtype, device=device)}
+        if self.quantized:
+            for name in ("k_scale", "v_scale"):
+                layer[name] = torch.zeros((self.num_blocks, heads),
+                                          dtype=torch.float32, device=device)
+        return layer
+
+    def layer_states(self) -> List[Tuple[int, dict]]:
+        """``(layer index, dict of device tensors)`` for every piece of
+        device state: one dict per layer here."""
+        return list(enumerate(self.caches))
 
     # ------------------------------------------------------ slot layer
     def alloc(self) -> Optional[int]:
@@ -256,6 +266,11 @@ class PagedSlotPool:
     @property
     def blocks_used(self) -> int:
         return self.num_blocks - 1 - len(self._free_blocks)
+
+    @property
+    def bytes_resident(self) -> int:
+        """Device bytes the resident blocks hold, K/V plus scales."""
+        return self.blocks_used * self.bytes_per_block
 
     @property
     def trie_only_blocks(self) -> int:
@@ -341,7 +356,7 @@ class PagedSlotPool:
     def _copy_block(self, src: int, dst: int) -> None:
         """The copy-on-write move, in place across every layer's K and V
         (and their scale rows)."""
-        for layer in self.caches:
+        for _, layer in self.layer_states():
             for pool in layer.values():
                 pool[dst].copy_(pool[src])
 
@@ -383,7 +398,7 @@ class PagedSlotPool:
         a block and its scales share one index, which is what makes
         copy-on-write and freeing carry the scales."""
         if self.quantized:
-            for li, layer in enumerate(self.caches):
+            for li, layer in self.layer_states():
                 for kv in ("k", "v"):
                     if layer[kv].dtype != torch.int8:
                         raise AssertionError(

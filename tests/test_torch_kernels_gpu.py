@@ -26,6 +26,8 @@ from nezha_tpu_torch.ops.cuda import (flash_block_bwd, flash_block_bwd_plain,
                                       paged_decode_attention_plain,
                                       paged_prefill_attention,
                                       paged_prefill_attention_plain,
+                                      paged_prefill_qoff_attention,
+                                      paged_prefill_qoff_attention_plain,
                                       paged_quant_decode_attention,
                                       paged_quant_decode_attention_plain,
                                       paged_quant_prefill_attention,
@@ -37,7 +39,8 @@ from nezha_tpu_torch.ops.cuda.layer_norm import LAUNCHES as LN_LAUNCHES
 from nezha_tpu_torch.ops.cuda.layer_norm import layer_norm_error_bound
 from nezha_tpu_torch.ops.quant import quantize_kv_block
 from nezha_tpu_torch.optim import adamw
-from nezha_tpu_torch.serve import Engine, Request, Scheduler, ServeConfig
+from nezha_tpu_torch.serve import (Engine, Request, Scheduler, ServeConfig,
+                                   ShardedEngine)
 from nezha_tpu_torch.train import make_train_step
 
 BS, M, H, D = 8, 12, 2, 64
@@ -112,6 +115,69 @@ def test_prefill_kernel_matches_plain(cuda_device, q_dtype, pool_dtype, s):
                                           args[3], args[4].abs(), *args[5:])
     _assert_within_bound(got, want, abs_v, torch.bfloat16 in (q_dtype,
                                                              pool_dtype))
+
+
+def _qoff_case(rng, s_kc, q_dtype, pool_dtype, dev):
+    """One row per start (cold, mid-block, block-aligned, the last chunk
+    that fits), a chunk of ``s_kc`` rows."""
+    starts = np.asarray([0, 5, 16, M * BS - s_kc], np.int32)
+    b, n = len(starts), 1 + len(starts) * M
+    q, kc, vc = (torch.from_numpy(rng.randn(b, H, s_kc, D).astype(
+        np.float32)).to(dev, q_dtype) for _ in range(3))
+    kp, vp = (torch.from_numpy(rng.randn(n, H, BS, D).astype(np.float32))
+              .to(dev, pool_dtype) for _ in range(2))
+    tab = torch.from_numpy((1 + rng.permutation(b * M)).reshape(b, M)
+                           .astype(np.int32)).to(dev)
+    return q, kc, vc, kp, vp, tab, torch.from_numpy(starts).to(dev)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("q_dtype,pool_dtype", DTYPES)
+@pytest.mark.parametrize("s_kc,s_q", [(32, 16), (40, 20), (64, 16)])
+def test_prefill_qoff_kernel_matches_plain(cuda_device, q_dtype, pool_dtype,
+                                           s_kc, s_q):
+    """The q-offset kernel (B11) within fold_error_bound of its plain
+    version, for every query slice of the chunk (q_offsets = starts +
+    k * S_q); one launch per call, counted apart from B9's."""
+    rng = np.random.RandomState(8)
+    q, kc, vc, kp, vp, tab, st = _qoff_case(rng, s_kc, q_dtype, pool_dtype,
+                                            cuda_device)
+    for k in range(s_kc // s_q):
+        qs = q[:, :, k * s_q:(k + 1) * s_q].contiguous()
+        qoff = st + k * s_q
+        b9, b11 = (paged_prefill_attention.launches,
+                   paged_prefill_qoff_attention.launches)
+        got = paged_prefill_attention(qs, kc, vc, kp, vp, tab, st,
+                                      q_offsets=qoff)
+        torch.cuda.synchronize()
+        assert paged_prefill_qoff_attention.launches == b11 + 1
+        assert paged_prefill_attention.launches == b9
+        want = paged_prefill_qoff_attention_plain(qs, kc, vc, kp, vp, tab,
+                                                  st, qoff)
+        abs_v = paged_prefill_qoff_attention_plain(qs, kc, vc.abs(), kp,
+                                                   vp.abs(), tab, st, qoff)
+        _assert_within_bound(got, want, abs_v, torch.bfloat16 in (
+            q_dtype, pool_dtype))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("q_dtype,pool_dtype", DTYPES)
+def test_prefill_qoff_slices_bitwise_equal_b9(cuda_device, q_dtype,
+                                              pool_dtype):
+    """Each query slice through B11 gives the bits B9 gives the same rows
+    of the full chunk, and q_offsets = starts with S_q = S_kc is B9."""
+    rng = np.random.RandomState(9)
+    s_kc, s_q = 64, 16
+    q, kc, vc, kp, vp, tab, st = _qoff_case(rng, s_kc, q_dtype, pool_dtype,
+                                            cuda_device)
+    full = paged_prefill_attention(q, kc, vc, kp, vp, tab, st)
+    for k in range(s_kc // s_q):
+        got = paged_prefill_attention(
+            q[:, :, k * s_q:(k + 1) * s_q].contiguous(), kc, vc, kp, vp, tab,
+            st, q_offsets=st + k * s_q)
+        assert torch.equal(got, full[:, :, k * s_q:(k + 1) * s_q])
+    assert torch.equal(paged_prefill_attention(q, kc, vc, kp, vp, tab, st,
+                                               q_offsets=st), full)
 
 
 @pytest.mark.gpu
@@ -267,6 +333,51 @@ def test_int8_engine_on_card_matches_cpu(cuda_device):
             assert ran["paged_quant_decode"] > 0
             assert ran["paged_quant_prefill"] > 0
             assert ran["paged_decode"] == ran["paged_prefill"] == 0
+        results.append({k: r.tokens for k, r in sched.results.items()})
+    assert results[0] == results[1]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("variant", ["ring", "ulysses"])
+def test_sequence_sharded_engine_on_card_matches_cpu(cuda_device, variant):
+    """The tiny preset in f32 on a 2-shard mesh of one card
+    (``devices=[cuda] * 2``) with sequence-sharded prefill serves the
+    CPU mesh's greedy tokens; ring launches B11 4 times per layer per
+    chunk (2 hops x 2 shards) and never B9, ulysses B9 twice."""
+    rng = np.random.RandomState(10)
+    prefix = rng.randint(0, 512, 24).tolist()
+    prompts = [rng.randint(0, 512, 5).tolist(),
+               rng.randint(0, 512, 40).tolist(),
+               prefix + [7, 8, 9], prefix + [1]]
+    cpu_model = gpt2_for_preset("tiny", seed=0, device="cpu")
+    layers = cpu_model.cfg.num_layers
+    results = []
+    for device in (torch.device("cpu"), cuda_device):
+        model = gpt2_for_preset("tiny", seed=0, device="cpu").to(device)
+        model.load_state_dict(cpu_model.state_dict())
+        engine = ShardedEngine(model, ServeConfig(
+            max_batch_size=2, max_len=96, max_prefill_len=16,
+            long_prefill_buckets=(32, 64), kv_block_size=8,
+            cache_dtype=torch.float32, prefill_mode="sequence",
+            seq_prefill_variant=variant), mesh_devices=2,
+            devices=[device] * 2)
+        before = engine.kernel_launches()
+        sched = Scheduler(engine)
+        for i, p in enumerate(prompts):
+            sched.submit(Request(prompt=p, max_new_tokens=8,
+                                 request_id=str(i)))
+        sched.run_until_idle(max_iters=200)
+        engine.pool.leak_check()
+        assert engine.pool.prefix_hits >= 1
+        if device.type == "cuda":
+            ran = {k: v - before[k]
+                   for k, v in engine.kernel_launches().items()}
+            per_chunk = 2 * layers * engine.prefill_chunks
+            assert ran["paged_prefill_qoff"] == (
+                2 * per_chunk if variant == "ring" else 0)
+            assert ran["paged_prefill"] == (
+                per_chunk if variant == "ulysses" else 0)
+            assert ran["paged_decode"] == 2 * layers * engine.step_calls
         results.append({k: r.tokens for k, r in sched.results.items()})
     assert results[0] == results[1]
 

@@ -175,7 +175,6 @@ def test_sampled_support_respects_top_k():
 
 @pytest.mark.parametrize("field,value", [
     ("kv_host_blocks", 4), ("speculative", {}),
-    ("prefill_mode", "sequence"), ("long_prefill_buckets", (64,)),
     ("kv_layout", "dense"), ("priority_weights", {"interactive": 1}),
     ("tenant_queue_cap", 2), ("preemption", True)])
 def test_out_of_slice_settings_refused_typed(field, value):

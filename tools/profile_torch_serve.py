@@ -1,11 +1,16 @@
 """Where the time goes in the PyTorch port's serving path, on one CUDA card.
 
     python3 tools/profile_torch_serve.py [--kv-dtype int8] [--out f.json]
+    python3 tools/profile_torch_serve.py --seq-prefill ring|ulysses
 
 Serves the same eight greedy requests as ``chip_smoke.py``'s serve phase
 (GPT-2 124M, seeded random weights, bf16, paged KV with 16-token blocks,
 bf16 or int8 blocks) three times — warm-up, timed, profiled — and
-reports:
+reports what follows. ``--seq-prefill`` serves ``chip_smoke.py``'s
+serve_seq cell instead: a ``ShardedEngine`` of four shards all on the
+one card (they run one after another), sequence-sharded prefill in that
+variant, long-prefill buckets 512 and 1024, and a 960-token request
+added to the eight.
 
 - wall time of a run without the profiler, split into prefill
   (admission) and decode-step time from the host clock around
@@ -23,6 +28,7 @@ It imports nothing of JAX.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import os
 import sys
@@ -35,10 +41,14 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
 
 from nezha_tpu_torch.cli.common import gpt2_for_preset  # noqa: E402
 from nezha_tpu_torch.serve import (Engine, Request, Scheduler,  # noqa: E402
-                                   ServeConfig)
+                                   ServeConfig, ShardedEngine)
 
 
-def requests(vocab: int, tag: str):
+SEQ_MESH = 4
+SEQ_DOCUMENT = 960
+
+
+def requests(vocab: int, tag: str, document: bool = False):
     g = torch.Generator().manual_seed(1)
 
     def toks(n):
@@ -47,6 +57,10 @@ def requests(vocab: int, tag: str):
     prefix = toks(128)
     prompts = [toks(5), toks(37), toks(200), toks(300), toks(600),
                toks(900), prefix + toks(20), prefix + toks(45)]
+    if document:
+        prompts.append(torch.randint(0, vocab, (SEQ_DOCUMENT,),
+                                     generator=torch.Generator()
+                                     .manual_seed(3)).tolist())
     return [Request(prompt=p, max_new_tokens=32, request_id=f"{tag}{i}")
             for i, p in enumerate(prompts)]
 
@@ -110,15 +124,26 @@ def main() -> int:
                    help="also write the full report as JSON here")
     p.add_argument("--top", type=int, default=15)
     p.add_argument("--kv-dtype", choices=["bf16", "int8"], default="bf16")
+    p.add_argument("--seq-prefill", choices=["ring", "ulysses"],
+                   default=None, help="serve the serve_seq cell instead")
     args = p.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("needs a CUDA card")
     card = torch.cuda.get_device_name(0)
     model = gpt2_for_preset("full", seed=0, device="cuda")
+    doc = args.seq_prefill is not None
     cfg = ServeConfig(max_batch_size=8, max_len=1024, max_prefill_len=256,
                       kv_block_size=16, kv_dtype=args.kv_dtype)
-    sched = Scheduler(Engine(model, cfg))
-    for r in requests(model.cfg.vocab_size, "warm"):
+    if doc:
+        cfg = dataclasses.replace(
+            cfg, prefill_mode="sequence", long_prefill_buckets=(512, 1024),
+            seq_prefill_variant=args.seq_prefill)
+        engine = ShardedEngine(model, cfg, mesh_devices=SEQ_MESH,
+                               devices=[torch.device("cuda", 0)] * SEQ_MESH)
+    else:
+        engine = Engine(model, cfg)
+    sched = Scheduler(engine)
+    for r in requests(model.cfg.vocab_size, "warm", doc):
         sched.submit(r)
     sched.run_until_idle()
     # Timed run without the profiler (its per-op cost would inflate the
@@ -126,7 +151,7 @@ def main() -> int:
     sched.engine.pool.clear_prefix_cache()
     timed = Timed(sched.engine)
     t0 = time.perf_counter()
-    for r in requests(model.cfg.vocab_size, "r"):
+    for r in requests(model.cfg.vocab_size, "r", doc):
         sched.submit(r)
     sched.run_until_idle()
     torch.cuda.synchronize()
@@ -137,7 +162,7 @@ def main() -> int:
             torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
         t1 = time.perf_counter()
-        for r in requests(model.cfg.vocab_size, "p"):
+        for r in requests(model.cfg.vocab_size, "p", doc):
             sched.submit(r)
         sched.run_until_idle()
         torch.cuda.synchronize()
@@ -161,6 +186,7 @@ def main() -> int:
     report = {
         "card": card,
         "kv_dtype": args.kv_dtype,
+        "seq_prefill": args.seq_prefill,
         "wall_s": wall,
         "prefill_s": timed.prefill_s,
         "decode_steps": timed.steps,
