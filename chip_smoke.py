@@ -10,12 +10,15 @@ Phases, each fatal on failure (non-zero exit, no result line):
    nvcc per source, in parallel) and prints the build time;
 3. kernels: each kernel against its plain PyTorch version on the card at
    the serving path's shapes in bf16 (GPT-2 124M: H=12, D=64, pool blocks
-   of 16, 64 blocks per row), with its time (CUDA events, L2 flushed
-   before each launch), the plain version's time, the bound (bytes the
-   call must move over 3.35 TB/s vs its flops over 989 TFLOP/s, from
-   this run's lengths and starts) and, as a yardstick only,
-   ``scaled_dot_product_attention`` on the same K/V gathered dense; each
-   output element must lie within ``fold_error_bound`` of the plain one;
+   of 16, 64 blocks per row), with its time on the device (``device_time``:
+   L2 flushed and the device held in a spin before each call, so no host
+   gap is timed; three repeats; the profiler's per-kernel time beside
+   it), the plain version's time, the bound (bytes the call must move
+   over 3.35 TB/s vs its flops over 989 TFLOP/s, from this run's lengths
+   and starts) and, as a yardstick only, ``scaled_dot_product_attention``
+   on the same K/V gathered dense, pinned to a backend that it names;
+   each output element must lie within ``fold_error_bound`` of the plain
+   one; any host-late timed call fails the phase;
    The three flash-attention training kernels are held the same way in
    bf16 at GPT-2's training shape (B=8, H=12, S=1024, D=64, causal) and
    on a non-causal case, a ``kv_lengths`` case with a zero-length row
@@ -23,7 +26,8 @@ Phases, each fatal on failure (non-zero exit, no result line):
    and its lse within LSE_ATOL, dq/dk/dv within
    ``flash_bwd_error_bound``, padded keys' dk/dv exactly zero, and two
    backward runs bitwise equal. Yardstick: SDPA's forward, and its
-   autograd backward with the forward subtracted.
+   backward alone (``torch.autograd.grad`` of a forward run outside the
+   timer).
    The dense flash-decode kernel at generate's shape (B=8, H=12, L=1024,
    D=64, bf16 cache; lengths 0-1024, and f32 queries over the bf16 cache)
    within ``fold_error_bound``, timed with every row at length 768;
@@ -31,7 +35,7 @@ Phases, each fatal on failure (non-zero exit, no result line):
    forward and backward kernels at the train step's rows (8192 x 768,
    bf16; also 8 and 37 rows) within ``layer_norm_error_bound``, the
    backward bitwise repeatable; yardsticks ``F.layer_norm`` and its
-   autograd backward with the forward subtracted.
+   backward alone.
    The int8 paged decode kernel (B8) at the serving shapes over int8 pools
    quantized with ``ops.quant.quantize_kv_block`` from random bf16 values
    (bf16 and f32 queries; lengths 0-1024) within ``fold_error_bound``;
@@ -109,6 +113,8 @@ The line before the last is ``{"kernels": [...]}``; the last line is
 from __future__ import annotations
 
 import dataclasses
+import functools
+import gc
 import json
 import math
 import subprocess
@@ -183,25 +189,346 @@ def phase(name: str) -> None:
     print(f"== {name}", flush=True)
 
 
-def gpu_time_ms(fn, iters: int, warmup: int = 3) -> float:
-    """Mean ms per call from CUDA events around each call, with the L2
-    cache flushed before every call (the serving path meets each layer's
-    K/V cold)."""
-    flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
+# The device timer. A kernel's time is taken on the device, not across
+# its wrapper's host work: before each timed call the L2 cache is flushed
+# (the serving path meets each layer's K/V cold) and the device is held in
+# a spin (torch.cuda._sleep) long enough that the host enqueues the start
+# event, the call and the end event while it still spins. A call whose
+# start event had already completed when the host finished enqueueing was
+# late: the gap before its launch is in its time. Every timed row counts
+# such calls (host_late). A row with a late call is timed again from the
+# start with twice the spin, up to TIMING_ATTEMPTS times (the late counts
+# of the attempts set aside are kept in host_late_retried), and the
+# kernels phase fails if its last attempt still had one. Each row is
+# TIMED_REPEATS repeats of `iters` calls: ms is the mean of the repeats'
+# means, ms_spread their min / median / max. A call over OUTLIER_FACTOR
+# times its repeat's median call (a stall of the device, not the kernel's
+# work) is left out of the mean and counted (outliers). Beside it,
+# PROFILED_CALLS
+# calls under torch.profiler give each launched kernel's device time
+# (profiler_kernels) and their sum per call (profiler_us); a row whose
+# event time and profiler time differ by more than DISAGREE_REL of the
+# profiler time and more than DISAGREE_US is flagged (profiler_disagrees).
+TIMED_REPEATS = 3
+SLEEP_FLOOR_MS = 2.0      # the least device spin before a timed call
+SLEEP_OVER_ENQUEUE = 8    # and at least this many times the host's enqueue
+OUTLIER_FACTOR = 4.0
+TIMING_ATTEMPTS = 3
+PROFILED_CALLS = 5
+PROFILE_ATTEMPTS = 3      # a profile that lost events is taken again
+PROFILE_SETTLE_S = 0.01   # host pause before a profiling cycle closes
+DISAGREE_REL, DISAGREE_US = 0.15, 5.0
+FLUSH_BYTES = 64 << 20    # over the H100's 50 MB L2
+# SDPA's backends in PyTorch's own order of preference; a yardstick runs
+# pinned to the first that takes its inputs (library_backend).
+SDPA_BACKENDS = ("FLASH_ATTENTION", "EFFICIENT_ATTENTION", "CUDNN_ATTENTION",
+                 "MATH")
+TIMED_ROWS = []           # (label, ms, profiler_us, disagrees), in order
+
+
+def repeat_mean(times):
+    """The mean of one repeat's call times (ms) without its outliers ->
+    (mean, outliers): a call over OUTLIER_FACTOR times the repeat's median
+    call is an outlier."""
+    v = sorted(times)
+    median = spread(v)[1]
+    kept = [t for t in v if t <= OUTLIER_FACTOR * median]
+    return sum(kept) / len(kept), len(v) - len(kept)
+
+
+def spread(values):
+    """[min, median, max] of the repeats' means."""
+    v = sorted(values)
+    n = len(v)
+    median = v[n // 2] if n % 2 else (v[n // 2 - 1] + v[n // 2]) / 2
+    return [v[0], median, v[-1]]
+
+
+def host_late_count(started) -> int:
+    """Calls whose start event had completed by the time the host had
+    enqueued the call and its end event."""
+    return sum(1 for done in started if done)
+
+
+def kernel_name(raw: str) -> str:
+    """A profiler kernel name without return type, namespaces, template
+    arguments or parameters: ``void ns::(anonymous namespace)::k<T>(T*)``
+    -> ``k``."""
+    name = raw.replace("(anonymous namespace)::", "")
+    if name.startswith("void "):
+        name = name[len("void "):]
+    for stop in ("<", "("):
+        if stop in name:
+            name = name[:name.index(stop)]
+    return name.split("::")[-1].strip()
+
+
+def fold_profiler_events(events, calls: int, exclude=()):
+    """Device events ``(raw name, us)`` of ``calls`` profiled calls ->
+    ``{kernel: {"launches_per_call", "us_per_launch"}}``, leaving out the
+    kernels named in ``exclude`` (the L2 flush's own)."""
+    totals = {}
+    for raw, us in events:
+        name = kernel_name(raw)
+        if name in exclude:
+            continue
+        n, t = totals.get(name, (0, 0.0))
+        totals[name] = (n + 1, t + us)
+    return {name: {"launches_per_call": n / calls, "us_per_launch": t / n}
+            for name, (n, t) in totals.items()}
+
+
+def profiler_us(kernels) -> float:
+    """Device microseconds per call summed over the call's kernels."""
+    return sum(k["launches_per_call"] * k["us_per_launch"]
+               for k in kernels.values())
+
+
+def profiler_disagrees(event_ms: float, prof_us: float) -> bool:
+    """The event time and the profiler time differ by more than
+    DISAGREE_REL of the profiler time and by more than DISAGREE_US."""
+    diff = abs(event_ms * 1e3 - prof_us)
+    return diff > DISAGREE_REL * prof_us and diff > DISAGREE_US
+
+
+def timing_fields(means, started, delay_ms, kernels, prefix="",
+                  outliers=0, retried=()):
+    """One timed row's fields from its repeats' means (ms), the start
+    events' completion flags, the spin before each call, the profiled
+    kernels, the calls left out as outliers and the late counts of
+    attempts set aside; ``prefix`` names a yardstick's fields
+    (``library_``)."""
+    ms = sum(means) / len(means)
+    prof = profiler_us(kernels)
+    return {f"{prefix}ms": ms, f"{prefix}ms_spread": spread(means),
+            f"{prefix}outliers": outliers,
+            f"{prefix}host_late": host_late_count(started),
+            f"{prefix}host_late_retried": list(retried),
+            f"{prefix}delay_ms": delay_ms, f"{prefix}profiler_us": prof,
+            f"{prefix}profiler_kernels": kernels,
+            f"{prefix}event_over_profiler": ms * 1e3 / prof if prof else None,
+            f"{prefix}profiler_disagrees": profiler_disagrees(ms, prof)}
+
+
+_FLUSH = []
+
+
+def flush_l2() -> None:
+    """Evict the L2 cache: a device-to-device copy of FLUSH_BYTES (a
+    memcpy, not a kernel, so it never shares a name with a timed call's
+    kernels)."""
+    if not _FLUSH:
+        _FLUSH.extend(torch.empty(FLUSH_BYTES, dtype=torch.uint8,
+                                  device="cuda") for _ in range(2))
+    _FLUSH[0].copy_(_FLUSH[1])
+
+
+@functools.lru_cache(maxsize=None)
+def sleep_cycles_per_ms() -> float:
+    """The device spin's clock cycles per millisecond, measured."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(1000)
+    cycles = 10_000_000
+    start.record()
+    torch.cuda._sleep(cycles)
+    end.record()
+    end.synchronize()
+    return cycles / start.elapsed_time(end)
+
+
+@functools.lru_cache(maxsize=None)
+def flush_kernel_names():
+    """The device events the L2 flush itself shows under the profiler."""
+    return frozenset(profiled_kernels(flush_l2, with_flush=False))
+
+
+def profiled_kernels(fn, calls: int = PROFILED_CALLS,
+                     with_flush: bool = True):
+    """``calls`` calls of fn (each after an L2 flush) under torch.profiler
+    -> fold_profiler_events of their device events. The profiler runs one
+    warm-up cycle of the same calls before the recorded one (CUPTI drops
+    events while it starts up), and each cycle closes PROFILE_SETTLE_S
+    after the device is idle; a profile that still caught a fraction of a
+    launch per call, or no device event, is taken again, up to
+    PROFILE_ATTEMPTS times."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    exclude = flush_kernel_names() if with_flush else ()
+    for _ in range(PROFILE_ATTEMPTS):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1,
+                                       repeat=1)) as prof:
+            for _ in range(2):
+                for _ in range(calls):
+                    if with_flush:
+                        flush_l2()
+                    fn()
+                torch.cuda.synchronize()
+                time.sleep(PROFILE_SETTLE_S)
+                prof.step()
+        events = [(e.name, e.time_range.elapsed_us()) for e in prof.events()
+                  if e.device_type == DeviceType.CUDA]
+        kernels = fold_profiler_events(events, calls, exclude)
+        if whole_launches(kernels):
+            break
+    return kernels
+
+
+def whole_launches(kernels) -> bool:
+    """Every kernel was caught a whole number of times a call (a call
+    launches each of its kernels whole times), and at least one was."""
+    return bool(kernels) and all(
+        float(k["launches_per_call"]).is_integer() for k in kernels.values())
+
+
+def device_time(label: str, fn, iters: int, warmup: int = 3,
+                prefix: str = ""):
+    """Time fn on the device (see the timer's notes above) -> its
+    timing_fields; fails when the last attempt had a host-late call."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    enqueue_ms = (time.perf_counter() - t0) * 1e3
+    torch.cuda.synchronize()
+    delay_ms = max(SLEEP_FLOOR_MS, SLEEP_OVER_ENQUEUE * enqueue_ms)
+    retried = []
+    for attempt in range(TIMING_ATTEMPTS):
+        means, started, outliers = timed_repeats(fn, iters, delay_ms)
+        late = host_late_count(started)
+        if not late or attempt == TIMING_ATTEMPTS - 1:
+            break
+        retried.append(late)
+        delay_ms *= 2
+    row = timing_fields(means, started, delay_ms, profiled_kernels(fn),
+                        prefix, outliers, retried)
+    TIMED_ROWS.append((f"{label} {prefix}".strip(), row[f"{prefix}ms"],
+                       row[f"{prefix}profiler_us"],
+                       row[f"{prefix}profiler_disagrees"]))
+    if late:
+        fail(f"{label}: {late} of {len(started)} timed calls were host-late "
+             f"(the device finished a {delay_ms:.2f} ms spin before the "
+             f"host had enqueued the call), after {retried} in earlier "
+             f"attempts")
+    return row
+
+
+def timed_repeats(fn, iters: int, delay_ms: float):
+    """TIMED_REPEATS repeats of ``iters`` calls, each after an L2 flush
+    and a ``delay_ms`` device spin -> (the repeats' means without their
+    outliers, each call's start-event completion flag, outliers)."""
+    cycles = int(delay_ms * sleep_cycles_per_ms())
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    means, started, outliers = [], [], 0
+    gc.disable()
+    try:
+        for _ in range(TIMED_REPEATS):
+            times = []
+            for _ in range(iters):
+                flush_l2()
+                torch.cuda._sleep(cycles)
+                start.record()
+                fn()
+                end.record()
+                started.append(start.query())
+                end.synchronize()
+                times.append(start.elapsed_time(end))
+            mean, dropped = repeat_mean(times)
+            means.append(mean)
+            outliers += dropped
+    finally:
+        gc.enable()
+    return means, started, outliers
+
+
+def library_time(label: str, fn, iters: int, backend: str):
+    """A yardstick's device_time fields, prefixed ``library_``, with the
+    backend it ran on."""
+    return {**device_time(label, fn, iters, prefix="library_"),
+            "library_backend": backend}
+
+
+def plain_time_ms(fn, iters: int) -> float:
+    """Mean ms of the plain PyTorch version from CUDA events around each
+    call, the L2 flushed first. Its many small launches are host-bound,
+    so this is host and device together; it is the plain version's cost,
+    not a yardstick of the kernel."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
     total = 0.0
     for _ in range(iters):
-        flush.zero_()
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
+        flush_l2()
         start.record()
         fn()
         end.record()
         end.synchronize()
         total += start.elapsed_time(end)
     return total / iters
+
+
+TIMING_KEYS = ("ms", "ms_spread", "outliers", "host_late",
+               "host_late_retried", "delay_ms", "profiler_us",
+               "profiler_kernels", "event_over_profiler",
+               "profiler_disagrees")
+
+
+def reported(case):
+    """The kernels line's timing fields of one timed case: the kernel's,
+    its yardstick's, the plain version's time and the bound."""
+    keys = (TIMING_KEYS + tuple(f"library_{k}" for k in TIMING_KEYS)
+            + ("library_backend", "plain_ms", "bound_ms", "bound_by"))
+    return {k: case[k] for k in keys}
+
+
+def additive_mask(allowed, dtype):
+    """A boolean attention mask as SDPA's kernels take it with no work of
+    their own: 0 where allowed, -inf elsewhere, in the queries' dtype, a
+    view whose rows start 16 elements apart. Made once, outside the timer,
+    so a yardstick times the attention, not the mask's conversion."""
+    n = allowed.shape[-1]
+    buf = torch.full((*allowed.shape[:-1], -(-n // 16) * 16), float("-inf"),
+                     dtype=dtype, device=allowed.device)
+    mask = buf[..., :n]
+    mask.masked_fill_(allowed, 0.0)
+    return mask
+
+
+def sdpa_yardstick(q, k, v, **kw):
+    """``F.scaled_dot_product_attention(q, k, v, **kw)`` pinned to the
+    first of SDPA_BACKENDS that takes these inputs -> (call, backend). A
+    boolean ``attn_mask`` is passed in its additive form."""
+    import warnings
+
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    if kw.get("attn_mask") is not None and kw["attn_mask"].dtype == torch.bool:
+        kw["attn_mask"] = additive_mask(kw["attn_mask"], q.dtype)
+
+    for name in SDPA_BACKENDS:
+        backend = getattr(SDPBackend, name)
+        try:
+            with warnings.catch_warnings():
+                warnings.simplefilter("ignore")
+                with sdpa_kernel(backend):
+                    F.scaled_dot_product_attention(q, k, v, **kw)
+            torch.cuda.synchronize()
+        except RuntimeError:
+            continue
+
+        def call(backend=backend):
+            with sdpa_kernel(backend):
+                return F.scaled_dot_product_attention(q, k, v, **kw)
+        return call, name
+    fail(f"no SDPA backend takes q {tuple(q.shape)} {q.dtype}")
 
 
 def bound(nbytes: float, flops: float,
@@ -244,7 +571,6 @@ def within_bound(name: str, got, want, want_abs_v):
 def check_decode(g):
     from nezha_tpu_torch.ops.cuda import (paged_decode_attention,
                                           paged_decode_attention_plain)
-    import torch.nn.functional as F
 
     lengths_list = [0, 1, 15, 16, 17, 300, 777, M * BS]
     b = len(lengths_list)
@@ -263,16 +589,16 @@ def check_decode(g):
     err, ratio = within_bound("paged_decode", got, want, abs_v)
     if not torch.all(got[0] == 0):
         fail("paged_decode: the length-0 row is not exact zero")
-    ms = gpu_time_ms(lambda: paged_decode_attention(*args), 100)
-    plain_ms = gpu_time_ms(lambda: paged_decode_attention_plain(*args), 5)
+    timing = device_time("paged_decode",
+                         lambda: paged_decode_attention(*args), 100)
+    plain_ms = plain_time_ms(lambda: paged_decode_attention_plain(*args), 5)
     # Yardstick: SDPA over the rows' K/V gathered dense, masked by length.
     kd = kp[tab.long()].transpose(1, 2).reshape(b, H, M * BS, D)
     vd = vp[tab.long()].transpose(1, 2).reshape(b, H, M * BS, D)
     mask = (torch.arange(M * BS, device="cuda")[None, :]
             < lengths[:, None])[:, None, None, :]
-    library_ms = gpu_time_ms(
-        lambda: F.scaled_dot_product_attention(q, kd, vd, attn_mask=mask),
-        100)
+    sdpa, backend = sdpa_yardstick(q, kd, vd, attn_mask=mask)
+    timing.update(library_time("paged_decode", sdpa, 100, backend))
     total = sum(lengths_list)
     nbytes = (2 * b * H * D * 2                     # q in, out
               + 2 * total * H * D * 2               # K and V read once
@@ -282,9 +608,8 @@ def check_decode(g):
     return {"name": "paged_decode", "route": "cuda",
             "source": "nezha_tpu_torch/csrc/paged_decode.cu",
             "replaces": "nezha_tpu/ops/pallas/decode_attention.py:89",
-            "max_abs_err": err, "err_over_tolerance": ratio, "ms": ms,
+            "max_abs_err": err, "err_over_tolerance": ratio, **timing,
             "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-            "library_ms": library_ms,
             "shape": f"B={b} H={H} D={D} bs={BS} M={M} "
                      f"lengths={lengths_list}"}
 
@@ -292,7 +617,6 @@ def check_decode(g):
 def check_prefill(g):
     from nezha_tpu_torch.ops.cuda import (paged_prefill_attention,
                                           paged_prefill_attention_plain)
-    import torch.nn.functional as F
 
     bf = torch.bfloat16
     n = 1 + M
@@ -316,8 +640,10 @@ def check_prefill(g):
                                       got, want, abs_v)
             worst = max(worst, err)
             worst_ratio = max(worst_ratio, ratio)
-            ms = gpu_time_ms(lambda: paged_prefill_attention(*args), 50)
-            plain_ms = gpu_time_ms(
+            tag = f"paged_prefill S={s} start={start}"
+            timing = device_time(tag, lambda: paged_prefill_attention(*args),
+                                 50)
+            plain_ms = plain_time_ms(
                 lambda: paged_prefill_attention_plain(*args), 3)
             # Yardstick: SDPA over [prefix gathered dense ; chunk].
             pk = kp[tab[0].long()].transpose(0, 1).reshape(1, H, M * BS, D)
@@ -326,28 +652,25 @@ def check_prefill(g):
             vd = torch.cat([pv[:, :, :start], vc], dim=2)
             mask = (torch.arange(start + s, device="cuda")[None, :]
                     <= start + torch.arange(s, device="cuda")[:, None])
-            library_ms = gpu_time_ms(
-                lambda: F.scaled_dot_product_attention(q, kd, vd,
-                                                       attn_mask=mask), 50)
+            sdpa, backend = sdpa_yardstick(q, kd, vd, attn_mask=mask)
+            timing.update(library_time(tag, sdpa, 50, backend))
             nbytes = (4 * s * H * D * 2                 # q, k, v in; out
                       + 2 * start * H * D * 2           # prefix K and V
                       + math.ceil(start / BS) * 4 + 4)
             flops = 4 * H * D * (s * start + s * (s + 1) // 2)
             bound_ms, bound_by = bound(nbytes, flops)
             cases.append({"S": s, "start": start, "max_abs_err": err,
-                          "err_over_tolerance": ratio, "ms": ms, "plain_ms": plain_ms,
-                          "bound_ms": bound_ms, "bound_by": bound_by,
-                          "library_ms": library_ms})
+                          "err_over_tolerance": ratio, **timing,
+                          "plain_ms": plain_ms, "bound_ms": bound_ms,
+                          "bound_by": bound_by})
     print(json.dumps({"paged_prefill_cases": cases}), flush=True)
     # The kernels line reports the widest chunk at the deepest start.
     rep = cases[-1]
     return {"name": "paged_prefill", "route": "cuda",
             "source": "nezha_tpu_torch/csrc/paged_prefill.cu",
             "replaces": "nezha_tpu/ops/pallas/prefill_attention.py:137",
+            **reported(rep),
             "max_abs_err": worst, "err_over_tolerance": worst_ratio,
-            "ms": rep["ms"],
-            "plain_ms": rep["plain_ms"], "bound_ms": rep["bound_ms"],
-            "bound_by": rep["bound_by"], "library_ms": rep["library_ms"],
             "shape": f"B=1 H={H} D={D} bs={BS} M={M} S={rep['S']} "
                      f"start={rep['start']}"}
 
@@ -369,7 +692,6 @@ def check_quant_decode(g):
     from nezha_tpu_torch.ops.cuda import (paged_quant_decode_attention,
                                           paged_quant_decode_attention_plain)
     from nezha_tpu_torch.ops.quant import dequantize_kv_block
-    import torch.nn.functional as F
 
     lengths_list = [0, 1, 15, 16, 17, 300, 777, M * BS]
     b = len(lengths_list)
@@ -393,8 +715,9 @@ def check_quant_decode(g):
         worst, worst_ratio = max(worst, err), max(worst_ratio, ratio)
     q = q32.to(torch.bfloat16)
     args = (q, kq, vq, ks, vs, lengths, tab)
-    ms = gpu_time_ms(lambda: paged_quant_decode_attention(*args), 100)
-    plain_ms = gpu_time_ms(
+    timing = device_time("paged_quant_decode",
+                         lambda: paged_quant_decode_attention(*args), 100)
+    plain_ms = plain_time_ms(
         lambda: paged_quant_decode_attention_plain(*args), 5)
     # Yardstick: SDPA over the rows' K/V dequantized (untimed) and
     # gathered dense, masked by length.
@@ -403,9 +726,8 @@ def check_quant_decode(g):
               for p, s in ((kq, ks), (vq, vs)))
     mask = (torch.arange(M * BS, device="cuda")[None, :]
             < lengths[:, None])[:, None, None, :]
-    library_ms = gpu_time_ms(
-        lambda: F.scaled_dot_product_attention(q, kd, vd, attn_mask=mask),
-        100)
+    sdpa, backend = sdpa_yardstick(q, kd, vd, attn_mask=mask)
+    timing.update(library_time("paged_quant_decode", sdpa, 100, backend))
     total = sum(lengths_list)
     blocks = sum(math.ceil(x / BS) for x in lengths_list)
     nbytes = (2 * b * H * D * 2                     # q in, out (bf16)
@@ -417,8 +739,8 @@ def check_quant_decode(g):
             "source": "nezha_tpu_torch/csrc/paged_quant_decode.cu",
             "replaces": "nezha_tpu/ops/pallas/decode_attention.py:101",
             "max_abs_err": worst, "err_over_tolerance": worst_ratio,
-            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-            "bound_by": bound_by, "library_ms": library_ms,
+            **timing, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by,
             "shape": f"B={b} H={H} D={D} bs={BS} M={M} int8 pools, bf16 q "
                      f"(also checked f32 q); lengths={lengths_list}"}
 
@@ -430,7 +752,6 @@ def check_quant_prefill(g):
     from nezha_tpu_torch.ops.cuda import (paged_quant_prefill_attention,
                                           paged_quant_prefill_attention_plain)
     from nezha_tpu_torch.ops.quant import dequantize_kv_block
-    import torch.nn.functional as F
 
     bf = torch.bfloat16
     n = 1 + M
@@ -477,8 +798,9 @@ def check_quant_prefill(g):
             fail(f"{tag}: two runs differ")
         kq, ks, vq, vs = (t.clone() for t in pools)
         args = (q, kc, vc, kq, vq, ks, vs, tab, starts)
-        ms = gpu_time_ms(lambda: paged_quant_prefill_attention(*args), 50)
-        plain_ms = gpu_time_ms(
+        timing = device_time(tag,
+                             lambda: paged_quant_prefill_attention(*args), 50)
+        plain_ms = plain_time_ms(
             lambda: paged_quant_prefill_attention_plain(*args), 3)
         # Yardstick: SDPA over [prefix dequantized (untimed) ; chunk],
         # offset-causal; it computes no block write.
@@ -490,9 +812,8 @@ def check_quant_prefill(g):
         vd = torch.cat([pv[:, :, :start], vc], dim=2)
         mask = (torch.arange(start + s, device="cuda")[None, :]
                 <= start + torch.arange(s, device="cuda")[:, None])
-        library_ms = gpu_time_ms(
-            lambda: F.scaled_dot_product_attention(q, kd, vd,
-                                                   attn_mask=mask), 50)
+        sdpa, backend = sdpa_yardstick(q, kd, vd, attn_mask=mask)
+        timing.update(library_time(tag, sdpa, 50, backend))
         n_touched = len(touched)
         nbytes = (4 * s * H * D * 2                 # q, k, v in; out (bf16)
                   + 2 * start * H * D               # int8 prefix K and V
@@ -504,18 +825,16 @@ def check_quant_prefill(g):
         bound_ms, bound_by = bound(nbytes, flops)
         cases.append({"S": s, "start": start, "max_abs_err": err,
                       "err_over_tolerance": ratio, "qerr": qerr.item(),
-                      "qerr_rel_err": qerr_rel, "ms": ms,
+                      "qerr_rel_err": qerr_rel, **timing,
                       "plain_ms": plain_ms, "bound_ms": bound_ms,
-                      "bound_by": bound_by, "library_ms": library_ms})
+                      "bound_by": bound_by})
     print(json.dumps({"paged_quant_prefill_cases": cases}), flush=True)
     rep = cases[-1]
     return {"name": "paged_quant_prefill", "route": "cuda",
             "source": "nezha_tpu_torch/csrc/quant_prefill.cu",
             "replaces": "nezha_tpu/ops/pallas/prefill_attention.py:225",
+            **reported(rep),
             "max_abs_err": worst, "err_over_tolerance": worst_ratio,
-            "ms": rep["ms"], "plain_ms": rep["plain_ms"],
-            "bound_ms": rep["bound_ms"], "bound_by": rep["bound_by"],
-            "library_ms": rep["library_ms"],
             "library_covers": "the attention only, not the block write",
             "shape": f"B=1 H={H} D={D} bs={BS} M={M} int8 pools, bf16 q, "
                      f"S={rep['S']} start={rep['start']}; checked S=256 at "
@@ -530,7 +849,6 @@ def check_prefill_qoff(g):
     from nezha_tpu_torch.ops.cuda import (paged_prefill_attention,
                                           paged_prefill_qoff_attention,
                                           paged_prefill_qoff_attention_plain)
-    import torch.nn.functional as F
 
     bf = torch.bfloat16
     n = 1 + M
@@ -569,9 +887,10 @@ def check_prefill_qoff(g):
                 if h != H // SEQ_MESH or start != 768:
                     continue
                 # Timed: the ring hop's own shape, every slice.
-                ms = gpu_time_ms(
+                timing = device_time(
+                    f"{tag} slice {k}",
                     lambda: paged_prefill_qoff_attention(*args), 50)
-                plain_ms = gpu_time_ms(
+                plain_ms = plain_time_ms(
                     lambda: paged_prefill_qoff_attention_plain(*args), 3)
                 # Yardstick: SDPA over [prefix gathered dense ; chunk],
                 # the causal diagonal at the slice's offset.
@@ -584,9 +903,9 @@ def check_prefill_qoff(g):
                 mask = (torch.arange(start + s_kc, device="cuda")[None, :]
                         <= start + k * s_q
                         + torch.arange(s_q, device="cuda")[:, None])
-                library_ms = gpu_time_ms(
-                    lambda: F.scaled_dot_product_attention(
-                        qs, kd, vd, attn_mask=mask), 50)
+                sdpa, backend = sdpa_yardstick(qs, kd, vd, attn_mask=mask)
+                timing.update(library_time(f"{tag} slice {k}", sdpa, 50,
+                                           backend))
                 keys = (k + 1) * s_q          # chunk rows the slice reaches
                 nbytes = (2 * s_q * h * D * 2           # q in, out
                           + 2 * keys * h * D * 2        # chunk K and V
@@ -596,19 +915,16 @@ def check_prefill_qoff(g):
                                      + s_q * (s_q + 1) // 2)
                 bound_ms, bound_by = bound(nbytes, flops)
                 cases.append({"H": h, "start": start, "slice": k,
-                              "S_q": s_q, "S_kc": s_kc, "ms": ms,
+                              "S_q": s_q, "S_kc": s_kc, **timing,
                               "plain_ms": plain_ms, "bound_ms": bound_ms,
-                              "bound_by": bound_by,
-                              "library_ms": library_ms})
+                              "bound_by": bound_by})
     print(json.dumps({"paged_prefill_qoff_cases": cases}), flush=True)
     rep = cases[-1]             # the last slice: the deepest diagonal
     return {"name": "paged_prefill_qoff", "route": "cuda",
             "source": "nezha_tpu_torch/csrc/paged_prefill.cu",
             "replaces": "nezha_tpu/ops/pallas/prefill_attention.py:167",
+            **reported(rep),
             "max_abs_err": worst, "err_over_tolerance": worst_ratio,
-            "ms": rep["ms"], "plain_ms": rep["plain_ms"],
-            "bound_ms": rep["bound_ms"], "bound_by": rep["bound_by"],
-            "library_ms": rep["library_ms"],
             "shape": f"B=1 H={rep['H']} D={D} bs={BS} M={M} S_q={s_q} "
                      f"S_kc={s_kc} start=768, slice {rep['slice']} "
                      f"(q_offset {768 + rep['slice'] * s_q}); checked H=3 "
@@ -631,7 +947,6 @@ def flash_case(g, b, s, causal, lengths=None, timed=False):
         _dkv_launch, _dq_launch, _lengths, flash_block_bwd,
         flash_block_bwd_plain, flash_block_fwd, flash_block_fwd_plain,
         flash_bwd_error_bound)
-    import torch.nn.functional as F
 
     bf = torch.bfloat16
     tag = (f"flash B={b} S={s} causal={causal}"
@@ -677,22 +992,30 @@ def flash_case(g, b, s, causal, lengths=None, timed=False):
     lens_c = _lengths(lens, q, s)
     scale = 1.0 / D ** 0.5
     bwd = bwd_args[:6] + (lens_c, causal, scale)
-    ms = {"flash_fwd": gpu_time_ms(
-              lambda: flash_block_fwd(q, k, v, causal, kv_lengths=lens), 20),
-          "flash_bwd_dq": gpu_time_ms(lambda: _dq_launch(*bwd), 20),
-          "flash_bwd_dkv": gpu_time_ms(lambda: _dkv_launch(*bwd), 20)}
-    plain_fwd_ms = gpu_time_ms(
+    timing = {
+        "flash_fwd": device_time(
+            "flash_fwd",
+            lambda: flash_block_fwd(q, k, v, causal, kv_lengths=lens), 20),
+        "flash_bwd_dq": device_time("flash_bwd_dq",
+                                    lambda: _dq_launch(*bwd), 20),
+        "flash_bwd_dkv": device_time("flash_bwd_dkv",
+                                     lambda: _dkv_launch(*bwd), 20)}
+    plain_fwd_ms = plain_time_ms(
         lambda: flash_block_fwd_plain(q, k, v, causal, kv_lengths=lens), 3)
-    plain_bwd_ms = gpu_time_ms(
+    plain_bwd_ms = plain_time_ms(
         lambda: flash_block_bwd_plain(*bwd_args, kv_lengths=lens), 3)
-    # Yardstick: SDPA (causal, no lengths) forward, and its autograd
-    # backward (forward + backward, forward subtracted).
+    # Yardsticks: SDPA's forward (causal, no lengths), and its backward
+    # alone: the forward runs once outside the timer on the same pinned
+    # backend, then only torch.autograd.grad is timed.
     qg, kg, vg = (t.detach().requires_grad_() for t in (q, k, v))
-    sdpa = lambda: F.scaled_dot_product_attention(qg, kg, vg,
-                                                  is_causal=causal)
-    sdpa_fwd = gpu_time_ms(sdpa, 20)
-    sdpa_both = gpu_time_ms(lambda: torch.autograd.grad(sdpa(), (qg, kg, vg),
-                                                        do), 20)
+    sdpa, backend = sdpa_yardstick(qg, kg, vg, is_causal=causal)
+    library = {"flash_fwd": library_time("flash_fwd", sdpa, 20, backend)}
+    out_g = sdpa()
+    sdpa_bwd = library_time(
+        "flash_bwd", lambda: torch.autograd.grad(out_g, (qg, kg, vg), do,
+                                                 retain_graph=True), 20,
+        f"{backend} backward")
+    library["flash_bwd_dq"] = library["flash_bwd_dkv"] = sdpa_bwd
     pairs = attended_pairs(s, causal, lengths or [s] * b) * H
     x = b * H * s * D * 2                     # one [B, H, S, D] bf16 tensor
     lse_bytes = b * H * s * 4
@@ -701,11 +1024,9 @@ def flash_case(g, b, s, causal, lengths=None, timed=False):
               "flash_bwd_dkv": bound(7 * x + lse_bytes, 8 * pairs * D)}
     plain_ms = {"flash_fwd": plain_fwd_ms, "flash_bwd_dq": plain_bwd_ms,
                 "flash_bwd_dkv": plain_bwd_ms}
-    library = {"flash_fwd": sdpa_fwd, "flash_bwd_dq": sdpa_both - sdpa_fwd,
-               "flash_bwd_dkv": sdpa_both - sdpa_fwd}
-    res["timing"] = {n: {"ms": ms[n], "plain_ms": plain_ms[n],
-                         "bound_ms": bounds[n][0], "bound_by": bounds[n][1],
-                         "library_ms": library[n]} for n in ms}
+    res["timing"] = {n: {**timing[n], **library[n], "plain_ms": plain_ms[n],
+                         "bound_ms": bounds[n][0], "bound_by": bounds[n][1]}
+                     for n in timing}
     return res
 
 
@@ -750,7 +1071,6 @@ def check_flash_decode(g):
     and f32 queries over one bf16 cache, lengths from 0 to L."""
     from nezha_tpu_torch.ops.cuda import (flash_decode_attention,
                                           flash_decode_attention_plain)
-    import torch.nn.functional as F
 
     lengths_list = [0, 1, 17, 300, 511, 768, 1000, DEC_L]
     b = len(lengths_list)
@@ -773,12 +1093,13 @@ def check_flash_decode(g):
     q = q32.to(bf)
     timed = torch.full((b,), 768, dtype=torch.int32, device="cuda")
     args = (q, k, v, timed)
-    ms = gpu_time_ms(lambda: flash_decode_attention(*args), 100)
-    plain_ms = gpu_time_ms(lambda: flash_decode_attention_plain(*args), 5)
+    timing = device_time("flash_decode",
+                         lambda: flash_decode_attention(*args), 100)
+    plain_ms = plain_time_ms(lambda: flash_decode_attention_plain(*args), 5)
     mask = (torch.arange(DEC_L, device="cuda")[None, :]
             < timed[:, None])[:, None, None, :]
-    library_ms = gpu_time_ms(
-        lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask), 100)
+    sdpa, backend = sdpa_yardstick(q, k, v, attn_mask=mask)
+    timing.update(library_time("flash_decode", sdpa, 100, backend))
     total = 768 * b
     nbytes = (2 * b * H * D * 2                     # q in, out
               + 2 * total * H * D * 2               # K and V read once
@@ -788,8 +1109,8 @@ def check_flash_decode(g):
             "source": "nezha_tpu_torch/csrc/flash_decode.cu",
             "replaces": "nezha_tpu/ops/pallas/decode_attention.py:63",
             "max_abs_err": worst, "err_over_tolerance": worst_ratio,
-            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-            "bound_by": bound_by, "library_ms": library_ms,
+            **timing, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by,
             "shape": f"B={b} H={H} L={DEC_L} D={D} bf16 cache, timed at "
                      f"length 768; checked lengths={lengths_list}, bf16 "
                      f"and f32 q"}
@@ -837,45 +1158,49 @@ def check_layer_norm(g):
                            max(worst[name][1], ratio))
         if rows != TRAIN_B * TRAIN_S:
             continue
-        # F.layer_norm on the card takes scale and bias in x's dtype.
+        # F.layer_norm on the card takes scale and bias in x's dtype. Its
+        # backward is timed alone: the forward runs once outside the
+        # timer, then only torch.autograd.grad.
         xg, sg, bg = (t.detach().to(bf).requires_grad_()
                       for t in (x, scale, bias))
         lib = lambda: F.layer_norm(xg, (d,), sg, bg, eps)
-        lib_fwd = gpu_time_ms(lib, 50)
-        lib_both = gpu_time_ms(
-            lambda: torch.autograd.grad(lib(), (xg, sg, bg), dy), 50)
+        y_g = lib()
         elems = rows * d
         timing = {
             "layer_norm_fwd": {
-                "ms": gpu_time_ms(
-                    lambda: layer_norm_fwd(x, scale, bias, eps), 50),
-                "plain_ms": gpu_time_ms(
+                **device_time("layer_norm_fwd",
+                              lambda: layer_norm_fwd(x, scale, bias, eps),
+                              50),
+                **library_time("layer_norm_fwd", lib, 50, "F.layer_norm"),
+                "plain_ms": plain_time_ms(
                     lambda: layer_norm_fwd_plain(x, scale, bias, eps), 5),
-                "library_ms": lib_fwd,
                 # x in, y out (bf16), scale and bias in; ~8 fp32 ops each
                 "bound": bound(2 * elems * 2 + 2 * d * 4, 8 * elems,
                                FP32_FLOPS_PER_S)},
             "layer_norm_bwd": {
-                "ms": gpu_time_ms(
-                    lambda: layer_norm_bwd(x, scale, dy, eps), 50),
-                "plain_ms": gpu_time_ms(
+                **device_time("layer_norm_bwd",
+                              lambda: layer_norm_bwd(x, scale, dy, eps), 50),
+                **library_time(
+                    "layer_norm_bwd",
+                    lambda: torch.autograd.grad(y_g, (xg, sg, bg), dy,
+                                                retain_graph=True), 50,
+                    "F.layer_norm backward"),
+                "plain_ms": plain_time_ms(
                     lambda: layer_norm_bwd_plain(x, scale, dy, eps), 5),
-                "library_ms": lib_both - lib_fwd,
                 # x, dy in, dx out (bf16), scale in, dscale and dbias
                 # out; ~19 fp32 ops each
                 "bound": bound(3 * elems * 2 + 3 * d * 4, 19 * elems,
                                FP32_FLOPS_PER_S)}}
     out = []
     for name, line in (("layer_norm_fwd", 24), ("layer_norm_bwd", 33)):
-        t = timing[name]
+        t = dict(timing[name])
+        bound_ms, bound_by = t.pop("bound")
         out.append({"name": name, "route": "cuda",
                     "source": "nezha_tpu_torch/csrc/layer_norm.cu",
                     "replaces": f"nezha_tpu/ops/pallas/layer_norm.py:{line}",
                     "max_abs_err": worst[name][0],
-                    "err_over_tolerance": worst[name][1], "ms": t["ms"],
-                    "plain_ms": t["plain_ms"], "bound_ms": t["bound"][0],
-                    "bound_by": t["bound"][1],
-                    "library_ms": t["library_ms"],
+                    "err_over_tolerance": worst[name][1], **t,
+                    "bound_ms": bound_ms, "bound_by": bound_by,
                     "shape": f"rows={TRAIN_B * TRAIN_S} D={d} bf16 x, fp32 "
                              f"scale/bias; checked rows 8192, 8, 37"})
     out[1]["library_covers"] = "dx, dscale and dbias"
@@ -1425,6 +1750,11 @@ def main() -> int:
                + [check_flash_decode(g)] + check_layer_norm(g)
                + [check_quant_decode(g), check_quant_prefill(g),
                   check_prefill_qoff(g)])
+    print(json.dumps({"timer": {
+        "rows": len(TIMED_ROWS), "host_late": 0,
+        "profiler_disagrees": [
+            {"row": label, "ms": ms, "profiler_us": prof}
+            for label, ms, prof, flag in TIMED_ROWS if flag]}}), flush=True)
     phase("train")
     paths = train(card)
     phase("serve")

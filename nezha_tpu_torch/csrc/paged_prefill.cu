@@ -2,8 +2,8 @@
 //
 // Replaces: nezha_tpu/ops/pallas/prefill_attention.py:_prefill_kernel,
 // reached from models/gpt2.py Attention._apply_paged on each prefill chunk
-// the serve engine dispatches; and, as the QOFF instantiation of the same
-// body, _prefill_qoff_kernel, reached from the ring variant of
+// the serve engine dispatches; and, launched with q_offsets, the same
+// kernel replaces _prefill_qoff_kernel, reached from the ring variant of
 // sequence-sharded prefill (serve/sharded/seq_prefill.py) once per hop and
 // shard.
 //
@@ -25,46 +25,44 @@
 // 4 * S * (start + S/2) * D flops per head against
 // (start + S) * D * 2 * sizeof(pool) bytes of K/V read at least once —
 // for S=256 that is ~128 flop/byte, below the H100's ~295 flop/byte bf16
-// ridge, so the minimum is set by bytes; a fp32-FMA kernel like this one
-// is bound by its own arithmetic instead (67 TFLOP/s, not 989). This first
-// version is simple and right:
-//   - one thread block per (16-query tile, head, row); each of its 8 warps
-//     owns 2 query rows and keeps their online-softmax state in registers;
-//   - K/V stream through shared memory 32 keys at a time in 16-byte vector
-//     loads, each tile loaded once per block and scored by every warp, the
-//     prefix tile gathered row by row through the block table;
-//   - prefix work stops at starts[b] and chunk tiles stop at the tile's
-//     causal diagonal, so work tracks the row's real depth.
-// Later work: wgmma on bf16 tiles with TMA-fed shared memory, which moves
-// the bound from the FMA pipes to the memory system.
+// ridge, so the least time is set by bytes (~1 us at S=256, start=768).
+// What bounds this kernel is latency: a warp folds a 64-key tile (Q.K^T
+// and P.V on the tensor cores, mma.sync, the softmax between) in a few
+// microseconds of dependent instructions, and a row has ~16 tiles. The
+// fold (prefill_fold.cuh) therefore splits the tiles over the warps of a
+// block: 8 warps, 4 key splits, so a block owns 32 query rows and each
+// warp folds every 4th tile of its 16 rows, the tiles gathered through
+// the block table in 16-byte loads, 4 tiles at once.
+// The shape was chosen on the card with tools/tune_prefill_rows.py (NVIDIA
+// H100 80GB HBM3, 700.00 W; B9 at S=256, start 768, H=12; B11 the ring
+// hop, H=3, 64 queries): 8 warps x 4 splits 0.0394 ms (B11 0.0343-0.0355),
+// 8 x 2 0.0565 (0.0505-0.0564), 16 x 4 0.0429 (0.0401-0.0426).
 //
-// The q-offset form (QOFF = true, entry nezha_paged_prefill_qoff): the
-// S_q queries of row b sit at absolute positions q_offsets[b] + i while
-// the chunk's S_kc fresh K/V rows still occupy [starts[b], starts[b] +
-// S_kc), so query i's causal diagonal in the chunk moves to
+// The q-offset form (entry nezha_paged_prefill_qoff, q_offsets given):
+// the S_q queries of row b sit at absolute positions q_offsets[b] + i
+// while the chunk's S_kc fresh K/V rows still occupy [starts[b],
+// starts[b] + S_kc), so query i's causal diagonal in the chunk moves to
 // qoff + i with qoff = q_offsets[b] - starts[b] >= 0. A mesh shard hands
-// its slice of a chunk's queries to this form against the full chunk. A
-// row folds exactly the tiles the QOFF = false form folds for the same
-// query of the full chunk (the same prefix tiles, the same 32-key chunk
-// tiles from c0 = 0), and a trailing tile wholly past its diagonal leaves
-// its state bitwise as it was (p = exp(NEG_BIG - m) = 0, corr = 1), so the
-// two forms give the same bits for that query. With QOFF = false every
-// q-offset term is the constant 0 and the chunk is the query rows
-// themselves: that instantiation is the float prefill kernel unchanged.
+// its slice of a chunk's queries to this form against the full chunk.
+// Both entries launch the same kernel: without q_offsets qoff is 0 and
+// the chunk is the query rows themselves. A row folds exactly the tiles
+// it folds as a query of the full chunk (the same prefix tiles, the same
+// 64-key chunk tiles from c0 = 0), and a trailing tile wholly past its
+// diagonal leaves its state bitwise as it was (prefill_fold.cuh), so the
+// two forms give the same bits for that query.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
-#include "online_softmax.cuh"
+#include "prefill_fold.cuh"
 
 namespace nezha {
 namespace {
 
-constexpr int PF_WARPS = 8;
-constexpr int ROWS_PER_WARP = 2;
-constexpr int Q_TILE = PF_WARPS * ROWS_PER_WARP;
+using prefill::Copy;
+using prefill::Rounded;
 
-template <typename TQ, typename TKV, bool QOFF>
-__global__ void __launch_bounds__(PF_WARPS * WARP)
+template <typename TQ, typename TKV, int ND>
+__global__ void __launch_bounds__(prefill::THREADS)
     paged_prefill_kernel(const TQ* __restrict__ q,
                          const TQ* __restrict__ k_chunk,
                          const TQ* __restrict__ v_chunk,
@@ -74,117 +72,48 @@ __global__ void __launch_bounds__(PF_WARPS * WARP)
                          const int* __restrict__ starts,
                          TQ* __restrict__ out, int H, int S, int D, int bs,
                          int M, float scale,
-                         // The q-offset form's own (last, so that the
-                         // float form's parameters keep their offsets).
+                         // The q-offset form's own; without it null, and
+                         // the chunk is the S query rows.
                          const int* __restrict__ q_offsets, int S_kc) {
-  extern __shared__ float smem[];
-  const int q0 = blockIdx.x * Q_TILE;
+  extern __shared__ __align__(16) unsigned char smem[];
   const int h = blockIdx.y;
   const int b = blockIdx.z;
-  const int warp = threadIdx.x / WARP;
-  const int lane = threadIdx.x % WARP;
-  const int ldk = D + 1;
-
-  float* q_kv = smem;                  // [Q_TILE][D] q cast to pool dtype
-  float* q_raw = q_kv + Q_TILE * D;    // [Q_TILE][D] q as given
-  float* kt = q_raw + Q_TILE * D;      // [32][D+1]
-  float* vt = kt + WARP * ldk;         // [32][D]
-
-  const size_t head = (static_cast<size_t>(b) * H + h) * S;   // row offset
-  // The chunk's rows: the queries themselves unless QOFF.
-  const int skc = QOFF ? S_kc : S;
-  const size_t chunk_head = (static_cast<size_t>(b) * H + h) * skc;
-  for (int e = threadIdx.x; e < Q_TILE * D; e += blockDim.x) {
-    const int r = e / D;
-    const int d = e - r * D;
-    const float x =
-        q0 + r < S ? to_float(q[(head + q0 + r) * D + d]) : 0.f;
-    q_raw[e] = x;
-    q_kv[e] = round_to<TKV>(x);
-  }
-
-  RowState st[ROWS_PER_WARP];
-#pragma unroll
-  for (int i = 0; i < ROWS_PER_WARP; ++i) st[i].init();
-
+  const size_t bh = static_cast<size_t>(b) * H + h;
   int start = starts[b];
-  // Chunk-local position of query 0 (0 unless QOFF).
-  const int qoff = QOFF ? q_offsets[b] - start : 0;
+  // Chunk-local position of query 0 (0 without q_offsets).
+  const int qoff = q_offsets != nullptr ? q_offsets[b] - start : 0;
   start = start < 0 ? 0 : (start > M * bs ? M * bs : start);
   const int* tab = tables + static_cast<size_t>(b) * M;
 
-  // The cached prefix [0, start), read through the block table.
-  for (int t0 = 0; t0 < start; t0 += WARP) {
-    const int n = min(WARP, start - t0);
-    __syncthreads();
-    stage_tile(
-        kt, vt, ldk, k_pool, v_pool,
-        [&](int j) {
-          const int p = t0 + j;
-          return ((static_cast<size_t>(tab[p / bs]) * H + h) * bs + p % bs) *
-                 D;
-        },
-        n, D, threadIdx.x, blockDim.x, Identity());
-    __syncthreads();
-#pragma unroll
-    for (int i = 0; i < ROWS_PER_WARP; ++i) {
-      const int r = warp * ROWS_PER_WARP + i;
-      const float s =
-          lane < n ? tile_score(q_kv + r * D, kt, ldk, D, lane) * scale
-                   : NEG_BIG;
-      fold_tile<TKV>(st[i], s, vt, n, D, lane);
-    }
-  }
-
-  // The chunk itself, causally, up to this tile's last query.
-  const int last = min(skc, qoff + q0 + Q_TILE) - 1;
-  for (int c0 = 0; c0 <= last; c0 += WARP) {
-    const int n = min(WARP, skc - c0);
-    __syncthreads();
-    // The chunk's fresh K/V, routed through the pool dtype, then to q's.
-    stage_tile(
-        kt, vt, ldk, k_chunk, v_chunk,
-        [&](int j) { return (chunk_head + c0 + j) * D; }, n, D, threadIdx.x,
-        blockDim.x, [](float x) { return round_to<TQ>(round_to<TKV>(x)); });
-    __syncthreads();
-#pragma unroll
-    for (int i = 0; i < ROWS_PER_WARP; ++i) {
-      const int r = warp * ROWS_PER_WARP + i;
-      const bool attend = lane < n && c0 + lane <= qoff + q0 + r;
-      const float s =
-          attend ? tile_score(q_raw + r * D, kt, ldk, D, lane) * scale
-                 : NEG_BIG;
-      fold_tile<TQ>(st[i], s, vt, n, D, lane);
-    }
-  }
-
-#pragma unroll
-  for (int i = 0; i < ROWS_PER_WARP; ++i) {
-    const int qi = q0 + warp * ROWS_PER_WARP + i;
-    if (qi >= S) continue;
-    const float inv = 1.f / finalize_denom(st[i].l);
-#pragma unroll
-    for (int k = 0; k < DPL; ++k) {
-      const int d = lane + k * WARP;
-      if (d < D)
-        out[(head + qi) * D + d] = from_float<TQ>(st[i].acc[k] * inv);
-    }
-  }
+  // The cached prefix, read through the block table as stored: the prefix
+  // dots run in the pool dtype.
+  auto prefix = prefill::tiles<TKV, ND, Copy>(k_pool, v_pool, [=](int p) {
+    return ((static_cast<size_t>(tab[p / bs]) * H + h) * bs + p % bs) * D;
+  });
+  // The chunk's fresh K/V, routed through the pool dtype, then to q's.
+  using ChunkCvt = typename std::conditional<std::is_same<TQ, TKV>::value,
+                                             Copy, Rounded<TKV, TQ>>::type;
+  auto chunk = prefill::tiles<TQ, ND, ChunkCvt>(
+      k_chunk + bh * S_kc * D, v_chunk + bh * S_kc * D,
+      [=](int c) { return static_cast<size_t>(c) * D; });
+  prefill::prefill_rows<TQ, TKV, ND>(smem, q + bh * S * D, out + bh * S * D,
+                                     S, S_kc, qoff, start, D, scale, prefix,
+                                     chunk);
 }
 
-template <typename TQ, typename TKV, bool QOFF>
-cudaError_t launch(const void* q, const void* kc, const void* vc,
-                   const void* kp, const void* vp, const int* tables,
-                   const int* starts, const int* q_offsets, void* out, int B,
-                   int H, int S, int S_kc, int D, int bs, int M, float scale,
-                   cudaStream_t stream) {
-  const size_t smem =
-      sizeof(float) * (2 * Q_TILE * D + WARP * (D + 1) + WARP * D);
-  auto kernel = paged_prefill_kernel<TQ, TKV, QOFF>;
-  cudaError_t err = allow_smem(kernel, smem);
+template <typename TQ, typename TKV, int ND>
+cudaError_t launch_nd(const void* q, const void* kc, const void* vc,
+                      const void* kp, const void* vp, const int* tables,
+                      const int* starts, const int* q_offsets, void* out,
+                      int B, int H, int S, int S_kc, int D, int bs, int M,
+                      float scale, cudaStream_t stream) {
+  using Plan = prefill::Plan<TQ, TKV, TKV, ND>;
+  const size_t smem = Plan::smem_bytes(D);
+  auto kernel = paged_prefill_kernel<TQ, TKV, ND>;
+  cudaError_t err = flash::prepare(kernel, smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid((S + Q_TILE - 1) / Q_TILE, H, B);
-  kernel<<<grid, PF_WARPS * WARP, smem, stream>>>(
+  const dim3 grid((S + Plan::QT - 1) / Plan::QT, H, B);
+  kernel<<<grid, prefill::THREADS, smem, stream>>>(
       static_cast<const TQ*>(q), static_cast<const TQ*>(kc),
       static_cast<const TQ*>(vc), static_cast<const TKV*>(kp),
       static_cast<const TKV*>(vp), tables, starts, static_cast<TQ*>(out), H,
@@ -192,8 +121,22 @@ cudaError_t launch(const void* q, const void* kc, const void* vc,
   return cudaGetLastError();
 }
 
+// The accumulator holds D / 8 column groups: 8 up to D = 64, else 16.
+template <typename TQ, typename TKV>
+cudaError_t launch(const void* q, const void* kc, const void* vc,
+                   const void* kp, const void* vp, const int* tables,
+                   const int* starts, const int* q_offsets, void* out, int B,
+                   int H, int S, int S_kc, int D, int bs, int M, float scale,
+                   cudaStream_t stream) {
+  if (D <= 64)
+    return launch_nd<TQ, TKV, 8>(q, kc, vc, kp, vp, tables, starts,
+                                 q_offsets, out, B, H, S, S_kc, D, bs, M,
+                                 scale, stream);
+  return launch_nd<TQ, TKV, 16>(q, kc, vc, kp, vp, tables, starts, q_offsets,
+                                out, B, H, S, S_kc, D, bs, M, scale, stream);
+}
+
 // The dtype dispatch both entry points share.
-template <bool QOFF>
 int dispatch(const void* q, const void* k_chunk, const void* v_chunk,
              const void* k_pool, const void* v_pool, const void* tables,
              const void* starts, const void* q_offsets, void* out, int B,
@@ -208,21 +151,21 @@ int dispatch(const void* q, const void* k_chunk, const void* v_chunk,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaGetLastError();   // start from a clean error state
   if (q_dtype == BF16 && kv_dtype == BF16)
-    return launch<__nv_bfloat16, __nv_bfloat16, QOFF>(
+    return launch<__nv_bfloat16, __nv_bfloat16>(
         q, k_chunk, v_chunk, k_pool, v_pool, tab, st, qo, out, B, H, S, S_kc,
         D, bs, M, scale, s);
   if (q_dtype == F32 && kv_dtype == BF16)
-    return launch<float, __nv_bfloat16, QOFF>(
+    return launch<float, __nv_bfloat16>(
         q, k_chunk, v_chunk, k_pool, v_pool, tab, st, qo, out, B, H, S, S_kc,
         D, bs, M, scale, s);
   if (q_dtype == BF16 && kv_dtype == F32)
-    return launch<__nv_bfloat16, float, QOFF>(
+    return launch<__nv_bfloat16, float>(
         q, k_chunk, v_chunk, k_pool, v_pool, tab, st, qo, out, B, H, S, S_kc,
         D, bs, M, scale, s);
   if (q_dtype == F32 && kv_dtype == F32)
-    return launch<float, float, QOFF>(q, k_chunk, v_chunk, k_pool, v_pool,
-                                      tab, st, qo, out, B, H, S, S_kc, D, bs,
-                                      M, scale, s);
+    return launch<float, float>(q, k_chunk, v_chunk, k_pool, v_pool, tab,
+                                st, qo, out, B, H, S, S_kc, D, bs, M, scale,
+                                s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -239,9 +182,9 @@ extern "C" int nezha_paged_prefill(const void* q, const void* k_chunk,
                                    int H, int S, int D, int bs, int M,
                                    float scale, int q_dtype, int kv_dtype,
                                    void* stream) {
-  return nezha::dispatch<false>(q, k_chunk, v_chunk, k_pool, v_pool, tables,
-                                starts, nullptr, out, B, H, S, S, D, bs, M,
-                                scale, q_dtype, kv_dtype, stream);
+  return nezha::dispatch(q, k_chunk, v_chunk, k_pool, v_pool, tables, starts,
+                         nullptr, out, B, H, S, S, D, bs, M, scale, q_dtype,
+                         kv_dtype, stream);
 }
 
 // The q-offset form: q and out [B, H, S_q, D]; k_chunk/v_chunk
@@ -253,7 +196,7 @@ extern "C" int nezha_paged_prefill_qoff(
     const void* starts, const void* q_offsets, void* out, int B, int H,
     int S_q, int S_kc, int D, int bs, int M, float scale, int q_dtype,
     int kv_dtype, void* stream) {
-  return nezha::dispatch<true>(q, k_chunk, v_chunk, k_pool, v_pool, tables,
-                               starts, q_offsets, out, B, H, S_q, S_kc, D,
-                               bs, M, scale, q_dtype, kv_dtype, stream);
+  return nezha::dispatch(q, k_chunk, v_chunk, k_pool, v_pool, tables, starts,
+                         q_offsets, out, B, H, S_q, S_kc, D, bs, M, scale,
+                         q_dtype, kv_dtype, stream);
 }

@@ -38,36 +38,34 @@
 // What bounds it: at the engine's shapes (one row, S up to 256, prefixes up
 // to ~1k positions, D=64) bytes: 4 * S * (start + S/2) * D flops per head
 // against (start + S) * D int8 K and V plus the chunk in q's dtype, about
-// 256 flop/byte at S=256, below the ~295 flop/byte bf16 ridge. Like the
-// float kernel (paged_prefill.cu), whose tiling the attention grid reuses
-// (one block per (16-query tile, head, row), 8 warps of 2 query rows, 32-key
-// tiles staged as fp32 in 16-byte loads), this first version dots on the
-// fp32 FMA pipes and is bound by them. The write grid is one block per
-// (touched block, head, row): two passes over bs*D elements (absmax, then
-// quantize and store), with block-wide max reductions. qerr is a float
-// max taken with an integer atomicMax on its bits (every err is >= 0),
-// which does not depend on order; the attention grid zeroes it first.
+// 256 flop/byte at S=256, below the ~295 flop/byte bf16 ridge. The
+// attention grid is the float kernel's fold (prefill_fold.cuh: 64-key
+// tiles split over the 8 warps of a block, Q.K^T and P.V on the tensor
+// cores for a bf16 q, on the FMA pipes for an fp32 one); each prefix tile
+// is dequantized to q's dtype as it is staged, so the shared tile holds
+// bf16 on the main path. The write grid is one block per (touched block, head,
+// row): two passes over bs*D elements (absmax, then quantize and store),
+// with block-wide max reductions. qerr is a float max taken with an
+// integer atomicMax on its bits (every err is >= 0), which does not depend
+// on order; the attention grid zeroes it first.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "kv_quant.cuh"
-#include "online_softmax.cuh"
+#include "prefill_fold.cuh"
 
 namespace nezha {
 namespace {
 
-constexpr int PF_WARPS = 8;
-constexpr int ROWS_PER_WARP = 2;
-constexpr int Q_TILE = PF_WARPS * ROWS_PER_WARP;
 constexpr int WR_THREADS = 256;
 
 __device__ __forceinline__ int clamp_start(int start, int cap) {
   return start < 0 ? 0 : (start > cap ? cap : start);
 }
 
-template <typename TQ>
-__global__ void __launch_bounds__(PF_WARPS * WARP)
+template <typename TQ, int ND>
+__global__ void __launch_bounds__(prefill::THREADS)
     quant_prefill_attn_kernel(const TQ* __restrict__ q,
                               const TQ* __restrict__ k_chunk,
                               const TQ* __restrict__ v_chunk,
@@ -80,94 +78,31 @@ __global__ void __launch_bounds__(PF_WARPS * WARP)
                               TQ* __restrict__ out, float* __restrict__ qerr,
                               int H, int S, int D, int bs, int M,
                               float scale) {
-  extern __shared__ float smem[];
-  const int q0 = blockIdx.x * Q_TILE;
+  extern __shared__ __align__(16) unsigned char smem[];
   const int h = blockIdx.y;
   const int b = blockIdx.z;
-  const int warp = threadIdx.x / WARP;
-  const int lane = threadIdx.x % WARP;
-  const int ldk = D + 1;
-
-  float* qs = smem;                    // [Q_TILE][D] q as given
-  float* kt = qs + Q_TILE * D;         // [32][D+1]
-  float* vt = kt + WARP * ldk;         // [32][D]
+  const size_t bh = static_cast<size_t>(b) * H + h;
 
   // The write grid, launched after this one, maxes into qerr.
   if (blockIdx.x == 0 && h == 0 && b == 0 && threadIdx.x == 0) *qerr = 0.f;
 
-  const size_t head = (static_cast<size_t>(b) * H + h) * S;   // row offset
-  for (int e = threadIdx.x; e < Q_TILE * D; e += blockDim.x) {
-    const int r = e / D;
-    const int d = e - r * D;
-    qs[e] = q0 + r < S ? to_float(q[(head + q0 + r) * D + d]) : 0.f;
-  }
-
-  RowState st[ROWS_PER_WARP];
-#pragma unroll
-  for (int i = 0; i < ROWS_PER_WARP; ++i) st[i].init();
-
   const int start = clamp_start(starts[b], M * bs);
   const int* tab = tables + static_cast<size_t>(b) * M;
-  auto scale_at = [&](int p) {
+  auto scale_at = [=](int p) {
     return static_cast<size_t>(tab[p / bs]) * H + h;
   };
-
-  // The int8 prefix [0, start), dequantized to q's dtype.
-  for (int t0 = 0; t0 < start; t0 += WARP) {
-    const int n = min(WARP, start - t0);
-    __syncthreads();
-    stage_tile_q8<TQ>(
-        kt, vt, ldk, k_pool, v_pool, k_scale, v_scale,
-        [&](int j) {
-          const int p = t0 + j;
-          return (scale_at(p) * bs + p % bs) * D;
-        },
-        [&](int j) { return scale_at(t0 + j); }, n, D, threadIdx.x,
-        blockDim.x);
-    __syncthreads();
-#pragma unroll
-    for (int i = 0; i < ROWS_PER_WARP; ++i) {
-      const int r = warp * ROWS_PER_WARP + i;
-      const float s =
-          lane < n ? tile_score(qs + r * D, kt, ldk, D, lane) * scale
-                   : NEG_BIG;
-      fold_tile<TQ>(st[i], s, vt, n, D, lane);
-    }
-  }
-
-  // The chunk itself, causally, up to this tile's last query.
-  const int last = min(S, q0 + Q_TILE) - 1;
-  for (int c0 = 0; c0 <= last; c0 += WARP) {
-    const int n = min(WARP, S - c0);
-    __syncthreads();
-    stage_tile(
-        kt, vt, ldk, k_chunk, v_chunk,
-        [&](int j) { return (head + c0 + j) * D; }, n, D, threadIdx.x,
-        blockDim.x, Identity());
-    __syncthreads();
-#pragma unroll
-    for (int i = 0; i < ROWS_PER_WARP; ++i) {
-      const int r = warp * ROWS_PER_WARP + i;
-      const bool attend = lane < n && c0 + lane <= q0 + r;
-      const float s =
-          attend ? tile_score(qs + r * D, kt, ldk, D, lane) * scale
-                 : NEG_BIG;
-      fold_tile<TQ>(st[i], s, vt, n, D, lane);
-    }
-  }
-
-#pragma unroll
-  for (int i = 0; i < ROWS_PER_WARP; ++i) {
-    const int qi = q0 + warp * ROWS_PER_WARP + i;
-    if (qi >= S) continue;
-    const float inv = 1.f / finalize_denom(st[i].l);
-#pragma unroll
-    for (int k = 0; k < DPL; ++k) {
-      const int d = lane + k * WARP;
-      if (d < D)
-        out[(head + qi) * D + d] = from_float<TQ>(st[i].acc[k] * inv);
-    }
-  }
+  // The int8 prefix, each position times its (block, head) scale, rounded
+  // to q's dtype.
+  auto prefix = prefill::tiles<TQ, ND, prefill::Dequant<TQ>>(
+      k_pool, v_pool, [=](int p) { return (scale_at(p) * bs + p % bs) * D; },
+      [=](int p) { return k_scale[scale_at(p)]; },
+      [=](int p) { return v_scale[scale_at(p)]; });
+  // The chunk as given, in q's dtype.
+  auto chunk = prefill::tiles<TQ, ND, prefill::Copy>(
+      k_chunk + bh * S * D, v_chunk + bh * S * D,
+      [=](int c) { return static_cast<size_t>(c) * D; });
+  prefill::prefill_rows<TQ, TQ, ND>(smem, q + bh * S * D, out + bh * S * D,
+                                    S, S, 0, start, D, scale, prefix, chunk);
 }
 
 // Max of x over the block; every thread gets it. red holds one float per
@@ -243,24 +178,41 @@ __global__ void __launch_bounds__(WR_THREADS)
     atomicMax(reinterpret_cast<int*>(qerr), __float_as_int(err));
 }
 
-template <typename TQ>
-cudaError_t launch(const void* q, const void* kc, const void* vc, void* kp,
-                   void* vp, void* ks, void* vs, const int* tables,
-                   const int* starts, void* out, float* qerr, int B, int H,
-                   int S, int D, int bs, int M, float scale,
-                   cudaStream_t stream) {
-  const size_t smem = sizeof(float) * (Q_TILE * D + WARP * (D + 1) + WARP * D);
-  auto attn = quant_prefill_attn_kernel<TQ>;
-  cudaError_t err = allow_smem(attn, smem);
+template <typename TQ, int ND>
+cudaError_t launch_attn(const void* q, const void* kc, const void* vc,
+                        const void* kp, const void* vp, const void* ks,
+                        const void* vs, const int* tables, const int* starts,
+                        void* out, float* qerr, int B, int H, int S, int D,
+                        int bs, int M, float scale, cudaStream_t stream) {
+  using Plan = prefill::Plan<TQ, TQ, int8_t, ND>;
+  const size_t smem = Plan::smem_bytes(D);
+  auto attn = quant_prefill_attn_kernel<TQ, ND>;
+  cudaError_t err = flash::prepare(attn, smem);
   if (err != cudaSuccess) return err;
-  attn<<<dim3((S + Q_TILE - 1) / Q_TILE, H, B), PF_WARPS * WARP, smem,
+  attn<<<dim3((S + Plan::QT - 1) / Plan::QT, H, B), prefill::THREADS, smem,
          stream>>>(
       static_cast<const TQ*>(q), static_cast<const TQ*>(kc),
       static_cast<const TQ*>(vc), static_cast<const int8_t*>(kp),
       static_cast<const int8_t*>(vp), static_cast<const float*>(ks),
       static_cast<const float*>(vs), tables, starts, static_cast<TQ*>(out),
       qerr, H, S, D, bs, M, scale);
-  err = cudaGetLastError();
+  return cudaGetLastError();
+}
+
+template <typename TQ>
+cudaError_t launch(const void* q, const void* kc, const void* vc, void* kp,
+                   void* vp, void* ks, void* vs, const int* tables,
+                   const int* starts, void* out, float* qerr, int B, int H,
+                   int S, int D, int bs, int M, float scale,
+                   cudaStream_t stream) {
+  // The accumulator holds D / 8 column groups: 8 up to D = 64, else 16.
+  cudaError_t err =
+      D <= 64 ? launch_attn<TQ, 8>(q, kc, vc, kp, vp, ks, vs, tables, starts,
+                                   out, qerr, B, H, S, D, bs, M, scale,
+                                   stream)
+              : launch_attn<TQ, 16>(q, kc, vc, kp, vp, ks, vs, tables,
+                                    starts, out, qerr, B, H, S, D, bs, M,
+                                    scale, stream);
   if (err != cudaSuccess) return err;
   // Touched blocks per row: at most (S - 1) / bs + 2, when start is not
   // block-aligned; the grid's spare blocks return at once.

@@ -80,8 +80,8 @@ def fold_error_bound(want: torch.Tensor, want_abs_v: torch.Tensor,
 
     ``want`` is the plain version's output and ``want_abs_v`` the plain
     version run on ``|v|`` in place of ``v``: ``sum_j p_j |v_j| / l`` per
-    element. The two fold in different orders (32-key tiles and warp
-    splits against pool blocks), so:
+    element. The two fold in different orders (the kernels' 32- or 64-key
+    tiles and warp splits against pool blocks), so:
 
     - when ``p`` is rounded to bf16 before P·V (``p_bf16``), each weight
       carries a relative error of at most the unit roundoff 2^-8, taken

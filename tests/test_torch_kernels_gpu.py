@@ -46,6 +46,20 @@ from nezha_tpu_torch.train import make_train_step
 BS, M, H, D = 8, 12, 2, 64
 DTYPES = [(torch.bfloat16, torch.bfloat16), (torch.float32, torch.bfloat16),
           (torch.float32, torch.float32)]
+# Prefill chunk widths: one query, a tile-aligned 16, and widths that are
+# not a multiple of 16, one spanning two 64-row query blocks and two
+# 64-key chunk tiles.
+PREFILL_S = [1, 16, 40, 77]
+# Head dims of the prefill fold: one 8-column group set (ND = 8) and the
+# widest (ND = 16).
+PREFILL_D = [64, 128]
+
+
+def _prefill_starts(s):
+    """Cold, mid-block, block-aligned, off a 64-key tile boundary (70),
+    the last chunk of width ``s`` that fits the table, and the table's
+    end (a prefix of every block)."""
+    return np.asarray([0, 5, 16, 70, M * BS - s, M * BS], np.int32)
 
 
 @pytest.fixture
@@ -91,13 +105,15 @@ def test_decode_kernel_matches_plain(cuda_device, q_dtype, pool_dtype):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("q_dtype,pool_dtype", DTYPES)
-@pytest.mark.parametrize("s", [16, 40])
-def test_prefill_kernel_matches_plain(cuda_device, q_dtype, pool_dtype, s):
+@pytest.mark.parametrize("s", PREFILL_S)
+@pytest.mark.parametrize("d", PREFILL_D)
+def test_prefill_kernel_matches_plain(cuda_device, q_dtype, pool_dtype, s,
+                                      d):
     rng = np.random.RandomState(1)
-    starts = np.asarray([0, 5, 16, M * BS - s], np.int32)
+    starts = _prefill_starts(s)
     b, n = len(starts), 1 + len(starts) * M
-    q, kc, vc = (rng.randn(b, H, s, D).astype(np.float32) for _ in range(3))
-    kp, vp = (rng.randn(n, H, BS, D).astype(np.float32) for _ in range(2))
+    q, kc, vc = (rng.randn(b, H, s, d).astype(np.float32) for _ in range(3))
+    kp, vp = (rng.randn(n, H, BS, d).astype(np.float32) for _ in range(2))
     tab = (1 + rng.permutation(b * M)).reshape(b, M).astype(np.int32)
     dev = cuda_device
     args = (torch.from_numpy(q).to(dev, q_dtype),
@@ -117,31 +133,38 @@ def test_prefill_kernel_matches_plain(cuda_device, q_dtype, pool_dtype, s):
                                                              pool_dtype))
 
 
-def _qoff_case(rng, s_kc, q_dtype, pool_dtype, dev):
-    """One row per start (cold, mid-block, block-aligned, the last chunk
-    that fits), a chunk of ``s_kc`` rows."""
-    starts = np.asarray([0, 5, 16, M * BS - s_kc], np.int32)
+def _qoff_case(rng, s_kc, q_dtype, pool_dtype, dev, d=D):
+    """One row per start of ``_prefill_starts``, a chunk of ``s_kc``
+    rows."""
+    starts = _prefill_starts(s_kc)
     b, n = len(starts), 1 + len(starts) * M
-    q, kc, vc = (torch.from_numpy(rng.randn(b, H, s_kc, D).astype(
+    q, kc, vc = (torch.from_numpy(rng.randn(b, H, s_kc, d).astype(
         np.float32)).to(dev, q_dtype) for _ in range(3))
-    kp, vp = (torch.from_numpy(rng.randn(n, H, BS, D).astype(np.float32))
+    kp, vp = (torch.from_numpy(rng.randn(n, H, BS, d).astype(np.float32))
               .to(dev, pool_dtype) for _ in range(2))
     tab = torch.from_numpy((1 + rng.permutation(b * M)).reshape(b, M)
                            .astype(np.int32)).to(dev)
     return q, kc, vc, kp, vp, tab, torch.from_numpy(starts).to(dev)
 
 
+# (S_kc, S_q) of the q-offset cases: one query; chunks cut into slices of
+# 16 and of widths that are not a multiple of 16; a 96-row chunk over two
+# 64-key tiles in two 48-query slices.
+QOFF_CASES = [(1, 1), (32, 16), (40, 20), (64, 16), (77, 11), (96, 48)]
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("q_dtype,pool_dtype", DTYPES)
-@pytest.mark.parametrize("s_kc,s_q", [(32, 16), (40, 20), (64, 16)])
+@pytest.mark.parametrize("s_kc,s_q", QOFF_CASES)
+@pytest.mark.parametrize("d", PREFILL_D)
 def test_prefill_qoff_kernel_matches_plain(cuda_device, q_dtype, pool_dtype,
-                                           s_kc, s_q):
+                                           s_kc, s_q, d):
     """The q-offset kernel (B11) within fold_error_bound of its plain
     version, for every query slice of the chunk (q_offsets = starts +
     k * S_q); one launch per call, counted apart from B9's."""
     rng = np.random.RandomState(8)
     q, kc, vc, kp, vp, tab, st = _qoff_case(rng, s_kc, q_dtype, pool_dtype,
-                                            cuda_device)
+                                            cuda_device, d)
     for k in range(s_kc // s_q):
         qs = q[:, :, k * s_q:(k + 1) * s_q].contiguous()
         qoff = st + k * s_q
@@ -162,14 +185,15 @@ def test_prefill_qoff_kernel_matches_plain(cuda_device, q_dtype, pool_dtype,
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("q_dtype,pool_dtype", DTYPES)
+@pytest.mark.parametrize("s_kc,s_q", QOFF_CASES)
+@pytest.mark.parametrize("d", PREFILL_D)
 def test_prefill_qoff_slices_bitwise_equal_b9(cuda_device, q_dtype,
-                                              pool_dtype):
+                                              pool_dtype, s_kc, s_q, d):
     """Each query slice through B11 gives the bits B9 gives the same rows
     of the full chunk, and q_offsets = starts with S_q = S_kc is B9."""
     rng = np.random.RandomState(9)
-    s_kc, s_q = 64, 16
     q, kc, vc, kp, vp, tab, st = _qoff_case(rng, s_kc, q_dtype, pool_dtype,
-                                            cuda_device)
+                                            cuda_device, d)
     full = paged_prefill_attention(q, kc, vc, kp, vp, tab, st)
     for k in range(s_kc // s_q):
         got = paged_prefill_attention(
@@ -207,13 +231,13 @@ def test_engine_on_card_matches_cpu(cuda_device):
     assert results[0] == results[1]
 
 
-def _int8_pools(rng, n, dev):
-    """int8 K/V pools [n, H, BS, D] quantized from random values, with
+def _int8_pools(rng, n, dev, d=D):
+    """int8 K/V pools [n, H, BS, d] quantized from random values, with
     their fp32 scales, on ``dev``."""
     out = []
     for amp in (2.0, 1.0):
         qv, sv = quantize_kv_block(torch.from_numpy(
-            (rng.randn(n, H, BS, D) * amp).astype(np.float32)))
+            (rng.randn(n, H, BS, d) * amp).astype(np.float32)))
         out += [qv.to(dev), sv.to(dev)]
     return out          # kq, ks, vq, vs
 
@@ -254,19 +278,23 @@ def test_quant_decode_kernel_matches_plain(cuda_device, q_dtype):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("q_dtype", [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize("s", [16, 40])
-def test_quant_prefill_kernel_matches_plain(cuda_device, q_dtype, s):
+@pytest.mark.parametrize("s", PREFILL_S)
+@pytest.mark.parametrize("d", PREFILL_D)
+def test_quant_prefill_kernel_matches_plain(cuda_device, q_dtype, s, d):
     """The int8 prefill kernel against its plain version on the card:
     the output within fold_error_bound; the pools and scales after the
     call bitwise equal on every block but scratch block 0, untouched
     blocks unchanged; qerr within 1e-6 relative; a second run from the
-    same pools bitwise equal to the first."""
+    same pools bitwise equal to the first. The starts of
+    ``_prefill_starts`` whose chunk fits the table, as the engine's
+    always does (the table's end: test_quant_prefill_kernel_at_table_end)."""
     rng = np.random.RandomState(7)
-    starts = np.asarray([0, 5, 16, M * BS - s], np.int32)
+    starts = np.asarray([x for x in _prefill_starts(s) if x + s <= M * BS],
+                        np.int32)
     b, n = len(starts), 1 + len(starts) * M
     dev = cuda_device
-    pools = _int8_pools(rng, n, dev)
-    q, kc, vc = (torch.from_numpy(rng.randn(b, H, s, D).astype(np.float32))
+    pools = _int8_pools(rng, n, dev, d)
+    q, kc, vc = (torch.from_numpy(rng.randn(b, H, s, d).astype(np.float32))
                  .to(dev, q_dtype) for _ in range(3))
     tab = torch.from_numpy((1 + rng.permutation(b * M)).reshape(b, M)
                            .astype(np.int32)).to(dev)
@@ -298,6 +326,41 @@ def test_quant_prefill_kernel_matches_plain(cuda_device, q_dtype, s):
     again, qerr2, again_pools = run(paged_quant_prefill_attention)
     assert torch.equal(again, got) and torch.equal(qerr2, qerr)
     assert all(torch.equal(x, y) for x, y in zip(again_pools, got_pools))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("q_dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("s", PREFILL_S)
+@pytest.mark.parametrize("d", PREFILL_D)
+def test_quant_prefill_kernel_at_table_end(cuda_device, q_dtype, s, d):
+    """Start at the table's end (M * bs): the prefix is every block, and
+    the output lies within fold_error_bound of the plain version's. The
+    chunk itself lies past the table, where the engine never writes; the
+    kernel's write grid touches no block there (t >= M), so the pools
+    come back unchanged and qerr is 0."""
+    rng = np.random.RandomState(11)
+    b = 3
+    n = 1 + b * M
+    dev = cuda_device
+    pools = _int8_pools(rng, n, dev, d)
+    q, kc, vc = (torch.from_numpy(rng.randn(b, H, s, d).astype(np.float32))
+                 .to(dev, q_dtype) for _ in range(3))
+    tab = torch.from_numpy((1 + rng.permutation(b * M)).reshape(b, M)
+                           .astype(np.int32)).to(dev)
+    st = torch.full((b,), M * BS, dtype=torch.int32, device=dev)
+    kq, ks, vq, vs = (t.clone() for t in pools)
+    got, qerr = paged_quant_prefill_attention(q, kc, vc, kq, vq, ks, vs, tab,
+                                              st)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, o) for a, o in zip((kq, ks, vq, vs), pools))
+    assert qerr.item() == 0.0
+    kq, ks, vq, vs = pools
+    want = paged_quant_prefill_attention_plain(
+        q, kc, vc, kq.clone(), vq.clone(), ks.clone(), vs.clone(), tab, st)[0]
+    abs_v = paged_quant_prefill_attention_plain(
+        q, kc, vc.abs(), kq.clone(), vq.abs(), ks.clone(), vs.clone(), tab,
+        st)[0]
+    _assert_within_bound(got, want, abs_v, q_dtype == torch.bfloat16)
 
 
 @pytest.mark.gpu

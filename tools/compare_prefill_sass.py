@@ -1,15 +1,20 @@
-"""Check that the float paged-prefill kernel (B9) compiles to the same
-machine code as another version of ``csrc/paged_prefill.cu``.
+"""The prefill kernels' machine code: tensor-core use, registers, and
+B10's write grid against another version of ``csrc/quant_prefill.cu``.
 
-    python3 tools/compare_prefill_sass.py OTHER/paged_prefill.cu
+    python3 tools/compare_prefill_sass.py [--other-quant OTHER/quant_prefill.cu]
 
-Compiles both sources for ``sm_90a`` with the build's flags and
-``-Xptxas -v``, disassembles them with ``cuobjdump -sass`` and, for each
-dtype instantiation of ``paged_prefill_kernel`` in the other source,
-finds this source's float (non-q-offset) instantiation of the same
-dtypes and prints both register counts and whether the instruction
-streams are identical. Exits non-zero if any differs. Needs ``nvcc`` and
-``cuobjdump`` (the CUDA toolkit); imports nothing of JAX.
+Compiles ``csrc/paged_prefill.cu`` and ``csrc/quant_prefill.cu`` for
+``sm_90a`` with the build's flags and ``-Xptxas -v``, disassembles them
+with ``cuobjdump -sass`` and prints, for every instantiation of
+``paged_prefill_kernel`` (B9, and B11 where its q-offset flag is set) and
+``quant_prefill_attn_kernel`` (B10's attention grid), its registers,
+instruction count and ``HMMA`` (tensor-core) instructions. With
+``--other-quant`` it also compiles the other source and prints whether
+each ``quant_prefill_write_kernel`` (B10's write grid) instantiation's
+instruction stream is identical in both. Exits non-zero if an
+instantiation with a bf16 operand has no ``HMMA`` or a write grid
+differs. Needs ``nvcc`` and ``cuobjdump`` (the CUDA toolkit); imports
+nothing of JAX.
 """
 
 from __future__ import annotations
@@ -26,6 +31,8 @@ REPO = Path(__file__).resolve().parents[1]
 CSRC = REPO / "nezha_tpu_torch" / "csrc"
 FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-c", "-I", str(CSRC)]
+FOLD_KERNELS = ("paged_prefill_kernel", "quant_prefill_attn_kernel")
+WRITE_KERNEL = "quant_prefill_write_kernel"
 
 
 def compile_and_dump(nvcc: str, source: Path, out: Path):
@@ -57,39 +64,84 @@ def compile_and_dump(nvcc: str, source: Path, out: Path):
     return funcs, regs
 
 
-def dtypes(name: str) -> str:
-    """The template arguments of a mangled ``paged_prefill_kernel``,
-    without the q-offset flag."""
-    args = name.split("paged_prefill_kernel")[1].split("EEv")[0]
-    return re.sub(r"Lb[01]E?$", "", args)
+def label(name: str) -> str:
+    """A mangled instantiation's kernel and template arguments, readable:
+    ``paged_prefill_kernel<bf16, bf16, plain, ND=8>``."""
+    base = next(k for k in FOLD_KERNELS + (WRITE_KERNEL,) if k in name)
+    rest = name.split(base, 1)[1]
+    args = rest[1:rest.find("EEv")] if rest.startswith("I") else ""
+    names = []
+    while args:
+        for pattern, word in ((r"13__nv_bfloat16", "bf16"), (r"f", "f32"),
+                              (r"S\d*_", None), (r"Lb(\d)E", "flag"),
+                              (r"Li(\d+)E", "nd")):
+            m = re.match(pattern, args)
+            if not m:
+                continue
+            if word is None:        # a repeated type: the one before
+                word = names[-1] if names else "?"
+            elif word == "flag":
+                word = "qoff" if m.group(1) == "1" else "plain"
+            elif word == "nd":
+                word = f"ND={m.group(1)}"
+            names.append(word)
+            args = args[m.end():]
+            break
+        else:
+            names.append(args)
+            break
+    return f"{base}<{', '.join(names)}>"
 
 
 def main() -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    p.add_argument("other", type=Path,
-                   help="the paged_prefill.cu to compare with")
+    p.add_argument("--other-quant", type=Path,
+                   help="a quant_prefill.cu whose write grid to compare")
     p.add_argument("--nvcc", default="/usr/local/cuda/bin/nvcc")
     args = p.parse_args()
+    funcs, regs = {}, {}
     with tempfile.TemporaryDirectory() as tmp:
-        other, other_regs = compile_and_dump(args.nvcc, args.other,
-                                             Path(tmp) / "other")
-        mine, my_regs = compile_and_dump(args.nvcc,
-                                         CSRC / "paged_prefill.cu",
-                                         Path(tmp) / "mine")
-    rows, same = [], True
-    for name, instrs in other.items():
-        if "paged_prefill_kernel" not in name:
+        for name in ("paged_prefill", "quant_prefill"):
+            f, r = compile_and_dump(args.nvcc, CSRC / f"{name}.cu",
+                                    Path(tmp) / name)
+            funcs.update(f)
+            regs.update(r)
+        other = other_regs = None
+        if args.other_quant:
+            other, other_regs = compile_and_dump(args.nvcc, args.other_quant,
+                                                 Path(tmp) / "other")
+    ok = True
+    rows = []
+    for name, instrs in sorted(funcs.items()):
+        if not any(k in name for k in FOLD_KERNELS):
             continue
-        match = [n for n in mine if "paged_prefill_kernel" in n
-                 and "Lb1E" not in n and dtypes(n) == dtypes(name)]
-        ok = len(match) == 1 and mine[match[0]] == instrs
-        same &= ok
-        rows.append({"dtypes": dtypes(name), "instructions": len(instrs),
-                     "registers_other": other_regs.get(name),
-                     "registers": my_regs.get(match[0]) if match else None,
-                     "identical": ok})
-    print(json.dumps({"b9_sass": rows, "identical": same}))
-    return 0 if same and rows else 1
+        hmma = sum(1 for i in instrs if i.split()[0].startswith("HMMA"))
+        bf16 = "__nv_bfloat16" in name
+        ok &= hmma > 0 or not bf16
+        rows.append({"kernel": label(name), "registers": regs.get(name),
+                     "instructions": len(instrs), "hmma": hmma})
+    report = {"fold_sass": rows}
+    if other is not None:
+        # An anonymous namespace's mangled name carries its file's name,
+        # so the two sources' kernels are matched by kernel and template
+        # arguments.
+        theirs = {label(n): (i, other_regs.get(n)) for n, i in other.items()
+                  if WRITE_KERNEL in n}
+        writes = []
+        for name, instrs in sorted(funcs.items()):
+            if WRITE_KERNEL not in name:
+                continue
+            other_instrs, other_reg = theirs.get(label(name), (None, None))
+            same = other_instrs == instrs
+            ok &= same
+            writes.append({"kernel": label(name), "instructions": len(instrs),
+                           "registers": regs.get(name),
+                           "registers_other": other_reg, "identical": same})
+        ok &= bool(writes)
+        report["write_sass"] = writes
+    report["ok"] = ok
+    print(json.dumps(report))
+    return 0 if ok and rows else 1
 
 
 if __name__ == "__main__":
