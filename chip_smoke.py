@@ -21,13 +21,18 @@ Phases, each fatal on failure (non-zero exit, no result line):
    one; any host-late timed call fails the phase;
    The three flash-attention training kernels are held the same way in
    bf16 at GPT-2's training shape (B=8, H=12, S=1024, D=64, causal) and
-   on a non-causal case, a ``kv_lengths`` case with a zero-length row
-   and an odd S=100: the forward's output within ``fold_error_bound``
-   and its lse within LSE_ATOL, dq/dk/dv within
-   ``flash_bwd_error_bound``, padded keys' dk/dv exactly zero, and two
+   on a non-causal case, a ``kv_lengths`` case with a zero-length row,
+   an odd S=100, D=128 at S=1024 with lengths [0, 700], and D=40 at
+   S=200: the forward's output within ``fold_error_bound`` and its lse
+   within LSE_ATOL, dq/dk/dv within ``flash_bwd_error_bound``, the dK/dV
+   kernel's delta pre-pass within 2 D 2^-24 of each row's sum |dO * O|
+   of its plain version, padded keys' dk/dv exactly zero, and two
    backward runs bitwise equal. Yardstick: SDPA's forward, and its
    backward alone (``torch.autograd.grad`` of a forward run outside the
-   timer).
+   timer). Each flash row carries the SASS counts (``cuobjdump``) of
+   ``HGMMA`` and ``UTMALDG`` in its kernels' instantiations; every
+   instantiation of the Hopper bodies of B1 and B3 must have both, and
+   their first bodies must not be built for bf16.
    The dense flash-decode kernel at generate's shape (B=8, H=12, L=1024,
    D=64, bf16 cache; lengths 0-1024, and f32 queries over the bf16 cache)
    within ``fold_error_bound``, timed with every row at length 768;
@@ -940,18 +945,19 @@ def attended_pairs(s: int, causal: bool, lengths) -> int:
     return pairs
 
 
-def flash_case(g, b, s, causal, lengths=None, timed=False):
-    """Check the three flash kernels against their plain versions on one
-    bf16 case; -> per-kernel errors, and times and bounds when timed."""
+def flash_case(g, b, s, causal, lengths=None, timed=False, d=D):
+    """Check the three flash kernels (and the dK/dV kernel's delta
+    pre-pass) against their plain versions on one bf16 case; -> per-kernel
+    errors, and times and bounds when timed."""
     from nezha_tpu_torch.ops.cuda.flash_attention import (
-        _dkv_launch, _dq_launch, _lengths, flash_block_bwd,
+        _delta_launch, _dkv_launch, _dq_launch, _lengths, flash_block_bwd,
         flash_block_bwd_plain, flash_block_fwd, flash_block_fwd_plain,
-        flash_bwd_error_bound)
+        flash_bwd_delta_plain, flash_bwd_error_bound)
 
     bf = torch.bfloat16
-    tag = (f"flash B={b} S={s} causal={causal}"
+    tag = (f"flash B={b} S={s} D={d} causal={causal}"
            + ("" if lengths is None else f" lengths={lengths}"))
-    q, k, v, do = (torch.randn(b, H, s, D, generator=g).to("cuda", bf)
+    q, k, v, do = (torch.randn(b, H, s, d, generator=g).to("cuda", bf)
                    for _ in range(4))
     lens = (None if lengths is None
             else torch.tensor(lengths, dtype=torch.int32, device="cuda"))
@@ -986,11 +992,23 @@ def flash_case(g, b, s, causal, lengths=None, timed=False):
     again = flash_block_bwd(*bwd_args, kv_lengths=lens)
     if not all(torch.equal(x, y) for x, y in zip(grads, again)):
         fail(f"{tag}: two backward runs differ")
+    # The pre-pass's delta against its plain version on the card: each
+    # sums D fp32 products in its own order, off the exact sum by at most
+    # D 2^-24 of the row's sum |dO * O|, so the two by twice that.
+    delta = _delta_launch(want, do)
+    torch.cuda.synchronize()
+    row = (do.float() * want.float()).abs().sum(-1)
+    delta_ratio = ((delta - flash_bwd_delta_plain(want, do)).abs()
+                   / (2 * d * 2.0 ** -24 * row + 1e-30)).max().item()
+    if not delta_ratio <= 1.0:
+        fail(f"{tag}: delta off its plain version by {delta_ratio} of "
+             f"its bound")
     res["lse_err"] = lse_err
+    res["delta_err_over_tolerance"] = delta_ratio
     if not timed:
         return res
     lens_c = _lengths(lens, q, s)
-    scale = 1.0 / D ** 0.5
+    scale = 1.0 / d ** 0.5
     bwd = bwd_args[:6] + (lens_c, causal, scale)
     timing = {
         "flash_fwd": device_time(
@@ -1017,11 +1035,11 @@ def flash_case(g, b, s, causal, lengths=None, timed=False):
         f"{backend} backward")
     library["flash_bwd_dq"] = library["flash_bwd_dkv"] = sdpa_bwd
     pairs = attended_pairs(s, causal, lengths or [s] * b) * H
-    x = b * H * s * D * 2                     # one [B, H, S, D] bf16 tensor
+    x = b * H * s * d * 2                     # one [B, H, S, D] bf16 tensor
     lse_bytes = b * H * s * 4
-    bounds = {"flash_fwd": bound(4 * x + lse_bytes, 4 * pairs * D),
-              "flash_bwd_dq": bound(6 * x + lse_bytes, 6 * pairs * D),
-              "flash_bwd_dkv": bound(7 * x + lse_bytes, 8 * pairs * D)}
+    bounds = {"flash_fwd": bound(4 * x + lse_bytes, 4 * pairs * d),
+              "flash_bwd_dq": bound(6 * x + lse_bytes, 6 * pairs * d),
+              "flash_bwd_dkv": bound(7 * x + lse_bytes, 8 * pairs * d)}
     plain_ms = {"flash_fwd": plain_fwd_ms, "flash_bwd_dq": plain_bwd_ms,
                 "flash_bwd_dkv": plain_bwd_ms}
     res["timing"] = {n: {**timing[n], **library[n], "plain_ms": plain_ms[n],
@@ -1040,17 +1058,88 @@ FLASH_SOURCES = {
 }
 
 
+# Each flash row's kernels in the built libraries (SASS labels), and the
+# Hopper bodies: every instantiation of these must issue wgmma (HGMMA)
+# and TMA loads (UTMALDG).
+FLASH_SASS = {"flash_fwd": ("flash_fwd_",),
+              "flash_bwd_dq": ("flash_bwd_dq_",),
+              "flash_bwd_dkv": ("flash_bwd_delta_", "flash_bwd_dkv_")}
+HOPPER_BODIES = ("flash_fwd_wgmma_kernel", "flash_bwd_dkv_wgmma_kernel")
+# The first bodies of B1 and B3, built for fp32 only: bf16 runs the
+# Hopper ones.
+FIRST_BODIES = ("flash_fwd_kernel", "flash_bwd_dkv_kernel")
+
+
+def sass_label(mangled: str) -> str:
+    """A mangled flash kernel instantiation, readable: its dtype and
+    integer template arguments, ``flash_bwd_dq_kernel<bf16, 8>``,
+    ``flash_fwd_wgmma_kernel<64, 2, 128, 2>``."""
+    import re
+
+    m = re.search(r"(flash_[a-z_]+_kernel)I(.*?E)E*v", mangled)
+    if not m:
+        return mangled
+    args = m.group(2)
+    words = (["bf16"] if args.startswith("13__nv_bfloat16")
+             else ["f32"] if args.startswith("f") else [])
+    words += re.findall(r"Li(\d+)E", args)
+    return f"{m.group(1)}<{', '.join(words)}>"
+
+
+def flash_sass():
+    """``HGMMA`` (wgmma) and ``UTMALDG`` (TMA load) counts of every kernel
+    instantiation in the built flash libraries, from ``cuobjdump -sass``.
+    Fails unless every instantiation of both Hopper bodies (one or more
+    each) issues both, or if a first body of B1 or B3 was built for
+    bf16."""
+    import re
+    from pathlib import Path
+
+    from nezha_tpu_torch.ops.cuda import build
+
+    tool = Path(build.nvcc_path()).with_name("cuobjdump")
+    counts = {}
+    for lib in ("flash_fwd", "flash_bwd"):
+        sass = subprocess.run([str(tool), "-sass",
+                               str(build.library_path(lib))],
+                              capture_output=True, text=True, timeout=300,
+                              check=True).stdout
+        current = None
+        for line in sass.splitlines():
+            m = re.match(r"\s*Function : (\S+)", line)
+            if m:
+                current = sass_label(m.group(1))
+                counts[current] = {"HGMMA": 0, "UTMALDG": 0}
+            elif current:
+                for op in counts[current]:
+                    if re.search(rf"\b{op}\b", line):
+                        counts[current][op] += 1
+    for body in HOPPER_BODIES:
+        inst = {k: c for k, c in counts.items() if k.startswith(body + "<")}
+        if not inst or not all(c["HGMMA"] and c["UTMALDG"]
+                               for c in inst.values()):
+            fail(f"{body}: SASS instantiations {inst} lack HGMMA or UTMALDG")
+    for body in FIRST_BODIES:
+        if any(k.startswith(body + "<bf16") for k in counts):
+            fail(f"{body} was built for bf16: {sorted(counts)}")
+    return counts
+
+
 def check_flash(g):
-    """The flash kernels on four cases; the kernels line reports the
-    training shape's times and the worst error over all cases."""
+    """The flash kernels on six cases; the kernels line reports the
+    training shape's times, the worst error over all cases and each
+    row's SASS counts."""
     main = flash_case(g, TRAIN_B, TRAIN_S, True, timed=True)
     cases = [main,
              flash_case(g, 4, TRAIN_S, False),
              flash_case(g, 4, TRAIN_S, True, lengths=[0, 1, 517, TRAIN_S]),
-             flash_case(g, TRAIN_B, 100, True)]
+             flash_case(g, TRAIN_B, 100, True),
+             flash_case(g, 2, TRAIN_S, True, lengths=[0, 700], d=128),
+             flash_case(g, 2, 200, True, d=40)]
     print(json.dumps({"flash_cases": [
         {k: v for k, v in c.items() if k != "timing"} for c in cases]}),
         flush=True)
+    sass = flash_sass()
     out = []
     for name, (source, replaces) in FLASH_SOURCES.items():
         t = main["timing"][name]
@@ -1059,7 +1148,9 @@ def check_flash(g):
                     "max_abs_err": max(c[name][0] for c in cases),
                     "err_over_tolerance": max(c[name][1] for c in cases),
                     **t,
-                    "shape": f"B={TRAIN_B} H={H} S={TRAIN_S} D={D} causal"})
+                    "shape": f"B={TRAIN_B} H={H} S={TRAIN_S} D={D} causal",
+                    "sass": {k: c for k, c in sass.items()
+                             if k.startswith(FLASH_SASS[name])}})
         if name != "flash_fwd":
             out[-1]["plain_covers"] = "dq, dk and dv together"
             out[-1]["library_covers"] = "dq, dk and dv together"
@@ -1651,8 +1742,8 @@ def generate_phase(card: str):
     wall = time.perf_counter() - t0
     launches = {**LAUNCHES, **LN_LAUNCHES,
                 "flash_decode": flash_decode_attention.launches}
-    want = {"flash_fwd": layers, "flash_bwd_dq": 0, "flash_bwd_dkv": 0,
-            "flash_decode": (GEN_NEW - 1) * layers,
+    want = {"flash_fwd": layers, "flash_bwd_dq": 0, "flash_bwd_delta": 0,
+            "flash_bwd_dkv": 0, "flash_decode": (GEN_NEW - 1) * layers,
             "layer_norm_fwd": GEN_NEW * (2 * layers + 1),
             "layer_norm_bwd": 0}
     if launches != want:
@@ -1775,6 +1866,12 @@ def main() -> int:
                                  if k["name"] in c}
         if k["launches"] <= 0:
             fail(f"{k['name']} was not launched on the {home} path")
+        if k["name"] == "flash_bwd_dkv":
+            # B3's delta pre-pass runs before each dK/dV launch.
+            k["pre_pass_launches"] = paths[home]["flash_bwd_delta"]
+            if k["pre_pass_launches"] != k["launches"]:
+                fail(f"flash_bwd_delta launched {k['pre_pass_launches']} "
+                     f"times for {k['launches']} dK/dV launches")
     print(card_line, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

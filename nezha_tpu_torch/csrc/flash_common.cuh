@@ -1,7 +1,9 @@
 // Shared pieces of the flash-attention training kernels (flash_fwd.cu,
 // flash_bwd.cu): tile staging into shared memory, the row limits of
-// causal and length masking, and the two warp-level products all three
-// kernels are built from.
+// causal and length masking, and the two warp-level products the first
+// bodies are built from (every dq kernel, and the fp32 forward and dK/dV;
+// the bf16 forward and dK/dV bodies are built from hopper.cuh), and the
+// launch plan every entry point checks.
 //
 // A thread block has 4 warps and owns 64 rows of its output (queries in
 // the forward and dQ kernels, keys in the dK/dV kernel); each warp owns
@@ -78,32 +80,44 @@ __device__ __forceinline__ void load_tile(T* __restrict__ dst,
   }
 }
 
-// delta = rowsum(dO * O) in fp32 for the 64 rows of a tile
-// (flash_attention.py:223, :239-241) into delta[64]: dO from its shared
+// Half of delta = rowsum(dO * O) for one row in fp32
+// (flash_attention.py:223, :239-241): thread `half` of a row's pair sums
+// every other 16-byte chunk from chunk `half`, in element order, with
+// fmaf(dO, O). The pair's two sums added give the row's delta; tile_delta
+// and the delta pre-pass (flash_bwd.cu) both sum this way, so their bits
+// agree.
+template <typename T>
+__device__ __forceinline__ float delta_half(const T* __restrict__ drow,
+                                            const T* __restrict__ orow,
+                                            int D, int half) {
+  constexpr int VEC = 16 / static_cast<int>(sizeof(T));
+  float sum = 0.f;
+  for (int c = half * VEC; c < D; c += 2 * VEC) {
+    const uint4 ov = *reinterpret_cast<const uint4*>(orow + c);
+    const uint4 dv = *reinterpret_cast<const uint4*>(drow + c);
+    const T* op = reinterpret_cast<const T*>(&ov);
+    const T* dp = reinterpret_cast<const T*>(&dv);
+#pragma unroll
+    for (int e = 0; e < VEC; ++e)
+      sum = fmaf(to_float(dp[e]), to_float(op[e]), sum);
+  }
+  return sum;
+}
+
+// delta for the 64 rows of a tile into delta[64]: dO from its shared
 // tile, O from global memory (tile row r is row row0 + r of o; zero at or
-// past n_rows). Two threads per row, each summing every other 16-byte
-// chunk, so all of a thread's loads are in flight together.
+// past n_rows). Two threads per row (delta_half), so all of a thread's
+// loads are in flight together.
 template <typename T>
 __device__ __forceinline__ void tile_delta(float* __restrict__ delta,
                                            const T* __restrict__ dos,
                                            const T* __restrict__ o,
                                            int row0, int n_rows, int D) {
-  constexpr int VEC = 16 / static_cast<int>(sizeof(T));
   const int r = threadIdx.x >> 1, half = threadIdx.x & 1;
   float sum = 0.f;
-  if (row0 + r < n_rows) {
-    const T* orow = o + static_cast<size_t>(row0 + r) * D;
-    const T* drow = dos + r * tile_ld(D);
-    for (int c = half * VEC; c < D; c += 2 * VEC) {
-      const uint4 ov = *reinterpret_cast<const uint4*>(orow + c);
-      const uint4 dv = *reinterpret_cast<const uint4*>(drow + c);
-      const T* op = reinterpret_cast<const T*>(&ov);
-      const T* dp = reinterpret_cast<const T*>(&dv);
-#pragma unroll
-      for (int e = 0; e < VEC; ++e)
-        sum = fmaf(to_float(dp[e]), to_float(op[e]), sum);
-    }
-  }
+  if (row0 + r < n_rows)
+    sum = delta_half(dos + r * tile_ld(D),
+                     o + static_cast<size_t>(row0 + r) * D, D, half);
   sum += __shfl_xor_sync(FULL, sum, 1);
   if (half == 0) delta[r] = sum;
 }
@@ -276,6 +290,59 @@ __device__ __forceinline__ void store_rows(T* __restrict__ out,
       p[0] = from_float<T>(acc[n][2] / den1);
       p[1] = from_float<T>(acc[n][3] / den1);
     }
+  }
+}
+
+// A kernel's launch geometry as the caller decided it (ops/cuda/
+// flash_attention.py FlashPlan.as_c, six ints in this order): the head
+// dim its tiles hold (D padded), the rows a block owns, the rows of a
+// streamed tile, the stages of the ring, the dynamic shared bytes, and
+// whether the grid launches the heaviest tiles first. The entry points
+// launch only a body whose geometry it matches, and fail otherwise.
+struct Plan {
+  int d_pad, rows, tile, stages, smem, heavy_first;
+
+  bool matches(int d_pad_, int rows_, int tile_, int stages_,
+               size_t smem_) const {
+    return d_pad == d_pad_ && rows == rows_ && tile == tile_ &&
+           stages == stages_ && static_cast<size_t>(smem) == smem_ &&
+           (heavy_first == 0 || heavy_first == 1);
+  }
+};
+
+constexpr float LOG2E = 1.4426950408889634f;
+constexpr float LN2 = 0.6931471805599453f;
+
+// 2^x on the special-function unit (ex2.approx.ftz: ~2 ulp, results
+// below 2^-126 flushed to zero), the exponential of the Hopper bodies,
+// which run the softmax in base 2. Against expf of the same argument a
+// p differs by ~2^-22 of itself, far below the bf16 rounding (2^-8) it
+// then takes before each product.
+__device__ __forceinline__ float exp2_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// store_rows for bf16 outputs of the Hopper bodies: each column pair
+// (acc / den, rounded to nearest even) in one 4-byte store.
+template <int ND>
+__device__ __forceinline__ void store_rows_bf16x2(
+    __nv_bfloat16* __restrict__ out, const float acc[ND][4], int r0,
+    int n_rows, int D, int lane, float den0, float den1) {
+  const int t = lane & 3;
+#pragma unroll
+  for (int n = 0; n < ND; ++n) {
+    if (8 * n >= D) continue;
+    const int c = 8 * n + 2 * t;
+    if (r0 < n_rows)
+      *reinterpret_cast<__nv_bfloat162*>(out + static_cast<size_t>(r0) * D +
+                                         c) =
+          __floats2bfloat162_rn(acc[n][0] / den0, acc[n][1] / den0);
+    if (r0 + 8 < n_rows)
+      *reinterpret_cast<__nv_bfloat162*>(
+          out + static_cast<size_t>(r0 + 8) * D + c) =
+          __floats2bfloat162_rn(acc[n][2] / den1, acc[n][3] / den1);
   }
 }
 

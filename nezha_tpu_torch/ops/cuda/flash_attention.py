@@ -12,6 +12,16 @@
   that saves ``q, k, v, out`` and the ``[B, H, S]`` fp32 lse, and runs
   :func:`flash_block_bwd` in its backward.
 
+The launch geometry of the forward and dK/dV kernels is decided here
+(:class:`FlashPlan`, :func:`fwd_plan`, :func:`dkv_plan`) and passed to
+their C entry points, which launch only a body built for it: bf16 runs
+the Hopper bodies (wgmma fed by TMA), fp32 the first bodies. The dK/dV
+kernel reads delta = rowsum(dO*O) from a pre-pass kernel
+(:func:`flash_bwd_delta_plain` is its plain version). The functions
+:func:`launch_order`, :func:`fwd_visits`, :func:`dkv_visits` and
+:func:`attended_pairs` restate the kernels' walk over the tiles, so the
+CPU tests can hold it against :func:`_valid`.
+
 ``LAUNCHES`` counts kernel launches by kernel name. Shapes: q ``[B, H,
 Sq, D]``, k and v ``[B, H, Sk, D]`` of q's dtype (f32 or bf16), D a
 multiple of 8 up to 128; causal needs ``Sq == Sk``; ``kv_lengths`` ([B]
@@ -21,7 +31,8 @@ int) masks keys at or past each row's length, clamped to ``[1, Sk]``.
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Tuple
+import dataclasses
+from typing import List, Optional, Tuple
 
 import torch
 
@@ -35,14 +46,216 @@ from nezha_tpu_torch.ops.cuda.common import (BF16_UNIT_ROUNDOFF, pick_block,
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _TAIL = (_I,) * 5 + (ctypes.c_float, _I, _I, _P)
-_FWD_ARGTYPES = (_P,) * 6 + _TAIL
+_FWD_ARGTYPES = (_P,) * 6 + _TAIL + (_P,)         # ..., plan
 _DQ_ARGTYPES = (_P,) * 8 + _TAIL
-_DKV_ARGTYPES = (_P,) * 9 + _TAIL
+_DKV_ARGTYPES = (_P,) * 9 + _TAIL + (_P, _P)      # ..., delta, plan
+_DELTA_ARGTYPES = (_P,) * 3 + (_I,) * 5 + (_P,)
 # The TPU kernel's key block at training lengths (_auto_blocks: 512): the
 # plain forward folds in the same order.
 _PLAIN_BLOCK_K = 512
 
-LAUNCHES = {"flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
+LAUNCHES = {"flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_delta": 0,
+            "flash_bwd_dkv": 0}
+
+# ------------------------------------------------------------ launch plans
+# The largest dynamic shared memory a block may ask for on Hopper.
+MAX_SMEM_BYTES = 232448
+_GROUP = 64            # rows one consumer warpgroup owns (wgmma's M)
+_SUB_COLS = 64         # bf16 columns of one 128-byte swizzled line
+_ALIGN = 1024          # the kernels round their shared base up to this
+_BARRIER = 8           # bytes of an mbarrier
+_FIRST_TILE = 64       # the first bodies' rows a block owns and streams
+_FIRST_PAD = 8         # and their shared row padding, in elements
+
+
+@dataclasses.dataclass(frozen=True)
+class FlashPlan:
+    """The launch geometry of one flash kernel, decided here and passed to
+    its C entry point (``csrc/flash_common.cuh`` ``Plan``), which launches
+    only a body built for it and fails otherwise.
+
+    - ``kernel``: ``"fwd"`` or ``"dkv"``;
+    - ``wgmma``: the Hopper body (bf16: a producer warpgroup feeds TMA
+      tiles to consumer warpgroups of 64 rows, which mask only the tiles
+      that cross the diagonal, the sequence's end or ``kv_len``) or the
+      first body (fp32: 4 warps on 64 rows, every tile masked);
+    - ``d_pad``: the head dim its tiles hold (zeros past D);
+    - ``rows``: rows a block owns (queries in the forward, keys in dK/dV);
+    - ``tile``: rows of a streamed tile (keys in the forward, queries in
+      dK/dV);
+    - ``stages``: streamed tiles in flight;
+    - ``smem_bytes``: the dynamic shared memory the launch asks for;
+    - ``heavy_first``: under causal, the grid launches the tiles with the
+      most work first (:func:`launch_order`)."""
+
+    kernel: str
+    wgmma: bool
+    d_pad: int
+    rows: int
+    tile: int
+    stages: int
+    smem_bytes: int
+    heavy_first: bool
+
+    def as_c(self):
+        """The six ints of the C ``Plan``, in its order."""
+        return (ctypes.c_int * 6)(self.d_pad, self.rows, self.tile,
+                                  self.stages, self.smem_bytes,
+                                  int(self.heavy_first))
+
+
+def _padded(d: int) -> int:
+    """D rounded up to whole 64-column swizzled sub-tiles."""
+    return -(-d // _SUB_COLS) * _SUB_COLS
+
+
+# The Hopper bodies' builds, by padded D: (consumer warpgroups, rows of a
+# streamed tile, stages) — csrc/flash_fwd.cu FwdBuilds and csrc/flash_bwd.cu
+# DkvBuilds. Each is the fastest of those tools/tune_flash_plans.py timed
+# at the training shape on the H100 (PERF.md).
+FWD_BUILDS = {64: (1, 128, 3), 128: (2, 128, 3)}
+DKV_BUILDS = {64: (1, 64, 2), 128: (1, 64, 2)}
+
+
+def hopper_plan(kernel: str, d_pad: int, consumers: int, tile: int,
+                stages: int) -> FlashPlan:
+    """One geometry of a Hopper body: a block owns ``consumers`` x 64 rows
+    and streams ``tile``-row tiles through ``stages`` ring slots. Shared
+    memory holds, from a 1024-aligned base (1024 bytes more asked for),
+    the forward's Q and ring of K/V tiles, or dK/dV's K, V and ring of
+    Q/dO tiles with their lse and delta slices, then 1 + 2 * stages
+    barriers."""
+    rows = _GROUP * consumers
+    held = rows if kernel == "fwd" else 2 * rows
+    smem = (_ALIGN + 2 * d_pad * (held + 2 * stages * tile)
+            + (4 * 2 * stages * tile if kernel == "dkv" else 0)
+            + _BARRIER * (1 + 2 * stages))
+    return FlashPlan(kernel, True, d_pad, rows, tile, stages, smem, True)
+
+
+def fwd_plan(d: int, dtype) -> FlashPlan:
+    """The forward's geometry. bf16: the build FWD_BUILDS names for D
+    padded to 64 or 128 columns. fp32: the first body, 64 queries a block,
+    Q/K/V tiles of D + 8 columns."""
+    build.check_head_dim(d)
+    if dtype == torch.bfloat16:
+        return hopper_plan("fwd", _padded(d), *FWD_BUILDS[_padded(d)])
+    if dtype == torch.float32:
+        return FlashPlan("fwd", False, d, _FIRST_TILE, _FIRST_TILE, 1,
+                         4 * 3 * _FIRST_TILE * (d + _FIRST_PAD), False)
+    raise ValueError(f"dtype {dtype} not supported (f32 or bf16)")
+
+
+def dkv_plan(d: int, dtype) -> FlashPlan:
+    """The dK/dV kernel's geometry. bf16: the build DKV_BUILDS names for D
+    padded to 64 or 128 columns; its query tiles stay 64 wide, since at
+    D = 128 the two fp32 accumulators and S^T, dP^T take ~192 of a
+    consumer's 232 registers. fp32: the first body, 64 keys a block."""
+    build.check_head_dim(d)
+    if dtype == torch.bfloat16:
+        return hopper_plan("dkv", _padded(d), *DKV_BUILDS[_padded(d)])
+    if dtype == torch.float32:
+        return FlashPlan("dkv", False, d, _FIRST_TILE, _FIRST_TILE, 1,
+                         4 * 4 * _FIRST_TILE * (d + _FIRST_PAD), False)
+    raise ValueError(f"dtype {dtype} not supported (f32 or bf16)")
+
+
+def launch_order(plan: FlashPlan, s_rows: int, causal: bool) -> List[int]:
+    """The row tiles of one (b, h) in the order the grid launches them
+    (rank ``blockIdx.y`` of the Hopper grids, which put every (b, h) of a
+    rank before the next rank). Under causal the forward's last query tile
+    meets the most key tiles and dK/dV's first key tile the most query
+    tiles, so heaviest first is descending for one, ascending for the
+    other."""
+    n = -(-s_rows // plan.rows)
+    if plan.kernel == "fwd" and plan.wgmma and causal and plan.heavy_first:
+        return [n - 1 - r for r in range(n)]
+    return list(range(n))
+
+
+def fwd_visits(plan: FlashPlan, s_q: int, s_k: int, causal: bool,
+               kv_len: int) -> List[List[Tuple[int, bool]]]:
+    """For each query tile, the key tiles the forward folds, in order,
+    each with whether it runs the mask: tiles wholly above the diagonal
+    or past ``kv_len`` are skipped; the Hopper body masks only a tile
+    that crosses ``kv_len`` or the diagonal of the block's first query."""
+    kv_len = max(1, min(kv_len, s_k))
+    out = []
+    for qt in range(-(-s_q // plan.rows)):
+        q0 = qt * plan.rows
+        k_end = min(kv_len, q0 + plan.rows) if causal else kv_len
+        tiles = []
+        for kt in range(-(-k_end // plan.tile)):
+            k0 = kt * plan.tile
+            edge = (k0 + plan.tile > kv_len
+                    or (causal and k0 + plan.tile - 1 > q0))
+            tiles.append((kt, edge or not plan.wgmma))
+        out.append(tiles)
+    return out
+
+
+def dkv_visits(plan: FlashPlan, s_q: int, s_k: int, causal: bool,
+               kv_len: int) -> List[List[Tuple[int, bool]]]:
+    """For each group of 64 keys (a consumer warpgroup, or a first-body
+    block), the query tiles dK/dV folds, in order, each with whether it
+    runs the mask.
+    A block starts at the diagonal query tile under causal and does
+    nothing past ``kv_len``; a Hopper consumer skips the tiles none of its
+    keys sees and masks only those that cross the diagonal, the end of the
+    queries or ``kv_len``."""
+    kv_len = max(1, min(kv_len, s_k))
+    out = []
+    for kt in range(-(-s_k // plan.rows)):
+        k0 = kt * plan.rows
+        q_begin = k0 if causal else 0
+        n_q = -(-(s_q - q_begin) // plan.tile) if k0 < kv_len else 0
+        for kw in range(k0, k0 + plan.rows, _GROUP):
+            tiles = []
+            for i in range(n_q):
+                q0 = q_begin + i * plan.tile
+                if plan.wgmma and not (kw < kv_len and (
+                        not causal or q0 + plan.tile - 1 >= kw)):
+                    continue
+                edge = (not plan.wgmma
+                        or (causal and q0 < kw + _GROUP - 1)
+                        or q0 + plan.tile > s_q
+                        or kw + _GROUP > kv_len)
+                tiles.append((q0 // plan.tile, edge))
+            out.append(tiles)
+    return out
+
+
+def attended_pairs(plan: FlashPlan, s_q: int, s_k: int, causal: bool,
+                   kv_len: int) -> torch.Tensor:
+    """``[s_q, s_k]`` bool: the (query, key) pairs the kernel's walk lets
+    through — every pair of a tile it folds unmasked, and the pairs the
+    mask keeps (key < kv_len, and key <= query under causal) of a tile it
+    masks."""
+    kv_len = max(1, min(kv_len, s_k))
+    qpos = torch.arange(s_q)[:, None]
+    kpos = torch.arange(s_k)[None, :]
+    keep = ((kpos < kv_len) & ((kpos <= qpos) | (not causal))).expand(
+        s_q, s_k)
+    out = torch.zeros(s_q, s_k, dtype=torch.bool)
+
+    def let_through(qs: slice, ks: slice, masked: bool) -> None:
+        out[qs, ks] |= keep[qs, ks] if masked else True
+
+    if plan.kernel == "fwd":
+        for qt, tiles in enumerate(fwd_visits(plan, s_q, s_k, causal,
+                                              kv_len)):
+            for kt, masked in tiles:
+                let_through(slice(qt * plan.rows, (qt + 1) * plan.rows),
+                            slice(kt * plan.tile, (kt + 1) * plan.tile),
+                            masked)
+    else:
+        for g, tiles in enumerate(dkv_visits(plan, s_q, s_k, causal,
+                                             kv_len)):
+            for qt, masked in tiles:
+                let_through(slice(qt * plan.tile, (qt + 1) * plan.tile),
+                            slice(g * _GROUP, (g + 1) * _GROUP),
+                            masked)
+    return out
 
 
 def _check(q, k, v, causal: bool, *more) -> None:
@@ -131,8 +344,13 @@ def _bwd_terms(q, k, v, o, lse, do, causal, scale, kv_lengths):
     s = masked_scores(q, k, valid, scale)
     p = torch.exp(s - lse[..., None])
     dp = torch.einsum("bhqd,bhkd->bhqk", do.float(), v.float())
-    delta = (do.float() * o.float()).sum(dim=-1, keepdim=True)
-    return p, dp - delta
+    return p, dp - flash_bwd_delta_plain(o, do)[..., None]
+
+
+def flash_bwd_delta_plain(o, do) -> torch.Tensor:
+    """The delta pre-pass's function: ``rowsum(dO * O)`` in fp32, ``[B, H,
+    Sq]``."""
+    return (do.float() * o.float()).sum(dim=-1)
 
 
 def flash_block_bwd_plain(q, k, v, o, lse, do, causal: bool,
@@ -222,7 +440,8 @@ def _ptr(t: Optional[torch.Tensor]):
     return None if t is None else t.data_ptr()
 
 
-def _fwd_launch(q, k, v, lens, causal, scale):
+def _fwd_launch(q, k, v, lens, causal, scale, plan=None):
+    """The forward kernel at ``plan`` (fwd_plan's by default)."""
     _check_cuda(q=q, k=k, v=v)
     b, h, s_q, d = q.shape
     out = torch.empty_like(q)
@@ -231,7 +450,8 @@ def _fwd_launch(q, k, v, lens, causal, scale):
     rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(lens),
             out.data_ptr(), lse.data_ptr(), b, h, s_q, k.shape[2], d, scale,
             int(causal), build.DTYPE_CODES[q.dtype],
-            torch.cuda.current_stream(q.device).cuda_stream)
+            torch.cuda.current_stream(q.device).cuda_stream,
+            (plan or fwd_plan(d, q.dtype)).as_c())
     build.check_launch(rc, "nezha_flash_fwd")
     LAUNCHES["flash_fwd"] += 1
     return out, lse
@@ -262,11 +482,30 @@ def _dq_launch(q, k, v, o, lse, do, lens, causal, scale):
     return dq
 
 
-def _dkv_launch(q, k, v, o, lse, do, lens, causal, scale):
+def _delta_launch(o, do):
+    """The delta pre-pass: -> ``rowsum(dO * O)`` fp32 ``[B, H, Sq]``."""
+    b, h, s_q, d = o.shape
+    delta = torch.empty((b, h, s_q), dtype=torch.float32, device=o.device)
+    fn = build.bind("flash_bwd", "nezha_flash_bwd_delta", _DELTA_ARGTYPES)
+    build.check_launch(
+        fn(o.data_ptr(), do.data_ptr(), delta.data_ptr(), b, h, s_q, d,
+           build.DTYPE_CODES[o.dtype],
+           torch.cuda.current_stream(o.device).cuda_stream),
+        "nezha_flash_bwd_delta")
+    LAUNCHES["flash_bwd_delta"] += 1
+    return delta
+
+
+def _dkv_launch(q, k, v, o, lse, do, lens, causal, scale, plan=None):
+    """dK and dV: the delta pre-pass, then the dK/dV kernel at ``plan``
+    (dkv_plan's by default)."""
     head, tail = _bwd_args(q, k, v, o, lse, do, lens, causal, scale)
+    delta = _delta_launch(o, do)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     fn = build.bind("flash_bwd", "nezha_flash_bwd_dkv", _DKV_ARGTYPES)
-    build.check_launch(fn(*head, dk.data_ptr(), dv.data_ptr(), *tail),
+    build.check_launch(fn(*head, dk.data_ptr(), dv.data_ptr(), *tail,
+                          delta.data_ptr(),
+                          (plan or dkv_plan(q.shape[3], q.dtype)).as_c()),
                        "nezha_flash_bwd_dkv")
     LAUNCHES["flash_bwd_dkv"] += 1
     return dk, dv
@@ -295,7 +534,8 @@ def flash_block_bwd(q, k, v, o, lse, do, causal: bool,
                     ) -> Tuple[torch.Tensor, ...]:
     """Gradients for one block pair given the row lse ``[B, H, Sq]`` and
     the output o (delta = rowsum(dO*O)): -> (dq, dk, dv). CUDA tensors
-    launch the dq and dk/dv kernels; CPU tensors run the plain version."""
+    launch the dq kernel, the delta pre-pass and the dk/dv kernel; CPU
+    tensors run the plain version."""
     _check(q, k, v, causal, o, do)
     if _route(q) == "cpu":
         return flash_block_bwd_plain(q, k, v, o, lse, do, causal, scale,

@@ -447,9 +447,41 @@ def test_sequence_sharded_engine_on_card_matches_cpu(cuda_device, variant):
 
 # (S_q, S_k, D, causal, kv_lengths): a causal row cut mid-tile, a
 # rectangular full case with a D that is 8 mod 16 (the padded last mma
-# step), and D=128 with a zero-length row and a length past S.
+# step; the Hopper bodies pad it to 64 columns), D=128 with a zero-length
+# row and a length past S, the training length (eight 128-query tiles,
+# heaviest first), and D=128 over two 128-key tiles with a length that
+# ends inside the second. One row per length, else B=2; B=1 at S=1024.
 FLASH_CASES = [(100, 100, 64, True, None), (100, 70, 40, False, None),
-               (130, 130, 128, True, [0, 77, 500])]
+               (130, 130, 128, True, [0, 77, 500]),
+               (1024, 1024, 64, True, None),
+               (200, 200, 128, True, [0, 150])]
+# The kernels each dtype's call must launch (profiler names): bf16 the
+# Hopper bodies, fp32 the first ones; the delta pre-pass for both.
+FLASH_KERNELS = {
+    torch.bfloat16: {"flash_fwd_wgmma_kernel", "flash_bwd_dq_kernel",
+                     "flash_bwd_delta_kernel", "flash_bwd_dkv_wgmma_kernel"},
+    torch.float32: {"flash_fwd_kernel", "flash_bwd_dq_kernel",
+                    "flash_bwd_delta_kernel", "flash_bwd_dkv_kernel"}}
+
+
+def _device_kernels(fn):
+    """Names of the CUDA kernels ``fn`` launches, under torch.profiler
+    (return type, namespaces and template arguments dropped)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    names = set()
+    for e in prof.events():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        name = e.name.replace("(anonymous namespace)::", "")
+        name = name.split("(")[0].split("<")[0].split("::")[-1]
+        names.add(name.replace("void ", "").strip())
+    return names
 
 
 @pytest.mark.gpu
@@ -459,9 +491,10 @@ def test_flash_kernels_match_plain(cuda_device, dtype, s_q, s_k, d, causal,
                                    lengths):
     """Forward out within fold_error_bound and lse within 1e-4 (fp32 sums
     in another order), dq/dk/dv within flash_bwd_error_bound, padded keys'
-    dk/dv exactly zero, and the backward bitwise repeatable."""
+    dk/dv exactly zero, the backward bitwise repeatable, and each call on
+    its dtype's kernels: the Hopper (wgmma) bodies for bf16."""
     rng = np.random.RandomState(s_q + d)
-    b = 3 if lengths else 2
+    b = len(lengths) if lengths else (1 if s_q >= 1024 else 2)
     q, do = (torch.from_numpy(rng.randn(b, 2, s_q, d).astype(np.float32))
              .to(cuda_device, dtype) for _ in range(2))
     k, v = (torch.from_numpy(rng.randn(b, 2, s_k, d).astype(np.float32))
@@ -492,7 +525,13 @@ def test_flash_kernels_match_plain(cuda_device, dtype, s_q, s_k, d, causal,
     again = flash_block_bwd(*args, kv_lengths=lens)
     assert all(torch.equal(x, y) for x, y in zip(grads, again))
     assert {k: LAUNCHES[k] - before[k] for k in LAUNCHES} == {
-        "flash_fwd": 1, "flash_bwd_dq": 2, "flash_bwd_dkv": 2}
+        "flash_fwd": 1, "flash_bwd_dq": 2, "flash_bwd_delta": 2,
+        "flash_bwd_dkv": 2}
+    ran = _device_kernels(lambda: (
+        flash_block_fwd(q, k, v, causal, kv_lengths=lens),
+        flash_block_bwd(*args, kv_lengths=lens)))
+    assert {n for n in ran if n.startswith("flash_")} == \
+        FLASH_KERNELS[dtype], ran
 
 
 @pytest.mark.gpu

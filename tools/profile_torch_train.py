@@ -11,7 +11,7 @@ the fused LayerNorm kernels) through ``Trainer.fit``:
 2 warm-up steps, ``--steps`` timed steps without the profiler, then
 ``--steps`` more under ``torch.profiler``. Reports ms per step, tokens/s,
 the device's busy time and idle share, the device time of the three
-flash kernels, and the CUDA kernels and CPU ops that took the most time.
+flash kernels (B3 with its delta pre-pass) and their total, and the CUDA kernels and CPU ops that took the most time.
 It imports nothing of JAX.
 """
 
@@ -35,9 +35,13 @@ from nezha_tpu_torch.optim import adamw  # noqa: E402
 from nezha_tpu_torch.train import Trainer  # noqa: E402
 
 B, S = 8, 1024
-FLASH_SYMBOLS = {"flash_fwd": "flash_fwd_kernel",
-                 "flash_bwd_dq": "flash_bwd_dq_kernel",
-                 "flash_bwd_dkv": "flash_bwd_dkv_kernel"}
+# Each flash row's kernels: the Hopper (bf16) and first (fp32) bodies,
+# and B3's delta pre-pass.
+FLASH_SYMBOLS = {"flash_fwd": ("flash_fwd_kernel", "flash_fwd_wgmma_kernel"),
+                 "flash_bwd_dq": ("flash_bwd_dq_kernel",),
+                 "flash_bwd_dkv": ("flash_bwd_delta_kernel",
+                                   "flash_bwd_dkv_kernel",
+                                   "flash_bwd_dkv_wgmma_kernel")}
 # Device kernels by kind, first match wins (names as the profiler shows
 # them: the port's kernels, cuBLAS's nvjet and CUTLASS GEMMs, PyTorch's
 # elementwise and reduction kernels).
@@ -97,8 +101,10 @@ def main() -> int:
     kernels = [e for e in events
                if e.device_type == torch.autograd.DeviceType.CUDA]
     busy_us = sum(dev_us(e) for e in kernels)
-    flash = {name: sum(dev_us(e) for e in kernels if sym in e.key)
-             / 1e3 / args.steps for name, sym in FLASH_SYMBOLS.items()}
+    flash = {name: sum(dev_us(e) for e in kernels
+                       if any(sym in e.key for sym in syms))
+             / 1e3 / args.steps for name, syms in FLASH_SYMBOLS.items()}
+    flash["total"] = sum(flash.values())
     by_cat: dict = {}
     for e in kernels:
         c = category(e.key)
