@@ -1,9 +1,9 @@
 // Shared pieces of the flash-attention training kernels (flash_fwd.cu,
 // flash_bwd.cu): tile staging into shared memory, the row limits of
 // causal and length masking, and the two warp-level products the first
-// bodies are built from (every dq kernel, and the fp32 forward and dK/dV;
-// the bf16 forward and dK/dV bodies are built from hopper.cuh), and the
-// launch plan every entry point checks.
+// bodies are built from (the fp32 forward, dq and dK/dV, and the prefill
+// fold; the bf16 flash bodies are built from hopper.cuh), and the launch
+// plan every entry point checks.
 //
 // A thread block has 4 warps and owns 64 rows of its output (queries in
 // the forward and dQ kernels, keys in the dK/dV kernel); each warp owns
@@ -41,7 +41,8 @@ constexpr int TILE = WARPS * ROWS;    // 64: rows a block owns, and streams
 constexpr int NT = TILE / 8;          // 8-column groups of a score tile
 constexpr int PAD = 8;                // shared row padding, in elements
 constexpr unsigned FULL = 0xffffffffu;
-static_assert(THREADS == 2 * TILE, "tile_delta takes two threads a row");
+static_assert(THREADS == 2 * TILE,
+              "the delta pre-pass takes two threads a row");
 
 // Shared row stride of a tile: D + PAD elements. It keeps every row
 // 16-byte aligned, spreads the tensor cores' 32-bit fragment loads over
@@ -83,9 +84,8 @@ __device__ __forceinline__ void load_tile(T* __restrict__ dst,
 // Half of delta = rowsum(dO * O) for one row in fp32
 // (flash_attention.py:223, :239-241): thread `half` of a row's pair sums
 // every other 16-byte chunk from chunk `half`, in element order, with
-// fmaf(dO, O). The pair's two sums added give the row's delta; tile_delta
-// and the delta pre-pass (flash_bwd.cu) both sum this way, so their bits
-// agree.
+// fmaf(dO, O). The pair's two sums added give the row's delta (the delta
+// pre-pass, flash_bwd.cu).
 template <typename T>
 __device__ __forceinline__ float delta_half(const T* __restrict__ drow,
                                             const T* __restrict__ orow,
@@ -102,24 +102,6 @@ __device__ __forceinline__ float delta_half(const T* __restrict__ drow,
       sum = fmaf(to_float(dp[e]), to_float(op[e]), sum);
   }
   return sum;
-}
-
-// delta for the 64 rows of a tile into delta[64]: dO from its shared
-// tile, O from global memory (tile row r is row row0 + r of o; zero at or
-// past n_rows). Two threads per row (delta_half), so all of a thread's
-// loads are in flight together.
-template <typename T>
-__device__ __forceinline__ void tile_delta(float* __restrict__ delta,
-                                           const T* __restrict__ dos,
-                                           const T* __restrict__ o,
-                                           int row0, int n_rows, int D) {
-  const int r = threadIdx.x >> 1, half = threadIdx.x & 1;
-  float sum = 0.f;
-  if (row0 + r < n_rows)
-    sum = delta_half(dos + r * tile_ld(D),
-                     o + static_cast<size_t>(row0 + r) * D, D, half);
-  sum += __shfl_xor_sync(FULL, sum, 1);
-  if (half == 0) delta[r] = sum;
 }
 
 __device__ __forceinline__ uint32_t ld32(const void* p) {

@@ -6,9 +6,10 @@ of ``nezha_tpu/ops/pallas/decode_attention.py``), in its two layouts:
   or, given ``block_scales``, an int8 pool with
   ``csrc/paged_quant_decode.cu`` (:func:`paged_quant_decode_attention`);
 - dense: :func:`flash_decode_attention` reads ``[B, H, L, D]`` caches
-  (``models/generate.py``'s) with ``csrc/flash_decode.cu``.
+  (``models/generate.py``'s) with ``csrc/flash_decode.cu``, split over
+  the KV length.
 
-The kernels share one body (``csrc/decode_fold.cuh``). Each wrapper
+The paged kernels share one body (``csrc/decode_fold.cuh``). Each wrapper
 launches its kernel on CUDA tensors and runs its plain version
 (``*_plain``) on CPU tensors; any other device raises. Each counts its
 kernel launches in ``<wrapper>.launches``.
@@ -17,6 +18,7 @@ kernel launches in ``<wrapper>.launches``.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Optional
 
 import torch
@@ -31,12 +33,13 @@ from nezha_tpu_torch.ops.quant import dequantize_kv_block
 _ARGTYPES = (ctypes.c_void_p,) * 6 + (ctypes.c_int,) * 5 + (
     ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p)
 _DENSE_ARGTYPES = (ctypes.c_void_p,) * 5 + (ctypes.c_int,) * 4 + (
-    ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p)
+    ctypes.c_float, ctypes.c_int, ctypes.c_int) + (ctypes.c_void_p,) * 3
 _QUANT_ARGTYPES = (ctypes.c_void_p,) * 8 + (ctypes.c_int,) * 5 + (
     ctypes.c_float, ctypes.c_int, ctypes.c_void_p)
 # The TPU kernel's key block (``_pick_block(L, 256)``): the dense plain
 # version folds in the same blocks, so on the CPU it agrees with the
-# Pallas kernel to fp32 rounding. The CUDA kernel folds 32-key tiles.
+# Pallas kernel to fp32 rounding. The dense CUDA kernel folds splits of
+# ``nezha_flash_decode_split()`` keys, the paged ones 32-key tiles.
 _PLAIN_BLOCK_K = 256
 # Largest dynamic shared memory one thread block may opt into on sm_90.
 _SMEM_LIMIT = 227 * 1024
@@ -303,15 +306,46 @@ def flash_decode_attention_plain(q, k, v, lengths,
     return softmax_finalize(state, q.dtype)
 
 
+# Per (device, stream): the dense kernel's workspace, its per-(b, h)
+# counters (zero between calls: the last block of a row resets its own)
+# and its fp32 partials; each grows to the largest call made. Calls on
+# one stream run in order, so they may share both.
+_WORKSPACE = {}
+
+
+def _workspace(device, stream: int, rows: int, part_floats: int):
+    key = (device, stream)
+    counters, parts = _WORKSPACE.get(key, (None, None))
+    if counters is None or counters.numel() < rows:
+        counters = torch.zeros(rows, dtype=torch.int32, device=device)
+    if parts is None or parts.numel() < part_floats:
+        parts = torch.empty(part_floats, dtype=torch.float32, device=device)
+    _WORKSPACE[key] = counters, parts
+    return counters, parts
+
+
+@functools.lru_cache(maxsize=None)
+def decode_split() -> int:
+    """The keys one block of the dense kernel folds (its compile-time
+    ``SPLIT``), read once from the built library."""
+    fn = build.bind("flash_decode", "nezha_flash_decode_split", ())
+    return fn()
+
+
 def _dense_launch(q, k, v, lengths, scale):
     _check_cuda(q, lengths, k=k, v=v)
     b, h, _, d = q.shape
+    cap = k.shape[2]
     out = torch.empty_like(q)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    n_splits = -(-cap // decode_split())
+    counters, parts = _workspace(q.device, stream, b * h,
+                                 b * h * n_splits * (d + 2))
     fn = build.bind("flash_decode", "nezha_flash_decode", _DENSE_ARGTYPES)
     rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), lengths.data_ptr(),
-            out.data_ptr(), b, h, k.shape[2], d, float(scale),
-            build.DTYPE_CODES[q.dtype], build.DTYPE_CODES[k.dtype],
-            torch.cuda.current_stream(q.device).cuda_stream)
+            out.data_ptr(), b, h, cap, d, float(scale),
+            build.DTYPE_CODES[q.dtype], build.DTYPE_CODES[k.dtype], stream,
+            parts.data_ptr(), counters.data_ptr())
     build.check_launch(rc, "nezha_flash_decode")
     flash_decode_attention.launches += 1
     return out
@@ -325,7 +359,8 @@ def flash_decode_attention(q, k, v, lengths, scale: Optional[float] = None):
     row b attends — the decode convention ``pos + 1`` — and 0 marks an
     inactive row whose output is exactly zero. CUDA tensors launch
     ``csrc/flash_decode.cu`` (f32 or bf16 q over an f32 or bf16 cache,
-    D a multiple of 8 up to 104); CPU tensors run the plain version."""
+    D a multiple of 8 up to 104), one launch a call; CPU tensors run the
+    plain version."""
     _check_dense(q, k, v, lengths)
     scale = scale if scale is not None else 1.0 / (q.shape[3] ** 0.5)
     if q.device.type == "cuda":

@@ -3,24 +3,25 @@
 
 - :func:`flash_block_fwd` -> ``(out, lse)`` and :func:`flash_block_bwd`
   -> ``(dq, dk, dv)`` are the raw entry points (no autograd). On CUDA
-  tensors they launch ``csrc/flash_fwd.cu`` and the dq and dk/dv kernels
-  of ``csrc/flash_bwd.cu``; on CPU tensors they run
-  :func:`flash_block_fwd_plain` and :func:`flash_block_bwd_plain`; any
-  other device raises.
+  tensors they launch ``csrc/flash_fwd.cu`` and the delta pre-pass, the
+  dq and the dk/dv kernels of ``csrc/flash_bwd.cu``; on CPU tensors they
+  run :func:`flash_block_fwd_plain` and :func:`flash_block_bwd_plain`;
+  any other device raises.
 - :func:`flash_attention` is the differentiable call the model makes: a
   ``torch.autograd.Function`` (the counterpart of the TPU custom VJPs)
   that saves ``q, k, v, out`` and the ``[B, H, S]`` fp32 lse, and runs
   :func:`flash_block_bwd` in its backward.
 
-The launch geometry of the forward and dK/dV kernels is decided here
-(:class:`FlashPlan`, :func:`fwd_plan`, :func:`dkv_plan`) and passed to
-their C entry points, which launch only a body built for it: bf16 runs
-the Hopper bodies (wgmma fed by TMA), fp32 the first bodies. The dK/dV
-kernel reads delta = rowsum(dO*O) from a pre-pass kernel
-(:func:`flash_bwd_delta_plain` is its plain version). The functions
-:func:`launch_order`, :func:`fwd_visits`, :func:`dkv_visits` and
-:func:`attended_pairs` restate the kernels' walk over the tiles, so the
-CPU tests can hold it against :func:`_valid`.
+The launch geometry of the three kernels is decided here
+(:class:`FlashPlan`, :func:`fwd_plan`, :func:`dq_plan`, :func:`dkv_plan`)
+and passed to their C entry points, which launch only a body built for
+it: bf16 runs the Hopper bodies (wgmma fed by TMA), fp32 the first
+bodies. The dq and dK/dV kernels read delta = rowsum(dO*O) from one
+pre-pass kernel a backward (:func:`flash_bwd_delta_plain` is its plain
+version). The functions :func:`launch_order`, :func:`fwd_visits`,
+:func:`dq_visits`, :func:`dkv_visits` and :func:`attended_pairs` restate
+the kernels' walk over the tiles, so the CPU tests can hold it against
+:func:`_valid`.
 
 ``LAUNCHES`` counts kernel launches by kernel name. Shapes: q ``[B, H,
 Sq, D]``, k and v ``[B, H, Sk, D]`` of q's dtype (f32 or bf16), D a
@@ -47,8 +48,8 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _TAIL = (_I,) * 5 + (ctypes.c_float, _I, _I, _P)
 _FWD_ARGTYPES = (_P,) * 6 + _TAIL + (_P,)         # ..., plan
-_DQ_ARGTYPES = (_P,) * 8 + _TAIL
-_DKV_ARGTYPES = (_P,) * 9 + _TAIL + (_P, _P)      # ..., delta, plan
+_DQ_ARGTYPES = (_P,) * 7 + _TAIL + (_P, _P)       # ..., delta, plan
+_DKV_ARGTYPES = (_P,) * 8 + _TAIL + (_P, _P)      # ..., delta, plan
 _DELTA_ARGTYPES = (_P,) * 3 + (_I,) * 5 + (_P,)
 # The TPU kernel's key block at training lengths (_auto_blocks: 512): the
 # plain forward folds in the same order.
@@ -74,15 +75,16 @@ class FlashPlan:
     its C entry point (``csrc/flash_common.cuh`` ``Plan``), which launches
     only a body built for it and fails otherwise.
 
-    - ``kernel``: ``"fwd"`` or ``"dkv"``;
+    - ``kernel``: ``"fwd"``, ``"dq"`` or ``"dkv"``;
     - ``wgmma``: the Hopper body (bf16: a producer warpgroup feeds TMA
       tiles to consumer warpgroups of 64 rows, which mask only the tiles
       that cross the diagonal, the sequence's end or ``kv_len``) or the
       first body (fp32: 4 warps on 64 rows, every tile masked);
     - ``d_pad``: the head dim its tiles hold (zeros past D);
-    - ``rows``: rows a block owns (queries in the forward, keys in dK/dV);
-    - ``tile``: rows of a streamed tile (keys in the forward, queries in
+    - ``rows``: rows a block owns (queries in the forward and dq, keys in
       dK/dV);
+    - ``tile``: rows of a streamed tile (keys in the forward and dq,
+      queries in dK/dV);
     - ``stages``: streamed tiles in flight;
     - ``smem_bytes``: the dynamic shared memory the launch asks for;
     - ``heavy_first``: under causal, the grid launches the tiles with the
@@ -111,9 +113,11 @@ def _padded(d: int) -> int:
 
 # The Hopper bodies' builds, by padded D: (consumer warpgroups, rows of a
 # streamed tile, stages) — csrc/flash_fwd.cu FwdBuilds and csrc/flash_bwd.cu
-# DkvBuilds. Each is the fastest of those tools/tune_flash_plans.py timed
-# at the training shape on the H100 (PERF.md).
+# DqBuilds, DkvBuilds. Each is the fastest of those
+# tools/tune_flash_plans.py timed at the training shape on the H100
+# (PERF.md).
 FWD_BUILDS = {64: (1, 128, 3), 128: (2, 128, 3)}
+DQ_BUILDS = {64: (1, 64, 3), 128: (1, 64, 2)}
 DKV_BUILDS = {64: (1, 64, 2), 128: (1, 64, 2)}
 
 
@@ -122,9 +126,9 @@ def hopper_plan(kernel: str, d_pad: int, consumers: int, tile: int,
     """One geometry of a Hopper body: a block owns ``consumers`` x 64 rows
     and streams ``tile``-row tiles through ``stages`` ring slots. Shared
     memory holds, from a 1024-aligned base (1024 bytes more asked for),
-    the forward's Q and ring of K/V tiles, or dK/dV's K, V and ring of
-    Q/dO tiles with their lse and delta slices, then 1 + 2 * stages
-    barriers."""
+    the forward's Q and ring of K/V tiles, dq's Q, dO and ring of K/V
+    tiles, or dK/dV's K, V and ring of Q/dO tiles with their lse and delta
+    slices, then 1 + 2 * stages barriers."""
     rows = _GROUP * consumers
     held = rows if kernel == "fwd" else 2 * rows
     smem = (_ALIGN + 2 * d_pad * (held + 2 * stages * tile)
@@ -146,6 +150,21 @@ def fwd_plan(d: int, dtype) -> FlashPlan:
     raise ValueError(f"dtype {dtype} not supported (f32 or bf16)")
 
 
+def dq_plan(d: int, dtype) -> FlashPlan:
+    """The dq kernel's geometry. bf16: the build DQ_BUILDS names for D
+    padded to 64 or 128 columns; at D = 128 with 64-key tiles the dQ
+    accumulator takes 64 of a consumer's registers and S and dP 32 each.
+    fp32: the first body, 64 queries a block, Q/dO/K/V tiles of D + 8
+    columns."""
+    build.check_head_dim(d)
+    if dtype == torch.bfloat16:
+        return hopper_plan("dq", _padded(d), *DQ_BUILDS[_padded(d)])
+    if dtype == torch.float32:
+        return FlashPlan("dq", False, d, _FIRST_TILE, _FIRST_TILE, 1,
+                         4 * 4 * _FIRST_TILE * (d + _FIRST_PAD), False)
+    raise ValueError(f"dtype {dtype} not supported (f32 or bf16)")
+
+
 def dkv_plan(d: int, dtype) -> FlashPlan:
     """The dK/dV kernel's geometry. bf16: the build DKV_BUILDS names for D
     padded to 64 or 128 columns; its query tiles stay 64 wide, since at
@@ -163,12 +182,13 @@ def dkv_plan(d: int, dtype) -> FlashPlan:
 def launch_order(plan: FlashPlan, s_rows: int, causal: bool) -> List[int]:
     """The row tiles of one (b, h) in the order the grid launches them
     (rank ``blockIdx.y`` of the Hopper grids, which put every (b, h) of a
-    rank before the next rank). Under causal the forward's last query tile
-    meets the most key tiles and dK/dV's first key tile the most query
-    tiles, so heaviest first is descending for one, ascending for the
-    other."""
+    rank before the next rank). Under causal the forward's and dq's last
+    query tile meets the most key tiles and dK/dV's first key tile the
+    most query tiles, so heaviest first is descending for the one,
+    ascending for the other."""
     n = -(-s_rows // plan.rows)
-    if plan.kernel == "fwd" and plan.wgmma and causal and plan.heavy_first:
+    if (plan.kernel in ("fwd", "dq") and plan.wgmma and causal
+            and plan.heavy_first):
         return [n - 1 - r for r in range(n)]
     return list(range(n))
 
@@ -191,6 +211,38 @@ def fwd_visits(plan: FlashPlan, s_q: int, s_k: int, causal: bool,
                     or (causal and k0 + plan.tile - 1 > q0))
             tiles.append((kt, edge or not plan.wgmma))
         out.append(tiles)
+    return out
+
+
+def dq_visits(plan: FlashPlan, s_q: int, s_k: int, causal: bool,
+              kv_len: int) -> List[List[Tuple[int, bool]]]:
+    """For each group of 64 queries (a consumer warpgroup, or a first-body
+    block), the key tiles dq folds, in order, each with whether it runs
+    the mask. A block streams the key tiles below ``kv_len`` and, under
+    causal, up to its last query; a Hopper consumer folds those up to its
+    own diagonal, none past the queries, and masks only a tile that
+    crosses its diagonal, the end of the queries or ``kv_len``."""
+    kv_len = max(1, min(kv_len, s_k))
+    out = []
+    for qt in range(-(-s_q // plan.rows)):
+        q0 = qt * plan.rows
+        k_end = min(kv_len, q0 + plan.rows) if causal else kv_len
+        n_kt = -(-k_end // plan.tile)
+        for qw in range(q0, q0 + plan.rows, _GROUP):
+            n_mine = n_kt
+            if plan.wgmma and qw >= s_q:
+                n_mine = 0
+            elif plan.wgmma and causal:
+                n_mine = min(n_kt, (qw + _GROUP - 1) // plan.tile + 1)
+            tiles = []
+            for kt in range(n_mine):
+                k0 = kt * plan.tile
+                edge = (not plan.wgmma
+                        or (causal and k0 + plan.tile - 1 > qw)
+                        or k0 + plan.tile > kv_len
+                        or qw + _GROUP > s_q)
+                tiles.append((kt, edge))
+            out.append(tiles)
     return out
 
 
@@ -246,6 +298,13 @@ def attended_pairs(plan: FlashPlan, s_q: int, s_k: int, causal: bool,
                                               kv_len)):
             for kt, masked in tiles:
                 let_through(slice(qt * plan.rows, (qt + 1) * plan.rows),
+                            slice(kt * plan.tile, (kt + 1) * plan.tile),
+                            masked)
+    elif plan.kernel == "dq":
+        for g, tiles in enumerate(dq_visits(plan, s_q, s_k, causal,
+                                            kv_len)):
+            for kt, masked in tiles:
+                let_through(slice(g * _GROUP, (g + 1) * _GROUP),
                             slice(kt * plan.tile, (kt + 1) * plan.tile),
                             masked)
     else:
@@ -457,33 +516,26 @@ def _fwd_launch(q, k, v, lens, causal, scale, plan=None):
     return out, lse
 
 
-def _bwd_args(q, k, v, o, lse, do, lens, causal, scale):
+def _bwd_args(q, k, v, lse, do, delta, lens, causal, scale):
     """The pointer head and the shape tail both backward entry points
     take."""
-    if lse.dtype != torch.float32 or tuple(lse.shape) != tuple(q.shape[:3]):
-        raise ValueError(f"lse must be fp32 {tuple(q.shape[:3])}, got "
-                         f"{lse.dtype} {tuple(lse.shape)}")
-    _check_cuda(q=q, k=k, v=v, o=o, lse=lse, do=do)
+    for name, t in (("lse", lse), ("delta", delta)):
+        if t.dtype != torch.float32 or tuple(t.shape) != tuple(q.shape[:3]):
+            raise ValueError(f"{name} must be fp32 {tuple(q.shape[:3])}, "
+                             f"got {t.dtype} {tuple(t.shape)}")
+    _check_cuda(q=q, k=k, v=v, lse=lse, do=do, delta=delta)
     b, h, s_q, d = q.shape
-    head = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-            lse.data_ptr(), do.data_ptr(), _ptr(lens))
+    head = (q.data_ptr(), k.data_ptr(), v.data_ptr(), lse.data_ptr(),
+            do.data_ptr(), _ptr(lens))
     tail = (b, h, s_q, k.shape[2], d, scale, int(causal),
             build.DTYPE_CODES[q.dtype],
             torch.cuda.current_stream(q.device).cuda_stream)
     return head, tail
 
 
-def _dq_launch(q, k, v, o, lse, do, lens, causal, scale):
-    head, tail = _bwd_args(q, k, v, o, lse, do, lens, causal, scale)
-    dq = torch.empty_like(q)
-    fn = build.bind("flash_bwd", "nezha_flash_bwd_dq", _DQ_ARGTYPES)
-    build.check_launch(fn(*head, dq.data_ptr(), *tail), "nezha_flash_bwd_dq")
-    LAUNCHES["flash_bwd_dq"] += 1
-    return dq
-
-
 def _delta_launch(o, do):
     """The delta pre-pass: -> ``rowsum(dO * O)`` fp32 ``[B, H, Sq]``."""
+    _check_cuda(o=o, do=do)
     b, h, s_q, d = o.shape
     delta = torch.empty((b, h, s_q), dtype=torch.float32, device=o.device)
     fn = build.bind("flash_bwd", "nezha_flash_bwd_delta", _DELTA_ARGTYPES)
@@ -496,11 +548,23 @@ def _delta_launch(o, do):
     return delta
 
 
-def _dkv_launch(q, k, v, o, lse, do, lens, causal, scale, plan=None):
-    """dK and dV: the delta pre-pass, then the dK/dV kernel at ``plan``
-    (dkv_plan's by default)."""
-    head, tail = _bwd_args(q, k, v, o, lse, do, lens, causal, scale)
-    delta = _delta_launch(o, do)
+def _dq_launch(q, k, v, lse, do, delta, lens, causal, scale, plan=None):
+    """dQ: the dq kernel at ``plan`` (dq_plan's by default), reading the
+    pre-pass's ``delta``."""
+    head, tail = _bwd_args(q, k, v, lse, do, delta, lens, causal, scale)
+    dq = torch.empty_like(q)
+    fn = build.bind("flash_bwd", "nezha_flash_bwd_dq", _DQ_ARGTYPES)
+    build.check_launch(fn(*head, dq.data_ptr(), *tail, delta.data_ptr(),
+                          (plan or dq_plan(q.shape[3], q.dtype)).as_c()),
+                       "nezha_flash_bwd_dq")
+    LAUNCHES["flash_bwd_dq"] += 1
+    return dq
+
+
+def _dkv_launch(q, k, v, lse, do, delta, lens, causal, scale, plan=None):
+    """dK and dV: the dK/dV kernel at ``plan`` (dkv_plan's by default),
+    reading the pre-pass's ``delta``."""
+    head, tail = _bwd_args(q, k, v, lse, do, delta, lens, causal, scale)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     fn = build.bind("flash_bwd", "nezha_flash_bwd_dkv", _DKV_ARGTYPES)
     build.check_launch(fn(*head, dk.data_ptr(), dv.data_ptr(), *tail,
@@ -534,14 +598,14 @@ def flash_block_bwd(q, k, v, o, lse, do, causal: bool,
                     ) -> Tuple[torch.Tensor, ...]:
     """Gradients for one block pair given the row lse ``[B, H, Sq]`` and
     the output o (delta = rowsum(dO*O)): -> (dq, dk, dv). CUDA tensors
-    launch the dq kernel, the delta pre-pass and the dk/dv kernel; CPU
-    tensors run the plain version."""
+    launch the delta pre-pass once, then the dq kernel and the dk/dv
+    kernel, both reading its delta; CPU tensors run the plain version."""
     _check(q, k, v, causal, o, do)
     if _route(q) == "cpu":
         return flash_block_bwd_plain(q, k, v, o, lse, do, causal, scale,
                                      kv_lengths)
-    args = (q, k, v, o, lse, do, _lengths(kv_lengths, q, k.shape[2]),
-            causal, _scale(q, scale))
+    args = (q, k, v, lse, do, _delta_launch(o, do),
+            _lengths(kv_lengths, q, k.shape[2]), causal, _scale(q, scale))
     return (_dq_launch(*args),) + _dkv_launch(*args)
 
 

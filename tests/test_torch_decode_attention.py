@@ -1,7 +1,9 @@
 """Paged flash-decode: the port's ``paged_decode_attention`` against the
 JAX Pallas kernel (``flash_decode_attention(..., block_tables=...)`` in
-interpret mode) on the same numpy inputs. The CUDA kernel is held against
-its plain version on the card in test_torch_kernels_gpu.py."""
+interpret mode) on the same numpy inputs; and the dense kernel's split
+walk and merge (``decode_split_walk``) against the dense Pallas kernel.
+The CUDA kernels are held against their plain versions on the card in
+test_torch_kernels_gpu.py."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -11,6 +13,7 @@ import torch
 from nezha_tpu.ops.pallas.decode_attention import flash_decode_attention
 from nezha_tpu_torch.ops.cuda import paged_decode_attention
 from nezha_tpu_torch.ops.cuda.common import fold_error_bound
+from nezha_tpu_torch.ops.attention import NEG_BIG, masked_scores
 from nezha_tpu_torch.ops.cuda.decode_attention import check_head_dim
 
 BS, M, H, D = 8, 6, 2, 16
@@ -117,3 +120,83 @@ def test_rejects_bad_shapes():
     with pytest.raises(ValueError, match="q must be"):
         paged_decode_attention(q.expand(-1, -1, 2, -1), kp, vp, lengths,
                                tab)
+
+
+# The dense kernel's split sizes (csrc/flash_decode.cu SPLIT, timed on the
+# card: 128 or 256) and a cache length that is a multiple of neither.
+DENSE_SPLITS = (128, 256)
+DENSE_L = 800
+DENSE_LENGTHS = (0, 1, 17, 127, 128, 129, 768, DENSE_L)
+
+
+def decode_split_walk(q, k, v, lengths, split: int, scale=None):
+    """The dense kernel's walk and merge in tensor ops: each row's
+    positions ``[0, length)`` cut into splits of ``split`` keys, each
+    split folded as one TPU block step (its own max; q cast to the cache
+    dtype before Q·Kᵀ, p to v's dtype before P·V; fp32 statistics), then
+    the splits merged by log-sum-exp in split order into ``acc / max(l,
+    1e-30)`` in q's dtype. A row of length 0 folds no split: exact
+    zeros."""
+    b, h, _, d = q.shape
+    cap = k.shape[2]
+    scale = scale if scale is not None else 1.0 / (d ** 0.5)
+    lengths = lengths.long().clamp(0, cap)
+    qk = q.to(k.dtype)
+    offs = torch.arange(split, device=q.device)
+    m = torch.full((b, h, 1), NEG_BIG, dtype=torch.float32, device=q.device)
+    parts = []
+    for s0 in range(0, cap, split):
+        valid = (s0 + offs[:min(split, cap - s0)])[None, :] < lengths[:, None]
+        s = masked_scores(qk, k[:, :, s0:s0 + split],
+                          valid[:, None, None, :], scale)       # [B,H,1,n]
+        m_s = s.amax(-1)
+        p = torch.exp(s - m_s[..., None])
+        acc = torch.einsum("bhqk,bhkd->bhqd", p.to(v.dtype).float(),
+                           v[:, :, s0:s0 + split].float())
+        live = (s0 < lengths)[:, None, None]                    # [B,1,1]
+        parts.append((live, m_s, p.sum(-1), acc))
+        m = torch.where(live, torch.maximum(m, m_s), m)
+    l = torch.zeros_like(m)
+    acc = torch.zeros(b, h, 1, d, dtype=torch.float32, device=q.device)
+    for live, m_s, l_s, acc_s in parts:
+        c = torch.where(live, torch.exp(m_s - m), torch.zeros_like(m))
+        l = l + l_s * c
+        acc = acc + acc_s * c[..., None]
+    return (acc / l.clamp_min(1e-30)[..., None]).to(q.dtype)
+
+
+@pytest.mark.parametrize("split", DENSE_SPLITS)
+@pytest.mark.parametrize("cache", ["f32", "bf16"])
+def test_dense_split_walk_matches_pallas_kernel(split, cache):
+    """B6's walk restated: each row's positions cut into splits, each
+    folded as one block step, merged by log-sum-exp in split order. It
+    agrees with JAX's dense ``flash_decode_attention`` (interpret mode,
+    200-key blocks at L=800) on the same numpy inputs: over an f32 cache
+    to fp32 rounding of the sums (atol 1e-5, as the paged tests), over a
+    bf16 cache within ``fold_error_bound`` (the two round p to bf16 after
+    subtracting maxima of different key blocks); the length-0 row exact
+    zero on both sides."""
+    rng = np.random.RandomState(11)
+    b, h, d = len(DENSE_LENGTHS), 2, 16
+    q = rng.randn(b, h, 1, d).astype(np.float32)
+    k, v = (rng.randn(b, h, DENSE_L, d).astype(np.float32)
+            for _ in range(2))
+    lengths = np.asarray(DENSE_LENGTHS, np.int32)
+    jdt, tdt = ((jnp.float32, torch.float32) if cache == "f32"
+                else (jnp.bfloat16, torch.bfloat16))
+    want = np.array(flash_decode_attention(
+        jnp.asarray(q), jnp.asarray(k, jdt), jnp.asarray(v, jdt),
+        jnp.asarray(lengths), interpret=True).astype(jnp.float32))
+    tq, tk, tv = (torch.from_numpy(x) for x in (q, k, v))
+    tk, tv = tk.to(tdt), tv.to(tdt)
+    tl = torch.from_numpy(lengths)
+    got = decode_split_walk(tq, tk, tv, tl, split)
+    assert got.dtype == torch.float32 and got.shape == (b, h, 1, d)
+    assert torch.all(got[0] == 0) and np.all(want[0] == 0)
+    if cache == "f32":
+        np.testing.assert_allclose(got.numpy(), want, atol=1e-5, rtol=0)
+    else:
+        bound = fold_error_bound(
+            torch.from_numpy(want),
+            decode_split_walk(tq, tk, tv.abs(), tl, split), True)
+        assert torch.all((got - torch.from_numpy(want)).abs() <= bound)

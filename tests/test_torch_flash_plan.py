@@ -1,7 +1,8 @@
 """The flash kernels' launch geometry, decided in Python
 (``nezha_tpu_torch/ops/cuda/flash_attention.py``: ``fwd_plan``,
-``dkv_plan``, ``launch_order``, ``fwd_visits``, ``dkv_visits``,
-``attended_pairs``) and passed to the CUDA entry points, held here on the
+``dq_plan``, ``dkv_plan``, ``launch_order``, ``fwd_visits``,
+``dq_visits``, ``dkv_visits``, ``attended_pairs``) and passed to the CUDA
+entry points, held here on the
 CPU: every head dim the kernels took before still has a plan, every plan
 fits in Hopper's shared memory, the causal launch order is heaviest first,
 and the tiles each kernel visits, with the ones it masks, let through
@@ -20,19 +21,21 @@ import pytest
 import torch
 
 from nezha_tpu_torch.ops.cuda.flash_attention import (DKV_BUILDS,
+                                                      DQ_BUILDS,
                                                       FWD_BUILDS,
                                                       MAX_SMEM_BYTES,
                                                       hopper_plan,
                                                       _valid, attended_pairs,
                                                       dkv_plan,
                                                       dkv_visits,
+                                                      dq_plan, dq_visits,
                                                       flash_bwd_delta_plain,
                                                       fwd_plan, fwd_visits,
                                                       launch_order)
 
 HEAD_DIMS = list(range(8, 129, 8))
 DTYPES = {"bf16": torch.bfloat16, "f32": torch.float32}
-PLANS = {"fwd": fwd_plan, "dkv": dkv_plan}
+PLANS = {"fwd": fwd_plan, "dq": dq_plan, "dkv": dkv_plan}
 LENGTHS = (0, 1, 517, None)   # None: the full sequence
 SEQS = (1, 63, 64, 65, 100, 130, 1024)
 
@@ -61,6 +64,7 @@ def test_every_head_dim_has_a_plan_that_fits(kernel, dtype):
 # Geometries of the Hopper bodies besides the shipped ones, as
 # tools/tune_flash_plans.py builds them: the walks below hold for each.
 OTHER_GEOMETRIES = {"fwd": [(2, 128, 2), (2, 128, 3), (1, 64, 4)],
+                    "dq": [(2, 64, 2), (1, 64, 2), (1, 64, 4), (1, 128, 2)],
                     "dkv": [(2, 64, 2)]}
 
 
@@ -77,7 +81,8 @@ def test_every_hopper_build_fits():
     """Each shipped build of the Hopper bodies fits in shared memory, and
     a one-consumer build (two blocks an SM) also fits twice, with the
     1 KiB the card reserves a block, in the SM's 233,472 bytes."""
-    for kernel, builds in (("fwd", FWD_BUILDS), ("dkv", DKV_BUILDS)):
+    for kernel, builds in (("fwd", FWD_BUILDS), ("dq", DQ_BUILDS),
+                           ("dkv", DKV_BUILDS)):
         assert sorted(builds) == [64, 128]
         for d_pad, geometry in builds.items():
             plan = hopper_plan(kernel, d_pad, *geometry)
@@ -100,6 +105,29 @@ def test_plans_pick_the_bodies_by_dtype_and_refuse_the_rest():
         dkv_plan(64, torch.float16)
 
 
+@pytest.mark.parametrize("d", [8, 40, 64, 72, 128])
+def test_dq_plan_picks_the_body_by_dtype_and_refuses_the_rest(d):
+    """bf16 takes the Hopper dq body at D padded to 64 or 128 columns
+    (DQ_BUILDS), fp32 the first body at D itself, and any other dtype or
+    head dim is refused before a launch."""
+    bf, f32 = dq_plan(d, torch.bfloat16), dq_plan(d, torch.float32)
+    assert bf.kernel == f32.kernel == "dq"
+    assert bf.wgmma and bf.heavy_first and bf.d_pad == (64 if d <= 64
+                                                        else 128)
+    assert bf == hopper_plan("dq", bf.d_pad, *DQ_BUILDS[bf.d_pad])
+    assert not f32.wgmma and not f32.heavy_first and f32.d_pad == d
+    assert (f32.rows, f32.tile, f32.stages) == (64, 64, 1)
+    # Q, dO, K and V tiles of D + 8 fp32 columns (csrc/flash_bwd.cu
+    # launch_dq_f32)
+    assert f32.smem_bytes == 4 * 4 * 64 * (d + 8)
+    for dtype in (torch.float16, torch.int8):
+        with pytest.raises(ValueError):
+            dq_plan(d, dtype)
+    for bad_d in (0, d + 4, 136):
+        with pytest.raises(ValueError):
+            dq_plan(bad_d, torch.bfloat16)
+
+
 def test_plan_passes_six_ints_in_the_c_order():
     plan = hopper_plan("fwd", 128, 2, 128, 2)
     assert list(plan.as_c()) == [plan.d_pad, plan.rows, plan.tile,
@@ -112,13 +140,18 @@ def test_plan_passes_six_ints_in_the_c_order():
     # K, V, 2 stages of Q, dO, lse and delta (csrc/flash_bwd.cu Dkv)
     assert dkv.smem_bytes == (1024 + 2 * 128 * 64 * 2 + 2 * 2 * 64 * 64 * 2
                               + 2 * 2 * 64 * 4 + 8 * 5)
+    dq = hopper_plan("dq", 128, 1, 64, 3)
+    # Q, dO, 3 stages of K and V, 7 barriers (csrc/flash_bwd.cu Dq)
+    assert dq.smem_bytes == (1024 + 2 * 64 * 128 * 2
+                             + 3 * 2 * 64 * 128 * 2 + 8 * 7)
 
 
 def _work(kernel, plan, s):
     """Tiles each row tile of a causal full-length (b, h) folds."""
     if kernel == "fwd":
         return [len(t) for t in fwd_visits(plan, s, s, True, s)]
-    per_group = dkv_visits(plan, s, s, True, s)
+    visits = dq_visits if kernel == "dq" else dkv_visits
+    per_group = visits(plan, s, s, True, s)
     groups = plan.rows // 64
     return [sum(len(t) for t in per_group[i * groups:(i + 1) * groups])
             for i in range(len(per_group) // groups)]
@@ -168,6 +201,13 @@ def _check_walk(plan, kernel, causal, s):
                     block = want[qt * plan.rows:(qt + 1) * plan.rows,
                                  kt * plan.tile:(kt + 1) * plan.tile]
                     assert masked or bool(block.all()), (qt, kt)
+        elif kernel == "dq":
+            visits = dq_visits(plan, s, s, causal, n)
+            for g, tiles in enumerate(visits):
+                for kt, masked in tiles:
+                    block = want[g * 64:(g + 1) * 64,
+                                 kt * plan.tile:(kt + 1) * plan.tile]
+                    assert masked or bool(block.all()), (g, kt)
         else:
             visits = dkv_visits(plan, s, s, causal, n)
             for g, tiles in enumerate(visits):

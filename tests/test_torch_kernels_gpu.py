@@ -33,6 +33,7 @@ from nezha_tpu_torch.ops.cuda import (flash_block_bwd, flash_block_bwd_plain,
                                       paged_quant_prefill_attention,
                                       paged_quant_prefill_attention_plain)
 from nezha_tpu_torch.ops.cuda.common import fold_error_bound
+from nezha_tpu_torch.ops.cuda.decode_attention import decode_split
 from nezha_tpu_torch.ops.cuda.flash_attention import (LAUNCHES,
                                                       flash_bwd_error_bound)
 from nezha_tpu_torch.ops.cuda.layer_norm import LAUNCHES as LN_LAUNCHES
@@ -450,15 +451,22 @@ def test_sequence_sharded_engine_on_card_matches_cpu(cuda_device, variant):
 # step; the Hopper bodies pad it to 64 columns), D=128 with a zero-length
 # row and a length past S, the training length (eight 128-query tiles,
 # heaviest first), and D=128 over two 128-key tiles with a length that
-# ends inside the second. One row per length, else B=2; B=1 at S=1024.
+# ends inside the second; then the dq kernel's cases: S=130 at B*H=6 with
+# D=64 (lse and delta rows start at odd multiples of 4 bytes), D=64 and
+# D=128 at the training length with lengths [0, 700], and D=40 at S=200.
+# One row per length, else B=2; B=1 at S=1024.
 FLASH_CASES = [(100, 100, 64, True, None), (100, 70, 40, False, None),
                (130, 130, 128, True, [0, 77, 500]),
                (1024, 1024, 64, True, None),
-               (200, 200, 128, True, [0, 150])]
+               (200, 200, 128, True, [0, 150]),
+               (130, 130, 64, True, [0, 77, 500]),
+               (1024, 1024, 64, True, [0, 700]),
+               (1024, 1024, 128, True, [0, 700]),
+               (200, 200, 40, True, None)]
 # The kernels each dtype's call must launch (profiler names): bf16 the
 # Hopper bodies, fp32 the first ones; the delta pre-pass for both.
 FLASH_KERNELS = {
-    torch.bfloat16: {"flash_fwd_wgmma_kernel", "flash_bwd_dq_kernel",
+    torch.bfloat16: {"flash_fwd_wgmma_kernel", "flash_bwd_dq_wgmma_kernel",
                      "flash_bwd_delta_kernel", "flash_bwd_dkv_wgmma_kernel"},
     torch.float32: {"flash_fwd_kernel", "flash_bwd_dq_kernel",
                     "flash_bwd_delta_kernel", "flash_bwd_dkv_kernel"}}
@@ -524,6 +532,7 @@ def test_flash_kernels_match_plain(cuda_device, dtype, s_q, s_k, d, causal,
         assert torch.all(grads[2][i, :, n:] == 0)
     again = flash_block_bwd(*args, kv_lengths=lens)
     assert all(torch.equal(x, y) for x, y in zip(grads, again))
+    # One delta pre-pass a backward, read by both dq and dK/dV.
     assert {k: LAUNCHES[k] - before[k] for k in LAUNCHES} == {
         "flash_fwd": 1, "flash_bwd_dq": 2, "flash_bwd_delta": 2,
         "flash_bwd_dkv": 2}
@@ -571,17 +580,26 @@ def test_train_step_on_card_matches_cpu(cuda_device):
             assert diff[clear].max().item() <= 1e-3 * lr, name
 
 
+# The dense decode kernel's (q, cache) dtype pairs: all four it takes.
+DENSE_DTYPES = DTYPES + [(torch.bfloat16, torch.float32)]
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("q_dtype,cache_dtype", DTYPES)
+@pytest.mark.parametrize("q_dtype,cache_dtype", DENSE_DTYPES)
 def test_dense_decode_kernel_matches_plain(cuda_device, q_dtype,
                                            cache_dtype):
-    """The dense flash-decode kernel within fold_error_bound of its plain
-    version, over lengths that end inside a 32-key tile, on one, at the
-    cache's end and past it; the zero-length row exact zero; two launches
-    bitwise equal."""
+    """The dense flash-decode kernel, split over the KV length, within
+    fold_error_bound of its plain version over lengths that end inside a
+    split, on its boundaries (one before, at, one past each of the first
+    two), at the cache's end (not a multiple of the split) and past it;
+    the zero-length row exact zero; two launches bitwise equal; one launch
+    a call."""
+    split = decode_split()
     rng = np.random.RandomState(4)
-    cap = 300
-    lengths = np.asarray([0, 1, 31, 32, 33, 257, cap, cap + 9], np.int32)
+    cap = 2 * split + 44
+    lengths = np.asarray([0, 1, 31, split - 1, split, split + 1,
+                          2 * split - 1, 2 * split, 2 * split + 1, cap,
+                          cap + 9], np.int32)
     b = len(lengths)
     q = rng.randn(b, H, 1, D).astype(np.float32)
     k, v = (rng.randn(b, H, cap, D).astype(np.float32) for _ in range(2))

@@ -5,10 +5,12 @@ CUDA card.
 
 The call of ``chip_smoke.py``'s generate phase (GPT-2 124M, seeded random
 weights, bf16, ``ln_impl="pallas"``, eight random 512-token prompts, 256
-new tokens greedy through ``models.generate``): a warm-up, one run timed
-on the host clock, a prefill-only run (``max_new_tokens=1``, the time to
-first token), then one run under ``torch.profiler``. Reports wall time,
-time to first token, decode ms per step, tokens/s, the device's busy time
+new tokens greedy through ``models.generate``): a warm-up, then
+five pairs of a run timed on the host clock and a prefill-only
+run (``max_new_tokens=1``, the time to first token), then one run under
+``torch.profiler``. Reports wall time, time to first token, decode ms per
+step and tokens/s (the medians, and each pair's wall time and decode ms
+per step, since the host's clock swings), the device's busy time
 and idle share, device time by kind of kernel, and the CUDA kernels and
 CPU ops that took the most time. It imports nothing of JAX.
 """
@@ -18,6 +20,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import statistics
 import sys
 import time
 
@@ -32,6 +35,7 @@ from nezha_tpu_torch.models import generate  # noqa: E402
 from profile_torch_train import category, dev_us  # noqa: E402
 
 B, PROMPT, NEW = 8, 512, 256
+REPEATS = 5     # timed runs a call: the host's clock swings run to run
 
 
 def main() -> int:
@@ -57,8 +61,11 @@ def main() -> int:
         return time.perf_counter() - t
 
     timed(4)                                    # warm-up
-    wall = timed(NEW)
-    ttft = timed(1)
+    pairs = [(timed(NEW), timed(1)) for _ in range(REPEATS)]
+    walls = [w for w, _ in pairs]
+    steps = [1e3 * (w - f) / (NEW - 1) for w, f in pairs]
+    wall = statistics.median(walls)
+    ttft = statistics.median(f for _, f in pairs)
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
@@ -83,7 +90,9 @@ def main() -> int:
         "ln_impl": "pallas",
         "wall_s": wall,
         "ttft_s": ttft,
-        "decode_ms_per_step": 1e3 * (wall - ttft) / (NEW - 1),
+        "decode_ms_per_step": statistics.median(steps),
+        "wall_s_runs": walls,
+        "decode_ms_per_step_runs": steps,
         "tokens_per_s": B * NEW / wall,
         "profiled_wall_s": prof_wall,
         "device_busy_s": busy_us / 1e6,

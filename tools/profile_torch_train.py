@@ -11,7 +11,7 @@ the fused LayerNorm kernels) through ``Trainer.fit``:
 2 warm-up steps, ``--steps`` timed steps without the profiler, then
 ``--steps`` more under ``torch.profiler``. Reports ms per step, tokens/s,
 the device's busy time and idle share, the device time of the three
-flash kernels (B3 with its delta pre-pass) and their total, and the CUDA kernels and CPU ops that took the most time.
+flash kernels (B3 with the delta pre-pass) and their total, and the CUDA kernels and CPU ops that took the most time.
 It imports nothing of JAX.
 """
 
@@ -38,14 +38,15 @@ B, S = 8, 1024
 # Each flash row's kernels: the Hopper (bf16) and first (fp32) bodies,
 # and B3's delta pre-pass.
 FLASH_SYMBOLS = {"flash_fwd": ("flash_fwd_kernel", "flash_fwd_wgmma_kernel"),
-                 "flash_bwd_dq": ("flash_bwd_dq_kernel",),
+                 "flash_bwd_dq": ("flash_bwd_dq_kernel",
+                                  "flash_bwd_dq_wgmma_kernel"),
                  "flash_bwd_dkv": ("flash_bwd_delta_kernel",
                                    "flash_bwd_dkv_kernel",
                                    "flash_bwd_dkv_wgmma_kernel")}
 # Device kernels by kind, first match wins (names as the profiler shows
 # them: the port's kernels, cuBLAS's nvjet and CUTLASS GEMMs, PyTorch's
 # elementwise and reduction kernels).
-CATEGORIES = (("decode attention", ("flash_decode_kernel",
+CATEGORIES = (("decode attention", ("flash_decode_",
                                      "paged_decode_kernel")),
               ("layer norm kernels", ("ln_fwd_kernel", "ln_bwd_kernel")),
               ("flash attention", ("nezha::flash",)),
