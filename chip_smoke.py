@@ -43,15 +43,20 @@ Phases, each fatal on failure (non-zero exit, no result line):
    (B=8, H=12, bf16) with every row at length 768, with its split size
    and the grid its library recorded at the launch; yardstick SDPA with
    a ``[B, 1, 1, L]`` length mask. The LayerNorm
-   forward and backward kernels at the train step's rows (8192 x 768,
-   bf16; also 8 and 37 rows) within ``layer_norm_error_bound``, the
-   backward bitwise repeatable; yardsticks ``F.layer_norm`` and its
-   backward alone.
-   The int8 paged decode kernel (B8) at the serving shapes over int8 pools
-   quantized with ``ops.quant.quantize_kv_block`` from random bf16 values
-   (bf16 and f32 queries; lengths 0-1024) within ``fold_error_bound``;
-   yardstick SDPA over the K/V dequantized and gathered dense (the dequant
-   outside the timed region). The int8 prefill kernel with its fused block
+   forward and backward kernels at D=768, bf16, on 8, 37, 4096 and 8192
+   rows within ``layer_norm_error_bound``, both bitwise repeatable; the
+   forward timed at the rows each path gives it (8: a generate decode
+   step; 4096: generate's prefill; 8192: a train step), each beside
+   ``F.layer_norm`` on the same rows and its own bound; the backward at
+   8192 rows beside ``F.layer_norm``'s backward alone.
+   The int8 paged decode kernel (B8), split over the KV length, at the
+   serving shapes over int8 pools quantized with
+   ``ops.quant.quantize_kv_block`` from random bf16 values (bf16 and f32
+   queries; lengths 0-1024) within ``fold_error_bound``, the length-0 row
+   exact zero and two runs bitwise equal, with its split size and the
+   grid its library recorded at the launch; yardstick SDPA over the K/V
+   dequantized and gathered dense (the dequant outside the timed
+   region). The int8 prefill kernel with its fused block
    write (B10) at chunk width 256 from starts 0, 300 and 768 and width 37:
    the output within ``fold_error_bound``, every data block and scale
    after the call bitwise equal to the plain version's, untouched blocks
@@ -701,11 +706,15 @@ def int8_pools(g, n: int):
 
 
 def check_quant_decode(g):
-    """B8 at the serving shapes, bf16 and f32 queries over int8 pools."""
+    """B8 at the serving shapes, bf16 and f32 queries over int8 pools: the
+    length-0 row exact zero, two runs bitwise equal; the split size and
+    the grid its library recorded at the launch."""
     from nezha_tpu_torch.ops.cuda import (paged_quant_decode_attention,
                                           paged_quant_decode_attention_plain)
+    from nezha_tpu_torch.ops.cuda.decode_attention import split_size
     from nezha_tpu_torch.ops.quant import dequantize_kv_block
 
+    split = split_size("paged_quant_decode")
     lengths_list = [0, 1, 15, 16, 17, 300, 777, M * BS]
     b = len(lengths_list)
     n = 1 + b * M
@@ -725,11 +734,16 @@ def check_quant_decode(g):
                             fold_bound(want, abs_v, q.dtype))
         if not torch.all(got[0] == 0):
             fail("paged_quant_decode: the length-0 row is not exact zero")
+        if not torch.equal(paged_quant_decode_attention(*args), got):
+            fail(f"paged_quant_decode q {q.dtype}: two runs differ")
         worst, worst_ratio = max(worst, err), max(worst_ratio, ratio)
     q = q32.to(torch.bfloat16)
     args = (q, kq, vq, ks, vs, lengths, tab)
     timing = device_time("paged_quant_decode",
                          lambda: paged_quant_decode_attention(*args), 100)
+    grid = launched_grid("paged_quant_decode")
+    if not math.prod(grid):
+        fail(f"paged_quant_decode: no launch grid recorded ({grid})")
     plain_ms = plain_time_ms(
         lambda: paged_quant_decode_attention_plain(*args), 5)
     # Yardstick: SDPA over the rows' K/V dequantized (untimed) and
@@ -753,9 +767,11 @@ def check_quant_decode(g):
             "replaces": "nezha_tpu/ops/pallas/decode_attention.py:101",
             "max_abs_err": worst, "err_over_tolerance": worst_ratio,
             **timing, "plain_ms": plain_ms, "bound_ms": bound_ms,
-            "bound_by": bound_by,
+            "bound_by": bound_by, "split": split, "grid": grid,
+            "blocks": math.prod(grid),
             "shape": f"B={b} H={H} D={D} bs={BS} M={M} int8 pools, bf16 q "
-                     f"(also checked f32 q); lengths={lengths_list}"}
+                     f"(also checked f32 q; splits of {split} keys, grid "
+                     f"{grid}); lengths={lengths_list}"}
 
 
 def check_quant_prefill(g):
@@ -1187,15 +1203,14 @@ def check_flash(g):
     return out
 
 
-def launched_decode_grid():
-    """The grid (x, y, z) of the dense decode kernel's last launch, as
-    its library recorded it at the launch."""
+def launched_grid(kernel: str):
+    """The grid (x, y, z) of a split decode kernel's last launch, as its
+    library recorded it at the launch (``nezha_<kernel>_last_grid``)."""
     import ctypes
     from nezha_tpu_torch.ops.cuda import build
 
     xyz = (ctypes.c_int * 3)()
-    build.bind("flash_decode", "nezha_flash_decode_last_grid",
-               (ctypes.c_void_p,))(xyz)
+    build.bind(kernel, f"nezha_{kernel}_last_grid", (ctypes.c_void_p,))(xyz)
     return list(xyz)
 
 
@@ -1205,9 +1220,9 @@ def check_flash_decode(g):
     boundaries; the length-0 row exact zero, two runs bitwise equal."""
     from nezha_tpu_torch.ops.cuda import (flash_decode_attention,
                                           flash_decode_attention_plain)
-    from nezha_tpu_torch.ops.cuda.decode_attention import decode_split
+    from nezha_tpu_torch.ops.cuda.decode_attention import split_size
 
-    split = decode_split()
+    split = split_size("flash_decode")
     lengths_list = [0, 1, 17, 300, 511, 768, 1000, DEC_L,
                     split - 1, split, split + 1, 2 * split + 1]
     b = len(lengths_list)
@@ -1237,7 +1252,7 @@ def check_flash_decode(g):
     args = (q, k, v, timed)
     timing = device_time("flash_decode",
                          lambda: flash_decode_attention(*args), 100)
-    grid = launched_decode_grid()
+    grid = launched_grid("flash_decode")
     if not math.prod(grid):
         fail(f"flash_decode: no launch grid recorded ({grid})")
     plain_ms = plain_time_ms(lambda: flash_decode_attention_plain(*args), 5)
@@ -1263,28 +1278,79 @@ def check_flash_decode(g):
                      f"dtype pairs"}
 
 
+# The rows B4's forward gets, by path: generate's decode steps (one token
+# of GEN_B rows; GEN_NEW - 1 steps of 25 LayerNorms), its prefill (GEN_B x
+# GEN_PROMPT rows, 25 launches a call) and a train step with
+# ln_impl="pallas" (TRAIN_B x TRAIN_S rows, 25 a step, where B5 runs too).
+LN_TIMED_ROWS = {"generate decode": GEN_B,
+                 "generate prefill": GEN_B * GEN_PROMPT,
+                 "train": TRAIN_B * TRAIN_S}
+
+
+def layer_norm_case(g, rows: int, d: int):
+    """x [rows, d] bf16 (rows with their own offsets), dy, fp32 scale and
+    bias, on the card."""
+    bf = torch.bfloat16
+    x = (torch.randn(rows, d, generator=g) * 2
+         + torch.randn(rows, 1, generator=g)).to("cuda", bf)
+    dy = torch.randn(rows, d, generator=g).to("cuda", bf)
+    scale = (1 + 0.3 * torch.randn(d, generator=g)).cuda()
+    bias = (0.2 * torch.randn(d, generator=g)).cuda()
+    return x, dy, scale, bias
+
+
+def time_layer_norm_fwd(x, scale, bias, eps, fwd=None):
+    """B4's forward (or ``fwd``, another build's) on x with the device
+    timer, beside ``F.layer_norm`` on the same rows, the plain version and
+    the bound -> the row's fields. ``F.layer_norm`` on the card takes scale
+    and bias in x's dtype."""
+    import torch.nn.functional as F
+    from nezha_tpu_torch.ops.cuda.layer_norm import (layer_norm_fwd,
+                                                     layer_norm_fwd_plain)
+
+    fwd = fwd or layer_norm_fwd
+    rows, d = x.shape
+    label = f"layer_norm_fwd rows={rows}"
+    sg, bg = scale.to(x.dtype), bias.to(x.dtype)
+    elems = rows * d
+    # x in, y out (bf16), scale and bias in; ~8 fp32 ops each
+    bound_ms, bound_by = bound(2 * elems * x.element_size() + 2 * d * 4,
+                               8 * elems, FP32_FLOPS_PER_S)
+    return {"rows": rows,
+            **device_time(label, lambda: fwd(x, scale, bias, eps), 50),
+            **library_time(label,
+                           lambda: F.layer_norm(x, (d,), sg, bg, eps), 50,
+                           "F.layer_norm"),
+            "plain_ms": plain_time_ms(
+                lambda: layer_norm_fwd_plain(x, scale, bias, eps), 5),
+            "bound_ms": bound_ms, "bound_by": bound_by}
+
+
 def check_layer_norm(g):
-    """The LayerNorm kernels at the train step's rows (B*S = 8192) and at
-    8 and 37 rows, D=768, bf16 x; -> the kernels line's two entries."""
+    """The LayerNorm kernels at D=768, bf16 x, on the rows of
+    LN_TIMED_ROWS and 37 rows, each within ``layer_norm_error_bound`` and
+    the backward bitwise repeatable; the forward timed at each of
+    LN_TIMED_ROWS's shapes, the backward at the train step's; -> the
+    kernels line's two entries. The forward's entry carries generate's
+    decode shape (almost all of its launches on its home path) and each
+    timed shape under ``by_rows``."""
     from nezha_tpu_torch.ops.cuda.layer_norm import (
-        layer_norm_bwd, layer_norm_bwd_plain, layer_norm_error_bound,
-        layer_norm_fwd, layer_norm_fwd_plain)
+        launched_fwd_plan, layer_norm_bwd, layer_norm_bwd_plain,
+        layer_norm_error_bound, layer_norm_fwd, layer_norm_fwd_plain)
     import torch.nn.functional as F
 
     d, eps, bf = LN_D, 1e-5, torch.bfloat16
     worst = {"layer_norm_fwd": (0.0, 0.0), "layer_norm_bwd": (0.0, 0.0)}
-    timing = {}
-    for rows in (TRAIN_B * TRAIN_S, 8, 37):
-        x = (torch.randn(rows, d, generator=g) * 2
-             + torch.randn(rows, 1, generator=g)).to("cuda", bf)
-        dy = torch.randn(rows, d, generator=g).to("cuda", bf)
-        scale = (1 + 0.3 * torch.randn(d, generator=g)).cuda()
-        bias = (0.2 * torch.randn(d, generator=g)).cuda()
+    by_rows, bwd_timing = {}, {}
+    for rows in sorted(set(LN_TIMED_ROWS.values()) | {37}):
+        x, dy, scale, bias = layer_norm_case(g, rows, d)
         y = layer_norm_fwd(x, scale, bias, eps)
         torch.cuda.synchronize()
         res = [within(f"layer_norm_fwd rows={rows}", y,
                       layer_norm_fwd_plain(x, scale, bias, eps),
                       layer_norm_error_bound(x, scale, bias, eps))]
+        if not torch.equal(layer_norm_fwd(x, scale, bias, eps), y):
+            fail(f"layer_norm_fwd rows={rows}: two runs differ")
         grads = layer_norm_bwd(x, scale, dy, eps)
         torch.cuda.synchronize()
         plain = layer_norm_bwd_plain(x, scale, dy, eps)
@@ -1303,55 +1369,58 @@ def check_layer_norm(g):
         for name, (err, ratio) in zip(worst, res):
             worst[name] = (max(worst[name][0], err),
                            max(worst[name][1], ratio))
-        if rows != TRAIN_B * TRAIN_S:
+        if rows not in LN_TIMED_ROWS.values():
             continue
-        # F.layer_norm on the card takes scale and bias in x's dtype. Its
-        # backward is timed alone: the forward runs once outside the
-        # timer, then only torch.autograd.grad.
+        timing = time_layer_norm_fwd(x, scale, bias, eps)
+        by_rows[str(rows)] = {
+            "path": [p for p, r in LN_TIMED_ROWS.items() if r == rows],
+            "plan": dataclasses.asdict(launched_fwd_plan()), **timing}
+        if rows != LN_TIMED_ROWS["train"]:
+            continue
+        # F.layer_norm's backward is timed alone: the forward runs once
+        # outside the timer, then only torch.autograd.grad.
         xg, sg, bg = (t.detach().to(bf).requires_grad_()
                       for t in (x, scale, bias))
-        lib = lambda: F.layer_norm(xg, (d,), sg, bg, eps)
-        y_g = lib()
+        y_g = F.layer_norm(xg, (d,), sg, bg, eps)
         elems = rows * d
-        timing = {
-            "layer_norm_fwd": {
-                **device_time("layer_norm_fwd",
-                              lambda: layer_norm_fwd(x, scale, bias, eps),
-                              50),
-                **library_time("layer_norm_fwd", lib, 50, "F.layer_norm"),
-                "plain_ms": plain_time_ms(
-                    lambda: layer_norm_fwd_plain(x, scale, bias, eps), 5),
-                # x in, y out (bf16), scale and bias in; ~8 fp32 ops each
-                "bound": bound(2 * elems * 2 + 2 * d * 4, 8 * elems,
-                               FP32_FLOPS_PER_S)},
-            "layer_norm_bwd": {
-                **device_time("layer_norm_bwd",
-                              lambda: layer_norm_bwd(x, scale, dy, eps), 50),
-                **library_time(
-                    "layer_norm_bwd",
-                    lambda: torch.autograd.grad(y_g, (xg, sg, bg), dy,
-                                                retain_graph=True), 50,
-                    "F.layer_norm backward"),
-                "plain_ms": plain_time_ms(
-                    lambda: layer_norm_bwd_plain(x, scale, dy, eps), 5),
-                # x, dy in, dx out (bf16), scale in, dscale and dbias
-                # out; ~19 fp32 ops each
-                "bound": bound(3 * elems * 2 + 3 * d * 4, 19 * elems,
-                               FP32_FLOPS_PER_S)}}
-    out = []
-    for name, line in (("layer_norm_fwd", 24), ("layer_norm_bwd", 33)):
-        t = dict(timing[name])
-        bound_ms, bound_by = t.pop("bound")
-        out.append({"name": name, "route": "cuda",
-                    "source": "nezha_tpu_torch/csrc/layer_norm.cu",
-                    "replaces": f"nezha_tpu/ops/pallas/layer_norm.py:{line}",
-                    "max_abs_err": worst[name][0],
-                    "err_over_tolerance": worst[name][1], **t,
-                    "bound_ms": bound_ms, "bound_by": bound_by,
-                    "shape": f"rows={TRAIN_B * TRAIN_S} D={d} bf16 x, fp32 "
-                             f"scale/bias; checked rows 8192, 8, 37"})
-    out[1]["library_covers"] = "dx, dscale and dbias"
-    return out
+        bwd_timing = {
+            **device_time("layer_norm_bwd",
+                          lambda: layer_norm_bwd(x, scale, dy, eps), 50),
+            **library_time(
+                "layer_norm_bwd",
+                lambda: torch.autograd.grad(y_g, (xg, sg, bg), dy,
+                                            retain_graph=True), 50,
+                "F.layer_norm backward"),
+            "plain_ms": plain_time_ms(
+                lambda: layer_norm_bwd_plain(x, scale, dy, eps), 5)}
+        # x, dy in, dx out (bf16), scale in, dscale and dbias out; ~19
+        # fp32 ops each
+        bwd_timing["bound_ms"], bwd_timing["bound_by"] = bound(
+            3 * elems * 2 + 3 * d * 4, 19 * elems, FP32_FLOPS_PER_S)
+    decode = dict(by_rows[str(LN_TIMED_ROWS["generate decode"])])
+    decode.pop("rows")
+    decode.pop("path")
+    fwd = {"name": "layer_norm_fwd", "route": "cuda",
+           "source": "nezha_tpu_torch/csrc/layer_norm.cu",
+           "replaces": "nezha_tpu/ops/pallas/layer_norm.py:24",
+           "max_abs_err": worst["layer_norm_fwd"][0],
+           "err_over_tolerance": worst["layer_norm_fwd"][1], **decode,
+           "by_rows": by_rows,
+           "shape": f"rows={LN_TIMED_ROWS['generate decode']} D={d} bf16 x, "
+                    f"fp32 scale/bias (generate's decode step); timed also "
+                    f"at rows {LN_TIMED_ROWS['generate prefill']} and "
+                    f"{LN_TIMED_ROWS['train']} (by_rows); checked rows "
+                    f"{sorted(set(LN_TIMED_ROWS.values()) | {37})}"}
+    bwd = {"name": "layer_norm_bwd", "route": "cuda",
+           "source": "nezha_tpu_torch/csrc/layer_norm.cu",
+           "replaces": "nezha_tpu/ops/pallas/layer_norm.py:33",
+           "max_abs_err": worst["layer_norm_bwd"][0],
+           "err_over_tolerance": worst["layer_norm_bwd"][1], **bwd_timing,
+           "library_covers": "dx, dscale and dbias",
+           "shape": f"rows={LN_TIMED_ROWS['train']} D={d} bf16 x, fp32 "
+                    f"scale/bias; checked rows "
+                    f"{sorted(set(LN_TIMED_ROWS.values()) | {37})}"}
+    return [fwd, bwd]
 
 
 def compare_steps(what: str, model, ref, batch) -> dict:
@@ -1396,8 +1465,10 @@ def timed_fit(model, batches, n_steps: int, counters, per_step, card: str):
     """2 warm-up steps, then ``n_steps`` through ``Trainer.fit`` on the
     host clock (ended by a device sync), every count in ``counters`` set
     to 0 just before; each kernel in ``per_step`` must launch exactly
-    that many times per step. -> (stats, launches)."""
+    that many times per step, the LayerNorm forward on the step's rows.
+    -> (stats, launches)."""
     from nezha_tpu_torch.models.gpt2 import lm_loss
+    from nezha_tpu_torch.ops.cuda.layer_norm import FWD_LAUNCHES_BY_ROWS
     from nezha_tpu_torch.optim import adamw
     from nezha_tpu_torch.train import Trainer
 
@@ -1410,6 +1481,7 @@ def timed_fit(model, batches, n_steps: int, counters, per_step, card: str):
     for c in counters:
         for name in c:
             c[name] = 0
+    FWD_LAUNCHES_BY_ROWS.clear()
     t0 = time.perf_counter()
     last = trainer.fit(batches, n_steps)
     torch.cuda.synchronize()
@@ -1419,6 +1491,10 @@ def timed_fit(model, batches, n_steps: int, counters, per_step, card: str):
         if launches[name] != want * n_steps:
             fail(f"train: {name} launched {launches[name]} times in "
                  f"{n_steps} steps, not {want} per step")
+    ln_rows = dict(FWD_LAUNCHES_BY_ROWS)
+    if ln_rows != ({b * s: launches["layer_norm_fwd"]}
+                   if launches.get("layer_norm_fwd") else {}):
+        fail(f"train: LayerNorm forward launches by rows {ln_rows}")
     if not math.isfinite(last["loss"]):
         fail(f"train: loss {last['loss']}")
     n_params = sum(p.numel() for p in model.parameters())
@@ -1432,12 +1508,14 @@ def timed_fit(model, batches, n_steps: int, counters, per_step, card: str):
             "step_tflop": step_flops / 1e12, "params": n_params,
             "last_loss": last["loss"],
             "peak_mem_gb": torch.cuda.max_memory_allocated() / 2 ** 30,
-            "launches": launches, "card": card}, launches
+            "launches": launches, "layer_norm_fwd_by_rows": ln_rows,
+            "card": card}, launches
 
 
 def train(card: str):
-    """-> {"train": flash launches of the default run, "train_ln": flash
-    and LayerNorm launches of the ln_impl="pallas" run}."""
+    """-> ({"train": flash launches of the default run, "train_ln": flash
+    and LayerNorm launches of the ln_impl="pallas" run}, {"train_ln": its
+    LayerNorm forward launches by row count})."""
     from nezha_tpu_torch.cli.common import gpt2_for_preset
     from nezha_tpu_torch.data import synthetic_token_batches
     from nezha_tpu_torch.models.gpt2 import lm_loss
@@ -1498,7 +1576,8 @@ def train(card: str):
                       "ln_pallas_over_default": ln_stats["ms_per_step"]
                       / stats["ms_per_step"]}), flush=True)
     torch.cuda.empty_cache()
-    return {"train": launches, "train_ln": ln_launches}
+    return ({"train": launches, "train_ln": ln_launches},
+            {"train_ln": ln_stats["layer_norm_fwd_by_rows"]})
 
 
 def serve_prompts(vocab: int):
@@ -1774,12 +1853,15 @@ def cross_check(model, sched, reqs, atol: float) -> None:
 def generate_phase(card: str):
     """KV-cache generation of GPT-2 124M with the LayerNorm kernels:
     greedy, timed, launch-counted and cross-checked, then one sampled
-    call; -> the greedy run's launches."""
+    call; -> the greedy run's launches, and its LayerNorm forward
+    launches by row count (the prefill's GEN_B x GEN_PROMPT rows once,
+    then GEN_B rows a decode step)."""
     from nezha_tpu_torch.cli.common import gpt2_for_preset
     from nezha_tpu_torch.models import GPT2, generate, init_cache
     from nezha_tpu_torch.ops.cuda import flash_decode_attention
     from nezha_tpu_torch.ops.cuda.flash_attention import LAUNCHES
-    from nezha_tpu_torch.ops.cuda.layer_norm import LAUNCHES as LN_LAUNCHES
+    from nezha_tpu_torch.ops.cuda.layer_norm import (FWD_LAUNCHES_BY_ROWS,
+                                                     LAUNCHES as LN_LAUNCHES)
 
     model = gpt2_for_preset("full", seed=0, device="cuda", ln_impl="pallas")
     model.eval()
@@ -1792,6 +1874,7 @@ def generate_phase(card: str):
         for name in c:
             c[name] = 0
     flash_decode_attention.launches = 0
+    FWD_LAUNCHES_BY_ROWS.clear()
     t0 = time.perf_counter()
     out = generate(model, prompt, GEN_NEW)
     torch.cuda.synchronize()
@@ -1804,6 +1887,11 @@ def generate_phase(card: str):
             "layer_norm_bwd": 0}
     if launches != want:
         fail(f"generate: launches {launches}, expected {want}")
+    ln_rows = dict(FWD_LAUNCHES_BY_ROWS)
+    per_fwd = 2 * layers + 1
+    if ln_rows != {GEN_B * GEN_PROMPT: per_fwd,
+                   GEN_B: (GEN_NEW - 1) * per_fwd}:
+        fail(f"generate: LayerNorm forward launches by rows {ln_rows}")
     t0 = time.perf_counter()
     generate(model, prompt, 1)                  # prefill + first token
     torch.cuda.synchronize()
@@ -1813,7 +1901,7 @@ def generate_phase(card: str):
         "ln_impl": "pallas", "wall_s": wall, "ttft_s": ttft,
         "decode_ms_per_step": (wall - ttft) / (GEN_NEW - 1) * 1e3,
         "tokens_per_s": GEN_B * GEN_NEW / wall, "launches": launches,
-        "card": card}}), flush=True)
+        "layer_norm_fwd_by_rows": ln_rows, "card": card}}), flush=True)
 
     # Cross-check, teacher-forced, against the no-cache forward of a copy
     # that runs no kernel.
@@ -1856,7 +1944,7 @@ def generate_phase(card: str):
         "tokens": GEN_B * GEN_NEW,
         "sampled_distinct_tokens": int(sampled[:, GEN_PROMPT:].unique()
                                        .numel())}}), flush=True)
-    return launches
+    return launches, {"generate": ln_rows}
 
 
 # The run whose launch count each kernel reports: the path it serves.
@@ -1903,7 +1991,7 @@ def main() -> int:
             {"row": label, "ms": ms, "profiler_us": prof}
             for label, ms, prof, flag in TIMED_ROWS if flag]}}), flush=True)
     phase("train")
-    paths = train(card)
+    paths, ln_rows = train(card)
     phase("serve")
     paths["serve"] = serve(card)
     paths["serve_int8"] = serve(card, "int8")
@@ -1913,7 +2001,8 @@ def main() -> int:
     paths["serve_seq_ulysses"] = seq["ulysses_bf16"]
     paths["serve_seq_int8"] = seq["ulysses_int8"]
     phase("generate")
-    paths["generate"] = generate_phase(card)
+    paths["generate"], gen_rows = generate_phase(card)
+    ln_rows.update(gen_rows)
     for k in kernels:
         home = HOME_PATH[k["name"]]
         k["launches"] = paths[home][k["name"]]
@@ -1922,6 +2011,9 @@ def main() -> int:
                                  if k["name"] in c}
         if k["launches"] <= 0:
             fail(f"{k['name']} was not launched on the {home} path")
+        if k["name"] == "layer_norm_fwd":
+            # By row count, as each path's wrapper counted them.
+            k["launches_by_rows"] = ln_rows
         if k["name"] == "flash_bwd_dkv":
             # B3's delta pre-pass runs before each dK/dV launch.
             k["pre_pass_launches"] = paths[home]["flash_bwd_delta"]

@@ -29,14 +29,12 @@
 //     SPLIT * D of the cache dtype in shared memory (16 KB at D=64, bf16,
 //     128 keys) and several fit on an SM. (V in registers, loaded after
 //     the softmax or beside K, timed no faster on the H100: PERF.md.);
-//   - the merge: each split writes its partial (m, l, acc[D]) in fp32 to
-//     a workspace the wrapper allocates; the last block of a (b, h) to
-//     finish, found by a per-(b, h) counter that it resets to 0, merges
-//     the row's splits in split order with the log-sum-exp combine and
-//     writes acc / max(l, 1e-30) in q's dtype. The counter is the only
-//     atomic; the data never goes through one, and since the merge always
-//     runs in split order the output is bitwise the same from run to run,
-//     whichever block arrives last. One launch a call.
+//   - the merge (split_decode.cuh, shared with the int8 paged kernel):
+//     each split writes its partial (m, l, acc[D]) in fp32 to a workspace
+//     the wrapper allocates; the last block of a (b, h) to finish, found
+//     by a per-(b, h) counter that it resets to 0, merges the row's splits
+//     in split order, so the output is bitwise the same from run to run.
+//     One launch a call.
 //
 // Semantics of the TPU's block step (ops/pallas/common.py:86-98), a split
 // being one block: q is rounded to the cache dtype before Q.K, p to v's
@@ -47,6 +45,7 @@
 #include <stdint.h>
 
 #include "online_softmax.cuh"
+#include "split_decode.cuh"
 
 namespace nezha {
 namespace {
@@ -56,24 +55,10 @@ constexpr int DEC_THREADS = 128;            // 4 warps
 constexpr int DEC_WARPS_SPLIT = DEC_THREADS / WARP;
 constexpr int UNROLL = 8;                   // keys a thread loads at once
 
-// Copy 16 bytes global -> shared without registers (cp.async, L2 only);
-// `bytes` < 16 fills the rest with zeros.
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           int bytes) {
-  asm volatile(
-      "cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-          static_cast<uint32_t>(__cvta_generic_to_shared(dst))),
-      "l"(src), "r"(bytes)
-      : "memory");
-}
-
 // The dynamic shared memory of a block: the split's V rows.
 inline size_t v_stage_bytes(int D, int elem_bytes) {
   return static_cast<size_t>(SPLIT) * D * elem_bytes;
 }
-
-// The fp32 partial of one split: acc[D], then m, then l.
-__device__ __forceinline__ int part_floats(int D) { return D + 2; }
 
 // One block: split blockIdx.x of (row b = blockIdx.z, head h =
 // blockIdx.y). LPK lanes own a key (a power of two, at least D's 16-byte
@@ -147,7 +132,7 @@ __global__ void __launch_bounds__(DEC_THREADS)
                        j < n ? 16 : 0);
           }
         }
-        asm volatile("cp.async.commit_group;\n" ::: "memory");
+        cp_async_commit();
       }
 #pragma unroll
       for (int u = 0; u < U; ++u) {
@@ -229,42 +214,10 @@ __global__ void __launch_bounds__(DEC_THREADS)
     }
   }
 
-  // The last block of this (b, h) to arrive merges. The fences make this
-  // block's partial visible before its arrival is counted.
-  __threadfence();
-  __syncthreads();
-  if (tid == 0) {
-    const int seen = atomicAdd(counters + bh, 1);
-    last_sm = seen == n_splits - 1;
-    if (last_sm) counters[bh] = 0;   // ready for the next call
-  }
-  __syncthreads();
-  if (!last_sm) return;
-  __threadfence();
-  const int n_live = (len + SPLIT - 1) / SPLIT;
-  const float* row_parts = parts + bh * n_splits * part_floats(D);
-  // Unrolled so that the splits' loads are in flight together; the sums
-  // still run in split order.
-  float m = NEG_BIG;
-#pragma unroll 8
-  for (int s = 0; s < n_live; ++s)
-    m = fmaxf(m, __ldcg(row_parts + s * part_floats(D) + D));
-  for (int d = tid; d < D; d += DEC_THREADS) {
-    float l = 0.f, a = 0.f;
-#pragma unroll 8
-    for (int s = 0; s < n_live; ++s) {
-      const float* part = row_parts + s * part_floats(D);
-      const float c = expf(__ldcg(part + D) - m);
-      l = fmaf(__ldcg(part + D + 1), c, l);
-      a = fmaf(__ldcg(part + d), c, a);
-    }
-    out[bh * D + d] = from_float<TQ>(a / finalize_denom(l));
-  }
+  arrive_and_merge<DEC_THREADS>(parts + bh * n_splits * part_floats(D),
+                                counters, out, bh, n_splits,
+                                (len + SPLIT - 1) / SPLIT, D, last_sm);
 }
-
-// The grid of this library's last launch (x, y, z), for a caller that
-// reports what ran.
-int last_grid[3] = {0, 0, 0};
 
 template <typename TQ, typename TKV, int LPK>
 cudaError_t launch_lpk(const void* q, const void* k, const void* v,
@@ -281,9 +234,7 @@ cudaError_t launch_lpk(const void* q, const void* k, const void* v,
       static_cast<const TKV*>(v), lengths, static_cast<TQ*>(out),
       static_cast<float*>(parts), static_cast<int*>(counters), H, L, D,
       scale);
-  last_grid[0] = grid.x;
-  last_grid[1] = grid.y;
-  last_grid[2] = grid.z;
+  record_grid(grid);
   return cudaGetLastError();
 }
 

@@ -45,75 +45,4 @@ __device__ __forceinline__ float quantize(float x, float scale) {
   return fminf(fmaxf(rintf(__fdiv_rn(x, scale)), -QMAX), QMAX);
 }
 
-// Stage one tile of up to 32 dequantized K and V rows into shared memory
-// as fp32, in the layout of stage_tile (online_softmax.cuh): K with row
-// stride ldk, V with row stride D, rows n..31 zero. Row j's int8 data
-// starts at element row_off(j) of k and v, its scales at index
-// row_scale(j) of ks and vs: a tile may span several pool blocks, so the
-// scale is looked up per row. Rows at or past n load neither data nor
-// scale. Each thread moves whole 16-byte chunks (16 int8 values): D must
-// be a multiple of 16 and the pools 16-byte aligned.
-template <typename T, typename RowOff, typename RowScale>
-__device__ __forceinline__ void stage_tile_q8(
-    float* __restrict__ kd, float* __restrict__ vd, int ldk,
-    const int8_t* __restrict__ k, const int8_t* __restrict__ v,
-    const float* __restrict__ ks, const float* __restrict__ vs,
-    RowOff row_off, RowScale row_scale, int n, int D, int tid, int nthr) {
-  constexpr int VEC = 16;
-  const int cpr = D / VEC;
-  const int total = WARP * cpr;
-#pragma unroll 4
-  for (int c = tid; c < total; c += nthr) {
-    const int j = c / cpr;
-    const int col = (c - j * cpr) * VEC;
-    uint4 kraw = make_uint4(0u, 0u, 0u, 0u);
-    uint4 vraw = kraw;
-    float ksc = 0.f, vsc = 0.f;
-    if (j < n) {
-      const size_t off = row_off(j) + col;
-      kraw = *reinterpret_cast<const uint4*>(k + off);
-      vraw = *reinterpret_cast<const uint4*>(v + off);
-      const size_t si = row_scale(j);
-      ksc = ks[si];
-      vsc = vs[si];
-    }
-    const int8_t* kq = reinterpret_cast<const int8_t*>(&kraw);
-    const int8_t* vq = reinterpret_cast<const int8_t*>(&vraw);
-#pragma unroll
-    for (int e = 0; e < VEC; ++e) {
-      kd[j * ldk + col + e] = dequant<T>(kq[e], ksc);
-      vd[j * D + col + e] = dequant<T>(vq[e], vsc);
-    }
-  }
-}
-
-// Tiles of an int8 pool for decode_row (decode_fold.cuh): dequantized and
-// rounded to the query's dtype, which is also the dtype q and p take
-// before the dots (the int8 kernel dots in the query's dtype).
-template <typename TQ, typename Addr, typename ScaleAt>
-struct QuantTiles {
-  using Dot = TQ;
-  const int8_t* k;
-  const int8_t* v;
-  const float* ks;
-  const float* vs;
-  Addr addr;          // position -> element offset of its D-vector
-  ScaleAt scale_at;   // position -> index of its (block, head) scale
-
-  __device__ __forceinline__ void stage(float* kt, float* vt, int ldk,
-                                        int t0, int n, int D, int tid,
-                                        int nthr) const {
-    stage_tile_q8<TQ>(
-        kt, vt, ldk, k, v, ks, vs, [&](int j) { return addr(t0 + j); },
-        [&](int j) { return scale_at(t0 + j); }, n, D, tid, nthr);
-  }
-};
-
-template <typename TQ, typename Addr, typename ScaleAt>
-__device__ __forceinline__ QuantTiles<TQ, Addr, ScaleAt> quant_tiles(
-    const int8_t* k, const int8_t* v, const float* ks, const float* vs,
-    Addr addr, ScaleAt scale_at) {
-  return {k, v, ks, vs, addr, scale_at};
-}
-
 }  // namespace nezha

@@ -2,14 +2,17 @@
 of ``nezha_tpu/ops/pallas/decode_attention.py``), in its two layouts:
 
 - paged: :func:`paged_decode_attention` reads a block-paged pool through
-  block tables (the serve engine's cache) with ``csrc/paged_decode.cu``,
-  or, given ``block_scales``, an int8 pool with
-  ``csrc/paged_quant_decode.cu`` (:func:`paged_quant_decode_attention`);
+  block tables (the serve engine's cache) with ``csrc/paged_decode.cu``
+  (``csrc/decode_fold.cuh``: one block per row and head), or, given
+  ``block_scales``, an int8 pool with ``csrc/paged_quant_decode.cu``
+  (:func:`paged_quant_decode_attention`), split over the KV length;
 - dense: :func:`flash_decode_attention` reads ``[B, H, L, D]`` caches
   (``models/generate.py``'s) with ``csrc/flash_decode.cu``, split over
   the KV length.
 
-The paged kernels share one body (``csrc/decode_fold.cuh``). Each wrapper
+The two split kernels merge their splits in the same launch
+(``csrc/split_decode.cuh``) through a workspace the wrappers keep per
+(device, stream) (:func:`split_workspace`). Each wrapper
 launches its kernel on CUDA tensors and runs its plain version
 (``*_plain``) on CPU tensors; any other device raises. Each counts its
 kernel launches in ``<wrapper>.launches``.
@@ -35,20 +38,22 @@ _ARGTYPES = (ctypes.c_void_p,) * 6 + (ctypes.c_int,) * 5 + (
 _DENSE_ARGTYPES = (ctypes.c_void_p,) * 5 + (ctypes.c_int,) * 4 + (
     ctypes.c_float, ctypes.c_int, ctypes.c_int) + (ctypes.c_void_p,) * 3
 _QUANT_ARGTYPES = (ctypes.c_void_p,) * 8 + (ctypes.c_int,) * 5 + (
-    ctypes.c_float, ctypes.c_int, ctypes.c_void_p)
+    ctypes.c_float, ctypes.c_int) + (ctypes.c_void_p,) * 3
 # The TPU kernel's key block (``_pick_block(L, 256)``): the dense plain
 # version folds in the same blocks, so on the CPU it agrees with the
-# Pallas kernel to fp32 rounding. The dense CUDA kernel folds splits of
-# ``nezha_flash_decode_split()`` keys, the paged ones 32-key tiles.
+# Pallas kernel to fp32 rounding. The dense and the int8 paged CUDA
+# kernels fold splits of ``split_size(kernel)`` keys, the float paged one
+# 32-key tiles.
 _PLAIN_BLOCK_K = 256
 # Largest dynamic shared memory one thread block may opt into on sm_90.
 _SMEM_LIMIT = 227 * 1024
 
 
 def smem_bytes(d: int) -> int:
-    """Shared memory of one decode thread block (``decode_smem_bytes`` in
-    ``csrc/decode_fold.cuh``): q, each of the 8 warps' fp32 K tile
-    ``[32, D+1]`` and V tile ``[32, D]``, and the 8 warps' merge rows."""
+    """Shared memory of one float paged decode thread block
+    (``decode_smem_bytes`` in ``csrc/decode_fold.cuh``): q, each of the 8
+    warps' fp32 K tile ``[32, D+1]`` and V tile ``[32, D]``, and the 8
+    warps' merge rows."""
     return 4 * (d + 8 * (32 * (d + 1) + 32 * d) + 8 * (d + 2))
 
 
@@ -222,18 +227,21 @@ def _quant_launch(q, k_pool, v_pool, k_scales, v_scales, lengths,
                          lengths=(lengths, i32),
                          block_tables=(block_tables, i32))
     b, h, _, d = q.shape
-    check_head_dim(d)
     build.check_head_dim(d, multiple=16)
     build.check_aligned(q=q, k_pool=k_pool, v_pool=v_pool)
+    bs, m = k_pool.shape[2], block_tables.shape[1]
     out = torch.empty_like(q)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    _, floats = split_workspace(b, h, m * bs, d,
+                                split_size("paged_quant_decode"))
+    counters, parts = _workspace(q.device, stream, b * h, floats)
     fn = build.bind("paged_quant_decode", "nezha_paged_quant_decode",
                     _QUANT_ARGTYPES)
     rc = fn(q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
             k_scales.data_ptr(), v_scales.data_ptr(), lengths.data_ptr(),
-            block_tables.data_ptr(), out.data_ptr(), b, h, d,
-            k_pool.shape[2], block_tables.shape[1], float(scale),
-            build.DTYPE_CODES[q.dtype],
-            torch.cuda.current_stream(q.device).cuda_stream)
+            block_tables.data_ptr(), out.data_ptr(), b, h, d, bs, m,
+            float(scale), build.DTYPE_CODES[q.dtype], stream,
+            parts.data_ptr(), counters.data_ptr())
     build.check_launch(rc, "nezha_paged_quant_decode")
     paged_quant_decode_attention.launches += 1
     return out
@@ -247,7 +255,8 @@ def paged_quant_decode_attention(q, k_pool, v_pool, k_scales, v_scales,
     dequantized as ``(int8 * scale).to(q.dtype)`` and the dots run in q's
     dtype. Blocks at or past a row's length load neither data nor scale.
     CUDA tensors launch ``csrc/paged_quant_decode.cu`` (f32 or bf16 q, D a
-    multiple of 16 up to 96); CPU tensors run the plain version."""
+    multiple of 16 up to 128), one launch a call; CPU tensors run the
+    plain version."""
     _check_shapes(q, k_pool, v_pool, lengths, block_tables)
     check_block_scales(k_pool, k_scales, v_scales)
     scale = scale if scale is not None else 1.0 / (q.shape[3] ** 0.5)
@@ -306,11 +315,20 @@ def flash_decode_attention_plain(q, k, v, lengths,
     return softmax_finalize(state, q.dtype)
 
 
-# Per (device, stream): the dense kernel's workspace, its per-(b, h)
+# Per (device, stream): the split kernels' workspace, their per-(b, h)
 # counters (zero between calls: the last block of a row resets its own)
-# and its fp32 partials; each grows to the largest call made. Calls on
-# one stream run in order, so they may share both.
+# and their fp32 partials; each grows to the largest call made. Calls on
+# one stream run in order, so the dense and the int8 paged kernel, and
+# the shards of a one-card mesh, share both.
 _WORKSPACE = {}
+
+
+def split_workspace(b: int, h: int, keys: int, d: int, split: int):
+    """A split kernel's launch over ``keys`` cache positions a row ->
+    (splits a row takes, the grid's x; fp32 floats of its partials, one
+    ``(acc[D], m, l)`` a split of each (row, head))."""
+    n_splits = -(-keys // split)
+    return n_splits, b * h * n_splits * (d + 2)
 
 
 def _workspace(device, stream: int, rows: int, part_floats: int):
@@ -325,11 +343,11 @@ def _workspace(device, stream: int, rows: int, part_floats: int):
 
 
 @functools.lru_cache(maxsize=None)
-def decode_split() -> int:
-    """The keys one block of the dense kernel folds (its compile-time
-    ``SPLIT``), read once from the built library."""
-    fn = build.bind("flash_decode", "nezha_flash_decode_split", ())
-    return fn()
+def split_size(kernel: str) -> int:
+    """The keys one block of a split kernel (``"flash_decode"`` or
+    ``"paged_quant_decode"``) folds, its compile-time ``SPLIT``, read once
+    from the built library."""
+    return build.bind(kernel, f"nezha_{kernel}_split", ())()
 
 
 def _dense_launch(q, k, v, lengths, scale):
@@ -338,9 +356,8 @@ def _dense_launch(q, k, v, lengths, scale):
     cap = k.shape[2]
     out = torch.empty_like(q)
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    n_splits = -(-cap // decode_split())
-    counters, parts = _workspace(q.device, stream, b * h,
-                                 b * h * n_splits * (d + 2))
+    _, floats = split_workspace(b, h, cap, d, split_size("flash_decode"))
+    counters, parts = _workspace(q.device, stream, b * h, floats)
     fn = build.bind("flash_decode", "nezha_flash_decode", _DENSE_ARGTYPES)
     rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), lengths.data_ptr(),
             out.data_ptr(), b, h, cap, d, float(scale),

@@ -16,13 +16,19 @@
 Statistics are fp32 and two-pass: ``mean = sum(x)/D``, ``var =
 sum((x - mean)^2)/D``, ``rsqrt(var + eps)``; the affine step is fp32 and
 y is stored in x's dtype. x is f32 or bf16, scale and bias fp32 ``[D]``.
-``LAUNCHES`` counts kernel launches by kernel name.
+The forward's launch geometry is planned here (:func:`fwd_plan`, few rows
+and many rows), checked by its C entry point, which refuses any other,
+and read back from it (:func:`launched_fwd_plan`). ``LAUNCHES`` counts
+kernel launches by kernel name, ``FWD_LAUNCHES_BY_ROWS`` the forward's by
+row count.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Tuple
+import dataclasses
+import functools
+from typing import Dict, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -32,7 +38,7 @@ from nezha_tpu_torch.ops.cuda.common import BF16_UNIT_ROUNDOFF
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-_FWD_ARGTYPES = (_P,) * 4 + (_I, _I, ctypes.c_float, _I, _P)
+_FWD_ARGTYPES = (_P,) * 4 + (_I, _I, ctypes.c_float, _I, _P, _I, _I, _I)
 _BWD_ARGTYPES = (_P,) * 6 + (_I, _I, ctypes.c_float, _I, _P)
 # Rows per backward thread block: one [D] row of each partial per block
 # (csrc/layer_norm.cu LN_BWD_ROWS). The plain backward blocks rows alike.
@@ -42,6 +48,76 @@ MAX_D = 1024
 FP32_UNIT_ROUNDOFF = 2.0 ** -24
 
 LAUNCHES = {"layer_norm_fwd": 0, "layer_norm_bwd": 0}
+# The forward's launches by row count (their sum is LAUNCHES'), for a
+# caller that reports which shapes a path gave it.
+FWD_LAUNCHES_BY_ROWS: Dict[int, int] = {}
+
+# ------------------------------------------------------- the forward's plan
+# SMs of an H100 SXM: the plan's default where no card is asked.
+H100_SMS = 132
+# The forward's many-rows geometry: FWD_MANY_WARPS-warp blocks,
+# FWD_BLOCKS_PER_SM of them an SM (timed against other geometries with
+# tools/tune_layer_norm.py --sweep on the H100: PERF.md). The C entry
+# point restates both (LN_FWD_WARPS, LN_FWD_BLOCKS_PER_SM).
+FWD_MANY_WARPS = 8
+FWD_BLOCKS_PER_SM = 2
+
+
+@dataclasses.dataclass(frozen=True)
+class FwdPlan:
+    """The forward kernel's launch geometry, decided by :func:`fwd_plan`
+    and checked by its C entry point (``fwd_plan_ok`` in
+    ``csrc/layer_norm.cu``), which refuses any other:
+
+    - ``cpl``: the 16-byte chunks of a row each lane holds (one warp a
+      row; 1-4 for bf16, 1-8 for f32), the build the launch takes;
+    - ``warps``: warps of a block (1, or FWD_MANY_WARPS);
+    - ``blocks``: the grid; its warps stride over the rows, so a warp
+      takes rows w, w + blocks * warps, ..."""
+
+    cpl: int
+    warps: int
+    blocks: int
+
+
+def _chunks(d: int, dtype) -> int:
+    """16-byte chunks of a row of ``d`` values of ``dtype``."""
+    return d * dtype.itemsize // 16
+
+
+def fwd_plan(rows: int, d: int, dtype, sms: int = H100_SMS) -> FwdPlan:
+    """The forward's geometry for ``rows`` rows of ``d`` values:
+
+    - a lane holds ``ceil(chunks / 32)`` 16-byte chunks of the row;
+    - few rows (at most one per SM): a block of one warp per row, so each
+      row has an SM to itself and its loads go out at once;
+    - more: a persistent grid of FWD_MANY_WARPS-warp blocks,
+      FWD_BLOCKS_PER_SM an SM at most, sized so every warp takes the same
+      number of rows (up to one), each warp keeping scale and bias in
+      registers across its rows."""
+    cpl = -(-_chunks(d, dtype) // 32)
+    if rows <= sms:
+        return FwdPlan(cpl, 1, rows)
+    per_warp = -(-rows // (sms * FWD_BLOCKS_PER_SM * FWD_MANY_WARPS))
+    warps = -(-rows // per_warp)
+    return FwdPlan(cpl, FWD_MANY_WARPS, -(-warps // FWD_MANY_WARPS))
+
+
+def check_fwd_plan(plan: FwdPlan, rows: int, d: int, dtype,
+                   sms: int = H100_SMS) -> None:
+    """What the C entry point takes (``bad_shape``, ``fwd_plan_ok``): a
+    width the kernel holds and :func:`fwd_plan`'s geometry for the card's
+    ``sms``, nothing else. Raises ValueError on any other plan."""
+    want = fwd_plan(rows, d, dtype, sms)
+    if not 0 < d <= MAX_D or d % 8 or plan != want:
+        raise ValueError(f"layer norm forward plan {plan} does not fit "
+                         f"rows={rows} D={d} {dtype} (takes {want}, D a "
+                         f"multiple of 8 up to {MAX_D})")
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def _check(x, scale, bias=None, dy=None) -> None:
@@ -187,18 +263,30 @@ def _check_cuda(x, **tensors) -> None:
 
 
 def _fwd_launch(x, scale, bias, eps):
+    """The forward kernel on :func:`fwd_plan`'s geometry."""
     _check_cuda(x, scale=scale, bias=bias)
     rows, d = x.shape
     y = torch.empty_like(x)
     if rows == 0:
         return y
+    plan = fwd_plan(rows, d, x.dtype, _sm_count(x.device.index))
     fn = build.bind("layer_norm", "nezha_layer_norm_fwd", _FWD_ARGTYPES)
     rc = fn(x.data_ptr(), scale.data_ptr(), bias.data_ptr(), y.data_ptr(),
             rows, d, float(eps), build.DTYPE_CODES[x.dtype],
-            torch.cuda.current_stream(x.device).cuda_stream)
+            torch.cuda.current_stream(x.device).cuda_stream, plan.cpl,
+            plan.warps, plan.blocks)
     build.check_launch(rc, "nezha_layer_norm_fwd")
     LAUNCHES["layer_norm_fwd"] += 1
+    FWD_LAUNCHES_BY_ROWS[rows] = FWD_LAUNCHES_BY_ROWS.get(rows, 0) + 1
     return y
+
+
+def launched_fwd_plan() -> FwdPlan:
+    """The plan of the forward's last launch, as its C entry point
+    recorded it at the launch (``nezha_layer_norm_fwd_last_plan``)."""
+    out = (_I * 3)()
+    build.bind("layer_norm", "nezha_layer_norm_fwd_last_plan", (_P,))(out)
+    return FwdPlan(*out)
 
 
 def _bwd_launch(x, scale, dy, eps):

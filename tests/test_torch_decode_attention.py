@@ -1,8 +1,10 @@
 """Paged flash-decode: the port's ``paged_decode_attention`` against the
 JAX Pallas kernel (``flash_decode_attention(..., block_tables=...)`` in
-interpret mode) on the same numpy inputs; and the dense kernel's split
-walk and merge (``decode_split_walk``) against the dense Pallas kernel.
-The CUDA kernels are held against their plain versions on the card in
+interpret mode) on the same numpy inputs; the dense kernel's split
+walk and merge (``decode_split_walk``) against the dense Pallas kernel;
+and the int8 paged kernel's split walk (``quant_split_walk``) against its
+plain version, with its split count and workspace. The CUDA kernels are
+held against their plain versions on the card in
 test_torch_kernels_gpu.py."""
 
 import jax.numpy as jnp
@@ -11,10 +13,13 @@ import pytest
 import torch
 
 from nezha_tpu.ops.pallas.decode_attention import flash_decode_attention
-from nezha_tpu_torch.ops.cuda import paged_decode_attention
+from nezha_tpu_torch.ops.cuda import (paged_decode_attention,
+                                      paged_quant_decode_attention_plain)
 from nezha_tpu_torch.ops.cuda.common import fold_error_bound
 from nezha_tpu_torch.ops.attention import NEG_BIG, masked_scores
-from nezha_tpu_torch.ops.cuda.decode_attention import check_head_dim
+from nezha_tpu_torch.ops.cuda.decode_attention import (check_head_dim,
+                                                       split_workspace)
+from nezha_tpu_torch.ops.quant import dequantize_kv_block, quantize_kv_block
 
 BS, M, H, D = 8, 6, 2, 16
 # Every length class the kernel treats differently: inactive (0), one
@@ -200,3 +205,74 @@ def test_dense_split_walk_matches_pallas_kernel(split, cache):
             torch.from_numpy(want),
             decode_split_walk(tq, tk, tv.abs(), tl, split), True)
         assert torch.all((got - torch.from_numpy(want)).abs() <= bound)
+
+
+# The int8 paged kernel's split sizes (csrc/paged_quant_decode.cu SPLIT,
+# timed on the card over these three) and a pool block of the serving
+# engine's 16 positions.
+QUANT_SPLITS = (64, 128, 256)
+QUANT_BS = 16
+
+
+@pytest.mark.parametrize("split", QUANT_SPLITS)
+@pytest.mark.parametrize("m", [1, 5, 9, 17, 63, 64])
+def test_quant_split_count_and_workspace(split, m):
+    """A row's M*bs positions take ceil(M*bs / SPLIT) splits, the last one
+    ragged where M*bs is not a multiple of SPLIT (one split of a single
+    pool block; 9 * 16 = 144 keys), and the workspace holds one fp32
+    (acc[D], m, l) a split of each (row, head) of the serving shape."""
+    b, h, d = 8, 12, 64
+    keys = m * QUANT_BS
+    n_splits, floats = split_workspace(b, h, keys, d, split)
+    assert (n_splits - 1) * split < keys <= n_splits * split
+    assert floats == b * h * n_splits * (d + 2)
+
+
+def quant_split_walk(q, k_pool, v_pool, k_scales, v_scales, lengths, tab,
+                     split: int):
+    """B8's walk and merge in tensor ops: each row's pool blocks
+    dequantized as the kernel does (``(int8 * scale).to(q.dtype)``, one
+    scale per block), gathered in table order, then cut into splits of
+    ``split`` keys, each folded as one block step with the dots and p in
+    q's dtype, and merged by log-sum-exp in split order
+    (``decode_split_walk`` over the gathered rows)."""
+    b, h, _, d = q.shape
+    m, bs = tab.shape[1], k_pool.shape[2]
+    idx = tab.long()
+    kd, vd = (dequantize_kv_block(p[idx], s[idx], q.dtype)
+              .transpose(1, 2).reshape(b, h, m * bs, d)
+              for p, s in ((k_pool, k_scales), (v_pool, v_scales)))
+    return decode_split_walk(q, kd, vd, lengths, split)
+
+
+@pytest.mark.parametrize("split", QUANT_SPLITS)
+@pytest.mark.parametrize("q_dtype", [torch.bfloat16, torch.float32])
+def test_quant_split_walk_matches_plain(split, q_dtype):
+    """Splitting the int8 decode over the KV length and merging in split
+    order stays within fold_error_bound of the one-walk plain version
+    (``paged_quant_decode_attention_plain``, B8's function in tensor ops)
+    at lengths 0, 1, SPLIT-1, SPLIT, SPLIT+1 and M*bs (M*bs = 2 SPLIT +
+    48, not a multiple of SPLIT), with both q dtypes; the length-0 row is
+    exact zero on both sides."""
+    rng = np.random.RandomState(split)
+    h, d = 2, 16
+    m = (2 * split + 48) // QUANT_BS
+    lengths = [0, 1, split - 1, split, split + 1, m * QUANT_BS]
+    b, n = len(lengths), 1 + len(lengths) * m
+    kq, ks = quantize_kv_block(torch.from_numpy(
+        (rng.randn(n, h, QUANT_BS, d) * 2).astype(np.float32)))
+    vq, vs = quantize_kv_block(torch.from_numpy(
+        rng.randn(n, h, QUANT_BS, d).astype(np.float32)))
+    q = torch.from_numpy(rng.randn(b, h, 1, d).astype(np.float32)).to(
+        q_dtype)
+    tab = torch.from_numpy((1 + rng.permutation(b * m)).reshape(b, m)
+                           .astype(np.int32))
+    lens = torch.tensor(lengths, dtype=torch.int32)
+    got = quant_split_walk(q, kq, vq, ks, vs, lens, tab, split)
+    want = paged_quant_decode_attention_plain(q, kq, vq, ks, vs, lens, tab)
+    abs_v = paged_quant_decode_attention_plain(q, kq, vq.abs(), ks, vs,
+                                               lens, tab)
+    bound = fold_error_bound(want, abs_v, q_dtype == torch.bfloat16)
+    assert got.dtype == q_dtype
+    assert torch.all((got.float() - want.float()).abs() <= bound)
+    assert torch.all(got[0] == 0) and torch.all(want[0] == 0)

@@ -33,11 +33,13 @@ from nezha_tpu_torch.ops.cuda import (flash_block_bwd, flash_block_bwd_plain,
                                       paged_quant_prefill_attention,
                                       paged_quant_prefill_attention_plain)
 from nezha_tpu_torch.ops.cuda.common import fold_error_bound
-from nezha_tpu_torch.ops.cuda.decode_attention import decode_split
+from nezha_tpu_torch.ops.cuda import build
+from nezha_tpu_torch.ops.cuda.decode_attention import split_size
 from nezha_tpu_torch.ops.cuda.flash_attention import (LAUNCHES,
                                                       flash_bwd_error_bound)
 from nezha_tpu_torch.ops.cuda.layer_norm import LAUNCHES as LN_LAUNCHES
-from nezha_tpu_torch.ops.cuda.layer_norm import layer_norm_error_bound
+from nezha_tpu_torch.ops.cuda.layer_norm import (FWD_LAUNCHES_BY_ROWS,
+                                                 layer_norm_error_bound)
 from nezha_tpu_torch.ops.quant import quantize_kv_block
 from nezha_tpu_torch.optim import adamw
 from nezha_tpu_torch.serve import (Engine, Request, Scheduler, ServeConfig,
@@ -232,13 +234,13 @@ def test_engine_on_card_matches_cpu(cuda_device):
     assert results[0] == results[1]
 
 
-def _int8_pools(rng, n, dev, d=D):
-    """int8 K/V pools [n, H, BS, d] quantized from random values, with
+def _int8_pools(rng, n, dev, d=D, h=H, bs=BS):
+    """int8 K/V pools [n, h, bs, d] quantized from random values, with
     their fp32 scales, on ``dev``."""
     out = []
     for amp in (2.0, 1.0):
         qv, sv = quantize_kv_block(torch.from_numpy(
-            (rng.randn(n, H, BS, d) * amp).astype(np.float32)))
+            (rng.randn(n, h, bs, d) * amp).astype(np.float32)))
         out += [qv.to(dev), sv.to(dev)]
     return out          # kq, ks, vq, vs
 
@@ -275,6 +277,63 @@ def test_quant_decode_kernel_matches_plain(cuda_device, q_dtype):
         ks[dead], vs[dead] = float("nan"), float("nan")
     assert torch.equal(paged_quant_decode_attention(q, kq, vq, ks, vs, lens,
                                                     tab), got)
+
+
+def _launched_grid(kernel):
+    """The grid its library recorded at the kernel's last launch."""
+    import ctypes
+
+    xyz = (ctypes.c_int * 3)()
+    build.bind(kernel, f"nezha_{kernel}_last_grid", (ctypes.c_void_p,))(xyz)
+    return tuple(xyz)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("q_dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("h,d", [(12, 64), (3, 64), (3, 128)])
+def test_quant_decode_split_kernel_matches_plain(cuda_device, q_dtype, h, d):
+    """The int8 decode kernel split over the KV length, at the serving
+    engine's heads (12) and a 4-way mesh shard's (3), within
+    fold_error_bound of its plain version over lengths that end inside a
+    split, one before, at and one past each of the first two split
+    boundaries, at the table's end (not a multiple of the split) and past
+    it; the grid (splits of M*bs, H, B); the zero-length row exact zero;
+    NaN scales and saturated int8 in blocks past every row's length
+    change nothing; two launches bitwise equal; one launch a call."""
+    split = split_size("paged_quant_decode")
+    bs = 16
+    m = (2 * split + 48) // bs
+    rng = np.random.RandomState(h + d)
+    lengths = np.asarray([0, 1, 31, split - 1, split, split + 1,
+                          2 * split - 1, 2 * split, 2 * split + 1, m * bs,
+                          m * bs + 9], np.int32)
+    b, n = len(lengths), 1 + len(lengths) * m
+    dev = cuda_device
+    kq, ks, vq, vs = _int8_pools(rng, n, dev, d=d, h=h, bs=bs)
+    q = torch.from_numpy(rng.randn(b, h, 1, d).astype(np.float32)).to(
+        dev, q_dtype)
+    tab = torch.from_numpy((1 + rng.permutation(b * m)).reshape(b, m)
+                           .astype(np.int32)).to(dev)
+    lens = torch.from_numpy(lengths).to(dev)
+    args = (q, kq, vq, ks, vs, lens, tab)
+    before = paged_quant_decode_attention.launches
+    got = paged_quant_decode_attention(*args)
+    torch.cuda.synchronize()
+    assert paged_quant_decode_attention.launches == before + 1
+    assert _launched_grid("paged_quant_decode") == (-(-m * bs // split), h,
+                                                     b)
+    assert got.dtype == q_dtype
+    want = paged_quant_decode_attention_plain(*args)
+    abs_v = paged_quant_decode_attention_plain(q, kq, vq.abs(), ks, vs,
+                                               lens, tab)
+    _assert_within_bound(got, want, abs_v, q_dtype == torch.bfloat16)
+    assert torch.all(got[0] == 0)
+    assert torch.equal(paged_quant_decode_attention(*args), got)
+    for r, length in enumerate(lengths.tolist()):
+        dead = tab[r, -(-length // bs):].long()
+        kq[dead], vq[dead] = 127, -127
+        ks[dead], vs[dead] = float("nan"), float("nan")
+    assert torch.equal(paged_quant_decode_attention(*args), got)
 
 
 @pytest.mark.gpu
@@ -472,24 +531,51 @@ FLASH_KERNELS = {
                     "flash_bwd_delta_kernel", "flash_bwd_dkv_kernel"}}
 
 
-def _device_kernels(fn):
+def _device_kernels(fn, attempts=3, calls=2):
     """Names of the CUDA kernels ``fn`` launches, under torch.profiler
-    (return type, namespaces and template arguments dropped)."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    (return type, namespaces and template arguments dropped). The profiler
+    records ``calls`` calls of fn after a warm-up one: CUPTI drops events
+    while it starts up, and now and then the first kernel of the recorded
+    step, so a kernel that every call launches is named unless all of
+    its launches were dropped. A profile that caught no device event at
+    all is taken again, up to ``attempts`` times, as ``chip_smoke.py``
+    does. Each profile that caught no event, or caught a kernel a number
+    of times that is not a multiple of ``calls``, is reported as a
+    warning, so a run's warnings summary says how often, and in which
+    cases, events were dropped."""
+    import collections
+    import warnings
 
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    names = set()
-    for e in prof.events():
-        if e.device_type != DeviceType.CUDA:
-            continue
-        name = e.name.replace("(anonymous namespace)::", "")
-        name = name.split("(")[0].split("<")[0].split("::")[-1]
-        names.add(name.replace("void ", "").strip())
-    return names
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    for attempt in range(1, attempts + 1):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1,
+                                       repeat=1)) as prof:
+            for n in (1, calls):
+                for _ in range(n):
+                    fn()
+                torch.cuda.synchronize()
+                prof.step()
+        seen = collections.Counter()
+        for e in prof.events():
+            if e.device_type != DeviceType.CUDA \
+                    or e.name.startswith("ProfilerStep"):
+                continue
+            name = e.name.replace("(anonymous namespace)::", "")
+            name = name.split("(")[0].split("<")[0].split("::")[-1]
+            seen[name.replace("void ", "").strip()] += 1
+        dropped = {k: c for k, c in seen.items() if c % calls}
+        if dropped:
+            warnings.warn(f"torch.profiler dropped launches of {dropped} "
+                          f"over {calls} calls (attempt {attempt})")
+        if seen:
+            break
+        warnings.warn(f"torch.profiler caught no device event (attempt "
+                      f"{attempt} of {attempts})")
+    return set(seen)
 
 
 @pytest.mark.gpu
@@ -594,7 +680,7 @@ def test_dense_decode_kernel_matches_plain(cuda_device, q_dtype,
     two), at the cache's end (not a multiple of the split) and past it;
     the zero-length row exact zero; two launches bitwise equal; one launch
     a call."""
-    split = decode_split()
+    split = split_size("flash_decode")
     rng = np.random.RandomState(4)
     cap = 2 * split + 44
     lengths = np.asarray([0, 1, 31, split - 1, split, split + 1,
@@ -652,6 +738,70 @@ def test_layer_norm_kernels_match_plain(cuda_device, dtype, rows, d):
             f"{((g - w).abs() / bd).max().item():.3f}")
     again = layer_norm_bwd(x, scale, dy, 1e-5)
     assert all(torch.equal(a, b) for a, b in zip(grads, again))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("d", [64, 768, 1024])
+@pytest.mark.parametrize("rows", [1, 8, 132, 4096, 8192])
+def test_layer_norm_fwd_kernel_on_each_plan(cuda_device, dtype, d, rows):
+    """The forward on the rows each path gives it (a row per block up to
+    one per SM; the persistent grid past that, its warps taking several
+    rows each at 4096 and 8192) within layer_norm_error_bound of the
+    plain version, and bitwise repeatable."""
+    rng = np.random.RandomState(rows + d)
+    x = rng.randn(rows, d) * rng.uniform(0.5, 3.0, (rows, 1)) \
+        + rng.randn(rows, 1) * 2
+    x = torch.from_numpy(x.astype(np.float32)).to(cuda_device, dtype)
+    scale, bias = (torch.from_numpy(a.astype(np.float32)).to(cuda_device)
+                   for a in (1 + 0.3 * rng.randn(d), 0.2 * rng.randn(d)))
+    y = layer_norm_fwd(x, scale, bias, 1e-5)
+    torch.cuda.synchronize()
+    err = (y.float() - layer_norm_fwd_plain(x, scale, bias, 1e-5).float())
+    bound = layer_norm_error_bound(x, scale, bias, 1e-5)
+    assert torch.all(err.abs() <= bound), (err.abs() / bound).max().item()
+    assert torch.equal(layer_norm_fwd(x, scale, bias, 1e-5), y)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rows", [8, 8192])
+def test_layer_norm_fwd_entry_takes_only_its_plan(cuda_device, rows):
+    """The forward's C entry point launches fwd_plan's geometry for the
+    card and records it (launched_fwd_plan); the wrapper counts the launch
+    under its row count; any other geometry is refused with
+    cudaErrorInvalidValue and writes nothing."""
+    import ctypes
+    import dataclasses
+
+    from nezha_tpu_torch.ops.cuda import layer_norm as ln
+
+    d = 768
+    x = torch.randn(rows, d, device=cuda_device).to(torch.bfloat16)
+    scale = torch.ones(d, device=cuda_device)
+    bias = torch.zeros(d, device=cuda_device)
+    before = FWD_LAUNCHES_BY_ROWS.get(rows, 0)
+    layer_norm_fwd(x, scale, bias, 1e-5)
+    torch.cuda.synchronize()
+    assert FWD_LAUNCHES_BY_ROWS[rows] == before + 1
+    sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    plan = ln.fwd_plan(rows, d, x.dtype, sms)
+    assert ln.launched_fwd_plan() == plan
+    fn = build.bind("layer_norm", "nezha_layer_norm_fwd", ln._FWD_ARGTYPES)
+    others = [dataclasses.replace(plan, blocks=plan.blocks + 1),
+              dataclasses.replace(plan, blocks=plan.blocks - 1),
+              dataclasses.replace(plan, cpl=plan.cpl + 1),
+              dataclasses.replace(plan, warps=4)]
+    for other in others:
+        y = torch.full_like(x, 7.0)
+        rc = fn(x.data_ptr(), scale.data_ptr(), bias.data_ptr(),
+                y.data_ptr(), rows, d, ctypes.c_float(1e-5),
+                build.DTYPE_CODES[x.dtype],
+                torch.cuda.current_stream(x.device).cuda_stream, other.cpl,
+                other.warps, other.blocks)
+        torch.cuda.synchronize()
+        assert rc == 1, (other, rc)                 # cudaErrorInvalidValue
+        assert torch.all(y == 7.0)
+    assert ln.launched_fwd_plan() == plan
 
 
 @pytest.mark.gpu

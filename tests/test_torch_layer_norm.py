@@ -2,13 +2,17 @@
 package on the CPU: the kernels' plain versions against the Pallas
 kernels in interpret mode (``fused_layer_norm``, forward and custom-VJP
 backward), the GPT-2 layer against JAX's under ``NEZHA_LN_INTERPRET=1``,
-and one tiny-preset train step's loss and gradients.
+and one tiny-preset train step's loss and gradients; and the forward
+kernel's launch plan (``fwd_plan``) and the check its C entry point
+makes (``check_fwd_plan``).
 
 Tolerance: ``layer_norm_error_bound`` (``ops/cuda/layer_norm.py``), the
 elementwise bound on two fp32 evaluations of the same formulas in other
 summation orders, plus one bf16 rounding of each side's output where x is
 bf16 — the bound the card holds the kernels to. It is pinned here against
 float64 arithmetic, and a one-pass variance breaks it."""
+
+import dataclasses
 
 import jax
 import jax.numpy as jnp
@@ -29,7 +33,10 @@ from nezha_tpu_torch.models.convert import params_to_jax
 from nezha_tpu_torch.nn import LayerNorm
 from nezha_tpu_torch.ops.cuda import (fused_layer_norm, layer_norm_bwd,
                                       layer_norm_fwd)
-from nezha_tpu_torch.ops.cuda.layer_norm import (BWD_ROWS,
+from nezha_tpu_torch.ops.cuda.layer_norm import (FWD_BLOCKS_PER_SM,
+                                                 FWD_MANY_WARPS, H100_SMS,
+                                                 BWD_ROWS, FwdPlan,
+                                                 check_fwd_plan, fwd_plan,
                                                  layer_norm_error_bound)
 from nezha_tpu_torch.optim import adamw
 from nezha_tpu_torch.tensor.policy import bf16_policy
@@ -214,3 +221,71 @@ def test_ln_impl_pallas_builds_and_unknown_impls_refused():
             GPT2(GPT2Config(**TINY_GPT2_KW, **bad), device="cpu")
     with pytest.raises(ValueError, match="impl"):
         LayerNorm(8, device="cpu", impl="triton")
+
+
+# The rows the forward gets (one row; generate's decode step of 8; an odd
+# count; one per SM; generate's prefill; a train step) and the widths it
+# takes (the narrowest; GPT-2's; the widest; one short of it, whose last
+# chunk only some lanes hold).
+PLAN_ROWS = (1, 8, 37, 132, 4096, 8192)
+PLAN_D = (8, 64, 768, 1016, 1024)
+
+
+def _refused(plan, rows, d, dtype, sms=H100_SMS):
+    with pytest.raises(ValueError, match="plan"):
+        check_fwd_plan(plan, rows, d, dtype, sms)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", PLAN_D)
+@pytest.mark.parametrize("rows", PLAN_ROWS)
+def test_fwd_plan_fits_every_accepted_shape(rows, d, dtype):
+    """Every accepted (rows, D, dtype) gets a geometry the entry check
+    takes: a lane holds exactly its row's 16-byte chunks (1-4 for bf16,
+    1-8 for f32, a build of each), a row per block up to one row per SM,
+    else a grid of 8-warp blocks, at most FWD_BLOCKS_PER_SM an SM, whose
+    warps take every row once and the same number of rows up to one. Any
+    other geometry is refused: another lane width, block size or grid."""
+    plan = fwd_plan(rows, d, dtype)
+    check_fwd_plan(plan, rows, d, dtype)
+    vec = 16 // dtype.itemsize
+    chunks = d // vec
+    assert (plan.cpl - 1) * 32 < chunks <= plan.cpl * 32
+    assert plan.cpl <= (4 if dtype == torch.bfloat16 else 8)
+    warps = plan.blocks * plan.warps
+    if rows <= H100_SMS:
+        assert plan == FwdPlan(plan.cpl, 1, rows)
+    else:
+        assert plan.warps == FWD_MANY_WARPS
+        assert plan.blocks <= H100_SMS * FWD_BLOCKS_PER_SM
+    # The kernel's walk: warp w takes rows w, w + warps, ...
+    taken = sorted(r for w in range(warps) for r in range(w, rows, warps))
+    assert taken == list(range(rows))
+    per_warp = [len(range(w, rows, warps)) for w in range(warps)]
+    assert max(per_warp) - min(per_warp) <= 1
+    bad = [dataclasses.replace(plan, cpl=plan.cpl + 1),
+           dataclasses.replace(plan, blocks=0),
+           dataclasses.replace(plan, blocks=plan.blocks + 1),
+           dataclasses.replace(plan, blocks=-(-rows // plan.warps) + 1)]
+    bad += [dataclasses.replace(plan, warps=w) for w in (2, 3, 4, 8, 16)
+            if w != plan.warps]
+    if plan.cpl > 1:
+        bad.append(dataclasses.replace(plan, cpl=plan.cpl - 1))
+    if plan.blocks > 1:
+        bad.append(dataclasses.replace(plan, blocks=plan.blocks - 1))
+    for other in bad:
+        _refused(other, rows, d, dtype)
+
+
+def test_fwd_plan_follows_the_card_and_refuses_other_widths():
+    """The plan's few-rows limit is the card's SM count, and the entry
+    check takes the plan for its own card only; a width past the kernel's
+    1024 is refused whatever the plan."""
+    assert fwd_plan(100, 768, torch.bfloat16, sms=64).warps == FWD_MANY_WARPS
+    assert fwd_plan(64, 768, torch.bfloat16, sms=64) == FwdPlan(3, 1, 64)
+    check_fwd_plan(FwdPlan(3, 1, 64), 64, 768, torch.bfloat16, sms=64)
+    _refused(FwdPlan(3, 1, 64), 64, 768, torch.bfloat16, sms=32)
+    _refused(fwd_plan(8192, 768, torch.bfloat16, sms=64), 8192, 768,
+             torch.bfloat16)
+    _refused(FwdPlan(5, 1, 8), 8, 1032, torch.bfloat16)
+    _refused(FwdPlan(9, 1, 8), 8, 1032, torch.float32)

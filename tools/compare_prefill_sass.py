@@ -1,7 +1,10 @@
 """The prefill kernels' machine code: tensor-core use, registers, and
-B10's write grid against another version of ``csrc/quant_prefill.cu``.
+B10's write grid against another version of ``csrc/quant_prefill.cu``;
+and kernels a change must leave as they were against another copy of the
+sources.
 
     python3 tools/compare_prefill_sass.py [--other-quant OTHER/quant_prefill.cu]
+        [--other-csrc OTHER_CSRC]
 
 Compiles ``csrc/paged_prefill.cu`` and ``csrc/quant_prefill.cu`` for
 ``sm_90a`` with the build's flags and ``-Xptxas -v``, disassembles them
@@ -13,8 +16,13 @@ instruction count and ``HMMA`` (tensor-core) instructions. With
 each ``quant_prefill_write_kernel`` (B10's write grid) instantiation's
 instruction stream is identical in both. Exits non-zero if an
 instantiation with a bf16 operand has no ``HMMA`` or a write grid
-differs. Needs ``nvcc`` and ``cuobjdump`` (the CUDA toolkit); imports
-nothing of JAX.
+differs. With ``--other-csrc`` (another ``nezha_tpu_torch/csrc``, e.g. a
+parent commit's) it compiles ``UNCHANGED``'s sources from both copies,
+each against its own headers, and prints whether every instantiation of
+B7's ``paged_decode_kernel`` and B5's ``ln_bwd_kernel`` has the same
+instruction stream in both (exit non-zero if not), and, for information,
+B6's ``flash_decode_split_kernel``. Needs ``nvcc`` and ``cuobjdump`` (the
+CUDA toolkit); imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -30,15 +38,22 @@ from pathlib import Path
 REPO = Path(__file__).resolve().parents[1]
 CSRC = REPO / "nezha_tpu_torch" / "csrc"
 FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-         "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-c", "-I", str(CSRC)]
+         "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-c"]
 FOLD_KERNELS = ("paged_prefill_kernel", "quant_prefill_attn_kernel")
 WRITE_KERNEL = "quant_prefill_write_kernel"
+# Kernels to hold against another copy of the sources: source -> (kernel,
+# whether a difference fails the run).
+UNCHANGED = {"paged_decode": ("paged_decode_kernel", True),
+             "layer_norm": ("ln_bwd_kernel", True),
+             "flash_decode": ("flash_decode_split_kernel", False)}
 
 
 def compile_and_dump(nvcc: str, source: Path, out: Path):
-    """-> ({kernel: [instructions]}, {kernel: registers})."""
+    """-> ({kernel: [instructions]}, {kernel: registers}); the source
+    compiles against the headers beside it."""
     obj = out.with_suffix(".o")
-    log = subprocess.run([nvcc, *FLAGS, "-o", str(obj), str(source)],
+    log = subprocess.run([nvcc, *FLAGS, "-I", str(source.parent), "-o",
+                          str(obj), str(source)],
                          capture_output=True, text=True, check=True).stderr
     regs, current = {}, None
     for line in log.splitlines():
@@ -93,10 +108,41 @@ def label(name: str) -> str:
     return f"{base}<{', '.join(names)}>"
 
 
+def same_kernels(nvcc: str, other_csrc: Path, tmp: Path):
+    """UNCHANGED's kernels compiled from this tree and from other_csrc ->
+    ([one row per instantiation], whether every required one matched).
+    Instantiations are matched by kernel name and what follows it in the
+    mangled name (template arguments and parameters): an anonymous
+    namespace's mangled name carries its file's name."""
+    rows, ok = [], True
+    for source, (kernel, required) in UNCHANGED.items():
+        dumps = []
+        for tag, csrc in (("tree", CSRC), ("other", other_csrc)):
+            funcs, regs = compile_and_dump(nvcc, csrc / f"{source}.cu",
+                                           tmp / f"{tag}_{source}")
+            dumps.append({name.split(kernel, 1)[1]: (instrs, regs.get(name))
+                          for name, instrs in funcs.items() if kernel in name})
+        mine, theirs = dumps
+        for key in sorted(set(mine) | set(theirs)):
+            same = key in mine and key in theirs and mine[key][0] == theirs[
+                key][0]
+            ok &= same or not required
+            rows.append({"kernel": kernel, "instantiation": key,
+                         "instructions": len(mine.get(key, ((),))[0]),
+                         "registers": mine.get(key, (None, None))[1],
+                         "registers_other": theirs.get(key, (None, None))[1],
+                         "identical": same, "required": required})
+        ok &= bool(mine) or not required
+    return rows, ok
+
+
 def main() -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--other-quant", type=Path,
                    help="a quant_prefill.cu whose write grid to compare")
+    p.add_argument("--other-csrc", type=Path,
+                   help="another nezha_tpu_torch/csrc whose B5/B7 (and B6) "
+                        "kernels to compare")
     p.add_argument("--nvcc", default="/usr/local/cuda/bin/nvcc")
     args = p.parse_args()
     funcs, regs = {}, {}
@@ -110,6 +156,10 @@ def main() -> int:
         if args.other_quant:
             other, other_regs = compile_and_dump(args.nvcc, args.other_quant,
                                                  Path(tmp) / "other")
+        same = same_ok = None
+        if args.other_csrc:
+            same, same_ok = same_kernels(args.nvcc, args.other_csrc.resolve(),
+                                         Path(tmp))
     ok = True
     rows = []
     for name, instrs in sorted(funcs.items()):
@@ -139,6 +189,9 @@ def main() -> int:
                            "registers_other": other_reg, "identical": same})
         ok &= bool(writes)
         report["write_sass"] = writes
+    if same is not None:
+        ok &= same_ok
+        report["unchanged_sass"] = same
     report["ok"] = ok
     print(json.dumps(report))
     return 0 if ok and rows else 1

@@ -1,20 +1,30 @@
-"""Time the dense flash-decode kernel (B6) at each split size.
+"""Time a split decode kernel at each split size: the dense flash-decode
+(B6) or the int8 paged decode (B8).
 
-    python3 tools/tune_decode_split.py [--splits 128 256] [--other FILE]
+    python3 tools/tune_decode_split.py [--kernel dense|quant]
+        [--splits 128 256] [--other FILE]
 
-``nezha_tpu_torch/csrc/flash_decode.cu`` folds each row's KV length in
-splits of ``SPLIT`` keys, a compile-time constant. For each size this
-copies ``nezha_tpu_torch/csrc`` into a temporary directory with ``SPLIT``
-set to it, builds the kernel there, checks it against its plain version
-(within ``fold_error_bound``; lengths 0 to L, bf16) and times it with
-``chip_smoke.py``'s device timer at generate's shape (B=8, H=12, L=1024,
-D=64, bf16 cache) with every row at length 512 and at 768, the span a
-generate call of 512-token prompts and 256 new tokens walks. The sizes
-run in the order given, then again in reverse, so each is timed twice.
-``--other`` times another ``flash_decode.cu`` (the same C interface, e.g.
-a variant saved into an ignored directory) the same way beside it.
-Prints the card's name and power limit, then one JSON line per row.
-Needs the card and ``nvcc``; imports nothing of JAX.
+``nezha_tpu_torch/csrc/flash_decode.cu`` (``--kernel dense``, the default)
+and ``csrc/paged_quant_decode.cu`` (``--kernel quant``) fold each row's KV
+length in splits of ``SPLIT`` keys, a compile-time constant. For each size
+this copies ``nezha_tpu_torch/csrc`` into a temporary directory with
+``SPLIT`` set to it, builds the kernel there, checks it against its plain
+version (within ``fold_error_bound``; bf16 q, lengths from 0 to the cache's
+end and on the first splits' boundaries) and times it with
+``chip_smoke.py``'s device timer:
+
+- dense: generate's shape (B=8, H=12, L=1024, D=64, bf16 cache) with every
+  row at length 512 and at 768, the span a generate call of 512-token
+  prompts and 256 new tokens walks;
+- quant: ``chip_smoke.py``'s serving shape (B=8, D=64, 16-position pool
+  blocks, M=64, lengths [0, 1, 15, 16, 17, 300, 777, 1024]) at H=12 (the
+  engine) and H=3 (a shard of the 4-way int8 ulysses mesh).
+
+The sizes run in the order given, then again in reverse, so each is timed
+twice. ``--other`` times another source of the kernel (the same C
+interface, e.g. a variant saved into an ignored directory) the same way
+beside it. Prints the card's name and power limit, then one JSON line per
+row. Needs the card and ``nvcc``; imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -34,30 +44,74 @@ sys.path.insert(0, str(REPO))
 import chip_smoke as cs  # noqa: E402
 from csrc_variant import PACKAGE_CSRC, build_variant  # noqa: E402
 from nezha_tpu_torch.ops.cuda.decode_attention import (  # noqa: E402
-    decode_split, flash_decode_attention, flash_decode_attention_plain)
+    flash_decode_attention, flash_decode_attention_plain,
+    paged_quant_decode_attention, paged_quant_decode_attention_plain,
+    split_size)
 
-B, H, L, D = 8, 12, 1024, 64
+B, D = 8, 64
+DENSE_H, DENSE_L = 12, 1024
+QUANT_BS, QUANT_M = 16, 64
+QUANT_LENGTHS = [0, 1, 15, 16, 17, 300, 777, QUANT_M * QUANT_BS]
 
 
-def use_split(tmp: Path, split: int, source: Path, tag: str) -> float:
-    """Build flash_decode from a copy of the sources with ``source`` as
-    flash_decode.cu and SPLIT = ``split`` -> its build seconds."""
-    seconds = build_variant(
-        tmp / f"{tag}_split{split}", ("flash_decode",),
-        [("flash_decode.cu", r"constexpr int SPLIT = \d+;",
-          f"constexpr int SPLIT = {split};")],
-        {"flash_decode.cu": source})["flash_decode"]
-    decode_split.cache_clear()
-    return seconds
+def dense_cases(g):
+    """-> (the checked call and its plain version, each taking v; v;
+    [(label, timed call)])."""
+    bf = torch.bfloat16
+    q, k, v = (torch.randn(B, DENSE_H, n, D, generator=g).to("cuda", bf)
+               for n in (1, DENSE_L, DENSE_L))
+    checked = torch.tensor([0, 1, 127, 128, 129, 300, 768, DENSE_L],
+                           dtype=torch.int32, device="cuda")
+    timed = []
+    for length in (512, 768):
+        lens = torch.full((B,), length, dtype=torch.int32, device="cuda")
+        timed.append((f"length {length}",
+                      lambda lens=lens: flash_decode_attention(q, k, v,
+                                                               lens)))
+    return ((lambda vv=v: flash_decode_attention(q, k, vv, checked)),
+            (lambda vv=v: flash_decode_attention_plain(q, k, vv, checked)),
+            v, timed)
+
+
+def quant_cases(g):
+    """The int8 pools of ``chip_smoke.py``'s B8 check at H=12 and H=3."""
+    from nezha_tpu_torch.ops.quant import quantize_kv_block
+
+    bf = torch.bfloat16
+    n = 1 + B * QUANT_M
+    lens = torch.tensor(QUANT_LENGTHS, dtype=torch.int32, device="cuda")
+    tab = (torch.randperm(n - 1, generator=g) + 1)[:B * QUANT_M].reshape(
+        B, QUANT_M).to("cuda", torch.int32)
+    per_h = {}
+    for h in (12, 3):
+        pools = [quantize_kv_block(torch.randn(
+            n, h, QUANT_BS, D, generator=g).to("cuda", bf)) for _ in "kv"]
+        q = torch.randn(B, h, 1, D, generator=g).to("cuda", bf)
+        per_h[h] = (q, pools[0][0], pools[1][0], pools[0][1], pools[1][1])
+    q, kq, vq, ks, vs = per_h[12]
+    timed = [(f"H={h}",
+              lambda a=a: paged_quant_decode_attention(*a, lens, tab))
+             for h, a in per_h.items()]
+    return ((lambda vv=vq: paged_quant_decode_attention(q, kq, vv, ks, vs,
+                                                        lens, tab)),
+            (lambda vv=vq: paged_quant_decode_attention_plain(
+                q, kq, vv, ks, vs, lens, tab)),
+            vq, timed)
+
+
+KERNELS = {"dense": ("flash_decode", dense_cases),
+           "quant": ("paged_quant_decode", quant_cases)}
 
 
 def main() -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    p.add_argument("--kernel", choices=sorted(KERNELS), default="dense")
     p.add_argument("--splits", type=int, nargs="+", default=[128, 256])
     p.add_argument("--other", type=Path, default=None,
-                   help="another flash_decode.cu to time beside")
+                   help="another source of the kernel to time beside")
     args = p.parse_args()
-    sources = [("tree", PACKAGE_CSRC / "flash_decode.cu")]
+    name, cases = KERNELS[args.kernel]
+    sources = [("tree", PACKAGE_CSRC / f"{name}.cu")]
     if args.other:
         sources.append(("other", args.other.resolve()))
     if not torch.cuda.is_available():
@@ -67,38 +121,34 @@ def main() -> int:
                          text=True, timeout=60).stdout.strip()
     print(f"card: {torch.cuda.get_device_name(0)}; nvidia-smi: {smi}",
           flush=True)
-    g = torch.Generator().manual_seed(0)
-    bf = torch.bfloat16
-    q, k, v = (torch.randn(B, H, n, D, generator=g).to("cuda", bf)
-               for n in (1, L, L))
-    checked = torch.tensor([0, 1, 127, 128, 129, 300, 768, L],
-                           dtype=torch.int32, device="cuda")
-    want = flash_decode_attention_plain(q, k, v, checked)
-    bound = cs.fold_bound(
-        want, flash_decode_attention_plain(q, k, v.abs(), checked))
+    call, plain, v, timed = cases(torch.Generator().manual_seed(0))
+    want = plain()
+    bound = cs.fold_bound(want, plain(v.abs()))
     with tempfile.TemporaryDirectory() as tmp:
         runs = [(tag, src, split) for split in args.splits
                 for tag, src in sources]
         for tag, source, split in runs + runs[::-1]:
-            build_s = use_split(Path(tmp), split, source, tag)
-            assert decode_split() == split
-            got = flash_decode_attention(q, k, v, checked)
+            build_s = build_variant(
+                Path(tmp) / f"{tag}_split{split}", (name,),
+                [(f"{name}.cu", r"constexpr int SPLIT = \d+;",
+                  f"constexpr int SPLIT = {split};")],
+                {f"{name}.cu": source})[name]
+            split_size.cache_clear()
+            assert split_size(name) == split
+            got = call()
             torch.cuda.synchronize()
             ratio = ((got.float() - want.float()).abs() / bound).max().item()
             if not ratio <= 1.0:
                 cs.fail(f"{tag} split {split}: exceeds fold_error_bound "
                         f"({ratio})")
-            for length in (512, 768):
-                lens = torch.full((B,), length, dtype=torch.int32,
-                                  device="cuda")
-                row = cs.device_time(
-                    f"decode {tag} split {split} length {length}",
-                    lambda: flash_decode_attention(q, k, v, lens), 100)
+            for label, fn in timed:
+                row = cs.device_time(f"{name} {tag} split {split} {label}",
+                                     fn, 100)
                 print(json.dumps({
-                    "source": tag, "split": split, "length": length,
-                    "grid": cs.launched_decode_grid(), "build_s": build_s,
-                    "err_over_bound": ratio, "ms": row["ms"],
-                    "ms_spread": row["ms_spread"],
+                    "kernel": name, "source": tag, "split": split,
+                    "case": label, "grid": cs.launched_grid(name),
+                    "build_s": build_s, "err_over_bound": ratio,
+                    "ms": row["ms"], "ms_spread": row["ms_spread"],
                     "profiler_us": row["profiler_us"]}), flush=True)
     return 0
 
