@@ -13,12 +13,19 @@ Phases, each fatal on failure (non-zero exit, no result line):
    of 16, 64 blocks per row), with its time on the device (``device_time``:
    L2 flushed and the device held in a spin before each call, so no host
    gap is timed; three repeats; the profiler's per-kernel time beside
-   it), the plain version's time, the bound (bytes the call must move
+   it; the rig's zero point, an empty launch timed the same way, printed
+   once and beside every row with the row's ms less it), the plain
+   version's time, the bound (bytes the call must move
    over 3.35 TB/s vs its flops over 989 TFLOP/s, from this run's lengths
    and starts) and, as a yardstick only, ``scaled_dot_product_attention``
    on the same K/V gathered dense, pinned to a backend that it names;
    each output element must lie within ``fold_error_bound`` of the plain
-   one; any host-late timed call fails the phase;
+   one; any host-late timed call fails the phase. The float paged decode
+   kernel (B7), split over the KV length, on all four (q, pool) dtype
+   pairs (lengths 0-1024 and on the first splits' boundaries), the
+   length-0 row exact zero and two runs bitwise equal; timed on the
+   serving rows at H=12 and at H=3 (a shard of the 4-way mesh), with its
+   split size and the grid its library recorded at the launch;
    The three flash-attention training kernels are held the same way in
    bf16 at GPT-2's training shape (B=8, H=12, S=1024, D=64, causal) and
    on a non-causal case, a ``kv_lengths`` case with a zero-length row,
@@ -47,8 +54,9 @@ Phases, each fatal on failure (non-zero exit, no result line):
    rows within ``layer_norm_error_bound``, both bitwise repeatable; the
    forward timed at the rows each path gives it (8: a generate decode
    step; 4096: generate's prefill; 8192: a train step), each beside
-   ``F.layer_norm`` on the same rows and its own bound; the backward at
-   8192 rows beside ``F.layer_norm``'s backward alone.
+   ``F.layer_norm`` on the same rows and its own bound; the backward (dx,
+   and dscale and dbias, summed by its second kernel) at 8192 rows beside
+   ``F.layer_norm``'s backward alone.
    The int8 paged decode kernel (B8), split over the KV length, at the
    serving shapes over int8 pools quantized with
    ``ops.quant.quantize_kv_block`` from random bf16 values (bf16 and f32
@@ -82,8 +90,9 @@ Phases, each fatal on failure (non-zero exit, no result line):
    flash kernel launched exactly 12 times per step in that run; (e) one
    step with ``ln_impl="pallas"`` against the same step with the xla
    LayerNorm, from the same weights and batch (TRAIN_* tolerances); (f)
-   10 timed steps with ``ln_impl="pallas"``, each LayerNorm kernel
-   launched exactly 25 times per step (2 per block + ``ln_f``);
+   10 timed steps with ``ln_impl="pallas"``, each LayerNorm kernel (the
+   forward, the backward and its sums) launched exactly 25 times per step
+   (2 per block + ``ln_f``);
 5. serve: GPT-2 124M at full width, seeded random weights, bf16, eight
    greedy requests through ``Scheduler`` (prompts of 5-900 tokens, some
    prefilled in chunks, two sharing a 128-token prefix); requires every
@@ -227,6 +236,10 @@ def phase(name: str) -> None:
 # (profiler_kernels) and their sum per call (profiler_us); a row whose
 # event time and profiler time differ by more than DISAGREE_REL of the
 # profiler time and more than DISAGREE_US is flagged (profiler_disagrees).
+# The rig's zero point (empty_row): an empty launch, torch.cuda._sleep(0),
+# timed the same way, EMPTY_ITERS calls a repeat; every row carries it
+# (empty_ms) and its ms less it (ms_less_empty) beside its ms, which
+# stays what the events read.
 TIMED_REPEATS = 3
 SLEEP_FLOOR_MS = 2.0      # the least device spin before a timed call
 SLEEP_OVER_ENQUEUE = 8    # and at least this many times the host's enqueue
@@ -236,6 +249,7 @@ PROFILED_CALLS = 5
 PROFILE_ATTEMPTS = 3      # a profile that lost events is taken again
 PROFILE_SETTLE_S = 0.01   # host pause before a profiling cycle closes
 DISAGREE_REL, DISAGREE_US = 0.15, 5.0
+EMPTY_ITERS = 200
 FLUSH_BYTES = 64 << 20    # over the H100's 50 MB L2
 # SDPA's backends in PyTorch's own order of preference; a yardstick runs
 # pinned to the first that takes its inputs (library_backend).
@@ -310,15 +324,19 @@ def profiler_disagrees(event_ms: float, prof_us: float) -> bool:
 
 
 def timing_fields(means, started, delay_ms, kernels, prefix="",
-                  outliers=0, retried=()):
+                  outliers=0, retried=(), empty_ms=None):
     """One timed row's fields from its repeats' means (ms), the start
     events' completion flags, the spin before each call, the profiled
-    kernels, the calls left out as outliers and the late counts of
-    attempts set aside; ``prefix`` names a yardstick's fields
+    kernels, the calls left out as outliers, the late counts of attempts
+    set aside and the rig's zero point (``empty_row``'s ms, None where
+    it was not taken); ``prefix`` names a yardstick's fields
     (``library_``)."""
     ms = sum(means) / len(means)
     prof = profiler_us(kernels)
-    return {f"{prefix}ms": ms, f"{prefix}ms_spread": spread(means),
+    return {f"{prefix}ms": ms, f"{prefix}empty_ms": empty_ms,
+            f"{prefix}ms_less_empty": (None if empty_ms is None
+                                       else ms - empty_ms),
+            f"{prefix}ms_spread": spread(means),
             f"{prefix}outliers": outliers,
             f"{prefix}host_late": host_late_count(started),
             f"{prefix}host_late_retried": list(retried),
@@ -403,10 +421,11 @@ def whole_launches(kernels) -> bool:
         float(k["launches_per_call"]).is_integer() for k in kernels.values())
 
 
-def device_time(label: str, fn, iters: int, warmup: int = 3,
-                prefix: str = ""):
-    """Time fn on the device (see the timer's notes above) -> its
-    timing_fields; fails when the last attempt had a host-late call."""
+def timed_attempts(label: str, fn, iters: int, warmup: int = 3):
+    """fn's timed repeats, retried with twice the spin while a call was
+    host-late (see the timer's notes above) -> (means, started,
+    outliers, delay_ms, retried); fails when the last attempt had a
+    host-late call."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -423,16 +442,44 @@ def device_time(label: str, fn, iters: int, warmup: int = 3,
             break
         retried.append(late)
         delay_ms *= 2
-    row = timing_fields(means, started, delay_ms, profiled_kernels(fn),
-                        prefix, outliers, retried)
-    TIMED_ROWS.append((f"{label} {prefix}".strip(), row[f"{prefix}ms"],
-                       row[f"{prefix}profiler_us"],
-                       row[f"{prefix}profiler_disagrees"]))
     if late:
         fail(f"{label}: {late} of {len(started)} timed calls were host-late "
              f"(the device finished a {delay_ms:.2f} ms spin before the "
              f"host had enqueued the call), after {retried} in earlier "
              f"attempts")
+    return means, started, outliers, delay_ms, retried
+
+
+def empty_call() -> None:
+    """A launch that does no work: the timer's zero point."""
+    torch.cuda._sleep(0)
+
+
+@functools.lru_cache(maxsize=None)
+def empty_row():
+    """``empty_call`` on the rig every row is timed on -> its
+    timing_fields (``ms`` is the zero point ``empty_ms`` of every other
+    row), taken once a run."""
+    means, started, outliers, delay_ms, retried = timed_attempts(
+        "empty launch", empty_call, EMPTY_ITERS)
+    return timing_fields(means, started, delay_ms,
+                         profiled_kernels(empty_call), outliers=outliers,
+                         retried=retried)
+
+
+def device_time(label: str, fn, iters: int, warmup: int = 3,
+                prefix: str = ""):
+    """Time fn on the device (see the timer's notes above) -> its
+    timing_fields, with the rig's zero point; fails when the last attempt
+    had a host-late call."""
+    zero = empty_row()["ms"]
+    means, started, outliers, delay_ms, retried = timed_attempts(
+        label, fn, iters, warmup)
+    row = timing_fields(means, started, delay_ms, profiled_kernels(fn),
+                        prefix, outliers, retried, zero)
+    TIMED_ROWS.append((f"{label} {prefix}".strip(), row[f"{prefix}ms"],
+                       row[f"{prefix}profiler_us"],
+                       row[f"{prefix}profiler_disagrees"]))
     return row
 
 
@@ -492,8 +539,8 @@ def plain_time_ms(fn, iters: int) -> float:
     return total / iters
 
 
-TIMING_KEYS = ("ms", "ms_spread", "outliers", "host_late",
-               "host_late_retried", "delay_ms", "profiler_us",
+TIMING_KEYS = ("ms", "empty_ms", "ms_less_empty", "ms_spread", "outliers",
+               "host_late", "host_late_retried", "delay_ms", "profiler_us",
                "profiler_kernels", "event_over_profiler",
                "profiler_disagrees")
 
@@ -586,50 +633,136 @@ def within_bound(name: str, got, want, want_abs_v):
     return within(name, got, want, fold_bound(want, want_abs_v))
 
 
-def check_decode(g):
+def worst_element(got, want, bound) -> dict:
+    """The element with the largest ``|got - want| / bound``: both values,
+    the error, the bound and, for a bf16 output, the error in units in the
+    last place of ``want``."""
+    err = (got.float() - want.float()).abs()
+    i = int((err / bound).flatten().argmax())
+    w, e = want.float().flatten()[i].item(), err.flatten()[i].item()
+    row = {"want": w, "got": got.float().flatten()[i].item(), "err": e,
+           "bound": bound.flatten()[i].item()}
+    if want.dtype == torch.bfloat16 and w != 0.0:
+        row["out_ulps"] = e / 2.0 ** (math.frexp(w)[1] - 8)
+    return row
+
+
+def check_paged_decode_case(tag: str, args, p_dtype) -> dict:
+    """B7 on one case held against its plain version within
+    ``fold_error_bound``, its length-0 rows exact zero and two runs
+    bitwise equal -> max_abs_err, err_over_tolerance and the worst
+    element."""
     from nezha_tpu_torch.ops.cuda import (paged_decode_attention,
                                           paged_decode_attention_plain)
 
-    lengths_list = [0, 1, 15, 16, 17, 300, 777, M * BS]
-    b = len(lengths_list)
-    n = 1 + b * M
-    bf = torch.bfloat16
-    q = torch.randn(b, H, 1, D, generator=g).to("cuda", bf)
-    kp = torch.randn(n, H, BS, D, generator=g).to("cuda", bf)
-    vp = torch.randn(n, H, BS, D, generator=g).to("cuda", bf)
-    tab = shuffled_tables(g, b, n).cuda()
-    lengths = torch.tensor(lengths_list, dtype=torch.int32, device="cuda")
-    args = (q, kp, vp, lengths, tab)
+    q, kp, vp, lengths, tab = args
     got = paged_decode_attention(*args)
     torch.cuda.synchronize()
     want = paged_decode_attention_plain(*args)
     abs_v = paged_decode_attention_plain(q, kp, vp.abs(), lengths, tab)
-    err, ratio = within_bound("paged_decode", got, want, abs_v)
-    if not torch.all(got[0] == 0):
-        fail("paged_decode: the length-0 row is not exact zero")
-    timing = device_time("paged_decode",
-                         lambda: paged_decode_attention(*args), 100)
-    plain_ms = plain_time_ms(lambda: paged_decode_attention_plain(*args), 5)
-    # Yardstick: SDPA over the rows' K/V gathered dense, masked by length.
-    kd = kp[tab.long()].transpose(1, 2).reshape(b, H, M * BS, D)
-    vd = vp[tab.long()].transpose(1, 2).reshape(b, H, M * BS, D)
+    bnd = fold_bound(want, abs_v, p_dtype)
+    err, ratio = within(tag, got, want, bnd)
+    if not torch.all(got[lengths == 0] == 0):
+        fail(f"{tag}: a length-0 row is not exact zero")
+    if not torch.equal(paged_decode_attention(*args), got):
+        fail(f"{tag}: two runs differ")
+    return {"max_abs_err": err, "err_over_tolerance": ratio,
+            "worst": worst_element(got, want, bnd)}
+
+
+def time_paged_decode(q, kp, vp, lengths, tab, label: str):
+    """B7 on one bf16 case, checked first (``check_paged_decode_case``),
+    with the device timer, beside SDPA over the rows' K/V gathered dense
+    and masked by length, the plain version and the bound -> the row's
+    fields."""
+    from nezha_tpu_torch.ops.cuda import (paged_decode_attention,
+                                          paged_decode_attention_plain)
+
+    b, h = q.shape[:2]
+    args = (q, kp, vp, lengths, tab)
+    checked = check_paged_decode_case(label, args, kp.dtype)
+    timing = device_time(label, lambda: paged_decode_attention(*args), 100)
+    timing["grid"] = launched_grid("paged_decode")
+    if not math.prod(timing["grid"]):
+        fail(f"{label}: no launch grid recorded ({timing['grid']})")
+    timing["plain_ms"] = plain_time_ms(
+        lambda: paged_decode_attention_plain(*args), 5)
+    kd = kp[tab.long()].transpose(1, 2).reshape(b, h, M * BS, D)
+    vd = vp[tab.long()].transpose(1, 2).reshape(b, h, M * BS, D)
     mask = (torch.arange(M * BS, device="cuda")[None, :]
             < lengths[:, None])[:, None, None, :]
     sdpa, backend = sdpa_yardstick(q, kd, vd, attn_mask=mask)
-    timing.update(library_time("paged_decode", sdpa, 100, backend))
-    total = sum(lengths_list)
-    nbytes = (2 * b * H * D * 2                     # q in, out
-              + 2 * total * H * D * 2               # K and V read once
-              + sum(math.ceil(x / BS) for x in lengths_list) * 4 + b * 4)
-    flops = 4 * total * H * D
-    bound_ms, bound_by = bound(nbytes, flops)
+    timing.update(library_time(label, sdpa, 100, backend))
+    lens = lengths.tolist()
+    total = sum(lens)
+    nbytes = (2 * b * h * D * 2                     # q in, out
+              + 2 * total * h * D * 2               # K and V read once
+              + sum(math.ceil(x / BS) for x in lens) * 4 + b * 4)
+    timing["bound_ms"], timing["bound_by"] = bound(nbytes, 4 * total * h * D)
+    timing["timed_case"] = checked
+    return timing
+
+
+def check_decode(g):
+    """B7, split over the KV length, at the serving shape's H=12 (the
+    engine) and H=3 (a shard of the 4-way mesh): for each, all four (q,
+    pool) dtype pairs over lengths 0-1024 and on the first splits'
+    boundaries within ``fold_error_bound``, the length-0 row exact zero
+    and two runs bitwise equal; then the serving rows of the same tensors
+    in bf16, checked the same way and timed, with its split size and the
+    grid its library recorded at the launch."""
+    from nezha_tpu_torch.ops.cuda.decode_attention import split_size
+
+    split = split_size("paged_decode")
+    timed_lengths = [0, 1, 15, 16, 17, 300, 777, M * BS]
+    lengths_list = timed_lengths + [split - 1, split, split + 1,
+                                    2 * split + 1]
+    b = len(lengths_list)
+    n = 1 + b * M
+    nb = len(timed_lengths)
+    bf, f32 = torch.bfloat16, torch.float32
+    tab = shuffled_tables(g, b, n).cuda()
+    lengths = torch.tensor(lengths_list, dtype=torch.int32, device="cuda")
+    worst = {"err_over_tolerance": -1.0}
+    by_dtypes, timed = {}, {}
+    h3 = H // SEQ_MESH
+    for h in (h3, H):
+        q32 = torch.randn(b, h, 1, D, generator=g).cuda()
+        k32 = torch.randn(n, h, BS, D, generator=g).cuda()
+        v32 = torch.randn(n, h, BS, D, generator=g).cuda()
+        for q_dtype, pool_dtype in ((bf, bf), (f32, bf), (bf, f32),
+                                    (f32, f32)):
+            pair = f"H={h} q {q_dtype} pool {pool_dtype}"
+            case = check_paged_decode_case(
+                f"paged_decode {pair}",
+                (q32.to(q_dtype), k32.to(pool_dtype), v32.to(pool_dtype),
+                 lengths, tab), pool_dtype)
+            by_dtypes[pair] = case["err_over_tolerance"]
+            if case["err_over_tolerance"] > worst["err_over_tolerance"]:
+                worst = {"pair": pair, **case}
+        # Timed on the serving rows of the same tensors, in bf16.
+        timed[h] = time_paged_decode(
+            q32[:nb].to(bf), k32.to(bf), v32.to(bf), lengths[:nb], tab[:nb],
+            "paged_decode" if h == H else f"paged_decode H={h}")
+    timing = timed[H]
     return {"name": "paged_decode", "route": "cuda",
             "source": "nezha_tpu_torch/csrc/paged_decode.cu",
             "replaces": "nezha_tpu/ops/pallas/decode_attention.py:89",
-            "max_abs_err": err, "err_over_tolerance": ratio, **timing,
-            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-            "shape": f"B={b} H={H} D={D} bs={BS} M={M} "
-                     f"lengths={lengths_list}"}
+            "max_abs_err": max(c["max_abs_err"] for c in (worst, *(
+                t["timed_case"] for t in timed.values()))),
+            "err_over_tolerance": max([*by_dtypes.values(), *(
+                t["timed_case"]["err_over_tolerance"]
+                for t in timed.values())]),
+            "err_over_tolerance_by_dtypes": by_dtypes,
+            "err_worst": {k: worst[k] for k in ("pair", "worst")},
+            **timing, "split": split, "blocks": math.prod(timing["grid"]),
+            "by_heads": {str(h3): timed[h3]},
+            "shape": f"B={nb} H={H} D={D} bs={BS} M={M} bf16 q and pool, "
+                     f"lengths={timed_lengths} (splits of {split} keys, "
+                     f"grid {timing['grid']}); timed also at H={h3} "
+                     f"(by_heads); checked B={b} lengths={lengths_list} at "
+                     f"H={h3} and H={H}, all four (q, pool) dtype pairs, "
+                     f"and each timed case"}
 
 
 def check_prefill(g):
@@ -1326,20 +1459,52 @@ def time_layer_norm_fwd(x, scale, bias, eps, fwd=None):
             "bound_ms": bound_ms, "bound_by": bound_by}
 
 
+def time_layer_norm_bwd(x, dy, scale, bias, eps, bwd=None):
+    """B5 (or ``bwd``, another build's backward returning dx, dscale and
+    dbias) on x and dy with the device timer, beside ``F.layer_norm``'s
+    backward alone (its forward runs once outside the timer, then only
+    ``torch.autograd.grad``), the plain version and the bound -> the
+    row's fields."""
+    import torch.nn.functional as F
+    from nezha_tpu_torch.ops.cuda.layer_norm import (layer_norm_bwd,
+                                                     layer_norm_bwd_plain)
+
+    bwd = bwd or layer_norm_bwd
+    rows, d = x.shape
+    xg, sg, bg = (t.detach().to(x.dtype).requires_grad_()
+                  for t in (x, scale, bias))
+    y_g = F.layer_norm(xg, (d,), sg, bg, eps)
+    elems = rows * d
+    # x, dy in, dx out (bf16), scale in, dscale and dbias out; ~19 fp32
+    # ops each
+    bound_ms, bound_by = bound(3 * elems * x.element_size() + 3 * d * 4,
+                               19 * elems, FP32_FLOPS_PER_S)
+    return {**device_time("layer_norm_bwd",
+                          lambda: bwd(x, scale, dy, eps), 50),
+            **library_time(
+                "layer_norm_bwd",
+                lambda: torch.autograd.grad(y_g, (xg, sg, bg), dy,
+                                            retain_graph=True), 50,
+                "F.layer_norm backward"),
+            "plain_ms": plain_time_ms(
+                lambda: layer_norm_bwd_plain(x, scale, dy, eps), 5),
+            "bound_ms": bound_ms, "bound_by": bound_by}
+
+
 def check_layer_norm(g):
     """The LayerNorm kernels at D=768, bf16 x, on the rows of
-    LN_TIMED_ROWS and 37 rows, each within ``layer_norm_error_bound`` and
-    the backward bitwise repeatable; the forward timed at each of
-    LN_TIMED_ROWS's shapes, the backward at the train step's; -> the
-    kernels line's two entries. The forward's entry carries generate's
+    LN_TIMED_ROWS and 37 rows, each within ``layer_norm_error_bound`` (the
+    backward's dx, dscale and dbias, which its second kernel sums) and
+    both bitwise repeatable; the forward timed at each of LN_TIMED_ROWS's
+    shapes, the backward at the train step's; -> the kernels line's two
+    entries. The forward's entry carries generate's
     decode shape (almost all of its launches on its home path) and each
     timed shape under ``by_rows``."""
     from nezha_tpu_torch.ops.cuda.layer_norm import (
         launched_fwd_plan, layer_norm_bwd, layer_norm_bwd_plain,
         layer_norm_error_bound, layer_norm_fwd, layer_norm_fwd_plain)
-    import torch.nn.functional as F
 
-    d, eps, bf = LN_D, 1e-5, torch.bfloat16
+    d, eps = LN_D, 1e-5
     worst = {"layer_norm_fwd": (0.0, 0.0), "layer_norm_bwd": (0.0, 0.0)}
     by_rows, bwd_timing = {}, {}
     for rows in sorted(set(LN_TIMED_ROWS.values()) | {37}):
@@ -1356,10 +1521,8 @@ def check_layer_norm(g):
         plain = layer_norm_bwd_plain(x, scale, dy, eps)
         bounds = layer_norm_error_bound(x, scale, bias, eps, dy=dy)
         bwd = []
-        for name, got, want, bd in zip(
-                ("dx", "dscale", "dbias"),
-                (grads[0], grads[1].sum(0), grads[2].sum(0)),
-                (plain[0], plain[1].sum(0), plain[2].sum(0)), bounds):
+        for name, got, want, bd in zip(("dx", "dscale", "dbias"), grads,
+                                       plain, bounds):
             bwd.append(within(f"layer_norm_bwd rows={rows} {name}", got,
                               want, bd))
         res.append((max(e for e, _ in bwd), max(r for _, r in bwd)))
@@ -1377,26 +1540,7 @@ def check_layer_norm(g):
             "plan": dataclasses.asdict(launched_fwd_plan()), **timing}
         if rows != LN_TIMED_ROWS["train"]:
             continue
-        # F.layer_norm's backward is timed alone: the forward runs once
-        # outside the timer, then only torch.autograd.grad.
-        xg, sg, bg = (t.detach().to(bf).requires_grad_()
-                      for t in (x, scale, bias))
-        y_g = F.layer_norm(xg, (d,), sg, bg, eps)
-        elems = rows * d
-        bwd_timing = {
-            **device_time("layer_norm_bwd",
-                          lambda: layer_norm_bwd(x, scale, dy, eps), 50),
-            **library_time(
-                "layer_norm_bwd",
-                lambda: torch.autograd.grad(y_g, (xg, sg, bg), dy,
-                                            retain_graph=True), 50,
-                "F.layer_norm backward"),
-            "plain_ms": plain_time_ms(
-                lambda: layer_norm_bwd_plain(x, scale, dy, eps), 5)}
-        # x, dy in, dx out (bf16), scale in, dscale and dbias out; ~19
-        # fp32 ops each
-        bwd_timing["bound_ms"], bwd_timing["bound_by"] = bound(
-            3 * elems * 2 + 3 * d * 4, 19 * elems, FP32_FLOPS_PER_S)
+        bwd_timing = time_layer_norm_bwd(x, dy, scale, bias, eps)
     decode = dict(by_rows[str(LN_TIMED_ROWS["generate decode"])])
     decode.pop("rows")
     decode.pop("path")
@@ -1884,7 +2028,7 @@ def generate_phase(card: str):
     want = {"flash_fwd": layers, "flash_bwd_dq": 0, "flash_bwd_delta": 0,
             "flash_bwd_dkv": 0, "flash_decode": (GEN_NEW - 1) * layers,
             "layer_norm_fwd": GEN_NEW * (2 * layers + 1),
-            "layer_norm_bwd": 0}
+            "layer_norm_bwd": 0, "layer_norm_bwd_sums": 0}
     if launches != want:
         fail(f"generate: launches {launches}, expected {want}")
     ln_rows = dict(FWD_LAUNCHES_BY_ROWS)
@@ -1980,6 +2124,8 @@ def main() -> int:
                       "per_kernel_s": times}), flush=True)
 
     phase("kernels")
+    print(json.dumps({"timer_zero": {"call": "torch.cuda._sleep(0)",
+                                     **empty_row()}}), flush=True)
     g = torch.Generator().manual_seed(0)
     kernels = ([check_decode(g), check_prefill(g)] + check_flash(g)
                + [check_flash_decode(g)] + check_layer_norm(g)
@@ -2014,6 +2160,12 @@ def main() -> int:
         if k["name"] == "layer_norm_fwd":
             # By row count, as each path's wrapper counted them.
             k["launches_by_rows"] = ln_rows
+        if k["name"] == "layer_norm_bwd":
+            # B5's column sums run once after each of its launches.
+            k["sums_launches"] = paths[home]["layer_norm_bwd_sums"]
+            if k["sums_launches"] != k["launches"]:
+                fail(f"layer_norm_bwd_sums launched {k['sums_launches']} "
+                     f"times for {k['launches']} backward launches")
         if k["name"] == "flash_bwd_dkv":
             # B3's delta pre-pass runs before each dK/dV launch.
             k["pre_pass_launches"] = paths[home]["flash_bwd_delta"]

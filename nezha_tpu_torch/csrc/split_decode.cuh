@@ -1,19 +1,19 @@
 // What the split decode kernels share: the dense flash-decode
-// (flash_decode.cu, B6) and the int8 paged decode (paged_quant_decode.cu,
-// B8) cut each row's keys into splits of a compile-time size, one block
-// each, stage a split with cp.async, and merge the splits' fp32 partials
-// in the same launch.
+// (flash_decode.cu, B6), the float paged decode (paged_decode.cu, B7) and
+// the int8 paged decode (paged_quant_decode.cu, B8) cut each row's keys
+// into splits of a compile-time size, one block each, stage a split with
+// cp.async, and merge the splits' fp32 partials in the same launch.
 //
 // The merge: each split with keys writes its partial (acc[D], m, l) to a
 // workspace the wrapper allocates; the last block of a (row, head) to
-// arrive (B6: every split; B8: the splits with keys, or split 0 alone of
-// an empty row), found by a per-(row, head) counter that it resets to 0,
-// merges the row's splits in split order with the log-sum-exp combine
-// and writes acc / max(l, 1e-30) in q's dtype. The counter is the only
-// atomic; the data never goes through one, and since the merge always
-// runs in split order the output is bitwise the same from run to run,
-// whichever block arrives last. A row with no live split writes exact
-// zeros.
+// arrive (B6: every split; B7 and B8: the splits with keys, or split 0
+// alone of an empty row), found by a per-(row, head) counter that it
+// resets to 0, merges the row's splits in split order with the
+// log-sum-exp combine and writes acc / max(l, 1e-30) in q's dtype. The
+// counter is the only atomic; the data never goes through one, and since
+// the merge always runs in split order the output is bitwise the same
+// from run to run, whichever block arrives last. A row with no live split
+// writes exact zeros.
 #pragma once
 
 #include <cuda_runtime.h>

@@ -2,18 +2,18 @@
 of ``nezha_tpu/ops/pallas/decode_attention.py``), in its two layouts:
 
 - paged: :func:`paged_decode_attention` reads a block-paged pool through
-  block tables (the serve engine's cache) with ``csrc/paged_decode.cu``
-  (``csrc/decode_fold.cuh``: one block per row and head), or, given
-  ``block_scales``, an int8 pool with ``csrc/paged_quant_decode.cu``
-  (:func:`paged_quant_decode_attention`), split over the KV length;
+  block tables (the serve engine's cache) with ``csrc/paged_decode.cu``,
+  or, given ``block_scales``, an int8 pool with
+  ``csrc/paged_quant_decode.cu`` (:func:`paged_quant_decode_attention`);
 - dense: :func:`flash_decode_attention` reads ``[B, H, L, D]`` caches
-  (``models/generate.py``'s) with ``csrc/flash_decode.cu``, split over
-  the KV length.
+  (``models/generate.py``'s) with ``csrc/flash_decode.cu``.
 
-The two split kernels merge their splits in the same launch
-(``csrc/split_decode.cuh``) through a workspace the wrappers keep per
-(device, stream) (:func:`split_workspace`). Each wrapper
-launches its kernel on CUDA tensors and runs its plain version
+All three kernels split each row's KV length over blocks of a
+compile-time number of keys (:func:`split_size`) and merge the splits in
+the same launch (``csrc/split_decode.cuh``) through a workspace the
+wrappers keep per (device, stream) (:func:`split_workspace`); the two
+paged kernels run one split walk (``csrc/paged_split_decode.cuh``). Each
+wrapper launches its kernel on CUDA tensors and runs its plain version
 (``*_plain``) on CPU tensors; any other device raises. Each counts its
 kernel launches in ``<wrapper>.launches``.
 """
@@ -34,37 +34,16 @@ from nezha_tpu_torch.ops.cuda.common import (pick_block,
 from nezha_tpu_torch.ops.quant import dequantize_kv_block
 
 _ARGTYPES = (ctypes.c_void_p,) * 6 + (ctypes.c_int,) * 5 + (
-    ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p)
+    ctypes.c_float, ctypes.c_int, ctypes.c_int) + (ctypes.c_void_p,) * 3
 _DENSE_ARGTYPES = (ctypes.c_void_p,) * 5 + (ctypes.c_int,) * 4 + (
     ctypes.c_float, ctypes.c_int, ctypes.c_int) + (ctypes.c_void_p,) * 3
 _QUANT_ARGTYPES = (ctypes.c_void_p,) * 8 + (ctypes.c_int,) * 5 + (
     ctypes.c_float, ctypes.c_int) + (ctypes.c_void_p,) * 3
 # The TPU kernel's key block (``_pick_block(L, 256)``): the dense plain
 # version folds in the same blocks, so on the CPU it agrees with the
-# Pallas kernel to fp32 rounding. The dense and the int8 paged CUDA
-# kernels fold splits of ``split_size(kernel)`` keys, the float paged one
-# 32-key tiles.
+# Pallas kernel to fp32 rounding. The CUDA kernels fold splits of
+# ``split_size(kernel)`` keys.
 _PLAIN_BLOCK_K = 256
-# Largest dynamic shared memory one thread block may opt into on sm_90.
-_SMEM_LIMIT = 227 * 1024
-
-
-def smem_bytes(d: int) -> int:
-    """Shared memory of one float paged decode thread block
-    (``decode_smem_bytes`` in ``csrc/decode_fold.cuh``): q, each of the 8
-    warps' fp32 K tile ``[32, D+1]`` and V tile ``[32, D]``, and the 8
-    warps' merge rows."""
-    return 4 * (d + 8 * (32 * (d + 1) + 32 * d) + 8 * (d + 2))
-
-
-def check_head_dim(d: int) -> None:
-    """The decode kernel's head dims: those of ``build.check_head_dim``
-    whose shared memory fits one block (D <= 104)."""
-    build.check_head_dim(d)
-    if smem_bytes(d) > _SMEM_LIMIT:
-        raise ValueError(f"head dim {d} not supported by the decode kernel "
-                         f"({smem_bytes(d)} bytes of shared memory per "
-                         f"block, at most {_SMEM_LIMIT})")
 
 
 def _check_shapes(q, k_pool, v_pool, lengths, block_tables) -> None:
@@ -148,9 +127,10 @@ def paged_quant_decode_attention_plain(q, k_pool, v_pool, k_scales,
 
 
 def _check_cuda(q, lengths, **kv) -> None:
-    """What both kernels take: f32 or bf16 q, K and V of one f32 or bf16
-    dtype, int32 lengths, all contiguous and 16-byte aligned on q's
-    device, a head dim the decode kernel fits."""
+    """What the float kernels (B6, B7) take: f32 or bf16 q, K and V of one
+    f32 or bf16 dtype, int32 lengths, all contiguous and 16-byte aligned
+    on q's device, D a multiple of 8 (a 16-byte chunk of bf16) up to
+    ``MAX_D`` = 128 (``csrc/online_softmax.cuh``)."""
     for name, t in (("lengths", lengths),) + tuple(kv.items()):
         if t.device != q.device:
             raise ValueError(f"{name} is on {t.device}, q on {q.device}")
@@ -165,7 +145,7 @@ def _check_cuda(q, lengths, **kv) -> None:
             raise ValueError(f"{name} must be contiguous")
         if not t.is_floating_point() and t.dtype != torch.int32:
             raise ValueError(f"{name} must be int32")
-    check_head_dim(q.shape[3])
+    build.check_head_dim(q.shape[3])
     build.check_aligned(q=q, **{n: t for n, t in kv.items()
                                 if t.is_floating_point()})
 
@@ -174,13 +154,17 @@ def _launch(q, k_pool, v_pool, lengths, block_tables, scale):
     _check_cuda(q, lengths, k_pool=k_pool, v_pool=v_pool,
                 block_tables=block_tables)
     b, h, _, d = q.shape
+    bs, m = k_pool.shape[2], block_tables.shape[1]
     out = torch.empty_like(q)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    _, floats = split_workspace(b, h, m * bs, d, split_size("paged_decode"))
+    counters, parts = _workspace(q.device, stream, b * h, floats)
     fn = build.bind("paged_decode", "nezha_paged_decode", _ARGTYPES)
     rc = fn(q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
             lengths.data_ptr(), block_tables.data_ptr(), out.data_ptr(),
-            b, h, d, k_pool.shape[2], block_tables.shape[1], float(scale),
-            build.DTYPE_CODES[q.dtype], build.DTYPE_CODES[k_pool.dtype],
-            torch.cuda.current_stream(q.device).cuda_stream)
+            b, h, d, bs, m, float(scale), build.DTYPE_CODES[q.dtype],
+            build.DTYPE_CODES[k_pool.dtype], stream, parts.data_ptr(),
+            counters.data_ptr())
     build.check_launch(rc, "nezha_paged_decode")
     paged_decode_attention.launches += 1
     return out
@@ -196,8 +180,8 @@ def paged_decode_attention(q, k_pool, v_pool, lengths, block_tables,
     ``block_tables[b, ki]``; ``lengths[b]`` (clamped to ``[0, M*bs]``)
     is how many positions it attends, and 0 marks an inactive row whose
     output is exactly zero. CUDA tensors launch ``csrc/paged_decode.cu``
-    (f32 or bf16 q and pools, D a multiple of 8 up to 104); CPU tensors
-    run the plain version.
+    (f32 or bf16 q and pools, D a multiple of 8 up to 128), one launch a
+    call; CPU tensors run the plain version.
 
     With ``block_scales=(k_scales, v_scales)`` (``[N, H]`` fp32) the
     pools are int8 and the call is :func:`paged_quant_decode_attention`."""
@@ -318,8 +302,8 @@ def flash_decode_attention_plain(q, k, v, lengths,
 # Per (device, stream): the split kernels' workspace, their per-(b, h)
 # counters (zero between calls: the last block of a row resets its own)
 # and their fp32 partials; each grows to the largest call made. Calls on
-# one stream run in order, so the dense and the int8 paged kernel, and
-# the shards of a one-card mesh, share both.
+# one stream run in order, so the three split kernels, and the shards of
+# a one-card mesh, share both.
 _WORKSPACE = {}
 
 
@@ -344,9 +328,9 @@ def _workspace(device, stream: int, rows: int, part_floats: int):
 
 @functools.lru_cache(maxsize=None)
 def split_size(kernel: str) -> int:
-    """The keys one block of a split kernel (``"flash_decode"`` or
-    ``"paged_quant_decode"``) folds, its compile-time ``SPLIT``, read once
-    from the built library."""
+    """The keys one block of a split kernel (``"paged_decode"``,
+    ``"flash_decode"`` or ``"paged_quant_decode"``) folds, its
+    compile-time ``SPLIT``, read once from the built library."""
     return build.bind(kernel, f"nezha_{kernel}_split", ())()
 
 
@@ -376,7 +360,7 @@ def flash_decode_attention(q, k, v, lengths, scale: Optional[float] = None):
     row b attends — the decode convention ``pos + 1`` — and 0 marks an
     inactive row whose output is exactly zero. CUDA tensors launch
     ``csrc/flash_decode.cu`` (f32 or bf16 q over an f32 or bf16 cache,
-    D a multiple of 8 up to 104), one launch a call; CPU tensors run the
+    D a multiple of 8 up to 128), one launch a call; CPU tensors run the
     plain version."""
     _check_dense(q, k, v, lengths)
     scale = scale if scale is not None else 1.0 / (q.shape[3] ** 0.5)

@@ -2,25 +2,26 @@
 ``nezha_tpu/ops/pallas/layer_norm.py``).
 
 - :func:`layer_norm_fwd` -> y and :func:`layer_norm_bwd` -> ``(dx,
-  dscale_part, dbias_part)`` are the raw entry points over ``x [rows,
-  D]`` (no autograd). On CUDA tensors they launch the two kernels of
-  ``csrc/layer_norm.cu``; on CPU tensors they run
+  dscale, dbias)`` (dscale and dbias fp32 ``[D]``) are the raw entry
+  points over ``x [rows, D]`` (no autograd). On CUDA tensors they launch
+  the kernels of ``csrc/layer_norm.cu``: the forward's, and the
+  backward's rows then its column sums; on CPU tensors they run
   :func:`layer_norm_fwd_plain` and :func:`layer_norm_bwd_plain`; any other
   device raises.
 - :func:`fused_layer_norm` is the differentiable call the model makes: a
   ``torch.autograd.Function`` (the counterpart of the TPU custom VJP)
-  that saves x and scale, recomputes the row statistics in its backward,
-  and sums the per-block partials of dscale and dbias outside the
-  kernel.
+  that saves x and scale; its backward is :func:`layer_norm_bwd`, its
+  gradients cast to scale's and bias's dtypes.
 
 Statistics are fp32 and two-pass: ``mean = sum(x)/D``, ``var =
 sum((x - mean)^2)/D``, ``rsqrt(var + eps)``; the affine step is fp32 and
 y is stored in x's dtype. x is f32 or bf16, scale and bias fp32 ``[D]``.
-The forward's launch geometry is planned here (:func:`fwd_plan`, few rows
-and many rows), checked by its C entry point, which refuses any other,
-and read back from it (:func:`launched_fwd_plan`). ``LAUNCHES`` counts
-kernel launches by kernel name, ``FWD_LAUNCHES_BY_ROWS`` the forward's by
-row count.
+Both kernels' launch geometry is planned here (:func:`fwd_plan`, few rows
+and many rows; :func:`bwd_plan`, a persistent grid) and
+checked by their C entry points, which refuse any other; the forward's
+is read back from its library (:func:`launched_fwd_plan`). ``LAUNCHES``
+counts kernel launches by kernel name, ``FWD_LAUNCHES_BY_ROWS`` the
+forward's by row count.
 """
 
 from __future__ import annotations
@@ -39,15 +40,17 @@ from nezha_tpu_torch.ops.cuda.common import BF16_UNIT_ROUNDOFF
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _FWD_ARGTYPES = (_P,) * 4 + (_I, _I, ctypes.c_float, _I, _P, _I, _I, _I)
-_BWD_ARGTYPES = (_P,) * 6 + (_I, _I, ctypes.c_float, _I, _P)
-# Rows per backward thread block: one [D] row of each partial per block
-# (csrc/layer_norm.cu LN_BWD_ROWS). The plain backward blocks rows alike.
+_BWD_ARGTYPES = (_P,) * 6 + (_I, _I, ctypes.c_float, _I, _P, _I, _I, _I,
+                              _P)
+# Rows of a partial of the plain backward: it sums dscale and dbias over
+# blocks of BWD_ROWS rows, then the blocks in order.
 BWD_ROWS = 32
-# The kernels hold a row in registers, 32 values per lane.
+# The kernels hold a row in registers, at most 32 values a lane.
 MAX_D = 1024
 FP32_UNIT_ROUNDOFF = 2.0 ** -24
 
-LAUNCHES = {"layer_norm_fwd": 0, "layer_norm_bwd": 0}
+LAUNCHES = {"layer_norm_fwd": 0, "layer_norm_bwd": 0,
+            "layer_norm_bwd_sums": 0}
 # The forward's launches by row count (their sum is LAUNCHES'), for a
 # caller that reports which shapes a path gave it.
 FWD_LAUNCHES_BY_ROWS: Dict[int, int] = {}
@@ -108,11 +111,63 @@ def check_fwd_plan(plan: FwdPlan, rows: int, d: int, dtype,
     """What the C entry point takes (``bad_shape``, ``fwd_plan_ok``): a
     width the kernel holds and :func:`fwd_plan`'s geometry for the card's
     ``sms``, nothing else. Raises ValueError on any other plan."""
-    want = fwd_plan(rows, d, dtype, sms)
+    _check_plan("forward", plan, fwd_plan(rows, d, dtype, sms), rows, d,
+                dtype)
+
+
+def _check_plan(what: str, plan, want, rows: int, d: int, dtype) -> None:
     if not 0 < d <= MAX_D or d % 8 or plan != want:
-        raise ValueError(f"layer norm forward plan {plan} does not fit "
+        raise ValueError(f"layer norm {what} plan {plan} does not fit "
                          f"rows={rows} D={d} {dtype} (takes {want}, D a "
                          f"multiple of 8 up to {MAX_D})")
+
+
+# ------------------------------------------------------ the backward's plan
+# The backward's geometry: BWD_WARPS-warp blocks, at most
+# BWD_BLOCKS_PER_SM of them an SM, every block resident at once (timed
+# against one block an SM with tools/tune_layer_norm.py --bwd-variants on
+# the H100: PERF.md). The C entry point restates both (LN_BWD_WARPS,
+# LN_BWD_BLOCKS_PER_SM).
+BWD_WARPS = 8
+BWD_BLOCKS_PER_SM = 2
+
+
+@dataclasses.dataclass(frozen=True)
+class BwdPlan:
+    """The backward kernel's launch geometry, decided by :func:`bwd_plan`
+    and checked by its C entry point (``bwd_plan_ok`` in
+    ``csrc/layer_norm.cu``), which refuses any other:
+
+    - ``cpl``: the 16-byte chunks of a row each lane holds (one warp a
+      row), the build the launch takes;
+    - ``warps``: warps of a block (BWD_WARPS);
+    - ``blocks``: the grid; its warps stride over the rows, and each
+      block writes one partial of dscale and dbias, which the sums
+      kernel adds over the blocks."""
+
+    cpl: int
+    warps: int
+    blocks: int
+
+
+def bwd_plan(rows: int, d: int, dtype, sms: int = H100_SMS) -> BwdPlan:
+    """The backward's geometry for ``rows`` rows of ``d`` values: a lane
+    holds ``ceil(chunks / 32)`` 16-byte chunks of the row; BWD_WARPS-warp
+    blocks, as many as the rows fill (a warp a row), at most
+    BWD_BLOCKS_PER_SM an SM, so the grid is resident at once and every
+    warp takes the same number of rows up to one."""
+    cpl = -(-_chunks(d, dtype) // 32)
+    blocks = min(-(-rows // BWD_WARPS), sms * BWD_BLOCKS_PER_SM)
+    return BwdPlan(cpl, BWD_WARPS, blocks)
+
+
+def check_bwd_plan(plan: BwdPlan, rows: int, d: int, dtype,
+                   sms: int = H100_SMS) -> None:
+    """What the backward's C entry point takes (``bad_shape``,
+    ``bwd_plan_ok``): :func:`bwd_plan`'s geometry for the card's ``sms``,
+    nothing else. Raises ValueError on any other plan."""
+    _check_plan("backward", plan, bwd_plan(rows, d, dtype, sms), rows, d,
+                dtype)
 
 
 @functools.lru_cache(maxsize=None)
@@ -160,22 +215,22 @@ def layer_norm_fwd_plain(x, scale, bias, eps: float) -> torch.Tensor:
     return (xc * r * scale + bias).to(x.dtype)
 
 
-def _partials(t: torch.Tensor) -> torch.Tensor:
-    """Column sums of ``t [rows, D]`` over blocks of BWD_ROWS rows ->
-    ``[ceil(rows / BWD_ROWS), D]``, the kernel's partial layout."""
+def _column_sums(t: torch.Tensor) -> torch.Tensor:
+    """Column sums of ``t [rows, D]``: over blocks of BWD_ROWS rows (the
+    TPU kernel's per-block partials), then over the blocks -> ``[D]``."""
     rows, d = t.shape
     n = -(-rows // BWD_ROWS)
     return F.pad(t, (0, 0, 0, n * BWD_ROWS - rows)).reshape(
-        n, BWD_ROWS, d).sum(dim=1)
+        n, BWD_ROWS, d).sum(dim=1).sum(dim=0)
 
 
 def layer_norm_bwd_plain(x, scale, dy, eps: float
                          ) -> Tuple[torch.Tensor, ...]:
-    """The backward kernel's function in tensor ops (``_ln_bwd_kernel``):
-    statistics recomputed from x, ``dx = r (g - mean(g) - xhat
-    mean(g xhat))`` with ``g = dy scale`` in x's dtype, and the fp32
-    partials of ``dscale = sum dy xhat`` and ``dbias = sum dy`` per block
-    of BWD_ROWS rows."""
+    """The backward kernel's function in tensor ops (``_ln_bwd_kernel``
+    and the custom VJP's sums of its partials): statistics recomputed
+    from x, ``dx = r (g - mean(g) - xhat mean(g xhat))`` with ``g = dy
+    scale`` in x's dtype, and ``dscale = sum dy xhat`` and ``dbias = sum
+    dy`` in fp32 ``[D]``."""
     _check(x, scale, dy=dy)
     xc, r = _stats(x.float(), eps)
     xhat = xc * r
@@ -185,12 +240,12 @@ def layer_norm_bwd_plain(x, scale, dy, eps: float
     m1 = g.sum(dim=-1, keepdim=True) / d
     m2 = (g * xhat).sum(dim=-1, keepdim=True) / d
     dx = r * (g - m1 - xhat * m2)
-    return dx.to(x.dtype), _partials(dyf * xhat), _partials(dyf)
+    return dx.to(x.dtype), _column_sums(dyf * xhat), _column_sums(dyf)
 
 
 def layer_norm_error_bound(x, scale, bias, eps: float, dy=None):
     """Elementwise bounds on ``|kernel - plain|``: for y, or, given dy,
-    for (dx, dscale, dbias) with the partials summed. To first order in
+    for (dx, dscale, dbias). To first order in
     the roundings of both sides, with ``E = (2 D + 16) 2^-24``:
 
     - fp32 sums of D terms in another order move the mean by ``2 D 2^-24
@@ -289,23 +344,44 @@ def launched_fwd_plan() -> FwdPlan:
     return FwdPlan(*out)
 
 
+# Per (device, stream): the backward's fp32 partials, grown to the
+# largest call.
+_BWD_WORKSPACE = {}
+
+
+def _bwd_workspace(device, stream: int, part_floats: int) -> torch.Tensor:
+    key = (device, stream)
+    parts = _BWD_WORKSPACE.get(key)
+    if parts is None or parts.numel() < part_floats:
+        parts = torch.empty(part_floats, dtype=torch.float32, device=device)
+        _BWD_WORKSPACE[key] = parts
+    return parts
+
+
 def _bwd_launch(x, scale, dy, eps):
+    """The backward kernel on :func:`bwd_plan`'s geometry (dx, and one
+    partial of dscale and dbias a block), then the sums kernel (dscale
+    and dbias over the blocks' partials)."""
     _check_cuda(x, scale=scale, dy=dy)
     rows, d = x.shape
     dx = torch.empty_like(x)
-    n = -(-rows // BWD_ROWS)
-    dsp = torch.empty((n, d), dtype=torch.float32, device=x.device)
-    dbp = torch.empty((n, d), dtype=torch.float32, device=x.device)
     if rows == 0:
-        return dx, dsp, dbp
+        zeros = torch.zeros(d, dtype=torch.float32, device=x.device)
+        return dx, zeros, zeros.clone()
+    dscale = torch.empty(d, dtype=torch.float32, device=x.device)
+    dbias = torch.empty(d, dtype=torch.float32, device=x.device)
+    plan = bwd_plan(rows, d, x.dtype, _sm_count(x.device.index))
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    parts = _bwd_workspace(x.device, stream, 2 * plan.blocks * d)
     fn = build.bind("layer_norm", "nezha_layer_norm_bwd", _BWD_ARGTYPES)
     rc = fn(x.data_ptr(), scale.data_ptr(), dy.data_ptr(), dx.data_ptr(),
-            dsp.data_ptr(), dbp.data_ptr(), rows, d, float(eps),
-            build.DTYPE_CODES[x.dtype],
-            torch.cuda.current_stream(x.device).cuda_stream)
+            dscale.data_ptr(), dbias.data_ptr(), rows, d, float(eps),
+            build.DTYPE_CODES[x.dtype], stream, plan.cpl, plan.warps,
+            plan.blocks, parts.data_ptr())
     build.check_launch(rc, "nezha_layer_norm_bwd")
     LAUNCHES["layer_norm_bwd"] += 1
-    return dx, dsp, dbp
+    LAUNCHES["layer_norm_bwd_sums"] += 1
+    return dx, dscale, dbias
 
 
 def layer_norm_fwd(x, scale, bias, eps: float) -> torch.Tensor:
@@ -319,9 +395,9 @@ def layer_norm_fwd(x, scale, bias, eps: float) -> torch.Tensor:
 
 
 def layer_norm_bwd(x, scale, dy, eps: float) -> Tuple[torch.Tensor, ...]:
-    """-> (dx in x's dtype, dscale and dbias partials ``[ceil(rows / 32),
-    D]`` fp32; their column sums are the gradients). CUDA tensors launch
-    the backward kernel; CPU tensors run the plain version."""
+    """-> (dx in x's dtype, dscale and dbias fp32 ``[D]``). CUDA tensors
+    launch the backward kernel and its sums kernel, once each a call (D a
+    multiple of 8, at most 1024); CPU tensors run the plain version."""
     _check(x, scale, dy=dy)
     if _route(x) == "cpu":
         return layer_norm_bwd_plain(x, scale, dy, eps)
@@ -339,9 +415,9 @@ class _FusedLayerNorm(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dy):
         x2, scale = ctx.saved_tensors
-        dx, dsp, dbp = layer_norm_bwd(x2, scale, dy.contiguous(), ctx.eps)
-        return (dx, dsp.sum(dim=0).to(scale.dtype),
-                dbp.sum(dim=0).to(ctx.bias_dtype), None)
+        dx, dscale, dbias = layer_norm_bwd(x2, scale, dy.contiguous(),
+                                           ctx.eps)
+        return dx, dscale.to(scale.dtype), dbias.to(ctx.bias_dtype), None
 
 
 def fused_layer_norm(x, scale, bias, eps: float = 1e-5) -> torch.Tensor:

@@ -1,11 +1,12 @@
 """Paged flash-decode: the port's ``paged_decode_attention`` against the
 JAX Pallas kernel (``flash_decode_attention(..., block_tables=...)`` in
-interpret mode) on the same numpy inputs; the dense kernel's split
-walk and merge (``decode_split_walk``) against the dense Pallas kernel;
-and the int8 paged kernel's split walk (``quant_split_walk``) against its
-plain version, with its split count and workspace. The CUDA kernels are
-held against their plain versions on the card in
-test_torch_kernels_gpu.py."""
+interpret mode) on the same numpy inputs; the split walks and merges the
+CUDA kernels run, restated in tensor ops: the dense kernel's
+(``decode_split_walk``) against the dense Pallas kernel, the float paged
+kernel's (``paged_split_walk``) against the paged Pallas kernel, and the
+int8 paged kernel's (``quant_split_walk``) against its plain version,
+with its split count and workspace. The CUDA kernels are held against
+their plain versions on the card in test_torch_kernels_gpu.py."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -17,8 +18,8 @@ from nezha_tpu_torch.ops.cuda import (paged_decode_attention,
                                       paged_quant_decode_attention_plain)
 from nezha_tpu_torch.ops.cuda.common import fold_error_bound
 from nezha_tpu_torch.ops.attention import NEG_BIG, masked_scores
-from nezha_tpu_torch.ops.cuda.decode_attention import (check_head_dim,
-                                                       split_workspace)
+from nezha_tpu_torch.ops.cuda.build import check_head_dim
+from nezha_tpu_torch.ops.cuda.decode_attention import split_workspace
 from nezha_tpu_torch.ops.quant import dequantize_kv_block, quantize_kv_block
 
 BS, M, H, D = 8, 6, 2, 16
@@ -77,11 +78,14 @@ def test_matches_pallas_kernel_bf16_pool():
     np.testing.assert_allclose(got, want, atol=1e-5, rtol=0)
 
 
-@pytest.mark.parametrize("d,fits", [(64, True), (104, True), (112, False),
-                                    (128, False), (60, False)])
+@pytest.mark.parametrize("d,fits", [(64, True), (104, True), (112, True),
+                                    (128, True), (136, False), (60, False)])
 def test_head_dim_limit(d, fits):
-    """The CUDA wrapper refuses, typed, the head dims whose 16-byte loads
-    or per-block shared memory the decode kernel cannot take."""
+    """The float decode kernels (B6 and B7, split over the KV length,
+    staging a split in the cache dtype) take D a multiple of 8 up to
+    MAX_D = 128; their wrappers' check (``build.check_head_dim``)
+    refuses, typed, the head dims their 16-byte loads or per-lane
+    accumulators cannot take."""
     if fits:
         check_head_dim(d)
     else:
@@ -276,3 +280,61 @@ def test_quant_split_walk_matches_plain(split, q_dtype):
     assert got.dtype == q_dtype
     assert torch.all((got.float() - want.float()).abs() <= bound)
     assert torch.all(got[0] == 0) and torch.all(want[0] == 0)
+
+
+# The float paged kernel's split sizes (csrc/paged_decode.cu SPLIT, timed
+# on the card) and the serving engine's 16-position pool blocks.
+PAGED_SPLITS = (64, 128)
+
+
+def paged_split_walk(q, k_pool, v_pool, lengths, tab, split: int):
+    """B7's walk and merge in tensor ops: each row's pool blocks gathered
+    in table order as stored, then cut into splits of ``split`` keys,
+    each folded as one block step (q cast to the pool dtype before Q·Kᵀ,
+    p to the pool dtype before P·V) and merged by log-sum-exp in split
+    order (``decode_split_walk`` over the gathered rows)."""
+    b, h, _, d = q.shape
+    m, bs = tab.shape[1], k_pool.shape[2]
+    idx = tab.long()
+    kd, vd = (p[idx].transpose(1, 2).reshape(b, h, m * bs, d)
+              for p in (k_pool, v_pool))
+    return decode_split_walk(q, kd, vd, lengths, split)
+
+
+@pytest.mark.parametrize("split", PAGED_SPLITS)
+@pytest.mark.parametrize("pool", ["f32", "bf16"])
+def test_paged_split_walk_matches_pallas_kernel(split, pool):
+    """B7's split walk against JAX's paged ``flash_decode_attention``
+    (interpret mode, one 16-position pool block a grid step) on the same
+    numpy inputs, at lengths 0, 1, SPLIT-1, SPLIT, SPLIT+1, 2 SPLIT and
+    M*bs (= 2 SPLIT + 48, not a multiple of SPLIT) through shuffled
+    tables: over an f32 pool to fp32 rounding of the sums (atol 1e-5, as
+    the paged tests above), over a bf16 pool within ``fold_error_bound``
+    (the two round p to bf16 after subtracting maxima of different key
+    blocks); the length-0 row exact zero on both sides."""
+    rng = np.random.RandomState(split + len(pool))
+    h, d = 2, 16
+    m = (2 * split + 48) // QUANT_BS
+    lengths = np.asarray([0, 1, split - 1, split, split + 1, 2 * split,
+                          m * QUANT_BS], np.int32)
+    b, n = len(lengths), 1 + len(lengths) * m
+    q = rng.randn(b, h, 1, d).astype(np.float32)
+    kp, vp = (rng.randn(n, h, QUANT_BS, d).astype(np.float32)
+              for _ in range(2))
+    tab = (1 + rng.permutation(b * m)).reshape(b, m).astype(np.int32)
+    jdt, tdt = ((jnp.float32, torch.float32) if pool == "f32"
+                else (jnp.bfloat16, torch.bfloat16))
+    want = _jax(q, kp, vp, lengths, tab, pool_dtype=jdt)
+    tq, tk, tv = (torch.from_numpy(x) for x in (q, kp, vp))
+    tk, tv = tk.to(tdt), tv.to(tdt)
+    tl, tt = torch.from_numpy(lengths), torch.from_numpy(tab)
+    got = paged_split_walk(tq, tk, tv, tl, tt, split)
+    assert got.dtype == torch.float32 and got.shape == (b, h, 1, d)
+    assert torch.all(got[0] == 0) and np.all(want[0] == 0)
+    if pool == "f32":
+        np.testing.assert_allclose(got.numpy(), want, atol=1e-5, rtol=0)
+    else:
+        bound = fold_error_bound(
+            torch.from_numpy(want),
+            paged_split_walk(tq, tk, tv.abs(), tl, tt, split), True)
+        assert torch.all((got - torch.from_numpy(want)).abs() <= bound)

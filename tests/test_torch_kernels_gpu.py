@@ -106,6 +106,57 @@ def test_decode_kernel_matches_plain(cuda_device, q_dtype, pool_dtype):
     assert torch.all(got[0] == 0)
 
 
+# The float kernels' (q, pool) dtype pairs: all four they take.
+ALL_DTYPES = DTYPES + [(torch.bfloat16, torch.float32)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("q_dtype,pool_dtype", ALL_DTYPES)
+@pytest.mark.parametrize("h,d", [(12, 64), (3, 64), (12, 128), (3, 128)])
+def test_paged_decode_split_kernel_matches_plain(cuda_device, q_dtype,
+                                                 pool_dtype, h, d):
+    """The float paged decode kernel split over the KV length, at the
+    serving engine's heads (12) and a 4-way mesh shard's (3), D 64 and
+    128, within fold_error_bound of its plain version over lengths that
+    end inside a split, one before, at and one past each of the first two
+    split boundaries, at the table's end (not a multiple of the split)
+    and past it; the grid (splits of M*bs, H, B); the zero-length row
+    exact zero; NaN in blocks past every row's length changes nothing;
+    two launches bitwise equal; one launch a call."""
+    split = split_size("paged_decode")
+    bs = 16
+    m = (2 * split + 48) // bs
+    rng = np.random.RandomState(h + d)
+    lengths = np.asarray([0, 1, 31, split - 1, split, split + 1,
+                          2 * split - 1, 2 * split, 2 * split + 1, m * bs,
+                          m * bs + 9], np.int32)
+    b, n = len(lengths), 1 + len(lengths) * m
+    dev = cuda_device
+    q = torch.from_numpy(rng.randn(b, h, 1, d).astype(np.float32)).to(
+        dev, q_dtype)
+    kp, vp = (torch.from_numpy(rng.randn(n, h, bs, d).astype(np.float32))
+              .to(dev, pool_dtype) for _ in range(2))
+    tab = torch.from_numpy((1 + rng.permutation(b * m)).reshape(b, m)
+                           .astype(np.int32)).to(dev)
+    lens = torch.from_numpy(lengths).to(dev)
+    args = (q, kp, vp, lens, tab)
+    before = paged_decode_attention.launches
+    got = paged_decode_attention(*args)
+    torch.cuda.synchronize()
+    assert paged_decode_attention.launches == before + 1
+    assert _launched_grid("paged_decode") == (-(-m * bs // split), h, b)
+    assert got.dtype == q_dtype
+    want = paged_decode_attention_plain(*args)
+    abs_v = paged_decode_attention_plain(q, kp, vp.abs(), lens, tab)
+    _assert_within_bound(got, want, abs_v, pool_dtype == torch.bfloat16)
+    assert torch.all(got[0] == 0)
+    assert torch.equal(paged_decode_attention(*args), got)
+    for r, length in enumerate(lengths.tolist()):
+        dead = tab[r, -(-length // bs):].long()
+        kp[dead], vp[dead] = float("nan"), float("nan")
+    assert torch.equal(paged_decode_attention(*args), got)
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("q_dtype,pool_dtype", DTYPES)
 @pytest.mark.parametrize("s", PREFILL_S)
@@ -667,7 +718,7 @@ def test_train_step_on_card_matches_cpu(cuda_device):
 
 
 # The dense decode kernel's (q, cache) dtype pairs: all four it takes.
-DENSE_DTYPES = DTYPES + [(torch.bfloat16, torch.float32)]
+DENSE_DTYPES = ALL_DTYPES
 
 
 @pytest.mark.gpu
@@ -707,12 +758,42 @@ def test_dense_decode_kernel_matches_plain(cuda_device, q_dtype,
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("q_dtype,cache_dtype", DENSE_DTYPES)
+def test_dense_decode_kernel_at_d128(cuda_device, q_dtype, cache_dtype):
+    """The dense flash-decode kernel at the widest head it takes (D=128,
+    MAX_D): within fold_error_bound of its plain version over lengths on
+    and off its split boundaries, the zero-length row exact zero, two
+    launches bitwise equal, one launch a call."""
+    split = split_size("flash_decode")
+    rng = np.random.RandomState(128)
+    h, d, cap = 3, 128, 2 * split + 44
+    lengths = np.asarray([0, 1, split - 1, split, split + 1, 2 * split + 1,
+                          cap], np.int32)
+    b = len(lengths)
+    dev = cuda_device
+    q = torch.from_numpy(rng.randn(b, h, 1, d).astype(np.float32)).to(
+        dev, q_dtype)
+    k, v = (torch.from_numpy(rng.randn(b, h, cap, d).astype(np.float32))
+            .to(dev, cache_dtype) for _ in range(2))
+    lens = torch.from_numpy(lengths).to(dev)
+    before = flash_decode_attention.launches
+    got = flash_decode_attention(q, k, v, lens)
+    torch.cuda.synchronize()
+    assert flash_decode_attention.launches == before + 1
+    want = flash_decode_attention_plain(q, k, v, lens)
+    abs_v = flash_decode_attention_plain(q, k, v.abs(), lens)
+    _assert_within_bound(got, want, abs_v, cache_dtype == torch.bfloat16)
+    assert torch.all(got[0] == 0)
+    assert torch.equal(flash_decode_attention(q, k, v, lens), got)
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("rows,d", [(37, 768), (300, 64), (8, 1024)])
 def test_layer_norm_kernels_match_plain(cuda_device, dtype, rows, d):
-    """Forward y and backward dx, dscale, dbias (the partials summed)
-    within layer_norm_error_bound of the plain versions; the backward
-    bitwise repeatable; one launch of each kernel."""
+    """Forward y and backward dx, dscale, dbias (summed by the backward's
+    second kernel) within layer_norm_error_bound of the plain versions;
+    the backward bitwise repeatable; one launch of each kernel."""
     rng = np.random.RandomState(rows + d)
     x = rng.randn(rows, d) * 2 + rng.randn(rows, 1)
     x, dy = (torch.from_numpy(a.astype(np.float32)).to(cuda_device, dtype)
@@ -724,13 +805,13 @@ def test_layer_norm_kernels_match_plain(cuda_device, dtype, rows, d):
     grads = layer_norm_bwd(x, scale, dy, 1e-5)
     torch.cuda.synchronize()
     assert {k: LN_LAUNCHES[k] - before[k] for k in LN_LAUNCHES} == {
-        "layer_norm_fwd": 1, "layer_norm_bwd": 1}
+        "layer_norm_fwd": 1, "layer_norm_bwd": 1, "layer_norm_bwd_sums": 1}
     err = (y.float() - layer_norm_fwd_plain(x, scale, bias, 1e-5).float())
     bound = layer_norm_error_bound(x, scale, bias, 1e-5)
     assert torch.all(err.abs() <= bound), (err.abs() / bound).max().item()
     plain = layer_norm_bwd_plain(x, scale, dy, 1e-5)
-    got = (grads[0].float(), grads[1].sum(0), grads[2].sum(0))
-    want = (plain[0].float(), plain[1].sum(0), plain[2].sum(0))
+    got = (grads[0].float(), grads[1], grads[2])
+    want = (plain[0].float(), plain[1], plain[2])
     bounds = layer_norm_error_bound(x, scale, bias, 1e-5, dy=dy)
     for name, g, w, bd in zip(("dx", "dscale", "dbias"), got, want, bounds):
         assert torch.all((g - w).abs() <= bd), (
@@ -738,6 +819,86 @@ def test_layer_norm_kernels_match_plain(cuda_device, dtype, rows, d):
             f"{((g - w).abs() / bd).max().item():.3f}")
     again = layer_norm_bwd(x, scale, dy, 1e-5)
     assert all(torch.equal(a, b) for a, b in zip(grads, again))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("d", [64, 768, 1024])
+@pytest.mark.parametrize("rows", [1, 37, 8192, 8193])
+def test_layer_norm_bwd_kernel_on_each_plan(cuda_device, dtype, d, rows):
+    """The backward on its persistent grid (one row; fewer rows than
+    warps; a train step's 8192 rows, 3-4 a warp; one past it) within
+    layer_norm_error_bound of the plain version on dx, dscale and dbias
+    (fp32 [D], summed over the rows by its second kernel); one launch of
+    the backward kernel and of its sums kernel, none of the forward; two
+    runs bitwise equal."""
+    rng = np.random.RandomState(rows + d)
+    x = rng.randn(rows, d) * rng.uniform(0.5, 3.0, (rows, 1)) \
+        + rng.randn(rows, 1) * 2
+    x, dy = (torch.from_numpy(a.astype(np.float32)).to(cuda_device, dtype)
+             for a in (x, rng.randn(rows, d)))
+    scale, bias = (torch.from_numpy(a.astype(np.float32)).to(cuda_device)
+                   for a in (1 + 0.3 * rng.randn(d), 0.2 * rng.randn(d)))
+    before = dict(LN_LAUNCHES)
+    grads = layer_norm_bwd(x, scale, dy, 1e-5)
+    torch.cuda.synchronize()
+    assert {k: LN_LAUNCHES[k] - before[k] for k in LN_LAUNCHES} == {
+        "layer_norm_fwd": 0, "layer_norm_bwd": 1, "layer_norm_bwd_sums": 1}
+    assert grads[0].dtype == dtype
+    assert grads[1].shape == grads[2].shape == (d,)
+    assert grads[1].dtype == grads[2].dtype == torch.float32
+    plain = layer_norm_bwd_plain(x, scale, dy, 1e-5)
+    bounds = layer_norm_error_bound(x, scale, bias, 1e-5, dy=dy)
+    for name, g, w, bd in zip(("dx", "dscale", "dbias"), grads, plain,
+                              bounds):
+        err = (g.float() - w.float()).abs()
+        assert torch.all(err <= bd), (
+            f"{name}: max |kernel - plain| / bound "
+            f"{(err / bd).max().item():.3f}")
+    again = layer_norm_bwd(x, scale, dy, 1e-5)
+    assert all(torch.equal(a, b) for a, b in zip(grads, again))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rows", [37, 8192])
+def test_layer_norm_bwd_entry_takes_only_its_plan(cuda_device, rows):
+    """The backward's C entry point launches bwd_plan's geometry for the
+    card; any other geometry (a grid one block larger or smaller, another
+    lane width, another block size) is refused with cudaErrorInvalidValue
+    and writes nothing."""
+    import ctypes
+    import dataclasses
+
+    from nezha_tpu_torch.ops.cuda import layer_norm as ln
+
+    d = 768
+    x, dy = (torch.randn(rows, d, device=cuda_device).to(torch.bfloat16)
+             for _ in range(2))
+    scale = torch.ones(d, device=cuda_device)
+    sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    plan = ln.bwd_plan(rows, d, x.dtype, sms)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    parts = ln._bwd_workspace(x.device, stream, 2 * (plan.blocks + 1) * d)
+    fn = build.bind("layer_norm", "nezha_layer_norm_bwd", ln._BWD_ARGTYPES)
+    others = [dataclasses.replace(plan, blocks=plan.blocks + 1),
+              dataclasses.replace(plan, blocks=plan.blocks - 1),
+              dataclasses.replace(plan, cpl=plan.cpl + 1),
+              dataclasses.replace(plan, warps=4)]
+    for other in others:
+        dx = torch.full_like(x, 7.0)
+        ds = torch.full((d,), 7.0, device=cuda_device)
+        db = torch.full((d,), 7.0, device=cuda_device)
+        rc = fn(x.data_ptr(), scale.data_ptr(), dy.data_ptr(), dx.data_ptr(),
+                ds.data_ptr(), db.data_ptr(), rows, d, ctypes.c_float(1e-5),
+                build.DTYPE_CODES[x.dtype], stream, other.cpl, other.warps,
+                other.blocks, parts.data_ptr())
+        torch.cuda.synchronize()
+        assert rc == 1, (other, rc)                 # cudaErrorInvalidValue
+        assert torch.all(dx == 7.0) and torch.all(ds == 7.0)
+        assert torch.all(db == 7.0)
+    grads = layer_norm_bwd(x, scale, dy, 1e-5)
+    torch.cuda.synchronize()
+    assert torch.all(torch.isfinite(grads[1]))
 
 
 @pytest.mark.gpu

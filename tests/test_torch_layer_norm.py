@@ -1,10 +1,11 @@
 """The fused LayerNorm (``ln_impl="pallas"``) in the port against the JAX
 package on the CPU: the kernels' plain versions against the Pallas
 kernels in interpret mode (``fused_layer_norm``, forward and custom-VJP
-backward), the GPT-2 layer against JAX's under ``NEZHA_LN_INTERPRET=1``,
-and one tiny-preset train step's loss and gradients; and the forward
-kernel's launch plan (``fwd_plan``) and the check its C entry point
-makes (``check_fwd_plan``).
+backward, whose summed dscale and dbias the port's backward returns), the
+GPT-2 layer against JAX's under ``NEZHA_LN_INTERPRET=1``, and one
+tiny-preset train step's loss and gradients; and the kernels' launch
+plans (``fwd_plan``, ``bwd_plan``) and the checks their C entry points
+make (``check_fwd_plan``, ``check_bwd_plan``).
 
 Tolerance: ``layer_norm_error_bound`` (``ops/cuda/layer_norm.py``), the
 elementwise bound on two fp32 evaluations of the same formulas in other
@@ -33,9 +34,12 @@ from nezha_tpu_torch.models.convert import params_to_jax
 from nezha_tpu_torch.nn import LayerNorm
 from nezha_tpu_torch.ops.cuda import (fused_layer_norm, layer_norm_bwd,
                                       layer_norm_fwd)
-from nezha_tpu_torch.ops.cuda.layer_norm import (FWD_BLOCKS_PER_SM,
+from nezha_tpu_torch.ops.cuda.layer_norm import (BWD_BLOCKS_PER_SM,
+                                                 BWD_WARPS,
+                                                 FWD_BLOCKS_PER_SM,
                                                  FWD_MANY_WARPS, H100_SMS,
-                                                 BWD_ROWS, FwdPlan,
+                                                 BwdPlan, FwdPlan,
+                                                 bwd_plan, check_bwd_plan,
                                                  check_fwd_plan, fwd_plan,
                                                  layer_norm_error_bound)
 from nezha_tpu_torch.optim import adamw
@@ -73,8 +77,10 @@ def _within(got, want, bound, what):
 @pytest.mark.parametrize("rows,d", [(37, 64), (300, 96)])
 def test_plain_matches_pallas_kernels(rows, d, dtype):
     """y, dx, dscale and dbias of the plain versions against JAX's fused
-    LayerNorm (its forward kernel and the custom VJP's backward kernel,
-    interpret mode), each within layer_norm_error_bound."""
+    LayerNorm (its forward kernel and the custom VJP's backward kernel
+    with the sums of its partials, interpret mode), each within
+    layer_norm_error_bound: the backward returns dscale and dbias summed,
+    fp32 ``[D]``, as the custom VJP does."""
     tdt, jdt = DTYPES[dtype]
     x, scale, bias, dy = _inputs(rows, d, seed=rows + d)
     jx = jnp.asarray(x, jdt)
@@ -86,21 +92,23 @@ def test_plain_matches_pallas_kernels(rows, d, dtype):
     tx, tdy = (torch.from_numpy(a).to(tdt) for a in (x, dy))
     ts, tb = torch.from_numpy(scale), torch.from_numpy(bias)
     got_y = layer_norm_fwd(tx, ts, tb, EPS)
-    dx, dsp, dbp = layer_norm_bwd(tx, ts, tdy, EPS)
+    dx, ds, db = layer_norm_bwd(tx, ts, tdy, EPS)
     assert got_y.dtype == dx.dtype == tdt
-    assert dsp.shape == dbp.shape == (-(-rows // BWD_ROWS), d)
+    assert ds.shape == db.shape == (d,) == jds.shape == jdb.shape
+    assert ds.dtype == db.dtype == torch.float32
     _within(got_y.float(), _np(y), layer_norm_error_bound(tx, ts, tb, EPS),
             "y")
     bounds = layer_norm_error_bound(tx, ts, tb, EPS, dy=tdy)
     for name, got, want, bd in zip(("dx", "dscale", "dbias"),
-                                   (dx.float(), dsp.sum(0), dbp.sum(0)),
+                                   (dx.float(), ds, db),
                                    (jdx, jds, jdb), bounds):
         _within(got, _np(want), bd, name)
 
 
 def test_autograd_function_matches_raw_entry_points():
-    """fused_layer_norm's backward is layer_norm_bwd with the partials
-    summed, returned in scale's and bias's dtype; x keeps its shape."""
+    """fused_layer_norm's backward is layer_norm_bwd, its dscale and
+    dbias returned as they are (fp32, as scale and bias are); x keeps its
+    shape."""
     x, scale, bias, dy = _inputs(2 * 7, 64, seed=5)
     tx = torch.from_numpy(x).reshape(2, 7, 64).requires_grad_()
     ts = torch.from_numpy(scale).requires_grad_()
@@ -108,11 +116,11 @@ def test_autograd_function_matches_raw_entry_points():
     y = fused_layer_norm(tx, ts, tb, EPS)
     assert y.shape == (2, 7, 64)
     y.backward(torch.from_numpy(dy).reshape(2, 7, 64))
-    dx, dsp, dbp = layer_norm_bwd(tx.detach().reshape(14, 64), ts.detach(),
-                                  torch.from_numpy(dy), EPS)
+    dx, ds, db = layer_norm_bwd(tx.detach().reshape(14, 64), ts.detach(),
+                                torch.from_numpy(dy), EPS)
     assert torch.equal(tx.grad.reshape(14, 64), dx)
-    assert torch.equal(ts.grad, dsp.sum(0))
-    assert torch.equal(tb.grad, dbp.sum(0))
+    assert torch.equal(ts.grad, ds)
+    assert torch.equal(tb.grad, db)
 
 
 def test_error_bound_holds_against_float64_and_is_tight():
@@ -289,3 +297,63 @@ def test_fwd_plan_follows_the_card_and_refuses_other_widths():
              torch.bfloat16)
     _refused(FwdPlan(5, 1, 8), 8, 1032, torch.bfloat16)
     _refused(FwdPlan(9, 1, 8), 8, 1032, torch.float32)
+
+
+# The rows the backward gets: PLAN_ROWS and one past a train step's, whose
+# last row a warp takes as its ninth.
+BWD_PLAN_ROWS = PLAN_ROWS + (8193,)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", PLAN_D)
+@pytest.mark.parametrize("rows", BWD_PLAN_ROWS)
+def test_bwd_plan_fits_every_accepted_shape(rows, d, dtype):
+    """Every accepted (rows, D, dtype) gets a backward geometry the entry
+    check takes: a lane holds exactly its row's 16-byte chunks, blocks of
+    BWD_WARPS warps, as many as the rows fill and at most
+    BWD_BLOCKS_PER_SM an SM (a grid resident at once), whose
+    warps take every row once and the same number of rows up to one. Any
+    other geometry is refused."""
+    plan = bwd_plan(rows, d, dtype)
+    check_bwd_plan(plan, rows, d, dtype)
+    chunks = d // (16 // dtype.itemsize)
+    assert (plan.cpl - 1) * 32 < chunks <= plan.cpl * 32
+    assert plan.warps == BWD_WARPS
+    assert plan.blocks <= H100_SMS * BWD_BLOCKS_PER_SM
+    warps = plan.blocks * plan.warps
+    # Every warp but the last block's spares takes a row.
+    assert warps - BWD_WARPS < rows or plan.blocks == 1
+    taken = sorted(r for w in range(warps) for r in range(w, rows, warps))
+    assert taken == list(range(rows))
+    per_warp = [len(range(w, rows, warps)) for w in range(warps)]
+    assert max(per_warp) - min(per_warp) <= 1
+    bad = [dataclasses.replace(plan, cpl=plan.cpl + 1),
+           dataclasses.replace(plan, blocks=0),
+           dataclasses.replace(plan, blocks=plan.blocks + 1)]
+    bad += [dataclasses.replace(plan, warps=w) for w in (1, 4, 16)]
+    if plan.cpl > 1:
+        bad.append(dataclasses.replace(plan, cpl=plan.cpl - 1))
+    if plan.blocks > 1:
+        bad.append(dataclasses.replace(plan, blocks=plan.blocks - 1))
+    for other in bad:
+        with pytest.raises(ValueError, match="backward plan"):
+            check_bwd_plan(other, rows, d, dtype)
+
+
+def test_bwd_plan_follows_the_card_and_refuses_other_widths():
+    """The backward's grid fills at most the card's SMs, and the entry
+    check takes the plan for its own card only; a width past the
+    kernel's 1024 is refused whatever the plan."""
+    per_sm = BWD_BLOCKS_PER_SM
+    assert bwd_plan(8192, 768, torch.bfloat16) == BwdPlan(3, 8, 132 * per_sm)
+    assert bwd_plan(8192, 768, torch.bfloat16, sms=64) == BwdPlan(
+        3, 8, 64 * per_sm)
+    assert bwd_plan(37, 768, torch.float32) == BwdPlan(6, 8, 5)
+    check_bwd_plan(BwdPlan(3, 8, 64 * per_sm), 8192, 768, torch.bfloat16,
+                   sms=64)
+    with pytest.raises(ValueError, match="backward plan"):
+        check_bwd_plan(BwdPlan(3, 8, 64 * per_sm), 8192, 768,
+                       torch.bfloat16)
+    for d, dtype in ((1032, torch.bfloat16), (1032, torch.float32)):
+        with pytest.raises(ValueError, match="backward plan"):
+            check_bwd_plan(bwd_plan(8, d, dtype), 8, d, dtype)

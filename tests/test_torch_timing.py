@@ -186,3 +186,44 @@ def test_whole_launches(counts, whole):
     times a call; a fraction means the profiler lost events."""
     events = [(name, 1.0) for name, n in counts.items() for _ in range(n)]
     assert cs.whole_launches(cs.fold_profiler_events(events, 5)) is whole
+
+
+@pytest.mark.parametrize("prefix", ["", "library_"])
+@pytest.mark.parametrize("means,empty", [
+    ([0.05, 0.051, 0.052], 0.0041),
+    ([0.0059] * 3, 0.0042),
+    ([0.0030, 0.0031, 0.0032], 0.0040),     # under the zero point
+])
+def test_timing_fields_carry_the_zero_point(prefix, means, empty):
+    """A row carries the rig's zero point (the empty launch's ms) and its
+    own ms less it, beside its ms, which stays the events' reading."""
+    row = cs.timing_fields(means, [False] * 3, 2.0, {}, prefix=prefix,
+                           empty_ms=empty)
+    ms = sum(means) / len(means)
+    assert row[f"{prefix}ms"] == pytest.approx(ms)
+    assert row[f"{prefix}empty_ms"] == empty
+    assert row[f"{prefix}ms_less_empty"] == pytest.approx(ms - empty)
+    assert set(row) == {f"{prefix}{k}" for k in cs.TIMING_KEYS}
+
+
+def test_timing_fields_without_a_zero_point():
+    """The zero point's own row, and any row timed without one, carries
+    None in both fields rather than a made-up 0."""
+    row = cs.timing_fields([0.004] * 3, [False] * 3, 2.0, {})
+    assert row["empty_ms"] is None and row["ms_less_empty"] is None
+    assert row["ms"] == pytest.approx(0.004)
+
+
+def test_reported_carries_the_zero_point():
+    """The kernels line keeps the kernel's and its yardstick's zero point
+    and ms less it."""
+    case = {**cs.timing_fields([0.0384] * 3, [False] * 3, 2.0, {},
+                               empty_ms=0.004),
+            **cs.timing_fields([0.0677] * 3, [False] * 3, 2.0, {},
+                               prefix="library_", empty_ms=0.004),
+            "library_backend": "EFFICIENT_ATTENTION", "plain_ms": 43.0,
+            "bound_ms": 0.00198, "bound_by": "bytes"}
+    out = cs.reported(case)
+    assert out["empty_ms"] == out["library_empty_ms"] == 0.004
+    assert out["ms_less_empty"] == pytest.approx(0.0344)
+    assert out["library_ms_less_empty"] == pytest.approx(0.0637)

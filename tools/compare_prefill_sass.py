@@ -1,7 +1,8 @@
 """The prefill kernels' machine code: tensor-core use, registers, and
 B10's write grid against another version of ``csrc/quant_prefill.cu``;
-and kernels a change must leave as they were against another copy of the
-sources.
+the registers and spills of the float paged decode (B7) and the
+LayerNorm backward (B5); and kernels a change must leave as they were
+against another copy of the sources.
 
     python3 tools/compare_prefill_sass.py [--other-quant OTHER/quant_prefill.cu]
         [--other-csrc OTHER_CSRC]
@@ -11,18 +12,22 @@ Compiles ``csrc/paged_prefill.cu`` and ``csrc/quant_prefill.cu`` for
 with ``cuobjdump -sass`` and prints, for every instantiation of
 ``paged_prefill_kernel`` (B9, and B11 where its q-offset flag is set) and
 ``quant_prefill_attn_kernel`` (B10's attention grid), its registers,
-instruction count and ``HMMA`` (tensor-core) instructions. With
-``--other-quant`` it also compiles the other source and prints whether
-each ``quant_prefill_write_kernel`` (B10's write grid) instantiation's
-instruction stream is identical in both. Exits non-zero if an
-instantiation with a bf16 operand has no ``HMMA`` or a write grid
+instruction count and ``HMMA`` (tensor-core) instructions. For
+information it prints, for every instantiation in ``INFO``'s sources
+whose name holds its prefix (B7's kernels in ``csrc/paged_decode.cu``,
+B5's in ``csrc/layer_norm.cu``), the registers, the bytes of spill
+stores and loads and the instruction count ``ptxas`` and ``cuobjdump``
+report. With ``--other-quant`` it also compiles the other source and
+prints whether each ``quant_prefill_write_kernel`` (B10's write grid)
+instantiation's instruction stream is identical in both. Exits non-zero
+if an instantiation with a bf16 operand has no ``HMMA`` or a write grid
 differs. With ``--other-csrc`` (another ``nezha_tpu_torch/csrc``, e.g. a
 parent commit's) it compiles ``UNCHANGED``'s sources from both copies,
 each against its own headers, and prints whether every instantiation of
-B7's ``paged_decode_kernel`` and B5's ``ln_bwd_kernel`` has the same
-instruction stream in both (exit non-zero if not), and, for information,
-B6's ``flash_decode_split_kernel``. Needs ``nvcc`` and ``cuobjdump`` (the
-CUDA toolkit); imports nothing of JAX.
+B6's ``flash_decode_split_kernel``, B8's
+``paged_quant_decode_split_kernel`` and B4's ``ln_fwd_kernel`` has the
+same instruction stream in both (exit non-zero if not). Needs ``nvcc``
+and ``cuobjdump`` (the CUDA toolkit); imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -43,26 +48,35 @@ FOLD_KERNELS = ("paged_prefill_kernel", "quant_prefill_attn_kernel")
 WRITE_KERNEL = "quant_prefill_write_kernel"
 # Kernels to hold against another copy of the sources: source -> (kernel,
 # whether a difference fails the run).
-UNCHANGED = {"paged_decode": ("paged_decode_kernel", True),
-             "layer_norm": ("ln_bwd_kernel", True),
-             "flash_decode": ("flash_decode_split_kernel", False)}
+UNCHANGED = {"flash_decode": ("flash_decode_split_kernel", True),
+             "paged_quant_decode": ("paged_quant_decode_split_kernel", True),
+             "layer_norm": ("ln_fwd_kernel", True)}
+# Kernels whose registers and spills are printed: source -> the prefix of
+# their names.
+INFO = {"paged_decode": "paged_decode", "layer_norm": "ln_bwd"}
 
 
-def compile_and_dump(nvcc: str, source: Path, out: Path):
+def compile_and_dump(nvcc: str, source: Path, out: Path, spills=None):
     """-> ({kernel: [instructions]}, {kernel: registers}); the source
-    compiles against the headers beside it."""
+    compiles against the headers beside it. ``spills``, a dict, gets
+    {kernel: (spill store bytes, spill load bytes)}."""
     obj = out.with_suffix(".o")
     log = subprocess.run([nvcc, *FLAGS, "-I", str(source.parent), "-o",
                           str(obj), str(source)],
                          capture_output=True, text=True, check=True).stderr
     regs, current = {}, None
     for line in log.splitlines():
-        m = re.search(r"Compiling entry function '(\S+)'", line)
+        m = re.search(r"(?:Compiling entry function '|Function properties "
+                      r"for )(\w+)", line)
         if m:
             current = m.group(1)
         m = re.search(r"Used (\d+) registers", line)
         if m and current:
             regs[current] = int(m.group(1))
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m and current and spills is not None:
+            spills[current] = (int(m.group(1)), int(m.group(2)))
     sass = subprocess.run([str(Path(nvcc).with_name("cuobjdump")), "-sass",
                            str(obj)], capture_output=True, text=True,
                           check=True).stdout
@@ -136,13 +150,36 @@ def same_kernels(nvcc: str, other_csrc: Path, tmp: Path):
     return rows, ok
 
 
+def kernel_info(nvcc: str, tmp: Path):
+    """INFO's kernels compiled from this tree -> one row per
+    instantiation: registers, spills, instructions."""
+    rows = []
+    for source, prefix in INFO.items():
+        spills = {}
+        funcs, regs = compile_and_dump(nvcc, CSRC / f"{source}.cu",
+                                       tmp / f"info_{source}", spills)
+        for name, instrs in sorted(funcs.items()):
+            # The kernel's own name follows its length in the mangled
+            # name (the anonymous namespace before it holds the file's).
+            m = re.search(rf"(?<=\d)({prefix}\w*?_kernel)(?=[IE])", name)
+            if not m:
+                continue
+            store, load = spills.get(name, (None, None))
+            rows.append({"kernel": m.group(0), "mangled": name,
+                         "registers": regs.get(name),
+                         "spill_store_bytes": store,
+                         "spill_load_bytes": load,
+                         "instructions": len(instrs)})
+    return rows
+
+
 def main() -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--other-quant", type=Path,
                    help="a quant_prefill.cu whose write grid to compare")
     p.add_argument("--other-csrc", type=Path,
-                   help="another nezha_tpu_torch/csrc whose B5/B7 (and B6) "
-                        "kernels to compare")
+                   help="another nezha_tpu_torch/csrc whose B6, B8 and "
+                        "B4-forward kernels to compare")
     p.add_argument("--nvcc", default="/usr/local/cuda/bin/nvcc")
     args = p.parse_args()
     funcs, regs = {}, {}
@@ -156,6 +193,7 @@ def main() -> int:
         if args.other_quant:
             other, other_regs = compile_and_dump(args.nvcc, args.other_quant,
                                                  Path(tmp) / "other")
+        info = kernel_info(args.nvcc, Path(tmp))
         same = same_ok = None
         if args.other_csrc:
             same, same_ok = same_kernels(args.nvcc, args.other_csrc.resolve(),
@@ -170,7 +208,7 @@ def main() -> int:
         ok &= hmma > 0 or not bf16
         rows.append({"kernel": label(name), "registers": regs.get(name),
                      "instructions": len(instrs), "hmma": hmma})
-    report = {"fold_sass": rows}
+    report = {"fold_sass": rows, "info": info}
     if other is not None:
         # An anonymous namespace's mangled name carries its file's name,
         # so the two sources' kernels are matched by kernel and template

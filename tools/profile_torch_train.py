@@ -46,9 +46,8 @@ FLASH_SYMBOLS = {"flash_fwd": ("flash_fwd_kernel", "flash_fwd_wgmma_kernel"),
 # Device kernels by kind, first match wins (names as the profiler shows
 # them: the port's kernels, cuBLAS's nvjet and CUTLASS GEMMs, PyTorch's
 # elementwise and reduction kernels).
-CATEGORIES = (("decode attention", ("flash_decode_",
-                                     "paged_decode_kernel")),
-              ("layer norm kernels", ("ln_fwd_kernel", "ln_bwd_kernel")),
+CATEGORIES = (("decode attention", ("flash_decode_", "paged_decode_")),
+              ("layer norm kernels", ("ln_fwd_kernel", "ln_bwd_")),
               ("flash attention", ("nezha::flash",)),
               ("matmul", ("gemm", "cutlass", "cublas", "xmma", "sm90_",
                           "nvjet")),

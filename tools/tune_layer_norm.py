@@ -1,8 +1,9 @@
 """Time the LayerNorm forward kernel (B4) on the rows each path gives it,
-on its plan and on other geometries.
+on its plan and on other geometries, and the backward (B5) on a train
+step's rows.
 
     python3 tools/tune_layer_norm.py [--rows 8 4096 8192] [--sweep]
-        [--root DIR]
+        [--bwd-rows 8192] [--bwd-variants] [--root DIR]
 
 At D=768, bf16 x, fp32 scale and bias (GPT-2 124M's LayerNorm) and each
 ``--rows`` count (8: a generate decode step; 4096: generate's prefill;
@@ -16,12 +17,26 @@ a row a block, a row a warp, the persistent grid at 1-4 blocks an SM,
 ``fwd_plan``'s geometry, so the sweep builds the forward from a copy of
 the sources whose plan check takes any block of 1-8 warps and grid of
 at most a warp a row (``csrc_variant.py``; the kernel is the shipped
-one) and launches it on each plan itself. With ``--root DIR`` it times
-the forward of the ``nezha_tpu_torch`` package under DIR instead (e.g. a
-parent commit unpacked into an ignored directory; built there; not with
-``--sweep``), so two versions can be timed in one call. Prints the card's
-name and power limit, then one JSON line per row. Needs the card and
-``nvcc``; imports nothing of JAX.
+one) and launches it on each plan itself.
+
+Then, at each ``--bwd-rows`` count, the whole backward (dx, dscale and
+dbias) is checked against its plain version (within
+``layer_norm_error_bound``) and timed with ``chip_smoke.py``'s device
+timer beside ``F.layer_norm``'s backward, the plain version and the
+bound. A package whose backward returns per-block partials (before the
+sums moved into the port's kernels) is timed with its two column sums,
+as its autograd function ran them. With ``--bwd-variants`` it also
+builds and times, from copies of the sources, one 8-warp block an SM
+instead of two (``LN_BWD_BLOCKS_PER_SM`` 1, ``BWD_BLOCKS_PER_SM`` with
+it), and a warp's rows loaded as it reduces them or two ahead instead of
+one (``LN_BWD_AHEAD_CPL`` 0, or the lookahead 2).
+
+With ``--root DIR`` it times the kernels of the ``nezha_tpu_torch``
+package under DIR instead (e.g. a parent commit unpacked into an ignored
+directory; built there; not with ``--sweep`` or ``--bwd-variants``), so
+two versions can be timed in one call. Prints the card's name and power
+limit, then one JSON line per row. Needs the card and ``nvcc``; imports
+nothing of JAX.
 """
 
 from __future__ import annotations
@@ -48,6 +63,62 @@ ANY_PLAN = ("layer_norm.cu", r"  const int sms = sm_count\(\);\n",
             "  return warps >= 1 && warps <= LN_FWD_WARPS && blocks >= 1 &&\n"
             "         blocks <= (rows + warps - 1) / warps;\n"
             "  const int sms = sm_count();\n")
+
+
+# The backward's variants: name -> (edits of the copy of the sources, the
+# backward's blocks an SM in the plan).
+BWD_VARIANTS = {
+    "one_block_per_sm": ([("layer_norm.cu",
+                           r"constexpr int LN_BWD_BLOCKS_PER_SM = 2;",
+                           "constexpr int LN_BWD_BLOCKS_PER_SM = 1;")], 1),
+    "no_row_ahead": ([("layer_norm.cu",
+                       r"constexpr int LN_BWD_AHEAD_CPL = \d+;",
+                       "constexpr int LN_BWD_AHEAD_CPL = 0;")], 2),
+    "two_rows_ahead": ([("layer_norm.cu",
+                         r"CPL <= LN_BWD_AHEAD_CPL \? 1 : 0",
+                         "CPL <= LN_BWD_AHEAD_CPL ? 2 : 0")], 2),
+}
+
+
+def whole_backward(bwd):
+    """-> a call returning (dx, dscale, dbias): ``bwd`` itself where it
+    returns them, else ``bwd`` followed by the column sums of the
+    per-block partials it returns, as a parent's autograd function ran
+    them."""
+    def call(x, scale, dy, eps):
+        dx, ds, db = bwd(x, scale, dy, eps)
+        if ds.dim() == 2:
+            ds, db = ds.sum(dim=0), db.sum(dim=0)
+        return dx, ds, db
+    return call
+
+
+def time_backward(ln, rows: int, tag, source: str, g) -> None:
+    """Check the whole backward of ``ln`` (the module as built now) at
+    ``rows`` rows of D bf16 against its plain version, time it and print
+    its row."""
+    x, dy, scale, bias = cs.layer_norm_case(g, rows, D)
+    bwd = whole_backward(ln.layer_norm_bwd)
+    want = whole_backward(ln.layer_norm_bwd_plain)(x, scale, dy, EPS)
+    bounds = ln.layer_norm_error_bound(x, scale, bias, EPS, dy=dy)
+    got = bwd(x, scale, dy, EPS)
+    torch.cuda.synchronize()
+    ratio = max(((a.float() - w.float()).abs() / b).max().item()
+                for a, w, b in zip(got, want, bounds))
+    if not ratio <= 1.0:
+        cs.fail(f"backward rows {rows} {tag}: exceeds "
+                f"layer_norm_error_bound ({ratio})")
+    if not all(torch.equal(a, b)
+               for a, b in zip(bwd(x, scale, dy, EPS), got)):
+        cs.fail(f"backward rows {rows} {tag}: two runs differ")
+    row = cs.time_layer_norm_bwd(x, dy, scale, bias, EPS, bwd)
+    print(json.dumps({
+        "package": source, "backward": True, "rows": rows, "variant": tag,
+        "err_over_bound": ratio,
+        **{k: row[k] for k in (
+            "ms", "empty_ms", "ms_less_empty", "ms_spread", "profiler_us",
+            "profiler_kernels", "library_ms", "library_profiler_us",
+            "plain_ms", "bound_ms", "bound_by")}}), flush=True)
 
 
 def sweep_plans(rows: int, sms: int):
@@ -89,14 +160,17 @@ def main() -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--rows", type=int, nargs="+", default=[8, 4096, 8192])
     p.add_argument("--sweep", action="store_true")
+    p.add_argument("--bwd-rows", type=int, nargs="*", default=[8192])
+    p.add_argument("--bwd-variants", action="store_true")
     p.add_argument("--root", type=Path, default=None,
-                   help="time the forward of the package under this root")
+                   help="time the kernels of the package under this root")
     args = p.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("needs a CUDA card")
     if args.root is not None:
-        if args.sweep:
-            raise SystemExit("--sweep times this tree's forward only")
+        if args.sweep or args.bwd_variants:
+            raise SystemExit("--sweep and --bwd-variants time this tree's "
+                             "kernels only")
         sys.path.insert(0, str(args.root.resolve()))
     from nezha_tpu_torch.ops.cuda import layer_norm as ln
     tmp = tempfile.TemporaryDirectory()
@@ -138,9 +212,22 @@ def main() -> int:
                     else None),
                 "err_over_bound": ratio,
                 **{k: row[k] for k in (
-                    "ms", "ms_spread", "profiler_us", "library_ms",
-                    "library_profiler_us", "plain_ms", "bound_ms",
-                    "bound_by")}}), flush=True)
+                    "ms", "empty_ms", "ms_less_empty", "ms_spread",
+                    "profiler_us", "library_ms", "library_profiler_us",
+                    "plain_ms", "bound_ms", "bound_by")}}), flush=True)
+    for rows in args.bwd_rows:
+        time_backward(ln, rows, "default", source, g)
+    if args.bwd_variants:
+        sys.path.insert(0, str(REPO / "tools"))
+        from csrc_variant import build_variant
+        shipped = ln.BWD_BLOCKS_PER_SM
+        for tag, (edits, per_sm) in BWD_VARIANTS.items():
+            print(json.dumps({"variant": tag, "build_s": build_variant(
+                Path(tmp.name) / tag, ("layer_norm",), edits)}), flush=True)
+            ln.BWD_BLOCKS_PER_SM = per_sm
+            for rows in args.bwd_rows:
+                time_backward(ln, rows, tag, source, g)
+            ln.BWD_BLOCKS_PER_SM = shipped
     tmp.cleanup()
     return 0
 
