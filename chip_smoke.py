@@ -93,6 +93,28 @@ Phases, each fatal on failure (non-zero exit, no result line):
    10 timed steps with ``ln_impl="pallas"``, each LayerNorm kernel (the
    forward, the backward and its sums) launched exactly 25 times per step
    (2 per block + ``ln_f``);
+4b. train_image: ResNet-50 at full width (``resnet50_imagenet``: s2d
+   stem, bf16, 1000 classes, seeded random weights) on
+   ``synthetic_image_batches`` at 224 px: (a) one step at batch
+   IMG_CHECK_B in bf16 against the same step in fp32 with TF32 off
+   (cuDNN and matmul), from the same weights (the zero-initialized head
+   and last BatchNorm scales replaced by seeded random values of std
+   BN3_SCALE_STD, so the trunk has gradients): the loss within
+   IMAGE_LOSS_RTOL, the whole gradient within IMAGE_GRAD_RTOL of its
+   norm, each tensor's cosine with its fp32 gradient at least
+   IMAGE_GRAD_COS, each BatchNorm's batch statistics (recovered from its
+   buffers) within IMAGE_MEAN_TOL and IMAGE_VAR_RTOL; (b) the loss on
+   one fixed batch at a constant lr (momentum 0.1, beta 0.9, weight decay
+   1e-4: ``bench.py``'s RN50 optimizer) falls by IMG_LOSS_DROP over 10
+   steps; (c) 10 steps through ``Trainer.fit`` after 2 warm-up steps at
+   the config's shape and optimizer (batch 128, the config's momentum
+   schedule): ms per step (host clock, ended by a sync), images/s and
+   MFU (``bench.py``'s 3 x 8.2 GFLOP an image over 989 TFLOP/s), then 3
+   steps under ``torch.profiler`` for the device-busy share; no kernel
+   of the port launches on this path; (d) ``mlp_mnist`` for MLP_STEPS
+   steps and its top-1 accuracy on the synthetic test split
+   (``train.evaluate``), at least MLP_MIN_ACCURACY. Prints its wall
+   seconds;
 5. serve: GPT-2 124M at full width, seeded random weights, bf16, eight
    greedy requests through ``Scheduler`` (prompts of 5-900 tokens, some
    prefilled in chunks, two sharing a 128-token prefix); requires every
@@ -142,6 +164,7 @@ import functools
 import gc
 import json
 import math
+import os
 import subprocess
 import sys
 import time
@@ -199,6 +222,36 @@ TRAIN_B, TRAIN_S, TRAIN_LR = 8, 1024, 6e-4
 # rounding of every activation turns into occasional one-ulp (2^-8) flips
 # that compound through 12 layers and their backward — the mechanism,
 # and at most the size, of the flash-vs-composed difference above.
+# ResNet-50 bf16 step against fp32 (TF32 off), same weights, batch 32 at
+# 224 px. BatchNorm's backward subtracts the parts of the incoming
+# gradient that the batch mean and variance explain, and bf16's rounding
+# of what is left is large against it. Each limit is about 2.5 times the
+# largest reading of tools/image_check_spread.py over seeds 0-3 on an
+# H100 (PERF.md, PR 12), and that tool's two bf16 BatchNorm controls
+# (statistics reduced in bf16; buffers kept in bf16) break the variance
+# limit by 7.7-11 times:
+# - loss: 3e-4 of it (read at most 1.04e-4);
+# - the whole gradient (every tensor, concatenated): 0.13 of its norm
+#   (read 0.0522-0.0534);
+# - each tensor's cosine with its fp32 gradient: at least 0.8 (the worst,
+#   stem_bn.bias, read 0.8665-0.9119; a wrong sign, layout or padding
+#   reads near 0);
+# - the batch statistics that each BatchNorm's buffers took in, (after -
+#   0.9 before) / 0.1: the mean within 0.025 of the batch's standard
+#   deviation (RMS over channels; read at most 0.0095), the variance
+#   within 0.006 of its norm (read at most 0.0023).
+IMAGE_LOSS_RTOL = 3e-4
+IMAGE_GRAD_RTOL = 0.13
+IMAGE_GRAD_COS = 0.8
+IMAGE_MEAN_TOL = 0.025
+IMAGE_VAR_RTOL = 0.006
+BN3_SCALE_STD = 0.05   # the check's last-BatchNorm scales (config: 0)
+IMG_B, IMG_SIZE, IMG_CHECK_B = 128, 224, 32
+IMG_FLOPS_PER_IMAGE = 3 * 8.2e9   # bench.py:251, fwd + bwd at 224 px
+IMG_LOSS_DROP = 0.5
+# The synthetic MNIST's classes are templates plus noise: the same config
+# on the CPU reads 1.0 after 300 steps.
+MLP_STEPS, MLP_MIN_ACCURACY = 300, 0.99
 GEN_B, GEN_PROMPT, GEN_NEW = 8, 512, 256
 DEC_L = 1024                      # the dense decode check's cache length
 LN_D = 768
@@ -1724,6 +1777,264 @@ def train(card: str):
             {"train_ln": ln_stats["layer_norm_fwd_by_rows"]})
 
 
+def image_check_models(seed: int = 0):
+    """The config's bf16 ResNet-50 (weights from ``seed``) and an fp32
+    copy with the same weights and buffers; the zero-initialized head and
+    last BatchNorm scales replaced by values drawn from ``seed + 1`` (a
+    LeCun-scaled head, scales of std BN3_SCALE_STD: near the config's
+    identity blocks, where a deeper net's bf16 gradients stay near its
+    fp32 ones) so that gradients reach the trunk."""
+    from nezha_tpu_torch.cli.train import build_config
+    from nezha_tpu_torch.models import resnet50
+    from nezha_tpu_torch.tensor.policy import f32_policy
+
+    model = build_config("resnet50_imagenet", seed=seed,
+                         device="cuda").model
+    g = torch.Generator(device="cuda").manual_seed(seed + 1)
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if name.endswith("bn3.scale"):
+                p.copy_(BN3_SCALE_STD * torch.randn(
+                    p.shape, generator=g, device="cuda"))
+            elif name == "head.w":
+                p.copy_(torch.randn(p.shape, generator=g, device="cuda")
+                        / math.sqrt(p.shape[0]))
+    ref = resnet50(stem="s2d", policy=f32_policy(), device="cuda")
+    ref.load_state_dict(model.state_dict())
+    return model, ref
+
+
+def batch_statistics(model, before: dict) -> dict:
+    """``{BatchNorm name: (mean, var, eps)}`` of the batch that one
+    training forward saw, recovered from each module's buffers before
+    (``before``) and after it: ``(after - m * before) / (1 - m)``."""
+    from nezha_tpu_torch.nn.layers import BatchNorm
+
+    out = {}
+    for name, mod in model.named_modules():
+        if isinstance(mod, BatchNorm):
+            m = mod.momentum
+            out[name] = tuple(
+                (getattr(mod, b) - m * before[f"{name}.{b}"]) / (1 - m)
+                for b in ("mean", "var")) + (mod.eps,)
+    return out
+
+
+def image_step_errors(batch, seed: int = 0) -> dict:
+    """One training forward and backward of the bf16 model against the
+    fp32 one with TF32 off, from the same weights (``seed``) and batch:
+    -> the losses, the gradients' distances and the batch statistics'."""
+    from nezha_tpu_torch.cli.train import image_ce
+    from nezha_tpu_torch.optim import sgd
+    from nezha_tpu_torch.train import make_train_step
+
+    tf32 = (torch.backends.cudnn.allow_tf32,
+            torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        model, ref = image_check_models(seed)
+        before = {k: v.clone() for k, v in ref.named_buffers()}
+        (loss, grads), (loss_r, grads_r) = (
+            make_train_step(m, sgd(0.0), image_ce).loss_and_grads(batch)
+            for m in (model, ref))
+        stats, stats_r = (batch_statistics(m, before) for m in (model, ref))
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = tf32
+    diff_sq = norm_sq = 0.0
+    worst_cos, worst_rel = (1.0, ""), (0.0, "")
+    for name, gr in grads_r.items():
+        g = grads[name].float()
+        diff_sq += (g - gr).square().sum().item()
+        norm_sq += gr.square().sum().item()
+        rel = ((g - gr).norm() / gr.norm().clamp_min(1e-30)).item()
+        cos = torch.nn.functional.cosine_similarity(
+            g.flatten(), gr.flatten(), dim=0).item()
+        worst_rel = max(worst_rel, (rel, name))
+        worst_cos = min(worst_cos, (cos, name))
+    worst_mean, worst_var = (0.0, ""), (0.0, "")
+    for name, (mean_r, var_r, eps) in stats_r.items():
+        mean, var, _ = stats[name]
+        # The mean's error in units of the batch's standard deviation
+        # (RMS over the channels), the variance's relative to its norm.
+        mean_err = ((mean - mean_r) / (var_r + eps).sqrt()).square().mean(
+        ).sqrt().item()
+        var_err = ((var - var_r).norm() / var_r.norm()).item()
+        worst_mean = max(worst_mean, (mean_err, name))
+        worst_var = max(worst_var, (var_err, name))
+    return {"B": len(batch["label"]), "seed": seed,
+            "loss_bf16": loss.item(), "loss_fp32": loss_r.item(),
+            "loss_rel_err": abs(loss.item() - loss_r.item())
+            / abs(loss_r.item()),
+            "grad_rel_err_whole": math.sqrt(diff_sq / norm_sq),
+            "grad_rel_err_worst_tensor": list(worst_rel),
+            "grad_cos_worst_tensor": list(worst_cos),
+            "batch_mean_err_worst": list(worst_mean),
+            "batch_var_rel_err_worst": list(worst_var),
+            "tensors": len(grads)}
+
+
+def image_check_failures(errs: dict) -> list:
+    """The limits of (a) that ``errs`` (:func:`image_step_errors`)
+    breaks, as messages; a NaN breaks every limit it meets."""
+    out = []
+    if not errs["loss_rel_err"] <= IMAGE_LOSS_RTOL:
+        out.append(f"bf16 loss {errs['loss_bf16']} vs fp32 "
+                   f"{errs['loss_fp32']} (tolerance {IMAGE_LOSS_RTOL} of "
+                   f"it)")
+    if not errs["grad_rel_err_whole"] <= IMAGE_GRAD_RTOL:
+        out.append(f"the whole bf16 gradient differs by "
+                   f"{errs['grad_rel_err_whole']} of its norm (tolerance "
+                   f"{IMAGE_GRAD_RTOL})")
+    cos, name = errs["grad_cos_worst_tensor"]
+    if not cos >= IMAGE_GRAD_COS:
+        out.append(f"gradient of {name} has cosine {cos} with its fp32 "
+                   f"gradient (at least {IMAGE_GRAD_COS})")
+    err, name = errs["batch_mean_err_worst"]
+    if not err <= IMAGE_MEAN_TOL:
+        out.append(f"batch mean of {name} off by {err} of its standard "
+                   f"deviation (tolerance {IMAGE_MEAN_TOL})")
+    err, name = errs["batch_var_rel_err_worst"]
+    if not err <= IMAGE_VAR_RTOL:
+        out.append(f"batch variance of {name} off by {err} of its norm "
+                   f"(tolerance {IMAGE_VAR_RTOL})")
+    return out
+
+
+def compare_image_steps(batch) -> dict:
+    """(a): :func:`image_step_errors` held to the IMAGE_* limits."""
+    errs = image_step_errors(batch)
+    broken = image_check_failures(errs)
+    if broken:
+        fail("train_image: " + "; ".join(broken))
+    return errs
+
+
+def profiled_busy_share(trainer, batches, steps: int) -> dict:
+    """``steps`` more steps under torch.profiler: the device's busy
+    milliseconds a step (its kernels' and copies' time) over the wall."""
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        trainer.fit(batches, steps)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    busy_us = copy_us = 0.0
+    for e in prof.key_averages():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        us = getattr(e, "self_device_time_total",
+                     getattr(e, "self_cuda_time_total", 0.0))
+        busy_us += us
+        if "memcpy htod" in e.key.lower():
+            copy_us += us
+    return {"profiled_steps": steps,
+            "profiled_ms_per_step": wall / steps * 1e3,
+            "device_busy_ms_per_step": busy_us / 1e3 / steps,
+            "device_busy_share": busy_us / 1e6 / wall,
+            "htod_copy_ms_per_step": copy_us / 1e3 / steps}
+
+
+def train_image(card: str) -> dict:
+    """Phase 4b (see the module docstring). -> its summary."""
+    from nezha_tpu_torch.cli.train import build_config
+    from nezha_tpu_torch.data import mnist_batches, synthetic_image_batches
+    from nezha_tpu_torch.ops.cuda.flash_attention import LAUNCHES
+    from nezha_tpu_torch.ops.cuda.layer_norm import LAUNCHES as LN_LAUNCHES
+    from nezha_tpu_torch.optim import momentum
+    from nezha_tpu_torch.train import Trainer, evaluate, make_train_step
+
+    t_phase = time.perf_counter()
+    # (a) bf16 against fp32, one step.
+    check = next(synthetic_image_batches(IMG_CHECK_B, IMG_SIZE, seed=0))
+    print(json.dumps({"train_image_bf16_vs_fp32": compare_image_steps(
+        check)}), flush=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (b) the loss on one fixed batch falls at a constant lr.
+    cfg = build_config("resnet50_imagenet", seed=0, device="cuda")
+    step = make_train_step(cfg.model, momentum(0.1, beta=0.9,
+                                               weight_decay=1e-4),
+                           cfg.loss_fn)
+    losses = [step(check)["loss"].item() for _ in range(10)]
+    if not (all(map(math.isfinite, losses))
+            and losses[-1] <= losses[0] - IMG_LOSS_DROP):
+        fail(f"train_image: fixed-batch loss did not fall by "
+             f"{IMG_LOSS_DROP}: {losses}")
+    print(json.dumps({"image_fixed_batch_losses": losses}), flush=True)
+    del step, cfg
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (c) the main path: Trainer.fit at the config's shape and optimizer.
+    warmup, n_steps = 2, 10
+    cfg = build_config("resnet50_imagenet", steps=warmup + n_steps, seed=0,
+                       device="cuda")
+    trainer = Trainer(cfg.model, cfg.optimizer, cfg.loss_fn, log_every=0,
+                      examples_per_step=IMG_B)
+    batches = cfg.batches(IMG_B)
+    trainer.fit(batches, warmup)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for counts in (LAUNCHES, LN_LAUNCHES):
+        for name in counts:
+            counts[name] = 0
+    t0 = time.perf_counter()
+    last = trainer.fit(batches, n_steps)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launched = {name: n for counts in (LAUNCHES, LN_LAUNCHES)
+                for name, n in counts.items() if n}
+    if launched:
+        fail(f"train_image: the port's kernels launched on the image path: "
+             f"{launched}")
+    if not math.isfinite(last["loss"]):
+        fail(f"train_image: loss {last['loss']}")
+    step_flops = IMG_FLOPS_PER_IMAGE * (IMG_SIZE / 224) ** 2 * IMG_B
+    stats = {"B": IMG_B, "image_size": IMG_SIZE, "stem": "s2d",
+             "policy": "bf16", "steps": n_steps,
+             "ms_per_step": wall / n_steps * 1e3,
+             "images_per_s": IMG_B * n_steps / wall,
+             "mfu": step_flops * n_steps / wall / BF16_FLOPS_PER_S,
+             "step_tflop": step_flops / 1e12,
+             "params": sum(p.numel() for p in cfg.model.parameters()),
+             "last_loss": last["loss"],
+             "peak_mem_gb": torch.cuda.max_memory_allocated() / 2 ** 30,
+             **profiled_busy_share(trainer, batches, 3), "card": card}
+    print(json.dumps({"train_image": stats}), flush=True)
+    del trainer, cfg, batches
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (d) mlp_mnist on the synthetic set (no MNIST files in the checkout).
+    os.environ["NEZHA_DATA_DIR"] = os.path.join(
+        os.path.dirname(os.path.abspath(__file__)), "build", "no_mnist")
+    cfg = build_config("mlp_mnist", seed=0, device="cuda")
+    trainer = Trainer(cfg.model, cfg.optimizer, cfg.loss_fn, log_every=0)
+    t0 = time.perf_counter()
+    last = trainer.fit(cfg.batches(cfg.default_batch), MLP_STEPS)
+    torch.cuda.synchronize()
+    mlp_wall = time.perf_counter() - t0
+    result = evaluate(cfg.model, mnist_batches(256, split="test", epochs=1))
+    if not result["accuracy"] >= MLP_MIN_ACCURACY:
+        fail(f"train_image: mlp_mnist test accuracy {result['accuracy']} "
+             f"after {MLP_STEPS} steps (at least {MLP_MIN_ACCURACY})")
+    mlp = {"steps": MLP_STEPS, "B": cfg.default_batch,
+           "last_loss": last["loss"], "test": result,
+           "ms_per_step": mlp_wall / MLP_STEPS * 1e3, "card": card}
+    print(json.dumps({"mlp_mnist": mlp}), flush=True)
+    summary = {"wall_s": time.perf_counter() - t_phase,
+               "images_per_s": stats["images_per_s"],
+               "ms_per_step": stats["ms_per_step"], "mfu": stats["mfu"],
+               "device_busy_share": stats["device_busy_share"],
+               "mlp_accuracy": result["accuracy"]}
+    print(json.dumps({"train_image_summary": summary}), flush=True)
+    return summary
+
+
 def serve_prompts(vocab: int):
     """The serve phase's eight prompts: 5-900 tokens, two sharing a
     128-token prefix (seeded)."""
@@ -2138,6 +2449,8 @@ def main() -> int:
             for label, ms, prof, flag in TIMED_ROWS if flag]}}), flush=True)
     phase("train")
     paths, ln_rows = train(card)
+    phase("train_image")
+    image = train_image(card)
     phase("serve")
     paths["serve"] = serve(card)
     paths["serve_int8"] = serve(card, "int8")
@@ -2172,6 +2485,10 @@ def main() -> int:
             if k["pre_pass_launches"] != k["launches"]:
                 fail(f"flash_bwd_delta launched {k['pre_pass_launches']} "
                      f"times for {k['launches']} dK/dV launches")
+    print(f"train_image: {image['images_per_s']:.1f} images/s, "
+          f"{image['ms_per_step']:.2f} ms/step, MFU {image['mfu']:.4f} "
+          f"(ResNet-50 bf16, batch {IMG_B}, {IMG_SIZE} px) on {card_line}",
+          flush=True)
     print(card_line, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -18,6 +18,11 @@ What runs today:
   the fused-head loss, synthetic token batches), with attention on the
   hand-written CUDA flash forward and backward kernels, and with
   ``ln_impl="pallas"`` every LayerNorm on the fused LayerNorm kernels;
+  ResNet-50 (``--config resnet50_imagenet``: the s2d stem, BatchNorm
+  running statistics in the model's buffers, momentum, synthetic image
+  batches; convolutions on cuDNN, as no TPU kernel stands behind them)
+  and the MNIST MLP (``--config mlp_mnist``), with ``train.evaluate``'s
+  top-1 accuracy;
 - generation: GPT-2 through ``models.generate`` and ``python -m
   nezha_tpu_torch.cli.generate`` (a KV-cache prefill, then one dense
   flash-decode kernel launch per layer per token).

@@ -100,7 +100,7 @@ def _refuse_unported(args) -> None:
         if value is not None:
             raise NotPortedError(
                 f"{flag} is not ported: the port has no checkpoint reader "
-                f"or tokenizer yet (ROADMAP A4); use --random-init with "
+                f"or tokenizer yet (ROADMAP A2); use --random-init with "
                 f"token-id or byte-level prompts")
 
 

@@ -1,37 +1,70 @@
-"""Train GPT-2 on synthetic tokens (counterpart of
-``nezha_tpu/cli/train.py``, the ``gpt2_124m`` config).
+"""Train a benchmark config on synthetic data (counterpart of
+``nezha_tpu/cli/train.py``).
 
     python -m nezha_tpu_torch.cli.train --config gpt2_124m --steps 20
+    python -m nezha_tpu_torch.cli.train --config resnet50_imagenet
+    python -m nezha_tpu_torch.cli.train --config mlp_mnist --steps 300
 
-The config is the JAX CLI's: GPT-2 124M with the fused-head loss
-(``fused_loss_chunk=-1``) under the bf16 policy, AdamW with weight decay
-0.1 on ``warmup_cosine_schedule(6e-4, 100, max(steps, 200))``, batch 8
-of 1024 tokens from ``synthetic_token_batches`` (seed 0), on ``cuda``.
-``--model-preset tiny`` is the fp32 test preset (vocab 512, 64 tokens).
-Each log window prints a JSON metrics line on stderr; the last line on
-stdout is ``{"final": {...}}``. Every other flag of the JAX CLI is
-refused with an error that names it.
+The configs are the JAX CLI's:
+
+- ``gpt2_124m``: GPT-2 124M with the fused-head loss
+  (``fused_loss_chunk=-1``) under the bf16 policy, AdamW with weight
+  decay 0.1 on ``warmup_cosine_schedule(6e-4, 100, max(steps, 200))``,
+  batch 8 of 1024 tokens from ``synthetic_token_batches`` (seed 0);
+  ``--model-preset tiny`` is the fp32 test preset (vocab 512, 64 tokens);
+- ``resnet50_imagenet``: ResNet-50 with the s2d stem under the bf16
+  policy, momentum (beta 0.9, weight decay 1e-4) on
+  ``warmup_cosine_schedule(0.4, 5 * 312, max(steps, 10))``, batch 256
+  of ``synthetic_image_batches`` (224 px, 1000 classes); ``tiny`` is
+  ``ResNet((1, 1), num_classes=100)`` on 32 px images;
+- ``mlp_mnist``: the 784-256-256-10 MLP in fp32, ``momentum(0.1)``,
+  batch 128 of ``mnist_batches`` (the synthetic set when no IDX files
+  are on disk); ``tiny`` is the same.
+
+JAX runs ``gpt2_124m`` and ``resnet50_imagenet`` data-parallel
+(``parallel_mode="dp"``); the port trains every config on one card
+(process groups are ROADMAP A3). ``bert_base_zero1`` and
+``wrn101_large_batch`` are refused with ``NotPortedError``. Training
+runs on ``cuda`` unless ``--device`` says otherwise. Each log window
+prints a JSON metrics line on stderr; the last line on stdout is
+``{"final": {...}}``. Every other flag of the JAX CLI is refused with an
+error that names it.
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import math
 import sys
-from typing import Dict, List, Optional
+from typing import Callable, Dict, Iterator, List, Optional
 
 import torch
 
 from nezha_tpu_torch.cli.common import gpt2_for_preset
-from nezha_tpu_torch.data import synthetic_token_batches
+from nezha_tpu_torch.data import (mnist_batches, synthetic_image_batches,
+                                  synthetic_token_batches)
+from nezha_tpu_torch.errors import NotPortedError
 from nezha_tpu_torch.models.gpt2 import lm_loss
-from nezha_tpu_torch.optim import (adamw, matrix_decay_mask,
-                                   warmup_cosine_schedule, with_grad_clipping)
+from nezha_tpu_torch.models.mlp import MLP
+from nezha_tpu_torch.models.resnet import ResNet, resnet50
+from nezha_tpu_torch.ops.losses import \
+    softmax_cross_entropy_with_integer_labels
+from nezha_tpu_torch.optim import (Optimizer, adamw, matrix_decay_mask,
+                                   momentum, warmup_cosine_schedule,
+                                   with_grad_clipping)
+from nezha_tpu_torch.tensor.policy import bf16_policy
 from nezha_tpu_torch.train import Trainer
 
 CONFIGS = ("mlp_mnist", "resnet50_imagenet", "gpt2_124m", "bert_base_zero1",
            "wrn101_large_batch")
+# The configs that wait for later slices, and what each waits for.
+REFUSED_CONFIGS = {
+    "bert_base_zero1": "ROADMAP A1.3: the MLM head, varlen flash "
+                       "attention and ZeRO-1",
+    "wrn101_large_batch": "ROADMAP A1.4: train/mixed_precision's dynamic "
+                          "loss scale"}
 # Flags of the JAX train CLI this port does not take yet.
 NOT_PORTED_FLAGS = frozenset((
     "--mesh", "--parallel", "--microbatches", "--sp-flash", "--attn-impl",
@@ -48,28 +81,98 @@ NOT_PORTED_FLAGS = frozenset((
 LOG_EVERY = 10
 
 
+def image_ce(logits: torch.Tensor, batch: dict) -> torch.Tensor:
+    """The image and MLP configs' loss: mean CE against ``label``."""
+    return softmax_cross_entropy_with_integer_labels(logits, batch["label"])
+
+
+@dataclasses.dataclass
+class Config:
+    """One config at one preset: its model (built), loss, batch stream
+    (``batches(batch_size)``), optimizer and default batch size."""
+    model: torch.nn.Module
+    loss_fn: Callable
+    batches: Callable[[int], Iterator[dict]]
+    optimizer: Optimizer
+    default_batch: int
+
+
+def refuse_unported(name: str) -> None:
+    """``NotPortedError`` naming the ROADMAP item a config waits for."""
+    if name in REFUSED_CONFIGS:
+        raise NotPortedError(f"--config {name} is not ported yet "
+                             f"({REFUSED_CONFIGS[name]})")
+
+
+def build_config(name: str, preset: str = "full", steps: int = 100,
+                 seed: int = 0, device="cuda", seq_len: Optional[int] = None,
+                 dropout: Optional[float] = None,
+                 wd_exclude_1d: bool = False) -> Config:
+    """THE config table: ``name`` at ``preset`` with weights seeded by
+    ``seed`` on ``device``; ``steps`` sizes the learning-rate schedules;
+    ``seq_len``, ``dropout`` and ``wd_exclude_1d`` apply to gpt2_124m."""
+    refuse_unported(name)
+    tiny = preset == "tiny"
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    if name == "mlp_mnist":
+        return Config(MLP(generator=gen), image_ce,
+                      lambda bs: mnist_batches(bs), momentum(0.1), 128)
+    if name == "resnet50_imagenet":
+        sched = warmup_cosine_schedule(0.4, 5 * 312, max(steps, 10))
+        opt = momentum(sched, beta=0.9, weight_decay=1e-4)
+        if tiny:
+            model = ResNet((1, 1), num_classes=100, policy=bf16_policy(),
+                           generator=gen)
+            return Config(model, image_ce, lambda bs: synthetic_image_batches(
+                bs, image_size=32, num_classes=100), opt, 256)
+        model = resnet50(stem="s2d", policy=bf16_policy(), generator=gen)
+        return Config(model, image_ce, synthetic_image_batches, opt, 256)
+    if name != "gpt2_124m":
+        raise ValueError(f"unknown config {name!r}")
+    overrides = {} if tiny else {"fused_loss_chunk": -1}
+    if seq_len:
+        overrides["max_positions"] = seq_len
+    if dropout is not None:
+        overrides["dropout"] = dropout
+    model = gpt2_for_preset(preset, seed=seed, device=device, **overrides)
+    vocab = 512 if tiny else 50257
+    seq = seq_len or (64 if tiny else 1024)
+    opt = adamw(warmup_cosine_schedule(6e-4, 100, max(steps, 200)),
+                weight_decay=0.1,
+                mask=matrix_decay_mask if wd_exclude_1d else None)
+    return Config(model, lm_loss, lambda bs: synthetic_token_batches(
+        bs, seq_len=seq, vocab_size=vocab), opt, 8)
+
+
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="python -m nezha_tpu_torch.cli.train",
-        description="Train GPT-2 on synthetic tokens (PyTorch/CUDA port).")
+        description="Train a benchmark config on synthetic data "
+                    "(PyTorch/CUDA port).")
     p.add_argument("--config", required=True, choices=CONFIGS,
-                   help="only gpt2_124m is ported")
+                   help="mlp_mnist, resnet50_imagenet and gpt2_124m are "
+                        "ported")
     p.add_argument("--model-preset", choices=["full", "tiny"],
                    default="full",
-                   help="full: GPT-2 124M, bf16 compute; tiny: the test "
-                        "preset, fp32")
+                   help="full: the config's model; tiny: its test preset "
+                        "(GPT-2 in fp32, a two-block ResNet on 32 px)")
     p.add_argument("--steps", type=int, default=100)
     p.add_argument("--batch-size", type=int, default=None,
-                   help="default 8")
+                   help="default: the config's (gpt2 8, mlp 128, "
+                        "resnet 256)")
     p.add_argument("--seq-len", type=int, default=None,
-                   help="tokens per row; also sizes the position table "
-                        "(default 1024, tiny 64 with a 96-row table)")
+                   help="gpt2_124m: tokens per row; also sizes the "
+                        "position table (default 1024, tiny 64 with a "
+                        "96-row table)")
     p.add_argument("--seed", type=int, default=0, help="weight seed")
-    p.add_argument("--dropout", type=float, default=None)
+    p.add_argument("--dropout", type=float, default=None,
+                   help="gpt2_124m: the dropout rate")
     p.add_argument("--clip-norm", type=float, default=None,
                    help="clip gradients to this global norm")
     p.add_argument("--wd-exclude-1d", action="store_true",
-                   help="no weight decay on norm scales and biases")
+                   help="gpt2_124m: no weight decay on norm scales and "
+                        "biases")
     p.add_argument("--device", default="cuda",
                    help="torch device (default cuda; cpu runs the "
                         "kernels' plain versions)")
@@ -77,6 +180,8 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
+    """Parse and check the flags (a config that waits for a later slice
+    is refused by :func:`build_config`, which :func:`run` calls)."""
     parser = build_parser()
     args, rest = parser.parse_known_args(argv)
     for tok in rest:
@@ -86,9 +191,12 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
                          f"yet (see ROADMAP.md)")
     if rest:
         parser.error(f"unrecognized arguments: {' '.join(rest)}")
-    if args.config != "gpt2_124m":
-        parser.error(f"--config {args.config} is not ported yet; only "
-                     f"gpt2_124m trains in the PyTorch port")
+    gpt2 = args.config == "gpt2_124m"
+    for flag, value in (("--seq-len", args.seq_len),
+                        ("--dropout", args.dropout),
+                        ("--wd-exclude-1d", args.wd_exclude_1d or None)):
+        if value is not None and not gpt2:
+            parser.error(f"{flag} applies to gpt2_124m")
     if args.steps < 1:
         parser.error(f"--steps must be >= 1, got {args.steps}")
     if args.dropout is not None and not 0.0 <= args.dropout < 1.0:
@@ -103,38 +211,31 @@ def run(args: argparse.Namespace) -> Dict[str, float]:
             and not torch.cuda.is_available()):
         raise SystemExit("no CUDA device: pass --device cpu to train on "
                          "the CPU")
-    tiny = args.model_preset == "tiny"
-    overrides = {} if tiny else {"fused_loss_chunk": -1}
-    vocab = 512 if tiny else 50257
-    seq_len = args.seq_len or (64 if tiny else 1024)
-    if args.seq_len:
-        overrides["max_positions"] = args.seq_len
-    if args.dropout is not None:
-        overrides["dropout"] = args.dropout
-    model = gpt2_for_preset(args.model_preset, seed=args.seed,
-                            device=args.device, **overrides)
-    optimizer = adamw(warmup_cosine_schedule(6e-4, 100, max(args.steps, 200)),
-                      weight_decay=0.1,
-                      mask=matrix_decay_mask if args.wd_exclude_1d else None)
+    cfg = build_config(args.config, args.model_preset, steps=args.steps,
+                       seed=args.seed, device=args.device,
+                       seq_len=args.seq_len, dropout=args.dropout,
+                       wd_exclude_1d=args.wd_exclude_1d)
+    optimizer, loss_fn = cfg.optimizer, cfg.loss_fn
     if args.clip_norm is not None:
         optimizer = with_grad_clipping(optimizer, args.clip_norm)
-    batch_size = args.batch_size or 8
+    batch_size = args.batch_size or cfg.default_batch
 
     def log(step: int, metrics: Dict[str, float]) -> None:
         print(json.dumps(metrics), file=sys.stderr, flush=True)
 
-    trainer = Trainer(model, optimizer, lm_loss, log_every=LOG_EVERY,
+    trainer = Trainer(cfg.model, optimizer, loss_fn, log_every=LOG_EVERY,
                       metric_logger=log, examples_per_step=batch_size)
-    batches = synthetic_token_batches(batch_size, seq_len=seq_len,
-                                      vocab_size=vocab)
-    last = trainer.fit(batches, args.steps)
+    last = trainer.fit(cfg.batches(batch_size), args.steps)
     if not math.isfinite(last.get("loss", math.nan)):
         raise SystemExit(f"training diverged: {last}")
     return last
 
 
 def main(argv: Optional[List[str]] = None) -> int:
-    last = run(parse_args(argv))
+    try:
+        last = run(parse_args(argv))
+    except NotPortedError as e:
+        raise SystemExit(f"nezha_tpu_torch.cli.train: {e}")
     print(json.dumps({"final": last}))
     return 0
 

@@ -1,6 +1,10 @@
-from nezha_tpu_torch.models.convert import params_from_jax, params_to_jax
+from nezha_tpu_torch.models.convert import (params_from_jax, params_to_jax,
+                                           resnet_from_jax, resnet_to_jax)
 from nezha_tpu_torch.models.generate import generate, init_cache
 from nezha_tpu_torch.models.gpt2 import GPT2, GPT2Config, gpt2_124m, lm_loss
+from nezha_tpu_torch.models.mlp import MLP
+from nezha_tpu_torch.models.resnet import ResNet, resnet50, wide_resnet101
 
-__all__ = ["GPT2", "GPT2Config", "generate", "gpt2_124m", "init_cache",
-           "lm_loss", "params_from_jax", "params_to_jax"]
+__all__ = ["GPT2", "GPT2Config", "MLP", "ResNet", "generate", "gpt2_124m",
+           "init_cache", "lm_loss", "params_from_jax", "params_to_jax",
+           "resnet50", "resnet_from_jax", "resnet_to_jax", "wide_resnet101"]

@@ -1,5 +1,6 @@
-from nezha_tpu_torch.ops.activations import gelu
+from nezha_tpu_torch.ops.activations import gelu, relu
 from nezha_tpu_torch.ops.attention import (NEG_BIG, causal_mask,
                                            dot_product_attention)
 
-__all__ = ["NEG_BIG", "causal_mask", "dot_product_attention", "gelu"]
+__all__ = ["NEG_BIG", "causal_mask", "dot_product_attention", "gelu",
+           "relu"]

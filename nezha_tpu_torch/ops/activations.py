@@ -7,6 +7,14 @@ import math
 import torch
 
 
+def relu(x: torch.Tensor) -> torch.Tensor:
+    """``max(x, 0)`` as JAX's ``jnp.maximum(x, 0)``: where ``x`` is
+    exactly 0 the gradient is split, half to ``x`` (``torch.maximum``'s
+    rule; ``torch.relu`` passes none). That happens at every zero a
+    residual adds to a zero-initialized branch."""
+    return torch.maximum(x, x.new_zeros(()))
+
+
 def gelu(x: torch.Tensor, approximate: bool = True) -> torch.Tensor:
     """GPT-2 uses the tanh approximation; computed in ``x``'s dtype, as
     the JAX version is."""

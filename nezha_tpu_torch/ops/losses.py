@@ -1,22 +1,38 @@
-"""The losses GPT-2's objective reaches (counterpart of
-``nezha_tpu/ops/losses.py``). Loss math runs in fp32 whatever the policy.
-The JAX functions' ``ignore_index``, ``label_smoothing`` and ``bias``
-serve BERT and the image configs, which are not ported yet.
+"""The losses of GPT-2's objective and of the image and MLP configs
+(counterpart of ``nezha_tpu/ops/losses.py``). Loss math runs in fp32
+whatever the policy. The LM losses' ``ignore_index`` and ``bias`` serve
+BERT, which is not ported yet.
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 
 from nezha_tpu_torch.errors import NotPortedError
 
 
-def softmax_cross_entropy_with_integer_labels(logits: torch.Tensor,
-                                              labels: torch.Tensor
-                                              ) -> torch.Tensor:
-    """Mean CE over integer labels, from fp32 log-softmax."""
+def softmax_cross_entropy_with_integer_labels(
+        logits: torch.Tensor, labels: torch.Tensor,
+        ignore_index: Optional[int] = None,
+        label_smoothing: float = 0.0) -> torch.Tensor:
+    """Mean CE over integer labels, from fp32 log-softmax. Positions whose
+    label is ``ignore_index`` are left out of the mean (a mean over none
+    is 0). ``label_smoothing=eps`` trains against ``(1 - eps) * one_hot +
+    eps / V``, computed as ``(1 - eps) * picked + eps * mean(logp)``."""
     logp = torch.log_softmax(logits.float(), dim=-1)
-    return -logp.gather(-1, labels.long()[..., None]).mean()
+    labels = labels.long()
+    kept = None if ignore_index is None else labels != ignore_index
+    safe = labels if kept is None else torch.where(kept, labels, 0)
+    picked = logp.gather(-1, safe[..., None])[..., 0]
+    if label_smoothing:
+        eps = label_smoothing
+        picked = (1.0 - eps) * picked + eps * logp.mean(dim=-1)
+    if kept is None:
+        return -picked.mean()
+    mask = kept.float()
+    return -(picked * mask).sum() / mask.sum().clamp_min(1.0)
 
 
 def lm_cross_entropy_from_hidden(hidden: torch.Tensor, emb: torch.Tensor,

@@ -60,6 +60,51 @@ def clip_by_global_norm(tree: Tree, max_norm: float
     return {k: x * scale for k, x in tree.items()}, norm
 
 
+def sgd(lr) -> Optimizer:
+    """Plain SGD: the update is ``-lr_t * g`` in fp32."""
+    sched = _as_schedule(lr)
+
+    def init(params: Tree) -> dict:
+        return {"step": 0}
+
+    def update(grads: Tree, state: dict, params: Tree = None):
+        lr_t = sched(state["step"])
+        return ({k: -lr_t * g.float() for k, g in grads.items()},
+                {"step": state["step"] + 1})
+
+    return Optimizer(init, update)
+
+
+def momentum(lr, beta: float = 0.9, nesterov: bool = False,
+             weight_decay: float = 0.0) -> Optimizer:
+    """SGD with momentum, the ResNet-50/ImageNet optimizer. Weight decay
+    is coupled: ``g + weight_decay * p`` on every tensor, norm scales and
+    biases included, as in JAX. The fp32 velocity is ``v = beta * v +
+    g``; the update ``-lr_t * v`` (Nesterov: ``-lr_t * (g + beta * v)``)
+    with ``lr_t`` read from the schedule at the step count before this
+    update."""
+    sched = _as_schedule(lr)
+
+    def init(params: Tree) -> dict:
+        return {"step": 0,
+                "velocity": {k: torch.zeros_like(p, dtype=torch.float32)
+                             for k, p in params.items()}}
+
+    def update(grads: Tree, state: dict, params: Tree):
+        lr_t = sched(state["step"])
+        updates, velocity = {}, {}
+        for k, p in params.items():
+            g = grads[k].float()
+            if weight_decay:
+                g = g + weight_decay * p.detach().float()
+            v = beta * state["velocity"][k] + g
+            d = g + beta * v if nesterov else v
+            updates[k], velocity[k] = -lr_t * d, v
+        return updates, {"step": state["step"] + 1, "velocity": velocity}
+
+    return Optimizer(init, update)
+
+
 def adam(lr, b1: float = 0.9, b2: float = 0.999,
          eps: float = 1e-8) -> Optimizer:
     return adamw(lr, b1=b1, b2=b2, eps=eps, weight_decay=0.0)

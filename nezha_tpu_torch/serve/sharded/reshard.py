@@ -119,6 +119,6 @@ def place_variables(params: Dict[str, torch.Tensor], mesh: Mesh,
 
 def reshard_checkpoint(*args, **kwargs):
     """Refused: loading a training checkpoint onto the serve mesh needs
-    the port's checkpoint interop first (ROADMAP A4)."""
+    the port's checkpoint interop first (ROADMAP A2)."""
     raise NotPortedError("reshard_checkpoint (a training checkpoint onto "
                          "the serve mesh) waits for the checkpoint interop")

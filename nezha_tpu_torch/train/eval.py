@@ -1,0 +1,77 @@
+"""Evaluation: metric sums accumulated over a batch stream (counterpart
+of ``nezha_tpu/train/eval.py``'s ``accuracy``, ``make_eval_step`` and
+``evaluate``).
+
+The model runs in ``eval()`` mode under ``torch.no_grad()``, so
+BatchNorm normalizes with its running statistics and nothing updates
+them. The sums stay on the device; the host reads them once, at the end.
+The port's modules carry their own weights, so the step and
+``evaluate`` take no ``variables``.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Dict, Iterator, Optional
+
+import torch
+
+from nezha_tpu_torch.train.loop import batch_to_device
+
+EvalStep = Callable[[dict, Optional[Dict[str, torch.Tensor]]],
+                    Dict[str, torch.Tensor]]
+
+
+def accuracy(logits: torch.Tensor, batch: dict) -> Dict[str, torch.Tensor]:
+    """Top-1 against ``batch["label"]``: the count correct, and of all."""
+    pred = logits.argmax(dim=-1)
+    return {"correct": (pred == batch["label"]).sum(),
+            "count": torch.tensor(pred.numel(), device=pred.device)}
+
+
+def make_eval_step(model: torch.nn.Module, stat_fn: Callable) -> EvalStep:
+    """-> ``step(batch, acc) -> acc``: the model's eval-mode output on
+    ``batch`` through ``stat_fn``, added to the sums ``acc`` (None at the
+    start); floating sums fp32, integer ones int64."""
+    device = next(model.parameters()).device
+
+    def widen(v: torch.Tensor) -> torch.Tensor:
+        return v.float() if v.is_floating_point() else v.long()
+
+    @torch.no_grad()
+    def step(batch: dict, acc):
+        batch = batch_to_device(batch, device)
+        training = model.training
+        model.eval()
+        try:
+            stats = {k: widen(v)
+                     for k, v in stat_fn(model(batch), batch).items()}
+        finally:
+            model.train(training)
+        if acc is None:
+            return stats
+        return {k: acc[k] + stats[k] for k in stats}
+
+    return step
+
+
+def evaluate(model: torch.nn.Module, batches: Iterator[dict],
+             stat_fn: Callable = accuracy,
+             max_batches: Optional[int] = None) -> Dict[str, float]:
+    """Run the model over ``batches`` (at most ``max_batches``) and read
+    the sums: -> the sums as floats, ``accuracy`` when ``stat_fn`` gives
+    ``correct`` and ``count``, and ``batches``."""
+    step = make_eval_step(model, stat_fn)
+    acc = None
+    n = 0
+    for batch in batches:
+        if max_batches is not None and n >= max_batches:
+            break
+        acc = step(batch, acc)
+        n += 1
+    if acc is None:
+        raise ValueError("no batches to evaluate")
+    out = {k: float(v) for k, v in acc.items()}
+    if "correct" in out and out.get("count"):
+        out["accuracy"] = out["correct"] / out["count"]
+    out["batches"] = n
+    return out

@@ -4,7 +4,10 @@
 JAX compiles forward, backward and update into one program over an
 immutable state. PyTorch runs them eagerly: the step holds the model's
 parameters (updated in place) and the optimizer state, so ``step(batch)``
-takes only the batch.
+takes only the batch. Module state — BatchNorm's running statistics —
+lives in the model's buffers and is updated by the training forward
+itself, where JAX's step threads the new state out of ``apply`` and
+merges it (``merge_state``).
 """
 
 from __future__ import annotations
@@ -19,11 +22,23 @@ from nezha_tpu_torch.errors import NotPortedError
 from nezha_tpu_torch.optim.optimizers import Optimizer, apply_updates_
 
 
+def batch_to_device(batch: dict, device: torch.device) -> dict:
+    """A dict of arrays or tensors on ``device``, integers as int64."""
+    out = {}
+    for k, x in batch.items():
+        t = torch.as_tensor(np.asarray(x) if not torch.is_tensor(x) else x)
+        if not t.is_floating_point():
+            t = t.long()
+        out[k] = t.to(device)
+    return out
+
+
 class TrainStep:
-    """``step(batch) -> {"loss"}``: forward in training mode, ``loss_fn(
-    out, batch)``, gradients of every parameter, one optimizer update
-    applied in place. Batches are dicts of arrays or tensors; they move
-    to the model's device, integer arrays as int64."""
+    """``step(batch) -> {"loss"}``: forward in training mode (which also
+    updates the model's BatchNorm buffers), ``loss_fn(out, batch)``,
+    gradients of every parameter, one optimizer update applied in place.
+    Batches are dicts of arrays or tensors; they move to the model's
+    device (:func:`batch_to_device`)."""
 
     def __init__(self, model: torch.nn.Module, optimizer: Optimizer,
                  loss_fn: Callable):
@@ -34,29 +49,25 @@ class TrainStep:
         self.opt_state = optimizer.init(self.params)
         self.device = next(model.parameters()).device
 
-    def to_device(self, batch: dict) -> dict:
-        out = {}
-        for k, x in batch.items():
-            t = torch.as_tensor(np.asarray(x) if not torch.is_tensor(x)
-                                else x)
-            if not t.is_floating_point():
-                t = t.long()
-            out[k] = t.to(self.device)
-        return out
-
     def loss_and_grads(self, batch: dict):
-        """-> (fp32 loss, ``{name: gradient}``), without an update."""
-        batch = self.to_device(batch)
+        """-> (fp32 loss, ``{name: gradient}``) of the training forward,
+        without an optimizer update (the forward still updates the
+        BatchNorm buffers, as the step does)."""
+        batch = batch_to_device(batch, self.device)
         self.model.train()
         loss = self.loss_fn(self.model(batch), batch).float()
         grads = torch.autograd.grad(loss, list(self.params.values()))
         return loss.detach(), dict(zip(self.params, grads))
 
-    def __call__(self, batch: dict) -> Dict[str, torch.Tensor]:
-        loss, grads = self.loss_and_grads(batch)
+    def apply_gradients(self, grads: Dict[str, torch.Tensor]) -> None:
+        """One optimizer update from ``grads``, applied in place."""
         updates, self.opt_state = self.optimizer.update(
             grads, self.opt_state, self.params)
         apply_updates_(self.params, updates)
+
+    def __call__(self, batch: dict) -> Dict[str, torch.Tensor]:
+        loss, grads = self.loss_and_grads(batch)
+        self.apply_gradients(grads)
         return {"loss": loss}
 
 
@@ -83,7 +94,9 @@ class Trainer:
     steps reads the loss (the device barrier of the window) and logs
     ``steps_per_sec``, ``examples_per_sec(_per_chip)`` and
     ``tokens_per_sec(_per_chip)`` through ``metric_logger(step,
-    metrics)``. The port trains on one device, so per chip is per run.
+    metrics)``; ``examples_per_step`` (the batch size: images for the
+    image configs) and ``tokens_per_step`` scale the step rate. The port
+    trains on one device, so per chip is per run.
     The JAX Trainer's checkpoint, failure, profiling and custom-step
     options raise :class:`NotPortedError` when set."""
 
@@ -97,7 +110,8 @@ class Trainer:
                 raise TypeError(f"Trainer got an unexpected option {name!r}")
             if value != _NOT_PORTED[name]:
                 raise NotPortedError(f"Trainer option {name} is not ported "
-                                     f"(ROADMAP A4/A6)")
+                                     f"(ROADMAP A2 checkpointing, A3 "
+                                     f"process groups)")
         self.model = model
         self.step_fn = make_train_step(model, optimizer, loss_fn)
         self.log_every = log_every

@@ -318,15 +318,14 @@ def test_cli_train_tiny_on_cpu():
 
 
 def test_cli_refuses_unported_flags_and_configs():
-    from nezha_tpu_torch.cli.train import parse_args
+    from nezha_tpu_torch.cli.train import parse_args, run
 
     assert parse_args(["--config", "gpt2_124m"]).device == "cuda"
-    for argv in (["--mesh", "2"], ["--ckpt-dir=/x"], ["--remat"],
-                 ["--config", "bert_base_zero1"]):
-        if argv[0] != "--config":
-            argv = ["--config", "gpt2_124m"] + argv
+    for argv in (["--mesh", "2"], ["--ckpt-dir=/x"], ["--remat"]):
         with pytest.raises(SystemExit):
-            parse_args(argv)
+            parse_args(["--config", "gpt2_124m"] + argv)
+    with pytest.raises(NotPortedError):
+        run(parse_args(["--config", "bert_base_zero1", "--device", "cpu"]))
 
 
 @pytest.mark.parametrize("knob", [

@@ -1,18 +1,27 @@
-"""Where the time goes in the PyTorch port's GPT-2 training step, on one
-CUDA card.
+"""Where the time goes in the PyTorch port's training step, on one CUDA
+card.
 
     python3 tools/profile_torch_train.py [--out train_profile.json] \
-        [--ln-impl pallas]
+        [--ln-impl pallas] [--config resnet50_imagenet]
 
-The step of ``chip_smoke.py``'s train phase (GPT-2 124M, seeded random
-weights, bf16, B=8, S=1024, ``fused_loss_chunk=-1``, AdamW with weight
-decay 0.1, ``synthetic_token_batches`` seed 0; ``--ln-impl pallas`` for
-the fused LayerNorm kernels) through ``Trainer.fit``:
-2 warm-up steps, ``--steps`` timed steps without the profiler, then
-``--steps`` more under ``torch.profiler``. Reports ms per step, tokens/s,
-the device's busy time and idle share, the device time of the three
-flash kernels (B3 with the delta pre-pass) and their total, and the CUDA kernels and CPU ops that took the most time.
-It imports nothing of JAX.
+``--config gpt2_124m`` (the default) is the step of ``chip_smoke.py``'s
+train phase (GPT-2 124M, seeded random weights, bf16, B=8, S=1024,
+``fused_loss_chunk=-1``, AdamW with weight decay 0.1,
+``synthetic_token_batches`` seed 0; ``--ln-impl pallas`` for the fused
+LayerNorm kernels). ``--config resnet50_imagenet`` is its train_image
+phase's timed run: ResNet-50 with the s2d stem, bf16, batch 128 of
+``synthetic_image_batches`` at 224 px, the config's momentum. Either runs
+through ``Trainer.fit``: 2 warm-up steps, ``--steps`` timed steps without
+the profiler, then ``--steps`` more under ``torch.profiler``. Reports ms
+per step, tokens/s or images/s, the device's busy time and idle share,
+the device time by kind of kernel, and the CUDA kernels and CPU ops that
+took the most time; GPT-2 also the three flash kernels' device time (B3
+with the delta pre-pass). ResNet-50 adds two more profiled windows of
+``--steps`` steps each, the forward and backward alone
+(``TrainStep.loss_and_grads``, with the batch's host-to-device copy) and
+the optimizer alone (``TrainStep.apply_gradients``), so the optimizer's
+elementwise kernels are told apart from BatchNorm's. It imports nothing
+of JAX.
 """
 
 from __future__ import annotations
@@ -29,12 +38,14 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))))
 
 from nezha_tpu_torch.cli.common import gpt2_for_preset  # noqa: E402
+from nezha_tpu_torch.cli.train import build_config  # noqa: E402
 from nezha_tpu_torch.data import synthetic_token_batches  # noqa: E402
 from nezha_tpu_torch.models.gpt2 import lm_loss  # noqa: E402
 from nezha_tpu_torch.optim import adamw  # noqa: E402
 from nezha_tpu_torch.train import Trainer  # noqa: E402
 
 B, S = 8, 1024
+IMG_B, IMG_SIZE = 128, 224
 # Each flash row's kernels: the Hopper (bf16) and first (fp32) bodies,
 # and B3's delta pre-pass.
 FLASH_SYMBOLS = {"flash_fwd": ("flash_fwd_kernel", "flash_fwd_wgmma_kernel"),
@@ -55,9 +66,28 @@ CATEGORIES = (("decode attention", ("flash_decode_", "paged_decode_")),
               ("elementwise", ("elementwise", "copy", "fill")))
 
 
-def category(name: str) -> str:
+# ResNet-50's kernels by kind: cuDNN's convolutions by pass (their names
+# carry fprop, dgrad or wgrad), cuDNN's other kernels (layout and
+# reorder), GEMMs (the 1x1 convolutions that run as cuBLAS and CUTLASS
+# GEMMs, and the head), then reductions (BatchNorm's statistics and
+# their backward) and elementwise kernels (BatchNorm's normalization and
+# casts, the ReLUs and residual adds, and in the optimizer window the
+# momentum update), and the copies.
+IMAGE_CATEGORIES = (("conv forward", ("fprop",)),
+                    ("conv backward data", ("dgrad",)),
+                    ("conv backward weight", ("wgrad",)),
+                    ("cudnn other", ("cudnn", "nchwtonhwc", "nhwctonchw",
+                                     "conv")),
+                    ("memcpy htod", ("memcpy htod",)),
+                    ("matmul", ("gemm", "cutlass", "cublas", "xmma",
+                                "sm90_", "nvjet")),
+                    ("reduction", ("reduce", "welford", "norm", "softmax")),
+                    ("elementwise", ("elementwise", "copy", "fill")))
+
+
+def category(name: str, categories=CATEGORIES) -> str:
     low = name.lower()
-    for cat, keys in CATEGORIES:
+    for cat, keys in categories:
         if any(k in low for k in keys):
             return cat
     return "other"
@@ -68,10 +98,62 @@ def dev_us(e) -> float:
                    getattr(e, "self_cuda_time_total", 0.0))
 
 
+def profiled(fn, steps: int):
+    """Run ``fn()`` under torch.profiler -> (its CUDA events, wall s)."""
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    events = prof.key_averages()
+    return events, [e for e in events
+                    if e.device_type == torch.autograd.DeviceType.CUDA], wall
+
+
+def by_kind(kernels, steps: int, categories) -> dict:
+    out: dict = {}
+    for e in kernels:
+        c = category(e.key, categories)
+        out[c] = out.get(c, 0.0) + dev_us(e) / 1e3 / steps
+    return out
+
+
+def image_windows(trainer, batches, steps: int) -> dict:
+    """The forward and backward alone, then the optimizer alone, each over
+    ``steps`` steps of the trainer's own step function."""
+    step = trainer.step_fn
+    grads = []
+
+    def fwd_bwd():
+        for _ in range(steps):
+            grads.append(step.loss_and_grads(next(batches))[1])
+
+    def optimizer():
+        for g in grads:
+            step.apply_gradients(g)
+
+    out = {}
+    for name, fn in (("forward_backward", fwd_bwd),
+                     ("optimizer", optimizer)):
+        _, kernels, wall = profiled(fn, steps)
+        out[name] = {
+            "wall_ms_per_step": 1e3 * wall / steps,
+            "device_ms_per_step": sum(dev_us(e) for e in kernels)
+            / 1e3 / steps,
+            "launches_per_step": sum(e.count for e in kernels) / steps,
+            "device_ms_per_step_by_kind": by_kind(kernels, steps,
+                                                  IMAGE_CATEGORIES)}
+    return out
+
+
 def main() -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--out", default=None,
                    help="also write the full report as JSON here")
+    p.add_argument("--config", choices=["gpt2_124m", "resnet50_imagenet"],
+                   default="gpt2_124m")
     p.add_argument("--steps", type=int, default=5)
     p.add_argument("--top", type=int, default=15)
     p.add_argument("--ln-impl", choices=["xla", "pallas"], default="xla")
@@ -79,52 +161,48 @@ def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("needs a CUDA card")
     card = torch.cuda.get_device_name(0)
-    model = gpt2_for_preset("full", seed=0, device="cuda",
-                            fused_loss_chunk=-1, ln_impl=args.ln_impl)
-    trainer = Trainer(model, adamw(6e-4, weight_decay=0.1), lm_loss,
-                      log_every=0)
-    batches = synthetic_token_batches(B, seq_len=S, seed=0)
+    image = args.config == "resnet50_imagenet"
+    if image:
+        cfg = build_config(args.config, steps=2 + 3 * args.steps, seed=0,
+                           device="cuda")
+        trainer = Trainer(cfg.model, cfg.optimizer, cfg.loss_fn,
+                          log_every=0)
+        batches = cfg.batches(IMG_B)
+        examples, categories = IMG_B, IMAGE_CATEGORIES
+    else:
+        model = gpt2_for_preset("full", seed=0, device="cuda",
+                                fused_loss_chunk=-1, ln_impl=args.ln_impl)
+        trainer = Trainer(model, adamw(6e-4, weight_decay=0.1), lm_loss,
+                          log_every=0)
+        batches = synthetic_token_batches(B, seq_len=S, seed=0)
+        examples, categories = B * S, CATEGORIES
     trainer.fit(batches, 2)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     trainer.fit(batches, args.steps)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    acts = [torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        t1 = time.perf_counter()
-        trainer.fit(batches, args.steps)
-        torch.cuda.synchronize()
-        prof_wall = time.perf_counter() - t1
-    events = prof.key_averages()
-    kernels = [e for e in events
-               if e.device_type == torch.autograd.DeviceType.CUDA]
+    events, kernels, prof_wall = profiled(
+        lambda: trainer.fit(batches, args.steps), args.steps)
     busy_us = sum(dev_us(e) for e in kernels)
-    flash = {name: sum(dev_us(e) for e in kernels
-                       if any(sym in e.key for sym in syms))
-             / 1e3 / args.steps for name, syms in FLASH_SYMBOLS.items()}
-    flash["total"] = sum(flash.values())
-    by_cat: dict = {}
-    for e in kernels:
-        c = category(e.key)
-        by_cat[c] = by_cat.get(c, 0.0) + dev_us(e) / 1e3 / args.steps
     by_dev = sorted(kernels, key=dev_us, reverse=True)[:args.top]
     by_cpu = sorted(events, key=lambda e: e.self_cpu_time_total,
                     reverse=True)[:args.top]
     report = {
         "card": card,
-        "ln_impl": args.ln_impl,
+        "config": args.config,
         "steps": args.steps,
         "ms_per_step": 1e3 * wall / args.steps,
-        "tokens_per_s": B * S * args.steps / wall,
+        ("images_per_s" if image else "tokens_per_s"):
+            examples * args.steps / wall,
         "profiled_ms_per_step": 1e3 * prof_wall / args.steps,
         "device_busy_ms_per_step": busy_us / 1e3 / args.steps,
         "device_idle_share_profiled": 1.0 - busy_us / 1e6 / prof_wall,
         "device_idle_share_unprofiled_est": 1.0 - busy_us / 1e6 / wall,
-        "flash_ms_per_step": flash,
-        "device_ms_per_step_by_kind": by_cat,
-        "kernels": [{"kind": category(e.key), "name": e.key[:160],
+        "device_ms_per_step_by_kind": by_kind(kernels, args.steps,
+                                              categories),
+        "kernels": [{"kind": category(e.key, categories),
+                     "name": e.key[:160],
                      "device_ms_per_step": dev_us(e) / 1e3 / args.steps,
                      "calls_per_step": e.count / args.steps}
                     for e in sorted(kernels, key=dev_us, reverse=True)],
@@ -136,12 +214,21 @@ def main() -> int:
                           "cpu_ms": e.self_cpu_time_total / 1e3,
                           "calls": e.count} for e in by_cpu],
     }
+    if image:
+        report["windows"] = image_windows(trainer, batches, args.steps)
+    else:
+        report["ln_impl"] = args.ln_impl
+        flash = {name: sum(dev_us(e) for e in kernels
+                           if any(sym in e.key for sym in syms))
+                 / 1e3 / args.steps for name, syms in FLASH_SYMBOLS.items()}
+        flash["total"] = sum(flash.values())
+        report["flash_ms_per_step"] = flash
     if args.out:
         os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)
         with open(args.out, "w") as f:
             json.dump(report, f, indent=1)
     print(json.dumps({k: v for k, v in report.items()
-                      if not k.startswith("top_")}))
+                      if not k.startswith("top_") and k != "kernels"}))
     for e in report["top_device"]:
         print(f"dev {e['device_ms']:9.3f} ms {e['calls']:6d}x {e['name']}")
     for e in report["top_cpu_self"]:
