@@ -27,7 +27,9 @@ Phases, each fatal on failure (non-zero exit, no result line):
    serving rows at H=12 and at H=3 (a shard of the 4-way mesh), with its
    split size and the grid its library recorded at the launch;
    The three flash-attention training kernels are held the same way in
-   bf16 at GPT-2's training shape (B=8, H=12, S=1024, D=64, causal) and
+   bf16 at GPT-2's training shape (B=8, H=12, S=1024, D=64, causal), at
+   BERT-base's (B=16, H=12, S=512, D=64, non-causal; also with the
+   right-padded lengths BERT_PAD_LENGTHS) and
    on a non-causal case, a ``kv_lengths`` case with a zero-length row,
    an odd S=100, D=128 at S=1024 with lengths [0, 700], D=40 at S=200,
    and S=130 at B*H=6 (lse and delta rows at odd multiples of 4 bytes):
@@ -37,7 +39,9 @@ Phases, each fatal on failure (non-zero exit, no result line):
    sum |dO * O| of its plain version, padded keys' dk/dv exactly zero,
    and two backward runs bitwise equal. B2 is timed alone on the
    pre-pass's delta, B3 with the pre-pass, and the whole backward beside
-   SDPA's. Yardstick: SDPA's forward, and its backward alone
+   SDPA's, at GPT-2's shape and at BERT's (each flash row's ``bert``).
+   Yardstick: SDPA's forward (causal or not, as the case), and its
+   backward alone
    (``torch.autograd.grad`` of a forward run outside the timer). Each
    flash row carries the SASS counts (``cuobjdump``) of ``HGMMA`` and
    ``UTMALDG`` in its kernels' instantiations; every instantiation of the
@@ -93,6 +97,23 @@ Phases, each fatal on failure (non-zero exit, no result line):
    10 timed steps with ``ln_impl="pallas"``, each LayerNorm kernel (the
    forward, the backward and its sums) launched exactly 25 times per step
    (2 per block + ``ln_f``);
+4a. train_bert: BERT-base at full width (``bert_base_zero1``: bf16, the
+   fused MLM head, vocab 30522, 12 x 768, 12 heads, seeded random
+   weights), B=16, S=512, ``synthetic_mlm_batches``: (a) one step's MLM
+   loss, gradients and updated weights with flash attention (non-causal)
+   against the same step with composed attention, from the same weights
+   and batch, under BERT_LOSS_ATOL and BERT_GRAD_RTOL (AdamW at lr 1e-4,
+   weight decay 0.01); (b) the same on the batch right-padded to
+   BERT_PAD_LENGTHS (``kv_lengths``; labels -100 past each length; the
+   composed path builds its prefix mask from the lengths); (c) the loss
+   on one fixed batch at a constant lr falls by at least BERT_LOSS_DROP
+   over 10 steps; (d) 10 steps through ``Trainer.fit`` after 2 warm-up
+   steps with the config's optimizer: ms per step, tokens/s, MFU
+   (``bench.py``'s ``(6 N + 6 L H S) B S`` over 989 TFLOP/s), peak
+   memory, then 3 profiled steps for the device-busy share; each flash
+   kernel and the delta pre-pass exactly 12 times a step; (e) the
+   config's eval split (8 batches of seed 1) through ``train.evaluate``
+   with ``mlm_token_stats``: a finite perplexity;
 4b. train_image: ResNet-50 at full width (``resnet50_imagenet``: s2d
    stem, bf16, 1000 classes, seeded random weights) on
    ``synthetic_image_batches`` at 224 px: (a) one step at batch
@@ -111,10 +132,18 @@ Phases, each fatal on failure (non-zero exit, no result line):
    schedule): ms per step (host clock, ended by a sync), images/s and
    MFU (``bench.py``'s 3 x 8.2 GFLOP an image over 989 TFLOP/s), then 3
    steps under ``torch.profiler`` for the device-busy share; no kernel
-   of the port launches on this path; (d) ``mlp_mnist`` for MLP_STEPS
-   steps and its top-1 accuracy on the synthetic test split
+   of the port launches on this path; (d) ``wrn101_large_batch``
+   (Wide-ResNet-101-2, s2d stem, bf16, the config's momentum schedule)
+   the same way at WRN_B images, 5 timed steps: ms per step, images/s,
+   MFU at 3 x 45.6 GFLOP an image (``bench.py``), peak memory, a finite
+   loss and no kernel of the port launched; (e) ``mlp_mnist`` for
+   MLP_STEPS steps and its top-1 accuracy on the synthetic test split
    (``train.evaluate``), at least MLP_MIN_ACCURACY. Prints its wall
    seconds;
+4c. train_cli: the train CLI on the card, ``--config bert_base_zero1
+   --steps 20 --eval-batches 2 --eval`` (a finite loss and eval
+   perplexity over 2 batches) and ``--config wrn101_large_batch
+   --batch-size 64 --steps 5`` (a finite loss), each exiting 0;
 5. serve: GPT-2 124M at full width, seeded random weights, bf16, eight
    greedy requests through ``Scheduler`` (prompts of 5-900 tokens, some
    prefilled in chunks, two sharing a 128-token prefix); requires every
@@ -153,7 +182,8 @@ Phases, each fatal on failure (non-zero exit, no result line):
    it); then one sampled call (temperature 0.8, top-k 40, top-p 0.95)
    whose every token lies in its step's top 40.
 
-The line before the last is ``{"kernels": [...]}``; the last line is
+Each phase prints its wall seconds (``{"phase_wall_s": ...}``). The
+line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``. The script imports nothing of JAX.
 """
 
@@ -215,6 +245,37 @@ TRAIN_GRAD_RTOL = 0.03
 # this far below the first step's.
 LOSS_DROP = 0.5
 TRAIN_B, TRAIN_S, TRAIN_LR = 8, 1024, 6e-4
+# BERT-base (bert_base_zero1 at full width: bf16, the fused MLM head),
+# flash attention (non-causal) against composed, both bf16 on the card,
+# one AdamW step (the config's lr 1e-4 and weight decay 0.01) from the
+# same weights, on a full-length batch and on a right-padded one
+# (BERT_PAD_LENGTHS, labels -100 past each length). The mechanism is
+# GPT-2's above (the composed path rounds the scores to bf16), over 12
+# post-LN layers. tools/grad_spread.py --config bert_base_zero1 read,
+# over six seeds and both batches on the H100 (PERF.md):
+# - loss: at most 5.7e-4 of ~10.47 nats; the limit is 2.5 times that;
+# - gradients: at most 0.0173 of a tensor's norm (the median tensor
+#   0.013-0.015: every tensor carries the rounding); the limit is 2
+#   times that, since at 2.5 times (0.043) the tool's scores_fp8
+#   control (the composed scores rounded to float8 e4m3, 0.0424) would
+#   pass. Its lengths_plus_one control (one padded key attended, 0.0193)
+#   stays under it: an off-by-one length is the kernels phase's to
+#   catch (padded keys' dk/dv exactly zero, outputs within bound).
+BERT_LOSS_ATOL = 0.0014
+BERT_GRAD_RTOL = 0.035
+BERT_B, BERT_S, BERT_LR, BERT_WD = 16, 512, 1e-4, 0.01
+# One length a row: full, tile boundaries (64, 128, 256) and one past
+# them, a row of one key, and a zero-length row (clamped to 1).
+BERT_PAD_LENGTHS = [512, 300, 1, 0, 511, 257, 256, 128, 64, 65, 500, 200,
+                    100, 450, 350, 2]
+# The fixed-batch MLM loss after 10 AdamW steps at lr 1e-4 must sit at
+# least this far below the first step's (it fell 2.30 on the H100,
+# PERF.md).
+BERT_LOSS_DROP = 1.0
+# Wide-ResNet-101-2 (wrn101_large_batch), timed at bench.py's batch of
+# 64 (the config's 512 does not fit one 80 GB card; 256 does).
+WRN_B = 64
+WRN_FLOPS_PER_IMAGE = 3 * 45.6e9   # bench.py:334, fwd + bwd at 224 px
 # The LayerNorm-kernel step against the xla-LayerNorm step is held to the
 # same TRAIN_* tolerances: both paths compute the statistics in fp32 from
 # the same bf16 input and round the output (and dx) to bf16 once, so they
@@ -265,8 +326,19 @@ def fail(msg: str) -> None:
     raise SystemExit(1)
 
 
-def phase(name: str) -> None:
-    print(f"== {name}", flush=True)
+_PHASE = {}   # the running phase's name and start (host clock)
+
+
+def phase(name=None) -> None:
+    """Start phase ``name`` (None: only end the running one), printing
+    the wall seconds of the phase it ends."""
+    if _PHASE:
+        print(json.dumps({"phase_wall_s": {
+            _PHASE["name"]: time.perf_counter() - _PHASE["t0"]}}),
+            flush=True)
+    if name is not None:
+        print(f"== {name}", flush=True)
+        _PHASE.update(name=name, t0=time.perf_counter())
 
 
 # The device timer. A kernel's time is taken on the device, not across
@@ -1219,36 +1291,39 @@ def flash_case(g, b, s, causal, lengths=None, timed=False, d=D, h=H):
         return res
     lens_c = _lengths(lens, q, s)
     scale = 1.0 / d ** 0.5
+    at = "" if (b, s, causal) == (TRAIN_B, TRAIN_S, True) else \
+        f" B={b} S={s} causal={causal}"     # the timer's row labels
     # B2 alone on the pre-pass's delta; B3 with the pre-pass, which its
     # row carries; then the whole backward (pre-pass, dq, dK/dV).
     timing = {
         "flash_fwd": device_time(
-            "flash_fwd",
+            "flash_fwd" + at,
             lambda: flash_block_fwd(q, k, v, causal, kv_lengths=lens), 20),
         "flash_bwd_dq": device_time(
-            "flash_bwd_dq", lambda: _dq_launch(q, k, v, want_lse, do, delta,
-                                               lens_c, causal, scale), 20),
+            "flash_bwd_dq" + at, lambda: _dq_launch(
+                q, k, v, want_lse, do, delta, lens_c, causal, scale), 20),
         "flash_bwd_dkv": device_time(
-            "flash_bwd_dkv", lambda: _dkv_launch(
+            "flash_bwd_dkv" + at, lambda: _dkv_launch(
                 q, k, v, want_lse, do, _delta_launch(want, do), lens_c,
                 causal, scale), 20)}
-    whole = device_time("flash_bwd",
+    whole = device_time("flash_bwd" + at,
                         lambda: flash_block_bwd(*bwd_args, kv_lengths=lens),
                         20)
     plain_fwd_ms = plain_time_ms(
         lambda: flash_block_fwd_plain(q, k, v, causal, kv_lengths=lens), 3)
     plain_bwd_ms = plain_time_ms(
         lambda: flash_block_bwd_plain(*bwd_args, kv_lengths=lens), 3)
-    # Yardsticks: SDPA's forward (causal, no lengths), and its backward
-    # alone: the forward runs once outside the timer on the same pinned
-    # backend, then only torch.autograd.grad is timed.
+    # Yardsticks: SDPA's forward (causal as the case, no lengths), and its
+    # backward alone: the forward runs once outside the timer on the same
+    # pinned backend, then only torch.autograd.grad is timed.
     qg, kg, vg = (t.detach().requires_grad_() for t in (q, k, v))
     sdpa, backend = sdpa_yardstick(qg, kg, vg, is_causal=causal)
-    library = {"flash_fwd": library_time("flash_fwd", sdpa, 20, backend)}
+    library = {"flash_fwd": library_time("flash_fwd" + at, sdpa, 20,
+                                         backend)}
     out_g = sdpa()
     sdpa_bwd = library_time(
-        "flash_bwd", lambda: torch.autograd.grad(out_g, (qg, kg, vg), do,
-                                                 retain_graph=True), 20,
+        "flash_bwd" + at, lambda: torch.autograd.grad(
+            out_g, (qg, kg, vg), do, retain_graph=True), 20,
         f"{backend} backward")
     library["flash_bwd_dq"] = library["flash_bwd_dkv"] = sdpa_bwd
     pairs = attended_pairs(s, causal, lengths or [s] * b) * h
@@ -1352,11 +1427,13 @@ def flash_sass():
 
 
 def check_flash(g):
-    """The flash kernels on seven cases; the kernels line reports the
-    training shape's times, the worst error over all cases and each
-    row's SASS counts."""
+    """The flash kernels on nine cases; the kernels line reports the
+    training shape's times, BERT's non-causal shape's times (``bert``),
+    the worst error over all cases and each row's SASS counts."""
     main = flash_case(g, TRAIN_B, TRAIN_S, True, timed=True)
-    cases = [main,
+    bert = flash_case(g, BERT_B, BERT_S, False, timed=True)
+    cases = [main, bert,
+             flash_case(g, BERT_B, BERT_S, False, lengths=BERT_PAD_LENGTHS),
              flash_case(g, 4, TRAIN_S, False),
              flash_case(g, 4, TRAIN_S, True, lengths=[0, 1, 517, TRAIN_S]),
              flash_case(g, TRAIN_B, 100, True),
@@ -1367,9 +1444,12 @@ def check_flash(g):
         {k: v for k, v in c.items() if k not in ("timing", "whole_backward")}
         for c in cases]}), flush=True)
     whole = main["whole_backward"]
+    bert_shape = f"B={BERT_B} H={H} S={BERT_S} D={D} non-causal"
     print(json.dumps({"flash_backward": {
         "shape": f"B={TRAIN_B} H={H} S={TRAIN_S} D={D} causal", **whole}}),
         flush=True)
+    print(json.dumps({"flash_backward": {
+        "shape": bert_shape, **bert["whole_backward"]}}), flush=True)
     sass = flash_sass()
     out = []
     for name, (source, replaces) in FLASH_SOURCES.items():
@@ -1380,6 +1460,9 @@ def check_flash(g):
                     "err_over_tolerance": max(c[name][1] for c in cases),
                     **t,
                     "shape": f"B={TRAIN_B} H={H} S={TRAIN_S} D={D} causal",
+                    "bert": {**bert["timing"][name], "shape": bert_shape,
+                             "whole_backward_ms":
+                                 bert["whole_backward"]["ms"]},
                     "sass": {k: c for k, c in sass.items()
                              if k.startswith(FLASH_SASS[name])}})
         if name != "flash_fwd":
@@ -1620,58 +1703,68 @@ def check_layer_norm(g):
     return [fwd, bwd]
 
 
-def compare_steps(what: str, model, ref, batch) -> dict:
-    """One AdamW step of ``model`` against the same step of ``ref`` from
-    the same weights and batch: the loss within TRAIN_LOSS_ATOL, each
-    gradient within TRAIN_GRAD_RTOL of its norm, the weights after the
+def compare_steps(what: str, model, ref, batch, loss_fn=None,
+                  lr: float = TRAIN_LR, weight_decay: float = 0.1,
+                  loss_atol: float = TRAIN_LOSS_ATOL,
+                  grad_rtol: float = TRAIN_GRAD_RTOL) -> dict:
+    """One AdamW step (constant ``lr``) of ``model`` against the same
+    step of ``ref`` from the same weights and batch: the loss
+    (``loss_fn``, GPT-2's ``lm_loss`` when None) within ``loss_atol``,
+    each gradient within ``grad_rtol`` of its norm, the weights after the
     step within 2 * lr. Both models are updated."""
     from nezha_tpu_torch.models.gpt2 import lm_loss
     from nezha_tpu_torch.optim import adamw
     from nezha_tpu_torch.train import make_train_step
 
-    steps = [make_train_step(m, adamw(TRAIN_LR, weight_decay=0.1), lm_loss)
-             for m in (model, ref)]
+    steps = [make_train_step(m, adamw(lr, weight_decay=weight_decay),
+                             loss_fn or lm_loss) for m in (model, ref)]
     loss, grads = steps[0].loss_and_grads(batch)
     loss_r, grads_r = steps[1].loss_and_grads(batch)
     loss_err = abs(loss.item() - loss_r.item())
-    if not math.isfinite(loss.item()) or loss_err > TRAIN_LOSS_ATOL:
+    if not math.isfinite(loss.item()) or loss_err > loss_atol:
         fail(f"train {what}: loss {loss.item()} vs reference "
-             f"{loss_r.item()} (tolerance {TRAIN_LOSS_ATOL})")
-    worst_grad = 0.0
+             f"{loss_r.item()} (tolerance {loss_atol})")
+    worst_grad, worst_name = 0.0, None
     for name, g in grads.items():
         gr = grads_r[name]
         rel = ((g - gr).norm() / gr.norm().clamp_min(1e-30)).item()
-        worst_grad = max(worst_grad, rel)
-        if not rel <= TRAIN_GRAD_RTOL:
+        if rel >= worst_grad:
+            worst_grad, worst_name = rel, name
+        if not rel <= grad_rtol:
             fail(f"train {what}: gradient of {name} differs by {rel} of its "
-                 f"norm (tolerance {TRAIN_GRAD_RTOL})")
+                 f"norm (tolerance {grad_rtol})")
     del grads, grads_r
     for st in steps:
         st(batch)
     worst_w = max((pa - pb).abs().max().item() for pa, pb in zip(
         steps[0].params.values(), steps[1].params.values()))
-    if not worst_w <= 2 * TRAIN_LR + 1e-6:
+    if not worst_w <= 2 * lr + 1e-6:
         fail(f"train {what}: weights after one step differ by {worst_w} > "
              f"2 * lr")
     return {"loss": loss.item(), "loss_reference": loss_r.item(),
-            "loss_err": loss_err, "max_grad_rel_err": worst_grad,
-            "max_weight_err_after_step": worst_w}
+            "loss_err": loss_err, "loss_atol": loss_atol,
+            "max_grad_rel_err": worst_grad, "worst_param": worst_name,
+            "grad_rtol": grad_rtol, "max_weight_err_after_step": worst_w}
 
 
-def timed_fit(model, batches, n_steps: int, counters, per_step, card: str):
+def timed_fit(model, batches, n_steps: int, counters, per_step, card: str,
+              loss_fn=None, optimizer=None, b: int = TRAIN_B,
+              s: int = TRAIN_S):
     """2 warm-up steps, then ``n_steps`` through ``Trainer.fit`` on the
     host clock (ended by a device sync), every count in ``counters`` set
     to 0 just before; each kernel in ``per_step`` must launch exactly
     that many times per step, the LayerNorm forward on the step's rows.
-    -> (stats, launches)."""
+    ``loss_fn`` and ``optimizer`` default to GPT-2's ``lm_loss`` and
+    AdamW (lr TRAIN_LR, weight decay 0.1); the batches are ``b`` rows of
+    ``s`` tokens. MFU counts ``bench.py``'s step flops, ``(6 N + 6 L H
+    S) B S``. -> (stats, launches, the trainer)."""
     from nezha_tpu_torch.models.gpt2 import lm_loss
     from nezha_tpu_torch.ops.cuda.layer_norm import FWD_LAUNCHES_BY_ROWS
     from nezha_tpu_torch.optim import adamw
     from nezha_tpu_torch.train import Trainer
 
-    b, s = TRAIN_B, TRAIN_S
-    trainer = Trainer(model, adamw(TRAIN_LR, weight_decay=0.1), lm_loss,
-                      log_every=0)
+    trainer = Trainer(model, optimizer or adamw(TRAIN_LR, weight_decay=0.1),
+                      loss_fn or lm_loss, log_every=0)
     trainer.fit(batches, 2)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -1706,7 +1799,7 @@ def timed_fit(model, batches, n_steps: int, counters, per_step, card: str):
             "last_loss": last["loss"],
             "peak_mem_gb": torch.cuda.max_memory_allocated() / 2 ** 30,
             "launches": launches, "layer_norm_fwd_by_rows": ln_rows,
-            "card": card}, launches
+            "card": card}, launches, trainer
 
 
 def train(card: str):
@@ -1758,13 +1851,13 @@ def train(card: str):
     del step
 
     # (c) + (d): the main path, Trainer.fit over the synthetic stream.
-    stats, launches = timed_fit(model, batches, 10, [LAUNCHES],
-                                {n: layers for n in LAUNCHES}, card)
+    stats, launches, _ = timed_fit(model, batches, 10, [LAUNCHES],
+                                   {n: layers for n in LAUNCHES}, card)
     print(json.dumps({"train": stats}), flush=True)
     del model
     torch.cuda.empty_cache()
     # (f) the same run with the LayerNorm kernels.
-    ln_stats, ln_launches = timed_fit(
+    ln_stats, ln_launches, _ = timed_fit(
         fresh(ln_impl="pallas"), batches, 10, [LAUNCHES, LN_LAUNCHES],
         {**{n: layers for n in LAUNCHES},
          **{n: 2 * layers + 1 for n in LN_LAUNCHES}}, card)
@@ -1775,6 +1868,97 @@ def train(card: str):
     torch.cuda.empty_cache()
     return ({"train": launches, "train_ln": ln_launches},
             {"train_ln": ln_stats["layer_norm_fwd_by_rows"]})
+
+
+def bert_models(**kw):
+    """BERT-base as ``bert_base_zero1`` builds it (bf16, the fused MLM
+    head, seed 0) with ``kw`` overriding its config, on the card."""
+    from nezha_tpu_torch.models.bert import bert_base
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    return bert_base(fused_loss_chunk=-1, generator=gen, **kw)
+
+
+def right_padded(batch: dict, lengths) -> dict:
+    """``batch`` with ``kv_lengths`` and its labels -100 past each row's
+    length."""
+    import numpy as np
+
+    lens = np.asarray(lengths, np.int32)
+    past = np.arange(batch["labels"].shape[1])[None, :] >= lens[:, None]
+    return {**batch, "labels": np.where(past, -100, batch["labels"]),
+            "kv_lengths": lens}
+
+
+def train_bert(card: str):
+    """Phase 4a (see the module docstring). -> (flash launches of the
+    timed run, its summary)."""
+    from nezha_tpu_torch.cli.train import build_config
+    from nezha_tpu_torch.models.bert import mlm_loss
+    from nezha_tpu_torch.ops.cuda.flash_attention import LAUNCHES
+    from nezha_tpu_torch.optim import adamw
+    from nezha_tpu_torch.train import evaluate, make_train_step
+
+    check = dict(loss_fn=mlm_loss, lr=BERT_LR, weight_decay=BERT_WD,
+                 loss_atol=BERT_LOSS_ATOL, grad_rtol=BERT_GRAD_RTOL)
+    cfg = build_config("bert_base_zero1", steps=12, seed=0, device="cuda")
+    layers = cfg.model.cfg.num_layers
+    batches = cfg.batches(BERT_B)
+    batch = next(batches)
+    # (a) and (b): one step, flash against composed, same weights; the
+    # full-length batch, then the right-padded one.
+    for tag, b in (("full", batch),
+                   ("right_padded", right_padded(batch, BERT_PAD_LENGTHS))):
+        model, ref = bert_models(), bert_models(attn_impl="xla")
+        ref.load_state_dict(model.state_dict())
+        before = LAUNCHES["flash_fwd"]
+        res = compare_steps(f"bert {tag} flash vs composed", model, ref, b,
+                            **check)
+        if LAUNCHES["flash_fwd"] - before != 2 * layers:
+            fail(f"train_bert: the {tag} check ran "
+                 f"{LAUNCHES['flash_fwd'] - before} flash forwards, not "
+                 f"{2 * layers}")
+        print(json.dumps({f"bert_vs_composed_{tag}": res}), flush=True)
+        del model, ref
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    # (c) the loss on one fixed batch falls at a constant lr.
+    model = bert_models()
+    step = make_train_step(model, adamw(BERT_LR, weight_decay=BERT_WD),
+                           mlm_loss)
+    losses = [step(batch)["loss"].item() for _ in range(10)]
+    if not (all(map(math.isfinite, losses))
+            and losses[-1] <= losses[0] - BERT_LOSS_DROP):
+        fail(f"train_bert: fixed-batch loss did not fall by "
+             f"{BERT_LOSS_DROP}: {losses}")
+    print(json.dumps({"bert_fixed_batch_losses": losses}), flush=True)
+    del step, model
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (d) the main path: Trainer.fit with the config's model, optimizer
+    # and batches; (e) its eval split on the trained weights.
+    stats, launches, trainer = timed_fit(
+        cfg.model, batches, 10, [LAUNCHES], {n: layers for n in LAUNCHES},
+        card, loss_fn=cfg.loss_fn, optimizer=cfg.optimizer, b=BERT_B,
+        s=BERT_S)
+    stats.update(config="bert_base_zero1", policy="bf16",
+                 **profiled_busy_share(trainer, batches, 3))
+    print(json.dumps({"train_bert": stats}), flush=True)
+    result = evaluate(cfg.model, cfg.eval_batches(BERT_B), cfg.eval_stat)
+    if not (math.isfinite(result["perplexity"]) and result["count"] > 0):
+        fail(f"train_bert: eval {result}")
+    print(json.dumps({"bert_eval": result}), flush=True)
+    del trainer, cfg
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches, {"tokens_per_s": stats["tokens_per_s"],
+                      "ms_per_step": stats["ms_per_step"],
+                      "mfu": stats["mfu"],
+                      "device_busy_share": stats["device_busy_share"],
+                      "peak_mem_gb": stats["peak_mem_gb"],
+                      "eval_perplexity": result["perplexity"]}
 
 
 def image_check_models(seed: int = 0):
@@ -1937,12 +2121,65 @@ def profiled_busy_share(trainer, batches, steps: int) -> dict:
             "htod_copy_ms_per_step": copy_us / 1e3 / steps}
 
 
+def timed_image_fit(name: str, batch: int, n_steps: int,
+                    flops_per_image: float, card: str,
+                    busy_steps: int = 0) -> dict:
+    """Config ``name`` (its model, optimizer and batches) through
+    ``Trainer.fit`` at ``batch`` images of IMG_SIZE px: 2 warm-up steps,
+    then ``n_steps`` on the host clock ended by a sync, with the port's
+    kernel counts set to 0 just before (none may launch); then
+    ``busy_steps`` under the profiler. -> its stats."""
+    from nezha_tpu_torch.cli.train import build_config
+    from nezha_tpu_torch.ops.cuda.flash_attention import LAUNCHES
+    from nezha_tpu_torch.ops.cuda.layer_norm import LAUNCHES as LN_LAUNCHES
+    from nezha_tpu_torch.train import Trainer
+
+    warmup = 2
+    cfg = build_config(name, steps=warmup + n_steps + busy_steps, seed=0,
+                       device="cuda")
+    trainer = Trainer(cfg.model, cfg.optimizer, cfg.loss_fn, log_every=0,
+                      examples_per_step=batch)
+    batches = cfg.batches(batch)
+    trainer.fit(batches, warmup)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for counts in (LAUNCHES, LN_LAUNCHES):
+        for k in counts:
+            counts[k] = 0
+    t0 = time.perf_counter()
+    last = trainer.fit(batches, n_steps)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launched = {k: n for counts in (LAUNCHES, LN_LAUNCHES)
+                for k, n in counts.items() if n}
+    if launched:
+        fail(f"train_image: the port's kernels launched on the {name} "
+             f"path: {launched}")
+    if not math.isfinite(last["loss"]):
+        fail(f"train_image: {name} loss {last['loss']}")
+    step_flops = flops_per_image * (IMG_SIZE / 224) ** 2 * batch
+    stats = {"config": name, "B": batch, "image_size": IMG_SIZE,
+             "stem": "s2d", "policy": "bf16", "steps": n_steps,
+             "ms_per_step": wall / n_steps * 1e3,
+             "images_per_s": batch * n_steps / wall,
+             "mfu": step_flops * n_steps / wall / BF16_FLOPS_PER_S,
+             "step_tflop": step_flops / 1e12,
+             "params": sum(p.numel() for p in cfg.model.parameters()),
+             "last_loss": last["loss"],
+             "peak_mem_gb": torch.cuda.max_memory_allocated() / 2 ** 30,
+             "card": card}
+    if busy_steps:
+        stats.update(profiled_busy_share(trainer, batches, busy_steps))
+    del trainer, cfg, batches
+    gc.collect()
+    torch.cuda.empty_cache()
+    return stats
+
+
 def train_image(card: str) -> dict:
     """Phase 4b (see the module docstring). -> its summary."""
     from nezha_tpu_torch.cli.train import build_config
     from nezha_tpu_torch.data import mnist_batches, synthetic_image_batches
-    from nezha_tpu_torch.ops.cuda.flash_attention import LAUNCHES
-    from nezha_tpu_torch.ops.cuda.layer_norm import LAUNCHES as LN_LAUNCHES
     from nezha_tpu_torch.optim import momentum
     from nezha_tpu_torch.train import Trainer, evaluate, make_train_step
 
@@ -1970,46 +2207,15 @@ def train_image(card: str) -> dict:
     torch.cuda.empty_cache()
 
     # (c) the main path: Trainer.fit at the config's shape and optimizer.
-    warmup, n_steps = 2, 10
-    cfg = build_config("resnet50_imagenet", steps=warmup + n_steps, seed=0,
-                       device="cuda")
-    trainer = Trainer(cfg.model, cfg.optimizer, cfg.loss_fn, log_every=0,
-                      examples_per_step=IMG_B)
-    batches = cfg.batches(IMG_B)
-    trainer.fit(batches, warmup)
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    for counts in (LAUNCHES, LN_LAUNCHES):
-        for name in counts:
-            counts[name] = 0
-    t0 = time.perf_counter()
-    last = trainer.fit(batches, n_steps)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launched = {name: n for counts in (LAUNCHES, LN_LAUNCHES)
-                for name, n in counts.items() if n}
-    if launched:
-        fail(f"train_image: the port's kernels launched on the image path: "
-             f"{launched}")
-    if not math.isfinite(last["loss"]):
-        fail(f"train_image: loss {last['loss']}")
-    step_flops = IMG_FLOPS_PER_IMAGE * (IMG_SIZE / 224) ** 2 * IMG_B
-    stats = {"B": IMG_B, "image_size": IMG_SIZE, "stem": "s2d",
-             "policy": "bf16", "steps": n_steps,
-             "ms_per_step": wall / n_steps * 1e3,
-             "images_per_s": IMG_B * n_steps / wall,
-             "mfu": step_flops * n_steps / wall / BF16_FLOPS_PER_S,
-             "step_tflop": step_flops / 1e12,
-             "params": sum(p.numel() for p in cfg.model.parameters()),
-             "last_loss": last["loss"],
-             "peak_mem_gb": torch.cuda.max_memory_allocated() / 2 ** 30,
-             **profiled_busy_share(trainer, batches, 3), "card": card}
+    stats = timed_image_fit("resnet50_imagenet", IMG_B, 10,
+                            IMG_FLOPS_PER_IMAGE, card, busy_steps=3)
     print(json.dumps({"train_image": stats}), flush=True)
-    del trainer, cfg, batches
-    gc.collect()
-    torch.cuda.empty_cache()
+    # (d) wrn101_large_batch the same way, at bench.py's batch.
+    wrn = timed_image_fit("wrn101_large_batch", WRN_B, 5,
+                          WRN_FLOPS_PER_IMAGE, card)
+    print(json.dumps({"train_image_wrn101": wrn}), flush=True)
 
-    # (d) mlp_mnist on the synthetic set (no MNIST files in the checkout).
+    # (e) mlp_mnist on the synthetic set (no MNIST files in the checkout).
     os.environ["NEZHA_DATA_DIR"] = os.path.join(
         os.path.dirname(os.path.abspath(__file__)), "build", "no_mnist")
     cfg = build_config("mlp_mnist", seed=0, device="cuda")
@@ -2030,9 +2236,52 @@ def train_image(card: str) -> dict:
                "images_per_s": stats["images_per_s"],
                "ms_per_step": stats["ms_per_step"], "mfu": stats["mfu"],
                "device_busy_share": stats["device_busy_share"],
+               "wrn101_images_per_s": wrn["images_per_s"],
+               "wrn101_ms_per_step": wrn["ms_per_step"],
+               "wrn101_mfu": wrn["mfu"],
+               "wrn101_peak_mem_gb": wrn["peak_mem_gb"],
                "mlp_accuracy": result["accuracy"]}
     print(json.dumps({"train_image_summary": summary}), flush=True)
     return summary
+
+
+def cli_run(*argv, timeout: int = 600) -> dict:
+    """``python -m nezha_tpu_torch.cli.train`` on the card with ``argv``
+    from the checkout's root: -> its final line, its wall seconds and
+    its stderr's eval line. Fails unless it exits 0 with a finite loss."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=root + os.pathsep
+               + os.environ.get("PYTHONPATH", ""))
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "nezha_tpu_torch.cli.train",
+                           *argv], capture_output=True, text=True,
+                          timeout=timeout, cwd=root, env=env)
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        fail(f"train CLI {' '.join(argv)}: rc {proc.returncode}: "
+             f"{proc.stderr[-2000:]}")
+    final = json.loads(proc.stdout.strip().splitlines()[-1])["final"]
+    if not math.isfinite(final.get("loss", math.nan)):
+        fail(f"train CLI {' '.join(argv)}: final {final}")
+    evals = [json.loads(line)["eval"] for line in proc.stderr.splitlines()
+             if line.startswith('{"eval"')]
+    return {"argv": list(argv), "wall_s": wall, "final": final,
+            "eval": evals[-1] if evals else None}
+
+
+def train_cli() -> dict:
+    """Phase 4c (see the module docstring). -> the two runs."""
+    bert = cli_run("--config", "bert_base_zero1", "--steps", "20",
+                   "--eval-batches", "2", "--eval")
+    if not (bert["eval"] and bert["eval"]["batches"] == 2
+            and math.isfinite(bert["final"].get("eval_perplexity",
+                                                math.nan))):
+        fail(f"train CLI bert_base_zero1: eval {bert}")
+    wrn = cli_run("--config", "wrn101_large_batch", "--batch-size",
+                  str(WRN_B), "--steps", "5")
+    out = {"bert_base_zero1": bert, "wrn101_large_batch": wrn}
+    print(json.dumps({"train_cli": out}), flush=True)
+    return out
 
 
 def serve_prompts(vocab: int):
@@ -2449,8 +2698,12 @@ def main() -> int:
             for label, ms, prof, flag in TIMED_ROWS if flag]}}), flush=True)
     phase("train")
     paths, ln_rows = train(card)
+    phase("train_bert")
+    paths["train_bert"], bert = train_bert(card)
     phase("train_image")
     image = train_image(card)
+    phase("train_cli")
+    train_cli()
     phase("serve")
     paths["serve"] = serve(card)
     paths["serve_int8"] = serve(card, "int8")
@@ -2485,9 +2738,16 @@ def main() -> int:
             if k["pre_pass_launches"] != k["launches"]:
                 fail(f"flash_bwd_delta launched {k['pre_pass_launches']} "
                      f"times for {k['launches']} dK/dV launches")
+    phase()
+    print(f"train_bert: {bert['tokens_per_s']:.1f} tokens/s, "
+          f"{bert['ms_per_step']:.2f} ms/step, MFU {bert['mfu']:.4f}, busy "
+          f"{bert['device_busy_share']:.3f} (BERT-base bf16, B={BERT_B}, "
+          f"S={BERT_S}) on {card_line}", flush=True)
     print(f"train_image: {image['images_per_s']:.1f} images/s, "
           f"{image['ms_per_step']:.2f} ms/step, MFU {image['mfu']:.4f} "
-          f"(ResNet-50 bf16, batch {IMG_B}, {IMG_SIZE} px) on {card_line}",
+          f"(ResNet-50 bf16, batch {IMG_B}, {IMG_SIZE} px); WRN-101-2 "
+          f"{image['wrn101_images_per_s']:.1f} images/s, MFU "
+          f"{image['wrn101_mfu']:.4f} (batch {WRN_B}) on {card_line}",
           flush=True)
     print(card_line, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -10,8 +10,11 @@ import torch
 from nezha_tpu_torch.models.gpt2 import GPT2, GPT2Config
 from nezha_tpu_torch.tensor.policy import bf16_policy, f32_policy
 
-# The tiny GPT-2 preset (nezha_tpu/cli/train.py TINY_GPT2_KW), fp32.
+# The tiny GPT-2 and BERT presets (nezha_tpu/cli/train.py TINY_GPT2_KW,
+# TINY_BERT_KW), fp32.
 TINY_GPT2_KW = dict(vocab_size=512, max_positions=96, num_layers=4,
+                    num_heads=4, hidden_size=64)
+TINY_BERT_KW = dict(vocab_size=512, max_positions=96, num_layers=2,
                     num_heads=4, hidden_size=64)
 
 

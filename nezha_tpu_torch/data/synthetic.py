@@ -1,5 +1,5 @@
-"""Synthetic GPT-2 token batches and ImageNet-shaped image batches
-(counterpart of ``nezha_tpu/data/synthetic.py``, numpy only).
+"""Synthetic GPT-2 token batches, BERT MLM batches and ImageNet-shaped
+image batches (counterpart of ``nezha_tpu/data/synthetic.py``, numpy only).
 
 The same seed draws the same arrays as the JAX package's generators (the
 same ``RandomState`` draws in the same order), so both packages train on
@@ -42,6 +42,35 @@ def synthetic_token_batches(batch_size: int, seq_len: int = 1024,
                                  size=(batch_size, seq_len + 1)
                                  ).astype(np.int32)}
             for _ in range(4)]
+    i = 0
+    while True:
+        yield pool[i % len(pool)]
+        i += 1
+
+
+def synthetic_mlm_batches(batch_size: int, seq_len: int = 512,
+                          vocab_size: int = 30522, mask_rate: float = 0.15,
+                          seed: int = 0,
+                          mask_token: int = 103) -> Iterator[dict]:
+    """BERT MLM batches ``{"tokens", "labels", "segment_ids"}``, each
+    ``[B, S]`` int32: about ``mask_rate`` of the positions hold
+    ``mask_token`` in ``tokens`` and the original token in ``labels``,
+    every other label is -100; ``segment_ids`` are zero. No
+    ``padding_mask``: the rows are full length, and a mask (all True)
+    would send the model to composed attention. A pool of four batches
+    drawn once, yielded in turn forever."""
+    r = np.random.RandomState(seed)
+    pool = []
+    for _ in range(4):
+        tokens = r.randint(0, vocab_size,
+                           size=(batch_size, seq_len)).astype(np.int32)
+        labels = np.full_like(tokens, -100)
+        mask = r.rand(batch_size, seq_len) < mask_rate
+        labels[mask] = tokens[mask]
+        tokens = tokens.copy()
+        tokens[mask] = mask_token
+        pool.append({"tokens": tokens, "labels": labels,
+                     "segment_ids": np.zeros_like(tokens)})
     i = 0
     while True:
         yield pool[i % len(pool)]

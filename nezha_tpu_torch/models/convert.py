@@ -7,7 +7,11 @@ and ``ln_f/{scale,bias}`` — and the MLP's — ``fc{i}/{w,b}``,
 ``head/{w,b}`` — have the layouts the port uses (``Linear.w`` is ``[in,
 out]``): :func:`params_from_jax` maps such a flat ``{path: array}`` dict
 onto the port's ``state_dict`` names, which is how both packages compute
-with the same weights. The ResNets' need more (:func:`resnet_from_jax`):
+with the same weights. BERT's (:func:`bert_from_jax`) are laid out the
+same way: ``tok_emb``/``pos_emb``/``type_emb/embedding``,
+``emb_ln/{scale,bias}``, ``layers{i}/{qkv,attn_out,fc,fc_out}/{w,b}``,
+``layers{i}/{attn_ln,out_ln}/{scale,bias}``, ``mlm_dense/{w,b}``,
+``mlm_ln/{scale,bias}`` and the top-level ``mlm_bias``. The ResNets' need more (:func:`resnet_from_jax`):
 a conv's ``w`` is HWIO in JAX and ``weight`` OIHW in the port, and the
 BatchNorm running statistics live in JAX's state tree and in the port's
 buffers ``mean`` and ``var``.
@@ -21,7 +25,7 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 import torch
 
-_LAYER = re.compile(r"^(h|blocks)(\d+)/")
+_LAYER = re.compile(r"^(h|blocks|layers)(\d+)/")
 _BN_STATE = ("mean", "var")
 
 
@@ -30,7 +34,7 @@ def _to_torch_name(path: str) -> str:
 
 
 def _to_jax_path(name: str) -> str:
-    return re.sub(r"^(h|blocks)\.(\d+)\.", r"\1\2.", name).replace(
+    return re.sub(r"^(h|blocks|layers)\.(\d+)\.", r"\1\2.", name).replace(
         ".", "/")
 
 
@@ -56,6 +60,20 @@ def params_to_jax(state_dict: Dict[str, torch.Tensor]
     """The inverse of :func:`params_from_jax`: a ``state_dict`` -> flat
     ``{path: fp32 array}`` keyed like the JAX parameter tree."""
     return {_to_jax_path(name): _array(t) for name, t in state_dict.items()}
+
+
+def bert_from_jax(flat: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
+    """A JAX BERT's flat params (``{"layers0/qkv/w": array, ...,
+    "mlm_bias": array}``) -> a ``state_dict`` for
+    :class:`nezha_tpu_torch.models.bert.Bert` (``layers.0.qkv.w``, ...,
+    ``mlm_bias``; fp32 CPU tensors)."""
+    return params_from_jax(flat)
+
+
+def bert_to_jax(state_dict: Dict[str, torch.Tensor]
+                ) -> Dict[str, np.ndarray]:
+    """The inverse of :func:`bert_from_jax`."""
+    return params_to_jax(state_dict)
 
 
 def resnet_from_jax(flat_params: Dict[str, np.ndarray],

@@ -31,6 +31,13 @@ def causal_mask(q_len: int, kv_len: int, device=None,
                                   device=device))
 
 
+def make_attention_mask(padding_mask: torch.Tensor) -> torch.Tensor:
+    """``[B, S]`` bool (True = a real token) -> ``[B, 1, 1, S]`` additive
+    fp32 mask: 0 where attendable, -inf at padding."""
+    m = torch.where(padding_mask.bool(), 0.0, float("-inf"))
+    return m.float()[:, None, None, :]
+
+
 def dot_product_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           mask: Optional[torch.Tensor] = None,
                           scale: Optional[float] = None) -> torch.Tensor:

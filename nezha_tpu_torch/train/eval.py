@@ -1,6 +1,6 @@
 """Evaluation: metric sums accumulated over a batch stream (counterpart
-of ``nezha_tpu/train/eval.py``'s ``accuracy``, ``make_eval_step`` and
-``evaluate``).
+of ``nezha_tpu/train/eval.py``'s ``accuracy``, ``lm_token_stats``,
+``mlm_token_stats``, ``make_eval_step`` and ``evaluate``).
 
 The model runs in ``eval()`` mode under ``torch.no_grad()``, so
 BatchNorm normalizes with its running statistics and nothing updates
@@ -13,8 +13,11 @@ from __future__ import annotations
 
 from typing import Callable, Dict, Iterator, Optional
 
+import math
+
 import torch
 
+from nezha_tpu_torch.ops.losses import lm_ce_from_fused
 from nezha_tpu_torch.train.loop import batch_to_device
 
 EvalStep = Callable[[dict, Optional[Dict[str, torch.Tensor]]],
@@ -26,6 +29,36 @@ def accuracy(logits: torch.Tensor, batch: dict) -> Dict[str, torch.Tensor]:
     pred = logits.argmax(dim=-1)
     return {"correct": (pred == batch["label"]).sum(),
             "count": torch.tensor(pred.numel(), device=pred.device)}
+
+
+def lm_token_stats(out, batch: dict) -> Dict[str, torch.Tensor]:
+    """Next-token NLL summed over ``{"tokens": [B, S + 1]}``, and the
+    count of targets (-> perplexity). ``out``: dense logits or the
+    fused-head dict."""
+    targets = batch["tokens"][:, 1:].long()
+    count = torch.tensor(targets.numel(), device=targets.device)
+    if isinstance(out, dict):
+        return {"nll_sum": lm_ce_from_fused(out, targets) * count,
+                "count": count}
+    logp = torch.log_softmax(out.float(), dim=-1)
+    nll = -logp.gather(-1, targets[..., None])
+    return {"nll_sum": nll.sum(), "count": count}
+
+
+def mlm_token_stats(out, batch: dict) -> Dict[str, torch.Tensor]:
+    """Masked-LM NLL summed over the predicted positions (labels not
+    -100), and their count (-> masked perplexity). ``out``: dense logits
+    (the model's eval-mode output) or the fused-head dict."""
+    labels = batch["labels"].long()
+    valid = labels != -100
+    count = valid.sum()
+    if isinstance(out, dict):
+        mean_nll = lm_ce_from_fused(out, labels, ignore_index=-100)
+        return {"nll_sum": mean_nll * count, "count": count}
+    logp = torch.log_softmax(out.float(), dim=-1)
+    safe = torch.where(valid, labels, 0)
+    nll = -logp.gather(-1, safe[..., None])[..., 0]
+    return {"nll_sum": torch.where(valid, nll, 0.0).sum(), "count": count}
 
 
 def make_eval_step(model: torch.nn.Module, stat_fn: Callable) -> EvalStep:
@@ -59,7 +92,8 @@ def evaluate(model: torch.nn.Module, batches: Iterator[dict],
              max_batches: Optional[int] = None) -> Dict[str, float]:
     """Run the model over ``batches`` (at most ``max_batches``) and read
     the sums: -> the sums as floats, ``accuracy`` when ``stat_fn`` gives
-    ``correct`` and ``count``, and ``batches``."""
+    ``correct`` and ``count``, ``perplexity`` when it gives ``nll_sum``
+    and ``count``, and ``batches``."""
     step = make_eval_step(model, stat_fn)
     acc = None
     n = 0
@@ -73,5 +107,7 @@ def evaluate(model: torch.nn.Module, batches: Iterator[dict],
     out = {k: float(v) for k, v in acc.items()}
     if "correct" in out and out.get("count"):
         out["accuracy"] = out["correct"] / out["count"]
+    if "nll_sum" in out and out.get("count"):
+        out["perplexity"] = math.exp(out["nll_sum"] / out["count"])
     out["batches"] = n
     return out

@@ -187,8 +187,37 @@ def test_tile_walk_lets_through_exactly_the_valid_pairs(kernel, dtype,
         _check_walk(plan, kernel, causal, s)
 
 
-def _check_walk(plan, kernel, causal, s):
-    for n in LENGTHS:
+# BERT-base's training shape (B=16, H=12, S=512, D=64, non-causal; the
+# walk is the same for every (b, h) of a length) and the right-padded
+# lengths of chip_smoke.py's train_bert check, one a row.
+BERT_S = 512
+BERT_LENGTHS = (512, 300, 1, 0, 511, 257, 256, 128, 64, 65, 500, 200, 100,
+                450, 350, 2)
+
+
+@pytest.mark.parametrize("kernel", sorted(PLANS))
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+def test_bert_shape_walks_non_causal(kernel, dtype):
+    """At BERT's shape every plan launches its row tiles in order, and
+    for each row's length the walk lets through exactly the valid pairs;
+    dK/dV's key groups below the length each fold every query tile, from
+    query 0."""
+    plan = PLANS[kernel](64, DTYPES[dtype])
+    n_rows = -(-BERT_S // plan.rows)
+    assert launch_order(plan, BERT_S, causal=False) == list(range(n_rows))
+    _check_walk(plan, kernel, False, BERT_S, BERT_LENGTHS)
+    if kernel == "dkv":
+        for n in BERT_LENGTHS:
+            kv_len = max(1, n)
+            for g, tiles in enumerate(dkv_visits(plan, BERT_S, BERT_S,
+                                                 False, n)):
+                want = (list(range(-(-BERT_S // plan.tile)))
+                        if g * 64 < kv_len else [])
+                assert [qt for qt, _ in tiles] == want, (n, g)
+
+
+def _check_walk(plan, kernel, causal, s, lengths=LENGTHS):
+    for n in lengths:
         n = s if n is None else n
         kv_len = max(1, min(n, s))
         want = _valid(s, s, causal, torch.tensor([kv_len]), "cpu")[0, 0]

@@ -1,0 +1,68 @@
+"""The port runs on a machine without JAX: no module of ``nezha_tpu_torch``,
+nor ``chip_smoke.py``, nor a tool that drives the port, may import
+``jax`` or the JAX package ``nezha_tpu`` (not even a module of it that
+does not import JAX itself). Checked on the source with ``ast``, at any
+depth (a function-level import counts), without importing anything."""
+
+import ast
+import os
+
+import pytest
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+FORBIDDEN = ("jax", "jaxlib", "nezha_tpu")
+
+
+def _port_files():
+    for dirpath, _, names in os.walk(os.path.join(ROOT, "nezha_tpu_torch")):
+        for name in sorted(names):
+            if name.endswith(".py"):
+                yield os.path.join(dirpath, name)
+    yield os.path.join(ROOT, "chip_smoke.py")
+    tools = os.path.join(ROOT, "tools")
+    for name in sorted(os.listdir(tools)):
+        path = os.path.join(tools, name)
+        if name.endswith(".py"):
+            with open(path) as f:
+                if "nezha_tpu_torch" in f.read():
+                    yield path
+
+
+def _imported_roots(tree: ast.AST):
+    """(line, top-level module) of every import in the tree; relative
+    imports stay inside their package and are skipped."""
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield node.lineno, alias.name.split(".")[0]
+        elif isinstance(node, ast.ImportFrom) and not node.level:
+            yield node.lineno, node.module.split(".")[0]
+        elif (isinstance(node, ast.Call)
+              and getattr(node.func, "attr", getattr(node.func, "id", None))
+              in ("import_module", "__import__") and node.args
+              and isinstance(node.args[0], ast.Constant)
+              and isinstance(node.args[0].value, str)):
+            yield node.lineno, node.args[0].value.split(".")[0]
+
+
+PORT_FILES = sorted(os.path.relpath(p, ROOT) for p in _port_files())
+
+
+@pytest.mark.parametrize("rel", PORT_FILES)
+def test_port_file_imports_no_jax(rel):
+    with open(os.path.join(ROOT, rel)) as f:
+        tree = ast.parse(f.read(), filename=rel)
+    bad = [(line, mod) for line, mod in _imported_roots(tree)
+           if mod in FORBIDDEN]
+    assert not bad, f"{rel} imports {bad}"
+
+
+def test_the_guard_sees_the_port_and_catches_an_import():
+    assert "chip_smoke.py" in PORT_FILES
+    assert os.path.join("nezha_tpu_torch", "models", "bert.py") in PORT_FILES
+    assert len(PORT_FILES) > 50
+    src = ("import nezha_tpu_torch.ops\n"
+           "def f():\n    from nezha_tpu.ops import gelu\n"
+           "import importlib\nimportlib.import_module('jax.numpy')\n")
+    roots = [mod for _, mod in _imported_roots(ast.parse(src))]
+    assert [m for m in roots if m in FORBIDDEN] == ["nezha_tpu", "jax"]

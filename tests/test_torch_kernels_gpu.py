@@ -680,6 +680,125 @@ def test_flash_kernels_match_plain(cuda_device, dtype, s_q, s_k, d, causal,
         FLASH_KERNELS[dtype], ran
 
 
+# BERT-base's attention shape (B=16, H=12, S=512, D=64, non-causal) and
+# the right-padded lengths of chip_smoke.py's train_bert check.
+BERT_LENGTHS = [512, 300, 1, 0, 511, 257, 256, 128, 64, 65, 500, 200, 100,
+                450, 350, 2]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("rows", [8, 8192])
+def test_layer_norm_kernels_take_bert_eps(cuda_device, dtype, rows):
+    """BERT's ln_eps of 1e-12 reaches both LayerNorm kernels unclamped:
+    on rows of variance 1e-8, where rsqrt(var + eps) is 1e4 with it and
+    316 with an eps of 1e-5, the forward and backward stay within
+    layer_norm_error_bound of the plain versions at eps 1e-12."""
+    eps = 1e-12
+    rng = np.random.RandomState(rows)
+    x, dy = (torch.from_numpy(a.astype(np.float32)).to(cuda_device, dtype)
+             for a in (1e-4 * rng.randn(rows, 768), rng.randn(rows, 768)))
+    scale, bias = (torch.from_numpy(a.astype(np.float32)).to(cuda_device)
+                   for a in (1 + 0.3 * rng.randn(768), 0.2 * rng.randn(768)))
+    y = layer_norm_fwd(x, scale, bias, eps)
+    grads = layer_norm_bwd(x, scale, dy, eps)
+    torch.cuda.synchronize()
+    err = (y.float() - layer_norm_fwd_plain(x, scale, bias, eps).float())
+    bound = layer_norm_error_bound(x, scale, bias, eps)
+    assert torch.all(err.abs() <= bound), (err.abs() / bound).max().item()
+    assert y.float().std().item() > 0.5      # normalized, not shrunk
+    plain = layer_norm_bwd_plain(x, scale, dy, eps)
+    bounds = layer_norm_error_bound(x, scale, bias, eps, dy=dy)
+    for name, g, w, bd in zip(("dx", "dscale", "dbias"),
+                              (grads[0].float(), grads[1], grads[2]),
+                              (plain[0].float(), plain[1], plain[2]),
+                              bounds):
+        assert torch.all((g - w).abs() <= bd), (
+            f"{name}: max |kernel - plain| / bound "
+            f"{((g - w).abs() / bd).max().item():.3f}")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("lengths", [None, BERT_LENGTHS],
+                         ids=["full", "right-padded"])
+def test_bert_flash_shape_matches_plain(cuda_device, lengths):
+    """The three flash kernels and the delta pre-pass at BERT's shape in
+    bf16, non-causal, with and without lengths: the forward within
+    fold_error_bound and its lse within 1e-4, dq/dk/dv within
+    flash_bwd_error_bound, padded keys' dk/dv exactly zero, one launch of
+    each a forward and backward."""
+    rng = np.random.RandomState(16)
+    q, k, v, do = (torch.from_numpy(rng.randn(16, 12, 512, 64).astype(
+        np.float32)).to(cuda_device, torch.bfloat16) for _ in range(4))
+    lens = (None if lengths is None
+            else torch.tensor(lengths, dtype=torch.int32, device=cuda_device))
+    before = dict(LAUNCHES)
+    out, lse = flash_block_fwd(q, k, v, False, kv_lengths=lens)
+    torch.cuda.synchronize()
+    want, want_lse = flash_block_fwd_plain(q, k, v, False, kv_lengths=lens)
+    abs_v = flash_block_fwd_plain(q, k, v.abs(), False, kv_lengths=lens)[0]
+    _assert_within_bound(out, want, abs_v, True)
+    assert (lse - want_lse).abs().max().item() <= 1e-4
+    args = (q, k, v, want, want_lse, do, False)
+    grads = flash_block_bwd(*args, kv_lengths=lens)
+    torch.cuda.synchronize()
+    plain = flash_block_bwd_plain(*args, kv_lengths=lens)
+    bounds = flash_bwd_error_bound(*args, kv_lengths=lens)
+    for name, got, w, bd in zip(("dq", "dk", "dv"), grads, plain, bounds):
+        err = (got.float() - w.float()).abs()
+        assert torch.all(err <= bd), (
+            f"{name}: max |kernel - plain| / bound "
+            f"{(err / bd).max().item():.3f}")
+    for i, n in enumerate(lengths or []):
+        n = max(1, n)
+        assert torch.all(grads[1][i, :, n:] == 0)
+        assert torch.all(grads[2][i, :, n:] == 0)
+    assert {k: LAUNCHES[k] - before[k] for k in LAUNCHES} == {
+        "flash_fwd": 1, "flash_bwd_dq": 1, "flash_bwd_delta": 1,
+        "flash_bwd_dkv": 1}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("padded", [False, True], ids=["full", "lengths"])
+def test_bert_train_step_flash_matches_composed_on_card(cuda_device, padded):
+    """One tiny-preset (f32) BERT step on the card with the flash kernels
+    (non-causal) against the same step with composed attention, same
+    weights and batch, with or without right-padding lengths (labels -100
+    past them): loss within 1e-5, every gradient within 1e-6 + 1e-4 of
+    its tensor's largest magnitude."""
+    from nezha_tpu_torch.cli.common import TINY_BERT_KW
+    from nezha_tpu_torch.data import synthetic_mlm_batches
+    from nezha_tpu_torch.models.bert import Bert, BertConfig, mlm_loss
+
+    batch = dict(next(synthetic_mlm_batches(4, seq_len=64, vocab_size=512,
+                                            mask_token=1)))
+    if padded:
+        lengths = np.array([64, 37, 1, 0], np.int32)
+        past = np.arange(64)[None, :] >= lengths[:, None]
+        batch["labels"] = np.where(past, -100, batch["labels"])
+        batch["kv_lengths"] = lengths
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    results = []
+    for impl in ("flash", "xla"):
+        model = Bert(BertConfig(**TINY_BERT_KW, attn_impl=impl),
+                     generator=gen)
+        if results:
+            model.load_state_dict(first)
+        else:
+            first = model.state_dict()
+        before = LAUNCHES["flash_fwd"]
+        loss, grads = make_train_step(model, adamw(1e-4, weight_decay=0.01),
+                                      mlm_loss).loss_and_grads(batch)
+        launched = LAUNCHES["flash_fwd"] - before
+        assert launched == (2 if impl == "flash" else 0)   # 2 layers
+        results.append((loss.item(), {k: g.cpu() for k, g in grads.items()}))
+    (l_flash, g_flash), (l_xla, g_xla) = results
+    assert abs(l_flash - l_xla) <= 1e-5
+    for name, g in g_xla.items():
+        tol = 1e-6 + 1e-4 * g.abs().max().item()
+        assert (g_flash[name] - g).abs().max().item() <= tol, name
+
+
 @pytest.mark.gpu
 def test_train_step_on_card_matches_cpu(cuda_device):
     """One tiny-preset (f32) AdamW step on the card (flash kernels) and on

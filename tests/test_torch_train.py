@@ -318,14 +318,17 @@ def test_cli_train_tiny_on_cpu():
 
 
 def test_cli_refuses_unported_flags_and_configs():
-    from nezha_tpu_torch.cli.train import parse_args, run
+    from nezha_tpu_torch.cli.train import parse_args
 
     assert parse_args(["--config", "gpt2_124m"]).device == "cuda"
     for argv in (["--mesh", "2"], ["--ckpt-dir=/x"], ["--remat"]):
         with pytest.raises(SystemExit):
             parse_args(["--config", "gpt2_124m"] + argv)
-    with pytest.raises(NotPortedError):
-        run(parse_args(["--config", "bert_base_zero1", "--device", "cpu"]))
+    # bert_base_zero1 trains on one card; its ZeRO-1 mode and the MLM
+    # mask-token flag are still refused.
+    for argv in (["--parallel", "zero1"], ["--mlm-mask-token", "103"]):
+        with pytest.raises(SystemExit):
+            parse_args(["--config", "bert_base_zero1"] + argv)
 
 
 @pytest.mark.parametrize("knob", [

@@ -1,15 +1,26 @@
 """The spread of flash against composed attention gradients on one CUDA
-card, over several seeds: what ``chip_smoke.py``'s train check
-(TRAIN_GRAD_RTOL) is set from.
+card, over several seeds: what ``chip_smoke.py``'s train checks
+(TRAIN_GRAD_RTOL for GPT-2, BERT_LOSS_ATOL and BERT_GRAD_RTOL for
+BERT) are set from.
 
-    python3 tools/grad_spread.py [--seeds 0 1 2 3 4 5]
+    python3 tools/grad_spread.py [--config bert_base_zero1] \
+        [--seeds 0 1 2 3 4 5]
 
-For each seed: GPT-2 124M at full width with seeded random weights
-(bf16 compute, ``fused_loss_chunk=-1``, as the train phase), one batch of
-``synthetic_token_batches`` (B=8, S=1024) from the same seed, and the
-loss and gradients of one step with flash attention and with composed
-attention from the same weights and batch. Prints per seed the loss
-difference and, over the parameters, the largest ``|g - g_ref| /
+For each seed, ``--config gpt2_124m`` (the default): GPT-2 124M at full
+width with seeded random weights (bf16 compute, ``fused_loss_chunk=-1``,
+as the train phase), one batch of ``synthetic_token_batches`` (B=8,
+S=1024) from the same seed, and the loss and gradients of one step with
+flash attention and with composed attention from the same weights and
+batch. ``--config bert_base_zero1``: BERT-base as the train_bert phase
+builds it (bf16, the fused MLM head), one batch of
+``synthetic_mlm_batches`` (B=16, S=512) from the seed, the same
+comparison on that batch and on it right-padded to the phase's lengths
+(``kv_lengths``, labels -100 past them); then, on the first seed, two
+controls that a check with these limits must catch: ``scores_fp8`` (the
+composed path's bf16 scores rounded to float8 e4m3: 3 mantissa bits
+against bf16's 7) and ``lengths_plus_one`` (on the right-padded batch,
+the composed path attends one key past each length). Prints per run the
+loss difference and, over the parameters, the largest ``|g - g_ref| /
 |g_ref|`` (norms), then the largest over the seeds. Needs the card;
 imports nothing of JAX.
 """
@@ -26,12 +37,34 @@ import torch
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
-from chip_smoke import TRAIN_B, TRAIN_LR, TRAIN_S  # noqa: E402
+from chip_smoke import (BERT_B, BERT_LR, BERT_PAD_LENGTHS, BERT_S,  # noqa
+                        BERT_WD, TRAIN_B, TRAIN_LR, TRAIN_S, right_padded)
 from nezha_tpu_torch.cli.common import gpt2_for_preset  # noqa: E402
-from nezha_tpu_torch.data import synthetic_token_batches  # noqa: E402
+from nezha_tpu_torch.data import (synthetic_mlm_batches,  # noqa: E402
+                                  synthetic_token_batches)
+from nezha_tpu_torch.models import bert as bert_mod  # noqa: E402
 from nezha_tpu_torch.models.gpt2 import lm_loss  # noqa: E402
 from nezha_tpu_torch.optim import adamw  # noqa: E402
 from nezha_tpu_torch.train import make_train_step  # noqa: E402
+
+
+def spread(model, ref, batch, loss_fn, lr, wd, ref_batch=None) -> dict:
+    """One step's loss and gradients of ``model`` on ``batch`` and of
+    ``ref`` on ``ref_batch`` (``batch`` when None), from the same
+    weights: the loss difference and the gradients' relative norms."""
+    results = []
+    for m, b in ((model, batch), (ref, ref_batch or batch)):
+        step = make_train_step(m, adamw(lr, weight_decay=wd), loss_fn)
+        loss, grads = step.loss_and_grads(b)
+        results.append((loss.item(), grads))
+    (loss, grads), (loss_r, grads_r) = results
+    rel = {name: ((g - grads_r[name]).norm()
+                  / grads_r[name].norm().clamp_min(1e-30)).item()
+           for name, g in grads.items()}
+    worst = max(rel, key=rel.get)
+    return {"loss_err": abs(loss - loss_r),
+            "max_grad_rel_err": rel[worst], "worst_param": worst,
+            "median_grad_rel_err": sorted(rel.values())[len(rel) // 2]}
 
 
 def one_seed(seed: int) -> dict:
@@ -42,24 +75,66 @@ def one_seed(seed: int) -> dict:
     ref = gpt2_for_preset("full", seed=seed, device="cuda",
                           fused_loss_chunk=-1, attn_impl="xla")
     ref.load_state_dict(model.state_dict())
-    results = []
-    for m in (model, ref):
-        step = make_train_step(m, adamw(TRAIN_LR, weight_decay=0.1),
-                               lm_loss)
-        loss, grads = step.loss_and_grads(batch)
-        results.append((loss.item(), grads))
-    (loss, grads), (loss_r, grads_r) = results
-    rel = {name: ((g - grads_r[name]).norm()
-                  / grads_r[name].norm().clamp_min(1e-30)).item()
-           for name, g in grads.items()}
-    worst = max(rel, key=rel.get)
-    return {"seed": seed, "loss_err": abs(loss - loss_r),
-            "max_grad_rel_err": rel[worst], "worst_param": worst,
-            "median_grad_rel_err": sorted(rel.values())[len(rel) // 2]}
+    return {"seed": seed, **spread(model, ref, batch, lm_loss, TRAIN_LR,
+                                   0.1)}
+
+
+def bert_pair(seed: int):
+    """BERT-base as chip_smoke's train_bert builds it, seeded with
+    ``seed``, flash and composed, the same weights."""
+    def build(**kw):
+        gen = torch.Generator(device="cuda").manual_seed(seed)
+        return bert_mod.bert_base(fused_loss_chunk=-1, generator=gen, **kw)
+
+    model, ref = build(), build(attn_impl="xla")
+    ref.load_state_dict(model.state_dict())
+    return model, ref
+
+
+def fp8_scores_attention(q, k, v, mask=None, scale=None):
+    """The composed attention with its bf16 scores rounded to float8
+    e4m3 (the ``scores_fp8`` control)."""
+    scale = scale if scale is not None else 1.0 / q.shape[-1] ** 0.5
+    scores = torch.einsum("bhqd,bhkd->bhqk", q, k).to(
+        torch.float8_e4m3fn).float() * scale
+    if mask is not None:
+        scores = scores + mask
+    weights = torch.exp(scores - scores.amax(dim=-1, keepdim=True))
+    weights = weights / weights.sum(dim=-1, keepdim=True)
+    return torch.einsum("bhqk,bhkd->bhqd", weights.to(v.dtype), v)
+
+
+def bert_seed(seed: int, controls: bool) -> list:
+    batch = next(synthetic_mlm_batches(BERT_B, seq_len=BERT_S, seed=seed))
+    padded = right_padded(batch, BERT_PAD_LENGTHS)
+    args = (bert_mod.mlm_loss, BERT_LR, BERT_WD)
+    rows = []
+    for tag, b in (("full", batch), ("right_padded", padded)):
+        rows.append({"seed": seed, "batch": tag,
+                     **spread(*bert_pair(seed), b, *args)})
+        torch.cuda.empty_cache()
+    if not controls:
+        return rows
+    plain = bert_mod.dot_product_attention
+    bert_mod.dot_product_attention = fp8_scores_attention
+    try:
+        rows.append({"seed": seed, "batch": "full", "control": "scores_fp8",
+                     **spread(*bert_pair(seed), batch, *args)})
+    finally:
+        bert_mod.dot_product_attention = plain
+    longer = {**padded, "kv_lengths": (padded["kv_lengths"] + 1).clip(
+        max=BERT_S)}
+    rows.append({"seed": seed, "batch": "right_padded",
+                 "control": "lengths_plus_one",
+                 **spread(*bert_pair(seed), padded, *args, ref_batch=longer)})
+    torch.cuda.empty_cache()
+    return rows
 
 
 def main() -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    p.add_argument("--config", choices=["gpt2_124m", "bert_base_zero1"],
+                   default="gpt2_124m")
     p.add_argument("--seeds", type=int, nargs="+",
                    default=[0, 1, 2, 3, 4, 5])
     args = p.parse_args()
@@ -71,14 +146,21 @@ def main() -> int:
     print(f"card: {torch.cuda.get_device_name(0)}; nvidia-smi: {smi}",
           flush=True)
     rows = []
-    for seed in args.seeds:
-        rows.append(one_seed(seed))
-        print(json.dumps(rows[-1]), flush=True)
+    for i, seed in enumerate(args.seeds):
+        if args.config == "bert_base_zero1":
+            new = bert_seed(seed, controls=i == 0)
+        else:
+            new = [one_seed(seed)]
+        for row in new:
+            print(json.dumps(row), flush=True)
+        rows += new
         torch.cuda.empty_cache()
-    print(json.dumps({"seeds": len(rows),
+    runs = [r for r in rows if "control" not in r]
+    print(json.dumps({"config": args.config, "seeds": len(args.seeds),
                       "max_grad_rel_err": max(r["max_grad_rel_err"]
-                                              for r in rows),
-                      "max_loss_err": max(r["loss_err"] for r in rows)}),
+                                              for r in runs),
+                      "max_loss_err": max(r["loss_err"] for r in runs),
+                      "controls": [r for r in rows if "control" in r]}),
           flush=True)
     return 0
 

@@ -2,21 +2,24 @@
 card.
 
     python3 tools/profile_torch_train.py [--out train_profile.json] \
-        [--ln-impl pallas] [--config resnet50_imagenet]
+        [--ln-impl pallas] [--config resnet50_imagenet|bert_base_zero1]
 
 ``--config gpt2_124m`` (the default) is the step of ``chip_smoke.py``'s
 train phase (GPT-2 124M, seeded random weights, bf16, B=8, S=1024,
 ``fused_loss_chunk=-1``, AdamW with weight decay 0.1,
 ``synthetic_token_batches`` seed 0; ``--ln-impl pallas`` for the fused
-LayerNorm kernels). ``--config resnet50_imagenet`` is its train_image
+LayerNorm kernels). ``--config bert_base_zero1`` is its train_bert
+phase's timed run: BERT-base as the config builds it (bf16, the fused
+MLM head, flash attention non-causal), B=16, S=512 of
+``synthetic_mlm_batches``, the config's AdamW. ``--config resnet50_imagenet`` is its train_image
 phase's timed run: ResNet-50 with the s2d stem, bf16, batch 128 of
 ``synthetic_image_batches`` at 224 px, the config's momentum. Either runs
 through ``Trainer.fit``: 2 warm-up steps, ``--steps`` timed steps without
 the profiler, then ``--steps`` more under ``torch.profiler``. Reports ms
 per step, tokens/s or images/s, the device's busy time and idle share,
 the device time by kind of kernel, and the CUDA kernels and CPU ops that
-took the most time; GPT-2 also the three flash kernels' device time (B3
-with the delta pre-pass). ResNet-50 adds two more profiled windows of
+took the most time; GPT-2 and BERT also the three flash kernels' device
+time (B3 with the delta pre-pass). ResNet-50 adds two more profiled windows of
 ``--steps`` steps each, the forward and backward alone
 (``TrainStep.loss_and_grads``, with the batch's host-to-device copy) and
 the optimizer alone (``TrainStep.apply_gradients``), so the optimizer's
@@ -45,6 +48,7 @@ from nezha_tpu_torch.optim import adamw  # noqa: E402
 from nezha_tpu_torch.train import Trainer  # noqa: E402
 
 B, S = 8, 1024
+BERT_B, BERT_S = 16, 512
 IMG_B, IMG_SIZE = 128, 224
 # Each flash row's kernels: the Hopper (bf16) and first (fp32) bodies,
 # and B3's delta pre-pass.
@@ -152,12 +156,15 @@ def main() -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--out", default=None,
                    help="also write the full report as JSON here")
-    p.add_argument("--config", choices=["gpt2_124m", "resnet50_imagenet"],
+    p.add_argument("--config", choices=["gpt2_124m", "bert_base_zero1",
+                                        "resnet50_imagenet"],
                    default="gpt2_124m")
     p.add_argument("--steps", type=int, default=5)
     p.add_argument("--top", type=int, default=15)
     p.add_argument("--ln-impl", choices=["xla", "pallas"], default="xla")
     args = p.parse_args()
+    if args.ln_impl != "xla" and args.config != "gpt2_124m":
+        p.error("--ln-impl applies to gpt2_124m")
     if not torch.cuda.is_available():
         raise SystemExit("needs a CUDA card")
     card = torch.cuda.get_device_name(0)
@@ -169,6 +176,13 @@ def main() -> int:
                           log_every=0)
         batches = cfg.batches(IMG_B)
         examples, categories = IMG_B, IMAGE_CATEGORIES
+    elif args.config == "bert_base_zero1":
+        cfg = build_config(args.config, steps=2 + 2 * args.steps, seed=0,
+                           device="cuda")
+        trainer = Trainer(cfg.model, cfg.optimizer, cfg.loss_fn,
+                          log_every=0)
+        batches = cfg.batches(BERT_B)
+        examples, categories = BERT_B * BERT_S, CATEGORIES
     else:
         model = gpt2_for_preset("full", seed=0, device="cuda",
                                 fused_loss_chunk=-1, ln_impl=args.ln_impl)
