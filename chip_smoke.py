@@ -144,6 +144,35 @@ Phases, each fatal on failure (non-zero exit, no result line):
    --steps 20 --eval-batches 2 --eval`` (a finite loss and eval
    perplexity over 2 batches) and ``--config wrn101_large_batch
    --batch-size 64 --steps 5`` (a finite loss), each exiting 0;
+4d. data_ckpt: the user's path from text on disk to served text, in a
+   temporary directory, through the CLIs at full width: (a) pack the
+   port and ``docs/`` with ``pack_text --learn-bpe DC_BPE_MERGES`` into
+   ``train.tokens.u16`` and ``tools/`` and the README with that
+   tokenizer into ``val.tokens.u16``, and the same sources with
+   ``--learn-wordpiece DC_WP_VOCAB`` for BERT; (b) ``gpt2_124m
+   --data-dir --ckpt-dir --ckpt-every 10 --ckpt-keep 2 --eval
+   --eval-batches 4`` for DC_STEPS steps, then DC_MORE more, which must
+   print ``resumed from step DC_STEPS``, end at their sum with a finite
+   eval perplexity and leave exactly two ``step_*.npz``; each save's and
+   restore's seconds and bytes; (c) in-process, the config's GPT-2 at
+   batch 8: tokens/s and the busy share from disk against the synthetic
+   stream, then the exact round trip (a fixed batch's loss, save,
+   restore into a fresh module and optimizer: every leaf, the loss and
+   one more step's weights bitwise; the two streams feed one trainer
+   in turn, timed in the order disk, synthetic, synthetic, disk); (d) ``bert_base_zero1`` from the
+   WordPiece corpus (``[MASK]`` resolved from the sidecar), 10 steps with
+   a checkpoint, then 5 resumed with ``--eval``; (e) ``resnet50_imagenet``
+   from ``train.nzr``/``val.nzr`` written by ``ImageRecordWriter`` (seeded
+   256 px images), ``--crop 224``, batch 128, 10 steps with a checkpoint,
+   then 5 resumed with ``--eval`` (momentum's conv velocity and the
+   BatchNorm state round-trip), and in-process images/s from the records
+   against synthetic; (f) the generate CLI (``--ckpt-dir --tokenizer
+   --prompt "def main(" --ln-impl pallas``): valid ids and text, B1, B4
+   and B6 launched (the counts and the profiler); (g) the serve CLI from
+   the same checkpoint answers four text prompts (B7 and B9 launched),
+   its greedy tokens equal ``models.generate``'s up to the first
+   position where the no-cache reference's top-2 margin is within
+   SERVE_LOGIT_ATOL. Prints its wall seconds;
 5. serve: GPT-2 124M at full width, seeded random weights, bf16, eight
    greedy requests through ``Scheduler`` (prompts of 5-900 tokens, some
    prefilled in chunks, two sharing a 128-token prefix); requires every
@@ -199,6 +228,7 @@ import subprocess
 import sys
 import time
 
+import numpy as np
 import torch
 
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM, NVIDIA data sheet
@@ -2245,28 +2275,60 @@ def train_image(card: str) -> dict:
     return summary
 
 
-def cli_run(*argv, timeout: int = 600) -> dict:
-    """``python -m nezha_tpu_torch.cli.train`` on the card with ``argv``
-    from the checkout's root: -> its final line, its wall seconds and
-    its stderr's eval line. Fails unless it exits 0 with a finite loss."""
+DC_STEPS, DC_MORE = 20, 10        # GPT-2: steps, then resumed steps
+DC_BPE_MERGES, DC_WP_VOCAB = 1000, 3000
+DC_AB_STEPS, DC_BUSY_STEPS = 10, 3
+DC_IMG_RECORDS, DC_VAL_RECORDS, DC_IMG_PX = 256, 64, 256
+DC_GEN_NEW = 32
+DC_PROMPTS = ["def main(", "class Trainer:", "import torch\n",
+              "The checkpoint"]
+
+
+def module_run(module: str, *argv, timeout: int = 600):
+    """``python -m nezha_tpu_torch.cli.<module>`` from the checkout's
+    root: -> (stdout lines, stderr lines, wall seconds); fails unless it
+    exits 0."""
     root = os.path.dirname(os.path.abspath(__file__))
     env = dict(os.environ, PYTHONPATH=root + os.pathsep
                + os.environ.get("PYTHONPATH", ""))
     t0 = time.perf_counter()
-    proc = subprocess.run([sys.executable, "-m", "nezha_tpu_torch.cli.train",
-                           *argv], capture_output=True, text=True,
-                          timeout=timeout, cwd=root, env=env)
+    proc = subprocess.run([sys.executable, "-m",
+                           f"nezha_tpu_torch.cli.{module}", *argv],
+                          capture_output=True, text=True, timeout=timeout,
+                          cwd=root, env=env)
     wall = time.perf_counter() - t0
     if proc.returncode != 0:
-        fail(f"train CLI {' '.join(argv)}: rc {proc.returncode}: "
-             f"{proc.stderr[-2000:]}")
-    final = json.loads(proc.stdout.strip().splitlines()[-1])["final"]
+        fail(f"{module} CLI {' '.join(argv)}: rc {proc.returncode}: "
+             f"{proc.stderr[-3000:]}")
+    return proc.stdout.splitlines(), proc.stderr.splitlines(), wall
+
+
+def json_lines(lines, key: str) -> list:
+    """The ``key`` field of every JSON line that has it."""
+    out = []
+    for line in lines:
+        if line.startswith("{"):
+            obj = json.loads(line)
+            if key in obj:
+                out.append(obj[key])
+    return out
+
+
+def cli_run(*argv) -> dict:
+    """The train CLI on the card with ``argv``: -> its argv, wall
+    seconds, final metrics, last eval, saves, restores, metric lines and
+    stderr. Fails unless it exits 0 with a finite loss."""
+    out, err, wall = module_run("train", *argv)
+    final = json.loads(out[-1])["final"]
     if not math.isfinite(final.get("loss", math.nan)):
         fail(f"train CLI {' '.join(argv)}: final {final}")
-    evals = [json.loads(line)["eval"] for line in proc.stderr.splitlines()
-             if line.startswith('{"eval"')]
+    evals = json_lines(err, "eval")
     return {"argv": list(argv), "wall_s": wall, "final": final,
-            "eval": evals[-1] if evals else None}
+            "eval": evals[-1] if evals else None,
+            "saves": json_lines(err, "save"),
+            "restores": json_lines(err, "restore"),
+            "logs": [json.loads(line) for line in err
+                     if line.startswith('{"loss"')], "stderr": err}
 
 
 def train_cli() -> dict:
@@ -2279,9 +2341,440 @@ def train_cli() -> dict:
         fail(f"train CLI bert_base_zero1: eval {bert}")
     wrn = cli_run("--config", "wrn101_large_batch", "--batch-size",
                   str(WRN_B), "--steps", "5")
-    out = {"bert_base_zero1": bert, "wrn101_large_batch": wrn}
+    out = {name: {k: run[k] for k in ("argv", "wall_s", "final", "eval")}
+           for name, run in (("bert_base_zero1", bert),
+                             ("wrn101_large_batch", wrn))}
     print(json.dumps({"train_cli": out}), flush=True)
     return out
+
+
+def pack_corpora(tmp: str) -> dict:
+    """The GPT-2 corpus (a learned BPE over the port and docs/, held-out
+    tools/ and the README), and the BERT corpus (a learned WordPiece over
+    the same sources)."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    train_src = [os.path.join(root, "nezha_tpu_torch"),
+                 os.path.join(root, "docs")]
+    val_src = [os.path.join(root, "tools"), os.path.join(root, "README.md")]
+    packs = {}
+    for name, learn, n in (("gpt", "--learn-bpe", DC_BPE_MERGES),
+                           ("bert", "--learn-wordpiece", DC_WP_VOCAB)):
+        tok, data = f"{tmp}/tok_{name}", f"{tmp}/data_{name}"
+        out, _, wall = module_run(
+            "pack_text", *train_src, learn, str(n), "--save-tokenizer",
+            tok, "--out", f"{data}/train.tokens.u16")
+        train = json.loads(out[-1])
+        out, _, _ = module_run("pack_text", *val_src, "--tokenizer", tok,
+                               "--out", f"{data}/val.tokens.u16")
+        packs[name] = {"tokenizer": tok, "data": data, "train": train,
+                       "val": json.loads(out[-1]), "wall_s": wall}
+    print(json.dumps({"data_ckpt_pack": packs}), flush=True)
+    return packs
+
+
+def check_two_left(ckpt_dir: str, want) -> None:
+    left = sorted(p for p in os.listdir(ckpt_dir) if p.endswith(".npz"))
+    if left != [f"step_{s:08d}.npz" for s in want]:
+        fail(f"data_ckpt: {ckpt_dir} holds {left}, expected steps {want}")
+
+
+def resumed(run: dict, step: int) -> None:
+    if f"resumed from step {step}" not in run["stderr"]:
+        fail(f"data_ckpt: no 'resumed from step {step}' line: "
+             f"{run['stderr'][-5:]}")
+
+
+def ab_rates(trainer, streams: dict, per_step: int, unit: str) -> dict:
+    """One trainer fed by two streams in turn: 2 warm-up steps from each,
+    then DC_AB_STEPS timed steps in the order A, B, B, A (host clock,
+    ended by a sync; ``per_step`` tokens or images a step), then
+    DC_BUSY_STEPS profiled steps of each. -> {stream: rate, ms per step
+    (each window), busy share}."""
+    names = list(streams)
+    for name in names:
+        trainer.fit(streams[name], 2)
+    windows = {name: [] for name in names}
+    for name in names + names[::-1]:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        trainer.fit(streams[name], DC_AB_STEPS)
+        torch.cuda.synchronize()
+        windows[name].append((time.perf_counter() - t0) / DC_AB_STEPS)
+    return {name: {unit: per_step * len(w) / sum(w),
+                   "ms_per_step_windows": [t * 1e3 for t in w],
+                   **profiled_busy_share(trainer, streams[name],
+                                         DC_BUSY_STEPS)}
+            for name, w in windows.items()}
+
+
+def gpt2_ab_and_round_trip(packs: dict, tmp: str, card: str) -> dict:
+    """In-process, full-width GPT-2 (the config's model and AdamW) at
+    batch 8: tokens/s and the device's busy share from disk against the
+    synthetic stream (``ab_rates``), then the exact round trip: the loss of a fixed
+    batch, save, restore into a fresh module and optimizer (every leaf
+    bitwise, the loss bitwise), one more step from both (weights
+    bitwise)."""
+    from nezha_tpu_torch.cli import train as train_cli
+    from nezha_tpu_torch.models.convert import train_state_template
+    from nezha_tpu_torch.train import Trainer
+    from nezha_tpu_torch.train import checkpoint as ckpt
+
+    args = train_cli.parse_args(["--config", "gpt2_124m", "--data-dir",
+                                 packs["gpt"]["data"]])
+    cfg = train_cli.build_config("gpt2_124m", steps=100)
+    trainer = Trainer(cfg.model, cfg.optimizer, cfg.loss_fn, log_every=0)
+    disk, close = train_cli.data_source(args, cfg, TRAIN_B)
+    rates = ab_rates(trainer, {"disk": disk,
+                               "synthetic": cfg.batches(TRAIN_B)},
+                     TRAIN_B * TRAIN_S, "tokens_per_s")
+    close()
+
+    # The round trip, on the A/B trainer's state.
+    fixed = next(cfg.batches(TRAIN_B))
+    step_batch = next(cfg.batches(TRAIN_B))
+
+    def fixed_loss(model):
+        batch = {"tokens": torch.as_tensor(fixed["tokens"]).long().cuda()}
+        model.train()
+        with torch.no_grad():
+            return cfg.loss_fn(model(batch), batch).float()
+
+    before = fixed_loss(trainer.model)
+    d = f"{tmp}/round_trip"
+    trainer.checkpoint_dir = d
+    path = trainer.save()
+    saved = ckpt.verify_checkpoint(d, trainer.global_step)
+    fresh_cfg = train_cli.build_config("gpt2_124m", steps=100, seed=1)
+    fresh = Trainer(fresh_cfg.model, cfg.optimizer, cfg.loss_fn,
+                    checkpoint_dir=d, log_every=0)
+    fresh.initialize()
+    restore = fresh.last_restore
+    mine = fresh.state_dict()
+    if mine.keys() != saved.keys() or set(saved) != set(
+            train_state_template(fresh.model, fresh.step_fn.opt_state)):
+        fail("data_ckpt round trip: leaf sets differ")
+    unequal = [k for k in saved if not (
+        mine[k].dtype == saved[k].dtype
+        and np.array_equal(mine[k], saved[k]))]
+    if unequal:
+        fail(f"data_ckpt round trip: {len(unequal)} restored leaves differ "
+             f"from the saved ones: {unequal[:5]}")
+    after = fixed_loss(fresh.model)
+    if not torch.equal(before, after):
+        fail(f"data_ckpt round trip: fixed-batch loss {before.item()!r} "
+             f"before the save, {after.item()!r} after the restore")
+    trainer.fit(iter([step_batch]), 1)
+    fresh.fit(iter([step_batch]), 1)
+    a, b = trainer.model.state_dict(), fresh.model.state_dict()
+    worst = max((a[k].float() - b[k].float()).abs().max().item()
+                for k in a)
+    if worst != 0.0:
+        fail(f"data_ckpt round trip: one more step from both states: "
+             f"weights differ by up to {worst}")
+    out = {"rates": rates,
+           "disk_over_synthetic": rates["disk"]["tokens_per_s"]
+           / rates["synthetic"]["tokens_per_s"],
+           "round_trip": {"leaves": len(saved), "bytes":
+                          os.path.getsize(path),
+                          "save_s": trainer.saves[-1]["seconds"],
+                          "restore_s": restore["seconds"],
+                          "fixed_loss": before.item(),
+                          "step_after_restore_max_weight_diff": worst},
+           "card": card}
+    del trainer, fresh, cfg, fresh_cfg, saved, mine, a, b
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def image_records(tmp: str) -> str:
+    """train.nzr and val.nzr from seeded 256 px images, written by the
+    port's ImageRecordWriter."""
+    from nezha_tpu_torch.data.native import ImageRecordWriter
+
+    d = f"{tmp}/data_img"
+    os.makedirs(d, exist_ok=True)
+    r = np.random.RandomState(0)
+    for name, n in (("train.nzr", DC_IMG_RECORDS),
+                    ("val.nzr", DC_VAL_RECORDS)):
+        with ImageRecordWriter(f"{d}/{name}", DC_IMG_PX, DC_IMG_PX) as w:
+            for i in range(n):
+                w.append(r.randint(0, 256, (DC_IMG_PX, DC_IMG_PX, 3),
+                                   dtype=np.uint8), i % 1000)
+    return d
+
+
+def image_ab(data: str, card: str) -> dict:
+    """In-process ResNet-50 (the config's model and momentum) at batch
+    IMG_B, 224 px: images/s from the records against the synthetic
+    stream, each with its busy share (``ab_rates``)."""
+    from nezha_tpu_torch.cli import train as train_cli
+    from nezha_tpu_torch.train import Trainer
+
+    args = train_cli.parse_args(["--config", "resnet50_imagenet",
+                                 "--data-dir", data])
+    cfg = train_cli.build_config("resnet50_imagenet", steps=100)
+    trainer = Trainer(cfg.model, cfg.optimizer, cfg.loss_fn, log_every=0)
+    disk, close = train_cli.data_source(args, cfg, IMG_B)
+    rates = ab_rates(trainer, {"disk": disk,
+                               "synthetic": cfg.batches(IMG_B)},
+                     IMG_B, "images_per_s")
+    close()
+    del trainer, cfg
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"rates": rates, "disk_over_synthetic":
+            rates["disk"]["images_per_s"]
+            / rates["synthetic"]["images_per_s"], "card": card}
+
+
+def zero_counts() -> None:
+    from nezha_tpu_torch.ops.cuda import (flash_decode_attention,
+                                          paged_decode_attention,
+                                          paged_prefill_attention)
+    from nezha_tpu_torch.ops.cuda.flash_attention import LAUNCHES
+    from nezha_tpu_torch.ops.cuda.layer_norm import LAUNCHES as LN_LAUNCHES
+    for c in (LAUNCHES, LN_LAUNCHES):
+        for k in c:
+            c[k] = 0
+    for fn in (flash_decode_attention, paged_decode_attention,
+               paged_prefill_attention):
+        fn.launches = 0
+    zero_serve_launches()
+
+
+def read_counts() -> dict:
+    from nezha_tpu_torch.ops.cuda import (flash_decode_attention,
+                                          paged_decode_attention,
+                                          paged_prefill_attention,
+                                          paged_quant_decode_attention,
+                                          paged_quant_prefill_attention)
+    from nezha_tpu_torch.ops.cuda.flash_attention import LAUNCHES
+    from nezha_tpu_torch.ops.cuda.layer_norm import LAUNCHES as LN_LAUNCHES
+    return {**LAUNCHES, **LN_LAUNCHES,
+            "flash_decode": flash_decode_attention.launches,
+            "paged_decode": paged_decode_attention.launches,
+            "paged_prefill": paged_prefill_attention.launches,
+            "paged_quant_decode": paged_quant_decode_attention.launches,
+            "paged_quant_prefill": paged_quant_prefill_attention.launches}
+
+
+def cli_stdout(fn, *args, **kw):
+    """Call a CLI entry point in-process; -> (its return, its stdout
+    lines)."""
+    import contextlib
+    import io
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        ret = fn(*args, **kw)
+    return ret, buf.getvalue().splitlines()
+
+
+def generate_and_serve(packs: dict, ckpt_dir: str, card: str):
+    """The generate CLI (``--ln-impl pallas``) and the serve CLI from the
+    GPT-2 checkpoint with its tokenizer, in-process so that the launch
+    counts and the profiler see them; serve's greedy tokens against
+    ``models.generate``'s on the restored weights wherever the no-cache
+    reference's top-2 margin exceeds SERVE_LOGIT_ATOL. -> (the two runs'
+    launches, a summary)."""
+    import io
+    from nezha_tpu_torch.cli import generate as gen_cli
+    from nezha_tpu_torch.cli import serve as serve_cli
+    from nezha_tpu_torch.cli.common import load_gpt2_for_inference
+    from nezha_tpu_torch.data.tokenizer import encode_plain, load_tokenizer
+    from nezha_tpu_torch.models import GPT2, generate
+
+    tok_dir = packs["gpt"]["tokenizer"]
+    tok = load_tokenizer(tok_dir)
+    argv = ["--ckpt-dir", ckpt_dir, "--tokenizer", tok_dir, "--prompt",
+            DC_PROMPTS[0], "--max-new-tokens", str(DC_GEN_NEW),
+            "--temperature", "0", "--ln-impl", "pallas", "--eos-id", "-1"]
+    gen_cli.run(gen_cli.build_parser().parse_args(argv))     # warm-up
+    torch.cuda.synchronize()
+    zero_counts()
+    acts = [torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        got, _ = cli_stdout(gen_cli.run,
+                            gen_cli.build_parser().parse_args(argv))
+        torch.cuda.synchronize()
+    gen_launches = read_counts()
+    by_kernel = {}
+    for e in prof.key_averages():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            by_kernel[kernel_name(e.key)] = by_kernel.get(
+                kernel_name(e.key), 0) + e.count
+    profiled = {k: n for k, n in by_kernel.items()
+                if k.startswith(("flash_fwd", "flash_decode", "ln_fwd"))}
+    for name in ("flash_fwd", "layer_norm_fwd", "flash_decode"):
+        if gen_launches[name] <= 0:
+            fail(f"data_ckpt generate: {name} not launched "
+                 f"({gen_launches})")
+    for prefix in ("flash_fwd", "flash_decode", "ln_fwd"):
+        if not any(k.startswith(prefix) for k in profiled):
+            fail(f"data_ckpt generate: the profiler saw no {prefix} "
+                 f"kernel: {sorted(by_kernel)[:20]}")
+    if (len(got["tokens"]) != DC_GEN_NEW or not isinstance(got["text"], str)
+            or max(got["tokens"]) >= tok.vocab_size or got.get(
+                "unknown_tokens")):
+        fail(f"data_ckpt generate: {got}")
+
+    args = serve_cli.build_parser().parse_args([
+        "--ckpt-dir", ckpt_dir, "--tokenizer", tok_dir, "--max-len", "128",
+        "--max-prefill-len", "32", "--eos-id", "-1"])
+    sched = serve_cli.build_scheduler(args)
+    reqs = [{"id": f"p{i}", "prompt": p, "max_new_tokens": DC_GEN_NEW}
+            for i, p in enumerate(DC_PROMPTS)]
+    out = io.StringIO()
+    zero_counts()
+    t0 = time.perf_counter()
+    serve_cli.run_stdio(sched, args, stdin=io.StringIO(
+        "".join(json.dumps(r) + "\n" for r in reqs)), stdout=out,
+        tokenizer=serve_cli.load_tokenizer_arg(args))
+    torch.cuda.synchronize()
+    serve_wall = time.perf_counter() - t0
+    serve_launches = read_counts()
+    for name in ("paged_decode", "paged_prefill"):
+        if serve_launches[name] <= 0:
+            fail(f"data_ckpt serve: {name} not launched "
+                 f"({serve_launches})")
+    res = {r["id"]: r for r in map(json.loads, out.getvalue().splitlines())}
+    if len(res) != len(reqs) or any(
+            r["event"] != "done" or r["finish_reason"] != "length"
+            or not isinstance(r["text"], str) for r in res.values()):
+        fail(f"data_ckpt serve: {res}")
+    del sched
+    gc.collect()
+
+    # Serve against generate, token by token up to the first divergence,
+    # which must fall where the reference's top-2 margin is within
+    # SERVE_LOGIT_ATOL.
+    model = load_gpt2_for_inference(gen_cli.build_parser().parse_args(
+        argv)).eval()
+    reference = GPT2(dataclasses.replace(model.cfg, attn_impl="xla"),
+                     policy=model.policy, device="cuda")
+    reference.load_state_dict(model.state_dict())
+    reference.eval()
+    checked = compared = 0
+    with torch.no_grad():
+        for i, p in enumerate(DC_PROMPTS):
+            ids = torch.tensor([encode_plain(tok, p)], device="cuda")
+            g = generate(model, ids, DC_GEN_NEW)[0, ids.shape[1]:].tolist()
+            s_toks = res[f"p{i}"]["tokens"]
+            seq = torch.tensor([ids[0].tolist() + g[:-1]], device="cuda")
+            ref = reference(seq)[0, ids.shape[1] - 1:].float()
+            top2 = ref.topk(2, dim=-1).values
+            for j, (a, b) in enumerate(zip(g, s_toks)):
+                margin = float(top2[j, 0] - top2[j, 1])
+                compared += 1
+                if a != b:
+                    if margin > SERVE_LOGIT_ATOL:
+                        fail(f"data_ckpt serve: prompt {i} token {j}: "
+                             f"serve {b}, generate {a}, margin {margin}")
+                    break
+                checked += margin > SERVE_LOGIT_ATOL
+    summary = {"generate": {"prompt": DC_PROMPTS[0], "tokens":
+                            got["tokens"], "text": got["text"],
+                            "profiled_launches": profiled},
+               "serve": {"requests": len(res), "wall_s": serve_wall,
+                         "texts": [res[f"p{i}"]["text"]
+                                   for i in range(len(DC_PROMPTS))]},
+               "serve_vs_generate": {"tokens_compared": compared,
+                                     "tokens_checked": checked},
+               "card": card}
+    del model, reference
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"generate": gen_launches, "serve": serve_launches}, summary
+
+
+def data_ckpt(card: str):
+    """Phase 4d (see the module docstring). -> (the launches of its
+    generate and serve runs, its summary)."""
+    import tempfile
+
+    with tempfile.TemporaryDirectory(prefix="nezha_data_ckpt_") as tmp:
+        packs = pack_corpora(tmp)
+        g = packs["gpt"]
+        ck = f"{tmp}/ckpt_gpt2"
+        common = ["--config", "gpt2_124m", "--data-dir", g["data"],
+                  "--ckpt-dir", ck, "--ckpt-every", "10", "--ckpt-keep",
+                  "2", "--eval", "--eval-batches", "4"]
+        first = cli_run(*common, "--steps", str(DC_STEPS))
+        second = cli_run(*common, "--steps",
+                           str(DC_MORE))
+        resumed(second, DC_STEPS)
+        if second["final"]["step"] != DC_STEPS + DC_MORE or not \
+                math.isfinite(second["final"].get("eval_perplexity",
+                                                  math.nan)):
+            fail(f"data_ckpt gpt2 resumed: final {second['final']}")
+        check_two_left(ck, [DC_STEPS, DC_STEPS + DC_MORE])
+        disk_cli_rate = first["logs"][-1].get("tokens_per_sec")
+        gpt2 = {"first": {k: first[k] for k in ("wall_s", "final",
+                                                "saves")},
+                "second": {k: second[k] for k in ("wall_s", "final",
+                                                  "saves", "restores")},
+                "cli_disk_tokens_per_s": disk_cli_rate}
+        print(json.dumps({"data_ckpt_gpt2": gpt2}), flush=True)
+
+        inproc = gpt2_ab_and_round_trip(packs, tmp, card)
+        print(json.dumps({"data_ckpt_gpt2_inprocess": inproc}), flush=True)
+
+        b = packs["bert"]
+        bck = f"{tmp}/ckpt_bert"
+        bcommon = ["--config", "bert_base_zero1", "--data-dir", b["data"],
+                   "--ckpt-dir", bck, "--ckpt-every", "10"]
+        bfirst = cli_run(*bcommon, "--steps", "10")
+        if not any("mlm: [MASK] id" in line for line in bfirst["stderr"]):
+            fail("data_ckpt bert: [MASK] did not resolve from the sidecar")
+        bsecond = cli_run(*bcommon, "--steps", "5",
+                            "--eval", "--eval-batches", "2")
+        resumed(bsecond, 10)
+        bert = {"first": {k: bfirst[k] for k in ("wall_s", "final",
+                                                 "saves")},
+                "second": {k: bsecond[k] for k in ("wall_s", "final",
+                                                   "saves", "restores")}}
+        print(json.dumps({"data_ckpt_bert": bert}), flush=True)
+
+        img = image_records(tmp)
+        ick = f"{tmp}/ckpt_rn50"
+        icommon = ["--config", "resnet50_imagenet", "--data-dir", img,
+                   "--crop", "224", "--batch-size", str(IMG_B),
+                   "--ckpt-dir", ick, "--ckpt-every", "10"]
+        ifirst = cli_run(*icommon, "--steps", "10")
+        isecond = cli_run(*icommon, "--steps", "5",
+                            "--eval")
+        resumed(isecond, 10)
+        if not math.isfinite(isecond["final"].get("eval_accuracy",
+                                                  math.nan)):
+            fail(f"data_ckpt resnet50: final {isecond['final']}")
+        rn50 = {"first": {k: ifirst[k] for k in ("wall_s", "final",
+                                                 "saves")},
+                "second": {k: isecond[k] for k in ("wall_s", "final",
+                                                   "saves", "restores")},
+                "in_process": image_ab(img, card)}
+        print(json.dumps({"data_ckpt_resnet50": rn50}), flush=True)
+
+        launches, gen_serve = generate_and_serve(packs, ck, card)
+        print(json.dumps({"data_ckpt_generate_serve": gen_serve}),
+              flush=True)
+    summary = {
+        "gpt2_save_s": [s["seconds"] for s in first["saves"]
+                        + second["saves"]],
+        "gpt2_save_bytes": first["saves"][-1]["bytes"],
+        "gpt2_restore_s": second["restores"][0]["seconds"],
+        "gpt2_disk_tokens_per_s": inproc["rates"]["disk"]["tokens_per_s"],
+        "gpt2_synthetic_tokens_per_s":
+            inproc["rates"]["synthetic"]["tokens_per_s"],
+        "gpt2_disk_busy": inproc["rates"]["disk"]["device_busy_share"],
+        "gpt2_synthetic_busy":
+            inproc["rates"]["synthetic"]["device_busy_share"],
+        "rn50_disk_images_per_s":
+            rn50["in_process"]["rates"]["disk"]["images_per_s"],
+        "rn50_synthetic_images_per_s":
+            rn50["in_process"]["rates"]["synthetic"]["images_per_s"],
+        "round_trip_exact": True, "card": card}
+    print(json.dumps({"data_ckpt_summary": summary}), flush=True)
+    return launches, summary
 
 
 def serve_prompts(vocab: int):
@@ -2704,6 +3197,10 @@ def main() -> int:
     image = train_image(card)
     phase("train_cli")
     train_cli()
+    phase("data_ckpt")
+    dc_launches, dc = data_ckpt(card)
+    paths["data_ckpt_generate"] = dc_launches["generate"]
+    paths["data_ckpt_serve"] = dc_launches["serve"]
     phase("serve")
     paths["serve"] = serve(card)
     paths["serve_int8"] = serve(card, "int8")

@@ -25,7 +25,13 @@ What runs today:
   top-1 accuracy;
 - generation: GPT-2 through ``models.generate`` and ``python -m
   nezha_tpu_torch.cli.generate`` (a KV-cache prefill, then one dense
-  flash-decode kernel launch per layer per token).
+  flash-decode kernel launch per layer per token);
+- data and checkpoints: ``cli.pack_text`` with the GPT-2 BPE and BERT
+  WordPiece tokenizers (``data.tokenizer``, learned by
+  ``data.bpe_train``), the native C++ loaders behind the train CLI's
+  ``--data-dir`` (``data.native``), and checkpoints in the JAX package's
+  npz format (``train.checkpoint``), which generate and serve load with
+  ``--ckpt-dir`` and ``--tokenizer``.
 
 Kernels live in ``ops/cuda`` (sources in ``csrc/``). Entry points run on
 ``cuda`` unless the caller passes ``device="cpu"``; on CPU tensors each

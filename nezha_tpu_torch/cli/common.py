@@ -3,12 +3,19 @@
 from __future__ import annotations
 
 import argparse
+import sys
+from pathlib import Path
 from typing import Optional, Sequence
 
 import torch
 
+from nezha_tpu_torch.data.tokenizer import default_eos_id, load_tokenizer
+from nezha_tpu_torch.errors import NotPortedError
+from nezha_tpu_torch.models.convert import (load_train_state,
+                                            train_state_template)
 from nezha_tpu_torch.models.gpt2 import GPT2, GPT2Config
 from nezha_tpu_torch.tensor.policy import bf16_policy, f32_policy
+from nezha_tpu_torch.train import checkpoint as ckpt
 
 # The tiny GPT-2 and BERT presets (nezha_tpu/cli/train.py TINY_GPT2_KW,
 # TINY_BERT_KW), fp32.
@@ -19,22 +26,28 @@ TINY_BERT_KW = dict(vocab_size=512, max_positions=96, num_layers=2,
 
 
 def add_model_args(p: argparse.ArgumentParser,
-                   refused_sources: Sequence[str] = ()) -> None:
-    """The weight source, preset, seed and device flags. Each flag in
-    ``refused_sources`` (e.g. ``--ckpt-dir``) joins ``--random-init`` as
-    an alternative the parser accepts so that the command can refuse it
-    typed (``NotPortedError``)."""
+                   refused_sources: Sequence[str] = ("--hf-dir",)) -> None:
+    """The weight source (``--random-init`` or ``--ckpt-dir``), preset,
+    seed, device and ``--tokenizer`` flags. Each flag in
+    ``refused_sources`` joins them as an alternative the parser accepts
+    so that the command can refuse it typed (``NotPortedError``)."""
     src = p.add_mutually_exclusive_group(required=True)
     src.add_argument("--random-init", action="store_true",
                      help="seeded random weights at the preset's full "
-                          "width (the only weight source of this port so "
-                          "far)")
+                          "width")
+    src.add_argument("--ckpt-dir",
+                     help="checkpoint dir written by either package's "
+                          "train CLI (the newest step that verifies)")
     for flag in refused_sources:
         src.add_argument(flag, help="not ported yet (refused)")
     p.add_argument("--model-preset", choices=["full", "tiny"],
                    default="full",
                    help="full: GPT-2 124M, bf16 compute; tiny: the test "
                         "preset, fp32")
+    p.add_argument("--tokenizer", default=None,
+                   help="tokenizer dir (vocab.json+merges.txt or "
+                        "vocab.txt) for text prompts and output; else "
+                        "text is byte-level")
     p.add_argument("--seed", type=int, default=0,
                    help="weight seed, and the default request seed")
     p.add_argument("--device", default="cuda",
@@ -59,15 +72,90 @@ def gpt2_for_preset(preset: str, *, seed: int = 0, device="cuda",
     raise ValueError(f"unknown model preset {preset!r}")
 
 
-def resolve_eos_id(explicit: Optional[int], vocab: int,
+def resolve_eos_id(explicit: Optional[int], tokenizer, vocab: int,
                    flag: str = "--eos-id") -> Optional[int]:
-    """The EOS policy of the inference CLIs (JAX ``resolve_eos_id``
-    without the tokenizer branch: the port loads no tokenizer): an
-    explicit id at or past the vocabulary is a user error, a negative one
-    disables EOS stopping, None keeps it off."""
+    """The EOS policy of the inference CLIs: an explicit id at or past
+    the vocabulary is a user error; else the tokenizer's own EOS
+    (``default_eos_id``), dropped with a note when it lies outside the
+    model's vocab; a negative id disables EOS stopping."""
     if explicit is not None and explicit >= vocab:
         raise SystemExit(f"{flag} {explicit} outside the model vocab "
                          f"[0, {vocab})")
-    if explicit is not None and explicit < 0:
+    eos_id = explicit
+    if eos_id is None and tokenizer is not None:
+        eos_id = default_eos_id(tokenizer)
+        if eos_id is not None and eos_id >= vocab:
+            print(f"note: tokenizer EOS id {eos_id} is outside this "
+                  f"model's vocab [0, {vocab}); EOS stopping disabled",
+                  file=sys.stderr)
+            eos_id = None
+    if eos_id is not None and eos_id < 0:
+        eos_id = None
+    return eos_id
+
+
+def load_tokenizer_arg(args):
+    """The ``--tokenizer`` directory's tokenizer, or None without the
+    flag; a directory without tokenizer files exits with the reason."""
+    if not getattr(args, "tokenizer", None):
         return None
-    return explicit
+    try:
+        return load_tokenizer(args.tokenizer)
+    except FileNotFoundError as e:
+        raise SystemExit(str(e))
+
+
+def restore_variables_any(ckpt_dir: str, model: torch.nn.Module) -> int:
+    """Load the newest checkpoint in ``ckpt_dir`` that verifies into
+    ``model`` (its ``variables``: weights and BatchNorm statistics; the
+    optimizer state is not read); -> its step. The dense npz layout
+    only: the per-shard layout (``step_*.sharded``, ROADMAP A3), the
+    graph engine's and a ``--scan-layers`` trunk's (A7) raise
+    ``NotPortedError``; no checkpoint at all exits."""
+    newest = ckpt.latest_step(ckpt_dir)
+    if newest is None:
+        if any(Path(ckpt_dir).glob("step_*.sharded")):
+            raise NotPortedError(
+                f"{ckpt_dir} holds per-shard checkpoints (step_*.sharded, "
+                f"written by zero1/gspmd/pp training): the port reads the "
+                f"dense npz layout only (ROADMAP A3)")
+        raise SystemExit(f"no checkpoint (npz) in {ckpt_dir}")
+    keys = ckpt.checkpoint_keys(ckpt_dir, newest)
+    if not any(k.startswith("variables/") for k in keys):
+        raise NotPortedError(
+            f"{ckpt_dir}: the newest checkpoint has the graph engine's "
+            f"layout (no variables/ leaves); the port has no graph "
+            f"engine (ROADMAP A7)")
+    if any(f"/{s}/" in k for k in keys for s in ("h_scan", "layers_scan")):
+        raise NotPortedError(
+            f"{ckpt_dir}: the newest checkpoint stores a --scan-layers "
+            f"trunk; the port does not take scan_layers (ROADMAP A7)")
+    template = train_state_template(model, rng=False)
+    flat, step = ckpt.try_restore(ckpt_dir, template)
+    if flat is None:
+        raise SystemExit(f"no checkpoint in {ckpt_dir} passes "
+                         f"verification")
+    load_train_state(flat, model)
+    print(f"restored step {step} from {ckpt_dir}", file=sys.stderr)
+    return step
+
+
+def load_gpt2_for_inference(args, **overrides) -> GPT2:
+    """The inference CLIs' GPT-2 from ``--ckpt-dir`` or
+    ``--random-init`` at ``--model-preset`` (full decodes in bf16, tiny in
+    fp32, as JAX); ``overrides`` replace config fields. ``--hf-dir``
+    raises ``NotPortedError``; ``cuda`` without a card exits."""
+    if getattr(args, "hf_dir", None):
+        raise NotPortedError(
+            "--hf-dir is not ported: the JAX package reads a Hugging Face "
+            "checkpoint through `transformers`, which the port does not "
+            "depend on (ROADMAP A2); use --ckpt-dir or --random-init")
+    if (torch.device(args.device).type == "cuda"
+            and not torch.cuda.is_available()):
+        raise SystemExit("no CUDA device: pass --device cpu to run on the "
+                         "CPU")
+    model = gpt2_for_preset(args.model_preset, seed=args.seed,
+                            device=args.device, **overrides)
+    if args.ckpt_dir:
+        restore_variables_any(args.ckpt_dir, model)
+    return model

@@ -3,20 +3,25 @@
     python -m nezha_tpu_torch.cli.generate --random-init --model-preset full \\
         --prompt-tokens 15496,995 --max-new-tokens 32 --temperature 0.8 \\
         --top-k 40
+    python -m nezha_tpu_torch.cli.generate --ckpt-dir C --tokenizer D \\
+        --prompt "def main(" --max-new-tokens 32 --temperature 0
+
+Weights: ``--ckpt-dir`` (the newest checkpoint of either package's train
+CLI that verifies) or seeded random (``--random-init``); ``--hf-dir`` is
+refused with ``NotPortedError`` (it needs ``transformers``). As in JAX
+the full preset decodes in bf16 and the tiny one in fp32;
+``--ln-impl pallas`` runs every LayerNorm on the fused kernels.
 
 Prompts: token ids (``--prompt-tokens 15496,995``), a binary token file
-(``--prompt-file``, uint16, or int32 with ``--prompt-i32``), or raw text
-(``--prompt``), encoded byte-level (the vocab-256 encoding the JAX
-package's ``data/pack.py`` trains with); text prompts decode back to text
-the same way. Prints one JSON object: ``prompt_len``, ``tokens`` (and
-``text`` for a text prompt), ``eos_id`` when set, and with
-``--num-samples N > 1`` the ``samples`` list of N sampled continuations
-of the one prompt, decoded together as one batch.
-
-Weights are seeded random (``--random-init``); ``--ckpt-dir``,
-``--hf-dir`` and ``--tokenizer`` are refused with ``NotPortedError``
-until checkpoint interop and a tokenizer are ported. Runs on ``cuda``
-unless given ``--device cpu``.
+(``--prompt-file``, uint16, or int32 with ``--prompt-i32``), or text
+(``--prompt``), encoded with ``--tokenizer`` (no special tokens) or else
+byte-level (the vocab-256 encoding of ``data/pack.py``). Prints one JSON
+object: ``prompt_len``, ``tokens``, ``text`` (decoded by the tokenizer,
+with ``unknown_tokens`` counting ids outside its vocab; byte-level for a
+text prompt without one, with ``non_byte_tokens``), ``eos_id`` when set
+(default: the tokenizer's EOS), and with ``--num-samples N > 1`` the
+``samples`` list of N sampled continuations of the one prompt, decoded
+together as one batch. Runs on ``cuda`` unless given ``--device cpu``.
 """
 
 from __future__ import annotations
@@ -28,8 +33,10 @@ import sys
 import numpy as np
 import torch
 
-from nezha_tpu_torch.cli.common import (add_model_args, gpt2_for_preset,
-                                        resolve_eos_id)
+from nezha_tpu_torch.cli.common import (add_model_args,
+                                        load_gpt2_for_inference,
+                                        load_tokenizer_arg, resolve_eos_id)
+from nezha_tpu_torch.data.tokenizer import encode_plain
 from nezha_tpu_torch.errors import NotPortedError
 from nezha_tpu_torch.models.generate import generate
 
@@ -39,14 +46,14 @@ def build_parser() -> argparse.ArgumentParser:
                                 description=__doc__,
                                 formatter_class=argparse
                                 .RawDescriptionHelpFormatter)
-    add_model_args(p, refused_sources=("--ckpt-dir", "--hf-dir"))
+    add_model_args(p)
+    p.add_argument("--ln-impl", choices=["xla", "pallas"], default="xla",
+                   help="LayerNorm: tensor ops, or the fused kernels")
     p.add_argument("--prompt-tokens", default=None,
                    help="comma-separated token ids, e.g. 15496,995")
     p.add_argument("--prompt", default=None,
-                   help="raw text, encoded byte-level; the output decodes "
-                        "back to text")
-    p.add_argument("--tokenizer", default=None,
-                   help="not ported yet (refused)")
+                   help="text, encoded with --tokenizer (else "
+                        "byte-level); the output decodes back to text")
     p.add_argument("--prompt-file", default=None,
                    help="binary token file (uint16 unless --prompt-i32)")
     p.add_argument("--prompt-i32", action="store_true")
@@ -66,7 +73,7 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
-def _prompt_ids(args) -> np.ndarray:
+def _prompt_ids(args, tokenizer=None) -> np.ndarray:
     given = [x is not None
              for x in (args.prompt_tokens, args.prompt, args.prompt_file)]
     if sum(given) != 1:
@@ -75,6 +82,11 @@ def _prompt_ids(args) -> np.ndarray:
     if args.prompt is not None:
         if not args.prompt:
             raise SystemExit("--prompt is empty")
+        if tokenizer is not None:
+            ids = np.asarray(encode_plain(tokenizer, args.prompt), np.int64)
+            if ids.size == 0:
+                raise SystemExit("--prompt encoded to zero tokens")
+            return ids[None, :]
         ids = np.frombuffer(args.prompt.encode("utf-8"), np.uint8)
         return ids.astype(np.int64)[None, :]
     if args.prompt_tokens is not None:
@@ -93,25 +105,17 @@ def _prompt_ids(args) -> np.ndarray:
     return ids[None, :]
 
 
-def _refuse_unported(args) -> None:
-    for flag, value in (("--ckpt-dir", args.ckpt_dir),
-                        ("--hf-dir", args.hf_dir),
-                        ("--tokenizer", args.tokenizer)):
-        if value is not None:
-            raise NotPortedError(
-                f"{flag} is not ported: the port has no checkpoint reader "
-                f"or tokenizer yet (ROADMAP A2); use --random-init with "
-                f"token-id or byte-level prompts")
-
-
 def run(args) -> dict:
     """Generate as the flags say, print the JSON result and return it.
     Raises NotPortedError for a refused flag."""
-    _refuse_unported(args)
-    model = gpt2_for_preset(args.model_preset, seed=args.seed,
-                            device=args.device)
-    prompt = _prompt_ids(args)
+    model = load_gpt2_for_inference(args, ln_impl=args.ln_impl)
+    tokenizer = load_tokenizer_arg(args)
+    prompt = _prompt_ids(args, tokenizer)
     vocab = model.cfg.vocab_size
+    if tokenizer is not None and tokenizer.vocab_size > vocab:
+        raise SystemExit(
+            f"tokenizer vocab {tokenizer.vocab_size} exceeds model vocab "
+            f"{vocab}; wrong --tokenizer for this checkpoint?")
     if prompt.max() >= vocab or prompt.min() < 0:
         raise SystemExit(f"prompt ids must be in [0, {vocab}); "
                          f"got max {int(prompt.max())}")
@@ -133,7 +137,7 @@ def run(args) -> dict:
         raise SystemExit("--num-samples > 1 needs sampling (greedy "
                          "decoding is deterministic — every sample would "
                          "be identical); pass --temperature > 0")
-    eos_id = resolve_eos_id(args.eos_id, vocab)
+    eos_id = resolve_eos_id(args.eos_id, tokenizer, vocab)
     if args.num_samples > 1:
         prompt = np.repeat(prompt, args.num_samples, axis=0)
     gen = torch.Generator(device=args.device)
@@ -146,7 +150,20 @@ def run(args) -> dict:
 
     def row_result(new_tokens: list) -> dict:
         result = {"tokens": new_tokens}
-        if args.prompt is not None:
+        if tokenizer is not None:
+            # decode() skips ids outside the vocab: count them loudly.
+            known = (tokenizer.decoder if hasattr(tokenizer, "decoder")
+                     else tokenizer.ids_to_tokens)
+            dropped = sum(t not in known for t in new_tokens)
+            result["text"] = tokenizer.decode(new_tokens)
+            if dropped:
+                result["unknown_tokens"] = dropped
+                print(f"warning: {dropped}/{len(new_tokens)} generated ids "
+                      f"are outside this tokenizer's vocab "
+                      f"({tokenizer.vocab_size}) — wrong --tokenizer for "
+                      f"this checkpoint? \"text\" is partial",
+                      file=sys.stderr)
+        elif args.prompt is not None:
             # Byte-level round trip; ids >= 256 have no byte and are
             # counted, not silently dropped.
             dropped = sum(t >= 256 for t in new_tokens)

@@ -2,17 +2,26 @@
 ``nezha-serve``'s stdio front end.
 
     python -m nezha_tpu_torch.cli.serve --random-init --model-preset full
+    python -m nezha_tpu_torch.cli.serve --ckpt-dir C --tokenizer D
 
-Each stdin line is one request object::
+Weights come from ``--ckpt-dir`` (the newest checkpoint of either
+package's train CLI that verifies) or are seeded random
+(``--random-init``); ``--hf-dir`` is refused (it needs ``transformers``).
+Each stdin line is one request object, with ``prompt_tokens`` or a text
+``prompt`` (encoded with ``--tokenizer``, else byte-level)::
 
     {"id": "a", "prompt_tokens": [5, 17, 3], "max_new_tokens": 8,
      "temperature": 0.8, "top_k": 40, "top_p": 0.9, "seed": 1,
      "eos_id": 50256, "deadline_s": 30}
+    {"id": "b", "prompt": "def main(", "max_new_tokens": 8}
 
-and each request gets one stdout line when it finishes::
+and each request gets one stdout line when it finishes, its tokens
+decoded into ``text`` the same way::
 
-    {"id": "a", "event": "done", "tokens": [...], "finish_reason":
-     "length", "ttft_s": ..., "latency_s": ...}
+    {"id": "a", "event": "done", "tokens": [...], "text": "...",
+     "finish_reason": "length", "ttft_s": ..., "latency_s": ...}
+
+``eos_id`` defaults to ``--eos-id``, else the tokenizer's EOS.
 
 A malformed line gets ``{"id": ..., "event": "error", "error": ...}``.
 The server exits once stdin closes and every request has finished.
@@ -35,7 +44,11 @@ import time
 
 import torch
 
-from nezha_tpu_torch.cli.common import add_model_args, gpt2_for_preset
+from nezha_tpu_torch.cli.common import (add_model_args,
+                                        load_gpt2_for_inference,
+                                        load_tokenizer_arg, resolve_eos_id)
+from nezha_tpu_torch.data.tokenizer import encode_plain
+from nezha_tpu_torch.errors import NotPortedError
 from nezha_tpu_torch.parallel.mesh import make_mesh
 from nezha_tpu_torch.serve import (Engine, QueueFull, Request, Scheduler,
                                    ServeConfig, ShardedEngine)
@@ -100,8 +113,7 @@ def build_scheduler(args) -> Scheduler:
             make_mesh({"tp": args.mesh}, device_type="cuda")
         except ValueError as e:
             raise SystemExit(f"--mesh {args.mesh}: too few CUDA cards: {e}")
-    model = gpt2_for_preset(args.model_preset, seed=args.seed,
-                            device=args.device)
+    model = load_gpt2_for_inference(args)
     try:
         cfg = ServeConfig(
             max_batch_size=args.max_batch_size,
@@ -133,16 +145,25 @@ def build_scheduler(args) -> Scheduler:
     return Scheduler(engine)
 
 
-def parse_request(obj, args, vocab: int) -> Request:
+def parse_request(obj, args, vocab: int, tokenizer=None,
+                  eos_id=None) -> Request:
     """One wire object -> Request. Raises ValueError on bad input."""
     if not isinstance(obj, dict):
         raise ValueError("request must be a JSON object")
-    if "prompt_tokens" not in obj:
-        raise ValueError("prompt_tokens is required")
-    prompt = [int(t) for t in obj["prompt_tokens"]]
-    if not prompt or max(prompt) >= vocab or min(prompt) < 0:
-        raise ValueError(f"prompt_tokens must be non-empty ids in "
-                         f"[0, {vocab})")
+    if ("prompt_tokens" in obj) == ("prompt" in obj):
+        raise ValueError("pass exactly one of prompt_tokens / prompt")
+    if "prompt_tokens" in obj:
+        prompt = [int(t) for t in obj["prompt_tokens"]]
+    else:
+        text = obj["prompt"]
+        if not isinstance(text, str) or not text:
+            raise ValueError("prompt must be a non-empty string")
+        prompt = (encode_plain(tokenizer, text) if tokenizer is not None
+                  else list(text.encode("utf-8")))
+    if not prompt:
+        raise ValueError("prompt encoded to zero tokens")
+    if max(prompt) >= vocab or min(prompt) < 0:
+        raise ValueError(f"prompt ids must be in [0, {vocab})")
 
     def num(key, cast, default=None):
         v = obj.get(key, default)
@@ -159,13 +180,23 @@ def parse_request(obj, args, vocab: int) -> Request:
                            args.max_new_tokens),
         temperature=num("temperature", float, 0.0),
         top_k=num("top_k", int), top_p=num("top_p", float),
-        eos_id=num("eos_id", int, args.eos_id),
+        eos_id=num("eos_id", int, eos_id),
         seed=num("seed", int, args.seed),
         deadline_s=num("deadline_s", float),
         request_id=obj.get("id"))
 
 
-def run_stdio(scheduler: Scheduler, args, stdin=None, stdout=None) -> int:
+def decode_text(tokens, tokenizer) -> str:
+    """Tokens -> text: the tokenizer's decode, else byte-level (ids
+    past 255 skipped)."""
+    if tokenizer is not None:
+        return tokenizer.decode(tokens)
+    return bytes(t for t in tokens if t < 256).decode("utf-8",
+                                                       errors="replace")
+
+
+def run_stdio(scheduler: Scheduler, args, stdin=None, stdout=None,
+              tokenizer=None) -> int:
     """A reader thread feeds the queue as lines arrive (waiting for room:
     stdin is the backpressure channel); this thread drives decoding."""
     stdin = stdin if stdin is not None else sys.stdin
@@ -179,6 +210,7 @@ def run_stdio(scheduler: Scheduler, args, stdin=None, stdout=None) -> int:
 
     def on_finish(res):
         out = {"id": res.request_id, "event": "done", "tokens": res.tokens,
+               "text": decode_text(res.tokens, tokenizer),
                "finish_reason": res.finish_reason, "ttft_s": res.ttft_s,
                "latency_s": res.latency_s}
         if res.error is not None:
@@ -188,6 +220,7 @@ def run_stdio(scheduler: Scheduler, args, stdin=None, stdout=None) -> int:
 
     scheduler.on_finish = on_finish
     vocab = scheduler.engine.vocab
+    eos_id = resolve_eos_id(args.eos_id, tokenizer, vocab)
     done_reading = threading.Event()
 
     def reader():
@@ -199,7 +232,8 @@ def run_stdio(scheduler: Scheduler, args, stdin=None, stdout=None) -> int:
                 obj = None
                 try:
                     obj = json.loads(line)
-                    req = parse_request(obj, args, vocab)
+                    req = parse_request(obj, args, vocab, tokenizer,
+                                        eos_id)
                 except ValueError as e:
                     rid = obj.get("id") if isinstance(obj, dict) else None
                     emit({"id": rid, "event": "error", "error": str(e)})
@@ -231,7 +265,11 @@ def run_stdio(scheduler: Scheduler, args, stdin=None, stdout=None) -> int:
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
-    return run_stdio(build_scheduler(args), args)
+    try:
+        scheduler = build_scheduler(args)
+    except NotPortedError as e:
+        raise SystemExit(f"nezha_tpu_torch.cli.serve: {e}")
+    return run_stdio(scheduler, args, tokenizer=load_tokenizer_arg(args))
 
 
 if __name__ == "__main__":

@@ -1,7 +1,8 @@
-"""Train a benchmark config on synthetic data (counterpart of
-``nezha_tpu/cli/train.py``).
+"""Train a benchmark config (counterpart of ``nezha_tpu/cli/train.py``).
 
     python -m nezha_tpu_torch.cli.train --config gpt2_124m --steps 20
+    python -m nezha_tpu_torch.cli.train --config gpt2_124m --data-dir D \
+        --ckpt-dir C --ckpt-every 10 --ckpt-keep 2 --eval
     python -m nezha_tpu_torch.cli.train --config bert_base_zero1 --eval
     python -m nezha_tpu_torch.cli.train --config resnet50_imagenet
     python -m nezha_tpu_torch.cli.train --config wrn101_large_batch \
@@ -51,7 +52,29 @@ on ``cuda`` unless ``--device`` says otherwise. Each log window prints a
 JSON metrics line on stderr, each periodic eval a line with its
 ``eval_*`` metrics, the final eval ``{"eval": {...}}``; the last line on
 stdout is ``{"final": {...}}``, with the final eval's ``eval_*`` keys.
-Every other flag of the JAX CLI is refused with an error that names it.
+
+``--data-dir D`` trains from disk through the native loaders
+(``data/native.py``), as the JAX CLI does: ``D/train.nzr`` image records
+for the image configs (a random ``--crop`` and flip), random windows of
+``D/train.tokens.u16`` (or ``.i32``) for ``gpt2_124m`` (ids at or past
+the model's vocab are refused) and for ``bert_base_zero1`` under
+dynamic MLM masking (``data/mlm.py``; the ``[MASK]`` id from
+``--mlm-mask-token``, else the corpus's ``.meta.json`` sidecar or a
+``vocab.txt`` beside it, else 103, refused on a byte-packed corpus), and
+MNIST IDX files under ``D/mnist``; otherwise a note says the run uses
+synthetic data. The eval then reads ``D/val.nzr`` (center crop, a batch
+that divides the record count) or ``D/val.tokens.*`` (sequential
+windows, one pass) when present.
+
+``--ckpt-dir C`` resumes from C's newest checkpoint that verifies (``resumed
+from step N`` on stderr), saves every ``--ckpt-every`` steps of the
+global count and once at the end, keeping the newest ``--ckpt-keep``;
+``--eval-every`` points stay on multiples of the global step. The files
+are the JAX package's (``train/checkpoint.py``), so either package
+resumes the other's run; the port's dropout masks follow from (key,
+step), not from JAX's key splits. ``--label-smoothing`` applies to the
+image and MLP configs. Every other flag of the JAX CLI is refused with an
+error that names it.
 """
 
 from __future__ import annotations
@@ -61,9 +84,11 @@ import dataclasses
 import itertools
 import json
 import math
+import os
 import sys
 from typing import Callable, Dict, Iterator, List, Optional
 
+import numpy as np
 import torch
 
 from nezha_tpu_torch.cli.common import TINY_BERT_KW, gpt2_for_preset
@@ -83,18 +108,18 @@ from nezha_tpu_torch.optim import (Optimizer, adamw, matrix_decay_mask,
 from nezha_tpu_torch.tensor.policy import bf16_policy
 from nezha_tpu_torch.train import (Trainer, accuracy, evaluate,
                                    lm_token_stats, mlm_token_stats)
+from nezha_tpu_torch.train.loop import prng_key
 
 CONFIGS = ("mlp_mnist", "resnet50_imagenet", "gpt2_124m", "bert_base_zero1",
            "wrn101_large_batch")
+IMAGE_CONFIGS = ("resnet50_imagenet", "wrn101_large_batch")
 # Flags of the JAX train CLI this port does not take yet.
 NOT_PORTED_FLAGS = frozenset((
     "--mesh", "--parallel", "--microbatches", "--sp-flash", "--attn-impl",
-    "--moe-experts", "--optimizer", "--lr", "--grad-accum",
-    "--label-smoothing", "--mlm-mask-token", "--remat", "--graph-bf16",
-    "--scan-layers", "--grad-allreduce", "--platform", "--log-every",
-    "--prefetch", "--ckpt-dir", "--ckpt-every", "--ckpt-keep",
-    "--metrics-file", "--run-dir", "--trace-dir", "--data-dir", "--crop",
-    "--failure-check-every", "--on-failure", "--rejoin-timeout",
+    "--moe-experts", "--optimizer", "--lr", "--grad-accum", "--remat",
+    "--graph-bf16", "--scan-layers", "--grad-allreduce", "--platform",
+    "--log-every", "--prefetch", "--metrics-file", "--run-dir",
+    "--trace-dir", "--failure-check-every", "--on-failure", "--rejoin-timeout",
     "--log-memory", "--profile-dir", "--profile-steps", "--coordinator",
     "--serve-coordinator", "--world-size", "--rank-hint",
     "--no-jax-distributed", "--engine"))
@@ -120,6 +145,7 @@ class Config:
     parallel_mode: str = "single"
     eval_batches: Optional[Callable[[int], Iterator[dict]]] = None
     eval_stat: Optional[Callable] = None
+    seq_len: Optional[int] = None   # gpt2_124m: tokens per row
 
 
 def build_config(name: str, preset: str = "full", steps: int = 100,
@@ -192,7 +218,7 @@ def build_config(name: str, preset: str = "full", steps: int = 100,
     return Config(model, lm_loss, tokens, opt, 8, "dp",
                   lambda bs: itertools.islice(tokens(bs, seed=1),
                                               4 if tiny else 8),
-                  lm_token_stats)
+                  lm_token_stats, seq)
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -214,7 +240,9 @@ def build_parser() -> argparse.ArgumentParser:
                    help="gpt2_124m: tokens per row; also sizes the "
                         "position table (default 1024, tiny 64 with a "
                         "96-row table)")
-    p.add_argument("--seed", type=int, default=0, help="weight seed")
+    p.add_argument("--seed", type=int, default=0,
+                   help="weight seed, the loaders' seed, and the run's "
+                        "PRNG key (JAX's PRNGKey(seed))")
     p.add_argument("--dropout", type=float, default=None,
                    help="gpt2_124m: the dropout rate")
     p.add_argument("--clip-norm", type=float, default=None,
@@ -232,6 +260,25 @@ def build_parser() -> argparse.ArgumentParser:
                         "(implies the final --eval pass)")
     p.add_argument("--eval-batches", type=int, default=None,
                    help="cap each eval pass to N batches")
+    p.add_argument("--data-dir", default=None,
+                   help="train from disk: train.nzr (image configs), "
+                        "train.tokens.u16|i32 (gpt2, bert), mnist/ (mlp); "
+                        "val.nzr / val.tokens.* for the eval")
+    p.add_argument("--crop", type=int, default=224,
+                   help="image configs with --data-dir: crop size")
+    p.add_argument("--mlm-mask-token", type=int, default=None,
+                   help="bert --data-dir only: [MASK] id (default: the "
+                        "corpus's tokenizer metadata, else 103)")
+    p.add_argument("--label-smoothing", type=float, default=None,
+                   help="image and MLP configs: CE against (1 - eps) "
+                        "one_hot + eps / V")
+    p.add_argument("--ckpt-dir", default=None,
+                   help="resume from and save checkpoints here (the JAX "
+                        "package's npz format)")
+    p.add_argument("--ckpt-every", type=int, default=0,
+                   help="save every N global steps (0: only at the end)")
+    p.add_argument("--ckpt-keep", type=int, default=None,
+                   help="keep only the N newest checkpoints (default: all)")
     return p
 
 
@@ -264,17 +311,232 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
         # An empty pass would raise mid-training under --eval-every.
         parser.error(f"--eval-batches must be >= 1, got "
                      f"{args.eval_batches}")
+    if args.ckpt_keep is not None and args.ckpt_keep <= 0:
+        parser.error(f"--ckpt-keep must be >= 1 (got {args.ckpt_keep}); "
+                     f"omit it to keep all checkpoints")
+    if args.ckpt_every < 0:
+        parser.error(f"--ckpt-every must be >= 0, got {args.ckpt_every}")
+    if args.label_smoothing is not None:
+        if args.config not in ("mlp_mnist",) + IMAGE_CONFIGS:
+            parser.error("--label-smoothing applies to the integer-label "
+                         "CE configs (mlp_mnist, "
+                         + ", ".join(IMAGE_CONFIGS) + ")")
+        if not 0.0 < args.label_smoothing < 1.0:
+            parser.error(f"--label-smoothing must be in (0, 1), got "
+                         f"{args.label_smoothing}")
+    if args.mlm_mask_token is not None and (
+            args.config != "bert_base_zero1" or not args.data_dir):
+        parser.error("--mlm-mask-token applies to bert_base_zero1 with "
+                     "--data-dir (the dynamic-MLM data path)")
     return args
 
 
-def run_eval(cfg: Config, batch_size: int,
-             max_batches: Optional[int]) -> Optional[Dict[str, float]]:
-    """One pass over the config's eval split with the current weights,
-    or None when the config has none."""
-    if cfg.eval_batches is None:
+def _token_file(data_dir: str, split: str):
+    """(path, dtype) of ``<split>.tokens.u16`` or ``.i32`` in
+    ``data_dir``, or None."""
+    for name, dtype in ((f"{split}.tokens.u16", np.uint16),
+                        (f"{split}.tokens.i32", np.int32)):
+        path = os.path.join(data_dir, name)
+        if os.path.exists(path):
+            return path, dtype
+    return None
+
+
+def _mask_token_from_corpus_sidecar(tok_path: str) -> Optional[int]:
+    """The packed corpus's own ``[MASK]`` id: the ``<tokens>.meta.json``
+    sidecar the packer writes, else a ``vocab.txt`` beside the tokens;
+    None when neither exists."""
+    meta_path = tok_path + ".meta.json"
+    if os.path.isfile(meta_path):
+        try:
+            with open(meta_path, encoding="utf-8") as f:
+                meta = json.load(f)
+        except (OSError, ValueError):
+            meta = {}
+        if meta.get("mask_token_id") is not None:
+            return int(meta["mask_token_id"])
+    vocab_txt = os.path.join(os.path.dirname(os.path.abspath(tok_path)),
+                             "vocab.txt")
+    if os.path.isfile(vocab_txt):
+        with open(vocab_txt, encoding="utf-8") as f:
+            for i, line in enumerate(f):
+                if line.rstrip("\n") == "[MASK]":
+                    return i
+    return None
+
+
+def resolve_mlm_mask_token(args, vocab_size: int, tok_path: str,
+                           sample_ids) -> int:
+    """The MLM ``[MASK]`` id for a packed corpus: ``--mlm-mask-token``;
+    else the corpus's tokenizer metadata (refused when outside the
+    model's vocab); else 103, refused when the corpus looks byte-packed
+    (every sampled id < 256), where 103 is a real byte."""
+    if args.mlm_mask_token is not None:
+        return args.mlm_mask_token
+    resolved = _mask_token_from_corpus_sidecar(tok_path)
+    if resolved is not None:
+        if resolved >= vocab_size:
+            raise SystemExit(
+                f"{tok_path}: the corpus tokenizer's [MASK] id {resolved} "
+                f"is outside the model vocab ({vocab_size}); the corpus "
+                f"and model vocabularies do not match")
+        print(f"mlm: [MASK] id {resolved} resolved from the corpus "
+              f"tokenizer metadata next to {tok_path}", file=sys.stderr)
+        return resolved
+    mask_token = min(103, vocab_size - 1)
+    sample = np.asarray(sample_ids).ravel()
+    if sample.size and int(sample.max()) < 256:
+        raise SystemExit(
+            f"{tok_path} looks byte-packed (sampled ids all < 256), so "
+            f"the default mask_token {mask_token} is a real byte value; "
+            f"pass an explicit --mlm-mask-token (>= 256 reserves an id "
+            f"byte data cannot produce) or use a WordPiece-tokenized "
+            f"corpus")
+    return mask_token
+
+
+def data_source(args, cfg: Config, batch_size: int):
+    """Training batches: from ``--data-dir`` through the native loaders
+    when it holds the config's files, else the config's synthetic
+    stream. -> (iterator, closer or None). Token windows come from one
+    loader worker, so the seed fixes their order (two workers' batches
+    would interleave in arrival order)."""
+    from nezha_tpu_torch.data.mlm import mlm_batches_from_tokens
+    from nezha_tpu_torch.data.native import ImageRecordLoader, TokenLoader
+
+    d = args.data_dir
+    if d:
+        if args.config in IMAGE_CONFIGS:
+            rec = os.path.join(d, "train.nzr")
+            if os.path.exists(rec):
+                loader = ImageRecordLoader(rec, batch_size, crop=args.crop,
+                                           seed=args.seed,
+                                           train_augment=True)
+                print(f"data: {loader.num_examples} image records from "
+                      f"{rec}", file=sys.stderr)
+                return iter(loader), loader.close
+        elif args.config == "gpt2_124m" and _token_file(d, "train"):
+            tok, dtype = _token_file(d, "train")
+            vocab = cfg.model.cfg.vocab_size
+            sample = np.fromfile(tok, dtype=dtype, count=65536)
+            if sample.size and int(sample.max()) >= vocab:
+                raise SystemExit(
+                    f"{tok} holds token ids up to {int(sample.max())} but "
+                    f"the model vocab is {vocab}; re-pack with a matching "
+                    f"tokenizer (pack_text --tokenizer/--learn-bpe) or "
+                    f"train the full-vocab preset")
+            loader = TokenLoader(tok, seq_len=cfg.seq_len,
+                                 batch_size=batch_size, dtype=dtype,
+                                 seed=args.seed, num_workers=1)
+            print(f"data: {loader.num_tokens} tokens from {tok}",
+                  file=sys.stderr)
+            return iter(loader), loader.close
+        elif args.config == "bert_base_zero1" and _token_file(d, "train"):
+            tok, dtype = _token_file(d, "train")
+            mcfg = cfg.model.cfg
+            mask_token = resolve_mlm_mask_token(
+                args, mcfg.vocab_size, tok,
+                np.fromfile(tok, dtype=dtype, count=32768))
+            loader = TokenLoader(tok, seq_len=mcfg.max_positions,
+                                 batch_size=batch_size, dtype=dtype,
+                                 seed=args.seed, num_workers=1)
+            print(f"data: {loader.num_tokens} tokens from {tok} (dynamic "
+                  f"MLM masking, mask_token={mask_token})", file=sys.stderr)
+            return mlm_batches_from_tokens(
+                iter(loader), vocab_size=mcfg.vocab_size,
+                mask_token=mask_token, seed=args.seed,
+                drop_last_column=True), loader.close
+        elif args.config == "mlp_mnist":
+            os.environ.setdefault("NEZHA_DATA_DIR", d)
+            if os.path.isdir(os.path.join(d, "mnist")):
+                print(f"data: MNIST IDX files from {d}/mnist",
+                      file=sys.stderr)
+                return cfg.batches(batch_size), None
+        print(f"data: no records for {args.config} in {d}; using "
+              f"synthetic data", file=sys.stderr)
+    return cfg.batches(batch_size), None
+
+
+def eval_source(args, cfg: Config, batch_size: int):
+    """Eval batches: ``val.nzr`` (center crop) or ``val.tokens.*``
+    (sequential windows over the whole file) in ``--data-dir`` when
+    present, else the config's eval split. -> (iterator, closer, stat
+    fn); the iterator is None when there is no eval."""
+    from nezha_tpu_torch.data.mlm import mlm_batches_from_tokens
+    from nezha_tpu_torch.data.native import ImageRecordLoader, nzr_count
+
+    d = args.data_dir
+    if d and args.config in IMAGE_CONFIGS:
+        rec = os.path.join(d, "val.nzr")
+        if os.path.exists(rec):
+            # The largest batch <= the requested one that divides the
+            # record count: the loader yields full batches only.
+            n = nzr_count(rec)
+            bs = max(k for k in range(1, min(batch_size, n) + 1)
+                     if n % k == 0)
+            if bs != batch_size:
+                print(f"eval: batch {batch_size} -> {bs} to cover all "
+                      f"{n} val records exactly", file=sys.stderr)
+            loader = ImageRecordLoader(rec, bs, crop=args.crop,
+                                       train_augment=False, epochs=1)
+            print(f"eval: {n} val records from {rec}", file=sys.stderr)
+            return iter(loader), loader.close, accuracy
+    if d and args.config in ("gpt2_124m", "bert_base_zero1") and \
+            _token_file(d, "val"):
+        tok, dtype = _token_file(d, "val")
+        mcfg = cfg.model.cfg
+        seq = cfg.seq_len if args.config == "gpt2_124m" \
+            else mcfg.max_positions
+        ids = np.fromfile(tok, dtype=dtype).astype(np.int32)
+        if ids.size and int(ids.max()) >= mcfg.vocab_size:
+            raise SystemExit(
+                f"{tok} holds token ids up to {int(ids.max())} but the "
+                f"model vocab is {mcfg.vocab_size}; re-pack the val split "
+                f"with the matching tokenizer")
+        win = seq + 1
+        n_win = ids.size // win
+        if n_win < 1:
+            raise SystemExit(f"{tok}: {ids.size} tokens is fewer than one "
+                             f"{win}-token eval window")
+        ids = ids[:n_win * win].reshape(n_win, win)
+        bs = min(batch_size, n_win)
+
+        def batches():
+            # Full batches, then the rest as a smaller last batch.
+            full = (n_win // bs) * bs
+            for i in range(0, full, bs):
+                yield {"tokens": ids[i:i + bs]}
+            if full < n_win:
+                yield {"tokens": ids[full:]}
+
+        print(f"eval: {n_win} held-out windows from {tok}", file=sys.stderr)
+        it = batches()
+        if args.config == "bert_base_zero1":
+            mask_token = resolve_mlm_mask_token(args, mcfg.vocab_size, tok,
+                                                ids)
+            it = mlm_batches_from_tokens(
+                ({"tokens": b["tokens"][:, :-1]} for b in it),
+                vocab_size=mcfg.vocab_size, mask_token=mask_token,
+                seed=args.seed)
+        return it, None, cfg.eval_stat
+    if cfg.eval_batches is not None:
+        return cfg.eval_batches(batch_size), None, cfg.eval_stat
+    return None, None, None
+
+
+def run_eval(args, cfg: Config,
+             batch_size: int) -> Optional[Dict[str, float]]:
+    """One pass over the eval split with the current weights, or None
+    when there is none."""
+    batches, close, stat = eval_source(args, cfg, batch_size)
+    if batches is None:
         return None
-    return evaluate(cfg.model, cfg.eval_batches(batch_size), cfg.eval_stat,
-                    max_batches=max_batches)
+    try:
+        return evaluate(cfg.model, batches, stat,
+                        max_batches=args.eval_batches)
+    finally:
+        if close is not None:
+            close()
 
 
 def run(args: argparse.Namespace) -> Dict[str, float]:
@@ -294,36 +556,68 @@ def run(args: argparse.Namespace) -> Dict[str, float]:
     optimizer, loss_fn = cfg.optimizer, cfg.loss_fn
     if args.clip_norm is not None:
         optimizer = with_grad_clipping(optimizer, args.clip_norm)
+    if args.label_smoothing:
+        eps = args.label_smoothing
+
+        def loss_fn(logits, batch):
+            return softmax_cross_entropy_with_integer_labels(
+                logits, batch["label"], label_smoothing=eps)
     batch_size = args.batch_size or cfg.default_batch
 
     def log(step: int, metrics: Dict[str, float]) -> None:
         print(json.dumps(metrics), file=sys.stderr, flush=True)
 
-    trainer = Trainer(cfg.model, optimizer, loss_fn, log_every=LOG_EVERY,
+    trainer = Trainer(cfg.model, optimizer, loss_fn, rng=prng_key(args.seed),
+                      checkpoint_dir=args.ckpt_dir,
+                      checkpoint_every=args.ckpt_every,
+                      checkpoint_keep=args.ckpt_keep, log_every=LOG_EVERY,
                       metric_logger=log, examples_per_step=batch_size)
-    batches = cfg.batches(batch_size)
+    start_step = trainer.initialize()
+    if trainer.last_restore is not None:
+        print(f"resumed from step {start_step}", file=sys.stderr,
+              flush=True)
+        log(start_step, {"restore": trainer.last_restore})
+    batches, close_source = data_source(args, cfg, batch_size)
     last: Dict[str, float] = {}
-    if args.eval_every:
-        # Train in chunks that end on multiples of --eval-every, an eval
-        # pass between them; the final pass follows the last chunk.
-        done = 0
-        while done < args.steps:
-            n = min(args.eval_every - trainer.global_step % args.eval_every,
-                    args.steps - done)
-            last = trainer.fit(batches, n)
-            done += n
-            if done < args.steps:
-                results = run_eval(cfg, batch_size, args.eval_batches)
-                if results is not None:
-                    log(trainer.global_step, {
-                        "step": trainer.global_step,
-                        **{f"eval_{k}": v for k, v in results.items()}})
-    else:
-        last = trainer.fit(batches, args.steps)
+    try:
+        # A resumed run goes on where the stream stood at its step (the
+        # JAX CLI starts the stream over), so a cut run trains on the
+        # batches an unbroken one would.
+        for _ in range(start_step):
+            next(batches)
+        if args.eval_every:
+            # Train in chunks that end on global-step multiples of
+            # --eval-every (so a resumed run's eval points are the
+            # unbroken run's), an eval pass between them; the final pass
+            # follows the last chunk.
+            done = 0
+            while done < args.steps:
+                n = min(args.eval_every
+                        - trainer.global_step % args.eval_every,
+                        args.steps - done)
+                last = trainer.fit(batches, n)
+                done += n
+                if done < args.steps:
+                    results = run_eval(args, cfg, batch_size)
+                    if results is not None:
+                        log(trainer.global_step, {
+                            "step": trainer.global_step,
+                            **{f"eval_{k}": v for k, v in results.items()}})
+        else:
+            last = trainer.fit(batches, args.steps)
+    finally:
+        if close_source is not None:
+            close_source()
     if not math.isfinite(last.get("loss", math.nan)):
         raise SystemExit(f"training diverged: {last}")
+    if args.ckpt_dir and not (trainer.saves and trainer.saves[-1]["step"]
+                              == start_step + args.steps):
+        # The final save (the JAX CLI's), unless --ckpt-every just wrote it.
+        trainer.save(start_step + args.steps)
+    for record in trainer.saves:
+        log(record["step"], {"save": record})
     if args.eval or args.eval_every:
-        results = run_eval(cfg, batch_size, args.eval_batches)
+        results = run_eval(args, cfg, batch_size)
         if results is not None:
             print(json.dumps({"eval": results}), file=sys.stderr,
                   flush=True)

@@ -15,6 +15,11 @@ same way: ``tok_emb``/``pos_emb``/``type_emb/embedding``,
 a conv's ``w`` is HWIO in JAX and ``weight`` OIHW in the port, and the
 BatchNorm running statistics live in JAX's state tree and in the port's
 buffers ``mean`` and ``var``.
+
+The whole train state maps the same way (:func:`train_state_to_jax`,
+:func:`load_train_state`): a module, its optimizer state and the run's
+PRNG key become the flat keys of the JAX package's checkpoints, and
+back.
 """
 
 from __future__ import annotations
@@ -119,3 +124,128 @@ def resnet_to_jax(state_dict: Dict[str, torch.Tensor]
         else:
             params[f"{path}/{leaf}"] = arr
     return params, state
+
+
+# The optimizer slots that hold one tensor per parameter (AdamW's mu and
+# nu, momentum's velocity), keyed like the parameters in both packages.
+OPT_SLOTS = ("mu", "nu", "velocity")
+
+
+def jax_leaf_names(model: torch.nn.Module) -> Dict[str, Tuple[str, bool]]:
+    """``state_dict`` name -> (the leaf's key under ``variables/``, conv):
+    parameters under ``params/``, BatchNorm buffers under ``state/``; a
+    conv's ``weight`` is ``w`` (HWIO in JAX, OIHW here) and its ``bias``
+    ``b``. The same mapping as :func:`resnet_to_jax` and
+    :func:`params_to_jax`, whatever the model."""
+    sd = model.state_dict()
+    buffers = {name for name, _ in model.named_buffers()}
+    out = {}
+    for name, t in sd.items():
+        prefix, _, leaf = name.rpartition(".")
+        path = _to_jax_path(prefix)
+        conv = leaf == "weight" and t.dim() == 4
+        if name in buffers and leaf in _BN_STATE:
+            out[name] = (f"state/{path}/{leaf}", False)
+        elif name in buffers:
+            continue
+        elif conv:
+            out[name] = (f"params/{path}/w", True)
+        elif leaf == "bias" and prefix + ".weight" in sd:
+            out[name] = (f"params/{path}/b", False)
+        else:
+            out[name] = ("params/" + _to_jax_path(name), False)
+    return out
+
+
+def _to_jax_leaf(t: torch.Tensor, conv: bool) -> np.ndarray:
+    arr = np.array(t.detach().cpu().numpy(), copy=True) \
+        if t.dtype == torch.float32 else _array(t)
+    return np.ascontiguousarray(arr.transpose(2, 3, 1, 0)) if conv else arr
+
+
+def _from_jax_leaf(arr: np.ndarray, conv: bool) -> torch.Tensor:
+    t = torch.from_numpy(np.ascontiguousarray(arr))
+    return t.permute(3, 2, 0, 1) if conv else t
+
+
+def _opt_slots(opt_state) -> Tuple[str, ...]:
+    return tuple(s for s in OPT_SLOTS if s in (opt_state or {}))
+
+
+def train_state_template(model: torch.nn.Module, opt_state=None,
+                         rng: bool = True) -> Dict[str, np.dtype]:
+    """The keys and dtypes :func:`train_state_to_jax` writes, without
+    copying a tensor (a template for ``checkpoint.try_restore``)."""
+    names = jax_leaf_names(model)
+    sd = model.state_dict()
+    dt = {n: np.dtype(str(sd[n].dtype).replace("torch.", ""))
+          for n in names}
+    out = {f"variables/{key}": dt[n] for n, (key, _) in names.items()}
+    if opt_state is not None:
+        out["opt_state/step"] = np.dtype(np.int32)
+        for slot in _opt_slots(opt_state):
+            for n in opt_state[slot]:
+                out[f"opt_state/{slot}/{names[n][0][len('params/'):]}"] = \
+                    np.dtype(np.float32)
+    if rng:
+        out["rng"] = np.dtype(np.uint32)
+    return out
+
+
+def train_state_to_jax(model: torch.nn.Module, opt_state=None,
+                       rng=None) -> Dict[str, np.ndarray]:
+    """(module, optimizer state, PRNG key) -> the flat leaves of the JAX
+    train state: ``variables/params/<path>``, ``variables/state/<path>``
+    (BatchNorm statistics), ``opt_state/step`` (int32, 0-d),
+    ``opt_state/<slot>/<path>`` for each per-parameter slot (a conv's
+    slot in HWIO, as its weight) and ``rng`` (``uint32[2]``). Each leaf is
+    a host copy."""
+    names = jax_leaf_names(model)
+    sd = model.state_dict()
+    flat = {f"variables/{key}": _to_jax_leaf(sd[n], conv)
+            for n, (key, conv) in names.items()}
+    if opt_state is not None:
+        flat["opt_state/step"] = np.asarray(int(opt_state["step"]),
+                                            np.int32)
+        for slot in _opt_slots(opt_state):
+            for n, t in opt_state[slot].items():
+                key, conv = names[n]
+                flat[f"opt_state/{slot}/{key[len('params/'):]}"] = \
+                    _to_jax_leaf(t, conv)
+    if rng is not None:
+        flat["rng"] = np.asarray(rng, np.uint32)
+    return flat
+
+
+@torch.no_grad()
+def load_train_state(flat: Dict[str, np.ndarray], model: torch.nn.Module,
+                     opt_state=None):
+    """The inverse of :func:`train_state_to_jax`: copy the leaves into
+    ``model``'s parameters and buffers (in place, cast to their dtypes
+    on their device) and, given the optimizer state to fill, -> a new
+    one on the parameters' devices (``step`` a Python int); else None.
+    A leaf whose shape differs from the module's raises ValueError."""
+    names = jax_leaf_names(model)
+    sd = model.state_dict()
+
+    def take(key: str, conv: bool, like: torch.Tensor) -> torch.Tensor:
+        t = _from_jax_leaf(flat[key], conv)
+        if tuple(t.shape) != tuple(like.shape):
+            raise ValueError(f"checkpoint leaf {key} has shape "
+                             f"{tuple(flat[key].shape)}, the model "
+                             f"{tuple(like.shape)} (another preset or "
+                             f"--seq-len?)")
+        return t.to(device=like.device, dtype=like.dtype)
+
+    for n, (key, conv) in names.items():
+        sd[n].copy_(take(f"variables/{key}", conv, sd[n]))
+    if opt_state is None:
+        return None
+    new = {"step": int(flat["opt_state/step"])}
+    for slot in _opt_slots(opt_state):
+        new[slot] = {}
+        for n, like in opt_state[slot].items():
+            key, conv = names[n]
+            new[slot][n] = take(f"opt_state/{slot}/{key[len('params/'):]}",
+                                conv, like).clone()
+    return new

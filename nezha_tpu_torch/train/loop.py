@@ -12,6 +12,8 @@ merges it (``merge_state``).
 
 from __future__ import annotations
 
+import hashlib
+import os
 import time
 from typing import Callable, Dict, Iterator, Optional
 
@@ -19,6 +21,7 @@ import numpy as np
 import torch
 
 from nezha_tpu_torch.errors import NotPortedError
+from nezha_tpu_torch.nn.layers import Dropout
 from nezha_tpu_torch.optim.optimizers import Optimizer, apply_updates_
 
 
@@ -79,14 +82,27 @@ def make_train_step(model: torch.nn.Module, optimizer: Optimizer,
 
 
 # Trainer options of the JAX package not ported yet, with the value that
-# means "off" (checkpointing, failure detection and rejoin, profiling,
-# custom step / sharding / save functions).
-_NOT_PORTED = {"checkpoint_dir": None, "checkpoint_every": 0,
-               "tracer": None, "process_group": None,
+# means "off" (failure detection and rejoin, profiling, custom step /
+# sharding / save functions: ROADMAP A3).
+_NOT_PORTED = {"tracer": None, "process_group": None,
                "failure_check_every": 0, "on_failure": None,
                "failure_mode": "stop", "rejoin_timeout_s": 300.0,
                "recover_fn": None, "step_fn": None, "shard_fn": None,
-               "save_fn": None, "save_wait": None, "checkpoint_keep": None}
+               "save_fn": None, "save_wait": None}
+
+
+def prng_key(seed: int) -> np.ndarray:
+    """The layout of JAX's ``PRNGKey(seed)``: ``uint32 [0, seed]`` (a
+    seed below 2**32)."""
+    return np.asarray([0, seed], np.uint32)
+
+
+def dropout_seed(rng, step: int) -> int:
+    """The seed of a step's dropout masks, from the run's key and the
+    step: a resumed run draws the masks an unbroken one would."""
+    h = hashlib.sha256(np.asarray(rng, np.uint32).tobytes()
+                       + int(step).to_bytes(8, "little"))
+    return int.from_bytes(h.digest()[:8], "little") & (2 ** 63 - 1)
 
 
 class Trainer:
@@ -97,12 +113,26 @@ class Trainer:
     metrics)``; ``examples_per_step`` (the batch size: images for the
     image configs) and ``tokens_per_step`` scale the step rate. The port
     trains on one device, so per chip is per run.
-    The JAX Trainer's checkpoint, failure, profiling and custom-step
-    options raise :class:`NotPortedError` when set."""
+
+    With ``checkpoint_dir``, :meth:`initialize` resumes from the newest
+    checkpoint there that verifies, and every ``checkpoint_every`` steps
+    (of the global step count) :meth:`save` writes one in the JAX
+    package's format, keeping the newest ``checkpoint_keep`` (None: all).
+    ``rng`` is the run's JAX PRNG key (``uint32[2]``, :func:`prng_key` of
+    0 when None), saved as the ``rng`` leaf and replaced by a restored
+    one. The port cannot split JAX keys: it keeps the key it has and
+    draws each step's dropout masks from (key, step)
+    (:func:`dropout_seed`), so a run resumed from the other package
+    draws other masks than that package would.
+    The JAX Trainer's failure, profiling and custom-step options raise
+    :class:`NotPortedError` when set."""
 
     def __init__(self, model: torch.nn.Module, optimizer: Optimizer,
-                 loss_fn: Callable, log_every: int = 10,
+                 loss_fn: Callable, rng=None,
+                 checkpoint_dir: Optional[str] = None,
+                 checkpoint_every: int = 0, log_every: int = 10,
                  metric_logger: Optional[Callable[[int, dict], None]] = None,
+                 checkpoint_keep: Optional[int] = None,
                  examples_per_step: int = 0, tokens_per_step: int = 0,
                  **options):
         for name, value in options.items():
@@ -110,10 +140,14 @@ class Trainer:
                 raise TypeError(f"Trainer got an unexpected option {name!r}")
             if value != _NOT_PORTED[name]:
                 raise NotPortedError(f"Trainer option {name} is not ported "
-                                     f"(ROADMAP A2 checkpointing, A3 "
-                                     f"process groups)")
+                                     f"(ROADMAP A3: process groups, "
+                                     f"failure handling, sharded saves)")
         self.model = model
         self.step_fn = make_train_step(model, optimizer, loss_fn)
+        self.rng = prng_key(0) if rng is None else np.asarray(rng, np.uint32)
+        self.checkpoint_dir = checkpoint_dir
+        self.checkpoint_every = checkpoint_every
+        self.checkpoint_keep = checkpoint_keep
         self.log_every = log_every
         self.metric_logger = metric_logger
         self.examples_per_step = examples_per_step
@@ -121,6 +155,61 @@ class Trainer:
         # batch's "tokens" array when not given.
         self.tokens_per_step = tokens_per_step
         self.global_step = 0
+        self._dropout_gens = list({id(m.generator): m.generator
+                                   for m in model.modules()
+                                   if isinstance(m, Dropout) and m.rate
+                                   and m.generator is not None}.values())
+        # {"step", "seconds", "bytes"} of each save, and of the restore.
+        self.saves: list = []
+        self.last_restore = None
+
+    def state_dict(self) -> Dict[str, np.ndarray]:
+        """The flat JAX-keyed train state (host copies)."""
+        from nezha_tpu_torch.models.convert import train_state_to_jax
+        return train_state_to_jax(self.model, self.step_fn.opt_state,
+                                  self.rng)
+
+    def load_state_dict(self, flat: Dict[str, np.ndarray]) -> None:
+        """Load a flat JAX-keyed train state: weights, BatchNorm
+        statistics, optimizer state and key."""
+        from nezha_tpu_torch.models.convert import load_train_state
+        self.step_fn.opt_state = load_train_state(
+            flat, self.model, self.step_fn.opt_state)
+        self.rng = np.asarray(flat["rng"], np.uint32)
+
+    def initialize(self, resume: bool = True) -> int:
+        """Resume from ``checkpoint_dir``'s newest intact checkpoint, if
+        any; -> the step the run stands at."""
+        if resume and self.checkpoint_dir:
+            from nezha_tpu_torch.models.convert import train_state_template
+            from nezha_tpu_torch.train import checkpoint as ckpt
+            t0 = time.perf_counter()
+            flat, step = ckpt.try_restore(
+                self.checkpoint_dir,
+                train_state_template(self.model, self.step_fn.opt_state))
+            if flat is not None:
+                self.load_state_dict(flat)
+                self.global_step = step
+                if self.step_fn.device.type == "cuda":
+                    torch.cuda.synchronize(self.step_fn.device)
+                self.last_restore = {
+                    "step": step, "seconds": time.perf_counter() - t0,
+                    "bytes": os.path.getsize(
+                        ckpt.checkpoint_path(self.checkpoint_dir, step))}
+        return self.global_step
+
+    def save(self, step: Optional[int] = None) -> str:
+        """Write a checkpoint of the current state at ``step`` (default:
+        the global step) into ``checkpoint_dir``; -> its path."""
+        from nezha_tpu_torch.train import checkpoint as ckpt
+        step = self.global_step if step is None else step
+        t0 = time.perf_counter()
+        path = ckpt.save_checkpoint(self.checkpoint_dir, self.state_dict(),
+                                    step, keep_last=self.checkpoint_keep)
+        self.saves.append({"step": step,
+                           "seconds": time.perf_counter() - t0,
+                           "bytes": os.path.getsize(path)})
+        return path
 
     def fit(self, batches: Iterator[dict], steps: int) -> Dict[str, float]:
         last: Dict[str, float] = {}
@@ -132,6 +221,9 @@ class Trainer:
             batch = next(batches)
             if not self.tokens_per_step and "tokens" in batch:
                 self.tokens_per_step = int(np.size(batch["tokens"]))
+            for i, gen in enumerate(self._dropout_gens):
+                gen.manual_seed(dropout_seed(self.rng, self.global_step)
+                                + i)
             metrics = self.step_fn(batch)
             self.global_step += 1
             window_steps += 1
@@ -152,6 +244,11 @@ class Trainer:
                 last["step"] = self.global_step
                 if self.metric_logger:
                     self.metric_logger(self.global_step, last)
+            if (self.checkpoint_every and self.checkpoint_dir
+                    and self.global_step % self.checkpoint_every == 0):
+                self.save()
+                # The save's host copy and write are not the steps' time.
+                window_start += self.saves[-1]["seconds"]
         if not last and steps:
             last = {k: float(v) for k, v in metrics.items()}
             last["step"] = self.global_step

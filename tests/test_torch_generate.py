@@ -311,7 +311,7 @@ def test_cli_greedy_matches_jax_cli(monkeypatch, capsys):
     jm, jv, tm = _lively_cli_pair(0)
     monkeypatch.setattr("nezha_tpu.cli.common.load_gpt2_for_inference",
                         lambda args: (jm, jv))
-    monkeypatch.setattr(cli_generate, "gpt2_for_preset",
+    monkeypatch.setattr(cli_generate, "load_gpt2_for_inference",
                         lambda *a, **k: tm)
     argv = ["--random-init", "--model-preset", "tiny", "--prompt-tokens",
             "5,17,3,42,9", "--max-new-tokens", "8", "--temperature", "0",
@@ -325,13 +325,17 @@ def test_cli_greedy_matches_jax_cli(monkeypatch, capsys):
     assert json.loads(lines[-1]) == got
 
 
-@pytest.mark.parametrize("flag", [["--ckpt-dir", "runs/x"],
-                                  ["--hf-dir", "hf/x"],
-                                  ["--random-init", "--tokenizer", "tok"]])
-def test_cli_refuses_unported_sources(flag):
+@pytest.mark.parametrize("flag,error", [
+    (["--ckpt-dir", "runs/x"], SystemExit),
+    (["--hf-dir", "hf/x"], NotPortedError),
+    (["--random-init", "--tokenizer", "tok"], SystemExit)])
+def test_cli_refuses_unported_sources(flag, error):
+    """--hf-dir is refused typed (it needs transformers); a checkpoint or
+    tokenizer directory that does not exist exits, naming it."""
     args = cli_generate.build_parser().parse_args(
         flag + ["--prompt-tokens", "1,2", "--device", "cpu"])
-    with pytest.raises(NotPortedError, match=flag[-2]):
+    with pytest.raises(error, match=flag[-2] if error is NotPortedError
+                       else flag[-1]):
         cli_generate.run(args)
 
 
@@ -350,7 +354,7 @@ def test_cli_end_to_end_on_cpu():
     assert out["prompt_len"] == 8 and out["num_samples"] == 2
     assert all(len(s["tokens"]) == 5 and "text" in s
                for s in out["samples"])
-    proc = subprocess.run(cmd[:3] + ["--ckpt-dir", "x", "--prompt-tokens",
+    proc = subprocess.run(cmd[:3] + ["--hf-dir", "x", "--prompt-tokens",
                                      "1"], capture_output=True, text=True,
                           timeout=120, cwd=ROOT)
     assert proc.returncode != 0 and "not ported" in proc.stderr

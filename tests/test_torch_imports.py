@@ -66,3 +66,25 @@ def test_the_guard_sees_the_port_and_catches_an_import():
            "import importlib\nimportlib.import_module('jax.numpy')\n")
     roots = [mod for _, mod in _imported_roots(ast.parse(src))]
     assert [m for m in roots if m in FORBIDDEN] == ["nezha_tpu", "jax"]
+
+
+# The data path, checkpoints and the CLIs around them. The port depends
+# on torch and numpy alone: none of it imports ``regex`` (the JAX
+# tokenizer's) or ``transformers`` (the JAX ``--hf-dir`` path's).
+DATA_PATH_MODULES = ("data/tokenizer.py", "data/bpe_train.py",
+                     "data/pack.py", "data/native.py", "data/mlm.py",
+                     "train/checkpoint.py", "cli/pack_text.py")
+
+
+@pytest.mark.parametrize("rel", DATA_PATH_MODULES)
+def test_data_path_modules_are_guarded(rel):
+    assert os.path.join("nezha_tpu_torch", *rel.split("/")) in PORT_FILES
+
+
+@pytest.mark.parametrize("rel", PORT_FILES)
+def test_port_file_needs_no_package_the_card_lacks(rel):
+    with open(os.path.join(ROOT, rel)) as f:
+        tree = ast.parse(f.read(), filename=rel)
+    bad = [(line, mod) for line, mod in _imported_roots(tree)
+           if mod in ("regex", "transformers")]
+    assert not bad, f"{rel} imports {bad}"

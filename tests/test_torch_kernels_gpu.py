@@ -1108,3 +1108,59 @@ def test_generate_on_card_matches_cpu(cuda_device):
                 == 12 * 9
         results.append(out.cpu())
     assert torch.equal(results[0], results[1])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_checkpoint_round_trip_on_card_is_exact(cuda_device, tmp_path, dtype):
+    """The tiny GPT-2 on the card (f32, or bf16 compute over fp32 master
+    weights), two AdamW steps through the flash kernels, saved in the
+    reference's npz format and restored into a fresh module and
+    optimizer: every leaf bitwise, the fixed-batch loss bitwise, and one
+    more step from both states gives bitwise-equal weights (the flash
+    backward is deterministic: no atomics in dq or dK/dV)."""
+    from nezha_tpu_torch.cli.common import TINY_GPT2_KW
+    from nezha_tpu_torch.models import GPT2, GPT2Config
+    from nezha_tpu_torch.tensor.policy import bf16_policy, f32_policy
+    from nezha_tpu_torch.train import Trainer
+    from nezha_tpu_torch.train import checkpoint as ckpt
+
+    policy = bf16_policy() if dtype == "bf16" else f32_policy()
+    r = np.random.RandomState(4)
+    batches = [{"tokens": r.randint(0, 512, (2, 65)).astype(np.int32)}
+               for _ in range(4)]
+
+    def trainer(seed):
+        gen = torch.Generator(device="cuda").manual_seed(seed)
+        model = GPT2(GPT2Config(**TINY_GPT2_KW), policy=policy,
+                     generator=gen)
+        return Trainer(model, adamw(6e-4, weight_decay=0.1), lm_loss,
+                       checkpoint_dir=str(tmp_path), log_every=0)
+
+    def fixed_loss(model):
+        batch = {"tokens": torch.as_tensor(batches[3]["tokens"]).long()
+                 .cuda()}
+        with torch.no_grad():
+            return lm_loss(model(batch), batch).float()
+
+    a = trainer(0)
+    launched = LAUNCHES["flash_bwd_dq"]
+    a.fit(iter(batches[:2]), 2)
+    assert LAUNCHES["flash_bwd_dq"] - launched == 2 * 4
+    a.model.train()
+    before = fixed_loss(a.model)
+    a.save()
+    saved = ckpt.verify_checkpoint(str(tmp_path), 2)
+    b = trainer(1)
+    assert b.initialize() == 2
+    mine = b.state_dict()
+    assert mine.keys() == saved.keys()
+    for key, want in saved.items():
+        assert mine[key].dtype == want.dtype, key
+        np.testing.assert_array_equal(mine[key], want, err_msg=key)
+    b.model.train()
+    assert torch.equal(fixed_loss(b.model), before)
+    a.fit(iter(batches[2:3]), 1)
+    b.fit(iter(batches[2:3]), 1)
+    for name, t in a.model.state_dict().items():
+        assert torch.equal(b.model.state_dict()[name], t), name

@@ -659,16 +659,16 @@ STILL_REFUSED = {
         lambda: Bert(BertConfig(**TINY_BERT_KW, scan_layers=True),
                      device="cpu")),
     "wrn101_large_batch": (
-        ["--data-dir", "/x"],
+        ["--metrics-file", "/x"],
         lambda: ResNet((1, 1), width_factor=2, remat=True, device="cpu"))}
 
 
 @pytest.mark.parametrize("config", ["bert_base_zero1", "wrn101_large_batch"])
 def test_cli_refuses_unported_configs_typed(config):
     """Both configs train now; what each still lacks is refused: ZeRO-1
-    (``--parallel zero1``, process groups), reading data from disk, the
-    MLM mask-token flag, and the model knobs that wait for later slices
-    (``NotPortedError``)."""
+    (``--parallel zero1``, process groups), the metrics file, the MLM
+    mask-token flag without ``--data-dir``, and the model knobs that wait
+    for later slices (``NotPortedError``)."""
     from nezha_tpu_torch.cli.train import parse_args
 
     flag, knob = STILL_REFUSED[config]
@@ -685,10 +685,15 @@ def test_cli_image_flags():
     args = parse_args(["--config", "resnet50_imagenet"])
     assert args.device == "cuda" and args.batch_size is None
     for argv in (["--seq-len", "64"], ["--dropout", "0.1"],
-                 ["--wd-exclude-1d"], ["--label-smoothing", "0.1"],
+                 ["--wd-exclude-1d"], ["--label-smoothing", "1.5"],
                  ["--mlm-mask-token", "103"], ["--remat"]):
         with pytest.raises(SystemExit):
             parse_args(["--config", "resnet50_imagenet", *argv])
+    # Label smoothing in (0, 1) and reading from disk are taken.
+    args = parse_args(["--config", "resnet50_imagenet", "--label-smoothing",
+                       "0.1", "--data-dir", "/x", "--crop", "32"])
+    assert (args.label_smoothing, args.data_dir, args.crop) == (0.1, "/x",
+                                                                32)
 
 
 def _eval_points(stderr: str):

@@ -321,11 +321,13 @@ def test_cli_refuses_unported_flags_and_configs():
     from nezha_tpu_torch.cli.train import parse_args
 
     assert parse_args(["--config", "gpt2_124m"]).device == "cuda"
-    for argv in (["--mesh", "2"], ["--ckpt-dir=/x"], ["--remat"]):
+    for argv in (["--mesh", "2"], ["--metrics-file=/x"], ["--remat"]):
         with pytest.raises(SystemExit):
             parse_args(["--config", "gpt2_124m"] + argv)
-    # bert_base_zero1 trains on one card; its ZeRO-1 mode and the MLM
-    # mask-token flag are still refused.
+    assert parse_args(["--config", "gpt2_124m",
+                       "--ckpt-dir=/x"]).ckpt_dir == "/x"
+    # bert_base_zero1 trains on one card; its ZeRO-1 mode is refused, and
+    # the MLM mask-token flag without --data-dir, as in JAX.
     for argv in (["--parallel", "zero1"], ["--mlm-mask-token", "103"]):
         with pytest.raises(SystemExit):
             parse_args(["--config", "bert_base_zero1"] + argv)
@@ -343,7 +345,7 @@ def test_unported_model_knobs_raise(knob):
 
 def test_unported_trainer_options_and_loss_chunk_raise():
     model = GPT2(GPT2Config(**TINY_GPT2_KW), device="cpu")
-    for opt in ({"checkpoint_dir": "/tmp/x"}, {"step_fn": lambda *a: None},
+    for opt in ({"process_group": object()}, {"step_fn": lambda *a: None},
                 {"shard_fn": lambda b: b}, {"save_fn": lambda *a: None},
                 {"failure_mode": "rejoin"}):
         with pytest.raises(NotPortedError):
