@@ -144,6 +144,35 @@ Phases, each fatal on failure (non-zero exit, no result line):
    --steps 20 --eval-batches 2 --eval`` (a finite loss and eval
    perplexity over 2 batches) and ``--config wrn101_large_batch
    --batch-size 64 --steps 5`` (a finite loss), each exiting 0;
+4e. train_dist (after 4c, before 4d): multi-process training at full
+   width: (a) in-process, the coordinator's world of one and NCCL
+   through ``init_torch_distributed``: GPT-2 124M (B=8, S=1024) and
+   ResNet-50 (batch IMG_B) by dp, BERT-base (B=16, S=512) by ZeRO-1,
+   against the single-device step from the same init and batches, the
+   two taking turns in ABBA rounds of DIST_STEPS-step windows: every
+   weight and buffer within DIST_WEIGHT_ATOL (0: bitwise), B1-B3 12
+   launches a step on both sides, ms a step and tokens/s or images/s of
+   each and the paired overhead, then 2 profiled steps each for the
+   device's busy ms and the NCCL kernels' launches and device ms a step,
+   and the optimizer state's bytes; (b) ``grad_reduce="int8"`` for GPT-2 dp and
+   BERT ZeRO-1 on a fixed batch at a constant lr: the loss finite and
+   falling over DIST_INT8_STEPS, the wire's ms a call (CUDA events) for
+   int8 and fp32 on the step's gradients, and its payload bytes against
+   fp32's; (c) the CLI, ``bert_base_zero1 --coordinator 127.0.0.1:0
+   --serve-coordinator --world-size 1 --mesh dp=1 --ckpt-dir``:
+   DIST_CLI_STEPS steps with a per-shard save every DIST_CLI_EVERY, then
+   DIST_CLI_MORE resumed from the last (``resumed from step N
+   (sharded)``), with each save's and restore's seconds and bytes; (d)
+   two ranks on the one card in spawned processes: NCCL tried once (its
+   answer printed), then gloo over the card's tensors for GPT-2 124M dp,
+   DIST_TWO_STEPS steps on 4 rows a rank: the ranks' weights bitwise
+   equal, and equal to one process averaging the same two halves; the
+   first step's mean gradient within DIST_TWO_GRAD_RTOL of the 8 rows'
+   and the losses within TRAIN_LOSS_ATOL of one process over the 8 rows
+   (the weights' distance from it is printed, beside twice the most
+   AdamW can move a weight). Only NCCL's and gloo's own refusals of two
+   ranks on one device pass, printed; a crash, a hang or any other error
+   fails. Prints its wall seconds;
 4d. data_ckpt: the user's path from text on disk to served text, in a
    temporary directory, through the CLIs at full width: (a) pack the
    port and ``docs/`` with ``pack_text --learn-bpe DC_BPE_MERGES`` into
@@ -224,6 +253,7 @@ import gc
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import time
@@ -3145,6 +3175,589 @@ def generate_phase(card: str):
 
 
 # The run whose launch count each kernel reports: the path it serves.
+# train_dist: the dp and ZeRO-1 steps through NCCL at world 1 against
+# the single-device step from the same init and batches. On one rank the
+# mean of the gradients (and of the loss and BatchNorm buffers) is x / 1,
+# a copy, and ZeRO-1 updates flat chunks of the parameters with the same
+# elementwise AdamW formulas (no clip runs here, whose norm alone sums in
+# another order), so the weights must be bitwise equal: DIST_WEIGHT_ATOL
+# is 0 for both.
+DIST_STEPS = 4
+DIST_WEIGHT_ATOL = 0.0
+# Timed in ABBA rounds of two DIST_STEPS-step windows each: single
+# windows of the host clock swing by several ms from call to call.
+DIST_ROUNDS = 2
+# The int8 wire at world 1: a fixed batch, a constant lr, DIST_INT8_STEPS
+# steps; the loss must stay finite and end below the first step's.
+DIST_INT8_STEPS = 6
+# The CLI: bert_base_zero1 for DIST_CLI_STEPS with a per-shard save every
+# DIST_CLI_EVERY, then DIST_CLI_MORE resumed from the last save.
+DIST_CLI_STEPS, DIST_CLI_EVERY, DIST_CLI_MORE = 10, 5, 2
+# Two ranks on the one card (gloo over CUDA tensors when NCCL refuses):
+# GPT-2 124M dp, 4 rows of 1024 tokens a rank, DIST_TWO_STEPS AdamW steps
+# at TRAIN_LR. Both ranks must hold bitwise the same weights, and so must
+# one process that takes the same two half-batch gradients and averages
+# them as the step does (a sum of two addends has one rounding, then the
+# division by 2). Against one process over the concatenated 8 rows: every
+# row has 1024 tokens, so the mean of the two halves' losses and
+# gradients is the batch's, but the half-batch bf16 GEMMs accumulate in
+# other orders. So the loss is held to TRAIN_LOSS_ATOL each step, and the
+# first step's mean gradient to DIST_TWO_GRAD_RTOL of the 8 rows'
+# gradient norm: TRAIN_GRAD_RTOL, the train phase's bound for GPT-2's
+# bf16 gradients computed two ways; a dropped or doubled half reads
+# about 0.5 and more.
+DIST_TWO_STEPS = 3
+DIST_TWO_GRAD_RTOL = TRAIN_GRAD_RTOL
+DIST_TWO_TIMEOUT_S = {"probe": 90, "train": 240}
+# The backends' refusals of two ranks on one device, the only errors the
+# two-rank part passes (printed): NCCL's check for ranks sharing a GPU,
+# and gloo's for a collective or device type it does not take.
+DIST_NCCL_REFUSAL = r"Duplicate GPU detected"
+DIST_GLOO_REFUSAL = (r"(?i)unsupported device|device type .* not supported"
+                     r"|does not support|not supported for|no backend type "
+                     r"associated with device type")
+
+
+def profile_nccl(step_fn, batches, steps: int) -> dict:
+    """``steps`` calls of ``step_fn`` under torch.profiler: a step's NCCL
+    device kernels (``ncclDevKernel_*``/``ncclKernel_*``), the spans the
+    profiler marks for each NCCL op on the device timeline (``nccl:<op>``)
+    and device-to-device copies, each with its launches and device ms;
+    and the device's busy ms a step (every kernel, copy and memset; the
+    step runs on one stream, so they do not overlap), also by kernel
+    (``by_kernel``: name -> ms a step)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(steps):
+            step_fn(next(batches))
+        torch.cuda.synchronize()
+    kinds = {"nccl_kernels": {}, "nccl_op_spans": {}, "dtod_copies": {}}
+    busy_us, by_kernel = 0.0, {}
+    for e in prof.events():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        name, us = e.name, e.time_range.elapsed_us()
+        if name.startswith("nccl:"):
+            kind = "nccl_op_spans"   # a span around device work
+        elif getattr(e, "is_user_annotation", False):
+            continue
+        else:
+            busy_us += us
+            short = kernel_name(name)
+            by_kernel[short] = by_kernel.get(short, 0.0) + us / 1e3 / steps
+            if name.startswith(("ncclDevKernel", "ncclKernel")):
+                kind, name = "nccl_kernels", kernel_name(name)
+            elif "dtod" in name.lower():
+                kind = "dtod_copies"
+            else:
+                continue
+        n, t = kinds[kind].get(name, (0, 0.0))
+        kinds[kind][name] = (n + 1, t + us)
+    out = {}
+    for kind, d in kinds.items():
+        out[kind] = {k: {"per_step": n / steps, "ms_per_step": us / 1e3
+                         / steps} for k, (n, us) in d.items()}
+        out[f"{kind}_per_step"] = sum(n for n, _ in d.values()) / steps
+        out[f"{kind}_ms_per_step"] = sum(us for _, us in d.values()) \
+            / 1e3 / steps
+    out["device_busy_ms_per_step"] = busy_us / 1e3 / steps
+    out["by_kernel"] = by_kernel
+    return out
+
+
+def event_ms(fn, iters: int) -> float:
+    """ms a call of ``fn`` between CUDA events around ``iters`` calls,
+    after two warm-up calls (the device's time unless the host falls
+    behind it)."""
+    for _ in range(2):
+        fn()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def time_steps(step_fn, batches, steps: int) -> float:
+    """ms a step of ``steps`` calls on the host clock, ended by a
+    sync."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        step_fn(next(batches))
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / steps * 1e3
+
+
+def dist_config(name: str):
+    """(model builder, loss, optimizer builder, batches, the config's
+    mode, rows, units a row, unit) at the phase's batch: GPT-2 124M B=8
+    S=1024, BERT-base B=16 S=512, ResNet-50 batch IMG_B at IMG_SIZE."""
+    from nezha_tpu_torch.cli.train import build_config
+
+    rows = {"gpt2_124m": TRAIN_B, "bert_base_zero1": BERT_B,
+            "resnet50_imagenet": IMG_B}[name]
+
+    def build():
+        return build_config(name, steps=100, seed=0, device="cuda")
+
+    cfg = build()
+    per_row = {"gpt2_124m": TRAIN_S, "bert_base_zero1": BERT_S,
+               "resnet50_imagenet": 1}[name]
+    unit = "images" if name == "resnet50_imagenet" else "tokens"
+    return build, cfg.batches(rows), cfg.parallel_mode, rows, per_row, unit
+
+
+def compare_weights(what: str, a, b, atol: float) -> float:
+    """Every parameter and buffer of ``a`` against ``b``'s; -> the largest
+    difference, failing past ``atol``."""
+    worst = 0.0
+    sb = b.state_dict()
+    for k, t in a.state_dict().items():
+        if t.is_floating_point():
+            worst = max(worst, (t.float() - sb[k].float()).abs().max().item())
+        elif not torch.equal(t, sb[k]):
+            worst = math.inf
+    if not worst <= atol:
+        fail(f"train_dist {what}: weights differ by {worst} (bound {atol})")
+    return worst
+
+
+def dist_world1_runs(card: str) -> dict:
+    """Part 1: each config's mode (dp, or zero1 for BERT) through NCCL at
+    world 1 against the single-device step, from the same init and
+    batches. Both steps live at once and take turns in windows of
+    DIST_STEPS steps, ABBA over DIST_ROUNDS rounds (window 1 single then
+    parallel, window 2 parallel then single, each window's batches the
+    same for both), so a drift of the host's clock falls on both sides
+    alike; then 2 profiled steps each. Prints ms a step and rate, the
+    paired overhead of each round, the device's busy ms a step, the NCCL
+    kernels, B1-B3 launches a step and the optimizer state's bytes. ->
+    the flash launches of the dp/zero1 runs, by config."""
+    from nezha_tpu_torch.ops.cuda.flash_attention import LAUNCHES
+    from nezha_tpu_torch.parallel.data_parallel import DPTrainStep
+    from nezha_tpu_torch.parallel.zero1 import Zero1TrainStep
+    from nezha_tpu_torch.train import make_train_step
+
+    launches = {}
+    for name in ("gpt2_124m", "bert_base_zero1", "resnet50_imagenet"):
+        build, batches, mode, rows, per_row, unit = dist_config(name)
+        windows = 2 * DIST_ROUNDS
+        # 2 warm-up steps, the timed windows, 2 profiled: both sides take
+        # all of them in the same order, so their weights stay comparable.
+        fixed = [next(batches) for _ in range(windows * DIST_STEPS + 4)]
+        out = {"mode": mode, "rows": rows, "card": card,
+               "steps_per_window": DIST_STEPS, "abba_rounds": DIST_ROUNDS}
+        steps, models = {}, {}
+        for side in ("single", mode):
+            cfg = build()
+            if side == "single":
+                step = make_train_step(cfg.model, cfg.optimizer, cfg.loss_fn)
+            else:
+                kind = Zero1TrainStep if mode == "zero1" else DPTrainStep
+                step = kind(cfg.model, cfg.optimizer, cfg.loss_fn)
+            for b in fixed[:2]:
+                step(b)
+            steps[side], models[side] = step, cfg.model
+        layers = getattr(cfg.model.cfg, "num_layers", 0) \
+            if name != "resnet50_imagenet" else 0
+        window_ms = {side: [] for side in steps}
+        got = {side: {k: 0 for k in LAUNCHES} for side in steps}
+        for w in range(windows):
+            chunk = fixed[2 + w * DIST_STEPS:2 + (w + 1) * DIST_STEPS]
+            order = ("single", mode) if w % 2 == 0 else (mode, "single")
+            for side in order:
+                for k in LAUNCHES:
+                    LAUNCHES[k] = 0
+                window_ms[side].append(
+                    time_steps(steps[side], iter(chunk), DIST_STEPS))
+                for k, n in LAUNCHES.items():
+                    if n != layers * DIST_STEPS:
+                        fail(f"train_dist {name} {side}: {k} launched {n} "
+                             f"times in {DIST_STEPS} steps, not {layers} a "
+                             f"step")
+                    got[side][k] += n
+        total = windows * DIST_STEPS
+        for side in steps:
+            ms = sum(window_ms[side]) / windows
+            out[side] = {"ms_per_step": ms, "window_ms": window_ms[side],
+                         f"{unit}_per_s": rows * per_row / ms * 1e3,
+                         "flash_launches_per_step": {
+                             k: n / total for k, n in got[side].items()},
+                         "opt_state_bytes": steps[side].opt_state_bytes(),
+                         **profile_nccl(steps[side],
+                                        iter(fixed[-2:]), 2)}
+        launches[name] = got[mode]
+        # Paired: each window's parallel ms less the single side's in the
+        # same window.
+        paired = [p - s for p, s in zip(window_ms[mode], window_ms["single"])]
+        out["extra_ms_per_step"] = sum(paired) / windows
+        out["extra_ms_per_window"] = paired
+        out["extra_device_busy_ms_per_step"] = \
+            out[mode]["device_busy_ms_per_step"] \
+            - out["single"]["device_busy_ms_per_step"]
+        # The kernels whose device ms a step differ most between the
+        # sides: [name, single's, the parallel side's].
+        a, b = out["single"].pop("by_kernel"), out[mode].pop("by_kernel")
+        out["device_ms_by_kernel_most_apart"] = [
+            [k, a.get(k, 0.0), b.get(k, 0.0)] for k in sorted(
+                set(a) | set(b),
+                key=lambda k: -abs(b.get(k, 0.0) - a.get(k, 0.0)))[:8]]
+        out["max_weight_diff"] = compare_weights(
+            f"{name} {mode} vs single", models[mode], models["single"],
+            DIST_WEIGHT_ATOL)
+        out["opt_state_bytes_over_single"] = \
+            out[mode]["opt_state_bytes"] / out["single"]["opt_state_bytes"]
+        print(json.dumps({f"train_dist_{name}": out}), flush=True)
+        del models, steps, cfg, step
+        gc.collect()
+        torch.cuda.empty_cache()
+    return launches
+
+
+def dist_int8_runs(card: str) -> dict:
+    """Part 2: ``grad_reduce="int8"`` for GPT-2 dp and BERT zero1 on a
+    fixed batch at a constant lr; the wire's device ms a step against
+    fp32's (CUDA events around the reduction of the step's own
+    gradients) and its payload bytes."""
+    from nezha_tpu_torch.models.bert import mlm_loss
+    from nezha_tpu_torch.models.gpt2 import lm_loss
+    from nezha_tpu_torch.optim import adamw
+    from nezha_tpu_torch.parallel import quantized
+    from nezha_tpu_torch.parallel.data_parallel import (DPTrainStep,
+                                                        mean_over_group)
+    from nezha_tpu_torch.parallel.zero1 import Zero1TrainStep
+
+    res = {}
+    for name, kind, loss_fn, lr in (
+            ("gpt2_124m", DPTrainStep, lm_loss, TRAIN_LR),
+            ("bert_base_zero1", Zero1TrainStep, mlm_loss, BERT_LR)):
+        build, batches, _, rows, per_row, unit = dist_config(name)
+        batch = next(batches)
+        cfg = build()
+        step = kind(cfg.model, adamw(lr, weight_decay=0.01), loss_fn,
+                    grad_reduce="int8")
+        losses = [step(batch)["loss"].item() for _ in range(DIST_INT8_STEPS)]
+        if not (all(map(math.isfinite, losses)) and losses[-1] < losses[0]):
+            fail(f"train_dist int8 {name}: the loss did not fall: {losses}")
+        _, grads = step.loss_and_grads(batch)
+        wire = {}
+        for reduce in ("fp32", "int8"):
+            wire[f"{reduce}_wire_ms"] = event_ms(
+                lambda: mean_over_group(grads, {}, None, reduce,
+                                        quantized.DEFAULT_MIN_NUMEL), 5)
+        quant, exact = quantized.split_quantized_leaves(
+            grads, quantized.DEFAULT_MIN_NUMEL)
+        res[name] = {"mode": kind.__name__, "losses": losses,
+                     "ms_per_step": time_steps(step, iter([batch] * 3), 3),
+                     **wire,
+                     "int8_payload_bytes": sum(
+                         quantized.wire_payload_bytes(g.numel())
+                         for g in quant)
+                     + sum(g.numel() * 4 for g in exact),
+                     "fp32_payload_bytes": sum(g.numel() * 4
+                                               for g in grads.values()),
+                     "card": card}
+        del step, cfg, grads
+        gc.collect()
+        torch.cuda.empty_cache()
+    print(json.dumps({"train_dist_int8": res}), flush=True)
+    return res
+
+
+def dist_cli() -> dict:
+    """Part 3: bert_base_zero1 through the coordinator (port 0, served by
+    the run) at world 1 with per-shard saves, then resumed."""
+    import tempfile
+
+    with tempfile.TemporaryDirectory(prefix="nezha_train_dist_") as tmp:
+        common = ["--config", "bert_base_zero1", "--coordinator",
+                  "127.0.0.1:0", "--serve-coordinator", "--world-size",
+                  "1", "--mesh", "dp=1", "--ckpt-dir", tmp]
+        first = cli_run(*common, "--steps", str(DIST_CLI_STEPS),
+                        "--ckpt-every", str(DIST_CLI_EVERY))
+        names = sorted(os.listdir(tmp))
+        want = [f"step_{s:08d}.sharded" for s in
+                range(DIST_CLI_EVERY, DIST_CLI_STEPS + 1, DIST_CLI_EVERY)]
+        if names != want:
+            fail(f"train_dist CLI: saves {names}, not {want}")
+        second = cli_run(*common, "--steps", str(DIST_CLI_MORE))
+        if not any(f"resumed from step {DIST_CLI_STEPS} (sharded)" in line
+                   for line in second["stderr"]):
+            fail("train_dist CLI: the rerun did not resume from "
+                 f"step_{DIST_CLI_STEPS}.sharded")
+        if second["final"]["step"] != DIST_CLI_STEPS + DIST_CLI_MORE:
+            fail(f"train_dist CLI: final {second['final']}")
+        par = json_lines(first["stderr"], "parallel")
+        out = {"parallel": par[0] if par else None,
+               "first": {k: first[k] for k in ("wall_s", "final", "saves")},
+               "second": {k: second[k] for k in ("wall_s", "final",
+                                                 "saves", "restores")}}
+    print(json.dumps({"train_dist_cli": out}), flush=True)
+    return out
+
+
+def dist_rank_worker(rank_hint: int, port: int, backend: str, out: str,
+                     steps: int) -> None:
+    """One of two ranks on the one card (a spawned process): join, start
+    the group over ``backend``; ``steps`` 0: one all-reduce; else GPT-2
+    124M dp on its 4 rows of each batch for ``steps`` steps, then its
+    weights to ``out``."""
+    from nezha_tpu_torch import dist as nzdist
+    from nezha_tpu_torch.cli.train import build_config
+    from nezha_tpu_torch.parallel.data_parallel import (DPTrainStep,
+                                                        local_rows,
+                                                        replicate)
+    import torch.distributed as tdist
+
+    torch.cuda.set_device(0)
+    group = nzdist.join("127.0.0.1", port, rank_hint=rank_hint,
+                        timeout_s=60)
+    result = {"rank": group.rank}
+    try:
+        nzdist.init_torch_distributed(group, backend, timeout_s=60)
+        if not steps:
+            x = torch.ones(4, device="cuda")
+            tdist.all_reduce(x)
+            torch.cuda.synchronize()
+            result["all_reduce"] = x.tolist()
+        else:
+            cfg = build_config("gpt2_124m", steps=100, seed=0,
+                               device="cuda")
+            from nezha_tpu_torch.models.gpt2 import lm_loss
+            from nezha_tpu_torch.optim import adamw
+            replicate(cfg.model)
+            step = DPTrainStep(cfg.model, adamw(TRAIN_LR, weight_decay=0.1),
+                               lm_loss)
+            batches = cfg.batches(TRAIN_B)
+            losses, t0 = [], time.perf_counter()
+            for _ in range(steps):
+                losses.append(step(local_rows(next(batches), group.rank,
+                                              group.world_size))
+                              ["loss"].item())
+            result.update(losses=losses, ms_per_step=(
+                time.perf_counter() - t0) / steps * 1e3)
+            torch.save({k: v.cpu() for k, v in
+                        cfg.model.state_dict().items()},
+                       f"{out}.rank{group.rank}.pt")
+    except Exception as e:
+        result["error"] = f"{type(e).__name__}: {e}"[:2000]
+    finally:
+        with open(f"{out}.rank{group.rank}.json", "w") as f:
+            json.dump(result, f)
+        if tdist.is_initialized():
+            try:
+                tdist.destroy_process_group()
+            except Exception:
+                pass
+        group.leave()
+
+
+def two_ranks(backend: str, tmp: str, steps: int) -> list:
+    """Two spawned ranks on cuda:0 over ``backend`` (``steps`` as in
+    ``dist_rank_worker``); -> their results, a missing one (a rank that
+    crashed, or hung and was killed at DIST_TWO_TIMEOUT_S) as an
+    ``error``."""
+    import multiprocessing as mp
+
+    from nezha_tpu_torch import dist as nzdist
+
+    ctx = mp.get_context("spawn")
+    kind = "probe" if not steps else "train"
+    out = os.path.join(tmp, f"{backend}_{kind}")
+    with nzdist.Coordinator(world_size=2) as coord:
+        procs = [ctx.Process(target=dist_rank_worker,
+                             args=(r, coord.port, backend, out, steps))
+                 for r in range(2)]
+        for p in procs:
+            p.start()
+        deadline = time.monotonic() + DIST_TWO_TIMEOUT_S[kind]
+        for p in procs:
+            p.join(max(1.0, deadline - time.monotonic()))
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join()
+    results = []
+    for r in range(2):
+        path = f"{out}.rank{r}.json"
+        results.append(json.load(open(path)) if os.path.exists(path) else
+                       {"rank": r, "error": "no result: the rank crashed, "
+                        "or hung and was killed"})
+    return results
+
+
+def refusals(results: list, pattern: str) -> bool:
+    """True when every rank's error is the backend's refusal of two ranks
+    on one device (``pattern``); False when every rank succeeded. Any
+    other outcome (another error, a missing result, one rank refused and
+    one not) fails the phase."""
+    errors = [r.get("error") for r in results]
+    if not any(errors):
+        return False
+    if all(e and re.search(pattern, e) for e in errors):
+        return True
+    fail(f"train_dist two ranks: {json.dumps(results)[:4000]}")
+
+
+def adam_move_bound(steps: int, lr: float, b1: float = 0.9,
+                    b2: float = 0.999) -> float:
+    """The most ``steps`` AdamW updates can move a weight (weight decay
+    aside): step t's is lr |m_hat| / sqrt(v_hat), and by Cauchy-Schwarz
+    over the gradients so far |m_hat| / sqrt(v_hat) <= sqrt(sum_i a_i^2 /
+    c_i), with a_i = (1 - b1) b1^(t-i) / (1 - b1^t) and c_i = (1 - b2)
+    b2^(t-i) / (1 - b2^t) (1, 1.0013, 1.0036 for t = 1, 2, 3)."""
+    total = 0.0
+    for t in range(1, steps + 1):
+        total += math.sqrt(sum(
+            ((1 - b1) * b1 ** (t - i) / (1 - b1 ** t)) ** 2
+            / ((1 - b2) * b2 ** (t - i) / (1 - b2 ** t))
+            for i in range(1, t + 1)))
+    return lr * total
+
+
+def grads_rel_err(got: dict, want: dict) -> float:
+    """|got - want| / |want| over every leaf together (fp32 norms)."""
+    num = sum(float((g.float() - want[k].float()).pow(2).sum())
+              for k, g in got.items())
+    den = sum(float(w.float().pow(2).sum()) for w in want.values())
+    return math.sqrt(num / den)
+
+
+def dist_two_ranks(card: str) -> dict:
+    """Part 4: NCCL with two ranks on the one card, tried once and its
+    answer printed. GPT-2 124M dp at full width then runs over NCCL if it
+    took the two ranks, else over gloo on the card's tensors. Only the
+    backends' own refusals of two ranks on one device (DIST_NCCL_REFUSAL,
+    DIST_GLOO_REFUSAL) are printed and passed; any other error fails."""
+    import tempfile
+
+    from nezha_tpu_torch.cli.train import build_config
+    from nezha_tpu_torch.models.gpt2 import lm_loss
+    from nezha_tpu_torch.optim import adamw
+    from nezha_tpu_torch.parallel.data_parallel import local_rows
+    from nezha_tpu_torch.train import make_train_step
+
+    res = {"card": card}
+    with tempfile.TemporaryDirectory(prefix="nezha_two_ranks_") as tmp:
+        nccl = two_ranks("nccl", tmp, 0)
+        res["nccl"] = nccl
+        res["nccl_refused"] = refusals(nccl, DIST_NCCL_REFUSAL)
+        if not res["nccl_refused"] and any(r["all_reduce"] != [2.0] * 4
+                                           for r in nccl):
+            fail(f"train_dist two ranks: NCCL's all-reduce of ones gave "
+                 f"{nccl}")
+        backend = "gloo" if res["nccl_refused"] else "nccl"
+        ranks = two_ranks(backend, tmp, DIST_TWO_STEPS)
+        res[backend] = ranks
+        if backend == "gloo" and refusals(ranks, DIST_GLOO_REFUSAL):
+            # Neither backend carries two ranks on one device: the
+            # two-rank evidence stays the CPU tests'.
+            res["two_rank_backend"] = None
+            print(json.dumps({"train_dist_two_ranks": res}), flush=True)
+            return res
+        res["two_rank_backend"] = backend + (
+            " (CUDA tensors)" if backend == "gloo" else "")
+        prefix = f"{tmp}/{backend}_train"
+        w = [torch.load(f"{prefix}.rank{r}.pt") for r in range(2)]
+        for k, t in w[0].items():
+            if not torch.equal(t, w[1][k]):
+                fail(f"train_dist two ranks: {k} differs between ranks")
+        # One process, the same two halves, averaged as the step does; at
+        # the first step (the same weights) also the concatenated batch's
+        # gradients.
+        cfg = build_config("gpt2_124m", steps=100, seed=0, device="cuda")
+        step = make_train_step(cfg.model, adamw(TRAIN_LR, weight_decay=0.1),
+                               lm_loss)
+        batches = cfg.batches(TRAIN_B)
+        for i in range(DIST_TWO_STEPS):
+            b = next(batches)
+            halves = [step.loss_and_grads(local_rows(b, r, 2))[1]
+                      for r in range(2)]
+            mean = {k: (g + halves[1][k]) / torch.full_like(g, 2)
+                    for k, g in halves[0].items()}
+            del halves
+            if i == 0:
+                res["first_step_grad_rel_err"] = grads_rel_err(
+                    mean, step.loss_and_grads(b)[1])
+                if not res["first_step_grad_rel_err"] <= DIST_TWO_GRAD_RTOL:
+                    fail(f"train_dist two ranks: the halves' mean gradient "
+                         f"is {res['first_step_grad_rel_err']} of the norm "
+                         f"from the 8 rows' (bound {DIST_TWO_GRAD_RTOL})")
+            step.apply_gradients(mean)
+            del mean
+        for k, t in cfg.model.state_dict().items():
+            if not torch.equal(t.cpu(), w[0][k]):
+                fail(f"train_dist two ranks: {k} differs from one process "
+                     f"averaging the same two halves")
+        del cfg, step
+        gc.collect()
+        # One process over the concatenated batch.
+        cfg = build_config("gpt2_124m", steps=100, seed=0, device="cuda")
+        step = make_train_step(cfg.model, adamw(TRAIN_LR, weight_decay=0.1),
+                               lm_loss)
+        batches = cfg.batches(TRAIN_B)
+        losses = [step(next(batches))["loss"].item()
+                  for _ in range(DIST_TWO_STEPS)]
+        loss_err = max(abs(a - b) for a, b in zip(losses,
+                                                  ranks[0]["losses"]))
+        if not loss_err <= TRAIN_LOSS_ATOL:
+            fail(f"train_dist two ranks: losses {ranks[0]['losses']} vs one "
+                 f"process {losses}")
+        # Informational: AdamW's update is near its largest wherever a
+        # gradient is near zero, so the weights can sit up to this bound
+        # apart however close the gradients are; the gradient check above
+        # and the loss are the checks.
+        worst = max((t.cuda().float() - cfg.model.state_dict()[k].float())
+                    .abs().max().item() for k, t in w[0].items())
+        res.update(world1_losses=losses, max_loss_err=loss_err,
+                   max_weight_diff_vs_world1=worst,
+                   adam_move_bound_x2=2 * adam_move_bound(DIST_TWO_STEPS,
+                                                          TRAIN_LR),
+                   ranks_bitwise_equal=True,
+                   halves_averaged_bitwise_equal=True)
+        del cfg, step, w
+        gc.collect()
+        torch.cuda.empty_cache()
+    print(json.dumps({"train_dist_two_ranks": res}), flush=True)
+    return res
+
+
+def train_dist(card: str) -> dict:
+    """Phase 4e (see the module docstring). -> the flash launches of its
+    dp and zero1 runs, by config."""
+    from nezha_tpu_torch import dist as nzdist
+    import torch.distributed as tdist
+
+    t0 = time.perf_counter()
+    coord = nzdist.Coordinator(world_size=1)
+    group = nzdist.join("127.0.0.1", coord.port)
+    try:
+        nzdist.init_torch_distributed(group, "nccl")
+        print(json.dumps({"train_dist_group": {
+            "backend": tdist.get_backend(), "world": tdist.get_world_size(),
+            "rank": tdist.get_rank()}}), flush=True)
+        launches = dist_world1_runs(card)
+        dist_int8_runs(card)
+    finally:
+        if tdist.is_initialized():
+            tdist.destroy_process_group()
+        group.leave()
+        coord.stop()
+    dist_cli()
+    dist_two_ranks(card)
+    print(json.dumps({"train_dist_wall_s": time.perf_counter() - t0}),
+          flush=True)
+    return launches
+
+
 HOME_PATH = {"paged_decode": "serve", "paged_prefill": "serve",
              "paged_prefill_qoff": "serve_seq",
              "paged_quant_decode": "serve_int8",
@@ -3197,6 +3810,10 @@ def main() -> int:
     image = train_image(card)
     phase("train_cli")
     train_cli()
+    phase("train_dist")
+    dist_paths = train_dist(card)
+    paths["train_dist_gpt2"] = dist_paths["gpt2_124m"]
+    paths["train_dist_bert"] = dist_paths["bert_base_zero1"]
     phase("data_ckpt")
     dc_launches, dc = data_ckpt(card)
     paths["data_ckpt_generate"] = dc_launches["generate"]

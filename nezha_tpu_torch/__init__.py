@@ -31,7 +31,13 @@ What runs today:
   ``data.bpe_train``), the native C++ loaders behind the train CLI's
   ``--data-dir`` (``data.native``), and checkpoints in the JAX package's
   npz format (``train.checkpoint``), which generate and serve load with
-  ``--ckpt-dir`` and ``--tokenizer``.
+  ``--ckpt-dir`` and ``--tokenizer``;
+- multi-process training: one process per device, joined through the
+  native coordinator (``dist``) into a ``torch.distributed`` group (nccl
+  on the card, gloo on the CPU); data parallelism
+  (``parallel.data_parallel``) and ZeRO-1 (``parallel.zero1``), the int8
+  gradient wire (``parallel.quantized``) and per-shard checkpoints in the
+  JAX package's layout (``train.sharded_checkpoint``).
 
 Kernels live in ``ops/cuda`` (sources in ``csrc/``). Entry points run on
 ``cuda`` unless the caller passes ``device="cpu"``; on CPU tensors each

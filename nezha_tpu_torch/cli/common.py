@@ -109,7 +109,8 @@ def restore_variables_any(ckpt_dir: str, model: torch.nn.Module) -> int:
     """Load the newest checkpoint in ``ckpt_dir`` that verifies into
     ``model`` (its ``variables``: weights and BatchNorm statistics; the
     optimizer state is not read); -> its step. The dense npz layout
-    only: the per-shard layout (``step_*.sharded``, ROADMAP A3), the
+    only: the per-shard layout (``step_*.sharded``, which the train CLI
+    resumes; reading it here is ROADMAP A3), the
     graph engine's and a ``--scan-layers`` trunk's (A7) raise
     ``NotPortedError``; no checkpoint at all exits."""
     newest = ckpt.latest_step(ckpt_dir)
@@ -117,8 +118,9 @@ def restore_variables_any(ckpt_dir: str, model: torch.nn.Module) -> int:
         if any(Path(ckpt_dir).glob("step_*.sharded")):
             raise NotPortedError(
                 f"{ckpt_dir} holds per-shard checkpoints (step_*.sharded, "
-                f"written by zero1/gspmd/pp training): the port reads the "
-                f"dense npz layout only (ROADMAP A3)")
+                f"written by zero1/gspmd/pp training): the port's train "
+                f"CLI resumes them, its inference CLIs read the dense npz "
+                f"layout only (ROADMAP A3)")
         raise SystemExit(f"no checkpoint (npz) in {ckpt_dir}")
     keys = ckpt.checkpoint_keys(ckpt_dir, newest)
     if not any(k.startswith("variables/") for k in keys):

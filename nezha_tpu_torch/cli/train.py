@@ -8,6 +8,13 @@
     python -m nezha_tpu_torch.cli.train --config wrn101_large_batch \
         --batch-size 64
     python -m nezha_tpu_torch.cli.train --config mlp_mnist --steps 300
+    python -m nezha_tpu_torch.cli.train --config gpt2_124m --parallel dp \
+        --mesh dp=1 --grad-allreduce int8
+    python -m nezha_tpu_torch.cli.train --config bert_base_zero1 \
+        --model-preset tiny --device cpu --coordinator 127.0.0.1:0 \
+        --serve-coordinator --world-size 2      # rank 0; it prints its
+    python -m nezha_tpu_torch.cli.train --config bert_base_zero1 \
+        --model-preset tiny --device cpu --coordinator 127.0.0.1:PORT
 
 The configs are the JAX CLI's:
 
@@ -40,11 +47,26 @@ The configs are the JAX CLI's:
   are on disk); ``tiny`` is the same; eval: the test split, one epoch,
   scored by ``accuracy``.
 
-JAX runs ``gpt2_124m``, ``resnet50_imagenet`` and ``wrn101_large_batch``
-data-parallel (``parallel_mode="dp"``) and ``bert_base_zero1`` with
-ZeRO-1 (``"zero1"``); on one device JAX runs them single-device, with a
-warning. The port trains every config on one card, and says so on
-stderr (process groups are ROADMAP A3). ``--eval`` runs the config's
+``gpt2_124m``, ``resnet50_imagenet`` and ``wrn101_large_batch`` run
+data-parallel (``parallel_mode="dp"``), ``bert_base_zero1`` ZeRO-1
+(``"zero1"``), ``mlp_mnist`` single-device; ``--parallel`` picks another
+mode. One process drives one device. ``--coordinator HOST:PORT`` joins
+the native coordinator (``--serve-coordinator`` also runs it, for
+``--world-size`` processes; port 0 binds a free one, printed on stderr)
+and, for dp and zero1 across more than one process, starts
+``torch.distributed`` over that world (``nccl`` on ``cuda``, ``gloo`` on
+``cpu``); ``--batch-size`` is then the global batch and each rank trains
+on ``batch / world`` rows of it: its shard of ``--data-dir``'s loader,
+or its rows of the synthetic stream. As in JAX, a dp or zero1 config on
+a world of one process runs single-device with a warning, unless
+``--mesh dp=1`` asks for the parallel path on the one device (a world-1
+process group). ``--grad-allreduce int8`` puts the gradients on the int8
+wire (``parallel/quantized.py``) and is refused outside dp and zero1;
+``gspmd``, ``pp`` and ``sp`` are refused (ROADMAP A7). Every
+``--failure-check-every`` steps each rank polls the coordinator for dead
+peers and, on one, checkpoints and stops (``--on-failure stop``;
+``rejoin`` is refused). Log and ``{"save"}`` lines come from rank 0.
+``--eval`` runs the config's
 eval split after training, ``--eval-every N`` also every N steps (the
 run trains in chunks that end on multiples of N), ``--eval-batches N``
 caps each pass; a config without an eval split runs none. Training runs
@@ -68,7 +90,9 @@ windows, one pass) when present.
 
 ``--ckpt-dir C`` resumes from C's newest checkpoint that verifies (``resumed
 from step N`` on stderr), saves every ``--ckpt-every`` steps of the
-global count and once at the end, keeping the newest ``--ckpt-keep``;
+global count and once at the end, keeping the newest ``--ckpt-keep``
+(dense saves by rank 0; zero1 writes the per-shard layout,
+``step_<N>.sharded``, each rank its own shards on a background thread);
 ``--eval-every`` points stay on multiples of the global step. The files
 are the JAX package's (``train/checkpoint.py``), so either package
 resumes the other's run; the port's dropout masks follow from (key,
@@ -102,6 +126,7 @@ from nezha_tpu_torch.models.mlp import MLP
 from nezha_tpu_torch.models.resnet import ResNet, resnet50, wide_resnet101
 from nezha_tpu_torch.ops.losses import \
     softmax_cross_entropy_with_integer_labels
+from nezha_tpu_torch.parallel.data_parallel import local_rows
 from nezha_tpu_torch.optim import (Optimizer, adamw, matrix_decay_mask,
                                    momentum, warmup_cosine_schedule,
                                    with_grad_clipping)
@@ -115,14 +140,12 @@ CONFIGS = ("mlp_mnist", "resnet50_imagenet", "gpt2_124m", "bert_base_zero1",
 IMAGE_CONFIGS = ("resnet50_imagenet", "wrn101_large_batch")
 # Flags of the JAX train CLI this port does not take yet.
 NOT_PORTED_FLAGS = frozenset((
-    "--mesh", "--parallel", "--microbatches", "--sp-flash", "--attn-impl",
-    "--moe-experts", "--optimizer", "--lr", "--grad-accum", "--remat",
-    "--graph-bf16", "--scan-layers", "--grad-allreduce", "--platform",
-    "--log-every", "--prefetch", "--metrics-file", "--run-dir",
-    "--trace-dir", "--failure-check-every", "--on-failure", "--rejoin-timeout",
-    "--log-memory", "--profile-dir", "--profile-steps", "--coordinator",
-    "--serve-coordinator", "--world-size", "--rank-hint",
-    "--no-jax-distributed", "--engine"))
+    "--microbatches", "--sp-flash", "--attn-impl", "--moe-experts",
+    "--optimizer", "--lr", "--grad-accum", "--remat", "--graph-bf16",
+    "--scan-layers", "--platform", "--log-every", "--prefetch",
+    "--metrics-file", "--run-dir", "--trace-dir", "--rejoin-timeout",
+    "--log-memory", "--profile-dir", "--profile-steps", "--engine"))
+PARALLEL_MODES = ("config", "single", "dp", "zero1", "gspmd", "pp", "sp")
 LOG_EVERY = 10
 
 
@@ -279,6 +302,35 @@ def build_parser() -> argparse.ArgumentParser:
                    help="save every N global steps (0: only at the end)")
     p.add_argument("--ckpt-keep", type=int, default=None,
                    help="keep only the N newest checkpoints (default: all)")
+    p.add_argument("--parallel", default="config", choices=PARALLEL_MODES,
+                   help="config (the config's mode), single, dp (gradient "
+                        "all-reduce), zero1 (sharded optimizer state); "
+                        "gspmd, pp and sp are not ported")
+    p.add_argument("--mesh", default=None,
+                   help='mesh axes, "dp=N" (N the world size, or -1); '
+                        '"dp=1" runs dp/zero1 on one device')
+    p.add_argument("--grad-allreduce", default="fp32",
+                   choices=["fp32", "int8"],
+                   help="dp/zero1 gradient wire: exact fp32 or "
+                        "block-scaled int8")
+    p.add_argument("--coordinator", default=None, metavar="HOST:PORT",
+                   help="rendezvous address for a multi-process launch")
+    p.add_argument("--serve-coordinator", action="store_true",
+                   help="also run the coordinator here (port 0: a free "
+                        "one, printed on stderr)")
+    p.add_argument("--world-size", type=int, default=1,
+                   help="processes in the job (with --serve-coordinator)")
+    p.add_argument("--rank-hint", type=int, default=-1,
+                   help="preferred rank")
+    p.add_argument("--failure-check-every", type=int, default=10,
+                   help="poll the coordinator for dead peers every N "
+                        "steps (multi-process runs)")
+    p.add_argument("--on-failure", choices=["stop", "rejoin"],
+                   default="stop",
+                   help="on a dead peer: stop checkpoints, then raises; "
+                        "rejoin is not ported")
+    p.add_argument("--no-jax-distributed", action="store_true",
+                   help=argparse.SUPPRESS)
     return p
 
 
@@ -293,6 +345,18 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
                          f"yet (see ROADMAP.md)")
     if rest:
         parser.error(f"unrecognized arguments: {' '.join(rest)}")
+    if args.no_jax_distributed:
+        parser.error("--no-jax-distributed skips the JAX package's "
+                     "jax.distributed bootstrap; the port has no JAX "
+                     "runtime to skip (its torch.distributed group starts "
+                     "only for dp/zero1 across processes)")
+    if args.world_size < 1:
+        parser.error(f"--world-size must be >= 1, got {args.world_size}")
+    if args.serve_coordinator and not args.coordinator:
+        parser.error("--serve-coordinator needs --coordinator HOST:PORT")
+    if args.failure_check_every < 0:
+        parser.error(f"--failure-check-every must be >= 0, got "
+                     f"{args.failure_check_every}")
     gpt2 = args.config == "gpt2_124m"
     for flag, value in (("--seq-len", args.seq_len),
                         ("--dropout", args.dropout),
@@ -395,25 +459,41 @@ def resolve_mlm_mask_token(args, vocab_size: int, tok_path: str,
     return mask_token
 
 
-def data_source(args, cfg: Config, batch_size: int):
+def _slice_rows(it: Iterator[dict], rank: int, world: int
+                ) -> Iterator[dict]:
+    """This rank's rows of each batch of a stream every rank draws
+    alike."""
+    for b in it:
+        yield local_rows(b, rank, world)
+
+
+def data_source(args, cfg: Config, batch_size: int, rank: int = 0,
+                world: int = 1):
     """Training batches: from ``--data-dir`` through the native loaders
     when it holds the config's files, else the config's synthetic
     stream. -> (iterator, closer or None). Token windows come from one
     loader worker, so the seed fixes their order (two workers' batches
-    would interleave in arrival order)."""
+    would interleave in arrival order). With ``world`` > 1,
+    ``batch_size`` is the global batch and the stream yields this rank's
+    ``batch_size // world`` rows: a loader reads shard ``rank`` of
+    ``world`` (disjoint record batches, its own token windows), a
+    synthetic stream is sliced (JAX's ``_data_source``)."""
     from nezha_tpu_torch.data.mlm import mlm_batches_from_tokens
     from nezha_tpu_torch.data.native import ImageRecordLoader, TokenLoader
 
+    local = batch_size // world
+    shard = {"shard_index": rank, "shard_count": world} if world > 1 else {}
+    note = f" (shard {rank}/{world})" if shard else ""
     d = args.data_dir
     if d:
         if args.config in IMAGE_CONFIGS:
             rec = os.path.join(d, "train.nzr")
             if os.path.exists(rec):
-                loader = ImageRecordLoader(rec, batch_size, crop=args.crop,
+                loader = ImageRecordLoader(rec, local, crop=args.crop,
                                            seed=args.seed,
-                                           train_augment=True)
+                                           train_augment=True, **shard)
                 print(f"data: {loader.num_examples} image records from "
-                      f"{rec}", file=sys.stderr)
+                      f"{rec}{note}", file=sys.stderr)
                 return iter(loader), loader.close
         elif args.config == "gpt2_124m" and _token_file(d, "train"):
             tok, dtype = _token_file(d, "train")
@@ -426,9 +506,9 @@ def data_source(args, cfg: Config, batch_size: int):
                     f"tokenizer (pack_text --tokenizer/--learn-bpe) or "
                     f"train the full-vocab preset")
             loader = TokenLoader(tok, seq_len=cfg.seq_len,
-                                 batch_size=batch_size, dtype=dtype,
-                                 seed=args.seed, num_workers=1)
-            print(f"data: {loader.num_tokens} tokens from {tok}",
+                                 batch_size=local, dtype=dtype,
+                                 seed=args.seed, num_workers=1, **shard)
+            print(f"data: {loader.num_tokens} tokens from {tok}{note}",
                   file=sys.stderr)
             return iter(loader), loader.close
         elif args.config == "bert_base_zero1" and _token_file(d, "train"):
@@ -438,10 +518,11 @@ def data_source(args, cfg: Config, batch_size: int):
                 args, mcfg.vocab_size, tok,
                 np.fromfile(tok, dtype=dtype, count=32768))
             loader = TokenLoader(tok, seq_len=mcfg.max_positions,
-                                 batch_size=batch_size, dtype=dtype,
-                                 seed=args.seed, num_workers=1)
+                                 batch_size=local, dtype=dtype,
+                                 seed=args.seed, num_workers=1, **shard)
             print(f"data: {loader.num_tokens} tokens from {tok} (dynamic "
-                  f"MLM masking, mask_token={mask_token})", file=sys.stderr)
+                  f"MLM masking, mask_token={mask_token}){note}",
+                  file=sys.stderr)
             return mlm_batches_from_tokens(
                 iter(loader), vocab_size=mcfg.vocab_size,
                 mask_token=mask_token, seed=args.seed,
@@ -451,10 +532,11 @@ def data_source(args, cfg: Config, batch_size: int):
             if os.path.isdir(os.path.join(d, "mnist")):
                 print(f"data: MNIST IDX files from {d}/mnist",
                       file=sys.stderr)
-                return cfg.batches(batch_size), None
+                return _slice_rows(cfg.batches(batch_size), rank,
+                                   world), None
         print(f"data: no records for {args.config} in {d}; using "
               f"synthetic data", file=sys.stderr)
-    return cfg.batches(batch_size), None
+    return _slice_rows(cfg.batches(batch_size), rank, world), None
 
 
 def eval_source(args, cfg: Config, batch_size: int):
@@ -524,19 +606,135 @@ def eval_source(args, cfg: Config, batch_size: int):
     return None, None, None
 
 
-def run_eval(args, cfg: Config,
-             batch_size: int) -> Optional[Dict[str, float]]:
+def _split_rows(it: Iterator[dict], rank: int, world: int
+                ) -> Iterator[dict]:
+    """Rows ``[B * rank // world, B * (rank + 1) // world)`` of each
+    batch: the ranks' shares of a stream every rank draws alike, a batch
+    of fewer rows than ranks included (some shares are then empty)."""
+    for b in it:
+        n = len(next(iter(b.values())))
+        lo, hi = n * rank // world, n * (rank + 1) // world
+        yield {k: v[lo:hi] for k, v in b.items()}
+
+
+def run_eval(args, cfg: Config, batch_size: int, rank: int = 0,
+             world: int = 1) -> Optional[Dict[str, float]]:
     """One pass over the eval split with the current weights, or None
-    when there is none."""
+    when there is none. With ``world`` > 1 (dp and ZeRO-1, whose ranks
+    hold the same weights), each rank evaluates its rows of every global
+    batch and the sums are added over the default group, so the work and
+    the memory a rank takes are 1/world of the split's."""
     batches, close, stat = eval_source(args, cfg, batch_size)
     if batches is None:
         return None
+    group = None
+    if world > 1:
+        import torch.distributed as dist
+
+        batches, group = _split_rows(batches, rank, world), dist.group.WORLD
     try:
         return evaluate(cfg.model, batches, stat,
-                        max_batches=args.eval_batches)
+                        max_batches=args.eval_batches, group=group)
     finally:
         if close is not None:
             close()
+
+
+def parse_mesh(spec: Optional[str]) -> Optional[Dict[str, int]]:
+    if not spec:
+        return None
+    axes = {}
+    for part in spec.split(","):
+        name, _, size = part.partition("=")
+        axes[name.strip()] = int(size)
+    return axes
+
+
+def join_world(args):
+    """Dial the coordinator before touching a device (rank 0 may serve
+    it); -> (group, coordinator), either None without
+    ``--coordinator``."""
+    if not args.coordinator:
+        return None, None
+    from nezha_tpu_torch import dist as nzdist
+
+    host, _, port = args.coordinator.rpartition(":")
+    host = host or "127.0.0.1"
+    coord = None
+    if args.serve_coordinator:
+        coord = nzdist.Coordinator(world_size=args.world_size,
+                                   port=int(port))
+        port = coord.port
+        print(f"coordinator: serving {host}:{port} for "
+              f"{args.world_size} process(es)", file=sys.stderr, flush=True)
+    group = nzdist.join(host, int(port), rank_hint=args.rank_hint)
+    print(f"joined world: rank {group.rank} / {group.world_size}",
+          file=sys.stderr, flush=True)
+    return group, coord
+
+
+def resolve_mode(args, cfg: Config, world: int) -> str:
+    """The parallel mode after the JAX CLI's checks: its refusals, and
+    its degrade of dp/zero1 to single-device on a one-device world
+    unless ``--mesh`` asks for an all-ones mesh."""
+    mode = cfg.parallel_mode if args.parallel == "config" else args.parallel
+    if mode == "single" and args.mesh:
+        raise SystemExit("--mesh has no effect in single-device mode; drop "
+                         "it or pick a --parallel mode that consumes it")
+    req = parse_mesh(args.mesh)
+    req_size = 1
+    for v in (req or {"": -1}).values():
+        req_size *= v  # -1 ("all devices") counts as more than one
+    if mode != "single" and world == 1 and req_size != 1:
+        print(f"WARNING: config {args.config!r} requests parallel mode "
+              f"{mode!r} but only 1 device is visible; running "
+              f"single-device (check your mesh/launch if this is a "
+              f"multi-chip job)", file=sys.stderr, flush=True)
+        mode = "single"
+    if args.grad_allreduce != "fp32" and mode not in ("dp", "zero1"):
+        raise SystemExit("--grad-allreduce int8 is the dp/zero1 gradient "
+                         f"wire format; mode {mode!r} does not consume it "
+                         "(reject, don't ignore)")
+    if args.wd_exclude_1d and mode == "zero1":
+        raise SystemExit("--wd-exclude-1d: this mode's flat param layout "
+                         "(zero1 chunks) erases the leaf shapes the "
+                         "ndim-based decay mask keys on; use --parallel "
+                         "dp/single")
+    if mode != "single":
+        axes = req or {"dp": -1}
+        unusable = [a for a in axes if a != "dp"]
+        if unusable:
+            raise SystemExit(f"parallel mode {mode!r} cannot use mesh "
+                             f"axis(es) {unusable} (it consumes ['dp']); "
+                             f"pass --parallel to select the mode that "
+                             f"uses them")
+        if "dp" not in axes:
+            raise SystemExit(f"parallel mode {mode!r} needs mesh axis(es) "
+                             f"['dp'] (use size 1 to disable an axis); got "
+                             f"{list(axes)}")
+        if axes["dp"] not in (-1, world):
+            raise SystemExit(f"--mesh dp={axes['dp']} does not match the "
+                             f"world of {world} process(es), one device "
+                             f"each")
+    return mode
+
+
+def start_process_group(args, group, device: torch.device) -> None:
+    """``torch.distributed``'s default group for dp/zero1: over the
+    coordinator's world, or a world of one without a coordinator. The
+    backend follows the device, with no fallback."""
+    import torch.distributed as dist
+
+    from nezha_tpu_torch.dist import backend_for
+    from nezha_tpu_torch.dist.launch import (init_torch_distributed,
+                                             store_host)
+    backend = backend_for(device)
+    if group is not None:
+        init_torch_distributed(group, backend, host=store_host(
+            args.coordinator.rpartition(":")[0]))
+    else:
+        dist.init_process_group(backend, store=dist.HashStore(), rank=0,
+                                world_size=1)
 
 
 def run(args: argparse.Namespace) -> Dict[str, float]:
@@ -544,18 +742,59 @@ def run(args: argparse.Namespace) -> Dict[str, float]:
             and not torch.cuda.is_available()):
         raise SystemExit("no CUDA device: pass --device cpu to train on "
                          "the CPU")
+    if args.on_failure == "rejoin":
+        raise NotPortedError("--on-failure rejoin is not ported (ROADMAP "
+                             "A3's next step); use --on-failure stop and "
+                             "relaunch the world, which resumes from "
+                             "--ckpt-dir")
+    if args.parallel in ("gspmd", "pp", "sp"):
+        raise NotPortedError(f"--parallel {args.parallel} is not ported "
+                             f"(ROADMAP A7: tensor, pipeline and sequence "
+                             f"parallelism); the port runs single, dp and "
+                             f"zero1")
+    group, coord = join_world(args)
+    try:
+        return _run(args, group)
+    finally:
+        if group is not None:
+            if sys.exc_info()[0] is None:
+                try:
+                    group.barrier(timeout_s=600)  # every rank finishes
+                except Exception as e:
+                    print(f"shutdown barrier skipped: {e}", file=sys.stderr)
+            # Unwinding: leave at once, so peers see a clean departure.
+            group.leave()
+        if coord is not None:
+            coord.stop()
+        import torch.distributed as dist
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def _run(args: argparse.Namespace, group) -> Dict[str, float]:
+    world = group.world_size if group is not None else 1
+    rank = group.rank if group is not None else 0
+    device = torch.device(args.device)
+    if device.type == "cuda":
+        if device.index is None:   # one device a process: rank r's
+            device = torch.device("cuda", rank % torch.cuda.device_count())
+        torch.cuda.set_device(device)
     cfg = build_config(args.config, args.model_preset, steps=args.steps,
-                       seed=args.seed, device=args.device,
+                       seed=args.seed, device=device,
                        seq_len=args.seq_len, dropout=args.dropout,
                        wd_exclude_1d=args.wd_exclude_1d)
-    if cfg.parallel_mode != "single":
-        print(f"WARNING: config {args.config!r} requests parallel mode "
-              f"{cfg.parallel_mode!r}; the port trains on one device "
-              f"(process groups are ROADMAP A3): running single-device",
-              file=sys.stderr, flush=True)
+    mode = resolve_mode(args, cfg, world)
+    parallel = mode in ("dp", "zero1")
+    if parallel:
+        start_process_group(args, group, device)
     optimizer, loss_fn = cfg.optimizer, cfg.loss_fn
     if args.clip_norm is not None:
-        optimizer = with_grad_clipping(optimizer, args.clip_norm)
+        # ZeRO-1's optimizer sees gradient chunks: the norm sums over the
+        # group.
+        import torch.distributed as dist
+        optimizer = with_grad_clipping(
+            optimizer, args.clip_norm,
+            group=dist.group.WORLD if mode == "zero1" else None)
     if args.label_smoothing:
         eps = args.label_smoothing
 
@@ -563,21 +802,48 @@ def run(args: argparse.Namespace) -> Dict[str, float]:
             return softmax_cross_entropy_with_integer_labels(
                 logits, batch["label"], label_smoothing=eps)
     batch_size = args.batch_size or cfg.default_batch
+    data_world = world if parallel else 1
+    if batch_size % data_world:
+        raise SystemExit(f"--batch-size {batch_size} must be divisible by "
+                         f"the process world size {data_world} (it is the "
+                         f"GLOBAL batch; each rank loads batch/world local "
+                         f"rows)")
 
     def log(step: int, metrics: Dict[str, float]) -> None:
-        print(json.dumps(metrics), file=sys.stderr, flush=True)
+        if rank == 0:
+            print(json.dumps(metrics), file=sys.stderr, flush=True)
 
+    step_fn = None
+    if parallel:
+        from nezha_tpu_torch.parallel.data_parallel import (DPTrainStep,
+                                                            replicate)
+        from nezha_tpu_torch.parallel.zero1 import Zero1TrainStep
+        replicate(cfg.model)
+        build = Zero1TrainStep if mode == "zero1" else DPTrainStep
+        step_fn = build(cfg.model, optimizer, loss_fn,
+                        grad_reduce=args.grad_allreduce)
+        import torch.distributed as dist
+        log(0, {"parallel": {"mode": mode, "world": world,
+                             "backend": dist.get_backend(),
+                             "grad_allreduce": args.grad_allreduce,
+                             "opt_state_bytes": step_fn.opt_state_bytes()}})
     trainer = Trainer(cfg.model, optimizer, loss_fn, rng=prng_key(args.seed),
                       checkpoint_dir=args.ckpt_dir,
                       checkpoint_every=args.ckpt_every,
                       checkpoint_keep=args.ckpt_keep, log_every=LOG_EVERY,
-                      metric_logger=log, examples_per_step=batch_size)
+                      metric_logger=log, examples_per_step=batch_size,
+                      step_fn=step_fn, process_group=group,
+                      failure_check_every=args.failure_check_every
+                      if group is not None else 0)
     start_step = trainer.initialize()
     if trainer.last_restore is not None:
-        print(f"resumed from step {start_step}", file=sys.stderr,
-              flush=True)
+        if rank == 0:
+            print(f"resumed from step {start_step}"
+                  + (" (sharded)" if trainer.sharded else ""),
+                  file=sys.stderr, flush=True)
         log(start_step, {"restore": trainer.last_restore})
-    batches, close_source = data_source(args, cfg, batch_size)
+    batches, close_source = data_source(args, cfg, batch_size, rank,
+                                        data_world)
     last: Dict[str, float] = {}
     try:
         # A resumed run goes on where the stream stood at its step (the
@@ -598,7 +864,8 @@ def run(args: argparse.Namespace) -> Dict[str, float]:
                 last = trainer.fit(batches, n)
                 done += n
                 if done < args.steps:
-                    results = run_eval(args, cfg, batch_size)
+                    results = run_eval(args, cfg, batch_size, rank,
+                                       data_world)
                     if results is not None:
                         log(trainer.global_step, {
                             "step": trainer.global_step,
@@ -614,13 +881,15 @@ def run(args: argparse.Namespace) -> Dict[str, float]:
                               == start_step + args.steps):
         # The final save (the JAX CLI's), unless --ckpt-every just wrote it.
         trainer.save(start_step + args.steps)
+    trainer.wait_saves()
     for record in trainer.saves:
         log(record["step"], {"save": record})
     if args.eval or args.eval_every:
-        results = run_eval(args, cfg, batch_size)
+        results = run_eval(args, cfg, batch_size, rank, data_world)
         if results is not None:
-            print(json.dumps({"eval": results}), file=sys.stderr,
-                  flush=True)
+            if rank == 0:
+                print(json.dumps({"eval": results}), file=sys.stderr,
+                      flush=True)
             last.update({f"eval_{k}": v for k, v in results.items()})
     return last
 

@@ -49,14 +49,19 @@ class NativeLoaderError(RuntimeError):
     file (the C++ side's message)."""
 
 
-def library_path() -> Path:
+def library_path(source: Path = SOURCE, stem: str = "dataloader",
+                 name: str = "libnezha_loader.so") -> Path:
+    """Where ``source``'s library builds: ``build/nezha_tpu_torch/<stem>-
+    <digest>/<name>``, the digest over the flags and the source."""
     h = hashlib.sha256(" ".join(CXX_FLAGS).encode())
-    h.update(SOURCE.read_bytes())
-    return BUILD_ROOT / f"dataloader-{h.hexdigest()[:16]}" / \
-        "libnezha_loader.so"
+    h.update(source.read_bytes())
+    return BUILD_ROOT / f"{stem}-{h.hexdigest()[:16]}" / name
 
 
-def _build(out: Path) -> None:
+def _build(out: Path, source: Path = SOURCE,
+           error: type = NativeLoaderError) -> None:
+    """Compile ``source`` alone into ``out`` under an ``flock``; a failed
+    build raises ``error``."""
     import fcntl
 
     out.parent.mkdir(parents=True, exist_ok=True)
@@ -66,18 +71,27 @@ def _build(out: Path) -> None:
             return
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
         cxx = os.environ.get("CXX", "g++")
+        what = source.stem
         try:
             proc = subprocess.run([cxx, *CXX_FLAGS, "-o", str(tmp),
-                                   str(SOURCE)],
+                                   str(source)],
                                   capture_output=True, text=True)
         except OSError as e:
-            raise NativeLoaderError(f"loader build: cannot run {cxx}: "
-                                    f"{e}") from e
+            raise error(f"{what} build: cannot run {cxx}: {e}") from e
         if proc.returncode != 0 or not tmp.exists():
-            raise NativeLoaderError(f"loader build failed ({cxx} exit "
-                                    f"{proc.returncode}):\n{proc.stdout}"
-                                    f"\n{proc.stderr}")
+            raise error(f"{what} build failed ({cxx} exit "
+                        f"{proc.returncode}):\n{proc.stdout}\n{proc.stderr}")
         os.replace(tmp, out)
+
+
+def build_library(source: Path, stem: str, name: str,
+                  error: type) -> Path:
+    """The path of ``source``'s library, built first when its digest is
+    new (see :func:`library_path`, :func:`_build`)."""
+    out = library_path(source, stem, name)
+    if not out.exists():
+        _build(out, source, error)
+    return out
 
 
 def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
@@ -109,9 +123,8 @@ def load_library() -> ctypes.CDLL:
     global _lib
     with _lock:
         if _lib is None:
-            out = library_path()
-            if not out.exists():
-                _build(out)
+            out = build_library(SOURCE, "dataloader", "libnezha_loader.so",
+                                NativeLoaderError)
             try:
                 _lib = _declare(ctypes.CDLL(str(out)))
             except (OSError, AttributeError) as e:

@@ -44,18 +44,26 @@ def apply_updates_(params: Tree, updates: Tree) -> None:
         p.add_(updates[k].to(p.dtype))
 
 
-def global_norm(tree: Tree) -> torch.Tensor:
+def global_norm(tree: Tree, group=None) -> torch.Tensor:
     """Global L2 norm: the square root of the per-tensor fp32 sums of
-    squares, added in the tree's order."""
+    squares, added in the tree's order. ``group`` (JAX's ``axis_name``):
+    a ``torch.distributed`` group whose ranks each hold a shard of every
+    tensor (ZeRO-1's chunks); the squared sums are all-reduced over it
+    first. None: the tree is whole."""
     sq = sum(torch.sum(torch.square(x.float())) for x in tree.values())
+    if group is not None:
+        import torch.distributed as dist
+        dist.all_reduce(sq, group=group)
     return torch.sqrt(sq)
 
 
-def clip_by_global_norm(tree: Tree, max_norm: float
+def clip_by_global_norm(tree: Tree, max_norm: float, group=None
                         ) -> Tuple[Tree, torch.Tensor]:
     """Scale ``tree`` so its global L2 norm is at most ``max_norm``;
-    -> (clipped tree, norm before clipping)."""
-    norm = global_norm(tree)
+    -> (clipped tree, norm before clipping). ``group``: see
+    :func:`global_norm`; without it a sharded tree would be clipped
+    against its shard's norm, about sqrt(world) times too small."""
+    norm = global_norm(tree, group)
     scale = torch.clamp(max_norm / (norm + 1e-6), max=1.0)
     return {k: x * scale for k, x in tree.items()}, norm
 
@@ -147,11 +155,14 @@ def adamw(lr, b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
     return Optimizer(init, update)
 
 
-def with_grad_clipping(opt: Optimizer, max_norm: float) -> Optimizer:
-    """Clip the gradients to global norm ``max_norm`` before ``opt``."""
+def with_grad_clipping(opt: Optimizer, max_norm: float,
+                       group=None) -> Optimizer:
+    """Clip the gradients to global norm ``max_norm`` before ``opt``.
+    Pass ``group`` when ``opt`` runs on per-rank gradient shards
+    (ZeRO-1), so the norm is the whole gradient's."""
 
     def update(grads: Tree, state, params: Tree):
-        grads, _ = clip_by_global_norm(grads, max_norm)
+        grads, _ = clip_by_global_norm(grads, max_norm, group)
         return opt.update(grads, state, params)
 
     return Optimizer(opt.init, update)

@@ -1,6 +1,9 @@
 """Meshes and collectives (counterpart of ``nezha_tpu/parallel``): the
 one-process serve mesh (:mod:`.mesh`) and the composed ring attention
-(:mod:`.ring`) the sequence-sharded prefill folds with."""
+(:mod:`.ring`) the sequence-sharded prefill folds with; and, over a
+``torch.distributed`` group, the collectives (:mod:`.collectives`), the
+int8 wire (:mod:`.quantized`), data parallelism (:mod:`.data_parallel`)
+and ZeRO-1 (:mod:`.zero1`), imported from their modules."""
 
 from nezha_tpu_torch.parallel.mesh import (Mesh, all_to_all, device_scope,
                                            make_mesh, pmax, ppermute, psum,

@@ -89,22 +89,38 @@ def make_eval_step(model: torch.nn.Module, stat_fn: Callable) -> EvalStep:
 
 def evaluate(model: torch.nn.Module, batches: Iterator[dict],
              stat_fn: Callable = accuracy,
-             max_batches: Optional[int] = None) -> Dict[str, float]:
+             max_batches: Optional[int] = None,
+             group=None) -> Dict[str, float]:
     """Run the model over ``batches`` (at most ``max_batches``) and read
     the sums: -> the sums as floats, ``accuracy`` when ``stat_fn`` gives
     ``correct`` and ``count``, ``perplexity`` when it gives ``nll_sum``
-    and ``count``, and ``batches``."""
+    and ``count``, and ``batches``.
+
+    With ``group`` (a ``torch.distributed`` group), each rank's
+    ``batches`` are its rows of the same global batches, some of them
+    possibly empty; the sums are added over the group before they are
+    read, so every rank returns the whole split's metrics."""
     step = make_eval_step(model, stat_fn)
     acc = None
     n = 0
     for batch in batches:
         if max_batches is not None and n >= max_batches:
             break
-        acc = step(batch, acc)
         n += 1
-    if acc is None:
+        if len(next(iter(batch.values()))):
+            acc = step(batch, acc)
+    out = {k: float(v) for k, v in (acc or {}).items()}
+    if group is not None:
+        import torch.distributed as dist
+
+        parts = [None] * dist.get_world_size(group)
+        dist.all_gather_object(parts, out, group=group)
+        out = {}
+        for part in parts:
+            for k, v in part.items():
+                out[k] = out.get(k, 0.0) + v
+    if not out:
         raise ValueError("no batches to evaluate")
-    out = {k: float(v) for k, v in acc.items()}
     if "correct" in out and out.get("count"):
         out["accuracy"] = out["correct"] / out["count"]
     if "nll_sum" in out and out.get("count"):

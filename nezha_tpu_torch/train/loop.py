@@ -73,6 +73,12 @@ class TrainStep:
         self.apply_gradients(grads)
         return {"loss": loss}
 
+    def opt_state_bytes(self) -> int:
+        """Bytes of the optimizer state this process holds."""
+        return sum(t.numel() * t.element_size()
+                   for slot in self.opt_state.values()
+                   if isinstance(slot, dict) for t in slot.values())
+
 
 def make_train_step(model: torch.nn.Module, optimizer: Optimizer,
                     loss_fn: Callable) -> TrainStep:
@@ -82,13 +88,10 @@ def make_train_step(model: torch.nn.Module, optimizer: Optimizer,
 
 
 # Trainer options of the JAX package not ported yet, with the value that
-# means "off" (failure detection and rejoin, profiling, custom step /
-# sharding / save functions: ROADMAP A3).
-_NOT_PORTED = {"tracer": None, "process_group": None,
-               "failure_check_every": 0, "on_failure": None,
-               "failure_mode": "stop", "rejoin_timeout_s": 300.0,
-               "recover_fn": None, "step_fn": None, "shard_fn": None,
-               "save_fn": None, "save_wait": None}
+# means "off" (rejoin, profiling, custom sharding and save functions).
+_NOT_PORTED = {"tracer": None, "rejoin_timeout_s": 300.0,
+               "recover_fn": None, "shard_fn": None, "save_fn": None,
+               "save_wait": None}
 
 
 def prng_key(seed: int) -> np.ndarray:
@@ -97,11 +100,14 @@ def prng_key(seed: int) -> np.ndarray:
     return np.asarray([0, seed], np.uint32)
 
 
-def dropout_seed(rng, step: int) -> int:
-    """The seed of a step's dropout masks, from the run's key and the
-    step: a resumed run draws the masks an unbroken one would."""
+def dropout_seed(rng, step: int, rank: int = 0) -> int:
+    """The seed of a step's dropout masks, from the run's key, the step
+    and the data-parallel rank (JAX folds ``axis_index`` into the key):
+    a resumed run draws the masks an unbroken one would, and each rank
+    its own. Rank 0 draws the single-device masks."""
     h = hashlib.sha256(np.asarray(rng, np.uint32).tobytes()
-                       + int(step).to_bytes(8, "little"))
+                       + int(step).to_bytes(8, "little")
+                       + (int(rank).to_bytes(8, "little") if rank else b""))
     return int.from_bytes(h.digest()[:8], "little") & (2 ** 63 - 1)
 
 
@@ -110,22 +116,33 @@ class Trainer:
     steps reads the loss (the device barrier of the window) and logs
     ``steps_per_sec``, ``examples_per_sec(_per_chip)`` and
     ``tokens_per_sec(_per_chip)`` through ``metric_logger(step,
-    metrics)``; ``examples_per_step`` (the batch size: images for the
-    image configs) and ``tokens_per_step`` scale the step rate. The port
-    trains on one device, so per chip is per run.
+    metrics)``; ``examples_per_step`` (the global batch: images for the
+    image configs) and ``tokens_per_step`` scale the step rate, and per
+    chip divides by the step's world size (one device a process).
 
-    With ``checkpoint_dir``, :meth:`initialize` resumes from the newest
-    checkpoint there that verifies, and every ``checkpoint_every`` steps
-    (of the global step count) :meth:`save` writes one in the JAX
-    package's format, keeping the newest ``checkpoint_keep`` (None: all).
+    ``step_fn`` replaces the single-device step: a
+    :class:`~nezha_tpu_torch.parallel.data_parallel.DPTrainStep` or
+    :class:`~nezha_tpu_torch.parallel.zero1.Zero1TrainStep` built on the
+    same model and optimizer. With ``checkpoint_dir``, :meth:`initialize`
+    resumes from the newest checkpoint there that verifies, and every
+    ``checkpoint_every`` steps (of the global step count) :meth:`save`
+    writes one in the JAX package's format, keeping the newest
+    ``checkpoint_keep`` (None: all): a dense npz, written by rank 0
+    alone, or for a sharded step (ZeRO-1) the per-shard layout, each rank
+    its own shards, on a background thread (:meth:`wait_saves` commits).
     ``rng`` is the run's JAX PRNG key (``uint32[2]``, :func:`prng_key` of
     0 when None), saved as the ``rng`` leaf and replaced by a restored
     one. The port cannot split JAX keys: it keeps the key it has and
-    draws each step's dropout masks from (key, step)
+    draws each step's dropout masks from (key, step, rank)
     (:func:`dropout_seed`), so a run resumed from the other package
     draws other masks than that package would.
-    The JAX Trainer's failure, profiling and custom-step options raise
-    :class:`NotPortedError` when set."""
+
+    ``process_group`` (a coordinator :class:`~nezha_tpu_torch.dist.
+    ProcessGroup`) is polled every ``failure_check_every`` steps for dead
+    peers; on one the trainer saves (with ``checkpoint_dir``), then calls
+    ``on_failure(failed)`` or raises RuntimeError naming the ranks
+    (``failure_mode="stop"``). ``"rejoin"``, profiling and custom
+    sharding or save functions raise :class:`NotPortedError`."""
 
     def __init__(self, model: torch.nn.Module, optimizer: Optimizer,
                  loss_fn: Callable, rng=None,
@@ -134,16 +151,30 @@ class Trainer:
                  metric_logger: Optional[Callable[[int, dict], None]] = None,
                  checkpoint_keep: Optional[int] = None,
                  examples_per_step: int = 0, tokens_per_step: int = 0,
-                 **options):
+                 step_fn: Optional[TrainStep] = None, process_group=None,
+                 failure_check_every: int = 0,
+                 on_failure: Optional[Callable[[list], None]] = None,
+                 failure_mode: str = "stop", **options):
         for name, value in options.items():
             if name not in _NOT_PORTED:
                 raise TypeError(f"Trainer got an unexpected option {name!r}")
             if value != _NOT_PORTED[name]:
                 raise NotPortedError(f"Trainer option {name} is not ported "
-                                     f"(ROADMAP A3: process groups, "
-                                     f"failure handling, sharded saves)")
+                                     f"(ROADMAP A3: rejoin; A5: tracing)")
+        if failure_mode == "rejoin":
+            raise NotPortedError(
+                "failure_mode='rejoin' is not ported (ROADMAP A3's next "
+                "step: --on-failure rejoin); use 'stop' and relaunch the "
+                "world, which resumes from the checkpoint")
+        if failure_mode != "stop":
+            raise ValueError(f"failure_mode must be stop|rejoin, got "
+                             f"{failure_mode!r}")
         self.model = model
-        self.step_fn = make_train_step(model, optimizer, loss_fn)
+        self.step_fn = step_fn if step_fn is not None else make_train_step(
+            model, optimizer, loss_fn)
+        self.rank = getattr(self.step_fn, "rank", 0)
+        self.world = getattr(self.step_fn, "world", 1)
+        self.sharded = getattr(self.step_fn, "sharded", False)
         self.rng = prng_key(0) if rng is None else np.asarray(rng, np.uint32)
         self.checkpoint_dir = checkpoint_dir
         self.checkpoint_every = checkpoint_every
@@ -152,19 +183,25 @@ class Trainer:
         self.metric_logger = metric_logger
         self.examples_per_step = examples_per_step
         # Tokens per step, as the JAX loop counts them: the size of the
-        # batch's "tokens" array when not given.
+        # batch's "tokens" array times the world when not given.
         self.tokens_per_step = tokens_per_step
+        self.process_group = process_group
+        self.failure_check_every = failure_check_every
+        self.on_failure = on_failure
         self.global_step = 0
         self._dropout_gens = list({id(m.generator): m.generator
                                    for m in model.modules()
                                    if isinstance(m, Dropout) and m.rate
                                    and m.generator is not None}.values())
-        # {"step", "seconds", "bytes"} of each save, and of the restore.
+        self._async = None
+        # {"step", "seconds", "bytes"} of each save this process wrote
+        # (sharded: "seconds" blocked the loop; "write_seconds" after
+        # wait_saves), and of the restore.
         self.saves: list = []
         self.last_restore = None
 
     def state_dict(self) -> Dict[str, np.ndarray]:
-        """The flat JAX-keyed train state (host copies)."""
+        """The flat JAX-keyed train state (host copies) of a dense step."""
         from nezha_tpu_torch.models.convert import train_state_to_jax
         return train_state_to_jax(self.model, self.step_fn.opt_state,
                                   self.rng)
@@ -181,29 +218,68 @@ class Trainer:
         """Resume from ``checkpoint_dir``'s newest intact checkpoint, if
         any; -> the step the run stands at."""
         if resume and self.checkpoint_dir:
-            from nezha_tpu_torch.models.convert import train_state_template
-            from nezha_tpu_torch.train import checkpoint as ckpt
             t0 = time.perf_counter()
-            flat, step = ckpt.try_restore(
-                self.checkpoint_dir,
-                train_state_template(self.model, self.step_fn.opt_state))
-            if flat is not None:
-                self.load_state_dict(flat)
+            got = (self._restore_sharded() if self.sharded
+                   else self._restore_dense())
+            if got is not None:
+                step, nbytes = got
                 self.global_step = step
                 if self.step_fn.device.type == "cuda":
                     torch.cuda.synchronize(self.step_fn.device)
-                self.last_restore = {
-                    "step": step, "seconds": time.perf_counter() - t0,
-                    "bytes": os.path.getsize(
-                        ckpt.checkpoint_path(self.checkpoint_dir, step))}
+                self.last_restore = {"step": step,
+                                     "seconds": time.perf_counter() - t0,
+                                     "bytes": nbytes}
         return self.global_step
 
-    def save(self, step: Optional[int] = None) -> str:
-        """Write a checkpoint of the current state at ``step`` (default:
-        the global step) into ``checkpoint_dir``; -> its path."""
+    def _restore_dense(self):
+        from nezha_tpu_torch.models.convert import train_state_template
         from nezha_tpu_torch.train import checkpoint as ckpt
+        flat, step = ckpt.try_restore(
+            self.checkpoint_dir,
+            train_state_template(self.model, self.step_fn.opt_state))
+        if flat is None:
+            return None
+        self.load_state_dict(flat)
+        return step, os.path.getsize(ckpt.checkpoint_path(
+            self.checkpoint_dir, step))
+
+    def _restore_sharded(self):
+        from nezha_tpu_torch.models.convert import load_train_state
+        from nezha_tpu_torch.train import sharded_checkpoint as sck
+        got, step = sck.try_restore_sharded(self.checkpoint_dir,
+                                            self.step_fn.restore_request())
+        if got is None:
+            return None
+        load_train_state({k: a for k, (a, _) in got.items()
+                          if k.startswith("variables/")}, self.model)
+        self.step_fn.load_chunks(int(got["opt_state/step"][0]), {
+            k: a for k, (a, _) in got.items() if k.startswith("opt_state/")})
+        self.rng = np.asarray(got["rng"][0], np.uint32)
+        return step, sum(a.nbytes for a, _ in got.values())
+
+    def save(self, step: Optional[int] = None) -> Optional[str]:
+        """Write a checkpoint of the current state at ``step`` (default:
+        the global step) into ``checkpoint_dir``; -> its path, or None on
+        a rank that writes nothing (dense saves are rank 0's)."""
+        from nezha_tpu_torch.train import checkpoint as ckpt
+        from nezha_tpu_torch.train import sharded_checkpoint as sck
         step = self.global_step if step is None else step
         t0 = time.perf_counter()
+        if self.sharded:
+            if self._async is None:
+                self._async = sck.AsyncCheckpointer()
+            self.wait_saves()   # one save in flight
+            leaves = self.step_fn.shard_leaves(self.rng)
+            self._async.save(self.checkpoint_dir, leaves, step,
+                             keep_last=self.checkpoint_keep,
+                             proc=self.rank, world=self.world)
+            self.saves.append({
+                "step": step, "seconds": time.perf_counter() - t0,
+                "bytes": sum(a.nbytes for leaf in leaves.values()
+                             for _, a in leaf.shards)})
+            return str(sck.step_dir(self.checkpoint_dir, step))
+        if self.rank != 0:
+            return None
         path = ckpt.save_checkpoint(self.checkpoint_dir, self.state_dict(),
                                     step, keep_last=self.checkpoint_keep)
         self.saves.append({"step": step,
@@ -211,22 +287,49 @@ class Trainer:
                            "bytes": os.path.getsize(path)})
         return path
 
+    def wait_saves(self) -> None:
+        """Commit a sharded save still being written (raising its error),
+        and record its write time."""
+        if self._async is not None:
+            pending = self._async.pending
+            self._async.wait()
+            if pending and self.saves:
+                self.saves[-1]["write_seconds"] = \
+                    self._async.last_write_seconds
+
+    def _check_peers(self) -> None:
+        failed = self.process_group.failed_ranks()
+        if not failed:
+            return
+        if self.checkpoint_dir:   # keep the progress first
+            self.save(self.global_step)
+            self.wait_saves()
+        if self.on_failure is not None:
+            self.on_failure(failed)
+        else:
+            raise RuntimeError(f"peer rank(s) {failed} failed at step "
+                               f"{self.global_step}")
+
     def fit(self, batches: Iterator[dict], steps: int) -> Dict[str, float]:
         last: Dict[str, float] = {}
         metrics: Dict[str, torch.Tensor] = {}
-        n_chips = 1
+        n_chips = self.world
         window_start = time.perf_counter()
         window_steps = 0
         for _ in range(steps):
             batch = next(batches)
             if not self.tokens_per_step and "tokens" in batch:
-                self.tokens_per_step = int(np.size(batch["tokens"]))
+                self.tokens_per_step = int(np.size(batch["tokens"])) \
+                    * self.world
             for i, gen in enumerate(self._dropout_gens):
-                gen.manual_seed(dropout_seed(self.rng, self.global_step)
-                                + i)
+                gen.manual_seed(dropout_seed(self.rng, self.global_step,
+                                             self.rank) + i)
             metrics = self.step_fn(batch)
             self.global_step += 1
             window_steps += 1
+            if (self.failure_check_every and self.process_group is not None
+                    and self.global_step % self.failure_check_every == 0):
+                self._check_peers()
             if self.log_every and self.global_step % self.log_every == 0:
                 last = {k: float(v) for k, v in metrics.items()}
                 now = time.perf_counter()
@@ -246,9 +349,11 @@ class Trainer:
                     self.metric_logger(self.global_step, last)
             if (self.checkpoint_every and self.checkpoint_dir
                     and self.global_step % self.checkpoint_every == 0):
+                n = len(self.saves)
                 self.save()
                 # The save's host copy and write are not the steps' time.
-                window_start += self.saves[-1]["seconds"]
+                if len(self.saves) > n:
+                    window_start += self.saves[-1]["seconds"]
         if not last and steps:
             last = {k: float(v) for k, v in metrics.items()}
             last["step"] = self.global_step

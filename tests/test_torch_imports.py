@@ -88,3 +88,26 @@ def test_port_file_needs_no_package_the_card_lacks(rel):
     bad = [(line, mod) for line, mod in _imported_roots(tree)
            if mod in ("regex", "transformers")]
     assert not bad, f"{rel} imports {bad}"
+
+
+# Multi-process training: the coordinator's binding, the process group's
+# start, the collectives, dp, ZeRO-1, the int8 wire and the per-shard
+# checkpoints; and the test worker that runs them in child processes.
+DIST_MODULES = ("dist/__init__.py", "dist/native.py", "dist/coordinator.py",
+                "dist/launch.py", "parallel/collectives.py",
+                "parallel/data_parallel.py", "parallel/zero1.py",
+                "parallel/quantized.py", "train/sharded_checkpoint.py")
+
+
+@pytest.mark.parametrize("rel", DIST_MODULES)
+def test_dist_modules_are_guarded(rel):
+    assert os.path.join("nezha_tpu_torch", *rel.split("/")) in PORT_FILES
+
+
+def test_dist_test_worker_imports_no_jax():
+    rel = os.path.join("tests", "torch_dist_worker.py")
+    with open(os.path.join(ROOT, rel)) as f:
+        tree = ast.parse(f.read(), filename=rel)
+    bad = [(line, mod) for line, mod in _imported_roots(tree)
+           if mod in FORBIDDEN]
+    assert not bad, f"{rel} imports {bad}"

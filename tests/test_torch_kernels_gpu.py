@@ -1164,3 +1164,59 @@ def test_checkpoint_round_trip_on_card_is_exact(cuda_device, tmp_path, dtype):
     b.fit(iter(batches[2:3]), 1)
     for name, t in a.model.state_dict().items():
         assert torch.equal(b.model.state_dict()[name], t), name
+
+
+@pytest.mark.gpu
+def test_int8_wire_quantizes_on_card_as_on_cpu(cuda_device):
+    """The int8 gradient wire's blocks on the card: the same int8 bytes
+    and fp32 scales as on the CPU, and the same round trip."""
+    from nezha_tpu_torch.ops.quant import quantize_blocks
+    from nezha_tpu_torch.parallel.quantized import quantize_roundtrip
+
+    x = torch.from_numpy(
+        (np.random.RandomState(3).randn(4, 64 * 512) * 7).astype(np.float32))
+    x[0, :512] = 0.0          # an all-zero block: scale 1
+    q_cpu, s_cpu = quantize_blocks(x, 512)
+    q_gpu, s_gpu = quantize_blocks(x.cuda(), 512)
+    assert torch.equal(q_gpu.cpu(), q_cpu)
+    assert torch.equal(s_gpu.cpu(), s_cpu)
+    assert torch.equal(quantize_roundtrip(x.cuda()).cpu(),
+                       quantize_roundtrip(x))
+
+
+@pytest.mark.gpu
+def test_dp_and_zero1_over_nccl_at_world1_are_the_single_step(cuda_device):
+    """NCCL at world 1: the dp and ZeRO-1 steps give bitwise the weights
+    of the single-device step (the mean over one rank is a copy; AdamW
+    is elementwise on ZeRO-1's flat chunks); the int8 wire trains."""
+    import torch.distributed as dist
+
+    from nezha_tpu_torch.cli.common import TINY_GPT2_KW
+    from nezha_tpu_torch.models.gpt2 import GPT2, GPT2Config
+    from nezha_tpu_torch.parallel.data_parallel import DPTrainStep
+    from nezha_tpu_torch.parallel.zero1 import Zero1TrainStep
+
+    r = np.random.RandomState(5)
+    batches = [{"tokens": r.randint(0, 512, (2, 65)).astype(np.int32)}
+               for _ in range(3)]
+
+    def run(kind, **kw):
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        model = GPT2(GPT2Config(**TINY_GPT2_KW), generator=gen)
+        step = kind(model, adamw(6e-4, weight_decay=0.1), lm_loss, **kw)
+        losses = [step(b)["loss"].item() for b in batches]
+        return losses, model.state_dict()
+
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                            world_size=1)
+    try:
+        want_losses, want = run(lambda *a: make_train_step(*a))
+        for kind in (DPTrainStep, Zero1TrainStep):
+            losses, got = run(kind)
+            assert losses == want_losses, kind
+            for k, t in want.items():
+                assert torch.equal(got[k], t), (kind, k)
+        losses, _ = run(DPTrainStep, grad_reduce="int8")
+        assert all(np.isfinite(losses))
+    finally:
+        dist.destroy_process_group()

@@ -665,16 +665,18 @@ STILL_REFUSED = {
 
 @pytest.mark.parametrize("config", ["bert_base_zero1", "wrn101_large_batch"])
 def test_cli_refuses_unported_configs_typed(config):
-    """Both configs train now; what each still lacks is refused: ZeRO-1
-    (``--parallel zero1``, process groups), the metrics file, the MLM
-    mask-token flag without ``--data-dir``, and the model knobs that wait
-    for later slices (``NotPortedError``)."""
-    from nezha_tpu_torch.cli.train import parse_args
+    """Both configs train now, dp and ZeRO-1 included; what each still
+    lacks is refused: tensor parallelism (``--parallel gspmd``, typed),
+    the metrics file, the MLM mask-token flag without ``--data-dir``, and
+    the model knobs that wait for later slices (``NotPortedError``)."""
+    from nezha_tpu_torch.cli.train import main, parse_args
 
     flag, knob = STILL_REFUSED[config]
-    for argv in (["--parallel", "zero1"], flag):
-        with pytest.raises(SystemExit):
-            parse_args(["--config", config, *argv])
+    with pytest.raises(SystemExit, match="not ported"):
+        main(["--config", config, "--device", "cpu", "--parallel",
+              "gspmd"])
+    with pytest.raises(SystemExit):
+        parse_args(["--config", config, *flag])
     with pytest.raises(NotPortedError):
         knob()
 

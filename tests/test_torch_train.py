@@ -318,19 +318,32 @@ def test_cli_train_tiny_on_cpu():
 
 
 def test_cli_refuses_unported_flags_and_configs():
-    from nezha_tpu_torch.cli.train import parse_args
+    from nezha_tpu_torch.cli.train import main, parse_args
 
     assert parse_args(["--config", "gpt2_124m"]).device == "cuda"
-    for argv in (["--mesh", "2"], ["--metrics-file=/x"], ["--remat"]):
+    for argv in (["--metrics-file=/x"], ["--remat"], ["--rejoin-timeout",
+                                                      "5"],
+                 ["--no-jax-distributed"], ["--world-size", "0"],
+                 ["--serve-coordinator"]):
         with pytest.raises(SystemExit):
             parse_args(["--config", "gpt2_124m"] + argv)
     assert parse_args(["--config", "gpt2_124m",
                        "--ckpt-dir=/x"]).ckpt_dir == "/x"
-    # bert_base_zero1 trains on one card; its ZeRO-1 mode is refused, and
-    # the MLM mask-token flag without --data-dir, as in JAX.
-    for argv in (["--parallel", "zero1"], ["--mlm-mask-token", "103"]):
-        with pytest.raises(SystemExit):
-            parse_args(["--config", "bert_base_zero1"] + argv)
+    # The parallel flags parse; tensor, pipeline and sequence parallelism
+    # and --on-failure rejoin are refused typed (main exits naming them).
+    args = parse_args(["--config", "bert_base_zero1", "--parallel",
+                       "zero1", "--mesh", "dp=1", "--grad-allreduce",
+                       "int8", "--on-failure", "stop"])
+    assert (args.parallel, args.mesh, args.grad_allreduce) == \
+        ("zero1", "dp=1", "int8")
+    for argv in (["--parallel", "gspmd"], ["--parallel", "pp"],
+                 ["--parallel", "sp"], ["--on-failure", "rejoin"]):
+        with pytest.raises(SystemExit, match="not ported"):
+            main(["--config", "gpt2_124m", "--device", "cpu"] + argv)
+    # The MLM mask-token flag without --data-dir is refused, as in JAX.
+    with pytest.raises(SystemExit):
+        parse_args(["--config", "bert_base_zero1", "--mlm-mask-token",
+                    "103"])
 
 
 @pytest.mark.parametrize("knob", [
@@ -345,11 +358,17 @@ def test_unported_model_knobs_raise(knob):
 
 def test_unported_trainer_options_and_loss_chunk_raise():
     model = GPT2(GPT2Config(**TINY_GPT2_KW), device="cpu")
-    for opt in ({"process_group": object()}, {"step_fn": lambda *a: None},
-                {"shard_fn": lambda b: b}, {"save_fn": lambda *a: None},
+    for opt in ({"tracer": object()}, {"shard_fn": lambda b: b},
+                {"save_fn": lambda *a: None}, {"recover_fn": lambda: None},
                 {"failure_mode": "rejoin"}):
         with pytest.raises(NotPortedError):
             Trainer(model, optim.adamw(LR), lm_loss, **opt)
+    # Ported: a custom step, a coordinator group polled for failures.
+    step = make_train_step(model, optim.adamw(LR), lm_loss)
+    trainer = Trainer(model, optim.adamw(LR), lm_loss, step_fn=step,
+                      process_group=object(), failure_check_every=0)
+    assert trainer.step_fn is step and (trainer.rank, trainer.world) == \
+        (0, 1)
     with pytest.raises(NotPortedError):
         lm_ce_from_fused({"hidden": None, "wte": None, "chunk": 128}, None)
     assert issubclass(NotPortedError, ValueError)
