@@ -144,7 +144,30 @@ Phases, each fatal on failure (non-zero exit, no result line):
    --steps 20 --eval-batches 2 --eval`` (a finite loss and eval
    perplexity over 2 batches) and ``--config wrn101_large_batch
    --batch-size 64 --steps 5`` (a finite loss), each exiting 0;
-4e. train_dist (after 4c, before 4d): multi-process training at full
+4f. train_flags (after 4c): the train CLI's single-card flags at full
+   width: (a) ResNet-50 (batch IMG_B, 224 px, the config's model and
+   momentum) fed four batches bare and through ``runtime.Prefetcher``
+   (pinned memory, a side stream, depth PF_DEPTH): the prefetched batches
+   bitwise equal to ``batch_to_device``'s, PF_CHECK_STEPS steps' losses
+   from one snapshot bitwise equal (cuDNN deterministic for the check),
+   then ``ab_rates``'s ABBA windows (images/s, ms a step, busy ms) and a
+   PF_TRACE_STEPS-step profile of each stream: the prefetched copies must
+   run on a stream that runs no kernel; (b) ``wrn101_large_batch
+   --batch-size 64 --grad-accum 8`` through the CLI for two flushes: a
+   forward pre-hook reads the parameters at each step's start, and they
+   must not move on the seven hold steps and must move on each flush;
+   (c) GPT-2 124M through the CLI with ``--optimizer lamb --lr 6e-4
+   --grad-accum 2 --metrics-file --log-memory --log-every 2
+   --profile-dir --profile-steps 2:2`` for FLAG_STEPS steps: every JSONL
+   line holds ``hbm_bytes_in_use`` and ``hbm_peak_bytes``, the trace of
+   steps 3-4 exists and names B1-B3, which launch 12 times a step; one
+   short run each of ``--optimizer adafactor`` and ``lars`` on the tiny
+   ResNet (a finite loss); (d) two ZeRO-1 steps of GPT-2 124M at world 1
+   (the coordinator, NCCL) saved per shard, the same weights as a dense
+   npz: the generate CLI (``--ln-impl pallas``) and the serve CLI from
+   each give the same greedy tokens (B1, B6, B4; B7, B9 launched from
+   the per-shard save). Prints its wall seconds;
+4e. train_dist (after 4f, before 4d): multi-process training at full
    width: (a) in-process, the coordinator's world of one and NCCL
    through ``init_torch_distributed``: GPT-2 124M (B=8, S=1024) and
    ResNet-50 (batch IMG_B) by dp, BERT-base (B=16, S=512) by ZeRO-1,
@@ -240,7 +263,8 @@ Phases, each fatal on failure (non-zero exit, no result line):
    it); then one sampled call (temperature 0.8, top-k 40, top-p 0.95)
    whose every token lies in its step's top 40.
 
-Each phase prints its wall seconds (``{"phase_wall_s": ...}``). The
+Each phase prints its wall seconds (``{"phase_wall_s": ...}``), and the
+run its total (``{"smoke_wall_s": ...}``). The
 line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``. The script imports nothing of JAX.
 """
@@ -2378,6 +2402,358 @@ def train_cli() -> dict:
     return out
 
 
+PF_DEPTH = 2                     # --prefetch's default
+PF_CHECK_STEPS = 3               # steps of the bitwise loss check
+PF_TRACE_STEPS = 2               # steps under the profiler for the streams
+ACCUM_B, ACCUM_N = WRN_B, 8      # wrn101_large_batch 64 x 8 = 512
+FLAG_STEPS = 6                   # the GPT-2 run with every new flag
+SH_NEW = 32                      # greedy tokens from the per-shard save
+SH_PROMPTS = [[464, 2068, 7586, 21831], [15496, 995], [40, 716, 257],
+              [2, 4, 6, 8, 10, 12, 14, 16]]
+
+
+def copy_streams(prof, tmp: str) -> dict:
+    """From a profile's Chrome trace: the streams of the host-to-device
+    copies and of the kernels, and whether every copy ran on a stream
+    that ran no kernel (the prefetcher's side stream)."""
+    path = f"{tmp}/streams.json"
+    prof.export_chrome_trace(path)
+    with open(path) as f:
+        events = json.load(f).get("traceEvents", [])
+    os.remove(path)
+    copies, kernels = set(), set()
+    n_copies = 0
+    for e in events:
+        stream = e.get("args", {}).get("stream")
+        if stream is None:
+            continue
+        if "Memcpy HtoD" in e.get("name", ""):
+            copies.add(stream)
+            n_copies += 1
+        elif e.get("cat") == "kernel":
+            kernels.add(stream)
+    return {"htod_copies": n_copies, "copy_streams": sorted(copies),
+            "kernel_streams": sorted(kernels),
+            "copies_on_side_stream": bool(copies)
+            and not copies & kernels}
+
+
+def prefetch_ab(card: str) -> dict:
+    """(a) ResNet-50 (the config's model and momentum) at batch IMG_B,
+    224 px, fed the same four batches bare (the step's pageable copy) and
+    through ``Prefetcher`` (pinned memory, a side stream): the first
+    batches bitwise equal to ``batch_to_device``'s; from one snapshot,
+    PF_CHECK_STEPS steps' losses bitwise equal (cuDNN deterministic);
+    then ABBA windows (``ab_rates``) and a short profile of each stream
+    for the streams its copies ran on."""
+    import itertools
+    import tempfile
+
+    from nezha_tpu_torch.cli.train import build_config
+    from nezha_tpu_torch.runtime import Prefetcher
+    from nezha_tpu_torch.train import Trainer, batch_to_device
+
+    cfg = build_config("resnet50_imagenet", steps=100, seed=0, device="cuda")
+    pool = list(itertools.islice(cfg.batches(IMG_B), 4))
+    trainer = Trainer(cfg.model, cfg.optimizer, cfg.loss_fn, log_every=0)
+    dev = torch.device("cuda", torch.cuda.current_device())
+    check = Prefetcher(iter(pool), depth=PF_DEPTH, device=dev)
+    for i, b in enumerate(check):
+        want = batch_to_device(pool[i], dev)
+        if b.keys() != want.keys() or not all(
+                b[k].dtype == want[k].dtype and torch.equal(b[k], want[k])
+                for k in want):
+            fail(f"train_flags prefetch: batch {i} differs from "
+                 f"batch_to_device's")
+    check.close()
+
+    snapshot = {k: v.clone() for k, v in cfg.model.state_dict().items()}
+    opt0 = trainer.step_fn.opt_state
+
+    def losses(stream) -> list:
+        cfg.model.load_state_dict(snapshot)
+        trainer.step_fn.opt_state = opt0
+        return [trainer.step_fn(next(stream))["loss"].item()
+                for _ in range(PF_CHECK_STEPS)]
+
+    flags = (torch.backends.cudnn.deterministic,
+             torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    try:
+        bare = losses(iter(pool))
+        pf = Prefetcher(iter(pool), depth=PF_DEPTH, device=dev)
+        pre = losses(pf)
+        pf.close()
+    finally:
+        (torch.backends.cudnn.deterministic,
+         torch.backends.cudnn.benchmark) = flags
+    if bare != pre:
+        fail(f"train_flags prefetch: losses bare {bare} vs prefetched "
+             f"{pre}")
+    cfg.model.load_state_dict(snapshot)
+    trainer.step_fn.opt_state = opt0
+
+    pf = Prefetcher(itertools.cycle(pool), depth=PF_DEPTH, device=dev)
+    streams = {"bare": itertools.cycle(pool), "prefetch": pf}
+    rates = ab_rates(trainer, streams, IMG_B, "images_per_s")
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    seen = {}
+    with tempfile.TemporaryDirectory(prefix="nezha_prefetch_") as tmp:
+        for name, stream in streams.items():
+            with torch.profiler.profile(activities=acts) as prof:
+                trainer.fit(stream, PF_TRACE_STEPS)
+                torch.cuda.synchronize()
+            seen[name] = copy_streams(prof, tmp)
+    pf.close()
+    if not seen["prefetch"]["copies_on_side_stream"]:
+        fail(f"train_flags prefetch: the prefetched copies did not run on "
+             f"a side stream: {seen['prefetch']}")
+    out = {"B": IMG_B, "image_size": IMG_SIZE, "depth": PF_DEPTH,
+           "losses_bitwise_equal": bare, "rates": rates,
+           "prefetch_over_bare": rates["prefetch"]["images_per_s"]
+           / rates["bare"]["images_per_s"],
+           "streams": seen, "stalls": pf.stalls,
+           "stall_seconds": pf.stall_seconds, "card": card}
+    del trainer, cfg, pool, streams, pf, snapshot, opt0
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def grad_accum_wrn(card: str, tmp: str) -> dict:
+    """(b) ``wrn101_large_batch --batch-size 64 --grad-accum 8`` through
+    the CLI (in-process) for two flushes: a forward pre-hook on the
+    model reads its parameters at each step's start, so step i's update
+    shows between reads i and i + 1; the parameters must not move on the
+    seven hold steps and must move on each flush."""
+    from nezha_tpu_torch.cli import train as train_cli
+    from nezha_tpu_torch.models.resnet import ResNet
+    from nezha_tpu_torch.obs import read_metrics
+
+    seen = {"prev": None, "moved": [], "model": None}
+
+    def read(model) -> None:
+        flat = torch.cat([p.detach().reshape(-1)
+                          for p in model.parameters()])
+        if seen["prev"] is not None:
+            seen["moved"].append(not torch.equal(flat, seen["prev"]))
+        seen["prev"], seen["model"] = flat, model
+
+    def hook(module, args):
+        if isinstance(module, ResNet):
+            read(module)
+
+    metrics = f"{tmp}/wrn_accum.jsonl"
+    steps = 2 * ACCUM_N
+    handle = torch.nn.modules.module.register_module_forward_pre_hook(hook)
+    t0 = time.perf_counter()
+    try:
+        _, out = cli_stdout(train_cli.main, [
+            "--config", "wrn101_large_batch", "--batch-size", str(ACCUM_B),
+            "--grad-accum", str(ACCUM_N), "--steps", str(steps),
+            "--log-every", str(ACCUM_N), "--metrics-file", metrics])
+    finally:
+        handle.remove()
+    wall = time.perf_counter() - t0
+    read(seen["model"])
+    want = ([False] * (ACCUM_N - 1) + [True]) * 2
+    if seen["moved"] != want:
+        fail(f"train_flags grad-accum: parameters moved at steps "
+             f"{seen['moved']}, expected {want}")
+    final = json.loads(out[-1])["final"]
+    if not math.isfinite(final.get("loss", math.nan)):
+        fail(f"train_flags grad-accum: final {final}")
+    lines = [r for r in read_metrics(metrics) if "loss" in r]
+    res = {"B": ACCUM_B, "grad_accum": ACCUM_N, "effective_batch":
+           ACCUM_B * ACCUM_N, "steps": steps, "moved": seen["moved"],
+           "windows": [{k: r[k] for k in ("step", "loss", "steps_per_sec",
+                                          "examples_per_sec")}
+                       for r in lines],
+           "wall_s": wall, "card": card}
+    seen.clear()
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+def gpt2_flags(card: str, tmp: str):
+    """(c) GPT-2 124M through the CLI (in-process) with every new flag:
+    ``--optimizer lamb --lr 6e-4 --grad-accum 2 --metrics-file
+    --log-memory --log-every 2 --profile-dir --profile-steps 2:2``: the
+    JSONL carries the card's memory, the trace exists and names the flash
+    kernels; the port's kernel counts of the run. Then one short run each
+    of ``--optimizer adafactor`` and ``lars`` on the tiny ResNet (conv
+    kernels, Adafactor's HWIO factoring). -> (the counts, a summary)."""
+    from nezha_tpu_torch.cli import train as train_cli
+    from nezha_tpu_torch.obs import read_metrics
+
+    metrics, prof_dir = f"{tmp}/gpt2_flags.jsonl", f"{tmp}/gpt2_trace"
+    zero_counts()
+    t0 = time.perf_counter()
+    _, out = cli_stdout(train_cli.main, [
+        "--config", "gpt2_124m", "--steps", str(FLAG_STEPS), "--optimizer",
+        "lamb", "--lr", "6e-4", "--grad-accum", "2", "--metrics-file",
+        metrics, "--log-memory", "--log-every", "2", "--profile-dir",
+        prof_dir, "--profile-steps", "2:2"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_counts()
+    final = json.loads(out[-1])["final"]
+    lines = [r for r in read_metrics(metrics) if "loss" in r]
+    if [r["step"] for r in lines] != list(range(2, FLAG_STEPS + 1, 2)) or \
+            not all(isinstance(r.get(k), int) and r[k] > 0 for r in lines
+                    for k in ("hbm_bytes_in_use", "hbm_peak_bytes")):
+        fail(f"train_flags gpt2: metrics lines {lines}")
+    traces = os.listdir(prof_dir)
+    if traces != [f"trace_steps3-4_pid{os.getpid()}.json"]:
+        fail(f"train_flags gpt2: traces {traces}")
+    with open(f"{prof_dir}/{traces[0]}") as f:
+        text = f.read()
+    named = {k: text.count(k) for k in ("flash_fwd_", "flash_bwd_dq_",
+                                        "flash_bwd_dkv_")}
+    if not all(named.values()):
+        fail(f"train_flags gpt2: the trace names {named}")
+    for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
+        if launches[name] != 12 * FLAG_STEPS:
+            fail(f"train_flags gpt2: {name} launched {launches[name]} "
+                 f"times in {FLAG_STEPS} steps")
+    small = {}
+    for opt, lr in (("adafactor", "0.01"), ("lars", "1.0")):
+        _, o = cli_stdout(train_cli.main, [
+            "--config", "resnet50_imagenet", "--model-preset", "tiny",
+            "--batch-size", "32", "--steps", "4", "--optimizer", opt,
+            "--lr", lr, "--log-every", "0"])
+        small[opt] = json.loads(o[-1])["final"]
+        if not math.isfinite(small[opt].get("loss", math.nan)):
+            fail(f"train_flags {opt}: final {small[opt]}")
+    res = {"final": final, "wall_s": wall, "windows": lines,
+           "trace": {"file": traces[0], "bytes": len(text),
+                     "kernel_name_counts": named},
+           "tiny_resnet": small, "card": card}
+    del text
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches, res
+
+
+def sharded_generate_serve(card: str, tmp: str):
+    """(d) GPT-2 124M: two ZeRO-1 steps at world 1 (the coordinator and
+    NCCL) saved per shard (``step_2.sharded``, the config's AdamW), and
+    the same weights as a dense npz; the generate CLI (``--ln-impl
+    pallas``) and the serve CLI from each: the greedy tokens equal. ->
+    (the per-shard runs' counts, a summary)."""
+    import io
+
+    import torch.distributed as tdist
+
+    from nezha_tpu_torch import dist as nzdist
+    from nezha_tpu_torch.cli import generate as gen_cli
+    from nezha_tpu_torch.cli import serve as serve_cli
+    from nezha_tpu_torch.cli.train import build_config
+    from nezha_tpu_torch.models.convert import train_state_to_jax
+    from nezha_tpu_torch.parallel.zero1 import Zero1TrainStep
+    from nezha_tpu_torch.train import Trainer
+    from nezha_tpu_torch.train import checkpoint as ckpt
+
+    dirs = {"sharded": f"{tmp}/gpt2_sharded", "dense": f"{tmp}/gpt2_dense"}
+    coord = nzdist.Coordinator(world_size=1)
+    group = nzdist.join("127.0.0.1", coord.port)
+    try:
+        nzdist.init_torch_distributed(group, "nccl")
+        cfg = build_config("gpt2_124m", steps=100, seed=0, device="cuda")
+        step = Zero1TrainStep(cfg.model, cfg.optimizer, cfg.loss_fn)
+        trainer = Trainer(cfg.model, cfg.optimizer, cfg.loss_fn,
+                          checkpoint_dir=dirs["sharded"], log_every=0,
+                          step_fn=step)
+        trainer.fit(cfg.batches(TRAIN_B), 2)
+        trainer.save()
+        trainer.wait_saves()
+        ckpt.save_checkpoint(dirs["dense"], train_state_to_jax(
+            cfg.model, rng=trainer.rng), trainer.global_step)
+        saves = trainer.saves
+    finally:
+        if tdist.is_initialized():
+            tdist.destroy_process_group()
+        group.leave()
+        coord.stop()
+    if os.listdir(dirs["sharded"]) != ["step_00000002.sharded"]:
+        fail(f"train_flags sharded: {os.listdir(dirs['sharded'])}")
+    del trainer, step, cfg
+    gc.collect()
+    torch.cuda.empty_cache()
+    tokens, launches = {}, {}
+    reqs = "".join(json.dumps({"id": f"p{i}", "prompt_tokens": p,
+                               "max_new_tokens": SH_NEW}) + "\n"
+                   for i, p in enumerate(SH_PROMPTS))
+    for name, d in dirs.items():
+        argv = ["--ckpt-dir", d, "--prompt-tokens",
+                ",".join(map(str, SH_PROMPTS[0])), "--max-new-tokens",
+                str(SH_NEW), "--temperature", "0", "--ln-impl", "pallas",
+                "--eos-id", "-1"]
+        zero_counts()
+        got, _ = cli_stdout(gen_cli.run, gen_cli.build_parser().parse_args(
+            argv))
+        torch.cuda.synchronize()
+        launches[f"{name}_generate"] = read_counts()
+        args = serve_cli.build_parser().parse_args([
+            "--ckpt-dir", d, "--max-len", "128", "--max-prefill-len", "32",
+            "--eos-id", "-1"])
+        sched = serve_cli.build_scheduler(args)
+        out = io.StringIO()
+        zero_counts()
+        serve_cli.run_stdio(sched, args, stdin=io.StringIO(reqs),
+                            stdout=out)
+        torch.cuda.synchronize()
+        launches[f"{name}_serve"] = read_counts()
+        res = {r["id"]: r for r in map(json.loads,
+                                       out.getvalue().splitlines())}
+        if len(res) != len(SH_PROMPTS) or any(
+                r["event"] != "done" for r in res.values()):
+            fail(f"train_flags sharded serve from {name}: {res}")
+        tokens[name] = {"generate": got["tokens"],
+                        "serve": {k: r["tokens"] for k, r in res.items()}}
+        del sched
+        gc.collect()
+    if tokens["sharded"] != tokens["dense"]:
+        fail(f"train_flags sharded: tokens {tokens}")
+    for name in ("flash_fwd", "flash_decode", "layer_norm_fwd"):
+        if launches["sharded_generate"][name] <= 0:
+            fail(f"train_flags sharded generate: {name} not launched")
+    for name in ("paged_decode", "paged_prefill"):
+        if launches["sharded_serve"][name] <= 0:
+            fail(f"train_flags sharded serve: {name} not launched")
+    torch.cuda.empty_cache()
+    return launches, {"save": saves[-1], "tokens_equal": True,
+                      "generate_tokens": tokens["sharded"]["generate"],
+                      "card": card}
+
+
+def train_flags(card: str) -> dict:
+    """Phase 4f (see the module docstring). -> the kernel counts of its
+    GPT-2 flag run and its per-shard generate and serve runs."""
+    import tempfile
+
+    t0 = time.perf_counter()
+    out = {"prefetch": prefetch_ab(card)}
+    print(json.dumps({"train_flags_prefetch": out["prefetch"]}), flush=True)
+    with tempfile.TemporaryDirectory(prefix="nezha_train_flags_") as tmp:
+        out["grad_accum"] = grad_accum_wrn(card, tmp)
+        print(json.dumps({"train_flags_grad_accum": out["grad_accum"]}),
+              flush=True)
+        flag_launches, out["gpt2"] = gpt2_flags(card, tmp)
+        print(json.dumps({"train_flags_gpt2": out["gpt2"]}), flush=True)
+        sh_launches, out["sharded"] = sharded_generate_serve(card, tmp)
+        print(json.dumps({"train_flags_sharded": out["sharded"]}),
+              flush=True)
+    print(json.dumps({"train_flags_wall_s": time.perf_counter() - t0}),
+          flush=True)
+    return {"train_cli_flags": flag_launches,
+            "sharded_generate": sh_launches["sharded_generate"],
+            "sharded_serve": sh_launches["sharded_serve"]}
+
+
 def pack_corpora(tmp: str) -> dict:
     """The GPT-2 corpus (a learned BPE over the port and docs/, held-out
     tools/ and the README), and the BERT corpus (a learned WordPiece over
@@ -3768,6 +4144,7 @@ HOME_PATH = {"paged_decode": "serve", "paged_prefill": "serve",
 
 
 def main() -> int:
+    t_main = time.perf_counter()
     phase("device")
     if not torch.cuda.is_available():
         fail("no CUDA device: this smoke test runs only on the card")
@@ -3797,6 +4174,12 @@ def main() -> int:
                + [check_flash_decode(g)] + check_layer_norm(g)
                + [check_quant_decode(g), check_quant_prefill(g),
                   check_prefill_qoff(g)])
+    ln = next(k for k in kernels if k["name"] == "layer_norm_fwd")
+    print(json.dumps({"layer_norm_fwd_by_rows": {
+        rows: {f: r[f] for f in ("ms", "profiler_us", "library_ms",
+                                 "library_profiler_us", "plain_ms",
+                                 "bound_ms")}
+        for rows, r in ln["by_rows"].items()}}), flush=True)
     print(json.dumps({"timer": {
         "rows": len(TIMED_ROWS), "host_late": 0,
         "profiler_disagrees": [
@@ -3810,6 +4193,8 @@ def main() -> int:
     image = train_image(card)
     phase("train_cli")
     train_cli()
+    phase("train_flags")
+    paths.update(train_flags(card))
     phase("train_dist")
     dist_paths = train_dist(card)
     paths["train_dist_gpt2"] = dist_paths["gpt2_124m"]
@@ -3862,6 +4247,8 @@ def main() -> int:
           f"(ResNet-50 bf16, batch {IMG_B}, {IMG_SIZE} px); WRN-101-2 "
           f"{image['wrn101_images_per_s']:.1f} images/s, MFU "
           f"{image['wrn101_mfu']:.4f} (batch {WRN_B}) on {card_line}",
+          flush=True)
+    print(json.dumps({"smoke_wall_s": time.perf_counter() - t_main}),
           flush=True)
     print(card_line, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

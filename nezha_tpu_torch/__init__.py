@@ -37,7 +37,13 @@ What runs today:
   on the card, gloo on the CPU); data parallelism
   (``parallel.data_parallel``) and ZeRO-1 (``parallel.zero1``), the int8
   gradient wire (``parallel.quantized``) and per-shard checkpoints in the
-  JAX package's layout (``train.sharded_checkpoint``).
+  JAX package's layout (``train.sharded_checkpoint``), which generate and
+  serve also load;
+- the train CLI's single-card flags: batches staged onto the card by
+  ``runtime.Prefetcher`` (pinned memory, a side stream), gradient
+  accumulation and LARS, LAMB and Adafactor (``optim``), the JSONL
+  metrics sink and the ``torch.profiler`` trace window (``obs``), and
+  the card's memory metrics (``tensor.memory``).
 
 Kernels live in ``ops/cuda`` (sources in ``csrc/``). Entry points run on
 ``cuda`` unless the caller passes ``device="cpu"``; on CPU tensors each

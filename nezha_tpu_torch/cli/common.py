@@ -4,18 +4,19 @@ from __future__ import annotations
 
 import argparse
 import sys
-from pathlib import Path
 from typing import Optional, Sequence
 
 import torch
 
 from nezha_tpu_torch.data.tokenizer import default_eos_id, load_tokenizer
 from nezha_tpu_torch.errors import NotPortedError
-from nezha_tpu_torch.models.convert import (load_train_state,
+from nezha_tpu_torch.models.convert import (jax_variable_shapes,
+                                            load_train_state,
                                             train_state_template)
 from nezha_tpu_torch.models.gpt2 import GPT2, GPT2Config
 from nezha_tpu_torch.tensor.policy import bf16_policy, f32_policy
 from nezha_tpu_torch.train import checkpoint as ckpt
+from nezha_tpu_torch.train import sharded_checkpoint as sck
 
 # The tiny GPT-2 and BERT presets (nezha_tpu/cli/train.py TINY_GPT2_KW,
 # TINY_BERT_KW), fp32.
@@ -37,7 +38,8 @@ def add_model_args(p: argparse.ArgumentParser,
                           "width")
     src.add_argument("--ckpt-dir",
                      help="checkpoint dir written by either package's "
-                          "train CLI (the newest step that verifies)")
+                          "train CLI (the newest step that verifies, dense "
+                          "or per-shard)")
     for flag in refused_sources:
         src.add_argument(flag, help="not ported yet (refused)")
     p.add_argument("--model-preset", choices=["full", "tiny"],
@@ -105,24 +107,9 @@ def load_tokenizer_arg(args):
         raise SystemExit(str(e))
 
 
-def restore_variables_any(ckpt_dir: str, model: torch.nn.Module) -> int:
-    """Load the newest checkpoint in ``ckpt_dir`` that verifies into
-    ``model`` (its ``variables``: weights and BatchNorm statistics; the
-    optimizer state is not read); -> its step. The dense npz layout
-    only: the per-shard layout (``step_*.sharded``, which the train CLI
-    resumes; reading it here is ROADMAP A3), the
-    graph engine's and a ``--scan-layers`` trunk's (A7) raise
-    ``NotPortedError``; no checkpoint at all exits."""
-    newest = ckpt.latest_step(ckpt_dir)
-    if newest is None:
-        if any(Path(ckpt_dir).glob("step_*.sharded")):
-            raise NotPortedError(
-                f"{ckpt_dir} holds per-shard checkpoints (step_*.sharded, "
-                f"written by zero1/gspmd/pp training): the port's train "
-                f"CLI resumes them, its inference CLIs read the dense npz "
-                f"layout only (ROADMAP A3)")
-        raise SystemExit(f"no checkpoint (npz) in {ckpt_dir}")
-    keys = ckpt.checkpoint_keys(ckpt_dir, newest)
+def _refuse_layouts(ckpt_dir: str, keys) -> None:
+    """The layouts the port cannot read: the graph engine's (no
+    ``variables/`` leaves) and a ``--scan-layers`` trunk's (A7)."""
     if not any(k.startswith("variables/") for k in keys):
         raise NotPortedError(
             f"{ckpt_dir}: the newest checkpoint has the graph engine's "
@@ -132,6 +119,31 @@ def restore_variables_any(ckpt_dir: str, model: torch.nn.Module) -> int:
         raise NotPortedError(
             f"{ckpt_dir}: the newest checkpoint stores a --scan-layers "
             f"trunk; the port does not take scan_layers (ROADMAP A7)")
+
+
+def restore_variables_any(ckpt_dir: str, model: torch.nn.Module) -> int:
+    """Load the newest checkpoint in ``ckpt_dir`` into ``model`` (its
+    ``variables``: weights and BatchNorm statistics; the optimizer state
+    is not read); -> its step. Either layout a training run writes: the
+    dense npz (the newest that verifies), else the per-shard layout
+    (``step_*.sharded``, the newest complete save, each variable read
+    whole). The graph engine's layout and a ``--scan-layers`` trunk's
+    (A7) raise ``NotPortedError``; no checkpoint at all exits."""
+    newest = ckpt.latest_step(ckpt_dir)
+    if newest is None:
+        step = sck.latest_step(ckpt_dir)
+        if step is None:
+            raise SystemExit(f"no checkpoint (npz or sharded) in "
+                             f"{ckpt_dir}")
+        _refuse_layouts(ckpt_dir, sck.checkpoint_keys(ckpt_dir, step))
+        got, step = sck.restore_sharded(ckpt_dir, {
+            k: (shape, None)
+            for k, shape in jax_variable_shapes(model).items()}, step)
+        load_train_state({k: a for k, (a, _) in got.items()}, model)
+        print(f"restored step {step} (sharded) from {ckpt_dir}",
+              file=sys.stderr)
+        return step
+    _refuse_layouts(ckpt_dir, ckpt.checkpoint_keys(ckpt_dir, newest))
     template = train_state_template(model, rng=False)
     flat, step = ckpt.try_restore(ckpt_dir, template)
     if flat is None:

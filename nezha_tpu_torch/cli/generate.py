@@ -7,7 +7,8 @@
         --prompt "def main(" --max-new-tokens 32 --temperature 0
 
 Weights: ``--ckpt-dir`` (the newest checkpoint of either package's train
-CLI that verifies) or seeded random (``--random-init``); ``--hf-dir`` is
+CLI that verifies: a dense npz, else a per-shard ``step_*.sharded``) or
+seeded random (``--random-init``); ``--hf-dir`` is
 refused with ``NotPortedError`` (it needs ``transformers``). As in JAX
 the full preset decodes in bf16 and the tiny one in fp32;
 ``--ln-impl pallas`` runs every LayerNorm on the fused kernels.

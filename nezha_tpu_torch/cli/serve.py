@@ -5,7 +5,8 @@
     python -m nezha_tpu_torch.cli.serve --ckpt-dir C --tokenizer D
 
 Weights come from ``--ckpt-dir`` (the newest checkpoint of either
-package's train CLI that verifies) or are seeded random
+package's train CLI that verifies: a dense npz, else a per-shard
+``step_*.sharded``) or are seeded random
 (``--random-init``); ``--hf-dir`` is refused (it needs ``transformers``).
 Each stdin line is one request object, with ``prompt_tokens`` or a text
 ``prompt`` (encoded with ``--tokenizer``, else byte-level)::

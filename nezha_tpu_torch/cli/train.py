@@ -97,18 +97,37 @@ global count and once at the end, keeping the newest ``--ckpt-keep``
 are the JAX package's (``train/checkpoint.py``), so either package
 resumes the other's run; the port's dropout masks follow from (key,
 step), not from JAX's key splits. ``--label-smoothing`` applies to the
-image and MLP configs. Every other flag of the JAX CLI is refused with an
-error that names it.
+image and MLP configs.
+
+``--optimizer sgd|momentum|adamw|lars|lamb|adafactor`` with ``--lr``
+swaps the config's optimizer for the JAX CLI's factory of that name on
+``warmup_cosine_schedule(lr, min(100, max(1, steps // 10)), max(steps,
+200))``. ``--grad-accum N`` applies the mean of N micro-steps' gradients
+once (``optim.accumulate_gradients``, outside ``--clip-norm``), and sizes
+the inner schedule to ``max(1, steps // N)`` updates; it composes with
+single, dp and zero1. ``--prefetch N`` (default 2) stages the next N
+batches onto the device while the step runs (``runtime.Prefetcher``:
+pinned memory and a side stream on ``cuda``); the eval stream is not
+prefetched. Every ``--log-every`` steps (default 10; 0: never) a metrics
+line goes to stderr, and with ``--metrics-file F`` as a JSONL line into
+F (rank 0's); ``--log-memory`` adds the card's ``hbm_bytes_in_use`` and
+``hbm_peak_bytes`` (none on the CPU). ``--profile-dir D`` (or its alias
+``--trace-dir``) writes a ``torch.profiler`` Chrome trace into D: of the
+steps after step START for COUNT steps with ``--profile-steps
+START:COUNT``, else of the whole run. Every other flag of the JAX CLI is
+refused with an error that names it.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import itertools
 import json
 import math
 import os
+import re
 import sys
 from typing import Callable, Dict, Iterator, List, Optional
 
@@ -124,13 +143,17 @@ from nezha_tpu_torch.models.bert import Bert, BertConfig, bert_base, mlm_loss
 from nezha_tpu_torch.models.gpt2 import lm_loss
 from nezha_tpu_torch.models.mlp import MLP
 from nezha_tpu_torch.models.resnet import ResNet, resnet50, wide_resnet101
+from nezha_tpu_torch.obs import MetricsLogger, Tracer, profile_trace
 from nezha_tpu_torch.ops.losses import \
     softmax_cross_entropy_with_integer_labels
 from nezha_tpu_torch.parallel.data_parallel import local_rows
-from nezha_tpu_torch.optim import (Optimizer, adamw, matrix_decay_mask,
-                                   momentum, warmup_cosine_schedule,
+from nezha_tpu_torch.runtime import Prefetcher
+from nezha_tpu_torch.optim import (Optimizer, accumulate_gradients,
+                                   adafactor, adamw, lamb, lars,
+                                   matrix_decay_mask, momentum, sgd,
+                                   warmup_cosine_schedule,
                                    with_grad_clipping)
-from nezha_tpu_torch.tensor.policy import bf16_policy
+from nezha_tpu_torch.tensor import bf16_policy, memory_metrics
 from nezha_tpu_torch.train import (Trainer, accuracy, evaluate,
                                    lm_token_stats, mlm_token_stats)
 from nezha_tpu_torch.train.loop import prng_key
@@ -141,12 +164,19 @@ IMAGE_CONFIGS = ("resnet50_imagenet", "wrn101_large_batch")
 # Flags of the JAX train CLI this port does not take yet.
 NOT_PORTED_FLAGS = frozenset((
     "--microbatches", "--sp-flash", "--attn-impl", "--moe-experts",
-    "--optimizer", "--lr", "--grad-accum", "--remat", "--graph-bf16",
-    "--scan-layers", "--platform", "--log-every", "--prefetch",
-    "--metrics-file", "--run-dir", "--trace-dir", "--rejoin-timeout",
-    "--log-memory", "--profile-dir", "--profile-steps", "--engine"))
+    "--remat", "--graph-bf16", "--scan-layers", "--platform", "--run-dir",
+    "--rejoin-timeout", "--engine"))
 PARALLEL_MODES = ("config", "single", "dp", "zero1", "gspmd", "pp", "sp")
-LOG_EVERY = 10
+# --optimizer's factories, with the JAX CLI's weight decays; adamw and
+# lamb take the decay mask of --wd-exclude-1d.
+OPTIMIZERS = {
+    "sgd": sgd,
+    "momentum": lambda lr: momentum(lr, beta=0.9, weight_decay=1e-4),
+    "adamw": lambda lr, **kw: adamw(lr, weight_decay=0.1, **kw),
+    "lars": lambda lr: lars(lr, weight_decay=1e-4),
+    "lamb": lambda lr, **kw: lamb(lr, weight_decay=0.01, **kw),
+    "adafactor": adafactor,
+}
 
 
 def image_ce(logits: torch.Tensor, batch: dict) -> torch.Tensor:
@@ -157,41 +187,54 @@ def image_ce(logits: torch.Tensor, batch: dict) -> torch.Tensor:
 @dataclasses.dataclass
 class Config:
     """One config at one preset: its model (built), loss, batch stream
-    (``batches(batch_size)``), optimizer, default batch size, the JAX
-    CLI's parallel mode, and its eval split (``eval_batches(batch_size)``,
-    a finite stream, scored by ``eval_stat``; None for none)."""
+    (``batches(batch_size)``), optimizer (``build_optimizer(steps,
+    **kw)``, its schedule sized to ``steps`` updates; the AdamW configs
+    take ``mask``), default batch size, the JAX CLI's parallel mode, its
+    eval split (``eval_batches(batch_size)``, a finite stream, scored by
+    ``eval_stat``; None for none), and the step count ``build_config`` was
+    given."""
     model: torch.nn.Module
     loss_fn: Callable
     batches: Callable[[int], Iterator[dict]]
-    optimizer: Optimizer
+    build_optimizer: Callable[..., Optimizer]
     default_batch: int
     parallel_mode: str = "single"
     eval_batches: Optional[Callable[[int], Iterator[dict]]] = None
     eval_stat: Optional[Callable] = None
     seq_len: Optional[int] = None   # gpt2_124m: tokens per row
+    steps: int = 100
+
+    @property
+    def optimizer(self) -> Optimizer:
+        """The config's optimizer over ``steps`` updates."""
+        return self.build_optimizer(self.steps)
 
 
 def build_config(name: str, preset: str = "full", steps: int = 100,
                  seed: int = 0, device="cuda", seq_len: Optional[int] = None,
-                 dropout: Optional[float] = None,
-                 wd_exclude_1d: bool = False) -> Config:
+                 dropout: Optional[float] = None) -> Config:
     """THE config table: ``name`` at ``preset`` with weights seeded by
-    ``seed`` on ``device``; ``steps`` sizes the learning-rate schedules;
-    ``seq_len``, ``dropout`` and ``wd_exclude_1d`` apply to gpt2_124m."""
+    ``seed`` on ``device``; ``steps`` is the step count of
+    ``Config.optimizer``; ``seq_len`` and ``dropout`` apply to
+    gpt2_124m."""
     tiny = preset == "tiny"
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)
     if name == "mlp_mnist":
         return Config(MLP(generator=gen), image_ce,
-                      lambda bs: mnist_batches(bs), momentum(0.1), 128,
+                      lambda bs: mnist_batches(bs),
+                      lambda n: momentum(0.1), 128,
                       eval_batches=lambda bs: mnist_batches(
                           bs, split="test", epochs=1),
-                      eval_stat=accuracy)
+                      eval_stat=accuracy, steps=steps)
     if name in ("resnet50_imagenet", "wrn101_large_batch"):
         wide = name == "wrn101_large_batch"
-        sched = (warmup_cosine_schedule(1.6, 500, max(steps, 1000)) if wide
-                 else warmup_cosine_schedule(0.4, 5 * 312, max(steps, 10)))
-        opt = momentum(sched, beta=0.9, weight_decay=1e-4)
+
+        def opt(n):
+            sched = (warmup_cosine_schedule(1.6, 500, max(n, 1000)) if wide
+                     else warmup_cosine_schedule(0.4, 5 * 312, max(n, 10)))
+            return momentum(sched, beta=0.9, weight_decay=1e-4)
+
         default_batch = 512 if wide else 256
         if tiny:
             model = ResNet((1, 1), num_classes=100,
@@ -199,14 +242,16 @@ def build_config(name: str, preset: str = "full", steps: int = 100,
                            policy=bf16_policy(), generator=gen)
             return Config(model, image_ce, lambda bs: synthetic_image_batches(
                 bs, image_size=32, num_classes=100), opt, default_batch,
-                "dp")
+                "dp", steps=steps)
         build = wide_resnet101 if wide else resnet50
         model = build(stem="s2d", policy=bf16_policy(), generator=gen)
         return Config(model, image_ce, synthetic_image_batches, opt,
-                      default_batch, "dp")
+                      default_batch, "dp", steps=steps)
     if name == "bert_base_zero1":
-        opt = adamw(warmup_cosine_schedule(1e-4, 100, max(steps, 200)),
-                    weight_decay=0.01)
+        def opt(n, **kw):
+            return adamw(warmup_cosine_schedule(1e-4, 100, max(n, 200)),
+                         weight_decay=0.01, **kw)
+
         if tiny:
             model = Bert(BertConfig(**TINY_BERT_KW), generator=gen)
             mlm = dict(seq_len=64, vocab_size=512, mask_token=1)
@@ -219,7 +264,7 @@ def build_config(name: str, preset: str = "full", steps: int = 100,
                       lambda bs: synthetic_mlm_batches(bs, **mlm), opt, 16,
                       "zero1", lambda bs: itertools.islice(
                           synthetic_mlm_batches(bs, seed=1, **mlm), n_eval),
-                      mlm_token_stats)
+                      mlm_token_stats, steps=steps)
     if name != "gpt2_124m":
         raise ValueError(f"unknown config {name!r}")
     overrides = {} if tiny else {"fused_loss_chunk": -1}
@@ -230,9 +275,10 @@ def build_config(name: str, preset: str = "full", steps: int = 100,
     model = gpt2_for_preset(preset, seed=seed, device=device, **overrides)
     vocab = 512 if tiny else 50257
     seq = seq_len or (64 if tiny else 1024)
-    opt = adamw(warmup_cosine_schedule(6e-4, 100, max(steps, 200)),
-                weight_decay=0.1,
-                mask=matrix_decay_mask if wd_exclude_1d else None)
+
+    def opt(n, **kw):
+        return adamw(warmup_cosine_schedule(6e-4, 100, max(n, 200)),
+                     weight_decay=0.1, **kw)
 
     def tokens(bs, seed=0):
         return synthetic_token_batches(bs, seq_len=seq, vocab_size=vocab,
@@ -241,7 +287,7 @@ def build_config(name: str, preset: str = "full", steps: int = 100,
     return Config(model, lm_loss, tokens, opt, 8, "dp",
                   lambda bs: itertools.islice(tokens(bs, seed=1),
                                               4 if tiny else 8),
-                  lm_token_stats, seq)
+                  lm_token_stats, seq, steps)
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -271,8 +317,36 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--clip-norm", type=float, default=None,
                    help="clip gradients to this global norm")
     p.add_argument("--wd-exclude-1d", action="store_true",
-                   help="gpt2_124m: no weight decay on norm scales and "
-                        "biases")
+                   help="the AdamW configs (gpt2_124m, bert_base_zero1) or "
+                        "--optimizer adamw|lamb: no weight decay on norm "
+                        "scales and biases (not under zero1)")
+    p.add_argument("--optimizer", default=None, choices=sorted(OPTIMIZERS),
+                   help="swap the config's optimizer (needs --lr; on a "
+                        "warmup+cosine schedule over --steps)")
+    p.add_argument("--lr", type=float, default=None,
+                   help="peak learning rate of --optimizer's schedule")
+    p.add_argument("--grad-accum", type=int, default=None,
+                   help="apply the mean gradient of N micro-steps once "
+                        "(effective batch = batch size x N)")
+    p.add_argument("--prefetch", type=int, default=2,
+                   help="batches staged onto the device ahead of the step "
+                        "(pinned memory, a side stream; 0 behaves as 1)")
+    p.add_argument("--log-every", type=int, default=10,
+                   help="log a metrics line every N steps (0: never)")
+    p.add_argument("--metrics-file", default=None,
+                   help="append the logged metrics here as JSONL")
+    p.add_argument("--log-memory", action="store_true",
+                   help="add the card's live and peak allocated bytes "
+                        "(hbm_bytes_in_use, hbm_peak_bytes) to each "
+                        "logged line")
+    p.add_argument("--profile-dir", default=None,
+                   help="write a torch.profiler Chrome trace here (the "
+                        "whole run, or the --profile-steps window)")
+    p.add_argument("--profile-steps", default=None, metavar="START:COUNT",
+                   help="profile COUNT steps after step START (START, "
+                        "COUNT >= 1; needs --profile-dir)")
+    p.add_argument("--trace-dir", default=None,
+                   help="alias of --profile-dir")
     p.add_argument("--device", default="cuda",
                    help="torch device (default cuda; cpu runs the "
                         "kernels' plain versions)")
@@ -359,10 +433,39 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
                      f"{args.failure_check_every}")
     gpt2 = args.config == "gpt2_124m"
     for flag, value in (("--seq-len", args.seq_len),
-                        ("--dropout", args.dropout),
-                        ("--wd-exclude-1d", args.wd_exclude_1d or None)):
+                        ("--dropout", args.dropout)):
         if value is not None and not gpt2:
             parser.error(f"{flag} applies to gpt2_124m")
+    if args.trace_dir:
+        if args.profile_dir and args.profile_dir != args.trace_dir:
+            parser.error("--trace-dir is an alias for --profile-dir; pass "
+                         "one of them")
+        args.profile_dir = args.trace_dir
+    if args.profile_steps:
+        if not args.profile_dir:
+            parser.error("--profile-steps needs --profile-dir for the "
+                         "trace output")
+        parse_profile_steps(args.profile_steps)
+    if args.lr is not None and not args.optimizer:
+        parser.error("--lr only applies with --optimizer (each config's "
+                     "default optimizer bakes its own tuned schedule)")
+    if args.optimizer:
+        if args.lr is None:
+            parser.error("--optimizer needs --lr (peak learning rate for "
+                         "the warmup+cosine schedule)")
+        if not args.lr > 0:  # also catches NaN
+            parser.error(f"--lr must be > 0, got {args.lr}")
+    if args.wd_exclude_1d:
+        if args.optimizer and args.optimizer not in ("adamw", "lamb"):
+            parser.error(f"--wd-exclude-1d needs a masked-decay optimizer "
+                         f"(adamw/lamb), not {args.optimizer}")
+        if not args.optimizer and args.config not in ("gpt2_124m",
+                                                      "bert_base_zero1"):
+            parser.error("--wd-exclude-1d applies to the AdamW configs "
+                         "(gpt2_124m, bert_base_zero1) or with --optimizer "
+                         "adamw/lamb")
+    if args.grad_accum is not None and args.grad_accum < 1:
+        parser.error(f"--grad-accum must be >= 1, got {args.grad_accum}")
     if args.steps < 1:
         parser.error(f"--steps must be >= 1, got {args.steps}")
     if args.dropout is not None and not 0.0 <= args.dropout < 1.0:
@@ -393,6 +496,16 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
         parser.error("--mlm-mask-token applies to bert_base_zero1 with "
                      "--data-dir (the dynamic-MLM data path)")
     return args
+
+
+def parse_profile_steps(spec: str):
+    """``START:COUNT`` -> (START, COUNT), both >= 1: the window opens
+    after step START, so START 0 could not capture step 1."""
+    m = re.match(r"^(\d+):(\d+)$", spec)
+    if not m or int(m.group(1)) < 1 or int(m.group(2)) < 1:
+        raise SystemExit(f"--profile-steps takes START:COUNT with START "
+                         f">= 1 and COUNT >= 1 (e.g. 10:3), got {spec!r}")
+    return int(m.group(1)), int(m.group(2))
 
 
 def _token_file(data_dir: str, split: str):
@@ -695,6 +808,11 @@ def resolve_mode(args, cfg: Config, world: int) -> str:
         raise SystemExit("--grad-allreduce int8 is the dp/zero1 gradient "
                          f"wire format; mode {mode!r} does not consume it "
                          "(reject, don't ignore)")
+    if args.optimizer in ("lars", "lamb") and mode == "zero1":
+        raise SystemExit(f"--optimizer {args.optimizer} computes layerwise "
+                         f"trust ratios, which ZeRO-1's flat per-rank "
+                         f"chunks cannot preserve; use --parallel dp (or "
+                         f"adamw/momentum with zero1)")
     if args.wd_exclude_1d and mode == "zero1":
         raise SystemExit("--wd-exclude-1d: this mode's flat param layout "
                          "(zero1 chunks) erases the leaf shapes the "
@@ -717,6 +835,31 @@ def resolve_mode(args, cfg: Config, world: int) -> str:
                              f"world of {world} process(es), one device "
                              f"each")
     return mode
+
+
+def build_optimizer(args, cfg: Config, mode: str) -> Optimizer:
+    """The run's optimizer, as the JAX CLI composes it: the config's, or
+    ``--optimizer``'s factory on its warmup+cosine schedule; the decay
+    mask of ``--wd-exclude-1d``; the ``--clip-norm`` clip (over the
+    group under ZeRO-1, whose optimizer sees gradient chunks); then, on
+    the outside, ``--grad-accum``, whose inner optimizer's schedule is
+    sized to the updates it makes, ``max(1, steps // N)``."""
+    build = cfg.build_optimizer
+    if args.optimizer:
+        factory, lr = OPTIMIZERS[args.optimizer], args.lr
+
+        def build(steps, **kw):
+            return factory(warmup_cosine_schedule(
+                lr, min(100, max(1, steps // 10)), max(steps, 200)), **kw)
+    kw = {"mask": matrix_decay_mask} if args.wd_exclude_1d else {}
+    accum = args.grad_accum or 1
+    opt = build(max(1, args.steps // accum), **kw)
+    if args.clip_norm is not None:
+        import torch.distributed as dist
+        opt = with_grad_clipping(
+            opt, args.clip_norm,
+            group=dist.group.WORLD if mode == "zero1" else None)
+    return accumulate_gradients(opt, accum)
 
 
 def start_process_group(args, group, device: torch.device) -> None:
@@ -744,7 +887,7 @@ def run(args: argparse.Namespace) -> Dict[str, float]:
                          "the CPU")
     if args.on_failure == "rejoin":
         raise NotPortedError("--on-failure rejoin is not ported (ROADMAP "
-                             "A3's next step); use --on-failure stop and "
+                             "A3.3); use --on-failure stop and "
                              "relaunch the world, which resumes from "
                              "--ckpt-dir")
     if args.parallel in ("gspmd", "pp", "sp"):
@@ -753,9 +896,14 @@ def run(args: argparse.Namespace) -> Dict[str, float]:
                              f"parallelism); the port runs single, dp and "
                              f"zero1")
     group, coord = join_world(args)
+    # Rank 0 logs, as it prints.
+    metrics_log = (MetricsLogger(args.metrics_file) if args.metrics_file
+                   and (group is None or group.rank == 0) else None)
     try:
-        return _run(args, group)
+        return _run(args, group, metrics_log)
     finally:
+        if metrics_log is not None:
+            metrics_log.close()
         if group is not None:
             if sys.exc_info()[0] is None:
                 try:
@@ -771,7 +919,8 @@ def run(args: argparse.Namespace) -> Dict[str, float]:
             dist.destroy_process_group()
 
 
-def _run(args: argparse.Namespace, group) -> Dict[str, float]:
+def _run(args: argparse.Namespace, group,
+         metrics_log: Optional[MetricsLogger] = None) -> Dict[str, float]:
     world = group.world_size if group is not None else 1
     rank = group.rank if group is not None else 0
     device = torch.device(args.device)
@@ -781,20 +930,12 @@ def _run(args: argparse.Namespace, group) -> Dict[str, float]:
         torch.cuda.set_device(device)
     cfg = build_config(args.config, args.model_preset, steps=args.steps,
                        seed=args.seed, device=device,
-                       seq_len=args.seq_len, dropout=args.dropout,
-                       wd_exclude_1d=args.wd_exclude_1d)
+                       seq_len=args.seq_len, dropout=args.dropout)
     mode = resolve_mode(args, cfg, world)
     parallel = mode in ("dp", "zero1")
     if parallel:
         start_process_group(args, group, device)
-    optimizer, loss_fn = cfg.optimizer, cfg.loss_fn
-    if args.clip_norm is not None:
-        # ZeRO-1's optimizer sees gradient chunks: the norm sums over the
-        # group.
-        import torch.distributed as dist
-        optimizer = with_grad_clipping(
-            optimizer, args.clip_norm,
-            group=dist.group.WORLD if mode == "zero1" else None)
+    optimizer, loss_fn = build_optimizer(args, cfg, mode), cfg.loss_fn
     if args.label_smoothing:
         eps = args.label_smoothing
 
@@ -810,8 +951,13 @@ def _run(args: argparse.Namespace, group) -> Dict[str, float]:
                          f"rows)")
 
     def log(step: int, metrics: Dict[str, float]) -> None:
-        if rank == 0:
-            print(json.dumps(metrics), file=sys.stderr, flush=True)
+        if rank != 0:
+            return
+        if args.log_memory:
+            metrics = {**metrics, **memory_metrics(device)}
+        print(json.dumps(metrics), file=sys.stderr, flush=True)
+        if metrics_log is not None:
+            metrics_log.log(step, metrics)
 
     step_fn = None
     if parallel:
@@ -827,14 +973,19 @@ def _run(args: argparse.Namespace, group) -> Dict[str, float]:
                              "backend": dist.get_backend(),
                              "grad_allreduce": args.grad_allreduce,
                              "opt_state_bytes": step_fn.opt_state_bytes()}})
+    tracer = None
+    if args.profile_steps:
+        start, count = parse_profile_steps(args.profile_steps)
+        tracer = Tracer(args.profile_dir, start_step=start, num_steps=count)
     trainer = Trainer(cfg.model, optimizer, loss_fn, rng=prng_key(args.seed),
                       checkpoint_dir=args.ckpt_dir,
                       checkpoint_every=args.ckpt_every,
-                      checkpoint_keep=args.ckpt_keep, log_every=LOG_EVERY,
-                      metric_logger=log, examples_per_step=batch_size,
-                      step_fn=step_fn, process_group=group,
+                      checkpoint_keep=args.ckpt_keep,
+                      log_every=args.log_every, metric_logger=log,
+                      examples_per_step=batch_size, step_fn=step_fn,
+                      process_group=group,
                       failure_check_every=args.failure_check_every
-                      if group is not None else 0)
+                      if group is not None else 0, tracer=tracer)
     start_step = trainer.initialize()
     if trainer.last_restore is not None:
         if rank == 0:
@@ -842,15 +993,27 @@ def _run(args: argparse.Namespace, group) -> Dict[str, float]:
                   + (" (sharded)" if trainer.sharded else ""),
                   file=sys.stderr, flush=True)
         log(start_step, {"restore": trainer.last_restore})
-    batches, close_source = data_source(args, cfg, batch_size, rank,
-                                        data_world)
     last: Dict[str, float] = {}
-    try:
+    with contextlib.ExitStack() as stack:
+        # Closed in reverse: the trace, then the prefetcher, then the
+        # source under it.
+        source, close_source = data_source(args, cfg, batch_size, rank,
+                                           data_world)
+        if close_source is not None:
+            stack.callback(close_source)
         # A resumed run goes on where the stream stood at its step (the
         # JAX CLI starts the stream over), so a cut run trains on the
-        # batches an unbroken one would.
+        # batches an unbroken one would; the skipped batches are drawn
+        # from the source, before the prefetcher, and never reach the
+        # device.
         for _ in range(start_step):
-            next(batches)
+            next(source)
+        batches = Prefetcher(source, depth=args.prefetch, device=device)
+        stack.callback(batches.close)
+        if tracer is not None:
+            stack.callback(tracer.stop)  # a window still open at the end
+        elif args.profile_dir:
+            stack.enter_context(profile_trace(args.profile_dir))
         if args.eval_every:
             # Train in chunks that end on global-step multiples of
             # --eval-every (so a resumed run's eval points are the
@@ -872,9 +1035,6 @@ def _run(args: argparse.Namespace, group) -> Dict[str, float]:
                             **{f"eval_{k}": v for k, v in results.items()}})
         else:
             last = trainer.fit(batches, args.steps)
-    finally:
-        if close_source is not None:
-            close_source()
     if not math.isfinite(last.get("loss", math.nan)):
         raise SystemExit(f"training diverged: {last}")
     if args.ckpt_dir and not (trainer.saves and trainer.saves[-1]["step"]

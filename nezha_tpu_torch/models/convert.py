@@ -30,6 +30,8 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from nezha_tpu_torch.optim.optimizers import state_leaves
+
 _LAYER = re.compile(r"^(h|blocks|layers)(\d+)/")
 _BN_STATE = ("mean", "var")
 
@@ -126,11 +128,6 @@ def resnet_to_jax(state_dict: Dict[str, torch.Tensor]
     return params, state
 
 
-# The optimizer slots that hold one tensor per parameter (AdamW's mu and
-# nu, momentum's velocity), keyed like the parameters in both packages.
-OPT_SLOTS = ("mu", "nu", "velocity")
-
-
 def jax_leaf_names(model: torch.nn.Module) -> Dict[str, Tuple[str, bool]]:
     """``state_dict`` name -> (the leaf's key under ``variables/``, conv):
     parameters under ``params/``, BatchNorm buffers under ``state/``; a
@@ -157,6 +154,19 @@ def jax_leaf_names(model: torch.nn.Module) -> Dict[str, Tuple[str, bool]]:
     return out
 
 
+def jax_variable_shapes(model: torch.nn.Module
+                        ) -> Dict[str, Tuple[int, ...]]:
+    """``variables/<key>`` -> the leaf's shape in JAX's layout (a conv
+    kernel HWIO), for every leaf :func:`jax_leaf_names` maps."""
+    sd = model.state_dict()
+    out = {}
+    for n, (key, conv) in jax_leaf_names(model).items():
+        shape = tuple(sd[n].shape)
+        out[f"variables/{key}"] = (shape[2], shape[3], shape[1],
+                                   shape[0]) if conv else shape
+    return out
+
+
 def _to_jax_leaf(t: torch.Tensor, conv: bool) -> np.ndarray:
     arr = np.array(t.detach().cpu().numpy(), copy=True) \
         if t.dtype == torch.float32 else _array(t)
@@ -168,8 +178,22 @@ def _from_jax_leaf(arr: np.ndarray, conv: bool) -> torch.Tensor:
     return t.permute(3, 2, 0, 1) if conv else t
 
 
-def _opt_slots(opt_state) -> Tuple[str, ...]:
-    return tuple(s for s in OPT_SLOTS if s in (opt_state or {}))
+def opt_state_key(path: Tuple[str, ...],
+                  names: Dict[str, Tuple[str, bool]]) -> str:
+    """The JAX checkpoint key of an optimizer-state leaf: its path under
+    ``opt_state/``, each parameter name replaced by the parameter's JAX
+    path (``opt_state/inner/mu/h0/attn/qkv/w``,
+    ``opt_state/slots/blocks0/conv1/w/vr``, ``opt_state/count``)."""
+    return "opt_state/" + "/".join(
+        names[p][0][len("params/"):] if p in names else p for p in path)
+
+
+def _param_shaped(path: Tuple[str, ...],
+                  names: Dict[str, Tuple[str, bool]]) -> bool:
+    """A leaf keyed directly by a conv parameter's name holds the
+    parameter's shape in the port's OIHW (a moment, a velocity, an
+    accumulator); Adafactor's factored leaves are already JAX's."""
+    return path[-1] in names and names[path[-1]][1]
 
 
 def train_state_template(model: torch.nn.Module, opt_state=None,
@@ -181,12 +205,10 @@ def train_state_template(model: torch.nn.Module, opt_state=None,
     dt = {n: np.dtype(str(sd[n].dtype).replace("torch.", ""))
           for n in names}
     out = {f"variables/{key}": dt[n] for n, (key, _) in names.items()}
-    if opt_state is not None:
-        out["opt_state/step"] = np.dtype(np.int32)
-        for slot in _opt_slots(opt_state):
-            for n in opt_state[slot]:
-                out[f"opt_state/{slot}/{names[n][0][len('params/'):]}"] = \
-                    np.dtype(np.float32)
+    for path, leaf in state_leaves(opt_state or {}):
+        out[opt_state_key(path, names)] = (
+            np.dtype(str(leaf.dtype).replace("torch.", ""))
+            if torch.is_tensor(leaf) else np.dtype(np.int32))
     if rng:
         out["rng"] = np.dtype(np.uint32)
     return out
@@ -196,22 +218,18 @@ def train_state_to_jax(model: torch.nn.Module, opt_state=None,
                        rng=None) -> Dict[str, np.ndarray]:
     """(module, optimizer state, PRNG key) -> the flat leaves of the JAX
     train state: ``variables/params/<path>``, ``variables/state/<path>``
-    (BatchNorm statistics), ``opt_state/step`` (int32, 0-d),
-    ``opt_state/<slot>/<path>`` for each per-parameter slot (a conv's
-    slot in HWIO, as its weight) and ``rng`` (``uint32[2]``). Each leaf is
-    a host copy."""
+    (BatchNorm statistics), every optimizer-state leaf under its
+    :func:`opt_state_key` (counters int32 and 0-d, a conv's per-parameter
+    tensors in HWIO, as its weight) and ``rng`` (``uint32[2]``). Each
+    leaf is a host copy."""
     names = jax_leaf_names(model)
     sd = model.state_dict()
     flat = {f"variables/{key}": _to_jax_leaf(sd[n], conv)
             for n, (key, conv) in names.items()}
-    if opt_state is not None:
-        flat["opt_state/step"] = np.asarray(int(opt_state["step"]),
-                                            np.int32)
-        for slot in _opt_slots(opt_state):
-            for n, t in opt_state[slot].items():
-                key, conv = names[n]
-                flat[f"opt_state/{slot}/{key[len('params/'):]}"] = \
-                    _to_jax_leaf(t, conv)
+    for path, leaf in state_leaves(opt_state or {}):
+        flat[opt_state_key(path, names)] = (
+            _to_jax_leaf(leaf, _param_shaped(path, names))
+            if torch.is_tensor(leaf) else np.asarray(int(leaf), np.int32))
     if rng is not None:
         flat["rng"] = np.asarray(rng, np.uint32)
     return flat
@@ -223,7 +241,8 @@ def load_train_state(flat: Dict[str, np.ndarray], model: torch.nn.Module,
     """The inverse of :func:`train_state_to_jax`: copy the leaves into
     ``model``'s parameters and buffers (in place, cast to their dtypes
     on their device) and, given the optimizer state to fill, -> a new
-    one on the parameters' devices (``step`` a Python int); else None.
+    one of its structure on its tensors' devices (counters Python ints);
+    else None.
     A leaf whose shape differs from the module's raises ValueError."""
     names = jax_leaf_names(model)
     sd = model.state_dict()
@@ -241,11 +260,18 @@ def load_train_state(flat: Dict[str, np.ndarray], model: torch.nn.Module,
         sd[n].copy_(take(f"variables/{key}", conv, sd[n]))
     if opt_state is None:
         return None
-    new = {"step": int(flat["opt_state/step"])}
-    for slot in _opt_slots(opt_state):
-        new[slot] = {}
-        for n, like in opt_state[slot].items():
-            key, conv = names[n]
-            new[slot][n] = take(f"opt_state/{slot}/{key[len('params/'):]}",
-                                conv, like).clone()
-    return new
+
+    def fill(node: dict, path: Tuple[str, ...]) -> dict:
+        out = {}
+        for k, like in node.items():
+            at = path + (k,)
+            if isinstance(like, dict):
+                out[k] = fill(like, at)
+            elif torch.is_tensor(like):
+                out[k] = take(opt_state_key(at, names),
+                              _param_shaped(at, names), like).clone()
+            else:
+                out[k] = int(flat[opt_state_key(at, names)])
+        return out
+
+    return fill(opt_state, ())

@@ -33,7 +33,8 @@ import torch
 import torch.distributed as dist
 import torch.nn.functional as F
 
-from nezha_tpu_torch.optim.optimizers import Optimizer, apply_updates_
+from nezha_tpu_torch.optim.optimizers import (Optimizer, apply_updates_,
+                                              state_leaves)
 from nezha_tpu_torch.parallel.collectives import (_divide, all_gather,
                                                   all_reduce_mean,
                                                   reduce_scatter)
@@ -162,12 +163,29 @@ class Zero1TrainStep(TrainStep):
         return {"loss": extras["loss"]}
 
     # ------------------------------------------------ per-shard state
-    def _slot_keys(self) -> Dict[Tuple[str, str], str]:
-        """(slot, parameter) -> the JAX checkpoint key of its state."""
-        from nezha_tpu_torch.models.convert import OPT_SLOTS
-        return {(s, k): f"opt_state/{s}/{self.jax_keys[k][len('params/'):]}"
-                for s in OPT_SLOTS if s in self.opt_state
-                for k in self.opt_state[s]}
+    def _state_keys(self):
+        """Each optimizer-state leaf: (path, its JAX checkpoint key, the
+        parameter whose chunk it holds, or None for a replicated
+        counter)."""
+        from nezha_tpu_torch.models.convert import jax_leaf_names, \
+            opt_state_key
+        names = jax_leaf_names(self.model)
+        for path, leaf in state_leaves(self.opt_state):
+            param = next((p for p in reversed(path) if p in self.params),
+                         None) if torch.is_tensor(leaf) else None
+            yield path, opt_state_key(path, names), param
+
+    def state_chunks(self) -> Dict[str, torch.Tensor]:
+        """This rank's chunk of every tensor of the optimizer state (the
+        moments, a velocity, an accumulator), by JAX checkpoint key."""
+        out = {}
+        for path, key, param in self._state_keys():
+            if param is not None:
+                node = self.opt_state
+                for k in path:
+                    node = node[k]
+                out[key] = node
+        return out
 
     def _bounds(self, k: str) -> Tuple[int, int, int]:
         """(padded size, start, stop) of this rank's chunk of ``k``."""
@@ -175,62 +193,72 @@ class Zero1TrainStep(TrainStep):
         c = padded // self.world
         return padded, self.rank * c, (self.rank + 1) * c
 
-    def _variable_shapes(self) -> Dict[str, Tuple[int, ...]]:
-        from nezha_tpu_torch.models.convert import jax_leaf_names
-        sd = self.model.state_dict()
-        out = {}
-        for n, (key, conv) in jax_leaf_names(self.model).items():
-            shape = tuple(sd[n].shape)
-            out[f"variables/{key}"] = (shape[2], shape[3], shape[1],
-                                       shape[0]) if conv else shape
-        return out
-
     def shard_leaves(self, rng) -> Dict[str, "ShardedLeaf"]:
         """This rank's leaves of the JAX ZeRO-1 train state, as host
-        copies: the replicated ones (variables, ``opt_state/step``,
+        copies: the replicated ones (variables, the optimizer's counters,
         ``rng``) whole on rank 0 and listed without shards elsewhere, and
-        this rank's chunk of every optimizer slot."""
-        from nezha_tpu_torch.models.convert import train_state_to_jax
+        this rank's chunk of every optimizer-state tensor."""
+        from nezha_tpu_torch.models.convert import (jax_variable_shapes,
+                                                    train_state_to_jax)
         from nezha_tpu_torch.train.sharded_checkpoint import (ShardedLeaf,
                                                               host_array,
                                                               whole)
         if self.rank == 0:
             out = {k: whole(a) for k, a in
                    train_state_to_jax(self.model, rng=rng).items()}
-            out["opt_state/step"] = whole(np.asarray(
-                int(self.opt_state["step"]), np.int32))
         else:
             out = {k: ShardedLeaf(shape, "float32")
-                   for k, shape in self._variable_shapes().items()}
-            out["opt_state/step"] = ShardedLeaf((), "int32")
+                   for k, shape in jax_variable_shapes(self.model).items()}
             out["rng"] = ShardedLeaf((2,), "uint32")
-        for (s, k), key in self._slot_keys().items():
-            padded, a, b = self._bounds(k)
-            arr, dt = host_array(self.opt_state[s][k])
+        chunks = self.state_chunks()
+        for path, key, param in self._state_keys():
+            if param is None:
+                node = self.opt_state
+                for k in path:
+                    node = node[k]
+                out[key] = (whole(np.asarray(int(node), np.int32))
+                            if self.rank == 0 else ShardedLeaf((), "int32"))
+                continue
+            padded, a, b = self._bounds(param)
+            arr, dt = host_array(chunks[key])
             out[key] = ShardedLeaf((padded,), dt, [(((a, b),), arr)])
         return out
 
     def restore_request(self):
-        """What this rank reads back: every variable whole, the step, the
-        key, and its chunk of every slot (``restore_sharded``'s
-        template)."""
+        """What this rank reads back: every variable whole, the key, the
+        optimizer's counters, and its chunk of every optimizer-state
+        tensor (``restore_sharded``'s template)."""
+        from nezha_tpu_torch.models.convert import jax_variable_shapes
         req = {k: (shape, None)
-               for k, shape in self._variable_shapes().items()}
-        req["opt_state/step"] = ((), None)
+               for k, shape in jax_variable_shapes(self.model).items()}
         req["rng"] = ((2,), None)
-        for (s, k), key in self._slot_keys().items():
-            padded, a, b = self._bounds(k)
-            req[key] = ((padded,), ((a, b),))
+        for _, key, param in self._state_keys():
+            if param is None:
+                req[key] = ((), None)
+            else:
+                padded, a, b = self._bounds(param)
+                req[key] = ((padded,), ((a, b),))
         return req
 
     @torch.no_grad()
-    def load_chunks(self, step: int, arrays: Dict[str, np.ndarray]) -> None:
-        """Install restored optimizer state: ``arrays`` maps each slot
-        key to this rank's chunk; ``step`` is the optimizer's count."""
-        state = {"step": int(step)}
-        for (s, k), key in self._slot_keys().items():
-            like = self.opt_state[s][k]
-            state.setdefault(s, {})[k] = torch.from_numpy(
-                np.ascontiguousarray(arrays[key], np.float32)).to(like.device)
-        self.opt_state = state
+    def load_chunks(self, arrays: Dict[str, np.ndarray]) -> None:
+        """Install restored optimizer state: ``arrays`` maps each key of
+        :meth:`restore_request` under ``opt_state/`` to this rank's chunk
+        of a tensor, or to a counter."""
+        keys = {path: (key, param) for path, key, param in
+                self._state_keys()}
 
+        def fill(node: dict, path: Tuple[str, ...]) -> dict:
+            out = {}
+            for k, like in node.items():
+                at = path + (k,)
+                if isinstance(like, dict):
+                    out[k] = fill(like, at)
+                    continue
+                key, param = keys[at]
+                out[k] = (int(np.asarray(arrays[key])) if param is None
+                          else torch.from_numpy(np.ascontiguousarray(
+                              arrays[key], np.float32)).to(like.device))
+            return out
+
+        self.opt_state = fill(self.opt_state, ())

@@ -118,7 +118,7 @@ def place_variables(params: Dict[str, torch.Tensor], mesh: Mesh,
 
 
 def reshard_checkpoint(*args, **kwargs):
-    """Refused: loading a training checkpoint onto the serve mesh needs
-    the port's checkpoint interop first (ROADMAP A2)."""
+    """Refused: loading a training checkpoint onto the serve mesh is not
+    ported yet (ROADMAP A2.2)."""
     raise NotPortedError("reshard_checkpoint (a training checkpoint onto "
-                         "the serve mesh) waits for the checkpoint interop")
+                         "the serve mesh) is not ported yet (ROADMAP A2.2)")

@@ -22,7 +22,8 @@ import torch
 
 from nezha_tpu_torch.errors import NotPortedError
 from nezha_tpu_torch.nn.layers import Dropout
-from nezha_tpu_torch.optim.optimizers import Optimizer, apply_updates_
+from nezha_tpu_torch.optim.optimizers import (Optimizer, apply_updates_,
+                                              state_leaves)
 
 
 def batch_to_device(batch: dict, device: torch.device) -> dict:
@@ -76,8 +77,8 @@ class TrainStep:
     def opt_state_bytes(self) -> int:
         """Bytes of the optimizer state this process holds."""
         return sum(t.numel() * t.element_size()
-                   for slot in self.opt_state.values()
-                   if isinstance(slot, dict) for t in slot.values())
+                   for _, t in state_leaves(self.opt_state)
+                   if torch.is_tensor(t))
 
 
 def make_train_step(model: torch.nn.Module, optimizer: Optimizer,
@@ -88,10 +89,9 @@ def make_train_step(model: torch.nn.Module, optimizer: Optimizer,
 
 
 # Trainer options of the JAX package not ported yet, with the value that
-# means "off" (rejoin, profiling, custom sharding and save functions).
-_NOT_PORTED = {"tracer": None, "rejoin_timeout_s": 300.0,
-               "recover_fn": None, "shard_fn": None, "save_fn": None,
-               "save_wait": None}
+# means "off" (rejoin, custom sharding and save functions).
+_NOT_PORTED = {"rejoin_timeout_s": 300.0, "recover_fn": None,
+               "shard_fn": None, "save_fn": None, "save_wait": None}
 
 
 def prng_key(seed: int) -> np.ndarray:
@@ -141,8 +141,10 @@ class Trainer:
     ProcessGroup`) is polled every ``failure_check_every`` steps for dead
     peers; on one the trainer saves (with ``checkpoint_dir``), then calls
     ``on_failure(failed)`` or raises RuntimeError naming the ranks
-    (``failure_mode="stop"``). ``"rejoin"``, profiling and custom
-    sharding or save functions raise :class:`NotPortedError`."""
+    (``failure_mode="stop"``). ``tracer`` (an
+    :class:`~nezha_tpu_torch.obs.trace.Tracer`) is told the global step
+    after every step (``maybe_trace``). ``"rejoin"`` and custom sharding
+    or save functions raise :class:`NotPortedError`."""
 
     def __init__(self, model: torch.nn.Module, optimizer: Optimizer,
                  loss_fn: Callable, rng=None,
@@ -154,17 +156,18 @@ class Trainer:
                  step_fn: Optional[TrainStep] = None, process_group=None,
                  failure_check_every: int = 0,
                  on_failure: Optional[Callable[[list], None]] = None,
-                 failure_mode: str = "stop", **options):
+                 failure_mode: str = "stop", tracer=None, **options):
         for name, value in options.items():
             if name not in _NOT_PORTED:
                 raise TypeError(f"Trainer got an unexpected option {name!r}")
             if value != _NOT_PORTED[name]:
                 raise NotPortedError(f"Trainer option {name} is not ported "
-                                     f"(ROADMAP A3: rejoin; A5: tracing)")
+                                     f"(ROADMAP A3.3: rejoin; A7: custom "
+                                     f"sharding and save functions)")
         if failure_mode == "rejoin":
             raise NotPortedError(
-                "failure_mode='rejoin' is not ported (ROADMAP A3's next "
-                "step: --on-failure rejoin); use 'stop' and relaunch the "
+                "failure_mode='rejoin' is not ported (ROADMAP A3.3: "
+                "--on-failure rejoin); use 'stop' and relaunch the "
                 "world, which resumes from the checkpoint")
         if failure_mode != "stop":
             raise ValueError(f"failure_mode must be stop|rejoin, got "
@@ -188,6 +191,7 @@ class Trainer:
         self.process_group = process_group
         self.failure_check_every = failure_check_every
         self.on_failure = on_failure
+        self.tracer = tracer
         self.global_step = 0
         self._dropout_gens = list({id(m.generator): m.generator
                                    for m in model.modules()
@@ -252,8 +256,8 @@ class Trainer:
             return None
         load_train_state({k: a for k, (a, _) in got.items()
                           if k.startswith("variables/")}, self.model)
-        self.step_fn.load_chunks(int(got["opt_state/step"][0]), {
-            k: a for k, (a, _) in got.items() if k.startswith("opt_state/")})
+        self.step_fn.load_chunks({k: a for k, (a, _) in got.items()
+                                  if k.startswith("opt_state/")})
         self.rng = np.asarray(got["rng"][0], np.uint32)
         return step, sum(a.nbytes for a, _ in got.values())
 
@@ -319,14 +323,18 @@ class Trainer:
         for _ in range(steps):
             batch = next(batches)
             if not self.tokens_per_step and "tokens" in batch:
-                self.tokens_per_step = int(np.size(batch["tokens"])) \
-                    * self.world
+                tokens = batch["tokens"]
+                self.tokens_per_step = self.world * int(
+                    tokens.numel() if torch.is_tensor(tokens)
+                    else np.size(tokens))
             for i, gen in enumerate(self._dropout_gens):
                 gen.manual_seed(dropout_seed(self.rng, self.global_step,
                                              self.rank) + i)
             metrics = self.step_fn(batch)
             self.global_step += 1
             window_steps += 1
+            if self.tracer is not None:
+                self.tracer.maybe_trace(self.global_step)
             if (self.failure_check_every and self.process_group is not None
                     and self.global_step % self.failure_check_every == 0):
                 self._check_peers()

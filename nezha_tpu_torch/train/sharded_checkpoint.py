@@ -189,6 +189,16 @@ def latest_step(ckpt_dir: str) -> Optional[int]:
     return chosen
 
 
+def checkpoint_keys(ckpt_dir: str, step: int) -> List[str]:
+    """The leaf keys of one sharded save, read from its metadata alone
+    (no array is loaded)."""
+    keys: Dict[str, None] = {}
+    for meta_path in sorted(step_dir(ckpt_dir, step).glob("meta_p*.json")):
+        keys.update(dict.fromkeys(json.loads(meta_path.read_text())[
+            "leaves"]))
+    return list(keys)
+
+
 class _ShardStore:
     """Every stored shard of one save, read lazily from the npz files."""
 

@@ -233,8 +233,13 @@ def test_unported_sources_and_layouts_are_refused_typed(tmp_path, layout):
         argv[:2] = ["--hf-dir", str(d)]
         match = "transformers"
     elif layout == "sharded":
-        (d / "step_00000001.sharded").mkdir()
-        match = "A3"
+        # Per-shard saves are read now; a --scan-layers trunk in one is
+        # refused as in the npz layout.
+        from nezha_tpu_torch.train.sharded_checkpoint import (save_sharded,
+                                                              whole)
+        save_sharded(str(d), {"variables/params/h_scan/ln_1/scale": whole(
+            np.zeros((4, 64), np.float32))}, 1, proc=0, world=1)
+        match = "A7"
     elif layout == "graph":
         _fake_ckpt(d, ["params/wte/embedding", "mu/wte/embedding"])
         match = "A7"

@@ -4,7 +4,7 @@ the collectives in 2 and 4 gloo processes (tests/torch_dist_worker.py)
 against JAX's under ``shard_map`` on its host devices.
 
 Under ``jax.jit`` XLA turns ``amax / 127`` into ``amax * (1/127)``, one ulp
-off in about one scale in twenty (ROADMAP C7); the port keeps the
+off in about one scale in twenty (ROADMAP C8); the port keeps the
 division, as JAX's eager functions do. A block whose scale moved by that
 ulp dequantizes every element differently, and may round one to the
 neighbouring int8 step, so against JAX's jitted collectives each element

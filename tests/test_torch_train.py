@@ -321,7 +321,7 @@ def test_cli_refuses_unported_flags_and_configs():
     from nezha_tpu_torch.cli.train import main, parse_args
 
     assert parse_args(["--config", "gpt2_124m"]).device == "cuda"
-    for argv in (["--metrics-file=/x"], ["--remat"], ["--rejoin-timeout",
+    for argv in (["--run-dir=/x"], ["--remat"], ["--rejoin-timeout",
                                                       "5"],
                  ["--no-jax-distributed"], ["--world-size", "0"],
                  ["--serve-coordinator"]):
@@ -358,7 +358,7 @@ def test_unported_model_knobs_raise(knob):
 
 def test_unported_trainer_options_and_loss_chunk_raise():
     model = GPT2(GPT2Config(**TINY_GPT2_KW), device="cpu")
-    for opt in ({"tracer": object()}, {"shard_fn": lambda b: b},
+    for opt in ({"rejoin_timeout_s": 5.0}, {"shard_fn": lambda b: b},
                 {"save_fn": lambda *a: None}, {"recover_fn": lambda: None},
                 {"failure_mode": "rejoin"}):
         with pytest.raises(NotPortedError):

@@ -141,9 +141,12 @@ def build_optimizer(spec, group=None):
     from nezha_tpu_torch import optim
     kind, *args = spec["opt"]
     opt = {"sgd": optim.sgd, "momentum": optim.momentum,
-           "adamw": optim.adamw}[kind](*args)
+           "adamw": optim.adamw, "lars": optim.lars, "lamb": optim.lamb,
+           "adafactor": optim.adafactor}[kind](*args)
     if spec.get("clip"):
         opt = optim.with_grad_clipping(opt, spec["clip"], group=group)
+    if spec.get("accum"):
+        opt = optim.accumulate_gradients(opt, spec["accum"])
     return opt
 
 
@@ -179,8 +182,8 @@ def task_train(payload, rank, world, group):
                                       step.restore_request())
         load_train_state({k: a for k, (a, _) in got.items()
                           if k.startswith("variables/")}, model)
-        step.load_chunks(int(got["opt_state/step"][0]), {
-            k: a for k, (a, _) in got.items() if k.startswith("opt_state/")})
+        step.load_chunks({k: a for k, (a, _) in got.items()
+                          if k.startswith("opt_state/")})
         res["restored_step"] = at
     losses = []
     for b in payload["batches"]:
@@ -192,8 +195,8 @@ def task_train(payload, rank, world, group):
     res.update(losses=losses, state=train_state_to_jax(model),
                opt_state_bytes=step.opt_state_bytes())
     if zero1:
-        res["chunks"] = {key: _np(step.opt_state[s][k]) for (s, k), key in
-                         step._slot_keys().items()}
+        res["chunks"] = {key: _np(t) for key, t in
+                         step.state_chunks().items()}
     return res
 
 
