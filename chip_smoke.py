@@ -196,6 +196,43 @@ Phases, each fatal on failure (non-zero exit, no result line):
    AdamW can move a weight). Only NCCL's and gloo's own refusals of two
    ranks on one device pass, printed; a crash, a hang or any other error
    fails. Prints its wall seconds;
+4g. rejoin (after 4e): ``--on-failure rejoin`` at full width, two
+   processes of the train CLI on the one card (``gpt2_124m --parallel
+   single --batch-size REJOIN_B``, one ``--ckpt-dir``, checks and logs
+   every REJOIN_EVERY steps), each a ``chip_smoke.py --train-rank``
+   process that writes its kernel counts: rank 1 is SIGKILLed after its
+   first metrics line; rank 0 must save a rescue checkpoint and print
+   ``waiting for rejoin``; a replacement started with ``--rank-hint 1``
+   resumes from that checkpoint and trains REJOIN_MORE steps; rank 0
+   prints ``world healed; resumed from step N`` (N the rescue's step),
+   its logged steps rise strictly to REJOIN_STEPS, B1-B3 launch on it,
+   and both exit 0. Prints the seconds from the kill to the detection,
+   the rescue save's seconds and bytes, the heal wait and the reload's
+   seconds. Then a second world with no replacement: rank 0 exits
+   nonzero with ``no replacement rejoined within REJOIN_GIVE_UP_S s``,
+   its rescue checkpoint on disk;
+4h. interop (after 4g): GPT-2 124M at full width: (1) a random
+   ``GPT2LMHeadModel(GPT2Config())`` built in process and written with
+   ``save_pretrained``; (2) the generate CLI with ``--hf-dir`` and
+   ``--ln-impl pallas`` (B1, B6, B4 launched): the load's seconds; the
+   prompt's last logits of the loaded model within HF_LOGIT_ATOL of
+   transformers' own forward (fp32 on the card, a yardstick), and each
+   greedy token equal to transformers' argmax wherever its top-2 margin
+   exceeds SERVE_LOGIT_ATOL (the CLI decodes on a bf16 cache); (3) two
+   ZeRO-1 steps at world 1 saved per shard and as a dense npz; the
+   export CLI in both formats from the npz: ``load_state_dict(strict=
+   True)`` takes each, both hold the same bits, and the loaded model's
+   logits lie within HF_LOGIT_ATOL of the port's fp32 forward of the
+   checkpoint; each export's seconds; (4) the reshard CLI (a process of
+   its own) onto RESHARD_MESH shards of the card from the npz and from
+   the per-shard save, ``--out --verify`` exact, with its seconds and
+   peak host resident memory; (5) the serve CLI with ``--mesh
+   RESHARD_MESH --ckpt-dir`` (B7, B9 launched) against the single-device
+   serve of the npz, token by token up to the first divergence, which
+   must fall where the no-cache reference's top-2 margin is within
+   SERVE_LOGIT_ATOL; (6) JPEGs and PNGs written with PIL, packed by the
+   pack_images CLI, and the tiny ResNet trained 4 steps from the
+   records and evaluated over every val record. Prints its wall seconds;
 4d. data_ckpt: the user's path from text on disk to served text, in a
    temporary directory, through the CLIs at full width: (a) pack the
    port and ``docs/`` with ``pack_text --learn-bpe DC_BPE_MERGES`` into
@@ -2638,26 +2675,20 @@ def gpt2_flags(card: str, tmp: str):
     return launches, res
 
 
-def sharded_generate_serve(card: str, tmp: str):
-    """(d) GPT-2 124M: two ZeRO-1 steps at world 1 (the coordinator and
-    NCCL) saved per shard (``step_2.sharded``, the config's AdamW), and
-    the same weights as a dense npz; the generate CLI (``--ln-impl
-    pallas``) and the serve CLI from each: the greedy tokens equal. ->
-    (the per-shard runs' counts, a summary)."""
-    import io
-
+def gpt2_saves(dirs: dict, what: str) -> list:
+    """GPT-2 124M (the config's AdamW), two ZeRO-1 steps at world 1 (the
+    coordinator and NCCL) saved per shard into ``dirs["sharded"]``
+    (``step_2.sharded``), and the same weights as a dense npz into
+    ``dirs["dense"]``; -> the per-shard save's records."""
     import torch.distributed as tdist
 
     from nezha_tpu_torch import dist as nzdist
-    from nezha_tpu_torch.cli import generate as gen_cli
-    from nezha_tpu_torch.cli import serve as serve_cli
     from nezha_tpu_torch.cli.train import build_config
     from nezha_tpu_torch.models.convert import train_state_to_jax
     from nezha_tpu_torch.parallel.zero1 import Zero1TrainStep
     from nezha_tpu_torch.train import Trainer
     from nezha_tpu_torch.train import checkpoint as ckpt
 
-    dirs = {"sharded": f"{tmp}/gpt2_sharded", "dense": f"{tmp}/gpt2_dense"}
     coord = nzdist.Coordinator(world_size=1)
     group = nzdist.join("127.0.0.1", coord.port)
     try:
@@ -2679,10 +2710,26 @@ def sharded_generate_serve(card: str, tmp: str):
         group.leave()
         coord.stop()
     if os.listdir(dirs["sharded"]) != ["step_00000002.sharded"]:
-        fail(f"train_flags sharded: {os.listdir(dirs['sharded'])}")
+        fail(f"{what}: {os.listdir(dirs['sharded'])}")
     del trainer, step, cfg
     gc.collect()
     torch.cuda.empty_cache()
+    return saves
+
+
+def sharded_generate_serve(card: str, tmp: str):
+    """(d) GPT-2 124M: two ZeRO-1 steps at world 1 (the coordinator and
+    NCCL) saved per shard (``step_2.sharded``, the config's AdamW), and
+    the same weights as a dense npz; the generate CLI (``--ln-impl
+    pallas``) and the serve CLI from each: the greedy tokens equal. ->
+    (the per-shard runs' counts, a summary)."""
+    import io
+
+    from nezha_tpu_torch.cli import generate as gen_cli
+    from nezha_tpu_torch.cli import serve as serve_cli
+
+    dirs = {"sharded": f"{tmp}/gpt2_sharded", "dense": f"{tmp}/gpt2_dense"}
+    saves = gpt2_saves(dirs, "train_flags sharded")
     tokens, launches = {}, {}
     reqs = "".join(json.dumps({"id": f"p{i}", "prompt_tokens": p,
                                "max_new_tokens": SH_NEW}) + "\n"
@@ -2976,6 +3023,27 @@ def cli_stdout(fn, *args, **kw):
     return ret, buf.getvalue().splitlines()
 
 
+def agree_to_divergence(what: str, reference, prompt, want, got,
+                        atol: float = SERVE_LOGIT_ATOL):
+    """``got``'s greedy tokens against ``want``'s after ``prompt``, up to
+    the first difference, which must fall where ``reference``'s top-2
+    margin (its no-cache forward over the prompt and ``want``) is within
+    ``atol``. -> (tokens compared, tokens whose margin exceeds atol)."""
+    seq = torch.tensor([list(prompt) + list(want[:-1])], device="cuda")
+    ref = reference(seq)[0, len(prompt) - 1:].float()
+    top2 = ref.topk(2, dim=-1).values
+    compared = checked = 0
+    for j, (a, b) in enumerate(zip(want, got)):
+        margin = float(top2[j, 0] - top2[j, 1])
+        compared += 1
+        if a != b:
+            if margin > atol:
+                fail(f"{what}: token {j}: {b}, want {a}, margin {margin}")
+            break
+        checked += margin > atol
+    return compared, checked
+
+
 def generate_and_serve(packs: dict, ckpt_dir: str, card: str):
     """The generate CLI (``--ln-impl pallas``) and the serve CLI from the
     GPT-2 checkpoint with its tokenizer, in-process so that the launch
@@ -3065,19 +3133,11 @@ def generate_and_serve(packs: dict, ckpt_dir: str, card: str):
         for i, p in enumerate(DC_PROMPTS):
             ids = torch.tensor([encode_plain(tok, p)], device="cuda")
             g = generate(model, ids, DC_GEN_NEW)[0, ids.shape[1]:].tolist()
-            s_toks = res[f"p{i}"]["tokens"]
-            seq = torch.tensor([ids[0].tolist() + g[:-1]], device="cuda")
-            ref = reference(seq)[0, ids.shape[1] - 1:].float()
-            top2 = ref.topk(2, dim=-1).values
-            for j, (a, b) in enumerate(zip(g, s_toks)):
-                margin = float(top2[j, 0] - top2[j, 1])
-                compared += 1
-                if a != b:
-                    if margin > SERVE_LOGIT_ATOL:
-                        fail(f"data_ckpt serve: prompt {i} token {j}: "
-                             f"serve {b}, generate {a}, margin {margin}")
-                    break
-                checked += margin > SERVE_LOGIT_ATOL
+            n, k = agree_to_divergence(
+                f"data_ckpt serve against generate, prompt {i}", reference,
+                ids[0].tolist(), g, res[f"p{i}"]["tokens"])
+            compared += n
+            checked += k
     summary = {"generate": {"prompt": DC_PROMPTS[0], "tokens":
                             got["tokens"], "text": got["text"],
                             "profiled_launches": profiled},
@@ -4134,6 +4194,469 @@ def train_dist(card: str) -> dict:
     return launches
 
 
+REJOIN_B = 4              # GPT-2 124M rows a rank: two trainers on the card
+REJOIN_STEPS = 80         # rank 0's horizon
+REJOIN_MORE = 5           # the replacement's steps after its resume
+REJOIN_EVERY = 5          # --failure-check-every and --log-every
+REJOIN_TIMEOUT_S = 300    # the healed world's --rejoin-timeout
+REJOIN_GIVE_UP_S = 3      # the world with no replacement
+REJOIN_WAIT_S = 600       # the longest a rank's line or exit is awaited
+
+
+def train_rank_main(out: str, argv) -> int:
+    """One rank of the rejoin phase, a process of its own (``python3
+    chip_smoke.py --train-rank OUT -- ARGV``): the train CLI's ``main``
+    on ARGV, its kernel counts set to 0 just before and written to OUT as
+    JSON just after, also when it raises."""
+    from nezha_tpu_torch.cli import train as train_cli
+
+    zero_counts()
+    try:
+        return train_cli.main(argv)
+    finally:
+        if torch.cuda.is_initialized():
+            torch.cuda.synchronize()
+        with open(out, "w") as f:
+            json.dump(read_counts(), f)
+
+
+class RejoinWorld:
+    """Two ranks of the train CLI on the card under ``--on-failure
+    rejoin`` (``--parallel single``, one ``--ckpt-dir``, the coordinator
+    served by rank 0 on a free port): per-rank stderr and count files,
+    polling for a line, every rank stopped at the end."""
+
+    def __init__(self, tmp: str, tag: str, timeout_s: float):
+        import socket
+
+        with socket.socket() as sock:
+            sock.bind(("127.0.0.1", 0))
+            port = sock.getsockname()[1]
+        self.root = os.path.dirname(os.path.abspath(__file__))
+        self.dir = f"{tmp}/{tag}"
+        os.makedirs(self.dir)
+        self.ck = f"{self.dir}/ck"
+        self.argv = ["--config", "gpt2_124m", "--parallel", "single",
+                     "--batch-size", str(REJOIN_B), "--coordinator",
+                     f"127.0.0.1:{port}", "--on-failure", "rejoin",
+                     "--rejoin-timeout", str(timeout_s),
+                     "--failure-check-every", str(REJOIN_EVERY),
+                     "--log-every", str(REJOIN_EVERY), "--ckpt-dir",
+                     self.ck]
+        self.procs = []
+
+    def launch(self, name: str, *extra):
+        env = dict(os.environ, PYTHONPATH=self.root + os.pathsep
+                   + os.environ.get("PYTHONPATH", ""))
+        with open(f"{self.dir}/{name}.err", "w") as err:
+            proc = subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), "--train-rank",
+                 f"{self.dir}/{name}.counts.json", "--", *self.argv,
+                 *extra], stdout=subprocess.DEVNULL, stderr=err,
+                cwd=self.root, env=env)
+        self.procs.append(proc)
+        return proc
+
+    def err(self, name: str) -> str:
+        with open(f"{self.dir}/{name}.err") as f:
+            return f.read()
+
+    def counts(self, name: str) -> dict:
+        with open(f"{self.dir}/{name}.counts.json") as f:
+            return json.load(f)
+
+    def wait_for(self, name: str, needle: str, proc) -> float:
+        """Poll the rank's stderr for ``needle`` while it runs; -> the
+        wall clock when it was seen."""
+        deadline = time.monotonic() + REJOIN_WAIT_S
+        while needle not in self.err(name):
+            if proc.poll() is not None:
+                fail(f"rejoin: {name} exited {proc.returncode} before "
+                     f"{needle!r}: {self.err(name)[-3000:]}")
+            if time.monotonic() > deadline:
+                fail(f"rejoin: {name} printed no {needle!r} in "
+                     f"{REJOIN_WAIT_S} s")
+            time.sleep(0.05)
+        return time.time()
+
+    def wait(self, name: str, proc) -> int:
+        try:
+            return proc.wait(timeout=REJOIN_WAIT_S)
+        except subprocess.TimeoutExpired:
+            fail(f"rejoin: {name} did not exit in {REJOIN_WAIT_S} s: "
+                 f"{self.err(name)[-3000:]}")
+
+    def stop(self) -> None:
+        for proc in self.procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+
+
+def rank_lines(text: str) -> list:
+    return [json.loads(line) for line in text.splitlines()
+            if line.startswith("{")]
+
+
+def rejoin(card: str) -> dict:
+    """Phase 4g (see the module docstring). -> the survivor's kernel
+    counts over its whole run."""
+    import tempfile
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="nezha_rejoin_") as tmp:
+        w = RejoinWorld(tmp, "heal", REJOIN_TIMEOUT_S)
+        try:
+            r0 = w.launch("r0", "--steps", str(REJOIN_STEPS),
+                          "--serve-coordinator", "--world-size", "2")
+            r1 = w.launch("r1", "--steps", str(REJOIN_STEPS),
+                          "--rank-hint", "1")
+            w.wait_for("r1", '"step"', r1)
+            r1.kill()
+            killed = time.time()
+            r1.wait()
+            waiting = w.wait_for("r0", "waiting for rejoin", r0)
+            r1b = w.launch("r1b", "--steps", str(REJOIN_MORE),
+                           "--rank-hint", "1")
+            rc0, rc1 = w.wait("r0", r0), w.wait("r1b", r1b)
+        finally:
+            w.stop()
+        e0, e1 = w.err("r0"), w.err("r1b")
+        if rc0 or rc1:
+            fail(f"rejoin: rank 0 exited {rc0}, the replacement {rc1}: "
+                 f"{e0[-2000:]} {e1[-2000:]}")
+        lines = rank_lines(e0)
+        steps = [m["step"] for m in lines if "loss" in m]
+        records = [m["rejoin"] for m in lines if "rejoin" in m]
+        healed = re.search(r"world healed; resumed from step (\d+)", e0)
+        if not (healed and len(records) == 1 and steps
+                and steps[-1] == REJOIN_STEPS
+                and all(a < b for a, b in zip(steps, steps[1:]))):
+            fail(f"rejoin: rank 0's steps {steps}, records {records}: "
+                 f"{e0[-3000:]}")
+        step = int(healed.group(1))
+        rescue = [m["save"] for m in lines
+                  if "save" in m and m["save"]["step"] == step]
+        resumed = re.search(r"resumed from step (\d+)", e1)
+        if not (rescue and resumed and int(resumed.group(1)) == step):
+            fail(f"rejoin: rescue save {rescue}, the replacement: "
+                 f"{e1[-3000:]}")
+        survivor = w.counts("r0")
+        for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
+            if survivor[name] <= 0:
+                fail(f"rejoin: {name} not launched on rank 0")
+        record = records[0]
+        r1_steps = [m["step"] for m in rank_lines(w.err("r1"))
+                    if "loss" in m]
+        heal = {"killed_at_rank1_step": r1_steps[-1], "heal_step": step,
+                "kill_to_detect_s": record["detected_at"] - killed,
+                "kill_to_waiting_line_s": waiting - killed,
+                "rescue_save_s": rescue[0]["seconds"],
+                "rescue_save_bytes": rescue[0]["bytes"],
+                "heal_wait_s": record["wait_s"],
+                "reload_s": record["reload_s"],
+                "rank0_steps_logged": len(steps),
+                "replacement_launches": {
+                    k: v for k, v in w.counts("r1b").items() if v},
+                "rank0_launches": {k: v for k, v in survivor.items() if v}}
+
+        # No replacement: the survivor gives up, loudly, once the rescue
+        # checkpoint is on disk.
+        w = RejoinWorld(tmp, "give_up", REJOIN_GIVE_UP_S)
+        try:
+            r0 = w.launch("r0", "--steps", str(REJOIN_STEPS),
+                          "--serve-coordinator", "--world-size", "2")
+            r1 = w.launch("r1", "--steps", str(REJOIN_STEPS),
+                          "--rank-hint", "1")
+            w.wait_for("r1", '"step"', r1)
+            r1.kill()
+            r1.wait()
+            rc0 = w.wait("r0", r0)
+        finally:
+            w.stop()
+        want = f"no replacement rejoined within {REJOIN_GIVE_UP_S}s"
+        npz = [n for n in os.listdir(w.ck) if n.endswith(".npz")]
+        if rc0 == 0 or want not in w.err("r0") or not npz:
+            fail(f"rejoin without a replacement: rc {rc0}, checkpoints "
+                 f"{npz}: {w.err('r0')[-3000:]}")
+        heal["give_up"] = {"rc": rc0, "rescue": npz}
+    heal.update(card=card, wall_s=time.perf_counter() - t0)
+    print(json.dumps({"rejoin": heal}), flush=True)
+    return survivor
+
+
+HF_LOGIT_ATOL = 2e-3      # fp32 port against fp32 transformers, the card
+HF_PROMPT = 64            # prompt tokens of the interop checks
+HF_NEW = 32               # greedy tokens of the --hf-dir generate
+RESHARD_MESH = 4          # the serve mesh, all on the one card
+IMG_CLASSES, IMG_PER_CLASS = 4, 8
+
+
+def hf_logits_check(what: str, port, hf_model, ids) -> float:
+    """The prompt's last logits of ``port`` against ``hf_model``'s (both
+    fp32 on the card) within HF_LOGIT_ATOL; -> the largest error."""
+    with torch.no_grad():
+        want = hf_model(ids).logits[:, -1].float()
+        got = port(ids)[:, -1].float()
+    err = float((got - want).abs().max())
+    if not err <= HF_LOGIT_ATOL:
+        fail(f"{what}: last logits {err} from transformers' "
+             f"(bound {HF_LOGIT_ATOL})")
+    return err
+
+
+def serve_tokens(argv, prompts, counts: bool = False):
+    """The serve CLI in-process on ``argv``, one greedy request a
+    prompt; -> ({id: tokens}, the kernel counts of its run or None)."""
+    import io
+
+    from nezha_tpu_torch.cli import serve as serve_cli
+
+    args = serve_cli.build_parser().parse_args(argv)
+    sched = serve_cli.build_scheduler(args)
+    out = io.StringIO()
+    reqs = "".join(json.dumps({"id": f"p{i}", "prompt_tokens": p,
+                               "max_new_tokens": SH_NEW}) + "\n"
+                   for i, p in enumerate(prompts))
+    zero_counts()
+    serve_cli.run_stdio(sched, args, stdin=io.StringIO(reqs), stdout=out)
+    torch.cuda.synchronize()
+    launches = read_counts() if counts else None
+    res = {r["id"]: r for r in map(json.loads, out.getvalue().splitlines())}
+    if len(res) != len(prompts) or any(r["event"] != "done"
+                                       for r in res.values()):
+        fail(f"interop serve {argv}: {res}")
+    del sched
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {k: r["tokens"] for k, r in res.items()}, launches
+
+
+def hf_interop(tmp: str, card: str):
+    """(1)-(2): a random GPT-2 124M saved by transformers, generated from
+    through ``--hf-dir``. -> (the generate run's counts, a summary)."""
+    from nezha_tpu_torch.cli import generate as gen_cli
+    from nezha_tpu_torch.models import hf
+
+    d = f"{tmp}/hf_gpt2"
+    hf_model = hf.random_hf_model("gpt2", seed=0, device="cuda")
+    t0 = time.perf_counter()
+    hf_model.save_pretrained(d)
+    save_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    port = hf.load_gpt2(d, device="cuda", ln_impl="pallas")
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    g = torch.Generator().manual_seed(1)
+    ids = torch.randint(0, port.cfg.vocab_size, (1, HF_PROMPT), generator=g)
+    err = hf_logits_check("hf_generate", port, hf_model, ids.cuda())
+    argv = ["--hf-dir", d, "--prompt-tokens",
+            ",".join(map(str, ids[0].tolist())), "--max-new-tokens",
+            str(HF_NEW), "--temperature", "0", "--ln-impl", "pallas",
+            "--eos-id", "-1"]
+    zero_counts()
+    got, _ = cli_stdout(gen_cli.run, gen_cli.build_parser().parse_args(argv))
+    torch.cuda.synchronize()
+    launches = read_counts()
+    for name in ("flash_fwd", "flash_decode", "layer_norm_fwd"):
+        if launches[name] <= 0:
+            fail(f"hf_generate: {name} not launched ({launches})")
+    # Each greedy token against transformers' forward over the prompt and
+    # the port's tokens, wherever its top-2 margin exceeds the bound the
+    # generate path's bf16 cache allows.
+    toks = got["tokens"]
+    with torch.no_grad():
+        seq = torch.tensor([ids[0].tolist() + toks[:-1]], device="cuda")
+        ref = hf_model(seq).logits[0, HF_PROMPT - 1:].float()
+    top2 = ref.topk(2, dim=-1)
+    held = 0
+    for j, t in enumerate(toks):
+        margin = float(top2.values[j, 0] - top2.values[j, 1])
+        if margin > SERVE_LOGIT_ATOL:
+            if int(top2.indices[j, 0]) != t:
+                fail(f"hf_generate: token {j} {t}, transformers "
+                     f"{int(top2.indices[j, 0])}, margin {margin}")
+            held += 1
+    del port, hf_model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches, {"save_pretrained_s": save_s, "hf_dir_load_s": load_s,
+                      "last_logits_max_abs_err": err,
+                      "tokens": len(toks), "tokens_held": held,
+                      "files": sorted(os.listdir(d))}
+
+
+def export_check(dirs: dict, tmp: str) -> dict:
+    """(3): the export CLI in both formats from the dense save; each is
+    taken by ``GPT2LMHeadModel.load_state_dict(strict=True)``, both hold
+    the same bits, and the loaded model's logits match the port's fp32
+    forward of the checkpoint."""
+    from nezha_tpu_torch.cli import export as export_cli
+    from nezha_tpu_torch.cli.common import restore_variables_any
+    from nezha_tpu_torch.models import GPT2, GPT2Config, hf
+
+    port = GPT2(GPT2Config(), device="cuda")     # fp32, as transformers
+    restore_variables_any(dirs["dense"], port)
+    g = torch.Generator().manual_seed(2)
+    ids = torch.randint(0, 50257, (1, HF_PROMPT), generator=g).cuda()
+    out, states = {}, {}
+    for fmt in ("npz", "torch"):
+        t0 = time.perf_counter()
+        res, _ = cli_stdout(export_cli.run, export_cli.build_parser()
+                            .parse_args(["--config", "gpt2_124m",
+                                         "--ckpt-dir", dirs["dense"],
+                                         "--out", f"{tmp}/export_{fmt}",
+                                         "--format", fmt]))
+        wall = time.perf_counter() - t0
+        if fmt == "npz":
+            with np.load(res["out"]) as z:
+                sd = {k: torch.from_numpy(z[k]) for k in z.files}
+        else:
+            sd = torch.load(res["out"])
+        model = hf.random_hf_model("gpt2", seed=5, device="cuda")
+        model.load_state_dict(sd, strict=True)
+        err = hf_logits_check(f"export {fmt}", port, model, ids)
+        states[fmt] = sd
+        out[fmt] = {"keys": res["keys"], "seconds": wall,
+                    "bytes": os.path.getsize(res["out"]),
+                    "logits_max_abs_err": err}
+        del model
+    if sorted(states["npz"]) != sorted(states["torch"]) or any(
+            not torch.equal(states["npz"][k], states["torch"][k])
+            for k in states["npz"]):
+        fail("export: the npz and torch exports differ")
+    del port, states
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def reshard_check(dirs: dict, tmp: str) -> dict:
+    """(4): the reshard CLI, a process of its own (its seconds and peak
+    resident memory are its own), from the dense and the per-shard save
+    onto RESHARD_MESH shards of the card, written out and verified."""
+    out = {}
+    for name, d in dirs.items():
+        lines, _, wall = module_run(
+            "reshard", "--ckpt-dir", d, "--mesh", str(RESHARD_MESH),
+            "--shard-device", "cuda:0", "--out", f"{tmp}/serve_{name}",
+            "--verify", "--json")
+        report = json.loads("\n".join(lines))
+        if not (report.get("roundtrip_ok") and report["step"] == 2):
+            fail(f"reshard from {name}: {report}")
+        out[name] = {k: report[k] for k in (
+            "seconds", "peak_host_rss_bytes", "host_rss_before_bytes",
+            "params_bytes", "params_bytes_per_device")}
+        out[name]["process_wall_s"] = wall
+    return out
+
+
+def mesh_serve_check(dirs: dict) -> tuple:
+    """(5): serve ``--mesh RESHARD_MESH --ckpt-dir`` (the checkpoint
+    streamed onto the card's shards) against the single-device serve of
+    the same checkpoint, token by token to the first divergence, which
+    must fall where the no-cache reference's top-2 margin is within
+    SERVE_LOGIT_ATOL. -> (the mesh run's counts, a summary)."""
+    from nezha_tpu_torch.cli import generate as gen_cli
+    from nezha_tpu_torch.cli.common import load_gpt2_for_inference
+    from nezha_tpu_torch.models import GPT2
+
+    common = ["--ckpt-dir", dirs["dense"], "--max-len", "128",
+              "--max-prefill-len", "32", "--eos-id", "-1"]
+    mesh, launches = serve_tokens(common + [
+        "--mesh", str(RESHARD_MESH), "--shard-device", "cuda:0"],
+        SH_PROMPTS, counts=True)
+    for name in ("paged_decode", "paged_prefill"):
+        if launches[name] <= 0:
+            fail(f"resharded serve: {name} not launched ({launches})")
+    single, _ = serve_tokens(common, SH_PROMPTS)
+    model = load_gpt2_for_inference(gen_cli.build_parser().parse_args(
+        ["--ckpt-dir", dirs["dense"], "--prompt-tokens", "1"])).eval()
+    reference = GPT2(dataclasses.replace(model.cfg, attn_impl="xla"),
+                     policy=model.policy, device="cuda")
+    reference.load_state_dict(model.state_dict())
+    reference.eval()
+    compared = checked = equal = 0
+    with torch.no_grad():
+        for i, p in enumerate(SH_PROMPTS):
+            n, k = agree_to_divergence(
+                f"resharded serve against one device, prompt {i}",
+                reference, p, single[f"p{i}"], mesh[f"p{i}"])
+            compared, checked = compared + n, checked + k
+            equal += single[f"p{i}"] == mesh[f"p{i}"]
+    del model, reference
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches, {"requests": len(SH_PROMPTS), "requests_equal": equal,
+                      "tokens_compared": compared,
+                      "tokens_checked": checked}
+
+
+def pack_images_check(tmp: str) -> dict:
+    """(6): JPEGs and PNGs written here, packed by the pack_images CLI,
+    then the tiny ResNet trained and evaluated from the records through
+    the train CLI (both in-process)."""
+    from PIL import Image
+
+    from nezha_tpu_torch.cli import pack_images as pack_cli
+    from nezha_tpu_torch.cli import train as train_cli
+
+    src, data = f"{tmp}/images", f"{tmp}/image_records"
+    r = np.random.RandomState(0)
+    for c in range(IMG_CLASSES):
+        os.makedirs(f"{src}/c{c}")
+        for i in range(IMG_PER_CLASS):
+            fmt = "png" if i % 2 == 0 else "jpg"
+            Image.fromarray(r.randint(0, 256, (40, 44, 3), dtype=np.uint8)
+                            ).save(f"{src}/c{c}/img{i}.{fmt}")
+    t0 = time.perf_counter()
+    summary = pack_cli.run(pack_cli.build_parser().parse_args(
+        [src, "--out-dir", data, "--size", "36", "--val-fraction", "0.25"]))
+    pack_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    final = train_cli.run(train_cli.parse_args(
+        ["--config", "resnet50_imagenet", "--model-preset", "tiny",
+         "--data-dir", data, "--crop", "32", "--batch-size", "8",
+         "--steps", "4", "--log-every", "2", "--eval"]))
+    n_val = IMG_CLASSES * IMG_PER_CLASS // 4
+    if not (summary["num_val"] == n_val and math.isfinite(final["loss"])
+            and final.get("eval_count") == n_val):
+        fail(f"pack_images: {summary}, train {final}, want {n_val} val "
+             f"records")
+    return {"pack_s": pack_s, "records": [summary["num_train"], n_val],
+            "train_final": final, "train_wall_s": time.perf_counter() - t0}
+
+
+def interop(card: str) -> dict:
+    """Phase 4h (see the module docstring). -> the counts of its
+    ``--hf-dir`` generate and resharded serve runs."""
+    import tempfile
+
+    t0 = time.perf_counter()
+    os.environ["HF_HUB_OFFLINE"] = "1"   # every directory here is local
+    out = {"card": card}
+    with tempfile.TemporaryDirectory(prefix="nezha_interop_") as tmp:
+        gen_launches, out["hf_generate"] = hf_interop(tmp, card)
+        print(json.dumps({"interop_hf_generate": out["hf_generate"]}),
+              flush=True)
+        dirs = {"dense": f"{tmp}/gpt2_dense",
+                "sharded": f"{tmp}/gpt2_sharded"}
+        gpt2_saves(dirs, "interop")
+        out["export"] = export_check(dirs, tmp)
+        print(json.dumps({"interop_export": out["export"]}), flush=True)
+        out["reshard"] = reshard_check(dirs, tmp)
+        print(json.dumps({"interop_reshard": out["reshard"]}), flush=True)
+        serve_launches, out["mesh_serve"] = mesh_serve_check(dirs)
+        print(json.dumps({"interop_mesh_serve": out["mesh_serve"]}),
+              flush=True)
+        out["pack_images"] = pack_images_check(tmp)
+        print(json.dumps({"interop_pack_images": out["pack_images"]}),
+              flush=True)
+    out["wall_s"] = time.perf_counter() - t0
+    print(json.dumps({"interop_wall_s": out["wall_s"]}), flush=True)
+    return {"hf_generate": gen_launches, "resharded_serve": serve_launches}
+
+
 HOME_PATH = {"paged_decode": "serve", "paged_prefill": "serve",
              "paged_prefill_qoff": "serve_seq",
              "paged_quant_decode": "serve_int8",
@@ -4199,6 +4722,12 @@ def main() -> int:
     dist_paths = train_dist(card)
     paths["train_dist_gpt2"] = dist_paths["gpt2_124m"]
     paths["train_dist_bert"] = dist_paths["bert_base_zero1"]
+    gc.collect()
+    torch.cuda.empty_cache()   # the two ranks share the card
+    phase("rejoin")
+    paths["rejoin"] = rejoin(card)
+    phase("interop")
+    paths.update(interop(card))
     phase("data_ckpt")
     dc_launches, dc = data_ckpt(card)
     paths["data_ckpt_generate"] = dc_launches["generate"]
@@ -4259,4 +4788,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--train-rank"] and sys.argv[3:4] == ["--"]:
+        sys.exit(train_rank_main(sys.argv[2], sys.argv[4:]))
     sys.exit(main())

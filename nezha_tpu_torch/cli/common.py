@@ -3,8 +3,9 @@
 from __future__ import annotations
 
 import argparse
+import os
 import sys
-from typing import Optional, Sequence
+from typing import Optional
 
 import torch
 
@@ -26,12 +27,9 @@ TINY_BERT_KW = dict(vocab_size=512, max_positions=96, num_layers=2,
                     num_heads=4, hidden_size=64)
 
 
-def add_model_args(p: argparse.ArgumentParser,
-                   refused_sources: Sequence[str] = ("--hf-dir",)) -> None:
-    """The weight source (``--random-init`` or ``--ckpt-dir``), preset,
-    seed, device and ``--tokenizer`` flags. Each flag in
-    ``refused_sources`` joins them as an alternative the parser accepts
-    so that the command can refuse it typed (``NotPortedError``)."""
+def add_model_args(p: argparse.ArgumentParser) -> None:
+    """The weight source (``--random-init``, ``--ckpt-dir`` or
+    ``--hf-dir``), preset, seed, device and ``--tokenizer`` flags."""
     src = p.add_mutually_exclusive_group(required=True)
     src.add_argument("--random-init", action="store_true",
                      help="seeded random weights at the preset's full "
@@ -40,16 +38,19 @@ def add_model_args(p: argparse.ArgumentParser,
                      help="checkpoint dir written by either package's "
                           "train CLI (the newest step that verifies, dense "
                           "or per-shard)")
-    for flag in refused_sources:
-        src.add_argument(flag, help="not ported yet (refused)")
+    src.add_argument("--hf-dir",
+                     help="a Hugging Face GPT2LMHeadModel directory "
+                          "(from_pretrained; its config sets the model, "
+                          "fp32); its tokenizer files serve as "
+                          "--tokenizer's default")
     p.add_argument("--model-preset", choices=["full", "tiny"],
                    default="full",
                    help="full: GPT-2 124M, bf16 compute; tiny: the test "
                         "preset, fp32")
     p.add_argument("--tokenizer", default=None,
                    help="tokenizer dir (vocab.json+merges.txt or "
-                        "vocab.txt) for text prompts and output; else "
-                        "text is byte-level")
+                        "vocab.txt) for text prompts and output; default: "
+                        "--hf-dir's, else text is byte-level")
     p.add_argument("--seed", type=int, default=0,
                    help="weight seed, and the default request seed")
     p.add_argument("--device", default="cuda",
@@ -97,14 +98,23 @@ def resolve_eos_id(explicit: Optional[int], tokenizer, vocab: int,
 
 
 def load_tokenizer_arg(args):
-    """The ``--tokenizer`` directory's tokenizer, or None without the
-    flag; a directory without tokenizer files exits with the reason."""
-    if not getattr(args, "tokenizer", None):
-        return None
-    try:
-        return load_tokenizer(args.tokenizer)
-    except FileNotFoundError as e:
-        raise SystemExit(str(e))
+    """The ``--tokenizer`` directory's tokenizer (a directory without
+    tokenizer files exits with the reason); else the one shipped in
+    ``--hf-dir`` when its files are complete (``vocab.json`` and
+    ``merges.txt``, or ``vocab.txt``); else None."""
+    if getattr(args, "tokenizer", None):
+        try:
+            return load_tokenizer(args.tokenizer)
+        except FileNotFoundError as e:
+            raise SystemExit(str(e))
+    hf_dir = getattr(args, "hf_dir", None)
+    if hf_dir:
+        # A partial copy (BPE needs both files) falls back to byte-level.
+        bpe = all(os.path.isfile(os.path.join(hf_dir, f))
+                  for f in ("vocab.json", "merges.txt"))
+        if bpe or os.path.isfile(os.path.join(hf_dir, "vocab.txt")):
+            return load_tokenizer(hf_dir)
+    return None
 
 
 def _refuse_layouts(ckpt_dir: str, keys) -> None:
@@ -157,17 +167,16 @@ def restore_variables_any(ckpt_dir: str, model: torch.nn.Module) -> int:
 def load_gpt2_for_inference(args, **overrides) -> GPT2:
     """The inference CLIs' GPT-2 from ``--ckpt-dir`` or
     ``--random-init`` at ``--model-preset`` (full decodes in bf16, tiny in
-    fp32, as JAX); ``overrides`` replace config fields. ``--hf-dir``
-    raises ``NotPortedError``; ``cuda`` without a card exits."""
-    if getattr(args, "hf_dir", None):
-        raise NotPortedError(
-            "--hf-dir is not ported: the JAX package reads a Hugging Face "
-            "checkpoint through `transformers`, which the port does not "
-            "depend on (ROADMAP A2); use --ckpt-dir or --random-init")
+    fp32, as JAX), or from ``--hf-dir`` (its config, fp32, as JAX's
+    ``gpt2_from_hf``); ``overrides`` replace config fields. ``cuda``
+    without a card exits."""
     if (torch.device(args.device).type == "cuda"
             and not torch.cuda.is_available()):
         raise SystemExit("no CUDA device: pass --device cpu to run on the "
                          "CPU")
+    if getattr(args, "hf_dir", None):
+        from nezha_tpu_torch.models.hf import load_gpt2
+        return load_gpt2(args.hf_dir, device=args.device, **overrides)
     model = gpt2_for_preset(args.model_preset, seed=args.seed,
                             device=args.device, **overrides)
     if args.ckpt_dir:

@@ -7,9 +7,10 @@
         --prompt "def main(" --max-new-tokens 32 --temperature 0
 
 Weights: ``--ckpt-dir`` (the newest checkpoint of either package's train
-CLI that verifies: a dense npz, else a per-shard ``step_*.sharded``) or
-seeded random (``--random-init``); ``--hf-dir`` is
-refused with ``NotPortedError`` (it needs ``transformers``). As in JAX
+CLI that verifies: a dense npz, else a per-shard ``step_*.sharded``),
+a Hugging Face ``GPT2LMHeadModel`` directory (``--hf-dir``: its config,
+fp32, its tokenizer files the default ``--tokenizer``) or seeded random
+(``--random-init``). As in JAX
 the full preset decodes in bf16 and the tiny one in fp32;
 ``--ln-impl pallas`` runs every LayerNorm on the fused kernels.
 

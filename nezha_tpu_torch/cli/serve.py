@@ -6,8 +6,9 @@
 
 Weights come from ``--ckpt-dir`` (the newest checkpoint of either
 package's train CLI that verifies: a dense npz, else a per-shard
-``step_*.sharded``) or are seeded random
-(``--random-init``); ``--hf-dir`` is refused (it needs ``transformers``).
+``step_*.sharded``), from a Hugging Face ``GPT2LMHeadModel`` directory
+(``--hf-dir``, fp32; its tokenizer files the default ``--tokenizer``) or
+are seeded random (``--random-init``).
 Each stdin line is one request object, with ``prompt_tokens`` or a text
 ``prompt`` (encoded with ``--tokenizer``, else byte-level)::
 
@@ -29,7 +30,11 @@ The server exits once stdin closes and every request has finished.
 
 ``--mesh M`` serves from a :class:`~nezha_tpu_torch.serve.ShardedEngine`
 over M shards (the visible cards on ``cuda``; the CPU repeated on
-``cpu``); ``--prefill-mode sequence`` (with ``--mesh M``, M > 1) also
+``cpu``; ``--shard-device D`` puts every shard on D, e.g. M shards on
+one card). With ``--ckpt-dir`` the training checkpoint is streamed onto
+the mesh one leaf at a time (``reshard_checkpoint``: CRC-checked, never
+gathered whole on one device); a corrupt or missing leaf is a refusal
+to start. ``--prefill-mode sequence`` (with ``--mesh M``, M > 1) also
 shards each prefill chunk's attention over the sequence, in the
 ``--seq-prefill-variant`` layout; ``--long-prefill-buckets`` adds chunk
 widths above ``--max-prefill-len``.
@@ -45,7 +50,7 @@ import time
 
 import torch
 
-from nezha_tpu_torch.cli.common import (add_model_args,
+from nezha_tpu_torch.cli.common import (add_model_args, gpt2_for_preset,
                                         load_gpt2_for_inference,
                                         load_tokenizer_arg, resolve_eos_id)
 from nezha_tpu_torch.data.tokenizer import encode_plain
@@ -53,6 +58,7 @@ from nezha_tpu_torch.errors import NotPortedError
 from nezha_tpu_torch.parallel.mesh import make_mesh
 from nezha_tpu_torch.serve import (Engine, QueueFull, Request, Scheduler,
                                    ServeConfig, ShardedEngine)
+from nezha_tpu_torch.serve.sharded import ReshardError, reshard_checkpoint
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -70,6 +76,11 @@ def build_parser() -> argparse.ArgumentParser:
                         "--max-prefill-len (at most --max-len)")
     p.add_argument("--mesh", type=int, default=1,
                    help="tensor-parallel shards (>1: the sharded engine)")
+    p.add_argument("--shard-device", default=None,
+                   help="with --mesh: every shard on this device (M "
+                        "shards on one card run one after another); "
+                        "default: one visible card a shard on cuda, the "
+                        "CPU on cpu")
     p.add_argument("--prefill-mode", choices=["replicated", "sequence"],
                    default="replicated",
                    help="sequence: shard each prefill chunk's attention "
@@ -108,13 +119,21 @@ def build_scheduler(args) -> Scheduler:
         raise SystemExit("--prefill-mode sequence requires --mesh M with "
                          "M > 1 (the chunk is sharded over the mesh's "
                          "sequence axis)")
-    if args.mesh > 1 and torch.device(args.device).type == "cuda":
+    devices = ([args.shard_device] * args.mesh if args.shard_device
+               else None)
+    mesh = None
+    if args.mesh > 1:
         # Refused before the model is built on a card that may not exist.
         try:
-            make_mesh({"tp": args.mesh}, device_type="cuda")
+            mesh = make_mesh({"tp": args.mesh}, devices,
+                             torch.device(args.device).type)
         except ValueError as e:
             raise SystemExit(f"--mesh {args.mesh}: too few CUDA cards: {e}")
-    model = load_gpt2_for_inference(args)
+    shards = None
+    if mesh is not None and args.ckpt_dir:
+        shards, model = reshard_onto(args, mesh)
+    else:
+        model = load_gpt2_for_inference(args)
     try:
         cfg = ServeConfig(
             max_batch_size=args.max_batch_size,
@@ -136,7 +155,8 @@ def build_scheduler(args) -> Scheduler:
         raise SystemExit(f"serve config: {e}")
     if args.mesh > 1:
         try:
-            engine = ShardedEngine(model, cfg, mesh_devices=args.mesh)
+            engine = ShardedEngine(model, cfg, mesh_devices=args.mesh,
+                                   devices=mesh.devices, shards=shards)
         except ValueError as e:
             # Topology constraints (heads % mesh, bucket divisibility,
             # too few cards) as the CLI's typed refusal.
@@ -144,6 +164,30 @@ def build_scheduler(args) -> Scheduler:
     else:
         engine = Engine(model, cfg)
     return Scheduler(engine)
+
+
+def reshard_onto(args, mesh):
+    """``--mesh M --ckpt-dir``: the preset's model (its structure) and
+    the checkpoint streamed onto ``mesh``; the topology is checked before
+    the load, and a reshard fault exits typed."""
+    if (torch.device(args.device).type == "cuda"
+            and not torch.cuda.is_available()):
+        raise SystemExit("no CUDA device: pass --device cpu to run on the "
+                         "CPU")
+    m = mesh.size
+    model = gpt2_for_preset(args.model_preset, seed=args.seed,
+                            device=args.device)
+    if model.cfg.num_heads % m:
+        raise SystemExit(f"--mesh {m}: num_heads={model.cfg.num_heads} "
+                         f"not divisible by the mesh -- K/V pools shard "
+                         f"on the head axis")
+    try:
+        shards, step = reshard_checkpoint(args.ckpt_dir, model, mesh)
+    except ReshardError as e:
+        raise SystemExit(f"--mesh {m}: reshard refused: {e}")
+    print(f"resharded step {step} from {args.ckpt_dir} onto a 1x{m} "
+          f"serve mesh", file=sys.stderr, flush=True)
+    return shards, model
 
 
 def parse_request(obj, args, vocab: int, tokenizer=None,

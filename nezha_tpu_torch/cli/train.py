@@ -64,8 +64,16 @@ process group). ``--grad-allreduce int8`` puts the gradients on the int8
 wire (``parallel/quantized.py``) and is refused outside dp and zero1;
 ``gspmd``, ``pp`` and ``sp`` are refused (ROADMAP A7). Every
 ``--failure-check-every`` steps each rank polls the coordinator for dead
-peers and, on one, checkpoints and stops (``--on-failure stop``;
-``rejoin`` is refused). Log and ``{"save"}`` lines come from rank 0.
+peers and, on one, checkpoints and stops (``--on-failure stop``), or
+with ``--on-failure rejoin`` checkpoints, waits up to
+``--rejoin-timeout`` seconds for the dead rank's replacement (relaunched
+with ``--rank-hint``; it resumes from the rescue checkpoint), reloads
+that checkpoint and trains on. Rejoin needs ``--coordinator`` and
+``--ckpt-dir``, and each process then trains alone (``--parallel
+single``): a ``torch.distributed`` group cannot take a restarted
+process, so dp and zero1 across processes recover by ``stop`` and a
+relaunch. Log and ``{"save"}`` lines come from rank 0 (in single mode
+from every process, each its own run).
 ``--eval`` runs the config's
 eval split after training, ``--eval-every N`` also every N steps (the
 run trains in chunks that end on multiples of N), ``--eval-batches N``
@@ -165,7 +173,11 @@ IMAGE_CONFIGS = ("resnet50_imagenet", "wrn101_large_batch")
 NOT_PORTED_FLAGS = frozenset((
     "--microbatches", "--sp-flash", "--attn-impl", "--moe-experts",
     "--remat", "--graph-bf16", "--scan-layers", "--platform", "--run-dir",
-    "--rejoin-timeout", "--engine"))
+    "--engine"))
+# Each config's parallel mode (the JAX CLI's).
+CONFIG_MODES = {"mlp_mnist": "single", "resnet50_imagenet": "dp",
+                "wrn101_large_batch": "dp", "gpt2_124m": "dp",
+                "bert_base_zero1": "zero1"}
 PARALLEL_MODES = ("config", "single", "dp", "zero1", "gspmd", "pp", "sp")
 # --optimizer's factories, with the JAX CLI's weight decays; adamw and
 # lamb take the decay mask of --wd-exclude-1d.
@@ -242,11 +254,11 @@ def build_config(name: str, preset: str = "full", steps: int = 100,
                            policy=bf16_policy(), generator=gen)
             return Config(model, image_ce, lambda bs: synthetic_image_batches(
                 bs, image_size=32, num_classes=100), opt, default_batch,
-                "dp", steps=steps)
+                CONFIG_MODES[name], steps=steps)
         build = wide_resnet101 if wide else resnet50
         model = build(stem="s2d", policy=bf16_policy(), generator=gen)
         return Config(model, image_ce, synthetic_image_batches, opt,
-                      default_batch, "dp", steps=steps)
+                      default_batch, CONFIG_MODES[name], steps=steps)
     if name == "bert_base_zero1":
         def opt(n, **kw):
             return adamw(warmup_cosine_schedule(1e-4, 100, max(n, 200)),
@@ -262,7 +274,7 @@ def build_config(name: str, preset: str = "full", steps: int = 100,
             n_eval = 8
         return Config(model, mlm_loss,
                       lambda bs: synthetic_mlm_batches(bs, **mlm), opt, 16,
-                      "zero1", lambda bs: itertools.islice(
+                      CONFIG_MODES[name], lambda bs: itertools.islice(
                           synthetic_mlm_batches(bs, seed=1, **mlm), n_eval),
                       mlm_token_stats, steps=steps)
     if name != "gpt2_124m":
@@ -284,7 +296,7 @@ def build_config(name: str, preset: str = "full", steps: int = 100,
         return synthetic_token_batches(bs, seq_len=seq, vocab_size=vocab,
                                        seed=seed)
 
-    return Config(model, lm_loss, tokens, opt, 8, "dp",
+    return Config(model, lm_loss, tokens, opt, 8, CONFIG_MODES[name],
                   lambda bs: itertools.islice(tokens(bs, seed=1),
                                               4 if tiny else 8),
                   lm_token_stats, seq, steps)
@@ -401,8 +413,15 @@ def build_parser() -> argparse.ArgumentParser:
                         "steps (multi-process runs)")
     p.add_argument("--on-failure", choices=["stop", "rejoin"],
                    default="stop",
-                   help="on a dead peer: stop checkpoints, then raises; "
-                        "rejoin is not ported")
+                   help="on a dead peer: stop checkpoints, then raises "
+                        "(relaunch the world: it resumes from --ckpt-dir); "
+                        "rejoin also waits for the dead rank's relaunch "
+                        "(--rank-hint), reloads the rescue checkpoint and "
+                        "trains on (--parallel single)")
+    p.add_argument("--rejoin-timeout", type=float, default=300.0,
+                   help="seconds --on-failure rejoin waits for the "
+                        "replacement rank before it gives up (then raises, "
+                        "the checkpoint already committed)")
     p.add_argument("--no-jax-distributed", action="store_true",
                    help=argparse.SUPPRESS)
     return p
@@ -880,21 +899,47 @@ def start_process_group(args, group, device: torch.device) -> None:
                                 world_size=1)
 
 
+def check_rejoin_args(args) -> None:
+    """``--on-failure rejoin``'s argv checks (the JAX CLI's), and the
+    port's counterpart of its ``--no-jax-distributed`` rule: a
+    ``torch.distributed`` group cannot take a restarted process, so a
+    mode that would start one across processes (dp or zero1, unless the
+    world is known to be one process) is refused."""
+    if not args.rejoin_timeout > 0:   # also catches NaN
+        raise SystemExit(f"--rejoin-timeout must be > 0, got "
+                         f"{args.rejoin_timeout}")
+    if not args.coordinator:
+        raise SystemExit("--on-failure rejoin needs --coordinator "
+                         "(failure detection is the coordinator's "
+                         "heartbeat)")
+    if not args.ckpt_dir:
+        raise SystemExit("--on-failure rejoin needs --ckpt-dir: recovery "
+                         "reloads the rescue checkpoint")
+    mode = (CONFIG_MODES[args.config] if args.parallel == "config"
+            else args.parallel)
+    one_process = args.serve_coordinator and args.world_size == 1
+    if mode in ("dp", "zero1") and not one_process:
+        raise SystemExit(f"--on-failure rejoin cannot run mode {mode!r} "
+                         f"across processes: its torch.distributed group "
+                         f"cannot absorb a restarted process mid-run; pass "
+                         f"--parallel single (each process trains alone, "
+                         f"heartbeat-coordinated), or use --on-failure "
+                         f"stop and relaunch the world (training resumes "
+                         f"from --ckpt-dir)")
+
+
 def run(args: argparse.Namespace) -> Dict[str, float]:
     if (torch.device(args.device).type == "cuda"
             and not torch.cuda.is_available()):
         raise SystemExit("no CUDA device: pass --device cpu to train on "
                          "the CPU")
-    if args.on_failure == "rejoin":
-        raise NotPortedError("--on-failure rejoin is not ported (ROADMAP "
-                             "A3.3); use --on-failure stop and "
-                             "relaunch the world, which resumes from "
-                             "--ckpt-dir")
     if args.parallel in ("gspmd", "pp", "sp"):
         raise NotPortedError(f"--parallel {args.parallel} is not ported "
                              f"(ROADMAP A7: tensor, pipeline and sequence "
                              f"parallelism); the port runs single, dp and "
                              f"zero1")
+    if args.on_failure == "rejoin":
+        check_rejoin_args(args)   # before the rendezvous can strand peers
     group, coord = join_world(args)
     # Rank 0 logs, as it prints.
     metrics_log = (MetricsLogger(args.metrics_file) if args.metrics_file
@@ -932,6 +977,14 @@ def _run(args: argparse.Namespace, group,
                        seed=args.seed, device=device,
                        seq_len=args.seq_len, dropout=args.dropout)
     mode = resolve_mode(args, cfg, world)
+    if args.on_failure == "rejoin" and mode not in ("single", "dp"):
+        # The reload goes through Trainer.initialize, which pairs with
+        # the replicated-state modes; ZeRO-1's per-rank chunks recover by
+        # a relaunch of the world.
+        raise SystemExit(f"--on-failure rejoin supports the "
+                         f"replicated-state modes (single/dp); got mode "
+                         f"{mode!r} -- use --on-failure stop with a "
+                         f"relaunch")
     parallel = mode in ("dp", "zero1")
     if parallel:
         start_process_group(args, group, device)
@@ -943,15 +996,20 @@ def _run(args: argparse.Namespace, group,
             return softmax_cross_entropy_with_integer_labels(
                 logits, batch["label"], label_smoothing=eps)
     batch_size = args.batch_size or cfg.default_batch
-    data_world = world if parallel else 1
+    # Single mode: each process trains alone on the whole batch.
+    data_rank, data_world = (rank, world) if parallel else (0, 1)
     if batch_size % data_world:
         raise SystemExit(f"--batch-size {batch_size} must be divisible by "
                          f"the process world size {data_world} (it is the "
                          f"GLOBAL batch; each rank loads batch/world local "
                          f"rows)")
 
+    # Rank 0 logs a parallel run; in single mode each process trains
+    # alone and logs its own run.
+    lead = rank == 0 or not parallel
+
     def log(step: int, metrics: Dict[str, float]) -> None:
-        if rank != 0:
+        if not lead:
             return
         if args.log_memory:
             metrics = {**metrics, **memory_metrics(device)}
@@ -985,10 +1043,12 @@ def _run(args: argparse.Namespace, group,
                       examples_per_step=batch_size, step_fn=step_fn,
                       process_group=group,
                       failure_check_every=args.failure_check_every
-                      if group is not None else 0, tracer=tracer)
+                      if group is not None else 0,
+                      failure_mode=args.on_failure,
+                      rejoin_timeout_s=args.rejoin_timeout, tracer=tracer)
     start_step = trainer.initialize()
     if trainer.last_restore is not None:
-        if rank == 0:
+        if lead:
             print(f"resumed from step {start_step}"
                   + (" (sharded)" if trainer.sharded else ""),
                   file=sys.stderr, flush=True)
@@ -997,7 +1057,7 @@ def _run(args: argparse.Namespace, group,
     with contextlib.ExitStack() as stack:
         # Closed in reverse: the trace, then the prefetcher, then the
         # source under it.
-        source, close_source = data_source(args, cfg, batch_size, rank,
+        source, close_source = data_source(args, cfg, batch_size, data_rank,
                                            data_world)
         if close_source is not None:
             stack.callback(close_source)
@@ -1027,7 +1087,7 @@ def _run(args: argparse.Namespace, group,
                 last = trainer.fit(batches, n)
                 done += n
                 if done < args.steps:
-                    results = run_eval(args, cfg, batch_size, rank,
+                    results = run_eval(args, cfg, batch_size, data_rank,
                                        data_world)
                     if results is not None:
                         log(trainer.global_step, {
@@ -1044,10 +1104,12 @@ def _run(args: argparse.Namespace, group,
     trainer.wait_saves()
     for record in trainer.saves:
         log(record["step"], {"save": record})
+    for record in trainer.rejoins:
+        log(record["step"], {"rejoin": record})
     if args.eval or args.eval_every:
-        results = run_eval(args, cfg, batch_size, rank, data_world)
+        results = run_eval(args, cfg, batch_size, data_rank, data_world)
         if results is not None:
-            if rank == 0:
+            if lead:
                 print(json.dumps({"eval": results}), file=sys.stderr,
                       flush=True)
             last.update({f"eval_{k}": v for k, v in results.items()})

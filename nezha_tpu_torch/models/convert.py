@@ -275,3 +275,237 @@ def load_train_state(flat: Dict[str, np.ndarray], model: torch.nn.Module,
         return out
 
     return fill(opt_state, ())
+
+
+# ------------------------------------------------- Hugging Face weights
+# Counterparts of ``nezha_tpu/models/convert.py``'s Hugging Face half:
+# the same key mapping, onto the port's parameter names (through the JAX
+# paths, :func:`params_from_jax`). They take a state dict and a config
+# object, so this module needs no ``transformers``; ``models/hf.py``
+# loads the checkpoints.
+
+
+def _np(t) -> np.ndarray:
+    if torch.is_tensor(t):
+        return t.detach().cpu().numpy()
+    return np.asarray(t)
+
+
+def gpt2_config_from_hf(hf_config, **overrides):
+    """A ``transformers.GPT2Config`` -> the port's ``GPT2Config``;
+    settings the model cannot express raise ValueError (JAX's checks).
+    ``overrides`` replace fields (``ln_impl``, ...)."""
+    from nezha_tpu_torch.models.gpt2 import GPT2Config
+
+    act = getattr(hf_config, "activation_function", "gelu_new")
+    if act not in ("gelu_new", "gelu_pytorch_tanh"):
+        raise ValueError(f"unsupported activation_function={act!r}; "
+                         "the GPT-2 block uses tanh-approximate GELU")
+    eps = getattr(hf_config, "layer_norm_epsilon", 1e-5)
+    if abs(eps - 1e-5) > 1e-12:
+        raise ValueError(f"unsupported layer_norm_epsilon={eps}; "
+                         "GPT-2 layers use eps=1e-5")
+    for flag in ("scale_attn_by_inverse_layer_idx",
+                 "reorder_and_upcast_attn"):
+        if getattr(hf_config, flag, False):
+            raise ValueError(f"unsupported GPT2Config.{flag}=True")
+    n_inner = getattr(hf_config, "n_inner", None)
+    if n_inner is None:
+        mlp_ratio = 4
+    elif n_inner % hf_config.n_embd == 0:
+        mlp_ratio = n_inner // hf_config.n_embd
+    else:
+        raise ValueError(
+            f"n_inner={n_inner} is not a multiple of n_embd="
+            f"{hf_config.n_embd}; GPT2Config.mlp_ratio cannot express it")
+    return GPT2Config(vocab_size=hf_config.vocab_size,
+                      max_positions=hf_config.n_positions,
+                      num_layers=hf_config.n_layer,
+                      num_heads=hf_config.n_head,
+                      hidden_size=hf_config.n_embd, mlp_ratio=mlp_ratio,
+                      dropout=0.0, **overrides)
+
+
+def _gpt2_hf_paths(num_layers: int) -> Dict[str, str]:
+    """JAX path -> HF key (without the ``transformer.`` prefix); HF's
+    Conv1D stores ``[in, out]``, as ``Linear.w``."""
+    out = {"wte/embedding": "wte.weight", "wpe/embedding": "wpe.weight",
+           "ln_f/scale": "ln_f.weight", "ln_f/bias": "ln_f.bias"}
+    for i in range(num_layers):
+        h = f"h.{i}"
+        for ours, theirs in (("ln_1/scale", "ln_1.weight"),
+                             ("ln_1/bias", "ln_1.bias"),
+                             ("attn/qkv/w", "attn.c_attn.weight"),
+                             ("attn/qkv/b", "attn.c_attn.bias"),
+                             ("attn/proj/w", "attn.c_proj.weight"),
+                             ("attn/proj/b", "attn.c_proj.bias"),
+                             ("ln_2/scale", "ln_2.weight"),
+                             ("ln_2/bias", "ln_2.bias"),
+                             ("mlp/fc/w", "mlp.c_fc.weight"),
+                             ("mlp/fc/b", "mlp.c_fc.bias"),
+                             ("mlp/proj/w", "mlp.c_proj.weight"),
+                             ("mlp/proj/b", "mlp.c_proj.bias")):
+            out[f"h{i}/{ours}"] = f"{h}.{theirs}"
+    return out
+
+
+def gpt2_params_from_hf(state_dict, num_layers: int
+                        ) -> Dict[str, torch.Tensor]:
+    """A ``GPT2LMHeadModel`` (or ``GPT2Model``) state dict -> a
+    ``state_dict`` for :class:`~nezha_tpu_torch.models.gpt2.GPT2` (fp32
+    CPU tensors); the keys may carry the ``transformer.`` prefix or not,
+    and the tied ``lm_head.weight`` is not read."""
+    sd = {k: _np(v) for k, v in state_dict.items()}
+
+    def pre(k):
+        return sd[k if k in sd else f"transformer.{k}"]
+
+    return params_from_jax({path: pre(key) for path, key in
+                            _gpt2_hf_paths(num_layers).items()})
+
+
+def gpt2_from_hf(hf_model, device=None, **overrides):
+    """The port's ``GPT2`` from a ``transformers.GPT2LMHeadModel``: its
+    config, fp32 weights (the default policy, as JAX's), on ``device``
+    (``cuda`` when None)."""
+    from nezha_tpu_torch.models.gpt2 import GPT2
+
+    cfg = gpt2_config_from_hf(hf_model.config, **overrides)
+    model = GPT2(cfg, device=device)
+    model.load_state_dict(gpt2_params_from_hf(hf_model.state_dict(),
+                                              cfg.num_layers))
+    return model
+
+
+def gpt2_params_to_hf(state_dict, num_layers: int
+                      ) -> Dict[str, np.ndarray]:
+    """A GPT-2 ``state_dict`` -> the HF ``transformer.*`` key layout and
+    the tied ``lm_head.weight`` (fp32 numpy)."""
+    flat = params_to_jax(state_dict)
+    out = {f"transformer.{key}": flat[path] for path, key in
+           _gpt2_hf_paths(num_layers).items()}
+    out["lm_head.weight"] = flat["wte/embedding"]
+    return out
+
+
+def bert_config_from_hf(hf_config, **overrides):
+    """A ``transformers.BertConfig`` -> the port's ``BertConfig`` (JAX's
+    checks)."""
+    from nezha_tpu_torch.models.bert import BertConfig
+
+    act = getattr(hf_config, "hidden_act", "gelu")
+    if act != "gelu":
+        raise ValueError(f"unsupported hidden_act={act!r}; "
+                         "the BERT block uses erf GELU")
+    if hf_config.intermediate_size % hf_config.hidden_size:
+        raise ValueError(
+            f"intermediate_size={hf_config.intermediate_size} is not a "
+            f"multiple of hidden_size={hf_config.hidden_size}")
+    return BertConfig(
+        vocab_size=hf_config.vocab_size,
+        max_positions=hf_config.max_position_embeddings,
+        type_vocab_size=hf_config.type_vocab_size,
+        num_layers=hf_config.num_hidden_layers,
+        num_heads=hf_config.num_attention_heads,
+        hidden_size=hf_config.hidden_size,
+        mlp_ratio=hf_config.intermediate_size // hf_config.hidden_size,
+        dropout=0.0, ln_eps=hf_config.layer_norm_eps, **overrides)
+
+
+_BERT_LINEARS = (("attn_out", "attention.output.dense"),
+                 ("fc", "intermediate.dense"), ("fc_out", "output.dense"))
+_BERT_NORMS = (("attn_ln", "attention.output.LayerNorm"),
+               ("out_ln", "output.LayerNorm"))
+
+
+def bert_params_from_hf(state_dict, num_layers: int
+                        ) -> Dict[str, torch.Tensor]:
+    """A ``BertForMaskedLM`` state dict -> a ``state_dict`` for
+    :class:`~nezha_tpu_torch.models.bert.Bert` (fp32 CPU tensors): torch
+    ``Linear`` weights (``[out, in]``) transposed, q/k/v concatenated
+    into the fused qkv."""
+    sd = {k: _np(v) for k, v in state_dict.items()}
+    flat = {}
+
+    def lin(path, key):
+        flat[f"{path}/w"] = sd[f"{key}.weight"].T
+        flat[f"{path}/b"] = sd[f"{key}.bias"]
+
+    def ln(path, key):
+        flat[f"{path}/scale"] = sd[f"{key}.weight"]
+        flat[f"{path}/bias"] = sd[f"{key}.bias"]
+
+    emb = "bert.embeddings"
+    flat["tok_emb/embedding"] = sd[f"{emb}.word_embeddings.weight"]
+    flat["pos_emb/embedding"] = sd[f"{emb}.position_embeddings.weight"]
+    flat["type_emb/embedding"] = sd[f"{emb}.token_type_embeddings.weight"]
+    ln("emb_ln", f"{emb}.LayerNorm")
+    lin("mlm_dense", "cls.predictions.transform.dense")
+    ln("mlm_ln", "cls.predictions.transform.LayerNorm")
+    flat["mlm_bias"] = sd["cls.predictions.bias"]
+    for i in range(num_layers):
+        L = f"bert.encoder.layer.{i}"
+        q, k, v = (f"{L}.attention.self.{n}" for n in ("query", "key",
+                                                       "value"))
+        flat[f"layers{i}/qkv/w"] = np.concatenate(
+            [sd[f"{n}.weight"].T for n in (q, k, v)], axis=1)
+        flat[f"layers{i}/qkv/b"] = np.concatenate(
+            [sd[f"{n}.bias"] for n in (q, k, v)])
+        for ours, theirs in _BERT_LINEARS:
+            lin(f"layers{i}/{ours}", f"{L}.{theirs}")
+        for ours, theirs in _BERT_NORMS:
+            ln(f"layers{i}/{ours}", f"{L}.{theirs}")
+    return bert_from_jax(flat)
+
+
+def bert_from_hf(hf_model, device=None, **overrides):
+    """The port's ``Bert`` from a ``transformers.BertForMaskedLM`` (fp32
+    weights, on ``device``)."""
+    from nezha_tpu_torch.models.bert import Bert
+
+    cfg = bert_config_from_hf(hf_model.config, **overrides)
+    model = Bert(cfg, device=device)
+    model.load_state_dict(bert_params_from_hf(hf_model.state_dict(),
+                                              cfg.num_layers))
+    return model
+
+
+def bert_params_to_hf(state_dict, num_layers: int, hidden_size: int
+                      ) -> Dict[str, np.ndarray]:
+    """The inverse of :func:`bert_params_from_hf`, in the
+    ``BertForMaskedLM`` key layout (fp32 numpy), with the tied decoder's
+    weight and bias written again under its own keys, as HF does."""
+    flat = bert_to_jax(state_dict)
+    out = {}
+
+    def put_lin(key, path):
+        out[f"{key}.weight"] = np.ascontiguousarray(flat[f"{path}/w"].T)
+        out[f"{key}.bias"] = flat[f"{path}/b"]
+
+    def put_ln(key, path):
+        out[f"{key}.weight"] = flat[f"{path}/scale"]
+        out[f"{key}.bias"] = flat[f"{path}/bias"]
+
+    emb = "bert.embeddings"
+    out[f"{emb}.word_embeddings.weight"] = flat["tok_emb/embedding"]
+    out[f"{emb}.position_embeddings.weight"] = flat["pos_emb/embedding"]
+    out[f"{emb}.token_type_embeddings.weight"] = flat["type_emb/embedding"]
+    out["cls.predictions.bias"] = flat["mlm_bias"]
+    out["cls.predictions.decoder.weight"] = flat["tok_emb/embedding"]
+    out["cls.predictions.decoder.bias"] = flat["mlm_bias"]
+    put_ln(f"{emb}.LayerNorm", "emb_ln")
+    put_lin("cls.predictions.transform.dense", "mlm_dense")
+    put_ln("cls.predictions.transform.LayerNorm", "mlm_ln")
+    h = hidden_size
+    for i in range(num_layers):
+        L = f"bert.encoder.layer.{i}"
+        w, b = flat[f"layers{i}/qkv/w"], flat[f"layers{i}/qkv/b"]
+        for j, name in enumerate(("query", "key", "value")):
+            out[f"{L}.attention.self.{name}.weight"] = \
+                np.ascontiguousarray(w[:, j * h:(j + 1) * h].T)
+            out[f"{L}.attention.self.{name}.bias"] = b[j * h:(j + 1) * h]
+        for ours, theirs in _BERT_LINEARS:
+            put_lin(f"{L}.{theirs}", f"layers{i}/{ours}")
+        for ours, theirs in _BERT_NORMS:
+            put_ln(f"{L}.{theirs}", f"layers{i}/{ours}")
+    return out

@@ -21,7 +21,10 @@ over the sequence as well (:mod:`.seq_prefill`, ulysses or ring).
 ``devices`` names the mesh's devices and may repeat one (``[cuda:0] *
 4`` runs four shards on one card, one after another); None takes the
 visible cards on ``cuda`` and the CPU repeated on ``cpu`` — never one
-card repeated on its own.
+card repeated on its own. ``shards`` takes parameters already placed on
+that mesh (:func:`~.reshard.reshard_checkpoint`), so a checkpoint's
+weights are never gathered whole on one device: ``model`` then gives
+the structure, and its replicated parameters are set from shard 0.
 
 Not ported (each refused or absent, see ROADMAP): speculative decoding
 under the mesh, migration's gather-on-export, the ``obs`` gauges and
@@ -47,7 +50,8 @@ class ShardedEngine(Engine):
     _seq_prefill_capable = True
 
     def __init__(self, model, cfg: ServeConfig = ServeConfig(), *,
-                 mesh_devices: int, devices: Optional[Sequence] = None):
+                 mesh_devices: int, devices: Optional[Sequence] = None,
+                 shards: Optional[Sequence[dict]] = None):
         m = int(mesh_devices)
         if m < 1:
             raise ValueError(f"mesh_devices must be >= 1, got {m}")
@@ -82,8 +86,12 @@ class ShardedEngine(Engine):
                 f"mesh_devices={m}: K/V pools shard on the head axis")
         self.mesh_devices = m
         self._rules = serve_tp_rules(model.cfg, m)
+        if shards is not None and len(shards) != m:
+            raise ValueError(f"{len(shards)} placed shards for a mesh of "
+                             f"{m}")
         super().__init__(ShardedGPT2(model, self.mesh, self._rules,
-                                     seq_variant=self._seq_variant), cfg)
+                                     seq_variant=self._seq_variant,
+                                     shards=shards), cfg)
 
     # ------------------------------------------------------------- hooks
     def _make_paged_pool(self, model_cfg) -> ShardedPagedSlotPool:

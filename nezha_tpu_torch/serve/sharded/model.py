@@ -182,18 +182,28 @@ class _ShardedBlock(Block):
 class ShardedGPT2(GPT2):
     """Inference-only GPT-2 over ``mesh``: ``model``'s parameters placed
     per ``rules`` (:func:`~.reshard.serve_tp_rules`) into :attr:`shards`
-    (one ``{name: tensor}`` per shard). Called like the model's
+    (one ``{name: tensor}`` per shard), or ``shards`` already placed so,
+    whose replicated parameters are then copied into ``model``'s
+    modules, which the forward runs. Called like the model's
     paged-cache forward — ``(tokens, cache=rows, pos=..., active=...)``
     -> fp32 logits on the model's device — where ``rows[layer]`` is
     ``{"shards": [shard r's cache dict, ...]}``."""
 
     def __init__(self, model: GPT2, mesh: Mesh,
                  rules: Sequence[Tuple[str, Split]],
-                 seq_variant: Optional[str] = None):
+                 seq_variant: Optional[str] = None,
+                 shards: Optional[Sequence[dict]] = None):
         nn.Module.__init__(self)    # GPT2.__init__ would draw new weights
         self.cfg, self.policy, self.mesh = model.cfg, model.policy, mesh
-        self.shards = place_variables(dict(model.named_parameters()), mesh,
-                                      rules)
+        if shards is None:
+            shards = place_variables(dict(model.named_parameters()), mesh,
+                                     rules)
+        else:
+            with torch.no_grad():
+                for name, p in model.named_parameters():
+                    if rule_for(name, rules).axis is None:
+                        p.copy_(shards[0][name])
+        self.shards = list(shards)
         pol = model.policy
         self.wte = (ShardedEmbedding([p["wte.embedding"]
                                       for p in self.shards], mesh, pol)

@@ -14,6 +14,7 @@ from __future__ import annotations
 
 import hashlib
 import os
+import sys
 import time
 from typing import Callable, Dict, Iterator, Optional
 
@@ -89,9 +90,8 @@ def make_train_step(model: torch.nn.Module, optimizer: Optimizer,
 
 
 # Trainer options of the JAX package not ported yet, with the value that
-# means "off" (rejoin, custom sharding and save functions).
-_NOT_PORTED = {"rejoin_timeout_s": 300.0, "recover_fn": None,
-               "shard_fn": None, "save_fn": None, "save_wait": None}
+# means "off" (custom sharding and save functions).
+_NOT_PORTED = {"shard_fn": None, "save_fn": None, "save_wait": None}
 
 
 def prng_key(seed: int) -> np.ndarray:
@@ -141,10 +141,14 @@ class Trainer:
     ProcessGroup`) is polled every ``failure_check_every`` steps for dead
     peers; on one the trainer saves (with ``checkpoint_dir``), then calls
     ``on_failure(failed)`` or raises RuntimeError naming the ranks
-    (``failure_mode="stop"``). ``tracer`` (an
-    :class:`~nezha_tpu_torch.obs.trace.Tracer`) is told the global step
-    after every step (``maybe_trace``). ``"rejoin"`` and custom sharding
-    or save functions raise :class:`NotPortedError`."""
+    (``failure_mode="stop"``). With ``failure_mode="rejoin"`` (which needs
+    ``checkpoint_dir`` and excludes ``on_failure``) it saves, then waits
+    up to ``rejoin_timeout_s`` for the coordinator to report no dead rank
+    (a replacement's join clears the mark), reloads the rescue
+    checkpoint through :meth:`initialize` (or calls ``recover_fn``) and
+    trains on. ``tracer`` (an :class:`~nezha_tpu_torch.obs.trace.Tracer`)
+    is told the global step after every step (``maybe_trace``). Custom
+    sharding or save functions raise :class:`NotPortedError`."""
 
     def __init__(self, model: torch.nn.Module, optimizer: Optimizer,
                  loss_fn: Callable, rng=None,
@@ -156,22 +160,32 @@ class Trainer:
                  step_fn: Optional[TrainStep] = None, process_group=None,
                  failure_check_every: int = 0,
                  on_failure: Optional[Callable[[list], None]] = None,
-                 failure_mode: str = "stop", tracer=None, **options):
+                 failure_mode: str = "stop", rejoin_timeout_s: float = 300.0,
+                 recover_fn: Optional[Callable[[], None]] = None,
+                 tracer=None, **options):
         for name, value in options.items():
             if name not in _NOT_PORTED:
                 raise TypeError(f"Trainer got an unexpected option {name!r}")
             if value != _NOT_PORTED[name]:
                 raise NotPortedError(f"Trainer option {name} is not ported "
-                                     f"(ROADMAP A3.3: rejoin; A7: custom "
-                                     f"sharding and save functions)")
-        if failure_mode == "rejoin":
-            raise NotPortedError(
-                "failure_mode='rejoin' is not ported (ROADMAP A3.3: "
-                "--on-failure rejoin); use 'stop' and relaunch the "
-                "world, which resumes from the checkpoint")
-        if failure_mode != "stop":
+                                     f"(ROADMAP A7: custom sharding and "
+                                     f"save functions)")
+        if failure_mode not in ("stop", "rejoin"):
             raise ValueError(f"failure_mode must be stop|rejoin, got "
                              f"{failure_mode!r}")
+        if failure_mode == "rejoin":
+            if not checkpoint_dir:
+                raise ValueError("failure_mode='rejoin' needs a "
+                                 "checkpoint_dir: recovery reloads the "
+                                 "rescue checkpoint")
+            if on_failure is not None:
+                raise ValueError("failure_mode='rejoin' and on_failure are "
+                                 "mutually exclusive (rejoin continues "
+                                 "in-process; the callback would never "
+                                 "fire)")
+        self.failure_mode = failure_mode
+        self.rejoin_timeout_s = rejoin_timeout_s
+        self.recover_fn = recover_fn
         self.model = model
         self.step_fn = step_fn if step_fn is not None else make_train_step(
             model, optimizer, loss_fn)
@@ -203,6 +217,11 @@ class Trainer:
         # wait_saves), and of the restore.
         self.saves: list = []
         self.last_restore = None
+        # Each heal: {"step", "failed", "detect_step", "detected_at" (the
+        # wall clock when the dead peer was seen), "wait_s", "reload_s"}
+        # (the seconds waited for the replacement and those of the
+        # reload).
+        self.rejoins: list = []
 
     def state_dict(self) -> Dict[str, np.ndarray]:
         """The flat JAX-keyed train state (host copies) of a dense step."""
@@ -301,18 +320,60 @@ class Trainer:
                 self.saves[-1]["write_seconds"] = \
                     self._async.last_write_seconds
 
-    def _check_peers(self) -> None:
+    def _check_peers(self) -> bool:
+        """Poll for dead peers; -> True when the world was healed (the
+        rescue checkpoint reloaded), False when every peer is alive."""
         failed = self.process_group.failed_ranks()
         if not failed:
-            return
+            return False
+        detected_at = time.time()
         if self.checkpoint_dir:   # keep the progress first
             self.save(self.global_step)
             self.wait_saves()
+        if self.failure_mode == "rejoin":   # checkpoint_dir guaranteed
+            self._rejoin_and_reload(failed, detected_at)
+            return True
         if self.on_failure is not None:
             self.on_failure(failed)
         else:
             raise RuntimeError(f"peer rank(s) {failed} failed at step "
                                f"{self.global_step}")
+        return False
+
+    def _rejoin_and_reload(self, failed: list, detected_at: float) -> None:
+        """The survivor's half of elastic recovery, after the rescue save
+        has committed: poll every 0.2 s until the coordinator reports no
+        dead rank (a replacement's join clears the mark), then reload the
+        rescue checkpoint, so survivor and replacement go on from one step
+        with the same state. Raises RuntimeError when no replacement joins
+        within ``rejoin_timeout_s``."""
+        step = self.global_step
+        print(f"peer rank(s) {failed} failed at step {step}; checkpoint "
+              f"committed; waiting for rejoin (timeout "
+              f"{self.rejoin_timeout_s:.0f}s)", file=sys.stderr, flush=True)
+        t0 = time.monotonic()
+        deadline = t0 + self.rejoin_timeout_s
+        while True:
+            still = self.process_group.failed_ranks()
+            if not still:
+                break
+            if time.monotonic() > deadline:
+                raise RuntimeError(
+                    f"peer rank(s) {still} failed at step {step}; no "
+                    f"replacement rejoined within "
+                    f"{self.rejoin_timeout_s:.0f}s")
+            time.sleep(0.2)
+        t1 = time.monotonic()
+        if self.recover_fn is not None:
+            self.recover_fn()
+        else:
+            self.initialize(resume=True)
+        self.rejoins.append({"step": self.global_step, "failed": failed,
+                             "detect_step": step, "detected_at": detected_at,
+                             "wait_s": t1 - t0,
+                             "reload_s": time.monotonic() - t1})
+        print(f"world healed; resumed from step {self.global_step}",
+              file=sys.stderr, flush=True)
 
     def fit(self, batches: Iterator[dict], steps: int) -> Dict[str, float]:
         last: Dict[str, float] = {}
@@ -336,8 +397,11 @@ class Trainer:
             if self.tracer is not None:
                 self.tracer.maybe_trace(self.global_step)
             if (self.failure_check_every and self.process_group is not None
-                    and self.global_step % self.failure_check_every == 0):
-                self._check_peers()
+                    and self.global_step % self.failure_check_every == 0
+                    and self._check_peers()):
+                # Rate windows do not count the heal wait.
+                window_start, window_steps = time.perf_counter(), 0
+                continue
             if self.log_every and self.global_step % self.log_every == 0:
                 last = {k: float(v) for k, v in metrics.items()}
                 now = time.perf_counter()

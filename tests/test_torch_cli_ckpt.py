@@ -13,8 +13,9 @@ on the CPU at the tiny presets, against the JAX CLIs:
   since two workers' batches interleave in arrival order;
 - generate and serve from a JAX-written checkpoint with ``--tokenizer``
   give JAX's greedy tokens and ``text``;
-- ``--hf-dir``, per-shard, graph-engine and scan-layer checkpoints are
-  refused with ``NotPortedError``.
+- graph-engine and scan-layer checkpoints (npz or per-shard) are
+  refused with ``NotPortedError``, and an ``--hf-dir`` without a saved
+  model exits naming it.
 """
 
 import io
@@ -230,8 +231,12 @@ def test_unported_sources_and_layouts_are_refused_typed(tmp_path, layout):
     argv = ["--ckpt-dir", str(d), "--model-preset", "tiny",
             "--prompt-tokens", "1,2"]
     if layout == "hf":
+        # --hf-dir is ported: a directory without a saved model exits,
+        # naming it.
         argv[:2] = ["--hf-dir", str(d)]
-        match = "transformers"
+        with pytest.raises(SystemExit, match=f"--hf-dir {d}"):
+            _port_generate(argv)
+        return
     elif layout == "sharded":
         # Per-shard saves are read now; a --scan-layers trunk in one is
         # refused as in the npz layout.

@@ -327,15 +327,15 @@ def test_cli_greedy_matches_jax_cli(monkeypatch, capsys):
 
 @pytest.mark.parametrize("flag,error", [
     (["--ckpt-dir", "runs/x"], SystemExit),
-    (["--hf-dir", "hf/x"], NotPortedError),
+    (["--hf-dir", "hf/x"], SystemExit),
     (["--random-init", "--tokenizer", "tok"], SystemExit)])
 def test_cli_refuses_unported_sources(flag, error):
-    """--hf-dir is refused typed (it needs transformers); a checkpoint or
-    tokenizer directory that does not exist exits, naming it."""
+    """A checkpoint, Hugging Face or tokenizer directory that does not
+    exist exits, naming it (--hf-dir is ported: a missing directory is
+    never taken for a hub name)."""
     args = cli_generate.build_parser().parse_args(
         flag + ["--prompt-tokens", "1,2", "--device", "cpu"])
-    with pytest.raises(error, match=flag[-2] if error is NotPortedError
-                       else flag[-1]):
+    with pytest.raises(error, match=flag[-1]):
         cli_generate.run(args)
 
 
@@ -355,6 +355,8 @@ def test_cli_end_to_end_on_cpu():
     assert all(len(s["tokens"]) == 5 and "text" in s
                for s in out["samples"])
     proc = subprocess.run(cmd[:3] + ["--hf-dir", "x", "--prompt-tokens",
-                                     "1"], capture_output=True, text=True,
+                                     "1", "--device", "cpu"],
+                          capture_output=True, text=True,
                           timeout=120, cwd=ROOT)
-    assert proc.returncode != 0 and "not ported" in proc.stderr
+    assert proc.returncode != 0 and "--hf-dir x: no such directory" in \
+        proc.stderr

@@ -70,7 +70,11 @@ def test_the_guard_sees_the_port_and_catches_an_import():
 
 # The data path, checkpoints and the CLIs around them. The port depends
 # on torch and numpy alone: none of it imports ``regex`` (the JAX
-# tokenizer's) or ``transformers`` (the JAX ``--hf-dir`` path's).
+# tokenizer's) or ``transformers`` (the ``--hf-dir`` path's), except the
+# one module that reads and writes Hugging Face checkpoints. The card
+# has transformers 5.5.0 and this machine 4.57, so its use stays in that
+# module, imported only when called.
+TRANSFORMERS_ALLOWED = (os.path.join("nezha_tpu_torch", "models", "hf.py"),)
 DATA_PATH_MODULES = ("data/tokenizer.py", "data/bpe_train.py",
                      "data/pack.py", "data/native.py", "data/mlm.py",
                      "train/checkpoint.py", "cli/pack_text.py")
@@ -85,8 +89,10 @@ def test_data_path_modules_are_guarded(rel):
 def test_port_file_needs_no_package_the_card_lacks(rel):
     with open(os.path.join(ROOT, rel)) as f:
         tree = ast.parse(f.read(), filename=rel)
+    banned = ("regex",) if rel in TRANSFORMERS_ALLOWED else (
+        "regex", "transformers")
     bad = [(line, mod) for line, mod in _imported_roots(tree)
-           if mod in ("regex", "transformers")]
+           if mod in banned]
     assert not bad, f"{rel} imports {bad}"
 
 

@@ -38,9 +38,9 @@ from nezha_tpu_torch.cli import serve as serve_cli
 from nezha_tpu_torch.models import GPT2, GPT2Config, params_from_jax
 from nezha_tpu_torch.parallel import (all_to_all, make_mesh, pmax, ppermute,
                                       psum, ring_perm)
-from nezha_tpu_torch.serve import (Engine, NotPortedError, Request,
-                                   Scheduler, ServeConfig, ShardedEngine)
-from nezha_tpu_torch.serve.sharded import (place_variables,
+from nezha_tpu_torch.serve import (Engine, Request, Scheduler,
+                                   ServeConfig, ShardedEngine)
+from nezha_tpu_torch.serve.sharded import (ReshardError, place_variables,
                                            reshard_checkpoint,
                                            serve_tp_rules)
 
@@ -147,7 +147,9 @@ def test_place_variables_reassembles_with_head_grouped_qkv(vocab):
             assert torch.equal(torch.cat(parts, full.dim() - 1), full), name
         else:
             assert all(p.data_ptr() == full.data_ptr() for p in parts), name
-    with pytest.raises(NotPortedError):
+    # reshard_checkpoint is ported (tests/test_torch_reshard.py): a
+    # directory with no checkpoint is its typed refusal.
+    with pytest.raises(ReshardError, match="no training checkpoint"):
         reshard_checkpoint("ckpt", model, mesh)
 
 

@@ -321,8 +321,7 @@ def test_cli_refuses_unported_flags_and_configs():
     from nezha_tpu_torch.cli.train import main, parse_args
 
     assert parse_args(["--config", "gpt2_124m"]).device == "cuda"
-    for argv in (["--run-dir=/x"], ["--remat"], ["--rejoin-timeout",
-                                                      "5"],
+    for argv in (["--run-dir=/x"], ["--remat"], ["--scan-layers"],
                  ["--no-jax-distributed"], ["--world-size", "0"],
                  ["--serve-coordinator"]):
         with pytest.raises(SystemExit):
@@ -330,16 +329,24 @@ def test_cli_refuses_unported_flags_and_configs():
     assert parse_args(["--config", "gpt2_124m",
                        "--ckpt-dir=/x"]).ckpt_dir == "/x"
     # The parallel flags parse; tensor, pipeline and sequence parallelism
-    # and --on-failure rejoin are refused typed (main exits naming them).
+    # are refused typed (main exits naming them). --on-failure rejoin and
+    # --rejoin-timeout are ported: they parse, and rejoin without a
+    # coordinator exits with JAX's check.
     args = parse_args(["--config", "bert_base_zero1", "--parallel",
                        "zero1", "--mesh", "dp=1", "--grad-allreduce",
                        "int8", "--on-failure", "stop"])
     assert (args.parallel, args.mesh, args.grad_allreduce) == \
         ("zero1", "dp=1", "int8")
     for argv in (["--parallel", "gspmd"], ["--parallel", "pp"],
-                 ["--parallel", "sp"], ["--on-failure", "rejoin"]):
+                 ["--parallel", "sp"]):
         with pytest.raises(SystemExit, match="not ported"):
             main(["--config", "gpt2_124m", "--device", "cpu"] + argv)
+    args = parse_args(["--config", "gpt2_124m", "--on-failure", "rejoin",
+                       "--rejoin-timeout", "5"])
+    assert (args.on_failure, args.rejoin_timeout) == ("rejoin", 5.0)
+    with pytest.raises(SystemExit, match="needs --coordinator"):
+        main(["--config", "gpt2_124m", "--device", "cpu", "--on-failure",
+              "rejoin"])
     # The MLM mask-token flag without --data-dir is refused, as in JAX.
     with pytest.raises(SystemExit):
         parse_args(["--config", "bert_base_zero1", "--mlm-mask-token",
@@ -358,11 +365,19 @@ def test_unported_model_knobs_raise(knob):
 
 def test_unported_trainer_options_and_loss_chunk_raise():
     model = GPT2(GPT2Config(**TINY_GPT2_KW), device="cpu")
-    for opt in ({"rejoin_timeout_s": 5.0}, {"shard_fn": lambda b: b},
-                {"save_fn": lambda *a: None}, {"recover_fn": lambda: None},
-                {"failure_mode": "rejoin"}):
+    for opt in ({"shard_fn": lambda b: b}, {"save_fn": lambda *a: None},
+                {"save_wait": lambda: None}):
         with pytest.raises(NotPortedError):
             Trainer(model, optim.adamw(LR), lm_loss, **opt)
+    # Ported: rejoin with its timeout and recovery hook (it needs a
+    # checkpoint dir, as in JAX).
+    trainer = Trainer(model, optim.adamw(LR), lm_loss,
+                      failure_mode="rejoin", checkpoint_dir="ck",
+                      rejoin_timeout_s=5.0, recover_fn=lambda: None)
+    assert (trainer.failure_mode, trainer.rejoin_timeout_s) == ("rejoin",
+                                                                5.0)
+    with pytest.raises(ValueError, match="needs a checkpoint_dir"):
+        Trainer(model, optim.adamw(LR), lm_loss, failure_mode="rejoin")
     # Ported: a custom step, a coordinator group polled for failures.
     step = make_train_step(model, optim.adamw(LR), lm_loss)
     trainer = Trainer(model, optim.adamw(LR), lm_loss, step_fn=step,

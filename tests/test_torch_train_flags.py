@@ -43,8 +43,9 @@ def _port_train(argv):
 
 def test_ported_flags_parse_with_jax_defaults():
     assert not set(PORTED) & train_cli.NOT_PORTED_FLAGS
-    assert {"--run-dir", "--rejoin-timeout", "--remat", "--engine",
-            "--scan-layers", "--microbatches"} <= train_cli.NOT_PORTED_FLAGS
+    assert {"--run-dir", "--remat", "--engine", "--scan-layers",
+            "--microbatches"} <= train_cli.NOT_PORTED_FLAGS
+    assert "--rejoin-timeout" not in train_cli.NOT_PORTED_FLAGS
     mine = train_cli.parse_args(["--config", "gpt2_124m"])
     theirs = jax_train_cli.build_parser().parse_args(["--config",
                                                       "gpt2_124m"])
