@@ -438,6 +438,21 @@ GEN_B, GEN_PROMPT, GEN_NEW = 8, 512, 256
 DEC_L = 1024                      # the dense decode check's cache length
 LN_D = 768
 SEQ_MESH = 4                      # serve_seq's shards, all on one card
+# serve_modes: new tokens a request, proposals a verify window, the
+# shallow self-draft's depth, verify/decode forwards timed a row, the
+# identity draft's least tokens a verify (32 tokens are 7 windows of at
+# most 5 when every proposal is taken: 4.57; it drafts with B7 and
+# verifies by the composed path, so near-ties round apart, and random
+# weights give flat logits: the floor only catches a draft that stopped
+# agreeing with its target), and
+# JAX's grant order of a full three-lane backlog under the default 4:2:1
+# weights.
+MODES_NEW = 32
+SPEC_K, SPEC_DRAFT_LAYERS = 4, 4
+VERIFY_CALLS, VERIFY_DEVICE_CALLS = 20, 10
+SPEC_MIN_TOKENS_PER_VERIFY = 2.0
+WFQ_ORDER = ["interactive", "batch", "background", "interactive",
+             "interactive", "batch", "interactive"]
 
 H, D, BS, M = 12, 64, 16, 64
 
@@ -3327,17 +3342,21 @@ def serve(card: str, kv_dtype: str = "bf16"):
 
 
 def zero_serve_launches() -> None:
-    from nezha_tpu_torch.ops.cuda import (paged_decode_attention,
+    """Zero every count ``Engine.kernel_launches`` reads."""
+    from nezha_tpu_torch.ops.cuda import (flash_decode_attention,
+                                          paged_decode_attention,
                                           paged_prefill_attention,
                                           paged_prefill_qoff_attention,
                                           paged_quant_decode_attention,
                                           paged_quant_prefill_attention)
+    from nezha_tpu_torch.ops.cuda.flash_attention import LAUNCHES
 
     for wrapper in (paged_decode_attention, paged_prefill_attention,
                     paged_prefill_qoff_attention,
                     paged_quant_decode_attention,
-                    paged_quant_prefill_attention):
+                    paged_quant_prefill_attention, flash_decode_attention):
         wrapper.launches = 0
+    LAUNCHES["flash_fwd"] = 0
 
 
 def serve_seq(card: str):
@@ -3391,7 +3410,8 @@ def serve_seq(card: str):
         per_layer = m * layers
         chunks, steps = engine.prefill_chunks, engine.step_calls
         int8 = kv_dtype == "int8"
-        want = {"paged_decode": 0 if int8 else per_layer * steps,
+        want = {"flash_decode": 0, "flash_fwd": 0,
+                "paged_decode": 0 if int8 else per_layer * steps,
                 "paged_quant_decode": per_layer * steps if int8 else 0,
                 "paged_prefill": (per_layer * chunks
                                   if variant == "ulysses" and not int8
@@ -3458,6 +3478,313 @@ def serve_seq(card: str):
         "requests": len(prompts), "cold_prefill_widths": widths}}),
         flush=True)
     return runs
+
+
+def modes_config(**kw):
+    """serve_modes' engine shape: the serve phase's (8 slots, 1024
+    positions, 256-wide chunks, blocks of 16)."""
+    from nezha_tpu_torch.serve import ServeConfig
+    return ServeConfig(**{**dict(max_batch_size=8, max_len=1024,
+                                 max_prefill_len=256, kv_block_size=16),
+                          **kw})
+
+
+def modes_run(model, cfg, tag: str, card: str):
+    """The serve phase's eight greedy requests (32 new tokens each)
+    through Scheduler on an Engine of ``cfg``: every request finishes,
+    both pools' books balance, and cross_check holds each token. ->
+    (engine, launches, stats)."""
+    from nezha_tpu_torch.serve import (Engine, FinishReason, Request,
+                                       Scheduler)
+
+    engine = Engine(model, cfg)
+    sched = Scheduler(engine)
+    reqs = [Request(prompt=p, max_new_tokens=MODES_NEW, request_id=f"r{i}")
+            for i, p in enumerate(serve_prompts(model.cfg.vocab_size))]
+    torch.cuda.synchronize()
+    zero_serve_launches()
+    t0 = time.perf_counter()
+    for r in reqs:
+        sched.submit(r)
+    sched.run_until_idle(max_iters=10_000)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = engine.kernel_launches()
+    if sched.has_work():
+        fail(f"{tag}: the scheduler did not drain")
+    for r in reqs:
+        res = sched.results[r.request_id]
+        if res.finish_reason not in (FinishReason.LENGTH, FinishReason.EOS):
+            fail(f"{tag} {r.request_id} finished {res.finish_reason}: "
+                 f"{res.error}")
+    engine.pool.leak_check()                # and the draft pool's
+    stats = {"serve_wall_s": wall, "step_calls": engine.step_calls,
+             "prefill_chunks": engine.prefill_chunks,
+             "tokens": sum(len(sched.results[r.request_id].tokens)
+                           for r in reqs),
+             "ttft_s": [sched.results[r.request_id].ttft_s for r in reqs],
+             "launches": launches, "card": card}
+    if engine.spec is not None:
+        v = engine.spec_verifies
+        stats.update(verifies=v, draft_tokens=engine.spec_draft_tokens,
+                     accepted=engine.spec_accepted,
+                     tokens_per_verify=(engine.spec_accepted + v) / v,
+                     accept_rate=(engine.spec_accepted
+                                  / engine.spec_draft_tokens))
+    cross_check(model, sched, reqs,
+                INT8_SERVE_LOGIT_ATOL if cfg.kv_dtype == "int8"
+                else SERVE_LOGIT_ATOL)
+    return engine, launches, stats     # stats' counts from before it
+
+
+def expect_launches(tag: str, launches: dict, want: dict) -> None:
+    """The run launched exactly ``want`` (kernels not named: none)."""
+    full = {k: want.get(k, 0) for k in launches}
+    if launches != full:
+        fail(f"{tag}: launches {launches}, expected {full}")
+
+
+@torch.no_grad()
+def time_verify(engine, card: str) -> dict:
+    """The verify forward (draft_k + 1 tokens a row) against the target's
+    single-token decode forward (B7) and one draft decode forward, over
+    the eight prompts prefilled into their slots: ms a call by CUDA
+    events around back-to-back calls (host included). A forward launches
+    more kernels than the device's launch queue holds, so the kernel
+    rows' spin-ahead timer cannot take it whole; it takes one layer's
+    attention instead: the verify's composed path against B7 on the
+    same rows and pool, device ms with no host gap inside."""
+    from nezha_tpu_torch.models.gpt2 import _gathered_attention
+    from nezha_tpu_torch.ops.cuda import paged_decode_attention
+
+    cfg, k = engine.cfg, engine.spec.draft_k
+    prompts = serve_prompts(engine.vocab)
+    slots = []
+    for p in prompts:
+        slots.append(engine.pool.alloc())
+        engine.prefill(slots[-1], p, max_new_tokens=MODES_NEW)
+    active = np.zeros((cfg.max_batch_size,), bool)
+    active[slots] = True
+    engine._bind_decode_windows(active, k + 1,
+                                (engine.pool, engine.draft_pool))
+    act = torch.as_tensor(active, device="cuda")
+    rows = engine._cache_rows(engine.pool)
+    drows = engine._cache_rows(engine.draft_pool)
+    pos = engine.positions
+    b, mc = cfg.max_batch_size, engine.model.cfg
+    win = torch.randint(0, engine.vocab, (b, k + 1), device="cuda")
+    calls = {
+        "verify": lambda: engine.model(win, cache=rows, pos=pos, active=act),
+        "target_decode": lambda: engine.model(win[:, :1], cache=rows,
+                                              pos=pos, active=act),
+        "draft_decode": lambda: engine.draft_model(win[:, :1], cache=drows,
+                                                   pos=pos, active=act)}
+    out = {"rows": len(slots), "window": k + 1,
+           "context": [len(p) for p in prompts], "card": card}
+    for name, fn in calls.items():
+        for _ in range(3):
+            fn()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(VERIFY_CALLS):
+            fn()
+        end.record()
+        end.synchronize()
+        out[f"{name}_forward_ms"] = start.elapsed_time(end) / VERIFY_CALLS
+    layer = rows[0]
+    q = torch.randn(b, mc.num_heads, k + 1, mc.hidden_size // mc.num_heads,
+                    device="cuda", dtype=torch.bfloat16)
+    lengths = (pos + 1).int()
+    attn = {
+        "verify_attention": lambda: _gathered_attention(
+            q, layer["k"], layer["v"], layer["tables"], pos, None),
+        "b7_attention": lambda: paged_decode_attention(
+            q[:, :, :1].contiguous(), layer["k"], layer["v"], lengths,
+            layer["tables"])}
+    for name, fn in attn.items():
+        means, _, outliers, delay_ms, _ = timed_attempts(
+            f"{name} (one layer)", fn, VERIFY_DEVICE_CALLS)
+        out[f"{name}_device_ms"] = sum(means) / len(means)
+        out[f"{name}_device_ms_spread"] = spread(means)
+    for s in slots:
+        engine.pool.free(s)
+    engine.pool.leak_check()
+    return out
+
+
+def spec_modes(model, card: str) -> dict:
+    """(a) speculative on paged bf16 pools, the identity self-draft and a
+    4-layer one; (b) the identity draft on int8 pools. Launch counts are
+    exact: a window runs draft_k + 1 draft decodes (B7/B8, one launch a
+    draft layer) and a composed verify; prefill runs B9/B10 a layer a
+    chunk, the draft's chunks a cold plan of every prompt."""
+    from nezha_tpu_torch.serve import SpeculativeConfig
+
+    layers = model.cfg.num_layers
+    prompts = serve_prompts(model.cfg.vocab_size)
+    out, paths = {}, {}
+    for tag, kv_dtype, draft_layers in (
+            ("spec_identity", "bf16", None),
+            ("spec_4layer", "bf16", SPEC_DRAFT_LAYERS),
+            ("spec_int8", "int8", None)):
+        cfg = modes_config(kv_dtype=kv_dtype, speculative=SpeculativeConfig(
+            draft_k=SPEC_K, draft_layers=draft_layers))
+        engine, launches, stats = modes_run(model, cfg, tag, card)
+        # The counts of the run: cross_check has prefilled since.
+        dl = engine.draft_model.cfg.num_layers
+        windows = stats["step_calls"] * cfg.decode_horizon
+        draft_chunks = sum(len(engine._plan_chunks(len(p)))
+                           for p in prompts)
+        decode = windows * (SPEC_K + 1) * dl
+        prefill = layers * stats["prefill_chunks"] + dl * draft_chunks
+        int8 = kv_dtype == "int8"
+        expect_launches(tag, launches, {
+            ("paged_quant_decode" if int8 else "paged_decode"): decode,
+            ("paged_quant_prefill" if int8 else "paged_prefill"): prefill})
+        if stats["tokens_per_verify"] <= 1.0:
+            fail(f"{tag}: {stats['tokens_per_verify']} tokens a verify")
+        if (draft_layers is None and stats["tokens_per_verify"]
+                < SPEC_MIN_TOKENS_PER_VERIFY):
+            fail(f"{tag}: the identity draft's {stats['tokens_per_verify']}"
+                 f" tokens a verify < {SPEC_MIN_TOKENS_PER_VERIFY}")
+        stats.update(kv_dtype=kv_dtype, draft_layers=dl, draft_k=SPEC_K,
+                     windows=windows, draft_prefill_chunks=draft_chunks,
+                     want_decode_launches=decode,
+                     want_prefill_launches=prefill)
+        if tag == "spec_4layer":
+            stats["verify_timing"] = time_verify(engine, card)
+        print(json.dumps({"serve_modes": {tag: stats}}), flush=True)
+        out[tag], paths[f"serve_{tag}"] = stats, launches
+    return out, paths
+
+
+def dense_mode(model, card: str):
+    """(c) the dense layout: B6 a layer a decode step, no paged kernel,
+    and no B1 (a dense prefill attends by the composed path)."""
+    cfg = modes_config(kv_layout="dense")
+    _, launches, stats = modes_run(model, cfg, "dense", card)
+    steps = stats["step_calls"] * cfg.decode_horizon
+    expect_launches("dense", launches,
+                    {"flash_decode": model.cfg.num_layers * steps})
+    print(json.dumps({"serve_modes": {"dense": stats}}), flush=True)
+    return stats, launches
+
+
+def sched_modes(model, card: str):
+    """(d) scheduling held on the card: the 4:2:1 grant order of a full
+    three-lane backlog, a tenant over its cap while another admits, and
+    a background decode preempted by an interactive arrival on two slots,
+    resumed by a prefix hit and a B9 tail, its stream the uninterrupted
+    one up to a margin within SERVE_LOGIT_ATOL."""
+    from nezha_tpu_torch.models.gpt2 import GPT2
+    from nezha_tpu_torch.serve import (Engine, FinishReason, Request,
+                                       Scheduler, TenantOverLimit)
+
+    prompts = serve_prompts(model.cfg.vocab_size)
+    engine = Engine(model, modes_config(max_batch_size=2, tenant_queue_cap=2,
+                                        preemption=True))
+    sched = Scheduler(engine)
+    for rid, pri in (("g0", "background"), ("b0", "batch"), ("b1", "batch"),
+                     ("i0", "interactive"), ("i1", "interactive"),
+                     ("i2", "interactive"), ("i3", "interactive")):
+        sched.submit(Request(prompt=prompts[0], max_new_tokens=4,
+                             priority=pri, request_id=rid,
+                             tenant_id=f"t{rid}"))
+    with sched._lock:
+        order = [sched._pop_next().req.priority for _ in range(7)]
+    if order != WFQ_ORDER:
+        fail(f"sched: grants {order}, expected {WFQ_ORDER}")
+    sched = Scheduler(engine)
+    for i in range(2):
+        sched.submit(Request(prompt=prompts[0], max_new_tokens=4,
+                             tenant_id="acme", request_id=f"a{i}"))
+    try:
+        sched.submit(Request(prompt=prompts[0], max_new_tokens=4,
+                             tenant_id="acme", request_id="a2"))
+        fail("sched: a tenant past its cap was admitted")
+    except TenantOverLimit:
+        pass
+    sched.submit(Request(prompt=prompts[1], max_new_tokens=4,
+                         tenant_id="xcorp", request_id="x0"))
+    sched.run_until_idle(max_iters=1000)
+    if sorted(sched.results) != ["a0", "a1", "x0"]:
+        fail(f"sched: served {sorted(sched.results)}")
+    engine.pool.leak_check()
+
+    bg = prompts[2]
+    sched = Scheduler(engine)
+    sched.submit(Request(prompt=bg, max_new_tokens=MODES_NEW,
+                         priority="background", request_id="ref"))
+    sched.run_until_idle(max_iters=1000)
+    want = sched.results["ref"].tokens
+    engine.pool.clear_prefix_cache()
+    sched = Scheduler(engine)
+    hits = engine.pool.prefix_hits
+    zero_serve_launches()
+    reqs = [Request(prompt=bg, max_new_tokens=MODES_NEW,
+                    priority="background", request_id="bg")]
+    sched.submit(reqs[0])
+    sched.step()
+    reqs += [Request(prompt=p, max_new_tokens=8, request_id=f"i{i}")
+             for i, p in enumerate(prompts[:2])]
+    for r in reqs[1:]:
+        sched.submit(r)
+    sched.step()
+    if sched.preempted_count != 1:
+        fail(f"sched: {sched.preempted_count} preempted, expected 1")
+    before = dict(engine.kernel_launches())
+    sched.run_until_idle(max_iters=1000)
+    torch.cuda.synchronize()
+    launches = engine.kernel_launches()
+    if (sched.resumes, sched.preempted_count) != (1, 0):
+        fail(f"sched: resumes {sched.resumes}, still preempted "
+             f"{sched.preempted_count}")
+    resume_hits = engine.pool.prefix_hits - hits
+    if resume_hits < 1:
+        fail("sched: the resume did not hit its own blocks")
+    for name in ("paged_prefill", "paged_decode"):
+        if launches[name] - before[name] <= 0:
+            fail(f"sched: the resume launched no {name}")
+    for r in reqs:
+        if sched.results[r.request_id].finish_reason != FinishReason.LENGTH:
+            fail(f"sched: {r.request_id} finished "
+                 f"{sched.results[r.request_id].finish_reason}")
+    reference = GPT2(dataclasses.replace(model.cfg, attn_impl="xla"),
+                     policy=model.policy, device="cuda")
+    reference.load_state_dict(model.state_dict())
+    reference.eval()
+    got = sched.results["bg"].tokens
+    with torch.no_grad():
+        compared, checked = agree_to_divergence("sched resume", reference,
+                                                bg, want, got)
+    cross_check(model, sched, reqs, SERVE_LOGIT_ATOL)
+    engine.pool.leak_check()
+    stats = {"grant_order": order, "tenant_over_limit": True,
+             "preemptions": sched.preemptions, "resumes": sched.resumes,
+             "resume_prefix_hits": resume_hits,
+             "bg_tokens_equal": got == want, "compared": compared,
+             "margin_checked": checked, "launches": launches, "card": card}
+    print(json.dumps({"serve_modes": {"sched": stats}}), flush=True)
+    return stats, launches
+
+
+def serve_modes(card: str) -> dict:
+    """Phase 5a: speculative decoding (paged bf16 with the identity and a
+    4-layer self-draft; int8), the dense layout and the scheduler's lanes,
+    tenant caps and preemption, GPT-2 124M at full width. -> the launches
+    of each path."""
+    from nezha_tpu_torch.cli.common import gpt2_for_preset
+
+    t0 = time.perf_counter()
+    model = gpt2_for_preset("full", seed=0, device="cuda")
+    model.eval()
+    _, paths = spec_modes(model, card)
+    _, paths["serve_dense"] = dense_mode(model, card)
+    _, paths["serve_sched"] = sched_modes(model, card)
+    print(json.dumps({"serve_modes_wall_s": time.perf_counter() - t0}),
+          flush=True)
+    return paths
 
 
 @torch.no_grad()
@@ -4735,6 +5062,8 @@ def main() -> int:
     phase("serve")
     paths["serve"] = serve(card)
     paths["serve_int8"] = serve(card, "int8")
+    phase("serve_modes")
+    paths.update(serve_modes(card))
     phase("serve_seq")
     seq = serve_seq(card)
     paths["serve_seq"] = seq["ring_bf16"]

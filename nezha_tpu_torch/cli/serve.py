@@ -14,7 +14,8 @@ Each stdin line is one request object, with ``prompt_tokens`` or a text
 
     {"id": "a", "prompt_tokens": [5, 17, 3], "max_new_tokens": 8,
      "temperature": 0.8, "top_k": 40, "top_p": 0.9, "seed": 1,
-     "eos_id": 50256, "deadline_s": 30}
+     "eos_id": 50256, "deadline_s": 30, "priority": "batch",
+     "tenant_id": "acme"}
     {"id": "b", "prompt": "def main(", "max_new_tokens": 8}
 
 and each request gets one stdout line when it finishes, its tokens
@@ -24,6 +25,21 @@ decoded into ``text`` the same way::
      "finish_reason": "length", "ttft_s": ..., "latency_s": ...}
 
 ``eos_id`` defaults to ``--eos-id``, else the tokenizer's EOS.
+
+``priority`` (``interactive``, the default, ``batch`` or
+``background``) picks the request's admission lane (``--priority-weights``
+sets the lanes' shares) and ``tenant_id`` (default ``default``) the
+tenant it counts against; past ``--tenant-queue-cap`` queued requests of
+one tenant, a request gets ``{"id": ..., "event": "error", "error": ...,
+"error_type": "tenant_over_limit"}``. ``--preemption on`` lets a
+higher-priority arrival suspend a lower-priority decode, which resumes
+later where it stood.
+
+``--kv-layout dense`` keeps one worst-case reservation a slot instead of
+the block pool. ``--speculative`` decodes through a draft: the target's
+first ``--draft-layers`` blocks (default: all of them), or a draft from
+``--draft-ckpt-dir`` / ``--draft-hf-dir``, proposing ``--draft-k`` tokens
+a verify window.
 
 A malformed line gets ``{"id": ..., "event": "error", "error": ...}``.
 The server exits once stdin closes and every request has finished.
@@ -37,7 +53,8 @@ gathered whole on one device); a corrupt or missing leaf is a refusal
 to start. ``--prefill-mode sequence`` (with ``--mesh M``, M > 1) also
 shards each prefill chunk's attention over the sequence, in the
 ``--seq-prefill-variant`` layout; ``--long-prefill-buckets`` adds chunk
-widths above ``--max-prefill-len``.
+widths above ``--max-prefill-len``. Speculative decoding under a mesh
+is refused.
 """
 
 from __future__ import annotations
@@ -57,7 +74,8 @@ from nezha_tpu_torch.data.tokenizer import encode_plain
 from nezha_tpu_torch.errors import NotPortedError
 from nezha_tpu_torch.parallel.mesh import make_mesh
 from nezha_tpu_torch.serve import (Engine, QueueFull, Request, Scheduler,
-                                   ServeConfig, ShardedEngine)
+                                   ServeConfig, ShardedEngine,
+                                   SpeculativeConfig, TenantOverLimit)
 from nezha_tpu_torch.serve.sharded import ReshardError, reshard_checkpoint
 
 
@@ -70,7 +88,18 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--max-batch-size", type=int, default=4)
     p.add_argument("--max-len", type=int, default=96,
                    help="per-slot KV capacity (prompt + generated)")
-    p.add_argument("--max-prefill-len", type=int, default=32)
+    p.add_argument("--max-prefill-len", type=int, default=32,
+                   help="widest single prefill chunk; longer prompts (up "
+                        "to --max-len) prefill in successive chunks")
+    p.add_argument("--prefill-buckets", default=None,
+                   help="comma-separated prompt pad widths (the last must "
+                        "equal --max-prefill-len); default: powers of two "
+                        "up to --max-prefill-len")
+    p.add_argument("--decode-impl", choices=["auto", "kernel", "xla"],
+                   default=None,
+                   help="decode attention: auto/kernel = the flash-decode "
+                        "kernels, xla = the composed masked path; default: "
+                        "the model config's choice (auto)")
     p.add_argument("--long-prefill-buckets", default="",
                    help="comma-separated chunk widths above "
                         "--max-prefill-len (at most --max-len)")
@@ -89,6 +118,12 @@ def build_parser() -> argparse.ArgumentParser:
                    choices=["auto", "ulysses", "ring"], default="auto",
                    help="the sequence-sharded layout (auto: ulysses)")
     p.add_argument("--decode-horizon", type=int, default=1)
+    p.add_argument("--kv-layout", choices=["paged", "dense"],
+                   default="paged",
+                   help="KV pool layout: paged = block-paged pool with "
+                        "ref-counted blocks, lazy binding, and shared-"
+                        "prefix prefill reuse (default); dense = the "
+                        "classic worst-case per-slot reservation")
     p.add_argument("--kv-block-size", type=int, default=16)
     p.add_argument("--kv-num-blocks", type=int, default=None)
     p.add_argument("--prefix-cache", choices=["on", "off"], default="on")
@@ -98,21 +133,112 @@ def build_parser() -> argparse.ArgumentParser:
                    help="KV block storage: bf16 keeps --cache-dtype; int8 "
                         "stores int8 blocks with one fp32 scale per "
                         "(block, head), about 2x the resident blocks")
+    p.add_argument("--speculative", action="store_true",
+                   help="speculative decoding: a cheap DRAFT model "
+                        "proposes --draft-k tokens per window, one "
+                        "batched target forward verifies them all, and "
+                        "the longest agreeing prefix is emitted (greedy "
+                        "outputs unchanged; sampled by lossless rejection "
+                        "sampling)")
+    p.add_argument("--draft-k", type=int, default=4,
+                   help="speculative: draft tokens proposed per verify "
+                        "window (a window emits 1..draft_k+1 tokens)")
+    p.add_argument("--draft-layers", type=int, default=None,
+                   help="speculative: SELF-DRAFT depth — the draft is "
+                        "the target's first N layers sharing its "
+                        "weights; default: full depth (identity draft, "
+                        "accept-rate ~1). Ignored with "
+                        "--draft-ckpt-dir/--draft-hf-dir")
+    p.add_argument("--draft-ckpt-dir", default=None,
+                   help="speculative: load a SEPARATE draft model from "
+                        "this train checkpoint dir (same tokenizer/vocab "
+                        "as the target)")
+    p.add_argument("--draft-hf-dir", default=None,
+                   help="speculative: load the draft model from a "
+                        "Hugging Face GPT2LMHeadModel directory")
     p.add_argument("--k-max", type=int, default=64)
     p.add_argument("--queue-capacity", type=int, default=16)
+    p.add_argument("--priority-weights", default=None, metavar="SPEC",
+                   help="WFQ admission-grant weights per priority lane "
+                        "as 'interactive=4,batch=2,background=1' (the "
+                        "default split): per 7 grants under full "
+                        "backlog, 4 go interactive, 2 batch, 1 "
+                        "background — lower lanes slow, never starve. "
+                        "All three classes required, integer weights "
+                        ">= 1")
+    p.add_argument("--tenant-queue-cap", type=int, default=None,
+                   help="max queued requests any ONE tenant may hold; "
+                        "past it the tenant gets a typed "
+                        "tenant_over_limit error while others keep "
+                        "admitting (default: no per-tenant cap — only "
+                        "the global --queue-capacity)")
+    p.add_argument("--preemption", choices=["on", "off"], default="off",
+                   help="under slot/block pressure, SUSPEND the lowest-"
+                        "priority running decode — its KV blocks move "
+                        "to the prefix trie (LRU-evictable) — and resume "
+                        "it when pressure clears")
+    p.add_argument("--preemption-budget", type=int, default=2,
+                   help="times one request may be preempted before it "
+                        "becomes unpreemptable (the anti-thrash bound)")
     p.add_argument("--max-new-tokens", type=int, default=32,
                    help="default and per-request cap")
     p.add_argument("--eos-id", type=int, default=None)
     return p
 
 
-def build_scheduler(args) -> Scheduler:
+def _int_list(flag: str, value) -> tuple:
     try:
-        long_buckets = tuple(int(b) for b in args.long_prefill_buckets
-                             .split(",") if b.strip())
+        return tuple(int(b) for b in str(value or "").split(",")
+                     if b.strip())
     except ValueError:
-        raise SystemExit(f"--long-prefill-buckets must be comma-separated "
-                         f"ints, got {args.long_prefill_buckets!r}")
+        raise SystemExit(f"{flag} must be comma-separated ints, got "
+                         f"{value!r}")
+
+
+def _parse_priority_weights(spec):
+    """'interactive=4,batch=2,background=1' -> dict (None passes through:
+    ServeConfig then applies the default split)."""
+    if spec is None:
+        return None
+    out = {}
+    for part in str(spec).split(","):
+        name, eq, val = part.partition("=")
+        try:
+            out[name.strip()] = int(val)
+        except ValueError:
+            raise SystemExit(f"--priority-weights must be 'class=int,...' "
+                             f"pairs, got {part!r}")
+        if not eq:
+            raise SystemExit(f"--priority-weights must be 'class=int,...' "
+                             f"pairs, got {part!r}")
+    return out
+
+
+def _draft_model(args):
+    """``--speculative``'s explicit draft from ``--draft-ckpt-dir`` or
+    ``--draft-hf-dir`` (None: the engine builds a self-draft), loaded as
+    the target is."""
+    if not (args.draft_ckpt_dir or args.draft_hf_dir):
+        return None
+    dargs = argparse.Namespace(**vars(args))
+    dargs.ckpt_dir = args.draft_ckpt_dir
+    dargs.hf_dir = args.draft_hf_dir
+    dargs.random_init = False
+    return load_gpt2_for_inference(dargs)
+
+
+def build_scheduler(args) -> Scheduler:
+    buckets = _int_list("--prefill-buckets", args.prefill_buckets)
+    long_buckets = _int_list("--long-prefill-buckets",
+                             args.long_prefill_buckets)
+    if not args.speculative and (args.draft_ckpt_dir or args.draft_hf_dir):
+        # A draft checkpoint without the knob would silently serve classic.
+        raise SystemExit("--draft-ckpt-dir/--draft-hf-dir require "
+                         "--speculative")
+    if args.speculative and args.mesh > 1:
+        raise SystemExit(f"--mesh {args.mesh} with --speculative: "
+                         f"speculative decoding under a mesh is not ported "
+                         f"(ROADMAP A6)")
     if args.prefill_mode == "sequence" and args.mesh < 2:
         # Refused before any model is built: a 1-shard mesh has no
         # sequence axis to shard over.
@@ -134,15 +260,23 @@ def build_scheduler(args) -> Scheduler:
         shards, model = reshard_onto(args, mesh)
     else:
         model = load_gpt2_for_inference(args)
+    spec = draft = None
+    if args.speculative:
+        spec = SpeculativeConfig(draft_k=args.draft_k,
+                                 draft_layers=args.draft_layers)
+        draft = _draft_model(args)
     try:
         cfg = ServeConfig(
             max_batch_size=args.max_batch_size,
             max_len=min(args.max_len, model.cfg.max_positions),
             max_prefill_len=args.max_prefill_len,
+            prefill_buckets=buckets,
             long_prefill_buckets=long_buckets,
             prefill_mode=args.prefill_mode,
             seq_prefill_variant=args.seq_prefill_variant,
             decode_horizon=args.decode_horizon,
+            decode_impl=args.decode_impl,
+            kv_layout=args.kv_layout,
             kv_block_size=args.kv_block_size,
             kv_num_blocks=args.kv_num_blocks,
             prefix_cache=args.prefix_cache == "on",
@@ -150,7 +284,12 @@ def build_scheduler(args) -> Scheduler:
             cache_dtype=(torch.float32 if args.cache_dtype == "f32"
                          else torch.bfloat16),
             kv_dtype=args.kv_dtype,
-            k_max=args.k_max, queue_capacity=args.queue_capacity)
+            k_max=args.k_max, queue_capacity=args.queue_capacity,
+            speculative=spec,
+            priority_weights=_parse_priority_weights(args.priority_weights),
+            tenant_queue_cap=args.tenant_queue_cap,
+            preemption=args.preemption == "on",
+            preemption_budget=args.preemption_budget)
     except ValueError as e:
         raise SystemExit(f"serve config: {e}")
     if args.mesh > 1:
@@ -162,7 +301,11 @@ def build_scheduler(args) -> Scheduler:
             # too few cards) as the CLI's typed refusal.
             raise SystemExit(f"--mesh {args.mesh}: {e}")
     else:
-        engine = Engine(model, cfg)
+        try:
+            engine = Engine(model, cfg, draft_model=draft)
+        except ValueError as e:
+            # The draft's checks (vocabulary, positions, depth).
+            raise SystemExit(f"--speculative: {e}")
     return Scheduler(engine)
 
 
@@ -219,7 +362,14 @@ def parse_request(obj, args, vocab: int, tokenizer=None,
         except (TypeError, ValueError):
             raise ValueError(f"{key} must be a number, got {v!r}")
 
+    priority = obj.get("priority", "interactive")
+    if not isinstance(priority, str):
+        raise ValueError(f"priority must be a string, got {priority!r}")
+    tenant_id = obj.get("tenant_id", "default")
+    if not isinstance(tenant_id, str):
+        raise ValueError(f"tenant_id must be a string, got {tenant_id!r}")
     return Request(
+        priority=priority, tenant_id=tenant_id,
         prompt=prompt,
         max_new_tokens=min(num("max_new_tokens", int, args.max_new_tokens),
                            args.max_new_tokens),
@@ -289,6 +439,14 @@ def run_stdio(scheduler: Scheduler, args, stdin=None, stdout=None,
                         continue
                     try:
                         scheduler.submit(req)
+                        break
+                    except TenantOverLimit as e:
+                        # Typed, as the reference's HTTP front end answers
+                        # it: this tenant is over ITS cap, the queue is not
+                        # full.
+                        emit({"id": req.request_id, "event": "error",
+                              "error": str(e),
+                              "error_type": "tenant_over_limit"})
                         break
                     except QueueFull:
                         time.sleep(0.005)

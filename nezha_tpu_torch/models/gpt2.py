@@ -21,7 +21,12 @@ Three attention paths:
   the pools IN PLACE (JAX returns new pools; here the engine's buffers
   are updated where they lie) and attends through the CUDA kernels
   (``ops/cuda``). A ``[B]`` ``pos`` tensor is a decode step (one token
-  per row at its own depth); an ``int`` ``pos`` is a prefill chunk at
+  per row at its own depth; the composed path over the gathered blocks
+  when ``decode_impl`` refuses the kernel) or, with ``s > 1`` tokens a
+  row, a speculative verify window: the window's positions scatter
+  through the table (past capacity, and every position of a
+  non-emitting row, to scratch block 0) and attend by the composed path
+  under a ``[B, 1, s, L]`` mask. An ``int`` ``pos`` is a prefill chunk at
   that offset. Call under ``torch.no_grad()``. A dict that also holds
   ``k_scale``/``v_scale`` ``[N, H]`` is an int8 pool (``ServeConfig.
   kv_dtype="int8"``): a decode step requantizes each row's current block
@@ -34,10 +39,12 @@ Three attention paths:
   call's K/V into them IN PLACE, clamped as JAX's ``dynamic_update_slice``
   clamps: an ``int`` ``pos`` writes the chunk at ``pos`` (start clamped to
   ``[0, L - S]``), a ``[B]`` ``pos`` writes one token per row (clamped to
-  ``[0, L - 1]``). ``prefill=True`` at ``pos == 0`` attends the chunk
-  itself with the flash kernel; a single-token step attends ``[0, pos]``
-  with the dense flash-decode kernel (``decode_impl``); everything else
-  takes attention composed of tensor ops over the whole buffer.
+  ``[0, L - 1]``), or a verify window of ``s`` tokens per row, whose
+  positions past ``L`` and whose non-emitting rows are dropped.
+  ``prefill=True`` at ``pos == 0`` attends the chunk itself with the
+  flash kernel; a single-token step attends ``[0, pos]`` with the dense
+  flash-decode kernel (``decode_impl``); everything else takes attention
+  composed of tensor ops over the whole buffer.
 
 LayerNorms take ``ln_impl``: "xla" (tensor ops) or "pallas" (the fused
 LayerNorm kernels, ``ops/cuda/layer_norm.py``).
@@ -45,6 +52,7 @@ LayerNorm kernels, ``ops/cuda/layer_norm.py``).
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 from typing import List, Optional, Union
 
@@ -61,7 +69,8 @@ from nezha_tpu_torch.ops.cuda import (flash_attention,
                                       paged_decode_attention,
                                       paged_prefill_attention)
 from nezha_tpu_torch.ops.losses import lm_objective
-from nezha_tpu_torch.ops.quant import quantize_kv_block, sanitize
+from nezha_tpu_torch.ops.quant import (dequantize_kv_block, quantize_kv_block,
+                                      sanitize)
 from nezha_tpu_torch.tensor.policy import DEFAULT_POLICY, Policy, bf16_policy
 
 
@@ -78,7 +87,7 @@ class GPT2Config:
     # kernel wrapper picks the CUDA kernel or its plain version by the
     # tensors' device); "xla" is attention composed of tensor ops.
     attn_impl: str = "auto"
-    # Single-token dense-cache decode: "auto" takes the flash-decode
+    # Single-token decode (dense or paged): "auto" takes the flash-decode
     # kernel unless attn_impl is "xla"; "kernel" always; "xla" never
     # (attention composed of tensor ops).
     decode_impl: str = "auto"
@@ -122,10 +131,10 @@ def check_config(cfg: GPT2Config) -> None:
 
 
 def decode_kernel_ok(cfg: GPT2Config) -> bool:
-    """Whether a single-token dense-cache step takes the flash-decode
-    kernel (JAX ``_decode_flash_ok``): "kernel" forces it, "xla" refuses
-    it, "auto" follows ``attn_impl``, which here resolves to the kernels
-    on every device unless it is "xla"."""
+    """Whether a single-token decode step, dense or paged, takes its
+    flash-decode kernel (JAX ``_decode_flash_ok``): "kernel" forces it,
+    "xla" refuses it, "auto" follows ``attn_impl``, which here resolves
+    to the kernels on every device unless it is "xla"."""
     if cfg.decode_impl == "auto":
         return cfg.attn_impl != "xla"
     return cfg.decode_impl == "kernel"
@@ -204,6 +213,30 @@ def float_prefill_write(kp, vp, tab, pos, k, v) -> None:
     vp[blk, :, off, :] = v.transpose(1, 2).to(vp.dtype)
 
 
+def _gathered_attention(q, kp, vp, tab, pos, scales) -> torch.Tensor:
+    """The composed paged attention (JAX ``_apply_paged``'s last branch):
+    gather each row's blocks into a dense ``[B, H, L, D]`` view (an int8
+    pool dequantized with the kernels' expression), then masked attention
+    of the ``s`` queries of a row, at ``pos + j``, over ``[0, pos + j]``.
+    Unbound table entries gather scratch, always at or past the row's
+    length, so always masked."""
+    b, h, s, d = q.shape
+    tab = tab.long()
+    k_all, v_all = kp[tab], vp[tab]                      # [B, M, H, bs, D]
+    if scales is not None:
+        k_all = dequantize_kv_block(k_all, scales[0][tab], q.dtype)
+        v_all = dequantize_kv_block(v_all, scales[1][tab], q.dtype)
+    cap = k_all.shape[1] * k_all.shape[3]
+    k_all = k_all.permute(0, 2, 1, 3, 4).reshape(b, h, cap, d)
+    v_all = v_all.permute(0, 2, 1, 3, 4).reshape(b, h, cap, d)
+    abs_q = pos.long()[:, None] + torch.arange(s, device=q.device)
+    attendable = (torch.arange(cap, device=q.device)[None, None, :]
+                  <= abs_q[:, :, None])[:, None]                # [B,1,s,L]
+    mask = torch.where(attendable, 0.0, float("-inf"))
+    return dot_product_attention(q, k_all.to(q.dtype), v_all.to(q.dtype),
+                                 mask=mask)
+
+
 def _residual_init(cfg: GPT2Config):
     return init_lib.normal(0.02 / (2 * cfg.num_layers) ** 0.5)
 
@@ -240,8 +273,11 @@ class Attention(nn.Module):
                     q, k, v, mask=causal_mask(s, s, device=x.device))
         elif "tables" not in cache:
             out = self._dense(q, k, v, cache, pos, active, prefill)
+        elif isinstance(pos, torch.Tensor) and pos.dim() == 1 and s > 1:
+            out = self._verify_paged(q, k, v, cache, pos, active)
         elif isinstance(pos, torch.Tensor) and pos.dim() == 1:
-            out = self._decode_paged(q, k, v, cache, pos, active)
+            out = self._decode_paged(q, k, v, cache, pos, active,
+                                     use_kernel=decode_kernel_ok(cfg))
         else:
             out = self._prefill_paged(q, k, v, cache, int(pos))
         out = self.proj(out.transpose(1, 2).reshape(b, s, h))
@@ -255,11 +291,24 @@ class Attention(nn.Module):
         cap = kc.shape[2]
         per_row = isinstance(pos, torch.Tensor) and pos.dim() == 1
         if per_row and s > 1:
-            raise NotPortedError("per-row positions with more than one "
-                                 "token per row (speculative verify "
-                                 "windows) on the dense cache are not "
-                                 "ported")
-        if per_row:
+            # A verify window: a per-position scatter that DROPS positions
+            # past capacity and every position of a non-emitting row (a
+            # clamped window start would overwrite valid prefix K/V). A
+            # dropped position writes back what its clamped index holds,
+            # one window position at a time, so that no two writes of a
+            # call share an index and no boolean index syncs the host.
+            rows = torch.arange(b, device=q.device)
+            for j in range(s):
+                at = pos.long() + j
+                keep = at < cap
+                if active is not None:
+                    keep = keep & active
+                at = at.clamp(max=cap - 1)
+                for c, new in ((kc, k), (vc, v)):
+                    c[rows, :, at, :] = torch.where(
+                        keep[:, None, None], new[:, :, j, :].to(c.dtype),
+                        c[rows, :, at, :])
+        elif per_row:
             at = pos.long().clamp(0, cap - 1)
             rows = torch.arange(b, device=q.device)
             kc[rows, :, at, :] = k[:, :, 0, :].to(kc.dtype)
@@ -295,18 +344,15 @@ class Attention(nn.Module):
                                      mask=mask)
 
     @staticmethod
-    def _decode_paged(q, k, v, cache, pos, active):
+    def _decode_paged(q, k, v, cache, pos, active, use_kernel: bool = True):
         """One token per row at its own depth (``_apply_paged``'s per-row
         branch): write K/V at ``pos`` through the table — clamped to the
         last position, inactive rows routed to scratch block 0 — then
         attend ``[0, pos]`` with the flash-decode kernel; inactive rows
         get length 0 and attend nothing. An int8 pool requantizes the
         written blocks (:func:`_quant_decode_write`) and attends through
-        the int8 kernel."""
-        if q.shape[2] != 1:
-            raise ValueError(
-                f"per-row positions take one token per row, got "
-                f"{q.shape[2]} (speculative verify windows are not ported)")
+        the int8 kernel. ``use_kernel=False`` (``decode_impl="xla"``)
+        attends by the composed path over the gathered blocks."""
         kp, vp, tab = cache["k"], cache["v"], cache["tables"]
         bs, m = kp.shape[2], tab.shape[1]
         pos_w = pos.long().clamp(max=m * bs - 1)
@@ -326,9 +372,47 @@ class Attention(nn.Module):
         else:
             kp[blk, :, off, :] = k[:, :, 0, :].to(kp.dtype)
             vp[blk, :, off, :] = v[:, :, 0, :].to(vp.dtype)
+        if not use_kernel:
+            return _gathered_attention(q, kp, vp, tab, pos, scales)
         return paged_decode_attention(q.contiguous(), kp, vp,
                                       lengths.int(), tab,
                                       block_scales=scales)
+
+    @staticmethod
+    def _verify_paged(q, k, v, cache, pos, active):
+        """A speculative verify window: ``s`` tokens per row from its own
+        ``pos`` (JAX ``_apply_paged``'s ``per_row and s > 1`` branch). The
+        window scatters through the table; a position past the table's
+        capacity, and every position of a non-emitting row, goes to
+        scratch block 0 (a position past the row's bound frontier finds a
+        scratch entry in the table already). An int8 pool requantizes one
+        window position at a time (:func:`_quant_decode_write`), so that
+        the window lands exactly as ``s`` single-token decodes would.
+        Attention is the composed path over the gathered blocks."""
+        kp, vp, tab = cache["k"], cache["v"], cache["tables"]
+        s = q.shape[2]
+        bs, m = kp.shape[2], tab.shape[1]
+        cap = m * bs
+        ppos = pos.long()[:, None] + torch.arange(s, device=q.device)
+        route = ppos >= cap
+        if active is not None:
+            route = route | ~active[:, None]
+        ppos_c = ppos.clamp(max=cap - 1)
+        bi = (ppos_c // bs).clamp(0, m - 1)
+        blk = torch.where(route, 0, tab.long().gather(1, bi))     # [B, s]
+        off = torch.where(route, 0, ppos_c % bs)
+        scales = None
+        if "k_scale" in cache:
+            scales = (cache["k_scale"], cache["v_scale"])
+            for j in range(s):
+                _quant_decode_write(kp, scales[0], blk[:, j], off[:, j],
+                                    k[:, :, j, :])
+                _quant_decode_write(vp, scales[1], blk[:, j], off[:, j],
+                                    v[:, :, j, :])
+        else:
+            kp[blk, :, off, :] = k.transpose(1, 2).to(kp.dtype)
+            vp[blk, :, off, :] = v.transpose(1, 2).to(vp.dtype)
+        return _gathered_attention(q, kp, vp, tab, pos, scales)
 
     @staticmethod
     def _prefill_paged(q, k, v, cache, pos: int):
@@ -465,6 +549,28 @@ def gpt2_124m(policy: Optional[Policy] = None,
               **overrides) -> GPT2:
     return GPT2(GPT2Config(**overrides), policy=policy or bf16_policy(),
                 generator=generator, device=device)
+
+
+def with_overrides(model: GPT2, **overrides) -> GPT2:
+    """``model`` under ``dataclasses.replace(model.cfg, **overrides)``
+    over the SAME parameter tensors (JAX rebuilds the module tree around
+    a replaced config and passes the same variables): every module is
+    copied shallowly — parameters, buffers and generators shared — and
+    each copy that holds the config gets the new one."""
+    cfg = dataclasses.replace(model.cfg, **overrides)
+    check_config(cfg)
+
+    def clone(mod: nn.Module) -> nn.Module:
+        new = copy.copy(mod)
+        new._modules = {name: clone(child)
+                        for name, child in mod._modules.items()}
+        if isinstance(new, (GPT2, Attention)):
+            new.cfg = cfg
+        if isinstance(new, Attention):
+            new.impl = "flash" if cfg.attn_impl == "auto" else cfg.attn_impl
+        return new
+
+    return clone(model)
 
 
 def lm_loss(out, batch: dict) -> torch.Tensor:

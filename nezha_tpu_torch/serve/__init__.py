@@ -1,19 +1,25 @@
 from nezha_tpu_torch.serve.engine import (Engine, NotPortedError,
-                                          ServeConfig,
-                                          default_prefill_buckets)
-from nezha_tpu_torch.serve.sampling import (filter_logits, finite_rows,
+                                          ServeConfig, SpeculativeConfig,
+                                          default_prefill_buckets,
+                                          self_draft)
+from nezha_tpu_torch.serve.sampling import (accept_mask, categorical_rows,
+                                            filter_logits, filtered_probs,
+                                            finite_rows, residual_logits,
                                             sample_tokens, split_and_sample)
-from nezha_tpu_torch.serve.scheduler import (FinishReason, QueueFull,
-                                             Request, RequestResult,
-                                             Scheduler)
+from nezha_tpu_torch.serve.scheduler import (PRIORITIES, FinishReason,
+                                             QueueFull, Request,
+                                             RequestResult, Scheduler,
+                                             TenantOverLimit)
 from nezha_tpu_torch.serve.sharded import (ShardedEngine,
                                            ShardedPagedSlotPool)
 from nezha_tpu_torch.serve.slots import (KVBlocksExhausted, PagedSlotPool,
-                                         PrefixTrie)
+                                         PrefixTrie, SlotPool)
 
 __all__ = ["Engine", "FinishReason", "KVBlocksExhausted", "NotPortedError",
-           "PagedSlotPool", "PrefixTrie", "QueueFull", "Request",
-           "RequestResult", "Scheduler", "ServeConfig", "ShardedEngine",
-           "ShardedPagedSlotPool",
-           "default_prefill_buckets", "filter_logits", "finite_rows",
-           "sample_tokens", "split_and_sample"]
+           "PRIORITIES", "PagedSlotPool", "PrefixTrie", "QueueFull",
+           "Request", "RequestResult", "Scheduler", "ServeConfig",
+           "ShardedEngine", "ShardedPagedSlotPool", "SlotPool",
+           "SpeculativeConfig", "TenantOverLimit", "accept_mask",
+           "categorical_rows", "default_prefill_buckets", "filter_logits",
+           "filtered_probs", "finite_rows", "residual_logits",
+           "sample_tokens", "self_draft", "split_and_sample"]

@@ -20,6 +20,20 @@ stream depends on its seed and its emitted-token count alone, never on
 its batch neighbours or the decode horizon. The streams are not JAX's
 threefry numbers: the same seed samples different tokens in the two
 packages.
+
+Speculative decoding composes the rest (the engine's draft -> verify ->
+accept window): :func:`filtered_probs` is the distribution the accept
+test and the residual are computed over; :func:`accept_mask` the
+per-position decision (greedy: exact match against the target argmax;
+sampled: ``u * q(d) < p(d)``); :func:`residual_logits` the rejection
+resample ``norm(max(p - q, 0))`` in log space, which the engine carries
+as the row's next distribution; :func:`categorical_rows` draws from it.
+The speculative step's draws come from :func:`keyed_uniforms`, a
+counter-based hash of (seed, emitted count, purpose, index) computed on
+the device: JAX keys them the same way (``split`` for the window's first
+token, ``fold_in(1 + j)`` for draft proposal j, ``fold_in(k + 2)`` for
+the accept uniforms), so a request's speculative stream does not change
+with the decode horizon. The classic step keeps its generators.
 """
 
 from __future__ import annotations
@@ -109,3 +123,84 @@ def split_and_sample(generators: Sequence[Optional[torch.Generator]],
         return torch.argmax(logits, dim=-1).to(torch.int32)
     u = draw_uniforms(generators, rows, logits.shape[0], logits.device)
     return sample_tokens(logits, u, temperature, top_k, top_p, k_max)
+
+
+# ------------------------------------------------- speculative decoding
+_M32 = 0xFFFFFFFF
+
+
+def _mix32(x: torch.Tensor) -> torch.Tensor:
+    """A 32-bit integer finalizer on int64 lanes holding ``[0, 2^32)``;
+    its multipliers stay below 2^31, so no product leaves int64."""
+    x = x ^ (x >> 16)
+    x = (x * 0x7FEB352D) & _M32
+    x = x ^ (x >> 15)
+    x = (x * 0x1B873593) & _M32
+    return x ^ (x >> 16)
+
+
+def keyed_uniforms(seeds: torch.Tensor, counts: torch.Tensor, purpose: int,
+                   n: int) -> torch.Tensor:
+    """``[B, n]`` uniforms in ``(0, 1)``: entry ``(r, i)`` is a hash of
+    (``seeds[r]``, ``counts[r]``, ``purpose``, ``i``) alone, computed on the
+    device with no generator state. ``seeds``/``counts`` ``[B]`` int64.
+    Never exactly 0, so ``u * q < p`` rejects a zero-probability token
+    and an inverse-CDF draw never lands on a zero-mass entry."""
+    h = _mix32((seeds & _M32) ^ 0x3C6EF372)
+    h = _mix32(h ^ ((seeds >> 32) & _M32))
+    h = _mix32(h ^ (counts & _M32))
+    h = _mix32(h ^ ((purpose * 0x2545F491) & _M32))
+    idx = torch.arange(n, device=seeds.device, dtype=torch.int64)
+    h = _mix32(h[:, None] ^ ((idx * 0x1B873593 + 0x165667B1) & _M32))
+    return ((h >> 8).float() + 0.5) * (1.0 / (1 << 24))
+
+
+def filtered_probs(logits: torch.Tensor, temperature: torch.Tensor,
+                   top_k: torch.Tensor, top_p: torch.Tensor,
+                   k_max: int) -> torch.Tensor:
+    """``softmax(filter_logits(...))``: the probabilities the accept test
+    and the residual are computed over, ``[B, V]``."""
+    return torch.softmax(filter_logits(logits, temperature, top_k, top_p,
+                                       k_max), dim=-1)
+
+
+def categorical_rows(uniforms: torch.Tensor,
+                     logits: torch.Tensor) -> torch.Tensor:
+    """One draw per row from ``softmax(logits)`` (``[B, V]``) at its
+    uniform (``[B]``), by the inverse CDF as :func:`sample_tokens` draws
+    -> ``[B]`` int32. The logits are taken as they are: the residual's
+    are already filtered log-probabilities, and filtering them again
+    would bend the rejection-sampling law."""
+    cdf = torch.cumsum(torch.softmax(logits.float(), dim=-1), dim=-1)
+    target = (uniforms.float() * cdf[:, -1])[:, None]
+    tok = torch.searchsorted(cdf, target, right=True)[:, 0]
+    return tok.clamp(max=logits.shape[1] - 1).to(torch.int32)
+
+
+def accept_mask(draft_tokens: torch.Tensor, p_probs: torch.Tensor,
+                q_probs: torch.Tensor, u: torch.Tensor, greedy: torch.Tensor,
+                target_argmax: torch.Tensor) -> torch.Tensor:
+    """Per-position speculative accept decision: ``draft_tokens [B, K]``,
+    target/draft distributions ``p_probs``/``q_probs [B, K, V]`` (both
+    filtered with the row's own parameters), uniforms ``u [B, K]``,
+    ``greedy [B]``, ``target_argmax [B, K]`` (of the unfiltered target
+    logits) -> ``[B, K]`` bool. A greedy row accepts a proposal equal to
+    the target's argmax; a sampled row accepts when ``u * q(d) < p(d)``
+    (strict: a token the target gives zero probability never passes), and
+    a non-finite draft distribution rejects outright."""
+    idx = draft_tokens.long()[..., None]
+    psel = p_probs.gather(2, idx)[..., 0]
+    qsel = q_probs.gather(2, idx)[..., 0]
+    q_ok = torch.isfinite(q_probs).all(dim=-1)
+    sampled_acc = q_ok & (u * qsel < psel)
+    greedy_acc = draft_tokens == target_argmax
+    return torch.where(greedy[:, None], greedy_acc, sampled_acc)
+
+
+def residual_logits(p_probs: torch.Tensor,
+                    q_probs: torch.Tensor) -> torch.Tensor:
+    """The rejection resample in log space, ``log(max(p - q, 0) + 1e-30)``
+    per row (``[B, V]``). The floor keeps zero-mass entries finite (the
+    carried logits pass the engine's non-finite tripwire) and is a normal
+    fp32 number, which no backend flushes to zero."""
+    return torch.log(torch.clamp(p_probs - q_probs, min=0.0) + 1e-30)

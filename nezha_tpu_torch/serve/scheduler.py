@@ -1,16 +1,42 @@
 """Admission, retirement and the serving loop (counterpart of
-``nezha_tpu/serve/scheduler.py``, FIFO admission only).
+``nezha_tpu/serve/scheduler.py``).
 
-One iteration: admit queued requests into free slots (while the pool's
-free-plus-reclaimable blocks cover the head request's prefill) -> decode
-one block for every live row -> retire rows on EOS, max-new-tokens or
-deadline -> admit again, so a slot freed by retirement is refilled in the
-same iteration. ``submit`` fails fast with :class:`QueueFull` past the
-queue's capacity and with ``ValueError`` for a request that can never be
-served. Failures are request-scoped: a prefill error or non-finite
-logits retire only that request (``FinishReason.ERROR``); KV block
-exhaustion during decode retires the row that could not grow and the
-block is re-dispatched for the rest.
+One iteration: expire queued and suspended requests past their deadline
+-> admit into free slots -> decode one block for every live row ->
+retire rows on EOS, max-new-tokens or deadline -> admit again, so a slot
+freed by retirement is refilled in the same iteration.
+
+Admission is weighted fair queueing across priority lanes
+(``interactive``, ``batch``, ``background``; 4:2:1 by default, or
+``ServeConfig.priority_weights``): each lane keeps a virtual clock that a
+grant advances by ``1 / weight``, the lane with the smallest clock is
+served next (priority order breaks ties), and within a lane the tenants
+take turns. Lower lanes are slowed, never starved; with every request in
+one lane and one tenant (the defaults) it is the exact bounded FIFO. On
+the paged layout a grant also needs the pool's free-plus-reclaimable
+blocks to cover the pick's worst-case prefill.
+
+``submit`` fails fast with :class:`QueueFull` past the queue's capacity,
+with :class:`TenantOverLimit` (a :class:`QueueFull`) when the request's
+tenant already holds ``tenant_queue_cap`` queued requests, and with
+``ValueError`` for a request that can never be served.
+
+With ``ServeConfig.preemption``, a pick that finds no slot (or, paged, no
+blocks) suspends one live decode of strictly lower priority (lowest class
+first, least progressed within it) whose ``preemption_budget`` is not
+spent: on the paged layout with the prefix cache and LRU eviction the
+victim's blocks (prompt and emitted tokens) are indexed in the prefix
+trie first, so its resume prefix-hits them and prefills only the tail;
+elsewhere the resume re-prefills cold. A suspended request resumes
+ahead of queued work of equal or lower priority, with its context
+(prompt and emitted tokens) and its remaining budget; its deadline keeps
+running. One preemption per admission pass, unless ``slo_tracker``
+(any object with ``burn_rate()``) reports a burn rate above 1.
+
+Failures are request-scoped: a prefill error or non-finite logits retire
+only that request (``FinishReason.ERROR``); KV block exhaustion during
+decode retires the row that could not grow and the block is
+re-dispatched for the rest.
 """
 
 from __future__ import annotations
@@ -24,7 +50,7 @@ from typing import Callable, Deque, Dict, List, Optional, Sequence
 
 import numpy as np
 
-from nezha_tpu_torch.serve.engine import Engine
+from nezha_tpu_torch.serve.engine import PRIORITY_CLASSES, Engine
 from nezha_tpu_torch.serve.slots import KVBlocksExhausted
 
 
@@ -32,10 +58,30 @@ class QueueFull(Exception):
     """Admission queue at capacity — the backpressure signal."""
 
 
+class TenantOverLimit(QueueFull):
+    """One tenant's queued requests reached ``tenant_queue_cap``: the
+    per-tenant backpressure signal (a :class:`QueueFull`, so a handler of
+    that still sheds it)."""
+
+
+# Priority classes, highest first.
+PRIORITIES = PRIORITY_CLASSES
+_PRIORITY_RANK = {p: i for i, p in enumerate(PRIORITIES)}
+
+# The default admission-grant split under full backlog: per 7 grants, 4
+# interactive, 2 batch, 1 background.
+_DEFAULT_WEIGHTS = (("interactive", 4), ("batch", 2), ("background", 1))
+
+# Per-token decode latencies a Scheduler keeps (the newest): the
+# reference feeds them to a histogram, which waits for the port of
+# ``obs/``.
+TPOT_SAMPLES = 4096
+
+
 class FinishReason:
     EOS = "eos"
     LENGTH = "length"          # max_new_tokens reached
-    DEADLINE = "deadline"      # expired, queued or mid-decode
+    DEADLINE = "deadline"      # expired: queued, suspended or mid-decode
     ERROR = "error"            # prefill failure, non-finite logits, or no
                                # KV blocks — only this request is retired
 
@@ -43,7 +89,9 @@ class FinishReason:
 @dataclasses.dataclass
 class Request:
     """One generation request; ``deadline_s`` is a wall-clock budget in
-    seconds from submit."""
+    seconds from submit, ``priority`` its WFQ lane (one of
+    :data:`PRIORITIES`) and ``tenant_id`` the tenant whose fair share and
+    queue cap it counts against."""
 
     prompt: Sequence[int]
     max_new_tokens: int = 16
@@ -54,6 +102,8 @@ class Request:
     seed: int = 0
     deadline_s: Optional[float] = None
     request_id: Optional[str] = None
+    priority: str = "interactive"
+    tenant_id: str = "default"
 
 
 @dataclasses.dataclass
@@ -74,16 +124,29 @@ class _Live:
     deadline_t: Optional[float]
     tokens: List[int] = dataclasses.field(default_factory=list)
     ttft_s: Optional[float] = None
+    preempt_count: int = 0
 
 
 class Scheduler:
-    """Bounded-FIFO continuous batching over an :class:`Engine`.
+    """Continuous batching over an :class:`Engine` with WFQ admission,
+    tenant caps and preemption.
 
     ``on_token(request_id, token)`` streams each token and
     ``on_finish(result)`` fires at retirement, both on the thread driving
-    :meth:`step`. ``submit`` is thread-safe."""
+    :meth:`step`. ``submit`` is thread-safe. ``preemptions`` and
+    ``resumes`` count suspensions and resumes; ``tpot_s`` holds the newest
+    per-token decode latencies (a dispatch's time over the tokens it
+    emitted the row, one sample a token)."""
 
     step_retry_backoff_s = 0.05
+
+    # Cross-thread state and the lock that guards it: submit() runs on
+    # other threads than step().
+    _LOCK_GUARDED = {"_lanes": "_lock", "_lane_vt": "_lock",
+                     "_lane_rr": "_lock", "_queued_n": "_lock",
+                     "_vt_now": "_lock", "_preempted": "_lock",
+                     "preemptions": "_lock", "resumes": "_lock",
+                     "_live": "_lock", "results": "_lock"}
 
     def __init__(self, engine: Engine,
                  on_token: Optional[Callable[[str, int], None]] = None,
@@ -92,7 +155,22 @@ class Scheduler:
         self.on_token = on_token
         self.on_finish = on_finish
         self.queue_capacity = engine.cfg.queue_capacity
-        self._queue: Deque[_Live] = collections.deque()
+        # WFQ state: lane -> tenant -> FIFO, each lane's virtual clock,
+        # each lane's tenant ring (a tenant is in its lane and ring exactly
+        # while its deque is non-empty), the queued count, and the clock
+        # of the last grant (an idle lane re-enters at it).
+        self._lanes: Dict[str, Dict[str, Deque[_Live]]] = {}
+        self._lane_vt: Dict[str, float] = {}
+        self._lane_rr: Dict[str, Deque[str]] = {}
+        self._queued_n = 0
+        self._vt_now = 0.0
+        self._weights = dict(engine.cfg.priority_weights or _DEFAULT_WEIGHTS)
+        # Suspended requests: request_id -> _Live (no slot held).
+        self._preempted: Dict[str, _Live] = {}
+        self.slo_tracker = None
+        self.preemptions = 0
+        self.resumes = 0
+        self.tpot_s: Deque[float] = collections.deque(maxlen=TPOT_SAMPLES)
         self._live: Dict[int, _Live] = {}          # slot -> request state
         self._lock = threading.RLock()
         self._ids = itertools.count()
@@ -111,24 +189,35 @@ class Scheduler:
             raise ValueError(
                 f"prompt ({n}) + max_new_tokens ({req.max_new_tokens}) "
                 f"exceeds max_len {cfg.max_len}")
-        pool = self.engine.pool
-        need = max(self.engine.prefill_blocks_needed(n),
-                   pool.blocks_for_span(n + req.max_new_tokens))
-        if need > pool.max_request_blocks:
-            raise ValueError(
-                f"request needs {need} KV blocks (block_size "
-                f"{pool.block_size}) but the pool can bind at most "
-                f"{pool.max_request_blocks} per request")
+        if self.engine.paged:
+            pool = self.engine.pool
+            need = max(self.engine.prefill_blocks_needed(n),
+                       pool.blocks_for_span(n + req.max_new_tokens))
+            if need > pool.max_request_blocks:
+                raise ValueError(
+                    f"request needs {need} KV blocks (block_size "
+                    f"{pool.block_size}) but the pool can bind at most "
+                    f"{pool.max_request_blocks} per request")
         vocab = self.engine.vocab
         if not all(0 <= int(t) < vocab for t in req.prompt):
             raise ValueError(f"prompt ids must be in [0, {vocab})")
+        if req.priority not in _PRIORITY_RANK:
+            raise ValueError(f"priority must be one of {PRIORITIES}, got "
+                             f"{req.priority!r}")
+        if not isinstance(req.tenant_id, str) or not req.tenant_id:
+            raise ValueError(f"tenant_id must be a non-empty string, got "
+                             f"{req.tenant_id!r}")
         with self._lock:
-            if len(self._queue) >= self.queue_capacity:
+            if self._queued_n >= self.queue_capacity:
                 raise QueueFull(
                     f"admission queue at capacity {self.queue_capacity}")
+            cap = cfg.tenant_queue_cap
+            if cap is not None and self._tenant_depth(req.tenant_id) >= cap:
+                raise TenantOverLimit(
+                    f"tenant {req.tenant_id!r} at queue cap {cap}")
             rid = req.request_id or f"req-{next(self._ids)}"
             now = time.monotonic()
-            self._queue.append(_Live(
+            self._queue_push(_Live(
                 req=req, request_id=rid, submit_t=now,
                 deadline_t=None if req.deadline_s is None
                 else now + req.deadline_s))
@@ -139,6 +228,7 @@ class Scheduler:
         """One serving iteration. -> tokens decoded (0 when idle)."""
         with self._lock:
             self._expire_queued()
+            self._expire_preempted()
             self._admit()
             emitted = self._decode() if self._live else 0
             self._admit()
@@ -156,44 +246,272 @@ class Scheduler:
 
     def has_work(self) -> bool:
         with self._lock:
-            return bool(self._queue or self._live)
+            return bool(self._queued_n or self._live or self._preempted)
 
     @property
     def queue_depth(self) -> int:
+        """Queued requests, all lanes and tenants."""
         with self._lock:
-            return len(self._queue)
+            return self._queued_n
+
+    @property
+    def parked_count(self) -> int:
+        """Requests parked for a KV migration: always 0 here (the
+        migration's ``prefill_only`` path is not ported)."""
+        return 0
+
+    @property
+    def preempted_count(self) -> int:
+        with self._lock:
+            return len(self._preempted)
+
+    def tenant_queue_depths(self) -> Dict[str, int]:
+        """Queued requests by tenant, across lanes (empty when nothing is
+        queued)."""
+        with self._lock:
+            out: Dict[str, int] = {}
+            for lane in self._lanes.values():
+                for tenant, dq in lane.items():
+                    out[tenant] = out.get(tenant, 0) + len(dq)
+            return out
+
+    # ----------------------------------------------- WFQ queue plumbing
+    def _tenant_depth(self, tenant: str) -> int:
+        """[holds: _lock]"""
+        return sum(len(lane[tenant]) for lane in self._lanes.values()
+                   if tenant in lane)
+
+    def _queue_push(self, live: _Live) -> None:
+        """[holds: _lock]"""
+        pri, tenant = live.req.priority, live.req.tenant_id
+        lane = self._lanes.setdefault(pri, {})
+        if not lane:
+            # An idle lane re-enters at the current virtual time: it earned
+            # no credit while empty.
+            self._lane_vt[pri] = max(self._lane_vt.get(pri, 0.0),
+                                     self._vt_now)
+        dq = lane.get(tenant)
+        if dq is None:
+            lane[tenant] = dq = collections.deque()
+            self._lane_rr.setdefault(pri, collections.deque()).append(tenant)
+        dq.append(live)
+        self._queued_n += 1
+
+    def _pick_lane(self) -> Optional[str]:
+        """[holds: _lock] The non-empty lane with the smallest virtual
+        time; priority order breaks ties."""
+        best = None
+        for pri in PRIORITIES:
+            if pri not in self._lanes:
+                continue
+            vt = self._lane_vt.get(pri, 0.0)
+            if best is None or vt < best[0]:
+                best = (vt, pri)
+        return None if best is None else best[1]
+
+    def _peek_next(self) -> Optional[_Live]:
+        """[holds: _lock] The request :meth:`_pop_next` would grant."""
+        pri = self._pick_lane()
+        if pri is None:
+            return None
+        return self._lanes[pri][self._lane_rr[pri][0]][0]
+
+    def _pop_next(self) -> Optional[_Live]:
+        """[holds: _lock] Grant one admission: pop the pick, advance its
+        lane's clock by 1/weight, rotate the lane's tenant ring."""
+        pri = self._pick_lane()
+        if pri is None:
+            return None
+        ring = self._lane_rr[pri]
+        tenant = ring[0]
+        dq = self._lanes[pri][tenant]
+        live = dq.popleft()
+        self._queued_n -= 1
+        ring.rotate(-1)
+        if not dq:
+            del self._lanes[pri][tenant]
+            ring.remove(tenant)
+            if not self._lanes[pri]:
+                del self._lanes[pri]
+                del self._lane_rr[pri]
+        vt = self._lane_vt.get(pri, 0.0)
+        self._vt_now = max(self._vt_now, vt)
+        self._lane_vt[pri] = vt + 1.0 / self._weights[pri]
+        return live
 
     # -------------------------------------------------------- internals
     def _expire_queued(self) -> None:
+        """[holds: _lock]"""
         now = time.monotonic()
-        kept: Deque[_Live] = collections.deque()
-        for live in self._queue:
-            if live.deadline_t is not None and now >= live.deadline_t:
-                self._finish(live, FinishReason.DEADLINE)
-            else:
-                kept.append(live)
-        self._queue = kept
+        for pri in list(self._lanes):
+            lane = self._lanes[pri]
+            ring = self._lane_rr[pri]
+            for tenant in list(lane):
+                kept: Deque[_Live] = collections.deque()
+                for live in lane[tenant]:
+                    if live.deadline_t is not None and now >= live.deadline_t:
+                        self._finish(live, FinishReason.DEADLINE)
+                        self._queued_n -= 1
+                    else:
+                        kept.append(live)
+                if kept:
+                    lane[tenant] = kept
+                else:
+                    del lane[tenant]
+                    ring.remove(tenant)
+            if not lane:
+                del self._lanes[pri]
+                del self._lane_rr[pri]
+
+    def _expire_preempted(self) -> None:
+        """[holds: _lock] A deadline keeps running while a request is
+        suspended: it retires with the tokens it already has."""
+        now = time.monotonic()
+        for rid in [r for r, live in self._preempted.items()
+                    if live.deadline_t is not None
+                    and now >= live.deadline_t]:
+            self._finish(self._preempted.pop(rid), FinishReason.DEADLINE)
+
+    # ------------------------------------------------------- preemption
+    def _peek_preempted(self) -> Optional[_Live]:
+        """[holds: _lock] The suspended request to resume next: highest
+        priority first, oldest submit within it."""
+        if not self._preempted:
+            return None
+        return min(self._preempted.values(),
+                   key=lambda live: (_PRIORITY_RANK[live.req.priority],
+                                     live.submit_t, live.request_id))
+
+    def _pop_preempted(self, request_id: str) -> _Live:
+        """[holds: _lock]"""
+        return self._preempted.pop(request_id)
+
+    def _slo_burning(self) -> bool:
+        """[holds: _lock] True when the wired tracker burns its error
+        budget faster than it earns it."""
+        return (self.slo_tracker is not None
+                and self.slo_tracker.burn_rate() > 1.0)
+
+    def _maybe_preempt(self, target: _Live, already: int) -> bool:
+        """[holds: _lock] Free capacity for ``target`` by suspending one
+        live decode of strictly lower priority whose preemption budget is
+        not spent: the lowest class first, the least progressed within
+        it. One a pass (``already`` so far) unless the SLO is burning,
+        then up to the whole batch. False when preemption is off or no
+        victim qualifies."""
+        cfg = self.engine.cfg
+        if not cfg.preemption:
+            return False
+        if already >= (len(self._live) if self._slo_burning() else 1):
+            return False
+        rank = _PRIORITY_RANK[target.req.priority]
+        victim = None
+        for slot, live in self._live.items():
+            if _PRIORITY_RANK[live.req.priority] <= rank:
+                continue
+            if live.preempt_count >= cfg.preemption_budget:
+                continue
+            key = (-_PRIORITY_RANK[live.req.priority], len(live.tokens), slot)
+            if victim is None or key < victim[0]:
+                victim = (key, slot, live)
+        if victim is None:
+            return False
+        self._preempt(victim[1], victim[2])
+        return True
+
+    def _preempt(self, slot: int, live: _Live) -> None:
+        """[holds: _lock] Suspend one live decode: on the paged layout
+        with the prefix cache and LRU eviction, index its blocks (prompt
+        and every emitted token) in the trie, where admission pressure may
+        evict them; free the slot (and the draft pool's, through the
+        mirror); park the request for resume. Elsewhere nothing is
+        indexed and the resume re-prefills cold (trie references under
+        ``kv_eviction="none"`` would pin blocks for good)."""
+        pool = self.engine.pool
+        if (self.engine.paged and pool.prefix_cache_enabled
+                and pool.eviction == "lru"):
+            pool.register_prefix(slot, list(live.req.prompt) + live.tokens)
+        del self._live[slot]
+        pool.free(slot)
+        live.preempt_count += 1
+        self._preempted[live.request_id] = live
+        self.preemptions += 1
+
+    def _resume_one(self, live: _Live) -> None:
+        """[holds: _lock] Re-admit a suspended request: prefill its
+        context (prompt and emitted tokens) into a fresh slot with the
+        remaining budget. A greedy stream continues as an uninterrupted
+        run would; a prefill failure retires the request."""
+        pool = self.engine.pool
+        self._pop_preempted(live.request_id)
+        slot = pool.alloc()
+        req = live.req
+        try:
+            self.engine.prefill(
+                slot, list(req.prompt) + live.tokens, seed=req.seed,
+                temperature=req.temperature, top_k=req.top_k,
+                top_p=req.top_p, eos_id=req.eos_id,
+                max_new_tokens=req.max_new_tokens - len(live.tokens))
+        except Exception as e:
+            pool.free(slot)
+            self._finish(live, FinishReason.ERROR,
+                         error=f"resume prefill failed: "
+                               f"{type(e).__name__}: {e}")
+            return
+        self.resumes += 1
+        self._live[slot] = live
 
     def _admit(self) -> None:
-        """Grant free slots to the queue head while its worst-case (no
-        prefix hit) prefill fits the free plus reclaimable blocks; if it
-        cannot fit and nothing in flight will ever free a block, retire it
-        with a typed error instead of waiting forever."""
+        """[holds: _lock] One admission pass: grant free slots to the WFQ
+        pick among queued requests and the suspended ones (a suspended
+        request outranks a queued pick of equal or lower priority),
+        preempting a lower-priority decode when the pick finds no slot or
+        no blocks. On the paged layout a pick waits while its worst-case
+        (no prefix hit) prefill exceeds the free plus reclaimable blocks;
+        if nothing in flight will ever free one, it retires with a typed
+        error instead of waiting forever."""
         pool = self.engine.pool
-        while self._queue and pool.num_free:
-            head = self._queue[0]
-            need = self.engine.prefill_blocks_needed(len(head.req.prompt))
-            if pool.available_blocks() < need:
-                if self._live:
+        preempts = 0
+        while True:
+            cand = self._peek_next()
+            pre = self._peek_preempted()
+            use_pre = pre is not None and (
+                cand is None or _PRIORITY_RANK[pre.req.priority]
+                <= _PRIORITY_RANK[cand.req.priority])
+            target = pre if use_pre else cand
+            if target is None:
+                break
+            if not pool.num_free:
+                if not self._maybe_preempt(target, preempts):
                     break
-                self._queue.popleft()
-                self._finish(head, FinishReason.ERROR,
-                             error=f"kv blocks exhausted: need {need}, "
-                                   f"{pool.available_blocks()} reclaimable")
+                preempts += 1
                 continue
-            self._admit_one(self._queue.popleft())
+            if self.engine.paged:
+                ctx = len(target.req.prompt) + (len(target.tokens)
+                                                if use_pre else 0)
+                need = self.engine.prefill_blocks_needed(ctx)
+                if pool.available_blocks() < need:
+                    if self._maybe_preempt(target, preempts):
+                        preempts += 1
+                        continue
+                    if not self._live:
+                        if use_pre:
+                            self._pop_preempted(target.request_id)
+                        else:
+                            self._pop_next()
+                        self._finish(
+                            target, FinishReason.ERROR,
+                            error=f"kv blocks exhausted: need {need}, "
+                                  f"{pool.available_blocks()} reclaimable")
+                        continue
+                    break
+            if use_pre:
+                self._resume_one(target)
+            else:
+                self._admit_one(self._pop_next())
 
     def _admit_one(self, live: _Live) -> None:
+        """[holds: _lock]"""
         pool = self.engine.pool
         slot = pool.alloc()
         req = live.req
@@ -213,9 +531,9 @@ class Scheduler:
         self._live[slot] = live
 
     def _dispatch(self, active: np.ndarray):
-        """``engine.step`` with block exhaustion as backpressure: retire
-        the row that could not grow, free its blocks, re-dispatch the
-        rest. None when that retired every row."""
+        """[holds: _lock] ``engine.step`` with block exhaustion as
+        backpressure: retire the row that could not grow, free its blocks,
+        re-dispatch the rest. None when that retired every row."""
         while True:
             try:
                 return self.engine.step(active)
@@ -232,7 +550,9 @@ class Scheduler:
                     return None
 
     def _decode(self) -> int:
+        """[holds: _lock]"""
         horizon = self.engine.cfg.decode_horizon
+        speculative = self.engine.spec is not None
         active = np.zeros((self.engine.cfg.max_batch_size,), bool)
         for slot in self._live:
             active[slot] = True
@@ -260,8 +580,14 @@ class Scheduler:
                 live.tokens.append(tok)
                 emitted += 1
                 if live.ttft_s is None:
-                    # The first token lands at its step within the block.
-                    live.ttft_s = (t0 - live.submit_t) + dt * (i + 1) / horizon
+                    # The first token lands at its place within the block:
+                    # its step of the horizon, or, speculative, its place
+                    # among the row's emitted tokens.
+                    denom = e if speculative else horizon
+                    live.ttft_s = (t0 - live.submit_t) + dt * (i + 1) / denom
+                # The block's time split over the tokens it emitted the
+                # row, one sample a token.
+                self.tpot_s.append(dt / e)
                 if self.on_token is not None:
                     self.on_token(live.request_id, tok)
                 if live.req.eos_id is not None and tok == live.req.eos_id:
@@ -283,6 +609,7 @@ class Scheduler:
 
     def _finish(self, live: _Live, reason: str,
                 error: Optional[str] = None) -> None:
+        """[holds: _lock]"""
         result = RequestResult(
             request_id=live.request_id, tokens=live.tokens,
             finish_reason=reason, ttft_s=live.ttft_s,

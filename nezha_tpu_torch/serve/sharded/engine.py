@@ -27,7 +27,8 @@ weights are never gathered whole on one device: ``model`` then gives
 the structure, and its replicated parameters are set from shard 0.
 
 Not ported (each refused or absent, see ROADMAP): speculative decoding
-under the mesh, migration's gather-on-export, the ``obs`` gauges and
+and ``decode_impl="xla"`` under the mesh (:class:`NotPortedError`),
+migration's gather-on-export, the ``obs`` gauges and
 counters, ``faults`` points, the ``NEZHA_NO_*`` environment switches.
 """
 
@@ -35,6 +36,7 @@ from __future__ import annotations
 
 from typing import Optional, Sequence
 
+from nezha_tpu_torch.errors import NotPortedError
 from nezha_tpu_torch.parallel.mesh import make_mesh
 from nezha_tpu_torch.serve.engine import Engine, ServeConfig
 from nezha_tpu_torch.serve.sharded.model import ShardedGPT2
@@ -58,6 +60,13 @@ class ShardedEngine(Engine):
         if cfg.kv_layout != "paged":
             raise ValueError("the sharded engine requires kv_layout='paged': "
                              "the dense layout has no head-sharded pool")
+        if cfg.speculative is not None:
+            raise NotPortedError("speculative decoding under a mesh is not "
+                                 "ported (ROADMAP A6)")
+        if cfg.decode_impl == "xla":
+            raise NotPortedError("decode_impl='xla' under a mesh is not "
+                                 "ported: the sharded engine decodes through "
+                                 "the paged kernels")
         self._seq_active = cfg.prefill_mode == "sequence"
         self._seq_variant = None
         if self._seq_active:
@@ -94,13 +103,14 @@ class ShardedEngine(Engine):
                                      shards=shards), cfg)
 
     # ------------------------------------------------------------- hooks
-    def _make_paged_pool(self, model_cfg) -> ShardedPagedSlotPool:
+    def _make_paged_pool(self, model_cfg, *, num_blocks, prefix_cache,
+                         eviction) -> ShardedPagedSlotPool:
         cfg = self.cfg
         return ShardedPagedSlotPool(
             model_cfg, cfg.max_batch_size, cfg.max_len, cfg.cache_dtype,
             mesh=self.mesh, block_size=cfg.kv_block_size,
-            num_blocks=cfg.kv_num_blocks, prefix_cache=cfg.prefix_cache,
-            eviction=cfg.kv_eviction, quantized=cfg.kv_dtype == "int8")
+            num_blocks=num_blocks, prefix_cache=prefix_cache,
+            eviction=eviction, quantized=cfg.kv_dtype == "int8")
 
     def _rows(self, tables):
         """Per layer ``{"shards": [...]}``: each shard's cache dict with

@@ -1,13 +1,25 @@
-"""The block-paged KV pool for the serving engine (counterpart of
-``PrefixTrie`` and ``PagedSlotPool`` in ``nezha_tpu/serve/slots.py``, bf16,
-f32 and int8 pools).
+"""KV pools for the serving engine (counterpart of
+``nezha_tpu/serve/slots.py``): the dense :class:`SlotPool` and the
+block-paged :class:`PagedSlotPool` with its :class:`PrefixTrie` (bf16, f32
+and int8 pools). Both share one slot-level contract (``alloc``/``free``/
+``num_free``/``occupancy``), which is the scheduler's whole view.
 
-Device state is one ``{"k", "v"}`` dict per layer of pools shaped
-``[num_blocks, H, block_size, D]``; an int8 pool (``quantized=True``)
-adds ``{"k_scale", "v_scale"}``, one fp32 scale per (block, head),
-``[num_blocks, H]``, so that every move of a block (the copy-on-write
-copy) moves its scales with it. Unlike JAX's immutable arrays these
-tensors are updated IN PLACE: the model's cache path scatters each
+The dense pool holds one ``{"k", "v"}`` dict per layer of buffers shaped
+``[capacity, H, max_len, D]``: one worst-case reservation per admitted
+request, with no blocks, no prefix cache and no eviction.
+
+A pool's ``mirror`` is a second pool shadowing its slot lifecycle (the
+speculative engine's draft KV pool): ``alloc`` claims the same slot index
+in the mirror and ``free`` frees it there in the same call, so the
+draft's cache rows for a request always live at the target's slot, and
+``leak_check`` audits both.
+
+The paged pool's device state is one ``{"k", "v"}`` dict per layer of
+pools shaped ``[num_blocks, H, block_size, D]``; an int8 pool
+(``quantized=True``) adds ``{"k_scale", "v_scale"}``, one fp32 scale per
+(block, head), ``[num_blocks, H]``, so that every move of a block (the
+copy-on-write copy) moves its scales with it. Unlike JAX's immutable
+arrays these tensors are updated IN PLACE: the model's cache path scatters each
 dispatch's K/V into them, and copy-on-write copies one block over another
 where it lies. Host state is the block free list, per-block reference
 counts, per-slot block tables (``tables_host [capacity, blocks_per_slot]``
@@ -45,6 +57,119 @@ class KVBlocksExhausted(RuntimeError):
     def __init__(self, msg: str, slot: Optional[int] = None):
         super().__init__(msg)
         self.slot = slot
+
+
+class SlotPool:
+    """The dense layout: per-layer ``{"k", "v"}`` buffers ``[capacity, H,
+    max_len, D]`` in ``dtype`` on ``device`` (zeroed), and a LIFO free
+    list of slot indices. The model's dense cache path writes a slot's
+    rows IN PLACE through :func:`read_slot`'s view."""
+
+    paged = False
+    quantized = False
+
+    def __init__(self, model_cfg, capacity: int, max_len: int,
+                 dtype: torch.dtype = torch.bfloat16, device="cuda"):
+        if capacity < 1:
+            raise ValueError(f"capacity must be >= 1, got {capacity}")
+        if max_len < 1:
+            raise ValueError(f"max_len must be >= 1, got {max_len}")
+        self.capacity = capacity
+        self.max_len = max_len
+        self.dtype = dtype
+        heads = model_cfg.num_heads
+        d = model_cfg.hidden_size // heads
+        self._slot_bytes = (2 * model_cfg.num_layers * heads * max_len * d
+                            * dtype.itemsize)
+        shape = (capacity, heads, max_len, d)
+        self.caches = [{"k": torch.zeros(shape, dtype=dtype, device=device),
+                        "v": torch.zeros(shape, dtype=dtype, device=device)}
+                       for _ in range(model_cfg.num_layers)]
+        self._free: List[int] = list(range(capacity - 1, -1, -1))
+        self.mirror = None
+
+    def alloc(self) -> Optional[int]:
+        """-> a free slot index, or None when every slot is occupied."""
+        slot = self._free.pop() if self._free else None
+        if slot is not None and self.mirror is not None:
+            self.mirror.claim(slot)
+        return slot
+
+    def claim(self, slot: int) -> None:
+        """Take a SPECIFIC free slot (the mirror path: the leader pool
+        chose the index). Raises ValueError when the slot is not free."""
+        self._free.remove(slot)
+
+    def free(self, slot: int) -> None:
+        if not 0 <= slot < self.capacity:
+            raise ValueError(f"slot {slot} out of range [0, {self.capacity})")
+        if slot in self._free:
+            raise ValueError(f"slot {slot} is already free (double free)")
+        self._free.append(slot)
+        if self.mirror is not None:
+            self.mirror.free(slot)
+
+    @property
+    def num_free(self) -> int:
+        return len(self._free)
+
+    @property
+    def num_active(self) -> int:
+        return self.capacity - len(self._free)
+
+    @property
+    def occupancy(self) -> float:
+        return self.num_active / self.capacity
+
+    @property
+    def blocks_used(self) -> int:
+        """Reserved rows in slot units (a dense pool has no blocks)."""
+        return self.num_active
+
+    @property
+    def bytes_resident(self) -> int:
+        """A worst-case ``max_len`` K/V row pair per active slot."""
+        return self.num_active * self._slot_bytes
+
+    def leak_check(self) -> None:
+        """Assert the free list holds distinct in-range slots, and that a
+        mirror's free list agrees slot for slot (its own books checked
+        too)."""
+        if (len(set(self._free)) != len(self._free)
+                or not all(0 <= s < self.capacity for s in self._free)):
+            raise AssertionError(f"slot free list corrupt: {self._free}")
+        _check_mirror(self, self._free)
+
+
+def read_slot(pool_leaf: torch.Tensor, slot: int) -> torch.Tensor:
+    """One slot's rows of a pooled dense cache leaf ``[capacity, H, L,
+    D]`` -> ``[1, H, L, D]``, a VIEW: the model's in-place cache writes
+    through it land in the pool."""
+    return pool_leaf.narrow(0, slot, 1)
+
+
+def write_slot(pool_leaf: torch.Tensor, chunk_leaf: torch.Tensor,
+               slot: int) -> torch.Tensor:
+    """Write ``chunk_leaf [1, H, P, D]`` (``P <= L``) over the first ``P``
+    positions of ``slot``'s rows, IN PLACE, cast to the pool dtype. ->
+    ``pool_leaf``."""
+    pool_leaf[slot:slot + 1, :, :chunk_leaf.shape[2]] = chunk_leaf.to(
+        pool_leaf.dtype)
+    return pool_leaf
+
+
+def _check_mirror(pool, free_slots) -> None:
+    """The mirror column of ``leak_check``: the mirror's free slots equal
+    ``free_slots`` (lifecycle lockstep), and its own books balance."""
+    mirror = pool.mirror
+    if mirror is None:
+        return
+    theirs = (mirror._free_slots if isinstance(mirror, PagedSlotPool)
+              else mirror._free)
+    if sorted(theirs) != sorted(free_slots):
+        raise AssertionError(f"draft pool slot drift: mirror free "
+                             f"{sorted(theirs)} != {sorted(free_slots)}")
+    mirror.leak_check()
 
 
 class _TrieNode:
@@ -217,6 +342,7 @@ class PagedSlotPool:
         self.trie = PrefixTrie(block_size)
         self.cow_copies = 0
         self.prefix_hits = 0
+        self.mirror = None
 
     def _alloc_layer(self, heads: int, d: int, kv_dtype: torch.dtype,
                      device):
@@ -240,16 +366,27 @@ class PagedSlotPool:
     # ------------------------------------------------------ slot layer
     def alloc(self) -> Optional[int]:
         """-> a free slot index (holding no blocks), or None."""
-        return self._free_slots.pop() if self._free_slots else None
+        slot = self._free_slots.pop() if self._free_slots else None
+        if slot is not None and self.mirror is not None:
+            self.mirror.claim(slot)
+        return slot
+
+    def claim(self, slot: int) -> None:
+        """Take a SPECIFIC free slot (the mirror path). Raises ValueError
+        when the slot is not free."""
+        self._free_slots.remove(slot)
 
     def free(self, slot: int) -> None:
-        """Release the slot and drop its block references."""
+        """Release the slot and drop its block references; a mirror frees
+        the same slot, and its own blocks, in the same call."""
         if not 0 <= slot < self.capacity:
             raise ValueError(f"slot {slot} out of range [0, {self.capacity})")
         if slot in self._free_slots:
             raise ValueError(f"slot {slot} is already free (double free)")
         self.release_blocks(slot)
         self._free_slots.append(slot)
+        if self.mirror is not None:
+            self.mirror.free(slot)
 
     def release_blocks(self, slot: int) -> None:
         """Drop the slot's block references without freeing the slot."""
@@ -261,6 +398,14 @@ class PagedSlotPool:
     @property
     def num_free(self) -> int:
         return len(self._free_slots)
+
+    @property
+    def num_active(self) -> int:
+        return self.capacity - len(self._free_slots)
+
+    @property
+    def occupancy(self) -> float:
+        return self.num_active / self.capacity
 
     # ----------------------------------------------------- block layer
     @property
@@ -396,7 +541,8 @@ class PagedSlotPool:
         blocks cover the pool. An int8 pool must also still hold int8
         pools and both ``[num_blocks, H]`` scale buffers in every layer:
         a block and its scales share one index, which is what makes
-        copy-on-write and freeing carry the scales."""
+        copy-on-write and freeing carry the scales. A mirror's free slots
+        must agree with this pool's, and its books balance too."""
         if self.quantized:
             for li, layer in self.layer_states():
                 for kv in ("k", "v"):
@@ -433,3 +579,4 @@ class PagedSlotPool:
             raise AssertionError(
                 f"KV block leak: {n_free} free + {n_held} held != "
                 f"{self.num_blocks - 1} allocatable")
+        _check_mirror(self, self._free_slots)

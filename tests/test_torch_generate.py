@@ -31,7 +31,6 @@ from nezha_tpu.models.gpt2 import GPT2Config as JaxGPT2Config
 from nezha_tpu.ops.pallas.decode_attention import \
     flash_decode_attention as jax_flash_decode
 from nezha_tpu_torch.cli import generate as cli_generate
-from nezha_tpu_torch.errors import NotPortedError
 from nezha_tpu_torch.models import (GPT2, GPT2Config, generate, init_cache,
                                     params_from_jax)
 from nezha_tpu_torch.models.generate import _sample
@@ -172,12 +171,43 @@ def test_dense_cache_forward_matches_jax(attn_impl, decode_impl):
 
 
 def test_dense_cache_refuses_speculative_windows():
-    tm = GPT2(GPT2Config(**TINY_GPT2_KW), device="cpu")
-    cache = init_cache(tm, 2, 16, torch.float32)
-    with pytest.raises(NotPortedError, match="speculative"):
-        with torch.no_grad():
-            tm(torch.zeros(2, 3, dtype=torch.long), cache=cache,
-               pos=torch.tensor([4, 5]))
+    """A speculative verify window on the dense cache (3 tokens a row at
+    per-row positions; once refused, ported now): logits within 1e-4 of
+    JAX's ``GPT2.apply`` (f32), the cache within 1e-5 of JAX's after the
+    write, and what JAX drops (positions past capacity, every position
+    of a non-emitting row) left exactly as it was."""
+    jm, jv, tm = _pair()
+    cfg = tm.cfg
+    cap, b = 7, 3
+    shape = (b, cfg.num_heads, cap, cfg.hidden_size // cfg.num_heads)
+    rng = np.random.RandomState(3)
+    init = [{"k": rng.randn(*shape).astype(np.float32),
+             "v": rng.randn(*shape).astype(np.float32)}
+            for _ in range(cfg.num_layers)]
+    tokens = rng.randint(0, 512, (b, 3))
+    pos = np.asarray([2, 5, 1], np.int32)          # row 1: 7 and 8 past L
+    active = np.asarray([True, True, False])
+    want, states = jm.apply(
+        jv, jnp.asarray(tokens),
+        cache=[{k: jnp.asarray(x) for k, x in c.items()} for c in init],
+        pos=jnp.asarray(pos), active=jnp.asarray(active))
+    tcache = [{k: torch.from_numpy(x.copy()) for k, x in c.items()}
+              for c in init]
+    with torch.no_grad():
+        got = tm(torch.from_numpy(tokens), cache=tcache,
+                 pos=torch.from_numpy(pos), active=torch.from_numpy(active))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-4,
+                               rtol=0)
+    untouched = np.ones((b, cap), bool)
+    untouched[0, 2:5] = untouched[1, 5:7] = False
+    for i, (c0, tc) in enumerate(zip(init, tcache)):
+        jc = states[f"h{i}"]["attn"]["cache"]
+        for kv in ("k", "v"):
+            np.testing.assert_allclose(tc[kv].numpy(), np.asarray(jc[kv]),
+                                       atol=1e-5, rtol=0)
+            kept = tc[kv].numpy().transpose(0, 2, 1, 3)[untouched]
+            np.testing.assert_array_equal(
+                kept, c0[kv].transpose(0, 2, 1, 3)[untouched])
 
 
 # --------------------------------------------------------------- generate

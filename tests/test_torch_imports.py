@@ -117,3 +117,19 @@ def test_dist_test_worker_imports_no_jax():
     bad = [(line, mod) for line, mod in _imported_roots(tree)
            if mod in FORBIDDEN]
     assert not bad, f"{rel} imports {bad}"
+
+
+# Single-device serving: the engine (speculative decoding, the dense
+# layout), its pools, the sampling pieces, the scheduler (WFQ lanes,
+# tenant caps, preemption) and the CLI over them.
+SERVE_MODULES = ("serve/engine.py", "serve/scheduler.py", "serve/slots.py",
+                 "serve/sampling.py", "cli/serve.py", "models/gpt2.py")
+
+
+@pytest.mark.parametrize("rel", SERVE_MODULES)
+def test_serve_modules_are_guarded(rel):
+    path = os.path.join("nezha_tpu_torch", *rel.split("/"))
+    assert path in PORT_FILES
+    with open(os.path.join(ROOT, path)) as f:
+        tree = ast.parse(f.read(), filename=path)
+    assert not [mod for _, mod in _imported_roots(tree) if mod in FORBIDDEN]

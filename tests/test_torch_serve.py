@@ -173,14 +173,30 @@ def test_sampled_support_respects_top_k():
     assert set(toks.tolist()) == allowed
 
 
-@pytest.mark.parametrize("field,value", [
-    ("kv_host_blocks", 4), ("speculative", {}),
-    ("kv_layout", "dense"), ("priority_weights", {"interactive": 1}),
-    ("tenant_queue_cap", 2), ("preemption", True)])
-def test_out_of_slice_settings_refused_typed(field, value):
-    with pytest.raises(NotPortedError, match=field):
-        ServeConfig(**{field: value})
+@pytest.mark.parametrize("field,valid,invalid", [
+    ("kv_host_blocks", None, {"kv_host_blocks": 4}),
+    ("speculative", {}, {"speculative": {"draft_k": 0}}),
+    ("kv_layout", "dense", {"kv_layout": "ring"}),
+    ("priority_weights", {"interactive": 4, "batch": 2, "background": 1},
+     {"priority_weights": {"interactive": 1}}),
+    ("tenant_queue_cap", 2, {"tenant_queue_cap": 0}),
+    ("preemption", True, {"preemption": True, "preemption_budget": -1})])
+def test_out_of_slice_settings_refused_typed(field, valid, invalid):
+    """The host KV tier is still refused typed. The other settings this
+    test once refused are served now: a valid value builds a ServeConfig,
+    and an invalid one raises the ValueError JAX's ServeConfig raises."""
     assert issubclass(NotPortedError, ValueError)
+    if valid is None:
+        with pytest.raises(NotPortedError, match=field):
+            ServeConfig(**invalid)
+        return
+    assert ServeConfig(**{field: valid}) is not None
+    bad = list(invalid)[-1]
+    with pytest.raises(ValueError, match=bad) as info:
+        ServeConfig(**invalid)
+    assert not isinstance(info.value, NotPortedError)
+    with pytest.raises(ValueError, match=bad):
+        JaxServeConfig(**invalid)
 
 
 def test_serveconfig_kv_dtype_validation():
