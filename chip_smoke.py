@@ -274,6 +274,34 @@ Phases, each fatal on failure (non-zero exit, no result line):
    B9) do not, a clean ``leak_check()``, a prefix hit, and the same
    cross-check under INT8_SERVE_LOGIT_ATOL; it prints the largest
    per-chunk dequant error and both pools' bytes per block;
+5c. serve_wire (after the serve phase's speculative, dense and
+   scheduling modes, before 5b): GPT-2 124M at full width, blocks of 16,
+   ``max_len`` 1024. (a) The int8 host KV tier: two slots, the default
+   129-block pool, ``kv_host_blocks=WIRE_HOST_BLOCKS``; WIRE_CONVS seeded
+   conversations of WIRE_TURNS turns (a turn: the previous prompt, its
+   WIRE_NEW greedy tokens and WIRE_ADD new ones), each turn of all of
+   them submitted round robin, so that the others evict a
+   conversation's blocks between its turns; then the same traffic
+   without the tier. Demotions and promotions above 0 with the tier, 0
+   without, no failed promote, fewer B10 launches with the tier, a
+   clean ``leak_check()`` and ``cross_check`` of every request in both
+   runs; prints the tier's counts and bytes, each revisit's TTFT, and
+   the demote and promote device spans by CUDA events. (b) Migration in
+   one process, bf16 then int8: a ``prefill_only`` request parked on
+   engine A, exported, encoded, decoded (through JSON), installed on B
+   and ACKed; B serves it with exactly one prefill chunk (the tail, B9
+   or B10 a layer) and B7 or B8 a layer a step; int8 blocks arrive
+   bitwise; wire bytes against the pool's block bytes, each step's ms;
+   both pools leak-free and the tokens cross-checked. (c) Two
+   ``run_http`` servers on 127.0.0.1 in threads: a ``prefill_only`` POST
+   parks on A, a ``pull_from`` POST on B migrates and decodes it (A's
+   ``/healthz`` then shows no park), HTTP_STRAGGLERS long requests on B
+   and its drain event with HTTP_DRAIN_S: ``/healthz`` 503 "draining", a
+   new POST 503, the stragglers answered "deadline", the server thread
+   ended; every answer cross-checked, both pools leak-free. (d)
+   ``prefill_impl="xla"`` on bf16 and int8 pools with the serve phase's
+   eight prompts: no B9 or B10, B7 or B8 a layer a decode step, every
+   token cross-checked;
 5b. serve_seq: the same weights on ``ShardedEngine(mesh_devices=4,
    devices=[cuda:0] * 4)`` (one card, its four shards run one after
    another) with ``prefill_mode="sequence"``, ``seq_prefill_variant=
@@ -3787,6 +3815,425 @@ def serve_modes(card: str) -> dict:
     return paths
 
 
+# ----------------------------------------------------------- serve_wire
+# serve_wire (a): conversations, turns, their first prompts' lengths, the
+# new tokens a turn and the words a user adds; the host tier's budget.
+WIRE_CONVS, WIRE_TURNS = 6, 3
+WIRE_FIRST = (384, 640)
+WIRE_NEW, WIRE_ADD = 16, 48
+WIRE_HOST_BLOCKS = 512
+# (b) the migrated prompt; (c) the HTTP prompt, the stragglers' tokens,
+# their count and the drain budget: long enough for two requests to see
+# the draining server from outside while the decode thread holds the
+# interpreter most of the time (at 0.5 s the server was seen to shut down
+# before the second), and far shorter than the stragglers' decode (~30
+# ms a token for four streams).
+WIRE_PROMPT = 600
+HTTP_PROMPT, HTTP_NEW, HTTP_STRAGGLERS = 96, 400, 4
+HTTP_DRAIN_S = 2.0
+
+
+def wire_config(**kw):
+    """serve_wire's engine shape: two slots, 1024 positions, 256-wide
+    chunks, blocks of 16, the default (dense-equivalent, 129-block)
+    pool."""
+    from nezha_tpu_torch.serve import ServeConfig
+    return ServeConfig(**{**dict(max_batch_size=2, max_len=1024,
+                                 max_prefill_len=256, kv_block_size=16),
+                          **kw})
+
+
+class EventTimer:
+    """Wraps a pool method (the host tier's ``_demote``, ``_promote``)
+    with CUDA events on the current stream: the device span of the work
+    each call queues (the stream's idle gaps inside it included)."""
+
+    def __init__(self, obj, name: str):
+        self.pairs = []
+        inner = getattr(obj, name)
+
+        def timed(*a, **kw):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = inner(*a, **kw)
+            end.record()
+            self.pairs.append((start, end))
+            return out
+
+        setattr(obj, name, timed)
+
+    def ms(self) -> list:
+        torch.cuda.synchronize()
+        return [s.elapsed_time(e) for s, e in self.pairs]
+
+
+def host_tier_run(model, host_blocks: int, card: str):
+    """(a) WIRE_CONVS seeded conversations of WIRE_TURNS turns, each turn
+    of all of them submitted round robin and drained before the next: a
+    turn is the previous prompt, its WIRE_NEW greedy tokens and WIRE_ADD
+    new ones, so between a conversation's turns the others evict its
+    blocks. -> (stats, launches)."""
+    from nezha_tpu_torch.serve import (Engine, FinishReason, Request,
+                                       Scheduler)
+
+    engine = Engine(model, wire_config(kv_dtype="int8",
+                                       kv_host_blocks=host_blocks))
+    pool = engine.pool
+    demote, promote = EventTimer(pool, "_demote"), EventTimer(pool,
+                                                              "_promote")
+    sched = Scheduler(engine)
+    g = torch.Generator().manual_seed(3)
+    vocab = model.cfg.vocab_size
+
+    def toks(n):
+        return torch.randint(0, vocab, (n,), generator=g).tolist()
+
+    prompts = [toks(int(torch.randint(WIRE_FIRST[0], WIRE_FIRST[1] + 1,
+                                      (1,), generator=g)))
+               for _ in range(WIRE_CONVS)]
+    reqs, ttft = [], {}
+    torch.cuda.synchronize()
+    zero_serve_launches()
+    t0 = time.perf_counter()
+    for turn in range(WIRE_TURNS):
+        wave = [Request(prompt=p, max_new_tokens=WIRE_NEW,
+                        request_id=f"c{c}t{turn}")
+                for c, p in enumerate(prompts)]
+        for r in wave:
+            sched.submit(r)
+        sched.run_until_idle(max_iters=10_000)
+        for c, r in enumerate(wave):
+            res = sched.results[r.request_id]
+            if res.finish_reason != FinishReason.LENGTH:
+                fail(f"serve_wire tier {host_blocks}: {r.request_id} "
+                     f"finished {res.finish_reason}: {res.error}")
+            if turn:
+                ttft[r.request_id] = res.ttft_s
+            prompts[c] = list(r.prompt) + res.tokens + toks(WIRE_ADD)
+        reqs += wave
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = engine.kernel_launches()
+    pool.leak_check()
+    demote_ms, promote_ms = demote.ms(), promote.ms()
+    stats = {"kv_host_blocks": host_blocks, "wall_s": wall,
+             "demotions": pool.demotions, "promotions": pool.promotions,
+             "promote_failures": pool.promote_failures,
+             "host_blocks_used": pool.host_blocks_used,
+             "host_bytes_resident": pool.host_bytes_resident,
+             "prefix_hits": pool.prefix_hits,
+             "fleet_hits": dict(pool.fleet_hits),
+             "prefill_chunks": engine.prefill_chunks,
+             "revisit_ttft_s": ttft,
+             "demote_ms": {"calls": len(demote_ms),
+                           "mean": float(np.mean(demote_ms))
+                           if demote_ms else None,
+                           "max": max(demote_ms, default=None)},
+             "promote_ms": {"calls": len(promote_ms),
+                            "blocks": pool.promotions,
+                            "total": float(np.sum(promote_ms))
+                            if promote_ms else None,
+                            "max": max(promote_ms, default=None)},
+             "launches": launches, "card": card}
+    cross_check(model, sched, reqs, INT8_SERVE_LOGIT_ATOL)
+    return stats, launches
+
+
+def migrate_once(model, kv_dtype: str, card: str):
+    """(b) One prompt parked on engine A, exported, encoded, decoded,
+    installed on engine B and ACKed; B then serves it: its prefill runs
+    the tail chunk only (B9 or B10 a layer), its decode B7 or B8. Both
+    pools leak-free. -> (stats, B's launches)."""
+    from nezha_tpu_torch.serve import (Engine, FinishReason, Request,
+                                       Scheduler, migrate)
+
+    cfg = wire_config(kv_dtype=kv_dtype)
+    a, b = Scheduler(Engine(model, cfg)), Scheduler(Engine(model, cfg))
+    g = torch.Generator().manual_seed(4)
+    prompt = torch.randint(0, model.cfg.vocab_size, (WIRE_PROMPT,),
+                           generator=g).tolist()
+    a.submit(Request(prompt=prompt, max_new_tokens=MODES_NEW,
+                     request_id="m", prefill_only=True))
+    a.run_until_idle(max_iters=1000)
+    if (a.results["m"].finish_reason, a.parked_count) != (
+            FinishReason.PREFILLED, 1):
+        fail(f"serve_wire {kv_dtype}: the park answered "
+             f"{a.results['m'].finish_reason}, {a.parked_count} parked")
+    pool_a, bs = a.engine.pool, cfg.kv_block_size
+    slot = a._parked["m"][0]
+    nfull = len(prompt) // bs
+
+    def clock(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t0) * 1e3
+
+    (layers, nbytes), export_ms = clock(
+        lambda: pool_a.export_block_payload(slot, nfull))
+    wire, encode_ms = clock(lambda: migrate.encode_wire(
+        prompt[:nfull * bs], layers, bs))
+    if wire != a.export_parked("m"):
+        fail(f"serve_wire {kv_dtype}: export_parked's wire differs from "
+             f"the pool's export")
+    text = json.dumps(wire)
+    (tokens, got, wire_bytes), decode_ms = clock(
+        lambda: migrate.decode_wire(json.loads(text)))
+    installed, install_ms = clock(
+        lambda: b.install_migrated(tokens, got, wire_bytes))
+    if installed != nfull or not a.ack_parked("m") or a.parked_count:
+        fail(f"serve_wire {kv_dtype}: installed {installed} of {nfull} "
+             f"blocks, or the ACK did not release the park")
+    pool_b = b.engine.pool
+    if kv_dtype == "int8":
+        # int8 pools ship their blocks verbatim: B holds A's bytes.
+        blocks = pool_b.trie.match(prompt)
+        mine = pool_b._gather_wire(blocks)
+        for li, (x, y) in enumerate(zip(layers, mine)):
+            for key in x:
+                if not np.array_equal(x[key], y[key]):
+                    fail(f"serve_wire int8: layer {li} {key} changed in "
+                         f"the migration")
+    torch.cuda.synchronize()
+    zero_serve_launches()
+    req = Request(prompt=prompt, max_new_tokens=MODES_NEW, request_id="m")
+    b.submit(req)
+    b.run_until_idle(max_iters=1000)
+    torch.cuda.synchronize()
+    launches = b.engine.kernel_launches()
+    res = b.results["m"]
+    if res.finish_reason != FinishReason.LENGTH:
+        fail(f"serve_wire {kv_dtype}: the migrated request finished "
+             f"{res.finish_reason}: {res.error}")
+    layers_n = model.cfg.num_layers
+    int8 = kv_dtype == "int8"
+    expect_launches(f"serve_wire {kv_dtype} migration", launches, {
+        ("paged_quant_prefill" if int8 else "paged_prefill"): layers_n,
+        ("paged_quant_decode" if int8 else "paged_decode"):
+            layers_n * b.engine.step_calls})
+    pool_a.leak_check()
+    pool_b.leak_check()
+    stats = {"kv_dtype": kv_dtype, "prompt_len": len(prompt),
+             "blocks": nfull, "wire_payload_bytes": nbytes,
+             "wire_json_bytes": len(text),
+             "pool_block_bytes": nfull * pool_a.bytes_per_block,
+             "export_ms": export_ms, "encode_ms": encode_ms,
+             "decode_ms": decode_ms, "install_ms": install_ms,
+             "ttft_s": res.ttft_s, "migrations": b.migrations,
+             "migration_bytes": b.migration_bytes,
+             "launches": launches, "card": card}
+    cross_check(model, b, [req], INT8_SERVE_LOGIT_ATOL if int8
+                else SERVE_LOGIT_ATOL)
+    return stats, launches
+
+
+def http_call(port: int, method: str, path: str, obj=None):
+    import http.client
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=120)
+    try:
+        body = None if obj is None else json.dumps(obj).encode()
+        conn.request(method, path, body=body,
+                     headers={"Content-Type": "application/json"})
+        resp = conn.getresponse()
+        return resp.status, json.loads(resp.read())
+    finally:
+        conn.close()
+
+
+def http_drain(model, card: str):
+    """(c) Two ``run_http`` servers on 127.0.0.1 in threads of this
+    process: a ``prefill_only`` POST parks on A, a ``pull_from`` POST on
+    B migrates and decodes it (A's /healthz then shows no park); then
+    HTTP_STRAGGLERS long requests on B and its drain event with
+    HTTP_DRAIN_S: /healthz 503 "draining", a new POST 503, the
+    stragglers answered "deadline", the server thread ended. Every answer
+    against the reference; both pools leak-free. -> (stats, B's
+    launches)."""
+    from nezha_tpu_torch.cli import serve as serve_cli
+
+    args = serve_cli.build_parser().parse_args(
+        ["--random-init", "--drain-timeout", str(HTTP_DRAIN_S),
+         "--max-new-tokens", str(HTTP_NEW)])
+    servers = {}
+    try:
+        return http_checks(model, card, args, servers)
+    finally:
+        # A failed check must not leave a server whose threads keep the
+        # process alive.
+        for _, _, drain, _ in servers.values():
+            drain.set()
+        for _, _, _, th in servers.values():
+            th.join(60)
+
+
+def http_checks(model, card: str, args, servers: dict):
+    """http_drain's servers (registered in ``servers`` as they start) and
+    checks."""
+    import threading
+    import types
+
+    from nezha_tpu_torch.cli import serve as serve_cli
+    from nezha_tpu_torch.serve import Engine, RequestResult, Scheduler
+
+    for name in ("a", "b"):
+        sched = Scheduler(Engine(model, wire_config(max_batch_size=4)))
+        ready, drain = threading.Event(), threading.Event()
+        box = {}
+
+        def cb(srv, box=box, ready=ready):
+            box["port"] = srv.server_address[1]
+            ready.set()
+
+        th = threading.Thread(target=serve_cli.run_http,
+                              args=(sched, args, 0),
+                              kwargs=dict(ready_cb=cb, drain=drain),
+                              daemon=True)
+        th.start()
+        servers[name] = (sched, None, drain, th)
+        if not ready.wait(60):
+            fail(f"serve_wire http: server {name} did not start")
+        servers[name] = (sched, box["port"], drain, th)
+    sa, pa, drain_a, th_a = servers["a"]
+    sb, pb, drain_b, th_b = servers["b"]
+    g = torch.Generator().manual_seed(5)
+    prompt = torch.randint(0, model.cfg.vocab_size, (HTTP_PROMPT,),
+                           generator=g).tolist()
+    code, park = http_call(pa, "POST", "/generate", {
+        "id": "h", "prompt_tokens": prompt, "max_new_tokens": MODES_NEW,
+        "prefill_only": True})
+    if code != 200 or park["finish_reason"] != "prefilled":
+        fail(f"serve_wire http: the park answered {code} {park}")
+    torch.cuda.synchronize()
+    zero_serve_launches()
+    code, moved = http_call(pb, "POST", "/generate", {
+        "id": "h", "prompt_tokens": prompt, "max_new_tokens": MODES_NEW,
+        "pull_from": {"port": pa, "request_id": "h"}})
+    if code != 200 or moved.get("migration", {}).get("installed", 0) < 1 \
+            or not moved["migration"]["acked"]:
+        fail(f"serve_wire http: the pull answered {code} {moved}")
+    code, health_a = http_call(pa, "GET", "/healthz")
+    if code != 200 or health_a["parked"] != 0:
+        fail(f"serve_wire http: A's /healthz after the ACK: {code} "
+             f"{health_a}")
+    answers, threads = {}, []
+    for i in range(HTTP_STRAGGLERS):
+        def post(i=i):
+            answers[i] = http_call(pb, "POST", "/generate", {
+                "id": f"s{i}", "prompt_tokens": prompt[i:],
+                "max_new_tokens": HTTP_NEW})
+        threads.append(threading.Thread(target=post, daemon=True))
+        threads[-1].start()
+    t_end = time.monotonic() + 60
+    while sb.engine.pool.num_active < HTTP_STRAGGLERS:
+        if time.monotonic() > t_end:
+            fail("serve_wire http: the stragglers were never admitted")
+        time.sleep(0.005)
+    t_drain = time.perf_counter()
+    drain_b.set()
+    code, health_b = http_call(pb, "GET", "/healthz")
+    late = http_call(pb, "POST", "/generate", {"prompt_tokens": prompt})
+    for th in threads:
+        th.join(120)
+    th_b.join(60)
+    drain_wall = time.perf_counter() - t_drain
+    torch.cuda.synchronize()
+    launches = sb.engine.kernel_launches()
+    drain_a.set()
+    th_a.join(60)
+    if (code, health_b["status"]) != (503, "draining") or late[0] != 503:
+        fail(f"serve_wire http: during the drain /healthz answered {code} "
+             f"{health_b}, a new POST {late}")
+    if th_a.is_alive() or th_b.is_alive():
+        fail("serve_wire http: a server thread outlived its drain")
+    reasons = {i: a[1].get("finish_reason") for i, a in answers.items()}
+    if len(answers) != HTTP_STRAGGLERS or any(
+            a[0] != 200 for a in answers.values()) or set(
+            reasons.values()) != {"deadline"}:
+        fail(f"serve_wire http: stragglers answered {reasons}")
+    for name in ("paged_prefill", "paged_decode"):
+        if launches[name] <= 0:
+            fail(f"serve_wire http: {name} not launched ({launches})")
+    results = {"h": moved, **{f"s{i}": a[1] for i, a in answers.items()}}
+    reqs = [types.SimpleNamespace(request_id="h", prompt=prompt)] + [
+        types.SimpleNamespace(request_id=f"s{i}", prompt=prompt[i:])
+        for i in range(HTTP_STRAGGLERS) if answers[i][1]["tokens"]]
+    view = types.SimpleNamespace(engine=sb.engine, results={
+        r.request_id: RequestResult(r.request_id,
+                                    results[r.request_id]["tokens"],
+                                    results[r.request_id]["finish_reason"],
+                                    None, 0.0) for r in reqs})
+    cross_check(model, view, reqs, SERVE_LOGIT_ATOL)
+    sa.engine.pool.leak_check()
+    stats = {"migration": moved["migration"], "healthz_a": health_a,
+             "healthz_b_draining": health_b,
+             "straggler_tokens": {i: len(a[1]["tokens"])
+                                  for i, a in answers.items()},
+             "drain_wall_s": drain_wall, "launches": launches,
+             "card": card}
+    return stats, launches
+
+
+def prefill_xla(model, card: str):
+    """(d) ``prefill_impl="xla"``: the serve phase's eight prompts on
+    bf16 and int8 pools; no B9 or B10, B7 or B8 every decode step. ->
+    the launches of each."""
+    out, paths = {}, {}
+    for kv_dtype in ("bf16", "int8"):
+        cfg = modes_config(kv_dtype=kv_dtype, prefill_impl="xla")
+        engine, launches, stats = modes_run(model, cfg,
+                                            f"prefill_xla {kv_dtype}", card)
+        dec = ("paged_quant_decode" if kv_dtype == "int8"
+               else "paged_decode")
+        expect_launches(f"prefill_xla {kv_dtype}", launches, {
+            dec: model.cfg.num_layers * stats["step_calls"]})
+        out[kv_dtype] = stats
+        paths[f"serve_prefill_xla_{kv_dtype}"] = launches
+    return out, paths
+
+
+def serve_wire(card: str) -> dict:
+    """Phase 5c: the host KV tier, migration in one process, the HTTP
+    front end with a drain, and ``--prefill-impl xla``, GPT-2 124M at
+    full width. -> the launches of each path."""
+    from nezha_tpu_torch.cli.common import gpt2_for_preset
+
+    t0 = time.perf_counter()
+    model = gpt2_for_preset("full", seed=0, device="cuda")
+    model.eval()
+    paths = {}
+    tier, paths["serve_wire_tier"] = host_tier_run(model, WIRE_HOST_BLOCKS,
+                                                   card)
+    cold, paths["serve_wire_no_tier"] = host_tier_run(model, 0, card)
+    print(json.dumps({"serve_wire": {"tier": tier, "no_tier": cold}}),
+          flush=True)
+    if not (tier["demotions"] > 0 and tier["promotions"] > 0):
+        fail(f"serve_wire: the tier demoted {tier['demotions']}, promoted "
+             f"{tier['promotions']}")
+    if cold["demotions"] or cold["promotions"] or tier["promote_failures"]:
+        fail(f"serve_wire: without the tier {cold['demotions']} "
+             f"demotions, {cold['promotions']} promotions; "
+             f"{tier['promote_failures']} failed promotes")
+    b10 = "paged_quant_prefill"
+    if tier["launches"][b10] >= cold["launches"][b10]:
+        fail(f"serve_wire: {b10} launched {tier['launches'][b10]} times "
+             f"with the tier, {cold['launches'][b10]} without")
+    for kv_dtype in ("bf16", "int8"):
+        stats, paths[f"serve_wire_migrate_{kv_dtype}"] = migrate_once(
+            model, kv_dtype, card)
+        print(json.dumps({"serve_wire": {f"migrate_{kv_dtype}": stats}}),
+              flush=True)
+    stats, paths["serve_wire_http"] = http_drain(model, card)
+    print(json.dumps({"serve_wire": {"http": stats}}), flush=True)
+    stats, xla_paths = prefill_xla(model, card)
+    paths.update(xla_paths)
+    print(json.dumps({"serve_wire": {"prefill_xla": stats}}), flush=True)
+    print(json.dumps({"serve_wire_wall_s": time.perf_counter() - t0}),
+          flush=True)
+    return paths
+
+
 @torch.no_grad()
 def cross_check(model, sched, reqs, atol: float) -> None:
     """Every request against the no-cache causal forward with composed
@@ -5064,6 +5511,8 @@ def main() -> int:
     paths["serve_int8"] = serve(card, "int8")
     phase("serve_modes")
     paths.update(serve_modes(card))
+    phase("serve_wire")
+    paths.update(serve_wire(card))
     phase("serve_seq")
     seq = serve_seq(card)
     paths["serve_seq"] = seq["ring_bf16"]

@@ -1,8 +1,9 @@
-"""Serve GPT-2 from stdin JSONL — the port's counterpart of
-``nezha-serve``'s stdio front end.
+"""Serve GPT-2 over stdin JSONL or HTTP — the port's counterpart of
+``nezha-serve``'s single-replica front ends.
 
     python -m nezha_tpu_torch.cli.serve --random-init --model-preset full
     python -m nezha_tpu_torch.cli.serve --ckpt-dir C --tokenizer D
+    python -m nezha_tpu_torch.cli.serve --random-init --http 8000
 
 Weights come from ``--ckpt-dir`` (the newest checkpoint of either
 package's train CLI that verifies: a dense npz, else a per-shard
@@ -44,6 +45,35 @@ a verify window.
 A malformed line gets ``{"id": ..., "event": "error", "error": ...}``.
 The server exits once stdin closes and every request has finished.
 
+``--http PORT`` serves HTTP on 127.0.0.1 instead (stdlib
+``http.server``): ``POST /generate`` takes the same request object and
+answers once it finishes (503 ``queue_full`` or ``tenant_over_limit``
+under backpressure, 409 for an id already in flight), ``GET /healthz``
+reports liveness, occupancy, parks and the host tier. ``/stats``,
+``/windows`` and ``/metrics`` answer 501: the telemetry registry is not
+ported (ROADMAP A5).
+
+KV migration: a request with ``"prefill_only": true`` is prefilled and
+PARKED (it answers ``finish_reason`` ``"prefilled"``); another replica's
+``POST /generate`` with ``"pull_from": {"port": P, "request_id": R}``
+pulls its prompt blocks over ``/kv_export``, installs them, ACKs them
+over ``/kv_ack`` and decodes (the answer carries a ``migration`` block;
+a failed pull is 424 with its ``error_type``); ``{"resume": R}`` decodes
+a park where it lies. ``"pull_from": {"port": P, "tokens": [...]}`` is a
+peer pull of a cached prefix, which degrades to a cold prefill on
+failure (``fleet_pull``). ``--role`` is the replica's tier as
+``/healthz`` reports it. ``--kv-host-blocks N`` (int8 pools) keeps up
+to N evicted prefix blocks in host memory and promotes them back for a
+returning prompt. ``--prefill-impl xla`` prefills by the composed path
+instead of the flash-prefill kernels.
+
+SIGTERM or SIGINT starts a GRACEFUL DRAIN: admission closes (stdio
+answers a line read afterwards with a ``"draining"`` error; HTTP answers
+503 ``"draining"`` and ``/healthz`` turns 503), in-flight requests keep
+decoding for up to ``--drain-timeout`` seconds, stragglers retire with
+``finish_reason`` ``"deadline"``, and stdio ends with one
+``{"event": "drain", "cancelled": N}`` line.
+
 ``--mesh M`` serves from a :class:`~nezha_tpu_torch.serve.ShardedEngine`
 over M shards (the visible cards on ``cuda``; the CPU repeated on
 ``cpu``; ``--shard-device D`` puts every shard on D, e.g. M shards on
@@ -61,9 +91,13 @@ from __future__ import annotations
 
 import argparse
 import json
+import signal
 import sys
 import threading
 import time
+import uuid
+from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+from typing import Optional
 
 import torch
 
@@ -73,9 +107,10 @@ from nezha_tpu_torch.cli.common import (add_model_args, gpt2_for_preset,
 from nezha_tpu_torch.data.tokenizer import encode_plain
 from nezha_tpu_torch.errors import NotPortedError
 from nezha_tpu_torch.parallel.mesh import make_mesh
-from nezha_tpu_torch.serve import (Engine, QueueFull, Request, Scheduler,
-                                   ServeConfig, ShardedEngine,
-                                   SpeculativeConfig, TenantOverLimit)
+from nezha_tpu_torch.serve import (Engine, FinishReason, QueueFull, Request,
+                                   Scheduler, ServeConfig, ShardedEngine,
+                                   SpeculativeConfig, TenantOverLimit,
+                                   migrate)
 from nezha_tpu_torch.serve.sharded import ReshardError, reshard_checkpoint
 
 
@@ -100,6 +135,13 @@ def build_parser() -> argparse.ArgumentParser:
                    help="decode attention: auto/kernel = the flash-decode "
                         "kernels, xla = the composed masked path; default: "
                         "the model config's choice (auto)")
+    p.add_argument("--prefill-impl", choices=["auto", "kernel", "xla"],
+                   default=None,
+                   help="paged prefill attention: auto/kernel = the "
+                        "flash-prefill kernels (int8 pools fuse the block "
+                        "write into the kernel), xla = the composed masked "
+                        "path with the write by tensor ops; default: the "
+                        "model config's choice (auto)")
     p.add_argument("--long-prefill-buckets", default="",
                    help="comma-separated chunk widths above "
                         "--max-prefill-len (at most --max-len)")
@@ -128,6 +170,17 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--kv-num-blocks", type=int, default=None)
     p.add_argument("--prefix-cache", choices=["on", "off"], default="on")
     p.add_argument("--kv-eviction", choices=["lru", "none"], default="lru")
+    p.add_argument("--kv-host-blocks", type=int, default=0,
+                   help="host KV spill tier (requires --kv-dtype int8 "
+                        "+ --kv-eviction lru): evicted prefix-cache "
+                        "blocks demote their int8+scales payload into "
+                        "a host-RAM LRU of up to N blocks instead of "
+                        "being discarded, and a returning prefix hit "
+                        "promotes them back with an async host-to-"
+                        "device copy ahead of the prefill — turn-N+1 "
+                        "chat traffic pays one tail chunk, not a cold "
+                        "prefill; /healthz reports the tier's "
+                        "occupancy. 0 = off")
     p.add_argument("--cache-dtype", choices=["bf16", "f32"], default="bf16")
     p.add_argument("--kv-dtype", choices=["bf16", "int8"], default="bf16",
                    help="KV block storage: bf16 keeps --cache-dtype; int8 "
@@ -183,6 +236,22 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--max-new-tokens", type=int, default=32,
                    help="default and per-request cap")
     p.add_argument("--eos-id", type=int, default=None)
+    p.add_argument("--drain-timeout", type=float, default=30.0,
+                   help="graceful-drain budget in seconds after SIGTERM/"
+                        "SIGINT: admission closes at the signal, "
+                        "in-flight requests may finish within this "
+                        "window, stragglers retire with finish_reason "
+                        "'deadline'")
+    p.add_argument("--http", type=int, default=None, metavar="PORT",
+                   help="serve HTTP on PORT instead of stdio JSONL")
+    p.add_argument("--role", choices=["prefill", "decode", "both"],
+                   default="both",
+                   help="this replica's serving tier (surfaced in "
+                        "/healthz): 'prefill' members take admissions and "
+                        "park prompt KV for migration, 'decode' members "
+                        "pull migrated KV and stream tokens, 'both' "
+                        "(default) does everything — the role is routing "
+                        "metadata; every replica keeps the full engine")
     return p
 
 
@@ -276,11 +345,13 @@ def build_scheduler(args) -> Scheduler:
             seq_prefill_variant=args.seq_prefill_variant,
             decode_horizon=args.decode_horizon,
             decode_impl=args.decode_impl,
+            prefill_impl=args.prefill_impl,
             kv_layout=args.kv_layout,
             kv_block_size=args.kv_block_size,
             kv_num_blocks=args.kv_num_blocks,
             prefix_cache=args.prefix_cache == "on",
             kv_eviction=args.kv_eviction,
+            kv_host_blocks=args.kv_host_blocks,
             cache_dtype=(torch.float32 if args.cache_dtype == "f32"
                          else torch.bfloat16),
             kv_dtype=args.kv_dtype,
@@ -378,7 +449,9 @@ def parse_request(obj, args, vocab: int, tokenizer=None,
         eos_id=num("eos_id", int, eos_id),
         seed=num("seed", int, args.seed),
         deadline_s=num("deadline_s", float),
-        request_id=obj.get("id"))
+        request_id=obj.get("id"),
+        # Prefill and PARK for a migration instead of decoding here.
+        prefill_only=bool(obj.get("prefill_only", False)))
 
 
 def decode_text(tokens, tokenizer) -> str:
@@ -390,12 +463,54 @@ def decode_text(tokens, tokenizer) -> str:
                                                        errors="replace")
 
 
+def _result_obj(res, tokenizer) -> dict:
+    out = {"id": res.request_id, "event": "done", "tokens": res.tokens,
+           "text": decode_text(res.tokens, tokenizer),
+           "finish_reason": res.finish_reason, "ttft_s": res.ttft_s,
+           "latency_s": res.latency_s}
+    if res.error is not None:     # finish_reason "error": what broke
+        out["error"] = res.error
+    return out
+
+
+def _drain(scheduler: Scheduler, budget_s: float, drive: bool,
+           dead: Optional[threading.Event] = None,
+           abort: Optional[threading.Event] = None) -> int:
+    """The graceful drain both front ends share: keep decoding
+    (``drive=True`` steps the scheduler here; ``drive=False`` trusts a
+    live decode thread, whose death is ``dead``, and stops early on the
+    server's ``abort``) until in-flight work finishes or ``budget_s``
+    runs out, then cancel the stragglers with finish_reason "deadline",
+    or "error" when the decode loop died (nothing can finish after
+    that). -> requests cancelled."""
+    reason, error = FinishReason.DEADLINE, None
+    t_end = time.monotonic() + budget_s
+    while scheduler.has_work() and time.monotonic() < t_end:
+        if dead is not None and dead.is_set():
+            reason = FinishReason.ERROR
+            error = "decode loop died during drain"
+            break
+        if abort is not None and abort.is_set():
+            break
+        if drive:
+            if not scheduler.step():
+                time.sleep(0.002)
+        else:
+            time.sleep(0.005)
+    return scheduler.cancel_remaining(reason, error=error)
+
+
 def run_stdio(scheduler: Scheduler, args, stdin=None, stdout=None,
-              tokenizer=None) -> int:
+              tokenizer=None, drain: Optional[threading.Event] = None
+              ) -> int:
     """A reader thread feeds the queue as lines arrive (waiting for room:
-    stdin is the backpressure channel); this thread drives decoding."""
+    stdin is the backpressure channel); this thread drives decoding.
+    Setting ``drain`` (the signal handlers do) closes admission, finishes
+    in-flight work within ``--drain-timeout`` and writes one final
+    ``{"event": "drain", "cancelled": N}`` line."""
     stdin = stdin if stdin is not None else sys.stdin
     stdout = stdout if stdout is not None else sys.stdout
+    drain = drain if drain is not None else threading.Event()
     out_lock = threading.Lock()
 
     def emit(obj):
@@ -404,13 +519,7 @@ def run_stdio(scheduler: Scheduler, args, stdin=None, stdout=None,
             stdout.flush()
 
     def on_finish(res):
-        out = {"id": res.request_id, "event": "done", "tokens": res.tokens,
-               "text": decode_text(res.tokens, tokenizer),
-               "finish_reason": res.finish_reason, "ttft_s": res.ttft_s,
-               "latency_s": res.latency_s}
-        if res.error is not None:
-            out["error"] = res.error
-        emit(out)
+        emit(_result_obj(res, tokenizer))
         scheduler.results.pop(res.request_id, None)
 
     scheduler.on_finish = on_finish
@@ -421,6 +530,20 @@ def run_stdio(scheduler: Scheduler, args, stdin=None, stdout=None,
     def reader():
         try:
             for line in stdin:
+                if drain.is_set():
+                    # Admission closed with this line read: answer it, so
+                    # the client is not left waiting; lines never read
+                    # stay unanswered (the final drain line says so).
+                    if line.strip():
+                        try:
+                            obj = json.loads(line)
+                            rid = (obj.get("id") if isinstance(obj, dict)
+                                   else None)
+                        except ValueError:
+                            rid = None
+                        emit({"id": rid, "event": "error",
+                              "error": "draining"})
+                    break
                 line = line.strip()
                 if not line:
                     continue
@@ -434,6 +557,10 @@ def run_stdio(scheduler: Scheduler, args, stdin=None, stdout=None,
                     emit({"id": rid, "event": "error", "error": str(e)})
                     continue
                 while True:
+                    if drain.is_set():
+                        emit({"id": req.request_id, "event": "error",
+                              "error": "draining"})
+                        break
                     if scheduler.queue_depth >= scheduler.queue_capacity:
                         time.sleep(0.005)
                         continue
@@ -459,20 +586,306 @@ def run_stdio(scheduler: Scheduler, args, stdin=None, stdout=None,
 
     t = threading.Thread(target=reader, daemon=True)
     t.start()
-    while not done_reading.is_set() or scheduler.has_work():
+    while ((not done_reading.is_set() or scheduler.has_work())
+           and not drain.is_set()):
         if not scheduler.step():
             time.sleep(0.002)
-    t.join(timeout=5.0)
+    if drain.is_set():
+        cancelled = _drain(scheduler, args.drain_timeout, drive=True)
+        emit({"id": None, "event": "drain", "cancelled": cancelled})
+    else:
+        t.join(timeout=5.0)
     return 0
 
 
-def main(argv=None) -> int:
-    args = build_parser().parse_args(argv)
+def run_http(scheduler: Scheduler, args, port: int, tokenizer=None,
+             ready_cb=None, drain: Optional[threading.Event] = None) -> int:
+    """The stdlib HTTP front end on 127.0.0.1:``port`` (0: any free port;
+    ``ready_cb(server)`` gets the bound server): ``POST /generate``
+    (answers once the request retires), ``/kv_export`` and ``/kv_ack``
+    (the migration wire, allowed while draining), ``GET /healthz``.
+    Handlers run on server threads (not daemons: a cancelled request's
+    answer is written before the process exits); one thread drives
+    decoding. Setting ``drain`` closes admission (POST -> 503
+    "draining", /healthz -> 503), lets in-flight requests finish within
+    ``--drain-timeout``, then shuts the server down. -> 0."""
+    drain = drain if drain is not None else threading.Event()
+    vocab = scheduler.engine.vocab
+    eos_id = resolve_eos_id(args.eos_id, tokenizer, vocab)
+    role = getattr(args, "role", "both")
+    events = {}
+    events_lock = threading.Lock()
+
+    def on_finish(res):
+        with events_lock:
+            ev = events.get(res.request_id)
+        if ev is not None:
+            ev.set()
+
+    scheduler.on_finish = on_finish
+    stop = threading.Event()          # the server is shutting down
+    engine_dead = threading.Event()   # the decode loop crashed
+
+    def release_waiters():
+        with events_lock:
+            for ev in events.values():
+                ev.set()
+
+    def loop():
+        # A dead decode thread must release every waiter (500s), not
+        # leave handlers parked while /healthz keeps answering.
+        try:
+            with scheduler._device():
+                while not stop.is_set():
+                    if not scheduler.step():
+                        time.sleep(0.002)
+        except Exception:
+            import traceback
+            traceback.print_exc()
+            engine_dead.set()
+            stop.set()
+            release_waiters()
+
+    threading.Thread(target=loop, daemon=True).start()
+
+    class Handler(BaseHTTPRequestHandler):
+        # Bounds a stalled connection, so joining handler threads at
+        # shutdown cannot hang on it.
+        timeout = 60
+
+        def log_message(self, *a):
+            pass
+
+        def _send(self, code: int, obj: dict):
+            body = json.dumps(obj).encode()
+            self.send_response(code)
+            self.send_header("Content-Type", "application/json")
+            self.send_header("Content-Length", str(len(body)))
+            self.end_headers()
+            self.wfile.write(body)
+
+        def _body(self) -> bytes:
+            return self.rfile.read(int(self.headers.get("Content-Length",
+                                                        0)))
+
+        def do_GET(self):
+            if self.path in ("/stats", "/windows", "/metrics"):
+                return self._send(501, {
+                    "error": f"{self.path}: the telemetry registry is not "
+                             f"ported (ROADMAP A5)",
+                    "error_type": "not_ported"})
+            if self.path != "/healthz":
+                return self._send(404, {"error": "unknown path"})
+            pool = scheduler.engine.pool
+            if stop.is_set():
+                status = "decode loop stopped"
+            elif drain.is_set():
+                status = "draining"
+            else:
+                status = "ok"
+            self._send(200 if status == "ok" else 503, {
+                "status": status, "active": pool.num_active,
+                "capacity": pool.capacity, "queued": scheduler.queue_depth,
+                "occupancy": pool.occupancy, "role": role,
+                "parked": scheduler.parked_count,
+                "tenants": scheduler.tenant_queue_depths(),
+                "preempted": scheduler.preempted_count,
+                "host_blocks": pool.host_blocks,
+                "host_blocks_used": pool.host_blocks_used})
+
+        def do_POST(self):
+            if self.path in ("/kv_export", "/kv_ack"):
+                return self._send(*migrate.dispatch_kv_endpoint(
+                    scheduler, self.path, self._body()))
+            if self.path != "/generate":
+                return self._send(404, {"error": "unknown path"})
+            if drain.is_set():
+                return self._send(503, {"error": "draining"})
+            try:
+                obj = json.loads(self._body())
+            except ValueError as e:
+                return self._send(400, {"error": str(e)})
+            if isinstance(obj, dict) and obj.get("resume"):
+                return self._resume(str(obj["resume"]))
+            mig_meta = fleet_meta = None
+            pull = obj.get("pull_from") if isinstance(obj, dict) else None
+            if (isinstance(pull, dict) and "tokens" in pull
+                    and "request_id" not in pull):
+                # A peer pull: a failure degrades to a cold prefill.
+                try:
+                    fleet_meta = migrate.pull_prefix_into(scheduler, pull)
+                except migrate.MigrationError as e:
+                    fleet_meta = {"bytes": 0, "blocks": 0, "installed": 0,
+                                  "degraded": str(e), "error_type": e.kind}
+            elif pull is not None:
+                # Pull, install and ACK before admission, so that the
+                # submit below binds the installed blocks.
+                try:
+                    mig_meta = migrate.pull_into(scheduler, pull)
+                except migrate.MigrationError as e:
+                    return self._send(424, {"error": str(e),
+                                            "error_type": e.kind})
+            try:
+                req = parse_request(obj, args, vocab, tokenizer, eos_id)
+            except ValueError as e:
+                return self._send(400, {"error": str(e)})
+            if stop.is_set():
+                return self._send(503, {"error": "decode loop stopped"})
+            # The event goes in BEFORE submit (a short request may retire
+            # at once), and events_lock is never held across submit
+            # (on_finish takes it under the scheduler's lock).
+            rid = req.request_id or f"http-{uuid.uuid4().hex[:12]}"
+            req.request_id = rid
+            ev = threading.Event()
+            with events_lock:
+                if rid in events:
+                    return self._send(409, {
+                        "error": f"request id {rid!r} already in flight"})
+                events[rid] = ev
+            try:
+                scheduler.submit(req)
+            except QueueFull as e:
+                with events_lock:
+                    events.pop(rid, None)
+                return self._send(503, {
+                    "error": str(e),
+                    "error_type": ("tenant_over_limit"
+                                   if isinstance(e, TenantOverLimit)
+                                   else "queue_full")})
+            except ValueError as e:
+                with events_lock:
+                    events.pop(rid, None)
+                return self._send(400, {"error": str(e)})
+            extra = {}
+            if mig_meta is not None:
+                extra["migration"] = mig_meta
+            if fleet_meta is not None:
+                extra["fleet_pull"] = fleet_meta
+            self._answer(rid, ev, extra)
+
+        def _resume(self, rid: str):
+            """Decode a parked request here (the local fallback)."""
+            ev = threading.Event()
+            with events_lock:
+                if rid in events:
+                    return self._send(409, {
+                        "error": f"request id {rid!r} already in flight"})
+                events[rid] = ev
+            if not scheduler.resume_parked(rid):
+                with events_lock:
+                    events.pop(rid, None)
+                return self._send(404, {
+                    "error": f"request {rid!r} is not parked here",
+                    "error_type": "migration_failed"})
+            self._answer(rid, ev, {"resumed": True})
+
+        def _answer(self, rid: str, ev: threading.Event, extra: dict):
+            if stop.is_set():
+                # The drain (or the decode loop's death) completed while
+                # this request was being read: nobody will retire it.
+                with events_lock:
+                    events.pop(rid, None)
+                return self._send(503, {"error": "draining"})
+            ev.wait()
+            with events_lock:
+                events.pop(rid, None)
+            res = scheduler.results.pop(rid, None)
+            if res is None:   # the decode loop died before retiring it
+                return self._send(500, {"error": "decode loop failed"})
+            out = _result_obj(res, tokenizer)
+            out.pop("event")
+            out.update(extra)
+            self._send(200, out)
+
+    class Server(ThreadingHTTPServer):
+        daemon_threads = False
+
+    server = Server(("127.0.0.1", port), Handler)
+
+    def cancel_stragglers():
+        # A request whose upload straddled the drain may submit late: it
+        # gets a result (deadline, or error on a dead engine) before the
+        # waiters are released, never a spurious 500.
+        if engine_dead.is_set():
+            scheduler.cancel_remaining(FinishReason.ERROR,
+                                       error="decode loop died")
+        else:
+            scheduler.cancel_remaining()
+
+    def drain_watch():
+        # The drain runs here, off the signal handler, which only sets
+        # the event.
+        drain.wait()
+        if not stop.is_set():
+            _drain(scheduler, args.drain_timeout, drive=False,
+                   dead=engine_dead, abort=stop)
+            stop.set()
+        cancel_stragglers()
+        release_waiters()
+        server.shutdown()
+        # Once more: a handler registering after the first sweep sees
+        # stop set and answers 503 itself.
+        cancel_stragglers()
+        release_waiters()
+
+    threading.Thread(target=drain_watch, daemon=True).start()
+    if ready_cb is not None:
+        ready_cb(server)
+    print(f"nezha_tpu_torch.cli.serve listening on http://127.0.0.1:"
+          f"{server.server_address[1]} (POST /generate, GET /healthz)",
+          file=sys.stderr, flush=True)
     try:
-        scheduler = build_scheduler(args)
-    except NotPortedError as e:
-        raise SystemExit(f"nezha_tpu_torch.cli.serve: {e}")
-    return run_stdio(scheduler, args, tokenizer=load_tokenizer_arg(args))
+        server.serve_forever(poll_interval=0.1)
+    except KeyboardInterrupt:
+        pass
+    finally:
+        stop.set()
+        drain.set()    # unblocks the watcher on exits without a signal
+        server.server_close()
+    return 0
+
+
+def run_worker(args, stdin=None, stdout=None, ready_cb=None,
+               drain_event: Optional[threading.Event] = None) -> int:
+    """The single-replica stack: build the scheduler, install SIGTERM
+    and SIGINT handlers that set the drain event (after the build, so a
+    wedged start stays killable with Ctrl-C; skipped off the main
+    thread, where ``drain_event`` triggers the same path), serve HTTP
+    or stdio, and restore the old handlers on exit."""
+    drain = drain_event if drain_event is not None else threading.Event()
+    old_handlers = {}
+    try:
+        try:
+            scheduler = build_scheduler(args)
+        except NotPortedError as e:
+            raise SystemExit(f"nezha_tpu_torch.cli.serve: {e}")
+        tokenizer = load_tokenizer_arg(args)
+        for sig in (signal.SIGTERM, signal.SIGINT):
+            try:
+                old_handlers[sig] = signal.signal(
+                    sig, lambda signum, frame: drain.set())
+            except ValueError:
+                break   # not the main thread of the main interpreter
+        if args.http is not None:
+            return run_http(scheduler, args, args.http, tokenizer,
+                            ready_cb=ready_cb, drain=drain)
+        return run_stdio(scheduler, args, stdin=stdin, stdout=stdout,
+                         tokenizer=tokenizer, drain=drain)
+    finally:
+        for sig, handler in old_handlers.items():
+            signal.signal(sig, handler)
+
+
+def run(args, stdin=None, stdout=None, ready_cb=None,
+        drain_event: Optional[threading.Event] = None) -> int:
+    """The CLI's entry with parsed ``args``: one replica (``--replicas``
+    and the router are ROADMAP A5)."""
+    return run_worker(args, stdin=stdin, stdout=stdout, ready_cb=ready_cb,
+                      drain_event=drain_event)
+
+
+def main(argv=None) -> int:
+    return run(build_parser().parse_args(argv))
 
 
 if __name__ == "__main__":

@@ -33,7 +33,10 @@ Three attention paths:
   with the token inserted (:func:`_quant_decode_write`) and attends
   through the int8 decode kernel; a prefill chunk runs the int8 prefill
   kernel, which writes the chunk's blocks itself and leaves the chunk's
-  largest dequant error, a device scalar, in ``cache["qerr"]``;
+  largest dequant error, a device scalar, in ``cache["qerr"]``.
+  ``prefill_impl="xla"`` turns a prefill chunk to tensor ops: the write
+  (requantized block by block on an int8 pool) and the composed
+  attention over the gathered blocks, as JAX's fallback path;
 - a dense cache (``models/generate.py``): ``cache`` is one ``{"k", "v"}``
   dict per layer, buffers ``[B, H, L, D]``. The forward writes this
   call's K/V into them IN PLACE, clamped as JAX's ``dynamic_update_slice``
@@ -91,6 +94,11 @@ class GPT2Config:
     # kernel unless attn_impl is "xla"; "kernel" always; "xla" never
     # (attention composed of tensor ops).
     decode_impl: str = "auto"
+    # A paged prefill chunk, as decode_impl: "auto"/"kernel" take the
+    # flash-prefill kernels (B9 float, B10 int8 with its fused write);
+    # "xla" writes the chunk by tensor ops and attends by the composed
+    # path over the gathered blocks.
+    prefill_impl: str = "auto"
     # "xla": LayerNorm in tensor ops; "pallas": the fused kernels.
     ln_impl: str = "xla"
     # 0: forward returns fp32 logits. -1: forward returns {"hidden",
@@ -115,6 +123,8 @@ def check_config(cfg: GPT2Config) -> None:
         raise ValueError(f"unknown attn_impl {cfg.attn_impl!r}")
     if cfg.decode_impl not in ("auto", "kernel", "xla"):
         raise ValueError(f"unknown decode_impl {cfg.decode_impl!r}")
+    if cfg.prefill_impl not in ("auto", "kernel", "xla"):
+        raise ValueError(f"unknown prefill_impl {cfg.prefill_impl!r}")
     if cfg.ln_impl not in ("xla", "pallas"):
         raise ValueError(f"unknown ln_impl {cfg.ln_impl!r}")
     if cfg.fused_loss_chunk > 0:
@@ -138,6 +148,16 @@ def decode_kernel_ok(cfg: GPT2Config) -> bool:
     if cfg.decode_impl == "auto":
         return cfg.attn_impl != "xla"
     return cfg.decode_impl == "kernel"
+
+
+def prefill_kernel_ok(cfg: GPT2Config) -> bool:
+    """Whether a paged prefill chunk takes the flash-prefill kernels (JAX
+    ``_prefill_flash_ok``, without its environment switch): "kernel"
+    forces them, "xla" refuses them, "auto" follows ``attn_impl``, as
+    :func:`decode_kernel_ok` does."""
+    if cfg.prefill_impl == "auto":
+        return cfg.attn_impl != "xla"
+    return cfg.prefill_impl == "kernel"
 
 
 def _quant_decode_write(pool, scales, blk, off, row) -> None:
@@ -279,7 +299,8 @@ class Attention(nn.Module):
             out = self._decode_paged(q, k, v, cache, pos, active,
                                      use_kernel=decode_kernel_ok(cfg))
         else:
-            out = self._prefill_paged(q, k, v, cache, int(pos))
+            out = self._prefill_paged(q, k, v, cache, int(pos),
+                                      use_kernel=prefill_kernel_ok(cfg))
         out = self.proj(out.transpose(1, 2).reshape(b, s, h))
         return self.drop(out) if cache is None else out
 
@@ -415,17 +436,31 @@ class Attention(nn.Module):
         return _gathered_attention(q, kp, vp, tab, pos, scales)
 
     @staticmethod
-    def _prefill_paged(q, k, v, cache, pos: int):
+    def _prefill_paged(q, k, v, cache, pos: int, use_kernel: bool = True):
         """A prompt chunk at offset ``pos``: one scatter of the chunk's
         K/V through the table (:func:`float_prefill_write`), and the
         flash-prefill kernel, which reads the pool only below ``pos`` —
         write and attention commute. An int8 pool takes the int8 prefill
         kernel instead, which writes the chunk's blocks itself, after its
         attention has read them, and whose error sample lands in
-        ``cache["qerr"]``."""
+        ``cache["qerr"]``. ``use_kernel=False`` (``prefill_impl="xla"``)
+        writes the chunk first (:func:`_quant_prefill_write` on an int8
+        pool, the float scatter otherwise) and attends by the composed
+        path over the gathered blocks (:func:`_gathered_attention`)."""
         kp, vp, tab = cache["k"], cache["v"], cache["tables"]
         b = q.shape[0]
         starts = torch.full((b,), pos, dtype=torch.int32, device=q.device)
+        if not use_kernel:
+            scales = None
+            if "k_scale" in cache:
+                scales = (cache["k_scale"], cache["v_scale"])
+                s = k.shape[2]
+                ek = _quant_prefill_write(kp, scales[0], tab, pos, k, s)
+                ev = _quant_prefill_write(vp, scales[1], tab, pos, v, s)
+                cache["qerr"] = torch.maximum(ek, ev)
+            else:
+                float_prefill_write(kp, vp, tab, pos, k, v)
+            return _gathered_attention(q, kp, vp, tab, starts, scales)
         if "k_scale" in cache:
             out, cache["qerr"] = paged_prefill_attention(
                 q.contiguous(), k.contiguous(), v.contiguous(), kp, vp, tab,

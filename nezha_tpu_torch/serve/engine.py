@@ -120,7 +120,10 @@ class ServeConfig:
     ``queue_capacity`` the scheduler's bound, ``pad_id`` the token fed to
     non-emitting rows, ``cache_dtype`` the pool dtype, ``decode_impl``
     (None: the model's own) the decode attention "auto" | "kernel" |
-    "xla", ``decode_horizon`` the tokens per step dispatch.
+    "xla", ``prefill_impl`` (None: the model's own) the paged prefill
+    chunk's attention the same way ("xla": the composed path, with the
+    chunk's write done by tensor ops), ``decode_horizon`` the tokens per
+    step dispatch.
 
     ``kv_layout`` "paged" (the block pool) or "dense" (one worst-case
     reservation a slot). ``kv_block_size``, ``kv_num_blocks`` (None:
@@ -148,8 +151,10 @@ class ServeConfig:
     under slot or block pressure and resume it later, at most
     ``preemption_budget`` times a request.
 
-    ``kv_host_blocks`` (the host KV tier) is refused, typed
-    (:class:`NotPortedError`)."""
+    ``kv_host_blocks`` > 0 (paged int8 pools with the prefix cache and
+    LRU eviction) keeps a host tier of that many demoted blocks under the
+    target pool: evicted prefix-cache blocks move to host memory, and a
+    returning prompt promotes them back instead of prefilling them."""
 
     max_batch_size: int = 4
     max_len: int = 128
@@ -160,6 +165,7 @@ class ServeConfig:
     pad_id: int = 0
     cache_dtype: torch.dtype = torch.bfloat16
     decode_impl: Optional[str] = None
+    prefill_impl: Optional[str] = None
     decode_horizon: int = 1
     kv_layout: str = "paged"
     kv_block_size: int = 16
@@ -175,7 +181,6 @@ class ServeConfig:
     tenant_queue_cap: Optional[int] = None
     preemption: bool = False
     preemption_budget: int = 2
-    # Not ported: must keep its default.
     kv_host_blocks: int = 0
 
     def __post_init__(self):
@@ -195,9 +200,22 @@ class ServeConfig:
             raise ValueError(f"kv_host_blocks must be >= 0, got "
                              f"{self.kv_host_blocks}")
         if self.kv_host_blocks:
-            raise NotPortedError(f"ServeConfig.kv_host_blocks="
-                                 f"{self.kv_host_blocks!r}: the host KV "
-                                 f"tier is not ported")
+            if self.kv_layout != "paged" or self.kv_dtype != "int8":
+                raise ValueError(
+                    "kv_host_blocks requires kv_layout='paged' and "
+                    "kv_dtype='int8' — the host tier demotes the "
+                    "int8+scales block payload verbatim (lossless); "
+                    "a bf16 tier would serve quantize-dequant blocks "
+                    "that differ from a fresh prefill")
+            if not self.prefix_cache:
+                raise ValueError(
+                    "kv_host_blocks requires prefix_cache (demotion "
+                    "feeds off trie eviction)")
+            if self.kv_eviction != "lru":
+                raise ValueError(
+                    "kv_host_blocks requires kv_eviction='lru' "
+                    "(demotion IS the eviction path; 'none' never "
+                    "evicts, so the tier would be inert)")
         if self.kv_block_size < 1:
             raise ValueError(
                 f"kv_block_size must be >= 1, got {self.kv_block_size}")
@@ -231,6 +249,9 @@ class ServeConfig:
         if self.decode_impl not in (None, "auto", "kernel", "xla"):
             raise ValueError(f"decode_impl must be None, 'auto', 'kernel', "
                              f"or 'xla'; got {self.decode_impl!r}")
+        if self.prefill_impl not in (None, "auto", "kernel", "xla"):
+            raise ValueError(f"prefill_impl must be None, 'auto', 'kernel', "
+                             f"or 'xla'; got {self.prefill_impl!r}")
         if self.cache_dtype not in (torch.bfloat16, torch.float32):
             raise ValueError(f"cache_dtype must be bf16 or f32, got "
                              f"{self.cache_dtype}")
@@ -338,14 +359,9 @@ class Engine:
                 "prefill_mode='sequence' requires the mesh-sharded engine "
                 "(--mesh M with M > 1): the single-device engine has no "
                 "sequence axis to shard over")
-        if cfg.decode_impl is not None and cfg.decode_impl != (
-                model.cfg.decode_impl):
-            # The serving override of the model's decode attention: the
-            # same tensors under a replaced config, as JAX rebuilds its
-            # module tree.
-            model = with_overrides(model, decode_impl=cfg.decode_impl)
-        self.model = model
         self.cfg = cfg
+        model = self._impl_overrides(model)
+        self.model = model
         self.device = next(model.parameters()).device
         self.vocab = model.cfg.vocab_size
         self.k_max = min(cfg.k_max, self.vocab)
@@ -353,7 +369,8 @@ class Engine:
         self.pool = (self._make_paged_pool(
                          model.cfg, num_blocks=cfg.kv_num_blocks,
                          prefix_cache=cfg.prefix_cache,
-                         eviction=cfg.kv_eviction)
+                         eviction=cfg.kv_eviction,
+                         host_blocks=cfg.kv_host_blocks)
                      if self.paged else self._make_dense_pool(model.cfg))
         self.quant_errors = collections.deque(maxlen=QUANT_ERROR_SAMPLES)
         b, dev = cfg.max_batch_size, self.device
@@ -389,10 +406,7 @@ class Engine:
         backpressure — mirrored by slot, and its carried state."""
         cfg = self.cfg
         if draft_model is not None:
-            dm = draft_model
-            if (cfg.decode_impl is not None
-                    and cfg.decode_impl != dm.cfg.decode_impl):
-                dm = with_overrides(dm, decode_impl=cfg.decode_impl)
+            dm = self._impl_overrides(draft_model)
             if next(dm.parameters()).device != self.device:
                 raise ValueError(
                     f"draft model on {next(dm.parameters()).device}, target "
@@ -426,16 +440,29 @@ class Engine:
         self.spec_draft_tokens = 0
         self.spec_accepted = 0
 
+    def _impl_overrides(self, model):
+        """The serving overrides of the model's decode and prefill
+        attention (``ServeConfig.decode_impl``/``prefill_impl``): the same
+        tensors under a replaced config, as JAX rebuilds its module
+        tree."""
+        over = {name: getattr(self.cfg, name)
+                for name in ("decode_impl", "prefill_impl")
+                if getattr(self.cfg, name) is not None
+                and getattr(self.cfg, name) != getattr(model.cfg, name)}
+        return with_overrides(model, **over) if over else model
+
     def _make_paged_pool(self, model_cfg, *, num_blocks, prefix_cache,
-                         eviction) -> PagedSlotPool:
+                         eviction, host_blocks=0) -> PagedSlotPool:
         """A paged pool, the target's or the draft's (a subclass's hook:
-        the sharded engine splits it over its mesh)."""
+        the sharded engine splits it over its mesh). Only the target's
+        gets a host tier: the draft pool keeps no prefix cache."""
         cfg = self.cfg
         return PagedSlotPool(
             model_cfg, cfg.max_batch_size, cfg.max_len, cfg.cache_dtype,
             block_size=cfg.kv_block_size, num_blocks=num_blocks,
             prefix_cache=prefix_cache, eviction=eviction,
-            quantized=cfg.kv_dtype == "int8", device=self.device)
+            quantized=cfg.kv_dtype == "int8", host_blocks=host_blocks,
+            device=self.device)
 
     def _make_dense_pool(self, model_cfg) -> SlotPool:
         cfg = self.cfg

@@ -37,11 +37,27 @@ Failures are request-scoped: a prefill error or non-finite logits retire
 only that request (``FinishReason.ERROR``); KV block exhaustion during
 decode retires the row that could not grow and the block is
 re-dispatched for the rest.
+
+A ``prefill_only`` request is prefilled and then PARKED (its slot and
+blocks held, finished ``FinishReason.PREFILLED``) for a KV migration
+(``serve/migrate.py``): :meth:`Scheduler.export_parked` ships its prompt's
+full blocks in the wire format, :meth:`Scheduler.ack_parked` releases
+them once the destination holds its copy (:meth:`Scheduler.
+install_migrated`), :meth:`Scheduler.resume_parked` decodes it here
+instead, and a park nobody claims within ``parked_ttl_s`` is reclaimed.
+:meth:`Scheduler.export_prefix` and :meth:`Scheduler.install_pulled` are
+the peer pull's two ends: a read-only export of a cached prefix, and its
+install tagged as a peer's. Every device op of these runs under the
+scheduler's lock, so it never interleaves with a step's in-place pool
+writes. ``migrations``, ``migration_bytes`` and ``pull_bytes`` count
+committed installs and their wire bytes. :meth:`Scheduler.
+cancel_remaining` retires everything at a drain's cutoff.
 """
 
 from __future__ import annotations
 
 import collections
+import contextlib
 import dataclasses
 import itertools
 import threading
@@ -49,8 +65,10 @@ import time
 from typing import Callable, Deque, Dict, List, Optional, Sequence
 
 import numpy as np
+import torch
 
 from nezha_tpu_torch.serve.engine import PRIORITY_CLASSES, Engine
+from nezha_tpu_torch.serve.migrate import MigrationError, encode_wire
 from nezha_tpu_torch.serve.slots import KVBlocksExhausted
 
 
@@ -81,9 +99,12 @@ TPOT_SAMPLES = 4096
 class FinishReason:
     EOS = "eos"
     LENGTH = "length"          # max_new_tokens reached
-    DEADLINE = "deadline"      # expired: queued, suspended or mid-decode
+    DEADLINE = "deadline"      # expired: queued, suspended, mid-decode or
+                               # at a drain's cutoff
     ERROR = "error"            # prefill failure, non-finite logits, or no
                                # KV blocks — only this request is retired
+    PREFILLED = "prefilled"    # prefill_only: prompt KV computed and
+                               # parked for a migration, not an end state
 
 
 @dataclasses.dataclass
@@ -91,7 +112,8 @@ class Request:
     """One generation request; ``deadline_s`` is a wall-clock budget in
     seconds from submit, ``priority`` its WFQ lane (one of
     :data:`PRIORITIES`) and ``tenant_id`` the tenant whose fair share and
-    queue cap it counts against."""
+    queue cap it counts against. ``prefill_only`` prefills the prompt and
+    parks the slot for a migration instead of decoding."""
 
     prompt: Sequence[int]
     max_new_tokens: int = 16
@@ -102,6 +124,7 @@ class Request:
     seed: int = 0
     deadline_s: Optional[float] = None
     request_id: Optional[str] = None
+    prefill_only: bool = False
     priority: str = "interactive"
     tenant_id: str = "default"
 
@@ -140,13 +163,20 @@ class Scheduler:
 
     step_retry_backoff_s = 0.05
 
-    # Cross-thread state and the lock that guards it: submit() runs on
-    # other threads than step().
+    # How long a parked (prefill_only) slot waits for its pull, ACK or
+    # resume before the scheduler reclaims it: a destination that pulled
+    # and died, or a lost ACK, costs the source at most this long.
+    parked_ttl_s = 60.0
+
+    # Cross-thread state and the lock that guards it: submit() and the
+    # migration endpoints run on other threads than step().
     _LOCK_GUARDED = {"_lanes": "_lock", "_lane_vt": "_lock",
                      "_lane_rr": "_lock", "_queued_n": "_lock",
                      "_vt_now": "_lock", "_preempted": "_lock",
                      "preemptions": "_lock", "resumes": "_lock",
-                     "_live": "_lock", "results": "_lock"}
+                     "_live": "_lock", "results": "_lock",
+                     "_parked": "_lock", "migrations": "_lock",
+                     "migration_bytes": "_lock", "pull_bytes": "_lock"}
 
     def __init__(self, engine: Engine,
                  on_token: Optional[Callable[[str, int], None]] = None,
@@ -172,6 +202,13 @@ class Scheduler:
         self.resumes = 0
         self.tpot_s: Deque[float] = collections.deque(maxlen=TPOT_SAMPLES)
         self._live: Dict[int, _Live] = {}          # slot -> request state
+        # Parked prefill_only requests: request_id -> (slot, live,
+        # expires_t). Their slots hold the prompt's blocks and never
+        # decode; step() reclaims them past the TTL.
+        self._parked: Dict[str, tuple] = {}
+        self.migrations = 0
+        self.migration_bytes = 0
+        self.pull_bytes = 0
         self._lock = threading.RLock()
         self._ids = itertools.count()
         self.results: Dict[str, RequestResult] = {}
@@ -228,6 +265,7 @@ class Scheduler:
         """One serving iteration. -> tokens decoded (0 when idle)."""
         with self._lock:
             self._expire_queued()
+            self._expire_parked()
             self._expire_preempted()
             self._admit()
             emitted = self._decode() if self._live else 0
@@ -256,9 +294,9 @@ class Scheduler:
 
     @property
     def parked_count(self) -> int:
-        """Requests parked for a KV migration: always 0 here (the
-        migration's ``prefill_only`` path is not ported)."""
-        return 0
+        """Requests parked for a KV migration."""
+        with self._lock:
+            return len(self._parked)
 
     @property
     def preempted_count(self) -> int:
@@ -362,6 +400,15 @@ class Scheduler:
             if not lane:
                 del self._lanes[pri]
                 del self._lane_rr[pri]
+
+    def _expire_parked(self) -> None:
+        """[holds: _lock] Reclaim parks past their TTL: their "prefilled"
+        answer was delivered, so this only frees the slot and blocks."""
+        now = time.monotonic()
+        for rid in [r for r, (_, _, exp) in self._parked.items()
+                    if now >= exp]:
+            slot, _, _ = self._parked.pop(rid)
+            self.engine.pool.free(slot)
 
     def _expire_preempted(self) -> None:
         """[holds: _lock] A deadline keeps running while a request is
@@ -528,6 +575,19 @@ class Scheduler:
             self._finish(live, FinishReason.ERROR,
                          error=f"prefill failed: {type(e).__name__}: {e}")
             return
+        if req.prefill_only:
+            # Park the prefilled slot for the migration pull instead of
+            # decoding. A duplicate id would orphan the first park's slot.
+            if live.request_id in self._parked:
+                pool.free(slot)
+                self._finish(live, FinishReason.ERROR,
+                             error=f"request {live.request_id!r} "
+                                   f"already parked")
+                return
+            self._parked[live.request_id] = (
+                slot, live, time.monotonic() + self.parked_ttl_s)
+            self._finish(live, FinishReason.PREFILLED)
+            return
         self._live[slot] = live
 
     def _dispatch(self, active: np.ndarray):
@@ -617,3 +677,133 @@ class Scheduler:
         self.results[live.request_id] = result
         if self.on_finish is not None:
             self.on_finish(result)
+
+    # ------------------------------------------------------- migration
+    def _device(self):
+        """The pool device as a context for the calling thread: handler
+        threads run the wire's device ops on the engine's card."""
+        dev = self.engine.device
+        return (torch.cuda.device(dev) if dev.type == "cuda"
+                else contextlib.nullcontext())
+
+    def _paged_only(self, what: str, kind: str = "migration_failed"):
+        if not self.engine.paged:
+            raise MigrationError(
+                f"kv_layout 'dense' {what} — migration requires the paged "
+                f"pool", kind=kind)
+
+    def export_parked(self, request_id: str) -> dict:
+        """The source half of the migration pull (``/kv_export``): the
+        parked request's full-block prompt prefix as the wire object
+        (``serve/migrate.py``). Read-only: the parked references stay
+        until :meth:`ack_parked` or the TTL. Raises ``KeyError`` for an
+        unknown park and :class:`~nezha_tpu_torch.serve.migrate.
+        MigrationError` on a dense engine. A speculative engine ships its
+        target pool only (the destination prefills its own draft)."""
+        with self._lock, self._device():
+            if request_id not in self._parked:
+                raise KeyError(request_id)
+            slot, live, _ = self._parked[request_id]
+            self._paged_only("has no blocks to export")
+            pool = self.engine.pool
+            tokens = [int(t) for t in live.req.prompt]
+            nfull = min(len(tokens) // pool.block_size,
+                        int(pool._bound[slot]))
+            if nfull == 0:
+                # A sub-block prompt ships nothing: a legal empty wire.
+                return encode_wire([], [], pool.block_size)
+            layers, _ = pool.export_block_payload(slot, nfull)
+            return encode_wire(tokens[:nfull * pool.block_size], layers,
+                               pool.block_size)
+
+    def ack_parked(self, request_id: str) -> bool:
+        """The commit of the two-phase handoff (``/kv_ack``): free the
+        parked slot and its blocks (and, speculative, the draft pool's
+        slot through the mirror). -> False, idempotently, for an unknown
+        park (acked already, expired or drained)."""
+        with self._lock:
+            parked = self._parked.pop(request_id, None)
+            if parked is None:
+                return False
+            self.engine.pool.free(parked[0])
+            return True
+
+    def resume_parked(self, request_id: str) -> bool:
+        """Decode a parked request HERE (the local fallback): its prompt
+        K/V is already in this pool. -> False for an unknown park."""
+        with self._lock:
+            parked = self._parked.pop(request_id, None)
+            if parked is None:
+                return False
+            slot, live, _ = parked
+            # The "prefilled" result was the park's receipt, not the
+            # request's answer.
+            self.results.pop(request_id, None)
+            self._live[slot] = live
+            return True
+
+    def install_migrated(self, tokens: Sequence[int], layers: list,
+                         nbytes: int) -> int:
+        """The destination half of the pull: install a decoded wire
+        payload into this pool's prefix cache (fresh blocks at ref 1); a
+        request submitted afterwards binds them as a prefix hit. Counts
+        committed installs (blocks newly cached) in ``migrations`` and
+        ``migration_bytes``. -> blocks installed."""
+        with self._lock, self._device():
+            self._paged_only("cannot install migrated blocks")
+            installed = self.engine.pool.install_block_payload(tokens,
+                                                               layers)
+            if installed > 0:
+                self.migrations += 1
+                self.migration_bytes += int(nbytes)
+            return installed
+
+    def export_prefix(self, tokens: Sequence[int]) -> dict:
+        """The source half of a PEER pull (``/kv_export`` tokens mode):
+        the longest cached full-block prefix of ``tokens`` (device trie
+        and host tier) as the wire object; no park, no ACK, read-only. No
+        coverage is a legal empty wire."""
+        with self._lock, self._device():
+            self._paged_only("has no blocks to export", "kv_pull_failed")
+            pool = self.engine.pool
+            covered, layers, _ = pool.export_prefix_payload(tokens)
+            return encode_wire(covered, layers, pool.block_size)
+
+    def install_pulled(self, tokens: Sequence[int], layers: list,
+                       nbytes: int) -> int:
+        """The destination half of a peer pull: install with the blocks
+        tagged ``origin="peer"``, the wire bytes counted in
+        ``pull_bytes`` (not the migration counters). -> blocks
+        installed."""
+        with self._lock, self._device():
+            self._paged_only("cannot install pulled blocks",
+                             "kv_pull_failed")
+            installed = self.engine.pool.install_block_payload(
+                tokens, layers, origin="peer")
+            if installed > 0:
+                self.pull_bytes += int(nbytes)
+            return installed
+
+    # ----------------------------------------------------------- drain
+    def cancel_remaining(self, reason: str = FinishReason.DEADLINE,
+                         error: Optional[str] = None) -> int:
+        """Retire everything queued, live or suspended with ``reason`` and
+        the tokens it has, free every slot, and release every park (whose
+        "prefilled" answer was delivered already; a drained source is no
+        longer pullable). -> requests cancelled (parks not counted)."""
+        with self._lock:
+            n = 0
+            while self._queued_n:
+                self._finish(self._pop_next(), reason, error=error)
+                n += 1
+            for slot in list(self._live):
+                live = self._live.pop(slot)
+                self.engine.pool.free(slot)
+                self._finish(live, reason, error=error)
+                n += 1
+            for rid in list(self._preempted):
+                self._finish(self._preempted.pop(rid), reason, error=error)
+                n += 1
+            for rid in list(self._parked):
+                self.engine.pool.free(self._parked.pop(rid)[0])
+            return n

@@ -26,9 +26,10 @@ that mesh (:func:`~.reshard.reshard_checkpoint`), so a checkpoint's
 weights are never gathered whole on one device: ``model`` then gives
 the structure, and its replicated parameters are set from shard 0.
 
-Not ported (each refused or absent, see ROADMAP): speculative decoding
-and ``decode_impl="xla"`` under the mesh (:class:`NotPortedError`),
-migration's gather-on-export, the ``obs`` gauges and
+Not ported (each refused or absent, see ROADMAP): speculative decoding,
+``decode_impl="xla"``, ``prefill_impl="xla"``, the host KV tier (``kv_host_blocks``) and the
+block wire (export, install; migration's gather-on-export) under the
+mesh (:class:`NotPortedError`, ROADMAP A6), the ``obs`` gauges and
 counters, ``faults`` points, the ``NEZHA_NO_*`` environment switches.
 """
 
@@ -63,9 +64,18 @@ class ShardedEngine(Engine):
         if cfg.speculative is not None:
             raise NotPortedError("speculative decoding under a mesh is not "
                                  "ported (ROADMAP A6)")
+        if cfg.kv_host_blocks:
+            raise NotPortedError(
+                f"kv_host_blocks={cfg.kv_host_blocks} under a mesh: the "
+                f"host KV tier of a head-sharded pool is not ported "
+                f"(ROADMAP A6)")
         if cfg.decode_impl == "xla":
             raise NotPortedError("decode_impl='xla' under a mesh is not "
                                  "ported: the sharded engine decodes through "
+                                 "the paged kernels")
+        if cfg.prefill_impl == "xla":
+            raise NotPortedError("prefill_impl='xla' under a mesh is not "
+                                 "ported: the sharded engine prefills through "
                                  "the paged kernels")
         self._seq_active = cfg.prefill_mode == "sequence"
         self._seq_variant = None
@@ -103,8 +113,13 @@ class ShardedEngine(Engine):
                                      shards=shards), cfg)
 
     # ------------------------------------------------------------- hooks
+    def _impl_overrides(self, model):
+        """The sharded forward always attends through the paged kernels
+        ("auto" and "kernel" alike; "xla" is refused above)."""
+        return model
+
     def _make_paged_pool(self, model_cfg, *, num_blocks, prefix_cache,
-                         eviction) -> ShardedPagedSlotPool:
+                         eviction, host_blocks=0) -> ShardedPagedSlotPool:
         cfg = self.cfg
         return ShardedPagedSlotPool(
             model_cfg, cfg.max_batch_size, cfg.max_len, cfg.cache_dtype,

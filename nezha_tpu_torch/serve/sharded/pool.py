@@ -12,6 +12,11 @@ copy-on-write and eviction decide about block identities, which every
 shard shares. Copy-on-write copies the block on every shard.
 
 ``caches[layer]`` is the list of the M shards' dicts of that layer.
+
+The block wire (export and install for migration and peer pulls) needs
+gather-on-export and a scatter over the shards, which are not ported:
+those methods raise :class:`NotPortedError` (ROADMAP A6), and the host
+tier is refused by :class:`~.engine.ShardedEngine`.
 """
 
 from __future__ import annotations
@@ -20,6 +25,7 @@ from typing import List, Tuple
 
 import torch
 
+from nezha_tpu_torch.errors import NotPortedError
 from nezha_tpu_torch.parallel.mesh import Mesh
 from nezha_tpu_torch.serve.slots import PagedSlotPool
 
@@ -58,6 +64,19 @@ class ShardedPagedSlotPool(PagedSlotPool):
     def shard_caches(self, r: int) -> List[dict]:
         """Shard r's per-layer dicts."""
         return [layer[r] for layer in self.caches]
+
+    # ------------------------------------------------------- migration
+    def export_block_payload(self, slot, nblocks):
+        raise NotPortedError("exporting KV blocks from a head-sharded pool "
+                             "(gather-on-export) is not ported (ROADMAP A6)")
+
+    def export_prefix_payload(self, tokens):
+        raise NotPortedError("exporting KV blocks from a head-sharded pool "
+                             "(gather-on-export) is not ported (ROADMAP A6)")
+
+    def install_block_payload(self, tokens, layers, origin="migrate"):
+        raise NotPortedError("installing KV blocks into a head-sharded pool "
+                             "is not ported (ROADMAP A6)")
 
     # ------------------------------------------------------ accounting
     @property

@@ -120,10 +120,12 @@ def test_dist_test_worker_imports_no_jax():
 
 
 # Single-device serving: the engine (speculative decoding, the dense
-# layout), its pools, the sampling pieces, the scheduler (WFQ lanes,
-# tenant caps, preemption) and the CLI over them.
+# layout), its pools (the host tier, the block wire's export and
+# install), the sampling pieces, the scheduler (WFQ lanes, tenant caps,
+# preemption, the park), the wire and the CLI over them.
 SERVE_MODULES = ("serve/engine.py", "serve/scheduler.py", "serve/slots.py",
-                 "serve/sampling.py", "cli/serve.py", "models/gpt2.py")
+                 "serve/sampling.py", "serve/migrate.py", "cli/serve.py",
+                 "models/gpt2.py")
 
 
 @pytest.mark.parametrize("rel", SERVE_MODULES)
@@ -133,3 +135,17 @@ def test_serve_modules_are_guarded(rel):
     with open(os.path.join(ROOT, path)) as f:
         tree = ast.parse(f.read(), filename=path)
     assert not [mod for _, mod in _imported_roots(tree) if mod in FORBIDDEN]
+
+
+def test_the_wire_module_speaks_to_jax_without_importing_it():
+    """``serve/migrate.py`` is byte-compatible with JAX's wire, yet a copy
+    of its own: it imports the standard library, numpy and the port,
+    nothing of ``jax`` or ``nezha_tpu``, at any depth."""
+    path = os.path.join("nezha_tpu_torch", "serve", "migrate.py")
+    assert path in PORT_FILES
+    with open(os.path.join(ROOT, path)) as f:
+        tree = ast.parse(f.read(), filename=path)
+    roots = {mod for _, mod in _imported_roots(tree)}
+    assert roots <= {"__future__", "base64", "http", "json", "time",
+                     "typing", "numpy", "nezha_tpu_torch"}, roots
+    assert not roots & set(FORBIDDEN)

@@ -1220,3 +1220,65 @@ def test_dp_and_zero1_over_nccl_at_world1_are_the_single_step(cuda_device):
         assert all(np.isfinite(losses))
     finally:
         dist.destroy_process_group()
+
+
+def _tier_traffic(sched):
+    """Two-block prompts of four users, evicted by a wide one, then
+    revisited with new tails. -> every request's tokens."""
+    users = [[(13 * u + 3 * i + 5) % 97 for i in range(10)]
+             for u in range(4)]
+    waves = [[(f"u{u}", p) for u, p in enumerate(users)],
+             [("wide", [(7 * i + 1) % 97 for i in range(30)])],
+             [(f"r{u}", p[:8] + [u, 2 * u]) for u, p in enumerate(users)]]
+    for wave in waves:
+        for rid, p in wave:
+            sched.submit(Request(prompt=p, max_new_tokens=2,
+                                 request_id=rid))
+        sched.run_until_idle(max_iters=400)
+        sched.engine.pool.leak_check()
+    return {k: r.tokens for k, r in sched.results.items()}
+
+
+@pytest.mark.gpu
+def test_host_tier_on_card_matches_cpu(cuda_device):
+    """The int8 host tier on the card (its pinned arena, the copies queued
+    on the stream with an event an entry) against the CPU's plain host
+    arrays: the same demotions, promotions and keys, the same greedy
+    tokens; a demoted entry read on the host equals its block as
+    gathered on the card before the eviction, and a promoted block
+    equals the entry."""
+    from nezha_tpu_torch.serve.slots import _gather_blocks_quantized
+
+    cpu_model = gpt2_for_preset("tiny", seed=0, device="cpu")
+    cfg = ServeConfig(max_batch_size=2, max_len=32, max_prefill_len=8,
+                      prefill_buckets=(4, 8), kv_block_size=4,
+                      kv_num_blocks=9, kv_dtype="int8", kv_host_blocks=16,
+                      cache_dtype=torch.float32)
+    out = {}
+    for device in ("cpu", cuda_device):
+        model = gpt2_for_preset("tiny", seed=0, device="cpu").to(device)
+        model.load_state_dict(cpu_model.state_dict())
+        engine = Engine(model, cfg)
+        pool = engine.pool
+        assert (pool._arena is not None) == (device != "cpu")
+        seen = {}
+        inner = pool._demote
+
+        def demote(path, block, pool=pool, inner=inner, seen=seen):
+            idx = torch.tensor([block], device=pool.caches[0]["k"].device)
+            seen[tuple(path)] = [
+                {k: v.cpu().numpy() for k, v in layer.items()}
+                for layer in _gather_blocks_quantized(pool.caches, idx)]
+            inner(path, block)
+
+        pool._demote = demote
+        tokens = _tier_traffic(Scheduler(engine))
+        assert pool.demotions > 0 and pool.promotions > 0
+        for key, entry in pool._host_tier.items():
+            entry.wait()
+            for mine, want in zip(entry, seen[key]):
+                for name in want:
+                    np.testing.assert_array_equal(mine[name], want[name])
+        out[str(device)] = (tokens, pool.demotions, pool.promotions,
+                            list(pool._host_tier), dict(pool.fleet_hits))
+    assert out["cpu"] == out["cuda"]

@@ -174,29 +174,31 @@ def test_sampled_support_respects_top_k():
 
 
 @pytest.mark.parametrize("field,valid,invalid", [
-    ("kv_host_blocks", None, {"kv_host_blocks": 4}),
-    ("speculative", {}, {"speculative": {"draft_k": 0}}),
-    ("kv_layout", "dense", {"kv_layout": "ring"}),
-    ("priority_weights", {"interactive": 4, "batch": 2, "background": 1},
+    ("kv_host_blocks", {"kv_host_blocks": 4, "kv_dtype": "int8"},
+     {"kv_host_blocks": 4}),
+    ("speculative", {"speculative": {}}, {"speculative": {"draft_k": 0}}),
+    ("kv_layout", {"kv_layout": "dense"}, {"kv_layout": "ring"}),
+    ("priority_weights",
+     {"priority_weights": {"interactive": 4, "batch": 2, "background": 1}},
      {"priority_weights": {"interactive": 1}}),
-    ("tenant_queue_cap", 2, {"tenant_queue_cap": 0}),
-    ("preemption", True, {"preemption": True, "preemption_budget": -1})])
+    ("tenant_queue_cap", {"tenant_queue_cap": 2}, {"tenant_queue_cap": 0}),
+    ("preemption", {"preemption": True},
+     {"preemption": True, "preemption_budget": -1})])
 def test_out_of_slice_settings_refused_typed(field, valid, invalid):
-    """The host KV tier is still refused typed. The other settings this
-    test once refused are served now: a valid value builds a ServeConfig,
-    and an invalid one raises the ValueError JAX's ServeConfig raises."""
+    """The settings this test once refused as not ported are all served
+    now, the host KV tier last: a valid setting builds a ServeConfig, and
+    an invalid one raises the ValueError JAX's ServeConfig raises (the
+    host tier on a bf16 pool: "int8"), never NotPortedError."""
     assert issubclass(NotPortedError, ValueError)
-    if valid is None:
-        with pytest.raises(NotPortedError, match=field):
-            ServeConfig(**invalid)
-        return
-    assert ServeConfig(**{field: valid}) is not None
-    bad = list(invalid)[-1]
+    cfg = ServeConfig(**valid)
+    assert getattr(cfg, field) is not None
+    bad = "int8" if field == "kv_host_blocks" else list(invalid)[-1]
     with pytest.raises(ValueError, match=bad) as info:
         ServeConfig(**invalid)
     assert not isinstance(info.value, NotPortedError)
-    with pytest.raises(ValueError, match=bad):
+    with pytest.raises(ValueError, match=bad) as want:
         JaxServeConfig(**invalid)
+    assert str(info.value) == str(want.value)
 
 
 def test_serveconfig_kv_dtype_validation():
@@ -224,3 +226,155 @@ def test_stdio_jsonl_server():
     out = {o["id"]: o for o in map(json.loads, proc.stdout.splitlines())}
     assert len(out["a"]["tokens"]) == 4 and len(out["b"]["tokens"]) == 3
     assert out["a"]["finish_reason"] == "length"
+
+
+# ---------------------------------------------------------- prefill_impl
+@pytest.mark.parametrize("value", ["bogus", "flash"])
+def test_prefill_impl_validation_matches_jax(value, models):
+    """``ServeConfig.prefill_impl`` takes JAX's values with JAX's message
+    (and the model's config refuses an unknown one); the engine's
+    override reaches the model (the same tensors under a
+    replaced config) and leaves the caller's model as it was."""
+    with pytest.raises(ValueError) as mine:
+        ServeConfig(prefill_impl=value)
+    with pytest.raises(ValueError) as theirs:
+        JaxServeConfig(prefill_impl=value)
+    assert str(mine.value) == str(theirs.value)
+    with pytest.raises(ValueError, match="prefill_impl"):
+        GPT2(GPT2Config(**TINY_GPT2_KW, prefill_impl=value), device="cpu")
+    _, _, tm = models
+    for ok in (None, "auto", "kernel", "xla"):
+        assert ServeConfig(prefill_impl=ok).prefill_impl == ok
+        eng = Engine(tm, ServeConfig(**SERVE_KW, prefill_impl=ok))
+        assert eng.model.cfg.prefill_impl == (ok or "auto")
+    assert tm.cfg.prefill_impl == "auto"
+
+
+def _spy_prefill_kernels(monkeypatch):
+    """Count calls of the flash-prefill wrappers the model reaches."""
+    import nezha_tpu_torch.models.gpt2 as gpt2_mod
+    calls = {"n": 0}
+    inner = gpt2_mod.paged_prefill_attention
+
+    def spy(*a, **kw):
+        calls["n"] += 1
+        return inner(*a, **kw)
+
+    monkeypatch.setattr(gpt2_mod, "paged_prefill_attention", spy)
+    return calls
+
+
+@pytest.mark.parametrize("kv_dtype", ["f32", "int8"])
+def test_prefill_impl_xla_forward_matches_jax_composed(kv_dtype,
+                                                      monkeypatch):
+    """``prefill_impl="xla"`` on both sides, the tiny preset over paged
+    pools: a chunk at position 0 padded past the prompt, a chunk at a
+    mid-block offset, another row's chunk. Logits within 1e-4 of JAX's
+    (f32 model); float pools within 1e-6; int8 pools as
+    ``tests/test_torch_int8_serve.py`` holds them (the two packages'
+    f32 K/V differ in the last bits, which can move a block's scale by
+    1e-6 relative and a value by one int8 step): scales within 1e-6
+    relative, values within one step, each chunk's error sample within
+    4e-5 relative. No flash-prefill wrapper is called."""
+    calls = _spy_prefill_kernels(monkeypatch)
+    kw = dict(TINY_GPT2_KW, prefill_impl="xla")
+    jm = JaxGPT2(JaxGPT2Config(**kw))
+    jv = jm.init(jax.random.PRNGKey(0))
+    tm = GPT2(GPT2Config(**kw), device="cpu")
+    tm.load_state_dict(params_from_jax(_flatten(jv["params"])), strict=True)
+    cfg = JaxGPT2Config(**kw)
+    bs, m, n_blocks = 8, 6, 16
+    d = cfg.hidden_size // cfg.num_heads
+    rng = np.random.RandomState(1)
+    tab = np.zeros((2, m), np.int32)
+    tab[0] = rng.permutation(np.arange(1, n_blocks))[:m]
+    tab[1, :2] = [b for b in range(1, n_blocks) if b not in tab[0]][:2]
+    shape = (n_blocks, cfg.num_heads, bs, d)
+    if kv_dtype == "int8":
+        sshape = (n_blocks, cfg.num_heads)
+        jcache = [{"k": jnp.zeros(shape, jnp.int8),
+                   "v": jnp.zeros(shape, jnp.int8),
+                   "k_scale": jnp.zeros(sshape), "v_scale": jnp.zeros(sshape)}
+                  for _ in range(cfg.num_layers)]
+    else:
+        jcache = [{"k": jnp.zeros(shape), "v": jnp.zeros(shape)}
+                  for _ in range(cfg.num_layers)]
+    keys = list(jcache[0])
+    tcache = [{k: torch.from_numpy(np.array(v)) for k, v in c.items()}
+              for c in jcache]
+
+    def run(tokens, row_tab, pos):
+        nonlocal jcache
+        jrows = [{**c, "tables": jnp.asarray(row_tab)} for c in jcache]
+        want, states = jm.apply(jv, jnp.asarray(tokens), cache=jrows,
+                                pos=pos)
+        new = [states[f"h{i}"]["attn"]["cache"]
+               for i in range(cfg.num_layers)]
+        jcache = [{k: c[k] for k in keys} for c in new]
+        trows = [{**c, "tables": torch.from_numpy(row_tab)} for c in tcache]
+        with torch.no_grad():
+            got = tm(torch.from_numpy(tokens), cache=trows, pos=pos)
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-4,
+                                   rtol=0)
+        for jc, tc in zip(new, trows):
+            assert ("qerr" in jc) == ("qerr" in tc)
+            if "qerr" in jc:
+                assert tc["qerr"].item() == pytest.approx(
+                    float(jc["qerr"]), rel=4e-5, abs=0.0)
+        for jc, tc in zip(jcache, tcache):
+            for name in keys:
+                if name.endswith("_scale"):
+                    np.testing.assert_allclose(tc[name][1:].numpy(),
+                                               np.asarray(jc[name])[1:],
+                                               rtol=1e-6, atol=0)
+                elif kv_dtype == "int8":
+                    step = np.abs(tc[name][1:].numpy().astype(np.int32)
+                                  - np.asarray(jc[name])[1:].astype(
+                                      np.int32))
+                    assert step.max() <= 1, name
+                else:
+                    np.testing.assert_allclose(tc[name].numpy(),
+                                               np.asarray(jc[name]),
+                                               atol=1e-6, rtol=0)
+
+    prompt = rng.randint(0, 512, 21)
+    chunk = np.zeros((1, 16), np.int64)
+    chunk[0, :13] = prompt[:13]
+    run(chunk, tab[:1], 0)
+    run(prompt[None, 13:21], tab[:1], 13)              # mid-block start
+    run(prompt[None, :8], tab[1:], 0)
+    assert calls["n"] == 0
+
+
+@pytest.mark.parametrize("kv_dtype", ["bf16", "int8"])
+def test_prefill_impl_xla_greedy_tokens_equal_jax(models, kv_dtype,
+                                                  monkeypatch):
+    """Engines with ``prefill_impl="xla"`` on both sides (f32 pools, or
+    int8): greedy tokens equal over a short, a chunked and two
+    prefix-sharing prompts; the port never calls a flash-prefill
+    wrapper, and its tokens equal its own kernel engine's."""
+    jm, jv, tm = models
+    calls = _spy_prefill_kernels(monkeypatch)
+    rng = np.random.RandomState(4)
+    prefix = rng.randint(0, 512, 24).tolist()
+    waves = [[("short", rng.randint(0, 512, 5), 8),
+              ("chunked", rng.randint(0, 512, 40), 8)],
+             [("donor", prefix + rng.randint(0, 512, 5).tolist(), 6)],
+             [("hit", prefix + rng.randint(0, 512, 7).tolist(), 6)]]
+    kw = dict(SERVE_KW, kv_dtype=kv_dtype)
+    jsched = JaxScheduler(JaxEngine(jm, jv, JaxServeConfig(
+        **kw, cache_dtype=jnp.float32, prefill_impl="xla")))
+    want = _run(jsched, JaxRequest, waves)
+    tsched = Scheduler(Engine(tm, ServeConfig(
+        **kw, cache_dtype=torch.float32, prefill_impl="xla")))
+    got = _run(tsched, Request, waves)
+    assert calls["n"] == 0
+    for rid in want:
+        assert got[rid].tokens == want[rid].tokens, rid
+    assert tsched.engine.pool.prefix_hits >= 1
+    tsched.engine.pool.leak_check()
+    kernels = _run(Scheduler(Engine(tm, ServeConfig(
+        **kw, cache_dtype=torch.float32))), Request, waves)
+    assert calls["n"] > 0
+    assert {r: x.tokens for r, x in kernels.items()} == {
+        r: x.tokens for r, x in got.items()}
