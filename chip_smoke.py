@@ -302,6 +302,34 @@ Phases, each fatal on failure (non-zero exit, no result line):
    ``prefill_impl="xla"`` on bf16 and int8 pools with the serve phase's
    eight prompts: no B9 or B10, B7 or B8 a layer a decode step, every
    token cross-checked;
+5d. serve_fleet (after serve_wire): the serve CLI's fleet, GPT-2 124M at
+   full width, blocks of 16, ``max_len`` 1024, 256-wide chunks, eight
+   slots a replica. (a) ``--replicas 2 --replica-backend thread
+   --affinity-routing on`` in a thread of this process: the serve
+   phase's eight prompts, then four sharing a FLEET_PREFIX-token prefix
+   (the first alone, the rest after a digest interval); B9 launches 12 x
+   the prefill chunks both engines report and B7 12 x their decode
+   steps, nothing else launched; then one request on each replica at
+   once under torch.profiler, whose device events (CUPTI sees both
+   worker threads) equal the wrappers' counts and 12 x the engines'
+   chunks and steps (profiling the whole traffic slowed the GIL-shared
+   loops ~5x); an affinity
+   win and a prefix hit on the holder; ``/stats`` counts the tokens
+   answered, ``/metrics`` exposes them; no retry, failover or restart;
+   both pools leak-free; every answer cross-checked. (b) ``python -m
+   nezha_tpu_torch.cli.serve --random-init --replicas 2 --http 0`` as a
+   subprocess, no ``--device``: the replicas hold ``/dev/nvidia*`` open,
+   the front end holds none; SIGKILL of replica 0 with four requests in
+   flight: each answered (tokens or a typed ``replica_lost``), one
+   restart, the restarted replica serves, the card's used memory within
+   FLEET_MEM_RTOL of its level before the kill; SIGTERM drains and the
+   process exits 0. (c) ``--prefill-replicas 1 --decode-replicas 1
+   --kv-dtype int8``, threads: each request prefills and parks on P
+   (B10), is pulled, installed and decoded on D (a tail chunk of B10, B8
+   12 a decode step), one ``router.migrate`` span each, no fallback, P
+   leak-free with no park; every token cross-checked at
+   INT8_SERVE_LOGIT_ATOL. Prints the start-up and restart seconds and
+   ``router.route_s``;
 5b. serve_seq: the same weights on ``ShardedEngine(mesh_devices=4,
    devices=[cuda:0] * 4)`` (one card, its four shards run one after
    another) with ``prefill_mode="sequence"``, ``seq_prefill_variant=
@@ -4234,6 +4262,614 @@ def serve_wire(card: str) -> dict:
     return paths
 
 
+# ---------------------------------------------------------- serve_fleet
+# The fleet's engine shape and probe cadence (every replica: GPT-2 124M at
+# full width, blocks of 16, 1024 positions, 256-wide prefill chunks, eight
+# slots and the default pool of 1 + 8 x 64 blocks, ~0.3 GB bf16 a
+# replica, so two replicas and the smoke's own engines fit one card).
+FLEET_NEW = 32
+FLEET_ARGV = ["--random-init", "--max-len", "1024", "--max-prefill-len",
+              "256", "--kv-block-size", "16", "--max-batch-size", "8",
+              "--max-new-tokens", "96", "--http", "0",
+              "--probe-interval", "0.1", "--digest-interval", "0.5",
+              "--restart-backoff", "0.25", "--drain-timeout", "30"]
+FLEET_PREFIX = 256          # the shared prefix of the affinity prompts
+FLEET_TAILS = (20, 33, 47, 61)
+FLEET_KILL_NEW = 96         # long enough to be in flight at the kill
+FLEET_MEM_RTOL = 0.05       # the card's used memory after the restart
+FLEET_START_S = 300         # the longest a fleet may take to go live
+
+
+def fleet_prompts(vocab: int):
+    """The serve phase's eight prompts and four that share a
+    FLEET_PREFIX-token prefix (seeded)."""
+    g = torch.Generator().manual_seed(7)
+    prefix = torch.randint(0, vocab, (FLEET_PREFIX,), generator=g).tolist()
+    shared = [prefix + torch.randint(0, vocab, (n,), generator=g).tolist()
+              for n in FLEET_TAILS]
+    return serve_prompts(vocab), shared
+
+
+def fleet_cli(argv, run_dir: str):
+    """A fleet front end of the serve CLI in a thread of this process ->
+    (its server, its drain event, the thread, start-up seconds until
+    every replica is live)."""
+    import threading
+
+    from nezha_tpu_torch.cli import serve as serve_cli
+
+    args = serve_cli.build_parser().parse_args(
+        FLEET_ARGV + argv + ["--run-dir", run_dir])
+    box, ready, drain = {}, threading.Event(), threading.Event()
+
+    def cb(srv):
+        box["server"] = srv
+        ready.set()
+
+    t0 = time.perf_counter()
+    th = threading.Thread(target=lambda: box.setdefault(
+        "rc", serve_cli.run(args, ready_cb=cb, drain_event=drain)),
+        daemon=True)
+    th.start()
+    if not ready.wait(FLEET_START_S):
+        fail(f"serve_fleet {argv}: the front end did not start")
+    srv = box["server"]
+    want = len(srv.supervisor.replicas())
+    fleet_wait_live(srv.server_address[1], want, f"serve_fleet {argv}")
+    return srv, drain, th, box, time.perf_counter() - t0
+
+
+def fleet_wait_live(port: int, want: int, what: str) -> dict:
+    t_end = time.monotonic() + FLEET_START_S
+    while True:
+        try:
+            code, health = http_call(port, "GET", "/healthz")
+        except OSError:
+            code, health = None, {}
+        if code == 200 and health.get("replicas_live") == want and all(
+                r["state"] == "live" and r["healthy"]
+                for r in health["replicas"]):
+            return health
+        if time.monotonic() > t_end:
+            fail(f"{what}: {want} replicas never went live ({health})")
+        time.sleep(0.05)
+
+
+def fleet_post_all(port: int, bodies) -> list:
+    """POST every body to the front end at once -> (status, answer) in
+    order."""
+    import threading
+
+    out = [None] * len(bodies)
+
+    def post(i):
+        try:
+            out[i] = http_call(port, "POST", "/generate", bodies[i])
+        except Exception as e:
+            out[i] = (None, {"error": f"{type(e).__name__}: {e}"})
+
+    threads = [threading.Thread(target=post, args=(i,), daemon=True)
+               for i in range(len(bodies))]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(300)
+    return out
+
+
+def fleet_engines(srv):
+    """The thread fleet's schedulers, by rid."""
+    return [r.handle.worker._sched for r in srv.supervisor.replicas()]
+
+
+def fleet_engine_counts(scheds) -> list:
+    return [(s.engine.prefill_chunks, s.engine.step_calls) for s in scheds]
+
+
+class DeviceKernels:
+    """The device kernels launched inside the block, by name, from
+    torch.profiler (CUPTI sees every thread's launches): one warm-up
+    cycle first, as profiled_kernels takes, since CUPTI drops events
+    while it starts up."""
+
+    def __enter__(self):
+        from torch.profiler import ProfilerActivity, profile, schedule
+        # Device activity only: recording every thread's host ops slows
+        # a fleet's decode loops by an order of magnitude.
+        self.prof = profile(activities=[ProfilerActivity.CUDA],
+                            schedule=schedule(wait=0, warmup=1, active=1,
+                                              repeat=1))
+        self.prof.__enter__()
+        torch.cuda._sleep(1000)
+        torch.cuda.synchronize()
+        time.sleep(PROFILE_SETTLE_S)
+        self.prof.step()
+        return self
+
+    def __exit__(self, *exc):
+        from torch.autograd import DeviceType
+        torch.cuda.synchronize()
+        time.sleep(PROFILE_SETTLE_S)
+        self.prof.step()
+        self.prof.__exit__(None, None, None)
+        self.counts = {}
+        for e in self.prof.events():
+            if e.device_type == DeviceType.CUDA:
+                name = kernel_name(e.name)
+                self.counts[name] = self.counts.get(name, 0) + 1
+        return False
+
+
+def fleet_stats(port: int) -> dict:
+    code, stats = http_call(port, "GET", "/stats")
+    if code != 200:
+        fail(f"serve_fleet: /stats answered {code}")
+    return stats
+
+
+def fleet_router_counts(stats: dict) -> dict:
+    c = stats["router"]["counters"]
+    return {k: c.get(f"router.{k}_total", 0)
+            for k in ("retries", "failovers", "replica_restarts",
+                      "migrate_fallbacks", "affinity_wins")}
+
+
+def fleet_route_s(stats: dict) -> dict:
+    h = stats["router"]["histograms"].get("router.route_s", {})
+    return {"count": h.get("count"), "p50": h.get("p50"),
+            "p99": h.get("p99")}
+
+
+def fleet_view(model, kv_dtype: str, answers: dict, prompts: dict):
+    """A single engine on the fleet's weights and the answers as
+    cross_check reads them."""
+    import types
+
+    from nezha_tpu_torch.serve import Engine, RequestResult, ServeConfig
+
+    engine = Engine(model, ServeConfig(max_batch_size=8, max_len=1024,
+                                       max_prefill_len=256,
+                                       kv_block_size=16, kv_dtype=kv_dtype))
+    reqs = [types.SimpleNamespace(request_id=rid, prompt=prompts[rid])
+            for rid in answers if answers[rid]["tokens"]]
+    view = types.SimpleNamespace(engine=engine, results={
+        rid: RequestResult(rid, a["tokens"], a["finish_reason"], None, 0.0)
+        for rid, a in answers.items()})
+    return view, reqs
+
+
+def fleet_thread(model, card: str, tmp: str):
+    """(a) ``--replicas 2 --replica-backend thread`` with affinity on."""
+    import threading
+
+    from nezha_tpu_torch.obs import parse_prometheus
+    from nezha_tpu_torch.obs.timeseries import metric_value
+
+    run_dir = os.path.join(tmp, "thread")
+    srv, drain, th, box, start_s = fleet_cli(
+        ["--replicas", "2", "--replica-backend", "thread",
+         "--affinity-routing", "on"], run_dir)
+    port = srv.server_address[1]
+    scheds = fleet_engines(srv)
+    vocab = model.cfg.vocab_size
+    plain, shared = fleet_prompts(vocab)
+    prompts = {f"f{i}": p for i, p in enumerate(plain)}
+    prompts.update({f"s{i}": p for i, p in enumerate(shared)})
+    torch.cuda.synchronize()
+    before = fleet_engine_counts(scheds)
+    zero_serve_launches()
+    t0 = time.perf_counter()
+    first = fleet_post_all(port, [
+        {"id": rid, "prompt_tokens": prompts[rid],
+         "max_new_tokens": FLEET_NEW}
+        for rid in prompts if rid.startswith("f")])
+    s0 = fleet_post_all(port, [{"id": "s0", "prompt_tokens": shared[0],
+                                "max_new_tokens": FLEET_NEW}])
+    # One digest interval and two probes: the holder advertises it.
+    time.sleep(0.5 + 0.2)
+    holder, hits_before = [], []
+    for i, s in enumerate(scheds):
+        with s._lock:
+            if (len(s.engine.pool.trie.match(shared[0]))
+                    >= FLEET_PREFIX // 16):
+                holder.append(i)
+            hits_before.append(s.engine.pool.prefix_hits)
+    rest = fleet_post_all(port, [
+        {"id": f"s{i}", "prompt_tokens": shared[i],
+         "max_new_tokens": FLEET_NEW} for i in range(1, len(shared))])
+    traffic_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    launches = scheds[0].engine.kernel_launches()
+    after = fleet_engine_counts(scheds)
+    chunks = sum(a[0] - b[0] for a, b in zip(after, before))
+    steps = sum(a[1] - b[1] for a, b in zip(after, before))
+    layers = model.cfg.num_layers
+    expect_launches("serve_fleet thread", launches, {
+        "paged_prefill": layers * chunks, "paged_decode": layers * steps})
+    # The profiler over both worker threads: one request on each replica
+    # at once (CUPTI's tracing slows the GIL-shared loops several times,
+    # so it covers this window, not the whole traffic).
+    ports = [r.port for r in srv.supervisor.replicas()]
+    pair = [None, None]
+
+    def direct(i):
+        pair[i] = http_call(ports[i], "POST", "/generate", {
+            "id": f"p{i}", "prompt_tokens": plain[2 + i],
+            "max_new_tokens": FLEET_NEW})
+
+    zero_serve_launches()
+    with DeviceKernels() as dk:
+        both = [threading.Thread(target=direct, args=(i,)) for i in (0, 1)]
+        for t in both:
+            t.start()
+        for t in both:
+            t.join(300)
+    prof_launches = scheds[0].engine.kernel_launches()
+    after2 = fleet_engine_counts(scheds)
+    per = [(a[0] - b[0], a[1] - b[1]) for a, b in zip(after2, after)]
+    prof = {name: dk.counts.get(name, 0)
+            for name in ("paged_prefill_kernel", "paged_decode_split_kernel")}
+    want = {"paged_prefill": layers * sum(c for c, _ in per),
+            "paged_decode": layers * sum(n for _, n in per)}
+    expect_launches("serve_fleet thread, profiled", prof_launches, want)
+    if (min(n for _, n in per) == 0
+            or prof["paged_prefill_kernel"] != want["paged_prefill"]
+            or prof["paged_decode_split_kernel"] != want["paged_decode"]):
+        fail(f"serve_fleet thread: the profiler saw {prof}; the engines "
+             f"ran (chunks, steps) {per}")
+    for name, n in want.items():
+        launches[name] += n
+    chunks += sum(c for c, _ in per)
+    steps += sum(n for _, n in per)
+    answers = {}
+    for (code, ans) in first + s0 + rest + pair:
+        if code != 200 or ans.get("finish_reason") not in ("length", "eos"):
+            fail(f"serve_fleet thread: a request answered {code} {ans}")
+        answers[ans["id"]] = ans
+    prompts.update({f"p{i}": plain[2 + i] for i in (0, 1)})
+    stats = fleet_stats(port)
+    router = fleet_router_counts(stats)
+    tokens = sum(len(a["tokens"]) for a in answers.values())
+    served = stats["fleet"]["counters"].get("serve.tokens_total")
+    if served != tokens:
+        fail(f"serve_fleet thread: /stats counts {served} tokens, the "
+             f"answers hold {tokens}")
+    if (router["retries"], router["failovers"],
+            router["replica_restarts"]) != (0, 0, 0):
+        fail(f"serve_fleet thread: router counts {router}")
+    if router["affinity_wins"] < 1:
+        fail(f"serve_fleet thread: no affinity win ({router})")
+    hits_after = [s.engine.pool.prefix_hits for s in scheds]
+    if len(holder) != 1 or hits_after[holder[0]] <= hits_before[holder[0]]:
+        fail(f"serve_fleet thread: the prefix holder {holder} took no hit "
+             f"({hits_before} -> {hits_after})")
+    import http.client
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=60)
+    try:
+        conn.request("GET", "/metrics")
+        text = conn.getresponse().read().decode()
+    finally:
+        conn.close()
+    exposed = metric_value(parse_prometheus(text),
+                           "nezha_serve_tokens_total")
+    if exposed != tokens:
+        fail(f"serve_fleet thread: /metrics exposes {exposed} tokens, the "
+             f"answers hold {tokens}")
+    for s in scheds:
+        with s._lock:
+            s.engine.pool.leak_check()
+    drain.set()
+    th.join(120)
+    if th.is_alive() or box.get("rc") != 0:
+        fail(f"serve_fleet thread: the front end ended {box.get('rc')}")
+    view, reqs = fleet_view(model, "bf16", answers, prompts)
+    cross_check(model, view, reqs, SERVE_LOGIT_ATOL)
+    out = {"start_s": start_s, "traffic_s": traffic_s, "tokens": tokens,
+           "prefill_chunks": chunks, "decode_steps": steps,
+           "launches": launches, "profiled": {"engines": per,
+                                              "kernels": prof},
+           "router": router,
+           "route_s": fleet_route_s(stats), "holder": holder,
+           "prefix_hits": hits_after, "card": card}
+    return out, launches
+
+
+def card_used_mib() -> float:
+    """The card's used memory, as ``nvidia-smi`` reads it."""
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=memory.used",
+                          "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True, timeout=60)
+    return float(smi.stdout.strip().splitlines()[0])
+
+
+def card_files(pid: int) -> list:
+    """The ``/dev/nvidia*`` files process ``pid`` holds open: the
+    driver opens them when a process initializes CUDA and makes its
+    context (``nvidia-smi``'s per-process list does not resolve pids
+    across a pid namespace, so the process's own descriptors are read).
+    None when the process is gone."""
+    try:
+        fds = os.listdir(f"/proc/{pid}/fd")
+    except OSError:
+        return None
+    out = []
+    for fd in fds:
+        try:
+            target = os.readlink(f"/proc/{pid}/fd/{fd}")
+        except OSError:
+            continue
+        if target.startswith("/dev/nvidia"):
+            out.append(target)
+    return sorted(set(out))
+
+
+def fleet_process(model, card: str, tmp: str):
+    """(b) ``python -m nezha_tpu_torch.cli.serve --random-init --replicas
+    2 --http 0`` as a subprocess, no ``--device``: the replicas hold the
+    card and the front end does not; SIGKILL of replica 0 with four
+    requests in flight; the restart; SIGTERM's rolling drain."""
+    import signal
+    import threading
+
+    run_dir = os.path.join(tmp, "process")
+    cmd = [sys.executable, "-m", "nezha_tpu_torch.cli.serve"] + [
+        a for a in FLEET_ARGV] + ["--replicas", "2", "--run-dir", run_dir]
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(cmd, stdin=subprocess.DEVNULL,
+                            stdout=subprocess.DEVNULL,
+                            stderr=subprocess.PIPE, text=True,
+                            cwd=os.path.dirname(os.path.abspath(__file__)))
+    lines, got_port = [], threading.Event()
+    box = {}
+    mib_idle = card_used_mib()
+
+    def read():
+        for line in proc.stderr:
+            lines.append(line)
+            m = re.search(r"router listening on http://127\.0\.0\.1:(\d+)",
+                          line)
+            if m:
+                box["port"] = int(m.group(1))
+                got_port.set()
+
+    threading.Thread(target=read, daemon=True).start()
+    try:
+        if not got_port.wait(FLEET_START_S):
+            fail(f"serve_fleet process: no front end ({''.join(lines)})")
+        port = box["port"]
+        health = fleet_wait_live(port, 2, "serve_fleet process")
+        start_s = time.perf_counter() - t0
+        pids = {r["rid"]: r["pid"] for r in health["replicas"]}
+        plain, shared = fleet_prompts(model.cfg.vocab_size)
+        prompts = {f"p{i}": p for i, p in enumerate(plain)}
+        warm = fleet_post_all(port, [
+            {"id": rid, "prompt_tokens": p, "max_new_tokens": FLEET_NEW}
+            for rid, p in prompts.items()])
+        files = {"front_end": card_files(proc.pid),
+                 **{f"replica{rid}": card_files(pid)
+                    for rid, pid in pids.items()}}
+        if files["front_end"] != [] or not all(
+                files[f"replica{rid}"] for rid in pids):
+            fail(f"serve_fleet process: the card files held: {files} "
+                 f"(front end {proc.pid}, replicas {pids})")
+        mem_before = card_used_mib()
+        # Fresh prompts: no digest covers them, so least-loaded routing
+        # spreads the four over both replicas.
+        g = torch.Generator().manual_seed(11)
+        kill_ids = [f"k{i}" for i in range(4)]
+        for rid in kill_ids:
+            prompts[rid] = torch.randint(0, model.cfg.vocab_size, (300,),
+                                         generator=g).tolist()
+        answers = [None]
+        killer = threading.Thread(target=lambda: answers.__setitem__(
+            0, fleet_post_all(port, [
+                {"id": rid, "prompt_tokens": prompts[rid],
+                 "max_new_tokens": FLEET_KILL_NEW} for rid in kill_ids])),
+            daemon=True)
+        killer.start()
+        t_end = time.monotonic() + 120
+        while True:
+            _, h = http_call(port, "GET", "/healthz")
+            flights = [r["in_flight"] for r in h["replicas"]]
+            if sum(flights) == len(kill_ids) and flights[0] > 0:
+                break
+            if time.monotonic() > t_end:
+                fail(f"serve_fleet process: the four requests never were "
+                     f"in flight on both replicas ({flights})")
+            time.sleep(0.01)
+        before_kill = fleet_router_counts(fleet_stats(port))
+        os.kill(pids[0], signal.SIGKILL)
+        t_kill = time.perf_counter()
+        killer.join(300)
+        killed = answers[0]
+        outcomes = {}
+        for rid, (code, ans) in zip(kill_ids, killed):
+            if code == 200 and ans.get("finish_reason") in ("length",
+                                                            "eos"):
+                outcomes[rid] = "served"
+            elif code == 502 and ans.get("error_type") == "replica_lost":
+                outcomes[rid] = "replica_lost"
+            else:
+                fail(f"serve_fleet process: {rid} answered {code} {ans}")
+        health = fleet_wait_live(port, 2, "serve_fleet process restart")
+        restart_s = time.perf_counter() - t_kill
+        new_pid = health["replicas"][0]["pid"]
+        if new_pid == pids[0]:
+            fail("serve_fleet process: replica 0 kept its killed pid")
+        stats = fleet_stats(port)
+        router = fleet_router_counts(stats)
+        # What the kill explains: each request replica 0 held is sent
+        # once more, to replica 1, and replica 0 restarts once; nothing
+        # before the kill.
+        explained = {"retries": flights[0], "failovers": flights[0],
+                     "replica_restarts": 1}
+        if any(before_kill[k] for k in explained) or any(
+                router[k] != n for k, n in explained.items()):
+            fail(f"serve_fleet process: router counts {before_kill} before "
+                 f"the kill, {router} after it; the kill explains "
+                 f"{explained}")
+        # The restarted replica serves, directly, what the first served.
+        rport = health["replicas"][0]["port"]
+        direct = {}
+        warm_ids = list(prompts)[:len(plain)]
+        for rid, (code, ans) in zip(warm_ids, fleet_post_all(rport, [
+                {"id": f"d{rid}", "prompt_tokens": prompts[rid],
+                 "max_new_tokens": FLEET_NEW} for rid in warm_ids])):
+            if code != 200:
+                fail(f"serve_fleet process: the restarted replica "
+                     f"answered {code} {ans}")
+            direct[f"d{rid}"] = ans
+            prompts[f"d{rid}"] = prompts[rid]
+        pids_after = {0: new_pid, 1: pids[1]}
+        if card_files(proc.pid) != [] or not card_files(new_pid) \
+                or card_files(pids[0]):
+            fail(f"serve_fleet process: after the restart the front end "
+                 f"holds {card_files(proc.pid)}, the new replica "
+                 f"{card_files(new_pid)}, the killed one "
+                 f"{card_files(pids[0])}")
+        mem_after = card_used_mib()
+        if abs(mem_after - mem_before) > FLEET_MEM_RTOL * mem_before:
+            fail(f"serve_fleet process: the card used {mem_before} MiB "
+                 f"before the kill, {mem_after} MiB after the restart")
+        t_term = time.perf_counter()
+        proc.send_signal(signal.SIGTERM)
+        try:
+            rc = proc.wait(180)
+        except subprocess.TimeoutExpired:
+            fail("serve_fleet process: SIGTERM did not end the front end")
+        drain_s = time.perf_counter() - t_term
+        if rc != 0:
+            fail(f"serve_fleet process: the front end exited {rc}: "
+                 f"{''.join(lines[-20:])}")
+        left = [pid for pid in pids_after.values() if card_files(pid)]
+        if left:
+            fail(f"serve_fleet process: replicas {left} outlived the drain")
+        mib_drained = card_used_mib()
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(30)
+    answers = {}
+    for code, ans in warm:
+        if code != 200:
+            fail(f"serve_fleet process: a request answered {code} {ans}")
+        answers[ans["id"]] = ans
+    for rid, (code, ans) in zip(kill_ids, killed):
+        if code == 200:
+            answers[rid] = ans
+    answers.update(direct)
+    view, reqs = fleet_view(model, "bf16", answers, prompts)
+    cross_check(model, view, reqs, SERVE_LOGIT_ATOL)
+    return {"start_s": start_s, "restart_s": restart_s, "drain_s": drain_s,
+            "kill_outcomes": outcomes, "in_flight_at_kill": flights,
+            "router": router,
+            "route_s": fleet_route_s(stats),
+            "card_mib_idle": mib_idle, "card_mib_before_kill": mem_before,
+            "card_mib_after_restart": mem_after,
+            "card_mib_after_drain": mib_drained, "card_files": files,
+            "front_end_pid": proc.pid,
+            "replica_pids": pids, "restarted_pid": new_pid, "card": card}
+
+
+def fleet_disagg(model, card: str, tmp: str):
+    """(c) ``--prefill-replicas 1 --decode-replicas 1 --kv-dtype int8``,
+    thread backend."""
+    run_dir = os.path.join(tmp, "disagg")
+    srv, drain, th, box, start_s = fleet_cli(
+        ["--prefill-replicas", "1", "--decode-replicas", "1", "--kv-dtype",
+         "int8", "--replica-backend", "thread"], run_dir)
+    port = srv.server_address[1]
+    scheds = fleet_engines(srv)
+    roles = [r.role for r in srv.supervisor.replicas()]
+    pre, dec = scheds[roles.index("prefill")], scheds[roles.index("decode")]
+    plain, _ = fleet_prompts(model.cfg.vocab_size)
+    prompts = {f"m{i}": p for i, p in enumerate(plain)}
+    torch.cuda.synchronize()
+    before = fleet_engine_counts([pre, dec])
+    zero_serve_launches()
+    t0 = time.perf_counter()
+    got = fleet_post_all(port, [
+        {"id": rid, "prompt_tokens": p, "max_new_tokens": FLEET_NEW}
+        for rid, p in prompts.items()])
+    traffic_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    launches = pre.engine.kernel_launches()
+    after = fleet_engine_counts([pre, dec])
+    (pc, ps), (dc, ds) = [(a[0] - b[0], a[1] - b[1])
+                          for a, b in zip(after, before)]
+    answers = {}
+    migrated = 0
+    for code, ans in got:
+        if code != 200 or ans.get("finish_reason") not in ("length", "eos"):
+            fail(f"serve_fleet disagg: a request answered {code} {ans}")
+        mig = ans.get("migration") or {}
+        if "fallback" in mig:
+            fail(f"serve_fleet disagg: {ans['id']} fell back: {mig}")
+        migrated += int(mig.get("installed", 0) > 0)
+        answers[ans["id"]] = ans
+    layers = model.cfg.num_layers
+    if ps != 0:
+        fail(f"serve_fleet disagg: the prefill replica decoded {ps} steps")
+    expect_launches("serve_fleet disagg", launches, {
+        "paged_quant_prefill": layers * (pc + dc),
+        "paged_quant_decode": layers * ds})
+    stats = fleet_stats(port)
+    router = fleet_router_counts(stats)
+    if (router["retries"], router["failovers"], router["replica_restarts"],
+            router["migrate_fallbacks"]) != (0, 0, 0, 0):
+        fail(f"serve_fleet disagg: router counts {router}")
+    with pre._lock:
+        parked = pre.parked_count
+        pre.engine.pool.leak_check()
+    with dec._lock:
+        dec.engine.pool.leak_check()
+    if parked:
+        fail(f"serve_fleet disagg: {parked} parks left after the ACKs")
+    drain.set()
+    th.join(120)
+    if th.is_alive() or box.get("rc") != 0:
+        fail(f"serve_fleet disagg: the front end ended {box.get('rc')}")
+    with open(os.path.join(run_dir, "spans.jsonl")) as f:
+        spans = [json.loads(line) for line in f if line.strip()]
+    n_migrate = sum(1 for s in spans if s["name"] == "router.migrate")
+    if n_migrate != len(prompts):
+        fail(f"serve_fleet disagg: {n_migrate} router.migrate spans for "
+             f"{len(prompts)} requests")
+    view, reqs = fleet_view(model, "int8", answers, prompts)
+    cross_check(model, view, reqs, INT8_SERVE_LOGIT_ATOL)
+    return {"start_s": start_s, "traffic_s": traffic_s,
+            "prefill_chunks": {"prefill": pc, "decode": dc},
+            "decode_steps": ds, "migrated": migrated,
+            "router_migrate_spans": n_migrate, "launches": launches,
+            "router": router, "route_s": fleet_route_s(stats),
+            "card": card}, launches
+
+
+def serve_fleet(card: str) -> dict:
+    """Phase 5d: the multi-replica fleet through the serve CLI, GPT-2 124M
+    at full width. -> the launches of the thread fleets' paths."""
+    import tempfile
+
+    from nezha_tpu_torch.cli.common import gpt2_for_preset
+
+    t0 = time.perf_counter()
+    model = gpt2_for_preset("full", seed=0, device="cuda")
+    model.eval()
+    paths = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        stats, paths["serve_fleet_thread"] = fleet_thread(model, card, tmp)
+        print(json.dumps({"serve_fleet": {"thread": stats}}), flush=True)
+        stats = fleet_process(model, card, tmp)
+        print(json.dumps({"serve_fleet": {"process": stats}}), flush=True)
+        stats, paths["serve_fleet_disagg_int8"] = fleet_disagg(model, card,
+                                                               tmp)
+        print(json.dumps({"serve_fleet": {"disagg_int8": stats}}),
+              flush=True)
+    print(json.dumps({"serve_fleet_wall_s": time.perf_counter() - t0}),
+          flush=True)
+    return paths
+
+
 @torch.no_grad()
 def cross_check(model, sched, reqs, atol: float) -> None:
     """Every request against the no-cache causal forward with composed
@@ -5513,6 +6149,8 @@ def main() -> int:
     paths.update(serve_modes(card))
     phase("serve_wire")
     paths.update(serve_wire(card))
+    phase("serve_fleet")
+    paths.update(serve_fleet(card))
     phase("serve_seq")
     seq = serve_seq(card)
     paths["serve_seq"] = seq["ring_bf16"]

@@ -4,6 +4,7 @@
     python -m nezha_tpu_torch.cli.serve --random-init --model-preset full
     python -m nezha_tpu_torch.cli.serve --ckpt-dir C --tokenizer D
     python -m nezha_tpu_torch.cli.serve --random-init --http 8000
+    python -m nezha_tpu_torch.cli.serve --random-init --replicas 2 --http 0
 
 Weights come from ``--ckpt-dir`` (the newest checkpoint of either
 package's train CLI that verifies: a dense npz, else a per-shard
@@ -49,9 +50,16 @@ The server exits once stdin closes and every request has finished.
 ``http.server``): ``POST /generate`` takes the same request object and
 answers once it finishes (503 ``queue_full`` or ``tenant_over_limit``
 under backpressure, 409 for an id already in flight), ``GET /healthz``
-reports liveness, occupancy, parks and the host tier. ``/stats``,
-``/windows`` and ``/metrics`` answer 501: the telemetry registry is not
-ported (ROADMAP A5).
+reports liveness, occupancy, parks, the host tier and the fleet digest
+of the pool's cached prefixes (``--digest-interval``,
+``--digest-max-entries``). ``GET /stats`` answers the live registry
+snapshot (stats schema v1), ``/windows`` the rolling window views and
+``/metrics`` their Prometheus text. ``--run-dir D`` writes the run's
+``metrics.jsonl``, ``spans.jsonl``, ``events.jsonl`` and ``summary.json``
+into D; ``--trace-sample`` is the share of requests that carry a trace
+id; ``--slo SPEC`` and ``--watchdog-interval`` run the anomaly watchdog,
+and the first ``serve.ttft_s`` SLO also drives preemption. A
+``NEZHA_FAULT_PLAN`` in the environment installs a seeded fault plan.
 
 KV migration: a request with ``"prefill_only": true`` is prefilled and
 PARKED (it answers ``finish_reason`` ``"prefilled"``); another replica's
@@ -85,12 +93,32 @@ shards each prefill chunk's attention over the sequence, in the
 ``--seq-prefill-variant`` layout; ``--long-prefill-buckets`` adds chunk
 widths above ``--max-prefill-len``. Speculative decoding under a mesh
 is refused.
+
+FLEETS. ``--replicas N`` (N > 1, with ``--http``) turns this process into
+a router and supervisor over N single-replica workers, each this same
+stack on its own port: ``--replica-backend process`` (the default) spawns
+``python -m nezha_tpu_torch.cli.serve`` processes with this command's
+flags and ``--device``, ``thread`` hosts them in this process. With
+process workers the front end builds no model and never touches the
+card. ``--prefill-replicas P
+--decode-replicas D`` serves disaggregated: requests prefill and park on
+the prefill tier, and a decode replica pulls the blocks, installs them
+and decodes. Unhealthy replicas are ejected after ``--probe-misses``
+missed probes, crashed ones restarted with seeded capped backoff (a
+circuit breaker after ``--max-restart-failures``), a request whose
+replica died before answering is re-sent up to ``--route-retries`` times,
+``--affinity-routing`` routes prompts to the replica caching their
+prefix, and SIGTERM drains the replicas one at a time.
+``--autoscale-min``/``--autoscale-max`` grow and shrink the fleet under
+load.
 """
 
 from __future__ import annotations
 
 import argparse
+import copy
 import json
+import os
 import signal
 import sys
 import threading
@@ -101,6 +129,7 @@ from typing import Optional
 
 import torch
 
+from nezha_tpu_torch import faults, obs
 from nezha_tpu_torch.cli.common import (add_model_args, gpt2_for_preset,
                                         load_gpt2_for_inference,
                                         load_tokenizer_arg, resolve_eos_id)
@@ -252,6 +281,75 @@ def build_parser() -> argparse.ArgumentParser:
                         "pull migrated KV and stream tokens, 'both' "
                         "(default) does everything — the role is routing "
                         "metadata; every replica keeps the full engine")
+    p.add_argument("--replicas", type=int, default=1,
+                   help="N > 1 turns this process into a router/"
+                        "supervisor front end over N engine workers "
+                        "(requires --http; each worker is the single-"
+                        "replica stack on its own port)")
+    p.add_argument("--prefill-replicas", type=int, default=0,
+                   help="with --decode-replicas: a DISAGGREGATED front "
+                        "end of this many role=prefill workers plus the "
+                        "decode tier (overrides --replicas; requires "
+                        "--http)")
+    p.add_argument("--decode-replicas", type=int, default=0,
+                   help="role=decode workers of the disaggregated front "
+                        "end (see --prefill-replicas)")
+    p.add_argument("--replica-backend", choices=["process", "thread"],
+                   default="process",
+                   help="process: spawn worker processes (an OS failure "
+                        "domain each); thread: host them in this process "
+                        "(no spawn cost, no isolation)")
+    p.add_argument("--probe-interval", type=float, default=0.5,
+                   help="seconds between per-replica /healthz probes")
+    p.add_argument("--probe-misses", type=int, default=3,
+                   help="consecutive missed probes that eject a replica "
+                        "from routing (one success readmits it)")
+    p.add_argument("--route-retries", type=int, default=2,
+                   help="times one request may be re-dispatched after its "
+                        "replica died before answering (seeded backoff); "
+                        "a begun response is never retried")
+    p.add_argument("--restart-backoff", type=float, default=0.25,
+                   help="base seconds of the capped exponential restart "
+                        "backoff for crashed replicas")
+    p.add_argument("--max-restart-failures", type=int, default=5,
+                   help="consecutive startup failures after which a "
+                        "replica's circuit breaker opens")
+    p.add_argument("--affinity-routing", choices=["on", "off"],
+                   default=None,
+                   help="route token-id requests by prefix affinity from "
+                        "the replicas' /healthz digests, with a peer "
+                        "pull_from hint on a near miss (default: on when "
+                        "the fleet has more than one replica)")
+    p.add_argument("--digest-interval", type=float, default=2.0,
+                   help="seconds between fleet-digest rebuilds on a "
+                        "replica")
+    p.add_argument("--digest-max-entries", type=int, default=256,
+                   help="prefix-hash entries one replica advertises per "
+                        "digest (recency first)")
+    p.add_argument("--autoscale-min", type=int, default=None,
+                   help="with --autoscale-max: the elastic lower bound on "
+                        "the replica count (idle fleets drain down to "
+                        "it, one replica at a time)")
+    p.add_argument("--autoscale-max", type=int, default=None,
+                   help="with --autoscale-min: the elastic upper bound "
+                        "(sustained queue or prefill-wait pressure "
+                        "spawns one replica at a time up to it)")
+    p.add_argument("--trace-sample", type=float, default=1.0,
+                   help="share of requests that carry a trace id (their "
+                        "lifecycle spans land in --run-dir)")
+    p.add_argument("--run-dir", default=None,
+                   help="write telemetry (metrics.jsonl, spans.jsonl, "
+                        "events.jsonl, summary.json) here")
+    p.add_argument("--slo", action="append", default=None, metavar="SPEC",
+                   help="an SLO evaluated per window, e.g. "
+                        "'serve.ttft_s p99 < 0.5 over 60s [objective "
+                        "0.99]' (repeatable or ';'-separated); implies "
+                        "the watchdog")
+    p.add_argument("--watchdog-interval", type=float, default=0.0,
+                   metavar="SECONDS",
+                   help="run the anomaly watchdog every SECONDS, events "
+                        "into events.jsonl; 0 disables (--slo implies "
+                        "10 s)")
     return p
 
 
@@ -377,7 +475,32 @@ def build_scheduler(args) -> Scheduler:
         except ValueError as e:
             # The draft's checks (vocabulary, positions, depth).
             raise SystemExit(f"--speculative: {e}")
-    return Scheduler(engine)
+    scheduler = Scheduler(engine)
+    # The first serve.ttft_s SLO also widens the preemption quota while
+    # its error budget burns (the watchdog keeps trackers of its own).
+    for slo_cfg in _parse_slos(args):
+        if slo_cfg.metric == "serve.ttft_s":
+            scheduler.slo_tracker = obs.SLOTracker(slo_cfg)
+            break
+    return scheduler
+
+
+def _parse_slos(args) -> list:
+    try:
+        return obs.parse_slo_args(getattr(args, "slo", None))
+    except ValueError as e:
+        raise SystemExit(f"--slo: {e}")
+
+
+def _build_stack(args):
+    """-> (scheduler, tokenizer, eos_id) for one replica."""
+    try:
+        scheduler = build_scheduler(args)
+    except NotPortedError as e:
+        raise SystemExit(f"nezha_tpu_torch.cli.serve: {e}")
+    tokenizer = load_tokenizer_arg(args)
+    eos_id = resolve_eos_id(args.eos_id, tokenizer, scheduler.engine.vocab)
+    return scheduler, tokenizer, eos_id
 
 
 def reshard_onto(args, mesh):
@@ -433,6 +556,9 @@ def parse_request(obj, args, vocab: int, tokenizer=None,
         except (TypeError, ValueError):
             raise ValueError(f"{key} must be a number, got {v!r}")
 
+    trace_id = obj.get("trace_id")
+    if trace_id is not None and not isinstance(trace_id, str):
+        raise ValueError(f"trace_id must be a string, got {trace_id!r}")
     priority = obj.get("priority", "interactive")
     if not isinstance(priority, str):
         raise ValueError(f"priority must be a string, got {priority!r}")
@@ -451,7 +577,10 @@ def parse_request(obj, args, vocab: int, tokenizer=None,
         deadline_s=num("deadline_s", float),
         request_id=obj.get("id"),
         # Prefill and PARK for a migration instead of decoding here.
-        prefill_only=bool(obj.get("prefill_only", False)))
+        prefill_only=bool(obj.get("prefill_only", False)),
+        # "" is the router's sampled-out verdict; None lets the
+        # scheduler mint.
+        trace_id=trace_id)
 
 
 def decode_text(tokens, tokenizer) -> str:
@@ -482,22 +611,26 @@ def _drain(scheduler: Scheduler, budget_s: float, drive: bool,
     server's ``abort``) until in-flight work finishes or ``budget_s``
     runs out, then cancel the stragglers with finish_reason "deadline",
     or "error" when the decode loop died (nothing can finish after
-    that). -> requests cancelled."""
+    that). -> requests cancelled. The window is one ``serve.drain``
+    span."""
     reason, error = FinishReason.DEADLINE, None
-    t_end = time.monotonic() + budget_s
-    while scheduler.has_work() and time.monotonic() < t_end:
-        if dead is not None and dead.is_set():
-            reason = FinishReason.ERROR
-            error = "decode loop died during drain"
-            break
-        if abort is not None and abort.is_set():
-            break
-        if drive:
-            if not scheduler.step():
-                time.sleep(0.002)
-        else:
-            time.sleep(0.005)
-    return scheduler.cancel_remaining(reason, error=error)
+    with obs.span("serve.drain", budget_s=budget_s) as sp:
+        t_end = time.monotonic() + budget_s
+        while scheduler.has_work() and time.monotonic() < t_end:
+            if dead is not None and dead.is_set():
+                reason = FinishReason.ERROR
+                error = "decode loop died during drain"
+                break
+            if abort is not None and abort.is_set():
+                break
+            if drive:
+                if not scheduler.step():
+                    time.sleep(0.002)
+            else:
+                time.sleep(0.005)
+        cancelled = scheduler.cancel_remaining(reason, error=error)
+        sp.set(cancelled=cancelled, reason=reason)
+    return cancelled
 
 
 def run_stdio(scheduler: Scheduler, args, stdin=None, stdout=None,
@@ -598,12 +731,26 @@ def run_stdio(scheduler: Scheduler, args, stdin=None, stdout=None,
     return 0
 
 
+def send_metrics(handler) -> None:
+    """Answer ``GET /metrics`` on ``handler`` (a BaseHTTPRequestHandler):
+    the registry's totals and window views as Prometheus text."""
+    body = obs.render_prometheus(obs.stats_snapshot(),
+                                 obs.windows_payload()).encode()
+    handler.send_response(200)
+    handler.send_header("Content-Type", "text/plain; version=0.0.4")
+    handler.send_header("Content-Length", str(len(body)))
+    handler.end_headers()
+    handler.wfile.write(body)
+
+
 def run_http(scheduler: Scheduler, args, port: int, tokenizer=None,
              ready_cb=None, drain: Optional[threading.Event] = None) -> int:
     """The stdlib HTTP front end on 127.0.0.1:``port`` (0: any free port;
     ``ready_cb(server)`` gets the bound server): ``POST /generate``
     (answers once the request retires), ``/kv_export`` and ``/kv_ack``
-    (the migration wire, allowed while draining), ``GET /healthz``.
+    (the migration wire, allowed while draining), ``GET /healthz``,
+    ``/stats``, ``/windows`` and ``/metrics`` (answered while draining
+    too).
     Handlers run on server threads (not daemons: a cancelled request's
     answer is written before the process exits); one thread drives
     decoding. Setting ``drain`` closes admission (POST -> 503
@@ -669,11 +816,15 @@ def run_http(scheduler: Scheduler, args, port: int, tokenizer=None,
                                                         0)))
 
         def do_GET(self):
-            if self.path in ("/stats", "/windows", "/metrics"):
-                return self._send(501, {
-                    "error": f"{self.path}: the telemetry registry is not "
-                             f"ported (ROADMAP A5)",
-                    "error_type": "not_ported"})
+            if self.path == "/stats":
+                payload = obs.stats_snapshot()
+                payload["role"] = role
+                payload["tenants"] = scheduler.tenant_queue_depths()
+                return self._send(200, payload)
+            if self.path == "/windows":
+                return self._send(200, obs.windows_payload())
+            if self.path == "/metrics":
+                return send_metrics(self)
             if self.path != "/healthz":
                 return self._send(404, {"error": "unknown path"})
             pool = scheduler.engine.pool
@@ -683,7 +834,7 @@ def run_http(scheduler: Scheduler, args, port: int, tokenizer=None,
                 status = "draining"
             else:
                 status = "ok"
-            self._send(200 if status == "ok" else 503, {
+            payload = {
                 "status": status, "active": pool.num_active,
                 "capacity": pool.capacity, "queued": scheduler.queue_depth,
                 "occupancy": pool.occupancy, "role": role,
@@ -691,7 +842,13 @@ def run_http(scheduler: Scheduler, args, port: int, tokenizer=None,
                 "tenants": scheduler.tenant_queue_depths(),
                 "preempted": scheduler.preempted_count,
                 "host_blocks": pool.host_blocks,
-                "host_blocks_used": pool.host_blocks_used})
+                "host_blocks_used": pool.host_blocks_used}
+            if status == "ok":
+                # The fleet digest rides the router's probe.
+                payload.update(scheduler.fleet_digest(
+                    getattr(args, "digest_interval", 2.0),
+                    getattr(args, "digest_max_entries", 256)))
+            self._send(200 if status == "ok" else 503, payload)
 
         def do_POST(self):
             if self.path in ("/kv_export", "/kv_ack"):
@@ -705,6 +862,7 @@ def run_http(scheduler: Scheduler, args, port: int, tokenizer=None,
                 obj = json.loads(self._body())
             except ValueError as e:
                 return self._send(400, {"error": str(e)})
+            obs.adopt_trace_header(self.headers, obj)
             if isinstance(obj, dict) and obj.get("resume"):
                 return self._resume(str(obj["resume"]))
             mig_meta = fleet_meta = None
@@ -845,21 +1003,58 @@ def run_http(scheduler: Scheduler, args, port: int, tokenizer=None,
     return 0
 
 
+def _start_watchdog(args):
+    """Start the anomaly watchdog when ``--watchdog-interval`` or
+    ``--slo`` asks for one (an SLO implies it, every 10 s by default).
+    -> the started thread or None. A bad ``--slo`` exits with it."""
+    slos = _parse_slos(args)
+    interval = float(getattr(args, "watchdog_interval", 0.0) or 0.0)
+    if interval <= 0 and not slos:
+        return None
+    if interval <= 0:
+        interval = 10.0
+    wd = obs.Watchdog(slos=slos,
+                      config=obs.WatchdogConfig(interval_s=interval))
+    return obs.WatchdogThread(wd).start()
+
+
+def _set_trace_sample(args) -> None:
+    try:
+        obs.set_trace_sample(getattr(args, "trace_sample", 1.0))
+    except ValueError as e:
+        raise SystemExit(f"--trace-sample: {e}")
+
+
 def run_worker(args, stdin=None, stdout=None, ready_cb=None,
                drain_event: Optional[threading.Event] = None) -> int:
-    """The single-replica stack: build the scheduler, install SIGTERM
-    and SIGINT handlers that set the drain event (after the build, so a
-    wedged start stays killable with Ctrl-C; skipped off the main
-    thread, where ``drain_event`` triggers the same path), serve HTTP
-    or stdio, and restore the old handlers on exit."""
+    """The single-replica stack, run alone and as each spawned fleet
+    worker: install ``NEZHA_FAULT_PLAN``'s plan (the previous one is
+    restored on exit), hit ``replica.exec`` (the crash-at-startup drill),
+    start the watchdog and the ``--run-dir`` sink, build the scheduler,
+    install SIGTERM and SIGINT handlers that set the drain event (after
+    the build, so a wedged start stays killable with Ctrl-C; skipped off
+    the main thread, where ``drain_event`` triggers the same path), serve
+    HTTP or stdio, and restore the old handlers on exit."""
+    from nezha_tpu_torch.serve.supervisor import replica_exec_point
+    prev_plan = faults.active()
+    faults.install_from_env()
+    try:
+        replica_exec_point()
+    except BaseException:
+        faults.install(prev_plan)
+        raise
     drain = drain_event if drain_event is not None else threading.Event()
     old_handlers = {}
+    watchdog = sink = None
     try:
-        try:
-            scheduler = build_scheduler(args)
-        except NotPortedError as e:
-            raise SystemExit(f"nezha_tpu_torch.cli.serve: {e}")
-        tokenizer = load_tokenizer_arg(args)
+        _set_trace_sample(args)
+        # The watchdog first: a bad --slo exits before a sink opens.
+        watchdog = _start_watchdog(args)
+        if args.run_dir:
+            sink = obs.start_run(args.run_dir, meta={
+                "kind": "serve",
+                "mode": "http" if args.http is not None else "stdio"})
+        scheduler, tokenizer, _ = _build_stack(args)
         for sig in (signal.SIGTERM, signal.SIGINT):
             try:
                 old_handlers[sig] = signal.signal(
@@ -872,14 +1067,197 @@ def run_worker(args, stdin=None, stdout=None, ready_cb=None,
         return run_stdio(scheduler, args, stdin=stdin, stdout=stdout,
                          tokenizer=tokenizer, drain=drain)
     finally:
+        if watchdog is not None:
+            watchdog.stop()
+        if sink is not None:
+            obs.end_run()
         for sig, handler in old_handlers.items():
             signal.signal(sig, handler)
+        faults.install(prev_plan)
+
+
+# ------------------------------------------------------- multi-replica
+def _worker_argv(args, rid: int, port: int, role: Optional[str] = None
+                 ) -> list:
+    """One spawned worker's argv: this command's flags minus the
+    router's, plus the worker's port, its tier role and, with
+    ``--run-dir``, a directory of its own. ``--device`` rides along: a
+    worker runs on the card unless the front end was given ``--device
+    cpu``."""
+    argv = [sys.executable, "-m", "nezha_tpu_torch.cli.serve",
+            "--role", role or getattr(args, "role", "both")]
+    if args.random_init:
+        argv.append("--random-init")
+    elif args.ckpt_dir:
+        argv += ["--ckpt-dir", args.ckpt_dir]
+    elif args.hf_dir:
+        argv += ["--hf-dir", args.hf_dir]
+    argv += ["--model-preset", args.model_preset,
+             "--device", args.device,
+             "--max-batch-size", str(args.max_batch_size),
+             "--max-len", str(args.max_len),
+             "--max-prefill-len", str(args.max_prefill_len),
+             "--k-max", str(args.k_max),
+             "--queue-capacity", str(args.queue_capacity),
+             "--max-new-tokens", str(args.max_new_tokens),
+             "--cache-dtype", args.cache_dtype,
+             "--decode-horizon", str(args.decode_horizon),
+             "--kv-layout", args.kv_layout,
+             "--kv-block-size", str(args.kv_block_size),
+             "--kv-dtype", args.kv_dtype,
+             "--prefix-cache", args.prefix_cache,
+             "--kv-eviction", args.kv_eviction,
+             "--kv-host-blocks", str(args.kv_host_blocks),
+             "--preemption", args.preemption,
+             "--preemption-budget", str(args.preemption_budget),
+             "--digest-interval", str(args.digest_interval),
+             "--digest-max-entries", str(args.digest_max_entries),
+             "--drain-timeout", str(args.drain_timeout),
+             "--trace-sample", str(args.trace_sample),
+             "--watchdog-interval", str(args.watchdog_interval or 0.0),
+             "--seed", str(args.seed),
+             "--mesh", str(args.mesh or 1),
+             "--prefill-mode", args.prefill_mode,
+             "--seq-prefill-variant", args.seq_prefill_variant,
+             "--http", str(port)]
+    for spec in args.slo or []:
+        argv += ["--slo", str(spec)]
+    optional = (("--kv-num-blocks", args.kv_num_blocks),
+                ("--priority-weights", args.priority_weights),
+                ("--tenant-queue-cap", args.tenant_queue_cap),
+                ("--tokenizer", args.tokenizer),
+                ("--prefill-buckets", args.prefill_buckets),
+                ("--long-prefill-buckets", args.long_prefill_buckets or None),
+                ("--decode-impl", args.decode_impl),
+                ("--prefill-impl", args.prefill_impl),
+                ("--eos-id", args.eos_id),
+                ("--shard-device", args.shard_device))
+    for flag, value in optional:
+        if value is not None:
+            argv += [flag, str(value)]
+    if args.speculative:
+        argv += ["--speculative", "--draft-k", str(args.draft_k)]
+        for flag, value in (("--draft-layers", args.draft_layers),
+                            ("--draft-ckpt-dir", args.draft_ckpt_dir),
+                            ("--draft-hf-dir", args.draft_hf_dir)):
+            if value is not None:
+                argv += [flag, str(value)]
+    if args.run_dir:
+        argv += ["--run-dir", os.path.join(args.run_dir, f"replica{rid}")]
+    return argv
+
+
+def run_multi(args, ready_cb=None, drain_event=None) -> int:
+    """The fleet front end: the supervisor spawns the workers, the
+    router serves HTTP over them, SIGTERM or SIGINT rolls the drain
+    through them one at a time. With the process backend this process
+    builds no model and touches no card (the workers own the engines);
+    ``--replica-backend thread`` hosts the workers here instead."""
+    from nezha_tpu_torch.serve.router import (Router,
+                                              register_router_instruments,
+                                              run_front_end)
+    from nezha_tpu_torch.serve.supervisor import (ProcessBackend,
+                                                  RouterConfig, Supervisor,
+                                                  ThreadBackend)
+    if args.http is None:
+        raise SystemExit("--replicas N > 1 (or --prefill-replicas/"
+                         "--decode-replicas) requires --http PORT (the "
+                         "router is an HTTP front end)")
+    roles: tuple = ()
+    total = args.replicas
+    if args.prefill_replicas or args.decode_replicas:
+        if args.prefill_replicas < 1 or args.decode_replicas < 1:
+            raise SystemExit("--prefill-replicas and --decode-replicas "
+                             "must both be >= 1 for a disaggregated front "
+                             "end")
+        roles = (("prefill",) * args.prefill_replicas
+                 + ("decode",) * args.decode_replicas)
+        total = len(roles)
+    affinity = args.affinity_routing or ("on" if total > 1 else "off")
+    try:
+        cfg = RouterConfig(
+            replicas=total, roles=roles,
+            probe_interval_s=args.probe_interval,
+            probe_misses=args.probe_misses,
+            route_retries=args.route_retries,
+            restart_backoff_base_s=args.restart_backoff,
+            max_restart_failures=args.max_restart_failures,
+            drain_timeout_s=args.drain_timeout, seed=args.seed,
+            affinity_routing=affinity == "on",
+            digest_interval_s=args.digest_interval,
+            digest_max_entries=args.digest_max_entries,
+            autoscale_min=args.autoscale_min,
+            autoscale_max=args.autoscale_max)
+    except ValueError as e:
+        raise SystemExit(f"fleet config: {e}")
+    prev_plan = faults.active()
+    faults.install_from_env()
+    # The router is the trace-minting edge; the workers get the same
+    # sample through their argv.
+    _set_trace_sample(args)
+    watchdog = sink = None
+    drain = drain_event if drain_event is not None else threading.Event()
+    old_handlers = {}
+    sup = router = None
+    try:
+        watchdog = _start_watchdog(args)
+        if args.run_dir:
+            sink = obs.start_run(args.run_dir, meta={
+                "kind": "serve_router", "replicas": total,
+                "roles": ",".join(roles) if roles else "both",
+                "backend": args.replica_backend})
+            register_router_instruments()
+        if args.replica_backend == "thread":
+            wargs = copy.copy(args)
+            wargs.replicas, wargs.http, wargs.run_dir = 1, None, None
+            wargs.prefill_replicas = wargs.decode_replicas = 0
+            backend = ThreadBackend(wargs, drain_timeout_s=args.drain_timeout,
+                                    roles=roles)
+        else:
+            backend = ProcessBackend(
+                lambda rid, port: _worker_argv(args, rid, port,
+                                               cfg.role_of(rid)
+                                               if roles else args.role),
+                log_dir=(os.path.join(args.run_dir, "logs")
+                         if args.run_dir else None))
+        sup = Supervisor(backend, cfg)
+        router = Router(sup, cfg)
+        sup.start()
+        router.start()
+        # As in the worker: the handlers only set the event, installed
+        # once the supervisor is up so a wedged spawn stays Ctrl-C-able.
+        for sig in (signal.SIGTERM, signal.SIGINT):
+            try:
+                old_handlers[sig] = signal.signal(
+                    sig, lambda signum, frame: drain.set())
+            except ValueError:
+                break
+        return run_front_end(router, sup, args.http, ready_cb=ready_cb,
+                             drain=drain, drain_timeout_s=args.drain_timeout)
+    finally:
+        if router is not None:
+            router.stop()
+        if sup is not None:
+            sup.shutdown()
+        if watchdog is not None:
+            watchdog.stop()
+        if sink is not None:
+            obs.end_run()
+        for sig, handler in old_handlers.items():
+            signal.signal(sig, handler)
+        faults.install(prev_plan)
 
 
 def run(args, stdin=None, stdout=None, ready_cb=None,
         drain_event: Optional[threading.Event] = None) -> int:
-    """The CLI's entry with parsed ``args``: one replica (``--replicas``
-    and the router are ROADMAP A5)."""
+    """The CLI's entry with parsed ``args``: a fleet front end when
+    ``--replicas`` > 1, a tier split or autoscale bounds ask for one (an
+    elastic fleet that starts at one replica still needs the router),
+    else one replica."""
+    if (args.replicas > 1 or args.autoscale_min is not None
+            or args.autoscale_max is not None
+            or args.prefill_replicas or args.decode_replicas):
+        return run_multi(args, ready_cb=ready_cb, drain_event=drain_event)
     return run_worker(args, stdin=stdin, stdout=stdout, ready_cb=ready_cb,
                       drain_event=drain_event)
 

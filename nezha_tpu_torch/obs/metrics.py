@@ -1,7 +1,6 @@
 """Metrics recording: the JSONL sink (counterpart of
 ``nezha_tpu/obs/metrics.py``'s ``MetricsLogger`` and ``read_metrics``;
-the rest of the telemetry subsystem, its registry and run sinks, is not
-ported yet)."""
+the run sinks in ``obs/sink.py`` stream through it)."""
 
 from __future__ import annotations
 

@@ -1,6 +1,6 @@
 """Device tracing on ``torch.profiler`` (counterpart of the device half
-of ``nezha_tpu/obs/trace.py``, which drives ``jax.profiler``; its
-distributed request tracing waits for the telemetry registry).
+of ``nezha_tpu/obs/trace.py``, which drives ``jax.profiler``; the
+request trace ids live in ``obs/registry.py``).
 
 A trace window records the host's activity and, where CUDA is available,
 the card's kernels and copies, and writes a Chrome trace (``.json``,

@@ -11,7 +11,10 @@ The build runs at first use, into ``build/nezha_tpu_torch/`` at the root
 of the checkout (listed in ``.gitignore``), in a directory keyed by a hash
 of the sources, headers and flags — an edited source builds anew, an
 unchanged one is reused. :func:`build_all` starts one ``nvcc`` per source
-at once. There is no fallback: if ``nvcc`` is missing or a build fails,
+at once. Builds and loads hold one module lock, so threads of one process
+(two replicas' engines, say) never run ``nvcc`` twice for one source, and
+each compiler writes a temporary file named by process and thread. There
+is no fallback: if ``nvcc`` is missing or a build fails,
 this raises.
 """
 
@@ -23,6 +26,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 from typing import Dict, Iterable, Sequence
@@ -39,6 +43,9 @@ KERNELS = ("paged_decode", "paged_prefill", "flash_fwd", "flash_bwd",
            "quant_prefill")
 # dtype codes the C entry points take (csrc/online_softmax.cuh DType)
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+# Held across a build and a load: a second thread waits, then finds the
+# library built.
+_BUILD_LOCK = threading.RLock()
 
 
 class KernelBuildError(RuntimeError):
@@ -77,7 +84,7 @@ def _start(name: str, nvcc: str):
     if out.exists():
         return None
     out.parent.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    tmp = out.with_suffix(f".{os.getpid()}.{threading.get_ident()}.tmp")
     cmd = [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp),
            str(CSRC / f"{name}.cu")]
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
@@ -89,6 +96,11 @@ def build_all(names: Iterable[str] = KERNELS,
               timeout_s: float = 900.0) -> Dict[str, float]:
     """Build every named kernel library, one nvcc per source, all started
     together. -> seconds each build took (0.0 when already built)."""
+    with _BUILD_LOCK:
+        return _build_all(tuple(names), timeout_s)
+
+
+def _build_all(names: Sequence[str], timeout_s: float) -> Dict[str, float]:
     nvcc = nvcc_path()
     t0 = time.perf_counter()
     started = {name: _start(name, nvcc) for name in names}
@@ -116,9 +128,14 @@ def build_all(names: Iterable[str] = KERNELS,
     return times
 
 
-@functools.lru_cache(maxsize=None)
 def load(name: str) -> ctypes.CDLL:
     """The loaded library for kernel ``name``, built first if needed."""
+    with _BUILD_LOCK:
+        return _load(name)
+
+
+@functools.lru_cache(maxsize=None)
+def _load(name: str) -> ctypes.CDLL:
     build_all((name,))
     return ctypes.CDLL(str(library_path(name)))
 

@@ -26,7 +26,14 @@ With ``kv_dtype="int8"`` the pool stores int8 K/V with one fp32 scale per
 the chunk's block write) and decode steps requantize each row's current
 block and run the int8 decode kernel. Each prefill chunk's largest
 dequant error (the max over layers) is appended to
-:attr:`Engine.quant_errors`.
+:attr:`Engine.quant_errors` and observed into ``serve.kv.quant_error``.
+
+Telemetry and chaos sit where JAX's engine has them: the fault points
+``serve.prefill`` and ``serve.step`` at the head of each call (an injected
+error at a block bind surfaces as :class:`KVBlocksExhausted`), the data
+points ``serve.prefill.logits``, ``serve.step.logits`` and
+``serve.spec.verify`` on the carried logits, and the ``serve.prefill.*``
+and ``serve.spec.*`` instruments beside the plain counters.
 
 ``kv_layout="dense"`` keeps one ``[capacity, H, max_len, D]`` reservation
 a slot (:class:`~nezha_tpu_torch.serve.slots.SlotPool`): no block tables,
@@ -63,8 +70,9 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from nezha_tpu_torch import faults, obs
 from nezha_tpu_torch.errors import NotPortedError
-from nezha_tpu_torch.models.gpt2 import GPT2, with_overrides
+from nezha_tpu_torch.models.gpt2 import GPT2, prefill_kernel_ok, with_overrides
 from nezha_tpu_torch.ops.cuda import (flash_decode_attention,
                                       paged_decode_attention,
                                       paged_prefill_attention,
@@ -328,8 +336,8 @@ def self_draft(model: GPT2, num_layers: Optional[int] = None) -> GPT2:
     return draft
 
 
-# Prefill error samples an Engine keeps (the newest): the reference feeds
-# them to a histogram, which waits for the port of ``obs/``.
+# Prefill error samples an Engine keeps (the newest), beside the
+# ``serve.kv.quant_error`` histogram.
 QUANT_ERROR_SAMPLES = 4096
 
 
@@ -366,6 +374,12 @@ class Engine:
         self.vocab = model.cfg.vocab_size
         self.k_max = min(cfg.k_max, self.vocab)
         self.paged = cfg.kv_layout == "paged"
+        # Whether paged prefill chunks go through the flash-prefill kernels.
+        self.prefill_kernel_active = bool(self.paged
+                                          and prefill_kernel_ok(model.cfg))
+        self.kv_quant = cfg.kv_dtype == "int8"
+        obs.gauge("serve.prefill.kernel_active").set(
+            1.0 if self.prefill_kernel_active else 0.0)
         self.pool = (self._make_paged_pool(
                          model.cfg, num_blocks=cfg.kv_num_blocks,
                          prefix_cache=cfg.prefix_cache,
@@ -570,6 +584,7 @@ class Engine:
         budget; speculative, the prompt into the draft pool too (always a
         cold plan from 0: the draft pool caches no prefix). The first
         generated token comes from the next :meth:`step`."""
+        faults.point("serve.prefill")
         n = len(tokens)
         cfg = self.cfg
         if not 1 <= n < cfg.max_len:
@@ -600,6 +615,15 @@ class Engine:
                     slot, 0, max(off + width for off, _, width in chunks))
             if start > 0:
                 self.pool.count_prefix_hit()
+        obs.counter("serve.prefill.chunks_total").inc(len(chunks))
+        # The tokens the chunks push through the model (pads included, a
+        # prefix hit's span not): the sharded engine's collective
+        # estimate reads them.
+        self.last_prefill_tokens = sum(w for _, _, w in chunks)
+        self.last_prefill_chunks = len(chunks)
+        # Re-pinned each call: a registry reset after warmup must keep it.
+        obs.gauge("serve.prefill.kernel_active").set(
+            1.0 if self.prefill_kernel_active else 0.0)
         self.host_positions[slot] = n
         self.host_budgets[slot] = budget
         rows = self._cache_rows(self.pool, slot)
@@ -629,6 +653,9 @@ class Engine:
             self.emitted_counts[slot] = 0
         if self.paged:
             self.pool.register_prefix(slot, tokens.tolist())
+        if faults.enabled():
+            self.last_logits = faults.corrupt(
+                "serve.prefill.logits", self.last_logits, rows=(slot,))
 
     def _run_chunks(self, model, rows, tokens: np.ndarray, chunks,
                     target: bool = True) -> torch.Tensor:
@@ -637,18 +664,38 @@ class Engine:
         dequant errors, read once every chunk is dispatched."""
         dev = self.device
         qerrs = []
+        kernel = target and self.paged and self.prefill_kernel_active
         for off, ln, width in chunks:
-            padded = np.zeros((1, width), np.int64)
-            padded[0, :ln] = tokens[off:off + ln]
-            logits = model(torch.as_tensor(padded, device=dev), cache=rows,
-                           pos=off)
+            if target:
+                obs.histogram("serve.prefill.bucket_len").observe(width)
+            # Recorded only inside the request's trace context.
+            with obs.traced_span("serve.prefill.chunk", width=width,
+                                 offset=off, tokens=ln):
+                padded = np.zeros((1, width), np.int64)
+                padded[0, :ln] = tokens[off:off + ln]
+                ids = torch.as_tensor(padded, device=dev)
+                if kernel:
+                    # The chunk's dispatch through the flash-prefill
+                    # kernels; an int8 pool writes every layer's K and V
+                    # blocks inside the kernel.
+                    with obs.span("serve.prefill.kernel_s", width=width):
+                        logits = model(ids, cache=rows, pos=off)
+                    if self.kv_quant:
+                        obs.counter("serve.prefill.fused_writes_total").inc(
+                            model.cfg.num_layers)
+                else:
+                    logits = model(ids, cache=rows, pos=off)
             last = logits[0, ln - 1]                 # last REAL row
             if target:
                 self.prefill_chunks += 1
                 if "qerr" in rows[0]:
                     qerrs.append(torch.stack([r["qerr"] for r in rows]).max())
         if qerrs:
-            self.quant_errors.extend(torch.stack(qerrs).tolist())
+            errs = torch.stack(qerrs).tolist()
+            self.quant_errors.extend(errs)
+            hist = obs.histogram("serve.kv.quant_error")
+            for err in errs:
+                hist.observe(err)
         return last
 
     def _bind_decode_windows(self, active: np.ndarray, cap: int,
@@ -656,7 +703,8 @@ class Engine:
         """Make every active row's write window for this block
         (``[pos, pos + min(cap, budget))``, clamped to capacity) owned by
         the row in each of ``pools`` before the dispatch. Raises
-        :class:`KVBlocksExhausted` carrying the row's slot."""
+        :class:`KVBlocksExhausted` carrying the row's slot, for genuine
+        exhaustion and an injected ``serve.kv.bind`` fault alike."""
         for slot in np.flatnonzero(np.asarray(active, bool)):
             pos_h = int(self.host_positions[slot])
             need = min(cap, max(int(self.host_budgets[slot]), 0))
@@ -664,8 +712,11 @@ class Engine:
                 continue
             start = min(pos_h, self.cfg.max_len - 1)
             end = max(min(pos_h + need, self.cfg.max_len), start + 1)
-            for pool in pools:
-                pool.prepare_write(int(slot), start, end)
+            try:
+                for pool in pools:
+                    pool.prepare_write(int(slot), start, end)
+            except faults.InjectedFault as e:
+                raise KVBlocksExhausted(str(e), slot=int(slot)) from e
 
     @torch.no_grad()
     def step(self, active: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
@@ -674,6 +725,7 @@ class Engine:
         tokens are ``tokens[r, :emitted[r]]``, ``W`` is
         :attr:`tokens_per_dispatch`. Afterwards :attr:`step_ok` is False
         where a row's logits went non-finite."""
+        faults.point("serve.step")
         self.step_calls += 1
         if self.spec is not None:
             return self._spec_step(np.asarray(active, bool))
@@ -713,6 +765,10 @@ class Engine:
                                       last_logits)
             positions = torch.where(emit, positions + 1, positions)
             toks.append(tok)
+        if faults.enabled():
+            last_logits = faults.corrupt(
+                "serve.step.logits", last_logits,
+                rows=lambda: np.flatnonzero(active))
         self.last_logits, self.positions = last_logits, positions
         self.budgets = (self.budgets - emitted).clamp_min(0)
         self.step_ok = ok.cpu().numpy()
@@ -838,6 +894,11 @@ class Engine:
         order = torch.argsort((~torch.cat(masks, dim=1)).int(), dim=1,
                               stable=True)
         tok_block = tok_flat.gather(1, order)
+        if faults.enabled():
+            # A nan/inf rule poisons one active row's carried logits: the
+            # next dispatch retires only that row.
+            last = faults.corrupt("serve.spec.verify", last,
+                                  rows=lambda: np.flatnonzero(active))
         self.last_logits, self.positions = last, positions
         self.residual, self.emitted_counts = residual, counts
         self.budgets = (self.budgets - emitted).clamp_min(0)
@@ -854,9 +915,16 @@ class Engine:
         # charged all k.
         ran = win_h[active]
         ran = ran[ran > 0]
-        self.spec_verifies += int(ran.size)
-        self.spec_draft_tokens += int(ran.size) * k
-        self.spec_accepted += int((ran - 1).sum())
+        if ran.size:
+            verifies, accepted = int(ran.size), int((ran - 1).sum())
+            self.spec_verifies += verifies
+            self.spec_draft_tokens += verifies * k
+            self.spec_accepted += accepted
+            obs.counter("serve.spec.draft_tokens_total").inc(verifies * k)
+            obs.counter("serve.spec.accepted_total").inc(accepted)
+            hist = obs.histogram("serve.spec.accepted_len")
+            for v in (ran - 1).tolist():
+                hist.observe(v)
         self.host_positions += emitted_h.astype(np.int64)
         self.host_budgets -= emitted_h.astype(np.int64)
         return tok_h, emitted_h

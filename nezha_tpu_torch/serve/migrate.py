@@ -35,9 +35,11 @@ source's prefix trie and host tier (read-only, no park, no ACK), and
 failures are ``kind="kv_pull_failed"`` and the front end degrades to a
 cold prefill.
 
-The reference's fault points (``replica.kv_export``,
-``replica.kv_install``, ``replica.kv_pull``), its trace spans and its
-counters wait for ROADMAP A5; the scheduler keeps plain counters.
+The fault points are JAX's: ``replica.kv_export`` and
+``replica.kv_install`` in the scheduler's two ends (an injected error is
+a typed 500 or a :class:`MigrationError`), ``replica.kv_pull`` at the
+head of :func:`pull_prefix_into`. A traced pull is one ``serve.kv_install``
+span, the trace id forwarded to the source on both endpoints.
 """
 
 from __future__ import annotations
@@ -50,6 +52,7 @@ from typing import Dict, List, Sequence, Tuple
 
 import numpy as np
 
+from nezha_tpu_torch import faults, obs
 from nezha_tpu_torch.errors import NotPortedError
 from nezha_tpu_torch.serve.slots import KVBlocksExhausted
 
@@ -179,6 +182,8 @@ def handle_kv_export(scheduler, obj) -> Tuple[int, dict]:
     except KeyError:
         return 404, {"error": f"request {rid!r} is not parked here",
                      "error_type": "migration_failed"}
+    except faults.InjectedFault as e:
+        return 500, {"error": str(e), "error_type": "injected_fault"}
     except MigrationError as e:
         return 409, {"error": str(e), "error_type": "migration_failed"}
     except NotPortedError as e:
@@ -235,7 +240,8 @@ def pull_into(scheduler, pull: dict, timeout_s: float = 120.0) -> dict:
     named by ``pull`` (``{"port": ..., "request_id": ...}``), install it
     into this replica's pool + prefix trie, then ACK the source. ->
     meta ``{"bytes", "blocks", "installed", "seconds", "acked"}`` for
-    the response's ``migration`` block. Raises :class:`MigrationError` on any failure — by the install
+    the response's ``migration`` block. Raises :class:`MigrationError`
+    on any failure — by the install
     invariants nothing is leaked on either side (the source still owns
     its parked blocks until the ACK; a failed install released every
     block it allocated)."""
@@ -248,41 +254,57 @@ def pull_into(scheduler, pull: dict, timeout_s: float = 120.0) -> dict:
         raise MigrationError(
             "pull_from requires integer 'port' and string 'request_id'")
     host = str(pull.get("host", "127.0.0.1"))
+    # The router's trace id: the whole hop (export, install, ACK) is one
+    # serve.kv_install span, and the id goes to the source on both
+    # endpoints. Untraced pulls record nothing.
+    tid = pull.get("trace_id")
     kv_body = {"request_id": rid}
-    if pull.get("trace_id"):
-        # Forwarded as the reference does, for the source's records.
-        kv_body["trace_id"] = pull["trace_id"]
-    t0 = time.monotonic()
-    try:
-        status, wire = _post_json(host, port, "/kv_export", kv_body,
-                                  timeout_s)
-    except Exception as e:
-        raise MigrationError(f"kv_export pull from {host}:{port} "
-                             f"failed: {type(e).__name__}: {e}")
-    if status != 200:
-        raise MigrationError(
-            f"kv_export from {host}:{port} answered {status}: "
-            f"{wire.get('error') if isinstance(wire, dict) else wire}",
-            # A live source answering 404 no longer holds the park (TTL,
-            # drain, or committed elsewhere): no other pull can succeed.
-            kind="park_lost" if status == 404 else "migration_failed")
-    tokens, layers, nbytes = decode_wire(wire)
-    try:
-        installed = scheduler.install_migrated(tokens, layers, nbytes)
-    except KVBlocksExhausted as e:
-        raise MigrationError(f"kv_install found no free blocks: {e}")
-    except ValueError as e:
-        raise MigrationError(f"kv_install rejected the payload: {e}")
-    # COMMIT: the copy is ours, release the source. Best effort: a lost
-    # ACK costs the source its park TTL, and the request is safe here.
-    try:
-        status, _ = _post_json(host, port, "/kv_ack", kv_body, timeout_s)
-        acked = status == 200
-    except Exception:
-        acked = False
-    nblocks = int(layers[0]["k"].shape[0]) if layers else 0
-    return {"bytes": nbytes, "blocks": nblocks, "installed": installed,
-            "seconds": time.monotonic() - t0, "acked": acked}
+    if tid:
+        kv_body["trace_id"] = tid
+    with obs.trace_context(tid):
+        with obs.traced_span("serve.kv_install", request_id=rid) as sp:
+            t0 = time.monotonic()
+            try:
+                status, wire = _post_json(host, port, "/kv_export",
+                                          kv_body, timeout_s)
+            except Exception as e:
+                raise MigrationError(f"kv_export pull from {host}:{port} "
+                                     f"failed: {type(e).__name__}: {e}")
+            if status != 200:
+                raise MigrationError(
+                    f"kv_export from {host}:{port} answered {status}: "
+                    f"{wire.get('error') if isinstance(wire, dict) else wire}",
+                    # A live source answering 404 no longer holds the
+                    # park (TTL, drain, or committed elsewhere): no other
+                    # pull can succeed.
+                    kind="park_lost" if status == 404
+                    else "migration_failed")
+            tokens, layers, nbytes = decode_wire(wire)
+            try:
+                installed = scheduler.install_migrated(tokens, layers,
+                                                       nbytes)
+            except faults.InjectedFault as e:
+                raise MigrationError(f"kv_install injected fault: {e}")
+            except KVBlocksExhausted as e:
+                raise MigrationError(
+                    f"kv_install found no free blocks: {e}")
+            except ValueError as e:
+                raise MigrationError(
+                    f"kv_install rejected the payload: {e}")
+            # COMMIT: the copy is ours, release the source. Best effort:
+            # a lost ACK costs the source its park TTL, and the request
+            # is safe here.
+            try:
+                status, _ = _post_json(host, port, "/kv_ack", kv_body,
+                                       timeout_s)
+                acked = status == 200
+            except Exception:
+                acked = False
+            nblocks = int(layers[0]["k"].shape[0]) if layers else 0
+            sp.set(bytes=nbytes, blocks=nblocks, acked=acked)
+            return {"bytes": nbytes, "blocks": nblocks,
+                    "installed": installed,
+                    "seconds": time.monotonic() - t0, "acked": acked}
 
 
 def pull_prefix_into(scheduler, pull: dict,
@@ -295,10 +317,11 @@ def pull_prefix_into(scheduler, pull: dict,
     — the source keeps its copy, the destination gains one. -> meta
     ``{"bytes", "blocks", "installed", "seconds"}`` for the response's
     ``fleet_pull`` block. Raises :class:`MigrationError` with
-    ``kind="kv_pull_failed"`` on ANY failure (source dead mid-transfer,
-    malformed payload, pool exhausted) — the caller degrades to a cold
-    prefill, never errors the request: a peer pull is an optimization,
-    not a dependency."""
+    ``kind="kv_pull_failed"`` on ANY failure (an injected fault, source
+    dead mid-transfer, malformed payload, pool exhausted) — the caller
+    degrades to a cold prefill, never errors the request: a peer pull is
+    an optimization, not a dependency. ``replica.kv_pull`` is armed at
+    entry."""
     if not isinstance(pull, dict):
         raise MigrationError("pull_from must be an object",
                              kind="kv_pull_failed")
@@ -316,6 +339,11 @@ def pull_prefix_into(scheduler, pull: dict,
         body["trace_id"] = tid
     t0 = time.monotonic()
     try:
+        faults.point("replica.kv_pull")
+    except faults.InjectedFault as e:
+        raise MigrationError(f"kv_pull injected fault: {e}",
+                             kind="kv_pull_failed")
+    try:
         status, wire = _post_json(host, port, "/kv_export", body,
                                   timeout_s)
     except Exception as e:
@@ -332,6 +360,9 @@ def pull_prefix_into(scheduler, pull: dict,
         installed = scheduler.install_pulled(tokens_out, layers, nbytes)
     except MigrationError as e:
         raise MigrationError(str(e), kind="kv_pull_failed")
+    except faults.InjectedFault as e:
+        raise MigrationError(f"kv_pull install injected fault: {e}",
+                             kind="kv_pull_failed")
     except KVBlocksExhausted as e:
         raise MigrationError(
             f"kv_pull install found no free blocks: {e}",

@@ -30,8 +30,11 @@ trie first, so its resume prefix-hits them and prefills only the tail;
 elsewhere the resume re-prefills cold. A suspended request resumes
 ahead of queued work of equal or lower priority, with its context
 (prompt and emitted tokens) and its remaining budget; its deadline keeps
-running. One preemption per admission pass, unless ``slo_tracker``
-(any object with ``burn_rate()``) reports a burn rate above 1.
+running. One preemption per admission pass, unless ``slo_tracker`` (an
+:class:`~nezha_tpu_torch.obs.SLOTracker` on interactive TTFT, fed each
+interactive first token) reports a burn rate above 1. The
+``scheduler.preempt`` fault point vetoes a preemption (the victim keeps
+decoding).
 
 Failures are request-scoped: a prefill error or non-finite logits retire
 only that request (``FinishReason.ERROR``); KV block exhaustion during
@@ -51,7 +54,17 @@ install tagged as a peer's. Every device op of these runs under the
 scheduler's lock, so it never interleaves with a step's in-place pool
 writes. ``migrations``, ``migration_bytes`` and ``pull_bytes`` count
 committed installs and their wire bytes. :meth:`Scheduler.
-cancel_remaining` retires everything at a drain's cutoff.
+cancel_remaining` retires everything at a drain's cutoff, and
+:meth:`Scheduler.fleet_digest` is the ``/healthz`` digest of the pool's
+cached prefixes.
+
+The ``serve.*`` instruments of JAX's scheduler count beside the plain
+attributes (:func:`register_serve_instruments` pre-registers them all),
+and a request's ``trace_id`` (minted here when no router minted one)
+carries its lifecycle spans: ``serve.queue_wait``, ``serve.prefill``,
+``serve.decode_window``, ``serve.decode``, ``serve.park``,
+``serve.kv_export``. The wire's fault points are ``replica.kv_export`` and
+``replica.kv_install``.
 """
 
 from __future__ import annotations
@@ -67,6 +80,8 @@ from typing import Callable, Deque, Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
+from nezha_tpu_torch import faults, obs
+from nezha_tpu_torch.serve import fleetcache
 from nezha_tpu_torch.serve.engine import PRIORITY_CLASSES, Engine
 from nezha_tpu_torch.serve.migrate import MigrationError, encode_wire
 from nezha_tpu_torch.serve.slots import KVBlocksExhausted
@@ -90,10 +105,51 @@ _PRIORITY_RANK = {p: i for i, p in enumerate(PRIORITIES)}
 # interactive, 2 batch, 1 background.
 _DEFAULT_WEIGHTS = (("interactive", 4), ("batch", 2), ("background", 1))
 
-# Per-token decode latencies a Scheduler keeps (the newest): the
-# reference feeds them to a histogram, which waits for the port of
-# ``obs/``.
+# Per-token decode latencies a Scheduler keeps (the newest), beside the
+# ``serve.tpot_s`` histogram.
 TPOT_SAMPLES = 4096
+
+# How long a step stands aside after releasing the scheduler's lock when
+# another thread waits on it (see _YieldingLock); 0 turns it off.
+YIELD_S = 0.0005
+
+
+class _YieldingLock:
+    """The scheduler's re-entrant lock, counting the threads blocked on
+    it. A lock is not fair: the decode loop, which takes it again the
+    moment a step releases it, would win that race every time, and a
+    ``submit`` (or a ``/healthz`` probe, a migration endpoint) from a
+    handler thread would wait until the loop went idle, so that requests
+    were admitted one after another instead of batched. ``step`` sleeps
+    :data:`YIELD_S` after its release while ``waiting`` is non-zero."""
+
+    def __init__(self):
+        self._lock = threading.RLock()
+        self._count = threading.Lock()
+        self.waiting = 0
+
+    def acquire(self, blocking: bool = True, timeout: float = -1) -> bool:
+        if self._lock.acquire(blocking=False):
+            return True
+        if not blocking:
+            return False
+        with self._count:
+            self.waiting += 1
+        try:
+            return self._lock.acquire(True, timeout)
+        finally:
+            with self._count:
+                self.waiting -= 1
+
+    def release(self) -> None:
+        self._lock.release()
+
+    def __enter__(self) -> "_YieldingLock":
+        self.acquire()
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.release()
 
 
 class FinishReason:
@@ -113,7 +169,9 @@ class Request:
     seconds from submit, ``priority`` its WFQ lane (one of
     :data:`PRIORITIES`) and ``tenant_id`` the tenant whose fair share and
     queue cap it counts against. ``prefill_only`` prefills the prompt and
-    parks the slot for a migration instead of decoding."""
+    parks the slot for a migration instead of decoding. ``trace_id``: a
+    router-minted id is kept, ``""`` means routed and sampled out, None
+    lets this scheduler mint one."""
 
     prompt: Sequence[int]
     max_new_tokens: int = 16
@@ -127,6 +185,7 @@ class Request:
     prefill_only: bool = False
     priority: str = "interactive"
     tenant_id: str = "default"
+    trace_id: Optional[str] = None
 
 
 @dataclasses.dataclass
@@ -147,7 +206,65 @@ class _Live:
     deadline_t: Optional[float]
     tokens: List[int] = dataclasses.field(default_factory=list)
     ttft_s: Optional[float] = None
+    # Tracing state (None for untraced requests): the trace id and the
+    # wall-clock milestones the lifecycle spans are emitted from (epoch
+    # time: fragments from several processes stitch on one clock).
+    trace_id: Optional[str] = None
+    submit_wall: Optional[float] = None
+    decode_t0_wall: Optional[float] = None
+    first_token_wall: Optional[float] = None
+    park_wall: Optional[float] = None
     preempt_count: int = 0
+
+
+def register_serve_instruments() -> None:
+    """Get-or-create JAX's whole serving instrument set, so that every
+    serving run's summary carries every name (0 where nothing happened).
+    Called at scheduler construction; again after a registry reset."""
+    for c in ("admitted", "rejected", "expired", "retired", "tokens",
+              "errors", "step_retries"):
+        obs.counter(f"serve.{c}_total")
+    obs.counter("serve.prefill.chunks_total")
+    obs.gauge("serve.prefill.kernel_active")
+    obs.counter("serve.prefill.fused_writes_total")
+    obs.gauge("serve.prefill.seq_shards")
+    obs.counter("serve.prefill.ring_hops_total")
+    obs.counter("faults.injected_total")
+    obs.counter("serve.kv.prefix_hits_total")
+    obs.counter("serve.kv.cow_copies_total")
+    obs.counter("serve.kv.migrations_total")
+    obs.counter("serve.kv.migration_bytes")
+    obs.gauge("serve.kv.blocks_used")
+    obs.counter("serve.kv.demotions_total")
+    obs.counter("serve.kv.promotions_total")
+    obs.gauge("serve.kv.host_blocks_used")
+    obs.gauge("serve.kv.host_bytes_resident")
+    obs.counter("serve.kv.fleet_hits_total")
+    obs.counter("serve.kv.fleet_hits_device_total")
+    obs.counter("serve.kv.fleet_hits_host_total")
+    obs.counter("serve.kv.fleet_hits_peer_total")
+    obs.counter("serve.kv.pull_bytes")
+    obs.gauge("serve.kv.bytes_resident")
+    obs.gauge("serve.kv.quant_bits")
+    obs.histogram("serve.kv.quant_error")
+    obs.counter("serve.spec.draft_tokens_total")
+    obs.counter("serve.spec.accepted_total")
+    obs.histogram("serve.spec.accepted_len")
+    obs.gauge("serve.mesh.devices")
+    obs.counter("serve.mesh.collective_bytes")
+    obs.gauge("serve.queue_depth")
+    obs.gauge("serve.batch_occupancy")
+    obs.histogram("serve.ttft_s")
+    obs.histogram("serve.tpot_s")
+    obs.counter("serve.preemptions_total")
+    obs.counter("serve.resumes_total")
+    obs.counter("serve.tenant_over_limit_total")
+    obs.gauge("serve.preempted_live")
+    for p in PRIORITIES:
+        obs.histogram(f"serve.ttft_s.{p}")
+    obs.histogram("serve.prefill.bucket_len")
+    obs.histogram("serve.host_gap_s")
+    obs.histogram("serve.decode.horizon")
 
 
 class Scheduler:
@@ -176,7 +293,8 @@ class Scheduler:
                      "preemptions": "_lock", "resumes": "_lock",
                      "_live": "_lock", "results": "_lock",
                      "_parked": "_lock", "migrations": "_lock",
-                     "migration_bytes": "_lock", "pull_bytes": "_lock"}
+                     "migration_bytes": "_lock", "pull_bytes": "_lock",
+                     "_host_gap_t": "_lock", "_digest_cache": "_lock"}
 
     def __init__(self, engine: Engine,
                  on_token: Optional[Callable[[str, int], None]] = None,
@@ -209,9 +327,21 @@ class Scheduler:
         self.migrations = 0
         self.migration_bytes = 0
         self.pull_bytes = 0
-        self._lock = threading.RLock()
+        # The fleet digest, built at the first /healthz that asks.
+        self._digest_cache = None
+        self._lock = _YieldingLock()
         self._ids = itertools.count()
         self.results: Dict[str, RequestResult] = {}
+        # End of the previous decode dispatch (None after an idle
+        # stretch): serve.host_gap_s measures only gaps within decoding.
+        self._host_gap_t: Optional[float] = None
+        register_serve_instruments()
+        pool = engine.pool
+        obs.gauge("serve.kv.quant_bits").set(
+            8 if getattr(pool, "quantized", False)
+            else 8 * pool.dtype.itemsize)
+        obs.gauge("serve.mesh.devices").set(
+            getattr(engine, "mesh_devices", 1))
 
     # ------------------------------------------------------- admission
     def submit(self, req: Request) -> str:
@@ -244,12 +374,24 @@ class Scheduler:
         if not isinstance(req.tenant_id, str) or not req.tenant_id:
             raise ValueError(f"tenant_id must be a non-empty string, got "
                              f"{req.tenant_id!r}")
+        # A router-minted id is kept; "" is the router's sampled-out
+        # verdict (never re-minted here); None makes this the admission
+        # edge that mints.
+        if req.trace_id == "":
+            trace_id = None
+        elif req.trace_id is not None:
+            trace_id = req.trace_id
+        else:
+            trace_id = obs.mint_trace_id()
         with self._lock:
             if self._queued_n >= self.queue_capacity:
+                obs.counter("serve.rejected_total").inc()
                 raise QueueFull(
                     f"admission queue at capacity {self.queue_capacity}")
             cap = cfg.tenant_queue_cap
             if cap is not None and self._tenant_depth(req.tenant_id) >= cap:
+                obs.counter("serve.tenant_over_limit_total").inc()
+                obs.counter("serve.rejected_total").inc()
                 raise TenantOverLimit(
                     f"tenant {req.tenant_id!r} at queue cap {cap}")
             rid = req.request_id or f"req-{next(self._ids)}"
@@ -257,7 +399,10 @@ class Scheduler:
             self._queue_push(_Live(
                 req=req, request_id=rid, submit_t=now,
                 deadline_t=None if req.deadline_s is None
-                else now + req.deadline_s))
+                else now + req.deadline_s,
+                trace_id=trace_id,
+                submit_wall=time.time() if trace_id else None))
+            obs.gauge("serve.queue_depth").set(self._queued_n)
         return rid
 
     # ------------------------------------------------------- iteration
@@ -268,9 +413,24 @@ class Scheduler:
             self._expire_parked()
             self._expire_preempted()
             self._admit()
-            emitted = self._decode() if self._live else 0
+            if self._live:
+                emitted = self._decode()
+            else:
+                emitted = 0
+                self._host_gap_t = None     # idle: no gap to measure
             self._admit()
-            return emitted
+            pool = self.engine.pool
+            obs.gauge("serve.queue_depth").set(self._queued_n)
+            obs.gauge("serve.batch_occupancy").set(pool.occupancy)
+            obs.gauge("serve.kv.blocks_used").set(pool.blocks_used)
+            obs.gauge("serve.kv.bytes_resident").set(pool.bytes_resident)
+            obs.gauge("serve.kv.host_blocks_used").set(
+                getattr(pool, "host_blocks_used", 0))
+            obs.gauge("serve.kv.host_bytes_resident").set(
+                getattr(pool, "host_bytes_resident", 0))
+        if YIELD_S and self._lock.waiting:
+            time.sleep(YIELD_S)
+        return emitted
 
     def run_until_idle(self, max_iters: Optional[int] = None) -> int:
         """Drive :meth:`step` until queue and slots are empty. -> iters."""
@@ -388,6 +548,7 @@ class Scheduler:
                 kept: Deque[_Live] = collections.deque()
                 for live in lane[tenant]:
                     if live.deadline_t is not None and now >= live.deadline_t:
+                        obs.counter("serve.expired_total").inc()
                         self._finish(live, FinishReason.DEADLINE)
                         self._queued_n -= 1
                     else:
@@ -407,17 +568,25 @@ class Scheduler:
         now = time.monotonic()
         for rid in [r for r, (_, _, exp) in self._parked.items()
                     if now >= exp]:
-            slot, _, _ = self._parked.pop(rid)
+            slot, live, _ = self._parked.pop(rid)
             self.engine.pool.free(slot)
+            self._emit_park_span(live, "expired")
+            obs.counter("serve.expired_total").inc()
+            obs.counter("serve.retired_total").inc()
 
     def _expire_preempted(self) -> None:
         """[holds: _lock] A deadline keeps running while a request is
         suspended: it retires with the tokens it already has."""
         now = time.monotonic()
-        for rid in [r for r, live in self._preempted.items()
-                    if live.deadline_t is not None
-                    and now >= live.deadline_t]:
-            self._finish(self._preempted.pop(rid), FinishReason.DEADLINE)
+        expired = [r for r, live in self._preempted.items()
+                   if live.deadline_t is not None and now >= live.deadline_t]
+        for rid in expired:
+            live = self._preempted.pop(rid)
+            obs.counter("serve.expired_total").inc()
+            obs.counter("serve.retired_total").inc()
+            self._finish(live, FinishReason.DEADLINE)
+        if expired:
+            obs.gauge("serve.preempted_live").set(len(self._preempted))
 
     # ------------------------------------------------------- preemption
     def _peek_preempted(self) -> Optional[_Live]:
@@ -431,7 +600,9 @@ class Scheduler:
 
     def _pop_preempted(self, request_id: str) -> _Live:
         """[holds: _lock]"""
-        return self._preempted.pop(request_id)
+        live = self._preempted.pop(request_id)
+        obs.gauge("serve.preempted_live").set(len(self._preempted))
+        return live
 
     def _slo_burning(self) -> bool:
         """[holds: _lock] True when the wired tracker burns its error
@@ -444,8 +615,8 @@ class Scheduler:
         live decode of strictly lower priority whose preemption budget is
         not spent: the lowest class first, the least progressed within
         it. One a pass (``already`` so far) unless the SLO is burning,
-        then up to the whole batch. False when preemption is off or no
-        victim qualifies."""
+        then up to the whole batch. False when preemption is off, no
+        victim qualifies or the ``scheduler.preempt`` point vetoed it."""
         cfg = self.engine.cfg
         if not cfg.preemption:
             return False
@@ -463,26 +634,36 @@ class Scheduler:
                 victim = (key, slot, live)
         if victim is None:
             return False
-        self._preempt(victim[1], victim[2])
-        return True
+        return self._preempt(victim[1], victim[2])
 
-    def _preempt(self, slot: int, live: _Live) -> None:
+    def _preempt(self, slot: int, live: _Live) -> bool:
         """[holds: _lock] Suspend one live decode: on the paged layout
         with the prefix cache and LRU eviction, index its blocks (prompt
         and every emitted token) in the trie, where admission pressure may
         evict them; free the slot (and the draft pool's, through the
         mirror); park the request for resume. Elsewhere nothing is
         indexed and the resume re-prefills cold (trie references under
-        ``kv_eviction="none"`` would pin blocks for good)."""
+        ``kv_eviction="none"`` would pin blocks for good). An injected
+        ``scheduler.preempt`` error leaves the victim decoding: -> False."""
+        try:
+            faults.point("scheduler.preempt")
+        except Exception:
+            return False
         pool = self.engine.pool
-        if (self.engine.paged and pool.prefix_cache_enabled
-                and pool.eviction == "lru"):
-            pool.register_prefix(slot, list(live.req.prompt) + live.tokens)
-        del self._live[slot]
-        pool.free(slot)
+        with obs.span("serve.preempt_s", request_id=live.request_id,
+                      priority=live.req.priority, tokens=len(live.tokens)):
+            if (self.engine.paged and pool.prefix_cache_enabled
+                    and pool.eviction == "lru"):
+                pool.register_prefix(slot,
+                                     list(live.req.prompt) + live.tokens)
+            del self._live[slot]
+            pool.free(slot)
         live.preempt_count += 1
         self._preempted[live.request_id] = live
         self.preemptions += 1
+        obs.counter("serve.preemptions_total").inc()
+        obs.gauge("serve.preempted_live").set(len(self._preempted))
+        return True
 
     def _resume_one(self, live: _Live) -> None:
         """[holds: _lock] Re-admit a suspended request: prefill its
@@ -493,19 +674,29 @@ class Scheduler:
         self._pop_preempted(live.request_id)
         slot = pool.alloc()
         req = live.req
+        context = list(req.prompt) + live.tokens
         try:
-            self.engine.prefill(
-                slot, list(req.prompt) + live.tokens, seed=req.seed,
-                temperature=req.temperature, top_k=req.top_k,
-                top_p=req.top_p, eos_id=req.eos_id,
-                max_new_tokens=req.max_new_tokens - len(live.tokens))
+            with obs.trace_context(live.trace_id):
+                with obs.span("serve.prefill", request_id=live.request_id,
+                              prompt_len=len(context), resumed=True):
+                    self.engine.prefill(
+                        slot, context, seed=req.seed,
+                        temperature=req.temperature, top_k=req.top_k,
+                        top_p=req.top_p, eos_id=req.eos_id,
+                        max_new_tokens=req.max_new_tokens - len(live.tokens))
         except Exception as e:
             pool.free(slot)
+            obs.counter("serve.errors_total").inc()
+            # Admitted once already: balance it with a retirement.
+            obs.counter("serve.retired_total").inc()
             self._finish(live, FinishReason.ERROR,
                          error=f"resume prefill failed: "
                                f"{type(e).__name__}: {e}")
             return
         self.resumes += 1
+        obs.counter("serve.resumes_total").inc()
+        if live.trace_id is not None:
+            live.decode_t0_wall = time.time()
         self._live[slot] = live
 
     def _admit(self) -> None:
@@ -544,8 +735,10 @@ class Scheduler:
                     if not self._live:
                         if use_pre:
                             self._pop_preempted(target.request_id)
+                            obs.counter("serve.retired_total").inc()
                         else:
                             self._pop_next()
+                        obs.counter("serve.errors_total").inc()
                         self._finish(
                             target, FinishReason.ERROR,
                             error=f"kv blocks exhausted: need {need}, "
@@ -562,32 +755,49 @@ class Scheduler:
         pool = self.engine.pool
         slot = pool.alloc()
         req = live.req
+        if live.trace_id is not None:
+            # Queue wait is known only now (submit -> this admission).
+            obs.emit_span("serve.queue_wait", live.submit_wall, time.time(),
+                          trace_id=live.trace_id,
+                          request_id=live.request_id)
         try:
-            self.engine.prefill(
-                slot, req.prompt, seed=req.seed,
-                temperature=req.temperature, top_k=req.top_k,
-                top_p=req.top_p, eos_id=req.eos_id,
-                max_new_tokens=req.max_new_tokens)
+            # The trace context gives serve.prefill and the engine's
+            # serve.prefill.chunk spans the request's trace id.
+            with obs.trace_context(live.trace_id):
+                with obs.span("serve.prefill", request_id=live.request_id,
+                              prompt_len=len(req.prompt)):
+                    self.engine.prefill(
+                        slot, req.prompt, seed=req.seed,
+                        temperature=req.temperature, top_k=req.top_k,
+                        top_p=req.top_p, eos_id=req.eos_id,
+                        max_new_tokens=req.max_new_tokens)
         except Exception as e:
             # One bad request must not kill the loop with others in
             # flight: free its slot, retire it, keep admitting.
             pool.free(slot)
+            obs.counter("serve.errors_total").inc()
             self._finish(live, FinishReason.ERROR,
                          error=f"prefill failed: {type(e).__name__}: {e}")
             return
+        obs.counter("serve.admitted_total").inc()
         if req.prefill_only:
             # Park the prefilled slot for the migration pull instead of
             # decoding. A duplicate id would orphan the first park's slot.
             if live.request_id in self._parked:
                 pool.free(slot)
+                obs.counter("serve.errors_total").inc()
                 self._finish(live, FinishReason.ERROR,
                              error=f"request {live.request_id!r} "
                                    f"already parked")
                 return
+            if live.trace_id is not None:
+                live.park_wall = time.time()
             self._parked[live.request_id] = (
                 slot, live, time.monotonic() + self.parked_ttl_s)
             self._finish(live, FinishReason.PREFILLED)
             return
+        if live.trace_id is not None:
+            live.decode_t0_wall = time.time()
         self._live[slot] = live
 
     def _dispatch(self, active: np.ndarray):
@@ -604,6 +814,8 @@ class Scheduler:
                 victim = self._live.pop(slot)
                 self.engine.pool.free(slot)
                 active[slot] = False
+                obs.counter("serve.errors_total").inc()
+                obs.counter("serve.retired_total").inc()
                 self._finish(victim, FinishReason.ERROR,
                              error=f"kv blocks exhausted: {e}")
                 if not self._live:
@@ -616,24 +828,44 @@ class Scheduler:
         active = np.zeros((self.engine.cfg.max_batch_size,), bool)
         for slot in self._live:
             active[slot] = True
+        obs.histogram("metric.batch_occupancy").observe(
+            len(self._live) / self.engine.cfg.max_batch_size)
+        # The wall clock is read only when a traced request is in the
+        # batch: its decode_window span and first-token milestone.
+        traced_batch = obs.enabled() and any(
+            live.trace_id is not None for live in self._live.values())
+        t0_wall = time.time() if traced_batch else None
         t0 = time.monotonic()
-        try:
-            out = self._dispatch(active)
-        except Exception:
-            # One bounded retry: a transient step failure must not retire
-            # every request; a second failure surfaces.
-            time.sleep(self.step_retry_backoff_s)
-            out = self._dispatch(active)
+        if self._host_gap_t is not None:
+            obs.histogram("serve.host_gap_s").observe(t0 - self._host_gap_t)
+        with obs.span("serve.decode_attention", rows=len(self._live)):
+            try:
+                out = self._dispatch(active)
+            except Exception:
+                # One bounded retry: a transient step failure must not
+                # retire every request; a second failure surfaces.
+                obs.counter("serve.step_retries_total").inc()
+                time.sleep(self.step_retry_backoff_s)
+                out = self._dispatch(active)
         if out is None:
+            self._host_gap_t = None
             return 0
         tokens, block_emitted = out
         now = time.monotonic()
         dt = now - t0
+        now_wall = time.time() if traced_batch else None
+        self._host_gap_t = now
+        obs.histogram("serve.decode.horizon").observe(
+            self.engine.tokens_per_dispatch)
         ok = self.engine.step_ok
         emitted = 0
         for slot in list(self._live):
             live = self._live[slot]
             e = int(block_emitted[slot])
+            if live.trace_id is not None and t0_wall is not None and e:
+                obs.emit_span("serve.decode_window", t0_wall, now_wall,
+                              trace_id=live.trace_id,
+                              request_id=live.request_id, tokens=e)
             reason = None
             for i in range(e):
                 tok = int(tokens[slot, i])
@@ -645,9 +877,20 @@ class Scheduler:
                     # among the row's emitted tokens.
                     denom = e if speculative else horizon
                     live.ttft_s = (t0 - live.submit_t) + dt * (i + 1) / denom
+                    if live.trace_id is not None and t0_wall is not None:
+                        live.first_token_wall = (t0_wall
+                                                 + dt * (i + 1) / denom)
+                    obs.histogram("serve.ttft_s").observe(live.ttft_s)
+                    obs.histogram(
+                        f"serve.ttft_s.{live.req.priority}").observe(
+                            live.ttft_s)
+                    if (self.slo_tracker is not None
+                            and live.req.priority == "interactive"):
+                        self._feed_slo(live.ttft_s)
                 # The block's time split over the tokens it emitted the
                 # row, one sample a token.
                 self.tpot_s.append(dt / e)
+                obs.histogram("serve.tpot_s").observe(dt / e)
                 if self.on_token is not None:
                     self.on_token(live.request_id, tok)
                 if live.req.eos_id is not None and tok == live.req.eos_id:
@@ -664,12 +907,42 @@ class Scheduler:
             if reason is not None:
                 del self._live[slot]
                 self.engine.pool.free(slot)
+                if reason == FinishReason.ERROR:
+                    obs.counter("serve.errors_total").inc()
+                elif reason == FinishReason.DEADLINE:
+                    obs.counter("serve.expired_total").inc()
+                obs.counter("serve.retired_total").inc()
                 self._finish(live, reason, error=error)
+        obs.counter("serve.tokens_total").inc(emitted)
+        if not self._live:
+            # The next decode waits for new admissions: a gap measured
+            # across that wait would be idle time.
+            self._host_gap_t = None
         return emitted
+
+    def _feed_slo(self, ttft_s: float) -> None:
+        """[holds: _lock] One interactive first token into the wired TTFT
+        tracker, judged against its spec's bound."""
+        cfg = self.slo_tracker.cfg
+        good = {"<": ttft_s < cfg.threshold, "<=": ttft_s <= cfg.threshold,
+                ">": ttft_s > cfg.threshold,
+                ">=": ttft_s >= cfg.threshold}[cfg.op]
+        self.slo_tracker.observe(good)
 
     def _finish(self, live: _Live, reason: str,
                 error: Optional[str] = None) -> None:
         """[holds: _lock]"""
+        if live.trace_id is not None and live.decode_t0_wall is not None:
+            # The retire fragment: the whole decode residency, with the
+            # first-token milestone.
+            attrs = {"request_id": live.request_id, "finish_reason": reason,
+                     "tokens": len(live.tokens)}
+            if live.ttft_s is not None:
+                attrs["ttft_s"] = live.ttft_s
+            if live.first_token_wall is not None:
+                attrs["first_token"] = live.first_token_wall
+            obs.emit_span("serve.decode", live.decode_t0_wall, time.time(),
+                          trace_id=live.trace_id, **attrs)
         result = RequestResult(
             request_id=live.request_id, tokens=live.tokens,
             finish_reason=reason, ttft_s=live.ttft_s,
@@ -677,6 +950,15 @@ class Scheduler:
         self.results[live.request_id] = result
         if self.on_finish is not None:
             self.on_finish(result)
+
+    def _emit_park_span(self, live: _Live, outcome: str) -> None:
+        """[holds: _lock] One ``serve.park`` fragment per traced park, at
+        its release (acked, resumed, expired or drained)."""
+        if live.trace_id is None or live.park_wall is None:
+            return
+        obs.emit_span("serve.park", live.park_wall, time.time(),
+                      trace_id=live.trace_id, request_id=live.request_id,
+                      outcome=outcome)
 
     # ------------------------------------------------------- migration
     def _device(self):
@@ -700,21 +982,29 @@ class Scheduler:
         unknown park and :class:`~nezha_tpu_torch.serve.migrate.
         MigrationError` on a dense engine. A speculative engine ships its
         target pool only (the destination prefills its own draft)."""
+        faults.point("replica.kv_export")
         with self._lock, self._device():
             if request_id not in self._parked:
                 raise KeyError(request_id)
             slot, live, _ = self._parked[request_id]
-            self._paged_only("has no blocks to export")
-            pool = self.engine.pool
-            tokens = [int(t) for t in live.req.prompt]
-            nfull = min(len(tokens) // pool.block_size,
-                        int(pool._bound[slot]))
-            if nfull == 0:
-                # A sub-block prompt ships nothing: a legal empty wire.
-                return encode_wire([], [], pool.block_size)
-            layers, _ = pool.export_block_payload(slot, nfull)
-            return encode_wire(tokens[:nfull * pool.block_size], layers,
-                               pool.block_size)
+            # The export fragment carries the parked request's trace.
+            with obs.trace_context(live.trace_id):
+                with obs.traced_span("serve.kv_export",
+                                     request_id=request_id) as sp:
+                    self._paged_only("has no blocks to export")
+                    pool = self.engine.pool
+                    tokens = [int(t) for t in live.req.prompt]
+                    nfull = min(len(tokens) // pool.block_size,
+                                int(pool._bound[slot]))
+                    if nfull == 0:
+                        # A sub-block prompt ships nothing: a legal empty
+                        # wire.
+                        return encode_wire([], [], pool.block_size)
+                    layers, _ = pool.export_block_payload(slot, nfull)
+                    wire = encode_wire(tokens[:nfull * pool.block_size],
+                                       layers, pool.block_size)
+                    sp.set(blocks=nfull, bytes=wire["nbytes"])
+                    return wire
 
     def ack_parked(self, request_id: str) -> bool:
         """The commit of the two-phase handoff (``/kv_ack``): free the
@@ -725,7 +1015,10 @@ class Scheduler:
             parked = self._parked.pop(request_id, None)
             if parked is None:
                 return False
-            self.engine.pool.free(parked[0])
+            slot, live, _ = parked
+            self.engine.pool.free(slot)
+            self._emit_park_span(live, "acked")
+            obs.counter("serve.retired_total").inc()
             return True
 
     def resume_parked(self, request_id: str) -> bool:
@@ -736,6 +1029,9 @@ class Scheduler:
             if parked is None:
                 return False
             slot, live, _ = parked
+            self._emit_park_span(live, "resumed")
+            if live.trace_id is not None:
+                live.decode_t0_wall = time.time()
             # The "prefilled" result was the park's receipt, not the
             # request's answer.
             self.results.pop(request_id, None)
@@ -748,7 +1044,9 @@ class Scheduler:
         payload into this pool's prefix cache (fresh blocks at ref 1); a
         request submitted afterwards binds them as a prefix hit. Counts
         committed installs (blocks newly cached) in ``migrations`` and
-        ``migration_bytes``. -> blocks installed."""
+        ``migration_bytes`` (and ``serve.kv.migrations_total``,
+        ``serve.kv.migration_bytes``). -> blocks installed."""
+        faults.point("replica.kv_install")
         with self._lock, self._device():
             self._paged_only("cannot install migrated blocks")
             installed = self.engine.pool.install_block_payload(tokens,
@@ -756,7 +1054,26 @@ class Scheduler:
             if installed > 0:
                 self.migrations += 1
                 self.migration_bytes += int(nbytes)
+                obs.counter("serve.kv.migrations_total").inc()
+                obs.counter("serve.kv.migration_bytes").inc(nbytes)
             return installed
+
+    # ----------------------------------------------------- fleet cache
+    def fleet_digest(self, interval_s: float = 2.0,
+                     max_entries: int = 256) -> dict:
+        """The ``/healthz`` digest payload: a bounded prefix-hash summary
+        of what this pool holds, rebuilt at most once per ``interval_s``
+        (``serve/fleetcache``). A dense pool reports ``digest_size`` 0 and
+        no ``fleet_digest``."""
+        with self._lock:
+            if not self.engine.paged:
+                return {"digest_size": 0, "digest_age_s": 0.0}
+            dc = self._digest_cache
+            if (dc is None or dc.interval_s != float(interval_s)
+                    or dc.max_entries != int(max_entries)):
+                dc = fleetcache.DigestCache(interval_s, max_entries)
+                self._digest_cache = dc
+            return dc.payload(self.engine.pool)
 
     def export_prefix(self, tokens: Sequence[int]) -> dict:
         """The source half of a PEER pull (``/kv_export`` tokens mode):
@@ -782,6 +1099,7 @@ class Scheduler:
                 tokens, layers, origin="peer")
             if installed > 0:
                 self.pull_bytes += int(nbytes)
+                obs.counter("serve.kv.pull_bytes").inc(nbytes)
             return installed
 
     # ----------------------------------------------------------- drain
@@ -791,19 +1109,40 @@ class Scheduler:
         the tokens it has, free every slot, and release every park (whose
         "prefilled" answer was delivered already; a drained source is no
         longer pullable). -> requests cancelled (parks not counted)."""
+        def count():
+            if reason == FinishReason.DEADLINE:
+                obs.counter("serve.expired_total").inc()
+            elif reason == FinishReason.ERROR:
+                obs.counter("serve.errors_total").inc()
+
         with self._lock:
             n = 0
             while self._queued_n:
-                self._finish(self._pop_next(), reason, error=error)
+                live = self._pop_next()
+                count()
+                self._finish(live, reason, error=error)
                 n += 1
             for slot in list(self._live):
                 live = self._live.pop(slot)
                 self.engine.pool.free(slot)
+                obs.counter("serve.retired_total").inc()
+                count()
                 self._finish(live, reason, error=error)
                 n += 1
             for rid in list(self._preempted):
-                self._finish(self._preempted.pop(rid), reason, error=error)
+                live = self._preempted.pop(rid)
+                obs.counter("serve.retired_total").inc()
+                count()
+                self._finish(live, reason, error=error)
                 n += 1
+            obs.gauge("serve.preempted_live").set(0)
             for rid in list(self._parked):
-                self.engine.pool.free(self._parked.pop(rid)[0])
+                slot, parked_live, _ = self._parked.pop(rid)
+                self.engine.pool.free(slot)
+                self._emit_park_span(parked_live, "drained")
+                obs.counter("serve.retired_total").inc()
+            pool = self.engine.pool
+            obs.gauge("serve.queue_depth").set(0)
+            obs.gauge("serve.batch_occupancy").set(pool.occupancy)
+            obs.gauge("serve.kv.blocks_used").set(pool.blocks_used)
             return n

@@ -26,17 +26,26 @@ that mesh (:func:`~.reshard.reshard_checkpoint`), so a checkpoint's
 weights are never gathered whole on one device: ``model`` then gives
 the structure, and its replicated parameters are set from shard 0.
 
+It sets JAX's gauges ``serve.mesh.devices`` and ``serve.prefill.seq_shards``,
+counts ``serve.prefill.ring_hops_total`` and the estimate
+``serve.mesh.collective_bytes``, and arms ``serve.prefill.seq`` at the
+head of a sequence-mode prefill (inside the ``serve.prefill.seq_s``
+span's caller).
+
 Not ported (each refused or absent, see ROADMAP): speculative decoding,
-``decode_impl="xla"``, ``prefill_impl="xla"``, the host KV tier (``kv_host_blocks``) and the
-block wire (export, install; migration's gather-on-export) under the
-mesh (:class:`NotPortedError`, ROADMAP A6), the ``obs`` gauges and
-counters, ``faults`` points, the ``NEZHA_NO_*`` environment switches.
+``decode_impl="xla"``, ``prefill_impl="xla"``, the host KV tier
+(``kv_host_blocks``) and the block wire (export, install; migration's
+gather-on-export) under the mesh (:class:`NotPortedError`, ROADMAP A6),
+the ``NEZHA_NO_*`` environment switches.
 """
 
 from __future__ import annotations
 
 from typing import Optional, Sequence
 
+import numpy as np
+
+from nezha_tpu_torch import faults, obs
 from nezha_tpu_torch.errors import NotPortedError
 from nezha_tpu_torch.parallel.mesh import make_mesh
 from nezha_tpu_torch.serve.engine import Engine, ServeConfig
@@ -111,6 +120,43 @@ class ShardedEngine(Engine):
         super().__init__(ShardedGPT2(model, self.mesh, self._rules,
                                      seq_variant=self._seq_variant,
                                      shards=shards), cfg)
+        obs.gauge("serve.mesh.devices").set(m)
+        obs.gauge("serve.prefill.seq_shards").set(
+            float(m) if self._seq_active else 0.0)
+        # Cross-shard payload per token a forward moves (JAX's estimate:
+        # two reductions a layer of hidden_size fp32 values); 0 on a
+        # one-shard mesh.
+        c = model.cfg
+        self._coll_bytes_per_token = (
+            0 if m == 1 else 2 * c.num_layers * c.hidden_size * 4)
+
+    # ---------------------------------------------------------- dispatch
+    def prefill(self, slot: int, tokens, **kwargs) -> None:
+        if self._seq_active:
+            # A fault here must retire only the victim request, with no
+            # slot, block or scale leaked on any shard.
+            faults.point("serve.prefill.seq")
+            obs.gauge("serve.prefill.seq_shards").set(
+                float(self.mesh_devices))
+            with obs.span("serve.prefill.seq_s"):
+                super().prefill(slot, tokens, **kwargs)
+            if self._seq_variant == "ring":
+                # Every shard's block travels the whole ring each chunk.
+                obs.counter("serve.prefill.ring_hops_total").inc(
+                    self.mesh_devices * self.last_prefill_chunks)
+        else:
+            super().prefill(slot, tokens, **kwargs)
+        if self._coll_bytes_per_token:
+            obs.counter("serve.mesh.collective_bytes").inc(
+                self.last_prefill_tokens * self._coll_bytes_per_token)
+
+    def step(self, active: np.ndarray):
+        out = super().step(active)
+        if self._coll_bytes_per_token:
+            obs.counter("serve.mesh.collective_bytes").inc(
+                self.cfg.max_batch_size * self.tokens_per_dispatch
+                * self._coll_bytes_per_token)
+        return out
 
     # ------------------------------------------------------------- hooks
     def _impl_overrides(self, model):

@@ -40,6 +40,7 @@ from typing import Callable, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from nezha_tpu_torch import faults, obs
 from nezha_tpu_torch.errors import NotPortedError
 from nezha_tpu_torch.models.convert import _to_jax_path, jax_leaf_names
 from nezha_tpu_torch.parallel.mesh import Mesh
@@ -210,25 +211,36 @@ def reshard_checkpoint(ckpt_dir: str, model, mesh: Mesh, *,
     placed; then the per-shard save of ``step`` (default: the newest
     complete one), each shard's part assembled from the stored shards that
     overlap it. A ``--scan-layers`` trunk is refused (ROADMAP A7); any
-    integrity or geometry fault raises :class:`ReshardError`. ``model``
-    gives the parameter names, shapes and dtypes."""
+    integrity or geometry fault raises :class:`ReshardError`, as does an
+    injected ``serve.reshard`` fault. ``model`` gives the parameter names,
+    shapes and dtypes. The load is one ``serve.reshard_s`` span."""
     from nezha_tpu_torch.train import checkpoint as ckpt
     from nezha_tpu_torch.train import sharded_checkpoint as sck
 
+    try:
+        faults.point("serve.reshard")
+    except faults.InjectedFault as e:
+        raise ReshardError(f"injected reshard fault: {e}") from e
     if rules is None:
         rules = serve_tp_rules(model.cfg, mesh.size)
     names = _serve_names(model)
-    dense_step = step if step is not None else ckpt.latest_step(ckpt_dir)
-    if dense_step is not None:
-        npz = ckpt.checkpoint_path(ckpt_dir, dense_step)
-        if npz.exists():
-            return (_reshard_npz(str(npz), names, rules, mesh),
-                    int(dense_step))
-    sstep = step if step is not None else sck.latest_step(ckpt_dir)
-    if sstep is not None:
-        sdir = sck.step_dir(ckpt_dir, sstep)
-        if sdir.is_dir():
-            return _reshard_sharded_dir(sdir, names, rules, mesh), int(sstep)
+    with obs.span("serve.reshard_s", ckpt_dir=str(ckpt_dir),
+                  mesh=int(mesh.size)) as sp:
+        dense_step = (step if step is not None
+                      else ckpt.latest_step(ckpt_dir))
+        if dense_step is not None:
+            npz = ckpt.checkpoint_path(ckpt_dir, dense_step)
+            if npz.exists():
+                out = _reshard_npz(str(npz), names, rules, mesh)
+                sp.set(source="npz", step=int(dense_step))
+                return out, int(dense_step)
+        sstep = step if step is not None else sck.latest_step(ckpt_dir)
+        if sstep is not None:
+            sdir = sck.step_dir(ckpt_dir, sstep)
+            if sdir.is_dir():
+                out = _reshard_sharded_dir(sdir, names, rules, mesh)
+                sp.set(source="sharded", step=int(sstep))
+                return out, int(sstep)
     raise ReshardError(f"no training checkpoint (npz or sharded) in "
                        f"{ckpt_dir!r}")
 

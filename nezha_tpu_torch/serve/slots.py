@@ -38,6 +38,12 @@ Invariants (``leak_check`` asserts them):
 Freeing is bookkeeping only: stale K/V stays in a freed block, which is
 safe because a new occupant writes (or references blocks holding exactly)
 every position before attention covers it.
+
+The ``serve.kv.*`` instruments (prefix hits, copy-on-write copies,
+demotions, promotions, fleet hits by tier) count beside the plain
+attributes; the fault point ``serve.kv.bind`` is armed at every block
+allocation and ``serve.kv.promote`` at every promotion (an injected error
+there degrades the request to a cold prefill).
 """
 
 from __future__ import annotations
@@ -50,6 +56,7 @@ from typing import Callable, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from nezha_tpu_torch import faults, obs
 from nezha_tpu_torch.ops.quant import dequantize_kv_block, quantize_kv_block
 
 
@@ -640,7 +647,10 @@ class PagedSlotPool:
     def _alloc_block(self, slot: Optional[int]) -> int:
         """Pop a free block, evicting one LRU trie-only block (ref == 1:
         its release frees it) when the list is dry; with a host tier the
-        victim is demoted first. Raises :class:`KVBlocksExhausted`."""
+        victim is demoted first. Raises :class:`KVBlocksExhausted`; the
+        ``serve.kv.bind`` point raises an injected error here, which the
+        engine's callers surface as the same exhaustion."""
+        faults.point("serve.kv.bind")
         if not self._free_blocks and self.eviction == "lru":
             self.trie.evict(1, self._release,
                             only=lambda b: self._refs[b] == 1,
@@ -737,6 +747,7 @@ class PagedSlotPool:
             entry = _HostEntry(self._arena.layers(row), row, ready)
         self._host_put(tuple(path_tokens), entry)
         self.demotions += 1
+        obs.counter("serve.kv.demotions_total").inc()
 
     def _promote(self, slot: int, tokens: List[int],
                  start_blocks: int) -> int:
@@ -752,7 +763,8 @@ class PagedSlotPool:
         If the pool cannot hold the span, the allocations are released,
         the entries restored through :meth:`_host_put` (which re-applies
         the cap) and the request prefills cold: ``promote_failures``
-        counts it. -> blocks promoted."""
+        counts it, as it does an injected ``serve.kv.promote`` error (the
+        entries then stay in the tier). -> blocks promoted."""
         bs = self.block_size
         limit = min((len(tokens) - 1) // bs, self.blocks_per_slot)
         keys: List[Tuple[int, ...]] = []
@@ -768,6 +780,20 @@ class PagedSlotPool:
             bi += 1
         if not entries:
             return 0
+        with obs.span("serve.kv.promote_s", blocks=len(entries)):
+            try:
+                faults.point("serve.kv.promote")
+            except faults.InjectedFault:
+                self.promote_failures += 1
+                return 0
+            return self._promote_entries(slot, tokens, start_blocks, keys,
+                                         entries)
+
+    def _promote_entries(self, slot: int, tokens: List[int],
+                         start_blocks: int, keys, entries) -> int:
+        """The move of :meth:`_promote` once the entries are chosen."""
+        bs = self.block_size
+        bi = start_blocks + len(entries)
         for key, entry in zip(keys, entries):
             self._host_tier.pop(key)
             self._host_bytes -= self._entry_bytes(entry)
@@ -825,6 +851,7 @@ class PagedSlotPool:
         for b in blocks:
             self._release(b)
         self.promotions += len(blocks)
+        obs.counter("serve.kv.promotions_total").inc(len(blocks))
         return len(blocks)
 
     def clear_host_tier(self) -> int:
@@ -861,18 +888,24 @@ class PagedSlotPool:
             promoted = self._promote(slot, toks, nshared)
             nshared += promoted
         if nshared:
+            tiers = []
             pulled = self._peer_blocks.intersection(shared)
             if pulled:
                 self._peer_blocks.difference_update(pulled)
-                self.fleet_hits["peer"] += 1
+                tiers.append("peer")
             if len(pulled) < len(shared):
-                self.fleet_hits["device"] += 1
+                tiers.append("device")
             if promoted:
-                self.fleet_hits["host"] += 1
+                tiers.append("host")
+            for t in tiers:
+                self.fleet_hits[t] += 1
+                obs.counter(f"serve.kv.fleet_hits_{t}_total").inc()
+            obs.counter("serve.kv.fleet_hits_total").inc()
         return min(nshared * self.block_size, len(toks) - 1)
 
     def count_prefix_hit(self) -> None:
         self.prefix_hits += 1
+        obs.counter("serve.kv.prefix_hits_total").inc()
 
     def register_prefix(self, slot: int, tokens: Sequence[int]) -> int:
         """Post-prefill: index the prompt's full blocks in the trie, which
@@ -915,6 +948,7 @@ class PagedSlotPool:
                     self.tables_host[slot, bi] = nb
                     self._release(b)
                     self.cow_copies += 1
+                    obs.counter("serve.kv.cow_copies_total").inc()
             else:
                 if bi != self._bound[slot]:
                     raise AssertionError(
@@ -925,6 +959,19 @@ class PagedSlotPool:
                 self._bound[slot] = bi + 1
 
     # ------------------------------------------------------- migration
+    def digest_entries(self):
+        """Yield ``(path_tokens, tier)`` for every cached prefix this
+        pool could serve: device trie paths first (hottest first, by LRU
+        tick), then host-tier keys (newest first), the recency order the
+        fleet digest truncates against. Host bookkeeping only; callers
+        hold the scheduler's lock."""
+        if self.prefix_cache_enabled:
+            for node in sorted(self.trie._nodes,
+                               key=lambda n: n.tick, reverse=True):
+                yield self.trie._path_tokens(node), "device"
+        for key in reversed(self._host_tier):
+            yield key, "host"
+
     def _gather_wire(self, blocks: Sequence[int]):
         """Device blocks -> per-layer wire host arrays: verbatim from an
         int8 pool, quantized from a float one."""

@@ -1282,3 +1282,100 @@ def test_host_tier_on_card_matches_cpu(cuda_device):
         out[str(device)] = (tokens, pool.demotions, pool.promotions,
                             list(pool._host_tier), dict(pool.fleet_hits))
     assert out["cpu"] == out["cuda"]
+
+
+@pytest.mark.gpu
+def test_corrupt_poisons_on_the_card(cuda_device):
+    """``faults.corrupt`` poisons a copy on the tensor's own card, the same
+    seeded row as on the CPU, and leaves its input alone."""
+    from nezha_tpu_torch import faults
+
+    x = torch.arange(6 * 5, dtype=torch.float32).reshape(6, 5)
+    got = {}
+    for device in ("cpu", cuda_device):
+        faults.install(faults.FaultPlan.parse("a.b:nan@1", seed=3))
+        try:
+            t = x.to(device)
+            out = faults.corrupt("a.b", t, rows=[1, 3, 4])
+        finally:
+            faults.clear()
+        assert out.device == t.device and torch.equal(t.cpu(), x)
+        got[str(device)] = out.cpu()
+    assert torch.equal(got["cpu"].isnan(), got["cuda"].isnan())
+    assert int(got["cuda"].isnan().any(dim=1).sum()) == 1
+
+
+@pytest.mark.gpu
+def test_thread_fleet_on_card_matches_one_engine_and_releases_killed_engines(
+        cuda_device):
+    """A two-replica thread fleet of the serve CLI on the card answers
+    one engine's greedy tokens, a request at a time; killing a replica
+    and letting the supervisor restart it, twice, leaves the card's
+    allocated memory where one restart left it (the killed worker's
+    engine and pool are released)."""
+    import http.client
+    import json
+    import threading
+    import time
+
+    from nezha_tpu_torch.cli import serve as serve_cli
+
+    argv = ["--random-init", "--model-preset", "tiny", "--device", "cuda",
+            "--max-len", "64", "--max-prefill-len", "16", "--kv-block-size",
+            "8"]
+    prompts = [[(5 * i + 3 * s) % 512 for i in range(n)]
+               for s, n in enumerate((3, 12, 20, 9))]
+    ref = serve_cli.build_scheduler(serve_cli.build_parser().parse_args(
+        argv))
+    want = []
+    for i, p in enumerate(prompts):
+        ref.submit(Request(prompt=p, max_new_tokens=6, request_id=f"r{i}"))
+        ref.run_until_idle()
+        want.append(ref.results[f"r{i}"].tokens)
+    del ref
+    args = serve_cli.build_parser().parse_args(argv + [
+        "--replicas", "2", "--replica-backend", "thread", "--http", "0",
+        "--probe-interval", "0.05", "--restart-backoff", "0.05"])
+    ready, drain, box = threading.Event(), threading.Event(), {}
+
+    def cb(server):
+        box["server"] = server
+        ready.set()
+
+    th = threading.Thread(target=lambda: serve_cli.run(
+        args, ready_cb=cb, drain_event=drain), daemon=True)
+    th.start()
+    assert ready.wait(120)
+    srv = box["server"]
+
+    def post(port, prompt):
+        conn = http.client.HTTPConnection("127.0.0.1", port, timeout=120)
+        try:
+            conn.request("POST", "/generate", body=json.dumps({
+                "prompt_tokens": prompt, "max_new_tokens": 6}).encode())
+            resp = conn.getresponse()
+            assert resp.status == 200
+            return json.loads(resp.read())["tokens"]
+        finally:
+            conn.close()
+
+    levels = []
+    try:
+        assert srv.router.wait_live(2, 120)
+        assert [post(srv.server_address[1], p) for p in prompts] == want
+        for _ in range(2):
+            n = srv.supervisor.restarts
+            srv.supervisor.kill(0)
+            t_end = time.monotonic() + 60
+            while not (srv.supervisor.restarts == n + 1
+                       and srv.supervisor.live_count() == 2):
+                assert time.monotonic() < t_end
+                time.sleep(0.01)
+            assert post(srv.supervisor.replicas()[0].port,
+                        prompts[2]) == want[2]
+            torch.cuda.synchronize()
+            levels.append(torch.cuda.memory_allocated())
+    finally:
+        drain.set()
+        th.join(60)
+    assert levels[1] <= levels[0], levels

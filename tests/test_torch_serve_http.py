@@ -7,9 +7,10 @@ servers on ephemeral 127.0.0.1 ports in threads of the test.
   B (``pull_into``: export, install, ACK), tokens equal to a local
   decode; a lost park is 424 ``park_lost``; a local ``resume``; the peer
   pull's tokens mode, which degrades to a cold prefill on failure;
-- ``/healthz`` with every JAX key but the fleet digest, the 409 duplicate,
-  the typed 503s (``queue_full``, ``tenant_over_limit``), 501 for the
-  telemetry endpoints, the decode thread's death;
+- ``/healthz`` with every JAX key, the fleet digest's included, the 409
+  duplicate, the typed 503s (``queue_full``, ``tenant_over_limit``), the
+  telemetry endpoints (``/stats`` and ``/metrics`` under JAX's schema
+  checks, ``/windows``), the decode thread's death;
 - the stdio and HTTP drains: stragglers retire "deadline", a line read
   after the signal is answered "draining", the drain event closes stdio,
   the HTTP server ends; ``run`` installs and restores SIGTERM/SIGINT;
@@ -38,10 +39,11 @@ BASE = ["--random-init", "--model-preset", "tiny", "--device", "cpu",
         "--max-batch-size", "2", "--max-len", "64", "--max-prefill-len",
         "16", "--kv-block-size", "8", "--queue-capacity", "8"]
 # JAX's /healthz keys (nezha_tpu/cli/serve.py run_http), the fleet
-# digest's aside.
+# digest's among them.
 HEALTHZ_KEYS = {"status", "active", "capacity", "queued", "occupancy",
                 "role", "parked", "tenants", "preempted", "host_blocks",
-                "host_blocks_used"}
+                "host_blocks_used", "fleet_digest", "digest_size",
+                "digest_age_s"}
 
 
 def _prompt(n, salt=0):
@@ -215,7 +217,7 @@ def test_peer_pull_tokens_mode_and_degrade(servers):
 
 
 # ------------------------------------------------------ front end errors
-def test_duplicate_409_typed_503s_and_501(servers):
+def test_duplicate_409_typed_503s_and_telemetry_endpoints(servers):
     srv = servers.start("--max-batch-size", "1", "--queue-capacity", "1",
                         "--max-new-tokens", "40", "--drain-timeout", "0.2",
                         slow=0.05)
@@ -238,9 +240,24 @@ def test_duplicate_409_typed_503s_and_501(servers):
     code, body = call(srv.port, "POST", "/generate", {
         "id": "c", "prompt_tokens": _prompt(9)})
     assert code == 503 and body["error_type"] == "queue_full"
-    for path in ("/stats", "/windows", "/metrics"):
-        code, body = call(srv.port, "GET", path)
-        assert code == 501 and "A5" in body["error"]
+    from nezha_tpu.analysis.telemetry_schema import (
+        check_metrics_exposition, check_stats_payload)
+    code, body = call(srv.port, "GET", "/stats")
+    assert code == 200 and check_stats_payload(body) == []
+    assert body["kind"] == "replica" and body["role"] == "both"
+    code, body = call(srv.port, "GET", "/windows")
+    assert code == 200 and isinstance(body, dict)
+    import http.client
+    conn = http.client.HTTPConnection("127.0.0.1", srv.port, timeout=60)
+    try:
+        conn.request("GET", "/metrics")
+        resp = conn.getresponse()
+        text = resp.read().decode()
+    finally:
+        conn.close()
+    assert resp.status == 200
+    assert resp.getheader("Content-Type").startswith("text/plain")
+    assert check_metrics_exposition(text) == []
     code, body = call(srv.port, "GET", "/nope")
     assert code == 404
     srv.drain.set()
@@ -450,3 +467,42 @@ def test_new_flags_take_jax_defaults_and_choices(flag):
     req = serve_cli.parse_request({"prompt_tokens": [1, 2],
                                    "prefill_only": True}, args, 512)
     assert req.prefill_only is True
+
+
+
+def test_step_stands_aside_for_a_thread_waiting_on_the_lock(monkeypatch):
+    # The decode loop takes the scheduler's lock again the moment a step
+    # releases it, and a lock is not fair: the lock counts its waiters,
+    # and a step sleeps YIELD_S after its release while one waits, so a
+    # handler's submit (or probe) gets in between two steps.
+    from nezha_tpu_torch.serve import scheduler as sched_mod
+
+    args = serve_cli.build_parser().parse_args(BASE)
+    sched = serve_cli.build_scheduler(args)
+    lock = sched._lock
+    entered = threading.Event()
+
+    def waiter():
+        with lock:
+            entered.set()
+
+    with lock:
+        with lock:                      # re-entrant for its owner
+            th = threading.Thread(target=waiter)
+            th.start()
+            _wait(lambda: lock.waiting == 1)
+            assert not entered.is_set()
+    th.join(10)
+    assert entered.is_set() and lock.waiting == 0
+    slept, yield_s = [], sched_mod.YIELD_S
+    assert yield_s > 0
+    monkeypatch.setattr(sched_mod.time, "sleep", slept.append)
+    sched.step()
+    assert slept == []
+    lock.waiting = 1                    # as if a submit were blocked
+    sched.step()
+    assert slept == [yield_s]
+    monkeypatch.setattr(sched_mod, "YIELD_S", 0)     # 0 turns it off
+    sched.step()
+    assert slept == [yield_s]
+    lock.waiting = 0

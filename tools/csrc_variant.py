@@ -34,6 +34,6 @@ def build_variant(root: Path, names, edits=(), files=None) -> dict:
             path.write_text(text)
     build.CSRC = csrc
     build.BUILD_ROOT = root / "build"
-    build.load.cache_clear()
+    build._load.cache_clear()
     build.bind.cache_clear()
     return build.build_all(tuple(names))

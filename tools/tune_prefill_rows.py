@@ -61,7 +61,7 @@ def use_shape(warps: int, splits: int, tmp: Path):
     header.write_text(text)
     build.CSRC = csrc
     build.BUILD_ROOT = tmp / f"{warps}x{splits}" / "build"
-    build.load.cache_clear()
+    build._load.cache_clear()
     build.bind.cache_clear()
     return build.build_all(("paged_prefill", "quant_prefill"))
 
