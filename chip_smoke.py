@@ -2,7 +2,10 @@
 
     python3 chip_smoke.py
 
-Phases, each fatal on failure (non-zero exit, no result line):
+Phases, each fatal on failure (non-zero exit, no result line). First
+every ``NEZHA_NO_*`` variable is deleted from the environment (the names
+printed), so no phase runs a composed path in place of a kernel; only
+serve_wire (e) sets one, for one engine at a time.
 
 1. device: requires ``torch.cuda.is_available()``; prints the card's name
    and ``nvidia-smi``'s name and power limit;
@@ -96,7 +99,10 @@ Phases, each fatal on failure (non-zero exit, no result line):
    LayerNorm, from the same weights and batch (TRAIN_* tolerances); (f)
    10 timed steps with ``ln_impl="pallas"``, each LayerNorm kernel (the
    forward, the backward and its sums) launched exactly 25 times per step
-   (2 per block + ``ln_f``);
+   (2 per block + ``ln_f``); (g) that trainer, logging every 5 steps,
+   windows of RUN_DIR_STEPS steps bare and inside a telemetry run (the
+   train CLI's ``--run-dir``), in the order bare, run, run, bare twice:
+   ms a step of each window and the difference of the medians;
 4a. train_bert: BERT-base at full width (``bert_base_zero1``: bf16, the
    fused MLM head, vocab 30522, 12 x 768, 12 heads, seeded random
    weights), B=16, S=512, ``synthetic_mlm_batches``: (a) one step's MLM
@@ -181,7 +187,10 @@ Phases, each fatal on failure (non-zero exit, no result line):
    BERT ZeRO-1 on a fixed batch at a constant lr: the loss finite and
    falling over DIST_INT8_STEPS, the wire's ms a call (CUDA events) for
    int8 and fp32 on the step's gradients, and its payload bytes against
-   fp32's; (c) the CLI, ``bert_base_zero1 --coordinator 127.0.0.1:0
+   fp32's, and GPT-2's steps inside a telemetry run count one
+   ``all_reduce_int8`` a step at ``wire_payload_bytes`` and one
+   ``all_reduce`` of the exact leaves at fp32; (c) the CLI,
+   ``bert_base_zero1 --coordinator 127.0.0.1:0
    --serve-coordinator --world-size 1 --mesh dp=1 --ckpt-dir``:
    DIST_CLI_STEPS steps with a per-shard save every DIST_CLI_EVERY, then
    DIST_CLI_MORE resumed from the last (``resumed from step N
@@ -193,7 +202,10 @@ Phases, each fatal on failure (non-zero exit, no result line):
    first step's mean gradient within DIST_TWO_GRAD_RTOL of the 8 rows'
    and the losses within TRAIN_LOSS_ATOL of one process over the 8 rows
    (the weights' distance from it is printed, beside twice the most
-   AdamW can move a weight). Only NCCL's and gloo's own refusals of two
+   AdamW can move a weight); each rank runs inside a telemetry run
+   (``rank0/``, ``rank1/``, the train CLI's ``--run-dir`` layout) that
+   passes ``nezha-telemetry --check`` and counts one ``all_reduce`` a
+   step of the gradients' bytes. Only NCCL's and gloo's own refusals of two
    ranks on one device pass, printed; a crash, a hang or any other error
    fails. Prints its wall seconds;
 4g. rejoin (after 4e): ``--on-failure rejoin`` at full width, two
@@ -243,12 +255,20 @@ Phases, each fatal on failure (non-zero exit, no result line):
    --eval-batches 4`` for DC_STEPS steps, then DC_MORE more, which must
    print ``resumed from step DC_STEPS``, end at their sum with a finite
    eval perplexity and leave exactly two ``step_*.npz``; each save's and
-   restore's seconds and bytes; (c) in-process, the config's GPT-2 at
-   batch 8: tokens/s and the busy share from disk against the synthetic
-   stream, then the exact round trip (a fixed batch's loss, save,
-   restore into a fresh module and optimizer: every leaf, the loss and
-   one more step's weights bitwise; the two streams feed one trainer
-   in turn, timed in the order disk, synthetic, synthetic, disk); (d) ``bert_base_zero1`` from the
+   restore's seconds and bytes. The first run also takes ``--ln-impl
+   pallas --log-every DC_LOG_EVERY --run-dir`` as a ``chip_smoke.py
+   --train-rank`` process that writes its kernel counts: the port's
+   ``nezha-telemetry --check`` passes on the run dir, the report's
+   step-rate windows are the CLI's logged windows and its tokens/s per
+   chip mean theirs, ``train.first_step`` and ``checkpoint.save`` are
+   spans, ``train.steps`` is DC_STEPS, and B1-B3 launch 12 and B4/B5 25
+   a step (B1 and B4 a forward's worth more an eval batch); (c)
+   in-process, the config's GPT-2 at batch 8: tokens/s and the busy
+   share from disk against the synthetic stream, then the exact round
+   trip (a fixed batch's loss, save, restore into a fresh module and
+   optimizer: every leaf, the loss and one more step's weights bitwise;
+   the two streams feed one trainer in turn, timed in the order disk,
+   synthetic, synthetic, disk); (d) ``bert_base_zero1`` from the
    WordPiece corpus (``[MASK]`` resolved from the sidecar), 10 steps with
    a checkpoint, then 5 resumed with ``--eval``; (e) ``resnet50_imagenet``
    from ``train.nzr``/``val.nzr`` written by ``ImageRecordWriter`` (seeded
@@ -301,7 +321,11 @@ Phases, each fatal on failure (non-zero exit, no result line):
    ended; every answer cross-checked, both pools leak-free. (d)
    ``prefill_impl="xla"`` on bf16 and int8 pools with the serve phase's
    eight prompts: no B9 or B10, B7 or B8 a layer a decode step, every
-   token cross-checked;
+   token cross-checked. (e) The same prompts with
+   ``NEZHA_NO_PREFILL_KERNEL=1``: no B9, B7 a layer a decode step, the
+   tokens of (d)'s bf16 run; then with ``NEZHA_NO_DECODE_KERNEL=1``: no
+   B7, B9 as on the kernel path, the tokens the kernel path's up to a
+   divergence the margin rule allows;
 5d. serve_fleet (after serve_wire): the serve CLI's fleet, GPT-2 124M at
    full width, blocks of 16, ``max_len`` 1024, 256-wide chunks, eight
    slots a replica. (a) ``--replicas 2 --replica-backend thread
@@ -312,7 +336,9 @@ Phases, each fatal on failure (non-zero exit, no result line):
    steps, nothing else launched; then one request on each replica at
    once under torch.profiler, whose device events (CUPTI sees both
    worker threads) equal the wrappers' counts and 12 x the engines'
-   chunks and steps (profiling the whole traffic slowed the GIL-shared
+   chunks and steps (a profile short of them, the profiler's drops of
+   ROADMAP C3, is retaken with a fresh pair up to PROFILE_ATTEMPTS
+   times) (profiling the whole traffic slowed the GIL-shared
    loops ~5x); an affinity
    win and a prefix hit on the holder; ``/stats`` counts the tokens
    answered, ``/metrics`` exposes them; no retry, failover or restart;
@@ -320,7 +346,9 @@ Phases, each fatal on failure (non-zero exit, no result line):
    nezha_tpu_torch.cli.serve --random-init --replicas 2 --http 0`` as a
    subprocess, no ``--device``: the replicas hold ``/dev/nvidia*`` open,
    the front end holds none; SIGKILL of replica 0 with four requests in
-   flight: each answered (tokens or a typed ``replica_lost``), one
+   flight: before it, ``nezha-top`` polls the front end twice (exit 0,
+   ``replicas live 2`` and a ``tokens/s`` row in each frame); each
+   request answered (tokens or a typed ``replica_lost``), one
    restart, the restarted replica serves, the card's used memory within
    FLEET_MEM_RTOL of its level before the kill; SIGTERM drains and the
    process exits 0. (c) ``--prefill-replicas 1 --decode-replicas 1
@@ -364,6 +392,7 @@ line before the last is ``{"kernels": [...]}``; the last line is
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
 import gc
@@ -422,6 +451,7 @@ TRAIN_GRAD_RTOL = 0.03
 # this far below the first step's.
 LOSS_DROP = 0.5
 TRAIN_B, TRAIN_S, TRAIN_LR = 8, 1024, 6e-4
+RUN_DIR_STEPS = 10        # steps a side of the run dir's cost (train (g))
 # BERT-base (bert_base_zero1 at full width: bf16, the fused MLM head),
 # flash attention (non-causal) against composed, both bf16 on the card,
 # one AdamW step (the config's lr 1e-4 and weight decay 0.01) from the
@@ -1994,6 +2024,37 @@ def timed_fit(model, batches, n_steps: int, counters, per_step, card: str,
             "card": card}, launches, trainer
 
 
+def run_dir_cost(trainer, batches, card: str) -> dict:
+    """(g) What a telemetry run (the train CLI's ``--run-dir``) costs a
+    step: ``trainer`` logging every 5 steps, windows of RUN_DIR_STEPS
+    steps on the host clock (ended by a sync) bare and inside
+    ``obs.start_run``, in the order bare, run, run, bare twice; the
+    difference of the sides' medians (a single window swings by tens of
+    ms, ROADMAP C2)."""
+    import statistics
+    import tempfile
+
+    from nezha_tpu_torch import obs
+
+    trainer.log_every = 5
+    ms = {"bare": [], "run": []}
+    with tempfile.TemporaryDirectory(prefix="nezha_run_cost_") as tmp:
+        for i, side in enumerate(("bare", "run", "run", "bare") * 2):
+            if side == "run":
+                obs.start_run(f"{tmp}/{i}")
+            t0 = time.perf_counter()
+            trainer.fit(batches, RUN_DIR_STEPS)
+            torch.cuda.synchronize()
+            ms[side].append((time.perf_counter() - t0) / RUN_DIR_STEPS
+                            * 1e3)
+            if side == "run":
+                obs.end_run()
+    return {"steps": RUN_DIR_STEPS, "bare_ms_per_step": ms["bare"],
+            "run_ms_per_step": ms["run"],
+            "extra_ms_per_step": statistics.median(ms["run"])
+            - statistics.median(ms["bare"]), "card": card}
+
+
 def train(card: str):
     """-> ({"train": flash launches of the default run, "train_ln": flash
     and LayerNorm launches of the ln_impl="pallas" run}, {"train_ln": its
@@ -2049,7 +2110,7 @@ def train(card: str):
     del model
     torch.cuda.empty_cache()
     # (f) the same run with the LayerNorm kernels.
-    ln_stats, ln_launches, _ = timed_fit(
+    ln_stats, ln_launches, trainer = timed_fit(
         fresh(ln_impl="pallas"), batches, 10, [LAUNCHES, LN_LAUNCHES],
         {**{n: layers for n in LAUNCHES},
          **{n: 2 * layers + 1 for n in LN_LAUNCHES}}, card)
@@ -2057,6 +2118,10 @@ def train(card: str):
                       "default_ms_per_step": stats["ms_per_step"],
                       "ln_pallas_over_default": ln_stats["ms_per_step"]
                       / stats["ms_per_step"]}), flush=True)
+    print(json.dumps({"train_run_dir_cost": run_dir_cost(trainer, batches,
+                                                         card)}),
+          flush=True)
+    del trainer
     torch.cuda.empty_cache()
     return ({"train": launches, "train_ln": ln_launches},
             {"train_ln": ln_stats["layer_norm_fwd_by_rows"]})
@@ -2438,6 +2503,7 @@ def train_image(card: str) -> dict:
 
 
 DC_STEPS, DC_MORE = 20, 10        # GPT-2: steps, then resumed steps
+DC_LOG_EVERY = 5                  # the first GPT-2 run's log windows
 DC_BPE_MERGES, DC_WP_VOCAB = 1000, 3000
 DC_AB_STEPS, DC_BUSY_STEPS = 10, 3
 DC_IMG_RECORDS, DC_VAL_RECORDS, DC_IMG_PX = 256, 64, 256
@@ -2446,16 +2512,22 @@ DC_PROMPTS = ["def main(", "class Trainer:", "import torch\n",
               "The checkpoint"]
 
 
-def module_run(module: str, *argv, timeout: int = 600):
+def module_run(module: str, *argv, timeout: int = 600,
+               counts: str = None):
     """``python -m nezha_tpu_torch.cli.<module>`` from the checkout's
     root: -> (stdout lines, stderr lines, wall seconds); fails unless it
-    exits 0."""
+    exits 0. With ``counts`` (the train CLI only) the run is a
+    ``chip_smoke.py --train-rank COUNTS`` process, which writes its
+    kernel counts there."""
     root = os.path.dirname(os.path.abspath(__file__))
     env = dict(os.environ, PYTHONPATH=root + os.pathsep
                + os.environ.get("PYTHONPATH", ""))
+    cmd = ([sys.executable, "-m", f"nezha_tpu_torch.cli.{module}"]
+           if counts is None else
+           [sys.executable, os.path.abspath(__file__), "--train-rank",
+            counts, "--"])
     t0 = time.perf_counter()
-    proc = subprocess.run([sys.executable, "-m",
-                           f"nezha_tpu_torch.cli.{module}", *argv],
+    proc = subprocess.run(cmd + list(argv),
                           capture_output=True, text=True, timeout=timeout,
                           cwd=root, env=env)
     wall = time.perf_counter() - t0
@@ -2476,21 +2548,26 @@ def json_lines(lines, key: str) -> list:
     return out
 
 
-def cli_run(*argv) -> dict:
+def cli_run(*argv, counts: str = None) -> dict:
     """The train CLI on the card with ``argv``: -> its argv, wall
     seconds, final metrics, last eval, saves, restores, metric lines and
-    stderr. Fails unless it exits 0 with a finite loss."""
-    out, err, wall = module_run("train", *argv)
+    stderr, and with ``counts`` (a file path) its kernel launches. Fails
+    unless it exits 0 with a finite loss."""
+    out, err, wall = module_run("train", *argv, counts=counts)
     final = json.loads(out[-1])["final"]
     if not math.isfinite(final.get("loss", math.nan)):
         fail(f"train CLI {' '.join(argv)}: final {final}")
     evals = json_lines(err, "eval")
-    return {"argv": list(argv), "wall_s": wall, "final": final,
-            "eval": evals[-1] if evals else None,
-            "saves": json_lines(err, "save"),
-            "restores": json_lines(err, "restore"),
-            "logs": [json.loads(line) for line in err
-                     if line.startswith('{"loss"')], "stderr": err}
+    run = {"argv": list(argv), "wall_s": wall, "final": final,
+           "eval": evals[-1] if evals else None,
+           "saves": json_lines(err, "save"),
+           "restores": json_lines(err, "restore"),
+           "logs": [json.loads(line) for line in err
+                    if line.startswith('{"loss"')], "stderr": err}
+    if counts is not None:
+        with open(counts) as f:
+            run["launches"] = json.load(f)
+    return run
 
 
 def train_cli() -> dict:
@@ -2902,6 +2979,57 @@ def check_two_left(ckpt_dir: str, want) -> None:
         fail(f"data_ckpt: {ckpt_dir} holds {left}, expected steps {want}")
 
 
+def check_train_run_dir(run_dir: str, run: dict, steps: int) -> dict:
+    """(b)'s ``--run-dir``: the port's ``nezha-telemetry --check``
+    passes; the report's step-rate windows are the CLI's logged windows,
+    and its tokens/s per chip mean is theirs; ``train.first_step`` and
+    ``checkpoint.save`` are among the spans; ``train.steps`` is the steps
+    run; B1-B3 launched 12 a step and B4/B5 25 a step, B1 and B4 a
+    forward's worth more each eval batch. -> what it read."""
+    from nezha_tpu_torch.cli import telemetry as telemetry_cli
+    from nezha_tpu_torch.obs import read_metrics, report
+
+    rc, _ = cli_stdout(telemetry_cli.main, [run_dir, "--check"])
+    if rc != 0:
+        fail(f"data_ckpt run dir: nezha-telemetry --check exited {rc}")
+    text = report.render_report(run_dir)
+    m = re.search(r"step rate \(steps/sec over (\d+) windows\)", text)
+    logs = run["logs"]
+    if not m or int(m.group(1)) != len(logs):
+        fail(f"data_ckpt run dir: the report's windows "
+             f"{m and m.group(1)}, the CLI logged {len(logs)}")
+    with open(os.path.join(run_dir, "summary.json")) as f:
+        summary = json.load(f)
+    mean = summary["histograms"]["metric.tokens_per_sec_per_chip"]["mean"]
+    want = sum(r["tokens_per_sec_per_chip"] for r in logs) / len(logs)
+    if not math.isclose(mean, want, rel_tol=1e-12):
+        fail(f"data_ckpt run dir: tokens/s per chip mean {mean}, the "
+             f"CLI's lines {want}")
+    spans = [r["name"] for r in read_metrics(
+        os.path.join(run_dir, "spans.jsonl"))]
+    if "train.first_step" not in spans or "checkpoint.save" not in spans:
+        fail(f"data_ckpt run dir: spans {sorted(set(spans))}")
+    if summary["counters"]["train.steps"] != steps:
+        fail(f"data_ckpt run dir: train.steps "
+             f"{summary['counters']['train.steps']}, ran {steps}")
+    evals = run["eval"]["batches"]
+    want = {"flash_fwd": 12 * (steps + evals), "flash_bwd_dq": 12 * steps,
+            "flash_bwd_delta": 12 * steps, "flash_bwd_dkv": 12 * steps,
+            "layer_norm_fwd": 25 * (steps + evals),
+            "layer_norm_bwd": 25 * steps,
+            "layer_norm_bwd_sums": 25 * steps}
+    got = {k: run["launches"][k] for k in want}
+    if got != want:
+        fail(f"data_ckpt run dir: launches {got}, expected {want}")
+    return {"windows": len(logs), "tokens_per_sec_per_chip_mean": mean,
+            "train_steps": steps, "spans": sorted(set(spans)),
+            "first_step_s": next(
+                r["dur_s"] for r in read_metrics(os.path.join(
+                    run_dir, "spans.jsonl"))
+                if r["name"] == "train.first_step"),
+            "launches": got, "wall_s": run["wall_s"]}
+
+
 def resumed(run: dict, step: int) -> None:
     if f"resumed from step {step}" not in run["stderr"]:
         fail(f"data_ckpt: no 'resumed from step {step}' line: "
@@ -3086,7 +3214,6 @@ def read_counts() -> dict:
 def cli_stdout(fn, *args, **kw):
     """Call a CLI entry point in-process; -> (its return, its stdout
     lines)."""
-    import contextlib
     import io
     buf = io.StringIO()
     with contextlib.redirect_stdout(buf):
@@ -3236,7 +3363,13 @@ def data_ckpt(card: str):
         common = ["--config", "gpt2_124m", "--data-dir", g["data"],
                   "--ckpt-dir", ck, "--ckpt-every", "10", "--ckpt-keep",
                   "2", "--eval", "--eval-batches", "4"]
-        first = cli_run(*common, "--steps", str(DC_STEPS))
+        run_dir = f"{tmp}/run_gpt2"
+        first = cli_run(*common, "--steps", str(DC_STEPS), "--ln-impl",
+                        "pallas", "--log-every", str(DC_LOG_EVERY),
+                        "--run-dir", run_dir,
+                        counts=f"{tmp}/gpt2_counts.json")
+        telemetry = check_train_run_dir(run_dir, first, DC_STEPS)
+        print(json.dumps({"data_ckpt_run_dir": telemetry}), flush=True)
         second = cli_run(*common, "--steps",
                            str(DC_MORE))
         resumed(second, DC_STEPS)
@@ -3292,6 +3425,7 @@ def data_ckpt(card: str):
         print(json.dumps({"data_ckpt_resnet50": rn50}), flush=True)
 
         launches, gen_serve = generate_and_serve(packs, ck, card)
+        launches["train"] = first["launches"]
         print(json.dumps({"data_ckpt_generate_serve": gen_serve}),
               flush=True)
     summary = {
@@ -3545,11 +3679,12 @@ def modes_config(**kw):
                           **kw})
 
 
-def modes_run(model, cfg, tag: str, card: str):
+def modes_run(model, cfg, tag: str, card: str, tokens: bool = False):
     """The serve phase's eight greedy requests (32 new tokens each)
     through Scheduler on an Engine of ``cfg``: every request finishes,
     both pools' books balance, and cross_check holds each token. ->
-    (engine, launches, stats)."""
+    (engine, launches, stats); with ``tokens``, stats["greedy"] holds
+    each request's tokens."""
     from nezha_tpu_torch.serve import (Engine, FinishReason, Request,
                                        Scheduler)
 
@@ -3580,6 +3715,9 @@ def modes_run(model, cfg, tag: str, card: str):
                            for r in reqs),
              "ttft_s": [sched.results[r.request_id].ttft_s for r in reqs],
              "launches": launches, "card": card}
+    if tokens:
+        stats["greedy"] = {r.request_id: sched.results[r.request_id].tokens
+                           for r in reqs}
     if engine.spec is not None:
         v = engine.spec_verifies
         stats.update(verifies=v, draft_tokens=engine.spec_draft_tokens,
@@ -4211,7 +4349,8 @@ def prefill_xla(model, card: str):
     for kv_dtype in ("bf16", "int8"):
         cfg = modes_config(kv_dtype=kv_dtype, prefill_impl="xla")
         engine, launches, stats = modes_run(model, cfg,
-                                            f"prefill_xla {kv_dtype}", card)
+                                            f"prefill_xla {kv_dtype}", card,
+                                            tokens=True)
         dec = ("paged_quant_decode" if kv_dtype == "int8"
                else "paged_decode")
         expect_launches(f"prefill_xla {kv_dtype}", launches, {
@@ -4219,6 +4358,71 @@ def prefill_xla(model, card: str):
         out[kv_dtype] = stats
         paths[f"serve_prefill_xla_{kv_dtype}"] = launches
     return out, paths
+
+
+@contextlib.contextmanager
+def env_switch(name: str):
+    """``name=1`` in this process's environment for the block, removed
+    after it."""
+    os.environ[name] = "1"
+    try:
+        yield
+    finally:
+        del os.environ[name]
+
+
+def kernel_switches(model, card: str, xla_tokens: dict):
+    """(e) The serve phase's eight prompts (32 greedy tokens each) with
+    ``NEZHA_NO_PREFILL_KERNEL``: no B9, B7 12 a decode step, the tokens
+    of (d)'s ``prefill_impl="xla"`` run; then with
+    ``NEZHA_NO_DECODE_KERNEL``: no B7, B9 12 a prefill chunk, the tokens
+    the kernel path's up to a divergence the margin rule allows. Each
+    variable is set for its engine alone. -> (stats, the launches of
+    each)."""
+    from nezha_tpu_torch.models.gpt2 import GPT2
+
+    layers = model.cfg.num_layers
+    stats, paths = {}, {}
+    with env_switch("NEZHA_NO_PREFILL_KERNEL"):
+        engine, launches, st = modes_run(model, modes_config(),
+                                         "NEZHA_NO_PREFILL_KERNEL", card,
+                                         tokens=True)
+        if engine.prefill_kernel_active:
+            fail("NEZHA_NO_PREFILL_KERNEL: the engine still prefills "
+                 "through B9")
+    expect_launches("NEZHA_NO_PREFILL_KERNEL", launches, {
+        "paged_decode": layers * st["step_calls"]})
+    if st.pop("greedy") != xla_tokens:
+        fail("NEZHA_NO_PREFILL_KERNEL: the tokens differ from "
+             "prefill_impl='xla''s")
+    stats["no_prefill_kernel"], paths["serve_no_prefill_kernel"] = (
+        st, launches)
+    _, kernel_launches, kernel = modes_run(model, modes_config(),
+                                           "the kernel path", card,
+                                           tokens=True)
+    with env_switch("NEZHA_NO_DECODE_KERNEL"):
+        _, launches, st = modes_run(model, modes_config(),
+                                    "NEZHA_NO_DECODE_KERNEL", card,
+                                    tokens=True)
+    expect_launches("NEZHA_NO_DECODE_KERNEL", launches, {
+        "paged_prefill": layers * st["prefill_chunks"]})
+    if launches["paged_prefill"] != kernel_launches["paged_prefill"]:
+        fail(f"NEZHA_NO_DECODE_KERNEL: B9 {launches['paged_prefill']}, "
+             f"the kernel path's {kernel_launches['paged_prefill']}")
+    reference = GPT2(dataclasses.replace(model.cfg, attn_impl="xla"),
+                     policy=model.policy, device="cuda")
+    reference.load_state_dict(model.state_dict())
+    reference.eval()
+    prompts = serve_prompts(model.cfg.vocab_size)
+    got, want = st.pop("greedy"), kernel.pop("greedy")
+    agreed = [agree_to_divergence(f"NEZHA_NO_DECODE_KERNEL r{i}",
+                                  reference, p, want[f"r{i}"], got[f"r{i}"])
+              for i, p in enumerate(prompts)]
+    st["tokens_agreed"] = [n for n, _ in agreed]
+    stats["no_decode_kernel"], paths["serve_no_decode_kernel"] = (
+        st, launches)
+    del reference
+    return stats, paths
 
 
 def serve_wire(card: str) -> dict:
@@ -4256,7 +4460,13 @@ def serve_wire(card: str) -> dict:
     print(json.dumps({"serve_wire": {"http": stats}}), flush=True)
     stats, xla_paths = prefill_xla(model, card)
     paths.update(xla_paths)
+    xla_tokens = stats["bf16"].pop("greedy")
+    stats["int8"].pop("greedy")
     print(json.dumps({"serve_wire": {"prefill_xla": stats}}), flush=True)
+    stats, switch_paths = kernel_switches(model, card, xla_tokens)
+    paths.update(switch_paths)
+    print(json.dumps({"serve_wire": {"kernel_switches": stats}}),
+          flush=True)
     print(json.dumps({"serve_wire_wall_s": time.perf_counter() - t0}),
           flush=True)
     return paths
@@ -4489,44 +4699,60 @@ def fleet_thread(model, card: str, tmp: str):
     # The profiler over both worker threads: one request on each replica
     # at once (CUPTI's tracing slows the GIL-shared loops several times,
     # so it covers this window, not the whole traffic).
+    # The profiler drops kernel events now and then (ROADMAP C3): a
+    # profile that saw fewer launches than the wrappers counted is taken
+    # again with a fresh pair, up to PROFILE_ATTEMPTS times; one that saw
+    # more, or the last attempt short, fails.
     ports = [r.port for r in srv.supervisor.replicas()]
-    pair = [None, None]
+    pairs, retakes = [], []
+    for attempt in range(PROFILE_ATTEMPTS):
+        pair = [None, None]
 
-    def direct(i):
-        pair[i] = http_call(ports[i], "POST", "/generate", {
-            "id": f"p{i}", "prompt_tokens": plain[2 + i],
-            "max_new_tokens": FLEET_NEW})
+        def direct(i):
+            rid = f"p{i}" if not attempt else f"p{i}r{attempt}"
+            prompts[rid] = plain[2 + i]
+            pair[i] = http_call(ports[i], "POST", "/generate", {
+                "id": rid, "prompt_tokens": plain[2 + i],
+                "max_new_tokens": FLEET_NEW})
 
-    zero_serve_launches()
-    with DeviceKernels() as dk:
-        both = [threading.Thread(target=direct, args=(i,)) for i in (0, 1)]
-        for t in both:
-            t.start()
-        for t in both:
-            t.join(300)
-    prof_launches = scheds[0].engine.kernel_launches()
-    after2 = fleet_engine_counts(scheds)
-    per = [(a[0] - b[0], a[1] - b[1]) for a, b in zip(after2, after)]
-    prof = {name: dk.counts.get(name, 0)
-            for name in ("paged_prefill_kernel", "paged_decode_split_kernel")}
-    want = {"paged_prefill": layers * sum(c for c, _ in per),
-            "paged_decode": layers * sum(n for _, n in per)}
-    expect_launches("serve_fleet thread, profiled", prof_launches, want)
-    if (min(n for _, n in per) == 0
-            or prof["paged_prefill_kernel"] != want["paged_prefill"]
-            or prof["paged_decode_split_kernel"] != want["paged_decode"]):
-        fail(f"serve_fleet thread: the profiler saw {prof}; the engines "
-             f"ran (chunks, steps) {per}")
-    for name, n in want.items():
-        launches[name] += n
-    chunks += sum(c for c, _ in per)
-    steps += sum(n for _, n in per)
+        zero_serve_launches()
+        with DeviceKernels() as dk:
+            both = [threading.Thread(target=direct, args=(i,))
+                    for i in (0, 1)]
+            for t in both:
+                t.start()
+            for t in both:
+                t.join(300)
+        pairs += pair
+        prof_launches = scheds[0].engine.kernel_launches()
+        after2 = fleet_engine_counts(scheds)
+        per = [(a[0] - b[0], a[1] - b[1]) for a, b in zip(after2, after)]
+        after = after2
+        prof = {name: dk.counts.get(name, 0) for name in
+                ("paged_prefill_kernel", "paged_decode_split_kernel")}
+        want = {"paged_prefill": layers * sum(c for c, _ in per),
+                "paged_decode": layers * sum(n for _, n in per)}
+        expect_launches("serve_fleet thread, profiled", prof_launches, want)
+        for name, n in want.items():
+            launches[name] += n
+        chunks += sum(c for c, _ in per)
+        steps += sum(n for _, n in per)
+        seen = (prof["paged_prefill_kernel"],
+                prof["paged_decode_split_kernel"])
+        wanted = (want["paged_prefill"], want["paged_decode"])
+        if min(n for _, n in per) and seen == wanted:
+            break
+        if (min(n for _, n in per) == 0 or attempt == PROFILE_ATTEMPTS - 1
+                or any(a > b for a, b in zip(seen, wanted))):
+            fail(f"serve_fleet thread: the profiler saw {prof}; the "
+                 f"engines ran (chunks, steps) {per} (earlier attempts "
+                 f"{retakes})")
+        retakes.append({"profiler": prof, "engines": per})
     answers = {}
-    for (code, ans) in first + s0 + rest + pair:
+    for (code, ans) in first + s0 + rest + pairs:
         if code != 200 or ans.get("finish_reason") not in ("length", "eos"):
             fail(f"serve_fleet thread: a request answered {code} {ans}")
         answers[ans["id"]] = ans
-    prompts.update({f"p{i}": plain[2 + i] for i in (0, 1)})
     stats = fleet_stats(port)
     router = fleet_router_counts(stats)
     tokens = sum(len(a["tokens"]) for a in answers.values())
@@ -4567,7 +4793,8 @@ def fleet_thread(model, card: str, tmp: str):
     out = {"start_s": start_s, "traffic_s": traffic_s, "tokens": tokens,
            "prefill_chunks": chunks, "decode_steps": steps,
            "launches": launches, "profiled": {"engines": per,
-                                              "kernels": prof},
+                                              "kernels": prof,
+                                              "retakes": retakes},
            "router": router,
            "route_s": fleet_route_s(stats), "holder": holder,
            "prefix_hits": hits_after, "card": card}
@@ -4601,6 +4828,32 @@ def card_files(pid: int) -> list:
         if target.startswith("/dev/nvidia"):
             out.append(target)
     return sorted(set(out))
+
+
+def fleet_top(port: int) -> dict:
+    """``nezha-top`` (``cli/top.py``'s ``main``) polling the front end's
+    ``/metrics`` twice, half a second apart: it exits 0 and each frame
+    shows ``replicas live 2`` and a ``tokens/s`` row. -> the frames'
+    rows."""
+    from nezha_tpu_torch.cli import top as top_cli
+
+    t0 = time.perf_counter()
+    rc, out = cli_stdout(top_cli.main, [
+        f"http://127.0.0.1:{port}", "--iterations", "2", "--interval",
+        "0.5", "--no-clear"])
+    wall = time.perf_counter() - t0
+    frames = [[]]
+    for line in out:
+        if line.startswith("nezha-top") and frames[-1]:
+            frames.append([])
+        frames[-1].append(line)
+    rows = [{line[2:22].strip(): line[22:].split() for line in f[2:]}
+            for f in frames]
+    if rc != 0 or len(rows) != 2 or not all(
+            r.get("replicas live") == ["2"] and "tokens/s" in r
+            for r in rows):
+        fail(f"serve_fleet process: nezha-top exited {rc}: {out}")
+    return {"frames": rows, "wall_s": wall}
 
 
 def fleet_process(model, card: str, tmp: str):
@@ -4652,6 +4905,7 @@ def fleet_process(model, card: str, tmp: str):
                 files[f"replica{rid}"] for rid in pids):
             fail(f"serve_fleet process: the card files held: {files} "
                  f"(front end {proc.pid}, replicas {pids})")
+        top = fleet_top(port)
         mem_before = card_used_mib()
         # Fresh prompts: no digest covers them, so least-loaded routing
         # spreads the four over both replicas.
@@ -4767,7 +5021,7 @@ def fleet_process(model, card: str, tmp: str):
             "card_mib_idle": mib_idle, "card_mib_before_kill": mem_before,
             "card_mib_after_restart": mem_after,
             "card_mib_after_drain": mib_drained, "card_files": files,
-            "front_end_pid": proc.pid,
+            "front_end_pid": proc.pid, "top": top,
             "replica_pids": pids, "restarted_pid": new_pid, "card": card}
 
 
@@ -5272,7 +5526,12 @@ def dist_int8_runs(card: str) -> dict:
     """Part 2: ``grad_reduce="int8"`` for GPT-2 dp and BERT zero1 on a
     fixed batch at a constant lr; the wire's device ms a step against
     fp32's (CUDA events around the reduction of the step's own
-    gradients) and its payload bytes."""
+    gradients) and its payload bytes. The steps run inside a telemetry
+    run, whose collective rows for GPT-2 count the int8 leaves at the
+    wire's width and the others at fp32, one record an op a step."""
+    import tempfile
+
+    from nezha_tpu_torch import obs
     from nezha_tpu_torch.models.bert import mlm_loss
     from nezha_tpu_torch.models.gpt2 import lm_loss
     from nezha_tpu_torch.optim import adamw
@@ -5290,7 +5549,16 @@ def dist_int8_runs(card: str) -> dict:
         cfg = build()
         step = kind(cfg.model, adamw(lr, weight_decay=0.01), loss_fn,
                     grad_reduce="int8")
-        losses = [step(batch)["loss"].item() for _ in range(DIST_INT8_STEPS)]
+        with tempfile.TemporaryDirectory(prefix="nezha_int8_run_") as run:
+            obs.start_run(run)
+            try:
+                losses = [step(batch)["loss"].item()
+                          for _ in range(DIST_INT8_STEPS)]
+            finally:
+                obs.end_run()
+            with open(os.path.join(run, "summary.json")) as f:
+                coll = {op: row for op, row in
+                        json.load(f)["collectives"].items() if row["calls"]}
         if not (all(map(math.isfinite, losses)) and losses[-1] < losses[0]):
             fail(f"train_dist int8 {name}: the loss did not fall: {losses}")
         _, grads = step.loss_and_grads(batch)
@@ -5301,7 +5569,19 @@ def dist_int8_runs(card: str) -> dict:
                                         quantized.DEFAULT_MIN_NUMEL), 5)
         quant, exact = quantized.split_quantized_leaves(
             grads, quantized.DEFAULT_MIN_NUMEL)
+        if kind is DPTrainStep:
+            # The registry's rows: one record an op a step, the int8
+            # leaves at the wire's width, the others at fp32.
+            want = {"all_reduce_int8": sum(quantized.wire_payload_bytes(
+                        g.numel()) for g in quant),
+                    "all_reduce": sum(g.numel() * 4 for g in exact)}
+            if coll != {op: {"calls": DIST_INT8_STEPS,
+                             "payload_bytes": DIST_INT8_STEPS * n}
+                        for op, n in want.items()}:
+                fail(f"train_dist int8 {name}: collective rows {coll}, "
+                     f"expected {DIST_INT8_STEPS} calls of {want}")
         res[name] = {"mode": kind.__name__, "losses": losses,
+                     "collective_rows": coll,
                      "ms_per_step": time_steps(step, iter([batch] * 3), 3),
                      **wire,
                      "int8_payload_bytes": sum(
@@ -5355,8 +5635,10 @@ def dist_rank_worker(rank_hint: int, port: int, backend: str, out: str,
     """One of two ranks on the one card (a spawned process): join, start
     the group over ``backend``; ``steps`` 0: one all-reduce; else GPT-2
     124M dp on its 4 rows of each batch for ``steps`` steps, then its
-    weights to ``out``."""
+    weights to ``out``, inside a telemetry run whose directory is
+    ``out.run/rank<R>`` (the train CLI's ``--run-dir`` layout)."""
     from nezha_tpu_torch import dist as nzdist
+    from nezha_tpu_torch import obs
     from nezha_tpu_torch.cli.train import build_config
     from nezha_tpu_torch.parallel.data_parallel import (DPTrainStep,
                                                         local_rows,
@@ -5364,6 +5646,10 @@ def dist_rank_worker(rank_hint: int, port: int, backend: str, out: str,
     import torch.distributed as tdist
 
     torch.cuda.set_device(0)
+    if steps:
+        obs.start_run(f"{out}.run/rank{rank_hint}", meta={
+            "config": "gpt2_124m", "steps": steps, "engine": "eager",
+            "parallel": "dp", "model_preset": "full"})
     group = nzdist.join("127.0.0.1", port, rank_hint=rank_hint,
                         timeout_s=60)
     result = {"rank": group.rank}
@@ -5404,6 +5690,7 @@ def dist_rank_worker(rank_hint: int, port: int, backend: str, out: str,
             except Exception:
                 pass
         group.leave()
+        obs.end_run()
 
 
 def two_ranks(backend: str, tmp: str, steps: int) -> list:
@@ -5477,6 +5764,29 @@ def grads_rel_err(got: dict, want: dict) -> float:
     return math.sqrt(num / den)
 
 
+def two_rank_run_dirs(root: str, grad_bytes: int) -> dict:
+    """The two ranks' run dirs: ``rank0/`` and ``rank1/`` each pass the
+    port's ``nezha-telemetry --check``, and each counts one
+    ``all_reduce`` a step of the gradients' ``grad_bytes``. -> their
+    rows."""
+    from nezha_tpu_torch.cli import telemetry as telemetry_cli
+
+    rows = {}
+    for r in range(2):
+        d = os.path.join(root, f"rank{r}")
+        rc, _ = cli_stdout(telemetry_cli.main, [d, "--check"])
+        if rc != 0:
+            fail(f"train_dist two ranks: rank{r}'s run dir fails --check")
+        with open(os.path.join(d, "summary.json")) as f:
+            row = json.load(f)["collectives"]["all_reduce"]
+        if row != {"calls": DIST_TWO_STEPS,
+                   "payload_bytes": DIST_TWO_STEPS * grad_bytes}:
+            fail(f"train_dist two ranks: rank{r} counted all_reduce {row}, "
+                 f"expected {DIST_TWO_STEPS} calls of {grad_bytes} bytes")
+        rows[f"rank{r}"] = row
+    return {"all_reduce": rows, "grad_bytes": grad_bytes}
+
+
 def dist_two_ranks(card: str) -> dict:
     """Part 4: NCCL with two ranks on the one card, tried once and its
     answer printed. GPT-2 124M dp at full width then runs over NCCL if it
@@ -5520,6 +5830,8 @@ def dist_two_ranks(card: str) -> dict:
         # the first step (the same weights) also the concatenated batch's
         # gradients.
         cfg = build_config("gpt2_124m", steps=100, seed=0, device="cuda")
+        res["run_dirs"] = two_rank_run_dirs(f"{prefix}.run", sum(
+            p.numel() * p.element_size() for p in cfg.model.parameters()))
         step = make_train_step(cfg.model, adamw(TRAIN_LR, weight_decay=0.1),
                                lm_loss)
         batches = cfg.batches(TRAIN_B)
@@ -6076,11 +6388,24 @@ HOME_PATH = {"paged_decode": "serve", "paged_prefill": "serve",
              "layer_norm_fwd": "generate", "layer_norm_bwd": "train_ln"}
 
 
+def clear_kernel_switches() -> list:
+    """Delete every ``NEZHA_NO_*`` variable from this process's
+    environment (and so from its children's), so that no phase runs a
+    composed path in place of a kernel by accident; -> the names
+    removed."""
+    removed = sorted(k for k in os.environ if k.startswith("NEZHA_NO_"))
+    for name in removed:
+        del os.environ[name]
+    return removed
+
+
 def main() -> int:
     t_main = time.perf_counter()
+    removed = clear_kernel_switches()
     phase("device")
     if not torch.cuda.is_available():
         fail("no CUDA device: this smoke test runs only on the card")
+    print(json.dumps({"kernel_switches_removed": removed}), flush=True)
     card = torch.cuda.get_device_name(0)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -6140,6 +6465,7 @@ def main() -> int:
     paths.update(interop(card))
     phase("data_ckpt")
     dc_launches, dc = data_ckpt(card)
+    paths["data_ckpt_train"] = dc_launches["train"]
     paths["data_ckpt_generate"] = dc_launches["generate"]
     paths["data_ckpt_serve"] = dc_launches["serve"]
     phase("serve")

@@ -96,6 +96,10 @@ synthetic data. The eval then reads ``D/val.nzr`` (center crop, a batch
 that divides the record count) or ``D/val.tokens.*`` (sequential
 windows, one pass) when present.
 
+``--ln-impl pallas`` (gpt2_124m) runs its LayerNorms through the fused
+kernels (``ops/cuda/layer_norm.py``), forward and backward; the JAX CLI
+has no such flag (its LayerNorms follow the model config).
+
 ``--ckpt-dir C`` resumes from C's newest checkpoint that verifies (``resumed
 from step N`` on stderr), saves every ``--ckpt-every`` steps of the
 global count and once at the end, keeping the newest ``--ckpt-keep``
@@ -124,6 +128,17 @@ F (rank 0's); ``--log-memory`` adds the card's ``hbm_bytes_in_use`` and
 steps after step START for COUNT steps with ``--profile-steps
 START:COUNT``, else of the whole run. Every other flag of the JAX CLI is
 refused with an error that names it.
+
+``--run-dir D`` runs the whole run inside a telemetry run scope
+(``obs.start_run``): each log window streams into ``D/metrics.jsonl``,
+the first step, every save and every rejoin into ``D/spans.jsonl``, and
+``D/summary.json`` (counters such as ``train.steps``, the prefetcher's
+stalls, the per-collective payload table, the rate percentiles) is
+written on every exit path. Under ``--coordinator`` each process writes
+into ``D/rank<K>`` (``--rank-hint K``) or ``D/pid<P>``. ``python -m
+nezha_tpu_torch.cli.telemetry D [--check]`` renders it. A
+``NEZHA_FAULT_PLAN`` in the environment arms the fault points
+(``checkpoint.save``, ``dist.join``) for the run.
 """
 
 from __future__ import annotations
@@ -142,6 +157,7 @@ from typing import Callable, Dict, Iterator, List, Optional
 import numpy as np
 import torch
 
+from nezha_tpu_torch import obs
 from nezha_tpu_torch.cli.common import TINY_BERT_KW, gpt2_for_preset
 from nezha_tpu_torch.data import (mnist_batches, synthetic_image_batches,
                                   synthetic_mlm_batches,
@@ -165,6 +181,7 @@ from nezha_tpu_torch.tensor import bf16_policy, memory_metrics
 from nezha_tpu_torch.train import (Trainer, accuracy, evaluate,
                                    lm_token_stats, mlm_token_stats)
 from nezha_tpu_torch.train.loop import prng_key
+from nezha_tpu_torch.utils.logging import get_logger, set_rank
 
 CONFIGS = ("mlp_mnist", "resnet50_imagenet", "gpt2_124m", "bert_base_zero1",
            "wrn101_large_batch")
@@ -172,8 +189,7 @@ IMAGE_CONFIGS = ("resnet50_imagenet", "wrn101_large_batch")
 # Flags of the JAX train CLI this port does not take yet.
 NOT_PORTED_FLAGS = frozenset((
     "--microbatches", "--sp-flash", "--attn-impl", "--moe-experts",
-    "--remat", "--graph-bf16", "--scan-layers", "--platform", "--run-dir",
-    "--engine"))
+    "--remat", "--graph-bf16", "--scan-layers", "--platform", "--engine"))
 # Each config's parallel mode (the JAX CLI's).
 CONFIG_MODES = {"mlp_mnist": "single", "resnet50_imagenet": "dp",
                 "wrn101_large_batch": "dp", "gpt2_124m": "dp",
@@ -224,11 +240,12 @@ class Config:
 
 def build_config(name: str, preset: str = "full", steps: int = 100,
                  seed: int = 0, device="cuda", seq_len: Optional[int] = None,
-                 dropout: Optional[float] = None) -> Config:
+                 dropout: Optional[float] = None,
+                 ln_impl: Optional[str] = None) -> Config:
     """THE config table: ``name`` at ``preset`` with weights seeded by
     ``seed`` on ``device``; ``steps`` is the step count of
-    ``Config.optimizer``; ``seq_len`` and ``dropout`` apply to
-    gpt2_124m."""
+    ``Config.optimizer``; ``seq_len``, ``dropout`` and ``ln_impl`` apply
+    to gpt2_124m."""
     tiny = preset == "tiny"
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)
@@ -284,6 +301,8 @@ def build_config(name: str, preset: str = "full", steps: int = 100,
         overrides["max_positions"] = seq_len
     if dropout is not None:
         overrides["dropout"] = dropout
+    if ln_impl is not None:
+        overrides["ln_impl"] = ln_impl
     model = gpt2_for_preset(preset, seed=seed, device=device, **overrides)
     vocab = 512 if tiny else 50257
     seq = seq_len or (64 if tiny else 1024)
@@ -326,6 +345,9 @@ def build_parser() -> argparse.ArgumentParser:
                         "PRNG key (JAX's PRNGKey(seed))")
     p.add_argument("--dropout", type=float, default=None,
                    help="gpt2_124m: the dropout rate")
+    p.add_argument("--ln-impl", choices=["xla", "pallas"], default=None,
+                   help="gpt2_124m: LayerNorm by tensor ops (xla, the "
+                        "default) or the fused LayerNorm kernels (pallas)")
     p.add_argument("--clip-norm", type=float, default=None,
                    help="clip gradients to this global norm")
     p.add_argument("--wd-exclude-1d", action="store_true",
@@ -422,6 +444,11 @@ def build_parser() -> argparse.ArgumentParser:
                    help="seconds --on-failure rejoin waits for the "
                         "replacement rank before it gives up (then raises, "
                         "the checkpoint already committed)")
+    p.add_argument("--run-dir", default=None,
+                   help="write the run's telemetry here (metrics.jsonl, "
+                        "spans.jsonl, events.jsonl, summary.json; under "
+                        "--coordinator a rank<K> or pid<P> subdirectory "
+                        "each); render with nezha_tpu_torch.cli.telemetry")
     p.add_argument("--no-jax-distributed", action="store_true",
                    help=argparse.SUPPRESS)
     return p
@@ -452,7 +479,8 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
                      f"{args.failure_check_every}")
     gpt2 = args.config == "gpt2_124m"
     for flag, value in (("--seq-len", args.seq_len),
-                        ("--dropout", args.dropout)):
+                        ("--dropout", args.dropout),
+                        ("--ln-impl", args.ln_impl)):
         if value is not None and not gpt2:
             parser.error(f"{flag} applies to gpt2_124m")
     if args.trace_dir:
@@ -800,8 +828,9 @@ def join_world(args):
         print(f"coordinator: serving {host}:{port} for "
               f"{args.world_size} process(es)", file=sys.stderr, flush=True)
     group = nzdist.join(host, int(port), rank_hint=args.rank_hint)
-    print(f"joined world: rank {group.rank} / {group.world_size}",
-          file=sys.stderr, flush=True)
+    set_rank(group.rank)
+    get_logger("nezha_tpu_torch.cli").info(
+        "joined world: rank %d / %d", group.rank, group.world_size)
     return group, coord
 
 
@@ -929,6 +958,37 @@ def check_rejoin_args(args) -> None:
 
 
 def run(args: argparse.Namespace) -> Dict[str, float]:
+    """Run the parsed flags. A ``NEZHA_FAULT_PLAN`` arms the fault points
+    for the run (the plan before it is restored on exit); with
+    ``--run-dir`` the run goes on inside a telemetry run scope whose
+    ``summary.json`` is written on every exit path."""
+    from nezha_tpu_torch import faults
+    prev_plan = faults.active()
+    faults.install_from_env()
+    try:
+        if not args.run_dir:
+            return _run_world(args)
+        run_dir = args.run_dir
+        if args.coordinator:
+            # Each process captures into its own subdirectory (a sink
+            # truncates its streams on open). The rank is given only at
+            # the rendezvous, inside the scope: name it by the hint, else
+            # the pid.
+            run_dir = os.path.join(
+                run_dir, f"rank{args.rank_hint}" if args.rank_hint >= 0
+                else f"pid{os.getpid()}")
+        obs.start_run(run_dir, meta={
+            "config": args.config, "steps": args.steps, "engine": "eager",
+            "parallel": args.parallel, "model_preset": args.model_preset})
+        try:
+            return _run_world(args)
+        finally:
+            obs.end_run()
+    finally:
+        faults.install(prev_plan)
+
+
+def _run_world(args: argparse.Namespace) -> Dict[str, float]:
     if (torch.device(args.device).type == "cuda"
             and not torch.cuda.is_available()):
         raise SystemExit("no CUDA device: pass --device cpu to train on "
@@ -975,7 +1035,8 @@ def _run(args: argparse.Namespace, group,
         torch.cuda.set_device(device)
     cfg = build_config(args.config, args.model_preset, steps=args.steps,
                        seed=args.seed, device=device,
-                       seq_len=args.seq_len, dropout=args.dropout)
+                       seq_len=args.seq_len, dropout=args.dropout,
+                       ln_impl=args.ln_impl)
     mode = resolve_mode(args, cfg, world)
     if args.on_failure == "rejoin" and mode not in ("single", "dp"):
         # The reload goes through Trainer.initialize, which pairs with

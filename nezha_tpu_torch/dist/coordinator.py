@@ -6,9 +6,10 @@ Processes :func:`join` a coordinator address and get a rank; the
 which :mod:`nezha_tpu_torch.dist.launch` hands out the address of
 ``torch.distributed``'s store), small broadcasts and all-gathers of host
 blobs, and failure detection by heartbeat. Blocking native calls release
-the GIL. The JAX package records joins and lost heartbeats in its
-telemetry registry; the port counts them in :data:`COUNTERS` until it
-has one.
+the GIL. Failed join attempts and newly dead ranks count in the
+telemetry registry (``dist.join_retries_total``,
+``dist.heartbeat_lost_total``); joins, barriers, failures and departures
+are spans; each join attempt is the ``dist.join`` fault point.
 """
 
 from __future__ import annotations
@@ -16,13 +17,10 @@ from __future__ import annotations
 import ctypes
 import random
 import time
-from typing import Dict, List, Optional
+from typing import List, Optional
 
+from nezha_tpu_torch import faults, obs
 from nezha_tpu_torch.dist.native import load_library
-
-# Failed join attempts and newly-dead ranks seen by failed_ranks().
-COUNTERS: Dict[str, int] = {"join_retries_total": 0,
-                            "heartbeat_lost_total": 0}
 
 
 class CoordinatorError(RuntimeError):
@@ -114,8 +112,9 @@ class ProcessGroup:
 
     def barrier(self, timeout_s: Optional[float] = None) -> None:
         timeout_ms = -1 if timeout_s is None else int(timeout_s * 1000)
-        if self._lib.nz_client_barrier(self._h, timeout_ms) != 0:
-            raise CoordinatorError(self._lib.nz_last_error().decode())
+        with obs.span("dist.barrier", rank=self.rank):
+            if self._lib.nz_client_barrier(self._h, timeout_ms) != 0:
+                raise CoordinatorError(self._lib.nz_last_error().decode())
 
     def broadcast(self, value: Optional[bytes], root: int = 0,
                   timeout_s: Optional[float] = None,
@@ -139,8 +138,9 @@ class ProcessGroup:
     def failed_ranks(self) -> List[int]:
         """Ranks the coordinator holds dead: they dropped their connection
         without leaving, or were silent past the heartbeat timeout. Each
-        newly dead rank counts once in ``COUNTERS["heartbeat_lost_total"]``;
-        the caller decides what a death means."""
+        newly dead rank counts once in ``dist.heartbeat_lost_total``, and
+        each change that brings one is a ``dist.failure`` span; the
+        caller decides what a death means."""
         cap = max(self.world_size, 1)
         arr = (ctypes.c_int32 * cap)()
         n = self._lib.nz_client_failed(self._h, arr, cap)
@@ -150,14 +150,19 @@ class ProcessGroup:
         if failed != self._last_failed:
             newly = [r for r in failed if r not in self._last_failed]
             self._last_failed = failed
-            COUNTERS["heartbeat_lost_total"] += len(newly)
+            if newly:
+                obs.counter("dist.heartbeat_lost_total").inc(len(newly))
+                with obs.span("dist.failure", rank=self.rank,
+                              failed=failed):
+                    pass
         return failed
 
     def leave(self) -> None:
         """Depart cleanly: peers do not count it as a failure."""
         if self._h:
-            self._lib.nz_client_leave(self._h)
-            self._lib.nz_client_close(self._h)
+            with obs.span("dist.leave", rank=self.rank):
+                self._lib.nz_client_leave(self._h)
+                self._lib.nz_client_close(self._h)
             self._h = None
 
     def close(self) -> None:
@@ -195,34 +200,52 @@ def join(host: str, port: int, rank_hint: int = -1,
     1 ± ``jitter`` drawn from OS entropy (so a restarted world does not
     redial in lockstep), and once ``timeout_s`` is spent
     :class:`JoinTimeout` is raised. Each failed attempt counts in
-    ``COUNTERS["join_retries_total"]``."""
+    ``dist.join_retries_total``; that counter and
+    ``dist.heartbeat_lost_total`` are registered here, so a joined run's
+    summary carries both. The dial is the ``dist.join`` span, and each
+    attempt passes the ``dist.join`` fault point (an injected fault is
+    a failed attempt)."""
     lib = load_library()
+    obs.counter("dist.join_retries_total")
+    obs.counter("dist.heartbeat_lost_total")
     rng = random.SystemRandom()
     deadline = time.monotonic() + timeout_s
     attempt = 0
     last_err: Optional[BaseException] = None
-    while True:
-        remaining = deadline - time.monotonic()
-        if remaining <= 0:
-            raise JoinTimeout(
-                f"could not join coordinator at {host}:{port} within "
-                f"{timeout_s:.1f}s ({attempt} failed attempt(s)"
-                f"{f'; last: {last_err}' if last_err else ''})") from last_err
-        h = lib.nz_client_connect(
-            host.encode(), int(port), int(rank_hint),
-            int(min(remaining, attempt_timeout_s) * 1000),
-            int(heartbeat_interval_s * 1000))
-        if h:
-            return ProcessGroup(h, lib)
-        attempt += 1
-        last_err = CoordinatorError(lib.nz_last_error().decode()
-                                    or "join failed")
-        COUNTERS["join_retries_total"] += 1
-        delay = min(backoff_max_s, backoff_base_s * (2.0 ** (attempt - 1)))
-        delay *= 1.0 + jitter * (2.0 * rng.random() - 1.0)
-        # Keep a last dial slice (up to 1 s) before the deadline, so a
-        # coordinator that comes up late is still tried.
-        reserve = min(attempt_timeout_s, 1.0)
-        delay = min(delay, deadline - time.monotonic() - reserve)
-        if delay > 0:
-            time.sleep(delay)
+    with obs.span("dist.join", host=host, port=port) as sp:
+        while True:
+            remaining = deadline - time.monotonic()
+            if remaining <= 0:
+                raise JoinTimeout(
+                    f"could not join coordinator at {host}:{port} within "
+                    f"{timeout_s:.1f}s ({attempt} failed attempt(s)"
+                    f"{f'; last: {last_err}' if last_err else ''})") \
+                    from last_err
+            try:
+                faults.point("dist.join")
+                h = lib.nz_client_connect(
+                    host.encode(), int(port), int(rank_hint),
+                    int(min(remaining, attempt_timeout_s) * 1000),
+                    int(heartbeat_interval_s * 1000))
+                if not h:
+                    raise CoordinatorError(lib.nz_last_error().decode()
+                                           or "join failed")
+            except (CoordinatorError, faults.InjectedFault) as e:
+                attempt += 1
+                last_err = e
+                obs.counter("dist.join_retries_total").inc()
+                sp.set(retries=attempt)
+                delay = min(backoff_max_s,
+                            backoff_base_s * (2.0 ** (attempt - 1)))
+                delay *= 1.0 + jitter * (2.0 * rng.random() - 1.0)
+                # Keep a last dial slice (up to 1 s) before the deadline,
+                # so a coordinator that comes up late is still tried.
+                reserve = min(attempt_timeout_s, 1.0)
+                delay = min(delay, deadline - time.monotonic() - reserve)
+                if delay > 0:
+                    time.sleep(delay)
+                continue
+            group = ProcessGroup(h, lib)
+            sp.set(rank=group.rank, world=group.world_size,
+                   retries=attempt)
+            return group

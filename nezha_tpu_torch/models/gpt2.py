@@ -51,12 +51,21 @@ Three attention paths:
 
 LayerNorms take ``ln_impl``: "xla" (tensor ops) or "pallas" (the fused
 LayerNorm kernels, ``ops/cuda/layer_norm.py``).
+
+Two environment switches, read each time a path is resolved, turn the
+serving kernels off without a config change, as in the JAX package:
+``NEZHA_NO_DECODE_KERNEL`` sends every single-token decode step (dense
+and paged, float and int8) down the composed path that
+``decode_impl="xla"`` takes, and ``NEZHA_NO_PREFILL_KERNEL`` every paged
+prefill chunk down ``prefill_impl="xla"``'s. Each beats a config's
+"kernel".
 """
 
 from __future__ import annotations
 
 import copy
 import dataclasses
+import os
 from typing import List, Optional, Union
 
 import torch
@@ -140,11 +149,19 @@ def check_config(cfg: GPT2Config) -> None:
         raise ValueError(f"dropout must be in [0, 1), got {cfg.dropout}")
 
 
+# The environment switches that turn serving kernels off (JAX's names).
+NO_DECODE_KERNEL = "NEZHA_NO_DECODE_KERNEL"
+NO_PREFILL_KERNEL = "NEZHA_NO_PREFILL_KERNEL"
+
+
 def decode_kernel_ok(cfg: GPT2Config) -> bool:
     """Whether a single-token decode step, dense or paged, takes its
-    flash-decode kernel (JAX ``_decode_flash_ok``): "kernel" forces it,
-    "xla" refuses it, "auto" follows ``attn_impl``, which here resolves
-    to the kernels on every device unless it is "xla"."""
+    flash-decode kernel (JAX ``_decode_flash_ok``): ``NEZHA_NO_DECODE_
+    KERNEL`` refuses it first, then "kernel" forces it, "xla" refuses
+    it, "auto" follows ``attn_impl``, which here resolves to the kernels
+    on every device unless it is "xla"."""
+    if os.environ.get(NO_DECODE_KERNEL):
+        return False
     if cfg.decode_impl == "auto":
         return cfg.attn_impl != "xla"
     return cfg.decode_impl == "kernel"
@@ -152,9 +169,11 @@ def decode_kernel_ok(cfg: GPT2Config) -> bool:
 
 def prefill_kernel_ok(cfg: GPT2Config) -> bool:
     """Whether a paged prefill chunk takes the flash-prefill kernels (JAX
-    ``_prefill_flash_ok``, without its environment switch): "kernel"
-    forces them, "xla" refuses them, "auto" follows ``attn_impl``, as
-    :func:`decode_kernel_ok` does."""
+    ``_prefill_flash_ok``): ``NEZHA_NO_PREFILL_KERNEL`` refuses them
+    first, then "kernel" forces them, "xla" refuses them, "auto" follows
+    ``attn_impl``, as :func:`decode_kernel_ok` does."""
+    if os.environ.get(NO_PREFILL_KERNEL):
+        return False
     if cfg.prefill_impl == "auto":
         return cfg.attn_impl != "xla"
     return cfg.prefill_impl == "kernel"

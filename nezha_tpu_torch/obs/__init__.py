@@ -1,7 +1,8 @@
 """Telemetry (counterpart of ``nezha_tpu/obs``): the process-wide
 registry and run-scoped sinks, the rolling windows with their Prometheus
 exposition, SLOs and the watchdog, the JSONL metrics sink and the device
-trace window. The reports (``obs/report.py``) are not ported yet.
+trace window, and the reports a run directory renders (``obs/report.py``,
+read by ``nezha_tpu_torch.cli.telemetry``).
 
 - ``registry``: counters / gauges / histograms / wall-clock spans with
   branch-only no-op fast paths while disabled, and request trace ids.
@@ -11,11 +12,11 @@ trace window. The reports (``obs/report.py``) are not ported yet.
 - ``timeseries`` / ``slo`` / ``watchdog``: fixed-interval bucket rings
   with mergeable log-bucket sketches, declarative SLOs with error-budget
   burn rate, and the anomaly watchdog streaming typed events.
-- ``metrics`` / ``trace``: the JSONL logger and the torch.profiler
-  trace window.
+- ``metrics`` / ``trace``: the JSONL logger, the windowed
+  ``StepTimer``, ``annotate`` and the torch.profiler trace window.
 """
 
-from nezha_tpu_torch.obs.metrics import MetricsLogger, read_metrics
+from nezha_tpu_torch.obs.metrics import MetricsLogger, StepTimer, read_metrics
 from nezha_tpu_torch.obs.registry import (
     NULL_SPAN,
     Counter,
@@ -77,7 +78,7 @@ from nezha_tpu_torch.obs.timeseries import (
     uninstall_windows,
     windows_payload,
 )
-from nezha_tpu_torch.obs.trace import Tracer, profile_trace
+from nezha_tpu_torch.obs.trace import Tracer, annotate, profile_trace
 from nezha_tpu_torch.obs.watchdog import (Watchdog, WatchdogConfig,
                                           WatchdogThread)
 
@@ -90,8 +91,8 @@ __all__ = [
     "stats_snapshot", "TRACE_HEADER", "adopt_trace_header",
     "RunSink", "start_run", "end_run", "current_sink",
     "METRICS_FILE", "SPANS_FILE", "EVENTS_FILE", "SUMMARY_FILE",
-    "MetricsLogger", "read_metrics",
-    "Tracer", "profile_trace",
+    "MetricsLogger", "StepTimer", "read_metrics",
+    "Tracer", "annotate", "profile_trace",
     "record_event", "windows",
     "LogSketch", "WindowStore", "WINDOW_DURATIONS",
     "install_windows", "uninstall_windows", "current_windows",

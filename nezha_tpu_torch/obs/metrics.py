@@ -1,6 +1,13 @@
-"""Metrics recording: the JSONL sink (counterpart of
-``nezha_tpu/obs/metrics.py``'s ``MetricsLogger`` and ``read_metrics``;
-the run sinks in ``obs/sink.py`` stream through it)."""
+"""Metrics recording: the JSONL sink and windowed step timing
+(counterpart of ``nezha_tpu/obs/metrics.py``; the run sinks in
+``obs/sink.py`` stream through the JSONL reader).
+
+CUDA launches are asynchronous, so a step returns before the card has
+finished it, and per-step wall time measures the host. ``StepTimer``
+times windows of steps instead and closes each with a host read of a
+device scalar (``float()`` of the step's loss), which waits for every
+step launched before it.
+"""
 
 from __future__ import annotations
 
@@ -63,3 +70,76 @@ def read_metrics(path: str) -> list:
             if line:
                 out.append(json.loads(line))
     return out
+
+
+class StepTimer:
+    """Windowed steps/sec with one device barrier a window.
+
+    Usage::
+
+        timer = StepTimer(window=10)
+        for batch in batches:
+            metrics = step(batch)
+            rate = timer.tick(metrics["loss"])   # None inside a window
+            if rate is not None: ...             # steps/sec of the window
+
+    ``tick`` reads the scalar on the host only at a window's edges, so
+    the launch queue stays full in between. A loop that picks its own
+    window edges (the Trainer logs on global-step multiples, which a
+    resume can land between) uses the explicit form: ``start()`` once,
+    then ``lap(scalar, n)`` at each edge to close a window of ``n``
+    steps.
+    """
+
+    def __init__(self, window: int = 10):
+        self.window = max(window, 1)
+        self._count = 0
+        self._t0: Optional[float] = None
+
+    def tick(self, device_scalar) -> Optional[float]:
+        if self._t0 is None:  # first call: sync, then open the window
+            float(device_scalar)
+            self._t0 = time.perf_counter()
+            self._count = 0
+            return None
+        self._count += 1
+        if self._count < self.window:
+            return None
+        float(device_scalar)  # barrier: the window's steps have finished
+        now = time.perf_counter()
+        rate = self._count / max(now - self._t0, 1e-9)
+        self._t0 = now
+        self._count = 0
+        return rate
+
+    # -- explicit windows ---------------------------------------------
+    def start(self) -> None:
+        """Open a window now (no barrier: the ``lap`` that closes it
+        reads its scalar)."""
+        self._t0 = time.perf_counter()
+        self._count = 0
+
+    def lap(self, device_scalar, steps: int) -> Optional[float]:
+        """Close an explicit window of ``steps`` steps: read the scalar
+        (the barrier), -> steps/sec since ``start()`` or the last lap.
+        None when no window is open or it covered no step."""
+        float(device_scalar)  # barrier: the window's steps have finished
+        now = time.perf_counter()
+        if self._t0 is None or steps <= 0:
+            self._t0 = now
+            return None
+        rate = steps / max(now - self._t0, 1e-9)
+        self._t0 = now
+        return rate
+
+    def exclude(self, seconds: float) -> None:
+        """Leave ``seconds`` of host work (a checkpoint's save) out of
+        the open window."""
+        if self._t0 is not None:
+            self._t0 += seconds
+
+    def reset(self) -> None:
+        """Forget the open window (after a stall, such as a rejoin's
+        heal wait, that must not count against the next window)."""
+        self._t0 = None
+        self._count = 0

@@ -2,8 +2,10 @@
 of ``nezha_tpu/obs/trace.py``, which drives ``jax.profiler``; the
 request trace ids live in ``obs/registry.py``).
 
-A trace window records the host's activity and, where CUDA is available,
-the card's kernels and copies, and writes a Chrome trace (``.json``,
+:func:`annotate` names a region of the timeline (a
+``torch.profiler.record_function`` range on the host row). A trace
+window records the host's activity and, where CUDA is available, the
+card's kernels and copies, and writes a Chrome trace (``.json``,
 viewable in Perfetto or ``chrome://tracing``) into its directory.
 """
 
@@ -36,6 +38,14 @@ def profile_trace(log_dir: str, name: str = "trace") -> Iterator[None]:
         prof.stop()
         prof.export_chrome_trace(
             os.path.join(log_dir, f"{name}_pid{os.getpid()}.json"))
+
+
+@contextlib.contextmanager
+def annotate(name: str) -> Iterator[None]:
+    """A named region in a trace's timeline; costs a range push and pop
+    when no profiler runs."""
+    with torch.profiler.record_function(name):
+        yield
 
 
 class Tracer:

@@ -9,9 +9,14 @@ dict of two hundred tensors is one ``all_reduce``, and every element
 comes out as the per-leaf collective would give it. The tensors must lie
 on the group's device (CUDA for ``nccl``, the CPU for ``gloo``).
 
-:data:`BYTES` tallies each op's payload, the bytes one rank contributes
-per call, as the JAX package's telemetry records them
-(``record_traced_collective``), until the port has a telemetry layer.
+Each public function counts one call of its op and the bytes one rank
+hands it in the telemetry registry (``collective.<op>.calls`` and
+``.payload_bytes``) while a run is active. The JAX package counts once
+per traced program; the port, which runs eagerly, counts once per call,
+so a train step's payload per call is JAX's per program. The dp and
+ZeRO-1 steps count their own payloads (at the wire's width) and call the
+unrecorded forms (``_all_reduce_mean``, ``_all_gather``,
+``_reduce_scatter``), so no payload counts twice.
 """
 
 from __future__ import annotations
@@ -21,11 +26,14 @@ from typing import Any, Callable, Dict, List, Optional
 import torch
 import torch.distributed as dist
 
-# op -> payload bytes handed to it so far by this process.
-BYTES: Dict[str, int] = {}
+from nezha_tpu_torch import obs
 
-def record_collective(op: str, payload_bytes: int) -> None:
-    BYTES[op] = BYTES.get(op, 0) + int(payload_bytes)
+
+def record_tree(op: str, tree: Any) -> None:
+    """Count one call of ``op`` carrying ``tree`` (the bytes one rank
+    contributes); nothing unless a telemetry run is active."""
+    if obs.enabled():
+        obs.record_collective(op, tree_bytes(tree))
 
 
 def tree_bytes(tree: Any) -> int:
@@ -84,7 +92,7 @@ def _sum_rows(xs: List[torch.Tensor], group,
 
 
 def all_reduce_sum(tree: Any, group=None) -> Any:
-    record_collective("all_reduce", tree_bytes(tree))
+    record_tree("all_reduce", tree)
     return _bucketed(tree, lambda xs: _sum_rows(xs, group))
 
 
@@ -99,8 +107,12 @@ def _divide(x: torch.Tensor, n: int) -> torch.Tensor:
 
 def all_reduce_mean(tree: Any, group=None) -> Any:
     """The sum over the group divided by its size, per leaf."""
+    record_tree("all_reduce", tree)
+    return _all_reduce_mean(tree, group)
+
+
+def _all_reduce_mean(tree: Any, group=None) -> Any:
     n = world_size(group)
-    record_collective("all_reduce", tree_bytes(tree))
     return _bucketed(tree, lambda xs: _sum_rows(xs, group, n))
 
 
@@ -108,8 +120,13 @@ def all_gather(tree: Any, group=None, axis: int = 0,
                tiled: bool = True) -> Any:
     """Every rank's leaf, concatenated along ``axis`` (``tiled``) or
     stacked in a new leading axis, in rank order."""
+    record_tree("all_gather", tree)
+    return _all_gather(tree, group, axis, tiled)
+
+
+def _all_gather(tree: Any, group=None, axis: int = 0,
+                tiled: bool = True) -> Any:
     n = world_size(group)
-    record_collective("all_gather", tree_bytes(tree))
 
     def one(xs):
         flat = torch.cat([x.reshape(-1) for x in xs])
@@ -129,8 +146,12 @@ def reduce_scatter(tree: Any, group=None, axis: int = 0) -> Any:
     """Sum over the group, then rank r keeps the r-th of ``n`` equal
     slices along ``axis`` (the ZeRO-1 gradient path). Each leaf's
     ``axis`` must be a multiple of the group's size."""
+    record_tree("reduce_scatter", tree)
+    return _reduce_scatter(tree, group, axis)
+
+
+def _reduce_scatter(tree: Any, group=None, axis: int = 0) -> Any:
     n = world_size(group)
-    record_collective("reduce_scatter", tree_bytes(tree))
 
     def one(xs):
         moved = [x.movedim(axis, 0) for x in xs]

@@ -19,11 +19,13 @@ from typing import Any, Callable, Dict, Optional
 import torch
 import torch.distributed as dist
 
+from nezha_tpu_torch import obs
 from nezha_tpu_torch.optim.optimizers import Optimizer
-from nezha_tpu_torch.parallel.collectives import all_reduce_mean
+from nezha_tpu_torch.parallel.collectives import _all_reduce_mean, tree_bytes
 from nezha_tpu_torch.parallel.quantized import (DEFAULT_MIN_NUMEL,
-                                                quantized_all_reduce_mean,
-                                                should_quantize)
+                                                all_reduce_mean_many,
+                                                should_quantize,
+                                                wire_payload_bytes)
 from nezha_tpu_torch.train.loop import TrainStep
 
 GRAD_REDUCE = ("fp32", "int8")
@@ -73,14 +75,23 @@ def mean_over_group(grads: Dict[str, torch.Tensor], extras: Dict[str, Any],
     """-> (mean gradients, mean extras). Gradients of at least
     ``min_numel`` float elements take the int8 wire under ``int8``;
     the rest, and ``extras`` (the loss, BatchNorm buffers), travel exact
-    in one bucket."""
+    in one bucket. Counts the gradients' payload as JAX's dp step does:
+    one ``all_reduce`` of the exact gradients, one ``all_reduce_int8``
+    of the others at the wire's width; the extras are not counted."""
     quant = {k: g for k, g in grads.items()
              if grad_reduce == "int8" and should_quantize(g, min_numel)}
     exact = {("g", k): g for k, g in grads.items() if k not in quant}
+    if obs.enabled():
+        if quant:
+            obs.record_collective("all_reduce_int8", sum(
+                wire_payload_bytes(g.numel()) for g in quant.values()))
+        if exact:
+            obs.record_collective("all_reduce", tree_bytes(exact))
     exact.update({("x", k): v for k, v in extras.items()})
-    out = all_reduce_mean(exact, group) if exact else {}
+    out = _all_reduce_mean(exact, group) if exact else {}
     if quant:
-        quant = quantized_all_reduce_mean(quant, group, min_numel=0)
+        quant = dict(zip(quant, all_reduce_mean_many(list(quant.values()),
+                                                     group)))
     mean = {k: quant[k] if k in quant else out[("g", k)] for k in grads}
     return mean, {k: out[("x", k)] for k in extras}
 

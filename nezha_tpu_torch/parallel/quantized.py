@@ -33,9 +33,9 @@ import torch.distributed as dist
 import torch.nn.functional as F
 
 from nezha_tpu_torch.ops.quant import dequantize, quantize_blocks
+from nezha_tpu_torch import obs
 from nezha_tpu_torch.parallel.collectives import (_divide, _leaves,
                                                   _rebuild, all_reduce_mean,
-                                                  record_collective,
                                                   world_size)
 
 # Leaves below this many elements ride the exact path.
@@ -127,10 +127,11 @@ def quantized_all_gather(chunk: torch.Tensor, group=None,
     return all_gather_many([chunk], group, block)[0]
 
 
-def _qar_mean_many(xs: List[torch.Tensor], group,
-                   block: int) -> List[torch.Tensor]:
+def all_reduce_mean_many(xs: List[torch.Tensor], group=None,
+                         block: int = 512) -> List[torch.Tensor]:
     """int8-wire all-reduce-mean of several arrays: each padded to ``n``
-    block-aligned chunks, reduce-scattered, then all-gathered."""
+    block-aligned chunks, reduce-scattered, then all-gathered. Counts
+    nothing: its callers count the payload."""
     n = world_size(group)
     flats = []
     for x in xs:
@@ -146,16 +147,18 @@ def quantized_all_reduce_mean(tree: Any, group=None, block: int = 512,
                               min_numel: int = DEFAULT_MIN_NUMEL) -> Any:
     """The gradient mean over the group with int8 payloads for float
     leaves of at least ``min_numel`` elements; the others take the exact
-    mean. Records the payload at the wire's width."""
+    mean. Counts the int8 leaves as one ``all_reduce_int8`` at the
+    wire's width, the others as one ``all_reduce``."""
     leaves = _leaves(tree)
     qi = [i for i, t in enumerate(leaves) if should_quantize(t, min_numel)]
     ei = sorted(set(range(len(leaves))) - set(qi))
     out: List[Any] = [None] * len(leaves)
     if qi:
-        record_collective("all_reduce_int8", sum(
-            wire_payload_bytes(leaves[i].numel(), block) for i in qi))
-        for i, r in zip(qi, _qar_mean_many([leaves[i] for i in qi], group,
-                                           block)):
+        if obs.enabled():
+            obs.record_collective("all_reduce_int8", sum(
+                wire_payload_bytes(leaves[i].numel(), block) for i in qi))
+        for i, r in zip(qi, all_reduce_mean_many([leaves[i] for i in qi],
+                                                 group, block)):
             out[i] = r
     if ei:
         exact = all_reduce_mean({str(i): leaves[i] for i in ei}, group)

@@ -33,17 +33,19 @@ import torch
 import torch.distributed as dist
 import torch.nn.functional as F
 
+from nezha_tpu_torch import obs
 from nezha_tpu_torch.optim.optimizers import (Optimizer, apply_updates_,
                                               state_leaves)
-from nezha_tpu_torch.parallel.collectives import (_divide, all_gather,
-                                                  all_reduce_mean,
-                                                  reduce_scatter)
+from nezha_tpu_torch.parallel.collectives import (_all_gather,
+                                                  _all_reduce_mean, _divide,
+                                                  _reduce_scatter)
 from nezha_tpu_torch.parallel.data_parallel import (check_grad_reduce,
                                                     state_buffers)
 from nezha_tpu_torch.parallel.quantized import (DEFAULT_MIN_NUMEL,
                                                 all_gather_many,
                                                 reduce_scatter_mean_many,
-                                                should_quantize)
+                                                should_quantize,
+                                                wire_payload_bytes)
 from nezha_tpu_torch.train.loop import TrainStep
 
 Tree = Dict[str, torch.Tensor]
@@ -128,20 +130,40 @@ class Zero1TrainStep(TrainStep):
         return (self.grad_reduce == "int8"
                 and should_quantize(self.params[k], self.quant_min_numel))
 
+    def _record_payloads(self, quant) -> None:
+        """Count the step's collectives as JAX's ZeRO-1 step does: one
+        record an op, each leaf's chunk ``ceil(numel / world)`` (the
+        world-padded flat), fp32 on the exact path and the wire's width
+        on the int8 one; the loss and buffers' mean is not counted."""
+        w = self.world
+        chunks_q = [-(-self.params[k].numel() // w) for k in quant]
+        chunks_e = [-(-p.numel() // w) for k, p in self.params.items()
+                    if k not in quant]
+        for op, payload in (
+                ("reduce_scatter", sum(c * w * 4 for c in chunks_e)),
+                ("reduce_scatter_int8",
+                 sum(w * wire_payload_bytes(c) for c in chunks_q)),
+                ("all_gather", sum(c * 4 for c in chunks_e)),
+                ("all_gather_int8",
+                 sum(wire_payload_bytes(c) for c in chunks_q))):
+            if payload:
+                obs.record_collective(op, payload)
+
     def __call__(self, batch: dict) -> Dict[str, torch.Tensor]:
         loss, grads = self.loss_and_grads(batch)
-        extras = all_reduce_mean({"loss": loss, **{("b", k): b for k, b in
-                                                  self.buffers.items()}},
-                                 self.group)
+        extras = _all_reduce_mean({"loss": loss, **{
+            ("b", k): b for k, b in self.buffers.items()}}, self.group)
         with torch.no_grad():
             for k, b in self.buffers.items():
                 b.copy_(extras[("b", k)])
         flats = {k: _flat_pad(to_jax_layout(g.float(), self.conv[k]),
                               self.world) for k, g in grads.items()}
         quant = [k for k in flats if self._quantized(k)]
+        if obs.enabled():
+            self._record_payloads(quant)
         exact = {k: f for k, f in flats.items() if k not in quant}
         chunks = {k: _divide(c, self.world) for k, c in
-                  (reduce_scatter(exact, self.group) if exact else
+                  (_reduce_scatter(exact, self.group) if exact else
                    {}).items()}
         if quant:
             chunks.update(zip(quant, reduce_scatter_mean_many(
@@ -153,7 +175,7 @@ class Zero1TrainStep(TrainStep):
         full = {}
         ex = {k: u for k, u in update_chunks.items() if k not in quant}
         if ex:
-            full.update(all_gather(ex, self.group))
+            full.update(_all_gather(ex, self.group))
         if quant:
             full.update(zip(quant, all_gather_many(
                 [update_chunks[k] for k in quant], self.group)))

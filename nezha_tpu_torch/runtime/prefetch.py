@@ -27,6 +27,7 @@ from typing import Any, Iterator, Optional
 import numpy as np
 import torch
 
+from nezha_tpu_torch import obs
 from nezha_tpu_torch.train.loop import batch_to_device
 
 
@@ -49,9 +50,10 @@ class Prefetcher:
     the consumer stops after collecting all of them; a worker's error
     (from the source or from staging) is raised in the consumer. Reads
     that find the queue empty count in :attr:`stalls` and
-    :attr:`stall_seconds`, the input-bound signal (JAX's
-    ``prefetch.stalls`` and ``prefetch.stall_seconds``, which wait for the
-    telemetry registry)."""
+    :attr:`stall_seconds`, the input-bound signal. While a telemetry run
+    is active each read also sets the ``prefetch.queue_depth`` gauge,
+    and each stall counts in ``prefetch.stalls`` and
+    ``prefetch.stall_seconds`` (JAX's names)."""
 
     _DONE = object()
 
@@ -119,14 +121,22 @@ class Prefetcher:
 
     def __next__(self) -> dict:
         while True:
+            recording = obs.enabled()
+            if recording:
+                obs.gauge("prefetch.queue_depth").set(self._q.qsize())
             if self._q.empty():
                 t0 = time.perf_counter()
                 item = self._q.get()
                 # A wait that ends in a worker's exit is shutdown, not
                 # input starvation.
                 if item is not self._DONE:
+                    waited = time.perf_counter() - t0
                     self.stalls += 1
-                    self.stall_seconds += time.perf_counter() - t0
+                    self.stall_seconds += waited
+                    if recording:
+                        obs.counter("prefetch.stalls").inc()
+                        obs.histogram("prefetch.stall_seconds").observe(
+                            waited)
             else:
                 item = self._q.get()
             if item is self._DONE:

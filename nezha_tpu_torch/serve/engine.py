@@ -59,12 +59,19 @@ rows routed to the scratch block. JAX compiles one program per bucket;
 PyTorch runs eagerly, so there is no program set to freeze here (CUDA
 graphs are later work). Token ids are validated by the scheduler, not
 here.
+
+``NEZHA_NO_DECODE_KERNEL`` and ``NEZHA_NO_PREFILL_KERNEL`` (see
+``models/gpt2.py``) send decode steps and paged prefill chunks down the
+composed paths that ``decode_impl="xla"`` and ``prefill_impl="xla"``
+take; the engine logs one warning naming each switch that is set, and
+``serve.prefill.kernel_active`` reads 0 under the prefill switch.
 """
 
 from __future__ import annotations
 
 import collections
 import dataclasses
+import os
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -72,7 +79,9 @@ import torch
 
 from nezha_tpu_torch import faults, obs
 from nezha_tpu_torch.errors import NotPortedError
-from nezha_tpu_torch.models.gpt2 import GPT2, prefill_kernel_ok, with_overrides
+from nezha_tpu_torch.models.gpt2 import (GPT2, NO_DECODE_KERNEL,
+                                         NO_PREFILL_KERNEL, prefill_kernel_ok,
+                                         with_overrides)
 from nezha_tpu_torch.ops.cuda import (flash_decode_attention,
                                       paged_decode_attention,
                                       paged_prefill_attention,
@@ -87,6 +96,7 @@ from nezha_tpu_torch.serve.sampling import (accept_mask, categorical_rows,
                                             split_and_sample)
 from nezha_tpu_torch.serve.slots import (KVBlocksExhausted, PagedSlotPool,
                                          SlotPool, read_slot)
+from nezha_tpu_torch.utils.logging import get_logger
 
 
 def default_prefill_buckets(max_prefill_len: int) -> Tuple[int, ...]:
@@ -377,6 +387,12 @@ class Engine:
         # Whether paged prefill chunks go through the flash-prefill kernels.
         self.prefill_kernel_active = bool(self.paged
                                           and prefill_kernel_ok(model.cfg))
+        for var in (NO_DECODE_KERNEL, NO_PREFILL_KERNEL):
+            if os.environ.get(var):
+                get_logger("nezha_tpu_torch.serve").warning(
+                    "%s is set: %s takes the composed path, not its "
+                    "kernel", var, "decode" if var == NO_DECODE_KERNEL
+                    else "prefill")
         self.kv_quant = cfg.kv_dtype == "int8"
         obs.gauge("serve.prefill.kernel_active").set(
             1.0 if self.prefill_kernel_active else 0.0)

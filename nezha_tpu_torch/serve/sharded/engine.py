@@ -32,15 +32,22 @@ counts ``serve.prefill.ring_hops_total`` and the estimate
 head of a sequence-mode prefill (inside the ``serve.prefill.seq_s``
 span's caller).
 
-Not ported (each refused or absent, see ROADMAP): speculative decoding,
-``decode_impl="xla"``, ``prefill_impl="xla"``, the host KV tier
-(``kv_host_blocks``) and the block wire (export, install; migration's
-gather-on-export) under the mesh (:class:`NotPortedError`, ROADMAP A6),
-the ``NEZHA_NO_*`` environment switches.
+``NEZHA_NO_SEQ_PREFILL`` turns ``prefill_mode="sequence"`` back into
+the replicated prefill, as in JAX (a warning names it).
+
+Not ported (each refused with :class:`NotPortedError`, ROADMAP A6):
+speculative decoding, ``decode_impl="xla"``, ``prefill_impl="xla"``, the
+host KV tier (``kv_host_blocks``) and the block wire (export, install;
+migration's gather-on-export) under the mesh, and the switches that
+would need the composed attention under it: ``NEZHA_NO_NESTED_KERNELS``,
+``NEZHA_NO_DECODE_KERNEL`` and ``NEZHA_NO_PREFILL_KERNEL``.
 """
+
 
 from __future__ import annotations
 
+import dataclasses
+import os
 from typing import Optional, Sequence
 
 import numpy as np
@@ -52,6 +59,12 @@ from nezha_tpu_torch.serve.engine import Engine, ServeConfig
 from nezha_tpu_torch.serve.sharded.model import ShardedGPT2
 from nezha_tpu_torch.serve.sharded.pool import ShardedPagedSlotPool
 from nezha_tpu_torch.serve.sharded.reshard import rule_for, serve_tp_rules
+from nezha_tpu_torch.utils.logging import get_logger
+
+# Switches that would send a mesh to the composed attention (A6).
+MESH_KERNEL_SWITCHES = ("NEZHA_NO_NESTED_KERNELS", "NEZHA_NO_DECODE_KERNEL",
+                        "NEZHA_NO_PREFILL_KERNEL")
+NO_SEQ_PREFILL = "NEZHA_NO_SEQ_PREFILL"
 
 
 class ShardedEngine(Engine):
@@ -81,11 +94,22 @@ class ShardedEngine(Engine):
         if cfg.decode_impl == "xla":
             raise NotPortedError("decode_impl='xla' under a mesh is not "
                                  "ported: the sharded engine decodes through "
-                                 "the paged kernels")
+                                 "the paged kernels (ROADMAP A6)")
         if cfg.prefill_impl == "xla":
             raise NotPortedError("prefill_impl='xla' under a mesh is not "
                                  "ported: the sharded engine prefills through "
-                                 "the paged kernels")
+                                 "the paged kernels (ROADMAP A6)")
+        for var in MESH_KERNEL_SWITCHES:
+            if os.environ.get(var):
+                raise NotPortedError(
+                    f"{var} under a mesh is not ported: the composed "
+                    f"attention under a mesh is ROADMAP A6 (unset it, or "
+                    f"serve without --mesh)")
+        if cfg.prefill_mode == "sequence" and os.environ.get(NO_SEQ_PREFILL):
+            get_logger("nezha_tpu_torch.serve").warning(
+                "%s is set: prefill_mode='sequence' falls back to the "
+                "replicated prefill", NO_SEQ_PREFILL)
+            cfg = dataclasses.replace(cfg, prefill_mode="replicated")
         self._seq_active = cfg.prefill_mode == "sequence"
         self._seq_variant = None
         if self._seq_active:

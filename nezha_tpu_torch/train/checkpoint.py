@@ -37,6 +37,8 @@ from typing import Dict, List, Mapping, Optional, Tuple
 
 import numpy as np
 
+from nezha_tpu_torch import faults
+
 MANIFEST_VERSION = 1
 MANIFEST_KEY = "__manifest__"
 _STEP_FILE = re.compile(r"step_(\d+)\.npz$")
@@ -91,6 +93,9 @@ def save_checkpoint(ckpt_dir: str, flat: Mapping[str, np.ndarray],
             np.savez(f, **flat, **{MANIFEST_KEY: np.asarray(manifest)})
             f.flush()
             os.fsync(f.fileno())
+        # A fault here leaves only the temporary file, which is removed:
+        # the previous checkpoint stays the newest.
+        faults.point("checkpoint.save")
         os.replace(tmp, final)
         _fsync_dir(d)
     finally:

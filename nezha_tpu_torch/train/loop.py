@@ -21,8 +21,10 @@ from typing import Callable, Dict, Iterator, Optional
 import numpy as np
 import torch
 
+from nezha_tpu_torch import obs
 from nezha_tpu_torch.errors import NotPortedError
 from nezha_tpu_torch.nn.layers import Dropout
+from nezha_tpu_torch.obs.metrics import StepTimer
 from nezha_tpu_torch.optim.optimizers import (Optimizer, apply_updates_,
                                               state_leaves)
 
@@ -118,7 +120,14 @@ class Trainer:
     ``tokens_per_sec(_per_chip)`` through ``metric_logger(step,
     metrics)``; ``examples_per_step`` (the global batch: images for the
     image configs) and ``tokens_per_step`` scale the step rate, and per
-    chip divides by the step's world size (one device a process).
+    chip divides by the step's world size (one device a process). Each
+    window closes with :class:`~nezha_tpu_torch.obs.metrics.StepTimer`'s
+    ``lap``, whose barrier is the host read of the loss; a checkpoint's
+    save is left out of its window. While a telemetry run is active
+    (``obs.start_run``) the window also adds its steps to the
+    ``train.steps`` counter and goes to ``obs.record_metrics``; the
+    first step, each save and each rejoin are the ``train.first_step``,
+    ``checkpoint.save`` and ``train.rejoin`` spans.
 
     ``step_fn`` replaces the single-device step: a
     :class:`~nezha_tpu_torch.parallel.data_parallel.DPTrainStep` or
@@ -207,6 +216,10 @@ class Trainer:
         self.on_failure = on_failure
         self.tracer = tracer
         self.global_step = 0
+        # Rate windows close on the loop's own log edges (a resume can
+        # land inside a window), so the timer runs explicit laps.
+        self._timer = StepTimer(window=max(log_every, 1))
+        self._first_step = True   # the next step builds the kernels
         self._dropout_gens = list({id(m.generator): m.generator
                                    for m in model.modules()
                                    if isinstance(m, Dropout) and m.rate
@@ -284,9 +297,13 @@ class Trainer:
         """Write a checkpoint of the current state at ``step`` (default:
         the global step) into ``checkpoint_dir``; -> its path, or None on
         a rank that writes nothing (dense saves are rank 0's)."""
+        step = self.global_step if step is None else step
+        with obs.span("checkpoint.save", step=step):
+            return self._save(step)
+
+    def _save(self, step: int) -> Optional[str]:
         from nezha_tpu_torch.train import checkpoint as ckpt
         from nezha_tpu_torch.train import sharded_checkpoint as sck
-        step = self.global_step if step is None else step
         t0 = time.perf_counter()
         if self.sharded:
             if self._async is None:
@@ -331,7 +348,8 @@ class Trainer:
             self.save(self.global_step)
             self.wait_saves()
         if self.failure_mode == "rejoin":   # checkpoint_dir guaranteed
-            self._rejoin_and_reload(failed, detected_at)
+            with obs.span("train.rejoin", failed=failed):
+                self._rejoin_and_reload(failed, detected_at)
             return True
         if self.on_failure is not None:
             self.on_failure(failed)
@@ -379,8 +397,9 @@ class Trainer:
         last: Dict[str, float] = {}
         metrics: Dict[str, torch.Tensor] = {}
         n_chips = self.world
-        window_start = time.perf_counter()
-        window_steps = 0
+        self._timer.start()
+        window_steps = 0   # the steps of this window (a resume can land
+        # inside one, so log_every would overstate the first rate)
         for _ in range(steps):
             batch = next(batches)
             if not self.tokens_per_step and "tokens" in batch:
@@ -391,7 +410,15 @@ class Trainer:
             for i, gen in enumerate(self._dropout_gens):
                 gen.manual_seed(dropout_seed(self.rng, self.global_step,
                                              self.rank) + i)
-            metrics = self.step_fn(batch)
+            if self._first_step:
+                # The first step builds and loads the kernels it
+                # launches: as a span it is the run's start-up record.
+                self._first_step = False
+                with obs.span("train.first_step",
+                              step=self.global_step + 1):
+                    metrics = self.step_fn(batch)
+            else:
+                metrics = self.step_fn(batch)
             self.global_step += 1
             window_steps += 1
             if self.tracer is not None:
@@ -400,23 +427,27 @@ class Trainer:
                     and self.global_step % self.failure_check_every == 0
                     and self._check_peers()):
                 # Rate windows do not count the heal wait.
-                window_start, window_steps = time.perf_counter(), 0
+                self._timer.start()
+                window_steps = 0
                 continue
             if self.log_every and self.global_step % self.log_every == 0:
+                # The float() reads are the window's barrier: every step
+                # launched has finished before the lap closes.
                 last = {k: float(v) for k, v in metrics.items()}
-                now = time.perf_counter()
-                rate = window_steps / (now - window_start)
-                window_start, window_steps = now, 0
-                last["steps_per_sec"] = rate
+                rate = self._timer.lap(last.get("loss", 0.0), window_steps)
+                last["steps_per_sec"] = rate if rate is not None else 0.0
                 if self.examples_per_step:
-                    eps = rate * self.examples_per_step
+                    eps = last["steps_per_sec"] * self.examples_per_step
                     last["examples_per_sec"] = eps
                     last["examples_per_sec_per_chip"] = eps / n_chips
                 if self.tokens_per_step:
-                    tps = rate * self.tokens_per_step
+                    tps = last["steps_per_sec"] * self.tokens_per_step
                     last["tokens_per_sec"] = tps
                     last["tokens_per_sec_per_chip"] = tps / n_chips
                 last["step"] = self.global_step
+                obs.counter("train.steps").inc(window_steps)
+                obs.record_metrics(self.global_step, last)
+                window_steps = 0
                 if self.metric_logger:
                     self.metric_logger(self.global_step, last)
             if (self.checkpoint_every and self.checkpoint_dir
@@ -425,7 +456,7 @@ class Trainer:
                 self.save()
                 # The save's host copy and write are not the steps' time.
                 if len(self.saves) > n:
-                    window_start += self.saves[-1]["seconds"]
+                    self._timer.exclude(self.saves[-1]["seconds"])
         if not last and steps:
             last = {k: float(v) for k, v in metrics.items()}
             last["step"] = self.global_step

@@ -150,16 +150,31 @@ def _wait_failed(g, timeout=5.0):
 
 
 def test_failure_detection_on_drop_is_counted_once():
-    before = dist.COUNTERS["heartbeat_lost_total"]
-    with dist.Coordinator(world_size=2, heartbeat_timeout_s=0.5) as coord:
-        g0 = dist.join("127.0.0.1", coord.port, heartbeat_interval_s=0.1)
-        g1 = dist.join("127.0.0.1", coord.port, heartbeat_interval_s=0.1)
-        assert g0.failed_ranks() == []
-        g1.close()  # abrupt: no LEAVE
-        assert _wait_failed(g0) == [1]
-        assert g0.failed_ranks() == [1]   # the same transition: no recount
-        assert dist.COUNTERS["heartbeat_lost_total"] == before + 1
-        g0.leave()
+    """A dropped peer counts once in the registry's
+    ``dist.heartbeat_lost_total``, with one ``dist.failure`` span."""
+    from nezha_tpu_torch import obs
+
+    obs.enable()
+    try:
+        lost = obs.counter("dist.heartbeat_lost_total")
+        before, spans_before = lost.value, len(obs.REGISTRY.spans)
+        with dist.Coordinator(world_size=2,
+                              heartbeat_timeout_s=0.5) as coord:
+            g0 = dist.join("127.0.0.1", coord.port,
+                           heartbeat_interval_s=0.1)
+            g1 = dist.join("127.0.0.1", coord.port,
+                           heartbeat_interval_s=0.1)
+            assert g0.failed_ranks() == []
+            g1.close()  # abrupt: no LEAVE
+            assert _wait_failed(g0) == [1]
+            assert g0.failed_ranks() == [1]   # the same transition
+            assert lost.value == before + 1
+            g0.leave()
+        names = [s["name"] for s in obs.REGISTRY.spans[spans_before:]]
+        assert names.count("dist.failure") == 1, names
+        assert names.count("dist.join") == 2 and "dist.leave" in names
+    finally:
+        obs.disable()
 
 
 def test_graceful_leave_is_not_failure_and_frees_the_slot():
@@ -239,13 +254,19 @@ def test_join_timeout_is_typed_and_counted():
     with socket.socket() as s:   # grab and release: a dead port
         s.bind(("127.0.0.1", 0))
         dead_port = s.getsockname()[1]
-    before = dist.COUNTERS["join_retries_total"]
-    t0 = time.monotonic()
-    with pytest.raises(dist.JoinTimeout):
-        dist.join("127.0.0.1", dead_port, timeout_s=1.0,
-                  attempt_timeout_s=0.2, backoff_base_s=0.02)
-    assert time.monotonic() - t0 < 5.0
-    assert dist.COUNTERS["join_retries_total"] > before
+    from nezha_tpu_torch import obs
+
+    obs.enable()
+    try:
+        before = obs.counter("dist.join_retries_total").value
+        t0 = time.monotonic()
+        with pytest.raises(dist.JoinTimeout):
+            dist.join("127.0.0.1", dead_port, timeout_s=1.0,
+                      attempt_timeout_s=0.2, backoff_base_s=0.02)
+        assert time.monotonic() - t0 < 5.0
+        assert obs.counter("dist.join_retries_total").value > before
+    finally:
+        obs.disable()
     assert issubclass(dist.JoinTimeout, dist.CoordinatorError)
 
 

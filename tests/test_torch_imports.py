@@ -149,3 +149,33 @@ def test_the_wire_module_speaks_to_jax_without_importing_it():
     assert roots <= {"__future__", "base64", "http", "json", "time",
                      "typing", "numpy", "nezha_tpu_torch"}, roots
     assert not roots & set(FORBIDDEN)
+
+
+# The train side's telemetry, the run-dir report and its schema check,
+# and the fleet view: the port's own copies, stdlib only beside the
+# port's obs modules (a run dir renders wherever it is copied).
+TELEMETRY_MODULES = ("utils/logging.py", "obs/report.py",
+                     "analysis/telemetry_schema.py", "cli/telemetry.py",
+                     "cli/top.py")
+STDLIB = {"__future__", "argparse", "json", "logging", "os", "re", "sys",
+          "time", "typing", "urllib"}
+
+
+@pytest.mark.parametrize("rel", TELEMETRY_MODULES)
+def test_telemetry_modules_import_no_jax_and_no_torch(rel):
+    path = os.path.join("nezha_tpu_torch", *rel.split("/"))
+    assert path in PORT_FILES
+    with open(os.path.join(ROOT, path)) as f:
+        tree = ast.parse(f.read(), filename=path)
+    roots = {mod for _, mod in _imported_roots(tree)}
+    assert not roots & set(FORBIDDEN), roots
+    assert roots <= STDLIB | {"nezha_tpu_torch"}, roots
+    port = {node.module for node in ast.walk(tree)
+            if isinstance(node, ast.ImportFrom) and node.module
+            and node.module.startswith("nezha_tpu_torch")}
+    assert port <= {"nezha_tpu_torch.obs.metrics",
+                    "nezha_tpu_torch.obs.registry",
+                    "nezha_tpu_torch.obs.sink", "nezha_tpu_torch.obs.slo",
+                    "nezha_tpu_torch.obs.report",
+                    "nezha_tpu_torch.obs.timeseries",
+                    "nezha_tpu_torch.analysis.telemetry_schema"}, port

@@ -659,7 +659,7 @@ STILL_REFUSED = {
         lambda: Bert(BertConfig(**TINY_BERT_KW, scan_layers=True),
                      device="cpu")),
     "wrn101_large_batch": (
-        ["--run-dir", "/x"],
+        ["--engine", "graph"],
         lambda: ResNet((1, 1), width_factor=2, remat=True, device="cpu"))}
 
 
@@ -667,7 +667,7 @@ STILL_REFUSED = {
 def test_cli_refuses_unported_configs_typed(config):
     """Both configs train now, dp and ZeRO-1 included; what each still
     lacks is refused: tensor parallelism (``--parallel gspmd``, typed),
-    the telemetry run directory, the MLM mask-token flag without
+    the graph engine (``--engine``), the MLM mask-token flag without
     ``--data-dir``, and
     the model knobs that wait for later slices (``NotPortedError``)."""
     from nezha_tpu_torch.cli.train import main, parse_args

@@ -321,13 +321,15 @@ def test_cli_refuses_unported_flags_and_configs():
     from nezha_tpu_torch.cli.train import main, parse_args
 
     assert parse_args(["--config", "gpt2_124m"]).device == "cuda"
-    for argv in (["--run-dir=/x"], ["--remat"], ["--scan-layers"],
+    for argv in (["--engine=graph"], ["--remat"], ["--scan-layers"],
                  ["--no-jax-distributed"], ["--world-size", "0"],
                  ["--serve-coordinator"]):
         with pytest.raises(SystemExit):
             parse_args(["--config", "gpt2_124m"] + argv)
     assert parse_args(["--config", "gpt2_124m",
                        "--ckpt-dir=/x"]).ckpt_dir == "/x"
+    assert parse_args(["--config", "gpt2_124m",
+                       "--run-dir=/r"]).run_dir == "/r"
     # The parallel flags parse; tensor, pipeline and sequence parallelism
     # are refused typed (main exits naming them). --on-failure rejoin and
     # --rejoin-timeout are ported: they parse, and rejoin without a

@@ -32,7 +32,7 @@ from nezha_tpu_torch.utils import Tracer as UtilsTracer
 
 PORTED = ("--prefetch", "--grad-accum", "--optimizer", "--lr",
           "--log-every", "--metrics-file", "--log-memory", "--profile-dir",
-          "--profile-steps", "--trace-dir")
+          "--profile-steps", "--trace-dir", "--run-dir")
 GPT2 = ["--config", "gpt2_124m", "--model-preset", "tiny", "--batch-size",
         "2", "--seq-len", "32"]
 
@@ -43,7 +43,7 @@ def _port_train(argv):
 
 def test_ported_flags_parse_with_jax_defaults():
     assert not set(PORTED) & train_cli.NOT_PORTED_FLAGS
-    assert {"--run-dir", "--remat", "--engine", "--scan-layers",
+    assert {"--remat", "--engine", "--scan-layers",
             "--microbatches"} <= train_cli.NOT_PORTED_FLAGS
     assert "--rejoin-timeout" not in train_cli.NOT_PORTED_FLAGS
     mine = train_cli.parse_args(["--config", "gpt2_124m"])
@@ -51,7 +51,7 @@ def test_ported_flags_parse_with_jax_defaults():
                                                       "gpt2_124m"])
     for name in ("prefetch", "grad_accum", "optimizer", "lr", "log_every",
                  "metrics_file", "log_memory", "profile_dir",
-                 "profile_steps", "trace_dir"):
+                 "profile_steps", "trace_dir", "run_dir"):
         assert getattr(mine, name) == getattr(theirs, name), name
     assert train_cli.parse_args(["--config", "mlp_mnist", "--trace-dir",
                                  "/t"]).profile_dir == "/t"

@@ -78,8 +78,10 @@ def task_launch(payload, rank, world, group):
 def task_collectives(payload, rank, world, group):
     import torch
 
+    from nezha_tpu_torch import obs
     from nezha_tpu_torch.parallel import collectives as c
     x = {k: torch.from_numpy(v[rank]) for k, v in payload.items()}
+    obs.enable()
     out = {"sum": c.all_reduce_sum(x), "mean": c.all_reduce_mean(x),
            "gather0": c.all_gather(x), "gather1": c.all_gather(
                x["m"], axis=1), "stack": c.all_gather(x["m"], tiled=False),
@@ -90,7 +92,10 @@ def task_collectives(payload, rank, world, group):
     for k, v in out.items():
         res[k] = {n: _np(t) for n, t in v.items()} if isinstance(v, dict) \
             else _np(v)
-    res["bytes"] = dict(c.BYTES)
+    res["collectives"] = obs.REGISTRY.snapshot()["collectives"]
+    res["bytes"] = {op: row["payload_bytes"]
+                    for op, row in res["collectives"].items()}
+    obs.disable()
     return res
 
 
@@ -185,9 +190,16 @@ def task_train(payload, rank, world, group):
         step.load_chunks({k: a for k, (a, _) in got.items()
                           if k.startswith("opt_state/")})
         res["restored_step"] = at
+    from nezha_tpu_torch import obs
+    if payload.get("telemetry"):
+        obs.REGISTRY.reset()
+        obs.enable()
     losses = []
     for b in payload["batches"]:
         losses.append(float(step(local_rows(b, rank, world))["loss"]))
+    if payload.get("telemetry"):
+        res["collectives"] = obs.REGISTRY.snapshot()["collectives"]
+        obs.disable()
     if payload.get("save_dir"):
         sck.save_sharded(payload["save_dir"],
                          step.shard_leaves(np.asarray([0, 7], np.uint32)),
