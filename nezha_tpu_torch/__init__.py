@@ -12,7 +12,8 @@ What runs today:
   hand-written CUDA kernels; tensor-sharded over a one-process mesh
   through ``serve.ShardedEngine`` (``parallel.make_mesh``), with
   sequence-sharded prefill (ulysses, or ring on the q-offset prefill
-  kernel);
+  kernel), speculative decoding, the block wire and the int8 host tier
+  under the mesh;
 - training: GPT-2 through ``train.make_train_step`` / ``train.Trainer``
   and ``python -m nezha_tpu_torch.cli.train --config gpt2_124m`` (AdamW,
   the fused-head loss, synthetic token batches), with attention on the
@@ -38,7 +39,8 @@ What runs today:
   (``parallel.data_parallel``) and ZeRO-1 (``parallel.zero1``), the int8
   gradient wire (``parallel.quantized``) and per-shard checkpoints in the
   JAX package's layout (``train.sharded_checkpoint``), which generate and
-  serve also load;
+  serve also load; tensor parallelism in one process over a
+  ``dp x tp`` mesh (``parallel.gspmd``);
 - the train CLI's single-card flags: batches staged onto the card by
   ``runtime.Prefetcher`` (pinned memory, a side stream), gradient
   accumulation and LARS, LAMB and Adafactor (``optim``), the JSONL

@@ -91,8 +91,14 @@ gathered whole on one device); a corrupt or missing leaf is a refusal
 to start. ``--prefill-mode sequence`` (with ``--mesh M``, M > 1) also
 shards each prefill chunk's attention over the sequence, in the
 ``--seq-prefill-variant`` layout; ``--long-prefill-buckets`` adds chunk
-widths above ``--max-prefill-len``. Speculative decoding under a mesh
-is refused.
+widths above ``--max-prefill-len``. Under ``--mesh`` everything else runs
+as on one device: ``--speculative`` (a self-draft shares the target's
+shards; a ``--draft-ckpt-dir`` or ``--draft-hf-dir`` draft is split over
+the same mesh), ``--kv-host-blocks`` (the host tier holds full-head
+blocks gathered from the shards), ``--decode-impl``/``--prefill-impl
+xla`` and the kernel switches (the composed attention on each shard),
+and the block wire (``/kv_export`` gathers the shards' heads into the
+one-device wire; an install scatters them).
 
 FLEETS. ``--replicas N`` (N > 1, with ``--http``) turns this process into
 a router and supervisor over N single-replica workers, each this same
@@ -402,10 +408,6 @@ def build_scheduler(args) -> Scheduler:
         # A draft checkpoint without the knob would silently serve classic.
         raise SystemExit("--draft-ckpt-dir/--draft-hf-dir require "
                          "--speculative")
-    if args.speculative and args.mesh > 1:
-        raise SystemExit(f"--mesh {args.mesh} with --speculative: "
-                         f"speculative decoding under a mesh is not ported "
-                         f"(ROADMAP A6)")
     if args.prefill_mode == "sequence" and args.mesh < 2:
         # Refused before any model is built: a 1-shard mesh has no
         # sequence axis to shard over.
@@ -464,10 +466,12 @@ def build_scheduler(args) -> Scheduler:
     if args.mesh > 1:
         try:
             engine = ShardedEngine(model, cfg, mesh_devices=args.mesh,
-                                   devices=mesh.devices, shards=shards)
+                                   devices=mesh.devices, shards=shards,
+                                   draft_model=draft)
         except ValueError as e:
             # Topology constraints (heads % mesh, bucket divisibility,
-            # too few cards) as the CLI's typed refusal.
+            # too few cards, the dense layout) and the draft's checks as
+            # the CLI's typed refusal.
             raise SystemExit(f"--mesh {args.mesh}: {e}")
     else:
         try:

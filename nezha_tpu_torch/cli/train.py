@@ -62,7 +62,23 @@ a world of one process runs single-device with a warning, unless
 ``--mesh dp=1`` asks for the parallel path on the one device (a world-1
 process group). ``--grad-allreduce int8`` puts the gradients on the int8
 wire (``parallel/quantized.py``) and is refused outside dp and zero1;
-``gspmd``, ``pp`` and ``sp`` are refused (ROADMAP A7). Every
+``pp`` and ``sp`` are refused (ROADMAP A7). ``--parallel gspmd``
+(gpt2_124m and bert_base_zero1) trains tensor-parallel in one process
+(``parallel/gspmd.py``) on ``--mesh dp=D,tp=M`` (default ``dp=1,tp=-1``,
+``tp=-1`` the visible cards): M shards of every split layer, the batch
+split over the D groups, whose devices repeat group 0's;
+``--shard-device D`` puts every shard on D (``cuda:0`` runs M shards on
+one card, one after another), else the mesh takes one visible card a
+shard (the CPU repeated on ``--device cpu``). On one visible card without
+``--shard-device`` the mode degrades to single-device, as JAX's does on
+one device. Its saves are per-shard (``step_<N>.sharded``, JAX's shards
+and keys), its eval runs the tensor-parallel model inside
+``auto_partitioner_scope``; gspmd across processes, and ``--optimizer
+lars|lamb|adafactor`` (whose statistics span a whole tensor) under it,
+are refused. ``--attn-impl`` sets gpt2_124m's and bert_base_zero1's
+attention: auto, xla, flash, or flash_shmap (gspmd only; auto and flash
+run the same per-shard kernels there); ring and ulysses, the
+sequence-parallel ones, are refused (ROADMAP A7). Every
 ``--failure-check-every`` steps each rank polls the coordinator for dead
 peers and, on one, checkpoints and stops (``--on-failure stop``), or
 with ``--on-failure rejoin`` checkpoints, waits up to
@@ -188,13 +204,17 @@ CONFIGS = ("mlp_mnist", "resnet50_imagenet", "gpt2_124m", "bert_base_zero1",
 IMAGE_CONFIGS = ("resnet50_imagenet", "wrn101_large_batch")
 # Flags of the JAX train CLI this port does not take yet.
 NOT_PORTED_FLAGS = frozenset((
-    "--microbatches", "--sp-flash", "--attn-impl", "--moe-experts",
-    "--remat", "--graph-bf16", "--scan-layers", "--platform", "--engine"))
+    "--microbatches", "--sp-flash", "--moe-experts", "--remat",
+    "--graph-bf16", "--scan-layers", "--platform", "--engine"))
+# --attn-impl's choices; the last two are --parallel sp's (not ported).
+ATTN_IMPLS = ("auto", "xla", "flash", "flash_shmap", "ring", "ulysses")
 # Each config's parallel mode (the JAX CLI's).
 CONFIG_MODES = {"mlp_mnist": "single", "resnet50_imagenet": "dp",
                 "wrn101_large_batch": "dp", "gpt2_124m": "dp",
                 "bert_base_zero1": "zero1"}
 PARALLEL_MODES = ("config", "single", "dp", "zero1", "gspmd", "pp", "sp")
+# The configs with a tensor-parallel rule table (JAX's tp_rules).
+GSPMD_CONFIGS = ("gpt2_124m", "bert_base_zero1")
 # --optimizer's factories, with the JAX CLI's weight decays; adamw and
 # lamb take the decay mask of --wd-exclude-1d.
 OPTIMIZERS = {
@@ -241,11 +261,13 @@ class Config:
 def build_config(name: str, preset: str = "full", steps: int = 100,
                  seed: int = 0, device="cuda", seq_len: Optional[int] = None,
                  dropout: Optional[float] = None,
-                 ln_impl: Optional[str] = None) -> Config:
+                 ln_impl: Optional[str] = None,
+                 attn_impl: Optional[str] = None) -> Config:
     """THE config table: ``name`` at ``preset`` with weights seeded by
     ``seed`` on ``device``; ``steps`` is the step count of
     ``Config.optimizer``; ``seq_len``, ``dropout`` and ``ln_impl`` apply
-    to gpt2_124m."""
+    to gpt2_124m, ``attn_impl`` to gpt2_124m and bert_base_zero1."""
+    attn = {} if attn_impl is None else {"attn_impl": attn_impl}
     tiny = preset == "tiny"
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)
@@ -282,11 +304,12 @@ def build_config(name: str, preset: str = "full", steps: int = 100,
                          weight_decay=0.01, **kw)
 
         if tiny:
-            model = Bert(BertConfig(**TINY_BERT_KW), generator=gen)
+            model = Bert(BertConfig(**{**TINY_BERT_KW, **attn}),
+                         generator=gen)
             mlm = dict(seq_len=64, vocab_size=512, mask_token=1)
             n_eval = 4
         else:
-            model = bert_base(fused_loss_chunk=-1, generator=gen)
+            model = bert_base(fused_loss_chunk=-1, generator=gen, **attn)
             mlm = dict(seq_len=512)
             n_eval = 8
         return Config(model, mlm_loss,
@@ -296,7 +319,7 @@ def build_config(name: str, preset: str = "full", steps: int = 100,
                       mlm_token_stats, steps=steps)
     if name != "gpt2_124m":
         raise ValueError(f"unknown config {name!r}")
-    overrides = {} if tiny else {"fused_loss_chunk": -1}
+    overrides = dict(attn) if tiny else {"fused_loss_chunk": -1, **attn}
     if seq_len:
         overrides["max_positions"] = seq_len
     if dropout is not None:
@@ -412,11 +435,22 @@ def build_parser() -> argparse.ArgumentParser:
                    help="keep only the N newest checkpoints (default: all)")
     p.add_argument("--parallel", default="config", choices=PARALLEL_MODES,
                    help="config (the config's mode), single, dp (gradient "
-                        "all-reduce), zero1 (sharded optimizer state); "
-                        "gspmd, pp and sp are not ported")
+                        "all-reduce), zero1 (sharded optimizer state), "
+                        "gspmd (tensor-parallel, one process); pp and sp "
+                        "are not ported")
     p.add_argument("--mesh", default=None,
                    help='mesh axes, "dp=N" (N the world size, or -1); '
-                        '"dp=1" runs dp/zero1 on one device')
+                        '"dp=1" runs dp/zero1 on one device; gspmd: '
+                        '"dp=D,tp=M" (tp=-1: the visible cards)')
+    p.add_argument("--shard-device", default=None,
+                   help="gspmd: every shard on this device (cuda:0 runs M "
+                        "shards on one card); default: one visible card a "
+                        "shard on cuda, the CPU repeated on cpu")
+    p.add_argument("--attn-impl", default=None, choices=ATTN_IMPLS,
+                   help="gpt2_124m, bert_base_zero1: the attention (auto: "
+                        "the flash kernels, per shard under gspmd; xla: "
+                        "composed; flash_shmap: per shard, gspmd only); "
+                        "ring and ulysses (--parallel sp) are not ported")
     p.add_argument("--grad-allreduce", default="fp32",
                    choices=["fp32", "int8"],
                    help="dp/zero1 gradient wire: exact fp32 or "
@@ -462,7 +496,7 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
         flag = tok.split("=", 1)[0]
         if flag in NOT_PORTED_FLAGS:
             parser.error(f"{flag} is not ported to the PyTorch trainer "
-                         f"yet (see ROADMAP.md)")
+                         f"yet (ROADMAP A7)")
     if rest:
         parser.error(f"unrecognized arguments: {' '.join(rest)}")
     if args.no_jax_distributed:
@@ -483,6 +517,15 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
                         ("--ln-impl", args.ln_impl)):
         if value is not None and not gpt2:
             parser.error(f"{flag} applies to gpt2_124m")
+    if args.attn_impl is not None and args.config not in GSPMD_CONFIGS:
+        parser.error("--attn-impl applies to gpt2_124m and bert_base_zero1")
+    if args.attn_impl == "flash_shmap" and args.parallel != "gspmd":
+        parser.error("--attn-impl flash_shmap runs the flash kernels per "
+                     "shard of a tensor-parallel mesh: it needs --parallel "
+                     "gspmd")
+    if args.shard_device is not None and args.parallel != "gspmd":
+        parser.error("--shard-device places the shards of --parallel "
+                     "gspmd")
     if args.trace_dir:
         if args.profile_dir and args.profile_dir != args.trace_dir:
             parser.error("--trace-dir is an alias for --profile-dir; pass "
@@ -778,12 +821,14 @@ def _split_rows(it: Iterator[dict], rank: int, world: int
 
 
 def run_eval(args, cfg: Config, batch_size: int, rank: int = 0,
-             world: int = 1) -> Optional[Dict[str, float]]:
+             world: int = 1, tp=None) -> Optional[Dict[str, float]]:
     """One pass over the eval split with the current weights, or None
     when there is none. With ``world`` > 1 (dp and ZeRO-1, whose ranks
     hold the same weights), each rank evaluates its rows of every global
     batch and the sums are added over the default group, so the work and
-    the memory a rank takes are 1/world of the split's."""
+    the memory a rank takes are 1/world of the split's. ``tp`` (a gspmd
+    step) evaluates its tensor-parallel model inside
+    ``auto_partitioner_scope`` of its mesh."""
     batches, close, stat = eval_source(args, cfg, batch_size)
     if batches is None:
         return None
@@ -792,9 +837,14 @@ def run_eval(args, cfg: Config, batch_size: int, rank: int = 0,
         import torch.distributed as dist
 
         batches, group = _split_rows(batches, rank, world), dist.group.WORLD
+    model, scope = cfg.model, contextlib.nullcontext()
+    if tp is not None:
+        from nezha_tpu_torch.parallel.gspmd import auto_partitioner_scope
+        model, scope = tp.tp_model, auto_partitioner_scope(tp.mesh)
     try:
-        return evaluate(cfg.model, batches, stat,
-                        max_batches=args.eval_batches, group=group)
+        with scope:
+            return evaluate(model, batches, stat,
+                            max_batches=args.eval_batches, group=group)
     finally:
         if close is not None:
             close()
@@ -842,6 +892,8 @@ def resolve_mode(args, cfg: Config, world: int) -> str:
     if mode == "single" and args.mesh:
         raise SystemExit("--mesh has no effect in single-device mode; drop "
                          "it or pick a --parallel mode that consumes it")
+    if mode == "gspmd":
+        return resolve_gspmd(args)
     req = parse_mesh(args.mesh)
     req_size = 1
     for v in (req or {"": -1}).values():
@@ -883,6 +935,68 @@ def resolve_mode(args, cfg: Config, world: int) -> str:
                              f"world of {world} process(es), one device "
                              f"each")
     return mode
+
+
+def gspmd_axes(args) -> Dict[str, int]:
+    return parse_mesh(args.mesh) or {"dp": 1, "tp": -1}
+
+
+def resolve_gspmd(args) -> str:
+    """``--parallel gspmd``'s checks (the JAX CLI's, and the port's own
+    refusals), and its degrade to single-device on one visible card
+    without ``--shard-device`` (JAX's on one device)."""
+    if args.config not in GSPMD_CONFIGS:
+        raise SystemExit(f"config {args.config!r} has no tensor-parallel "
+                         f"rule table; --parallel gspmd supports: "
+                         f"{', '.join(GSPMD_CONFIGS)}")
+    if args.optimizer in ("lars", "lamb", "adafactor"):
+        raise SystemExit(f"--optimizer {args.optimizer} computes statistics "
+                         f"over whole tensors, which the tensor-parallel "
+                         f"step's per-shard update cannot see; use adamw, "
+                         f"momentum or sgd with --parallel gspmd")
+    axes = gspmd_axes(args)
+    unusable = [a for a in axes if a not in ("dp", "tp")]
+    if unusable:
+        raise SystemExit(f"parallel mode 'gspmd' cannot use mesh axis(es) "
+                         f"{unusable} (it consumes ['dp', 'tp']); pass "
+                         f"--parallel to select the mode that uses them")
+    missing = [a for a in ("dp", "tp") if a not in axes]
+    if missing:
+        raise SystemExit(f"parallel mode 'gspmd' needs mesh axis(es) "
+                         f"{missing} (use size 1 to disable an axis); got "
+                         f"{list(axes)}")
+    size = 1
+    for v in axes.values():
+        size *= v
+    one_card = (torch.device(args.device).type == "cuda"
+                and args.shard_device is None
+                and torch.cuda.device_count() == 1)
+    if one_card and size != 1:
+        print(f"WARNING: config {args.config!r} requests parallel mode "
+              f"'gspmd' but only 1 device is visible; running "
+              f"single-device (check your mesh/launch if this is a "
+              f"multi-chip job; --shard-device repeats one card)",
+              file=sys.stderr, flush=True)
+        return "single"
+    return "gspmd"
+
+
+def build_gspmd_step(args, cfg: Config, optimizer: Optimizer, loss_fn):
+    """The tensor-parallel step over ``--mesh`` (and ``--shard-device``)."""
+    from nezha_tpu_torch.parallel.gspmd import (GSPMDTrainStep,
+                                                make_gspmd_mesh)
+    axes = gspmd_axes(args)
+    devices = None
+    if args.shard_device is not None:
+        devices = [args.shard_device] * max(axes["dp"] * axes["tp"], 1)
+    try:
+        mesh = make_gspmd_mesh(axes, devices,
+                               torch.device(args.device).type)
+        return GSPMDTrainStep(cfg.model, optimizer, loss_fn, mesh)
+    except NotPortedError:
+        raise
+    except ValueError as e:
+        raise SystemExit(f"--mesh {args.mesh or 'dp=1,tp=-1'}: {e}")
 
 
 def build_optimizer(args, cfg: Config, mode: str) -> Optimizer:
@@ -993,11 +1107,20 @@ def _run_world(args: argparse.Namespace) -> Dict[str, float]:
             and not torch.cuda.is_available()):
         raise SystemExit("no CUDA device: pass --device cpu to train on "
                          "the CPU")
-    if args.parallel in ("gspmd", "pp", "sp"):
+    if args.parallel in ("pp", "sp"):
         raise NotPortedError(f"--parallel {args.parallel} is not ported "
-                             f"(ROADMAP A7: tensor, pipeline and sequence "
-                             f"parallelism); the port runs single, dp and "
-                             f"zero1")
+                             f"(ROADMAP A7: pipeline and sequence "
+                             f"parallelism); the port runs single, dp, "
+                             f"zero1 and gspmd")
+    if args.parallel == "gspmd" and args.coordinator:
+        # Before the rendezvous, which would wait for peers.
+        raise NotPortedError("--parallel gspmd across processes is not "
+                             "ported (ROADMAP A7): the port's gspmd is one "
+                             "process over its mesh")
+    if args.attn_impl in ("ring", "ulysses"):
+        raise NotPortedError(f"--attn-impl {args.attn_impl} is the "
+                             f"sequence-parallel attention of --parallel "
+                             f"sp, which is not ported (ROADMAP A7)")
     if args.on_failure == "rejoin":
         check_rejoin_args(args)   # before the rendezvous can strand peers
     group, coord = join_world(args)
@@ -1036,7 +1159,7 @@ def _run(args: argparse.Namespace, group,
     cfg = build_config(args.config, args.model_preset, steps=args.steps,
                        seed=args.seed, device=device,
                        seq_len=args.seq_len, dropout=args.dropout,
-                       ln_impl=args.ln_impl)
+                       ln_impl=args.ln_impl, attn_impl=args.attn_impl)
     mode = resolve_mode(args, cfg, world)
     if args.on_failure == "rejoin" and mode not in ("single", "dp"):
         # The reload goes through Trainer.initialize, which pairs with
@@ -1078,7 +1201,12 @@ def _run(args: argparse.Namespace, group,
         if metrics_log is not None:
             metrics_log.log(step, metrics)
 
-    step_fn = None
+    step_fn = tp = None
+    if mode == "gspmd":
+        step_fn = tp = build_gspmd_step(args, cfg, optimizer, loss_fn)
+        log(0, {"parallel": {"mode": mode, "mesh": tp.mesh.shape,
+                             "devices": [str(d) for d in tp.mesh.devices],
+                             "opt_state_bytes": step_fn.opt_state_bytes()}})
     if parallel:
         from nezha_tpu_torch.parallel.data_parallel import (DPTrainStep,
                                                             replicate)
@@ -1149,7 +1277,7 @@ def _run(args: argparse.Namespace, group,
                 done += n
                 if done < args.steps:
                     results = run_eval(args, cfg, batch_size, data_rank,
-                                       data_world)
+                                       data_world, tp)
                     if results is not None:
                         log(trainer.global_step, {
                             "step": trainer.global_step,
@@ -1168,7 +1296,8 @@ def _run(args: argparse.Namespace, group,
     for record in trainer.rejoins:
         log(record["step"], {"rejoin": record})
     if args.eval or args.eval_every:
-        results = run_eval(args, cfg, batch_size, data_rank, data_world)
+        results = run_eval(args, cfg, batch_size, data_rank, data_world,
+                           tp)
         if results is not None:
             if lead:
                 print(json.dumps({"eval": results}), file=sys.stderr,

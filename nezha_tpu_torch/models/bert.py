@@ -23,7 +23,10 @@ Attention (``attn_impl``): "flash" runs the flash kernels non-causal
 CPU tensors), with ``kv_lengths`` when given; "xla" is attention
 composed of tensor ops, over a prefix mask built from ``kv_lengths``
 when no padding mask is given; "auto" is "flash" unless the batch holds
-a padding mask, then "xla". LayerNorms take ``ln_impl``: "xla" (tensor
+a padding mask, then "xla"; "flash_shmap" runs the flash kernels on each
+head group of the enclosing tensor-parallel scope's mesh
+(``parallel.gspmd``; outside one it raises ``ValueError``). "flash" and
+"flash_shmap" refuse a padding mask, as in JAX. LayerNorms take ``ln_impl``: "xla" (tensor
 ops) or "pallas" (the fused LayerNorm kernels).
 """
 
@@ -64,7 +67,8 @@ class BertConfig:
     # from compute-dtype logits with the fp32 upcast inside the
     # logsumexp.
     fused_loss_chunk: int = 0
-    # "auto" | "flash" | "xla" (see the module docstring).
+    # "auto" | "flash" | "xla" | "flash_shmap" (see the module
+    # docstring).
     attn_impl: str = "auto"
     # "xla": LayerNorm in tensor ops; "pallas": the fused kernels.
     ln_impl: str = "xla"
@@ -74,10 +78,7 @@ class BertConfig:
 
 def check_config(cfg: BertConfig) -> None:
     """Refuse, typed, what the JAX model has and this port does not."""
-    if cfg.attn_impl == "flash_shmap":
-        raise NotPortedError("attn_impl='flash_shmap' is not ported "
-                             "(tensor-parallel attention)")
-    if cfg.attn_impl not in ("auto", "flash", "xla"):
+    if cfg.attn_impl not in ("auto", "flash", "xla", "flash_shmap"):
         raise ValueError(f"unknown attn_impl {cfg.attn_impl!r}")
     if cfg.ln_impl not in ("xla", "pallas"):
         raise ValueError(f"unknown ln_impl {cfg.ln_impl!r}")
@@ -126,13 +127,18 @@ class EncoderLayer(nn.Module):
         impl = cfg.attn_impl
         if impl == "auto":
             impl = "flash" if mask is None else "xla"
-        if impl == "flash":
+        if impl in ("flash", "flash_shmap"):
             if mask is not None:
-                raise ValueError("attn_impl='flash' cannot apply an "
-                                 "arbitrary padding mask; use right-padded "
-                                 "batches with kv_lengths, or 'xla'")
-            att = flash_attention(q, k, v, causal=False,
-                                  kv_lengths=kv_lengths)
+                raise ValueError(f"attn_impl={impl!r} cannot apply an "
+                                 f"arbitrary padding mask; use right-padded "
+                                 f"batches with kv_lengths, or 'xla'")
+            if impl == "flash":
+                att = flash_attention(q, k, v, causal=False,
+                                      kv_lengths=kv_lengths)
+            else:
+                from nezha_tpu_torch.parallel.gspmd import scoped_tp_flash
+                att = scoped_tp_flash(q, k, v, cfg.num_heads, causal=False,
+                                      kv_lengths=kv_lengths)
         else:
             if kv_lengths is not None and mask is None:
                 # The flash path's right-padding contract, composed: a

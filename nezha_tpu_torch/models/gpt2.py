@@ -12,9 +12,13 @@ Three attention paths:
   attention through the flash kernels (``attn_impl`` "flash", which
   "auto" resolves to on every device: the wrapper launches the CUDA
   kernels on CUDA tensors and runs their plain versions on CPU tensors)
-  or composed of tensor ops (``attn_impl="xla"``). Dropout follows the
-  embeddings, each attention projection and each MLP projection, in
-  training mode only;
+  or composed of tensor ops (``attn_impl="xla"``). ``"flash_shmap"`` runs
+  the flash kernels on each head group of the enclosing tensor-parallel
+  scope's mesh (``parallel.gspmd.auto_partitioner_scope``), as JAX's
+  nested ``shard_map``; outside such a scope it raises ``ValueError``
+  (the tensor-parallel model, ``parallel/gspmd.py``, splits the heads
+  itself). Dropout follows the embeddings, each attention projection and
+  each MLP projection, in training mode only;
 - a paged cache (the serve engine's block pool): ``cache`` is one
   ``{"k", "v", "tables"}`` dict per layer, pools shaped ``[N, H, bs, D]``
   and ``tables [B, M]`` int32. The forward writes this call's K/V into
@@ -52,13 +56,16 @@ Three attention paths:
 LayerNorms take ``ln_impl``: "xla" (tensor ops) or "pallas" (the fused
 LayerNorm kernels, ``ops/cuda/layer_norm.py``).
 
-Two environment switches, read each time a path is resolved, turn the
+Environment switches, read each time a path is resolved, turn the
 serving kernels off without a config change, as in the JAX package:
 ``NEZHA_NO_DECODE_KERNEL`` sends every single-token decode step (dense
 and paged, float and int8) down the composed path that
 ``decode_impl="xla"`` takes, and ``NEZHA_NO_PREFILL_KERNEL`` every paged
 prefill chunk down ``prefill_impl="xla"``'s. Each beats a config's
-"kernel".
+"kernel". ``NEZHA_NO_NESTED_KERNELS`` does both for the per-shard
+attention of a mesh (:func:`paged_attention` with ``nested=True``, the
+sharded serve engine's), where JAX's kernels run nested in a
+``shard_map``.
 """
 
 from __future__ import annotations
@@ -95,9 +102,12 @@ class GPT2Config:
     hidden_size: int = 768
     mlp_ratio: int = 4
     dropout: float = 0.0
-    # "auto" | "flash" | "xla": "auto" is "flash" on every device (the
-    # kernel wrapper picks the CUDA kernel or its plain version by the
-    # tensors' device); "xla" is attention composed of tensor ops.
+    # "auto" | "flash" | "xla" | "flash_shmap": "auto" is "flash" on every
+    # device (the kernel wrapper picks the CUDA kernel or its plain
+    # version by the tensors' device), and under a tensor-parallel mesh
+    # the flash kernels on each shard's heads; "xla" is attention composed
+    # of tensor ops; "flash_shmap" the flash kernels per head group of
+    # the enclosing tensor-parallel scope.
     attn_impl: str = "auto"
     # Single-token decode (dense or paged): "auto" takes the flash-decode
     # kernel unless attn_impl is "xla"; "kernel" always; "xla" never
@@ -120,15 +130,17 @@ class GPT2Config:
     scan_layers: bool = False
 
 
-_NOT_PORTED_ATTN = ("ring", "ulysses", "flash_shmap")
+_NOT_PORTED_ATTN = ("ring", "ulysses")
+ATTN_IMPLS = ("auto", "flash", "xla", "flash_shmap")
 
 
 def check_config(cfg: GPT2Config) -> None:
     """Refuse, typed, what the JAX model has and this port does not."""
     if cfg.attn_impl in _NOT_PORTED_ATTN:
         raise NotPortedError(f"attn_impl={cfg.attn_impl!r} is not ported "
-                             f"(sequence/tensor-parallel attention)")
-    if cfg.attn_impl not in ("auto", "flash", "xla"):
+                             f"(sequence-parallel training attention, "
+                             f"ROADMAP A7)")
+    if cfg.attn_impl not in ATTN_IMPLS:
         raise ValueError(f"unknown attn_impl {cfg.attn_impl!r}")
     if cfg.decode_impl not in ("auto", "kernel", "xla"):
         raise ValueError(f"unknown decode_impl {cfg.decode_impl!r}")
@@ -152,27 +164,33 @@ def check_config(cfg: GPT2Config) -> None:
 # The environment switches that turn serving kernels off (JAX's names).
 NO_DECODE_KERNEL = "NEZHA_NO_DECODE_KERNEL"
 NO_PREFILL_KERNEL = "NEZHA_NO_PREFILL_KERNEL"
+NO_NESTED_KERNELS = "NEZHA_NO_NESTED_KERNELS"
 
 
-def decode_kernel_ok(cfg: GPT2Config) -> bool:
+def decode_kernel_ok(cfg: GPT2Config, nested: bool = False) -> bool:
     """Whether a single-token decode step, dense or paged, takes its
     flash-decode kernel (JAX ``_decode_flash_ok``): ``NEZHA_NO_DECODE_
-    KERNEL`` refuses it first, then "kernel" forces it, "xla" refuses
-    it, "auto" follows ``attn_impl``, which here resolves to the kernels
-    on every device unless it is "xla"."""
-    if os.environ.get(NO_DECODE_KERNEL):
+    KERNEL`` refuses it first (and, for a mesh's per-shard attention,
+    ``nested``, ``NEZHA_NO_NESTED_KERNELS``: JAX's
+    ``_decode_flash_shmap_mesh``), then "kernel" forces it, "xla"
+    refuses it, "auto" follows ``attn_impl``, which here resolves to the
+    kernels on every device unless it is "xla"."""
+    if os.environ.get(NO_DECODE_KERNEL) or (
+            nested and os.environ.get(NO_NESTED_KERNELS)):
         return False
     if cfg.decode_impl == "auto":
         return cfg.attn_impl != "xla"
     return cfg.decode_impl == "kernel"
 
 
-def prefill_kernel_ok(cfg: GPT2Config) -> bool:
+def prefill_kernel_ok(cfg: GPT2Config, nested: bool = False) -> bool:
     """Whether a paged prefill chunk takes the flash-prefill kernels (JAX
     ``_prefill_flash_ok``): ``NEZHA_NO_PREFILL_KERNEL`` refuses them
-    first, then "kernel" forces them, "xla" refuses them, "auto" follows
-    ``attn_impl``, as :func:`decode_kernel_ok` does."""
-    if os.environ.get(NO_PREFILL_KERNEL):
+    first (``nested``: also ``NEZHA_NO_NESTED_KERNELS``), then "kernel"
+    forces them, "xla" refuses them, "auto" follows ``attn_impl``, as
+    :func:`decode_kernel_ok` does."""
+    if os.environ.get(NO_PREFILL_KERNEL) or (
+            nested and os.environ.get(NO_NESTED_KERNELS)):
         return False
     if cfg.prefill_impl == "auto":
         return cfg.attn_impl != "xla"
@@ -305,21 +323,18 @@ class Attention(nn.Module):
         qkv = qkv.permute(2, 0, 3, 1, 4)
         q, k, v = qkv[0], qkv[1], qkv[2]                   # [B, H, S, D]
         if cache is None:
-            if self.impl == "flash":
+            if self.impl == "flash_shmap":
+                from nezha_tpu_torch.parallel.gspmd import scoped_tp_flash
+                out = scoped_tp_flash(q, k, v, cfg.num_heads, causal=True)
+            elif self.impl == "flash":
                 out = flash_attention(q, k, v, causal=True)
             else:
                 out = dot_product_attention(
                     q, k, v, mask=causal_mask(s, s, device=x.device))
         elif "tables" not in cache:
             out = self._dense(q, k, v, cache, pos, active, prefill)
-        elif isinstance(pos, torch.Tensor) and pos.dim() == 1 and s > 1:
-            out = self._verify_paged(q, k, v, cache, pos, active)
-        elif isinstance(pos, torch.Tensor) and pos.dim() == 1:
-            out = self._decode_paged(q, k, v, cache, pos, active,
-                                     use_kernel=decode_kernel_ok(cfg))
         else:
-            out = self._prefill_paged(q, k, v, cache, int(pos),
-                                      use_kernel=prefill_kernel_ok(cfg))
+            out = paged_attention(q, k, v, cache, pos, active, cfg)
         out = self.proj(out.transpose(1, 2).reshape(b, s, h))
         return self.drop(out) if cache is None else out
 
@@ -488,6 +503,26 @@ class Attention(nn.Module):
         float_prefill_write(kp, vp, tab, pos, k, v)
         return paged_prefill_attention(q.contiguous(), k.contiguous(),
                                        v.contiguous(), kp, vp, tab, starts)
+
+
+def paged_attention(q, k, v, cache: dict, pos, active, cfg: GPT2Config,
+                    nested: bool = False) -> torch.Tensor:
+    """The paged-cache branches of :class:`Attention` on one pool (a
+    single-device pool, or one shard's heads and pool shard under a
+    mesh, ``nested=True``): a ``[B]`` ``pos`` with ``s > 1`` query rows
+    is a speculative verify window (composed), with one a decode step
+    (the flash-decode kernel unless :func:`decode_kernel_ok` refuses
+    it); an ``int`` ``pos`` is a prefill chunk (the flash-prefill
+    kernels unless :func:`prefill_kernel_ok` refuses them)."""
+    if isinstance(pos, torch.Tensor) and pos.dim() == 1:
+        if q.shape[2] > 1:
+            return Attention._verify_paged(q, k, v, cache, pos, active)
+        return Attention._decode_paged(
+            q, k, v, cache, pos, active,
+            use_kernel=decode_kernel_ok(cfg, nested))
+    return Attention._prefill_paged(q, k, v, cache, int(pos),
+                                    use_kernel=prefill_kernel_ok(cfg,
+                                                                 nested))
 
 
 class MLPBlock(nn.Module):

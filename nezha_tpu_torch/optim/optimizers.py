@@ -65,8 +65,11 @@ def global_norm(tree: Tree, group=None) -> torch.Tensor:
     squares, added in the tree's order. ``group`` (JAX's ``axis_name``):
     a ``torch.distributed`` group whose ranks each hold a shard of every
     tensor (ZeRO-1's chunks); the squared sums are all-reduced over it
-    first. None: the tree is whole."""
-    sq = sum(torch.sum(torch.square(x.float())) for x in tree.values())
+    first. None: the tree is whole. Tensors on several devices (a
+    tensor-parallel step's shards) are summed on the first one's."""
+    dev = next(iter(tree.values())).device
+    sq = sum(torch.sum(torch.square(x.float())).to(dev)
+             for x in tree.values())
     if group is not None:
         import torch.distributed as dist
         dist.all_reduce(sq, group=group)

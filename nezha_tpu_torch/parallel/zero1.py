@@ -262,6 +262,15 @@ class Zero1TrainStep(TrainStep):
                 req[key] = ((padded,), ((a, b),))
         return req
 
+    def load_restored(self, arrays: Dict[str, np.ndarray]) -> None:
+        """Install a restore of :meth:`restore_request`: the variables
+        whole into the model, the optimizer state's chunks."""
+        from nezha_tpu_torch.models.convert import load_train_state
+        load_train_state({k: a for k, a in arrays.items()
+                          if k.startswith("variables/")}, self.model)
+        self.load_chunks({k: a for k, a in arrays.items()
+                          if k.startswith("opt_state/")})
+
     @torch.no_grad()
     def load_chunks(self, arrays: Dict[str, np.ndarray]) -> None:
         """Install restored optimizer state: ``arrays`` maps each key of

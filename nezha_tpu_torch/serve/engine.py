@@ -569,8 +569,11 @@ class Engine:
         at prefill. Paged layout only."""
         return self.pool.blocks_for_span(self.prefill_span(n))
 
-    def _rows(self, tables: torch.Tensor) -> List[dict]:
-        return [{**layer, "tables": tables} for layer in self.pool.caches]
+    def _rows(self, pool, tables: torch.Tensor) -> List[dict]:
+        """The model's cache argument over a paged ``pool``: its layers
+        with the uploaded block tables (a subclass's hook: the sharded
+        engine hands each shard its own)."""
+        return [{**layer, "tables": tables} for layer in pool.caches]
 
     def _cache_rows(self, pool, slot: Optional[int] = None) -> List[dict]:
         """The model's cache argument over ``pool``: every row (``slot``
@@ -580,9 +583,7 @@ class Engine:
             tables = torch.as_tensor(
                 pool.tables_host if slot is None
                 else pool.tables_host[slot:slot + 1], device=self.device)
-            if pool is self.pool:
-                return self._rows(tables)
-            return [{**layer, "tables": tables} for layer in pool.caches]
+            return self._rows(pool, tables)
         if slot is None:
             return pool.caches
         return [{"k": read_slot(layer["k"], slot),

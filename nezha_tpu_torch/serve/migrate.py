@@ -53,7 +53,6 @@ from typing import Dict, List, Sequence, Tuple
 import numpy as np
 
 from nezha_tpu_torch import faults, obs
-from nezha_tpu_torch.errors import NotPortedError
 from nezha_tpu_torch.serve.slots import KVBlocksExhausted
 
 WIRE_VERSION = 1
@@ -147,8 +146,8 @@ def _handle_prefix_export(scheduler, obj) -> Tuple[int, dict]:
     cached full-block prefix of the given tokens — a read-only cache
     probe with no park, no request and no ACK. Zero coverage is a 200
     with an empty wire (a stale hint costs the puller one wasted probe,
-    never an error). A pool that cannot export (head-sharded) answers
-    501 ``not_ported``."""
+    never an error). A head-sharded pool exports the one-device wire
+    (gather-on-export)."""
     tokens = obj.get("tokens")
     if not isinstance(tokens, list) or \
             not all(isinstance(t, int) for t in tokens):
@@ -158,8 +157,6 @@ def _handle_prefix_export(scheduler, obj) -> Tuple[int, dict]:
         wire = scheduler.export_prefix(tokens)
     except MigrationError as e:
         return 409, {"error": str(e), "error_type": e.kind}
-    except NotPortedError as e:
-        return 501, {"error": str(e), "error_type": "not_ported"}
     return 200, wire
 
 
@@ -186,8 +183,6 @@ def handle_kv_export(scheduler, obj) -> Tuple[int, dict]:
         return 500, {"error": str(e), "error_type": "injected_fault"}
     except MigrationError as e:
         return 409, {"error": str(e), "error_type": "migration_failed"}
-    except NotPortedError as e:
-        return 501, {"error": str(e), "error_type": "not_ported"}
     return 200, wire
 
 

@@ -9,9 +9,11 @@ its model and pool split over a one-axis mesh (``tp``):
 - the paged K/V pools and int8 scales are split by heads
   (:class:`~.pool.ShardedPagedSlotPool`), while block tables, the free
   list, ref counts and the prefix trie stay one host-side set;
-- prefill and decode run the engine's own host logic unchanged through
-  the sharded forward (:class:`~.model.ShardedGPT2`), which runs the
-  paged kernels per shard on its heads.
+- prefill, decode and speculative verify run the engine's own host
+  logic unchanged through the sharded forward (:class:`~.model.
+  ShardedGPT2`), which runs the port's paged branches per shard on its
+  heads: the kernels, or the composed paths that ``decode_impl="xla"``,
+  ``prefill_impl="xla"`` and the switches select.
 
 Like the JAX engine it is one controller: one process drives every
 shard, so one scheduler and one set of host books serve them all. With
@@ -26,21 +28,29 @@ that mesh (:func:`~.reshard.reshard_checkpoint`), so a checkpoint's
 weights are never gathered whole on one device: ``model`` then gives
 the structure, and its replicated parameters are set from shard 0.
 
+Speculative decoding runs as on one device, its draft on the mesh too:
+a self-draft (``SpeculativeConfig.draft_layers``) shares the target's
+placed shards, an explicit ``draft_model`` (a draft checkpoint) is
+placed with :func:`~.reshard.serve_tp_rules` of its own config, and the
+draft pool is built through :meth:`_make_paged_pool`, head-sharded and
+mirrored. The host KV tier and the block wire compose through the
+sharded pool's gather-on-export and scatter-on-install
+(:mod:`.pool`): the same full-head wire and host entries as one device.
+
 It sets JAX's gauges ``serve.mesh.devices`` and ``serve.prefill.seq_shards``,
 counts ``serve.prefill.ring_hops_total`` and the estimate
 ``serve.mesh.collective_bytes``, and arms ``serve.prefill.seq`` at the
 head of a sequence-mode prefill (inside the ``serve.prefill.seq_s``
-span's caller).
+span's caller). ``NEZHA_NO_NESTED_KERNELS`` sends the per-shard decode
+and prefill to the composed paths and pins
+``serve.prefill.kernel_active`` at 0, as in JAX.
 
 ``NEZHA_NO_SEQ_PREFILL`` turns ``prefill_mode="sequence"`` back into
 the replicated prefill, as in JAX (a warning names it).
 
-Not ported (each refused with :class:`NotPortedError`, ROADMAP A6):
-speculative decoding, ``decode_impl="xla"``, ``prefill_impl="xla"``, the
-host KV tier (``kv_host_blocks``) and the block wire (export, install;
-migration's gather-on-export) under the mesh, and the switches that
-would need the composed attention under it: ``NEZHA_NO_NESTED_KERNELS``,
-``NEZHA_NO_DECODE_KERNEL`` and ``NEZHA_NO_PREFILL_KERNEL``.
+Refused, as in JAX: the dense layout (no head-sharded pool), and a mesh
+that does not divide the heads (the target's or the draft's) or the
+sequence-mode buckets.
 """
 
 
@@ -53,7 +63,7 @@ from typing import Optional, Sequence
 import numpy as np
 
 from nezha_tpu_torch import faults, obs
-from nezha_tpu_torch.errors import NotPortedError
+from nezha_tpu_torch.models.gpt2 import NO_NESTED_KERNELS
 from nezha_tpu_torch.parallel.mesh import make_mesh
 from nezha_tpu_torch.serve.engine import Engine, ServeConfig
 from nezha_tpu_torch.serve.sharded.model import ShardedGPT2
@@ -61,9 +71,6 @@ from nezha_tpu_torch.serve.sharded.pool import ShardedPagedSlotPool
 from nezha_tpu_torch.serve.sharded.reshard import rule_for, serve_tp_rules
 from nezha_tpu_torch.utils.logging import get_logger
 
-# Switches that would send a mesh to the composed attention (A6).
-MESH_KERNEL_SWITCHES = ("NEZHA_NO_NESTED_KERNELS", "NEZHA_NO_DECODE_KERNEL",
-                        "NEZHA_NO_PREFILL_KERNEL")
 NO_SEQ_PREFILL = "NEZHA_NO_SEQ_PREFILL"
 
 
@@ -76,35 +83,13 @@ class ShardedEngine(Engine):
 
     def __init__(self, model, cfg: ServeConfig = ServeConfig(), *,
                  mesh_devices: int, devices: Optional[Sequence] = None,
-                 shards: Optional[Sequence[dict]] = None):
+                 shards: Optional[Sequence[dict]] = None, draft_model=None):
         m = int(mesh_devices)
         if m < 1:
             raise ValueError(f"mesh_devices must be >= 1, got {m}")
         if cfg.kv_layout != "paged":
             raise ValueError("the sharded engine requires kv_layout='paged': "
                              "the dense layout has no head-sharded pool")
-        if cfg.speculative is not None:
-            raise NotPortedError("speculative decoding under a mesh is not "
-                                 "ported (ROADMAP A6)")
-        if cfg.kv_host_blocks:
-            raise NotPortedError(
-                f"kv_host_blocks={cfg.kv_host_blocks} under a mesh: the "
-                f"host KV tier of a head-sharded pool is not ported "
-                f"(ROADMAP A6)")
-        if cfg.decode_impl == "xla":
-            raise NotPortedError("decode_impl='xla' under a mesh is not "
-                                 "ported: the sharded engine decodes through "
-                                 "the paged kernels (ROADMAP A6)")
-        if cfg.prefill_impl == "xla":
-            raise NotPortedError("prefill_impl='xla' under a mesh is not "
-                                 "ported: the sharded engine prefills through "
-                                 "the paged kernels (ROADMAP A6)")
-        for var in MESH_KERNEL_SWITCHES:
-            if os.environ.get(var):
-                raise NotPortedError(
-                    f"{var} under a mesh is not ported: the composed "
-                    f"attention under a mesh is ROADMAP A6 (unset it, or "
-                    f"serve without --mesh)")
         if cfg.prefill_mode == "sequence" and os.environ.get(NO_SEQ_PREFILL):
             get_logger("nezha_tpu_torch.serve").warning(
                 "%s is set: prefill_mode='sequence' falls back to the "
@@ -132,18 +117,32 @@ class ShardedEngine(Engine):
                                  else cfg.seq_prefill_variant)
         self.mesh = make_mesh({"tp": m}, devices,
                               next(model.parameters()).device.type)
-        if model.cfg.num_heads % m:
-            raise ValueError(
-                f"num_heads={model.cfg.num_heads} not divisible by "
-                f"mesh_devices={m}: K/V pools shard on the head axis")
+        for what, mod in (("", model), ("draft ", draft_model)):
+            if mod is not None and mod.cfg.num_heads % m:
+                raise ValueError(
+                    f"{what}num_heads={mod.cfg.num_heads} not divisible by "
+                    f"mesh_devices={m}: K/V pools shard on the head axis")
         self.mesh_devices = m
         self._rules = serve_tp_rules(model.cfg, m)
         if shards is not None and len(shards) != m:
             raise ValueError(f"{len(shards)} placed shards for a mesh of "
                              f"{m}")
-        super().__init__(ShardedGPT2(model, self.mesh, self._rules,
-                                     seq_variant=self._seq_variant,
-                                     shards=shards), cfg)
+        # The serving overrides go onto the model before it is split (the
+        # base engine's are then a no-op on the sharded forward).
+        self.cfg = cfg
+        target = ShardedGPT2(self._impl_overrides(model), self.mesh,
+                             self._rules, seq_variant=self._seq_variant,
+                             shards=shards)
+        if draft_model is not None:
+            draft_model = ShardedGPT2(self._impl_overrides(draft_model),
+                                      self.mesh,
+                                      serve_tp_rules(draft_model.cfg, m))
+        super().__init__(target, cfg, draft_model=draft_model)
+        if self.prefill_kernel_active and os.environ.get(NO_NESTED_KERNELS):
+            # The per-shard prefill kernels are JAX's nested kernels: the
+            # switch turns them off here too.
+            self.prefill_kernel_active = False
+            obs.gauge("serve.prefill.kernel_active").set(0.0)
         obs.gauge("serve.mesh.devices").set(m)
         obs.gauge("serve.prefill.seq_shards").set(
             float(m) if self._seq_active else 0.0)
@@ -183,11 +182,6 @@ class ShardedEngine(Engine):
         return out
 
     # ------------------------------------------------------------- hooks
-    def _impl_overrides(self, model):
-        """The sharded forward always attends through the paged kernels
-        ("auto" and "kernel" alike; "xla" is refused above)."""
-        return model
-
     def _make_paged_pool(self, model_cfg, *, num_blocks, prefix_cache,
                          eviction, host_blocks=0) -> ShardedPagedSlotPool:
         cfg = self.cfg
@@ -195,25 +189,28 @@ class ShardedEngine(Engine):
             model_cfg, cfg.max_batch_size, cfg.max_len, cfg.cache_dtype,
             mesh=self.mesh, block_size=cfg.kv_block_size,
             num_blocks=num_blocks, prefix_cache=prefix_cache,
-            eviction=eviction, quantized=cfg.kv_dtype == "int8")
+            eviction=eviction, quantized=cfg.kv_dtype == "int8",
+            host_blocks=host_blocks)
 
-    def _rows(self, tables):
-        """Per layer ``{"shards": [...]}``: each shard's cache dict with
-        the block table on its device (uploaded once per device)."""
+    def _rows(self, pool, tables):
+        """Per layer ``{"shards": [...]}``: each shard's cache dict of
+        ``pool`` with the block table on its device (uploaded once per
+        device)."""
         tabs = {}
         for dev in self.mesh.devices:
             if dev not in tabs:
                 tabs[dev] = tables.to(dev)
         return [{"shards": [{**shard, "tables": tabs[dev]}
                             for shard, dev in zip(layer, self.mesh.devices)]}
-                for layer in self.pool.caches]
+                for layer in pool.caches]
 
     # -------------------------------------------------------- accounting
     def memory_report(self) -> dict:
-        """Logical against per-device bytes: parameters (split ones summed
-        over shards, replicated ones once) and the pools' capacity (all
-        blocks, K/V and scales), the per-device numbers counted on shard
-        0 (which holds every replicated parameter whole)."""
+        """Logical against per-device bytes: the target's parameters
+        (split ones summed over shards, replicated ones once) and the
+        pools' capacity (all blocks, K/V and scales; the draft pool's
+        too, as JAX counts it), the per-device numbers counted on shard 0
+        (which holds every replicated parameter whole)."""
         shards = self.model.shards
 
         def nbytes(t):
@@ -224,9 +221,12 @@ class ShardedEngine(Engine):
             if rule_for(name, self._rules).axis is not None
             else nbytes(t) for name, t in shards[0].items())
         p_shard = sum(nbytes(t) for t in shards[0].values())
-        k_total = sum(nbytes(t) for _, layer in self.pool.layer_states()
+        pools = [p for p in (self.pool, self.draft_pool) if p is not None]
+        k_total = sum(nbytes(t) for pool in pools
+                      for _, layer in pool.layer_states()
                       for t in layer.values())
-        k_shard = sum(nbytes(t) for layer in self.pool.shard_caches(0)
+        k_shard = sum(nbytes(t) for pool in pools
+                      for layer in pool.shard_caches(0)
                       for t in layer.values())
         return {"mesh_devices": self.mesh_devices,
                 "params_bytes": p_total,

@@ -13,10 +13,21 @@ shard shares. Copy-on-write copies the block on every shard.
 
 ``caches[layer]`` is the list of the M shards' dicts of that layer.
 
-The block wire (export and install for migration and peer pulls) needs
-gather-on-export and a scatter over the shards, which are not ported:
-those methods raise :class:`NotPortedError` (ROADMAP A6), and the host
-tier is refused by :class:`~.engine.ShardedEngine`.
+The block wire and the host tier compose as in JAX, in the one full-head
+int8+scales layout (mesh-blind: a mesh-2 export equals a one-device
+export byte for byte):
+
+- gather-on-export: :meth:`_gather_blocks` gathers the blocks on every
+  shard and concatenates the shards' head groups, in shard order, on
+  shard 0's device (a float pool quantizes per shard first: the scale is
+  per (block, head), so that is the full block's quantization);
+- scatter-on-install: :meth:`_scatter_blocks` splits a full-head payload
+  by head groups and writes each shard's part on its device.
+
+So ``export_block_payload``, ``export_prefix_payload`` and
+``install_block_payload`` serve migration and peer pulls, and the host
+tier's demotion (a gather into one full-head entry) and promotion (a
+scatter of the entries) run unchanged through ``serve/slots.py``.
 """
 
 from __future__ import annotations
@@ -25,9 +36,13 @@ from typing import List, Tuple
 
 import torch
 
-from nezha_tpu_torch.errors import NotPortedError
 from nezha_tpu_torch.parallel.mesh import Mesh
-from nezha_tpu_torch.serve.slots import PagedSlotPool
+from nezha_tpu_torch.serve.slots import (_WIRE_KEYS,
+                                         _gather_blocks_quantized,
+                                         _gather_quantize_blocks,
+                                         _scatter_blocks_dequant,
+                                         _scatter_blocks_quantized,
+                                         PagedSlotPool)
 
 
 class ShardedPagedSlotPool(PagedSlotPool):
@@ -38,7 +53,7 @@ class ShardedPagedSlotPool(PagedSlotPool):
                  dtype: torch.dtype = torch.bfloat16, *, mesh: Mesh,
                  block_size: int = 16, num_blocks=None,
                  prefix_cache: bool = True, eviction: str = "lru",
-                 quantized: bool = False):
+                 quantized: bool = False, host_blocks: int = 0):
         tp = mesh.size
         if model_cfg.num_heads % tp:
             raise ValueError(
@@ -49,7 +64,8 @@ class ShardedPagedSlotPool(PagedSlotPool):
         super().__init__(model_cfg, capacity, max_len, dtype,
                          block_size=block_size, num_blocks=num_blocks,
                          prefix_cache=prefix_cache, eviction=eviction,
-                         quantized=quantized, device=mesh.devices[0])
+                         quantized=quantized, host_blocks=host_blocks,
+                         device=mesh.devices[0])
 
     def _alloc_layer(self, heads: int, d: int, kv_dtype: torch.dtype,
                      device):
@@ -65,18 +81,32 @@ class ShardedPagedSlotPool(PagedSlotPool):
         """Shard r's per-layer dicts."""
         return [layer[r] for layer in self.caches]
 
-    # ------------------------------------------------------- migration
-    def export_block_payload(self, slot, nblocks):
-        raise NotPortedError("exporting KV blocks from a head-sharded pool "
-                             "(gather-on-export) is not ported (ROADMAP A6)")
+    # ------------------------------------------------------------ wire
+    @property
+    def wire_device(self) -> torch.device:
+        return self.mesh.devices[0]
 
-    def export_prefix_payload(self, tokens):
-        raise NotPortedError("exporting KV blocks from a head-sharded pool "
-                             "(gather-on-export) is not ported (ROADMAP A6)")
+    def _gather_blocks(self, idx):
+        """Gather-on-export: every shard's blocks ``idx``, their head
+        groups concatenated in shard order on shard 0's device."""
+        gather = (_gather_blocks_quantized if self.quantized
+                  else _gather_quantize_blocks)
+        parts = [gather(self.shard_caches(r), idx.to(dev))
+                 for r, dev in enumerate(self.mesh.devices)]
+        dev0 = self.wire_device
+        return [{k: torch.cat([p[li][k].to(dev0) for p in parts], dim=1)
+                 for k in _WIRE_KEYS} for li in range(self.num_layers)]
 
-    def install_block_payload(self, tokens, layers, origin="migrate"):
-        raise NotPortedError("installing KV blocks into a head-sharded pool "
-                             "is not ported (ROADMAP A6)")
+    def _scatter_blocks(self, idx, payload) -> None:
+        """Scatter-on-install: a full-head payload split by head groups,
+        shard r's part written on its device."""
+        scatter = (_scatter_blocks_quantized if self.quantized
+                   else _scatter_blocks_dequant)
+        hh = self.num_heads // self.shard_devices
+        for r, dev in enumerate(self.mesh.devices):
+            part = [{k: v[:, r * hh:(r + 1) * hh].to(dev)
+                     for k, v in layer.items()} for layer in payload]
+            scatter(self.shard_caches(r), idx.to(dev), part)
 
     # ------------------------------------------------------ accounting
     @property

@@ -517,6 +517,10 @@ class PagedSlotPool:
         heads = model_cfg.num_heads
         d = model_cfg.hidden_size // heads
         kv_dtype = torch.int8 if quantized else dtype
+        self.num_layers = model_cfg.num_layers
+        # One block of one layer, every head: the wire's and the host
+        # tier's geometry, whatever the device layout.
+        self.block_shape = (heads, block_size, d)
         self.caches = [self._alloc_layer(heads, d, kv_dtype, device)
                        for _ in range(model_cfg.num_layers)]
         kv_bytes = heads * block_size * d * kv_dtype.itemsize
@@ -565,6 +569,30 @@ class PagedSlotPool:
                 layer[name] = torch.zeros((self.num_blocks, heads),
                                           dtype=torch.float32, device=device)
         return layer
+
+    @property
+    def wire_device(self) -> torch.device:
+        """The device the wire's index tensors and staged payloads live
+        on."""
+        return self.caches[0]["k"].device
+
+    def _gather_blocks(self, idx: torch.Tensor) -> List[Dict[str,
+                                                              torch.Tensor]]:
+        """Blocks ``idx`` (on :attr:`wire_device`) -> per-layer wire
+        tensors, every head: verbatim from an int8 pool, quantized from a
+        float one. A sharded pool overrides it (gather-on-export)."""
+        gather = (_gather_blocks_quantized if self.quantized
+                  else _gather_quantize_blocks)
+        return gather(self.caches, idx)
+
+    def _scatter_blocks(self, idx: torch.Tensor, payload) -> None:
+        """Per-layer wire tensors (every head, on :attr:`wire_device`)
+        into blocks ``idx``, IN PLACE: verbatim into an int8 pool,
+        dequantized into a float one. A sharded pool overrides it
+        (scatter-on-install)."""
+        scatter = (_scatter_blocks_quantized if self.quantized
+                   else _scatter_blocks_dequant)
+        scatter(self.caches, idx, payload)
 
     def layer_states(self) -> List[Tuple[int, dict]]:
         """``(layer index, dict of device tensors)`` for every piece of
@@ -729,18 +757,17 @@ class PagedSlotPool:
         arena row are queued on the current stream, ahead of any later
         write to the block, and an event marks the copy's end; on the
         CPU the copy is immediate."""
+        idx = _block_index([block], self.wire_device)
         if self._arena is None:
-            idx = _block_index([block], self.caches[0]["k"].device)
-            entry = _HostEntry(_host_layers(
-                _gather_blocks_quantized(self.caches, idx)))
+            entry = _HostEntry(_host_layers(self._gather_blocks(idx)))
         else:
             # Room first: a dropped entry gives its arena row back. A key
-            # of every layer is one stack of views, then one copy.
+            # of every layer is one gathered stack, then one copy.
             self._make_room(tuple(path_tokens))
             row = self._arena.take()
+            gathered = self._gather_blocks(idx)
             for k, t in self._arena.keys.items():
-                t[row].copy_(torch.stack([layer[k][block]
-                                          for layer in self.caches]),
+                t[row].copy_(torch.cat([g[k] for g in gathered]),
                              non_blocking=True)
             ready = torch.cuda.Event()
             ready.record()
@@ -812,13 +839,13 @@ class PagedSlotPool:
         # (JAX scatters in power-of-two runs only to bound its compiled
         # programs; eager ops need no such bound). Queued on the current
         # stream before the prefill chunks that read the blocks.
-        dev = self.caches[0]["k"].device
+        dev = self.wire_device
         idx = _block_index(blocks, dev)
         if self._arena is None:
             payload = [{k: torch.from_numpy(np.concatenate(
                             [e[li][k] for e in entries]))
                         for k in _WIRE_KEYS}
-                       for li in range(len(self.caches))]
+                       for li in range(self.num_layers)]
         else:
             stacked = {}
             for k, t in self._arena.keys.items():
@@ -828,12 +855,12 @@ class PagedSlotPool:
                     buf[i].copy_(t[e.slot], non_blocking=True)
                 stacked[k] = buf
             payload = [{k: stacked[k][:, li] for k in _WIRE_KEYS}
-                       for li in range(len(self.caches))]
+                       for li in range(self.num_layers)]
             # The uploads are queued ahead of any later copy into these
             # rows, on the same stream: the rows are free to reuse.
             for e in entries:
                 self._arena.give(e.slot)
-        _scatter_blocks_quantized(self.caches, idx, payload)
+        self._scatter_blocks(idx, payload)
 
         def take_ref(block: int) -> None:
             self._refs[block] += 1
@@ -975,10 +1002,8 @@ class PagedSlotPool:
     def _gather_wire(self, blocks: Sequence[int]):
         """Device blocks -> per-layer wire host arrays: verbatim from an
         int8 pool, quantized from a float one."""
-        idx = _block_index(blocks, self.caches[0]["k"].device)
-        gather = (_gather_blocks_quantized if self.quantized
-                  else _gather_quantize_blocks)
-        return _host_layers(gather(self.caches, idx))
+        return _host_layers(self._gather_blocks(
+            _block_index(blocks, self.wire_device)))
 
     def export_block_payload(self, slot: int, nblocks: int
                              ) -> Tuple[List[Dict[str, np.ndarray]], int]:
@@ -1025,7 +1050,7 @@ class PagedSlotPool:
         parts += host_entries
         host = [{k: np.concatenate([p[li][k] for p in parts], axis=0)
                  for k in _WIRE_KEYS}
-                for li in range(len(self.caches))]
+                for li in range(self.num_layers)]
         nbytes = sum(a.nbytes for layer in host for a in layer.values())
         return toks[:nblocks * bs], host, nbytes
 
@@ -1052,12 +1077,12 @@ class PagedSlotPool:
                 f"payload carries {nblocks} block(s) but only "
                 f"{len(tokens)} token(s) key them "
                 f"(block_size {bs})")
-        shape = tuple(self.caches[0]["k"].shape[1:])
+        shape = self.block_shape
         got = tuple(layers[0]["k"].shape[1:])
-        if len(layers) != len(self.caches) or got != shape:
+        if len(layers) != self.num_layers or got != shape:
             raise ValueError(
                 f"payload geometry mismatch: {len(layers)} layer(s) of "
-                f"blocks shaped {got}, pool has {len(self.caches)} "
+                f"blocks shaped {got}, pool has {self.num_layers} "
                 f"layer(s) shaped {shape}")
         blocks: List[int] = []
         try:
@@ -1067,14 +1092,11 @@ class PagedSlotPool:
             for b in blocks:
                 self._release(b)
             raise
-        dev = self.caches[0]["k"].device
+        dev = self.wire_device
         idx = _block_index(blocks, dev)
         payload = [{k: torch.from_numpy(np.array(v)).to(dev)
                     for k, v in layer.items()} for layer in layers]
-        if self.quantized:
-            _scatter_blocks_quantized(self.caches, idx, payload)
-        else:
-            _scatter_blocks_dequant(self.caches, idx, payload)
+        self._scatter_blocks(idx, payload)
         new_blocks: List[int] = []
 
         def take_ref(block: int) -> None:
@@ -1166,20 +1188,20 @@ class PagedSlotPool:
             raise AssertionError(
                 f"host tier byte books off: {self._host_bytes} "
                 f"recorded, {nbytes} resident")
-        shape = tuple(self.caches[0]["k"].shape[1:])
+        shape = self.block_shape
         for key, entry in self._host_tier.items():
             if len(key) % self.block_size or \
                     len(key) // self.block_size == 0:
                 raise AssertionError(
                     f"host tier key length {len(key)} is not a "
                     f"whole number of blocks (bs {self.block_size})")
-            if (len(entry) != len(self.caches)
+            if (len(entry) != self.num_layers
                     or tuple(entry[0]["k"].shape) != (1,) + shape):
                 raise AssertionError(
                     f"host tier entry geometry drifted: "
                     f"{len(entry)} layer(s) shaped "
                     f"{tuple(entry[0]['k'].shape)}, pool has "
-                    f"{len(self.caches)} layer(s) of [1, "
+                    f"{self.num_layers} layer(s) of [1, "
                     f"{', '.join(str(x) for x in shape)}] blocks")
         if self._arena is not None:
             rows = [e.slot for e in self._host_tier.values()]

@@ -40,6 +40,17 @@ def batch_to_device(batch: dict, device: torch.device) -> dict:
     return out
 
 
+def grads_of(loss: torch.Tensor, params: Dict[str, torch.Tensor]
+             ) -> Dict[str, torch.Tensor]:
+    """``{name: d loss / d param}``; a parameter the loss does not reach
+    (BERT's segment table on a batch without segments) gets zeros, as
+    JAX's gradient gives it."""
+    grads = torch.autograd.grad(loss, list(params.values()),
+                                allow_unused=True)
+    return {k: torch.zeros_like(p) if g is None else g
+            for (k, p), g in zip(params.items(), grads)}
+
+
 class TrainStep:
     """``step(batch) -> {"loss"}``: forward in training mode (which also
     updates the model's BatchNorm buffers), ``loss_fn(out, batch)``,
@@ -63,8 +74,7 @@ class TrainStep:
         batch = batch_to_device(batch, self.device)
         self.model.train()
         loss = self.loss_fn(self.model(batch), batch).float()
-        grads = torch.autograd.grad(loss, list(self.params.values()))
-        return loss.detach(), dict(zip(self.params, grads))
+        return loss.detach(), grads_of(loss, self.params)
 
     def apply_gradients(self, grads: Dict[str, torch.Tensor]) -> None:
         """One optimizer update from ``grads``, applied in place."""
@@ -91,8 +101,10 @@ def make_train_step(model: torch.nn.Module, optimizer: Optimizer,
     return TrainStep(model, optimizer, loss_fn)
 
 
-# Trainer options of the JAX package not ported yet, with the value that
-# means "off" (custom sharding and save functions).
+# Trainer options of the JAX package not ported, with the value that
+# means "off": custom batch sharding and save functions (a sharded
+# step_fn, ZeRO-1's or gspmd's, splits its batch and picks the per-shard
+# format itself).
 _NOT_PORTED = {"shard_fn": None, "save_fn": None, "save_wait": None}
 
 
@@ -130,15 +142,19 @@ class Trainer:
     ``checkpoint.save`` and ``train.rejoin`` spans.
 
     ``step_fn`` replaces the single-device step: a
-    :class:`~nezha_tpu_torch.parallel.data_parallel.DPTrainStep` or
-    :class:`~nezha_tpu_torch.parallel.zero1.Zero1TrainStep` built on the
-    same model and optimizer. With ``checkpoint_dir``, :meth:`initialize`
-    resumes from the newest checkpoint there that verifies, and every
-    ``checkpoint_every`` steps (of the global step count) :meth:`save`
-    writes one in the JAX package's format, keeping the newest
-    ``checkpoint_keep`` (None: all): a dense npz, written by rank 0
-    alone, or for a sharded step (ZeRO-1) the per-shard layout, each rank
-    its own shards, on a background thread (:meth:`wait_saves` commits).
+    :class:`~nezha_tpu_torch.parallel.data_parallel.DPTrainStep`,
+    :class:`~nezha_tpu_torch.parallel.zero1.Zero1TrainStep` or
+    :class:`~nezha_tpu_torch.parallel.gspmd.GSPMDTrainStep` built on the
+    same model and optimizer. With
+    ``checkpoint_dir``, :meth:`initialize` resumes from the newest
+    checkpoint there that verifies, and every ``checkpoint_every`` steps
+    (of the global step count) :meth:`save` writes one in the JAX
+    package's format, keeping the newest ``checkpoint_keep`` (None: all):
+    a dense npz, written by rank 0 alone, or for a sharded step (ZeRO-1,
+    gspmd) the per-shard layout, each rank its own shards, on a
+    background thread (:meth:`wait_saves` commits): the step gives the
+    leaves (``shard_leaves``), names what a restore reads
+    (``restore_request``) and installs it (``load_restored``).
     ``rng`` is the run's JAX PRNG key (``uint32[2]``, :func:`prng_key` of
     0 when None), saved as the ``rng`` leaf and replaced by a restored
     one. The port cannot split JAX keys: it keeps the key it has and
@@ -280,16 +296,12 @@ class Trainer:
             self.checkpoint_dir, step))
 
     def _restore_sharded(self):
-        from nezha_tpu_torch.models.convert import load_train_state
         from nezha_tpu_torch.train import sharded_checkpoint as sck
         got, step = sck.try_restore_sharded(self.checkpoint_dir,
                                             self.step_fn.restore_request())
         if got is None:
             return None
-        load_train_state({k: a for k, (a, _) in got.items()
-                          if k.startswith("variables/")}, self.model)
-        self.step_fn.load_chunks({k: a for k, (a, _) in got.items()
-                                  if k.startswith("opt_state/")})
+        self.step_fn.load_restored({k: a for k, (a, _) in got.items()})
         self.rng = np.asarray(got["rng"][0], np.uint32)
         return step, sum(a.nbytes for a, _ in got.values())
 

@@ -329,6 +329,16 @@ def _flat_shapes(tree, prefix=""):
                                   {"fused_loss_chunk": 1},
                                   {"fused_loss_chunk": 128}])
 def test_unported_knobs_raise(knob):
+    """The knobs still refused; ``flash_shmap`` is ported and builds, and
+    raises JAX's ValueError outside a tensor-parallel scope
+    (``tests/test_torch_gspmd.py`` runs it inside one)."""
+    if knob.get("attn_impl") == "flash_shmap":
+        model = Bert(BertConfig(**TINY_BERT_KW, **knob), device="cpu")
+        batch = {k: torch.from_numpy(v) for k, v in _batch("none").items()}
+        with pytest.raises(ValueError, match="auto_partitioner_scope") as e:
+            model(batch)
+        assert not isinstance(e.value, NotPortedError)
+        return
     with pytest.raises(NotPortedError):
         Bert(BertConfig(**TINY_BERT_KW, **knob), device="cpu")
 

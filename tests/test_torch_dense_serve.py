@@ -269,7 +269,10 @@ def test_cli_layout_speculative_and_bucket_flags(draft_dirs):
 @pytest.mark.parametrize("argv,match", [
     (["--draft-ckpt-dir", "d"], "require --speculative"),
     (["--draft-hf-dir", "d"], "require --speculative"),
-    (["--speculative", "--mesh", "2"], "A6"),
+    # Speculative serving runs under a mesh now; the dense layout, which
+    # has no head-sharded pool, is what a mesh still refuses.
+    pytest.param(["--speculative", "--mesh", "2", "--kv-layout", "dense"],
+                 "kv_layout='paged'", id="argv2-A6"),
     (["--speculative", "--draft-layers", "9"], "draft_layers"),
     (["--speculative", "--draft-k", "0"], "draft_k"),
     (["--prefill-buckets", "4,x"], "--prefill-buckets"),

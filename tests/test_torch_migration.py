@@ -504,29 +504,43 @@ def test_dense_engine_refuses_the_wire_typed(models):
 
 
 def test_sharded_engine_refuses_tier_and_wire_typed(models):
+    """Under a mesh the host tier and the wire are served (gather-on-
+    export, scatter-on-install); what stays refused is refused as on one
+    device and in JAX: a host tier over a bf16 pool (ValueError naming
+    int8, never NotPortedError) and a dense layout, which has no blocks.
+    ``/kv_export`` of a mesh-2 park answers 200 with the one-device
+    wire."""
     _, _, tm = models
-    with pytest.raises(NotPortedError, match="A6"):
-        ShardedEngine(tm, ServeConfig(**SERVE_KW, kv_dtype="int8",
-                                      kv_host_blocks=8,
+    with pytest.raises(ValueError, match="int8") as info:
+        ShardedEngine(tm, ServeConfig(**SERVE_KW, kv_host_blocks=8,
                                       cache_dtype=torch.float32),
                       mesh_devices=2)
-    with pytest.raises(NotPortedError, match="xla"):
-        ShardedEngine(tm, ServeConfig(**SERVE_KW, prefill_impl="xla"),
+    assert not isinstance(info.value, NotPortedError)
+    with pytest.raises(ValueError, match="paged"):
+        ShardedEngine(tm, ServeConfig(**SERVE_KW, kv_layout="dense"),
                       mesh_devices=2)
     sched = Scheduler(ShardedEngine(tm, ServeConfig(
         **SERVE_KW, cache_dtype=torch.float32), mesh_devices=2))
-    _park(sched, _prompt(21), "s", new=2)
-    for call in (lambda: sched.export_parked("s"),
-                 lambda: sched.export_prefix(_prompt(21)),
-                 lambda: sched.install_migrated(
-                     *migrate.decode_wire(migrate.encode_wire(
-                         _prompt(8), _random_layers(1), 8)))):
-        with pytest.raises(NotPortedError, match="A6"):
-            call()
+    one = _sched(tm)
+    prompt = _prompt(21)
+    _park(sched, prompt, "s", new=2)
+    _park(one, prompt, "s", new=2)
     code, body = migrate.handle_kv_export(sched, {"request_id": "s"})
-    assert code == 501 and body["error_type"] == "not_ported"
-    assert sched.ack_parked("s")
-    sched.engine.pool.leak_check()
+    want = one.export_parked("s")
+    assert code == 200
+    assert {k: v for k, v in body.items() if k != "layers"} == \
+        {k: v for k, v in want.items() if k != "layers"}
+    got_layers = migrate.decode_wire(body)[1]
+    for a, b in zip(got_layers, migrate.decode_wire(want)[1]):
+        assert {k: (v.shape, v.dtype) for k, v in a.items()} == \
+            {k: (v.shape, v.dtype) for k, v in b.items()}
+    code, body = migrate.handle_kv_export(sched, {"tokens": prompt})
+    assert code == 200 and body["nblocks"] == 2
+    assert sched.install_migrated(*migrate.decode_wire(migrate.encode_wire(
+        _prompt(8, salt=3), _random_layers(1, layers=4), 8))) == 1
+    for s_ in (sched, one):
+        assert s_.ack_parked("s")
+        s_.engine.pool.leak_check()
 
 
 def test_speculative_park_ships_target_pool_and_frees_draft(models):

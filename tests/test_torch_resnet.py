@@ -665,17 +665,21 @@ STILL_REFUSED = {
 
 @pytest.mark.parametrize("config", ["bert_base_zero1", "wrn101_large_batch"])
 def test_cli_refuses_unported_configs_typed(config):
-    """Both configs train now, dp and ZeRO-1 included; what each still
-    lacks is refused: tensor parallelism (``--parallel gspmd``, typed),
-    the graph engine (``--engine``), the MLM mask-token flag without
-    ``--data-dir``, and
-    the model knobs that wait for later slices (``NotPortedError``)."""
+    """Both configs train now, dp and ZeRO-1 included (BERT also
+    tensor-parallel); what each still lacks is refused: pipeline
+    parallelism (``--parallel pp``, typed), tensor parallelism for WRN
+    (no rule table, JAX's message), the graph engine (``--engine``), the
+    MLM mask-token flag without ``--data-dir``, and the model knobs that
+    wait for later slices (``NotPortedError``)."""
     from nezha_tpu_torch.cli.train import main, parse_args
 
     flag, knob = STILL_REFUSED[config]
     with pytest.raises(SystemExit, match="not ported"):
-        main(["--config", config, "--device", "cpu", "--parallel",
-              "gspmd"])
+        main(["--config", config, "--device", "cpu", "--parallel", "pp"])
+    if config == "wrn101_large_batch":
+        with pytest.raises(SystemExit, match="no tensor-parallel rule"):
+            main(["--config", config, "--device", "cpu", "--parallel",
+                  "gspmd"])
     with pytest.raises(SystemExit):
         parse_args(["--config", config, *flag])
     with pytest.raises(NotPortedError):

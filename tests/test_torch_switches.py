@@ -11,8 +11,9 @@ model reaches are counted (``paged_decode_attention`` carries B7 and B8,
 - ``NEZHA_NO_PREFILL_KERNEL`` does the same for paged prefill chunks
   over ``prefill_impl="kernel"``; ``serve.prefill.kernel_active`` reads
   0 and one warning names the variable;
-- under a mesh ``NEZHA_NO_NESTED_KERNELS`` and both kernel switches
-  raise ``NotPortedError`` naming A6; ``NEZHA_NO_SEQ_PREFILL`` turns
+- under a mesh ``NEZHA_NO_NESTED_KERNELS`` sends decode and prefill to
+  the composed attention on every shard, each kernel switch its own
+  path, with JAX's sharded engine's tokens; ``NEZHA_NO_SEQ_PREFILL`` turns
   ``prefill_mode="sequence"`` back into the replicated prefill, with
   JAX's sharded engine's tokens under the same variable."""
 
@@ -33,7 +34,6 @@ from nezha_tpu.serve import Request as JaxRequest
 from nezha_tpu.serve import Scheduler as JaxScheduler
 from nezha_tpu.serve import ServeConfig as JaxServeConfig
 from nezha_tpu_torch import obs
-from nezha_tpu_torch.errors import NotPortedError
 from nezha_tpu_torch.models import GPT2, GPT2Config, params_from_jax
 from nezha_tpu_torch.models import gpt2 as gpt2_mod
 from nezha_tpu_torch.models.generate import generate
@@ -226,13 +226,31 @@ def pair():
 @pytest.mark.parametrize("var", ["NEZHA_NO_NESTED_KERNELS",
                                  "NEZHA_NO_DECODE_KERNEL",
                                  "NEZHA_NO_PREFILL_KERNEL"])
-def test_kernel_switches_refused_under_a_mesh(pair, monkeypatch, var):
-    tm = pair[2]
-    cfg = ServeConfig(**KW, cache_dtype=torch.float32)
-    ShardedEngine(tm, cfg, mesh_devices=2)
+def test_kernel_switches_refused_under_a_mesh(pair, monkeypatch, calls,
+                                              var):
+    """Under a mesh no switch is refused any more: each sends its paths
+    to the composed attention on every shard (``NEZHA_NO_NESTED_KERNELS``
+    both decode and prefill, as JAX's nested kernels turn off; the kernel
+    switches their own path), ``serve.prefill.kernel_active`` reads 0
+    where prefill is composed, and the greedy tokens are JAX's sharded
+    engine's under the same variable."""
+    jm, jv, tm = pair
     monkeypatch.setenv(var, "1")
-    with pytest.raises(NotPortedError, match=f"{var}.*A6"):
-        ShardedEngine(tm, cfg, mesh_devices=2)
+    obs.REGISTRY.reset()
+    obs.enable()
+    eng = ShardedEngine(tm, ServeConfig(**KW, cache_dtype=torch.float32),
+                        mesh_devices=2)
+    got = run_waves(eng, Request, Scheduler)
+    decode_off = var != "NEZHA_NO_PREFILL_KERNEL"
+    prefill_off = var != "NEZHA_NO_DECODE_KERNEL"
+    assert (calls["paged_decode_attention"] == 0) == decode_off
+    assert (calls["paged_prefill_attention"] == 0) == prefill_off
+    assert eng.prefill_kernel_active is not prefill_off
+    assert obs.gauge("serve.prefill.kernel_active").value == (
+        0.0 if prefill_off else 1.0)
+    obs.disable()
+    assert got == jax_tokens(jm, jv, 2)
+    eng.pool.leak_check()
 
 
 def test_seq_prefill_switch_serves_replicated(pair, monkeypatch,

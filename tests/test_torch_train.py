@@ -330,8 +330,10 @@ def test_cli_refuses_unported_flags_and_configs():
                        "--ckpt-dir=/x"]).ckpt_dir == "/x"
     assert parse_args(["--config", "gpt2_124m",
                        "--run-dir=/r"]).run_dir == "/r"
-    # The parallel flags parse; tensor, pipeline and sequence parallelism
-    # are refused typed (main exits naming them). --on-failure rejoin and
+    # The parallel flags parse; pipeline and sequence parallelism are
+    # refused typed (main exits naming them), and so are gspmd across
+    # processes and the sequence-parallel attentions; gspmd itself runs
+    # (tests/test_torch_gspmd.py). --on-failure rejoin and
     # --rejoin-timeout are ported: they parse, and rejoin without a
     # coordinator exits with JAX's check.
     args = parse_args(["--config", "bert_base_zero1", "--parallel",
@@ -339,8 +341,9 @@ def test_cli_refuses_unported_flags_and_configs():
                        "int8", "--on-failure", "stop"])
     assert (args.parallel, args.mesh, args.grad_allreduce) == \
         ("zero1", "dp=1", "int8")
-    for argv in (["--parallel", "gspmd"], ["--parallel", "pp"],
-                 ["--parallel", "sp"]):
+    for argv in (["--parallel", "gspmd", "--coordinator", "127.0.0.1:1"],
+                 ["--parallel", "pp"], ["--parallel", "sp"],
+                 ["--attn-impl", "ring"], ["--attn-impl", "ulysses"]):
         with pytest.raises(SystemExit, match="not ported"):
             main(["--config", "gpt2_124m", "--device", "cpu"] + argv)
     args = parse_args(["--config", "gpt2_124m", "--on-failure", "rejoin",
@@ -361,6 +364,15 @@ def test_cli_refuses_unported_flags_and_configs():
     {"attn_impl": "flash_shmap"}, {"fused_loss_chunk": 1},
     {"fused_loss_chunk": 128}])
 def test_unported_model_knobs_raise(knob):
+    """The knobs still refused; ``flash_shmap`` is ported and builds, and
+    raises JAX's ValueError outside a tensor-parallel scope
+    (``tests/test_torch_gspmd.py`` runs it inside one)."""
+    if knob.get("attn_impl") == "flash_shmap":
+        model = GPT2(GPT2Config(**TINY_GPT2_KW, **knob), device="cpu")
+        with pytest.raises(ValueError, match="auto_partitioner_scope") as e:
+            model(torch.zeros((1, 8), dtype=torch.long))
+        assert not isinstance(e.value, NotPortedError)
+        return
     with pytest.raises(NotPortedError):
         GPT2(GPT2Config(**TINY_GPT2_KW, **knob), device="cpu")
 
