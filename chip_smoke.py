@@ -194,7 +194,24 @@ serve_wire (e) sets one, for one engine at a time.
    the generate CLI from its ``step_<N>.sharded`` on one device: its
    greedy tokens those of ``models.generate`` on the save restored in
    this process;
-4e. train_dist (after 4i, before 4d): multi-process training at full
+4j. train_pp_moe (after 4i, before 4e): pipeline parallelism, the MoE
+   GPT-2 and remat at GPT-2 124M's width (bf16, B=8, S=1024, AdamW, the
+   fused head; every mesh one card repeated): (a) ``parallel/
+   pipeline.py`` at ``dp=1,pp=2``, PP_M microbatches: the first step's
+   loss within PP_LOSS_ATOL and its gradients within TRAIN_GRAD_RTOL of
+   one device's, B1-B3 and the pre-pass 12 x PP_M a step exactly (no
+   bubble launch), ms a step; (b) the same step with remat: B1 twice
+   that, the gradients (a)'s, the step's HBM peak below (a)'s; one
+   device with remat: B1 24; (c) the MoE GPT-2 (MOE_E experts, top-2)
+   against its ``attn_impl="xla"`` twin (the train check), its aux loss
+   and dropped tokens per MoE layer, B1-B3 12 a step, ms a step and the
+   peak; (d) its experts over ``ep=2`` against one device; (e)
+   ResNet-50 (batch IMG_B) with remat against without: the gradients
+   within the image check's limits, the BatchNorm buffers bitwise, the
+   peak below; (f) the train CLI in process: ``--parallel pp`` with a
+   save, the save restored into a fresh step bitwise, a resume (launches
+   exact), and ``--moe-experts`` under gspmd with an ep axis;
+4e. train_dist (after 4j, before 4d): multi-process training at full
    width: (a) in-process, the coordinator's world of one and NCCL
    through ``init_torch_distributed``: GPT-2 124M (B=8, S=1024) and
    ResNet-50 (batch IMG_B) by dp, BERT-base (B=16, S=512) by ZeRO-1,
@@ -6370,6 +6387,499 @@ def train_tp(card: str):
     return {"train_tp": fit_launches, "train_tp_cli": cli_launches}
 
 
+PP_M = 4            # the pipeline's microbatches a step
+PP_STEPS = 3        # timed Trainer.fit steps of the pipelined GPT-2
+PP_LOSS_ATOL = 0.005   # pp and ep first steps against one device's
+MOE_E = 8           # experts of the MoE GPT-2 (blocks 1, 3, ..., 11)
+MOE_STEPS = 2       # timed Trainer.fit steps of the MoE GPT-2
+PP_CLI_STEPS, PP_CLI_MORE = 3, 2   # the pp CLI run and its resume
+MOE_CLI_STEPS = 2   # the MoE CLI run under gspmd with an ep axis
+
+
+def pp_fresh(**kw):
+    """train's GPT-2 124M (bf16, the fused head) from seed 0."""
+    from nezha_tpu_torch.cli.common import gpt2_for_preset
+    return gpt2_for_preset("full", seed=0, device="cuda",
+                           fused_loss_chunk=-1, **kw)
+
+
+def peak_step(fn):
+    """``fn()`` with the card's peak allocation tracked: -> (its return,
+    {"peak_gb": the peak, "step_peak_gb": the peak over what was
+    allocated before it})."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    out = fn()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    return out, {"peak_gb": peak / 2 ** 30,
+                 "step_peak_gb": (peak - base) / 2 ** 30}
+
+
+def counted(what: str, fn, want: dict):
+    """``fn()`` with the flash counts set to 0 just before; each count in
+    ``want`` must equal it exactly. -> (its return, the counts)."""
+    from nezha_tpu_torch.ops.cuda.flash_attention import LAUNCHES
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+    out = fn()
+    got = dict(LAUNCHES)
+    if any(got[k] != v for k, v in want.items()):
+        fail(f"train_pp_moe {what}: launches {got}, expected {want}")
+    return out, got
+
+
+def flash_want(fwd: int, bwd: int) -> dict:
+    return {"flash_fwd": fwd, "flash_bwd_dq": bwd, "flash_bwd_dkv": bwd,
+            "flash_bwd_delta": bwd}
+
+
+def grads_within(what: str, grads: dict, ref: dict, rtol: float) -> dict:
+    """Each gradient within ``rtol`` of its reference's norm; -> the
+    worst."""
+    worst, worst_name = 0.0, None
+    for name, gr in ref.items():
+        rel = ((grads[name].float() - gr.float()).norm()
+               / gr.float().norm().clamp_min(1e-30)).item()
+        if rel >= worst:
+            worst, worst_name = rel, name
+        if not rel <= rtol:
+            fail(f"train_pp_moe {what}: gradient of {name} differs by {rel} "
+                 f"of its norm (tolerance {rtol})")
+    return {"max_grad_rel_err": worst, "worst_param": worst_name,
+            "grad_rtol": rtol}
+
+
+def loss_within(what: str, loss, ref, atol: float) -> dict:
+    err = abs(float(loss) - float(ref))
+    if not math.isfinite(float(loss)) or err > atol:
+        fail(f"train_pp_moe {what}: loss {float(loss)} vs {float(ref)} "
+             f"(tolerance {atol})")
+    return {"loss": float(loss), "loss_ref": float(ref), "loss_err": err,
+            "loss_atol": atol}
+
+
+def fit_ms(step, batches, steps: int, want: dict) -> dict:
+    """One warm-up step, then ``steps`` through ``Trainer.fit`` with the
+    flash counts at 0 just before (each ``want`` a step, exactly): ms a
+    step on the host clock, ended by a sync."""
+    from nezha_tpu_torch.models.gpt2 import lm_loss
+    from nezha_tpu_torch.train import Trainer
+
+    trainer = Trainer(step.model, step.optimizer, lm_loss, step_fn=step,
+                      log_every=0)
+    trainer.fit(batches, 1)
+    torch.cuda.synchronize()
+
+    def run():
+        t0 = time.perf_counter()
+        last = trainer.fit(batches, steps)
+        torch.cuda.synchronize()
+        return last, time.perf_counter() - t0
+
+    (last, wall), launches = counted(
+        "fit", run, {k: v * steps for k, v in want.items()})
+    if not math.isfinite(last["loss"]):
+        fail(f"train_pp_moe: loss {last['loss']}")
+    return {"steps": steps, "ms_per_step": wall / steps * 1e3,
+            "tokens_per_s": TRAIN_B * TRAIN_S * steps / wall,
+            "last_loss": last["loss"], "launches": launches}
+
+
+def pp_parts(card: str, batches, batch) -> dict:
+    """(a) the pipeline at dp=1,pp=MESH_M on the card repeated, PP_M
+    microbatches, against one device; (b) its remat, and the
+    single-device step's."""
+    from nezha_tpu_torch.models.gpt2 import lm_loss
+    from nezha_tpu_torch.optim import adamw
+    from nezha_tpu_torch.parallel.pipeline import (PipelineTrainStep,
+                                                   gpt2_pipeline_spec,
+                                                   make_pipeline_mesh)
+    from nezha_tpu_torch.train import make_train_step
+
+    layers = 12
+    mesh = make_pipeline_mesh({"dp": 1, "pp": MESH_M},
+                              [torch.device("cuda", 0)] * MESH_M)
+    model, ref = pp_fresh(), pp_fresh()
+    step = PipelineTrainStep(model, gpt2_pipeline_spec(model),
+                             adamw(TRAIN_LR, weight_decay=0.1), lm_loss, mesh,
+                             PP_M)
+    per = layers * PP_M
+    ((loss, grads), mem), launches = counted(
+        "pp", lambda: peak_step(lambda: step.loss_and_grads(batch)),
+        flash_want(per, per))
+    grads = step.merged_variables(grads)
+    loss_r, grads_r = make_train_step(ref, adamw(0.0), lm_loss) \
+        .loss_and_grads(batch)
+    first = {**loss_within("pp", loss, loss_r, PP_LOSS_ATOL),
+             **grads_within("pp", grads, grads_r, TRAIN_GRAD_RTOL),
+             "launches": launches, **mem}
+    del grads_r, loss_r
+    # (b): the same step rematerialized, per stage application.
+    step.remat = True
+    ((loss_b, grads_b), mem_b), launches_b = counted(
+        "pp remat", lambda: peak_step(lambda: step.loss_and_grads(batch)),
+        {"flash_fwd": 2 * per, "flash_bwd_dq": per, "flash_bwd_dkv": per,
+         "flash_bwd_delta": per})
+    remat = {**loss_within("pp remat", loss_b, loss, PP_LOSS_ATOL),
+             **grads_within("pp remat", step.merged_variables(grads_b),
+                            grads, TRAIN_GRAD_RTOL),
+             "launches": launches_b, **mem_b}
+    if not mem_b["step_peak_gb"] < mem["step_peak_gb"]:
+        fail(f"train_pp_moe pp remat: the step's peak {mem_b} is not below "
+             f"the plain pipeline's {mem}")
+    del grads, grads_b
+    step.remat = False
+    fit = fit_ms(step, batches, PP_STEPS, flash_want(per, per))
+    print(json.dumps({"train_pp": {
+        "mesh": mesh.shape, "devices": [str(d) for d in mesh.devices],
+        "microbatches": PP_M, "note": MESH_NOTE, "first_step": first,
+        "fit": fit, "card": card}}), flush=True)
+    print(json.dumps({"train_pp_remat": {"first_step": remat,
+                                         "card": card}}), flush=True)
+    del step, model, ref
+    gc.collect()
+    torch.cuda.empty_cache()
+    # The single-device step with remat: B1 twice a layer.
+    single = pp_fresh(remat=True)
+    (_, launches_1), mem_1 = peak_step(lambda: counted(
+        "single remat", lambda: make_train_step(
+            single, adamw(0.0), lm_loss).loss_and_grads(batch),
+        flash_want(2 * layers, layers)))
+    del single
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(json.dumps({"train_remat_single": {"launches": launches_1,
+                                             **mem_1, "card": card}}),
+          flush=True)
+    return {"train_pp": fit["launches"], "train_pp_remat": launches_b,
+            "train_remat_single": launches_1}
+
+
+def moe_dropped(model, batch) -> list:
+    """Per MoE layer of one eval-mode forward: its aux loss, the tokens
+    routed (T x top-k) and those dropped over capacity."""
+    from nezha_tpu_torch.parallel.expert import MoE
+
+    rows = []
+
+    def hook(mod, args, out):
+        with torch.no_grad():
+            tokens, dispatch, _, aux = mod.route(args[0])
+        routed = tokens.shape[0] * mod.cfg.top_k
+        rows.append({"aux": aux.item(), "capacity": dispatch.shape[-1],
+                     "routed": routed,
+                     "dropped": routed - int(dispatch.sum().item())})
+
+    handles = [m.register_forward_hook(hook) for m in model.modules()
+               if isinstance(m, MoE)]
+    try:
+        model.eval()
+        with torch.no_grad():
+            model(batch_to_cuda(batch))
+    finally:
+        for h in handles:
+            h.remove()
+        model.train()
+    return rows
+
+
+def batch_to_cuda(batch: dict) -> dict:
+    from nezha_tpu_torch.train.loop import batch_to_device
+    return batch_to_device(batch, torch.device("cuda", 0))
+
+
+def routing_flips(a, b) -> list:
+    """Per MoE layer, the share of tokens whose top-k choices differ
+    between two routing tapes' records."""
+    out = []
+    for x, y in zip(a, b):
+        differ = torch.zeros_like(x[0], dtype=torch.bool)
+        for xi, yi in zip(x, y):
+            differ |= xi.to(yi.device) != yi
+        out.append(differ.float().mean().item())
+    return out
+
+
+def replayed_check(what: str, step, ref_step, batch, loss_atol: float
+                   ) -> dict:
+    """``step``'s loss and gradients against ``ref_step``'s from the same
+    weights, the reference routed as ``step`` routed (``routing_tape``):
+    the loss within ``loss_atol``, each gradient within TRAIN_GRAD_RTOL
+    of its norm. The reference's own routing (no replay) is run too, and
+    its share of tokens routed otherwise, its loss and its worst gradient
+    are printed beside (argmax routing amplifies rounding: not held)."""
+    from nezha_tpu_torch.parallel.expert import routing_tape
+
+    def logical(st, grads):
+        return st._logical(grads) if hasattr(st, "_logical") else grads
+
+    with routing_tape() as tape:
+        loss, grads = step.loss_and_grads(batch)
+    grads = logical(step, grads)
+    with routing_tape(tape.choices):
+        loss_r, grads_r = ref_step.loss_and_grads(batch)
+    out = {**loss_within(what, loss, loss_r, loss_atol),
+           **grads_within(what, grads, logical(ref_step, grads_r),
+                          TRAIN_GRAD_RTOL)}
+    del grads_r
+    with routing_tape() as own:
+        loss_o, grads_o = ref_step.loss_and_grads(batch)
+    grads_o = logical(ref_step, grads_o)
+    worst = max((((grads[n].float() - g.float()).norm()
+                  / g.float().norm().clamp_min(1e-30)).item(), n)
+                for n, g in grads_o.items())
+    out["own_routing"] = {"tokens_routed_otherwise": routing_flips(
+        tape.choices, own.choices), "loss": float(loss_o),
+        "max_grad_rel_err": list(worst)}
+    return out
+
+
+def moe_parts(card: str, batches, batch) -> dict:
+    """(c) the MoE GPT-2 on one device against its composed-attention
+    twin; (d) its experts over ep=MESH_M on the card repeated against one
+    device. Each reference routes as the checked step routed
+    (:func:`replayed_check`)."""
+    from nezha_tpu_torch.models.gpt2 import lm_loss
+    from nezha_tpu_torch.optim import adamw
+    from nezha_tpu_torch.parallel.gspmd import (GSPMDTrainStep,
+                                                make_gspmd_mesh)
+    from nezha_tpu_torch.parallel.expert import ShardedMoE
+    from nezha_tpu_torch.train import make_train_step
+
+    model, ref = pp_fresh(moe_experts=MOE_E), \
+        pp_fresh(moe_experts=MOE_E, attn_impl="xla")
+    step = make_train_step(model, adamw(TRAIN_LR, weight_decay=0.1),
+                           lm_loss)
+    check = replayed_check("moe", step,
+                           make_train_step(ref, adamw(0.0), lm_loss), batch,
+                           TRAIN_LOSS_ATOL)
+    del ref
+    gc.collect()
+    torch.cuda.empty_cache()
+    layers = moe_dropped(model, batch)
+    (_, launches), mem = peak_step(lambda: counted(
+        "moe", lambda: step.loss_and_grads(batch), flash_want(12, 12)))
+    fit = fit_ms(step, batches, MOE_STEPS, flash_want(12, 12))
+    print(json.dumps({"train_moe": {
+        "experts": MOE_E, "top_k": model.cfg.moe_top_k,
+        "moe_layers": len(layers), "check_against_xla": check,
+        "layers": layers, "launches": launches, **mem, "fit": fit,
+        "card": card}}), flush=True)
+    del step, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    # (d): the ep mesh's step against one device's, same weights.
+    single, ep_model = pp_fresh(moe_experts=MOE_E), pp_fresh(
+        moe_experts=MOE_E)
+    mesh = make_gspmd_mesh({"dp": 1, "tp": 1, "ep": MESH_M},
+                           [torch.device("cuda", 0)] * MESH_M)
+    ep = GSPMDTrainStep(ep_model, adamw(TRAIN_LR, weight_decay=0.1), lm_loss,
+                        mesh)
+    if not any(isinstance(b.mlp, ShardedMoE) for b in ep.tp_model.h):
+        fail("train_pp_moe ep: no expert layer split over ep")
+    first = replayed_check("ep", ep, make_train_step(single, adamw(0.0),
+                                                      lm_loss), batch,
+                           PP_LOSS_ATOL)
+    (_, launches_ep), mem_ep = peak_step(lambda: counted(
+        "ep", lambda: ep.loss_and_grads(batch), flash_want(12, 12)))
+    print(json.dumps({"train_ep": {
+        "mesh": mesh.shape, "devices": [str(d) for d in mesh.devices],
+        "note": MESH_NOTE, "first_step": first, "launches": launches_ep,
+        **mem_ep, "card": card}}), flush=True)
+    del ep, ep_model, single
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"train_moe": fit["launches"], "train_ep": launches_ep}
+
+
+def image_remat(card: str) -> None:
+    """(e) ResNet-50 (bf16, batch IMG_B) one step with remat against one
+    without, from the same weights and BatchNorm buffers: gradients within
+    compare_image_steps' limits, the buffers bitwise (updated once), the
+    step's peak below."""
+    from nezha_tpu_torch.cli.train import build_config, image_ce
+    from nezha_tpu_torch.data import synthetic_image_batches
+    from nezha_tpu_torch.optim import sgd
+    from nezha_tpu_torch.train import make_train_step
+
+    batch = next(synthetic_image_batches(IMG_B))
+    plain, _ = image_check_models(0)
+    rm = build_config("resnet50_imagenet", seed=0, device="cuda",
+                      remat=True).model
+    rm.load_state_dict(plain.state_dict())
+    out = {}
+    for name, m in (("plain", plain), ("remat", rm)):
+        (loss, grads), mem = peak_step(lambda m=m: make_train_step(
+            m, sgd(0.0), image_ce).loss_and_grads(batch))
+        out[name] = (loss, grads, mem)
+        gc.collect()
+        torch.cuda.empty_cache()
+    (loss_p, g_p, mem_p), (loss_r, g_r, mem_r) = out["plain"], out["remat"]
+    diff_sq = norm_sq = 0.0
+    worst_cos = (1.0, "")
+    for name, gp in g_p.items():
+        gr = g_r[name].float()
+        gp = gp.float()
+        diff_sq += (gr - gp).square().sum().item()
+        norm_sq += gp.square().sum().item()
+        cos = torch.nn.functional.cosine_similarity(
+            gr.flatten(), gp.flatten(), dim=0).item() \
+            if gp.norm() > 0 else 1.0
+        worst_cos = min(worst_cos, (cos, name))
+    whole = math.sqrt(diff_sq / norm_sq)
+    if not whole <= IMAGE_GRAD_RTOL or not worst_cos[0] >= IMAGE_GRAD_COS:
+        fail(f"train_pp_moe image remat: gradients {whole} of the norm, "
+             f"worst cosine {worst_cos}")
+    if not abs(loss_r.item() - loss_p.item()) <= IMAGE_LOSS_RTOL * abs(
+            loss_p.item()):
+        fail(f"train_pp_moe image remat: loss {loss_r.item()} vs "
+             f"{loss_p.item()}")
+    stats = 0
+    for (name, a), (_, b) in zip(plain.named_buffers(), rm.named_buffers()):
+        if not torch.equal(a, b):
+            fail(f"train_pp_moe image remat: buffer {name} differs from "
+                 f"the plain step's (updated twice?)")
+        stats += 1
+    if not mem_r["step_peak_gb"] < mem_p["step_peak_gb"]:
+        fail(f"train_pp_moe image remat: peak {mem_r} not below {mem_p}")
+    print(json.dumps({"train_image_remat": {
+        "B": IMG_B, "loss": loss_r.item(), "loss_plain": loss_p.item(),
+        "grad_rel_err_whole": whole, "grad_cos_worst_tensor":
+        list(worst_cos), "buffers_bitwise": stats, "remat": mem_r,
+        "plain": mem_p, "card": card}}), flush=True)
+    del plain, rm, out, g_p, g_r
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def pp_moe_cli(card: str) -> dict:
+    """(f) the train CLI in process: ``--parallel pp`` with a save, the
+    save restored into a fresh pipeline step bitwise, a resume; then
+    ``--moe-experts`` under gspmd with an ep axis."""
+    import tempfile
+
+    from nezha_tpu_torch.models.gpt2 import lm_loss
+    from nezha_tpu_torch.optim import adamw
+    from nezha_tpu_torch.parallel.pipeline import (PipelineTrainStep,
+                                                   gpt2_pipeline_spec,
+                                                   make_pipeline_mesh)
+    from nezha_tpu_torch.train import sharded_checkpoint as sck
+
+    per = 12 * PP_M
+    with tempfile.TemporaryDirectory(prefix="nezha_train_pp_") as tmp:
+        base = ["--config", "gpt2_124m", "--parallel", "pp", "--mesh",
+                f"dp=1,pp={MESH_M}", "--shard-device", "cuda:0",
+                "--microbatches", str(PP_M), "--ckpt-dir", tmp,
+                "--log-every", "0"]
+        run1 = cli_run(*base, "--steps", str(PP_CLI_STEPS),
+                       in_process=True)
+        run2 = None
+        want = {"flash_fwd": per * PP_CLI_STEPS,
+                "flash_bwd_dq": per * PP_CLI_STEPS,
+                "flash_bwd_dkv": per * PP_CLI_STEPS,
+                "flash_bwd_delta": per * PP_CLI_STEPS, "flash_decode": 0}
+        got = {k: run1["launches"][k] for k in want}
+        if got != want or run1["final"]["step"] != PP_CLI_STEPS:
+            fail(f"train_pp_moe CLI pp: launches {got} (expected {want}), "
+                 f"final {run1['final']}")
+        # The save installed into a fresh step as a resume installs it
+        # (Trainer.initialize): every leaf read back as saved.
+        model = pp_fresh()
+        mesh = make_pipeline_mesh({"dp": 1, "pp": MESH_M},
+                                  [torch.device("cuda", 0)] * MESH_M)
+        step = PipelineTrainStep(model, gpt2_pipeline_spec(model),
+                                 adamw(TRAIN_LR, weight_decay=0.1), lm_loss,
+                                 mesh, PP_M)
+        saved, at = sck.try_restore_sharded(tmp, step.restore_request())
+        if at != PP_CLI_STEPS:
+            fail("train_pp_moe CLI pp: its save did not restore")
+        step.load_restored({k: a for k, (a, _) in saved.items()})
+        leaves = step.shard_leaves(saved["rng"][0])
+        for key, (arr, _) in saved.items():
+            whole = np.zeros(leaves[key].shape, arr.dtype)
+            for idx, piece in leaves[key].shards:
+                whole[tuple(slice(lo, hi) for lo, hi in idx)] = piece
+            if not np.array_equal(whole, arr):
+                fail(f"train_pp_moe CLI pp: resumed leaf {key} differs from "
+                     f"the saved one")
+        n_leaves = len(saved)
+        del step, model, saved, leaves
+        gc.collect()
+        torch.cuda.empty_cache()
+        run2 = cli_run(*base, "--steps", str(PP_CLI_MORE), in_process=True)
+        want2 = {k: (per * PP_CLI_MORE if k != "flash_decode" else 0)
+                 for k in want}
+        got2 = {k: run2["launches"][k] for k in want2}
+        if (got2 != want2
+                or run2["final"]["step"] != PP_CLI_STEPS + PP_CLI_MORE
+                or not any("resumed from step" in line
+                           for line in run2["stderr"])):
+            fail(f"train_pp_moe CLI pp resume: launches {got2} (expected "
+                 f"{want2}), final {run2['final']}")
+    moe = cli_run("--config", "gpt2_124m", "--moe-experts", str(MOE_E),
+                  "--parallel", "gspmd", "--mesh",
+                  f"dp=1,tp=1,ep={MESH_M}", "--shard-device", "cuda:0",
+                  "--steps", str(MOE_CLI_STEPS), "--log-every", "0",
+                  in_process=True)
+    want3 = {"flash_fwd": 12 * MOE_CLI_STEPS,
+             "flash_bwd_dq": 12 * MOE_CLI_STEPS,
+             "flash_bwd_dkv": 12 * MOE_CLI_STEPS,
+             "flash_bwd_delta": 12 * MOE_CLI_STEPS}
+    got3 = {k: moe["launches"][k] for k in want3}
+    if got3 != want3 or moe["final"]["step"] != MOE_CLI_STEPS:
+        fail(f"train_pp_moe CLI moe: launches {got3} (expected {want3}), "
+             f"final {moe['final']}")
+    print(json.dumps({"train_pp_moe_cli": {
+        "pp": {"argv": run1["argv"], "wall_s": run1["wall_s"],
+               "final": run1["final"], "launches": got,
+               "saves": run1["saves"]},
+        "resumed_leaves_bitwise": n_leaves,
+        "pp_resume": {"wall_s": run2["wall_s"], "final": run2["final"],
+                      "launches": got2, "restores": run2["restores"]},
+        "moe_ep": {"argv": moe["argv"], "wall_s": moe["wall_s"],
+                   "final": moe["final"], "launches": got3},
+        "note": MESH_NOTE, "card": card}}), flush=True)
+    return {"train_pp_cli": {k: got[k] + got2[k] for k in got},
+            "train_moe_cli": got3}
+
+
+def train_pp_moe(card: str) -> dict:
+    """Phase 4j: pipeline parallelism, the MoE GPT-2 and remat, at GPT-2
+    124M's full width (bf16, B=TRAIN_B, S=TRAIN_S, AdamW, the fused head;
+    every mesh one card repeated, ``[cuda:0] * MESH_M``: its times say
+    nothing about two cards). (a) ``--parallel pp`` at dp=1,pp=MESH_M,
+    PP_M microbatches: the first step's loss within PP_LOSS_ATOL of one
+    device's and its gradients within TRAIN_GRAD_RTOL, B1-B3 and the
+    pre-pass 12 x PP_M a step (no bubble launch), ms a step; (b) the same
+    step rematerialized: B1 2 x 12 x PP_M, B2 and B3 12 x PP_M, the
+    gradients (a)'s, the step's peak below (a)'s; one device with remat:
+    B1 24; (c) the MoE GPT-2 (MOE_E experts, top-2) against its
+    composed-attention twin (the train check), its aux loss and dropped
+    tokens per MoE layer, B1-B3 12 a step, ms a step and the peak; (d) its
+    experts over ep=MESH_M against one device (PP_LOSS_ATOL, the
+    gradients' TRAIN_GRAD_RTOL), B1-B3 12; (e) ResNet-50 with remat
+    against without (image_remat); (f) the CLI (pp_moe_cli). -> the
+    launches by path."""
+    from nezha_tpu_torch.data import synthetic_token_batches
+
+    t_phase = time.perf_counter()
+    batches = synthetic_token_batches(TRAIN_B, seq_len=TRAIN_S, seed=0)
+    batch = next(batches)
+    paths, walls = {}, {}
+    for part, run in (("pp", lambda: pp_parts(card, batches, batch)),
+                      ("moe", lambda: moe_parts(card, batches, batch)),
+                      ("image", lambda: image_remat(card)),
+                      ("cli", lambda: pp_moe_cli(card))):
+        t0 = time.perf_counter()
+        paths.update(run() or {})
+        walls[part] = time.perf_counter() - t0
+    print(json.dumps({"train_pp_moe_wall_s": time.perf_counter() - t_phase,
+                      "parts_s": walls}), flush=True)
+    return paths
+
+
 REJOIN_B = 4              # GPT-2 124M rows a rank: two trainers on the card
 REJOIN_STEPS = 80         # rank 0's horizon
 REJOIN_MORE = 5           # the replacement's steps after its resume
@@ -6905,6 +7415,10 @@ def main() -> int:
     paths.update(train_flags(card))
     phase("train_tp")
     paths.update(train_tp(card))
+    phase("train_pp_moe")
+    paths.update(train_pp_moe(card))
+    gc.collect()
+    torch.cuda.empty_cache()
     phase("train_dist")
     dist_paths = train_dist(card)
     paths["train_dist_gpt2"] = dist_paths["gpt2_124m"]

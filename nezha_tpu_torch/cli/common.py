@@ -118,8 +118,17 @@ def load_tokenizer_arg(args):
 
 
 def _refuse_layouts(ckpt_dir: str, keys) -> None:
-    """The layouts the port cannot read: the graph engine's (no
-    ``variables/`` leaves) and a ``--scan-layers`` trunk's (A7)."""
+    """The layouts the inference CLIs cannot read: a pipeline run's
+    (stacked stage slabs under ``pparams/``, which JAX's inference CLIs do
+    not read either), the graph engine's (no ``variables/`` leaves) and a
+    ``--scan-layers`` trunk's (A7)."""
+    if any(k.startswith("pparams/") for k in keys):
+        raise SystemExit(
+            f"{ckpt_dir}: the newest checkpoint has the pipeline layout "
+            f"(--parallel pp: pparams/ stacked stage slabs, no variables/ "
+            f"leaves); the inference CLIs read a variables/ layout, as the "
+            f"JAX package's do: train on with --parallel pp, or save from "
+            f"another mode")
     if not any(k.startswith("variables/") for k in keys):
         raise NotPortedError(
             f"{ckpt_dir}: the newest checkpoint has the graph engine's "

@@ -62,7 +62,7 @@ a world of one process runs single-device with a warning, unless
 ``--mesh dp=1`` asks for the parallel path on the one device (a world-1
 process group). ``--grad-allreduce int8`` puts the gradients on the int8
 wire (``parallel/quantized.py``) and is refused outside dp and zero1;
-``pp`` and ``sp`` are refused (ROADMAP A7). ``--parallel gspmd``
+``sp`` is refused (ROADMAP A7). ``--parallel gspmd``
 (gpt2_124m and bert_base_zero1) trains tensor-parallel in one process
 (``parallel/gspmd.py``) on ``--mesh dp=D,tp=M`` (default ``dp=1,tp=-1``,
 ``tp=-1`` the visible cards): M shards of every split layer, the batch
@@ -75,8 +75,21 @@ one device. Its saves are per-shard (``step_<N>.sharded``, JAX's shards
 and keys), its eval runs the tensor-parallel model inside
 ``auto_partitioner_scope``; gspmd across processes, and ``--optimizer
 lars|lamb|adafactor`` (whose statistics span a whole tensor) under it,
-are refused. ``--attn-impl`` sets gpt2_124m's and bert_base_zero1's
-attention: auto, xla, flash, or flash_shmap (gspmd only; auto and flash
+are refused. ``--parallel pp`` (gpt2_124m; JAX's GPipe,
+``parallel/pipeline.py``) trains on ``--mesh dp=D,pp=P`` (default
+``dp=1,pp=-1``) with ``--microbatches M`` a step, the layers in P
+contiguous stages, in one process (``--shard-device`` as for gspmd; one
+visible card without it degrades to single-device); its saves are JAX's
+pipeline layout (``pparams/``, the layer axis split P ways) and its eval
+runs the merged weights; ``--wd-exclude-1d`` and pp across processes are
+refused. ``--moe-experts E`` (gpt2_124m) makes every other block's MLP
+a top-2 routed expert layer (``parallel/expert.py``) under single, dp,
+zero1 or gspmd, whose mesh then takes an ``ep`` axis (``dp=D,tp=M,ep=X``,
+default ``dp=1,tp=1,ep=-1``; X must divide E); it cannot pipeline.
+``--remat`` (gpt2_124m and the image configs) recomputes each block in
+the backward (under pp each stage application). ``--attn-impl`` sets
+gpt2_124m's and bert_base_zero1's attention: auto, xla, flash, or
+flash_shmap (gspmd only; auto and flash
 run the same per-shard kernels there); ring and ulysses, the
 sequence-parallel ones, are refused (ROADMAP A7). Every
 ``--failure-check-every`` steps each rank polls the coordinator for dead
@@ -204,8 +217,7 @@ CONFIGS = ("mlp_mnist", "resnet50_imagenet", "gpt2_124m", "bert_base_zero1",
 IMAGE_CONFIGS = ("resnet50_imagenet", "wrn101_large_batch")
 # Flags of the JAX train CLI this port does not take yet.
 NOT_PORTED_FLAGS = frozenset((
-    "--microbatches", "--sp-flash", "--moe-experts", "--remat",
-    "--graph-bf16", "--scan-layers", "--platform", "--engine"))
+    "--sp-flash", "--graph-bf16", "--scan-layers", "--platform", "--engine"))
 # --attn-impl's choices; the last two are --parallel sp's (not ported).
 ATTN_IMPLS = ("auto", "xla", "flash", "flash_shmap", "ring", "ulysses")
 # Each config's parallel mode (the JAX CLI's).
@@ -262,11 +274,14 @@ def build_config(name: str, preset: str = "full", steps: int = 100,
                  seed: int = 0, device="cuda", seq_len: Optional[int] = None,
                  dropout: Optional[float] = None,
                  ln_impl: Optional[str] = None,
-                 attn_impl: Optional[str] = None) -> Config:
+                 attn_impl: Optional[str] = None,
+                 moe_experts: Optional[int] = None,
+                 remat: bool = False) -> Config:
     """THE config table: ``name`` at ``preset`` with weights seeded by
     ``seed`` on ``device``; ``steps`` is the step count of
-    ``Config.optimizer``; ``seq_len``, ``dropout`` and ``ln_impl`` apply
-    to gpt2_124m, ``attn_impl`` to gpt2_124m and bert_base_zero1."""
+    ``Config.optimizer``; ``seq_len``, ``dropout``, ``ln_impl`` and
+    ``moe_experts`` apply to gpt2_124m, ``attn_impl`` to gpt2_124m and
+    bert_base_zero1, ``remat`` to gpt2_124m and the image configs."""
     attn = {} if attn_impl is None else {"attn_impl": attn_impl}
     tiny = preset == "tiny"
     gen = torch.Generator(device=device)
@@ -289,13 +304,14 @@ def build_config(name: str, preset: str = "full", steps: int = 100,
         default_batch = 512 if wide else 256
         if tiny:
             model = ResNet((1, 1), num_classes=100,
-                           width_factor=2 if wide else 1,
+                           width_factor=2 if wide else 1, remat=remat,
                            policy=bf16_policy(), generator=gen)
             return Config(model, image_ce, lambda bs: synthetic_image_batches(
                 bs, image_size=32, num_classes=100), opt, default_batch,
                 CONFIG_MODES[name], steps=steps)
         build = wide_resnet101 if wide else resnet50
-        model = build(stem="s2d", policy=bf16_policy(), generator=gen)
+        model = build(stem="s2d", remat=remat, policy=bf16_policy(),
+                      generator=gen)
         return Config(model, image_ce, synthetic_image_batches, opt,
                       default_batch, CONFIG_MODES[name], steps=steps)
     if name == "bert_base_zero1":
@@ -326,6 +342,10 @@ def build_config(name: str, preset: str = "full", steps: int = 100,
         overrides["dropout"] = dropout
     if ln_impl is not None:
         overrides["ln_impl"] = ln_impl
+    if moe_experts:
+        overrides["moe_experts"] = moe_experts
+    if remat:
+        overrides["remat"] = True
     model = gpt2_for_preset(preset, seed=seed, device=device, **overrides)
     vocab = 512 if tiny else 50257
     seq = seq_len or (64 if tiny else 1024)
@@ -436,16 +456,30 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--parallel", default="config", choices=PARALLEL_MODES,
                    help="config (the config's mode), single, dp (gradient "
                         "all-reduce), zero1 (sharded optimizer state), "
-                        "gspmd (tensor-parallel, one process); pp and sp "
-                        "are not ported")
+                        "gspmd (tensor-parallel, one process), pp (GPipe "
+                        "pipeline, one process); sp is not ported")
+    p.add_argument("--microbatches", type=int, default=4,
+                   help="pipeline microbatches per step (--parallel pp)")
     p.add_argument("--mesh", default=None,
                    help='mesh axes, "dp=N" (N the world size, or -1); '
                         '"dp=1" runs dp/zero1 on one device; gspmd: '
-                        '"dp=D,tp=M" (tp=-1: the visible cards)')
+                        '"dp=D,tp=M" (tp=-1: the visible cards), with '
+                        '--moe-experts "dp=D,tp=M,ep=E"; pp: "dp=D,pp=P"')
     p.add_argument("--shard-device", default=None,
-                   help="gspmd: every shard on this device (cuda:0 runs M "
-                        "shards on one card); default: one visible card a "
-                        "shard on cuda, the CPU repeated on cpu")
+                   help="gspmd and pp: every shard or stage on this device "
+                        "(cuda:0 runs them on one card, one after another); "
+                        "default: one visible card each on cuda, the CPU "
+                        "repeated on cpu")
+    p.add_argument("--moe-experts", type=int, default=None,
+                   help="gpt2_124m: route every other block's MLP through "
+                        "this many top-2 experts (mixture-of-experts; "
+                        "lm_loss adds the load-balance aux); under gspmd "
+                        "the experts shard over an ep mesh axis")
+    p.add_argument("--remat", action="store_true",
+                   help="gpt2_124m + image configs: rematerialize each "
+                        "transformer block / ResNet bottleneck in the "
+                        "backward (activation memory for recompute); "
+                        "under pp each stage application")
     p.add_argument("--attn-impl", default=None, choices=ATTN_IMPLS,
                    help="gpt2_124m, bert_base_zero1: the attention (auto: "
                         "the flash kernels, per shard under gspmd; xla: "
@@ -523,9 +557,11 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
         parser.error("--attn-impl flash_shmap runs the flash kernels per "
                      "shard of a tensor-parallel mesh: it needs --parallel "
                      "gspmd")
-    if args.shard_device is not None and args.parallel != "gspmd":
+    if args.shard_device is not None and args.parallel not in ("gspmd",
+                                                               "pp"):
         parser.error("--shard-device places the shards of --parallel "
-                     "gspmd")
+                     "gspmd and the stages of --parallel pp")
+    check_model_flags(args)
     if args.trace_dir:
         if args.profile_dir and args.profile_dir != args.trace_dir:
             parser.error("--trace-dir is an alias for --profile-dir; pass "
@@ -586,6 +622,24 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
         parser.error("--mlm-mask-token applies to bert_base_zero1 with "
                      "--data-dir (the dynamic-MLM data path)")
     return args
+
+
+def check_model_flags(args) -> None:
+    """The JAX CLI's checks of the model knobs, with its messages."""
+    if args.moe_experts:
+        if args.config != "gpt2_124m":
+            raise SystemExit("--moe-experts applies to gpt2_124m")
+        if args.parallel == "pp":
+            raise SystemExit("--moe-experts cannot pipeline (MoE blocks "
+                             "make the stage slabs heterogeneous); use "
+                             "--parallel dp/zero1/sp, or gspmd with an ep "
+                             "mesh axis (--mesh dp=X,tp=Y,ep=Z)")
+    if args.remat and args.config not in ("gpt2_124m",) + IMAGE_CONFIGS:
+        raise SystemExit("--remat applies to gpt2_124m and the image "
+                         "configs")
+    if args.microbatches < 1:
+        raise SystemExit(f"--microbatches must be >= 1, got "
+                         f"{args.microbatches}")
 
 
 def parse_profile_steps(spec: str):
@@ -821,14 +875,15 @@ def _split_rows(it: Iterator[dict], rank: int, world: int
 
 
 def run_eval(args, cfg: Config, batch_size: int, rank: int = 0,
-             world: int = 1, tp=None) -> Optional[Dict[str, float]]:
+             world: int = 1, tp=None, pp=None) -> Optional[Dict[str, float]]:
     """One pass over the eval split with the current weights, or None
     when there is none. With ``world`` > 1 (dp and ZeRO-1, whose ranks
     hold the same weights), each rank evaluates its rows of every global
     batch and the sums are added over the default group, so the work and
     the memory a rank takes are 1/world of the split's. ``tp`` (a gspmd
     step) evaluates its tensor-parallel model inside
-    ``auto_partitioner_scope`` of its mesh."""
+    ``auto_partitioner_scope`` of its mesh; ``pp`` (a pipeline step)
+    merges its stage slabs back into the model first."""
     batches, close, stat = eval_source(args, cfg, batch_size)
     if batches is None:
         return None
@@ -838,6 +893,8 @@ def run_eval(args, cfg: Config, batch_size: int, rank: int = 0,
 
         batches, group = _split_rows(batches, rank, world), dist.group.WORLD
     model, scope = cfg.model, contextlib.nullcontext()
+    if pp is not None:
+        model = pp.sync_model()
     if tp is not None:
         from nezha_tpu_torch.parallel.gspmd import auto_partitioner_scope
         model, scope = tp.tp_model, auto_partitioner_scope(tp.mesh)
@@ -892,8 +949,8 @@ def resolve_mode(args, cfg: Config, world: int) -> str:
     if mode == "single" and args.mesh:
         raise SystemExit("--mesh has no effect in single-device mode; drop "
                          "it or pick a --parallel mode that consumes it")
-    if mode == "gspmd":
-        return resolve_gspmd(args)
+    if mode in ("gspmd", "pp"):
+        return resolve_sharded(args, mode)
     req = parse_mesh(args.mesh)
     req_size = 1
     for v in (req or {"": -1}).values():
@@ -937,32 +994,55 @@ def resolve_mode(args, cfg: Config, world: int) -> str:
     return mode
 
 
-def gspmd_axes(args) -> Dict[str, int]:
-    return parse_mesh(args.mesh) or {"dp": 1, "tp": -1}
+def mode_mesh(args, mode: str):
+    """(the axes ``mode`` consumes, its default ``--mesh``): the JAX CLI's
+    tables, with the MoE ``ep`` variant of gspmd."""
+    if mode == "pp":
+        return ("dp", "pp"), "dp=1,pp=-1"
+    if args.moe_experts:
+        return ("dp", "tp", "ep"), "dp=1,tp=1,ep=-1"
+    return ("dp", "tp"), "dp=1,tp=-1"
 
 
-def resolve_gspmd(args) -> str:
-    """``--parallel gspmd``'s checks (the JAX CLI's, and the port's own
-    refusals), and its degrade to single-device on one visible card
-    without ``--shard-device`` (JAX's on one device)."""
-    if args.config not in GSPMD_CONFIGS:
+def sharded_axes(args, mode: str) -> Dict[str, int]:
+    return parse_mesh(args.mesh) or parse_mesh(mode_mesh(args, mode)[1])
+
+
+def resolve_sharded(args, mode: str) -> str:
+    """``--parallel gspmd``'s and ``pp``'s checks (the JAX CLI's, and the
+    port's own refusals), and their degrade to single-device on one
+    visible card without ``--shard-device`` (JAX's on one device)."""
+    if mode == "gspmd" and args.config not in GSPMD_CONFIGS:
         raise SystemExit(f"config {args.config!r} has no tensor-parallel "
                          f"rule table; --parallel gspmd supports: "
                          f"{', '.join(GSPMD_CONFIGS)}")
-    if args.optimizer in ("lars", "lamb", "adafactor"):
+    if mode == "pp" and args.config != "gpt2_124m":
+        raise SystemExit(f"config {args.config!r} has no pipeline spec; "
+                         f"--parallel pp supports: gpt2_124m")
+    if mode == "gspmd" and args.optimizer in ("lars", "lamb", "adafactor"):
         raise SystemExit(f"--optimizer {args.optimizer} computes statistics "
                          f"over whole tensors, which the tensor-parallel "
                          f"step's per-shard update cannot see; use adamw, "
                          f"momentum or sgd with --parallel gspmd")
-    axes = gspmd_axes(args)
-    unusable = [a for a in axes if a not in ("dp", "tp")]
+    if mode == "pp" and args.wd_exclude_1d:
+        raise SystemExit("--wd-exclude-1d: this mode's flat/stacked param "
+                         "layout (zero1 chunks, pp stage slabs) erases the "
+                         "leaf shapes the ndim-based decay mask keys on; "
+                         "use --parallel dp/single/gspmd")
+    if args.grad_allreduce != "fp32":
+        raise SystemExit("--grad-allreduce int8 is the dp/zero1 gradient "
+                         f"wire format; mode {mode!r} does not consume it "
+                         "(reject, don't ignore)")
+    consumed = mode_mesh(args, mode)[0]
+    axes = sharded_axes(args, mode)
+    unusable = [a for a in axes if a not in consumed]
     if unusable:
-        raise SystemExit(f"parallel mode 'gspmd' cannot use mesh axis(es) "
-                         f"{unusable} (it consumes ['dp', 'tp']); pass "
+        raise SystemExit(f"parallel mode {mode!r} cannot use mesh axis(es) "
+                         f"{unusable} (it consumes {list(consumed)}); pass "
                          f"--parallel to select the mode that uses them")
-    missing = [a for a in ("dp", "tp") if a not in axes]
+    missing = [a for a in consumed if a not in axes]
     if missing:
-        raise SystemExit(f"parallel mode 'gspmd' needs mesh axis(es) "
+        raise SystemExit(f"parallel mode {mode!r} needs mesh axis(es) "
                          f"{missing} (use size 1 to disable an axis); got "
                          f"{list(axes)}")
     size = 1
@@ -973,30 +1053,60 @@ def resolve_gspmd(args) -> str:
                 and torch.cuda.device_count() == 1)
     if one_card and size != 1:
         print(f"WARNING: config {args.config!r} requests parallel mode "
-              f"'gspmd' but only 1 device is visible; running "
+              f"{mode!r} but only 1 device is visible; running "
               f"single-device (check your mesh/launch if this is a "
               f"multi-chip job; --shard-device repeats one card)",
               file=sys.stderr, flush=True)
         return "single"
-    return "gspmd"
+    return mode
 
 
-def build_gspmd_step(args, cfg: Config, optimizer: Optimizer, loss_fn):
-    """The tensor-parallel step over ``--mesh`` (and ``--shard-device``)."""
+def build_sharded_step(args, cfg: Config, optimizer: Optimizer, loss_fn,
+                       mode: str, batch_size: int):
+    """The tensor-parallel or pipeline step over ``--mesh`` (and
+    ``--shard-device``)."""
     from nezha_tpu_torch.parallel.gspmd import (GSPMDTrainStep,
                                                 make_gspmd_mesh)
-    axes = gspmd_axes(args)
+    from nezha_tpu_torch.parallel.pipeline import (PipelineTrainStep,
+                                                   gpt2_pipeline_spec,
+                                                   make_pipeline_mesh)
+    axes = sharded_axes(args, mode)
     devices = None
     if args.shard_device is not None:
-        devices = [args.shard_device] * max(axes["dp"] * axes["tp"], 1)
+        n = 1
+        for v in axes.values():
+            n *= v
+        devices = [args.shard_device] * max(n, 1)
+    device_type = torch.device(args.device).type
     try:
-        mesh = make_gspmd_mesh(axes, devices,
-                               torch.device(args.device).type)
-        return GSPMDTrainStep(cfg.model, optimizer, loss_fn, mesh)
+        if mode == "gspmd":
+            mesh = make_gspmd_mesh(axes, devices, device_type)
+            if mesh.ep and args.moe_experts % mesh.ep:
+                raise SystemExit(
+                    f"--moe-experts {args.moe_experts} is not divisible by "
+                    f"mesh axis ep={mesh.ep}; expert stacks shard over ep "
+                    f"(pass --mesh dp=X,tp=Y,ep=Z with Z dividing the "
+                    f"expert count)")
+            return GSPMDTrainStep(cfg.model, optimizer, loss_fn, mesh)
+        mesh = make_pipeline_mesh(axes, devices, device_type)
+        if batch_size % mesh.dp:
+            raise ValueError(f"batch of {batch_size} rows does not split "
+                             f"over dp={mesh.dp} groups")
+        if batch_size // mesh.dp % args.microbatches:
+            raise ValueError(f"local batch {batch_size // mesh.dp} not "
+                             f"divisible by num_microbatches "
+                             f"{args.microbatches}")
+        spec = gpt2_pipeline_spec(cfg.model)
+        # dropout_rng/remat follow the spec (the model config's), as JAX's
+        # CLI resolves them.
+        return PipelineTrainStep(cfg.model, spec, optimizer, loss_fn, mesh,
+                                 args.microbatches,
+                                 dropout_rng=bool(spec.dropout))
     except NotPortedError:
         raise
     except ValueError as e:
-        raise SystemExit(f"--mesh {args.mesh or 'dp=1,tp=-1'}: {e}")
+        raise SystemExit(f"--mesh {args.mesh or mode_mesh(args, mode)[1]}: "
+                         f"{e}")
 
 
 def build_optimizer(args, cfg: Config, mode: str) -> Optimizer:
@@ -1107,16 +1217,15 @@ def _run_world(args: argparse.Namespace) -> Dict[str, float]:
             and not torch.cuda.is_available()):
         raise SystemExit("no CUDA device: pass --device cpu to train on "
                          "the CPU")
-    if args.parallel in ("pp", "sp"):
-        raise NotPortedError(f"--parallel {args.parallel} is not ported "
-                             f"(ROADMAP A7: pipeline and sequence "
-                             f"parallelism); the port runs single, dp, "
-                             f"zero1 and gspmd")
-    if args.parallel == "gspmd" and args.coordinator:
+    if args.parallel == "sp":
+        raise NotPortedError("--parallel sp is not ported (ROADMAP A7: "
+                             "sequence parallelism); the port runs single, "
+                             "dp, zero1, gspmd and pp")
+    if args.parallel in ("gspmd", "pp") and args.coordinator:
         # Before the rendezvous, which would wait for peers.
-        raise NotPortedError("--parallel gspmd across processes is not "
-                             "ported (ROADMAP A7): the port's gspmd is one "
-                             "process over its mesh")
+        raise NotPortedError(f"--parallel {args.parallel} across processes "
+                             f"is not ported (ROADMAP A7): the port's "
+                             f"{args.parallel} is one process over its mesh")
     if args.attn_impl in ("ring", "ulysses"):
         raise NotPortedError(f"--attn-impl {args.attn_impl} is the "
                              f"sequence-parallel attention of --parallel "
@@ -1159,7 +1268,8 @@ def _run(args: argparse.Namespace, group,
     cfg = build_config(args.config, args.model_preset, steps=args.steps,
                        seed=args.seed, device=device,
                        seq_len=args.seq_len, dropout=args.dropout,
-                       ln_impl=args.ln_impl, attn_impl=args.attn_impl)
+                       ln_impl=args.ln_impl, attn_impl=args.attn_impl,
+                       moe_experts=args.moe_experts, remat=args.remat)
     mode = resolve_mode(args, cfg, world)
     if args.on_failure == "rejoin" and mode not in ("single", "dp"):
         # The reload goes through Trainer.initialize, which pairs with
@@ -1201,11 +1311,16 @@ def _run(args: argparse.Namespace, group,
         if metrics_log is not None:
             metrics_log.log(step, metrics)
 
-    step_fn = tp = None
-    if mode == "gspmd":
-        step_fn = tp = build_gspmd_step(args, cfg, optimizer, loss_fn)
-        log(0, {"parallel": {"mode": mode, "mesh": tp.mesh.shape,
-                             "devices": [str(d) for d in tp.mesh.devices],
+    step_fn = tp = pp = None
+    if mode in ("gspmd", "pp"):
+        step_fn = build_sharded_step(args, cfg, optimizer, loss_fn, mode,
+                                     batch_size)
+        tp, pp = (step_fn, None) if mode == "gspmd" else (None, step_fn)
+        extra = {"microbatches": args.microbatches} if pp else {}
+        log(0, {"parallel": {"mode": mode, "mesh": step_fn.mesh.shape,
+                             "devices": [str(d) for d in
+                                         step_fn.mesh.devices],
+                             **extra,
                              "opt_state_bytes": step_fn.opt_state_bytes()}})
     if parallel:
         from nezha_tpu_torch.parallel.data_parallel import (DPTrainStep,
@@ -1277,7 +1392,7 @@ def _run(args: argparse.Namespace, group,
                 done += n
                 if done < args.steps:
                     results = run_eval(args, cfg, batch_size, data_rank,
-                                       data_world, tp)
+                                       data_world, tp, pp)
                     if results is not None:
                         log(trainer.global_step, {
                             "step": trainer.global_step,
@@ -1297,7 +1412,7 @@ def _run(args: argparse.Namespace, group,
         log(record["step"], {"rejoin": record})
     if args.eval or args.eval_every:
         results = run_eval(args, cfg, batch_size, data_rank, data_world,
-                           tp)
+                           tp, pp)
         if results is not None:
             if lead:
                 print(json.dumps({"eval": results}), file=sys.stderr,

@@ -19,7 +19,12 @@ buffers ``mean`` and ``var``.
 The whole train state maps the same way (:func:`train_state_to_jax`,
 :func:`load_train_state`): a module, its optimizer state and the run's
 PRNG key become the flat keys of the JAX package's checkpoints, and
-back.
+back. A MoE GPT-2's expert layers map by the same rule
+(``h{i}/mlp/router/w``, ``h{i}/mlp/w_in``, ``h{i}/mlp/w_out``). The
+pipeline's state (``parallel/pipeline.py``) keys the outer parameters
+``pparams/outer/<path>`` and the stacked ``[L, ...]`` block leaves
+``pparams/blocks/<path within a block>`` (:func:`pipeline_key`,
+:func:`pipeline_params_to_jax`, :func:`pipeline_params_from_jax`).
 """
 
 from __future__ import annotations
@@ -176,6 +181,38 @@ def _to_jax_leaf(t: torch.Tensor, conv: bool) -> np.ndarray:
 def _from_jax_leaf(arr: np.ndarray, conv: bool) -> torch.Tensor:
     t = torch.from_numpy(np.ascontiguousarray(arr))
     return t.permute(3, 2, 0, 1) if conv else t
+
+
+def pipeline_key(name: str) -> str:
+    """A pipeline leaf's name (an outer parameter's, or ``blocks.<name
+    within a block>`` for a stacked block leaf) -> its path under
+    ``pparams/`` in the JAX pipeline state."""
+    if name.startswith("blocks."):
+        return "blocks/" + _to_jax_path(name[len("blocks."):])
+    return "outer/" + _to_jax_path(name)
+
+
+def pipeline_params_to_jax(pparams: Dict[str, Dict[str, torch.Tensor]]
+                           ) -> Dict[str, np.ndarray]:
+    """``{"outer": {name: tensor}, "blocks": {name: [L, ...] tensor}}``
+    -> flat ``{"pparams/...": fp32 array}``."""
+    flat = {f"pparams/{pipeline_key(n)}": _array(t)
+            for n, t in pparams["outer"].items()}
+    flat.update({f"pparams/{pipeline_key('blocks.' + n)}": _array(t)
+                 for n, t in pparams["blocks"].items()})
+    return flat
+
+
+def pipeline_params_from_jax(flat: Dict[str, np.ndarray]
+                             ) -> Dict[str, Dict[str, torch.Tensor]]:
+    """The inverse of :func:`pipeline_params_to_jax` (fp32 CPU tensors);
+    keys outside ``pparams/`` are ignored."""
+    out: Dict[str, Dict[str, torch.Tensor]] = {"outer": {}, "blocks": {}}
+    for key, arr in flat.items():
+        part, _, path = key.partition("/")[2].partition("/")
+        if key.startswith("pparams/") and part in out:
+            out[part][_to_torch_name(path)] = _tensor(arr)
+    return out
 
 
 def opt_state_key(path: Tuple[str, ...],

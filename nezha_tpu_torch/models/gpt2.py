@@ -56,6 +56,14 @@ Three attention paths:
 LayerNorms take ``ln_impl``: "xla" (tensor ops) or "pallas" (the fused
 LayerNorm kernels, ``ops/cuda/layer_norm.py``).
 
+``moe_experts`` > 0 makes every ``moe_every``-th block's MLP a routed
+expert layer (``parallel/expert.py``); a forward without a cache then
+returns ``{"logits", "aux_loss"}`` (or the fused-head dict with
+``"aux_loss"``), the MoE layers' load-balance losses weighted by
+``moe_aux_weight``, which ``lm_loss`` adds. ``remat`` recomputes each
+block in the backward of a training forward without a cache
+(``nn/remat.py``: the dropout masks replayed).
+
 Environment switches, read each time a path is resolved, turn the
 serving kernels off without a config change, as in the JAX package:
 ``NEZHA_NO_DECODE_KERNEL`` sends every single-token decode step (dense
@@ -82,6 +90,7 @@ from nezha_tpu_torch.errors import NotPortedError
 from nezha_tpu_torch.nn import (Dropout, Embedding, LayerNorm, Linear,
                                 resolve_device)
 from nezha_tpu_torch.nn import initializers as init_lib
+from nezha_tpu_torch.nn.remat import checkpoint, dropout_generators
 from nezha_tpu_torch.ops import causal_mask, dot_product_attention, gelu
 from nezha_tpu_torch.ops.cuda import (flash_attention,
                                       flash_decode_attention,
@@ -124,9 +133,18 @@ class GPT2Config:
     # "wte", "chunk"} and lm_loss computes the CE from compute-dtype
     # logits with the fp32 upcast inside the logsumexp.
     fused_loss_chunk: int = 0
-    # Knobs of the JAX model this port refuses (NotPortedError).
+    # Mixture-of-experts: > 0 swaps the MLP of every moe_every-th block
+    # (blocks 1, 3, 5, ... at 2) for a top-k routed expert layer
+    # (parallel/expert.py); the forward then also returns the weighted
+    # load-balance loss, which lm_loss adds.
     moe_experts: int = 0
+    moe_top_k: int = 2
+    moe_every: int = 2
+    moe_aux_weight: float = 0.01
+    # Keep each block's input only and recompute the block in the
+    # backward (training without a cache).
     remat: bool = False
+    # The JAX model's scanned trunk, refused (NotPortedError).
     scan_layers: bool = False
 
 
@@ -154,9 +172,8 @@ def check_config(cfg: GPT2Config) -> None:
     if cfg.fused_loss_chunk not in (0, -1):
         raise ValueError(f"fused_loss_chunk must be 0, -1 or > 0, got "
                          f"{cfg.fused_loss_chunk}")
-    for knob in ("moe_experts", "remat", "scan_layers"):
-        if getattr(cfg, knob):
-            raise NotPortedError(f"{knob} is not ported")
+    if cfg.scan_layers:
+        raise NotPortedError("scan_layers is not ported")
     if not 0.0 <= cfg.dropout < 1.0:
         raise ValueError(f"dropout must be in [0, 1), got {cfg.dropout}")
 
@@ -542,9 +559,13 @@ class MLPBlock(nn.Module):
 
 
 class Block(nn.Module):
+    """Pre-LN block; with ``use_moe`` its MLP is a routed expert layer
+    (:class:`~nezha_tpu_torch.parallel.expert.MoE`)."""
+
     def __init__(self, cfg: GPT2Config, policy: Policy,
                  generator: torch.Generator, device=None,
-                 dropout_generator: Optional[torch.Generator] = None):
+                 dropout_generator: Optional[torch.Generator] = None,
+                 use_moe: bool = False):
         super().__init__()
         h = cfg.hidden_size
         self.ln_1 = LayerNorm(h, policy=policy, device=device,
@@ -553,13 +574,27 @@ class Block(nn.Module):
                               dropout_generator)
         self.ln_2 = LayerNorm(h, policy=policy, device=device,
                               impl=cfg.ln_impl)
-        self.mlp = MLPBlock(cfg, policy, generator, device,
-                            dropout_generator)
+        if use_moe:
+            from nezha_tpu_torch.parallel.expert import MoE, MoEConfig
+            self.mlp = MoE(MoEConfig(d_model=h, d_ff=h * cfg.mlp_ratio,
+                                     num_experts=cfg.moe_experts,
+                                     top_k=cfg.moe_top_k),
+                           policy=policy, generator=generator)
+        else:
+            self.mlp = MLPBlock(cfg, policy, generator, device,
+                                dropout_generator)
 
-    def forward(self, x, cache=None, pos=None, active=None, prefill=False):
+    def forward_aux(self, x, cache=None, pos=None, active=None,
+                    prefill=False):
+        """-> (output, the MoE layer's aux loss or None)."""
         x = x + self.attn(self.ln_1(x), cache=cache, pos=pos, active=active,
                           prefill=prefill)
-        return x + self.mlp(self.ln_2(x))
+        y = self.mlp(self.ln_2(x))
+        y, aux = y if isinstance(y, tuple) else (y, None)
+        return x + y, aux
+
+    def forward(self, x, cache=None, pos=None, active=None, prefill=False):
+        return self.forward_aux(x, cache, pos, active, prefill)[0]
 
 
 class GPT2(nn.Module):
@@ -592,9 +627,11 @@ class GPT2(nn.Module):
                              embedding_init=init_lib.normal(0.01),
                              policy=policy, generator=generator)
         self.drop = Dropout(cfg.dropout, drop_gen)
-        self.h = nn.ModuleList(Block(cfg, policy, generator, device,
-                                     drop_gen)
-                               for _ in range(cfg.num_layers))
+        self.h = nn.ModuleList(
+            Block(cfg, policy, generator, device, drop_gen,
+                  use_moe=bool(cfg.moe_experts)
+                  and i % cfg.moe_every == cfg.moe_every - 1)
+            for i in range(cfg.num_layers))
         self.ln_f = LayerNorm(cfg.hidden_size, policy=policy, device=device,
                               impl=cfg.ln_impl)
         drop_gen.manual_seed(int(torch.randint(
@@ -621,16 +658,37 @@ class GPT2(nn.Module):
         else:
             positions = (0 if pos is None else int(pos)) + steps[None, :]
         x = self.drop(self.wte(tokens) + self.wpe(positions))
+        remat = self.cfg.remat and self.training and cache is None
+        terms = []
         for i, block in enumerate(self.h):
-            x = block(x, cache=None if cache is None else cache[i], pos=pos,
-                      active=active, prefill=prefill)
+            if remat:
+                # Only the block's input is kept; the backward recomputes
+                # the block, its dropout masks replayed.
+                x, aux = checkpoint(block.forward_aux, x, pos=pos,
+                                    generators=dropout_generators(block))
+            else:
+                x, aux = block.forward_aux(
+                    x, cache=None if cache is None else cache[i], pos=pos,
+                    active=active, prefill=prefill)
+            if aux is not None:
+                terms.append(aux)
         x = self.ln_f(x)
+        # The MoE layers' load-balance losses, weighted (JAX harvests them
+        # out of the blocks' state); a cached forward carries none.
+        aux = (self.cfg.moe_aux_weight * sum(terms)
+               if terms and cache is None else None)
         if self.cfg.fused_loss_chunk and cache is None:
             # The LM head moves into the loss (lm_loss); gradients reach
             # the tied table through this dict.
-            return {"hidden": x, "wte": self.wte.embedding,
-                    "chunk": self.cfg.fused_loss_chunk}
-        return self.wte.attend(x).float()
+            out = {"hidden": x, "wte": self.wte.embedding,
+                   "chunk": self.cfg.fused_loss_chunk}
+            if aux is not None:
+                out["aux_loss"] = aux
+            return out
+        logits = self.wte.attend(x).float()
+        if aux is not None:
+            return {"logits": logits, "aux_loss": aux}
+        return logits
 
 
 def gpt2_124m(policy: Optional[Policy] = None,

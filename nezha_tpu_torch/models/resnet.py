@@ -17,11 +17,11 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from nezha_tpu_torch.errors import NotPortedError
 from nezha_tpu_torch.nn import initializers as init_lib
 from nezha_tpu_torch.nn.layers import (BatchNorm, Conv2d, Linear,
                                        _generator, global_avg_pool,
                                        max_pool, resolve_device)
+from nezha_tpu_torch.nn.remat import checkpoint
 from nezha_tpu_torch.ops.activations import relu
 from nezha_tpu_torch.tensor.policy import DEFAULT_POLICY, Policy
 
@@ -83,7 +83,9 @@ class ResNet(nn.Module):
     the Wide-ResNets (inner width doubled, outputs unchanged).
     ``stem="s2d"`` runs the stem through :func:`_space_to_depth_stem`
     when H and W are even (the plain conv otherwise), ``"conv7"`` always
-    the plain conv. ``remat=True`` (per-block recompute) is not ported."""
+    the plain conv. ``remat=True`` keeps each bottleneck's input only in
+    training and recomputes the bottleneck in the backward; its
+    BatchNorm statistics are updated once, by the forward."""
 
     def __init__(self, stage_sizes: Sequence[int], num_classes: int = 1000,
                  width_factor: int = 1, in_channels: int = 3,
@@ -93,10 +95,8 @@ class ResNet(nn.Module):
         super().__init__()
         if stem not in ("conv7", "s2d"):
             raise ValueError(f"unknown stem {stem!r}")
-        if remat:
-            raise NotPortedError("ResNet remat=True (per-block recompute) "
-                                 "is not ported")
         g = _generator(generator, device)
+        self.remat = remat
         self.stage_sizes = tuple(stage_sizes)
         self.stem = stem
         self.policy = policy
@@ -128,8 +128,9 @@ class ResNet(nn.Module):
         else:
             x = self.stem_conv(x)
         x = max_pool(relu(self.stem_bn(x)), 3, 2, "SAME")
+        remat = self.remat and self.training
         for block in self.blocks:
-            x = block(x)
+            x = checkpoint(block, x) if remat else block(x)
         return self.head(global_avg_pool(x)).float()
 
 

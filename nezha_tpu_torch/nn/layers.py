@@ -25,6 +25,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from nezha_tpu_torch.nn import initializers as init_lib
+from nezha_tpu_torch.nn.remat import recomputing
 from nezha_tpu_torch.ops.cuda.layer_norm import fused_layer_norm
 from nezha_tpu_torch.tensor.policy import DEFAULT_POLICY, Policy
 
@@ -261,7 +262,9 @@ class BatchNorm(nn.Module):
     - in training the fp32 buffers ``mean`` and ``var`` become
       ``momentum * old + (1 - momentum) * batch`` (JAX's momentum keeps
       the old value; PyTorch's weighs the new), under ``no_grad`` in the
-      forward, where JAX's train step threads the new state;
+      forward, where JAX's train step threads the new state; not again
+      when a rematerialized block recomputes its forward
+      (``nn.remat.recomputing``);
     - in eval mode the buffers stand in for the batch statistics;
     - the output is ``x * scale + shift`` in ``x``'s dtype, ``scale`` and
       ``shift`` formed per channel in fp32 and then cast."""
@@ -288,9 +291,10 @@ class BatchNorm(nn.Module):
             reduce = (0,) + tuple(range(2, x.dim()))
             var, mean = torch.var_mean(x.float(), dim=reduce, correction=0)
             m = self.momentum
-            with torch.no_grad():
-                self.mean.copy_(m * self.mean + (1 - m) * mean)
-                self.var.copy_(m * self.var + (1 - m) * var)
+            if not recomputing():   # the forward took this batch in
+                with torch.no_grad():
+                    self.mean.copy_(m * self.mean + (1 - m) * mean)
+                    self.var.copy_(m * self.var + (1 - m) * var)
         else:
             mean, var = self.mean, self.var
         scale = self.scale.float() * torch.rsqrt(var + self.eps)

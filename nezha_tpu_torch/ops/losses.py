@@ -77,9 +77,14 @@ def lm_ce_from_fused(out: dict, targets: torch.Tensor,
 
 
 def lm_objective(out, targets: torch.Tensor) -> torch.Tensor:
-    """Next-token CE for a GPT-2 forward output: dense logits or the
-    fused-head dict (the JAX function also takes the MoE outputs, which
-    are not ported)."""
+    """Next-token CE for any GPT-2 forward output: dense logits, the MoE
+    ``{"logits", "aux_loss"}`` dict, or the fused-head dict (with or
+    without ``"aux_loss"``); the pre-weighted MoE load-balance loss is
+    added when present."""
     if isinstance(out, dict):
-        return lm_ce_from_fused(out, targets)
+        aux = out.get("aux_loss", 0.0)
+        if "logits" in out:
+            return softmax_cross_entropy_with_integer_labels(
+                out["logits"], targets) + aux
+        return lm_ce_from_fused(out, targets) + aux
     return softmax_cross_entropy_with_integer_labels(out, targets)

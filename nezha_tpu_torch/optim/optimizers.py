@@ -38,8 +38,14 @@ def _f32(x) -> torch.Tensor:
 
 @dataclasses.dataclass(frozen=True)
 class Optimizer:
+    """``elementwise``: each tensor's update depends on that tensor's
+    elements one by one (and on global scalars), so a tensor cut into
+    pieces updates piece by piece with the same result; False where
+    statistics span a whole tensor (LARS's and LAMB's trust ratios,
+    Adafactor's factored moments)."""
     init: Callable[[Tree], Any]
     update: Callable[[Tree, Any, Tree], Tuple[Tree, Any]]
+    elementwise: bool = True
 
 
 def state_leaves(state: dict, path: Tuple[str, ...] = ()
@@ -221,7 +227,7 @@ def lars(lr, beta: float = 0.9, weight_decay: float = 0.0,
             updates[k], velocity[k] = -lr_t * v, v
         return updates, {"step": state["step"] + 1, "velocity": velocity}
 
-    return Optimizer(init, update)
+    return Optimizer(init, update, elementwise=False)
 
 
 def lamb(lr, b1: float = 0.9, b2: float = 0.999, eps: float = 1e-6,
@@ -260,7 +266,7 @@ def lamb(lr, b1: float = 0.9, b2: float = 0.999, eps: float = 1e-6,
             updates[k], mu[k], nu[k] = -lr_t * trust * d, m, v
         return updates, {"step": step, "mu": mu, "nu": nu}
 
-    return Optimizer(init, update)
+    return Optimizer(init, update, elementwise=False)
 
 
 def _jax_layout(t: torch.Tensor) -> torch.Tensor:
@@ -327,7 +333,7 @@ def adafactor(lr, decay: float = 0.8, eps: float = 1e-30,
             updates[k] = _port_layout(-lr_t * d)
         return updates, {"step": step, "slots": slots}
 
-    return Optimizer(init, update)
+    return Optimizer(init, update, elementwise=False)
 
 
 def accumulate_gradients(opt: Optimizer, every: int) -> Optimizer:
@@ -361,7 +367,7 @@ def accumulate_gradients(opt: Optimizer, every: int) -> Optimizer:
                  for k, p in params.items()},
                 {"inner": state["inner"], "acc": acc, "count": count})
 
-    return Optimizer(init, update)
+    return Optimizer(init, update, opt.elementwise)
 
 
 def with_grad_clipping(opt: Optimizer, max_norm: float,
@@ -374,7 +380,7 @@ def with_grad_clipping(opt: Optimizer, max_norm: float,
         grads, _ = clip_by_global_norm(grads, max_norm, group)
         return opt.update(grads, state, params)
 
-    return Optimizer(opt.init, update)
+    return Optimizer(opt.init, update, opt.elementwise)
 
 
 def matrix_decay_mask(params: Tree) -> Dict[str, bool]:

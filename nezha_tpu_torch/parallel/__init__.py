@@ -3,13 +3,34 @@ one-process serve mesh (:mod:`.mesh`) and the composed ring attention
 (:mod:`.ring`) the sequence-sharded prefill folds with; and, over a
 ``torch.distributed`` group, the collectives (:mod:`.collectives`), the
 int8 wire (:mod:`.quantized`), data parallelism (:mod:`.data_parallel`)
-and ZeRO-1 (:mod:`.zero1`); and tensor parallelism over a one-process
-``dp x tp`` mesh (:mod:`.gspmd`), imported from their modules."""
+and ZeRO-1 (:mod:`.zero1`); tensor parallelism over a one-process
+``dp x tp (x ep)`` mesh (:mod:`.gspmd`), the mixture-of-experts layer and
+its expert parallelism (:mod:`.expert`) and the GPipe pipeline over a
+one-process ``dp x pp`` mesh (:mod:`.pipeline`), imported from their
+modules."""
 
+from nezha_tpu_torch.parallel.expert import (MoE, MoEConfig, ShardedMoE,
+                                             dryrun_moe_step,
+                                             gpt2_moe_gspmd_rules,
+                                             moe_ep_rules, routing_tape,
+                                             shard_moe_params)
 from nezha_tpu_torch.parallel.mesh import (Mesh, all_to_all, device_scope,
                                            make_mesh, pmax, ppermute, psum,
                                            ring_perm)
+from nezha_tpu_torch.parallel.pipeline import (PipelineMesh, PipelineSpec,
+                                               PipelineTrainStep,
+                                               gpt2_pipeline_spec,
+                                               make_pipeline_mesh,
+                                               make_pipeline_train_step,
+                                               merge_pipeline_params,
+                                               stack_block_params,
+                                               unstack_block_params)
 from nezha_tpu_torch.parallel.ring import ring_attention_lse
 
-__all__ = ["Mesh", "all_to_all", "device_scope", "make_mesh", "pmax",
-           "ppermute", "psum", "ring_attention_lse", "ring_perm"]
+__all__ = ["Mesh", "MoE", "MoEConfig", "PipelineMesh", "PipelineSpec",
+           "PipelineTrainStep", "ShardedMoE", "all_to_all", "device_scope",
+           "dryrun_moe_step", "gpt2_moe_gspmd_rules", "gpt2_pipeline_spec",
+           "make_mesh", "make_pipeline_mesh", "make_pipeline_train_step",
+           "merge_pipeline_params", "moe_ep_rules", "pmax", "ppermute",
+           "psum", "ring_attention_lse", "ring_perm", "routing_tape",
+           "shard_moe_params", "stack_block_params", "unstack_block_params"]

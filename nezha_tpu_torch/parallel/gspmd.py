@@ -58,15 +58,14 @@ import numpy as np
 import torch
 from torch import nn
 
-from nezha_tpu_torch.errors import NotPortedError
 from nezha_tpu_torch.models.bert import Bert, EncoderLayer
 from nezha_tpu_torch.models.gpt2 import GPT2
 from nezha_tpu_torch.ops import gelu
 from nezha_tpu_torch.ops.attention import make_attention_mask
 from nezha_tpu_torch.ops.cuda import flash_attention
 from nezha_tpu_torch.optim.optimizers import Optimizer, state_leaves
-from nezha_tpu_torch.parallel.mesh import (Mesh, _default_devices, _indexed,
-                                           device_scope)
+from nezha_tpu_torch.parallel.mesh import (Mesh, check_groups_repeat,
+                                           device_scope, group_mesh)
 from nezha_tpu_torch.serve.sharded.model import (ShardedEmbedding,
                                                  ShardedGPT2, _row_parallel,
                                                  column_parallel,
@@ -161,60 +160,54 @@ def scoped_tp_flash(q, k, v, num_heads: int, causal: bool,
 # ------------------------------------------------------------- the mesh
 @dataclasses.dataclass(frozen=True)
 class GspmdMesh:
-    """``dp`` groups of a ``tp``-shard mesh: group g's shard r is
-    ``devices[g * tp + r]``."""
+    """``dp`` groups of a ``tp`` x ``ep`` mesh, laid out as JAX's
+    ``(dp, tp, ep)`` mesh: group g's device ``(t, e)`` is
+    ``devices[(g * tp + t) * ep + e]``. The tp shards of a group are its
+    devices at ``e = 0`` (:meth:`group`), the ep shards those at ``t = 0``
+    (:meth:`ep_group`). ``ep`` is None for a mesh without the axis."""
 
     devices: Tuple[torch.device, ...]
     dp: int
     tp: int
+    ep: Optional[int] = None
 
     @property
     def shape(self) -> Dict[str, int]:
-        return {"dp": self.dp, "tp": self.tp}
+        out = {"dp": self.dp, "tp": self.tp}
+        if self.ep is not None:
+            out["ep"] = self.ep
+        return out
+
+    def _block(self, g: int) -> Tuple[torch.device, ...]:
+        n = self.tp * (self.ep or 1)
+        return self.devices[g * n:(g + 1) * n]
 
     def group(self, g: int) -> Mesh:
-        return Mesh(self.devices[g * self.tp:(g + 1) * self.tp], "tp")
+        return Mesh(self._block(g)[::self.ep or 1], "tp")
+
+    def ep_group(self, g: int) -> Mesh:
+        return Mesh(self._block(g)[:self.ep or 1], "ep")
+
+    def ways(self, split: Split) -> int:
+        """The shards a split leaf has: tp, or ep for the expert stacks."""
+        return (self.ep or 1) if split.mesh_axis == "ep" else self.tp
+
+    def submesh(self, split: Split) -> Mesh:
+        return self.ep_group(0) if split.mesh_axis == "ep" else self.group(0)
 
 
 def make_gspmd_mesh(axes: Dict[str, int], devices: Optional[Sequence] = None,
                     device_type: str = "cuda") -> GspmdMesh:
-    """The ``{"dp": D, "tp": M}`` mesh on ``devices`` (None: the visible
-    cards on ``cuda``, the CPU repeated on ``cpu``). ``tp=-1`` takes the
-    visible cards left to each dp group; it needs cards (and no repeated
-    ``devices``). A dp group on other devices than group 0's raises
-    :class:`NotPortedError` (one process a group, ROADMAP A7)."""
-    unknown = sorted(set(axes) - {"dp", "tp"})
-    if unknown or "tp" not in axes or "dp" not in axes:
-        raise ValueError(f"a gspmd mesh has the axes dp and tp, got "
-                         f"{dict(axes)}")
-    dp, tp = int(axes["dp"]), int(axes["tp"])
-    if dp < 1:
-        raise ValueError(f"mesh axis dp needs size >= 1, got {dp}")
-    if tp == -1:
-        if devices is not None or device_type != "cuda":
-            raise ValueError("tp=-1 takes the visible cards: give tp=M "
-                             "with a repeated device or on the CPU")
-        tp = len(_default_devices("cuda", 0)) // dp
-    if tp < 1:
-        raise ValueError(f"mesh axis tp needs size >= 1, got {tp} (too few "
-                         f"visible cards for dp={dp}?)")
-    n = dp * tp
-    if devices is None:
-        devices = (_default_devices(device_type, n) if device_type == "cuda"
-                   else [torch.device(device_type)] * n)
-    devs = [_indexed(torch.device(d)) for d in devices]
-    if n > len(devs):
-        raise ValueError(
-            f"a dp={dp} x tp={tp} mesh needs {n} devices, only {len(devs)} "
-            f"visible (name the devices, which may repeat one)")
-    mesh = GspmdMesh(tuple(devs[:n]), dp, tp)
-    for g in range(1, dp):
-        if mesh.group(g).devices != mesh.group(0).devices:
-            raise NotPortedError(
-                f"dp group {g} runs on {list(mesh.group(g).devices)}, "
-                f"group 0 on {list(mesh.group(0).devices)}: one process "
-                f"drives one set of shards, so dp groups on other cards "
-                f"need a process each (multi-process gspmd, ROADMAP A7)")
+    """The ``{"dp": D, "tp": M}`` mesh, or ``{"dp", "tp", "ep"}`` for a MoE
+    model's expert axis, on ``devices`` (None: the visible cards on
+    ``cuda``, the CPU repeated on ``cpu``). One axis of size -1 (``tp``
+    or ``ep``) takes the visible cards left to it; it needs cards (and no
+    repeated ``devices``). A dp group on other devices than group 0's
+    raises :class:`NotPortedError` (one process a group, ROADMAP A7)."""
+    sizes, devs = group_mesh(axes, ("tp", "ep"), "gspmd", devices,
+                             device_type)
+    mesh = GspmdMesh(tuple(devs), sizes["dp"], sizes["tp"], sizes.get("ep"))
+    check_groups_repeat([mesh._block(g) for g in range(mesh.dp)], "gspmd")
     return mesh
 
 
@@ -222,14 +215,19 @@ def make_gspmd_mesh(axes: Dict[str, int], devices: Optional[Sequence] = None,
 def tp_rules(model: nn.Module, tp: int) -> Rules:
     """The model's table (:data:`GPT2_TP_RULES` or :data:`BERT_TP_RULES`),
     with the token embedding replicated where ``tp`` does not divide the
-    vocabulary."""
+    vocabulary; a MoE GPT-2's under ``gpt2_moe_gspmd_rules`` (the expert
+    stacks over ``ep``)."""
     for cls, emb in _EMBEDDING.items():
         if isinstance(model, cls):
             table = GPT2_TP_RULES if cls is GPT2 else BERT_TP_RULES
-            if model.cfg.vocab_size % max(int(tp), 1) == 0:
-                return list(table)
-            return [(pat, REPLICATED if pat == emb else split)
-                    for pat, split in table]
+            if model.cfg.vocab_size % max(int(tp), 1):
+                table = [(pat, REPLICATED if pat == emb else split)
+                         for pat, split in table]
+            if cls is GPT2 and model.cfg.moe_experts:
+                from nezha_tpu_torch.parallel.expert import \
+                    gpt2_moe_gspmd_rules
+                return gpt2_moe_gspmd_rules(table)
+            return list(table)
     raise ValueError(f"no tensor-parallel rule table for "
                      f"{type(model).__name__}; --parallel gspmd supports "
                      f"gpt2_124m, bert_base_zero1")
@@ -299,9 +297,10 @@ def unshard(parts: Sequence[torch.Tensor], split: Split) -> torch.Tensor:
                      dim=split.axis)
 
 
-def _place_tree(tree: Any, specs: Any, mesh: Mesh, leaf_fn) -> Any:
+def _place_tree(tree: Any, specs: Any, mesh, leaf_fn) -> Any:
     """A nested dict of tensors keyed by parameter names -> the same with
-    each split tensor replaced by its shards under flat keys."""
+    each split tensor replaced by its shards under flat keys (over the
+    mesh's tp or ep shards, by the split's axis)."""
     if not isinstance(tree, dict):
         return tree
     out = {}
@@ -310,9 +309,10 @@ def _place_tree(tree: Any, specs: Any, mesh: Mesh, leaf_fn) -> Any:
         if isinstance(v, dict):
             out[k] = _place_tree(v, sp, mesh, leaf_fn)
         elif torch.is_tensor(v) and sp.axis is not None:
-            for r, dev in enumerate(mesh.devices):
+            sub = mesh.submesh(sp) if isinstance(mesh, GspmdMesh) else mesh
+            for r, dev in enumerate(sub.devices):
                 out[shard_key(k, r)] = leaf_fn(
-                    shard_slice(v.detach(), sp, r, mesh.size).to(dev)
+                    shard_slice(v.detach(), sp, r, sub.size).to(dev)
                     .contiguous())
         else:
             out[k] = v
@@ -322,16 +322,16 @@ def _place_tree(tree: Any, specs: Any, mesh: Mesh, leaf_fn) -> Any:
 def shard_train_state(state: Dict[str, Any], mesh, param_specs
                       ) -> Dict[str, Any]:
     """Lay a whole train state ``{"variables": {name: tensor},
-    "opt_state": ..., "rng": ...}`` out over ``mesh``'s tp shards (group 0's
-    devices, which every dp group shares): a split leaf becomes one leaf a
-    shard under :func:`shard_key`, a replicated one stays as it is; the
-    optimizer state follows :func:`opt_state_specs`."""
-    tp = _tp_mesh(mesh) or mesh
+    "opt_state": ..., "rng": ...}`` out over ``mesh``'s tp (or, for the
+    expert stacks, ep) shards (group 0's devices, which every dp group
+    shares): a split leaf becomes one leaf a shard under
+    :func:`shard_key`, a replicated one stays as it is; the optimizer
+    state follows :func:`opt_state_specs`."""
     return {
-        "variables": _place_tree(state["variables"], param_specs, tp,
+        "variables": _place_tree(state["variables"], param_specs, mesh,
                                  lambda t: t.requires_grad_(True)),
         "opt_state": _place_tree(state["opt_state"], opt_state_specs(
-            state["opt_state"], param_specs), tp, lambda t: t),
+            state["opt_state"], param_specs), mesh, lambda t: t),
         "rng": state.get("rng")}
 
 
@@ -481,11 +481,11 @@ class GSPMDTrainStep(TrainStep):
         self.jax_names = jax_leaf_names(model)
         self.shapes = {n: tuple(p.shape) for n, p in names.items()}
         placed = shard_train_state({"variables": names, "opt_state": {}},
-                                   tpm, param_specs)["variables"]
+                                   mesh, param_specs)["variables"]
         shards = [{} for _ in range(tpm.size)]
         for n, p in names.items():
             split = param_specs[n]
-            for r in range(tpm.size):
+            for r in range(tpm.size if split.mesh_axis == "tp" else 0):
                 shards[r][n] = (p if split.axis is None
                                 else placed[shard_key(n, r)])
             if split.axis is not None:
@@ -495,6 +495,21 @@ class GSPMDTrainStep(TrainStep):
         rules = [("^" + re.escape(n) + "$", s) for n, s in
                  param_specs.items()]
         self.tp_model = tp_model(model, tpm, rules, shards)
+        # A MoE GPT-2 routes over the whole batch, as JAX's gspmd does
+        # (one capacity from the global token count): its dp groups' rows
+        # go through one forward, on the devices they share.
+        self.route_globally = isinstance(model, GPT2) and bool(
+            model.cfg.moe_experts)
+        if self.route_globally:
+            from nezha_tpu_torch.parallel.expert import MoE, ShardedMoE
+            epm = mesh.ep_group(0)
+            for i, blk in enumerate(self.tp_model.h):
+                if isinstance(blk.mlp, MoE):
+                    pre = f"h.{i}.mlp."
+                    w = [[placed[shard_key(pre + k, r)]
+                          for r in range(epm.size)]
+                         for k in ("w_in", "w_out")]
+                    blk.mlp = ShardedMoE(blk.mlp, w[0], w[1], epm)
         self.opt_state = optimizer.init(self.params)
 
     # ------------------------------------------------------------ step
@@ -506,8 +521,9 @@ class GSPMDTrainStep(TrainStep):
                   else shard_batch_gspmd(self.mesh, batch))
         groups = [batch_to_device(g, self.device) for g in groups]
         self.tp_model.train()
-        out = _cat_outputs([self.tp_model(g) for g in groups])
         whole = {k: torch.cat([g[k] for g in groups]) for k in groups[0]}
+        out = (self.tp_model(whole) if self.route_globally
+               else _cat_outputs([self.tp_model(g) for g in groups]))
         loss = self.loss_fn(out, whole).float()
         return loss.detach(), grads_of(loss, self.params)
 
@@ -516,13 +532,13 @@ class GSPMDTrainStep(TrainStep):
                  ) -> Dict[str, torch.Tensor]:
         """Flat-keyed tensors -> whole tensors by parameter name."""
         out = {}
-        m = self.mesh.tp
         for n, split in self.specs.items():
             if split.axis is None:
                 if n in flat:
                     out[n] = flat[n]
             elif shard_key(n, 0) in flat:
-                out[n] = unshard([flat[shard_key(n, r)] for r in range(m)],
+                out[n] = unshard([flat[shard_key(n, r)]
+                                  for r in range(self.mesh.ways(split))],
                                  split)
         return out
 
@@ -544,9 +560,10 @@ class GSPMDTrainStep(TrainStep):
                     and name in self.specs):
                 logical = path[:-1] + (name,)
                 if logical not in seen:
+                    split = self.specs[name]
                     seen[logical] = ([path[:-1] + (shard_key(name, i),)
-                                      for i in range(self.mesh.tp)],
-                                     self.specs[name])
+                                      for i in range(self.mesh.ways(split))],
+                                     split)
             elif torch.is_tensor(leaf):
                 seen[path] = ([path], REPLICATED)
             else:
@@ -569,7 +586,7 @@ class GSPMDTrainStep(TrainStep):
         arr = _to_jax_leaf(t, False)
         shape = arr.shape
         full = [(0, n) for n in shape]
-        m = self.mesh.tp
+        m = self.mesh.ways(split)
         if split.axis is None or shape[split.axis] % m:
             return ShardedLeaf(shape, str(arr.dtype), [(tuple(full), arr)])
         step = shape[split.axis] // m
@@ -623,19 +640,19 @@ class GSPMDTrainStep(TrainStep):
         """Install a restored state (whole leaves by JAX key): each split
         tensor cut into this mesh's shards."""
         from nezha_tpu_torch.models.convert import opt_state_key
-        m = self.mesh.tp
 
         def put(leaves, whole_arr, split):
             t = torch.from_numpy(np.ascontiguousarray(whole_arr))
             for r, leaf in enumerate(leaves):
-                part = shard_slice(t, split, r, m) if split.axis is not None \
-                    else t
+                part = (shard_slice(t, split, r, self.mesh.ways(split))
+                        if split.axis is not None else t)
                 leaf.copy_(part.to(device=leaf.device, dtype=leaf.dtype))
 
         for n, (key, _) in self.jax_names.items():
             split = self.specs[n]
             leaves = ([self.params[n]] if split.axis is None else
-                      [self.params[shard_key(n, r)] for r in range(m)])
+                      [self.params[shard_key(n, r)]
+                       for r in range(self.mesh.ways(split))])
             put(leaves, arrays[f"variables/{key}"], split)
         for logical, (parts, split) in self._state_groups().items():
             arr = arrays[opt_state_key(logical, self.jax_names)]

@@ -81,6 +81,72 @@ def make_mesh(axes: Dict[str, int],
     return Mesh(tuple(devs[:size]), name)
 
 
+def group_mesh(axes: Dict[str, int], inner: Sequence[str], kind: str,
+               devices: Optional[Sequence] = None,
+               device_type: str = "cuda"
+               ) -> Tuple[Dict[str, int], List[torch.device]]:
+    """The sizes and devices of a one-process mesh of ``dp`` groups over
+    the ``inner`` axes (gspmd's ``tp`` and ``ep``, the pipeline's ``pp``);
+    the first of ``inner`` must be present. One inner axis of size -1
+    takes the visible cards left to it (cards only, ``devices`` None).
+    ``devices`` None: the visible cards on ``cuda``, the CPU repeated on
+    ``cpu``. -> (``{axis: size}`` in ``("dp",) + inner`` order, the
+    mesh's devices)."""
+    names = ("dp",) + tuple(inner)
+    unknown = sorted(set(axes) - set(names))
+    if unknown or "dp" not in axes or inner[0] not in axes:
+        raise ValueError(f"a {kind} mesh has the axes dp and {inner[0]}"
+                         + (f" (and {', '.join(inner[1:])})"
+                            if len(inner) > 1 else "")
+                         + f", got {dict(axes)}")
+    sizes = {a: int(axes[a]) for a in names if a in axes}
+    if sizes["dp"] < 1:
+        raise ValueError(f"mesh axis dp needs size >= 1, got {sizes['dp']}")
+    for axis, size in sizes.items():
+        if size != -1 or axis == "dp":
+            continue
+        if devices is not None or device_type != "cuda":
+            raise ValueError(f"{axis}=-1 takes the visible cards: give "
+                             f"{axis}=M with a repeated device or on the "
+                             f"CPU")
+        rest = 1
+        for a, v in sizes.items():
+            rest *= v if a != axis else 1
+        sizes[axis] = len(_default_devices("cuda", 0)) // max(rest, 1)
+    for axis in inner:
+        if sizes.get(axis, 1) < 1:
+            raise ValueError(f"mesh axis {axis} needs size >= 1, got "
+                             f"{sizes[axis]} (too few visible cards for "
+                             f"dp={sizes['dp']}?)")
+    n = 1
+    for v in sizes.values():
+        n *= v
+    if devices is None:
+        devices = (_default_devices(device_type, n) if device_type == "cuda"
+                   else [torch.device(device_type)] * n)
+    devs = [_indexed(torch.device(d)) for d in devices]
+    if n > len(devs):
+        shape = " x ".join(f"{a}={v}" for a, v in sizes.items())
+        raise ValueError(
+            f"a {shape} mesh needs {n} devices, only {len(devs)} visible "
+            f"(name the devices, which may repeat one)")
+    return sizes, devs[:n]
+
+
+def check_groups_repeat(groups: Sequence[Sequence[torch.device]],
+                        kind: str) -> None:
+    """One process drives one set of shards: every dp group's devices
+    must be group 0's, else :class:`NotPortedError` (ROADMAP A7)."""
+    from nezha_tpu_torch.errors import NotPortedError
+    for g in range(1, len(groups)):
+        if tuple(groups[g]) != tuple(groups[0]):
+            raise NotPortedError(
+                f"dp group {g} runs on {list(groups[g])}, group 0 on "
+                f"{list(groups[0])}: one process drives one set of "
+                f"shards, so dp groups on other cards need a process each "
+                f"(multi-process {kind}, ROADMAP A7)")
+
+
 def device_scope(device: torch.device):
     """Make ``device`` the current card while a shard launches kernels on
     it (a kernel launches on the current device); a no-op off cuda."""

@@ -51,6 +51,7 @@ from nezha_tpu_torch.models.gpt2 import (GPT2, Attention, Block,
 from nezha_tpu_torch.nn.layers import linear
 from nezha_tpu_torch.ops import causal_mask, dot_product_attention, gelu
 from nezha_tpu_torch.ops.cuda import flash_attention
+from nezha_tpu_torch.parallel.expert import MoE
 from nezha_tpu_torch.parallel.mesh import Mesh, device_scope, pmax, psum
 from nezha_tpu_torch.serve.sharded.reshard import (Split, place_variables,
                                                    rule_for)
@@ -279,10 +280,13 @@ class ShardedGPT2(GPT2):
                     if rule_for("wte.embedding", rules).axis is not None
                     else model.wte)
         self.wpe, self.drop, self.ln_f = model.wpe, model.drop, model.ln_f
+        # A MoE block's expert layer stays the model's (replicated; the
+        # tensor-parallel train step swaps in its ep-split layer).
         self.h = nn.ModuleList(
             _ShardedBlock(
                 blk,
                 ShardedAttention(blk.attn, self.shards, f"h.{i}.attn.", mesh,
                                  pol, seq_variant),
+                blk.mlp if isinstance(blk.mlp, MoE) else
                 ShardedMLP(blk.mlp, self.shards, f"h.{i}.mlp.", mesh, pol))
             for i, blk in enumerate(model.h))

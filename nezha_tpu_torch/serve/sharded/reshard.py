@@ -51,10 +51,12 @@ class Split:
     """How one parameter lies over the mesh: ``axis`` is split M ways
     (None: replicated); with ``groups`` > 1 the axis holds that many
     fused blocks (qkv's q | k | v), each split M ways and shard r taking
-    its part of every block."""
+    its part of every block. ``mesh_axis`` names the mesh axis it splits
+    over: ``tp``, or ``ep`` for a MoE layer's expert stacks."""
 
     axis: Optional[int] = None
     groups: int = 1
+    mesh_axis: str = "tp"
 
 
 REPLICATED = Split()

@@ -33,10 +33,12 @@ def accuracy(logits: torch.Tensor, batch: dict) -> Dict[str, torch.Tensor]:
 
 def lm_token_stats(out, batch: dict) -> Dict[str, torch.Tensor]:
     """Next-token NLL summed over ``{"tokens": [B, S + 1]}``, and the
-    count of targets (-> perplexity). ``out``: dense logits or the
-    fused-head dict."""
+    count of targets (-> perplexity). ``out``: dense logits, the MoE
+    logits dict (its NLL only: no aux in eval) or the fused-head dict."""
     targets = batch["tokens"][:, 1:].long()
     count = torch.tensor(targets.numel(), device=targets.device)
+    if isinstance(out, dict) and "logits" in out:
+        out = out["logits"]
     if isinstance(out, dict):
         return {"nll_sum": lm_ce_from_fused(out, targets) * count,
                 "count": count}

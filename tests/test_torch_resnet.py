@@ -66,7 +66,7 @@ from nezha_tpu_torch.nn.layers import same_pads
 from nezha_tpu_torch.ops.losses import \
     softmax_cross_entropy_with_integer_labels
 from nezha_tpu_torch.tensor.policy import bf16_policy
-from nezha_tpu_torch.train import evaluate, make_train_step
+from nezha_tpu_torch.train import Trainer, evaluate, make_train_step
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 F32_ATOL = 1e-5
@@ -627,8 +627,15 @@ def test_full_depth_structure_matches_jax(build):
 
 
 def test_remat_is_refused():
-    with pytest.raises(NotPortedError):
-        ResNet((1, 1), remat=True, device="cpu")
+    """ResNet's remat is ported (tests/test_torch_remat.py holds it to
+    JAX's); the train CLI refuses ``--remat`` where JAX's does, in its
+    words."""
+    assert ResNet((1, 1), remat=True, device="cpu").remat
+    from nezha_tpu_torch.cli.train import parse_args
+    for config in ("mlp_mnist", "bert_base_zero1"):
+        with pytest.raises(SystemExit, match="--remat applies to gpt2_124m "
+                                             "and the image configs"):
+            parse_args(["--config", config, "--remat"])
 
 
 def _cli(*argv):
@@ -660,21 +667,24 @@ STILL_REFUSED = {
                      device="cpu")),
     "wrn101_large_batch": (
         ["--engine", "graph"],
-        lambda: ResNet((1, 1), width_factor=2, remat=True, device="cpu"))}
+        lambda: Trainer(ResNet((1, 1), width_factor=2, device="cpu"),
+                        optim.momentum(0.1), lambda out, b: out.sum(),
+                        shard_fn=lambda b: b))}
 
 
 @pytest.mark.parametrize("config", ["bert_base_zero1", "wrn101_large_batch"])
 def test_cli_refuses_unported_configs_typed(config):
     """Both configs train now, dp and ZeRO-1 included (BERT also
     tensor-parallel); what each still lacks is refused: pipeline
-    parallelism (``--parallel pp``, typed), tensor parallelism for WRN
-    (no rule table, JAX's message), the graph engine (``--engine``), the
-    MLM mask-token flag without ``--data-dir``, and the model knobs that
-    wait for later slices (``NotPortedError``)."""
+    parallelism (``--parallel pp``: no pipeline spec, JAX's message),
+    tensor parallelism for WRN (no rule table, JAX's message), the graph
+    engine (``--engine``), the MLM mask-token flag without
+    ``--data-dir``, and BERT's scanned trunk and the trainer's custom
+    sharding (``NotPortedError``)."""
     from nezha_tpu_torch.cli.train import main, parse_args
 
     flag, knob = STILL_REFUSED[config]
-    with pytest.raises(SystemExit, match="not ported"):
+    with pytest.raises(SystemExit, match="has no pipeline spec"):
         main(["--config", config, "--device", "cpu", "--parallel", "pp"])
     if config == "wrn101_large_batch":
         with pytest.raises(SystemExit, match="no tensor-parallel rule"):
@@ -693,7 +703,7 @@ def test_cli_image_flags():
     assert args.device == "cuda" and args.batch_size is None
     for argv in (["--seq-len", "64"], ["--dropout", "0.1"],
                  ["--wd-exclude-1d"], ["--label-smoothing", "1.5"],
-                 ["--mlm-mask-token", "103"], ["--remat"]):
+                 ["--mlm-mask-token", "103"], ["--moe-experts", "4"]):
         with pytest.raises(SystemExit):
             parse_args(["--config", "resnet50_imagenet", *argv])
     # Label smoothing in (0, 1) and reading from disk are taken.

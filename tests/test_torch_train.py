@@ -321,7 +321,7 @@ def test_cli_refuses_unported_flags_and_configs():
     from nezha_tpu_torch.cli.train import main, parse_args
 
     assert parse_args(["--config", "gpt2_124m"]).device == "cuda"
-    for argv in (["--engine=graph"], ["--remat"], ["--scan-layers"],
+    for argv in (["--engine=graph"], ["--graph-bf16"], ["--scan-layers"],
                  ["--no-jax-distributed"], ["--world-size", "0"],
                  ["--serve-coordinator"]):
         with pytest.raises(SystemExit):
@@ -330,10 +330,10 @@ def test_cli_refuses_unported_flags_and_configs():
                        "--ckpt-dir=/x"]).ckpt_dir == "/x"
     assert parse_args(["--config", "gpt2_124m",
                        "--run-dir=/r"]).run_dir == "/r"
-    # The parallel flags parse; pipeline and sequence parallelism are
-    # refused typed (main exits naming them), and so are gspmd across
-    # processes and the sequence-parallel attentions; gspmd itself runs
-    # (tests/test_torch_gspmd.py). --on-failure rejoin and
+    # The parallel flags parse; sequence parallelism is refused typed
+    # (main exits naming it), and so are gspmd and pp across processes
+    # and the sequence-parallel attentions; gspmd and pp themselves run
+    # (tests/test_torch_gspmd.py, tests/test_torch_pipeline.py). --on-failure rejoin and
     # --rejoin-timeout are ported: they parse, and rejoin without a
     # coordinator exits with JAX's check.
     args = parse_args(["--config", "bert_base_zero1", "--parallel",
@@ -342,7 +342,8 @@ def test_cli_refuses_unported_flags_and_configs():
     assert (args.parallel, args.mesh, args.grad_allreduce) == \
         ("zero1", "dp=1", "int8")
     for argv in (["--parallel", "gspmd", "--coordinator", "127.0.0.1:1"],
-                 ["--parallel", "pp"], ["--parallel", "sp"],
+                 ["--parallel", "pp", "--coordinator", "127.0.0.1:1"],
+                 ["--parallel", "sp"],
                  ["--attn-impl", "ring"], ["--attn-impl", "ulysses"]):
         with pytest.raises(SystemExit, match="not ported"):
             main(["--config", "gpt2_124m", "--device", "cpu"] + argv)
@@ -366,7 +367,21 @@ def test_cli_refuses_unported_flags_and_configs():
 def test_unported_model_knobs_raise(knob):
     """The knobs still refused; ``flash_shmap`` is ported and builds, and
     raises JAX's ValueError outside a tensor-parallel scope
-    (``tests/test_torch_gspmd.py`` runs it inside one)."""
+    (``tests/test_torch_gspmd.py`` runs it inside one); ``moe_experts``
+    and ``remat`` are ported: they build and train (their parity with
+    JAX: tests/test_torch_moe.py, tests/test_torch_remat.py), and
+    ``scan_layers`` beside them is still refused."""
+    if "moe_experts" in knob or "remat" in knob:
+        model = GPT2(GPT2Config(**TINY_GPT2_KW, **knob), device="cpu")
+        model.train()
+        batch = {"tokens": torch.randint(0, 512, (2, 9))}
+        loss = lm_loss(model(batch), batch)
+        loss.backward()
+        assert torch.isfinite(loss)
+        with pytest.raises(NotPortedError):
+            GPT2(GPT2Config(**TINY_GPT2_KW, **knob, scan_layers=True),
+                 device="cpu")
+        return
     if knob.get("attn_impl") == "flash_shmap":
         model = GPT2(GPT2Config(**TINY_GPT2_KW, **knob), device="cpu")
         with pytest.raises(ValueError, match="auto_partitioner_scope") as e:

@@ -43,15 +43,17 @@ def _port_train(argv):
 
 def test_ported_flags_parse_with_jax_defaults():
     assert not set(PORTED) & train_cli.NOT_PORTED_FLAGS
-    assert {"--remat", "--engine", "--scan-layers",
-            "--microbatches"} <= train_cli.NOT_PORTED_FLAGS
+    assert {"--engine", "--scan-layers"} <= train_cli.NOT_PORTED_FLAGS
+    assert not {"--remat", "--microbatches",
+                "--moe-experts"} & train_cli.NOT_PORTED_FLAGS
     assert "--rejoin-timeout" not in train_cli.NOT_PORTED_FLAGS
     mine = train_cli.parse_args(["--config", "gpt2_124m"])
     theirs = jax_train_cli.build_parser().parse_args(["--config",
                                                       "gpt2_124m"])
     for name in ("prefetch", "grad_accum", "optimizer", "lr", "log_every",
                  "metrics_file", "log_memory", "profile_dir",
-                 "profile_steps", "trace_dir", "run_dir"):
+                 "profile_steps", "trace_dir", "run_dir", "microbatches",
+                 "moe_experts", "remat"):
         assert getattr(mine, name) == getattr(theirs, name), name
     assert train_cli.parse_args(["--config", "mlp_mnist", "--trace-dir",
                                  "/t"]).profile_dir == "/t"

@@ -120,8 +120,9 @@ def build_model(spec):
     from nezha_tpu_torch.models.gpt2 import GPT2, GPT2Config
     from nezha_tpu_torch.models.resnet import ResNet
     from nezha_tpu_torch.tensor.policy import f32_policy
-    if spec == "gpt2":
-        return GPT2(GPT2Config(**TINY_GPT2_KW), policy=f32_policy(),
+    if spec in ("gpt2", "gpt2_moe"):
+        moe = {"moe_experts": 4} if spec == "gpt2_moe" else {}
+        return GPT2(GPT2Config(**TINY_GPT2_KW, **moe), policy=f32_policy(),
                     device="cpu")
     if spec == "bert":
         return Bert(BertConfig(**TINY_BERT_KW), device="cpu")
@@ -135,7 +136,7 @@ def loss_of(spec):
     from nezha_tpu_torch.models.gpt2 import lm_loss
     from nezha_tpu_torch.ops.losses import \
         softmax_cross_entropy_with_integer_labels as ce
-    if spec == "gpt2":
+    if spec in ("gpt2", "gpt2_moe"):
         return lm_loss
     if spec == "bert":
         return mlm_loss
