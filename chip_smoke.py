@@ -194,7 +194,7 @@ serve_wire (e) sets one, for one engine at a time.
    the generate CLI from its ``step_<N>.sharded`` on one device: its
    greedy tokens those of ``models.generate`` on the save restored in
    this process;
-4j. train_pp_moe (after 4i, before 4e): pipeline parallelism, the MoE
+4j. train_pp_moe (after 4i, before 4k): pipeline parallelism, the MoE
    GPT-2 and remat at GPT-2 124M's width (bf16, B=8, S=1024, AdamW, the
    fused head; every mesh one card repeated): (a) ``parallel/
    pipeline.py`` at ``dp=1,pp=2``, PP_M microbatches: the first step's
@@ -211,7 +211,23 @@ serve_wire (e) sets one, for one engine at a time.
    peak below; (f) the train CLI in process: ``--parallel pp`` with a
    save, the save restored into a fresh step bitwise, a resume (launches
    exact), and ``--moe-experts`` under gspmd with an ep axis;
-4e. train_dist (after 4j, before 4d): multi-process training at full
+4k. train_sp (after 4j, before 4e): sequence-parallel training and the
+   chunked LM loss at GPT-2 124M's width (bf16, AdamW, the fused head;
+   every mesh one card repeated): B1 non-causal and B2/B3 on a two-block
+   ring's global lse and output at S_loc 512 and 4096 against their
+   plain versions; at B=8, S=1024: (a) the ring with the flash hops at
+   ``dp=1,sp=2`` against one device's flash step (the loss within
+   TRAIN_LOSS_ATOL, the gradients within SP_GRAD_RTOL), B1, the
+   pre-pass, B2 and B3 36 each a step exactly, ms a step and the step's
+   HBM peak; (b) the composed ring (no launch) against (a); (c) Ulysses
+   with the flash kernels against one device, 24 each; (d)
+   ``fused_loss_chunk=128`` on one device against the ``-1`` path, the
+   step's peak below it; (e) the train CLI in process at ``--seq-len
+   8192 --batch-size 1 --remat``, sp=2, 3 steps with a save (tokens/s,
+   ms a step, the run's peak, B1 72 and the rest 36 a step), one step
+   resumed at sp=4 (B1 240, the rest 120) whose restored state equals
+   the save bitwise, and the generate CLI from its save;
+4e. train_dist (after 4k, before 4d): multi-process training at full
    width: (a) in-process, the coordinator's world of one and NCCL
    through ``init_torch_distributed``: GPT-2 124M (B=8, S=1024) and
    ResNet-50 (batch IMG_B) by dp, BERT-base (B=16, S=512) by ZeRO-1,
@@ -6426,7 +6442,7 @@ def counted(what: str, fn, want: dict):
     out = fn()
     got = dict(LAUNCHES)
     if any(got[k] != v for k, v in want.items()):
-        fail(f"train_pp_moe {what}: launches {got}, expected {want}")
+        fail(f"{_PHASE.get('name')} {what}: launches {got}, expected {want}")
     return out, got
 
 
@@ -6445,7 +6461,7 @@ def grads_within(what: str, grads: dict, ref: dict, rtol: float) -> dict:
         if rel >= worst:
             worst, worst_name = rel, name
         if not rel <= rtol:
-            fail(f"train_pp_moe {what}: gradient of {name} differs by {rel} "
+            fail(f"{_PHASE.get('name')} {what}: gradient of {name} differs by {rel} "
                  f"of its norm (tolerance {rtol})")
     return {"max_grad_rel_err": worst, "worst_param": worst_name,
             "grad_rtol": rtol}
@@ -6454,7 +6470,7 @@ def grads_within(what: str, grads: dict, ref: dict, rtol: float) -> dict:
 def loss_within(what: str, loss, ref, atol: float) -> dict:
     err = abs(float(loss) - float(ref))
     if not math.isfinite(float(loss)) or err > atol:
-        fail(f"train_pp_moe {what}: loss {float(loss)} vs {float(ref)} "
+        fail(f"{_PHASE.get('name')} {what}: loss {float(loss)} vs {float(ref)} "
              f"(tolerance {atol})")
     return {"loss": float(loss), "loss_ref": float(ref), "loss_err": err,
             "loss_atol": atol}
@@ -6876,6 +6892,269 @@ def train_pp_moe(card: str) -> dict:
         paths.update(run() or {})
         walls[part] = time.perf_counter() - t0
     print(json.dumps({"train_pp_moe_wall_s": time.perf_counter() - t_phase,
+                      "parts_s": walls}), flush=True)
+    return paths
+
+
+SP_M = 2            # train_sp's sequence shards, all on the one card
+# The sp steps' gradients against one device's flash step, per tensor:
+# ||g_sp - g_one|| <= SP_GRAD_RTOL ||g_one||: twice the largest spread
+# tools/grad_spread.py --sp measured on the H100 over six seeds (ring,
+# flash hops: 0.0358, ln_f.bias; the composed ring and Ulysses, whose
+# attention is one device's arithmetic, the same: 0.0358), as
+# TRAIN_GRAD_RTOL is set. The spread is the shards' partial gradients of
+# the replicated parameters (bf16 products over S/sp rows, added in
+# fp32), not the hops; its control, each hop's backward on its own
+# block's lse and output, reads 1.87.
+SP_GRAD_RTOL = 0.072
+SP_STEPS = 2        # timed Trainer.fit steps of the ring-flash GPT-2
+SP_CHUNK = 128      # (d)'s fused_loss_chunk
+SP_LONG_S = 8192    # (e)'s --seq-len, batch 1, --remat
+SP_LONG_STEPS = 3   # (e)'s steps at sp=SP_M
+SP_LONG_M = 4       # (e)'s resumed step runs at sp=4
+SP_GEN_NEW = 8      # greedy tokens of the generate CLI from (e)'s save
+
+
+def ring_hops(m: int) -> int:
+    """Flash hops a causal ring of ``m`` shards runs a layer: shard r
+    attends the blocks of shards 0..r (the later ones are skipped)."""
+    return m * (m + 1) // 2
+
+
+def sp_kernel_case(g, b: int, s_loc: int) -> dict:
+    """B1 non-causal, and B2/B3 (with the pre-pass) on the diagonal and a
+    past block reading the GLOBAL row lse and output of a two-block ring,
+    at the shard length ``s_loc`` (bf16, H=12, D=64), against their plain
+    versions within the kernels phase's bounds."""
+    from nezha_tpu_torch.ops.cuda.flash_attention import (
+        flash_block_bwd, flash_block_bwd_plain, flash_block_fwd,
+        flash_block_fwd_plain, flash_bwd_error_bound)
+
+    bf = torch.bfloat16
+    tag = f"train_sp kernels B={b} S_loc={s_loc}"
+    q, k0, v0, k1, v1, do = (torch.randn(b, H, s_loc, D, generator=g)
+                             .to("cuda", bf) for _ in range(6))
+    out, lse = flash_block_fwd(q, k1, v1, False)
+    torch.cuda.synchronize()
+    want, want_lse = flash_block_fwd_plain(q, k1, v1, False)
+    abs_v = flash_block_fwd_plain(q, k1, v1.abs(), False)[0]
+    res = {"fwd_full": within_bound(f"{tag} fwd", out, want, abs_v)}
+    lse_err = (lse - want_lse).abs().max().item()
+    if not lse_err <= LSE_ATOL:
+        fail(f"{tag}: lse differs by {lse_err} > {LSE_ATOL}")
+    # The ring's merge of the diagonal hop (k0, causal) and the past one.
+    o_d, lse_d = flash_block_fwd_plain(q, k0, v0, True)
+    glse = torch.logaddexp(lse_d, want_lse)
+    gout = (o_d.float() * torch.exp(lse_d - glse)[..., None]
+            + want.float() * torch.exp(want_lse - glse)[..., None]).to(bf)
+    for hop, (kk, vv, causal) in (("diagonal", (k0, v0, True)),
+                                  ("past", (k1, v1, False))):
+        args = (q, kk, vv, gout, glse, do, causal)
+        grads = flash_block_bwd(*args)
+        torch.cuda.synchronize()
+        plain = flash_block_bwd_plain(*args)
+        bounds = flash_bwd_error_bound(*args)
+        res[hop] = {name: within(f"{tag} {hop} {name}", got, w, bd)[1]
+                    for name, got, w, bd in zip(("dq", "dk", "dv"), grads,
+                                                plain, bounds)}
+    res["lse_err"] = lse_err
+    return res
+
+
+def sp_step_parts(card: str, batches, batch) -> dict:
+    """(a)-(d) on train's GPT-2 124M and batch: the sp steps at
+    dp=1,sp=SP_M on the card repeated against one device's flash step."""
+    from nezha_tpu_torch.models.gpt2 import lm_loss, with_overrides
+    from nezha_tpu_torch.optim import adamw
+    from nezha_tpu_torch.parallel.mesh import make_sp_mesh
+    from nezha_tpu_torch.parallel.sequence_parallel import SPTrainStep
+    from nezha_tpu_torch.train import make_train_step
+
+    layers = 12
+    model = pp_fresh()
+    mesh = make_sp_mesh({"dp": 1, "sp": SP_M},
+                        [torch.device("cuda", 0)] * SP_M)
+    ((loss_1, grads_1), mem_1), launches_1 = counted(
+        "one device", lambda: peak_step(lambda: make_train_step(
+            model, adamw(0.0), lm_loss).loss_and_grads(batch)),
+        flash_want(layers, layers))
+    rows = {"one_device": {"loss": float(loss_1), "launches": launches_1,
+                           **mem_1}}
+    steps = {}
+
+    def case(tag, impl, flash, want, ref_loss, ref_grads, keep=False):
+        step = SPTrainStep(with_overrides(model, attn_impl=impl,
+                                          sp_use_flash=flash),
+                           adamw(0.0), mesh)
+        ((loss, grads), mem), launches = counted(
+            f"sp {tag}", lambda: peak_step(
+                lambda: step.loss_and_grads(batch)), want)
+        rows[tag] = {**loss_within(tag, loss, ref_loss, TRAIN_LOSS_ATOL),
+                     **grads_within(tag, grads, ref_grads, SP_GRAD_RTOL),
+                     "launches": launches, **mem}
+        steps[tag] = step
+        return loss, grads
+
+    hops = layers * ring_hops(SP_M)
+    loss_a, grads_a = case("ring_flash", "ring", None,
+                           flash_want(hops, hops), loss_1, grads_1)
+    case("ring_composed", "ring", False, flash_want(0, 0), loss_a, grads_a)
+    del grads_a
+    case("ulysses_flash", "ulysses", None,
+         flash_want(layers * SP_M, layers * SP_M), loss_1, grads_1)
+    fit = fit_ms(steps["ring_flash"], batches, SP_STEPS,
+                 flash_want(hops, hops))
+    rows["ring_flash"]["fit"] = fit
+    steps.clear()
+    gc.collect()
+    torch.cuda.empty_cache()
+    # (d) the chunked loss on one device against the -1 path's step.
+    chunked = with_overrides(model, fused_loss_chunk=SP_CHUNK)
+    ((loss_d, grads_d), mem_d), launches_d = counted(
+        "chunked loss", lambda: peak_step(lambda: make_train_step(
+            chunked, adamw(0.0), lm_loss).loss_and_grads(batch)),
+        flash_want(layers, layers))
+    rows["chunked_loss"] = {
+        "chunk": SP_CHUNK,
+        **loss_within("chunked loss", loss_d, loss_1, TRAIN_LOSS_ATOL),
+        **grads_within("chunked loss", grads_d, grads_1, TRAIN_GRAD_RTOL),
+        "launches": launches_d, **mem_d,
+        "peak_drop_gb": mem_1["step_peak_gb"] - mem_d["step_peak_gb"]}
+    if not mem_d["step_peak_gb"] < mem_1["step_peak_gb"]:
+        fail(f"train_sp chunked loss: the step's peak {mem_d} is not below "
+             f"the fused -1 path's {mem_1}")
+    del model, chunked, grads_1, grads_d
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(json.dumps({"train_sp": {
+        "mesh": mesh.shape, "devices": [str(d) for d in mesh.devices],
+        "batch": [TRAIN_B, TRAIN_S], "note": MESH_NOTE, **rows,
+        "card": card}}), flush=True)
+    return {"train_sp": fit["launches"],
+            "train_sp_composed": rows["ring_composed"]["launches"],
+            "train_sp_ulysses": rows["ulysses_flash"]["launches"],
+            "train_chunked_loss": launches_d}
+
+
+def sp_long_cli(card: str) -> dict:
+    """(e) the train CLI in process at SP_LONG_S tokens, batch 1, remat,
+    sp=SP_M: tokens/s, ms a step, the HBM peak, exact launches; one step
+    resumed from its save at sp=SP_LONG_M, the state its restore installed
+    (``Trainer.initialize``) read back against the save, every leaf
+    bitwise; the generate CLI from the resumed run's save."""
+    import tempfile
+
+    from nezha_tpu_torch.cli import generate as gen_cli
+    from nezha_tpu_torch.train import Trainer
+    from nezha_tpu_torch.train import checkpoint as ckpt
+
+    def want(m: int, steps: int) -> dict:
+        hops = 12 * ring_hops(m) * steps
+        return {**flash_want(2 * hops, hops), "flash_decode": 0}
+
+    def run(m: int, steps: int, tmp: str) -> dict:
+        torch.cuda.reset_peak_memory_stats()
+        r = cli_run("--config", "gpt2_124m", "--parallel", "sp", "--mesh",
+                    f"dp=1,sp={m}", "--shard-device", "cuda:0", "--seq-len",
+                    str(SP_LONG_S), "--batch-size", "1", "--remat",
+                    "--steps", str(steps), "--ckpt-dir", tmp,
+                    "--log-every", "1", in_process=True)
+        r["peak_gb"] = torch.cuda.max_memory_allocated() / 2 ** 30
+        w = want(m, steps)
+        got = {k: r["launches"][k] for k in w}
+        if got != w:
+            fail(f"train_sp CLI sp={m}: launches {got}, expected {w}")
+        r["launches"] = got
+        last = r["logs"][-1]
+        r["ms_per_step"] = 1e3 / last["steps_per_sec"]
+        r["tokens_per_s"] = last["tokens_per_sec"]
+        return r
+
+    restored = {}
+    initialize = Trainer.initialize
+
+    def recording(self, resume=True):
+        step = initialize(self, resume)
+        restored[step] = self.state_dict()
+        return step
+
+    with tempfile.TemporaryDirectory(prefix="nezha_train_sp_") as tmp:
+        run1 = run(SP_M, SP_LONG_STEPS, tmp)
+        Trainer.initialize = recording
+        try:
+            run2 = run(SP_LONG_M, 1, tmp)
+        finally:
+            Trainer.initialize = initialize
+        if (run2["final"]["step"] != SP_LONG_STEPS + 1
+                or list(restored) != [SP_LONG_STEPS]):
+            fail(f"train_sp CLI resume at sp={SP_LONG_M}: final "
+                 f"{run2['final']}, restored {list(restored)}")
+        state = restored.pop(SP_LONG_STEPS)
+        with np.load(ckpt.checkpoint_path(tmp, SP_LONG_STEPS)) as z:
+            for key, arr in state.items():
+                if not np.array_equal(np.asarray(arr), z[key]):
+                    fail(f"train_sp CLI: resumed leaf {key} differs from "
+                         f"the saved one")
+        n_leaves = len(state)
+        del state
+        result, _ = cli_stdout(gen_cli.run, gen_cli.build_parser()
+                               .parse_args([
+                                   "--ckpt-dir", tmp, "--prompt-tokens",
+                                   "464,2068,7586,21831",
+                                   "--max-new-tokens", str(SP_GEN_NEW),
+                                   "--temperature", "0", "--eos-id",
+                                   "-1"]))
+        toks = result["tokens"]
+        if len(toks) != SP_GEN_NEW or not all(0 <= t < 50257 for t in toks):
+            fail(f"train_sp: the generate CLI's tokens {toks}")
+    row = lambda r: {k: r[k] for k in ("argv", "wall_s", "final",
+                                       "launches", "saves", "restores",
+                                       "peak_gb", "ms_per_step",
+                                       "tokens_per_s")}
+    print(json.dumps({"train_sp_cli": {
+        "long": row(run1), "resumed_leaves_bitwise": n_leaves,
+        "resumed_sp4": row(run2), "generate_tokens": toks,
+        "note": MESH_NOTE, "card": card}}), flush=True)
+    return {"train_sp_cli": run1["launches"],
+            "train_sp_cli_sp4": run2["launches"]}
+
+
+def train_sp(card: str) -> dict:
+    """Phase 4k: sequence-parallel training and the chunked LM loss at
+    GPT-2 124M's width (bf16, AdamW, the fused head; every mesh one card
+    repeated, ``[cuda:0] * m``: its times say nothing about m cards).
+    The kernels where this path meets new shapes: B1 non-causal and
+    B2/B3 on a two-block ring's global lse and output at S_loc 512 (B=8)
+    and 4096 (B=1), against their plain versions. At B=TRAIN_B,
+    S=TRAIN_S: (a) the ring at dp=1,sp=SP_M with the flash hops against
+    one device's flash step (TRAIN_* tolerances), B1, the pre-pass, B2
+    and B3 12 x ring_hops(SP_M) each, exactly; ms a step and the step's
+    HBM peak; (b) the composed ring (``sp_use_flash=False``): no launch,
+    against (a); (c) Ulysses with the flash kernels against one device,
+    12 x SP_M each; (d) ``fused_loss_chunk=SP_CHUNK`` on one device
+    against the ``-1`` path: the step's peak below it; (e) the CLI
+    (sp_long_cli). -> the launches by path."""
+    from nezha_tpu_torch.data import synthetic_token_batches
+
+    t_phase = time.perf_counter()
+    g = torch.Generator().manual_seed(24)
+    kernels = {s: sp_kernel_case(g, b, s)
+               for b, s in ((TRAIN_B, TRAIN_S // SP_M), (1, SP_LONG_S // 2))}
+    print(json.dumps({"train_sp_kernels": {
+        "err_over_tolerance": kernels, "card": card}}), flush=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    batches = synthetic_token_batches(TRAIN_B, seq_len=TRAIN_S, seed=0)
+    batch = next(batches)
+    paths, walls = {}, {}
+    for part, fn in (("steps", lambda: sp_step_parts(card, batches, batch)),
+                     ("cli", lambda: sp_long_cli(card))):
+        t0 = time.perf_counter()
+        paths.update(fn())
+        walls[part] = time.perf_counter() - t0
+        gc.collect()
+        torch.cuda.empty_cache()
+    print(json.dumps({"train_sp_wall_s": time.perf_counter() - t_phase,
                       "parts_s": walls}), flush=True)
     return paths
 
@@ -7419,6 +7698,8 @@ def main() -> int:
     paths.update(train_pp_moe(card))
     gc.collect()
     torch.cuda.empty_cache()
+    phase("train_sp")
+    paths.update(train_sp(card))
     phase("train_dist")
     dist_paths = train_dist(card)
     paths["train_dist_gpt2"] = dist_paths["gpt2_124m"]

@@ -7,6 +7,7 @@ import os
 import sys
 from typing import Optional
 
+import numpy as np
 import torch
 
 from nezha_tpu_torch.data.tokenizer import default_eos_id, load_tokenizer
@@ -186,8 +187,24 @@ def load_gpt2_for_inference(args, **overrides) -> GPT2:
     if getattr(args, "hf_dir", None):
         from nezha_tpu_torch.models.hf import load_gpt2
         return load_gpt2(args.hf_dir, device=args.device, **overrides)
+    if args.ckpt_dir and "max_positions" not in overrides:
+        rows = saved_positions(args.ckpt_dir)
+        if rows is not None:
+            overrides = dict(overrides, max_positions=rows)
     model = gpt2_for_preset(args.model_preset, seed=args.seed,
                             device=args.device, **overrides)
     if args.ckpt_dir:
         restore_variables_any(args.ckpt_dir, model)
     return model
+
+
+def saved_positions(ckpt_dir: str) -> Optional[int]:
+    """The rows of the position table in ``ckpt_dir``'s newest dense save
+    (a ``--seq-len`` run trains another table than the preset's), None
+    without one."""
+    step = ckpt.latest_step(ckpt_dir)
+    if step is None:
+        return None
+    key = "variables/params/wpe/embedding"
+    with np.load(ckpt.checkpoint_path(ckpt_dir, step)) as z:
+        return int(z[key].shape[0]) if key in z.files else None

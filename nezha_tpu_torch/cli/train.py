@@ -61,8 +61,8 @@ or its rows of the synthetic stream. As in JAX, a dp or zero1 config on
 a world of one process runs single-device with a warning, unless
 ``--mesh dp=1`` asks for the parallel path on the one device (a world-1
 process group). ``--grad-allreduce int8`` puts the gradients on the int8
-wire (``parallel/quantized.py``) and is refused outside dp and zero1;
-``sp`` is refused (ROADMAP A7). ``--parallel gspmd``
+wire (``parallel/quantized.py``) and is refused outside dp and zero1.
+``--parallel gspmd``
 (gpt2_124m and bert_base_zero1) trains tensor-parallel in one process
 (``parallel/gspmd.py``) on ``--mesh dp=D,tp=M`` (default ``dp=1,tp=-1``,
 ``tp=-1`` the visible cards): M shards of every split layer, the batch
@@ -82,16 +82,25 @@ contiguous stages, in one process (``--shard-device`` as for gspmd; one
 visible card without it degrades to single-device); its saves are JAX's
 pipeline layout (``pparams/``, the layer axis split P ways) and its eval
 runs the merged weights; ``--wd-exclude-1d`` and pp across processes are
+refused. ``--parallel sp`` (gpt2_124m; JAX's sequence parallelism,
+``parallel/sequence_parallel.py``) trains on ``--mesh dp=D,sp=S``
+(default ``dp=1,sp=-1``) in one process, each row's sequence cut into S
+shards that attend across each other by ``--attn-impl ring`` (the
+default) or ``ulysses``, through the flash kernels (``--sp-flash auto``
+or ``on``) or composed (``off``), the head's loss fused (JAX's sp model,
+``fused_loss_chunk=-1``); ``--shard-device`` and the one-card degrade as
+for gspmd; its state is the single-device one (its saves the dense npz,
+its eval the plain model on the same weights); sp across processes is
 refused. ``--moe-experts E`` (gpt2_124m) makes every other block's MLP
 a top-2 routed expert layer (``parallel/expert.py``) under single, dp,
-zero1 or gspmd, whose mesh then takes an ``ep`` axis (``dp=D,tp=M,ep=X``,
-default ``dp=1,tp=1,ep=-1``; X must divide E); it cannot pipeline.
-``--remat`` (gpt2_124m and the image configs) recomputes each block in
-the backward (under pp each stage application). ``--attn-impl`` sets
-gpt2_124m's and bert_base_zero1's attention: auto, xla, flash, or
-flash_shmap (gspmd only; auto and flash
-run the same per-shard kernels there); ring and ulysses, the
-sequence-parallel ones, are refused (ROADMAP A7). Every
+zero1, sp (each shard routes its own tokens) or gspmd, whose mesh then
+takes an ``ep`` axis (``dp=D,tp=M,ep=X``, default ``dp=1,tp=1,ep=-1``; X
+must divide E); it cannot pipeline. ``--remat`` (gpt2_124m and the image
+configs) recomputes each block in the backward (under pp each stage
+application, under sp each layer across its shards). ``--attn-impl``
+sets gpt2_124m's and bert_base_zero1's attention: auto, xla, flash, or
+flash_shmap (gspmd only; auto and flash run the same per-shard kernels
+there), and ring or ulysses (sp only). Every
 ``--failure-check-every`` steps each rank polls the coordinator for dead
 peers and, on one, checkpoints and stops (``--on-failure stop``), or
 with ``--on-failure rejoin`` checkpoints, waits up to
@@ -217,9 +226,12 @@ CONFIGS = ("mlp_mnist", "resnet50_imagenet", "gpt2_124m", "bert_base_zero1",
 IMAGE_CONFIGS = ("resnet50_imagenet", "wrn101_large_batch")
 # Flags of the JAX train CLI this port does not take yet.
 NOT_PORTED_FLAGS = frozenset((
-    "--sp-flash", "--graph-bf16", "--scan-layers", "--platform", "--engine"))
-# --attn-impl's choices; the last two are --parallel sp's (not ported).
-ATTN_IMPLS = ("auto", "xla", "flash", "flash_shmap", "ring", "ulysses")
+    "--graph-bf16", "--scan-layers", "--platform", "--engine"))
+# --attn-impl's choices; the last two are --parallel sp's.
+SP_ATTN_IMPLS = ("ring", "ulysses")
+ATTN_IMPLS = ("auto", "xla", "flash", "flash_shmap") + SP_ATTN_IMPLS
+# --sp-flash -> GPT2Config.sp_use_flash (JAX's table).
+SP_FLASH = {"auto": None, "on": True, "off": False}
 # Each config's parallel mode (the JAX CLI's).
 CONFIG_MODES = {"mlp_mnist": "single", "resnet50_imagenet": "dp",
                 "wrn101_large_batch": "dp", "gpt2_124m": "dp",
@@ -457,19 +469,26 @@ def build_parser() -> argparse.ArgumentParser:
                    help="config (the config's mode), single, dp (gradient "
                         "all-reduce), zero1 (sharded optimizer state), "
                         "gspmd (tensor-parallel, one process), pp (GPipe "
-                        "pipeline, one process); sp is not ported")
+                        "pipeline, one process), sp (dp x sp ring/Ulysses "
+                        "sequence parallel, one process)")
     p.add_argument("--microbatches", type=int, default=4,
                    help="pipeline microbatches per step (--parallel pp)")
     p.add_argument("--mesh", default=None,
                    help='mesh axes, "dp=N" (N the world size, or -1); '
                         '"dp=1" runs dp/zero1 on one device; gspmd: '
                         '"dp=D,tp=M" (tp=-1: the visible cards), with '
-                        '--moe-experts "dp=D,tp=M,ep=E"; pp: "dp=D,pp=P"')
+                        '--moe-experts "dp=D,tp=M,ep=E"; pp: "dp=D,pp=P"; '
+                        'sp: "dp=D,sp=S"')
     p.add_argument("--shard-device", default=None,
-                   help="gspmd and pp: every shard or stage on this device "
-                        "(cuda:0 runs them on one card, one after another); "
-                        "default: one visible card each on cuda, the CPU "
-                        "repeated on cpu")
+                   help="gspmd, pp and sp: every shard or stage on this "
+                        "device (cuda:0 runs them on one card, one after "
+                        "another); default: one visible card each on "
+                        "cuda, the CPU repeated on cpu")
+    p.add_argument("--sp-flash", default="auto", choices=sorted(SP_FLASH),
+                   help="--parallel sp's attention kernels: auto and on "
+                        "run the flash kernels per ring hop or head group "
+                        "(their plain versions on the CPU); off the "
+                        "composed attention (the escape hatch)")
     p.add_argument("--moe-experts", type=int, default=None,
                    help="gpt2_124m: route every other block's MLP through "
                         "this many top-2 experts (mixture-of-experts; "
@@ -484,7 +503,8 @@ def build_parser() -> argparse.ArgumentParser:
                    help="gpt2_124m, bert_base_zero1: the attention (auto: "
                         "the flash kernels, per shard under gspmd; xla: "
                         "composed; flash_shmap: per shard, gspmd only); "
-                        "ring and ulysses (--parallel sp) are not ported")
+                        "gpt2_124m under --parallel sp: ring (its "
+                        "default) or ulysses")
     p.add_argument("--grad-allreduce", default="fp32",
                    choices=["fp32", "int8"],
                    help="dp/zero1 gradient wire: exact fp32 or "
@@ -558,9 +578,11 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
                      "shard of a tensor-parallel mesh: it needs --parallel "
                      "gspmd")
     if args.shard_device is not None and args.parallel not in ("gspmd",
-                                                               "pp"):
+                                                               "pp", "sp"):
         parser.error("--shard-device places the shards of --parallel "
-                     "gspmd and the stages of --parallel pp")
+                     "gspmd and sp and the stages of --parallel pp")
+    if args.attn_impl in SP_ATTN_IMPLS or args.parallel == "sp":
+        check_sp_flags(args)
     check_model_flags(args)
     if args.trace_dir:
         if args.profile_dir and args.profile_dir != args.trace_dir:
@@ -622,6 +644,22 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
         parser.error("--mlm-mask-token applies to bert_base_zero1 with "
                      "--data-dir (the dynamic-MLM data path)")
     return args
+
+
+def check_sp_flags(args) -> None:
+    """``--parallel sp``'s model checks and its attention's (JAX's
+    messages where JAX has the check)."""
+    if args.config != "gpt2_124m":
+        raise SystemExit(f"config {args.config!r} has no sequence-parallel "
+                         f"model; --parallel sp supports: gpt2_124m")
+    if args.parallel != "sp":
+        raise SystemExit(f"--attn-impl {args.attn_impl} is the "
+                         f"sequence-parallel attention: it needs --parallel "
+                         f"sp")
+    if args.attn_impl not in (None,) + SP_ATTN_IMPLS:
+        raise SystemExit(f"--parallel sp attends across its shards by "
+                         f"--attn-impl ring or ulysses, not "
+                         f"{args.attn_impl}")
 
 
 def check_model_flags(args) -> None:
@@ -949,8 +987,10 @@ def resolve_mode(args, cfg: Config, world: int) -> str:
     if mode == "single" and args.mesh:
         raise SystemExit("--mesh has no effect in single-device mode; drop "
                          "it or pick a --parallel mode that consumes it")
-    if mode in ("gspmd", "pp"):
-        return resolve_sharded(args, mode)
+    if mode in ("gspmd", "pp", "sp"):
+        mode = resolve_sharded(args, mode)
+        check_sp_flash(args, mode)
+        return mode
     req = parse_mesh(args.mesh)
     req_size = 1
     for v in (req or {"": -1}).values():
@@ -965,6 +1005,7 @@ def resolve_mode(args, cfg: Config, world: int) -> str:
         raise SystemExit("--grad-allreduce int8 is the dp/zero1 gradient "
                          f"wire format; mode {mode!r} does not consume it "
                          "(reject, don't ignore)")
+    check_sp_flash(args, mode)
     if args.optimizer in ("lars", "lamb") and mode == "zero1":
         raise SystemExit(f"--optimizer {args.optimizer} computes layerwise "
                          f"trust ratios, which ZeRO-1's flat per-rank "
@@ -994,11 +1035,21 @@ def resolve_mode(args, cfg: Config, world: int) -> str:
     return mode
 
 
+def check_sp_flash(args, mode: str) -> None:
+    """JAX's refusal of ``--sp-flash`` outside sp, after the degrade."""
+    if args.sp_flash != "auto" and mode != "sp":
+        raise SystemExit(f"--sp-flash tunes the sequence-parallel attention "
+                         f"kernels; mode {mode!r} does not consume it "
+                         f"(reject, don't ignore)")
+
+
 def mode_mesh(args, mode: str):
     """(the axes ``mode`` consumes, its default ``--mesh``): the JAX CLI's
     tables, with the MoE ``ep`` variant of gspmd."""
     if mode == "pp":
         return ("dp", "pp"), "dp=1,pp=-1"
+    if mode == "sp":
+        return ("dp", "sp"), "dp=1,sp=-1"
     if args.moe_experts:
         return ("dp", "tp", "ep"), "dp=1,tp=1,ep=-1"
     return ("dp", "tp"), "dp=1,tp=-1"
@@ -1009,9 +1060,10 @@ def sharded_axes(args, mode: str) -> Dict[str, int]:
 
 
 def resolve_sharded(args, mode: str) -> str:
-    """``--parallel gspmd``'s and ``pp``'s checks (the JAX CLI's, and the
-    port's own refusals), and their degrade to single-device on one
-    visible card without ``--shard-device`` (JAX's on one device)."""
+    """``--parallel gspmd``'s, ``pp``'s and ``sp``'s checks (the JAX
+    CLI's, and the port's own refusals), and their degrade to
+    single-device on one visible card without ``--shard-device`` (JAX's
+    on one device)."""
     if mode == "gspmd" and args.config not in GSPMD_CONFIGS:
         raise SystemExit(f"config {args.config!r} has no tensor-parallel "
                          f"rule table; --parallel gspmd supports: "
@@ -1019,6 +1071,9 @@ def resolve_sharded(args, mode: str) -> str:
     if mode == "pp" and args.config != "gpt2_124m":
         raise SystemExit(f"config {args.config!r} has no pipeline spec; "
                          f"--parallel pp supports: gpt2_124m")
+    if mode == "sp" and args.config != "gpt2_124m":
+        raise SystemExit(f"config {args.config!r} has no sequence-parallel "
+                         f"model; --parallel sp supports: gpt2_124m")
     if mode == "gspmd" and args.optimizer in ("lars", "lamb", "adafactor"):
         raise SystemExit(f"--optimizer {args.optimizer} computes statistics "
                          f"over whole tensors, which the tensor-parallel "
@@ -1063,8 +1118,8 @@ def resolve_sharded(args, mode: str) -> str:
 
 def build_sharded_step(args, cfg: Config, optimizer: Optimizer, loss_fn,
                        mode: str, batch_size: int):
-    """The tensor-parallel or pipeline step over ``--mesh`` (and
-    ``--shard-device``)."""
+    """The tensor-parallel, pipeline or sequence-parallel step over
+    ``--mesh`` (and ``--shard-device``)."""
     from nezha_tpu_torch.parallel.gspmd import (GSPMDTrainStep,
                                                 make_gspmd_mesh)
     from nezha_tpu_torch.parallel.pipeline import (PipelineTrainStep,
@@ -1088,6 +1143,23 @@ def build_sharded_step(args, cfg: Config, optimizer: Optimizer, loss_fn,
                     f"(pass --mesh dp=X,tp=Y,ep=Z with Z dividing the "
                     f"expert count)")
             return GSPMDTrainStep(cfg.model, optimizer, loss_fn, mesh)
+        if mode == "sp":
+            from nezha_tpu_torch.models.gpt2 import with_overrides
+            from nezha_tpu_torch.parallel.mesh import make_sp_mesh
+            from nezha_tpu_torch.parallel.sequence_parallel import \
+                SPTrainStep
+            mesh = make_sp_mesh(axes, devices, device_type)
+            if batch_size % mesh.dp:
+                raise ValueError(f"batch of {batch_size} rows does not "
+                                 f"split over dp={mesh.dp} groups")
+            # JAX's sp model: the config's model over the same weights,
+            # the shards' attention, the fused head; its loss is
+            # lm_objective over each shard's targets.
+            model = with_overrides(cfg.model,
+                                   attn_impl=args.attn_impl or "ring",
+                                   sp_use_flash=SP_FLASH[args.sp_flash],
+                                   fused_loss_chunk=-1)
+            return SPTrainStep(model, optimizer, mesh)
         mesh = make_pipeline_mesh(axes, devices, device_type)
         if batch_size % mesh.dp:
             raise ValueError(f"batch of {batch_size} rows does not split "
@@ -1217,19 +1289,11 @@ def _run_world(args: argparse.Namespace) -> Dict[str, float]:
             and not torch.cuda.is_available()):
         raise SystemExit("no CUDA device: pass --device cpu to train on "
                          "the CPU")
-    if args.parallel == "sp":
-        raise NotPortedError("--parallel sp is not ported (ROADMAP A7: "
-                             "sequence parallelism); the port runs single, "
-                             "dp, zero1, gspmd and pp")
-    if args.parallel in ("gspmd", "pp") and args.coordinator:
+    if args.parallel in ("gspmd", "pp", "sp") and args.coordinator:
         # Before the rendezvous, which would wait for peers.
         raise NotPortedError(f"--parallel {args.parallel} across processes "
                              f"is not ported (ROADMAP A7): the port's "
                              f"{args.parallel} is one process over its mesh")
-    if args.attn_impl in ("ring", "ulysses"):
-        raise NotPortedError(f"--attn-impl {args.attn_impl} is the "
-                             f"sequence-parallel attention of --parallel "
-                             f"sp, which is not ported (ROADMAP A7)")
     if args.on_failure == "rejoin":
         check_rejoin_args(args)   # before the rendezvous can strand peers
     group, coord = join_world(args)
@@ -1268,7 +1332,11 @@ def _run(args: argparse.Namespace, group,
     cfg = build_config(args.config, args.model_preset, steps=args.steps,
                        seed=args.seed, device=device,
                        seq_len=args.seq_len, dropout=args.dropout,
-                       ln_impl=args.ln_impl, attn_impl=args.attn_impl,
+                       ln_impl=args.ln_impl,
+                       # ring/ulysses are the sp step's (its model shares
+                       # this one's weights); the plain model evaluates.
+                       attn_impl=(None if args.attn_impl in SP_ATTN_IMPLS
+                                  else args.attn_impl),
                        moe_experts=args.moe_experts, remat=args.remat)
     mode = resolve_mode(args, cfg, world)
     if args.on_failure == "rejoin" and mode not in ("single", "dp"):
@@ -1312,11 +1380,14 @@ def _run(args: argparse.Namespace, group,
             metrics_log.log(step, metrics)
 
     step_fn = tp = pp = None
-    if mode in ("gspmd", "pp"):
+    if mode in ("gspmd", "pp", "sp"):
         step_fn = build_sharded_step(args, cfg, optimizer, loss_fn, mode,
                                      batch_size)
-        tp, pp = (step_fn, None) if mode == "gspmd" else (None, step_fn)
-        extra = {"microbatches": args.microbatches} if pp else {}
+        tp = step_fn if mode == "gspmd" else None
+        pp = step_fn if mode == "pp" else None
+        extra = ({"microbatches": args.microbatches} if pp else
+                 {"attn_impl": step_fn.model.cfg.attn_impl,
+                  "sp_flash": args.sp_flash} if mode == "sp" else {})
         log(0, {"parallel": {"mode": mode, "mesh": step_fn.mesh.shape,
                              "devices": [str(d) for d in
                                          step_fn.mesh.devices],

@@ -65,7 +65,8 @@ class BertConfig:
     # 0: forward returns fp32 logits. -1: in training, forward returns
     # {"hidden", "wte", "bias", "chunk"} and mlm_loss computes the CE
     # from compute-dtype logits with the fp32 upcast inside the
-    # logsumexp.
+    # logsumexp. > 0: the same dict, and the CE runs over slices of this
+    # many positions (ops.losses.chunked_lm_cross_entropy).
     fused_loss_chunk: int = 0
     # "auto" | "flash" | "xla" | "flash_shmap" (see the module
     # docstring).
@@ -82,10 +83,7 @@ def check_config(cfg: BertConfig) -> None:
         raise ValueError(f"unknown attn_impl {cfg.attn_impl!r}")
     if cfg.ln_impl not in ("xla", "pallas"):
         raise ValueError(f"unknown ln_impl {cfg.ln_impl!r}")
-    if cfg.fused_loss_chunk > 0:
-        raise NotPortedError(f"fused_loss_chunk={cfg.fused_loss_chunk} "
-                             f"(the chunked loss scan) is not ported")
-    if cfg.fused_loss_chunk not in (0, -1):
+    if cfg.fused_loss_chunk < -1:
         raise ValueError(f"fused_loss_chunk must be 0, -1 or > 0, got "
                          f"{cfg.fused_loss_chunk}")
     if cfg.scan_layers:

@@ -17,8 +17,12 @@ Three attention paths:
   scope's mesh (``parallel.gspmd.auto_partitioner_scope``), as JAX's
   nested ``shard_map``; outside such a scope it raises ``ValueError``
   (the tensor-parallel model, ``parallel/gspmd.py``, splits the heads
-  itself). Dropout follows the embeddings, each attention projection and
-  each MLP projection, in training mode only;
+  itself). "ring" and "ulysses" are the sequence-parallel attentions:
+  only the sequence-parallel step (``parallel/sequence_parallel.py``)
+  runs such a model, driving each layer's modules on every shard and
+  crossing the shards in :meth:`Attention.attend_shards`; a plain forward
+  raises ``ValueError``. Dropout follows the embeddings, each attention
+  projection and each MLP projection, in training mode only;
 - a paged cache (the serve engine's block pool): ``cache`` is one
   ``{"k", "v", "tables"}`` dict per layer, pools shaped ``[N, H, bs, D]``
   and ``tables [B, M]`` int32. The forward writes this call's K/V into
@@ -111,13 +115,20 @@ class GPT2Config:
     hidden_size: int = 768
     mlp_ratio: int = 4
     dropout: float = 0.0
-    # "auto" | "flash" | "xla" | "flash_shmap": "auto" is "flash" on every
-    # device (the kernel wrapper picks the CUDA kernel or its plain
-    # version by the tensors' device), and under a tensor-parallel mesh
-    # the flash kernels on each shard's heads; "xla" is attention composed
-    # of tensor ops; "flash_shmap" the flash kernels per head group of
-    # the enclosing tensor-parallel scope.
+    # "auto" | "flash" | "xla" | "flash_shmap" | "ring" | "ulysses": "auto"
+    # is "flash" on every device (the kernel wrapper picks the CUDA kernel
+    # or its plain version by the tensors' device), and under a
+    # tensor-parallel mesh the flash kernels on each shard's heads; "xla"
+    # is attention composed of tensor ops; "flash_shmap" the flash kernels
+    # per head group of the enclosing tensor-parallel scope; "ring" and
+    # "ulysses" the sequence-parallel attentions over the shards of the
+    # sp train step (the mesh axis sp_axis).
     attn_impl: str = "auto"
+    sp_axis: str = "sp"
+    # ring/ulysses: None (auto) and True run the flash kernels per hop or
+    # per head group (their plain versions on CPU tensors); False the
+    # composed attention (JAX's escape hatch).
+    sp_use_flash: Optional[bool] = None
     # Single-token decode (dense or paged): "auto" takes the flash-decode
     # kernel unless attn_impl is "xla"; "kernel" always; "xla" never
     # (attention composed of tensor ops).
@@ -131,7 +142,9 @@ class GPT2Config:
     ln_impl: str = "xla"
     # 0: forward returns fp32 logits. -1: forward returns {"hidden",
     # "wte", "chunk"} and lm_loss computes the CE from compute-dtype
-    # logits with the fp32 upcast inside the logsumexp.
+    # logits with the fp32 upcast inside the logsumexp. > 0: the same
+    # dict, and the CE runs over slices of this many positions, one
+    # slice's logits live at a time (ops.losses.chunked_lm_cross_entropy).
     fused_loss_chunk: int = 0
     # Mixture-of-experts: > 0 swaps the MLP of every moe_every-th block
     # (blocks 1, 3, 5, ... at 2) for a top-k routed expert layer
@@ -148,16 +161,12 @@ class GPT2Config:
     scan_layers: bool = False
 
 
-_NOT_PORTED_ATTN = ("ring", "ulysses")
-ATTN_IMPLS = ("auto", "flash", "xla", "flash_shmap")
+SP_ATTN_IMPLS = ("ring", "ulysses")
+ATTN_IMPLS = ("auto", "flash", "xla", "flash_shmap") + SP_ATTN_IMPLS
 
 
 def check_config(cfg: GPT2Config) -> None:
     """Refuse, typed, what the JAX model has and this port does not."""
-    if cfg.attn_impl in _NOT_PORTED_ATTN:
-        raise NotPortedError(f"attn_impl={cfg.attn_impl!r} is not ported "
-                             f"(sequence-parallel training attention, "
-                             f"ROADMAP A7)")
     if cfg.attn_impl not in ATTN_IMPLS:
         raise ValueError(f"unknown attn_impl {cfg.attn_impl!r}")
     if cfg.decode_impl not in ("auto", "kernel", "xla"):
@@ -166,10 +175,7 @@ def check_config(cfg: GPT2Config) -> None:
         raise ValueError(f"unknown prefill_impl {cfg.prefill_impl!r}")
     if cfg.ln_impl not in ("xla", "pallas"):
         raise ValueError(f"unknown ln_impl {cfg.ln_impl!r}")
-    if cfg.fused_loss_chunk > 0:
-        raise NotPortedError(f"fused_loss_chunk={cfg.fused_loss_chunk} "
-                             f"(the chunked loss scan) is not ported")
-    if cfg.fused_loss_chunk not in (0, -1):
+    if cfg.fused_loss_chunk < -1:
         raise ValueError(f"fused_loss_chunk must be 0, -1 or > 0, got "
                          f"{cfg.fused_loss_chunk}")
     if cfg.scan_layers:
@@ -329,17 +335,55 @@ class Attention(nn.Module):
                            policy=policy, generator=generator, device=device)
         self.drop = Dropout(cfg.dropout, dropout_generator)
 
+    def heads(self, x: torch.Tensor):
+        """``[B, S, h]`` -> q, k, v ``[B, H, S, D]`` (views of one qkv
+        product)."""
+        b, s, h = x.shape
+        qkv = self.qkv(x).reshape(b, s, 3, self.cfg.num_heads,
+                                  h // self.cfg.num_heads)
+        qkv = qkv.permute(2, 0, 3, 1, 4)
+        return qkv[0], qkv[1], qkv[2]
+
+    def project(self, out: torch.Tensor, drop: bool = True) -> torch.Tensor:
+        """Attention's ``[B, H, S, D]`` -> the projection ``[B, S, h]``,
+        then dropout (``drop``)."""
+        b, _, s, _ = out.shape
+        out = self.proj(out.transpose(1, 2).reshape(b, s, -1))
+        return self.drop(out) if drop else out
+
+    def attend_shards(self, qs: List[torch.Tensor], ks: List[torch.Tensor],
+                      vs: List[torch.Tensor]) -> List[torch.Tensor]:
+        """The sequence-parallel attention over the shards' blocks
+        (``qs[r]`` the queries of positions ``[r S_loc, (r + 1) S_loc)``
+        on shard r's device): causal ring attention (``parallel.ring``)
+        or Ulysses (``parallel.sequence_parallel``), each with
+        ``sp_use_flash``."""
+        if self.impl == "ring":
+            from nezha_tpu_torch.parallel.ring import ring_attention
+            return ring_attention(qs, ks, vs, causal=True,
+                                  use_flash=self.cfg.sp_use_flash)
+        if self.impl == "ulysses":
+            from nezha_tpu_torch.parallel.sequence_parallel import \
+                ulysses_attention
+            return ulysses_attention(qs, ks, vs, causal=True,
+                                     use_flash=self.cfg.sp_use_flash)
+        raise ValueError(f"attn_impl={self.impl!r} is not a "
+                         f"sequence-parallel attention (ring or ulysses)")
+
     def forward(self, x: torch.Tensor, cache: Optional[dict] = None,
                 pos: Union[int, torch.Tensor, None] = None,
                 active: Optional[torch.Tensor] = None,
                 prefill: bool = False) -> torch.Tensor:
         cfg = self.cfg
-        b, s, h = x.shape
-        d = h // cfg.num_heads
-        qkv = self.qkv(x).reshape(b, s, 3, cfg.num_heads, d)
-        qkv = qkv.permute(2, 0, 3, 1, 4)
-        q, k, v = qkv[0], qkv[1], qkv[2]                   # [B, H, S, D]
+        s = x.shape[1]
+        q, k, v = self.heads(x)                            # [B, H, S, D]
         if cache is None:
+            if self.impl in SP_ATTN_IMPLS:
+                raise ValueError(
+                    f"attn_impl={self.impl!r} attends across the shards of "
+                    f"a sequence-parallel step (parallel.sequence_parallel."
+                    f"make_sp_train_step); evaluate with attn_impl 'auto' "
+                    f"(models.gpt2.with_overrides)")
             if self.impl == "flash_shmap":
                 from nezha_tpu_torch.parallel.gspmd import scoped_tp_flash
                 out = scoped_tp_flash(q, k, v, cfg.num_heads, causal=True)
@@ -352,8 +396,7 @@ class Attention(nn.Module):
             out = self._dense(q, k, v, cache, pos, active, prefill)
         else:
             out = paged_attention(q, k, v, cache, pos, active, cfg)
-        out = self.proj(out.transpose(1, 2).reshape(b, s, h))
-        return self.drop(out) if cache is None else out
+        return self.project(out, drop=cache is None)
 
     def _dense(self, q, k, v, cache, pos, active, prefill: bool):
         """The dense-cache branch (JAX ``Attention.apply``, cache without
@@ -589,6 +632,11 @@ class Block(nn.Module):
         """-> (output, the MoE layer's aux loss or None)."""
         x = x + self.attn(self.ln_1(x), cache=cache, pos=pos, active=active,
                           prefill=prefill)
+        return self.mlp_residual(x)
+
+    def mlp_residual(self, x):
+        """The block's second half, ``x + mlp(ln_2(x))`` -> (output, the
+        MoE layer's aux loss or None)."""
         y = self.mlp(self.ln_2(x))
         y, aux = y if isinstance(y, tuple) else (y, None)
         return x + y, aux
@@ -652,12 +700,7 @@ class GPT2(nn.Module):
         if s > self.cfg.max_positions:
             raise ValueError(f"sequence length {s} exceeds max_positions "
                              f"{self.cfg.max_positions}")
-        steps = torch.arange(s, device=tokens.device)
-        if isinstance(pos, torch.Tensor) and pos.dim() == 1:
-            positions = pos.long()[:, None] + steps[None, :]
-        else:
-            positions = (0 if pos is None else int(pos)) + steps[None, :]
-        x = self.drop(self.wte(tokens) + self.wpe(positions))
+        x = self.embed(tokens, pos)
         remat = self.cfg.remat and self.training and cache is None
         terms = []
         for i, block in enumerate(self.h):
@@ -672,12 +715,33 @@ class GPT2(nn.Module):
                     active=active, prefill=prefill)
             if aux is not None:
                 terms.append(aux)
+        return self.head(x, terms if cache is None else [],
+                         fused=cache is None)
+
+    def embed(self, tokens: torch.Tensor,
+              pos: Union[int, torch.Tensor, None] = None) -> torch.Tensor:
+        """Token plus position embeddings of ``tokens [B, S]``, then
+        dropout. An ``int`` ``pos`` offsets the positions (a prefill chunk,
+        or a sequence-parallel shard's first global position); a ``[B]``
+        tensor offsets each row."""
+        steps = torch.arange(tokens.shape[1], device=tokens.device)
+        if isinstance(pos, torch.Tensor) and pos.dim() == 1:
+            positions = pos.long()[:, None] + steps[None, :]
+        else:
+            positions = (0 if pos is None else int(pos)) + steps[None, :]
+        return self.drop(self.wte(tokens) + self.wpe(positions))
+
+    def head(self, x: torch.Tensor, terms: List[torch.Tensor],
+             fused: bool = True):
+        """``ln_f`` and the tied head of the last block's output: fp32
+        logits, or (``fused`` and ``fused_loss_chunk``) the fused-head
+        dict; with MoE ``terms`` (the layers' aux losses) also their
+        weighted sum."""
         x = self.ln_f(x)
         # The MoE layers' load-balance losses, weighted (JAX harvests them
         # out of the blocks' state); a cached forward carries none.
-        aux = (self.cfg.moe_aux_weight * sum(terms)
-               if terms and cache is None else None)
-        if self.cfg.fused_loss_chunk and cache is None:
+        aux = self.cfg.moe_aux_weight * sum(terms) if terms else None
+        if self.cfg.fused_loss_chunk and fused:
             # The LM head moves into the loss (lm_loss); gradients reach
             # the tied table through this dict.
             out = {"hidden": x, "wte": self.wte.embedding,

@@ -5,7 +5,8 @@ library with a plain C interface, which the kernel's wrapper loads with
 ``ctypes`` (pointers and the stream cross as ``c_void_p``)::
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \\
-         -Xcompiler -fPIC -I csrc -o lib<name>.so csrc/<name>.cu
+         -Xcompiler -fPIC --split-compile=0 -I csrc -o lib<name>.so \\
+         csrc/<name>.cu
 
 The build runs at first use, into ``build/nezha_tpu_torch/`` at the root
 of the checkout (listed in ``.gitignore``), in a directory keyed by a hash
@@ -36,8 +37,12 @@ import torch
 PACKAGE_DIR = Path(__file__).resolve().parents[2]
 CSRC = PACKAGE_DIR / "csrc"
 BUILD_ROOT = PACKAGE_DIR.parent / "build" / "nezha_tpu_torch"
+# --split-compile=0 runs a source's device optimization passes on all the
+# host's cores: the build waits on its slowest source (paged_prefill.cu's
+# instantiations), and splitting it shortens that wait
+# (tools/time_kernel_build.py times the build with and without it).
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "--split-compile=0")
 KERNELS = ("paged_decode", "paged_prefill", "flash_fwd", "flash_bwd",
            "flash_decode", "layer_norm", "paged_quant_decode",
            "quant_prefill")

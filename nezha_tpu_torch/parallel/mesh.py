@@ -6,7 +6,9 @@ A :class:`Mesh` is a list of ``torch.device``s under one axis name: shard
 ``r`` keeps its tensors on ``mesh.devices[r]``. A device may appear more
 than once: ``[cpu] * M`` is the counterpart of the forced host devices
 every JAX mesh test runs on, and ``[cuda:0] * M`` runs an M-shard mesh on
-one card (its shards then run one after another).
+one card (its shards then run one after another). An :class:`SpMesh`
+(:func:`make_sp_mesh`) is ``dp`` groups of such a mesh on the ``sp``
+axis, the sequence-parallel train step's.
 
 The collectives take per-shard lists (``xs[r]`` on shard r's device) and
 return per-shard lists; each moves tensors between the shards' devices
@@ -147,6 +149,40 @@ def check_groups_repeat(groups: Sequence[Sequence[torch.device]],
                 f"(multi-process {kind}, ROADMAP A7)")
 
 
+@dataclasses.dataclass(frozen=True)
+class SpMesh:
+    """``dp`` groups of ``sp`` sequence shards (JAX's ``make_mesh({"dp":
+    D, "sp": S})``): group g's shard s is ``devices[g * sp + s]``, shard
+    id ``g * sp + s``."""
+
+    devices: Tuple[torch.device, ...]
+    dp: int
+    sp: int
+
+    @property
+    def shape(self) -> Dict[str, int]:
+        return {"dp": self.dp, "sp": self.sp}
+
+    def group(self, g: int = 0) -> Mesh:
+        """Dp group g's sequence shards as a one-axis ``sp`` mesh."""
+        return Mesh(self.devices[g * self.sp:(g + 1) * self.sp], "sp")
+
+
+def make_sp_mesh(axes: Dict[str, int], devices: Optional[Sequence] = None,
+                 device_type: str = "cuda") -> SpMesh:
+    """The ``{"dp": D, "sp": S}`` mesh on ``devices`` (None: the visible
+    cards on ``cuda``, the CPU repeated on ``cpu``; one card repeated
+    when named so); ``sp=-1`` takes the visible cards left to each dp
+    group. A dp group on other devices than group 0's raises
+    :class:`NotPortedError` (ROADMAP A7)."""
+    sizes, devs = group_mesh(axes, ("sp",), "sequence-parallel", devices,
+                             device_type)
+    mesh = SpMesh(tuple(devs), sizes["dp"], sizes["sp"])
+    check_groups_repeat([mesh.group(g).devices for g in range(mesh.dp)],
+                        "sequence-parallel")
+    return mesh
+
+
 def device_scope(device: torch.device):
     """Make ``device`` the current card while a shard launches kernels on
     it (a kernel launches on the current device); a no-op off cuda."""
@@ -178,15 +214,18 @@ def all_to_all(xs: Sequence[torch.Tensor], split_axis: int,
 
 
 def ppermute(xs: Sequence[torch.Tensor],
-             perm: Sequence[Tuple[int, int]]) -> List[torch.Tensor]:
+             perm: Sequence[Tuple[int, int]],
+             copy: bool = True) -> List[torch.Tensor]:
     """``out[dst] = xs[src]`` for each ``(src, dst)`` pair, on ``dst``'s
-    device; a shard no pair sends to gets zeros."""
+    device; a shard no pair sends to gets zeros. ``copy=False`` hands a
+    tensor already on ``dst``'s device on as it is (a block that travels
+    on a repeated device moves by reference)."""
     m = _check(xs)
     out: List[Optional[torch.Tensor]] = [None] * m
     for src, dst in perm:
         if out[dst] is not None:
             raise ValueError(f"ppermute: shard {dst} receives twice")
-        out[dst] = xs[src].to(xs[dst].device, copy=True)
+        out[dst] = xs[src].to(xs[dst].device, copy=copy)
     return [torch.zeros_like(xs[r]) if o is None else o
             for r, o in enumerate(out)]
 
@@ -216,5 +255,5 @@ def pmax(xs: Sequence[torch.Tensor]) -> List[torch.Tensor]:
     return _reduce(xs, torch.maximum)
 
 
-__all__ = ["Mesh", "all_to_all", "device_scope", "make_mesh", "pmax",
-           "ppermute", "psum", "ring_perm"]
+__all__ = ["Mesh", "SpMesh", "all_to_all", "device_scope", "make_mesh",
+           "make_sp_mesh", "pmax", "ppermute", "psum", "ring_perm"]

@@ -331,7 +331,21 @@ def _flat_shapes(tree, prefix=""):
 def test_unported_knobs_raise(knob):
     """The knobs still refused; ``flash_shmap`` is ported and builds, and
     raises JAX's ValueError outside a tensor-parallel scope
-    (``tests/test_torch_gspmd.py`` runs it inside one)."""
+    (``tests/test_torch_gspmd.py`` runs it inside one); ``fused_loss_chunk``
+    1 and 128 are ported: they build and train, the MLM loss of the
+    chunked slices equal to the -1 path's (tests/test_torch_chunked_loss.py
+    holds them to JAX's); ``scan_layers`` stays refused."""
+    if "fused_loss_chunk" in knob:
+        batch = {k: torch.from_numpy(v) for k, v in _batch("none").items()}
+        got = []
+        for chunk in (knob["fused_loss_chunk"], -1):
+            model = Bert(BertConfig(**TINY_BERT_KW, fused_loss_chunk=chunk),
+                         device="cpu")
+            loss = mlm_loss(model(batch), batch)
+            loss.backward()
+            got.append(loss.item())
+        np.testing.assert_allclose(got[0], got[1], rtol=1e-5)
+        return
     if knob.get("attn_impl") == "flash_shmap":
         model = Bert(BertConfig(**TINY_BERT_KW, **knob), device="cpu")
         batch = {k: torch.from_numpy(v) for k, v in _batch("none").items()}

@@ -387,8 +387,9 @@ def test_cli_gspmd_refusals(argv, match):
 
 def test_refusals_that_remain():
     """dp groups on other devices than group 0's (one process a group),
-    a flag only gspmd consumes outside it, and the sequence-parallel
-    attentions, each typed."""
+    typed; a flag only gspmd consumes outside it; a sequence-parallel
+    attention on BERT, which has no sequence-parallel model (JAX's
+    exit)."""
     with pytest.raises(NotPortedError, match="A7"):
         make_gspmd_mesh({"dp": 2, "tp": 1},
                         devices=["cpu", "meta"], device_type="cpu")
@@ -396,5 +397,5 @@ def test_refusals_that_remain():
                  ["--shard-device", "cpu"]):
         with pytest.raises(SystemExit):
             _cli(["--config", "gpt2_124m"] + argv)
-    with pytest.raises(SystemExit, match="not ported"):
+    with pytest.raises(SystemExit, match="no sequence-parallel model"):
         _cli(["--config", "bert_base_zero1", "--attn-impl", "ring"])

@@ -330,22 +330,30 @@ def test_cli_refuses_unported_flags_and_configs():
                        "--ckpt-dir=/x"]).ckpt_dir == "/x"
     assert parse_args(["--config", "gpt2_124m",
                        "--run-dir=/r"]).run_dir == "/r"
-    # The parallel flags parse; sequence parallelism is refused typed
-    # (main exits naming it), and so are gspmd and pp across processes
-    # and the sequence-parallel attentions; gspmd and pp themselves run
-    # (tests/test_torch_gspmd.py, tests/test_torch_pipeline.py). --on-failure rejoin and
-    # --rejoin-timeout are ported: they parse, and rejoin without a
-    # coordinator exits with JAX's check.
+    # The parallel flags parse; gspmd, pp and sp across processes are
+    # refused typed (main exits naming them); gspmd, pp and sp themselves
+    # run (tests/test_torch_gspmd.py, tests/test_torch_pipeline.py,
+    # tests/test_torch_sequence_parallel.py), and JAX's sp checks hold:
+    # --sp-flash outside sp, the sequence-parallel attentions outside sp.
+    # --on-failure rejoin and --rejoin-timeout are ported: they parse,
+    # and rejoin without a coordinator exits with JAX's check.
     args = parse_args(["--config", "bert_base_zero1", "--parallel",
                        "zero1", "--mesh", "dp=1", "--grad-allreduce",
                        "int8", "--on-failure", "stop"])
     assert (args.parallel, args.mesh, args.grad_allreduce) == \
         ("zero1", "dp=1", "int8")
-    for argv in (["--parallel", "gspmd", "--coordinator", "127.0.0.1:1"],
-                 ["--parallel", "pp", "--coordinator", "127.0.0.1:1"],
-                 ["--parallel", "sp"],
-                 ["--attn-impl", "ring"], ["--attn-impl", "ulysses"]):
-        with pytest.raises(SystemExit, match="not ported"):
+    for argv, match in (
+            (["--parallel", "gspmd", "--coordinator", "127.0.0.1:1"],
+             "not ported"),
+            (["--parallel", "pp", "--coordinator", "127.0.0.1:1"],
+             "not ported"),
+            (["--parallel", "sp", "--coordinator", "127.0.0.1:1"],
+             "not ported"),
+            (["--parallel", "single", "--sp-flash", "off"],
+             "mode 'single' does not consume it"),
+            (["--attn-impl", "ring"], "needs --parallel sp"),
+            (["--attn-impl", "ulysses"], "needs --parallel sp")):
+        with pytest.raises(SystemExit, match=match):
             main(["--config", "gpt2_124m", "--device", "cpu"] + argv)
     args = parse_args(["--config", "gpt2_124m", "--on-failure", "rejoin",
                        "--rejoin-timeout", "5"])
@@ -370,7 +378,31 @@ def test_unported_model_knobs_raise(knob):
     (``tests/test_torch_gspmd.py`` runs it inside one); ``moe_experts``
     and ``remat`` are ported: they build and train (their parity with
     JAX: tests/test_torch_moe.py, tests/test_torch_remat.py), and
-    ``scan_layers`` beside them is still refused."""
+    ``scan_layers`` beside them is still refused; ``attn_impl`` ring and
+    ulysses build, train under the sequence-parallel step and refuse a
+    plain forward (tests/test_torch_sequence_parallel.py);
+    ``fused_loss_chunk`` 1 and 128 build and train
+    (tests/test_torch_chunked_loss.py)."""
+    if knob.get("attn_impl") in ("ring", "ulysses"):
+        from nezha_tpu_torch.parallel import make_sp_mesh, make_sp_train_step
+        model = GPT2(GPT2Config(**TINY_GPT2_KW, **knob), device="cpu")
+        with pytest.raises(ValueError, match="sequence-parallel") as e:
+            model(torch.zeros((1, 8), dtype=torch.long))
+        assert not isinstance(e.value, NotPortedError)
+        step = make_sp_train_step(model, optim.sgd(LR), make_sp_mesh(
+            {"dp": 1, "sp": 2}, device_type="cpu"))
+        assert torch.isfinite(step({"tokens": torch.randint(
+            0, 512, (2, 9))})["loss"])
+        return
+    if "fused_loss_chunk" in knob:
+        model = GPT2(GPT2Config(**TINY_GPT2_KW, **knob), device="cpu")
+        batch = {"tokens": torch.randint(0, 512, (2, 9))}
+        out = model(batch)
+        assert out["chunk"] == knob["fused_loss_chunk"]
+        loss = lm_loss(out, batch)
+        loss.backward()
+        assert torch.isfinite(loss)
+        return
     if "moe_experts" in knob or "remat" in knob:
         model = GPT2(GPT2Config(**TINY_GPT2_KW, **knob), device="cpu")
         model.train()
@@ -413,8 +445,14 @@ def test_unported_trainer_options_and_loss_chunk_raise():
                       process_group=object(), failure_check_every=0)
     assert trainer.step_fn is step and (trainer.rank, trainer.world) == \
         (0, 1)
-    with pytest.raises(NotPortedError):
-        lm_ce_from_fused({"hidden": None, "wte": None, "chunk": 128}, None)
+    # Ported: the chunked fused loss (chunk > 0), the -1 path's value.
+    hidden, wte = torch.randn(1, 256, 8), torch.randn(16, 8)
+    targets = torch.randint(0, 16, (1, 256))
+    np.testing.assert_allclose(
+        lm_ce_from_fused({"hidden": hidden, "wte": wte, "chunk": 128},
+                         targets).item(),
+        lm_ce_from_fused({"hidden": hidden, "wte": wte, "chunk": -1},
+                         targets).item(), rtol=1e-5)
     assert issubclass(NotPortedError, ValueError)
 
 

@@ -19,10 +19,15 @@ comparison on that batch and on it right-padded to the phase's lengths
 controls that a check with these limits must catch: ``scores_fp8`` (the
 composed path's bf16 scores rounded to float8 e4m3: 3 mantissa bits
 against bf16's 7) and ``lengths_plus_one`` (on the right-padded batch,
-the composed path attends one key past each length). Prints per run the
-loss difference and, over the parameters, the largest ``|g - g_ref| /
-|g_ref|`` (norms), then the largest over the seeds. Needs the card;
-imports nothing of JAX.
+the composed path attends one key past each length). ``--sp ring|ulysses`` (GPT-2): the sequence-parallel step at
+``dp=1,sp=SP_M`` on the card repeated (``--sp-flash off``: the composed
+attention) against the one-device flash step from the same weights and
+batch, what ``chip_smoke.py``'s SP_GRAD_RTOL is set from; on the first
+seed the control ``block_lse`` (ring only): each hop's backward reads
+its own block's lse and output in place of the global ones. Prints per
+run the loss difference and, over the parameters, the largest ``|g -
+g_ref| / |g_ref|`` (norms), then the largest over the seeds. Needs the
+card; imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -38,7 +43,8 @@ import torch
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
 from chip_smoke import (BERT_B, BERT_LR, BERT_PAD_LENGTHS, BERT_S,  # noqa
-                        BERT_WD, TRAIN_B, TRAIN_LR, TRAIN_S, right_padded)
+                        BERT_WD, SP_M, TRAIN_B, TRAIN_LR, TRAIN_S,
+                        right_padded)
 from nezha_tpu_torch.cli.common import gpt2_for_preset  # noqa: E402
 from nezha_tpu_torch.data import (synthetic_mlm_batches,  # noqa: E402
                                   synthetic_token_batches)
@@ -55,9 +61,15 @@ def spread(model, ref, batch, loss_fn, lr, wd, ref_batch=None) -> dict:
     results = []
     for m, b in ((model, batch), (ref, ref_batch or batch)):
         step = make_train_step(m, adamw(lr, weight_decay=wd), loss_fn)
-        loss, grads = step.loss_and_grads(b)
-        results.append((loss.item(), grads))
-    (loss, grads), (loss_r, grads_r) = results
+        results.append(step.loss_and_grads(b))
+    return compare(*results)
+
+
+def compare(got, ref) -> dict:
+    """(loss, gradients) against the reference's: the loss difference
+    and the gradients' relative norms."""
+    (loss, grads), (loss_r, grads_r) = got, ref
+    loss, loss_r = loss.item(), loss_r.item()
     rel = {name: ((g - grads_r[name]).norm()
                   / grads_r[name].norm().clamp_min(1e-30)).item()
            for name, g in grads.items()}
@@ -77,6 +89,45 @@ def one_seed(seed: int) -> dict:
     ref.load_state_dict(model.state_dict())
     return {"seed": seed, **spread(model, ref, batch, lm_loss, TRAIN_LR,
                                    0.1)}
+
+
+def sp_seed(seed: int, impl: str, flash, control: bool) -> list:
+    """The sp step (``impl``, ``sp_use_flash=flash``) at dp=1,sp=SP_M on
+    the card repeated against the one-device flash step; with
+    ``control`` also the ring whose hops read their own block's lse and
+    output in the backward."""
+    from nezha_tpu_torch.models.gpt2 import with_overrides
+    from nezha_tpu_torch.ops.cuda.flash_attention import flash_block_fwd
+    from nezha_tpu_torch.parallel import ring
+    from nezha_tpu_torch.parallel.mesh import make_sp_mesh
+    from nezha_tpu_torch.parallel.sequence_parallel import SPTrainStep
+
+    batch = next(synthetic_token_batches(TRAIN_B, seq_len=TRAIN_S,
+                                         seed=seed))
+    model = gpt2_for_preset("full", seed=seed, device="cuda",
+                            fused_loss_chunk=-1)
+    opt = adamw(TRAIN_LR, weight_decay=0.1)
+    one = make_train_step(model, opt, lm_loss).loss_and_grads(batch)
+    step = SPTrainStep(with_overrides(model, attn_impl=impl,
+                                      sp_use_flash=flash), opt,
+                       make_sp_mesh({"dp": 1, "sp": SP_M},
+                                    [torch.device("cuda", 0)] * SP_M))
+    tag = {"seed": seed, "sp": impl, "sp_flash": flash}
+    rows = [{**tag, **compare(step.loss_and_grads(batch), one)}]
+    if control:
+        plain = ring.flash_block_bwd
+
+        def block_lse(q, k, v, o, lse, do, causal, scale=None):
+            o, lse = flash_block_fwd(q, k, v, causal, scale)
+            return plain(q, k, v, o, lse, do, causal, scale)
+
+        ring.flash_block_bwd = block_lse
+        try:
+            rows.append({**tag, "control": "block_lse",
+                         **compare(step.loss_and_grads(batch), one)})
+        finally:
+            ring.flash_block_bwd = plain
+    return rows
 
 
 def bert_pair(seed: int):
@@ -137,6 +188,9 @@ def main() -> int:
                    default="gpt2_124m")
     p.add_argument("--seeds", type=int, nargs="+",
                    default=[0, 1, 2, 3, 4, 5])
+    p.add_argument("--sp", choices=["ring", "ulysses"], default=None,
+                   help="gpt2_124m: the sp step against one device")
+    p.add_argument("--sp-flash", choices=["auto", "off"], default="auto")
     args = p.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("needs a CUDA card")
@@ -149,6 +203,11 @@ def main() -> int:
     for i, seed in enumerate(args.seeds):
         if args.config == "bert_base_zero1":
             new = bert_seed(seed, controls=i == 0)
+        elif args.sp:
+            new = sp_seed(seed, args.sp, {"auto": None,
+                                          "off": False}[args.sp_flash],
+                          control=i == 0 and args.sp == "ring"
+                          and args.sp_flash == "auto")
         else:
             new = [one_seed(seed)]
         for row in new:
@@ -156,7 +215,8 @@ def main() -> int:
         rows += new
         torch.cuda.empty_cache()
     runs = [r for r in rows if "control" not in r]
-    print(json.dumps({"config": args.config, "seeds": len(args.seeds),
+    print(json.dumps({"config": args.config, "sp": args.sp,
+                      "sp_flash": args.sp_flash, "seeds": len(args.seeds),
                       "max_grad_rel_err": max(r["max_grad_rel_err"]
                                               for r in runs),
                       "max_loss_err": max(r["loss_err"] for r in runs),
