@@ -227,6 +227,27 @@ serve_wire (e) sets one, for one engine at a time.
    ms a step, the run's peak, B1 72 and the rest 36 a step), one step
    resumed at sp=4 (B1 240, the rest 120) whose restored state equals
    the save bitwise, and the generate CLI from its save;
+4l. train_graph (after 4k, before 4e): the graph-IR engine and the scan
+   trunk: (a) GPT-2 124M's graph program under the bf16 policy
+   (``--graph-bf16``, B=8, S=1024): its first step's loss and gradients
+   against the module engine's from the same weights (GRAPH_LOSS_ATOL,
+   GRAPH_GRAD_RTOL), the weights after it within 2 * lr; then 3 steps
+   through ``Trainer.fit`` on the host clock (ended by a sync) with B1,
+   the pre-pass, B2 and B3 12 each a step exactly, the busy share and the
+   executor's 1 miss and 2 hits; (b) the IR's composed attention: no
+   launch, the loss and gradients within the train check's limits of
+   (a)'s; (c) the fp32 program: 12 each; (d) BERT-base's graph step
+   (B=16, S=512; 12 each, non-causal) and ResNet-50's fp32 graph step at
+   the config's batch (no launch; the loss falls on a repeated batch);
+   (e) the MLP's programs single, dp and ZeRO-1 on ``[cuda:0] * 2``,
+   their losses within 1e-5 of one another; (f) ``--scan-layers``
+   through the train CLI in process, 3 steps with a save (36 each),
+   its losses against the unrolled run's (bitwise where two unrolled
+   runs repeat bitwise, else within their spread), the save restored
+   into the unrolled model leaf for leaf, the generate and serve CLIs
+   from it against the unrolled model's save of the same weights
+   (tokens and launches equal, generate's B1, B6 and B4 counted
+   exactly), and one step of a BERT-base scan model (12 each);
 4e. train_dist (after 4k, before 4d): multi-process training at full
    width: (a) in-process, the coordinator's world of one and NCCL
    through ``init_torch_distributed``: GPT-2 124M (B=8, S=1024) and
@@ -7159,6 +7180,459 @@ def train_sp(card: str) -> dict:
     return paths
 
 
+# train_graph: the graph-IR engine and the layer-stacked trunk.
+# (a) The graph GPT-2's first step (--graph-bf16) against the module
+# engine's first step from the same weights: per tensor ||g_graph -
+# g_module|| <= GRAPH_GRAD_RTOL ||g_module||, and the loss within
+# GRAPH_LOSS_ATOL: twice the largest spreads tools/grad_spread.py --graph
+# measured on the H100 over six seeds (PERF.md: 0.0140, wpe/embedding or
+# an LN scale, the median tensor ~0.0095; the loss 1.65e-4 of ~10.98), as
+# TRAIN_GRAD_RTOL is set. Both sides run the same bf16 policy in another
+# op order (the graph's residual adds, casts and fp32 logits are nodes of
+# their own). The weights after the step within 2 * lr + 1e-6 (AdamW's
+# first move is ~lr sign(g)).
+GRAPH_GRAD_RTOL = 0.028
+GRAPH_LOSS_ATOL = 0.00033
+GRAPH_STEPS = 3           # (a)'s timed steps through Trainer.fit
+GRAPH_MLP_STEPS = 3       # (e)'s steps in each mode
+GRAPH_MLP_RTOL = 1e-5     # (e): tests/test_torch_graph_programs.py's
+GRAPH_SCAN_STEPS = 3      # (f)'s CLI steps
+GRAPH_GEN_NEW = 8         # (f)'s greedy tokens a request
+GRAPH_PROMPTS = [[464, 2068, 7586, 21831], [15496, 995, 11, 314]]
+GRAPH_IMG_B = 256         # resnet50_imagenet's batch
+
+
+def graph_grads(program_cfg, params: dict, batch: dict, dtype: str):
+    """The graph GPT-2 loss graph's loss and gradients (``torch.autograd
+    .grad`` over its placeholders) on ``params`` -> (loss, {JAX path:
+    gradient})."""
+    from nezha_tpu_torch.graph.lower import value_and_grad_callable
+    from nezha_tpu_torch.graph.programs import (gpt2_loss_graph,
+                                                tree_flatten_with_path)
+
+    b, s = batch["inputs"].shape
+    g = gpt2_loss_graph(program_cfg, params, b, s, compute_dtype=dtype)
+    pairs = tree_flatten_with_path(params)[0]
+    vg = value_and_grad_callable(g, tuple(range(len(pairs))))
+    loss, grads = vg(*[leaf for _, leaf in pairs],
+                     *[torch.as_tensor(batch[k]).cuda()
+                       for k in ("inputs", "targets")])
+    return loss, {"/".join(p): gr for (p, _), gr in zip(pairs, grads)}
+
+
+def module_grads(model, batch: dict, lr_schedule):
+    """The module engine's first step's loss and gradients on ``batch``
+    ({"tokens"}) -> (loss, {parameter name: gradient}, the step)."""
+    from nezha_tpu_torch.models.gpt2 import lm_loss
+    from nezha_tpu_torch.optim import adamw
+    from nezha_tpu_torch.train import make_train_step
+
+    step = make_train_step(model, adamw(lr_schedule, weight_decay=0.1),
+                           lm_loss)
+    loss, grads = step.loss_and_grads(batch)
+    return loss, grads, step
+
+
+def grads_rel(what: str, got: dict, want: dict, rtol: float) -> dict:
+    """Per tensor ||got - want|| / ||want||, each within ``rtol``."""
+    worst, name = 0.0, None
+    for k, w in want.items():
+        rel = ((got[k].float() - w.float()).norm()
+               / w.float().norm().clamp_min(1e-30)).item()
+        if rel >= worst:
+            worst, name = rel, k
+    if not worst <= rtol:
+        fail(f"{what}: gradient of {name} differs by {worst} of its norm "
+             f"(tolerance {rtol})")
+    return {"max_grad_rel_err": worst, "worst_param": name,
+            "grad_rtol": rtol}
+
+
+def graph_gpt2_parts(card: str) -> dict:
+    """(a)-(c): GPT-2 124M through the graph engine at B=TRAIN_B,
+    S=TRAIN_S. -> {"train_graph": (a)'s launches}."""
+    from nezha_tpu_torch.cli.common import gpt2_for_preset
+    from nezha_tpu_torch.cli.train import GPT2_SCHEDULE
+    from nezha_tpu_torch.data import synthetic_token_batches
+    from nezha_tpu_torch.graph import programs
+    from nezha_tpu_torch.graph.step import GraphTrainStep
+    from nezha_tpu_torch.models.convert import _to_jax_path
+    from nezha_tpu_torch.models.gpt2 import with_overrides
+    from nezha_tpu_torch.ops.cuda.flash_attention import LAUNCHES
+    from nezha_tpu_torch.train import Trainer
+
+    layers = 12
+    sched = GPT2_SCHEDULE(GRAPH_STEPS)
+    lr0 = sched(0)
+    model = gpt2_for_preset("full", seed=0, device="cuda",
+                            fused_loss_chunk=-1)
+    batches = synthetic_token_batches(TRAIN_B, seq_len=TRAIN_S, seed=0)
+    raw = next(batches)
+    shard = programs.lm_shard_fn()
+    feed = shard(raw)
+    out = {}
+
+    def one_step(cfg, dtype, state, want_flash: int):
+        """One graph step from ``state``: -> (loss, new state, launches)."""
+        prog = programs.make_gpt2_graph_train_step(
+            with_overrides(model, **cfg) if cfg else model, sched,
+            weight_decay=0.1, compute_dtype=dtype)
+        zero_counts()
+        new, m = prog(state, feed)
+        loss = float(m["loss"])
+        torch.cuda.synchronize()
+        launches = {k: LAUNCHES[k] for k in LAUNCHES}
+        if launches != {k: want_flash for k in LAUNCHES}:
+            fail(f"train_graph {cfg or 'flash'} {dtype}: launches "
+                 f"{launches}, expected {want_flash} each")
+        if not math.isfinite(loss):
+            fail(f"train_graph {cfg or 'flash'} {dtype}: loss {loss}")
+        return loss, new, launches
+
+    # (a) the first step against the module engine's.
+    state0 = programs.init_graph_gpt2_state(model)
+    g_loss, g_grads = graph_grads(model.cfg, state0["params"], feed,
+                                  "bfloat16")
+    m_loss, by_name, m_step = module_grads(model, raw, sched)
+    m_grads = {_to_jax_path(n): g for n, g in by_name.items()}
+    loss_err = abs(g_loss.item() - m_loss.item())
+    if not loss_err <= GRAPH_LOSS_ATOL:
+        fail(f"train_graph: graph loss {g_loss.item()} vs module "
+             f"{m_loss.item()} (tolerance {GRAPH_LOSS_ATOL})")
+    first = {"loss": g_loss.item(), "module_loss": m_loss.item(),
+             "loss_err": loss_err, "loss_atol": GRAPH_LOSS_ATOL,
+             **grads_rel("train_graph vs module", g_grads, m_grads,
+                         GRAPH_GRAD_RTOL)}
+    del m_grads
+    loss_a, state1, _ = one_step({}, "bfloat16", state0, layers)
+    m_step.apply_gradients(by_name)
+    del by_name
+    module_after = programs.module_param_tree(model)
+    worst_w = max((a - b).abs().max().item() for a, b in zip(
+        programs.tree_leaves(state1["params"]),
+        programs.tree_leaves(module_after)))
+    if not worst_w <= 2 * lr0 + 1e-6:
+        fail(f"train_graph: weights after one step differ from the module "
+             f"engine's by {worst_w} > 2 * lr ({lr0})")
+    first.update(step_loss=loss_a, max_weight_err_after_step=worst_w,
+                 lr=lr0)
+    del module_after, state1, m_step
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (b) the IR's composed attention: no flash launch; the loss and the
+    # gradients within the train check's flash-against-composed limits,
+    # the weights after the step within 2 * lr.
+    x_loss, x_grads = graph_grads(with_overrides(model, attn_impl="xla").cfg,
+                                  state0["params"], feed, "bfloat16")
+    if not abs(x_loss.item() - g_loss.item()) <= TRAIN_LOSS_ATOL:
+        fail(f"train_graph xla: loss {x_loss.item()} vs flash "
+             f"{g_loss.item()}")
+    composed = {"loss": x_loss.item(),
+                "loss_err": abs(x_loss.item() - g_loss.item()),
+                **grads_rel("train_graph xla vs flash", x_grads, g_grads,
+                            TRAIN_GRAD_RTOL)}
+    del x_grads, g_grads
+    _, sx, _ = one_step({"attn_impl": "xla"}, "bfloat16", state0, 0)
+    _, sf, _ = one_step({}, "bfloat16", state0, layers)
+    composed["max_weight_err_after_step"] = max(
+        (a - b).abs().max().item() for a, b in zip(
+            programs.tree_leaves(sx["params"]),
+            programs.tree_leaves(sf["params"])))
+    if not composed["max_weight_err_after_step"] <= 2 * lr0 + 1e-6:
+        fail(f"train_graph xla: weights after one step {composed}")
+    del sx, sf
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (c) the fp32 IR: B1-B3 on fp32 q, k, v.
+    fp32_loss, _, fp32_launches = one_step({}, "float32", state0, layers)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # The main path: the graph step in Trainer.fit, GRAPH_STEPS steps.
+    prog = programs.make_gpt2_graph_train_step(
+        model, sched, weight_decay=0.1, compute_dtype="bfloat16")
+    step = GraphTrainStep(prog, state0, shard)
+    trainer = Trainer(model, None, None, log_every=0, step_fn=step)
+    torch.cuda.synchronize()
+    zero_counts()
+    t0 = time.perf_counter()
+    last = trainer.fit(batches, GRAPH_STEPS)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_counts()
+    for name in LAUNCHES:
+        if launches[name] != layers * GRAPH_STEPS:
+            fail(f"train_graph: {name} launched {launches[name]} times in "
+                 f"{GRAPH_STEPS} steps, not {layers} a step")
+    stats = prog.executor.stats()
+    if stats != {"entries": 1, "hits": GRAPH_STEPS - 1, "misses": 1}:
+        fail(f"train_graph: executor stats {stats}")
+    busy = profiled_busy_share(trainer, batches, 2)
+    out["train_graph"] = {k: launches[k] for k in LAUNCHES}
+    print(json.dumps({"train_graph": {
+        "first_step_vs_module": first, "composed_vs_flash": composed,
+        "fp32": {"loss": fp32_loss, "launches": fp32_launches},
+        "B": TRAIN_B, "S": TRAIN_S, "steps": GRAPH_STEPS,
+        "ms_per_step": wall / GRAPH_STEPS * 1e3,
+        "tokens_per_s": TRAIN_B * TRAIN_S * GRAPH_STEPS / wall,
+        "last_loss": last["loss"], "executor": stats, **busy,
+        "launches": out["train_graph"], "card": card}}), flush=True)
+    del trainer, step, prog, state0, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def graph_bert_resnet_mlp(card: str) -> dict:
+    """(d) BERT-base and ResNet-50 through the graph engine, (e) the MLP
+    single, dp and ZeRO-1 on ``[cuda:0] * 2``."""
+    from nezha_tpu_torch.cli.train import BERT_SCHEDULE, MLP_DIMS
+    from nezha_tpu_torch.data import (mnist_batches, synthetic_image_batches,
+                                      synthetic_mlm_batches)
+    from nezha_tpu_torch.graph import programs
+    from nezha_tpu_torch.models import MLP
+    from nezha_tpu_torch.models.bert import bert_base
+    from nezha_tpu_torch.models.resnet import resnet50
+    from nezha_tpu_torch.ops.cuda.flash_attention import LAUNCHES
+    from nezha_tpu_torch.parallel.mesh import make_mesh
+    from nezha_tpu_torch.tensor import bf16_policy
+
+    out = {}
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    bert = bert_base(fused_loss_chunk=-1, generator=gen)
+    prog = programs.make_bert_graph_train_step(bert, BERT_SCHEDULE(1),
+                                               weight_decay=0.01)
+    feed = programs.bert_shard_fn()(next(synthetic_mlm_batches(
+        BERT_B, seq_len=BERT_S, seed=0)))
+    zero_counts()
+    _, m = prog(programs.init_graph_bert_state(bert), feed)
+    loss = float(m["loss"])
+    launches = {k: LAUNCHES[k] for k in LAUNCHES}
+    if launches != {k: 12 for k in LAUNCHES} or not math.isfinite(loss):
+        fail(f"train_graph bert: loss {loss}, launches {launches}")
+    out["bert"] = {"loss": loss, "launches": launches, "B": BERT_B,
+                   "S": BERT_S}
+    del bert, prog, feed
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    rn = resnet50(stem="s2d", policy=bf16_policy(), generator=gen)
+    prog = programs.make_resnet_graph_train_step(rn, lr=0.1)
+    state = programs.init_graph_resnet_state(rn)
+    feed = programs.image_shard_fn()(next(synthetic_image_batches(
+        GRAPH_IMG_B)))
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    losses = []
+    t0 = time.perf_counter()
+    for _ in range(2):   # the same batch twice: the loss must fall
+        state, m = prog(state, feed)
+        losses.append(float(m["loss"]))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    if any(counts.values()) or not (all(map(math.isfinite, losses))
+                                    and losses[1] < losses[0]):
+        fail(f"train_graph resnet: losses {losses}, launches {counts}")
+    out["resnet50"] = {"batch": GRAPH_IMG_B, "losses": losses,
+                       "ms_per_step": wall / 2 * 1e3,
+                       "peak_mem_gb": torch.cuda.max_memory_allocated()
+                       / 2 ** 30}
+    del rn, prog, state, feed
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    mlp = MLP(generator=gen)
+    onehot = programs.onehot_shard_fn(MLP_DIMS[-1])
+    feeds = [onehot(b) for b, _ in zip(mnist_batches(128),
+                                       range(GRAPH_MLP_STEPS))]
+    mesh = make_mesh({"dp": 2}, [torch.device("cuda", 0)] * 2)
+    runs = {
+        "single": (programs.init_graph_mlp_state(MLP_DIMS, mlp),
+                   programs.make_mlp_graph_train_step(MLP_DIMS, 128, 0.1)),
+        "dp": (programs.init_graph_mlp_state(MLP_DIMS, mlp),
+               programs.make_mlp_graph_dp_train_step(MLP_DIMS, 128, 0.1,
+                                                     mesh)),
+        "zero1": (programs.init_graph_mlp_zero1_state(MLP_DIMS, mesh, mlp),
+                  programs.make_mlp_graph_zero1_train_step(
+                      MLP_DIMS, 128, 0.1, mesh))}
+    mlp_losses = {}
+    for name, (state, step) in runs.items():
+        ls = []
+        for f in feeds:
+            state, m = step(state, f)
+            ls.append(float(m["loss"]))
+        mlp_losses[name] = ls
+    for name in ("dp", "zero1"):
+        if not np.allclose(mlp_losses[name], mlp_losses["single"],
+                           rtol=GRAPH_MLP_RTOL, atol=0):
+            fail(f"train_graph mlp {name}: losses {mlp_losses}")
+    out["mlp"] = {"losses": mlp_losses, "rtol": GRAPH_MLP_RTOL,
+                  "mesh": [str(d) for d in mesh.devices]}
+    print(json.dumps({"train_graph_models": {**out, "card": card}}),
+          flush=True)
+    return out
+
+
+def graph_scan_cli(card: str) -> dict:
+    """(f) ``--scan-layers`` through the train CLI in process: GPT-2 124M,
+    GRAPH_SCAN_STEPS steps with a save, against the unrolled module run
+    twice (the first with a save); the save restored into the unrolled
+    model; the generate and serve CLIs from it against the unrolled
+    model's save of the same weights (the unrolled run's when the runs
+    repeat bitwise, else the restored model saved); one BERT step of a
+    scan model. -> {"train_graph_scan": its launches}."""
+    import io
+    import tempfile
+
+    from nezha_tpu_torch.cli import generate as gen_cli
+    from nezha_tpu_torch.cli import serve as serve_cli
+    from nezha_tpu_torch.cli.common import (gpt2_for_preset,
+                                            restore_variables_any)
+    from nezha_tpu_torch.data import synthetic_mlm_batches
+    from nezha_tpu_torch.models.bert import bert_base, mlm_loss
+    from nezha_tpu_torch.models.convert import train_state_to_jax
+    from nezha_tpu_torch.nn.scan import unstack_flat_keys
+    from nezha_tpu_torch.optim import adamw
+    from nezha_tpu_torch.train import checkpoint as ckpt
+    from nezha_tpu_torch.train import make_train_step
+
+    layers = 12
+    base = ["--config", "gpt2_124m", "--parallel", "single", "--steps",
+            str(GRAPH_SCAN_STEPS), "--log-every", "1"]
+    with tempfile.TemporaryDirectory(prefix="nezha_graph_scan_") as tmp:
+        runs = {}
+        for tag, extra in (
+                ("scan", ["--scan-layers", "--ckpt-dir", f"{tmp}/scan"]),
+                ("unrolled", ["--ckpt-dir", f"{tmp}/unrolled"]),
+                ("unrolled_again", [])):
+            runs[tag] = cli_run(*base, *extra, in_process=True)
+        want = {k: GRAPH_SCAN_STEPS * layers for k in
+                ("flash_fwd", "flash_bwd_delta", "flash_bwd_dq",
+                 "flash_bwd_dkv")}
+        got = {k: runs["scan"]["launches"][k] for k in want}
+        if got != want:
+            fail(f"train_graph scan CLI: launches {got}, expected {want}")
+        losses = {t: [lg["loss"] for lg in r["logs"]]
+                  for t, r in runs.items()}
+        repeat = losses["unrolled"] == losses["unrolled_again"]
+        spread = max(abs(a - b) for a, b in zip(losses["unrolled"],
+                                                losses["unrolled_again"]))
+        diff = max(abs(a - b) for a, b in zip(losses["scan"],
+                                              losses["unrolled"]))
+        if (repeat and losses["scan"] != losses["unrolled"]) or \
+                diff > spread:
+            fail(f"train_graph scan CLI: losses {losses}")
+        # The save restores into the unrolled model leaf for leaf.
+        model = gpt2_for_preset("full", seed=0, device="cuda")
+        restore_variables_any(f"{tmp}/scan", model)
+        step = ckpt.latest_step(f"{tmp}/scan")
+        with np.load(ckpt.checkpoint_path(f"{tmp}/scan", step)) as z:
+            saved = unstack_flat_keys(
+                {k: z[k] for k in z.files
+                 if k.startswith("variables/params/")}, "h", layers,
+                "h_scan")
+        mine = train_state_to_jax(model)
+        for k, v in saved.items():
+            if mine[k].tobytes() != np.asarray(v).tobytes():
+                fail(f"train_graph scan: restored leaf {k} differs")
+        same = f"{tmp}/unrolled"
+        if repeat:   # the unrolled run's save holds the same weights
+            with np.load(ckpt.checkpoint_path(same, step)) as z:
+                for k, v in mine.items():
+                    if z[k].tobytes() != v.tobytes():
+                        fail(f"train_graph scan: leaf {k} differs from the "
+                             f"unrolled run's save")
+        else:
+            same = f"{tmp}/same"
+            ckpt.save_checkpoint(same, mine, step)
+        del model
+        gc.collect()
+        inference = {}
+        for tag, ck in (("scan", f"{tmp}/scan"), ("same", same)):
+            argv = ["--ckpt-dir", ck, "--prompt-tokens",
+                    ",".join(map(str, GRAPH_PROMPTS[0])),
+                    "--max-new-tokens", str(GRAPH_GEN_NEW), "--temperature",
+                    "0", "--ln-impl", "pallas", "--eos-id", "-1"]
+            zero_counts()
+            g, _ = cli_stdout(gen_cli.run,
+                              gen_cli.build_parser().parse_args(argv))
+            torch.cuda.synchronize()
+            gl = read_counts()
+            args = serve_cli.build_parser().parse_args([
+                "--ckpt-dir", ck, "--max-len", "64",
+                "--max-prefill-len", "16", "--eos-id", "-1"])
+            sched = serve_cli.build_scheduler(args)
+            outbuf = io.StringIO()
+            zero_counts()
+            serve_cli.run_stdio(sched, args, stdin=io.StringIO("".join(
+                json.dumps({"id": f"p{i}", "prompt_tokens": p,
+                            "max_new_tokens": GRAPH_GEN_NEW}) + "\n"
+                for i, p in enumerate(GRAPH_PROMPTS))), stdout=outbuf)
+            torch.cuda.synchronize()
+            sl = read_counts()
+            del sched
+            gc.collect()
+            inference[tag] = {
+                "generate": g["tokens"],
+                "serve": [json.loads(line)["tokens"] for line in
+                          outbuf.getvalue().splitlines()],
+                "generate_launches": {k: gl[k] for k in (
+                    "flash_fwd", "flash_decode", "layer_norm_fwd")},
+                "serve_launches": {k: sl[k] for k in (
+                    "paged_prefill", "paged_decode")}}
+        n = GRAPH_GEN_NEW
+        want_gen = {"flash_fwd": layers, "flash_decode": layers * (n - 1),
+                    "layer_norm_fwd": (2 * layers + 1) * n}
+        if inference["scan"] != inference["same"] or \
+                inference["scan"]["generate_launches"] != want_gen or \
+                min(inference["scan"]["serve_launches"].values()) <= 0:
+            fail(f"train_graph scan inference: {inference} (generate "
+                 f"launches expected {want_gen})")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    bert = bert_base(fused_loss_chunk=-1, scan_layers=True, generator=gen)
+    step_fn = make_train_step(bert, adamw(BERT_LR, weight_decay=BERT_WD),
+                              mlm_loss)
+    zero_counts()
+    bert_loss = float(step_fn(next(synthetic_mlm_batches(
+        BERT_B, seq_len=BERT_S, seed=0)))["loss"])
+    bert_l = {k: read_counts()[k] for k in want}
+    if bert_l != {k: layers for k in want} or not math.isfinite(bert_loss):
+        fail(f"train_graph scan bert: loss {bert_loss}, launches {bert_l}")
+    del bert, step_fn
+    print(json.dumps({"train_graph_scan": {
+        "losses": losses, "unrolled_repeats_bitwise": repeat,
+        "unrolled_spread": spread, "scan_vs_unrolled": diff,
+        "wall_s": {t: r["wall_s"] for t, r in runs.items()},
+        "inference": inference["scan"], "bert_loss": bert_loss,
+        "bert_launches": bert_l, "card": card}}), flush=True)
+    return {"train_graph_scan": runs["scan"]["launches"]}
+
+
+def train_graph(card: str) -> dict:
+    """Phase 4l: the graph-IR engine and ``--scan-layers``. -> the
+    launches by path."""
+    t_phase = time.perf_counter()
+    paths, walls = {}, {}
+    for part, fn in (("gpt2", graph_gpt2_parts),
+                     ("models", graph_bert_resnet_mlp),
+                     ("scan", graph_scan_cli)):
+        t0 = time.perf_counter()
+        got = fn(card)
+        if part != "models":
+            paths.update(got)
+        walls[part] = time.perf_counter() - t0
+        gc.collect()
+        torch.cuda.empty_cache()
+    print(json.dumps({"train_graph_wall_s": time.perf_counter() - t_phase,
+                      "parts_s": walls}), flush=True)
+    return paths
+
+
 REJOIN_B = 4              # GPT-2 124M rows a rank: two trainers on the card
 REJOIN_STEPS = 80         # rank 0's horizon
 REJOIN_MORE = 5           # the replacement's steps after its resume
@@ -7700,6 +8174,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase("train_sp")
     paths.update(train_sp(card))
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase("train_graph")
+    paths.update(train_graph(card))
     phase("train_dist")
     dist_paths = train_dist(card)
     paths["train_dist_gpt2"] = dist_paths["gpt2_124m"]

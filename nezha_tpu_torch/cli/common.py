@@ -11,11 +11,11 @@ import numpy as np
 import torch
 
 from nezha_tpu_torch.data.tokenizer import default_eos_id, load_tokenizer
-from nezha_tpu_torch.errors import NotPortedError
 from nezha_tpu_torch.models.convert import (jax_variable_shapes,
                                             load_train_state,
-                                            train_state_template)
+                                            train_state_to_jax)
 from nezha_tpu_torch.models.gpt2 import GPT2, GPT2Config
+from nezha_tpu_torch.nn.scan import scan_source
 from nezha_tpu_torch.tensor.policy import bf16_policy, f32_policy
 from nezha_tpu_torch.train import checkpoint as ckpt
 from nezha_tpu_torch.train import sharded_checkpoint as sck
@@ -119,10 +119,9 @@ def load_tokenizer_arg(args):
 
 
 def _refuse_layouts(ckpt_dir: str, keys) -> None:
-    """The layouts the inference CLIs cannot read: a pipeline run's
-    (stacked stage slabs under ``pparams/``, which JAX's inference CLIs do
-    not read either), the graph engine's (no ``variables/`` leaves) and a
-    ``--scan-layers`` trunk's (A7)."""
+    """The layout the inference CLIs cannot read: a pipeline run's
+    (stacked stage slabs under ``pparams/``, which JAX's inference CLIs
+    do not read either)."""
     if any(k.startswith("pparams/") for k in keys):
         raise SystemExit(
             f"{ckpt_dir}: the newest checkpoint has the pipeline layout "
@@ -130,15 +129,41 @@ def _refuse_layouts(ckpt_dir: str, keys) -> None:
             f"leaves); the inference CLIs read a variables/ layout, as the "
             f"JAX package's do: train on with --parallel pp, or save from "
             f"another mode")
-    if not any(k.startswith("variables/") for k in keys):
-        raise NotPortedError(
-            f"{ckpt_dir}: the newest checkpoint has the graph engine's "
-            f"layout (no variables/ leaves); the port has no graph "
-            f"engine (ROADMAP A7)")
-    if any(f"/{s}/" in k for k in keys for s in ("h_scan", "layers_scan")):
-        raise NotPortedError(
-            f"{ckpt_dir}: the newest checkpoint stores a --scan-layers "
-            f"trunk; the port does not take scan_layers (ROADMAP A7)")
+
+
+# (unrolled prefix, stacked key) of each --scan-layers trunk.
+SCAN_TRUNKS = (("h", "h_scan"), ("layers", "layers_scan"))
+
+
+def _read_plan(shapes, keys):
+    """``{variables/<key>: shape}`` the model needs -> ``{its key:
+    (stored key, layer or None)}``: the train state's layout as is; the
+    graph engine's (JAX's ``_is_graph_layout``: no ``variables/`` leaves)
+    params-only under ``params/<path>``; a ``--scan-layers`` trunk's
+    layer ``i`` as slice ``i`` of the stacked leaf (JAX restores the scan
+    layout and unstacks it once)."""
+    graph = not any(k.startswith("variables/") for k in keys)
+    plan = {}
+    for key in shapes:
+        src = key
+        if graph:
+            if not key.startswith("variables/params/"):
+                continue   # the graph state has no BatchNorm statistics
+            src = key[len("variables/"):]
+        layer = None
+        if src not in keys:
+            for prefix, stacked in SCAN_TRUNKS:
+                hit = scan_source(src, prefix, stacked)
+                if hit is not None and hit[0] in keys:
+                    src, layer = hit
+                    break
+        plan[key] = (src, layer)
+    return plan
+
+
+def _assemble(plan, got) -> dict:
+    return {key: (got[src] if layer is None else np.asarray(got[src])[layer])
+            for key, (src, layer) in plan.items()}
 
 
 def restore_variables_any(ckpt_dir: str, model: torch.nn.Module) -> int:
@@ -147,29 +172,39 @@ def restore_variables_any(ckpt_dir: str, model: torch.nn.Module) -> int:
     is not read); -> its step. Either layout a training run writes: the
     dense npz (the newest that verifies), else the per-shard layout
     (``step_*.sharded``, the newest complete save, each variable read
-    whole). The graph engine's layout and a ``--scan-layers`` trunk's
-    (A7) raise ``NotPortedError``; no checkpoint at all exits."""
+    whole); a graph-engine checkpoint params-only, and a
+    ``--scan-layers`` trunk sliced into the model's unrolled layers
+    (:func:`_read_plan`). No checkpoint at all exits."""
+    shapes = jax_variable_shapes(model)
+    current = train_state_to_jax(model)
     newest = ckpt.latest_step(ckpt_dir)
     if newest is None:
         step = sck.latest_step(ckpt_dir)
         if step is None:
             raise SystemExit(f"no checkpoint (npz or sharded) in "
                              f"{ckpt_dir}")
-        _refuse_layouts(ckpt_dir, sck.checkpoint_keys(ckpt_dir, step))
-        got, step = sck.restore_sharded(ckpt_dir, {
-            k: (shape, None)
-            for k, shape in jax_variable_shapes(model).items()}, step)
-        load_train_state({k: a for k, (a, _) in got.items()}, model)
+        keys = set(sck.checkpoint_keys(ckpt_dir, step))
+        _refuse_layouts(ckpt_dir, keys)
+        plan = _read_plan(shapes, keys)
+        want = {src: ((tuple(shapes[key]) if layer is None
+                       else (model.cfg.num_layers,) + tuple(shapes[key])),
+                      None) for key, (src, layer) in plan.items()}
+        got, step = sck.restore_sharded(ckpt_dir, want, step)
+        load_train_state({**current, **_assemble(
+            plan, {k: a for k, (a, _) in got.items()})}, model)
         print(f"restored step {step} (sharded) from {ckpt_dir}",
               file=sys.stderr)
         return step
-    _refuse_layouts(ckpt_dir, ckpt.checkpoint_keys(ckpt_dir, newest))
-    template = train_state_template(model, rng=False)
+    keys = set(ckpt.checkpoint_keys(ckpt_dir, newest))
+    _refuse_layouts(ckpt_dir, keys)
+    plan = _read_plan(shapes, keys)
+    template = {src: np.dtype(current[key].dtype)
+                for key, (src, _) in plan.items()}
     flat, step = ckpt.try_restore(ckpt_dir, template)
     if flat is None:
         raise SystemExit(f"no checkpoint in {ckpt_dir} passes "
                          f"verification")
-    load_train_state(flat, model)
+    load_train_state({**current, **_assemble(plan, flat)}, model)
     print(f"restored step {step} from {ckpt_dir}", file=sys.stderr)
     return step
 
@@ -205,6 +240,9 @@ def saved_positions(ckpt_dir: str) -> Optional[int]:
     step = ckpt.latest_step(ckpt_dir)
     if step is None:
         return None
-    key = "variables/params/wpe/embedding"
     with np.load(ckpt.checkpoint_path(ckpt_dir, step)) as z:
-        return int(z[key].shape[0]) if key in z.files else None
+        for key in ("variables/params/wpe/embedding",   # or the graph's
+                    "params/wpe/embedding"):
+            if key in z.files:
+                return int(z[key].shape[0])
+    return None

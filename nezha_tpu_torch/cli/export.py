@@ -8,8 +8,9 @@
 
 The checkpoint is the newest of either package's train CLI in ``C``: a
 dense npz that verifies, else a per-shard ``step_*.sharded`` (the
-variables read whole); a ``--scan-layers`` trunk or the graph engine's
-layout is refused (ROADMAP A7). ``--model-preset`` must be the one the
+variables read whole); a ``--scan-layers`` trunk is sliced into the
+unrolled layers and a graph-engine checkpoint read params-only, as JAX's
+export reads them. ``--model-preset`` must be the one the
 run trained. GPT-2 is written in ``GPT2LMHeadModel``'s keys, BERT in
 ``BertForMaskedLM``'s, every array fp32:
 

@@ -225,8 +225,7 @@ CONFIGS = ("mlp_mnist", "resnet50_imagenet", "gpt2_124m", "bert_base_zero1",
            "wrn101_large_batch")
 IMAGE_CONFIGS = ("resnet50_imagenet", "wrn101_large_batch")
 # Flags of the JAX train CLI this port does not take yet.
-NOT_PORTED_FLAGS = frozenset((
-    "--graph-bf16", "--scan-layers", "--platform", "--engine"))
+NOT_PORTED_FLAGS = frozenset(("--platform",))
 # --attn-impl's choices; the last two are --parallel sp's.
 SP_ATTN_IMPLS = ("ring", "ulysses")
 ATTN_IMPLS = ("auto", "xla", "flash", "flash_shmap") + SP_ATTN_IMPLS
@@ -249,6 +248,16 @@ OPTIMIZERS = {
     "lamb": lambda lr, **kw: lamb(lr, weight_decay=0.01, **kw),
     "adafactor": adafactor,
 }
+
+
+# The AdamW configs' schedules (steps -> schedule), one factory each for
+# both engines: the module's adamw and the graph engine's update programs.
+GPT2_SCHEDULE = lambda steps: warmup_cosine_schedule(6e-4, 100,
+                                                     max(steps, 200))
+BERT_SCHEDULE = lambda steps: warmup_cosine_schedule(1e-4, 100,
+                                                     max(steps, 200))
+GRAPH_LR = 0.1          # the graph engine's momentum programs' rate
+MLP_DIMS = [784, 256, 256, 10]
 
 
 def image_ce(logits: torch.Tensor, batch: dict) -> torch.Tensor:
@@ -275,6 +284,9 @@ class Config:
     eval_stat: Optional[Callable] = None
     seq_len: Optional[int] = None   # gpt2_124m: tokens per row
     steps: int = 100
+    # The AdamW configs' schedule factory (steps -> schedule) and weight
+    # decay, shared by both engines (JAX's graph_opt).
+    graph_opt: Optional[dict] = None
 
     @property
     def optimizer(self) -> Optimizer:
@@ -288,13 +300,17 @@ def build_config(name: str, preset: str = "full", steps: int = 100,
                  ln_impl: Optional[str] = None,
                  attn_impl: Optional[str] = None,
                  moe_experts: Optional[int] = None,
-                 remat: bool = False) -> Config:
+                 remat: bool = False, scan_layers: bool = False) -> Config:
     """THE config table: ``name`` at ``preset`` with weights seeded by
     ``seed`` on ``device``; ``steps`` is the step count of
     ``Config.optimizer``; ``seq_len``, ``dropout``, ``ln_impl`` and
     ``moe_experts`` apply to gpt2_124m, ``attn_impl`` to gpt2_124m and
-    bert_base_zero1, ``remat`` to gpt2_124m and the image configs."""
+    bert_base_zero1, ``remat`` to gpt2_124m and the image configs,
+    ``scan_layers`` (the layer-stacked trunk) to gpt2_124m and
+    bert_base_zero1."""
     attn = {} if attn_impl is None else {"attn_impl": attn_impl}
+    if scan_layers:
+        attn["scan_layers"] = True
     tiny = preset == "tiny"
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)
@@ -328,8 +344,7 @@ def build_config(name: str, preset: str = "full", steps: int = 100,
                       default_batch, CONFIG_MODES[name], steps=steps)
     if name == "bert_base_zero1":
         def opt(n, **kw):
-            return adamw(warmup_cosine_schedule(1e-4, 100, max(n, 200)),
-                         weight_decay=0.01, **kw)
+            return adamw(BERT_SCHEDULE(n), weight_decay=0.01, **kw)
 
         if tiny:
             model = Bert(BertConfig(**{**TINY_BERT_KW, **attn}),
@@ -344,7 +359,9 @@ def build_config(name: str, preset: str = "full", steps: int = 100,
                       lambda bs: synthetic_mlm_batches(bs, **mlm), opt, 16,
                       CONFIG_MODES[name], lambda bs: itertools.islice(
                           synthetic_mlm_batches(bs, seed=1, **mlm), n_eval),
-                      mlm_token_stats, steps=steps)
+                      mlm_token_stats, steps=steps,
+                      graph_opt={"schedule": BERT_SCHEDULE,
+                                 "weight_decay": 0.01})
     if name != "gpt2_124m":
         raise ValueError(f"unknown config {name!r}")
     overrides = dict(attn) if tiny else {"fused_loss_chunk": -1, **attn}
@@ -363,8 +380,7 @@ def build_config(name: str, preset: str = "full", steps: int = 100,
     seq = seq_len or (64 if tiny else 1024)
 
     def opt(n, **kw):
-        return adamw(warmup_cosine_schedule(6e-4, 100, max(n, 200)),
-                     weight_decay=0.1, **kw)
+        return adamw(GPT2_SCHEDULE(n), weight_decay=0.1, **kw)
 
     def tokens(bs, seed=0):
         return synthetic_token_batches(bs, seq_len=seq, vocab_size=vocab,
@@ -373,7 +389,8 @@ def build_config(name: str, preset: str = "full", steps: int = 100,
     return Config(model, lm_loss, tokens, opt, 8, CONFIG_MODES[name],
                   lambda bs: itertools.islice(tokens(bs, seed=1),
                                               4 if tiny else 8),
-                  lm_token_stats, seq, steps)
+                  lm_token_stats, seq, steps,
+                  {"schedule": GPT2_SCHEDULE, "weight_decay": 0.1})
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -388,6 +405,21 @@ def build_parser() -> argparse.ArgumentParser:
                         "(GPT-2 and BERT in fp32, a two-block ResNet on "
                         "32 px)")
     p.add_argument("--steps", type=int, default=100)
+    p.add_argument("--engine", choices=["module", "graph"],
+                   default="module",
+                   help="module: the PyTorch modules and optimizers; graph: "
+                        "the config's program authored in the graph IR "
+                        "(forward, loss and optimizer update as IR graphs, "
+                        "run by the runtime Executor; --parallel single, "
+                        "dp or zero1 (mlp_mnist) on a one-process mesh)")
+    p.add_argument("--graph-bf16", action="store_true",
+                   help="--engine graph with gpt2_124m: the bf16 policy "
+                        "authored in the IR (fp32 master params cast at "
+                        "each use, the fused-head CE)")
+    p.add_argument("--scan-layers", action="store_true",
+                   help="gpt2_124m, bert_base_zero1: the layer-stacked "
+                        "trunk (h_scan / layers_scan, a leading layer dim), "
+                        "applied layer by layer through one block template")
     p.add_argument("--batch-size", type=int, default=None,
                    help="default: the config's (gpt2 8, bert 16, mlp 128, "
                         "resnet 256, wrn 512)")
@@ -577,10 +609,14 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
         parser.error("--attn-impl flash_shmap runs the flash kernels per "
                      "shard of a tensor-parallel mesh: it needs --parallel "
                      "gspmd")
-    if args.shard_device is not None and args.parallel not in ("gspmd",
-                                                               "pp", "sp"):
+    if args.shard_device is not None and args.parallel not in (
+            "gspmd", "pp", "sp") and not (args.engine == "graph"
+                                          and args.parallel in ("dp",
+                                                                "zero1")):
         parser.error("--shard-device places the shards of --parallel "
-                     "gspmd and sp and the stages of --parallel pp")
+                     "gspmd and sp, the stages of --parallel pp and the "
+                     "shards of --engine graph's dp and zero1")
+    check_engine_flags(args)
     if args.attn_impl in SP_ATTN_IMPLS or args.parallel == "sp":
         check_sp_flags(args)
     check_model_flags(args)
@@ -644,6 +680,62 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
         parser.error("--mlm-mask-token applies to bert_base_zero1 with "
                      "--data-dir (the dynamic-MLM data path)")
     return args
+
+
+def check_engine_flags(args) -> None:
+    """The JAX CLI's checks of ``--engine graph``, ``--graph-bf16`` and
+    ``--scan-layers`` against the other flags, with its messages."""
+    graph = args.engine == "graph"
+    if args.clip_norm is not None and graph and args.parallel in ("dp",
+                                                                  "zero1"):
+        raise SystemExit("--clip-norm with the graph engine's dp/zero1 "
+                         "modes is unsupported: the clip must see the "
+                         "REDUCED gradients, but their collectives live "
+                         "inside the update graphs; use single-device "
+                         "graph or the module engine")
+    if args.optimizer and graph:
+        raise SystemExit("the graph engine authors its optimizer update in "
+                         "the IR (momentum/adamw programs); --optimizer "
+                         "cannot swap it")
+    if args.moe_experts and graph and args.config == "gpt2_124m":
+        raise SystemExit("--moe-experts is not expressible in the graph "
+                         "engine's GPT-2 program; drop --engine graph")
+    if args.graph_bf16 and (not graph or args.config != "gpt2_124m"):
+        raise SystemExit("--graph-bf16 applies to --engine graph with "
+                         "gpt2_124m (the bf16 policy authored in the IR; "
+                         "the module engine's presets carry their own "
+                         "policies)")
+    if args.wd_exclude_1d and graph:
+        raise SystemExit("--wd-exclude-1d: the graph engine's IR-authored "
+                         "update decays every leaf")
+    if graph and args.grad_accum is not None and args.grad_accum > 1:
+        raise SystemExit("--grad-accum is an optimizer wrapper the graph "
+                         "engine's IR-authored update does not express; "
+                         "drop --engine graph")
+    if args.dropout is not None and graph and args.config == "gpt2_124m":
+        raise SystemExit("the graph engine's GPT-2 program has no dropout "
+                         "path; drop --engine graph")
+    if (args.label_smoothing and graph
+            and args.config in ("mlp_mnist",) + IMAGE_CONFIGS):
+        raise SystemExit("the graph engine's programs author the plain "
+                         "CE; drop --engine graph")
+    if (args.remat and graph
+            and args.config in ("gpt2_124m",) + IMAGE_CONFIGS):
+        raise SystemExit("--remat is a jax.checkpoint knob; the graph "
+                         "engine does not rematerialize")
+    if args.scan_layers:
+        if args.config not in ("gpt2_124m", "bert_base_zero1"):
+            raise SystemExit("--scan-layers applies to gpt2_124m / "
+                             "bert_base_zero1")
+        if graph:
+            raise SystemExit("--scan-layers is a module-engine knob; the "
+                             "graph engine authors its own trunk IR")
+        eff = (CONFIG_MODES[args.config] if args.parallel == "config"
+               else args.parallel)
+        if eff not in ("single", "dp", "zero1", "gspmd", "sp"):
+            raise SystemExit("--scan-layers supports --parallel "
+                             "single/dp/zero1/gspmd/sp (the pp builder "
+                             "addresses unrolled h{i} names)")
 
 
 def check_sp_flags(args) -> None:
@@ -913,7 +1005,8 @@ def _split_rows(it: Iterator[dict], rank: int, world: int
 
 
 def run_eval(args, cfg: Config, batch_size: int, rank: int = 0,
-             world: int = 1, tp=None, pp=None) -> Optional[Dict[str, float]]:
+             world: int = 1, tp=None, pp=None,
+             graph=None) -> Optional[Dict[str, float]]:
     """One pass over the eval split with the current weights, or None
     when there is none. With ``world`` > 1 (dp and ZeRO-1, whose ranks
     hold the same weights), each rank evaluates its rows of every global
@@ -921,7 +1014,9 @@ def run_eval(args, cfg: Config, batch_size: int, rank: int = 0,
     the memory a rank takes are 1/world of the split's. ``tp`` (a gspmd
     step) evaluates its tensor-parallel model inside
     ``auto_partitioner_scope`` of its mesh; ``pp`` (a pipeline step)
-    merges its stage slabs back into the model first."""
+    merges its stage slabs back into the model first; ``graph`` (a graph
+    engine step) copies its IR state's params into the model first, as
+    JAX evaluates the module on the graph state's params."""
     batches, close, stat = eval_source(args, cfg, batch_size)
     if batches is None:
         return None
@@ -931,6 +1026,9 @@ def run_eval(args, cfg: Config, batch_size: int, rank: int = 0,
 
         batches, group = _split_rows(batches, rank, world), dist.group.WORLD
     model, scope = cfg.model, contextlib.nullcontext()
+    if graph is not None:
+        from nezha_tpu_torch.graph.programs import load_param_tree
+        load_param_tree(model, graph.params())
     if pp is not None:
         model = pp.sync_model()
     if tp is not None:
@@ -1240,6 +1338,15 @@ def check_rejoin_args(args) -> None:
     if not args.ckpt_dir:
         raise SystemExit("--on-failure rejoin needs --ckpt-dir: recovery "
                          "reloads the rescue checkpoint")
+    if args.engine == "graph":
+        # JAX's refusal: the reload pairs with the module engine's
+        # replicated-state modes.
+        mode = "single" if args.parallel == "config" else args.parallel
+        raise SystemExit(f"--on-failure rejoin supports the "
+                         f"replicated-state module-engine modes "
+                         f"(single/dp/sp); got mode {mode!r}, engine "
+                         f"{args.engine!r} — use --on-failure stop with a "
+                         f"supervisor relaunch")
     mode = (CONFIG_MODES[args.config] if args.parallel == "config"
             else args.parallel)
     one_process = args.serve_coordinator and args.world_size == 1
@@ -1251,6 +1358,124 @@ def check_rejoin_args(args) -> None:
                          f"heartbeat-coordinated), or use --on-failure "
                          f"stop and relaunch the world (training resumes "
                          f"from --ckpt-dir)")
+
+
+def graph_mesh(args, mode: str, batch_size: int, device: torch.device):
+    """The one-process dp mesh of the graph engine's dp and zero1: ``--mesh
+    dp=M`` (default ``dp=-1``: the visible cards on cuda, one CPU device
+    on cpu) of the CPU repeated, the visible cards, or ``--shard-device``
+    repeated. One device degrades to single-device with JAX's warning
+    (-> None)."""
+    from nezha_tpu_torch.parallel.mesh import make_mesh
+    axes = parse_mesh(args.mesh) or {"dp": -1}
+    if list(axes) != ["dp"]:
+        raise SystemExit(f"graph-engine {mode} consumes mesh axis 'dp' "
+                         f"only; got {list(axes)}")
+    m, devices = axes["dp"], None
+    if args.shard_device is not None:
+        if m < 1:
+            raise SystemExit("--shard-device repeats one device: give "
+                             "--mesh dp=M")
+        devices = [args.shard_device] * m
+    elif m == -1:
+        m = (torch.cuda.device_count() if device.type == "cuda" else 1)
+    if m == 1:
+        print(f"WARNING: --engine graph --parallel {mode} with 1 visible "
+              f"device; running single-device", file=sys.stderr, flush=True)
+        return None
+    try:
+        mesh = make_mesh({"dp": m}, devices, device.type)
+    except ValueError as e:
+        raise SystemExit(f"--mesh {args.mesh}: {e}")
+    if batch_size % m:
+        raise SystemExit(f"--batch-size {batch_size} is not divisible by "
+                         f"mesh axis dp={m} (it is the GLOBAL batch; shards "
+                         f"must be equal)")
+    return mesh
+
+
+def build_graph_step(args, cfg: Config, batch_size: int,
+                     device: torch.device):
+    """``--engine graph``: the config's IR program (JAX's
+    ``graph/programs.py`` step for the config and mode) over state
+    initialized from the config's module, as a
+    :class:`~nezha_tpu_torch.graph.step.GraphTrainStep`; -> (mode, step).
+    The mode is JAX's: ``single`` unless ``--parallel`` says dp or zero1
+    (mlp_mnist only), which run on :func:`graph_mesh`."""
+    from nezha_tpu_torch.graph import programs
+    from nezha_tpu_torch.graph.step import GraphTrainStep
+
+    mode = "single" if args.parallel == "config" else args.parallel
+    if mode not in ("single", "dp", "zero1"):
+        raise SystemExit(f"--engine graph supports --parallel dp (IR "
+                         f"all_reduce) or zero1 (IR reduce_scatter + "
+                         f"all_gather) or single-device, not {mode!r}")
+    if mode == "zero1" and args.config != "mlp_mnist":
+        raise SystemExit("graph-engine zero1 is authored for mlp_mnist "
+                         "(graph/programs.py zero1_update_graph); other "
+                         "configs run the module engine's zero1")
+    if mode == "single" and args.mesh:
+        raise SystemExit("--mesh needs --parallel dp/zero1 with the graph "
+                         "engine (single-device IR does not partition)")
+    if args.grad_allreduce != "fp32":
+        raise SystemExit("--grad-allreduce int8 is the module engine's "
+                         "dp/zero1 wire; the graph engine's all-reduce is "
+                         "an IR op (fp32 only)")
+    if args.sp_flash != "auto":
+        raise SystemExit("--sp-flash tunes the sequence-parallel attention "
+                         "kernels; it needs --parallel sp (module engine)")
+    mesh = None
+    if mode in ("dp", "zero1"):
+        mesh = graph_mesh(args, mode, batch_size, device)
+        if mesh is None:
+            mode = "single"
+    model, dims = cfg.model, None
+    if args.config == "mlp_mnist":
+        dims = MLP_DIMS
+        shard = programs.onehot_shard_fn(dims[-1])
+        if mode == "zero1":
+            state = programs.init_graph_mlp_zero1_state(dims, mesh,
+                                                        model=model)
+            program = programs.make_mlp_graph_zero1_train_step(
+                dims, batch_size, lr=GRAPH_LR, mesh=mesh)
+        elif mode == "dp":
+            state = programs.init_graph_mlp_state(dims, model)
+            program = programs.make_mlp_graph_dp_train_step(
+                dims, batch_size, lr=GRAPH_LR, mesh=mesh)
+        else:
+            state = programs.init_graph_mlp_state(dims, model)
+            program = programs.make_mlp_graph_train_step(
+                dims, batch_size, lr=GRAPH_LR, clip_norm=args.clip_norm)
+    elif args.config in IMAGE_CONFIGS:
+        if args.eval or args.eval_every:
+            raise SystemExit("graph-engine ResNet runs training-mode batch "
+                             "stats only (no running BN stats); drop "
+                             "--eval/--eval-every")
+        state = programs.init_graph_resnet_state(model)
+        shard = programs.image_shard_fn()
+        if mode == "dp":
+            program = programs.make_resnet_graph_dp_train_step(
+                model, batch_size, lr=GRAPH_LR, mesh=mesh)
+        else:
+            program = programs.make_resnet_graph_train_step(
+                model, lr=GRAPH_LR, clip_norm=args.clip_norm)
+    else:
+        sched = cfg.graph_opt["schedule"](args.steps)
+        wd = cfg.graph_opt["weight_decay"]
+        if args.config == "bert_base_zero1":
+            state = programs.init_graph_bert_state(model)
+            program = programs.make_bert_graph_train_step(
+                model, sched, weight_decay=wd, clip_norm=args.clip_norm,
+                mesh=mesh)
+            shard = programs.bert_shard_fn()
+        else:   # gpt2_124m: the transformer authored in the IR
+            state = programs.init_graph_gpt2_state(model)
+            program = programs.make_gpt2_graph_train_step(
+                model, sched, weight_decay=wd, clip_norm=args.clip_norm,
+                mesh=mesh, compute_dtype="bfloat16" if args.graph_bf16
+                else "float32")
+            shard = programs.lm_shard_fn()
+    return mode, GraphTrainStep(program, state, shard, mesh, dims)
 
 
 def run(args: argparse.Namespace) -> Dict[str, float]:
@@ -1274,7 +1499,8 @@ def run(args: argparse.Namespace) -> Dict[str, float]:
                 run_dir, f"rank{args.rank_hint}" if args.rank_hint >= 0
                 else f"pid{os.getpid()}")
         obs.start_run(run_dir, meta={
-            "config": args.config, "steps": args.steps, "engine": "eager",
+            "config": args.config, "steps": args.steps,
+            "engine": "graph" if args.engine == "graph" else "eager",
             "parallel": args.parallel, "model_preset": args.model_preset})
         try:
             return _run_world(args)
@@ -1294,6 +1520,12 @@ def _run_world(args: argparse.Namespace) -> Dict[str, float]:
         raise NotPortedError(f"--parallel {args.parallel} across processes "
                              f"is not ported (ROADMAP A7): the port's "
                              f"{args.parallel} is one process over its mesh")
+    if (args.engine == "graph" and args.parallel in ("dp", "zero1")
+            and args.coordinator):
+        raise NotPortedError(f"--engine graph --parallel {args.parallel} "
+                             f"across processes is not ported (ROADMAP "
+                             f"A7): the port's graph {args.parallel} is one "
+                             f"process over its mesh")
     if args.on_failure == "rejoin":
         check_rejoin_args(args)   # before the rendezvous can strand peers
     group, coord = join_world(args)
@@ -1337,8 +1569,18 @@ def _run(args: argparse.Namespace, group,
                        # this one's weights); the plain model evaluates.
                        attn_impl=(None if args.attn_impl in SP_ATTN_IMPLS
                                   else args.attn_impl),
-                       moe_experts=args.moe_experts, remat=args.remat)
-    mode = resolve_mode(args, cfg, world)
+                       moe_experts=args.moe_experts, remat=args.remat,
+                       scan_layers=args.scan_layers)
+    batch_size = args.batch_size or cfg.default_batch
+    graph_step = None
+    if args.engine == "graph":
+        mode, graph_step = build_graph_step(args, cfg, batch_size, device)
+    else:
+        mode = resolve_mode(args, cfg, world)
+    if args.scan_layers and mode in ("gspmd", "sp"):
+        raise NotPortedError(f"--scan-layers under --parallel {mode} is not "
+                             f"ported (ROADMAP A7): the port's {mode} step "
+                             f"addresses the unrolled layers")
     if args.on_failure == "rejoin" and mode not in ("single", "dp"):
         # The reload goes through Trainer.initialize, which pairs with
         # the replicated-state modes; ZeRO-1's per-rank chunks recover by
@@ -1347,17 +1589,20 @@ def _run(args: argparse.Namespace, group,
                          f"replicated-state modes (single/dp); got mode "
                          f"{mode!r} -- use --on-failure stop with a "
                          f"relaunch")
-    parallel = mode in ("dp", "zero1")
+    # The module engine's dp and zero1 run a torch.distributed group; the
+    # graph engine's run on its one-process mesh.
+    parallel = mode in ("dp", "zero1") and graph_step is None
     if parallel:
         start_process_group(args, group, device)
-    optimizer, loss_fn = build_optimizer(args, cfg, mode), cfg.loss_fn
+    optimizer = (build_optimizer(args, cfg, mode) if graph_step is None
+                 else None)
+    loss_fn = cfg.loss_fn
     if args.label_smoothing:
         eps = args.label_smoothing
 
         def loss_fn(logits, batch):
             return softmax_cross_entropy_with_integer_labels(
                 logits, batch["label"], label_smoothing=eps)
-    batch_size = args.batch_size or cfg.default_batch
     # Single mode: each process trains alone on the whole batch.
     data_rank, data_world = (rank, world) if parallel else (0, 1)
     if batch_size % data_world:
@@ -1406,6 +1651,8 @@ def _run(args: argparse.Namespace, group,
                              "backend": dist.get_backend(),
                              "grad_allreduce": args.grad_allreduce,
                              "opt_state_bytes": step_fn.opt_state_bytes()}})
+    if graph_step is not None:
+        step_fn = graph_step
     tracer = None
     if args.profile_steps:
         start, count = parse_profile_steps(args.profile_steps)
@@ -1443,7 +1690,9 @@ def _run(args: argparse.Namespace, group,
         # device.
         for _ in range(start_step):
             next(source)
-        batches = Prefetcher(source, depth=args.prefetch, device=device)
+        # The graph engine transforms each batch on the host first.
+        batches = Prefetcher(source, depth=args.prefetch,
+                             device=device if graph_step is None else "cpu")
         stack.callback(batches.close)
         if tracer is not None:
             stack.callback(tracer.stop)  # a window still open at the end
@@ -1463,7 +1712,7 @@ def _run(args: argparse.Namespace, group,
                 done += n
                 if done < args.steps:
                     results = run_eval(args, cfg, batch_size, data_rank,
-                                       data_world, tp, pp)
+                                       data_world, tp, pp, graph_step)
                     if results is not None:
                         log(trainer.global_step, {
                             "step": trainer.global_step,
@@ -1483,7 +1732,7 @@ def _run(args: argparse.Namespace, group,
         log(record["step"], {"rejoin": record})
     if args.eval or args.eval_every:
         results = run_eval(args, cfg, batch_size, data_rank, data_world,
-                           tp, pp)
+                           tp, pp, graph_step)
         if results is not None:
             if lead:
                 print(json.dumps({"eval": results}), file=sys.stderr,

@@ -27,7 +27,9 @@ a padding mask, then "xla"; "flash_shmap" runs the flash kernels on each
 head group of the enclosing tensor-parallel scope's mesh
 (``parallel.gspmd``; outside one it raises ``ValueError``). "flash" and
 "flash_shmap" refuse a padding mask, as in JAX. LayerNorms take ``ln_impl``: "xla" (tensor
-ops) or "pallas" (the fused LayerNorm kernels).
+ops) or "pallas" (the fused LayerNorm kernels). ``scan_layers`` keeps
+the encoder as one layer-stacked module, ``layers_scan`` (``nn/scan.py``,
+JAX's ``ScannedEncoder``), applied layer by layer.
 """
 
 from __future__ import annotations
@@ -38,10 +40,10 @@ from typing import Optional
 import torch
 from torch import nn
 
-from nezha_tpu_torch.errors import NotPortedError
 from nezha_tpu_torch.nn import (Dropout, Embedding, LayerNorm, Linear,
                                 resolve_device)
 from nezha_tpu_torch.nn import initializers as init_lib
+from nezha_tpu_torch.nn.scan import scan_stack_apply, scan_stack_init
 from nezha_tpu_torch.ops import dot_product_attention, gelu
 from nezha_tpu_torch.ops.attention import make_attention_mask
 from nezha_tpu_torch.ops.cuda import flash_attention
@@ -73,7 +75,8 @@ class BertConfig:
     attn_impl: str = "auto"
     # "xla": LayerNorm in tensor ops; "pallas": the fused kernels.
     ln_impl: str = "xla"
-    # A knob of the JAX model this port refuses (NotPortedError).
+    # The layer-stacked encoder (nn/scan.py): the layers' parameters live
+    # under "layers_scan" with a leading [num_layers] dim (JAX's layout).
     scan_layers: bool = False
 
 
@@ -86,8 +89,6 @@ def check_config(cfg: BertConfig) -> None:
     if cfg.fused_loss_chunk < -1:
         raise ValueError(f"fused_loss_chunk must be 0, -1 or > 0, got "
                          f"{cfg.fused_loss_chunk}")
-    if cfg.scan_layers:
-        raise NotPortedError("scan_layers is not ported")
     if not 0.0 <= cfg.dropout < 1.0:
         raise ValueError(f"dropout must be in [0, 1), got {cfg.dropout}")
 
@@ -186,9 +187,14 @@ class Bert(nn.Module):
         self.emb_ln = LayerNorm(h, eps=cfg.ln_eps, policy=policy,
                                 device=device, impl=cfg.ln_impl)
         self.drop = Dropout(cfg.dropout, drop_gen)
-        self.layers = nn.ModuleList(
-            EncoderLayer(cfg, policy, generator, device, drop_gen)
-            for _ in range(cfg.num_layers))
+        layers = [EncoderLayer(cfg, policy, generator, device, drop_gen)
+                  for _ in range(cfg.num_layers)]
+        if cfg.scan_layers:
+            # The same draws as the unrolled layers, then stacked.
+            self.layers_scan = scan_stack_init(layers)
+            self.layers = nn.ModuleList()
+        else:
+            self.layers = nn.ModuleList(layers)
         self.mlm_dense = Linear(h, h, kernel_init=init_lib.normal(0.02),
                                 policy=policy, generator=generator,
                                 device=device)
@@ -218,6 +224,9 @@ class Bert(nn.Module):
         x = self.drop(self.emb_ln(x))
         mask = (make_attention_mask(padding_mask)
                 if padding_mask is not None else None)
+        if self.cfg.scan_layers:
+            x = scan_stack_apply(self.layers_scan, x, self.cfg.num_layers,
+                                 mask=mask, kv_lengths=kv_lengths)
         for layer in self.layers:
             x = layer(x, mask=mask, kv_lengths=kv_lengths)
         y = self.mlm_ln(gelu(self.mlm_dense(x), approximate=False))

@@ -66,7 +66,13 @@ returns ``{"logits", "aux_loss"}`` (or the fused-head dict with
 ``"aux_loss"``), the MoE layers' load-balance losses weighted by
 ``moe_aux_weight``, which ``lm_loss`` adds. ``remat`` recomputes each
 block in the backward of a training forward without a cache
-(``nn/remat.py``: the dropout masks replayed).
+(``nn/remat.py``: the dropout masks replayed). ``scan_layers`` keeps the
+blocks as one layer-stacked module, ``h_scan`` (``nn/scan.py``; JAX's
+``ScannedBlocks``): its forward without a cache applies it layer by
+layer, and with a cache it slices the stack a layer at a time, each
+layer's cache at its unrolled index. :func:`stack_layer_params` and
+:func:`unstack_layer_params` convert parameter trees between the
+layouts.
 
 Environment switches, read each time a path is resolved, turn the
 serving kernels off without a config change, as in the JAX package:
@@ -90,11 +96,13 @@ from typing import List, Optional, Union
 import torch
 from torch import nn
 
-from nezha_tpu_torch.errors import NotPortedError
 from nezha_tpu_torch.nn import (Dropout, Embedding, LayerNorm, Linear,
                                 resolve_device)
 from nezha_tpu_torch.nn import initializers as init_lib
 from nezha_tpu_torch.nn.remat import checkpoint, dropout_generators
+from nezha_tpu_torch.nn.scan import (layer_slice, scan_stack_apply,
+                                     scan_stack_init, stack_prefixed_params,
+                                     unstack_prefixed_params)
 from nezha_tpu_torch.ops import causal_mask, dot_product_attention, gelu
 from nezha_tpu_torch.ops.cuda import (flash_attention,
                                       flash_decode_attention,
@@ -157,7 +165,9 @@ class GPT2Config:
     # Keep each block's input only and recompute the block in the
     # backward (training without a cache).
     remat: bool = False
-    # The JAX model's scanned trunk, refused (NotPortedError).
+    # The layer-stacked trunk (nn/scan.py): the blocks' parameters live
+    # under "h_scan" with a leading [num_layers] dim (JAX's layout) and
+    # one block module runs every layer.
     scan_layers: bool = False
 
 
@@ -178,8 +188,9 @@ def check_config(cfg: GPT2Config) -> None:
     if cfg.fused_loss_chunk < -1:
         raise ValueError(f"fused_loss_chunk must be 0, -1 or > 0, got "
                          f"{cfg.fused_loss_chunk}")
-    if cfg.scan_layers:
-        raise NotPortedError("scan_layers is not ported")
+    if cfg.scan_layers and cfg.moe_experts:
+        raise ValueError("scan_layers requires homogeneous blocks; "
+                         "incompatible with moe_experts")
     if not 0.0 <= cfg.dropout < 1.0:
         raise ValueError(f"dropout must be in [0, 1), got {cfg.dropout}")
 
@@ -675,11 +686,16 @@ class GPT2(nn.Module):
                              embedding_init=init_lib.normal(0.01),
                              policy=policy, generator=generator)
         self.drop = Dropout(cfg.dropout, drop_gen)
-        self.h = nn.ModuleList(
-            Block(cfg, policy, generator, device, drop_gen,
-                  use_moe=bool(cfg.moe_experts)
-                  and i % cfg.moe_every == cfg.moe_every - 1)
-            for i in range(cfg.num_layers))
+        blocks = [Block(cfg, policy, generator, device, drop_gen,
+                        use_moe=bool(cfg.moe_experts)
+                        and i % cfg.moe_every == cfg.moe_every - 1)
+                  for i in range(cfg.num_layers)]
+        if cfg.scan_layers:
+            # The same draws as the unrolled blocks, then stacked.
+            self.h_scan = scan_stack_init(blocks)
+            self.h = nn.ModuleList()
+        else:
+            self.h = nn.ModuleList(blocks)
         self.ln_f = LayerNorm(cfg.hidden_size, policy=policy, device=device,
                               impl=cfg.ln_impl)
         drop_gen.manual_seed(int(torch.randint(
@@ -702,6 +718,18 @@ class GPT2(nn.Module):
                              f"{self.cfg.max_positions}")
         x = self.embed(tokens, pos)
         remat = self.cfg.remat and self.training and cache is None
+        if self.cfg.scan_layers:
+            if cache is None:
+                x = scan_stack_apply(self.h_scan, x, self.cfg.num_layers,
+                                     remat=remat, pos=pos)
+            else:
+                # Decode: one layer's slice of the stack at a time, each
+                # layer's cache at its unrolled index.
+                for i in range(self.cfg.num_layers):
+                    x = torch.func.functional_call(
+                        self.h_scan, layer_slice(self.h_scan, i), (x,),
+                        dict(cache=cache[i], pos=pos, active=active,
+                             prefill=prefill))
         terms = []
         for i, block in enumerate(self.h):
             if remat:
@@ -782,6 +810,18 @@ def with_overrides(model: GPT2, **overrides) -> GPT2:
         return new
 
     return clone(model)
+
+
+def stack_layer_params(params: dict, num_layers: int) -> dict:
+    """Unrolled GPT-2 params (a JAX-layout tree, ``h0`` .. ``h{L-1}``) ->
+    the scan layout (``h_scan`` with a leading layer dim). Non-trunk
+    entries pass through."""
+    return stack_prefixed_params(params, "h", num_layers, "h_scan")
+
+
+def unstack_layer_params(params: dict, num_layers: int) -> dict:
+    """Scan-layout GPT-2 params -> the unrolled ``h{i}`` layout."""
+    return unstack_prefixed_params(params, "h", num_layers, "h_scan")
 
 
 def lm_loss(out, batch: dict) -> torch.Tensor:

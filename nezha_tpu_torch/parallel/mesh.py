@@ -17,7 +17,10 @@ in rank order:
 - :func:`all_to_all` — ``lax.all_to_all(..., tiled=True)``;
 - :func:`ppermute` — ``lax.ppermute``;
 - :func:`psum` / :func:`pmax` — ``lax.psum`` / ``lax.pmax``, reduced in
-  rank order on shard 0's device, so every shard gets the same bits.
+  rank order on shard 0's device, so every shard gets the same bits;
+- :func:`psum_scatter` / :func:`all_gather` — the tiled
+  ``lax.psum_scatter`` / ``lax.all_gather`` over axis 0 (the graph IR's
+  ``reduce_scatter`` and ``all_gather`` nodes).
 """
 
 from __future__ import annotations
@@ -255,5 +258,26 @@ def pmax(xs: Sequence[torch.Tensor]) -> List[torch.Tensor]:
     return _reduce(xs, torch.maximum)
 
 
-__all__ = ["Mesh", "SpMesh", "all_to_all", "device_scope", "make_mesh",
-           "make_sp_mesh", "pmax", "ppermute", "psum", "ring_perm"]
+def psum_scatter(xs: Sequence[torch.Tensor]) -> List[torch.Tensor]:
+    """Tiled reduce-scatter over axis 0 (``lax.psum_scatter(...,
+    scatter_dimension=0, tiled=True)``): the rank-order sum of
+    :func:`psum`, cut into M equal chunks, chunk r to shard r."""
+    m = _check(xs)
+    if xs[0].shape[0] % m:
+        raise ValueError(f"psum_scatter: axis 0 of size {xs[0].shape[0]} "
+                         f"does not split {m} ways")
+    total = psum(xs)[0]
+    return [c.to(x.device) for c, x in zip(total.chunk(m, dim=0), xs)]
+
+
+def all_gather(xs: Sequence[torch.Tensor]) -> List[torch.Tensor]:
+    """Tiled all-gather over axis 0 (``lax.all_gather(..., axis=0,
+    tiled=True)``): the shards' tensors concatenated in rank order, on
+    every shard's device."""
+    _check(xs)
+    return [torch.cat([y.to(x.device) for y in xs], dim=0) for x in xs]
+
+
+__all__ = ["Mesh", "SpMesh", "all_gather", "all_to_all", "device_scope",
+           "make_mesh", "make_sp_mesh", "pmax", "ppermute", "psum",
+           "psum_scatter", "ring_perm"]

@@ -343,6 +343,14 @@ def self_draft(model: GPT2, num_layers: Optional[int] = None) -> GPT2:
                          f"got {layers}")
     draft = with_overrides(model, num_layers=layers)
     draft.h = draft.h[:layers]
+    if cfg.scan_layers:
+        # The stack's first slices: views of the target's tensors (each
+        # module copy gets its own parameter dict; the target's stays).
+        for mod in draft.h_scan.modules():
+            mod._parameters = {
+                k: None if v is None else torch.nn.Parameter(
+                    v.detach()[:layers], requires_grad=v.requires_grad)
+                for k, v in mod._parameters.items()}
     return draft
 
 

@@ -41,8 +41,8 @@ import numpy as np
 import torch
 
 from nezha_tpu_torch import faults, obs
-from nezha_tpu_torch.errors import NotPortedError
 from nezha_tpu_torch.models.convert import _to_jax_path, jax_leaf_names
+from nezha_tpu_torch.nn.scan import scan_source
 from nezha_tpu_torch.parallel.mesh import Mesh
 
 
@@ -212,7 +212,9 @@ def reshard_checkpoint(ckpt_dir: str, model, mesh: Mesh, *,
     each leaf CRC32-checked against the embedded manifest before it is
     placed; then the per-shard save of ``step`` (default: the newest
     complete one), each shard's part assembled from the stored shards that
-    overlap it. A ``--scan-layers`` trunk is refused (ROADMAP A7); any
+    overlap it. A ``--scan-layers`` trunk (``h_scan``, JAX's
+    ``_reshard_scan_npz``) is read once a stacked leaf and sliced per
+    layer onto the unrolled serve model's ``h{i}`` leaves; any
     integrity or geometry fault raises :class:`ReshardError`, as does an
     injected ``serve.reshard`` fault. ``model`` gives the parameter names,
     shapes and dtypes. The load is one ``serve.reshard_s`` span."""
@@ -247,11 +249,20 @@ def reshard_checkpoint(ckpt_dir: str, model, mesh: Mesh, *,
                        f"{ckpt_dir!r}")
 
 
-def _refuse_scan(keys, where: str) -> None:
-    if any("h_scan" in k for k in keys):
-        raise NotPortedError(f"{where} stores a --scan-layers trunk; the "
-                             f"port does not take scan_layers (ROADMAP "
-                             f"A7)")
+def _candidates(key: str, present):
+    """-> (stored key, layer or None): the leaf under the train state's
+    layout or the graph engine's, else its layer's slice of a scan
+    trunk's stacked leaf (``h{i}/...`` -> ``h_scan/...`` at ``i``)."""
+    for cand in (f"variables/{key}", key):
+        if cand in present:
+            return cand, None
+    hit = scan_source(key, "h", "h_scan")
+    if hit is not None:
+        skey, i = hit
+        for cand in (f"variables/{skey}", skey):
+            if cand in present:
+                return cand, i
+    return None, None
 
 
 def _reshard_npz(path: str, names, rules, mesh: Mesh):
@@ -269,7 +280,6 @@ def _reshard_npz(path: str, names, rules, mesh: Mesh):
                            f"{e})") from e
     try:
         files = set(z.files)
-        _refuse_scan(files, base)
         manifest = None
         if MANIFEST_KEY in files:
             try:
@@ -278,29 +288,36 @@ def _reshard_npz(path: str, names, rules, mesh: Mesh):
                 raise ReshardError(f"{base}: unreadable embedded manifest "
                                    f"({type(e).__name__}: {e})") from e
 
+        stacked = {}   # a scan trunk's leaves, each read and checked once
+
+        def checked(cand: str) -> np.ndarray:
+            try:
+                arr = z[cand]
+            except Exception as e:
+                raise ReshardError(f"{base}: leaf {cand!r} unreadable "
+                                   f"({type(e).__name__}: {e})") from e
+            if manifest is not None:
+                meta = manifest.get(cand)
+                if meta is None:
+                    raise ReshardError(f"leaf {cand!r} missing from the "
+                                       f"checkpoint manifest")
+                crc = zlib.crc32(np.ascontiguousarray(
+                    arr).tobytes()) & 0xFFFFFFFF
+                if crc != meta["crc32"]:
+                    raise ReshardError(f"CRC32 mismatch for leaf {cand!r} "
+                                       f"-- checkpoint corrupt, refusing to "
+                                       f"serve it")
+            return arr
+
         def leaf(key: str) -> np.ndarray:
-            # The train state's layout, or the graph engine's.
-            for cand in (f"variables/{key}", key):
-                if cand not in files:
-                    continue
-                try:
-                    arr = z[cand]
-                except Exception as e:
-                    raise ReshardError(f"{base}: leaf {cand!r} unreadable "
-                                       f"({type(e).__name__}: {e})") from e
-                if manifest is not None:
-                    meta = manifest.get(cand)
-                    if meta is None:
-                        raise ReshardError(f"leaf {cand!r} missing from "
-                                           f"the checkpoint manifest")
-                    crc = zlib.crc32(np.ascontiguousarray(
-                        arr).tobytes()) & 0xFFFFFFFF
-                    if crc != meta["crc32"]:
-                        raise ReshardError(f"CRC32 mismatch for leaf "
-                                           f"{cand!r} -- checkpoint "
-                                           f"corrupt, refusing to serve it")
-                return arr
-            raise ReshardError(f"checkpoint missing leaf {key!r}")
+            cand, layer = _candidates(key, files)
+            if cand is None:
+                raise ReshardError(f"checkpoint missing leaf {key!r}")
+            if layer is None:
+                return checked(cand)
+            if cand not in stacked:
+                stacked[cand] = checked(cand)
+            return stacked[cand][layer]
 
         def read(name, key, split, shape):
             arr = leaf(key)
@@ -338,23 +355,23 @@ def _reshard_sharded_dir(sdir: Path, names, rules, mesh: Mesh):
 
     store = _open_store(sdir)
     try:
-        _refuse_scan(store.leaves, Path(sdir).name)
-
         def read(name, key, split, shape):
-            for cand in (f"variables/{key}", key):
-                if cand in store.leaves:
-                    break
-            else:
+            cand, layer = _candidates(key, store.leaves)
+            if cand is None:
                 raise ReshardError(f"checkpoint missing leaf {key!r}")
             entry = store.leaves[cand]
-            if tuple(entry["shape"]) != shape:
+            saved = tuple(entry["shape"])[0 if layer is None else 1:]
+            if saved != shape:
                 raise ReshardError(f"shape mismatch for {key!r}: serve "
-                                   f"model {shape} vs saved "
-                                   f"{tuple(entry['shape'])}")
+                                   f"model {shape} vs saved {saved}")
 
             def piece(idx):
                 try:
-                    arr = store.read(cand, idx)
+                    if layer is None:
+                        arr = store.read(cand, idx)
+                    else:   # the layer's slice of the stacked leaf
+                        arr = store.read(cand, ((layer, layer + 1),)
+                                         + tuple(idx))[0]
                 except (ValueError, KeyError, OSError) as e:
                     raise ReshardError(f"stored shards do not cover "
                                        f"{key!r}: {e}") from e

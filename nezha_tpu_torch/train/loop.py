@@ -145,7 +145,10 @@ class Trainer:
     :class:`~nezha_tpu_torch.parallel.data_parallel.DPTrainStep`,
     :class:`~nezha_tpu_torch.parallel.zero1.Zero1TrainStep` or
     :class:`~nezha_tpu_torch.parallel.gspmd.GSPMDTrainStep` built on the
-    same model and optimizer. With
+    same model and optimizer, or a step that owns its state (the graph
+    engine's :class:`~nezha_tpu_torch.graph.step.GraphTrainStep`), whose
+    ``state_leaves``/``state_template``/``load_state_leaves`` are then
+    the dense checkpoint's leaves (no ``rng`` leaf). With
     ``checkpoint_dir``, :meth:`initialize` resumes from the newest
     checkpoint there that verifies, and every ``checkpoint_every`` steps
     (of the global step count) :meth:`save` writes one in the JAX
@@ -253,14 +256,22 @@ class Trainer:
         self.rejoins: list = []
 
     def state_dict(self) -> Dict[str, np.ndarray]:
-        """The flat JAX-keyed train state (host copies) of a dense step."""
+        """The flat JAX-keyed train state (host copies) of a dense step; a
+        step that owns its state (the graph engine's) names its own
+        leaves (``state_leaves``)."""
+        if hasattr(self.step_fn, "state_leaves"):
+            return self.step_fn.state_leaves()
         from nezha_tpu_torch.models.convert import train_state_to_jax
         return train_state_to_jax(self.model, self.step_fn.opt_state,
                                   self.rng)
 
     def load_state_dict(self, flat: Dict[str, np.ndarray]) -> None:
         """Load a flat JAX-keyed train state: weights, BatchNorm
-        statistics, optimizer state and key."""
+        statistics, optimizer state and key (a step that owns its state:
+        ``load_state_leaves``)."""
+        if hasattr(self.step_fn, "load_state_leaves"):
+            self.step_fn.load_state_leaves(flat)
+            return
         from nezha_tpu_torch.models.convert import load_train_state
         self.step_fn.opt_state = load_train_state(
             flat, self.model, self.step_fn.opt_state)
@@ -286,9 +297,11 @@ class Trainer:
     def _restore_dense(self):
         from nezha_tpu_torch.models.convert import train_state_template
         from nezha_tpu_torch.train import checkpoint as ckpt
-        flat, step = ckpt.try_restore(
-            self.checkpoint_dir,
-            train_state_template(self.model, self.step_fn.opt_state))
+        template = (self.step_fn.state_template()
+                    if hasattr(self.step_fn, "state_template")
+                    else train_state_template(self.model,
+                                              self.step_fn.opt_state))
+        flat, step = ckpt.try_restore(self.checkpoint_dir, template)
         if flat is None:
             return None
         self.load_state_dict(flat)

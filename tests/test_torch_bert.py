@@ -334,7 +334,16 @@ def test_unported_knobs_raise(knob):
     (``tests/test_torch_gspmd.py`` runs it inside one); ``fused_loss_chunk``
     1 and 128 are ported: they build and train, the MLM loss of the
     chunked slices equal to the -1 path's (tests/test_torch_chunked_loss.py
-    holds them to JAX's); ``scan_layers`` stays refused."""
+    holds them to JAX's); ``scan_layers`` is ported: it builds, and its
+    MLM loss equals the unrolled encoder's bitwise
+    (tests/test_torch_scan.py holds it to JAX's)."""
+    if knob.get("scan_layers"):
+        batch = {k: torch.from_numpy(v) for k, v in _batch("none").items()}
+        got = [mlm_loss(Bert(BertConfig(**TINY_BERT_KW, **kw),
+                             device="cpu")(batch), batch)
+               for kw in (knob, {})]
+        assert torch.equal(got[0], got[1])
+        return
     if "fused_loss_chunk" in knob:
         batch = {k: torch.from_numpy(v) for k, v in _batch("none").items()}
         got = []

@@ -205,12 +205,16 @@ def test_export_matches_jax_export(tmp_path, config, layout):
 
 
 def test_export_refuses_a_scan_trunk(tmp_path):
+    """A ``--scan-layers`` trunk is read now (sliced into the unrolled
+    layers; tests/test_torch_graph_cli.py exports a whole one); a
+    checkpoint that holds only part of one is refused, naming the leaf it
+    lacks."""
     from nezha_tpu_torch.train import checkpoint as ckpt
 
     ckpt.save_checkpoint(str(tmp_path), {
         "variables/params/h_scan/ln_1/scale": np.zeros((4, 64),
                                                        np.float32)}, 1)
-    with pytest.raises(SystemExit, match="A7"):
+    with pytest.raises(KeyError, match="missing leaf"):
         export_cli.main(["--config", "gpt2_124m", "--ckpt-dir",
                          str(tmp_path), "--model-preset", "tiny", "--out",
                          str(tmp_path / "x"), "--device", "cpu"])

@@ -311,20 +311,67 @@ def test_trainer_rejoin_saves_first_then_reloads_bitwise(tmp_path):
         assert torch.equal(a, b), n
 
 
-def test_trainer_rejoin_restarts_the_rate_window(tmp_path):
+class _StepClock:
+    """The clock ``StepTimer`` reads: one second a step (advanced as the
+    loop draws each batch) and ``HealingPeers.wait_s`` seconds for the
+    heal, so a logged rate depends on the steps a window holds and not
+    on how busy the host is."""
+
+    def __init__(self):
+        self.now = 100.0
+        self.heal_end = None
+
+    def perf_counter(self):
+        return self.now
+
+    def ticking(self, batches):
+        for b in batches:
+            self.now += 1.0
+            yield b
+
+
+def test_trainer_rejoin_restarts_the_rate_window(tmp_path, monkeypatch):
     """The heal wait is not in any logged rate: the step at the heal is
-    not logged, and the next window counts only the steps after it."""
+    not logged, and the window logged next opens after the wait and
+    counts only the steps after the heal."""
+    import types
+
+    from nezha_tpu_torch.obs import metrics as obs_metrics
+
+    clock = _StepClock()
+    monkeypatch.setattr(obs_metrics, "time",
+                        types.SimpleNamespace(perf_counter=clock.perf_counter))
+
+    class ClockedPeers(HealingPeers):
+        def failed_ranks(self):
+            first = self.first is None
+            failed = super().failed_ranks()
+            if failed and first:   # the wait for the replacement
+                clock.now += self.wait_s
+                clock.heal_end = clock.now
+            return failed
+
     ck = tmp_path / "ck"
-    peers = HealingPeers(ck, die_after=3, wait_s=3.0)
+    peers = ClockedPeers(ck, die_after=3, wait_s=3.0)
     logged = []
     trainer, cfg = _mlp_trainer(ck, peers, failure_mode="rejoin",
                                 log_every=2,
                                 metric_logger=lambda s, m: logged.append(m))
-    trainer.fit(cfg.batches(8), 6)
+    opened = []
+    start = trainer._timer.start
+
+    def start_window():
+        start()
+        opened.append(clock.now)
+
+    trainer._timer.start = start_window
+    trainer.fit(clock.ticking(cfg.batches(8)), 6)
     assert [m["step"] for m in logged] == [2, 6]
-    # Counted from step 2, four steps and the 3 s wait would log under
-    # 4 / 3 steps/s; from the heal, two steps log more.
-    assert logged[-1]["steps_per_sec"] > 4.0 / 3.0
+    # The window logged at step 6 opened when the heal had ended; its two
+    # steps (5 and 6) took two seconds. Counted from step 2 it would hold
+    # four steps and the wait: 4 / 7 steps/s.
+    assert opened[-1] == clock.heal_end
+    assert logged[-1]["steps_per_sec"] == 1.0
     assert trainer.rejoins[0]["wait_s"] >= 3.0
 
 

@@ -659,14 +659,15 @@ def test_cli_trains_image_configs_tiny_on_cpu(config):
 
 
 # Per config, a flag that the port's train CLI still refuses, and a
-# model knob that the port still refuses typed.
+# trainer option that the port still refuses typed.
 STILL_REFUSED = {
     "bert_base_zero1": (
         ["--mlm-mask-token", "103"],
-        lambda: Bert(BertConfig(**TINY_BERT_KW, scan_layers=True),
-                     device="cpu")),
+        lambda: Trainer(Bert(BertConfig(**TINY_BERT_KW), device="cpu"),
+                        optim.sgd(0.1), lambda out, b: out.sum(),
+                        save_fn=lambda *a: None)),
     "wrn101_large_batch": (
-        ["--engine", "graph"],
+        ["--platform", "cpu"],
         lambda: Trainer(ResNet((1, 1), width_factor=2, device="cpu"),
                         optim.momentum(0.1), lambda out, b: out.sum(),
                         shard_fn=lambda b: b))}
@@ -677,10 +678,11 @@ def test_cli_refuses_unported_configs_typed(config):
     """Both configs train now, dp and ZeRO-1 included (BERT also
     tensor-parallel); what each still lacks is refused: pipeline
     parallelism (``--parallel pp``: no pipeline spec, JAX's message),
-    tensor parallelism for WRN (no rule table, JAX's message), the graph
-    engine (``--engine``), the MLM mask-token flag without
-    ``--data-dir``, and BERT's scanned trunk and the trainer's custom
-    sharding (``NotPortedError``)."""
+    tensor parallelism for WRN (no rule table, JAX's message), the
+    ``--platform`` flag, the MLM mask-token flag without ``--data-dir``,
+    and the trainer's custom save and sharding functions
+    (``NotPortedError``). The graph engine and BERT's scanned trunk are
+    ported (tests/test_torch_graph_cli.py, tests/test_torch_scan.py)."""
     from nezha_tpu_torch.cli.train import main, parse_args
 
     flag, knob = STILL_REFUSED[config]

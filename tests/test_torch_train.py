@@ -321,7 +321,14 @@ def test_cli_refuses_unported_flags_and_configs():
     from nezha_tpu_torch.cli.train import main, parse_args
 
     assert parse_args(["--config", "gpt2_124m"]).device == "cuda"
-    for argv in (["--engine=graph"], ["--graph-bf16"], ["--scan-layers"],
+    # --engine graph and --scan-layers parse; what they refuse beside
+    # them is refused (tests/test_torch_graph_cli.py holds JAX's words).
+    assert parse_args(["--config", "gpt2_124m", "--engine=graph"]
+                      ).engine == "graph"
+    assert parse_args(["--config", "gpt2_124m", "--scan-layers"]
+                      ).scan_layers
+    for argv in (["--engine=graph", "--remat"], ["--graph-bf16"],
+                 ["--scan-layers", "--parallel", "pp"], ["--platform=cpu"],
                  ["--no-jax-distributed"], ["--world-size", "0"],
                  ["--serve-coordinator"]):
         with pytest.raises(SystemExit):
@@ -377,8 +384,10 @@ def test_unported_model_knobs_raise(knob):
     raises JAX's ValueError outside a tensor-parallel scope
     (``tests/test_torch_gspmd.py`` runs it inside one); ``moe_experts``
     and ``remat`` are ported: they build and train (their parity with
-    JAX: tests/test_torch_moe.py, tests/test_torch_remat.py), and
-    ``scan_layers`` beside them is still refused; ``attn_impl`` ring and
+    JAX: tests/test_torch_moe.py, tests/test_torch_remat.py);
+    ``scan_layers`` is ported: it builds, trains bitwise as the unrolled
+    trunk (tests/test_torch_scan.py), composes with ``remat`` and refuses
+    ``moe_experts`` with JAX's ValueError; ``attn_impl`` ring and
     ulysses build, train under the sequence-parallel step and refuse a
     plain forward (tests/test_torch_sequence_parallel.py);
     ``fused_loss_chunk`` 1 and 128 build and train
@@ -403,16 +412,23 @@ def test_unported_model_knobs_raise(knob):
         loss.backward()
         assert torch.isfinite(loss)
         return
-    if "moe_experts" in knob or "remat" in knob:
+    if "moe_experts" in knob or "remat" in knob or "scan_layers" in knob:
         model = GPT2(GPT2Config(**TINY_GPT2_KW, **knob), device="cpu")
         model.train()
         batch = {"tokens": torch.randint(0, 512, (2, 9))}
         loss = lm_loss(model(batch), batch)
         loss.backward()
         assert torch.isfinite(loss)
-        with pytest.raises(NotPortedError):
-            GPT2(GPT2Config(**TINY_GPT2_KW, **knob, scan_layers=True),
-                 device="cpu")
+        if "moe_experts" in knob:
+            with pytest.raises(ValueError, match="homogeneous blocks") as e:
+                GPT2(GPT2Config(**TINY_GPT2_KW, **knob, scan_layers=True),
+                     device="cpu")
+            assert not isinstance(e.value, NotPortedError)
+        elif "remat" in knob:
+            scan = GPT2(GPT2Config(**TINY_GPT2_KW, **knob, scan_layers=True),
+                        device="cpu")
+            scan.train()
+            assert torch.equal(lm_loss(scan(batch), batch), loss)
         return
     if knob.get("attn_impl") == "flash_shmap":
         model = GPT2(GPT2Config(**TINY_GPT2_KW, **knob), device="cpu")

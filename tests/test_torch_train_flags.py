@@ -43,7 +43,10 @@ def _port_train(argv):
 
 def test_ported_flags_parse_with_jax_defaults():
     assert not set(PORTED) & train_cli.NOT_PORTED_FLAGS
-    assert {"--engine", "--scan-layers"} <= train_cli.NOT_PORTED_FLAGS
+    # The graph engine and the scan trunk are ported; --platform is not.
+    assert not {"--engine", "--scan-layers",
+                "--graph-bf16"} & train_cli.NOT_PORTED_FLAGS
+    assert "--platform" in train_cli.NOT_PORTED_FLAGS
     assert not {"--remat", "--microbatches",
                 "--moe-experts"} & train_cli.NOT_PORTED_FLAGS
     assert "--rejoin-timeout" not in train_cli.NOT_PORTED_FLAGS
@@ -53,7 +56,8 @@ def test_ported_flags_parse_with_jax_defaults():
     for name in ("prefetch", "grad_accum", "optimizer", "lr", "log_every",
                  "metrics_file", "log_memory", "profile_dir",
                  "profile_steps", "trace_dir", "run_dir", "microbatches",
-                 "moe_experts", "remat"):
+                 "moe_experts", "remat", "engine", "graph_bf16",
+                 "scan_layers"):
         assert getattr(mine, name) == getattr(theirs, name), name
     assert train_cli.parse_args(["--config", "mlp_mnist", "--trace-dir",
                                  "/t"]).profile_dir == "/t"

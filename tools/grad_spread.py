@@ -24,7 +24,13 @@ the composed path attends one key past each length). ``--sp ring|ulysses`` (GPT-
 attention) against the one-device flash step from the same weights and
 batch, what ``chip_smoke.py``'s SP_GRAD_RTOL is set from; on the first
 seed the control ``block_lse`` (ring only): each hop's backward reads
-its own block's lse and output in place of the global ones. Prints per
+its own block's lse and output in place of the global ones. ``--graph``
+(GPT-2): the graph engine's bf16 program (``--graph-bf16``: its loss
+graph's gradients through ``torch.autograd.grad``) against the module
+engine's flash step from the same weights and batch, what
+``chip_smoke.py``'s GRAPH_GRAD_RTOL and GRAPH_LOSS_ATOL are set from; on
+the first seed the control ``fp32_program``: the fp32 program against
+the same bf16 module step. Prints per
 run the loss difference and, over the parameters, the largest ``|g -
 g_ref| / |g_ref|`` (norms), then the largest over the seeds. Needs the
 card; imports nothing of JAX.
@@ -130,6 +136,35 @@ def sp_seed(seed: int, impl: str, flash, control: bool) -> list:
     return rows
 
 
+def graph_seed(seed: int, control: bool) -> list:
+    """The graph engine's bf16 GPT-2 program against the module engine's
+    step (the config's first-step schedule), from the same weights and
+    batch; with ``control`` also the fp32 program."""
+    from chip_smoke import graph_grads, module_grads
+    from nezha_tpu_torch.cli.train import GPT2_SCHEDULE
+    from nezha_tpu_torch.graph import programs
+    from nezha_tpu_torch.models.convert import _to_jax_path
+
+    raw = next(synthetic_token_batches(TRAIN_B, seq_len=TRAIN_S,
+                                       seed=seed))
+    feed = programs.lm_shard_fn()(raw)
+    model = gpt2_for_preset("full", seed=seed, device="cuda",
+                            fused_loss_chunk=-1)
+    params = programs.init_graph_gpt2_state(model)["params"]
+    loss_m, grads_m, _ = module_grads(model, raw, GPT2_SCHEDULE(3))
+    ref = (loss_m, {_to_jax_path(n): g for n, g in grads_m.items()})
+    rows = []
+    for tag, dtype in (("bf16", "bfloat16"),) + (
+            (("fp32_program", "float32"),) if control else ()):
+        row = {"seed": seed, "graph": dtype,
+               **compare(graph_grads(model.cfg, params, feed, dtype), ref)}
+        if tag != "bf16":
+            row["control"] = tag
+        rows.append(row)
+        torch.cuda.empty_cache()
+    return rows
+
+
 def bert_pair(seed: int):
     """BERT-base as chip_smoke's train_bert builds it, seeded with
     ``seed``, flash and composed, the same weights."""
@@ -191,6 +226,9 @@ def main() -> int:
     p.add_argument("--sp", choices=["ring", "ulysses"], default=None,
                    help="gpt2_124m: the sp step against one device")
     p.add_argument("--sp-flash", choices=["auto", "off"], default="auto")
+    p.add_argument("--graph", action="store_true",
+                   help="gpt2_124m: the graph engine's bf16 program "
+                        "against the module engine")
     args = p.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("needs a CUDA card")
@@ -203,6 +241,8 @@ def main() -> int:
     for i, seed in enumerate(args.seeds):
         if args.config == "bert_base_zero1":
             new = bert_seed(seed, controls=i == 0)
+        elif args.graph:
+            new = graph_seed(seed, control=i == 0)
         elif args.sp:
             new = sp_seed(seed, args.sp, {"auto": None,
                                           "off": False}[args.sp_flash],
@@ -216,6 +256,7 @@ def main() -> int:
         torch.cuda.empty_cache()
     runs = [r for r in rows if "control" not in r]
     print(json.dumps({"config": args.config, "sp": args.sp,
+                      "graph": args.graph,
                       "sp_flash": args.sp_flash, "seeds": len(args.seeds),
                       "max_grad_rel_err": max(r["max_grad_rel_err"]
                                               for r in runs),
